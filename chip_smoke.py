@@ -1,0 +1,378 @@
+#!/usr/bin/env python3
+"""On-card smoke run of the PyTorch/CUDA port (diffnorm_tpu_torch) on one GPU.
+
+  python3 chip_smoke.py
+
+Phases, each printing one line with its time; any failure exits non-zero and
+prints no result:
+
+1. build: compile every kernel of the DDIM path from csrc/ with nvcc (one
+   process per source, in parallel) and print the card's name and power limit.
+2. kernels: each kernel's wrapper on the card at the path's shapes against its
+   plain PyTorch version on the same bf16 inputs, with its median time, its
+   bound on the card and the plain version's time.
+3. main path: ddim_sample at the released bf16 diff_discrete width (hidden
+   512, latent 128, 768-d features, 12 + 4x8 denoiser, T=200, start step 50 =
+   49 DDIM steps) from a seeded random init at B64 x T128, through the
+   kernels, with the launch counts it implies; then the same run through the
+   plain versions on the card as the reference.
+4. entry point: the weights written with weights.save_npz and the CLI run on
+   8 synthetic utterances.
+
+Then one JSON line of per-kernel numbers and, last, {"ok": true, "device": ...}.
+Exits non-zero without CUDA, and in a directory without the port.
+"""
+
+from __future__ import annotations
+
+import contextlib
+import json
+import statistics
+import subprocess
+import sys
+import tempfile
+import time
+from pathlib import Path
+
+HBM_BYTES_PER_S = 3.35e12    # H100 SXM
+BF16_FLOP_PER_S = 989e12     # dense bf16 tensor cores
+F32_FLOP_PER_S = 67e12       # f32 outside the tensor cores
+B, T, START_STEP = 64, 128, 50
+SECONDS_PER_UNIT = 0.02      # 50 Hz units
+
+# rms_norm_film: kernel and plain version do the same f32 math on the same
+# bf16 inputs and round once, so they may differ by one bf16 ulp (rsqrt and
+# summation order), plus the f32 rounding of a cancelling sum (see
+# check_rms_norm_film). wavenet_chain: sums of up to 13 * C products in another
+# order, rounded to bf16 after every stack; per-row direction and the worst
+# error against the output's scale.
+CHAIN_ROW_COS, CHAIN_REL_ERR = 0.999, 2e-2
+# the full 49-step path, kernels against plain versions: bf16 rounding
+# differences compound over the steps
+PATH_ROW_COS = 0.99
+
+
+def fail(msg: str) -> None:
+    print(f"FAILED: {msg}", file=sys.stderr)
+    raise SystemExit(1)
+
+
+def cuda_time_ms(fn, iters: int = 20, reps: int = 5) -> float:
+    """Device time per call: `iters` calls captured in a CUDA graph, replayed
+    `reps` times between CUDA events; the median per-call time. A graph
+    keeps Python's launch overhead (tens of us per wrapper call) out of a
+    kernel's time. Inputs stay hot in L2 across calls, as they are on the
+    DDIM path, where the previous op has just written them."""
+    import torch
+
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()  # warm-up outside the capture
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(iters):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    samples = []
+    for _ in range(reps):
+        start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        start.record()
+        graph.replay()
+        end.record()
+        end.synchronize()
+        samples.append(start.elapsed_time(end) / iters)
+    return statistics.median(samples)
+
+
+def bound(nbytes: float, flops: float, peak_flops: float):
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / peak_flops
+    return (1e3 * max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations")
+
+
+def check_rms_norm_film(torch, norm):
+    g = torch.Generator(device="cuda").manual_seed(10)
+    x = torch.randn(B, T, 512, generator=g, device="cuda").to(torch.bfloat16)
+    film = torch.randn(B, 1024, generator=g, device="cuda").to(torch.bfloat16)
+    got = norm.rms_norm_film(x, film).float()
+    ref = norm.rms_norm_film_plain(x, film).float()  # f32 math, rounded to bf16
+    ulp = torch.ldexp(torch.ones_like(ref), torch.frexp(ref).exponent - 8)
+    # where y * gamma + beta cancels, the kernel's fused multiply-add and
+    # PyTorch's two roundings differ by an f32 rounding of the summands,
+    # which can exceed a bf16 ulp of the near-zero result: allow 4 f32 ulps
+    # of |y * gamma| + |beta| on top
+    xf = x.float()
+    y = xf * torch.rsqrt(xf.square().sum(-1, keepdim=True).clamp(min=1e-24)) * 512 ** 0.5
+    gamma, beta = film.float()[:, None, :].chunk(2, dim=-1)
+    tol = ulp + ((y * gamma).abs() + beta.abs()) * 2.0 ** -21
+    err = (got - ref).abs()
+    if not torch.isfinite(got).all() or (err > tol).any():
+        fail(f"rms_norm_film: {(err > tol).sum().item()} elements beyond tolerance, "
+             f"max err {err.max().item():.3e}")
+    ms = cuda_time_ms(lambda: norm.rms_norm_film(x, film))
+    plain_ms = cuda_time_ms(lambda: norm.rms_norm_film_plain(x, film))
+    nbytes = 2 * x.numel() * 2 + film.numel() * 2
+    bound_ms, bound_by = bound(nbytes, 5.0 * x.numel(), F32_FLOP_PER_S)
+    print(f"kernel rms_norm_film [{B},{T},512] bf16: {ms:.4f} ms, plain {plain_ms:.4f} ms, "
+          f"bound {bound_ms:.4f} ms ({bound_by}), max_abs_err {err.max().item():.3e}, "
+          f"{(err > ulp).sum().item()} of {err.numel()} elements beyond 1 bf16 ulp "
+          f"(all within 1 ulp + 4 f32 ulps of the summands)")
+    return dict(max_abs_err=err.max().item(), ms=ms, plain_ms=plain_ms,
+                bound_ms=bound_ms, bound_by=bound_by)
+
+
+def chain_inputs(torch, c, s, k, seed):
+    g = torch.Generator(device="cuda").manual_seed(seed)
+
+    def rnd(*shape, scale=1.0):
+        return torch.randn(*shape, generator=g, device="cuda") * scale
+
+    bf = torch.bfloat16
+    return dict(
+        x=rnd(B, T, c).to(bf),
+        w_conv=rnd(s, k, c, c, scale=(k * c) ** -0.5).to(bf),
+        w_res=rnd(s, c, c, scale=c ** -0.5).to(bf),
+        w_skip=rnd(c, c, scale=c ** -0.5).to(bf),
+        b_res=rnd(s, c, scale=0.3).to(bf),
+        b_skip=rnd(c, scale=0.3).to(bf),
+        gamma=1.0 + rnd(B, s, c, scale=0.5),
+        beta=rnd(B, s, c, scale=0.3),
+    )
+
+
+def chain_work(c, s, k, dilation, inputs):
+    """Bytes the call must move and the operations this shape needs (a tap
+    whose shift reaches T multiplies nothing but zeros)."""
+    live_rows = sum(max(T - (k - 1 - i) * dilation, 0) for i in range(k))
+    flops = 2.0 * B * c * c * (s * (live_rows + T) + T)
+    nbytes = sum(t.numel() * t.element_size() for t in inputs.values()) + B * T * c * 2
+    return nbytes, flops
+
+
+def check_wavenet_chain(torch, chain):
+    cases = [("denoiser", 512, 4, d) for d in (1, 2, 4, 8, 16, 32, 64, 128)]
+    cases += [("vae encoder", 256, 2, 4), ("vae decoder", 768, 2, 1)]
+    denoiser = dict(ms=0.0, plain_ms=0.0, bound_ms=0.0, max_abs_err=0.0)
+    bound_by = None
+    for n, (what, c, s, d) in enumerate(cases):
+        inp = chain_inputs(torch, c, s, 3, seed=20 + n)
+        got = chain.wavenet_chain(**inp, dilation=d).float()
+        ref = chain.wavenet_chain_plain(**inp, dilation=d).float()
+        torch.cuda.synchronize()
+        cos = torch.nn.functional.cosine_similarity(
+            got.reshape(-1, c), ref.reshape(-1, c), dim=-1).min().item()
+        err = (got - ref).abs().max().item()
+        rel = err / ref.abs().max().item()
+        if not torch.isfinite(got).all() or cos <= CHAIN_ROW_COS or rel >= CHAIN_REL_ERR:
+            fail(f"wavenet_chain {what} C={c} d={d}: row-cos {cos:.6f}, "
+                 f"max-abs/scale {rel:.3e}")
+        ms = cuda_time_ms(lambda: chain.wavenet_chain(**inp, dilation=d))
+        plain_ms = cuda_time_ms(lambda: chain.wavenet_chain_plain(**inp, dilation=d),
+                                iters=3, reps=3)
+        nbytes, flops = chain_work(c, s, 3, d, inp)
+        bound_ms, by = bound(nbytes, flops, BF16_FLOP_PER_S)
+        print(f"kernel wavenet_chain {what} [{B},{T},{c}] S={s} d={d}: {ms:.4f} ms, "
+              f"plain {plain_ms:.4f} ms, bound {bound_ms:.4f} ms ({by}), "
+              f"{flops / ms / 1e9:.1f} TFLOP/s, row-cos {cos:.6f}, "
+              f"max-abs/scale {rel:.2e}")
+        if what == "denoiser":
+            for key, val in (("ms", ms), ("plain_ms", plain_ms), ("bound_ms", bound_ms)):
+                denoiser[key] += val / 8
+            denoiser["max_abs_err"] = max(denoiser["max_abs_err"], err)
+            bound_by = by
+    print(f"kernel wavenet_chain: one denoiser step's 8 chains {8 * denoiser['ms']:.4f} ms, "
+          f"bound {8 * denoiser['bound_ms']:.4f} ms")
+    return dict(denoiser, bound_by=bound_by)
+
+
+@contextlib.contextmanager
+def plain_versions(norm, chain):
+    """Route the models through the plain versions (the on-card reference)."""
+    saved = norm.rms_norm_film, chain.wavenet_chain
+    norm.rms_norm_film, chain.wavenet_chain = norm.rms_norm_film_plain, chain.wavenet_chain_plain
+    try:
+        yield
+    finally:
+        norm.rms_norm_film, chain.wavenet_chain = saved
+
+
+def run_main_path(torch, model, ddim_sample, inputs):
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    units, recon = ddim_sample(model, inputs["feature"], inputs["mask"],
+                               start_step=START_STEP, enc_noise=inputs["enc"],
+                               init_noise=inputs["init"], device="cuda")
+    torch.cuda.synchronize()
+    return units, recon, time.perf_counter() - t0
+
+
+def profile_main_path(torch, model, ddim_sample, inputs, wall):
+    """Device time by kernel over one more main-path run (torch.profiler):
+    the busy share of the unprofiled wall time and the largest kernels."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        run_main_path(torch, model, ddim_sample, inputs)
+    kernels = [e for e in prof.key_averages()
+               if e.device_type == torch.autograd.DeviceType.CUDA]
+    busy_ms = sum(e.self_device_time_total for e in kernels) / 1e3
+    if busy_ms == 0:
+        print("profile: the profiler saw no device time (not measured)")
+        return
+    print(f"profile: device busy {busy_ms:.1f} ms = {100 * busy_ms / 1e3 / wall:.1f}% "
+          f"of the {wall:.3f} s wall; top kernels by device time:")
+    for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:10]:
+        print(f"profile:   {e.self_device_time_total / 1e3:9.2f} ms {e.count:6d}x  "
+              f"{e.key[:90]}")
+
+
+def run_cli(torch, model, smi):
+    import numpy as np
+
+    from diffnorm_tpu_torch.cli import diff_norm_synthesis
+    from diffnorm_tpu_torch.data.manifest import write_translation_manifest
+    from diffnorm_tpu_torch.weights import save_npz, to_jax_params
+
+    rng = np.random.default_rng(3)
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = Path(tmp)
+        save_npz(str(tmp / "params.npz"), to_jax_params(model))
+        (tmp / "feat").mkdir()
+        rows, lines = [], [str(tmp / "feat")]
+        for i in range(8):
+            n = int(rng.integers(40, 129))
+            units = np.repeat(rng.integers(0, 1000, size=n), rng.integers(1, 3, size=n))
+            np.save(tmp / "feat" / f"utt{i}.feat.npy",
+                    rng.normal(size=(len(units), 768)).astype(np.float32))
+            lines.append(f"utt{i}.feat.npy\t{len(units)}")
+            rows.append({"id": f"utt{i}", "src_audio": f"utt{i}.wav",
+                         "src_n_frames": len(units),
+                         "tgt_audio": " ".join(map(str, units)),
+                         "tgt_n_frames": len(units)})
+        (tmp / "feat" / "test.manifest.tsv").write_text("\n".join(lines) + "\n")
+        write_translation_manifest(str(tmp / "test.tsv"), rows)
+        t0 = time.perf_counter()
+        rc = diff_norm_synthesis.main([
+            str(tmp), "--params-npz", str(tmp / "params.npz"),
+            "--tgt-feat-dir", str(tmp / "feat"), "--output-dir", str(tmp / "out"),
+            "--splits", "test", "--batch-size", "4", "--seed", "1"])
+        dt = time.perf_counter() - t0
+        if rc != 0:
+            fail(f"diff_norm_synthesis returned {rc}")
+        out = (tmp / "out" / "test.tsv").read_text().splitlines()[1:]
+        ids = {line.split("\t")[0] for line in out}
+        if ids != {r["id"] for r in rows}:
+            fail(f"CLI manifest ids {sorted(ids)}")
+        for line in out:
+            [int(u) for u in line.split("\t")[3].split()]
+    print(f"phase entry point: {dt:.2f} s for the CLI on 8 utterances "
+          f"(weights via save_npz, batch 4), manifest has every id; {smi}")
+
+
+def main() -> int:
+    try:
+        import torch
+    except ImportError:
+        fail("torch is not installed")
+    if not torch.cuda.is_available():
+        fail("torch.cuda.is_available() is False: this run needs an NVIDIA GPU")
+    repo = Path(__file__).resolve().parent
+    if not (repo / "diffnorm_tpu_torch" / "csrc").is_dir():
+        fail(f"no diffnorm_tpu_torch package beside {Path(__file__).name}")
+    sys.path.insert(0, str(repo))
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+
+    from diffnorm_tpu_torch.models.diffusion import LatentDiffusionModule, ddim_sample
+    from diffnorm_tpu_torch.ops import _build
+    from diffnorm_tpu_torch.ops import norm
+    from diffnorm_tpu_torch.ops import wavenet_chain as chain
+
+    # 1. build
+    t0 = time.perf_counter()
+    logs = _build.build(_build.KERNELS)
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60).stdout.strip().splitlines()[0]
+    for name, log in logs.items():
+        for line in log.splitlines():
+            if "registers" in line or "spill" in line:
+                print(f"ptxas {name}: {line.strip()}")
+    print(f"phase build: {time.perf_counter() - t0:.1f} s, nvcc for {sorted(logs)} "
+          f"(sm_90a), torch {torch.__version__} CUDA {torch.version.cuda}")
+    print(smi)
+
+    # 2. kernels against their plain versions
+    t0 = time.perf_counter()
+    results = {"rms_norm_film": check_rms_norm_film(torch, norm),
+               "wavenet_chain": check_wavenet_chain(torch, chain)}
+    print(f"phase kernels: {time.perf_counter() - t0:.1f} s, every kernel within "
+          f"tolerance of its plain version; {smi}")
+
+    # 3. the main path at full width
+    t0 = time.perf_counter()
+    torch.manual_seed(0)
+    with torch.device("cuda"):
+        model = LatentDiffusionModule()
+    model = model.to(torch.bfloat16).eval()
+    g = torch.Generator(device="cuda").manual_seed(1)
+    inputs = dict(
+        feature=torch.randn(B, T, 768, generator=g, device="cuda"),
+        mask=torch.ones(B, T, dtype=torch.bool, device="cuda"),
+        enc=torch.randn(B, T, 128, generator=g, device="cuda"),
+        init=torch.randn(B, T, 128, generator=g, device="cuda"))
+    ddim_sample(model, inputs["feature"], inputs["mask"], start_step=START_STEP,
+                stride=START_STEP, enc_noise=inputs["enc"], init_noise=inputs["init"],
+                device="cuda")  # warm-up: one denoiser call
+    torch.cuda.reset_peak_memory_stats()
+    _build.launch_counts.clear()
+    units, recon, wall = run_main_path(torch, model, ddim_sample, inputs)
+    launches = dict(_build.launch_counts)
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    steps = START_STEP - 1
+    want = {"rms_norm_film": 24 * steps, "wavenet_chain": 8 * steps + 6}
+    for name, n in want.items():
+        if launches.get(name, 0) < n:
+            fail(f"main path launched {name} {launches.get(name, 0)} times, expected >= {n}")
+    if units.shape != (B, T) or units.min() < -4 or units.max() >= 1000:
+        fail(f"units out of range: shape {tuple(units.shape)}, "
+             f"[{units.min().item()}, {units.max().item()}]")
+    if recon.shape != (B, T, 768) or not torch.isfinite(recon).all():
+        fail("recon_feature is not finite [B, T, 768]")
+    with plain_versions(norm, chain):
+        units_ref, recon_ref, wall_ref = run_main_path(torch, model, ddim_sample, inputs)
+    cos = torch.nn.functional.cosine_similarity(
+        recon.float().reshape(-1, 768), recon_ref.float().reshape(-1, 768), dim=-1)
+    agree = (units == units_ref).float().mean().item()
+    if cos.min().item() <= PATH_ROW_COS:
+        fail(f"main path recon_feature row-cos {cos.min().item():.5f} against the plain run")
+    rtf = B * T * SECONDS_PER_UNIT / wall
+    print(f"main path: B{B}xT{T}, {steps} DDIM steps, bf16: wall {wall:.4f} s, RTF {rtf:.2f}, "
+          f"launches {launches}, peak {peak_gb:.2f} GB; plain-version run {wall_ref:.4f} s; "
+          f"recon row-cos min {cos.min().item():.5f} mean {cos.mean().item():.5f}, "
+          f"unit agreement {agree:.4f}; {smi}")
+    profile_main_path(torch, model, ddim_sample, inputs, wall)
+    print(f"phase main path: {time.perf_counter() - t0:.1f} s")
+
+    # 4. the entry point
+    run_cli(torch, model, smi)
+
+    sources = {"rms_norm_film": "diffnorm_tpu/ops/pallas_norm.py:34",
+               "wavenet_chain": "diffnorm_tpu/ops/pallas_wavenet.py:66"}
+    kernels = [dict(name=name, route="cuda",
+                    source=f"diffnorm_tpu_torch/csrc/{name}.cu", replaces=sources[name],
+                    launches=launches[name], max_abs_err=r["max_abs_err"], ms=r["ms"],
+                    plain_ms=r["plain_ms"], bound_ms=r["bound_ms"],
+                    bound_by=r["bound_by"], library_ms=None)
+               for name, r in results.items()]
+    print(json.dumps({"kernels": kernels}))
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,162 @@
+"""DiffNorm normalization driver: rewrite unit manifests with
+diffusion-normalized units (PyTorch port of diffnorm_tpu/cli/diff_norm_synthesis.py).
+
+Joins the translation manifest with the per-utterance target feature dumps,
+re-derives the reduced-frame indices, runs `ddim_sample` (partial noise at
+--start-step of T=200), re-reduces the output units and writes `{split}.tsv`.
+Runs on the GPU in bf16 (the kernels' configuration) unless --cpu is given,
+which runs in float32.
+
+  python -m diffnorm_tpu_torch.cli.diff_norm_synthesis $DATA \\
+      --params-npz diffusion.npz --tgt-feat-dir feat/ \\
+      --output-dir diff_unit_vae_50 --start-step 50 --batch-size 100
+
+`--params-npz` is the JAX parameter tree in the flat format of
+`diffnorm_tpu_torch.weights.save_npz`.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import logging
+import os
+import sys
+import time
+from typing import List, Optional, Sequence, Tuple
+
+import numpy as np
+import torch
+
+from diffnorm_tpu_torch.data.batching import bucket_length
+from diffnorm_tpu_torch.data.manifest import (
+    read_feature_manifest,
+    read_translation_manifest,
+    write_translation_manifest,
+)
+from diffnorm_tpu_torch.device import resolve_device
+from diffnorm_tpu_torch.models.diffusion import LatentDiffusionModule, ddim_sample
+from diffnorm_tpu_torch.ops.unit_reduce import reduce_units
+from diffnorm_tpu_torch.weights import from_jax_params, load_npz
+
+logger = logging.getLogger("diffnorm_tpu_torch.diff_norm")
+
+
+def draw_noise(generator: torch.Generator, shape: Tuple[int, ...],
+               device: torch.device) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The VAE posterior eps and the start noise of one batch."""
+    enc = torch.randn(shape, generator=generator, device=device)
+    init = torch.randn(shape, generator=generator, device=device)
+    return enc, init
+
+
+def parse_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
+    p = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    p.add_argument("data", help="directory of the {split}.tsv translation manifests")
+    p.add_argument("--params-npz", required=True,
+                   help="diffusion weights (JAX parameter tree, weights.save_npz)")
+    p.add_argument("--tgt-feat-dir", required=True,
+                   help="directory of the {split}.manifest.tsv feature manifests")
+    p.add_argument("--output-dir", required=True)
+    p.add_argument("--start-step", type=int, default=50)
+    p.add_argument("--ddim-stride", type=int, default=1)
+    p.add_argument("--batch-size", type=int, default=100)
+    p.add_argument("--splits", default="test,dev,train")
+    p.add_argument("--seed", type=int, default=1)
+    p.add_argument("--cpu", action="store_true", help="run on the CPU in float32")
+    p.add_argument("--hidden-dim", type=int, default=512)
+    p.add_argument("--latent-dim", type=int, default=128)
+    p.add_argument("--feature-dim", type=int, default=768)
+    p.add_argument("--vocab-size", type=int, default=1004)
+    p.add_argument("--timesteps", type=int, default=200)
+    p.add_argument("--denoiser-depth", type=int, default=12)
+    p.add_argument("--wavenet-layers", type=int, default=8)
+    p.add_argument("--wavenet-stacks", type=int, default=4)
+    p.add_argument("--vae-decoder-depth", type=int, default=6)
+    p.add_argument("--vae-decoder-dim-head", type=int, default=96)
+    p.add_argument("--vae-decoder-heads", type=int, default=8)
+    p.add_argument("--chan-mults", type=json.loads, default=None,
+                   help='VAE channel multipliers as JSON, e.g. "[3]"')
+    return p.parse_args(argv)
+
+
+def build_model(args: argparse.Namespace, device: torch.device) -> LatentDiffusionModule:
+    with torch.device(device):
+        model = LatentDiffusionModule(
+            dim=args.hidden_dim, latent_dim=args.latent_dim,
+            feature_dim=args.feature_dim, vocab_size=args.vocab_size,
+            timesteps=args.timesteps, denoiser_depth=args.denoiser_depth,
+            wavenet_layers=args.wavenet_layers,
+            wavenet_stacks=args.wavenet_stacks,
+            vae_decoder_depth=args.vae_decoder_depth,
+            vae_decoder_dim_head=args.vae_decoder_dim_head,
+            vae_decoder_heads=args.vae_decoder_heads,
+            chan_mults=args.chan_mults)
+    from_jax_params(model, load_npz(args.params_npz))
+    dtype = torch.float32 if device.type == "cpu" else torch.bfloat16
+    return model.to(dtype).eval()
+
+
+def normalize_split(model, args, device, generator, split: str) -> None:
+    manifest_path = os.path.join(args.data, f"{split}.tsv")
+    if not os.path.exists(manifest_path):
+        logger.warning("skipping %s (no %s)", split, manifest_path)
+        return
+    rows = read_translation_manifest(manifest_path)
+    feats = read_feature_manifest(
+        os.path.join(args.tgt_feat_dir, f"{split}.manifest.tsv"))
+    items = []
+    for row in rows:
+        if row["id"] not in feats:
+            continue
+        full_units = np.asarray([int(u) for u in row["tgt_audio"].split()], np.int64)
+        dedup, _, keep = reduce_units(full_units)
+        items.append((row, feats[row["id"]][0], dedup, keep))
+    items.sort(key=lambda it: len(it[2]))  # by reduced length, then bucket
+
+    out_rows: List[dict] = []
+    n_match = n_total = 0
+    t0 = time.time()
+    for start in range(0, len(items), args.batch_size):
+        chunk = items[start:start + args.batch_size]
+        max_len = bucket_length(max(len(c[2]) for c in chunk))
+        feat = np.zeros((len(chunk), max_len, args.feature_dim), np.float32)
+        mask = np.zeros((len(chunk), max_len), bool)
+        for j, (_, fpath, dedup, keep) in enumerate(chunk):
+            feat[j, :len(dedup)] = np.load(fpath)[keep]
+            mask[j, :len(dedup)] = True
+        enc_noise, init_noise = draw_noise(
+            generator, (len(chunk), max_len, args.latent_dim), device)
+        units, _ = ddim_sample(
+            model, torch.from_numpy(feat).to(device), torch.from_numpy(mask).to(device),
+            start_step=args.start_step, stride=args.ddim_stride,
+            enc_noise=enc_noise, init_noise=init_noise, device=device)
+        units = units.cpu().numpy()
+        for j, (row, _, dedup, _) in enumerate(chunk):
+            pred = units[j, :len(dedup)]
+            n_match += int((pred == dedup).sum())
+            n_total += len(dedup)
+            norm_units, _, _ = reduce_units(pred)
+            out_rows.append(dict(row, tgt_audio=" ".join(str(int(u)) for u in norm_units),
+                                 tgt_n_frames=len(norm_units)))
+    logger.info("%s: normalized %d utts in %.1fs (unit acc vs orig %.3f)",
+                split, len(out_rows), time.time() - t0, n_match / max(n_total, 1))
+    write_translation_manifest(os.path.join(args.output_dir, f"{split}.tsv"), out_rows)
+
+
+def main(argv: Optional[Sequence[str]] = None) -> int:
+    logging.basicConfig(level=logging.INFO, force=True,
+                        format="%(asctime)s | %(levelname)s | %(message)s")
+    args = parse_args(argv)
+    device = resolve_device("cpu" if args.cpu else "cuda")
+    os.makedirs(args.output_dir, exist_ok=True)
+    model = build_model(args, device)
+    logger.info("loaded diffusion weights from %s (%s)", args.params_npz, device)
+    generator = torch.Generator(device=device).manual_seed(args.seed)
+    for split in args.splits.split(","):
+        normalize_split(model, args, device, generator, split)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,250 @@
+"""Latent DDPM "normalizer" over frozen speech-VAE latents, and DDIM sampling.
+
+Counterpart of diffnorm_tpu/models/diffusion.py for the DiffNorm
+normalization path: `DDPMSchedule`, the `Denoiser` (1x1 latent -> dim,
+FiLM-time WaveNet, sinusoidal positions, adaptive-RMSNorm transformer, proj
+back), `LatentDiffusionModule` and `ddim_sample`. The prompt-conditioned
+denoiser (`use_cond`, PerceiverResampler), the training forward and int8
+calibration are not ported yet.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import math
+from typing import Optional, Sequence, Union
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from diffnorm_tpu_torch.device import resolve_device
+from diffnorm_tpu_torch.models.layers import (
+    ConditionableTransformer,
+    Dense,
+    LearnedSinusoidalPosEmb,
+    sinusoidal_positions,
+)
+from diffnorm_tpu_torch.models.vae import SpeechVAEModule
+from diffnorm_tpu_torch.models.wavenet import Wavenet
+
+
+def cosine_betas(num_steps: int, max_beta: float = 0.999) -> np.ndarray:
+    """The cosine beta schedule (reference latent_module.py:1145-1223)."""
+    def alpha_bar(t):
+        return math.cos((t + 0.008) / 1.008 * math.pi / 2) ** 2
+
+    return np.array([min(1 - alpha_bar((i + 1) / num_steps) / alpha_bar(i / num_steps),
+                         max_beta) for i in range(num_steps)], dtype=np.float64)
+
+
+@dataclasses.dataclass(frozen=True)
+class DDPMSchedule:
+    """Cosine-schedule diffusion tables in float64 numpy; `table` gives one
+    as float32."""
+
+    betas: np.ndarray
+    alphas_cumprod: np.ndarray
+    alphas_cumprod_prev: np.ndarray
+    sqrt_alphas_cumprod: np.ndarray
+    sqrt_one_minus_alphas_cumprod: np.ndarray
+
+    @classmethod
+    def create(cls, timesteps: int) -> "DDPMSchedule":
+        betas = cosine_betas(timesteps)
+        ac = np.cumprod(1.0 - betas, axis=0)
+        return cls(
+            betas=betas,
+            alphas_cumprod=ac,
+            alphas_cumprod_prev=np.append(1.0, ac[:-1]),
+            sqrt_alphas_cumprod=np.sqrt(ac),
+            sqrt_one_minus_alphas_cumprod=np.sqrt(1.0 - ac),
+        )
+
+    def table(self, name: str, device) -> torch.Tensor:
+        return torch.as_tensor(getattr(self, name), dtype=torch.float32,
+                               device=device)
+
+
+def safe_div(num, den, eps: float = 1e-10):
+    return num / torch.clamp(den, min=eps)
+
+
+def _select(tree, i: int):
+    """Step i of a precomputed-conditioning tree whose leaves are [S, ...]."""
+    if isinstance(tree, torch.Tensor):
+        return tree[i]
+    if isinstance(tree, dict):
+        return {k: _select(v, i) for k, v in tree.items()}
+    return type(tree)(_select(v, i) for v in tree)
+
+
+def _split_steps(tree, steps: int):
+    """Reshape leaves [S * B, ...] -> [S, B, ...]."""
+    if isinstance(tree, torch.Tensor):
+        return tree.reshape((steps, -1) + tuple(tree.shape[1:]))
+    if isinstance(tree, dict):
+        return {k: _split_steps(v, steps) for k, v in tree.items()}
+    return type(tree)(_split_steps(v, steps) for v in tree)
+
+
+class Denoiser(nn.Module):
+    """1x1 latent -> dim, FiLM-time WaveNet (stacks x chains), sinusoidal
+    positions, adaptive-RMSNorm transformer with causal-conv FF, proj back."""
+
+    def __init__(self, dim: int = 512, latent_dim: int = 128, depth: int = 12,
+                 wavenet_layers: int = 8, wavenet_stacks: int = 4):
+        super().__init__()
+        self.dim = dim
+        dim_time = dim * 4  # the time condition (dim_cond_mult 4)
+        self.time_emb = LearnedSinusoidalPosEmb(dim)
+        self.time_proj = Dense(dim + 1, dim_time)
+        self.init_conv = Dense(latent_dim, dim)
+        self.wavenet = Wavenet(dim, dim, wavenet_stacks, wavenet_layers,
+                               cond_dim=dim_time)
+        self.transformer = ConditionableTransformer(
+            dim, depth, dim_head=64, heads=8, ff_mult=4, ff_causal_conv=True,
+            cond_dim=dim_time)
+        self.final_proj = Dense(dim, latent_dim)
+
+    def time_cond(self, times: torch.Tensor) -> torch.Tensor:
+        return F.silu(self.time_proj(self.time_emb(times)))
+
+    def precompute_step_conds(self, times_all: torch.Tensor) -> dict:
+        """times_all [S, B] -> every FiLM projection for every step, leaves
+        shaped [S, B, ...]: the projection weights are read once per
+        sampling call instead of once per step."""
+        steps = times_all.shape[0]
+        t = self.time_cond(times_all.reshape(-1))
+        return _split_steps({
+            "wavenet": self.wavenet.precompute_film(t),
+            "transformer": self.transformer.precompute_film(t),
+        }, steps)
+
+    def forward(self, x, times=None, mask=None, step_cond=None, pos=None):
+        """x [B, T, latent]; times [B]; mask [B, T] bool. `step_cond` is one
+        step of `precompute_step_conds`; `pos` the precomputed positions."""
+        if step_cond is not None:
+            t = None
+            wavenet_film = step_cond["wavenet"]
+            transformer_film = step_cond["transformer"]
+        else:
+            t = self.time_cond(times)
+            wavenet_film = transformer_film = None
+        h = self.wavenet(self.init_conv(x), t, film=wavenet_film)
+        if mask is None:
+            mask = torch.ones(h.shape[:2], dtype=torch.bool, device=h.device)
+        if pos is None:
+            pos = sinusoidal_positions(mask, self.dim)
+        h = h + pos.to(h.dtype)
+        h = self.transformer(h, cond=t, mask=mask, film=transformer_film)
+        return self.final_proj(h)
+
+
+class LatentDiffusionModule(nn.Module):
+    """Frozen speech VAE + latent denoiser (released `diff_discrete` shape by
+    default: hidden 512, latent 128, 768-d features, 1004-unit vocab, T=200
+    cosine schedule)."""
+
+    def __init__(self, dim: int = 512, latent_dim: int = 128,
+                 feature_dim: int = 768, vocab_size: int = 1004,
+                 timesteps: int = 200, denoiser_depth: int = 12, wavenet_layers: int = 8,
+                 wavenet_stacks: int = 4, vae_decoder_depth: int = 6,
+                 vae_decoder_dim_head: int = 96, vae_decoder_heads: int = 8,
+                 chan_mults: Optional[Sequence[int]] = None):
+        super().__init__()
+        self.vae = SpeechVAEModule(
+            feature_dim, latent_dim, vocab_size, vae_decoder_depth,
+            vae_decoder_dim_head, vae_decoder_heads, chan_mults)
+        self.denoiser = Denoiser(
+            dim, latent_dim, denoiser_depth, wavenet_layers=wavenet_layers,
+            wavenet_stacks=wavenet_stacks)
+        self.schedule = DDPMSchedule.create(timesteps)
+
+    def encode(self, feature, noise=None, generator=None):
+        return self.vae.encode(feature, noise=noise, generator=generator)
+
+    def decode(self, latent, mask):
+        return self.vae.decode(latent, mask)
+
+    def denoise(self, x_t, times, mask, step_cond=None, pos=None):
+        return self.denoiser(x_t, times, mask, step_cond=step_cond, pos=pos)
+
+    def precompute_step_conds(self, times_all):
+        return self.denoiser.precompute_step_conds(times_all)
+
+    def precompute_pos(self, mask):
+        """Loop-invariant sinusoidal positions for the denoiser."""
+        return sinusoidal_positions(mask, self.denoiser.dim)
+
+
+@torch.no_grad()
+def ddim_sample(model: LatentDiffusionModule, feature, mask, *,
+                start_step: int = 50, stride: int = 1, enc_noise=None,
+                init_noise=None, generator: Optional[torch.Generator] = None,
+                device: Union[str, torch.device] = "cuda"):
+    """Partial-noise DDIM normalization (eta = 0).
+
+    feature [B, T, feature_dim]; mask [B, T] bool, True = valid. Encodes,
+    noises the latent to `start_step`, denoises, decodes. With stride 1 the
+    times run start_step-1 .. 1 with alphas_cumprod_prev (the reference's
+    loop); with stride > 1 they run start_step, start_step-stride, ... with
+    the previous time clamped at 0 (see the JAX ddim_sample's docstring).
+    `enc_noise` / `init_noise` inject the VAE posterior eps and the start
+    noise; otherwise they are drawn from `generator`.
+
+    Runs on `device` (CUDA by default; raises when CUDA is absent), where
+    the model must already be. Returns (pred_units [B, T] int32 with the -4
+    dictionary offset applied, recon_feature [B, T, feature_dim]).
+    """
+    device = resolve_device(device)
+    param = next(model.parameters())
+    if param.device != device:
+        raise ValueError(f"ddim_sample: model is on {param.device}, not {device}")
+    feature = torch.as_tensor(feature, device=device)
+    mask = torch.as_tensor(mask, device=device, dtype=torch.bool)
+    sched = model.schedule
+    sac_tab = sched.table("sqrt_alphas_cumprod", device)
+    s1mac_tab = sched.table("sqrt_one_minus_alphas_cumprod", device)
+    ac_tab = sched.table("alphas_cumprod", device)
+    ac_prev_tab = sched.table("alphas_cumprod_prev", device)
+
+    def at(table, time):
+        # [1, 1, 1], not 0-d: a 0-d f32 tensor would not promote a bf16
+        # operand, and the JAX loop carries x in f32
+        return table[time].reshape(1, 1, 1)
+
+    z = model.encode(feature, noise=enc_noise, generator=generator)
+    b = z.shape[0]
+    if init_noise is None:
+        noise0 = torch.randn(z.shape, generator=generator, device=device,
+                             dtype=z.dtype)
+    else:
+        noise0 = torch.as_tensor(init_noise, device=device).to(z.dtype)
+    x = at(sac_tab, start_step) * z + at(s1mac_tab, start_step) * noise0
+
+    if stride > 1:
+        times = list(range(start_step, 0, -stride))
+        prev_times = [max(t - stride, 0) for t in times]
+    else:
+        times = list(range(start_step - 1, 0, -1))
+        prev_times = None
+    times_all = torch.tensor(times, dtype=torch.float32, device=device)
+    step_conds = model.precompute_step_conds(times_all[:, None].expand(-1, b))
+    pos = model.precompute_pos(mask)
+
+    for i, time in enumerate(times):
+        t = torch.full((b,), time, dtype=torch.int32, device=device)
+        noise = model.denoise(x, t, mask, step_cond=_select(step_conds, i),
+                              pos=pos)
+        sac_t, s1mac_t = at(sac_tab, time), at(s1mac_tab, time)
+        x1_hat = safe_div(x - s1mac_t * noise, sac_t)
+        pred_noise = safe_div(x - sac_t * x1_hat, s1mac_t)
+        ab_prev = (at(ac_tab, prev_times[i]) if stride > 1
+                   else at(ac_prev_tab, time))
+        x = x1_hat * torch.sqrt(ab_prev) + torch.sqrt(1.0 - ab_prev) * pred_noise
+
+    recon_feature, lm_logits = model.decode(x, mask)
+    pred_units = lm_logits.argmax(dim=-1).to(torch.int32) - 4
+    return pred_units, recon_feature

@@ -1,0 +1,263 @@
+"""Shared building blocks of the DDIM path (PyTorch, batch-first [B, T, C]).
+
+Counterpart of diffnorm_tpu/models/layers.py (reference latent_module.py).
+Submodule and parameter names follow the flax tree (`attn_norm_3`,
+`to_gamma_beta`, ...), with flax `kernel` as torch `weight`, so weights carry
+over by a mechanical path map (`diffnorm_tpu_torch/weights.py`). Every layer
+computes in the dtype of its weights, as the flax modules compute in `dtype`;
+initialisers follow flax's (lecun-normal kernels, zero biases).
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Optional
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from diffnorm_tpu_torch.ops import attention as attention_ops
+from diffnorm_tpu_torch.ops import norm as norm_ops
+
+
+def _lecun_normal_(weight: torch.Tensor, fan_in: int) -> torch.Tensor:
+    # flax lecun_normal: truncated normal at +-2 std, variance 1 / fan_in
+    std = (1.0 / fan_in) ** 0.5 / 0.87962566103423978
+    return nn.init.trunc_normal_(weight, std=std, a=-2 * std, b=2 * std)
+
+
+def l2norm(x: torch.Tensor, eps: float = 1e-12) -> torch.Tensor:
+    """x / max(||x||_2, eps) along the last axis; the square-sum in f32."""
+    sq = x.square().sum(-1, keepdim=True, dtype=torch.float32)
+    inv = 1.0 / torch.clamp(sq.sqrt(), min=eps)
+    return x * inv.to(x.dtype)
+
+
+class Dense(nn.Linear):
+    """flax nn.Dense (QDense without int8): the input is cast to the weight's
+    dtype. `weight` is [out, in], the transpose of the flax kernel."""
+
+    def reset_parameters(self) -> None:
+        _lecun_normal_(self.weight, self.in_features)
+        if self.bias is not None:
+            nn.init.zeros_(self.bias)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return F.linear(x.to(self.weight.dtype), self.weight, self.bias)
+
+
+def causal_taps(x: torch.Tensor, taps: torch.Tensor, dilation: int) -> torch.Tensor:
+    """The bias-free causal conv of x [B, T, in] with one contiguous [out, in]
+    matrix per tap (taps [k, out, in]): tap i reads x[t - (k-1-i) * dilation].
+    Each tap is one matmul in x.dtype and the taps sum in that dtype, as the
+    JAX module does. Contiguous taps matter: a strided weight[:, :, i] sends
+    cuBLAS to an unaligned kernel several times slower."""
+    k, t_len = taps.shape[0], x.shape[1]
+    out = None
+    for i in range(k):
+        shift = (k - 1 - i) * dilation
+        if shift >= t_len and shift > 0:
+            continue  # the whole tap falls before the sequence
+        xi = x if shift == 0 else F.pad(x[:, :-shift], (0, 0, shift, 0))
+        term = F.linear(xi, taps[i])
+        out = term if out is None else out + term
+    return out
+
+
+class CausalConv1d(nn.Module):
+    """Left-padded dilated conv over [B, T, C] (pad = dilation * (k - 1)).
+
+    `weight` is torch's conv layout [out, in, k]: weight[:, :, i] is the flax
+    kernel[i] transposed, with no flip (see `causal_taps`)."""
+
+    def __init__(self, in_dim: int, out_dim: int, kernel_size: int = 3,
+                 dilation: int = 1):
+        super().__init__()
+        self.dilation = dilation
+        self.weight = nn.Parameter(_lecun_normal_(
+            torch.empty(out_dim, in_dim, kernel_size), in_dim * kernel_size))
+        self.bias = nn.Parameter(torch.zeros(out_dim))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        taps = self.weight.permute(2, 0, 1).contiguous()
+        return causal_taps(x.to(self.weight.dtype), taps, self.dilation) + self.bias
+
+
+class RMSNorm(nn.Module):
+    """l2norm * sqrt(dim) * gamma, or FiLM-conditioned (no gamma; (gamma,
+    beta) from `to_gamma_beta(cond)`, or precomputed as `film`).
+
+    A FiLM norm of a 3-D CUDA tensor with `film` given runs the fused kernel
+    (ops/norm.py); everything else is the plain module math."""
+
+    def __init__(self, dim: int, scale: bool = True,
+                 cond_dim: Optional[int] = None):
+        super().__init__()
+        self.dim = dim
+        self.gamma = nn.Parameter(torch.ones(dim)) if scale else None
+        self.to_gamma_beta = (Dense(cond_dim, 2 * dim)
+                              if cond_dim is not None else None)
+
+    def film(self, cond: torch.Tensor) -> torch.Tensor:
+        """The conditioning projection [..., 2 * dim] (precomputable)."""
+        return self.to_gamma_beta(cond)
+
+    def forward(self, x, cond=None, film=None):
+        if (self.to_gamma_beta is not None and self.gamma is None
+                and film is not None and x.dim() == 3 and x.is_cuda):
+            return norm_ops.rms_norm_film(x, film)
+        out = l2norm(x) * math.sqrt(self.dim)
+        if self.gamma is not None:
+            out = out * self.gamma.to(x.dtype)
+        if self.to_gamma_beta is None:
+            return out
+        gb = film if film is not None else self.to_gamma_beta(cond)
+        gamma, beta = gb.chunk(2, dim=-1)
+        return out * gamma[:, None, :] + beta[:, None, :]
+
+
+def geglu(h: torch.Tensor) -> torch.Tensor:
+    """x, gate = split(h); gelu(gate) * x. jax.nn.gelu defaults to the tanh
+    approximation (diffnorm_tpu/models/layers.py:289), so this one does too."""
+    x, gate = h.chunk(2, dim=-1)
+    return F.gelu(gate, approximate="tanh") * x
+
+
+class FeedForward(nn.Module):
+    """GEGLU FF with an optional k=3 causal conv at dim_inner =
+    int(dim * mult * 2/3).
+
+    It runs on copies of its weights with the inner width zero-padded to a
+    multiple of 8 (`pack_weights`, at init and after every weight load): at
+    the released width 512 the inner width is 1365, and an odd leading
+    dimension sends every cuBLAS product that touches it to an unaligned
+    kernel several times slower. The padded channels stay exact zeros
+    through GEGLU (gelu(0) * 0) and the conv (zero weights and bias)."""
+
+    def __init__(self, dim: int, mult: int = 4, causal_conv: bool = False):
+        super().__init__()
+        self.inner = int(dim * mult * 2 / 3)
+        self.proj_in = Dense(dim, self.inner * 2)
+        self.conv = CausalConv1d(self.inner, self.inner, 3) if causal_conv else None
+        self.proj_out = Dense(self.inner, dim)
+        self.pack_weights()
+
+    @torch.no_grad()
+    def pack_weights(self) -> None:
+        """Rebuild the padded copies from the parameters (buffers: `.to()`
+        moves and casts them; not saved)."""
+        pad = (-self.inner) % 8
+        halves = [F.pad(w, (0, 0, 0, pad)) for w in self.proj_in.weight.chunk(2)]
+        packed = {
+            "w_in": torch.cat(halves),
+            "b_in": torch.cat([F.pad(b, (0, pad)) for b in self.proj_in.bias.chunk(2)]),
+            "w_out": F.pad(self.proj_out.weight, (0, pad)),
+        }
+        if self.conv is not None:
+            packed["w_conv"] = F.pad(self.conv.weight.permute(2, 0, 1), (0, pad, 0, pad))
+            packed["b_conv"] = F.pad(self.conv.bias, (0, pad))
+        for name, tensor in packed.items():
+            self.register_buffer(name, tensor.detach().contiguous(), persistent=False)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        h = geglu(F.linear(x.to(self.w_in.dtype), self.w_in, self.b_in))
+        if self.conv is not None:
+            h = causal_taps(h, self.w_conv, 1) + self.b_conv
+        return F.linear(h, self.w_out, self.proj_out.bias)
+
+
+class Attention(nn.Module):
+    """Multi-head self-attention with a key-padding mask [B, T] (True =
+    valid); unbiased q / kv / out projections, scale dim_head ** -0.5."""
+
+    def __init__(self, dim: int, dim_head: int = 64, heads: int = 8):
+        super().__init__()
+        self.heads, self.dim_head = heads, dim_head
+        inner = heads * dim_head
+        self.to_q = Dense(dim, inner, bias=False)
+        self.to_kv = Dense(dim, 2 * inner, bias=False)
+        self.to_out = Dense(inner, dim, bias=False)
+
+    def forward(self, x: torch.Tensor,
+                mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+        b, n, _ = x.shape
+        q = self.to_q(x)
+        k, v = self.to_kv(x).chunk(2, dim=-1)
+        q, k, v = (t.reshape(b, n, self.heads, self.dim_head).transpose(1, 2)
+                   for t in (q, k, v))
+        out = attention_ops.masked_attention(q, k, v, mask=mask)
+        return self.to_out(out.transpose(1, 2).reshape(b, n, -1))
+
+
+class LearnedSinusoidalPosEmb(nn.Module):
+    """Learned-frequency Fourier time embedding: [B] -> [B, dim + 1], raw t
+    first, then sin and cos (computed in f32)."""
+
+    def __init__(self, dim: int):
+        super().__init__()
+        assert dim % 2 == 0
+        self.weights = nn.Parameter(torch.randn(dim // 2))
+
+    def forward(self, t: torch.Tensor) -> torch.Tensor:
+        t = t.float()[:, None]
+        freqs = t * self.weights[None, :] * 2 * math.pi
+        return torch.cat([t, freqs.sin(), freqs.cos()], dim=-1)
+
+
+def sinusoidal_positions(mask: torch.Tensor, dim: int,
+                         padding_idx: int = 0) -> torch.Tensor:
+    """fairseq SinusoidalPositionalEmbedding: positions padding_idx +
+    cumsum(mask) on valid steps, padding_idx elsewhere; the row at
+    padding_idx is zeros. mask [B, T] bool -> [B, T, dim] float32."""
+    positions = torch.where(mask, mask.int().cumsum(dim=1) + padding_idx,
+                            padding_idx)
+    half = dim // 2
+    inv = torch.exp(torch.arange(half, dtype=torch.float32, device=mask.device)
+                    * -(math.log(10000.0) / (half - 1)))
+    args = positions.float()[..., None] * inv
+    emb = torch.cat([args.sin(), args.cos()], dim=-1)
+    if dim % 2 == 1:
+        emb = F.pad(emb, (0, 1))
+    return torch.where((positions == padding_idx)[..., None], 0.0, emb)
+
+
+class ConditionableTransformer(nn.Module):
+    """Pre-norm transformer: per layer RMSNorm -> masked MHA -> residual ->
+    RMSNorm -> GEGLU FF -> residual; then RMSNorm and an unbiased `to_pred`.
+    With `cond_dim` every per-layer norm is FiLM-conditioned."""
+
+    def __init__(self, dim: int, depth: int, dim_head: int = 64, heads: int = 8,
+                 ff_mult: int = 4, ff_causal_conv: bool = False,
+                 cond_dim: Optional[int] = None):
+        super().__init__()
+        self.depth = depth
+        has_cond = cond_dim is not None
+        for i in range(depth):
+            self.add_module(f"attn_norm_{i}",
+                            RMSNorm(dim, scale=not has_cond, cond_dim=cond_dim))
+            self.add_module(f"attn_{i}", Attention(dim, dim_head, heads))
+            self.add_module(f"ff_norm_{i}",
+                            RMSNorm(dim, scale=not has_cond, cond_dim=cond_dim))
+            self.add_module(f"ff_{i}", FeedForward(dim, ff_mult, ff_causal_conv))
+        self.final_norm = RMSNorm(dim)
+        self.to_pred = Dense(dim, dim, bias=False)
+
+    def layer(self, name: str, i: int) -> nn.Module:
+        return getattr(self, f"{name}_{i}")
+
+    def precompute_film(self, cond: torch.Tensor) -> dict:
+        """Every adaptive-norm projection of `cond` [..., cond_dim], hoisted
+        out of a sampling loop: {"attn": [...], "ff": [...]} per layer."""
+        return {kind: [self.layer(f"{kind}_norm", i).film(cond)
+                       for i in range(self.depth)] for kind in ("attn", "ff")}
+
+    def forward(self, x, cond=None, mask=None, film=None):
+        for i in range(self.depth):
+            hn = self.layer("attn_norm", i)(
+                x, cond=cond, film=film["attn"][i] if film else None)
+            x = x + self.layer("attn", i)(hn, mask=mask)
+            hn = self.layer("ff_norm", i)(
+                x, cond=cond, film=film["ff"][i] if film else None)
+            x = x + self.layer("ff", i)(hn)
+        return self.to_pred(self.final_norm(x))

@@ -1,0 +1,137 @@
+"""WaveNet stacks of the speech VAE and the diffusion denoiser.
+
+Counterpart of diffnorm_tpu/models/wavenet.py. There are `layers` parallel
+chains, chain j at dilation 2**j in every stack; only the last stack has skip
+convs, and the chains meet only where their skips are summed before
+`final_conv`. Each block: h = conv(x) + b_conv; h = h * gamma + beta (FiLM
+from `to_time_cond`, when conditioned); x = tanh(h) * sigmoid(h) + res_conv(x).
+
+`Wavenet` runs every chain through `ops.wavenet_chain` (the CUDA kernel on a
+CUDA tensor, its plain version on the CPU) with weights packed per chain by
+`pack_weights`, once when weights load, not per step. The conv bias enters the
+chain folded into the FiLM shift as beta' = beta + gamma * b_conv; an
+unconditioned WaveNet uses gamma = 1, beta' = b_conv.
+"""
+
+from __future__ import annotations
+
+from typing import List, Optional, Tuple
+
+import torch
+from torch import nn
+
+from diffnorm_tpu_torch.models.layers import CausalConv1d, Dense
+from diffnorm_tpu_torch.ops import wavenet_chain as chain_ops
+
+Film = List[Tuple[torch.Tensor, torch.Tensor]]
+
+
+class WavenetResBlock(nn.Module):
+    """The parameters of one block (flax names)."""
+
+    def __init__(self, dim: int, dilation: int, kernel_size: int = 3,
+                 skip_conv: bool = False, cond_dim: Optional[int] = None):
+        super().__init__()
+        self.res_conv = CausalConv1d(dim, dim, 1)
+        self.conv = CausalConv1d(dim, dim, kernel_size, dilation)
+        self.to_time_cond = Dense(cond_dim, 2 * dim) if cond_dim else None
+        self.skip_conv = CausalConv1d(dim, dim, 1) if skip_conv else None
+
+    def film(self, t: torch.Tensor) -> torch.Tensor:
+        return self.to_time_cond(t)
+
+
+class WavenetStack(nn.Module):
+    def __init__(self, dim: int, layers: int, kernel_size: int = 3,
+                 has_skip: bool = False, cond_dim: Optional[int] = None):
+        super().__init__()
+        for j in range(layers):
+            self.add_module(f"block_{j}", WavenetResBlock(
+                dim, 2 ** j, kernel_size, skip_conv=has_skip, cond_dim=cond_dim))
+
+    def block(self, j: int) -> WavenetResBlock:
+        return getattr(self, f"block_{j}")
+
+
+class _PackedChain(nn.Module):
+    """One chain's stacked weights as the kernel takes them (buffers, so
+    `.to()` moves and casts them with the parameters; not saved)."""
+
+    def __init__(self, blocks: List[WavenetResBlock]):
+        super().__init__()
+        packed = {
+            # torch conv weight [out, in, k] -> [k, in, out] per stack
+            "w_conv": torch.stack([b.conv.weight.permute(2, 1, 0) for b in blocks]),
+            "w_res": torch.stack([b.res_conv.weight[:, :, 0].T for b in blocks]),
+            "w_skip": blocks[-1].skip_conv.weight[:, :, 0].T,
+            "b_res": torch.stack([b.res_conv.bias for b in blocks]),
+            "b_skip": blocks[-1].skip_conv.bias,
+            "b_conv": torch.stack([b.conv.bias for b in blocks]),
+        }
+        for name, tensor in packed.items():
+            self.register_buffer(name, tensor.detach().contiguous(), persistent=False)
+
+
+class Wavenet(nn.Module):
+    """init causal conv -> stacks (the last with skips) -> sum of the chain
+    skips -> 1x1 causal `final_conv`. `in_dim` may differ from `dim` (the
+    VAE's encoder and decoder)."""
+
+    def __init__(self, in_dim: int, dim: int, stacks: int, layers: int,
+                 init_conv_kernel: int = 3, cond_dim: Optional[int] = None):
+        super().__init__()
+        self.stacks, self.layers = stacks, layers
+        self.conditioned = cond_dim is not None
+        self.init_conv = CausalConv1d(in_dim, dim, init_conv_kernel)
+        for s in range(stacks):
+            self.add_module(f"stack_{s}", WavenetStack(
+                dim, layers, has_skip=(s == stacks - 1), cond_dim=cond_dim))
+        self.final_conv = CausalConv1d(dim, dim, 1)
+        self.pack_weights()
+
+    def stack(self, s: int) -> WavenetStack:
+        return getattr(self, f"stack_{s}")
+
+    def chain_blocks(self, j: int) -> List[WavenetResBlock]:
+        return [self.stack(s).block(j) for s in range(self.stacks)]
+
+    @torch.no_grad()
+    def pack_weights(self) -> None:
+        """Rebuild the per-chain packed weights from the block parameters.
+        Call after the parameters change (weights.from_jax_params does)."""
+        self.chains = nn.ModuleList(
+            _PackedChain(self.chain_blocks(j)) for j in range(self.layers))
+
+    def precompute_film(self, t: torch.Tensor) -> Film:
+        """Per chain (gamma, beta'), each [N, S, C] float32, for condition t
+        [N, cond_dim]: every to_time_cond projection, with the conv bias
+        folded into the shift (beta' = beta + gamma * b_conv)."""
+        film = []
+        for j, chain in enumerate(self.chains):
+            tc = torch.stack([b.film(t) for b in self.chain_blocks(j)], dim=1)
+            gamma, beta = tc.float().chunk(2, dim=-1)
+            beta = beta + gamma * chain.b_conv.float()
+            film.append((gamma.contiguous(), beta.contiguous()))
+        return film
+
+    def _unconditioned_film(self, batch: int) -> Film:
+        film = []
+        for chain in self.chains:
+            beta = chain.b_conv.float().expand(batch, -1, -1).contiguous()
+            film.append((torch.ones_like(beta), beta))
+        return film
+
+    def forward(self, x: torch.Tensor, t: Optional[torch.Tensor] = None,
+                film: Optional[Film] = None) -> torch.Tensor:
+        """x [B, T, in_dim]; t [B, cond_dim] or a precomputed `film`."""
+        x = self.init_conv(x)
+        if film is None:
+            film = (self.precompute_film(t) if self.conditioned
+                    else self._unconditioned_film(x.shape[0]))
+        skips = [
+            chain_ops.wavenet_chain(
+                x, c.w_conv, c.w_res, c.w_skip, c.b_res, c.b_skip, gamma, beta,
+                dilation=2 ** j)
+            for j, (c, (gamma, beta)) in enumerate(zip(self.chains, film))
+        ]
+        return self.final_conv(sum(skips))

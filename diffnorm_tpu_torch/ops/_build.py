@@ -1,0 +1,100 @@
+"""Build the port's CUDA kernels with nvcc on first use and load them with ctypes.
+
+Each `diffnorm_tpu_torch/csrc/<name>.cu` exposes a plain C interface and is
+compiled on its own into `csrc/build/lib<name>-<hash>.so` (the hash covers the
+source and the flags, so an edited source is rebuilt). `build` starts one nvcc
+per missing library, all at once. Nothing is compiled or loaded at import:
+the CPU tests import every module on a machine without nvcc.
+
+Every kernel wrapper adds one to `launch_counts[<kernel>]` where it launches
+its kernel, so a run can show that the main path went through the kernels.
+"""
+
+from __future__ import annotations
+
+import collections
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import threading
+from pathlib import Path
+from typing import Dict, Iterable, Sequence
+
+CSRC = Path(__file__).resolve().parent.parent / "csrc"
+BUILD_DIR = CSRC / "build"
+KERNELS = ("rms_norm_film", "wavenet_chain")
+NVCC_FLAGS = (
+    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+    "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+)
+
+launch_counts: collections.Counter = collections.Counter()
+
+_lock = threading.Lock()
+_functions: Dict[str, ctypes._CFuncPtr] = {}
+
+
+def _nvcc() -> str:
+    from torch.utils.cpp_extension import CUDA_HOME
+
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    if CUDA_HOME and (Path(CUDA_HOME) / "bin" / "nvcc").exists():
+        return str(Path(CUDA_HOME) / "bin" / "nvcc")
+    raise RuntimeError("nvcc not found: the CUDA kernels need the CUDA toolkit")
+
+
+def library_path(name: str) -> Path:
+    src = (CSRC / f"{name}.cu").read_bytes()
+    digest = hashlib.sha1(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:12]
+    return BUILD_DIR / f"lib{name}-{digest}.so"
+
+
+def build(names: Iterable[str] = KERNELS) -> Dict[str, str]:
+    """Compile every named kernel whose library is missing, one nvcc process
+    per source, all started together. Returns {name: compiler output} for
+    the sources compiled now; raises if any compile fails."""
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    procs = []
+    for name in names:
+        so = library_path(name)
+        if so.exists():
+            continue
+        tmp = so.with_name(f"{so.name}.{os.getpid()}.tmp")
+        cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
+        procs.append((name, so, tmp, subprocess.Popen(
+            cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)))
+    logs, failed = {}, []
+    for name, so, tmp, proc in procs:
+        logs[name] = proc.communicate()[0]
+        if proc.returncode != 0:
+            failed.append(f"{name}:\n{logs[name]}")
+        else:
+            os.replace(tmp, so)  # atomic: a concurrent loader sees all or nothing
+    if failed:
+        raise RuntimeError("nvcc failed for " + "\n".join(failed))
+    return logs
+
+
+def function(lib: str, symbol: str, argtypes: Sequence) -> ctypes._CFuncPtr:
+    """The C entry point `symbol` of kernel library `lib`, built on first use,
+    with its argument types declared and an int (cudaError_t) result."""
+    key = f"{lib}:{symbol}"
+    with _lock:
+        fn = _functions.get(key)
+        if fn is None:
+            build([lib])
+            fn = getattr(ctypes.CDLL(str(library_path(lib))), symbol)
+            fn.argtypes = list(argtypes)
+            fn.restype = ctypes.c_int
+            _functions[key] = fn
+    return fn
+
+
+def check(err: int, what: str) -> None:
+    """Raise if a kernel's C entry point returned a CUDA error."""
+    if err != 0:
+        raise RuntimeError(f"{what}: CUDA error {err} at launch")

@@ -1,0 +1,65 @@
+"""Fused RMSNorm + FiLM: y = l2norm(x) * sqrt(C) * gamma_b + beta_b.
+
+Replaces diffnorm_tpu/ops/pallas_norm.py:rms_norm_film. The kernel is
+`csrc/rms_norm_film.cu`: one warp per (b, t) row, f32 math, one read and one
+write of x. It is bound by bytes on an H100: 16.9 MB at the DDIM shape
+[64, 128, 512] bf16, 5.0 us at 3.35 TB/s. `models.layers.RMSNorm` routes here
+for every FiLM-conditioned norm on a CUDA tensor (24 per DDIM step).
+"""
+
+from __future__ import annotations
+
+import ctypes
+import math
+
+import torch
+
+from diffnorm_tpu_torch.ops import _build
+
+
+def rms_norm_film_plain(x: torch.Tensor, film: torch.Tensor,
+                        eps: float = 1e-12) -> torch.Tensor:
+    """The kernel's arithmetic in PyTorch: f32 math, result in x.dtype.
+    x [B, T, C]; film [B, 2C] (gamma ++ beta)."""
+    c = x.shape[-1]
+    xf = x.float()
+    ss = xf.square().sum(-1, keepdim=True)
+    inv = torch.rsqrt(torch.clamp(ss, min=eps * eps)) * math.sqrt(c)
+    gamma, beta = film.float()[:, None, :].chunk(2, dim=-1)
+    return ((xf * inv) * gamma + beta).to(x.dtype)
+
+
+def rms_norm_film(x: torch.Tensor, film: torch.Tensor,
+                  eps: float = 1e-12) -> torch.Tensor:
+    """x [B, T, C]; film [B, 2C] (gamma ++ beta). Returns x.dtype.
+
+    A CPU tensor takes the plain version; a CUDA tensor launches the kernel
+    (bf16, contiguous, C % 8 == 0) or raises."""
+    if x.device.type == "cpu":
+        return rms_norm_film_plain(x, film, eps)
+    if x.device.type != "cuda":
+        raise ValueError(f"rms_norm_film: unsupported device {x.device}")
+    if x.dim() != 3:
+        raise ValueError(f"rms_norm_film: x must be [B, T, C], got {tuple(x.shape)}")
+    b, t, c = x.shape
+    if film.shape != (b, 2 * c):
+        raise ValueError(
+            f"rms_norm_film: film must be [{b}, {2 * c}], got {tuple(film.shape)}")
+    if x.dtype != torch.bfloat16 or film.dtype != torch.bfloat16:
+        raise TypeError(
+            f"rms_norm_film: the kernel takes bf16, got {x.dtype} / {film.dtype}")
+    if film.device != x.device:
+        raise ValueError("rms_norm_film: x and film on different devices")
+    if not (x.is_contiguous() and film.is_contiguous()):
+        raise ValueError("rms_norm_film: x and film must be contiguous")
+    if c % 8:
+        raise ValueError(f"rms_norm_film: C={c} is not a multiple of 8")
+    out = torch.empty_like(x)
+    fn = _build.function("rms_norm_film", "rms_norm_film_bf16", [
+        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
+        ctypes.c_int, ctypes.c_int, ctypes.c_float, ctypes.c_void_p])
+    stream = torch.cuda.current_stream(x.device).cuda_stream
+    _build.check(fn(x.data_ptr(), film.data_ptr(), out.data_ptr(), b * t, t, c,
+                    eps, stream), "rms_norm_film")
+    _build.launch_counts["rms_norm_film"] += 1
+    return out

@@ -1,0 +1,113 @@
+"""The port stands alone: no module of diffnorm_tpu_torch/ and not
+chip_smoke.py imports JAX, flax or the JAX package, and the entry points run
+on the CPU only when asked to."""
+
+import ast
+import os
+import subprocess
+import sys
+from pathlib import Path
+
+import numpy as np
+import pytest
+import torch
+
+REPO = Path(__file__).resolve().parent.parent
+FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "orbax", "diffnorm_tpu")
+
+
+def _port_sources():
+    return sorted((REPO / "diffnorm_tpu_torch").rglob("*.py")) + [REPO / "chip_smoke.py"]
+
+
+def _imported_roots(path: Path):
+    for node in ast.walk(ast.parse(path.read_text(), filename=str(path))):
+        if isinstance(node, ast.Import):
+            for alias in node.names:
+                yield alias.name
+        elif isinstance(node, ast.ImportFrom) and node.module and node.level == 0:
+            yield node.module
+
+
+def test_no_jax_imports_in_the_port():
+    sources = _port_sources()
+    assert len(sources) > 10
+    bad = [(p.relative_to(REPO), name) for p in sources
+           for name in _imported_roots(p)
+           if name.split(".")[0] in FORBIDDEN]
+    assert not bad, bad
+
+
+def test_port_imports_with_jax_blocked():
+    code = ("import sys\n"
+            "for name in ('jax', 'flax', 'diffnorm_tpu'):\n"
+            "    sys.modules[name] = None\n"
+            "import diffnorm_tpu_torch.models.diffusion\n"
+            "import diffnorm_tpu_torch.cli.diff_norm_synthesis\n"
+            "print('ok')\n")
+    env = dict(os.environ, PYTHONPATH=str(REPO))
+    out = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "ok"
+
+
+def test_entry_points_refuse_the_cpu_unless_asked(tmp_path):
+    if torch.cuda.is_available():
+        pytest.skip("checks the refusal on a machine without CUDA")
+    from diffnorm_tpu_torch.cli import diff_norm_synthesis
+    from diffnorm_tpu_torch.models.diffusion import LatentDiffusionModule, ddim_sample
+
+    model = LatentDiffusionModule(
+        dim=16, latent_dim=3, feature_dim=24, vocab_size=20, timesteps=20,
+        denoiser_depth=1, wavenet_layers=2, wavenet_stacks=1,
+        vae_decoder_depth=1, vae_decoder_dim_head=8, vae_decoder_heads=2,
+        chan_mults=[4])
+    feature = torch.zeros(1, 8, 24)
+    mask = torch.ones(1, 8, dtype=torch.bool)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        ddim_sample(model, feature, mask, start_step=3)
+    units, _ = ddim_sample(model, feature, mask, start_step=3, device="cpu")
+    assert units.shape == (1, 8)
+
+    with pytest.raises(RuntimeError, match="CUDA"):
+        diff_norm_synthesis.main([str(tmp_path), "--params-npz", "absent.npz",
+                                  "--tgt-feat-dir", str(tmp_path),
+                                  "--output-dir", str(tmp_path / "out")])
+
+
+def test_kernel_wrappers_launch_or_raise_off_the_cpu():
+    """A tensor that is not on the CPU never takes the plain version."""
+    from diffnorm_tpu_torch.ops.norm import rms_norm_film
+    from diffnorm_tpu_torch.ops.wavenet_chain import wavenet_chain
+
+    x = torch.zeros(1, 4, 8, device="meta")
+    with pytest.raises(ValueError, match="unsupported device"):
+        rms_norm_film(x, torch.zeros(1, 16, device="meta"))
+    w = torch.zeros(1, 3, 8, 8, device="meta")
+    with pytest.raises(ValueError, match="unsupported device"):
+        wavenet_chain(x, w, w[:, 0], w[0, 0], w[:, 0, 0], w[0, 0, 0],
+                      x[:, :1], x[:, :1], dilation=1)
+
+
+def test_weights_round_trip_through_npz(tmp_path):
+    from diffnorm_tpu_torch.models.wavenet import Wavenet
+    from diffnorm_tpu_torch.weights import (
+        from_jax_params, load_npz, save_npz, to_jax_params)
+
+    torch.manual_seed(0)
+    src = Wavenet(6, 8, stacks=2, layers=2, cond_dim=4)
+    params = to_jax_params(src)
+    assert params["stack_1"]["block_0"]["conv"]["kernel"].shape == (3, 8, 8)
+    save_npz(str(tmp_path / "w.npz"), params)
+    dst = from_jax_params(Wavenet(6, 8, stacks=2, layers=2, cond_dim=4),
+                          load_npz(str(tmp_path / "w.npz")))
+    for (name, a), (_, b) in zip(src.named_parameters(), dst.named_parameters()):
+        np.testing.assert_array_equal(a.detach().numpy(), b.detach().numpy(), name)
+    x, t = torch.randn(2, 5, 6), torch.randn(2, 4)
+    with torch.no_grad():
+        np.testing.assert_allclose(dst(x, t).numpy(), src(x, t).numpy(), rtol=1e-6)
+
+    del params["stack_0"]["block_1"]["res_conv"]
+    with pytest.raises(KeyError, match="res_conv"):
+        from_jax_params(dst, params)
