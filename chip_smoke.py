@@ -9,15 +9,20 @@ prints no result:
 1. build: compile every kernel of the DDIM path from csrc/ with nvcc (one
    process per source, in parallel) and print the card's name and power limit.
 2. kernels: each kernel's wrapper on the card at the path's shapes against its
-   plain PyTorch version on the same bf16 inputs, with its median time, its
-   bound on the card and the plain version's time.
+   plain PyTorch version on the same inputs, with its median time, its bound
+   on the card and the plain version's time: rms_norm_film, wavenet_chain,
+   and the int8 fused_layer and ffpipe_layer (rows 1 and 2, which must agree
+   bit for bit) at [64, 128, 512], P=1408, checked also at [4, 200, 512].
 3. main path: ddim_sample at the released bf16 diff_discrete width (hidden
    512, latent 128, 768-d features, 12 + 4x8 denoiser, T=200, start step 50 =
    49 DDIM steps) from a seeded random init at B64 x T128, through the
    kernels, with the launch counts it implies; then the same run through the
    plain versions on the card as the reference.
+3b. int8 main path: the same weights with quant_int8, on the routes
+   fused_layer, ffpipe and ffpipe2 (each kernel launched 12 x 49 times),
+   against the plain-version run (ffpipe2 against ffpipe, bit for bit).
 4. entry point: the weights written with weights.save_npz and the CLI run on
-   8 synthetic utterances.
+   8 synthetic utterances, in bf16 and with --quant-int8.
 
 Then one JSON line of per-kernel numbers and, last, {"ok": true, "device": ...}.
 Exits non-zero without CUDA, and in a directory without the port.
@@ -36,8 +41,14 @@ from pathlib import Path
 
 HBM_BYTES_PER_S = 3.35e12    # H100 SXM
 BF16_FLOP_PER_S = 989e12     # dense bf16 tensor cores
+INT8_OPS_PER_S = 1979e12     # dense int8 tensor cores
 F32_FLOP_PER_S = 67e12       # f32 outside the tensor cores
 B, T, START_STEP = 64, 128, 50
+# a second kernel-check shape: at T=200 sequences straddle the int8 GEMMs'
+# 128-token tiles and the attention's 64-key blocks, and the last tile is
+# partial (B even, so ffpipe rows 2 applies)
+ODD_B, ODD_T = 4, 200
+C, INNER, HEADS, DIM_HEAD = 512, 1365, 8, 64  # the released denoiser transformer
 SECONDS_PER_UNIT = 0.02      # 50 Hz units
 
 # rms_norm_film: kernel and plain version do the same f32 math on the same
@@ -50,6 +61,18 @@ CHAIN_ROW_COS, CHAIN_REL_ERR = 0.999, 2e-2
 # the full 49-step path, kernels against plain versions: bf16 rounding
 # differences compound over the steps
 PATH_ROW_COS = 0.99
+# ffpipe_layer: the kernel repeats the plain version's arithmetic (exact int32
+# sums, every epilogue operation rounded alone), but the norm's sum of squares
+# reduces in another order. That moves an int8 code across a rounding
+# boundary now and then, and the flip reaches the output: on the CPU, the
+# plain version with only that sum taken in another order agrees with itself
+# at min row-cos 0.99998, max-abs/scale 6.6e-3 (one bf16 ulp at the top of
+# the output's range) and 99.89% bit-equal outputs at this shape.
+# fused_layer: its attention half also sums the q/kv/o products and the
+# softmax denominator in other orders, so more codes flip; held to the
+# bounds the CPU tests hold its plain version to against the JAX kernel.
+FF_ROW_COS, FF_REL_ERR, FF_BIT_EQUAL = 0.9995, 2e-2, 0.98
+LAYER_ROW_COS, LAYER_REL_ERR = 0.9995, 3e-2
 
 
 def fail(msg: str) -> None:
@@ -187,15 +210,134 @@ def check_wavenet_chain(torch, chain):
     return dict(denoiser, bound_by=bound_by)
 
 
+def ff_pack(torch, ffpipe, seed):
+    """Random float32 FF weights at the released width, packed for the
+    kernels (lecun-normal scales, small non-zero biases)."""
+    g = torch.Generator(device="cuda").manual_seed(seed)
+
+    def rnd(*shape, scale):
+        return torch.randn(*shape, generator=g, device="cuda") * scale
+
+    return ffpipe.pack_ff_weights(
+        rnd(2 * INNER, C, scale=C ** -0.5), rnd(2 * INNER, scale=0.02),
+        rnd(INNER, INNER, 3, scale=(3 * INNER) ** -0.5), rnd(INNER, scale=0.02),
+        rnd(C, INNER, scale=INNER ** -0.5), rnd(C, scale=0.02))
+
+
+def agreement(torch, got, ref):
+    """Min row-cos, max-abs over the reference's scale, bit-equal share."""
+    g, r = got.float().reshape(-1, got.shape[-1]), ref.float().reshape(-1, ref.shape[-1])
+    cos = torch.nn.functional.cosine_similarity(g, r, dim=-1).min().item()
+    err = (g - r).abs().max().item()
+    return cos, err / r.abs().max().item(), (g == r).float().mean().item(), err
+
+
+def ff_work(w):
+    """int8 operations and bytes of one FF sublayer call at [B, T, C]."""
+    p = w["wxq"].shape[0]
+    ops = 2.0 * B * T * (C * 2 * p + 3 * p * p + p * C)
+    nbytes = (sum(t.numel() * t.element_size() for t in w.values())
+              + 2 * B * T * C * 2 + B * 2 * C * 4)
+    return ops, nbytes
+
+
+def check_ffpipe(torch, ffpipe):
+    """ffpipe_layer rows 1 and 2 against the plain version, and each other,
+    at [ODD_B, ODD_T] and then at the path's shape, which is timed."""
+    w = ff_pack(torch, ffpipe, seed=30)
+    g = torch.Generator(device="cuda").manual_seed(31)
+    for b, t in ((ODD_B, ODD_T), (B, T)):
+        x = torch.randn(b, t, C, generator=g, device="cuda").to(torch.bfloat16)
+        film = torch.randn(b, 2 * C, generator=g, device="cuda").to(torch.bfloat16)
+        got = ffpipe.ffpipe_layer(x, film, w, rows=1)
+        got2 = ffpipe.ffpipe_layer(x, film, w, rows=2)
+        ref = ffpipe.ffpipe_layer_plain(x, film, w)
+        torch.cuda.synchronize()
+        if not torch.equal(got, got2):
+            fail(f"ffpipe_layer [{b},{t},{C}] rows 2 differs from rows 1 in "
+                 f"{(got != got2).sum().item()} elements")
+        cos, rel, same, err = agreement(torch, got, ref)
+        print(f"kernel ffpipe_layer [{b},{t},{C}] against the plain version: row-cos "
+              f"{cos:.6f}, max-abs/scale {rel:.2e}, bit-equal {same:.4f}")
+        if (not torch.isfinite(got).all() or cos <= FF_ROW_COS or rel >= FF_REL_ERR
+                or same < FF_BIT_EQUAL):
+            fail("ffpipe_layer is beyond its tolerance against the plain version")
+    ops, nbytes = ff_work(w)
+    bound_ms, bound_by = bound(nbytes, ops, INT8_OPS_PER_S)
+    results = {}
+    for name, rows in (("ffpipe_layer", 1), ("ffpipe_layer2", 2)):
+        ms = cuda_time_ms(lambda: ffpipe.ffpipe_layer(x, film, w, rows=rows))
+        results[name] = dict(ms=ms, bound_ms=bound_ms, bound_by=bound_by, max_abs_err=err)
+    plain_ms = cuda_time_ms(lambda: ffpipe.ffpipe_layer_plain(x, film, w), iters=3, reps=3)
+    q3 = torch.randint(-127, 128, (B * T, w["wcq"].shape[1]), generator=g, device="cuda",
+                       dtype=torch.int8)
+    taps = [w["wcq"][i].t() for i in range(3)]
+    int_mm_ms = cuda_time_ms(lambda: [torch._int_mm(q3, tap) for tap in taps])
+    for name, r in results.items():
+        r["plain_ms"] = plain_ms
+        print(f"kernel {name} [{B},{T},{C}] P={w['wxq'].shape[0]}: {r['ms']:.4f} ms, "
+              f"plain {plain_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by}), "
+              f"{ops / r['ms'] / 1e9:.1f} TOP/s")
+    print(f"kernel ffpipe_layer: rows 2 bit-identical to rows 1; reference: torch._int_mm "
+          f"for the 3 conv-tap products alone {int_mm_ms:.4f} ms")
+    results["int_mm_conv_ms"] = int_mm_ms
+    return results
+
+
+def check_fused_layer(torch, ffpipe, fused):
+    """fused_layer against its plain version, with padded keys and one row
+    whose keys are all masked, at [ODD_B, ODD_T] and then at the path's
+    shape, which is timed."""
+    g = torch.Generator(device="cuda").manual_seed(40)
+
+    def rnd(*shape, scale=1.0):
+        return torch.randn(*shape, generator=g, device="cuda") * scale
+
+    w = fused.pack_layer_weights(rnd(C, C, scale=C ** -0.5), rnd(2 * C, C, scale=C ** -0.5),
+                                 rnd(C, C, scale=C ** -0.5), ff_pack(torch, ffpipe, seed=41))
+    for b, t in ((ODD_B, ODD_T), (B, T)):
+        x = rnd(b, t, C).to(torch.bfloat16)
+        fa, ff = rnd(b, 2 * C).to(torch.bfloat16), rnd(b, 2 * C).to(torch.bfloat16)
+        lengths = torch.randint(t // 2, t + 1, (b,), generator=g, device="cuda")
+        lengths[0], lengths[1] = t, 0
+        mask = torch.arange(t, device="cuda")[None, :] < lengths[:, None]
+        args = (x, mask, fa, ff, w, HEADS, DIM_HEAD)
+        got = fused.fused_layer(*args)
+        ref = fused.fused_layer_plain(*args)
+        torch.cuda.synchronize()
+        cos, rel, same, err = agreement(torch, got, ref)
+        print(f"kernel fused_layer [{b},{t},{C}] against the plain version: row-cos "
+              f"{cos:.6f}, max-abs/scale {rel:.2e}, bit-equal {same:.4f}")
+        if not torch.isfinite(got).all() or cos <= LAYER_ROW_COS or rel >= LAYER_REL_ERR:
+            fail("fused_layer is beyond its tolerance against the plain version")
+    ms = cuda_time_ms(lambda: fused.fused_layer(*args))
+    plain_ms = cuda_time_ms(lambda: fused.fused_layer_plain(*args), iters=3, reps=3)
+    int8_ops, nbytes = ff_work({k: v for k, v in w.items() if k not in ("wqkv", "wo")})
+    bf16_flops = 2.0 * B * T * (3 * C * C + C * C) + 4.0 * B * HEADS * T * T * DIM_HEAD
+    nbytes += (w["wqkv"].numel() + w["wo"].numel()) * 2 + B * T + B * 2 * C * 4
+    t_ops = int8_ops / INT8_OPS_PER_S + bf16_flops / BF16_FLOP_PER_S
+    t_bytes = nbytes / HBM_BYTES_PER_S
+    bound_ms, bound_by = 1e3 * max(t_ops, t_bytes), "operations" if t_ops >= t_bytes else "bytes"
+    print(f"kernel fused_layer [{B},{T},{C}] {HEADS}x{DIM_HEAD} P={w['wxq'].shape[0]}: "
+          f"{ms:.4f} ms, plain {plain_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by}: "
+          f"{int8_ops / 1e9:.1f} G int8 ops + {bf16_flops / 1e9:.1f} GFLOP bf16, "
+          f"{nbytes / 1e6:.1f} MB)")
+    return dict(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
+                max_abs_err=err)
+
+
 @contextlib.contextmanager
-def plain_versions(norm, chain):
+def plain_versions(norm, chain, ffpipe, fused):
     """Route the models through the plain versions (the on-card reference)."""
-    saved = norm.rms_norm_film, chain.wavenet_chain
+    saved = (norm.rms_norm_film, chain.wavenet_chain, ffpipe.ffpipe_layer,
+             fused.fused_layer)
     norm.rms_norm_film, chain.wavenet_chain = norm.rms_norm_film_plain, chain.wavenet_chain_plain
+    ffpipe.ffpipe_layer = lambda x, film, w, rows=1: ffpipe.ffpipe_layer_plain(x, film, w)
+    fused.fused_layer = fused.fused_layer_plain
     try:
         yield
     finally:
-        norm.rms_norm_film, chain.wavenet_chain = saved
+        norm.rms_norm_film, chain.wavenet_chain, ffpipe.ffpipe_layer, fused.fused_layer = saved
 
 
 def run_main_path(torch, model, ddim_sample, inputs):
@@ -229,10 +371,12 @@ def profile_main_path(torch, model, ddim_sample, inputs, wall):
 
 
 def run_cli(torch, model, smi):
+    """The CLI on 8 synthetic utterances, bf16 and then --quant-int8."""
     import numpy as np
 
     from diffnorm_tpu_torch.cli import diff_norm_synthesis
     from diffnorm_tpu_torch.data.manifest import write_translation_manifest
+    from diffnorm_tpu_torch.ops import _build
     from diffnorm_tpu_torch.weights import save_npz, to_jax_params
 
     rng = np.random.default_rng(3)
@@ -253,22 +397,89 @@ def run_cli(torch, model, smi):
                          "tgt_n_frames": len(units)})
         (tmp / "feat" / "test.manifest.tsv").write_text("\n".join(lines) + "\n")
         write_translation_manifest(str(tmp / "test.tsv"), rows)
+        for what, extra in (("bf16", []), ("int8, route fused_layer", ["--quant-int8"])):
+            out_dir = tmp / f"out{len(extra)}"
+            _build.launch_counts.clear()
+            t0 = time.perf_counter()
+            rc = diff_norm_synthesis.main([
+                str(tmp), "--params-npz", str(tmp / "params.npz"),
+                "--tgt-feat-dir", str(tmp / "feat"), "--output-dir", str(out_dir),
+                "--splits", "test", "--batch-size", "4", "--seed", "1", *extra])
+            dt = time.perf_counter() - t0
+            if rc != 0:
+                fail(f"diff_norm_synthesis {' '.join(extra)} returned {rc}")
+            if extra and not _build.launch_counts["fused_layer"]:
+                fail("the --quant-int8 CLI run launched no fused_layer")
+            out = (out_dir / "test.tsv").read_text().splitlines()[1:]
+            ids = {line.split("\t")[0] for line in out}
+            if ids != {r["id"] for r in rows}:
+                fail(f"CLI manifest ids {sorted(ids)}")
+            for line in out:
+                [int(u) for u in line.split("\t")[3].split()]
+            print(f"phase entry point ({what}): {dt:.2f} s for the CLI on 8 utterances "
+                  f"(weights via save_npz, batch 4), manifest has every id, launches "
+                  f"{dict(_build.launch_counts)}; {smi}")
+
+
+def run_int8_routes(torch, qmodel, ddim_sample, inputs, units_bf16, smi, mods):
+    """Phase 3b: int8 ddim_sample at full width on each kernel route, its
+    launches, and the same run through the plain versions (route ffpipe2 is
+    held bit for bit to route ffpipe instead). Returns each route kernel's
+    launches."""
+    from diffnorm_tpu_torch.ops import _build
+
+    steps = START_STEP - 1
+    transformer = qmodel.denoiser.transformer
+    launches_by_kernel, runs = {}, {}
+    for route, kernel in (("fused_layer", "fused_layer"), ("ffpipe", "ffpipe_layer"),
+                          ("ffpipe2", "ffpipe_layer2")):
         t0 = time.perf_counter()
-        rc = diff_norm_synthesis.main([
-            str(tmp), "--params-npz", str(tmp / "params.npz"),
-            "--tgt-feat-dir", str(tmp / "feat"), "--output-dir", str(tmp / "out"),
-            "--splits", "test", "--batch-size", "4", "--seed", "1"])
-        dt = time.perf_counter() - t0
-        if rc != 0:
-            fail(f"diff_norm_synthesis returned {rc}")
-        out = (tmp / "out" / "test.tsv").read_text().splitlines()[1:]
-        ids = {line.split("\t")[0] for line in out}
-        if ids != {r["id"] for r in rows}:
-            fail(f"CLI manifest ids {sorted(ids)}")
-        for line in out:
-            [int(u) for u in line.split("\t")[3].split()]
-    print(f"phase entry point: {dt:.2f} s for the CLI on 8 utterances "
-          f"(weights via save_npz, batch 4), manifest has every id; {smi}")
+        transformer.int8_route = route
+        ddim_sample(qmodel, inputs["feature"], inputs["mask"], start_step=START_STEP,
+                    stride=START_STEP, enc_noise=inputs["enc"], init_noise=inputs["init"],
+                    device="cuda")  # warm-up: one denoiser call
+        torch.cuda.reset_peak_memory_stats()
+        _build.launch_counts.clear()
+        units, recon, wall = run_main_path(torch, qmodel, ddim_sample, inputs)
+        launches = dict(_build.launch_counts)
+        peak_gb = torch.cuda.max_memory_allocated() / 1e9
+        want = {kernel: transformer.depth * steps, "wavenet_chain": 8 * steps + 6}
+        if route != "fused_layer":
+            want["rms_norm_film"] = transformer.depth * steps  # the attention norms
+        for name, n in want.items():
+            if launches.get(name, 0) < n:
+                fail(f"int8 route {route} launched {name} {launches.get(name, 0)} times, "
+                     f"expected >= {n}")
+        if units.shape != (B, T) or units.min() < -4 or units.max() >= 1000:
+            fail(f"int8 route {route}: units out of range")
+        if recon.shape != (B, T, 768) or not torch.isfinite(recon).all():
+            fail(f"int8 route {route}: recon_feature is not finite [B, T, 768]")
+        runs[route] = (units, recon)
+        if route == "ffpipe2":
+            if not (torch.equal(units, runs["ffpipe"][0])
+                    and torch.equal(recon, runs["ffpipe"][1])):
+                fail("int8 route ffpipe2 differs from route ffpipe")
+            against = "bit-identical to route ffpipe"
+        else:
+            with plain_versions(*mods):
+                units_ref, recon_ref, wall_ref = run_main_path(torch, qmodel, ddim_sample, inputs)
+            cos = torch.nn.functional.cosine_similarity(
+                recon.float().reshape(-1, 768), recon_ref.float().reshape(-1, 768), dim=-1)
+            if cos.min().item() <= PATH_ROW_COS:
+                fail(f"int8 route {route}: recon row-cos {cos.min().item():.5f} "
+                     f"against the plain run")
+            against = (f"plain-version run {wall_ref:.4f} s, recon row-cos min "
+                       f"{cos.min().item():.5f} mean {cos.mean().item():.5f}, unit agreement "
+                       f"{(units == units_ref).float().mean().item():.4f}")
+        print(f"main path int8 route {route}: B{B}xT{T}, {steps} DDIM steps: wall {wall:.4f} s, "
+              f"RTF {B * T * SECONDS_PER_UNIT / wall:.2f}, launches {launches}, peak "
+              f"{peak_gb:.2f} GB; {against}; unit agreement with the bf16 kernel path "
+              f"{(units == units_bf16).float().mean().item():.4f}; {smi}")
+        if route != "ffpipe2":
+            profile_main_path(torch, qmodel, ddim_sample, inputs, wall)
+        print(f"phase main path int8 {route}: {time.perf_counter() - t0:.1f} s")
+        launches_by_kernel[kernel] = launches[kernel]
+    return launches_by_kernel
 
 
 def main() -> int:
@@ -286,9 +497,10 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
 
     from diffnorm_tpu_torch.models.diffusion import LatentDiffusionModule, ddim_sample
-    from diffnorm_tpu_torch.ops import _build
-    from diffnorm_tpu_torch.ops import norm
+    from diffnorm_tpu_torch.ops import _build, ffpipe, norm
+    from diffnorm_tpu_torch.ops import fused_layer as fused
     from diffnorm_tpu_torch.ops import wavenet_chain as chain
+    from diffnorm_tpu_torch.weights import pack_all
 
     # 1. build
     t0 = time.perf_counter()
@@ -307,7 +519,10 @@ def main() -> int:
     # 2. kernels against their plain versions
     t0 = time.perf_counter()
     results = {"rms_norm_film": check_rms_norm_film(torch, norm),
-               "wavenet_chain": check_wavenet_chain(torch, chain)}
+               "wavenet_chain": check_wavenet_chain(torch, chain),
+               "fused_layer": check_fused_layer(torch, ffpipe, fused),
+               **check_ffpipe(torch, ffpipe)}
+    int_mm_conv_ms = results.pop("int_mm_conv_ms")
     print(f"phase kernels: {time.perf_counter() - t0:.1f} s, every kernel within "
           f"tolerance of its plain version; {smi}")
 
@@ -316,7 +531,13 @@ def main() -> int:
     torch.manual_seed(0)
     with torch.device("cuda"):
         model = LatentDiffusionModule()
+        qmodel = LatentDiffusionModule(quant_int8=True)
+    # the int8 model carries the same float32 weights and packs its int8
+    # weights from them before the cast to bf16
+    qmodel.load_state_dict(model.state_dict())
+    pack_all(qmodel)
     model = model.to(torch.bfloat16).eval()
+    qmodel = qmodel.to(torch.bfloat16).eval()
     g = torch.Generator(device="cuda").manual_seed(1)
     inputs = dict(
         feature=torch.randn(B, T, 768, generator=g, device="cuda"),
@@ -341,7 +562,8 @@ def main() -> int:
              f"[{units.min().item()}, {units.max().item()}]")
     if recon.shape != (B, T, 768) or not torch.isfinite(recon).all():
         fail("recon_feature is not finite [B, T, 768]")
-    with plain_versions(norm, chain):
+    mods = (norm, chain, ffpipe, fused)
+    with plain_versions(*mods):
         units_ref, recon_ref, wall_ref = run_main_path(torch, model, ddim_sample, inputs)
     cos = torch.nn.functional.cosine_similarity(
         recon.float().reshape(-1, 768), recon_ref.float().reshape(-1, 768), dim=-1)
@@ -356,17 +578,28 @@ def main() -> int:
     profile_main_path(torch, model, ddim_sample, inputs, wall)
     print(f"phase main path: {time.perf_counter() - t0:.1f} s")
 
+    # 3b. the int8 main path at full width, on each kernel route
+    launches.update(run_int8_routes(torch, qmodel, ddim_sample, inputs, units, smi, mods))
+    del qmodel
+
     # 4. the entry point
     run_cli(torch, model, smi)
 
-    sources = {"rms_norm_film": "diffnorm_tpu/ops/pallas_norm.py:34",
-               "wavenet_chain": "diffnorm_tpu/ops/pallas_wavenet.py:66"}
+    sources = {
+        "rms_norm_film": ("rms_norm_film.cu", "diffnorm_tpu/ops/pallas_norm.py:34"),
+        "wavenet_chain": ("wavenet_chain.cu", "diffnorm_tpu/ops/pallas_wavenet.py:66"),
+        "fused_layer": ("fused_layer.cu", "diffnorm_tpu/ops/pallas_block.py:222"),
+        "ffpipe_layer": ("int8_ff.cu", "diffnorm_tpu/ops/pallas_ffpipe.py:257"),
+        "ffpipe_layer2": ("int8_ff.cu", "diffnorm_tpu/ops/pallas_ffpipe.py:316"),
+    }
     kernels = [dict(name=name, route="cuda",
-                    source=f"diffnorm_tpu_torch/csrc/{name}.cu", replaces=sources[name],
-                    launches=launches[name], max_abs_err=r["max_abs_err"], ms=r["ms"],
-                    plain_ms=r["plain_ms"], bound_ms=r["bound_ms"],
-                    bound_by=r["bound_by"], library_ms=None)
+                    source=f"diffnorm_tpu_torch/csrc/{sources[name][0]}",
+                    replaces=sources[name][1], launches=launches[name],
+                    max_abs_err=r["max_abs_err"], ms=r["ms"], plain_ms=r["plain_ms"],
+                    bound_ms=r["bound_ms"], bound_by=r["bound_by"], library_ms=None)
                for name, r in results.items()]
+    print(f"int8 FF reference: torch._int_mm for the conv-tap products alone "
+          f"{int_mm_conv_ms:.4f} ms per layer (no single PyTorch call computes a sublayer)")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -5,7 +5,9 @@ Joins the translation manifest with the per-utterance target feature dumps,
 re-derives the reduced-frame indices, runs `ddim_sample` (partial noise at
 --start-step of T=200), re-reduces the output units and writes `{split}.tsv`.
 Runs on the GPU in bf16 (the kernels' configuration) unless --cpu is given,
-which runs in float32.
+which runs in float32. `--quant-int8` runs the denoiser's transformer in
+int8 W8A8 on the route `--int8-route` names (default fused_layer; in float32
+on the CPU every route is the int8 module path, as in JAX).
 
   python -m diffnorm_tpu_torch.cli.diff_norm_synthesis $DATA \\
       --params-npz diffusion.npz --tgt-feat-dir feat/ \\
@@ -36,6 +38,7 @@ from diffnorm_tpu_torch.data.manifest import (
 )
 from diffnorm_tpu_torch.device import resolve_device
 from diffnorm_tpu_torch.models.diffusion import LatentDiffusionModule, ddim_sample
+from diffnorm_tpu_torch.models.layers import INT8_ROUTES
 from diffnorm_tpu_torch.ops.unit_reduce import reduce_units
 from diffnorm_tpu_torch.weights import from_jax_params, load_npz
 
@@ -64,6 +67,12 @@ def parse_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
     p.add_argument("--splits", default="test,dev,train")
     p.add_argument("--seed", type=int, default=1)
     p.add_argument("--cpu", action="store_true", help="run on the CPU in float32")
+    p.add_argument("--quant-int8", action="store_true",
+                   help="int8 W8A8 transformer (JAX's quant_int8)")
+    p.add_argument("--int8-route", choices=INT8_ROUTES, default="fused_layer",
+                   help="with --quant-int8: fused_layer (DIFFNORM_FUSED_BLOCK=1), "
+                        "ffpipe (DIFFNORM_FFPIPE=1), ffpipe2 (and DIFFNORM_FFPIPE_ROWS=2) "
+                        "or module (the int8 module path)")
     p.add_argument("--hidden-dim", type=int, default=512)
     p.add_argument("--latent-dim", type=int, default=128)
     p.add_argument("--feature-dim", type=int, default=768)
@@ -91,8 +100,9 @@ def build_model(args: argparse.Namespace, device: torch.device) -> LatentDiffusi
             vae_decoder_depth=args.vae_decoder_depth,
             vae_decoder_dim_head=args.vae_decoder_dim_head,
             vae_decoder_heads=args.vae_decoder_heads,
-            chan_mults=args.chan_mults)
-    from_jax_params(model, load_npz(args.params_npz))
+            chan_mults=args.chan_mults, quant_int8=args.quant_int8,
+            int8_route=args.int8_route)
+    from_jax_params(model, load_npz(args.params_npz))  # int8 packs from float32
     dtype = torch.float32 if device.type == "cpu" else torch.bfloat16
     return model.to(dtype).eval()
 

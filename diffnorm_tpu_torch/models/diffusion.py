@@ -3,9 +3,17 @@
 Counterpart of diffnorm_tpu/models/diffusion.py for the DiffNorm
 normalization path: `DDPMSchedule`, the `Denoiser` (1x1 latent -> dim,
 FiLM-time WaveNet, sinusoidal positions, adaptive-RMSNorm transformer, proj
-back), `LatentDiffusionModule` and `ddim_sample`. The prompt-conditioned
-denoiser (`use_cond`, PerceiverResampler), the training forward and int8
-calibration are not ported yet.
+back), `LatentDiffusionModule` and `ddim_sample`.
+
+`quant_int8` / `int8_route` select JAX's int8 W8A8 sampling configuration
+for the transformer (see `ConditionableTransformer`): route "fused_layer"
+is DIFFNORM_FUSED_BLOCK=1, "ffpipe" / "ffpipe2" DIFFNORM_FFPIPE=1 (rows 1 /
+2), "module" the int8 module path. The WaveNet runs its `wavenet_chain`
+kernel in the model's dtype whatever `quant_int8` says, as JAX's kernel
+route does (DIFFNORM_PALLAS_WAVENET=1). Not ported yet: the JAX module
+route's int8 WaveNet convs, static activation scales
+(`calibrate_act_scales`), the prompt-conditioned denoiser (`use_cond`,
+PerceiverResampler) and the training forward.
 """
 
 from __future__ import annotations
@@ -94,7 +102,8 @@ class Denoiser(nn.Module):
     positions, adaptive-RMSNorm transformer with causal-conv FF, proj back."""
 
     def __init__(self, dim: int = 512, latent_dim: int = 128, depth: int = 12,
-                 wavenet_layers: int = 8, wavenet_stacks: int = 4):
+                 wavenet_layers: int = 8, wavenet_stacks: int = 4,
+                 quant_int8: bool = False, int8_route: str = "fused_layer"):
         super().__init__()
         self.dim = dim
         dim_time = dim * 4  # the time condition (dim_cond_mult 4)
@@ -105,7 +114,7 @@ class Denoiser(nn.Module):
                                cond_dim=dim_time)
         self.transformer = ConditionableTransformer(
             dim, depth, dim_head=64, heads=8, ff_mult=4, ff_causal_conv=True,
-            cond_dim=dim_time)
+            cond_dim=dim_time, quant_int8=quant_int8, int8_route=int8_route)
         self.final_proj = Dense(dim, latent_dim)
 
     def time_cond(self, times: torch.Tensor) -> torch.Tensor:
@@ -145,21 +154,23 @@ class Denoiser(nn.Module):
 class LatentDiffusionModule(nn.Module):
     """Frozen speech VAE + latent denoiser (released `diff_discrete` shape by
     default: hidden 512, latent 128, 768-d features, 1004-unit vocab, T=200
-    cosine schedule)."""
+    cosine schedule). `quant_int8` and `int8_route` go to the denoiser's
+    transformer."""
 
     def __init__(self, dim: int = 512, latent_dim: int = 128,
                  feature_dim: int = 768, vocab_size: int = 1004,
                  timesteps: int = 200, denoiser_depth: int = 12, wavenet_layers: int = 8,
                  wavenet_stacks: int = 4, vae_decoder_depth: int = 6,
                  vae_decoder_dim_head: int = 96, vae_decoder_heads: int = 8,
-                 chan_mults: Optional[Sequence[int]] = None):
+                 chan_mults: Optional[Sequence[int]] = None, quant_int8: bool = False,
+                 int8_route: str = "fused_layer"):
         super().__init__()
         self.vae = SpeechVAEModule(
             feature_dim, latent_dim, vocab_size, vae_decoder_depth,
             vae_decoder_dim_head, vae_decoder_heads, chan_mults)
         self.denoiser = Denoiser(
             dim, latent_dim, denoiser_depth, wavenet_layers=wavenet_layers,
-            wavenet_stacks=wavenet_stacks)
+            wavenet_stacks=wavenet_stacks, quant_int8=quant_int8, int8_route=int8_route)
         self.schedule = DDPMSchedule.create(timesteps)
 
     def encode(self, feature, noise=None, generator=None):

@@ -6,19 +6,32 @@ Submodule and parameter names follow the flax tree (`attn_norm_3`,
 over by a mechanical path map (`diffnorm_tpu_torch/weights.py`). Every layer
 computes in the dtype of its weights, as the flax modules compute in `dtype`;
 initialisers follow flax's (lecun-normal kernels, zero biases).
+
+`quant=True` (`quant_int8` on the transformer) is JAX's int8 W8A8 inference
+path (ops/quant.py): int8 weight codes and float32 scales are packed from the
+float32 parameters into `Int8Pack`s, which `.to(dtype)` moves but never
+casts, so they are built before the model is cast to bf16 and survive it.
 """
 
 from __future__ import annotations
 
 import math
-from typing import Optional
+from typing import Dict, Optional
 
 import torch
 import torch.nn.functional as F
 from torch import nn
 
 from diffnorm_tpu_torch.ops import attention as attention_ops
+from diffnorm_tpu_torch.ops import ffpipe as ffpipe_ops
+from diffnorm_tpu_torch.ops import fused_layer as fused_ops
 from diffnorm_tpu_torch.ops import norm as norm_ops
+from diffnorm_tpu_torch.ops import quant as quant_ops
+
+# ConditionableTransformer's int8 routes: JAX's DIFFNORM_FUSED_BLOCK=1,
+# DIFFNORM_FFPIPE=1, DIFFNORM_FFPIPE=1 with DIFFNORM_FFPIPE_ROWS=2, and
+# neither (the int8 module path)
+INT8_ROUTES = ("fused_layer", "ffpipe", "ffpipe2", "module")
 
 
 def _lecun_normal_(weight: torch.Tensor, fan_in: int) -> torch.Tensor:
@@ -34,17 +47,70 @@ def l2norm(x: torch.Tensor, eps: float = 1e-12) -> torch.Tensor:
     return x * inv.to(x.dtype)
 
 
+def _master(weight: torch.Tensor) -> torch.Tensor:
+    """The float32 parameter an int8 pack is built from (JAX quantizes its
+    float32 masters; codes from bf16-rounded weights differ)."""
+    if weight.dtype != torch.float32:
+        raise TypeError(f"int8 packs are built from the float32 parameters: load "
+                        f"the weights before casting the model (got {weight.dtype})")
+    return weight.detach()
+
+
+class Int8Pack(nn.Module):
+    """Packed copies of a module's weights (int8 codes, float32 scales and
+    biases, bf16 copies) as non-persistent buffers that `.to()` moves to a
+    device but never casts: a float32 scale cast to bf16 would change the
+    dequantization."""
+
+    def __init__(self, tensors: Dict[str, torch.Tensor]):
+        super().__init__()
+        for name, tensor in tensors.items():
+            self.register_buffer(name, tensor.detach().contiguous(), persistent=False)
+
+    def _apply(self, fn, recurse=True):
+        for name, buf in self._buffers.items():
+            if buf is not None:
+                moved = fn(buf)
+                self._buffers[name] = moved if moved.dtype == buf.dtype else buf.to(moved.device)
+        return self
+
+    def tensors(self) -> Dict[str, torch.Tensor]:
+        return dict(self._buffers)
+
+
 class Dense(nn.Linear):
-    """flax nn.Dense (QDense without int8): the input is cast to the weight's
-    dtype. `weight` is [out, in], the transpose of the flax kernel."""
+    """flax nn.Dense, or QDense with `quant=True`: the input is cast to the
+    weight's dtype. `weight` is [out, in], the transpose of the flax kernel.
+
+    With `quant` the product is int8 W8A8 (diffnorm_tpu/models/layers.py
+    QDense): per-channel int8 codes packed from the float32 weight
+    (`pack_weights`), per-token activation codes (or `pre_quant`, shared
+    between products of one input), exact int32 sums and JAX's bf16 dequant
+    epilogue; the bias is added in the output dtype."""
+
+    def __init__(self, in_features: int, out_features: int, bias: bool = True,
+                 quant: bool = False):
+        self.quant = quant
+        super().__init__(in_features, out_features, bias)
+        self.pack_weights()
 
     def reset_parameters(self) -> None:
         _lecun_normal_(self.weight, self.in_features)
         if self.bias is not None:
             nn.init.zeros_(self.bias)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return F.linear(x.to(self.weight.dtype), self.weight, self.bias)
+    @torch.no_grad()
+    def pack_weights(self) -> None:
+        if self.quant:
+            wq, ws = quant_ops.quantize_weight(_master(self.weight))
+            self.int8 = Int8Pack({"wq": wq, "ws": ws})
+
+    def forward(self, x: torch.Tensor, pre_quant=None) -> torch.Tensor:
+        x = x.to(self.weight.dtype)
+        if not self.quant:
+            return F.linear(x, self.weight, self.bias)
+        y = quant_ops.int8_matmul(x, self.int8.wq, self.int8.ws, pre_quant=pre_quant)
+        return y if self.bias is None else y + self.bias.to(y.dtype)
 
 
 def causal_taps(x: torch.Tensor, taps: torch.Tensor, dilation: int) -> torch.Tensor:
@@ -69,19 +135,48 @@ class CausalConv1d(nn.Module):
     """Left-padded dilated conv over [B, T, C] (pad = dilation * (k - 1)).
 
     `weight` is torch's conv layout [out, in, k]: weight[:, :, i] is the flax
-    kernel[i] transposed, with no flip (see `causal_taps`)."""
+    kernel[i] transposed, with no flip (see `causal_taps`).
+
+    With `quant` the taps are int8 W8A8 as in the JAX module
+    (diffnorm_tpu/models/layers.py:160-248): the input is quantized once per
+    token and the shifted taps reuse its codes; one per-out-channel weight
+    scale over [k, in] is shared by the taps; each tap's int32 sum is scaled
+    by its shifted token scale and the taps sum in the compute dtype. Unlike
+    QDense, JAX quantizes the kernel after casting it to the compute dtype,
+    so this one quantizes its weight as it is at each call (ROADMAP Queue 3)."""
 
     def __init__(self, in_dim: int, out_dim: int, kernel_size: int = 3,
-                 dilation: int = 1):
+                 dilation: int = 1, quant: bool = False):
         super().__init__()
-        self.dilation = dilation
+        self.dilation, self.quant = dilation, quant
         self.weight = nn.Parameter(_lecun_normal_(
             torch.empty(out_dim, in_dim, kernel_size), in_dim * kernel_size))
         self.bias = nn.Parameter(torch.zeros(out_dim))
 
+    def _forward_int8(self, x: torch.Tensor) -> torch.Tensor:
+        xq, ax = quant_ops.quantize_act(x)
+        w = self.weight.detach()  # one scale per output channel over [in, k]
+        wq, ws = quant_ops.quantize_weight(w.reshape(w.shape[0], -1))
+        wq, ws = wq.reshape(w.shape).permute(2, 0, 1).contiguous(), ws.reshape(-1)
+        k, (b, t_len, _) = wq.shape[0], x.shape
+        out = None
+        for i in range(k):
+            shift = (k - 1 - i) * self.dilation
+            if shift >= t_len and shift > 0:
+                continue  # the whole tap falls before the sequence
+            xi = xq if shift == 0 else F.pad(xq[:, :-shift], (0, 0, shift, 0))
+            ai = ax if shift == 0 else F.pad(ax[:, :-shift], (0, 0, shift, 0))
+            acc = quant_ops.int_mm(xi.reshape(b * t_len, -1), wq[i]).reshape(b, t_len, -1)
+            term = acc.to(x.dtype) * ai.to(x.dtype)
+            out = term if out is None else out + term
+        return out * ws.to(x.dtype)
+
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        x = x.to(self.weight.dtype)
+        if self.quant:
+            return self._forward_int8(x) + self.bias
         taps = self.weight.permute(2, 0, 1).contiguous()
-        return causal_taps(x.to(self.weight.dtype), taps, self.dilation) + self.bias
+        return causal_taps(x, taps, self.dilation) + self.bias
 
 
 class RMSNorm(nn.Module):
@@ -133,20 +228,35 @@ class FeedForward(nn.Module):
     the released width 512 the inner width is 1365, and an odd leading
     dimension sends every cuBLAS product that touches it to an unaligned
     kernel several times slower. The padded channels stay exact zeros
-    through GEGLU (gelu(0) * 0) and the conv (zero weights and bias)."""
+    through GEGLU (gelu(0) * 0) and the conv (zero weights and bias).
 
-    def __init__(self, dim: int, mult: int = 4, causal_conv: bool = False):
+    With `quant` it is JAX's int8 module path instead (QDense proj_in, GEGLU,
+    int8 conv, QDense proj_out, unpadded), and `pack_weights` also packs the
+    int8 weights of the fused kernels (`ops.ffpipe.pack_ff_weights`, inner
+    width padded to a multiple of 128) into `self.int8`."""
+
+    def __init__(self, dim: int, mult: int = 4, causal_conv: bool = False,
+                 quant: bool = False):
         super().__init__()
         self.inner = int(dim * mult * 2 / 3)
-        self.proj_in = Dense(dim, self.inner * 2)
-        self.conv = CausalConv1d(self.inner, self.inner, 3) if causal_conv else None
-        self.proj_out = Dense(self.inner, dim)
+        self.quant = quant
+        self.proj_in = Dense(dim, self.inner * 2, quant=quant)
+        self.conv = (CausalConv1d(self.inner, self.inner, 3, quant=quant)
+                     if causal_conv else None)
+        self.proj_out = Dense(self.inner, dim, quant=quant)
         self.pack_weights()
 
     @torch.no_grad()
     def pack_weights(self) -> None:
-        """Rebuild the padded copies from the parameters (buffers: `.to()`
-        moves and casts them; not saved)."""
+        """Rebuild the packed copies from the parameters (buffers: `.to()`
+        moves and casts the float copies; not saved)."""
+        if self.quant:
+            if self.conv is not None:
+                self.int8 = Int8Pack(ffpipe_ops.pack_ff_weights(
+                    _master(self.proj_in.weight), self.proj_in.bias,
+                    _master(self.conv.weight), self.conv.bias,
+                    _master(self.proj_out.weight), self.proj_out.bias))
+            return
         pad = (-self.inner) % 8
         halves = [F.pad(w, (0, 0, 0, pad)) for w in self.proj_in.weight.chunk(2)]
         packed = {
@@ -161,6 +271,11 @@ class FeedForward(nn.Module):
             self.register_buffer(name, tensor.detach().contiguous(), persistent=False)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if self.quant:
+            h = geglu(self.proj_in(x))
+            if self.conv is not None:
+                h = self.conv(h)
+            return self.proj_out(h)
         h = geglu(F.linear(x.to(self.w_in.dtype), self.w_in, self.b_in))
         if self.conv is not None:
             h = causal_taps(h, self.w_conv, 1) + self.b_conv
@@ -169,21 +284,37 @@ class FeedForward(nn.Module):
 
 class Attention(nn.Module):
     """Multi-head self-attention with a key-padding mask [B, T] (True =
-    valid); unbiased q / kv / out projections, scale dim_head ** -0.5."""
+    valid); unbiased q / kv / out projections, scale dim_head ** -0.5.
 
-    def __init__(self, dim: int, dim_head: int = 64, heads: int = 8):
+    With `quant` the projections are int8 QDense, and q and kv share one
+    per-token quantization of their common input, as in JAX
+    (diffnorm_tpu/models/layers.py:337-348); `pack_weights` also keeps the
+    bf16 [Wq; Wkv] and Wo of the fused layer kernel in `self.fused`."""
+
+    def __init__(self, dim: int, dim_head: int = 64, heads: int = 8,
+                 quant: bool = False):
         super().__init__()
-        self.heads, self.dim_head = heads, dim_head
+        self.heads, self.dim_head, self.quant = heads, dim_head, quant
         inner = heads * dim_head
-        self.to_q = Dense(dim, inner, bias=False)
-        self.to_kv = Dense(dim, 2 * inner, bias=False)
-        self.to_out = Dense(inner, dim, bias=False)
+        self.to_q = Dense(dim, inner, bias=False, quant=quant)
+        self.to_kv = Dense(dim, 2 * inner, bias=False, quant=quant)
+        self.to_out = Dense(inner, dim, bias=False, quant=quant)
+        self.pack_weights()
+
+    @torch.no_grad()
+    def pack_weights(self) -> None:
+        if self.quant:
+            self.fused = Int8Pack(fused_ops.pack_layer_weights(
+                _master(self.to_q.weight), _master(self.to_kv.weight),
+                _master(self.to_out.weight), {}))
 
     def forward(self, x: torch.Tensor,
                 mask: Optional[torch.Tensor] = None) -> torch.Tensor:
         b, n, _ = x.shape
-        q = self.to_q(x)
-        k, v = self.to_kv(x).chunk(2, dim=-1)
+        pq = (quant_ops.quantize_act(x.to(self.to_q.weight.dtype))
+              if self.quant else None)
+        q = self.to_q(x, pre_quant=pq)
+        k, v = self.to_kv(x, pre_quant=pq).chunk(2, dim=-1)
         q, k, v = (t.reshape(b, n, self.heads, self.dim_head).transpose(1, 2)
                    for t in (q, k, v))
         out = attention_ops.masked_attention(q, k, v, mask=mask)
@@ -225,21 +356,40 @@ def sinusoidal_positions(mask: torch.Tensor, dim: int,
 class ConditionableTransformer(nn.Module):
     """Pre-norm transformer: per layer RMSNorm -> masked MHA -> residual ->
     RMSNorm -> GEGLU FF -> residual; then RMSNorm and an unbiased `to_pred`.
-    With `cond_dim` every per-layer norm is FiLM-conditioned."""
+    With `cond_dim` every per-layer norm is FiLM-conditioned.
+
+    `quant_int8` makes the attention projections and the FF int8 W8A8, and
+    `int8_route` picks how a layer runs, as JAX's environment switches do
+    (diffnorm_tpu/models/layers.py:480-563):
+      "fused_layer"  every layer is one `ops.fused_layer` kernel call
+                     (DIFFNORM_FUSED_BLOCK=1);
+      "ffpipe"       int8 module attention, then the FF sublayer as one
+                     `ops.ffpipe_layer` kernel call (DIFFNORM_FFPIPE=1);
+      "ffpipe2"      the same with rows=2 (DIFFNORM_FFPIPE_ROWS=2);
+      "module"       the int8 module path throughout.
+    A kernel route is taken only where JAX takes it: bf16 weights, `film`
+    precomputed, a causal-conv FF, and heads * dim_head == dim for
+    "fused_layer"; any other call takes the module path."""
 
     def __init__(self, dim: int, depth: int, dim_head: int = 64, heads: int = 8,
                  ff_mult: int = 4, ff_causal_conv: bool = False,
-                 cond_dim: Optional[int] = None):
+                 cond_dim: Optional[int] = None, quant_int8: bool = False,
+                 int8_route: str = "fused_layer"):
         super().__init__()
-        self.depth = depth
+        if int8_route not in INT8_ROUTES:
+            raise ValueError(f"int8_route must be one of {INT8_ROUTES}, got {int8_route!r}")
+        self.dim, self.depth, self.dim_head, self.heads = dim, depth, dim_head, heads
+        self.ff_causal_conv, self.quant_int8 = ff_causal_conv, quant_int8
+        self.int8_route = int8_route
         has_cond = cond_dim is not None
         for i in range(depth):
             self.add_module(f"attn_norm_{i}",
                             RMSNorm(dim, scale=not has_cond, cond_dim=cond_dim))
-            self.add_module(f"attn_{i}", Attention(dim, dim_head, heads))
+            self.add_module(f"attn_{i}", Attention(dim, dim_head, heads, quant=quant_int8))
             self.add_module(f"ff_norm_{i}",
                             RMSNorm(dim, scale=not has_cond, cond_dim=cond_dim))
-            self.add_module(f"ff_{i}", FeedForward(dim, ff_mult, ff_causal_conv))
+            self.add_module(f"ff_{i}", FeedForward(dim, ff_mult, ff_causal_conv,
+                                                   quant=quant_int8))
         self.final_norm = RMSNorm(dim)
         self.to_pred = Dense(dim, dim, bias=False)
 
@@ -252,11 +402,35 @@ class ConditionableTransformer(nn.Module):
         return {kind: [self.layer(f"{kind}_norm", i).film(cond)
                        for i in range(self.depth)] for kind in ("attn", "ff")}
 
+    def route(self, film) -> str:
+        """The int8 route a call with this `film` takes ("module" also for a
+        model without int8)."""
+        if not (self.quant_int8 and film is not None and self.ff_causal_conv
+                and self.to_pred.weight.dtype == torch.bfloat16):
+            return "module"
+        if self.int8_route == "fused_layer" and self.heads * self.dim_head != self.dim:
+            return "module"
+        return self.int8_route
+
     def forward(self, x, cond=None, mask=None, film=None):
+        route = self.route(film)
+        if route == "fused_layer":
+            if mask is None:
+                mask = torch.ones(x.shape[:2], dtype=torch.bool, device=x.device)
+            for i in range(self.depth):
+                w = {**self.layer("attn", i).fused.tensors(),
+                     **self.layer("ff", i).int8.tensors()}
+                x = fused_ops.fused_layer(x, mask, film["attn"][i], film["ff"][i], w,
+                                          self.heads, self.dim_head)
+            return self.to_pred(self.final_norm(x))
         for i in range(self.depth):
             hn = self.layer("attn_norm", i)(
                 x, cond=cond, film=film["attn"][i] if film else None)
             x = x + self.layer("attn", i)(hn, mask=mask)
+            if route in ("ffpipe", "ffpipe2"):
+                x = ffpipe_ops.ffpipe_layer(x, film["ff"][i], self.layer("ff", i).int8.tensors(),
+                                            rows=2 if route == "ffpipe2" else 1)
+                continue
             hn = self.layer("ff_norm", i)(
                 x, cond=cond, film=film["ff"][i] if film else None)
             x = x + self.layer("ff", i)(hn)

@@ -2,7 +2,8 @@
 
 Each `diffnorm_tpu_torch/csrc/<name>.cu` exposes a plain C interface and is
 compiled on its own into `csrc/build/lib<name>-<hash>.so` (the hash covers the
-source and the flags, so an edited source is rebuilt). `build` starts one nvcc
+source, the shared headers `csrc/*.cuh` and the flags, so an edited source is
+rebuilt). `build` starts one nvcc
 per missing library, all at once. Nothing is compiled or loaded at import:
 the CPU tests import every module on a machine without nvcc.
 
@@ -24,7 +25,7 @@ from typing import Dict, Iterable, Sequence
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = CSRC / "build"
-KERNELS = ("rms_norm_film", "wavenet_chain")
+KERNELS = ("rms_norm_film", "wavenet_chain", "int8_ff", "fused_layer")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
@@ -49,6 +50,7 @@ def _nvcc() -> str:
 
 def library_path(name: str) -> Path:
     src = (CSRC / f"{name}.cu").read_bytes()
+    src += b"".join(h.read_bytes() for h in sorted(CSRC.glob("*.cuh")))
     digest = hashlib.sha1(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:12]
     return BUILD_DIR / f"lib{name}-{digest}.so"
 

@@ -55,11 +55,23 @@ def _check_names(have, want) -> None:
                        f"{missing[:10]}, not in the model {extra[:10]}")
 
 
+def pack_all(model: nn.Module) -> nn.Module:
+    """Rebuild the packed weight copies of every module that has them
+    (`pack_weights`: WaveNet chains, FeedForward, and with int8 the QDense,
+    conv and fused-kernel packs). Int8 packs are built from float32
+    parameters, as JAX quantizes its float32 masters: call this, like
+    `from_jax_params`, before casting the model to bf16; the packs keep
+    their types through the cast."""
+    for m in list(model.modules()):
+        if hasattr(m, "pack_weights"):
+            m.pack_weights()
+    return model
+
+
 def from_jax_params(model: nn.Module, params: Mapping) -> nn.Module:
     """Load the JAX `params` tree into `model` in place (on the model's
-    device and dtype) and rebuild the packed weight copies of every module
-    that has them (`pack_weights`: WaveNet chains, FeedForward). Returns
-    `model`."""
+    device and dtype) and rebuild its packed weight copies (`pack_all`).
+    Returns `model`."""
     flat = {_torch_name(p): (p, v) for p, v in _flatten(params).items()}
     named = dict(model.named_parameters())
     _check_names(named, flat)
@@ -73,10 +85,7 @@ def from_jax_params(model: nn.Module, params: Mapping) -> nn.Module:
                 raise ValueError(f"{name}: JAX shape {tuple(t.shape)} does not "
                                  f"map onto {tuple(p.shape)}")
             p.copy_(t)
-    for m in list(model.modules()):
-        if hasattr(m, "pack_weights"):  # modules that run on packed copies
-            m.pack_weights()
-    return model
+    return pack_all(model)
 
 
 def to_jax_params(model: nn.Module) -> dict:

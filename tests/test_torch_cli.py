@@ -1,6 +1,6 @@
 """The port's normalization CLI (--cpu) on a synthetic manifest against a
 manifest assembled from the JAX ddim_sample and reduce_units, with the same
-noise injected into both, chunk by chunk."""
+noise injected into both, chunk by chunk; in float32 and with --quant-int8."""
 
 import os
 
@@ -17,6 +17,7 @@ from diffnorm_tpu.data.manifest import (
     write_translation_manifest,
 )
 from diffnorm_tpu.models.diffusion import LatentDiffusionModel, ddim_sample
+from diffnorm_tpu.models.wavenet import Wavenet as JWavenet
 from diffnorm_tpu.ops.unit_reduce import reduce_units
 from diffnorm_tpu_torch.cli import diff_norm_synthesis
 from diffnorm_tpu_torch.weights import save_npz
@@ -28,7 +29,24 @@ TINY = dict(hidden_dim=16, latent_dim=3, feature_dim=24, chan_mults=[4],
 
 
 def test_cli_writes_the_jax_assembled_manifest(tmp_path, monkeypatch):
-    jmodel = LatentDiffusionModel.build_model(Config(**TINY))
+    _check_cli(tmp_path, monkeypatch, quant_int8=False)
+
+
+def test_cli_quant_int8_writes_the_jax_assembled_manifest(tmp_path, monkeypatch):
+    """--quant-int8 --cpu runs float32, so the transformer takes the int8
+    module route; the reference is JAX's ddim_sample with quant_int8 and
+    DIFFNORM_PALLAS_WAVENET=1 (the WaveNet ignores int8 there, as the port's
+    does), its Pallas chains in interpret mode."""
+    chains = JWavenet._chains_pallas
+    monkeypatch.setattr(JWavenet, "_chains_pallas",
+                        lambda self, x, t=None, film=None, interpret=False:
+                        chains(self, x, t, film, interpret=True))
+    monkeypatch.setenv("DIFFNORM_PALLAS_WAVENET", "1")
+    _check_cli(tmp_path, monkeypatch, quant_int8=True)
+
+
+def _check_cli(tmp_path, monkeypatch, quant_int8):
+    jmodel = LatentDiffusionModel.build_model(Config(**TINY, quant_int8=quant_int8))
     v = jmodel.module.init({"params": jax.random.PRNGKey(1)},
                            jnp.zeros((2, 10, 24)), jnp.ones((2, 10), bool),
                            jax.random.PRNGKey(1))
@@ -69,7 +87,8 @@ def test_cli_writes_the_jax_assembled_manifest(tmp_path, monkeypatch):
         "--vocab-size", "20", "--timesteps", "20", "--denoiser-depth", "1",
         "--wavenet-layers", "2", "--wavenet-stacks", "1",
         "--vae-decoder-depth", "1", "--vae-decoder-dim-head", "8",
-        "--vae-decoder-heads", "2", "--chan-mults", "[4]"])
+        "--vae-decoder-heads", "2", "--chan-mults", "[4]"]
+        + (["--quant-int8"] if quant_int8 else []))
     assert rc == 0
 
     # the JAX flow: sort by reduced length, bucket, sample each chunk

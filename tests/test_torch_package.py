@@ -1,6 +1,6 @@
-"""The port stands alone: no module of diffnorm_tpu_torch/ and not
-chip_smoke.py imports JAX, flax or the JAX package, and the entry points run
-on the CPU only when asked to."""
+"""The port stands alone: no module of diffnorm_tpu_torch/, not chip_smoke.py
+and not time_main_path.py imports JAX, flax or the JAX package, and the entry
+points run on the CPU only when asked to."""
 
 import ast
 import os
@@ -17,7 +17,8 @@ FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "orbax", "diffnorm_tpu")
 
 
 def _port_sources():
-    return sorted((REPO / "diffnorm_tpu_torch").rglob("*.py")) + [REPO / "chip_smoke.py"]
+    return sorted((REPO / "diffnorm_tpu_torch").rglob("*.py")) + [
+        REPO / "chip_smoke.py", REPO / "time_main_path.py"]
 
 
 def _imported_roots(path: Path):
