@@ -6,13 +6,18 @@
 Phases, each printing one line with its time; any failure exits non-zero and
 prints no result:
 
-1. build: compile every kernel of the DDIM path from csrc/ with nvcc (one
-   process per source, in parallel) and print the card's name and power limit.
+1. build: compile every kernel of the DDIM and S2ST paths from csrc/ with
+   nvcc (one process per source, in parallel) and print the card's name and
+   power limit.
 2. kernels: each kernel's wrapper on the card at the path's shapes against its
    plain PyTorch version on the same inputs, with its median time, its bound
    on the card and the plain version's time: rms_norm_film, wavenet_chain,
    and the int8 fused_layer and ffpipe_layer (rows 1 and 2, which must agree
-   bit for bit) at [64, 128, 512], P=1408, checked also at [4, 200, 512].
+   bit for bit) at [64, 128, 512], P=1408, checked also at [4, 200, 512];
+   flash_attention at the S2ST decoder's long-form shape (q [2,8,256,64]
+   against k/v [2,8,2112,64]) and at B2 H8 T4096 D64, with ragged key masks,
+   a fully masked row, odd Tq/Tk, D 32/96/128 and float32, timed beside
+   F.scaled_dot_product_attention with the same boolean key mask.
 3. main path: ddim_sample at the released bf16 diff_discrete width (hidden
    512, latent 128, 768-d features, 12 + 4x8 denoiser, T=200, start step 50 =
    49 DDIM steps) from a seeded random init at B64 x T128, through the
@@ -23,6 +28,23 @@ prints no result:
    against the plain-version run (ffpipe2 against ffpipe, bit for bit).
 4. entry point: the weights written with weights.save_npz and the CLI run on
    8 synthetic utterances, in bf16 and with --quant-int8.
+5. S2ST chain at CVSS length: s2st_generate with the released
+   nar_s2ut_conformer (encoder 512 x 12, decoder 512 x 6, vocab 1004) and
+   the released code-HiFi-GAN with its duration predictor, seeded random
+   init (the specials' output columns zeroed), bf16, at bench.py --e2e's
+   shape: B16 x 480 fbank frames, 15 iterations, max_len 256, max_duration
+   4, a 384-unit wav canvas, vocoder chunk 4. The subsampled source (120
+   frames) is too short for flash_attention, which launches 0 times here.
+   The wall is the median of 5 runs after a warm-up. Then the same run
+   through the plain versions: units equal, waveform row-cos held to a
+   bound.
+6. S2ST chain, long form: B2 x 8448 frames (84.5 s, 2112 subsampled
+   frames), the same models: every decoder forward's 6 encoder attentions
+   launch flash_attention. Against the plain-version run: a share of equal
+   units, the waveform's row-cos, and one teacher-forced decoder forward's
+   logits (row-cos, argmax agreement).
+7. entry point: both models written with weights.save_npz and cli.s2st run
+   on 8 synthetic .npy utterances with --dur-prediction.
 
 Then one JSON line of per-kernel numbers and, last, {"ok": true, "device": ...}.
 Exits non-zero without CUDA, and in a directory without the port.
@@ -73,6 +95,37 @@ PATH_ROW_COS = 0.99
 # bounds the CPU tests hold its plain version to against the JAX kernel.
 FF_ROW_COS, FF_REL_ERR, FF_BIT_EQUAL = 0.9995, 2e-2, 0.98
 LAYER_ROW_COS, LAYER_REL_ERR = 0.9995, 3e-2
+# flash_attention: the tolerance of tests/test_pallas_ops.py:25 plus one ulp
+# of the output's type (kernel and plain version each round once)
+FLASH_RTOL, FLASH_ATOL = 2e-3, 2e-4
+
+# the S2ST chain (bench.py --e2e's shape) and its long form, where the
+# subsampled source reaches flash_attention's 2048 keys
+S2ST_B, S2ST_FRAMES = 16, 480
+LONG_B, LONG_FRAMES = 2, 8448
+S2ST_KW = dict(max_iter=15, max_len=256, max_duration=4, max_wav_units=384,
+               vocoder_chunk=4, return_steps=True)
+S2ST_REPS = 5
+SECONDS_PER_FRAME = 0.01     # 10 ms fbank shift
+VOCODER_CFG = dict(num_embeddings=1000, embedding_dim=128, upsample_rates=[5, 4, 4, 2, 2],
+                   upsample_kernel_sizes=[11, 8, 8, 4, 4], upsample_initial_channel=512,
+                   resblock_kernel_sizes=[3, 7, 11],
+                   resblock_dilation_sizes=[[1, 3, 5], [1, 3, 5], [1, 3, 5]],
+                   dur_predictor_params={"var_pred_hidden_dim": 256})
+# the S2ST chain through the kernels against the plain-version run. At CVSS
+# length no kernel runs and the two runs are the same computation: units
+# equal, waveform row-cos 1. In long form the kernel's encoder attention
+# differs from its plain version by sum order, an ulp of bf16 here and
+# there, and the random decoder's bf16 logits (tens in size, ulps of 0.125
+# to 0.25) hold near-ties, so an argmax flips and the mask-predict
+# trajectories part: the chain's units are held to a share of equal
+# positions, and one decoder forward over a fixed canvas (teacher-forced, no
+# trajectory) to its logits' row-cos and argmax agreement. On an H100 the
+# long form gave 0.7222 of units equal, logits row-cos 0.999992 and argmax
+# agreement 1.0, waveform row-cos 0.999987: a random-init vocoder's waveform
+# hardly depends on its units, so that bound says little there.
+S2ST_WAV_ROW_COS, LONG_WAV_ROW_COS = 0.99999, 0.9999
+LONG_UNIT_AGREE, LONG_LOGIT_ROW_COS, LONG_ARGMAX_AGREE = 0.5, 0.9999, 0.99
 
 
 def fail(msg: str) -> None:
@@ -326,18 +379,113 @@ def check_fused_layer(torch, ffpipe, fused):
                 max_abs_err=err)
 
 
+def cuda_time_eager_ms(fn, iters: int = 20, reps: int = 5) -> float:
+    """Device time per call of `iters` eager calls between CUDA events (for
+    a library call that a CUDA graph may not capture); median of `reps`."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    samples = []
+    for _ in range(reps):
+        start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        start.record()
+        for _ in range(iters):
+            fn()
+        end.record()
+        end.synchronize()
+        samples.append(start.elapsed_time(end) / iters)
+    return statistics.median(samples)
+
+
+def device_kernels(torch, fn):
+    """The device kernels one call of `fn` runs, by device time (profiler)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    events = [e for e in prof.key_averages()
+              if e.device_type == torch.autograd.DeviceType.CUDA and e.self_device_time_total > 0]
+    return [e.key for e in sorted(events, key=lambda e: -e.self_device_time_total)]
+
+
+def check_flash_attention(torch, flash):
+    """flash_attention against its plain version: ragged masks, a fully
+    masked row, Tq/Tk off the 64 tiles, D 32/96/128, float32; then the
+    path's shape and PERFORMANCE.md's, timed beside the plain version and
+    F.scaled_dot_product_attention with the same boolean key mask."""
+    bf, f32 = torch.bfloat16, torch.float32
+    cases = [  # (what, B, H, Tq, Tk, D, key lengths, dtype)
+        ("odd, a fully masked row", 3, 4, 200, 2100, 64, [2100, 977, 0], bf),
+        ("D=32", 2, 2, 70, 130, 32, [130, 0], bf),
+        ("D=96", 2, 2, 70, 130, 96, [101, 0], bf),
+        ("D=128", 2, 2, 70, 130, 128, [130, 64], bf),
+        ("float32", 2, 2, 70, 130, 64, [90, 0], f32),
+        ("float32 D=80", 1, 2, 33, 77, 80, [50], f32),
+        ("path", 2, 8, 256, 2112, 64, [2112, 1056], bf),
+        ("PERFORMANCE.md", 2, 8, 4096, 4096, 64, [4096, 3001], bf),
+    ]
+    g = torch.Generator(device="cuda").manual_seed(50)
+    max_err, timed = 0.0, {}
+    for what, b, h, tq, tk, d, lengths, dtype in cases:
+        q, k, v = (torch.randn(b, h, t, d, generator=g, device="cuda").to(dtype)
+                   for t in (tq, tk, tk))
+        mask = (torch.arange(tk, device="cuda")[None, :]
+                < torch.tensor(lengths, device="cuda")[:, None])
+        got = flash.flash_attention(q, k, v, mask).float()
+        ref = flash.flash_attention_plain(q, k, v, mask).float()
+        torch.cuda.synchronize()
+        tol = FLASH_ATOL + FLASH_RTOL * ref.abs()
+        if dtype == bf:
+            tol = tol + torch.ldexp(torch.ones_like(ref), torch.frexp(ref).exponent - 8)
+        err = (got - ref).abs()
+        n_bad = (err > tol).sum().item()
+        if not torch.isfinite(got).all() or n_bad:
+            fail(f"flash_attention {what}: {n_bad} elements beyond tolerance, "
+                 f"max err {err.max().item():.3e}")
+        max_err = max(max_err, err.max().item())
+        print(f"kernel flash_attention {what} q [{b},{h},{tq},{d}] k/v [{b},{h},{tk},{d}] "
+              f"{str(dtype)[6:]} keys {lengths}: max err {err.max().item():.3e}, within "
+              f"rtol {FLASH_RTOL} atol {FLASH_ATOL}" + (" + 1 bf16 ulp" if dtype == bf else ""))
+        if what not in ("path", "PERFORMANCE.md"):
+            continue
+        ms = cuda_time_ms(lambda: flash.flash_attention(q, k, v, mask))
+        plain_ms = cuda_time_ms(lambda: flash.flash_attention_plain(q, k, v, mask),
+                                iters=3, reps=3)
+        am = mask[:, None, None, :]
+
+        def sdpa():
+            return torch.nn.functional.scaled_dot_product_attention(q, k, v, attn_mask=am)
+
+        library_ms = cuda_time_eager_ms(sdpa)
+        backend = device_kernels(torch, sdpa)[:1]
+        nbytes = (2 * q.numel() + k.numel() + v.numel()) * q.element_size() + mask.numel()
+        flops = 4.0 * b * h * tq * tk * d
+        bound_ms, bound_by = bound(nbytes, flops, BF16_FLOP_PER_S)
+        print(f"kernel flash_attention {what}: {ms:.4f} ms, plain {plain_ms:.4f} ms, bound "
+              f"{bound_ms:.4f} ms ({bound_by}: {nbytes / 1e6:.2f} MB, {flops / 1e9:.2f} GFLOP), "
+              f"{flops / ms / 1e9:.1f} TFLOP/s; F.scaled_dot_product_attention with the mask "
+              f"{library_ms:.4f} ms, its kernel {backend}")
+        timed[what] = dict(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
+                           library_ms=library_ms)
+    return dict(timed["path"], max_abs_err=max_err), timed["PERFORMANCE.md"]
+
+
 @contextlib.contextmanager
-def plain_versions(norm, chain, ffpipe, fused):
+def plain_versions(norm, chain, ffpipe, fused, flash):
     """Route the models through the plain versions (the on-card reference)."""
     saved = (norm.rms_norm_film, chain.wavenet_chain, ffpipe.ffpipe_layer,
-             fused.fused_layer)
+             fused.fused_layer, flash.flash_attention)
     norm.rms_norm_film, chain.wavenet_chain = norm.rms_norm_film_plain, chain.wavenet_chain_plain
     ffpipe.ffpipe_layer = lambda x, film, w, rows=1: ffpipe.ffpipe_layer_plain(x, film, w)
     fused.fused_layer = fused.fused_layer_plain
+    flash.flash_attention = flash.flash_attention_plain
     try:
         yield
     finally:
-        norm.rms_norm_film, chain.wavenet_chain, ffpipe.ffpipe_layer, fused.fused_layer = saved
+        (norm.rms_norm_film, chain.wavenet_chain, ffpipe.ffpipe_layer, fused.fused_layer,
+         flash.flash_attention) = saved
 
 
 def run_main_path(torch, model, ddim_sample, inputs):
@@ -350,13 +498,13 @@ def run_main_path(torch, model, ddim_sample, inputs):
     return units, recon, time.perf_counter() - t0
 
 
-def profile_main_path(torch, model, ddim_sample, inputs, wall):
-    """Device time by kernel over one more main-path run (torch.profiler):
-    the busy share of the unprofiled wall time and the largest kernels."""
+def profile_run(torch, fn, wall):
+    """Device time by kernel over one more call of `fn` (torch.profiler): the
+    busy share of the unprofiled wall time and the largest kernels."""
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        run_main_path(torch, model, ddim_sample, inputs)
+        fn()
     kernels = [e for e in prof.key_averages()
                if e.device_type == torch.autograd.DeviceType.CUDA]
     busy_ms = sum(e.self_device_time_total for e in kernels) / 1e3
@@ -476,10 +624,214 @@ def run_int8_routes(torch, qmodel, ddim_sample, inputs, units_bf16, smi, mods):
               f"{peak_gb:.2f} GB; {against}; unit agreement with the bf16 kernel path "
               f"{(units == units_bf16).float().mean().item():.4f}; {smi}")
         if route != "ffpipe2":
-            profile_main_path(torch, qmodel, ddim_sample, inputs, wall)
+            profile_run(torch, lambda: run_main_path(torch, qmodel, ddim_sample, inputs),
+                        wall)
         print(f"phase main path int8 {route}: {time.perf_counter() - t0:.1f} s")
         launches_by_kernel[kernel] = launches[kernel]
     return launches_by_kernel
+
+
+def s2st_models(torch):
+    """The released nar_s2ut_conformer and code-HiFi-GAN (with its duration
+    predictor), seeded random init in bf16. The specials' rows of the shared
+    embedding (their output columns) are zeroed and the unit rows scaled by
+    10, as tests/test_cli_s2st.py does, so the decode emits varied units."""
+    from diffnorm_tpu_torch.models.hifigan import CodeHiFiGANVocoder
+    from diffnorm_tpu_torch.models.nar_transformer import NARS2UTModule
+
+    torch.manual_seed(0)
+    with torch.device("cuda"):
+        nar = NARS2UTModule()
+    with torch.no_grad():
+        emb = nar.decoder.embed_tokens.weight
+        emb[:4] = 0.0
+        emb[4:] *= 10.0
+    voc = CodeHiFiGANVocoder.from_config(VOCODER_CFG, device="cuda", dtype=torch.bfloat16)
+    return nar.to(torch.bfloat16).eval(), voc.module
+
+
+def s2st_inputs(torch, b, frames, seed=0):
+    """bench.py --e2e's batch: normal fbank [B, frames, 80], every row full
+    length but the last, which has half."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    lengths = np.full((b,), frames, np.int32)
+    lengths[-1] = max(frames // 2, 9)
+    return (torch.from_numpy(rng.normal(size=(b, frames, 80)).astype(np.float32)).cuda(),
+            torch.from_numpy(lengths).cuda())
+
+
+def run_s2st(torch, s2st_generate, nar, voc, inputs):
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = s2st_generate(nar, voc, *inputs, **S2ST_KW)
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0
+
+
+def s2st_phase(torch, what, s2st_generate, nar, voc, inputs, mods, smi, long_form):
+    """s2st_generate through the kernels (warm-up, then a run with the
+    counts set to 0 just before it and read just after), the same run
+    through the plain versions, and the checks. Returns the launches."""
+    from diffnorm_tpu_torch.models.conformer import subsampled_lengths
+    from diffnorm_tpu_torch.ops import _build
+
+    t0 = time.perf_counter()
+    b, frames = inputs[0].shape[:2]
+    run_s2st(torch, s2st_generate, nar, voc, inputs)  # warm-up
+    torch.cuda.reset_peak_memory_stats()
+    _build.launch_counts.clear()
+    (wav, wav_lengths, units, counts, steps), wall = run_s2st(
+        torch, s2st_generate, nar, voc, inputs)
+    launches = dict(_build.launch_counts)
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    # the chain is host-bound and one run's wall moves by tens of percent:
+    # the median of S2ST_REPS runs
+    walls = [wall] + [run_s2st(torch, s2st_generate, nar, voc, inputs)[1]
+                      for _ in range(S2ST_REPS - 1)]
+    wall = statistics.median(walls)
+    forwards = int(steps.max())  # one decoder forward per iteration (no CG)
+    n_flash = launches.get("flash_attention", 0)
+    if long_form and n_flash < nar.decoder.n_layers * forwards:
+        fail(f"S2ST {what}: flash_attention launched {n_flash} times for {forwards} "
+             f"decoder forwards of {nar.decoder.n_layers} layers")
+    if not long_form and n_flash:
+        fail(f"S2ST {what}: flash_attention launched at a source below 2048 frames")
+    n_wav = S2ST_KW["max_wav_units"] * voc.upsample
+    if wav.shape != (b, n_wav) or not torch.isfinite(wav.float()).all():
+        fail(f"S2ST {what}: waveform is not finite [{b}, {n_wav}]")
+    if counts.max() < 1 or units.min() < 0 or units.max() >= 1000:
+        fail(f"S2ST {what}: no units, or units out of range (counts {counts.tolist()})")
+    with plain_versions(*mods):
+        (wav_ref, _, units_ref, counts_ref, _), wall_ref = run_s2st(
+            torch, s2st_generate, nar, voc, inputs)
+    shared = torch.minimum(counts, counts_ref)
+    valid = torch.arange(units.shape[1], device=units.device)[None, :] < shared[:, None]
+    agree = ((units == units_ref) & valid).sum().item() / max(valid.sum().item(), 1)
+    same = agree == 1.0 and torch.equal(counts, counts_ref)
+    cos = torch.nn.functional.cosine_similarity(wav.float(), wav_ref.float(), dim=-1)
+    rel = ((wav.float() - wav_ref.float()).abs().max() / wav_ref.float().abs().max()).item()
+    against = (f"plain-version run {wall_ref:.4f} s, units {'equal' if same else 'differ'} "
+               f"(share equal {agree:.4f}; counts {counts_ref.tolist()}), waveform row-cos "
+               f"min {cos.min().item():.6f} mean {cos.mean().item():.6f}, max-abs/scale "
+               f"{rel:.3e}")
+    if long_form:
+        against += "; " + decoder_check(torch, nar, inputs, mods, what)
+        if agree < LONG_UNIT_AGREE or cos.min().item() < LONG_WAV_ROW_COS:
+            fail(f"S2ST {what}: against the plain-version run, {against}")
+    elif not same or cos.min().item() < S2ST_WAV_ROW_COS:
+        fail(f"S2ST {what}: the plain-version run differs ({against})")
+    audio_s = b * frames * SECONDS_PER_FRAME
+    n_sub = int(subsampled_lengths(torch.tensor([frames]))[0])
+    print(f"S2ST {what}: B{b}x{frames} frames ({frames * SECONDS_PER_FRAME:.1f} s, "
+          f"{n_sub} subsampled), bf16: wall {wall:.4f} s (median of {len(walls)} runs, "
+          f"{min(walls):.4f}-{max(walls):.4f} s), RTF {audio_s / wall:.2f}, "
+          f"iterations per row {steps.tolist()}, decoder forwards {forwards}, launches {launches} (flash_attention {n_flash}), peak {peak_gb:.2f} GB, "
+          f"unit counts {counts.tolist()}; {against}; {smi}")
+    print(f"S2ST {what} by stage: {s2st_stages(torch, nar, voc, inputs)}")
+    if not long_form:
+        profile_run(torch, lambda: run_s2st(torch, s2st_generate, nar, voc, inputs), wall)
+    print(f"phase S2ST {what}: {time.perf_counter() - t0:.1f} s")
+    return launches
+
+
+def s2st_stages(torch, nar, voc, inputs):
+    """Wall of the chain's stages, each alone between synchronizations: the
+    encoder, the mask-predict decode (encoder included) and the vocoder on a
+    full canvas of random units."""
+    from diffnorm_tpu_torch.generate.mask_predict import mask_predict_decode
+    from diffnorm_tpu_torch.generate.s2st import _chunked_vocoder
+
+    def timed(fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        return time.perf_counter() - t0
+
+    g = torch.Generator(device="cuda").manual_seed(61)
+    codes = torch.randint(0, 1000, (inputs[0].shape[0], S2ST_KW["max_wav_units"]),
+                          generator=g, device="cuda")
+    kw = {k: S2ST_KW[k] for k in ("max_iter", "max_len")}
+    with torch.no_grad():
+        enc = timed(lambda: nar.encode(*inputs))
+        dec = timed(lambda: mask_predict_decode(nar, *inputs, **kw))
+        vocoder = timed(lambda: _chunked_vocoder(voc, codes, S2ST_KW["vocoder_chunk"]))
+    return (f"encoder {enc:.4f} s, mask-predict decode with the encoder {dec:.4f} s, "
+            f"vocoder on the full {S2ST_KW['max_wav_units']}-unit canvas {vocoder:.4f} s")
+
+
+def decoder_check(torch, nar, inputs, mods, what):
+    """One decoder forward over a fixed random canvas of 256 units on the
+    encoder output, through the kernels and through the plain versions:
+    logits row-cos, argmax agreement, max-abs over scale. Checked against
+    the LONG_* bounds; returns the line to print."""
+    g = torch.Generator(device="cuda").manual_seed(60)
+    with torch.no_grad():
+        enc, enc_mask = nar.encode(*inputs)
+        tokens = torch.randint(4, nar.vocab_size, (enc.shape[0], S2ST_KW["max_len"]),
+                               generator=g, device="cuda")
+        logits = nar.decode(tokens, enc, enc_mask).float()
+        with plain_versions(*mods):
+            ref = nar.decode(tokens, enc, enc_mask).float()
+    cos = torch.nn.functional.cosine_similarity(logits, ref, dim=-1).min().item()
+    argmax = (logits.argmax(-1) == ref.argmax(-1)).float().mean().item()
+    rel = ((logits - ref).abs().max() / ref.abs().max()).item()
+    line = (f"one decoder forward on a fixed canvas: logits row-cos min {cos:.6f}, argmax "
+            f"agreement {argmax:.4f}, max-abs/scale {rel:.3e}")
+    if cos < LONG_LOGIT_ROW_COS or argmax < LONG_ARGMAX_AGREE:
+        fail(f"S2ST {what}: {line}")
+    return line
+
+
+def run_s2st_cli(torch, nar, voc, smi):
+    """cli.s2st on 8 synthetic .npy utterances, both models via save_npz."""
+    import wave
+
+    import numpy as np
+
+    from diffnorm_tpu_torch.cli import s2st as s2st_cli
+    from diffnorm_tpu_torch.data.manifest import write_translation_manifest
+    from diffnorm_tpu_torch.ops import _build
+    from diffnorm_tpu_torch.weights import save_npz, to_jax_variables
+
+    rng = np.random.default_rng(4)
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = Path(tmp)
+        save_npz(str(tmp / "nar.npz"), to_jax_variables(nar))
+        save_npz(str(tmp / "voc.npz"), to_jax_variables(voc))
+        (tmp / "voc.json").write_text(json.dumps(VOCODER_CFG))
+        rows = []
+        for i in range(8):
+            n = int(rng.integers(300, 701))
+            np.save(tmp / f"utt{i}.npy", rng.normal(size=(n, 80)).astype(np.float32))
+            rows.append({"id": f"utt{i}", "src_audio": f"utt{i}.npy", "src_n_frames": n,
+                         "tgt_audio": "0", "tgt_n_frames": 1})
+        write_translation_manifest(str(tmp / "test.tsv"), rows)
+        _build.launch_counts.clear()
+        t0 = time.perf_counter()
+        rc = s2st_cli.main([str(tmp), "--params-npz", str(tmp / "nar.npz"),
+                            "--vocoder-npz", str(tmp / "voc.npz"),
+                            "--vocoder-cfg", str(tmp / "voc.json"),
+                            "--results-path", str(tmp / "out"), "--batch-size", "4",
+                            "--dur-prediction", "--max-duration", "4"])
+        dt = time.perf_counter() - t0
+        if rc != 0:
+            fail(f"cli.s2st returned {rc}")
+        lines = (tmp / "out" / "s2st-test.unit").read_text().splitlines()
+        ids = [line.split("|")[0] for line in lines]
+        if sorted(ids) != sorted(r["id"] for r in rows):
+            fail(f"cli.s2st unit file ids {ids}")
+        for uid in ids:
+            with wave.open(str(tmp / "out" / f"{uid}_pred.wav")) as w:
+                if w.getnframes() <= 0 or w.getframerate() != 16000:
+                    fail(f"cli.s2st wrote an empty or mis-rated {uid}_pred.wav")
+        n_units = sum(len(line.split("|")[1].split()) for line in lines)
+        print(f"phase entry point S2ST: {dt:.2f} s for cli.s2st on 8 utterances (300-700 "
+              f"frames, batch 4, --dur-prediction, weights via save_npz): every "
+              f"{{id}}_pred.wav written, unit file has every id ({n_units} units), launches "
+              f"{dict(_build.launch_counts)}; {smi}")
 
 
 def main() -> int:
@@ -496,8 +848,10 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
 
+    from diffnorm_tpu_torch.generate.s2st import s2st_generate
     from diffnorm_tpu_torch.models.diffusion import LatentDiffusionModule, ddim_sample
     from diffnorm_tpu_torch.ops import _build, ffpipe, norm
+    from diffnorm_tpu_torch.ops import flash_attention as flash
     from diffnorm_tpu_torch.ops import fused_layer as fused
     from diffnorm_tpu_torch.ops import wavenet_chain as chain
     from diffnorm_tpu_torch.weights import pack_all
@@ -523,6 +877,7 @@ def main() -> int:
                "fused_layer": check_fused_layer(torch, ffpipe, fused),
                **check_ffpipe(torch, ffpipe)}
     int_mm_conv_ms = results.pop("int_mm_conv_ms")
+    results["flash_attention"], flash_perf_shape = check_flash_attention(torch, flash)
     print(f"phase kernels: {time.perf_counter() - t0:.1f} s, every kernel within "
           f"tolerance of its plain version; {smi}")
 
@@ -562,7 +917,7 @@ def main() -> int:
              f"[{units.min().item()}, {units.max().item()}]")
     if recon.shape != (B, T, 768) or not torch.isfinite(recon).all():
         fail("recon_feature is not finite [B, T, 768]")
-    mods = (norm, chain, ffpipe, fused)
+    mods = (norm, chain, ffpipe, fused, flash)
     with plain_versions(*mods):
         units_ref, recon_ref, wall_ref = run_main_path(torch, model, ddim_sample, inputs)
     cos = torch.nn.functional.cosine_similarity(
@@ -575,7 +930,7 @@ def main() -> int:
           f"launches {launches}, peak {peak_gb:.2f} GB; plain-version run {wall_ref:.4f} s; "
           f"recon row-cos min {cos.min().item():.5f} mean {cos.mean().item():.5f}, "
           f"unit agreement {agree:.4f}; {smi}")
-    profile_main_path(torch, model, ddim_sample, inputs, wall)
+    profile_run(torch, lambda: run_main_path(torch, model, ddim_sample, inputs), wall)
     print(f"phase main path: {time.perf_counter() - t0:.1f} s")
 
     # 3b. the int8 main path at full width, on each kernel route
@@ -584,6 +939,16 @@ def main() -> int:
 
     # 4. the entry point
     run_cli(torch, model, smi)
+    del model
+
+    # 5.-7. the S2ST chain at CVSS length, in long form, and its entry point
+    nar, voc = s2st_models(torch)
+    s2st_phase(torch, "CVSS length", s2st_generate, nar, voc,
+               s2st_inputs(torch, S2ST_B, S2ST_FRAMES), mods, smi, long_form=False)
+    launches["flash_attention"] = s2st_phase(
+        torch, "long form", s2st_generate, nar, voc, s2st_inputs(torch, LONG_B, LONG_FRAMES),
+        mods, smi, long_form=True)["flash_attention"]
+    run_s2st_cli(torch, nar, voc, smi)
 
     sources = {
         "rms_norm_film": ("rms_norm_film.cu", "diffnorm_tpu/ops/pallas_norm.py:34"),
@@ -591,15 +956,18 @@ def main() -> int:
         "fused_layer": ("fused_layer.cu", "diffnorm_tpu/ops/pallas_block.py:222"),
         "ffpipe_layer": ("int8_ff.cu", "diffnorm_tpu/ops/pallas_ffpipe.py:257"),
         "ffpipe_layer2": ("int8_ff.cu", "diffnorm_tpu/ops/pallas_ffpipe.py:316"),
+        "flash_attention": ("flash_attention.cu", "diffnorm_tpu/ops/pallas_attention.py:87"),
     }
     kernels = [dict(name=name, route="cuda",
                     source=f"diffnorm_tpu_torch/csrc/{sources[name][0]}",
                     replaces=sources[name][1], launches=launches[name],
                     max_abs_err=r["max_abs_err"], ms=r["ms"], plain_ms=r["plain_ms"],
-                    bound_ms=r["bound_ms"], bound_by=r["bound_by"], library_ms=None)
+                    bound_ms=r["bound_ms"], bound_by=r["bound_by"],
+                    library_ms=r.get("library_ms"))
                for name, r in results.items()]
     print(f"int8 FF reference: torch._int_mm for the conv-tap products alone "
           f"{int_mm_conv_ms:.4f} ms per layer (no single PyTorch call computes a sublayer)")
+    print(f"flash_attention at PERFORMANCE.md's B2 H8 T4096 D64: {flash_perf_shape}")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

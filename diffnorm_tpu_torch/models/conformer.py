@@ -1,0 +1,219 @@
+"""Conformer speech encoder with ESPnet-style relative-position attention,
+inference only (PyTorch, batch-first [B, T, C]).
+
+Counterpart of diffnorm_tpu/models/conformer.py (reference
+s2t_conformer.py / conformer_layer.py / espnet_multihead_attention.py):
+  Conv1dSubsampler: two stride-2 GLU convs (4x temporal downsample)
+  per layer: 0.5 * macaron FFN -> rel-pos MHA -> conv module (GLU pointwise,
+  depthwise k=31, BatchNorm on running statistics, SiLU) -> 0.5 * FFN ->
+  LayerNorm
+Submodule and parameter names follow the flax tree (`weights.py` maps
+`kernel` / `scale` and the BatchNorm statistics). Every LayerNorm uses flax's
+epsilon 1e-6 (torch's default is 1e-5). Each module computes in the dtype of
+its weights; attention scores, softmax and probs @ v are f32, as in JAX.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Sequence, Tuple
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from diffnorm_tpu_torch.models.layers import Dense
+
+LN_EPS = 1e-6  # flax nn.LayerNorm
+
+
+def layer_norm(dim: int) -> nn.LayerNorm:
+    return nn.LayerNorm(dim, eps=LN_EPS)
+
+
+def subsampled_lengths(lengths: torch.Tensor, n_layers: int = 2) -> torch.Tensor:
+    """floor((len - 1) / 2 + 1) per stride-2 conv layer (f32, as in JAX)."""
+    out = lengths
+    for _ in range(n_layers):
+        out = torch.floor((out.float() - 1) / 2 + 1).to(torch.int32)
+    return out
+
+
+class Conv1d(nn.Conv1d):
+    """A conv over [B, T, C] (flax nn.Conv's layout), input cast to the
+    weight's dtype; `weight` is torch's [out, in / groups, k]."""
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        x = x.to(self.weight.dtype).transpose(1, 2)
+        return super().forward(x).transpose(1, 2)
+
+
+class Conv1dSubsampler(nn.Module):
+    def __init__(self, in_channels: int, mid_channels: int = 1024,
+                 out_channels: int = 512, kernel_sizes: Sequence[int] = (5, 5)):
+        super().__init__()
+        n = len(kernel_sizes)
+        self.n_layers = n
+        for i, k in enumerate(kernel_sizes):
+            c_in = in_channels if i == 0 else mid_channels // 2
+            c_out = mid_channels if i < n - 1 else out_channels * 2
+            self.add_module(f"conv_{i}", Conv1d(c_in, c_out, k, stride=2, padding=k // 2))
+
+    def forward(self, x: torch.Tensor, lengths: torch.Tensor):
+        """x: [B, T, C_in] -> ([B, T', out], new lengths)."""
+        for i in range(self.n_layers):
+            x = F.glu(getattr(self, f"conv_{i}")(x), dim=-1)  # GLU over channel halves
+        return x, subsampled_lengths(lengths, self.n_layers)
+
+
+def rel_positional_encoding(max_t: int, dim: int) -> np.ndarray:
+    """[2*max_t - 1, dim] table; row i holds relative position (max_t-1 - i):
+    positives first (descending), then negatives, ESPnet layout."""
+    pos = np.arange(max_t, dtype=np.float32)[:, None]
+    div = np.exp(np.arange(0, dim, 2, dtype=np.float32) * -(math.log(10000.0) / dim))
+    pe_pos = np.zeros((max_t, dim), dtype=np.float32)
+    pe_pos[:, 0::2] = np.sin(pos * div)
+    pe_pos[:, 1::2] = np.cos(pos * div)
+    pe_neg = np.zeros((max_t, dim), dtype=np.float32)
+    pe_neg[:, 0::2] = np.sin(-pos * div)
+    pe_neg[:, 1::2] = np.cos(-pos * div)
+    return np.concatenate([pe_pos[::-1], pe_neg[1:]], axis=0)
+
+
+def rel_shift(x: torch.Tensor) -> torch.Tensor:
+    """[B, H, T, 2T-1] -> [B, H, T, T]: out[i, j] = x[i, j - i + T - 1]."""
+    b, h, t, _ = x.shape
+    x = F.pad(x, (1, 0))
+    x = x.reshape(b, h, 2 * t, t)[:, :, 1:, :]
+    return x.reshape(b, h, t, 2 * t - 1)[..., :t]
+
+
+class RelPosSelfAttention(nn.Module):
+    """Transformer-XL style self-attention with pos_bias_u / pos_bias_v."""
+
+    def __init__(self, dim: int, heads: int):
+        super().__init__()
+        self.dim, self.heads = dim, heads
+        d = dim // heads
+        for name in ("linear_q", "linear_k", "linear_v", "linear_out"):
+            self.add_module(name, Dense(dim, dim))
+        self.linear_pos = Dense(dim, dim, bias=False)
+        bound = math.sqrt(6.0 / (heads + d))  # flax xavier_uniform on [h, d]
+        self.pos_bias_u = nn.Parameter(torch.empty(heads, d).uniform_(-bound, bound))
+        self.pos_bias_v = nn.Parameter(torch.empty(heads, d).uniform_(-bound, bound))
+
+    def forward(self, x: torch.Tensor, pos_emb: torch.Tensor,
+                mask: torch.Tensor) -> torch.Tensor:
+        b, t, _ = x.shape
+        h, d = self.heads, self.dim // self.heads
+
+        def heads_of(z):
+            return z.reshape(b, -1, h, d).transpose(1, 2)
+
+        q, k, v = heads_of(self.linear_q(x)), heads_of(self.linear_k(x)), heads_of(self.linear_v(x))
+        p = self.linear_pos(pos_emb).reshape(-1, h, d).transpose(0, 1)  # [H, 2T-1, d]
+        bias_u = self.pos_bias_u.to(q.dtype)[None, :, None, :]
+        bias_v = self.pos_bias_v.to(q.dtype)[None, :, None, :]
+        # bf16 products are exact in f32: the f32 matmuls give JAX's
+        # bf16 x bf16 -> f32 einsums
+        ac = torch.matmul((q + bias_u).float(), k.float().transpose(-1, -2))
+        bd = torch.matmul((q + bias_v).float(), p.float().transpose(-1, -2))
+        scores = (ac + rel_shift(bd)) / math.sqrt(d)
+        scores = scores.masked_fill(~mask[:, None, None, :], torch.finfo(torch.float32).min)
+        attn = scores.softmax(dim=-1)
+        out = torch.matmul(attn, v.float()).to(x.dtype)
+        return self.linear_out(out.transpose(1, 2).reshape(b, t, self.dim))
+
+
+class ConformerFFN(nn.Module):
+    def __init__(self, dim: int, ffn_dim: int):
+        super().__init__()
+        self.layer_norm = layer_norm(dim)
+        self.w_1 = Dense(dim, ffn_dim)
+        self.w_2 = Dense(ffn_dim, dim)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return self.w_2(F.silu(self.w_1(self.layer_norm(x))))
+
+
+class BatchNorm(nn.Module):
+    """flax nn.BatchNorm(use_running_average=True) over the last axis: f32
+    (x - mean) * (scale * rsqrt(var + eps)) + bias, cast back to x's type."""
+
+    def __init__(self, dim: int, eps: float = 1e-5):
+        super().__init__()
+        self.eps = eps
+        self.weight = nn.Parameter(torch.ones(dim))
+        self.bias = nn.Parameter(torch.zeros(dim))
+        self.register_buffer("running_mean", torch.zeros(dim))
+        self.register_buffer("running_var", torch.ones(dim))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        mul = torch.rsqrt(self.running_var.float() + self.eps) * self.weight.float()
+        y = (x.float() - self.running_mean.float()) * mul + self.bias.float()
+        return y.to(x.dtype)
+
+
+class ConvModule(nn.Module):
+    def __init__(self, dim: int, kernel_size: int = 31):
+        super().__init__()
+        self.layer_norm = layer_norm(dim)
+        self.pointwise_conv1 = Conv1d(dim, 2 * dim, 1, bias=False)
+        self.depthwise_conv = Conv1d(dim, dim, kernel_size, padding=(kernel_size - 1) // 2,
+                                     groups=dim, bias=False)
+        self.batch_norm = BatchNorm(dim)
+        self.pointwise_conv2 = Conv1d(dim, dim, 1, bias=False)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        x = F.glu(self.pointwise_conv1(self.layer_norm(x)), dim=-1)
+        x = F.silu(self.batch_norm(self.depthwise_conv(x)))
+        return self.pointwise_conv2(x)
+
+
+class ConformerLayer(nn.Module):
+    def __init__(self, dim: int, ffn_dim: int, heads: int, depthwise_kernel_size: int = 31):
+        super().__init__()
+        self.ffn1 = ConformerFFN(dim, ffn_dim)
+        self.self_attn_layer_norm = layer_norm(dim)
+        self.self_attn = RelPosSelfAttention(dim, heads)
+        self.conv_module = ConvModule(dim, depthwise_kernel_size)
+        self.ffn2 = ConformerFFN(dim, ffn_dim)
+        self.final_layer_norm = layer_norm(dim)
+
+    def forward(self, x, pos_emb, mask):
+        x = x + 0.5 * self.ffn1(x)
+        x = x + self.self_attn(self.self_attn_layer_norm(x), pos_emb, mask)
+        x = x + self.conv_module(x)
+        x = x + 0.5 * self.ffn2(x)
+        return self.final_layer_norm(x)
+
+
+class ConformerEncoder(nn.Module):
+    """Subsample -> scale -> linear -> layers. Returns (features [B, T', C],
+    mask [B, T'] True = valid)."""
+
+    def __init__(self, in_channels: int = 80, dim: int = 512, ffn_dim: int = 2048,
+                 layers: int = 12, heads: int = 8, depthwise_kernel_size: int = 31,
+                 conv_channels: int = 1024, conv_kernel_sizes: Sequence[int] = (5, 5)):
+        super().__init__()
+        self.dim = dim
+        self.subsample = Conv1dSubsampler(in_channels, conv_channels, dim,
+                                          tuple(conv_kernel_sizes))
+        self.linear = Dense(dim, dim)
+        self.n_layers = layers
+        for i in range(layers):
+            self.add_module(f"layer_{i}", ConformerLayer(dim, ffn_dim, heads,
+                                                         depthwise_kernel_size))
+
+    def forward(self, src: torch.Tensor, src_lengths: torch.Tensor
+                ) -> Tuple[torch.Tensor, torch.Tensor]:
+        x, lengths = self.subsample(src, src_lengths)
+        mask = torch.arange(x.shape[1], device=x.device)[None, :] < lengths[:, None]
+        x = x * math.sqrt(self.dim)
+        pos = torch.from_numpy(rel_positional_encoding(x.shape[1], self.dim)).to(
+            device=x.device, dtype=x.dtype)
+        x = self.linear(x)
+        for i in range(self.n_layers):
+            x = getattr(self, f"layer_{i}")(x, pos, mask)
+        return x, mask

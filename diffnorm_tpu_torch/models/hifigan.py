@@ -1,0 +1,177 @@
+"""Code-HiFi-GAN unit-to-waveform vocoder with its duration predictor,
+inference only.
+
+Counterpart of diffnorm_tpu/models/hifigan.py (reference hifigan.py,
+codehifigan.py, fastspeech2.py:VariancePredictor):
+  Generator: conv_pre (k7) -> [leaky_relu -> transposed-conv upsample ->
+  mean of MRF ResBlocks] per stage -> leaky_relu(0.01) -> conv_post -> tanh
+  ResBlock: dilated conv pairs with leaky-relu (slope 0.1)
+  CodeGenerator: unit embedding table, optional duration predictor
+  (round(exp(d) - 1), min 1); the multi-speaker embedding is not ported
+This is the direct-conv math. The JAX package's default for the stages of
+<= 64 channels, ops/packed_conv.py, is a TPU layout of the same convolutions
+(space-to-depth packing for the 128-lane MXU) and is not ported; the
+convolutions here go to cuDNN (F.conv1d / conv_transpose1d) on the card, as
+JAX leaves them to XLA outside any Pallas kernel. Layout [B, T, C] at the
+module edges, [B, C, T] inside.
+"""
+
+from __future__ import annotations
+
+from typing import Dict, Sequence
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from diffnorm_tpu_torch.models.conformer import layer_norm
+from diffnorm_tpu_torch.models.layers import Dense
+
+LRELU_SLOPE = 0.1
+
+
+def leaky_relu(x: torch.Tensor, slope: float = LRELU_SLOPE) -> torch.Tensor:
+    return torch.where(x >= 0, x, slope * x)
+
+
+def _conv(c_in: int, c_out: int, k: int, dilation: int = 1) -> nn.Conv1d:
+    return nn.Conv1d(c_in, c_out, k, dilation=dilation, padding=(k * dilation - dilation) // 2)
+
+
+class ResBlock(nn.Module):
+    def __init__(self, channels: int, kernel_size: int = 3,
+                 dilations: Sequence[int] = (1, 3, 5)):
+        super().__init__()
+        self.n = len(dilations)
+        for j, d in enumerate(dilations):
+            self.add_module(f"conv1_{j}", _conv(channels, channels, kernel_size, d))
+            self.add_module(f"conv2_{j}", _conv(channels, channels, kernel_size))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        """x [B, C, T]."""
+        for j in range(self.n):
+            h = getattr(self, f"conv1_{j}")(leaky_relu(x))
+            x = x + getattr(self, f"conv2_{j}")(leaky_relu(h))
+        return x
+
+
+class HifiGanGenerator(nn.Module):
+    """x [B, T, in_dim] -> waveform [B, T * prod(upsample_rates)]."""
+
+    def __init__(self, in_dim: int = 128, upsample_rates: Sequence[int] = (5, 4, 4, 2, 2),
+                 upsample_kernel_sizes: Sequence[int] = (11, 8, 8, 4, 4),
+                 upsample_initial_channel: int = 512,
+                 resblock_kernel_sizes: Sequence[int] = (3, 7, 11),
+                 resblock_dilation_sizes: Sequence[Sequence[int]] = ((1, 3, 5),) * 3):
+        super().__init__()
+        self.n_up, self.n_res = len(upsample_rates), len(resblock_kernel_sizes)
+        self.conv_pre = _conv(in_dim, upsample_initial_channel, 7)
+        ch = upsample_initial_channel
+        for i, (u, k) in enumerate(zip(upsample_rates, upsample_kernel_sizes)):
+            ch_out = upsample_initial_channel // (2 ** (i + 1))
+            # torch's padding (k - u) // 2 trims what JAX crops after its
+            # VALID transposed conv
+            self.add_module(f"up_{i}", nn.ConvTranspose1d(ch, ch_out, k, stride=u,
+                                                          padding=(k - u) // 2))
+            ch = ch_out
+            for j, (rk, rd) in enumerate(zip(resblock_kernel_sizes, resblock_dilation_sizes)):
+                self.add_module(f"resblock_{i}_{j}", ResBlock(ch, rk, tuple(rd)))
+        self.conv_post = _conv(ch, 1, 7)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        x = self.conv_pre(x.to(self.conv_pre.weight.dtype).transpose(1, 2))
+        for i in range(self.n_up):
+            x = getattr(self, f"up_{i}")(leaky_relu(x))
+            acc = None
+            for j in range(self.n_res):
+                r = getattr(self, f"resblock_{i}_{j}")(x)
+                acc = r if acc is None else acc + r
+            x = acc / self.n_res
+        # the reference uses F.leaky_relu's default slope (0.01) here
+        # (hifigan.py:166), unlike the 0.1 everywhere else
+        x = self.conv_post(leaky_relu(x, 0.01))
+        return torch.tanh(x)[:, 0]
+
+
+class VariancePredictor(nn.Module):
+    """Duration predictor (fastspeech2.py:117-151): [B, T, C] -> [B, T]."""
+
+    def __init__(self, in_dim: int, hidden_dim: int = 256, kernel_size: int = 3):
+        super().__init__()
+        self.conv1 = _conv(in_dim, hidden_dim, kernel_size)
+        self.ln1 = layer_norm(hidden_dim)
+        self.conv2 = nn.Conv1d(hidden_dim, hidden_dim, kernel_size, padding=1)
+        self.ln2 = layer_norm(hidden_dim)
+        self.proj = Dense(hidden_dim, 1)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        h = self.conv1(x.to(self.conv1.weight.dtype).transpose(1, 2))
+        h = self.ln1(F.relu(h).transpose(1, 2))
+        h = self.conv2(h.transpose(1, 2))
+        h = self.ln2(F.relu(h).transpose(1, 2))
+        return self.proj(h)[..., 0]
+
+
+class CodeGenerator(nn.Module):
+    """Unit codes [B, T] (already duration-expanded) -> waveform."""
+
+    def __init__(self, num_embeddings: int = 1000, embedding_dim: int = 128,
+                 upsample_rates: Sequence[int] = (5, 4, 4, 2, 2),
+                 upsample_kernel_sizes: Sequence[int] = (11, 8, 8, 4, 4),
+                 upsample_initial_channel: int = 512,
+                 resblock_kernel_sizes: Sequence[int] = (3, 7, 11),
+                 resblock_dilation_sizes: Sequence[Sequence[int]] = ((1, 3, 5),) * 3,
+                 dur_predictor: bool = False, var_pred_hidden_dim: int = 256,
+                 var_pred_kernel_size: int = 3):
+        super().__init__()
+        self.dict = nn.Embedding(num_embeddings, embedding_dim)
+        self.generator = HifiGanGenerator(
+            embedding_dim, upsample_rates, upsample_kernel_sizes,
+            upsample_initial_channel, resblock_kernel_sizes, resblock_dilation_sizes)
+        self.upsample = int(np.prod(upsample_rates))
+        self.dur_predictor = (VariancePredictor(embedding_dim, var_pred_hidden_dim,
+                                                var_pred_kernel_size)
+                              if dur_predictor else None)
+
+    def log_durations(self, code: torch.Tensor) -> torch.Tensor:
+        return self.dur_predictor(self.dict(code))
+
+    def predict_durations(self, code: torch.Tensor) -> torch.Tensor:
+        """code [B, T] -> int32 durations >= 1 (codehifigan.py:55-60);
+        round half to even, as jnp.round."""
+        log_dur = self.log_durations(code).float()
+        return torch.clamp(torch.round(torch.exp(log_dur) - 1.0).to(torch.int32), min=1)
+
+    def forward(self, code: torch.Tensor) -> torch.Tensor:
+        return self.generator(self.dict(code))
+
+
+class CodeHiFiGANVocoder:
+    """Runtime wrapper (vocoder.py:214-243): the generator of a config."""
+
+    def __init__(self, module: CodeGenerator):
+        self.module = module
+
+    @classmethod
+    def from_config(cls, cfg: Dict, variables=None, device="cpu",
+                    dtype: torch.dtype = torch.float32) -> "CodeHiFiGANVocoder":
+        """The vocoder of a config dict; `variables` (a JAX variables tree)
+        loads its weights, else the init is torch's, from the global seed."""
+        from diffnorm_tpu_torch.weights import from_jax_variables
+
+        if cfg.get("multispkr"):
+            raise NotImplementedError("the multi-speaker vocoder is not ported")
+        dur = cfg.get("dur_predictor_params") or {}
+        with torch.device(device):
+            module = CodeGenerator(
+                num_embeddings=cfg["num_embeddings"], embedding_dim=cfg["embedding_dim"],
+                upsample_rates=tuple(cfg["upsample_rates"]),
+                upsample_kernel_sizes=tuple(cfg["upsample_kernel_sizes"]),
+                upsample_initial_channel=cfg["upsample_initial_channel"],
+                resblock_kernel_sizes=tuple(cfg["resblock_kernel_sizes"]),
+                resblock_dilation_sizes=tuple(tuple(d) for d in cfg["resblock_dilation_sizes"]),
+                dur_predictor=bool(dur), var_pred_hidden_dim=dur.get("var_pred_hidden_dim", 256))
+        if variables is not None:
+            from_jax_variables(module, variables)
+        return cls(module.to(dtype).eval())

@@ -25,7 +25,7 @@ from typing import Dict, Iterable, Sequence
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = CSRC / "build"
-KERNELS = ("rms_norm_film", "wavenet_chain", "int8_ff", "fused_layer")
+KERNELS = ("rms_norm_film", "wavenet_chain", "int8_ff", "fused_layer", "flash_attention")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",

@@ -1,13 +1,21 @@
-"""Scaled dot-product attention with a key-padding mask (plain PyTorch).
+"""Scaled dot-product attention with a key-padding mask.
 
 Counterpart of diffnorm_tpu/ops/attention.py:masked_attention, with its
 numerics: scores and softmax in f32; masked keys set to finfo(float32).min
 rather than -inf, so a fully masked row comes out uniform, never NaN; the
 probabilities cast to bf16 for probs @ v when v is bf16.
 
-The JAX package routes keys of length >= 2048 to a Pallas flash-attention
-kernel (diffnorm_tpu/ops/pallas_attention.py); that kernel is not ported yet,
-and the DDIM path runs at T=128.
+Keys of length >= 2048 on the card go to the flash-attention kernel
+(`ops/flash_attention.py`), as the JAX package routes them to its Pallas
+kernel on a TPU (attention.py:53-63). That is JAX's plain masked case; the
+port's callers pass no bias, causal mask or dropout, which JAX keeps off
+the kernel. JAX takes the route only under DIFFNORM_FLASH_ATTENTION=1, on
+the strength of a TPU v5e measurement; on the card it is on by default. On
+the CPU masked_attention stays plain, as JAX's does off the TPU. The S2ST
+chain reaches the kernel through the NAR decoder's encoder attention when
+the subsampled source has >= 2048 frames (about 82 s of speech); the
+conformer's rel-pos attention computes its scores inline and never calls
+this function.
 """
 
 from __future__ import annotations
@@ -16,11 +24,17 @@ from typing import Optional
 
 import torch
 
+from diffnorm_tpu_torch.ops import flash_attention as flash_ops
+
+FLASH_MIN_LEN = 2048  # attention.py:_PALLAS_MIN_LEN
+
 
 def masked_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                      mask: Optional[torch.Tensor] = None) -> torch.Tensor:
     """q [B, H, Tq, D], k/v [B, H, Tk, D], mask [B, Tk] bool (True = valid).
     Returns [B, H, Tq, D] in q.dtype."""
+    if q.is_cuda and k.shape[-2] >= FLASH_MIN_LEN:
+        return flash_ops.flash_attention(q, k, v, mask)
     scale = q.shape[-1] ** -0.5
     sim = torch.matmul(q.float(), k.float().transpose(-1, -2)) * scale
     if mask is not None:

@@ -1,13 +1,21 @@
-"""Carry weights between the JAX parameter tree and the port's modules.
+"""Carry weights between the JAX variables tree and the port's modules.
 
-The JAX tree (`variables["params"]`, nested dicts of numpy arrays) and the
-port's `named_parameters()` share their paths: flax `a/b/kernel` is torch
-`a.b.weight`, every other leaf keeps its name. A Dense kernel [in, out] is the
-transpose of a Linear weight; a conv kernel [k, in, out] becomes torch's
-[out, in, k]. Names are checked both ways, so a missing or extra key raises.
+The JAX tree (`{"params": ..., "batch_stats": ...}`, nested dicts of numpy
+arrays) and the port's `state_dict()` share their paths. Leaf names map as
+  params       flax `kernel` (Dense, Conv, ConvTranspose)  -> torch `weight`
+               flax `scale` (LayerNorm, BatchNorm)         -> torch `weight`
+               flax `embedding` (nn.Embed)                 -> torch `weight`
+               any other leaf keeps its name
+  batch_stats  `mean` / `var`          -> the `running_mean` / `running_var` buffers
+A Dense kernel [in, out] is the transpose of a Linear weight; a conv kernel
+[k, in, out] becomes torch's [out, in, k], and a
+`ConvTranspose(transpose_kernel=True)` kernel [k, out, in] torch
+ConvTranspose1d's [in, out, k], both by `permute(2, 1, 0)` with no flip.
+Names are checked both ways, buffers included, so a missing or extra key
+raises.
 
 `save_npz` / `load_npz` store such a tree as one .npz with '/'-joined keys,
-the weight file the CLI reads (`--params-npz`).
+the weight files the CLIs read (`--params-npz`, `--vocoder-npz`).
 """
 
 from __future__ import annotations
@@ -20,6 +28,9 @@ from torch import nn
 
 
 Path = Tuple[str, ...]
+
+_TO_WEIGHT = ("kernel", "scale", "embedding")
+_STATS = {"mean": "running_mean", "var": "running_var"}
 
 
 def _flatten(tree: Mapping, prefix: Path = ()) -> Dict[Path, np.ndarray]:
@@ -43,8 +54,12 @@ def _unflatten(flat: Mapping[Path, np.ndarray]) -> dict:
     return tree
 
 
-def _torch_name(path: Path) -> str:
-    leaf = "weight" if path[-1] == "kernel" else path[-1]
+def _torch_name(collection: str, path: Path) -> str:
+    leaf = path[-1]
+    if collection == "batch_stats":
+        leaf = _STATS.get(leaf, leaf)
+    elif leaf in _TO_WEIGHT:
+        leaf = "weight"
     return ".".join(path[:-1] + (leaf,))
 
 
@@ -68,12 +83,16 @@ def pack_all(model: nn.Module) -> nn.Module:
     return model
 
 
-def from_jax_params(model: nn.Module, params: Mapping) -> nn.Module:
-    """Load the JAX `params` tree into `model` in place (on the model's
-    device and dtype) and rebuild its packed weight copies (`pack_all`).
-    Returns `model`."""
-    flat = {_torch_name(p): (p, v) for p, v in _flatten(params).items()}
-    named = dict(model.named_parameters())
+def from_jax_variables(model: nn.Module, variables: Mapping) -> nn.Module:
+    """Load a JAX variables tree ({"params"} and, where the model has
+    BatchNorm state, {"batch_stats"}) into `model` in place, on the model's
+    device and dtype, and rebuild its packed weight copies (`pack_all`).
+    Every parameter and persistent buffer must be covered. Returns `model`."""
+    flat = {}
+    for collection, tree in variables.items():
+        for path, value in _flatten(tree).items():
+            flat[_torch_name(collection, path)] = (path, value)
+    named = model.state_dict(keep_vars=True)
     _check_names(named, flat)
     with torch.no_grad():
         for name, (path, value) in flat.items():
@@ -88,27 +107,55 @@ def from_jax_params(model: nn.Module, params: Mapping) -> nn.Module:
     return pack_all(model)
 
 
-def to_jax_params(model: nn.Module) -> dict:
-    """The inverse of `from_jax_params`: the model's parameters as a JAX
-    `params` tree of float32 numpy arrays."""
-    flat = {}
-    for name, p in model.named_parameters():
+def from_jax_params(model: nn.Module, params: Mapping) -> nn.Module:
+    """`from_jax_variables` for a model without buffers: the JAX `params`
+    tree alone."""
+    return from_jax_variables(model, {"params": params})
+
+
+def _jax_leaf(module: nn.Module) -> str:
+    if isinstance(module, nn.Embedding):
+        return "embedding"
+    if isinstance(module, nn.LayerNorm) or hasattr(module, "running_mean"):
+        return "scale"
+    return "kernel"
+
+
+def to_jax_variables(model: nn.Module) -> dict:
+    """The inverse of `from_jax_variables`: {"params": ...} and, where the
+    model has running statistics, {"batch_stats": ...}, float32 numpy."""
+    params, stats = {}, {}
+    for name, t in model.state_dict().items():
         path = tuple(name.split("."))
-        t = p.detach().float().cpu()
+        t = t.detach().float().cpu()
+        owner = model.get_submodule(".".join(path[:-1]))
+        if path[-1] in ("running_mean", "running_var"):
+            stats[path[:-1] + (path[-1][len("running_"):],)] = t.contiguous().numpy()
+            continue
         if path[-1] == "weight":
-            path = path[:-1] + ("kernel",)
-            t = t.T if t.dim() == 2 else t.permute(2, 1, 0)
-        flat[path] = t.contiguous().numpy()
-    return _unflatten(flat)
+            leaf = _jax_leaf(owner)
+            if leaf == "kernel":
+                t = t.T if t.dim() == 2 else t.permute(2, 1, 0)
+            path = path[:-1] + (leaf,)
+        params[path] = t.contiguous().numpy()
+    out = {"params": _unflatten(params)}
+    if stats:
+        out["batch_stats"] = _unflatten(stats)
+    return out
 
 
-def save_npz(path: str, params: Mapping) -> None:
-    """Write a params tree as one .npz with '/'-joined keys."""
+def to_jax_params(model: nn.Module) -> dict:
+    """The model's parameters as a JAX `params` tree (float32 numpy)."""
+    return to_jax_variables(model)["params"]
+
+
+def save_npz(path: str, tree: Mapping) -> None:
+    """Write a params or variables tree as one .npz with '/'-joined keys."""
     np.savez(path, **{"/".join(p): np.asarray(v, dtype=np.float32)
-                      for p, v in _flatten(params).items()})
+                      for p, v in _flatten(tree).items()})
 
 
 def load_npz(path: str) -> dict:
-    """Read a file written by `save_npz` back into a params tree."""
+    """Read a file written by `save_npz` back into its tree."""
     with np.load(path) as data:
         return _unflatten({tuple(k.split("/")): data[k] for k in data.files})

@@ -45,6 +45,7 @@ def test_port_imports_with_jax_blocked():
             "    sys.modules[name] = None\n"
             "import diffnorm_tpu_torch.models.diffusion\n"
             "import diffnorm_tpu_torch.cli.diff_norm_synthesis\n"
+            "import diffnorm_tpu_torch.cli.s2st\n"
             "print('ok')\n")
     env = dict(os.environ, PYTHONPATH=str(REPO))
     out = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
@@ -75,6 +76,12 @@ def test_entry_points_refuse_the_cpu_unless_asked(tmp_path):
         diff_norm_synthesis.main([str(tmp_path), "--params-npz", "absent.npz",
                                   "--tgt-feat-dir", str(tmp_path),
                                   "--output-dir", str(tmp_path / "out")])
+
+    from diffnorm_tpu_torch.cli import s2st
+
+    with pytest.raises(RuntimeError, match="CUDA"):
+        s2st.main([str(tmp_path), "--params-npz", "absent.npz", "--vocoder-npz", "absent.npz",
+                   "--vocoder-cfg", "absent.json", "--results-path", str(tmp_path / "wav")])
 
 
 def test_kernel_wrappers_launch_or_raise_off_the_cpu():
