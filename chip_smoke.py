@@ -13,11 +13,13 @@ prints no result:
    plain PyTorch version on the same inputs, with its median time, its bound
    on the card and the plain version's time: rms_norm_film, wavenet_chain,
    and the int8 fused_layer and ffpipe_layer (rows 1 and 2, which must agree
-   bit for bit) at [64, 128, 512], P=1408, checked also at [4, 200, 512];
-   flash_attention at the S2ST decoder's long-form shape (q [2,8,256,64]
-   against k/v [2,8,2112,64]) and at B2 H8 T4096 D64, with ragged key masks,
-   a fully masked row, odd Tq/Tk, D 32/96/128 and float32, timed beside
-   F.scaled_dot_product_attention with the same boolean key mask.
+   bit for bit) at [64, 128, 512], P=1408, checked also at [4, 200],
+   [1, 7] and [1, 6144], with one fused_layer call's device time per
+   launch; flash_attention at the S2ST decoder's long-form shape (q
+   [2,8,256,64] against k/v [2,8,2112,64]) and at B2 H8 T4096 D64, with
+   ragged key masks, a fully masked row, odd Tq/Tk, Tk = 1, Tk = 65 and a
+   short last key split (bf16 and float32), D 32/96/128 and float32, timed
+   beside F.scaled_dot_product_attention with the same boolean key mask.
 3. main path: ddim_sample at the released bf16 diff_discrete width (hidden
    512, latent 128, 768-d features, 12 + 4x8 denoiser, T=200, start step 50 =
    49 DDIM steps) from a seeded random init at B64 x T128, through the
@@ -66,10 +68,12 @@ BF16_FLOP_PER_S = 989e12     # dense bf16 tensor cores
 INT8_OPS_PER_S = 1979e12     # dense int8 tensor cores
 F32_FLOP_PER_S = 67e12       # f32 outside the tensor cores
 B, T, START_STEP = 64, 128, 50
-# a second kernel-check shape: at T=200 sequences straddle the int8 GEMMs'
+# more kernel-check shapes: at T=200 sequences straddle the int8 GEMMs'
 # 128-token tiles and the attention's 64-key blocks, and the last tile is
-# partial (B even, so ffpipe rows 2 applies)
-ODD_B, ODD_T = 4, 200
+# partial (B even, so ffpipe rows 2 applies); [1, 7] is one short sequence
+# (the conv's shifted tiles mostly out of bounds, rows 2 falls back to 1);
+# [1, 6144] the CLI's largest length bucket
+EDGE_SHAPES = ((4, 200), (1, 7), (1, 6144))
 C, INNER, HEADS, DIM_HEAD = 512, 1365, 8, 64  # the released denoiser transformer
 SECONDS_PER_UNIT = 0.02      # 50 Hz units
 
@@ -296,10 +300,10 @@ def ff_work(w):
 
 def check_ffpipe(torch, ffpipe):
     """ffpipe_layer rows 1 and 2 against the plain version, and each other,
-    at [ODD_B, ODD_T] and then at the path's shape, which is timed."""
+    at EDGE_SHAPES and then at the path's shape, which is timed."""
     w = ff_pack(torch, ffpipe, seed=30)
     g = torch.Generator(device="cuda").manual_seed(31)
-    for b, t in ((ODD_B, ODD_T), (B, T)):
+    for b, t in (*EDGE_SHAPES, (B, T)):
         x = torch.randn(b, t, C, generator=g, device="cuda").to(torch.bfloat16)
         film = torch.randn(b, 2 * C, generator=g, device="cuda").to(torch.bfloat16)
         got = ffpipe.ffpipe_layer(x, film, w, rows=1)
@@ -338,9 +342,9 @@ def check_ffpipe(torch, ffpipe):
 
 
 def check_fused_layer(torch, ffpipe, fused):
-    """fused_layer against its plain version, with padded keys and one row
-    whose keys are all masked, at [ODD_B, ODD_T] and then at the path's
-    shape, which is timed."""
+    """fused_layer against its plain version, with padded keys and (B > 1)
+    one row whose keys are all masked, at EDGE_SHAPES and then at the path's
+    shape, which is timed with its per-launch split."""
     g = torch.Generator(device="cuda").manual_seed(40)
 
     def rnd(*shape, scale=1.0):
@@ -348,11 +352,13 @@ def check_fused_layer(torch, ffpipe, fused):
 
     w = fused.pack_layer_weights(rnd(C, C, scale=C ** -0.5), rnd(2 * C, C, scale=C ** -0.5),
                                  rnd(C, C, scale=C ** -0.5), ff_pack(torch, ffpipe, seed=41))
-    for b, t in ((ODD_B, ODD_T), (B, T)):
+    for b, t in (*EDGE_SHAPES, (B, T)):
         x = rnd(b, t, C).to(torch.bfloat16)
         fa, ff = rnd(b, 2 * C).to(torch.bfloat16), rnd(b, 2 * C).to(torch.bfloat16)
         lengths = torch.randint(t // 2, t + 1, (b,), generator=g, device="cuda")
-        lengths[0], lengths[1] = t, 0
+        lengths[0] = t
+        if b > 1:
+            lengths[1] = 0
         mask = torch.arange(t, device="cuda")[None, :] < lengths[:, None]
         args = (x, mask, fa, ff, w, HEADS, DIM_HEAD)
         got = fused.fused_layer(*args)
@@ -364,6 +370,16 @@ def check_fused_layer(torch, ffpipe, fused):
         if not torch.isfinite(got).all() or cos <= LAYER_ROW_COS or rel >= LAYER_REL_ERR:
             fail("fused_layer is beyond its tolerance against the plain version")
     ms = cuda_time_ms(lambda: fused.fused_layer(*args))
+    split = launch_split(torch, lambda: fused.fused_layer(*args))
+    conv_us = None
+    if split is None:
+        print("kernel fused_layer per launch: the profiler saw no device time (not measured)")
+    else:
+        conv_us = next((us for name, us in split if "gemm_kernel<1," in name), None)
+        print(f"kernel fused_layer [{B},{T},{C}] per launch (torch.profiler, median of 5 "
+              f"calls): " + "; ".join(f"{i + 1} {name[:60]} {us:.1f} us"
+                                      for i, (name, us) in enumerate(split))
+              + f"; sum {sum(us for _, us in split):.1f} us")
     plain_ms = cuda_time_ms(lambda: fused.fused_layer_plain(*args), iters=3, reps=3)
     int8_ops, nbytes = ff_work({k: v for k, v in w.items() if k not in ("wqkv", "wo")})
     bf16_flops = 2.0 * B * T * (3 * C * C + C * C) + 4.0 * B * HEADS * T * T * DIM_HEAD
@@ -376,7 +392,7 @@ def check_fused_layer(torch, ffpipe, fused):
           f"{int8_ops / 1e9:.1f} G int8 ops + {bf16_flops / 1e9:.1f} GFLOP bf16, "
           f"{nbytes / 1e6:.1f} MB)")
     return dict(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
-                max_abs_err=err)
+                max_abs_err=err, conv_us=conv_us)
 
 
 def cuda_time_eager_ms(fn, iters: int = 20, reps: int = 5) -> float:
@@ -410,14 +426,46 @@ def device_kernels(torch, fn):
     return [e.key for e in sorted(events, key=lambda e: -e.self_device_time_total)]
 
 
+def launch_split(torch, fn, reps: int = 5):
+    """The device kernels of one call of `fn` in launch order, each with the
+    median of its device time over `reps` profiled calls (torch.profiler),
+    as [(kernel name, us)]; None where the profiler saw no device time."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    kernels = sorted((e for e in prof.events()
+                      if e.device_type == torch.autograd.DeviceType.CUDA),
+                     key=lambda e: e.time_range.start)
+    if not kernels or len(kernels) % reps:
+        return None
+    n = len(kernels) // reps
+    return [(kernels[i].name, statistics.median(
+        kernels[r * n + i].time_range.elapsed_us() for r in range(reps))) for i in range(n)]
+
+
 def check_flash_attention(torch, flash):
     """flash_attention against its plain version: ragged masks, a fully
-    masked row, Tq/Tk off the 64 tiles, D 32/96/128, float32; then the
+    masked row, Tq/Tk off the 64 tiles, one key, a key split of one key
+    and a short last split, D 32/96/128, float32; then the
     path's shape and PERFORMANCE.md's, timed beside the plain version and
     F.scaled_dot_product_attention with the same boolean key mask."""
     bf, f32 = torch.bfloat16, torch.float32
     cases = [  # (what, B, H, Tq, Tk, D, key lengths, dtype)
         ("odd, a fully masked row", 3, 4, 200, 2100, 64, [2100, 977, 0], bf),
+        # at the path's Tq and D: one key; two 64-key tiles split in two, the
+        # second of one key; 33 tiles split 7+7+7+7+5, the last tile of 52
+        # keys and the later splits of the second row all masked
+        ("Tk=1", 2, 8, 256, 1, 64, [1, 0], bf),
+        ("Tk=65", 2, 8, 256, 65, 64, [65, 30], bf),
+        ("short last split", 2, 8, 256, 2100, 64, [2100, 1000], bf),
+        ("Tk=1 float32", 2, 8, 256, 1, 64, [1, 0], f32),
+        ("Tk=65 float32", 2, 8, 256, 65, 64, [65, 30], f32),
+        ("short last split float32", 2, 8, 256, 2100, 64, [2100, 1000], f32),
         ("D=32", 2, 2, 70, 130, 32, [130, 0], bf),
         ("D=96", 2, 2, 70, 130, 96, [101, 0], bf),
         ("D=128", 2, 2, 70, 130, 128, [130, 64], bf),
@@ -965,8 +1013,11 @@ def main() -> int:
                     bound_ms=r["bound_ms"], bound_by=r["bound_by"],
                     library_ms=r.get("library_ms"))
                for name, r in results.items()]
+    conv_us = results["fused_layer"]["conv_us"]
     print(f"int8 FF reference: torch._int_mm for the conv-tap products alone "
-          f"{int_mm_conv_ms:.4f} ms per layer (no single PyTorch call computes a sublayer)")
+          f"{int_mm_conv_ms:.4f} ms per layer (no single PyTorch call computes a sublayer); "
+          f"fused_layer's conv-tap GEMM "
+          + (f"{conv_us / 1e3:.4f} ms" if conv_us is not None else "not measured"))
     print(f"flash_attention at PERFORMANCE.md's B2 H8 T4096 D64: {flash_perf_shape}")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

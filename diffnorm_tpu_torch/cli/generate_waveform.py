@@ -14,6 +14,7 @@ import wave
 import numpy as np
 import torch
 
+from diffnorm_tpu_torch.device import resolve_device
 from diffnorm_tpu_torch.models.hifigan import CodeHiFiGANVocoder
 from diffnorm_tpu_torch.weights import load_npz
 
@@ -29,10 +30,12 @@ def write_wav(path: str, wav: np.ndarray, sample_rate: int = 16000) -> None:
         f.writeframes(pcm.tobytes())
 
 
-def load_vocoder(npz_path: str, cfg_path: str, device="cpu",
+def load_vocoder(npz_path: str, cfg_path: str, device="cuda",
                  dtype: torch.dtype = torch.float32) -> CodeHiFiGANVocoder:
     """The code-HiFi-GAN of config `cfg_path` with the weights of
-    `npz_path` ({"params": ...} or a bare params tree), on `device`."""
+    `npz_path` ({"params": ...} or a bare params tree), on `device`: the
+    card unless `device="cpu"` is asked for (raises without CUDA)."""
+    device = resolve_device(device)
     with open(cfg_path) as f:
         cfg = json.load(f)
     variables = load_npz(npz_path)

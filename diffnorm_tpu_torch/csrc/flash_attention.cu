@@ -15,24 +15,44 @@
 // operations at self-attention lengths (B2 H8 T4096 D64: 68.7 GFLOP, 69 us
 // at the bf16 peak).
 //
-// Design (bf16): one block per (64 queries, batch x head), four warps of 16
-// query rows. Q goes once into mma.sync A fragments (through shared memory);
-// K and V stream through shared memory in 64-key tiles with cp.async, V's
-// copy landing while the scores of the tile are computed. Scores are
-// m16n8k16 bf16 mma with f32 sums: bf16 x bf16 products are exact in f32,
-// and for D = 64 so is the scale 1/8, so only the order of the sums differs
-// from the TPU kernel's f32 dot. The online softmax keeps each row's running
-// max and sum in f32. The TPU multiplies f32 probabilities by V; a bf16 P
+// Design, bf16 with D = 64 or 128 (attn_wgmma_kernel). A block is one
+// warpgroup of 64 query rows plus one producer warp. The producer loads Q
+// once and streams K and V in 64-key tiles by TMA (128-byte swizzle) through
+// a ring of mbarrier-guarded stages (4 at D = 64, 3 at D = 128), so the next
+// tiles are in flight while one computes; with each tile it turns the tile's
+// mask bytes into two 32-bit words (ballot) in shared memory, so the
+// consumers read no mask from global memory. Both products are wgmma: q k^T
+// from shared Q and K (both K-major), then P.V with P from registers (the
+// score accumulators are the A fragments) and V read MN-major (transposed)
+// from shared memory. The TPU multiplies f32 probabilities by V; a bf16 P
 // would cost ~2^-9 relative, more than the reference tolerance, so P is
-// split into bf16 hi + lo (lo = bf16(p - hi)) and P.V is two mma per tile,
-// which keeps ~2^-17 of P. float32 inputs take a plain FMA kernel (one warp
-// per query row, a lane per key for the scores and per channel for P.V).
-// wgmma, TMA and a deeper K/V pipeline are later work.
+// split into bf16 hi + lo (lo = bf16(p - hi)) and P.V is two wgmma per
+// k-step, which keeps ~2^-17 of P. Scores and the running max live in the
+// log2 domain (scale * log2 e folded into one multiply, exp2f).
+// Split over the keys: where (query tiles x B*H) would leave the card under
+// about two blocks per SM (the S2ST decoder: 4 x 16 = 64 blocks for 132
+// SMs), the wrapper cuts the key tiles into contiguous ranges, one block per
+// (range, query tile, head); each writes its unnormalized f32 o and its rows'
+// max m and sum l, and attn_merge_kernel combines them:
+//     m* = max_i m_i,  o = sum_i 2^(m_i - m*) o_i / max(sum_i 2^(m_i - m*) l_i, 1e-30)
+// No range starts at or past Tk (so every range has a key and a finite m); a
+// range whose keys are all masked has m = -1e30 and weighs nothing beside one
+// with a valid key, and a row with no valid key is the mean over the Tk keys.
+//
+// D = 32 and 96 take an mma.sync kernel (attn_mma_kernel:
+// 64-query blocks of 4 warps, 64-key K/V tiles by cp.async, ldmatrix +
+// m16n8k16 with the same hi + lo P): their rows are 64 and 192 bytes, which
+// do not tile into the 128-byte swizzled rows the wgmma kernel is built on,
+// and no path of the port runs them. float32 inputs take a plain FMA kernel
+// (one warp per query row, a lane per key for the scores and per channel
+// for P.V).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
+
+#include "hopper.cuh"
 
 namespace {
 
@@ -111,7 +131,7 @@ __device__ __forceinline__ void load_tile(bf16* s, const bf16* base, int r0, int
 
 template <int D>
 __global__ void __launch_bounds__(kThreads)
-attn_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
+attn_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                  const bf16* __restrict__ v, const uint8_t* __restrict__ mask,
                  bf16* __restrict__ out, int H, int Tq, int Tk, float scale) {
   constexpr int kLd = D + 8;  // padded row (16 B): ldmatrix is conflict-free
@@ -334,10 +354,280 @@ attn_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
   }
 }
 
+// ------------------------------------------------- wgmma kernel, D 64/128
+
+constexpr int kWgThreads = 160;      // one consumer warpgroup + one producer warp
+constexpr int kRegionBytes = 64 * 128;  // 64 rows of one 128-byte column region
+constexpr float kLog2e = 1.4426950408889634f;
+
 template <int D>
-cudaError_t launch_bf16(const void* q, const void* k, const void* v, const void* mask, void* out,
-                        int BH, int H, int Tq, int Tk, float scale, cudaStream_t st) {
-  attn_bf16_kernel<D><<<dim3((Tq + kBq - 1) / kBq, BH), kThreads, 0, st>>>(
+struct WgCfg {
+  static constexpr int kRegions = D / 64;  // 128-byte column regions per row
+  static constexpr int kTile = kRegions * kRegionBytes;  // a Q, K or V tile
+  static constexpr int kStages = D == 64 ? 4 : 3;
+  static constexpr int kSmem = kTile + kStages * 2 * kTile + 1024;  // + alignment
+};
+
+// Q [BH, Tq, D], K/V [BH, Tk, D] through the tensor maps; key tiles
+// [tile0, tile0 + tiles) of this block's range. n_splits == 1: out [BH, Tq,
+// D] bf16, normalized. Else o_part [n_splits, BH, Tq, D] f32 unnormalized
+// and ml_part [n_splits, BH, Tq, 2] (max in the log2 domain, sum).
+template <int D>
+__global__ void __launch_bounds__(kWgThreads, D == 64 ? 3 : 1)
+attn_wgmma_kernel(__grid_constant__ const CUtensorMap tm_q,
+                  __grid_constant__ const CUtensorMap tm_k,
+                  __grid_constant__ const CUtensorMap tm_v, const uint8_t* __restrict__ mask,
+                  bf16* __restrict__ out, float* __restrict__ o_part,
+                  float* __restrict__ ml_part, int H, int Tq, int Tk, int n_splits,
+                  int tiles_per_split, float scale_log2) {
+  typedef WgCfg<D> Cfg;
+  constexpr int kS = Cfg::kStages;
+  extern __shared__ unsigned char smem_raw[];
+  __shared__ __align__(8) uint64_t full[kS], empty[kS], q_full;
+  __shared__ uint32_t mbits[kS][2];  // bit c of word w: key 32w + c of the tile is valid
+  unsigned char* sQ = hopper::align1024(smem_raw);
+  auto sK = [&](int s) { return sQ + Cfg::kTile + s * 2 * Cfg::kTile; };
+  auto sV = [&](int s) { return sK(s) + Cfg::kTile; };
+
+  const int split = blockIdx.x % n_splits, q0 = (blockIdx.x / n_splits) * kBq;
+  const int bh = blockIdx.y;
+  const int tile0 = split * tiles_per_split;
+  const int n_tiles = min(tiles_per_split, (Tk + kBk - 1) / kBk - tile0);  // >= 1
+
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < kS; ++s) {
+      hopper::mbar_init(&full[s], 1);
+      hopper::mbar_init(&empty[s], 4);  // one arrival per consumer warp
+    }
+    hopper::mbar_init(&q_full, 1);
+    hopper::fence_barrier_init();
+  }
+  __syncthreads();
+
+  if (threadIdx.x >= 128) {
+    // producer warp: Q once, then K, V and the mask bits of each tile
+    const int lane = threadIdx.x - 128;
+    if (lane == 0) {
+      hopper::mbar_arrive_expect_tx(&q_full, Cfg::kTile);
+      for (int r = 0; r < Cfg::kRegions; ++r)
+        hopper::tma_load_3d(sQ + r * kRegionBytes, &tm_q, &q_full, 64 * r, q0, bh);
+    }
+    const uint8_t* mrow = mask ? mask + static_cast<size_t>(bh / H) * Tk : nullptr;
+    for (int i = 0; i < n_tiles; ++i) {
+      const int s = i % kS;
+      const int k0 = (tile0 + i) * kBk;
+      const int j0 = k0 + lane, j1 = k0 + 32 + lane;
+      const uint32_t w0 = __ballot_sync(0xffffffffu, j0 < Tk && (!mrow || mrow[j0]));
+      const uint32_t w1 = __ballot_sync(0xffffffffu, j1 < Tk && (!mrow || mrow[j1]));
+      if (lane == 0) {
+        hopper::mbar_wait(&empty[s], ((i / kS) & 1) ^ 1);
+        mbits[s][0] = w0;
+        mbits[s][1] = w1;
+        hopper::mbar_arrive_expect_tx(&full[s], 2 * Cfg::kTile);  // releases mbits[s]
+        for (int r = 0; r < Cfg::kRegions; ++r) {
+          hopper::tma_load_3d(sK(s) + r * kRegionBytes, &tm_k, &full[s], 64 * r, k0, bh);
+          hopper::tma_load_3d(sV(s) + r * kRegionBytes, &tm_v, &full[s], 64 * r, k0, bh);
+        }
+      }
+      __syncwarp();
+    }
+    return;
+  }
+
+  // consumer warpgroup: thread holds rows g (r = 0: e = 0, 1) and g + 8
+  // (r = 1: e = 2, 3) of its warp's 16, columns 8 ni + 2 qd + (e & 1) of
+  // each accumulator (keys in sc, channels in o)
+  const int tid = threadIdx.x, lane = tid % 32, warp = tid / 32;
+  const int g = lane / 4, qd = lane % 4;
+  float m_run[2] = {-INFINITY, -INFINITY}, l_run[2] = {0.f, 0.f};
+  float o[Cfg::kRegions][32];
+#pragma unroll
+  for (int r = 0; r < Cfg::kRegions; ++r)
+#pragma unroll
+    for (int i = 0; i < 32; ++i) o[r][i] = 0.f;
+
+  hopper::mbar_wait(&q_full, 0);
+  for (int i = 0; i < n_tiles; ++i) {
+    const int s = i % kS;
+    const int k0 = (tile0 + i) * kBk;
+    hopper::mbar_wait(&full[s], (i / kS) & 1);
+
+    float sc[32];
+    hopper::wgmma_fence();
+#pragma unroll
+    for (int ks = 0; ks < D / 16; ++ks) {
+      const int off = (ks / 4) * kRegionBytes + (ks % 4) * 32;
+      hopper::wgmma_bf16_n64(sc, hopper::desc_sw128(sQ + off), hopper::desc_sw128(sK(s) + off),
+                             ks > 0);
+    }
+    hopper::wgmma_commit();
+    hopper::wgmma_wait<0>();
+    hopper::fence_operand(sc);
+
+    const uint32_t mb[2] = {mbits[s][0], mbits[s][1]};
+    const int lim = Tk - k0;  // keys at or past it are past Tk
+#pragma unroll
+    for (int ni = 0; ni < 8; ++ni)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int col = ni * 8 + 2 * qd + (e & 1);
+        const float x = sc[4 * ni + e] * scale_log2;
+        sc[4 * ni + e] = col >= lim ? -INFINITY : ((mb[ni / 4] >> (col % 32)) & 1u) ? x : kMasked;
+      }
+
+    // online softmax: key k0 < Tk is in the tile, so each row max is finite
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      float mx = -INFINITY;
+#pragma unroll
+      for (int ni = 0; ni < 8; ++ni)
+        mx = fmaxf(mx, fmaxf(sc[4 * ni + 2 * r], sc[4 * ni + 2 * r + 1]));
+      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
+      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
+      const float m_new = fmaxf(m_run[r], mx);
+      const float alpha = exp2f(m_run[r] - m_new);  // 0 on the first tile
+      float sum = 0.f;
+#pragma unroll
+      for (int ni = 0; ni < 8; ++ni)
+#pragma unroll
+        for (int e = 2 * r; e < 2 * r + 2; ++e) {
+          sc[4 * ni + e] = exp2f(sc[4 * ni + e] - m_new);
+          sum += sc[4 * ni + e];
+        }
+      sum += __shfl_xor_sync(0xffffffffu, sum, 1);
+      sum += __shfl_xor_sync(0xffffffffu, sum, 2);
+      l_run[r] = l_run[r] * alpha + sum;
+      m_run[r] = m_new;
+#pragma unroll
+      for (int rg = 0; rg < Cfg::kRegions; ++rg)
+#pragma unroll
+        for (int ni = 0; ni < 8; ++ni) {
+          o[rg][4 * ni + 2 * r] *= alpha;
+          o[rg][4 * ni + 2 * r + 1] *= alpha;
+        }
+    }
+
+    // P.V: the accumulators of key columns 16 kk .. 16 kk + 15 are the A
+    // fragment of k-step kk; hi and lo stay untouched until the wait
+    uint32_t hi[4][4], lo[4][4];
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+        split_pair(sc[8 * kk + 2 * j], sc[8 * kk + 2 * j + 1], hi[kk][j], lo[kk][j]);
+    hopper::wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+      for (int rg = 0; rg < Cfg::kRegions; ++rg) {
+        const uint64_t dv = hopper::desc_sw128(sV(s) + rg * kRegionBytes + kk * 2048);
+        hopper::wgmma_bf16_n64_rs_tb(o[rg], hi[kk], dv, 1);
+        hopper::wgmma_bf16_n64_rs_tb(o[rg], lo[kk], dv, 1);
+      }
+    hopper::wgmma_commit();
+    hopper::wgmma_wait<0>();
+#pragma unroll
+    for (int rg = 0; rg < Cfg::kRegions; ++rg) hopper::fence_operand(o[rg]);
+    __syncwarp();
+    if (lane == 0) hopper::mbar_arrive(&empty[s]);  // K, V and mbits of stage s are read
+  }
+
+  const int BH = gridDim.y;
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int t = q0 + warp * 16 + g + 8 * r;
+    if (t >= Tq) continue;
+    if (n_splits == 1) {
+      const float l = fmaxf(l_run[r], 1e-30f);
+      bf16* orow = out + (static_cast<size_t>(bh) * Tq + t) * D;
+#pragma unroll
+      for (int rg = 0; rg < Cfg::kRegions; ++rg)
+#pragma unroll
+        for (int ni = 0; ni < 8; ++ni)
+          *reinterpret_cast<__nv_bfloat162*>(orow + rg * 64 + ni * 8 + 2 * qd) =
+              __floats2bfloat162_rn(o[rg][4 * ni + 2 * r] / l, o[rg][4 * ni + 2 * r + 1] / l);
+    } else {
+      const size_t row = (static_cast<size_t>(split) * BH + bh) * Tq + t;
+      float* orow = o_part + row * D;
+#pragma unroll
+      for (int rg = 0; rg < Cfg::kRegions; ++rg)
+#pragma unroll
+        for (int ni = 0; ni < 8; ++ni)
+          *reinterpret_cast<float2*>(orow + rg * 64 + ni * 8 + 2 * qd) =
+              make_float2(o[rg][4 * ni + 2 * r], o[rg][4 * ni + 2 * r + 1]);
+      if (qd == 0) *reinterpret_cast<float2*>(ml_part + 2 * row) = make_float2(m_run[r], l_run[r]);
+    }
+  }
+}
+
+// One warp per (b*h, t) row: the splits' partial results merged in split
+// order, normalized once, rounded to bf16.
+template <int D>
+__global__ void __launch_bounds__(256)
+attn_merge_kernel(const float* __restrict__ o_part, const float* __restrict__ ml_part,
+                  bf16* __restrict__ out, int rows, int n_splits) {
+  constexpr int kPer = D / 32;  // channels per lane, consecutive
+  const int row = blockIdx.x * 8 + threadIdx.x / 32, lane = threadIdx.x % 32;
+  if (row >= rows) return;
+  float m_star = -INFINITY;
+  for (int i = 0; i < n_splits; ++i)
+    m_star = fmaxf(m_star, ml_part[2 * (static_cast<size_t>(i) * rows + row)]);
+  float acc[kPer], l = 0.f;
+#pragma unroll
+  for (int c = 0; c < kPer; ++c) acc[c] = 0.f;
+  for (int i = 0; i < n_splits; ++i) {
+    const size_t r = static_cast<size_t>(i) * rows + row;
+    const float w = exp2f(ml_part[2 * r] - m_star);
+    l += w * ml_part[2 * r + 1];
+    const float* orow = o_part + r * D + lane * kPer;
+#pragma unroll
+    for (int c = 0; c < kPer; ++c) acc[c] += w * orow[c];
+  }
+  l = fmaxf(l, 1e-30f);
+  bf16* dst = out + static_cast<size_t>(row) * D + lane * kPer;
+#pragma unroll
+  for (int c = 0; c < kPer; c += 2)
+    *reinterpret_cast<__nv_bfloat162*>(dst + c) = __floats2bfloat162_rn(acc[c] / l, acc[c + 1] / l);
+}
+
+template <int D>
+cudaError_t launch_wgmma(const void* q, const void* k, const void* v, const void* mask, void* out,
+                         void* o_part, void* ml_part, int BH, int H, int Tq, int Tk, float scale,
+                         int n_splits, int tiles_per_split, cudaStream_t st) {
+  typedef WgCfg<D> Cfg;
+  const int tiles = (Tk + kBk - 1) / kBk;
+  if (n_splits < 1 || tiles_per_split < 1 || (n_splits - 1) * tiles_per_split >= tiles ||
+      n_splits * tiles_per_split < tiles || (n_splits > 1 && (!o_part || !ml_part)))
+    return cudaErrorInvalidValue;  // an empty range, or keys left over
+  CUtensorMap maps[3];
+  const void* bases[3] = {q, k, v};
+  for (int i = 0; i < 3; ++i) {
+    const uint64_t t = i == 0 ? Tq : Tk;
+    const cudaError_t err = hopper::make_map_3d(
+        &maps[i], CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, bases[i], D, t, BH, D * 2ull, t * D * 2ull,
+        64, 64, 1);
+    if (err != cudaSuccess) return err;
+  }
+  cudaError_t err = cudaFuncSetAttribute(attn_wgmma_kernel<D>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, Cfg::kSmem);
+  if (err != cudaSuccess) return err;
+  const int q_tiles = (Tq + kBq - 1) / kBq;
+  attn_wgmma_kernel<D><<<dim3(q_tiles * n_splits, BH), kWgThreads, Cfg::kSmem, st>>>(
+      maps[0], maps[1], maps[2], static_cast<const uint8_t*>(mask), static_cast<bf16*>(out),
+      static_cast<float*>(o_part), static_cast<float*>(ml_part), H, Tq, Tk, n_splits,
+      tiles_per_split, scale * kLog2e);
+  if ((err = cudaGetLastError()) != cudaSuccess || n_splits == 1) return err;
+  const int rows = BH * Tq;
+  attn_merge_kernel<D><<<(rows + 7) / 8, 256, 0, st>>>(
+      static_cast<const float*>(o_part), static_cast<const float*>(ml_part),
+      static_cast<bf16*>(out), rows, n_splits);
+  return cudaGetLastError();
+}
+
+template <int D>
+cudaError_t launch_mma(const void* q, const void* k, const void* v, const void* mask, void* out,
+                       int BH, int H, int Tq, int Tk, float scale, cudaStream_t st) {
+  attn_mma_kernel<D><<<dim3((Tq + kBq - 1) / kBq, BH), kThreads, 0, st>>>(
       static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
       static_cast<const uint8_t*>(mask), static_cast<bf16*>(out), H, Tq, Tk, scale);
   return cudaGetLastError();
@@ -347,20 +637,29 @@ cudaError_t launch_bf16(const void* q, const void* k, const void* v, const void*
 
 // q [BH, Tq, D], k/v [BH, Tk, D], out [BH, Tq, D], bf16, contiguous and
 // 16-byte aligned, with BH = B * H; mask [B, Tk] bytes (nonzero = valid) or
-// null (every key valid). D in {32, 64, 96, 128}. Launches on `stream`;
-// returns the cudaError_t of the launch.
+// null (every key valid). D in {32, 64, 96, 128}. For D 64/128 the 64-key
+// tiles are cut into n_splits ranges of tiles_per_split (the last may be
+// shorter, none empty); n_splits > 1 needs the scratch o_part f32
+// [n_splits, BH, Tq, D] and ml_part f32 [n_splits, BH, Tq, 2]. D 32/96 take
+// n_splits 1. Launches on `stream`; returns the first non-zero
+// cudaError_t, else 0.
 extern "C" int flash_attention_bf16(const void* q, const void* k, const void* v,
-                                    const void* mask, void* out, int BH, int H, int Tq, int Tk,
-                                    int D, float scale, void* stream) {
+                                    const void* mask, void* out, void* o_part, void* ml_part,
+                                    int BH, int H, int Tq, int Tk, int D, float scale,
+                                    int n_splits, int tiles_per_split, void* stream) {
   if (BH <= 0 || H <= 0 || BH % H != 0 || Tq <= 0 || Tk <= 0 || BH > 65535)
     return static_cast<int>(cudaErrorInvalidValue);
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if ((D == 32 || D == 96) && n_splits != 1) return static_cast<int>(cudaErrorInvalidValue);
   switch (D) {
-    case 32: return static_cast<int>(launch_bf16<32>(q, k, v, mask, out, BH, H, Tq, Tk, scale, st));
-    case 64: return static_cast<int>(launch_bf16<64>(q, k, v, mask, out, BH, H, Tq, Tk, scale, st));
-    case 96: return static_cast<int>(launch_bf16<96>(q, k, v, mask, out, BH, H, Tq, Tk, scale, st));
+    case 32: return static_cast<int>(launch_mma<32>(q, k, v, mask, out, BH, H, Tq, Tk, scale, st));
+    case 96: return static_cast<int>(launch_mma<96>(q, k, v, mask, out, BH, H, Tq, Tk, scale, st));
+    case 64:
+      return static_cast<int>(launch_wgmma<64>(q, k, v, mask, out, o_part, ml_part, BH, H, Tq, Tk,
+                                               scale, n_splits, tiles_per_split, st));
     case 128:
-      return static_cast<int>(launch_bf16<128>(q, k, v, mask, out, BH, H, Tq, Tk, scale, st));
+      return static_cast<int>(launch_wgmma<128>(q, k, v, mask, out, o_part, ml_part, BH, H, Tq,
+                                                Tk, scale, n_splits, tiles_per_split, st));
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }

@@ -18,9 +18,9 @@
 // Design: the TPU kernel ran one batch row per grid step with all weights in
 // VMEM. Here the layer is a sequence of launches over the B*T tokens: the
 // attention norm (one warp per token), the q/kv projection as one bf16 GEMM
-// against [Wq | Wkv] (the tiled GEMM of int8_ff.cuh with bf16 mma.sync),
-// masked attention, the output projection (the same GEMM, residual in its
-// epilogue), then the FF sublayer of int8_ff.cuh. The attention kernel
+// against [Wq | Wkv] (the TMA + wgmma GEMM of int8_ff.cuh in its bf16
+// modes), masked attention, the output projection (the same GEMM, residual
+// in its epilogue), then the FF sublayer of int8_ff.cuh. The attention kernel
 // streams 64-key blocks through shared memory, so any T fits (the CLI's
 // buckets reach 6144): one block per (64 queries, head, batch row), four
 // warps of 16 query rows on bf16 mma.sync. A first pass over the key blocks
@@ -43,6 +43,47 @@ constexpr int kBk = 64;       // keys per streamed block
 constexpr int kLd = kDh + 8;  // padded smem row (144 B): ldmatrix is conflict-free
 constexpr int kThreads = 128;
 
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// 16-byte global -> shared copy; zero-fills instead of reading when !valid
+__device__ __forceinline__ void cp_async16(void* dst, const void* src, bool valid) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem_addr(dst)),
+               "l"(src), "r"(valid ? 16 : 0));
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
+}
+
+__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], const void* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(smem_addr(p)));
+}
+
+__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4], const void* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(smem_addr(p)));
+}
+
+// d += a (16 x 16 bf16, row) * b (16 x 8 bf16, col), f32 sums
+__device__ __forceinline__ void mma(float (&d)[4], const uint32_t (&a)[4], uint32_t b0,
+                                    uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   __nv_bfloat162 h = __floats2bfloat162_rn(lo, hi);
   return *reinterpret_cast<uint32_t*>(&h);
@@ -55,38 +96,63 @@ __device__ __forceinline__ void load_tile(bf16* s, const bf16* base, int r0, int
   for (int c = tid; c < 64 * (kDh / 8); c += kThreads) {
     const int r = c / (kDh / 8), col = (c % (kDh / 8)) * 8;
     const bool ok = r0 + r < T;
-    ff::cp_async16(s + r * kLd + col, ok ? base + static_cast<size_t>(r0 + r) * ld + col : base,
+    cp_async16(s + r * kLd + col, ok ? base + static_cast<size_t>(r0 + r) * ld + col : base,
                    ok);
   }
 }
 
+constexpr int kTileElems = 64 * kLd;  // one 64-row tile of a head, padded rows
+constexpr int kStages = 3;             // K/V tile pairs in flight
+constexpr int kResident = 2;           // up to this many key tiles: the one-pass form
+constexpr int kAttnSmem = (1 + 2 * kStages) * kTileElems * 2;  // Q, then K and V per stage
+
 // qkv [B*T, 3C] bf16 (q ++ k ++ v, head h at columns h*64 of each third);
 // mask [B, T] (nonzero = valid key); out [B*T, C] bf16, head h at h*64.
-__global__ void __launch_bounds__(kThreads)
+// For T <= 128 (the DDIM path) every K and V tile is loaded at once and
+// the softmax takes one pass. Longer sequences take two passes, whose loads
+// are one sequence, pass 1's K tiles then pass 2's K and V tiles, streamed
+// through kStages buffers by cp.async: up to two tiles are in flight while
+// one computes.
+__global__ void __launch_bounds__(kThreads, 3)
 attention_kernel(const bf16* __restrict__ qkv, const uint8_t* __restrict__ mask,
                  bf16* __restrict__ out, int T, int C, float scale) {
-  __shared__ __align__(128) bf16 sQ[kBq * kLd];
-  __shared__ __align__(128) bf16 sK[kBk * kLd];
-  __shared__ __align__(128) bf16 sV[kBk * kLd];
+  extern __shared__ __align__(128) unsigned char attn_smem[];
+  bf16* sQ = reinterpret_cast<bf16*>(attn_smem);
+  auto sK = [&](int s) { return sQ + (1 + 2 * s) * kTileElems; };
+  auto sV = [&](int s) { return sQ + (2 + 2 * s) * kTileElems; };
   const int tid = threadIdx.x, lane = tid % 32, warp = tid / 32;
   const int b = blockIdx.z, h = blockIdx.y, q0 = blockIdx.x * kBq;
   const int ld = 3 * C;
   const bf16* base = qkv + static_cast<size_t>(b) * T * ld + h * kDh;
   const uint8_t* mrow = mask + static_cast<size_t>(b) * T;
   const int g = lane / 4, qd = lane % 4;
+  const int n_tiles = (T + kBk - 1) / kBk, n_loads = 2 * n_tiles;
 
+  // load u < n_tiles: pass 1's K tile u; else pass 2's K and V tile u - n_tiles
+  auto start_load = [&](int u) {
+    const int s = u % kStages, k0 = (u < n_tiles ? u : u - n_tiles) * kBk;
+    load_tile(sK(s), base + C, k0, T, ld, tid);
+    if (u >= n_tiles) load_tile(sV(s), base + 2 * C, k0, T, ld, tid);
+  };
   load_tile(sQ, base, q0, T, ld, tid);
-  ff::cp_async_commit();
-  ff::cp_async_wait<0>();
-  __syncthreads();
-  uint32_t qa[kDh / 16][4];
+  if (n_tiles <= kResident) {  // every K and V tile at once, for the one-pass form
+    for (int t = 0; t < n_tiles; ++t) {
+      load_tile(sK(t), base + C, t * kBk, T, ld, tid);
+      load_tile(sV(t), base + 2 * C, t * kBk, T, ld, tid);
+    }
+    cp_async_commit();
+  } else {
 #pragma unroll
-  for (int ks = 0; ks < kDh / 16; ++ks)
-    ff::ldmatrix_x4(qa[ks], sQ + (warp * 16 + lane % 16) * kLd + ks * 16 + (lane / 16) * 8);
+    for (int u = 0; u < kStages - 1; ++u) {
+      if (u < n_loads) start_load(u);
+      cp_async_commit();  // group u (group 0 also holds Q)
+    }
+  }
+  uint32_t qa[kDh / 16][4];
 
-  // the warp's 16 x 64 scores against the key block at k0 (in sK): thread
+  // the warp's 16 x 64 scores against the key block at k0 (in sk): thread
   // holds rows g (e = 0, 1) and g + 8 (e = 2, 3), keys ni*8 + 2qd + (e & 1)
-  auto scores = [&](int k0, float (&s)[kBk / 8][4]) {
+  auto scores = [&](const bf16* sk, int k0, float (&s)[kBk / 8][4]) {
 #pragma unroll
     for (int ni = 0; ni < kBk / 8; ++ni)
 #pragma unroll
@@ -96,10 +162,10 @@ attention_kernel(const bf16* __restrict__ qkv, const uint8_t* __restrict__ mask,
 #pragma unroll
       for (int nj = 0; nj < kBk / 16; ++nj) {
         uint32_t bfr[4];
-        ff::ldmatrix_x4(bfr, sK + (nj * 16 + lane % 8 + (lane / 16) * 8) * kLd + ks * 16 +
-                                 ((lane / 8) % 2) * 8);
-        ff::mma(s[2 * nj], qa[ks], bfr[0], bfr[1]);
-        ff::mma(s[2 * nj + 1], qa[ks], bfr[2], bfr[3]);
+        ldmatrix_x4(bfr, sk + (nj * 16 + lane % 8 + (lane / 16) * 8) * kLd + ks * 16 +
+                             ((lane / 8) % 2) * 8);
+        mma(s[2 * nj], qa[ks], bfr[0], bfr[1]);
+        mma(s[2 * nj + 1], qa[ks], bfr[2], bfr[3]);
       }
 #pragma unroll
     for (int ni = 0; ni < kBk / 8; ++ni)
@@ -115,56 +181,15 @@ attention_kernel(const bf16* __restrict__ qkv, const uint8_t* __restrict__ mask,
       }
   };
 
-  // pass 1: online softmax statistics per row (running max, rescaled sum)
   float m_run[2] = {-INFINITY, -INFINITY}, l_run[2] = {0.f, 0.f};
-  for (int k0 = 0; k0 < T; k0 += kBk) {
-    __syncthreads();  // every warp is done with the previous key block
-    load_tile(sK, base + C, k0, T, ld, tid);
-    ff::cp_async_commit();
-    ff::cp_async_wait<0>();
-    __syncthreads();
-    float s[kBk / 8][4];
-    scores(k0, s);
-#pragma unroll
-    for (int r = 0; r < 2; ++r) {
-      float mx = -INFINITY;
-#pragma unroll
-      for (int ni = 0; ni < kBk / 8; ++ni) mx = fmaxf(mx, fmaxf(s[ni][2 * r], s[ni][2 * r + 1]));
-      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
-      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
-      const float m_new = fmaxf(m_run[r], mx);  // finite: key k0 < T is in the block
-      float sum = 0.f;
-#pragma unroll
-      for (int ni = 0; ni < kBk / 8; ++ni)
-#pragma unroll
-        for (int e = 0; e < 2; ++e) sum = __fadd_rn(sum, expf(__fsub_rn(s[ni][2 * r + e], m_new)));
-      sum = __fadd_rn(sum, __shfl_xor_sync(0xffffffffu, sum, 1));
-      sum = __fadd_rn(sum, __shfl_xor_sync(0xffffffffu, sum, 2));
-      l_run[r] = __fadd_rn(__fmul_rn(l_run[r], expf(__fsub_rn(m_run[r], m_new))), sum);
-      m_run[r] = m_new;
-    }
-  }
-
-  // pass 2: p = bf16(exp(s - max) / sum), o = p V with f32 sums
   float o[kDh / 8][4];
 #pragma unroll
   for (int ni = 0; ni < kDh / 8; ++ni)
 #pragma unroll
     for (int e = 0; e < 4; ++e) o[ni][e] = 0.f;
-  for (int k0 = 0; k0 < T; k0 += kBk) {
-    __syncthreads();
-    load_tile(sK, base + C, k0, T, ld, tid);
-    load_tile(sV, base + 2 * C, k0, T, ld, tid);
-    ff::cp_async_commit();
-    ff::cp_async_wait<0>();
-    __syncthreads();
-    float s[kBk / 8][4];
-    scores(k0, s);
-#pragma unroll
-    for (int ni = 0; ni < kBk / 8; ++ni)
-#pragma unroll
-      for (int e = 0; e < 4; ++e)
-        s[ni][e] = __fdiv_rn(expf(__fsub_rn(s[ni][e], m_run[e / 2])), l_run[e / 2]);
+
+  // o += bf16(p) V for the key block in sv, p in s
+  auto p_times_v = [&](const bf16* sv, const float (&s)[kBk / 8][4]) {
 #pragma unroll
     for (int kk = 0; kk < kBk / 16; ++kk) {
       // the score accumulators of n-tiles 2kk, 2kk+1 are the A fragment of
@@ -176,11 +201,111 @@ attention_kernel(const bf16* __restrict__ qkv, const uint8_t* __restrict__ mask,
 #pragma unroll
       for (int nj = 0; nj < kDh / 16; ++nj) {
         uint32_t bfr[4];
-        ff::ldmatrix_x4_trans(bfr, sV + (kk * 16 + lane % 16) * kLd + nj * 16 + (lane / 16) * 8);
-        ff::mma(o[2 * nj], pa, bfr[0], bfr[1]);
-        ff::mma(o[2 * nj + 1], pa, bfr[2], bfr[3]);
+        ldmatrix_x4_trans(bfr, sv + (kk * 16 + lane % 16) * kLd + nj * 16 + (lane / 16) * 8);
+        mma(o[2 * nj], pa, bfr[0], bfr[1]);
+        mma(o[2 * nj + 1], pa, bfr[2], bfr[3]);
       }
     }
+  };
+
+  if (n_tiles <= kResident) {
+    // one pass (T <= 128, the DDIM path): every score in registers, the
+    // exact row max and sum, then p = bf16(exp(s - max) / sum) and o = p V
+    cp_async_wait<0>();
+    __syncthreads();
+#pragma unroll
+    for (int ks = 0; ks < kDh / 16; ++ks)
+      ldmatrix_x4(qa[ks], sQ + (warp * 16 + lane % 16) * kLd + ks * 16 + (lane / 16) * 8);
+    float s[kResident][kBk / 8][4];
+#pragma unroll
+    for (int t = 0; t < kResident; ++t) {
+      if (t < n_tiles) {
+        scores(sK(t), t * kBk, s[t]);
+      } else {
+#pragma unroll
+        for (int ni = 0; ni < kBk / 8; ++ni)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) s[t][ni][e] = -INFINITY;  // no keys: weighs nothing
+      }
+    }
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      float mx = -INFINITY;
+#pragma unroll
+      for (int t = 0; t < kResident; ++t)
+#pragma unroll
+        for (int ni = 0; ni < kBk / 8; ++ni)
+          mx = fmaxf(mx, fmaxf(s[t][ni][2 * r], s[t][ni][2 * r + 1]));
+      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
+      m_run[r] = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));  // finite: key 0 < T
+      float sum = 0.f;
+#pragma unroll
+      for (int t = 0; t < kResident; ++t)
+#pragma unroll
+        for (int ni = 0; ni < kBk / 8; ++ni)
+#pragma unroll
+          for (int e = 2 * r; e < 2 * r + 2; ++e) {
+            s[t][ni][e] = expf(__fsub_rn(s[t][ni][e], m_run[r]));
+            sum = __fadd_rn(sum, s[t][ni][e]);
+          }
+      sum = __fadd_rn(sum, __shfl_xor_sync(0xffffffffu, sum, 1));
+      l_run[r] = __fadd_rn(sum, __shfl_xor_sync(0xffffffffu, sum, 2));
+    }
+#pragma unroll
+    for (int t = 0; t < kResident; ++t) {
+      if (t >= n_tiles) break;
+#pragma unroll
+      for (int ni = 0; ni < kBk / 8; ++ni)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) s[t][ni][e] = __fdiv_rn(s[t][ni][e], l_run[e / 2]);
+      p_times_v(sV(t), s[t]);
+    }
+  }
+
+  // longer sequences, two passes over the key blocks: pass 1 keeps the
+  // online softmax statistics per row (running max, rescaled sum); pass 2
+  // forms p = bf16(exp(s - max) / sum) and o = p V with f32 sums
+  for (int u = 0; n_tiles > kResident && u < n_loads; ++u) {
+    cp_async_wait<kStages - 2>();
+    __syncthreads();  // load u has landed; every warp is done with load u - 1's buffer
+    if (u + kStages - 1 < n_loads) start_load(u + kStages - 1);
+    cp_async_commit();
+    if (u == 0) {
+#pragma unroll
+      for (int ks = 0; ks < kDh / 16; ++ks)
+        ldmatrix_x4(qa[ks], sQ + (warp * 16 + lane % 16) * kLd + ks * 16 + (lane / 16) * 8);
+    }
+    const int s_idx = u % kStages, k0 = (u < n_tiles ? u : u - n_tiles) * kBk;
+    float s[kBk / 8][4];
+    scores(sK(s_idx), k0, s);
+    if (u < n_tiles) {
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        float mx = -INFINITY;
+#pragma unroll
+        for (int ni = 0; ni < kBk / 8; ++ni) mx = fmaxf(mx, fmaxf(s[ni][2 * r], s[ni][2 * r + 1]));
+        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
+        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
+        const float m_new = fmaxf(m_run[r], mx);  // finite: key k0 < T is in the block
+        float sum = 0.f;
+#pragma unroll
+        for (int ni = 0; ni < kBk / 8; ++ni)
+#pragma unroll
+          for (int e = 0; e < 2; ++e)
+            sum = __fadd_rn(sum, expf(__fsub_rn(s[ni][2 * r + e], m_new)));
+        sum = __fadd_rn(sum, __shfl_xor_sync(0xffffffffu, sum, 1));
+        sum = __fadd_rn(sum, __shfl_xor_sync(0xffffffffu, sum, 2));
+        l_run[r] = __fadd_rn(__fmul_rn(l_run[r], expf(__fsub_rn(m_run[r], m_new))), sum);
+        m_run[r] = m_new;
+      }
+      continue;
+    }
+#pragma unroll
+    for (int ni = 0; ni < kBk / 8; ++ni)
+#pragma unroll
+      for (int e = 0; e < 4; ++e)
+        s[ni][e] = __fdiv_rn(expf(__fsub_rn(s[ni][e], m_run[e / 2])), l_run[e / 2]);
+    p_times_v(sV(s_idx), s);
   }
 
 #pragma unroll
@@ -198,10 +323,10 @@ attention_kernel(const bf16* __restrict__ qkv, const uint8_t* __restrict__ mask,
 }  // namespace
 
 // x, out [B, T, C] bf16; mask [B, T] bool (1 byte); film_attn, film_ff
-// [B, 2C] f32; wqkv [3C, C] and wo [C, C] bf16 as [out, in]; the int8 FF
-// weights of ops/ffpipe.py:pack_ff_weights; scratch hn, oh, x1 bf16 [B*T, C],
-// qkv bf16 [B*T, 3C], q int8 [B*T, max(C, P)], a f32 [B*T], g and y bf16
-// [B*T, P]. All contiguous and 16-byte aligned; dim_head == 64,
+// [B, 2C] f32, or both bf16 if film_bf16; wqkv [3C, C] and wo [C, C] bf16
+// as [out, in]; the int8 FF weights of ops/ffpipe.py:pack_ff_weights;
+// scratch hn, oh, x1 bf16 [B*T, C], qkv bf16 [B*T, 3C], q int8 [B*T,
+// max(C, P)], a f32 [B*T], g and y bf16 [B*T, P]. All contiguous and 16-byte aligned; dim_head == 64,
 // heads * 64 == C, P % 64 == 0. Every launch goes on `stream`; returns the
 // first non-zero cudaError_t, else 0.
 extern "C" int fused_layer_bf16(const void* x, const void* mask, const void* film_attn,
@@ -212,32 +337,33 @@ extern "C" int fused_layer_bf16(const void* x, const void* mask, const void* fil
                                 const void* wfq, const void* wfs, const void* bf,
                                 void* hn, void* qkv, void* oh, void* x1, void* q, void* a,
                                 void* g, void* y, void* out, int B, int T, int C, int P,
-                                int heads, int dim_head, void* stream) {
+                                int heads, int dim_head, int film_bf16, void* stream) {
   if (B <= 0 || T <= 0 || dim_head != kDh || heads * kDh != C || P <= 0 || P % 64 != 0)
     return static_cast<int>(cudaErrorInvalidValue);
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   const int M = B * T;
   const bf16* xb = static_cast<const bf16*>(x);
 
-  ff::norm_film_kernel<false><<<(M + 7) / 8, 256, 0, st>>>(
-      xb, static_cast<const float*>(film_attn), nullptr, nullptr, static_cast<bf16*>(hn), M, T,
-      C, static_cast<float>(sqrt(static_cast<double>(C))));
-  cudaError_t err = cudaGetLastError();
+  cudaError_t err = ff::launch_norm_film<false>(xb, film_attn, film_bf16 != 0, nullptr, nullptr,
+                                                static_cast<bf16*>(hn), M, T, C, st);
   if (err != cudaSuccess) return static_cast<int>(err);
 
   ff::GemmArgs proj = {};
-  proj.M = M; proj.T = T; proj.taps = 1;
+  proj.M = M; proj.Bseq = 1; proj.Tseq = M; proj.taps = 1;
   proj.a = hn; proj.b0 = wqkv; proj.out = qkv; proj.N = 3 * C; proj.K = C;
   if ((err = ff::launch_gemm<ff::kBf16Store, 1>(proj, st)) != cudaSuccess)
     return static_cast<int>(err);
 
-  attention_kernel<<<dim3((T + kBq - 1) / kBq, heads, B), kThreads, 0, st>>>(
+  if ((err = cudaFuncSetAttribute(attention_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                  kAttnSmem)) != cudaSuccess)
+    return static_cast<int>(err);
+  attention_kernel<<<dim3((T + kBq - 1) / kBq, heads, B), kThreads, kAttnSmem, st>>>(
       static_cast<const bf16*>(qkv), static_cast<const uint8_t*>(mask),
       static_cast<bf16*>(oh), T, C, static_cast<float>(pow(static_cast<double>(dim_head), -0.5)));
   if ((err = cudaGetLastError()) != cudaSuccess) return static_cast<int>(err);
 
   ff::GemmArgs outp = {};
-  outp.M = M; outp.T = T; outp.taps = 1;
+  outp.M = M; outp.Bseq = 1; outp.Tseq = M; outp.taps = 1;
   outp.a = oh; outp.b0 = wo; outp.resid = xb; outp.out = x1; outp.N = C; outp.K = C;
   if ((err = ff::launch_gemm<ff::kBf16Resid, 1>(outp, st)) != cudaSuccess)
     return static_cast<int>(err);
@@ -252,7 +378,7 @@ extern "C" int fused_layer_bf16(const void* x, const void* mask, const void* fil
   const ff::FFScratch s = {static_cast<int8_t*>(q), static_cast<float*>(a),
                            static_cast<bf16*>(g), y};
   return static_cast<int>(ff::launch_ff(static_cast<const bf16*>(x1),
-                                        static_cast<const float*>(film_ff), w, s,
+                                        film_ff, film_bf16 != 0, w, s,
                                         static_cast<bf16*>(out), B, T, C, P,
                                         /*round_y=*/true, /*rows=*/1, st));
 }

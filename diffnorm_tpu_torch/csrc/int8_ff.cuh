@@ -24,17 +24,15 @@
 // resident in VMEM (10 MB, far past 227 KB of shared memory). Here the
 // sublayer is six launches over the B*T tokens: a one-warp-per-token
 // norm + quantize prologue, the proj_in GEMM with the GEGLU in its epilogue,
-// a one-warp-per-token requantize, the conv GEMM (the causal shift applied
-// while the A tile is loaded, zero rows before t = 0 of each sequence), a
-// requantize, and the proj_out GEMM with bias and residual in its epilogue.
-// The GEMMs run int8 mma.sync (m16n8k32, exact int32 sums) on fragments read
-// with ldmatrix from a 3-stage cp.async ring of 128-byte K steps; each warp
-// computes a 32 x 32 tile, a block (128 * rows) x 64 with 8 * rows warps.
-// `rows` of ffpipe_layer is that factor: at T = 128 one block's M tile spans
-// `rows` batch rows. Every output element is computed by the same arithmetic
-// whatever the tile, so rows 1 and 2 agree bit for bit. Each thread's copy
-// addresses are set up once per block, not per stage (PERF.md: what the
-// stage depth and the tile shape did to the conv GEMM).
+// a one-warp-per-token requantize, the conv GEMM, a requantize, and the
+// proj_out GEMM with bias and residual in its epilogue. The GEMMs are one
+// Hopper kernel (gemm_kernel below): a producer warp feeding a ring of
+// TMA-loaded, 128B-swizzled stages to two consumer warpgroups on wgmma
+// (int8 m64nNk32 with exact int32 sums; the bf16 modes of fused_layer.cu
+// m64nNk16 with f32 sums). `rows` of ffpipe_layer is the M tile's factor:
+// a block takes `rows` 128-token M tiles and 128 / rows columns. Every
+// output element is computed by the same arithmetic whatever the tile, so
+// rows 1 and 2 agree bit for bit.
 //
 // Rounding follows the JAX kernels: scales are max|v| / 127 by division,
 // floored at 1e-12; codes are round-half-even of v / scale (__fdiv_rn,
@@ -52,62 +50,13 @@
 #include <cmath>
 #include <type_traits>
 
+#include "hopper.cuh"
+
 namespace ff {
 
 typedef __nv_bfloat16 bf16;
 
 // ---------------------------------------------------------------- helpers
-
-__device__ __forceinline__ uint32_t smem_addr(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-// 16-byte global -> shared copy; zero-fills instead of reading when !valid.
-__device__ __forceinline__ void cp_async16(void* dst, const void* src, bool valid) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem_addr(dst)),
-               "l"(src), "r"(valid ? 16 : 0));
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
-}
-
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
-}
-
-__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], const void* p) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(smem_addr(p)));
-}
-
-__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4], const void* p) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(smem_addr(p)));
-}
-
-// d += a (16 x 32 int8, row) * b (32 x 8 int8, col), exact int32 sums
-__device__ __forceinline__ void mma(int (&d)[4], const uint32_t (&a)[4], uint32_t b0,
-                                    uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-// d += a (16 x 16 bf16, row) * b (16 x 8 bf16, col), f32 sums
-__device__ __forceinline__ void mma(float (&d)[4], const uint32_t (&a)[4], uint32_t b0,
-                                    uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
 
 __device__ __forceinline__ void load8(const bf16* p, float (&v)[8]) {
   const uint4 raw = *reinterpret_cast<const uint4*>(p);
@@ -163,19 +112,19 @@ __device__ __forceinline__ uint32_t pack4(const float (&v)[8], int j0, float a) 
 
 // One warp per token: y = x * (sqrt(C) / max(||x||, 1e-12)) * gamma + beta in
 // f32 (pallas_block.py:_norm_film). kQuant: write int8(y) and its per-token
-// scale; else write bf16(y). film [B, 2C] f32 (gamma ++ beta), row / T
-// picks the batch row. C % 8 == 0.
-template <bool kQuant>
+// scale; else write bf16(y). film [B, 2C] f32 or bf16 (gamma ++ beta),
+// row / T picks the batch row. C % 8 == 0.
+template <bool kQuant, typename Film>
 __global__ void __launch_bounds__(256)
-norm_film_kernel(const bf16* __restrict__ x, const float* __restrict__ film,
+norm_film_kernel(const bf16* __restrict__ x, const Film* __restrict__ film,
                  int8_t* __restrict__ q, float* __restrict__ scale_out,
                  bf16* __restrict__ y_out, int M, int T, int C, float sqrt_c) {
   const int lane = threadIdx.x % 32;
   const int row = blockIdx.x * 8 + threadIdx.x / 32;
   if (row >= M) return;
   const bf16* xr = x + static_cast<size_t>(row) * C;
-  const float* gamma = film + static_cast<size_t>(row / T) * 2 * C;
-  const float* beta = gamma + C;
+  const Film* gamma = film + static_cast<size_t>(row / T) * 2 * C;
+  const Film* beta = gamma + C;
 
   float ss = 0.f;
   for (int c = lane * 8; c < C; c += 256) {
@@ -222,6 +171,21 @@ norm_film_kernel(const bf16* __restrict__ x, const float* __restrict__ film,
         make_uint2(pack4(v, 0, a), pack4(v, 4, a));
   }
   if (lane == 0) scale_out[row] = a;
+}
+
+// norm_film_kernel over M tokens, film f32 or (film_bf16) bf16
+template <bool kQuant>
+cudaError_t launch_norm_film(const bf16* x, const void* film, bool film_bf16, int8_t* q,
+                             float* scale_out, bf16* y_out, int M, int T, int C,
+                             cudaStream_t st) {
+  const float sqrt_c = static_cast<float>(sqrt(static_cast<double>(C)));
+  if (film_bf16)
+    norm_film_kernel<kQuant, bf16><<<(M + 7) / 8, 256, 0, st>>>(
+        x, static_cast<const bf16*>(film), q, scale_out, y_out, M, T, C, sqrt_c);
+  else
+    norm_film_kernel<kQuant, float><<<(M + 7) / 8, 256, 0, st>>>(
+        x, static_cast<const float*>(film), q, scale_out, y_out, M, T, C, sqrt_c);
+  return cudaGetLastError();
 }
 
 // One warp per token: q = int8(v), scale = max|v| / 127 over the row of P.
@@ -272,16 +236,14 @@ struct GemmArgs {
   const float* bias1;     // kGeglu: gate bias [N]
   const bf16* resid;      // [M, N] (kOut, kBf16Resid)
   void* out;              // [M, N] bf16, or f32 for kConv without rounding
-  int M, N, K, T, taps, round_bf16;
+  int M, N, K, taps, round_bf16;
+  int Bseq, Tseq;         // A's M rows as Bseq sequences of Tseq (M = Bseq * Tseq):
+                          // an M tile never crosses a sequence; kConv shifts within one
 };
 
-constexpr int BN = 64;         // output columns per block
-constexpr int BKB = 128;       // bytes of K per pipeline stage
-constexpr int LDS = BKB + 16;  // padded smem row (144 B): ldmatrix is conflict-free
-constexpr int kStages = 3;
-constexpr int kCpr = BKB / 16; // 16-byte copies per smem row
-constexpr int kWarpsN = 2;     // warp tile 32 x 32: 2 x 4 mma tiles
-constexpr int kMi = 2, kNi = 4;
+constexpr int kBM = 128;           // rows of an M tile: two consumer warpgroups x 64
+constexpr int kRowBytes = 128;     // K bytes per pipeline stage: one 128B-swizzled row
+constexpr int kGemmThreads = 384;  // warpgroups 0, 1 consume; warpgroup 2 produces
 
 template <int kMode>
 struct ModeTraits {
@@ -290,234 +252,329 @@ struct ModeTraits {
   static constexpr int kElem = kInt8 ? 1 : 2;          // bytes per A/B element
 };
 
-// kRows 1: a 128 x 64 block tile, 8 warps; kRows 2: 256 x 64, 16 warps
+// kRows 128-row M tiles per block (the `rows` of ffpipe_layer) and
+// 128 / kRows columns, so a thread's accumulators hold 64 registers either way
 template <int kMode, int kRows>
-constexpr int gemm_smem_bytes() {
-  return kStages * (128 * kRows + ModeTraits<kMode>::kNB * BN) * LDS;
+struct GemmCfg {
+  static constexpr int kBN = 128 / kRows;
+  static constexpr int kAcc = kBN / 2;  // accumulator registers per 64 x kBN wgmma tile
+  static constexpr int kATile = kRows * kBM * kRowBytes;
+  static constexpr int kBTile = kBN * kRowBytes;
+  static constexpr int kStageBytes = kATile + ModeTraits<kMode>::kNB * kBTile;
+  static constexpr int kFit = 200 * 1024 / kStageBytes;
+  static constexpr int kStages = kFit < 4 ? 4 : kFit > 8 ? 8 : kFit;
+  static constexpr int kSmem = kStages * kStageBytes + 1024;  // + alignment
+};
+
+// one k-step (32 bytes of K) of a 64-row tile, by the accumulator's type and width
+__device__ __forceinline__ void wgmma_step(int (&d)[64], uint64_t a, uint64_t b, int sd) {
+  hopper::wgmma_s8_n128(d, a, b, sd);
+}
+__device__ __forceinline__ void wgmma_step(int (&d)[32], uint64_t a, uint64_t b, int sd) {
+  hopper::wgmma_s8_n64(d, a, b, sd);
+}
+__device__ __forceinline__ void wgmma_step(float (&d)[64], uint64_t a, uint64_t b, int sd) {
+  hopper::wgmma_bf16_n128(d, a, b, sd);
+}
+__device__ __forceinline__ void wgmma_step(float (&d)[32], uint64_t a, uint64_t b, int sd) {
+  hopper::wgmma_bf16_n64(d, a, b, sd);
 }
 
+// a block tile: kRows M tiles of 128 rows, and kBN columns from n0
+template <int kRows>
+struct BlockTile {
+  int tb[kRows], tt[kRows];  // each M tile's (sequence, first row)
+  bool live[kRows];          // an M tile past the last repeats it, stores nothing
+  int n0;
+
+  __device__ __forceinline__ BlockTile(int tile, int n_tiles_n, int tiles_per_seq, int n_mtiles,
+                                       int bn) {
+    const int mg = tile / n_tiles_n;
+    n0 = (tile % n_tiles_n) * bn;
+#pragma unroll
+    for (int j = 0; j < kRows; ++j) {
+      const int mt = mg * kRows + j;
+      live[j] = mt < n_mtiles;
+      const int m = live[j] ? mt : n_mtiles - 1;
+      tb[j] = m / tiles_per_seq;
+      tt[j] = (m % tiles_per_seq) * kBM;
+    }
+  }
+};
+
+// A block tile is kRows M tiles x kBN columns. The grid is persistent: at
+// most one block per SM, each walking the block tiles i, i + grid, ... .
+// Warpgroup 2 is the producer: one thread keeps TMA loads in flight through
+// a ring of kStages mbarrier-guarded stages, each 128 bytes of K of the A
+// tiles and the B tile(s), all 128B-swizzled; it runs on into the next
+// block tile while the consumers finish the last one, so the next tile's
+// loads overlap this tile's epilogue. Warpgroups 0 and 1 take rows 0-63 and
+// 64-127 of each M tile: per stage 4 wgmma k-steps (int8 m64nNk32 with exact
+// int32 sums, bf16 m64nNk16 with f32 sums) from shared memory, one group
+// kept in flight, releasing a stage once the group that read it is done.
+// The conv (design (a)): A is read as [Bseq, Tseq, K] and an M tile is 128
+// rows of one sequence; tap i loads its A tile at row t0 - shift_i, and
+// TMA's zero fill gives the causal shift's zero rows before t = 0 (and past
+// the sequence's end). The taps run one after another, each into the same
+// int32 accumulators (overwritten at the tap's first k-step), and each is
+// folded into the f32 sum in tap order, as fold_tap always did: one A tile
+// per tap and stage, no halo, and no second set of int32 accumulators,
+// which at 64 + 64 registers a thread leaves room for the f32 sum.
 template <int kMode, int kRows>
-__global__ void __launch_bounds__(256 * kRows, kRows == 1 ? 2 : 1)  // <= 128 registers
-gemm_kernel(const GemmArgs p) {
+__global__ void __launch_bounds__(kGemmThreads, 1)
+gemm_kernel(__grid_constant__ const CUtensorMap tm_a, __grid_constant__ const CUtensorMap tm_b0,
+            __grid_constant__ const CUtensorMap tm_b1, const GemmArgs p) {
   typedef ModeTraits<kMode> Tr;
+  typedef GemmCfg<kMode, kRows> Cfg;
+  typedef BlockTile<kRows> Tile;
   typedef typename std::conditional<Tr::kInt8, int, float>::type Acc;
-  constexpr int BM = 128 * kRows;
-  constexpr int kThreads = 256 * kRows;
-  constexpr int kATile = BM * LDS, kBTile = BN * LDS;
-  constexpr int kStageBytes = kATile + Tr::kNB * kBTile;
-  extern __shared__ __align__(128) unsigned char smem[];
+  constexpr int kS = Cfg::kStages, kBN = Cfg::kBN, kAcc = Cfg::kAcc;
+  extern __shared__ unsigned char smem_raw[];
+  __shared__ __align__(8) uint64_t full[kS], empty[kS];
+  unsigned char* smem = hopper::align1024(smem_raw);
 
-  const int tid = threadIdx.x, lane = tid % 32, warp = tid / 32;
-  const int wm = warp / kWarpsN, wn = warp % kWarpsN;
-  const int m0 = blockIdx.x * BM, n0 = blockIdx.y * BN;
-  const int Kb = p.K * Tr::kElem;  // bytes per row, a multiple of 16
-  const int nk = (Kb + BKB - 1) / BKB;
-  const unsigned char* A = static_cast<const unsigned char*>(p.a);
-
+  const int tiles_per_seq = (p.Tseq + kBM - 1) / kBM;
+  const int n_mtiles = p.Bseq * tiles_per_seq;
+  const int n_tiles_n = (p.N + kBN - 1) / kBN;
+  const int n_tiles = (n_mtiles + kRows - 1) / kRows * n_tiles_n;
+  const int nk = (p.K * Tr::kElem + kRowBytes - 1) / kRowBytes;
   // live taps tap_first .. taps-1; tap i reads row t - (taps - 1 - i)
-  int tap_first = 0;
   const int taps = kMode == kConv ? p.taps : 1;
+  int tap_first = 0;
   if constexpr (kMode == kConv)
-    while (taps - 1 - tap_first >= p.T) ++tap_first;
-  const int n_iter = nk * (taps - tap_first);
+    while (taps - 1 - tap_first >= p.Tseq) ++tap_first;
+  const int n_iter = nk * (taps - tap_first);  // stages per block tile
 
-  // The thread's 16-byte copies of each stage, set up once: the smem row
-  // tid / kCpr + j * kRowStep of the A and B tiles, at one column. A copy's
-  // source is its row offset (M * Kb < 2^31, checked at launch) plus the
-  // stage's K offset, minus the tap's shift in rows.
-  constexpr int kRowStep = kThreads / kCpr;
-  constexpr int kACopies = BM / kRowStep, kBCopies = BN / kRowStep;
-  static_assert(kThreads % kCpr == 0 && BM % kRowStep == 0 && BN % kRowStep == 0,
-                "whole rows per thread");
-  const int col = (tid % kCpr) * 16;
-  int a_off[kACopies], a_t[kACopies];  // row offset; t within the sequence, -1 past M
-  int b_off[kBCopies];                 // row offset, -1 past N
-#pragma unroll
-  for (int j = 0; j < kACopies; ++j) {
-    const int m = m0 + tid / kCpr + j * kRowStep;
-    a_off[j] = m * Kb + col;
-    a_t[j] = m < p.M ? m % p.T : -1;
-  }
-#pragma unroll
-  for (int j = 0; j < kBCopies; ++j) {
-    const int n = n0 + tid / kCpr + j * kRowStep;
-    b_off[j] = n < p.N ? n * Kb + col : -1;
-  }
-
-  int ld_tap = tap_first, ld_kb = 0;  // the next stage to load
-  auto load_stage = [&](int stage) {
-    const int shift = kMode == kConv ? taps - 1 - ld_tap : 0;
-    const bool k_ok = ld_kb + col < Kb;  // zeros past K
-    unsigned char* sa = smem + stage * kStageBytes + (tid / kCpr) * LDS + col;
-#pragma unroll
-    for (int j = 0; j < kACopies; ++j) {
-      const bool ok = k_ok && a_t[j] >= shift;
-      cp_async16(sa + j * kRowStep * LDS, ok ? A + (a_off[j] - shift * Kb + ld_kb) : A, ok);
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < kS; ++s) {
+      hopper::mbar_init(&full[s], 1);
+      hopper::mbar_init(&empty[s], 2);  // one arrival per consumer warpgroup
     }
+    hopper::fence_barrier_init();
+  }
+  __syncthreads();
+
+  const int wg = threadIdx.x / 128;
+  if (wg == 2) {
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 40;\n");
+    if (threadIdx.x == 256) {
+      int g_it = 0;  // stages loaded so far, over all of the block's tiles
+      for (int tile = blockIdx.x; tile < n_tiles; tile += gridDim.x) {
+        const Tile bt(tile, n_tiles_n, tiles_per_seq, n_mtiles, kBN);
+        for (int it = 0; it < n_iter; ++it, ++g_it) {
+          const int s = g_it % kS;
+          const int tap = tap_first + it / nk;
+          const int shift = kMode == kConv ? taps - 1 - tap : 0;
+          const int kc = (it % nk) * (kRowBytes / Tr::kElem);  // K coordinate, elements
+          hopper::mbar_wait(&empty[s], ((g_it / kS) & 1) ^ 1);
+          hopper::mbar_arrive_expect_tx(&full[s], Cfg::kStageBytes);
+          unsigned char* st = smem + s * Cfg::kStageBytes;
 #pragma unroll
-    for (int nb = 0; nb < Tr::kNB; ++nb) {
-      const unsigned char* B = static_cast<const unsigned char*>(nb == 0 ? p.b0 : p.b1) +
-                               static_cast<size_t>(ld_tap) * p.N * Kb + ld_kb;
-      unsigned char* sb = sa + kATile + nb * kBTile;
-#pragma unroll
-      for (int j = 0; j < kBCopies; ++j) {
-        const bool ok = k_ok && b_off[j] >= 0;
-        cp_async16(sb + j * kRowStep * LDS, ok ? B + b_off[j] : B, ok);
+          for (int j = 0; j < kRows; ++j)
+            hopper::tma_load_3d(st + j * kBM * kRowBytes, &tm_a, &full[s], kc,
+                                bt.tt[j] - shift, bt.tb[j]);
+          hopper::tma_load_3d(st + Cfg::kATile, &tm_b0, &full[s], kc, bt.n0, tap);
+          if constexpr (Tr::kNB == 2)
+            hopper::tma_load_3d(st + Cfg::kATile + Cfg::kBTile, &tm_b1, &full[s], kc, bt.n0, 0);
+        }
       }
     }
-    ld_kb += BKB;
-    if (ld_kb >= Kb) {
-      ld_kb = 0;
-      ++ld_tap;
-    }
-  };
-
-  Acc acc[Tr::kNB][kMi][kNi][4];
-  float yf[kMi][kNi][4];  // kConv: the f32 sum over taps
+  } else {
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 232;\n");
+    const int tid = threadIdx.x % 128, lane = tid % 32, warp = tid / 32;
+    const int g = lane / 4, q = lane % 4;
+    // accumulator element i of a 64-row tile: row 16 warp + g + 8 (i % 4 / 2)
+    // of the warpgroup's 64, column 8 (i / 4) + 2 q + i % 2
+    Acc acc[Tr::kNB][kRows][kAcc];
+    float yf[kRows][kMode == kConv ? kAcc : 1];  // kConv: the f32 sum over taps
+    // the block tile's per-column scales and biases, staged in shared memory
+    // (double-buffered by tile, one barrier per tile): kGeglu wxs, bx, wgs,
+    // bg; kConv the taps' scales, then bc; kOut wfs, bf
+    constexpr int kParams = kMode == kGeglu || kMode == kConv ? 4 : kMode == kOut ? 2 : 1;
+    __shared__ float params[2][kParams][kBN];
+    int g_it = 0;  // stages consumed so far, over all of the block's tiles
+    for (int tile = blockIdx.x, parity = 0; tile < n_tiles; tile += gridDim.x, parity ^= 1) {
+      const Tile bt(tile, n_tiles_n, tiles_per_seq, n_mtiles, kBN);
 #pragma unroll
-  for (int mi = 0; mi < kMi; ++mi)
+      for (int j = 0; j < kRows; ++j)
 #pragma unroll
-    for (int ni = 0; ni < kNi; ++ni)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        yf[mi][ni][e] = 0.f;
-#pragma unroll
-        for (int nb = 0; nb < Tr::kNB; ++nb) acc[nb][mi][ni][e] = 0;
+        for (int i = 0; i < (kMode == kConv ? kAcc : 1); ++i) yf[j][i] = 0.f;
+      float(&prm)[kParams][kBN] = params[parity];
+      if constexpr (Tr::kInt8) {
+        for (int c = threadIdx.x; c < kParams * kBN; c += 256) {
+          const int which = c / kBN, n = bt.n0 + c % kBN;
+          const float* src = which == kParams - 1 && kMode == kConv ? p.bias0
+                             : kMode == kConv ? p.w_scale0 + static_cast<size_t>(which) * p.N
+                             : which == 0 ? p.w_scale0 : which == 1 ? p.bias0
+                             : which == 2 ? p.w_scale1 : p.bias1;
+          prm[which][c % kBN] = n < p.N && (kMode != kConv || which < taps ||
+                                             which == kParams - 1) ? src[n] : 0.f;
+        }
+        // the 256 consumer threads: every one is done with the buffer's
+        // last tile (two tiles back) and sees this one's parameters
+        asm volatile("bar.sync 1, 256;\n" ::: "memory");
       }
 
-  const int g = lane / 4, q = lane % 4;
-
-  // fold tap `tap`'s int32 sums into yf with its shifted token scale and its
-  // tap scale, as the reference does: y + (float(acc) * a[t - shift]) * s
-  auto fold_tap = [&](int tap) {
-    if constexpr (kMode == kConv) {
-      const int shift = taps - 1 - tap;
+      // fold tap `tap`'s int32 sums into yf with its shifted token scale and
+      // its tap scale, as the reference does: y + (float(acc) * a[t - shift]) * s
+      auto fold_tap = [&](int tap) {
+        if constexpr (kMode == kConv) {
+          const int shift = taps - 1 - tap;
 #pragma unroll
-      for (int mi = 0; mi < kMi; ++mi)
+          for (int j = 0; j < kRows; ++j) {
+            float am[2];
 #pragma unroll
-        for (int half = 0; half < 2; ++half) {
-          const int m = m0 + wm * 32 + mi * 16 + g + half * 8;
-          // a row shifted in before t = 0 has code 0 and scale 1
-          const float am = (m < p.M && m % p.T >= shift) ? p.a_scale[m - shift] : 1.f;
+            for (int half = 0; half < 2; ++half) {
+              const int t = bt.tt[j] + wg * 64 + warp * 16 + g + half * 8;
+              // a row shifted in before t = 0 has code 0 and scale 1
+              am[half] = (t < p.Tseq && t >= shift)
+                             ? p.a_scale[static_cast<size_t>(bt.tb[j]) * p.Tseq + t - shift]
+                             : 1.f;
+            }
 #pragma unroll
-          for (int ni = 0; ni < kNi; ++ni) {
-            const int n = n0 + wn * 32 + ni * 8 + 2 * q;
-#pragma unroll
-            for (int e = 0; e < 2; ++e) {
-              const float ws =
-                  n + e < p.N ? p.w_scale0[static_cast<size_t>(tap) * p.N + n + e] : 0.f;
-              Acc& sum = acc[0][mi][ni][2 * half + e];
-              float& y = yf[mi][ni][2 * half + e];
-              y = __fadd_rn(y, __fmul_rn(__fmul_rn(__int2float_rn(sum), am), ws));
-              sum = 0;
+            for (int i = 0; i < kAcc; ++i) {
+              const float ws = prm[tap][8 * (i / 4) + 2 * q + (i & 1)];
+              const float y = __fmul_rn(__int2float_rn(acc[0][j][i]), am[(i / 2) & 1]);
+              yf[j][i] = __fadd_rn(yf[j][i], __fmul_rn(y, ws));
             }
           }
         }
-    }
-  };
+      };
 
+      int held = -1;  // the stage the group in flight reads
+      for (int it = 0; it < n_iter; ++it, ++g_it) {
+        const int s = g_it % kS, kb = it % nk;
+        hopper::mbar_wait(&full[s], (g_it / kS) & 1);
+        const unsigned char* st = smem + s * Cfg::kStageBytes;
+        hopper::wgmma_fence();
 #pragma unroll
-  for (int s = 0; s < kStages - 1; ++s) {
-    if (s < n_iter) load_stage(s);
-    cp_async_commit();
-  }
-  int k_step = 0, tap = tap_first;  // the stage being computed
-  for (int it = 0; it < n_iter; ++it) {
-    cp_async_wait<kStages - 2>();
-    __syncthreads();  // stage `it` has landed; stage it-1 is free to refill
-    if (it + kStages - 1 < n_iter) load_stage((it + kStages - 1) % kStages);
-    cp_async_commit();
-    const unsigned char* sa = smem + (it % kStages) * kStageBytes;
+        for (int ks = 0; ks < 4; ++ks)
 #pragma unroll
-    for (int ks = 0; ks < BKB / 32; ++ks) {  // 32 bytes: one mma depth
-      uint32_t af[kMi][4];
+          for (int j = 0; j < kRows; ++j) {
+            const uint64_t da = hopper::desc_sw128(st + (j * kBM + wg * 64) * kRowBytes + ks * 32);
 #pragma unroll
-      for (int mi = 0; mi < kMi; ++mi)
-        ldmatrix_x4(af[mi], sa + (wm * 32 + mi * 16 + lane % 16) * LDS + ks * 32 + (lane / 16) * 16);
-#pragma unroll
-      for (int nb = 0; nb < Tr::kNB; ++nb) {
-        const unsigned char* sb = sa + kATile + nb * kBTile;
-#pragma unroll
-        for (int nj = 0; nj < kNi / 2; ++nj) {
-          uint32_t bfr[4];
-          ldmatrix_x4(bfr, sb + (wn * 32 + nj * 16 + lane % 8 + (lane / 16) * 8) * LDS +
-                               ks * 32 + ((lane / 8) % 2) * 16);
-#pragma unroll
-          for (int mi = 0; mi < kMi; ++mi) {
-            mma(acc[nb][mi][2 * nj], af[mi], bfr[0], bfr[1]);
-            mma(acc[nb][mi][2 * nj + 1], af[mi], bfr[2], bfr[3]);
+            for (int nb = 0; nb < Tr::kNB; ++nb)
+              wgmma_step(acc[nb][j], da,
+                         hopper::desc_sw128(st + Cfg::kATile + nb * Cfg::kBTile + ks * 32),
+                         kb > 0 || ks > 0);
           }
+        hopper::wgmma_commit();
+        hopper::wgmma_wait<1>();  // the previous stage's group is done
+        if (held >= 0 && tid == 0) hopper::mbar_arrive(&empty[held]);
+        held = s;
+        if (kb == nk - 1) {  // the product's, or the tap's, last stage
+          hopper::wgmma_wait<0>();
+          if (tid == 0) hopper::mbar_arrive(&empty[held]);
+          held = -1;
+#pragma unroll
+          for (int nb = 0; nb < Tr::kNB; ++nb)
+#pragma unroll
+            for (int j = 0; j < kRows; ++j) hopper::fence_operand(acc[nb][j]);
+          fold_tap(tap_first + it / nk);
         }
       }
-    }
-    if (++k_step == nk) {
-      fold_tap(tap++);
-      k_step = 0;
-    }
-  }
-  cp_async_wait<0>();
 
-  // epilogue: the thread holds rows g, g+8 and columns 2q, 2q+1 of each
-  // 16 x 8 tile
+      // epilogue: the thread holds rows g, g + 8 of its warp's 16 and
+      // columns 2q, 2q + 1 of each 8. Outside kGeglu a row's values are all
+      // computed before any is stored: the compiler cannot move a load of the
+      // residual above a store to `out` (they might alias). kGeglu, whose
+      // epilogue holds the most registers, stores as it goes.
 #pragma unroll
-  for (int mi = 0; mi < kMi; ++mi)
+      for (int j = 0; j < kRows; ++j)
 #pragma unroll
-    for (int half = 0; half < 2; ++half) {
-      const int m = m0 + wm * 32 + mi * 16 + g + half * 8;
-      if (m >= p.M) continue;
-      float am = 1.f;
-      if constexpr (Tr::kInt8 && kMode != kConv) am = p.a_scale[m];
-      const size_t row = static_cast<size_t>(m) * p.N;
+        for (int half = 0; half < 2; ++half) {
+          const int t = bt.tt[j] + wg * 64 + warp * 16 + g + half * 8;
+          if (!bt.live[j] || t >= p.Tseq) continue;
+          const int m = bt.tb[j] * p.Tseq + t;
+          float am = 1.f;
+          if constexpr (Tr::kInt8 && kMode != kConv) am = p.a_scale[m];
+          const size_t row = static_cast<size_t>(m) * p.N;
+          float v[kBN / 4] = {};  // columns 8 ni + 2q + e at v[2 ni + e]
+          auto store = [&](int ni) {
+            const int n = bt.n0 + ni * 8 + 2 * q;
+            if (n >= p.N) return;
+            if (kMode == kConv && !p.round_bf16)
+              *reinterpret_cast<float2*>(static_cast<float*>(p.out) + row + n) =
+                  make_float2(v[2 * ni], v[2 * ni + 1]);
+            else
+              *reinterpret_cast<__nv_bfloat162*>(static_cast<bf16*>(p.out) + row + n) =
+                  __floats2bfloat162_rn(v[2 * ni], v[2 * ni + 1]);
+          };
 #pragma unroll
-      for (int ni = 0; ni < kNi; ++ni) {
-        const int n = n0 + wn * 32 + ni * 8 + 2 * q;
-        if (n >= p.N) continue;
-        float v[2];
+          for (int ni = 0; ni < kBN / 8; ++ni) {
+            const int n = bt.n0 + ni * 8 + 2 * q;
 #pragma unroll
-        for (int e = 0; e < 2; ++e) {
-          const Acc s0 = acc[0][mi][ni][2 * half + e];
-          if constexpr (kMode == kGeglu) {
-            const Acc s1 = acc[1][mi][ni][2 * half + e];
-            const float hx = __fadd_rn(
-                __fmul_rn(__fmul_rn(__int2float_rn(s0), am), p.w_scale0[n + e]), p.bias0[n + e]);
-            const float hg = __fadd_rn(
-                __fmul_rn(__fmul_rn(__int2float_rn(s1), am), p.w_scale1[n + e]), p.bias1[n + e]);
-            v[e] = __fmul_rn(gelu_tanh(hg), hx);
-          } else if constexpr (kMode == kConv) {
-            v[e] = __fadd_rn(yf[mi][ni][2 * half + e], p.bias0[n + e]);
-          } else if constexpr (kMode == kOut) {
-            const float o = __fadd_rn(
-                __fmul_rn(__fmul_rn(__int2float_rn(s0), am), p.w_scale0[n + e]), p.bias0[n + e]);
-            v[e] = __fadd_rn(__bfloat162float(p.resid[row + n + e]),
-                             __bfloat162float(__float2bfloat16_rn(o)));
-          } else if constexpr (kMode == kBf16Resid) {
-            v[e] = __fadd_rn(__bfloat162float(p.resid[row + n + e]),
-                             __bfloat162float(__float2bfloat16_rn(s0)));
-          } else {
-            v[e] = s0;
+            for (int e = 0; e < 2; ++e) {
+              const int i = 4 * ni + 2 * half + e, c = ni * 8 + 2 * q + e;
+              const Acc s0 = acc[0][j][i];
+              float& out = v[2 * ni + e];
+              if (n >= p.N) continue;
+              if constexpr (kMode == kGeglu) {
+                const Acc s1 = acc[Tr::kNB - 1][j][i];
+                const float hx = __fadd_rn(
+                    __fmul_rn(__fmul_rn(__int2float_rn(s0), am), prm[0][c]), prm[1][c]);
+                const float hg = __fadd_rn(
+                    __fmul_rn(__fmul_rn(__int2float_rn(s1), am), prm[2][c]), prm[3][c]);
+                out = __fmul_rn(gelu_tanh(hg), hx);
+              } else if constexpr (kMode == kConv) {
+                out = __fadd_rn(yf[j][i], prm[kParams - 1][c]);
+              } else if constexpr (kMode == kOut) {
+                const float o = __fadd_rn(
+                    __fmul_rn(__fmul_rn(__int2float_rn(s0), am), prm[0][c]), prm[1][c]);
+                out = __fadd_rn(__bfloat162float(p.resid[row + n + e]),
+                                __bfloat162float(__float2bfloat16_rn(o)));
+              } else if constexpr (kMode == kBf16Resid) {
+                out = __fadd_rn(__bfloat162float(p.resid[row + n + e]),
+                                __bfloat162float(__float2bfloat16_rn(s0)));
+              } else {
+                out = s0;
+              }
+            }
+            if constexpr (kMode == kGeglu) store(ni);
+          }
+          if constexpr (kMode != kGeglu) {
+#pragma unroll
+            for (int ni = 0; ni < kBN / 8; ++ni) store(ni);
           }
         }
-        if (kMode == kConv && !p.round_bf16)
-          *reinterpret_cast<float2*>(static_cast<float*>(p.out) + row + n) = make_float2(v[0], v[1]);
-        else
-          *reinterpret_cast<__nv_bfloat162*>(static_cast<bf16*>(p.out) + row + n) =
-              __floats2bfloat162_rn(v[0], v[1]);
-      }
     }
+  }
 }
 
 template <int kMode, int kRows>
 cudaError_t launch_gemm(const GemmArgs& args, cudaStream_t st) {
-  constexpr int bytes = gemm_smem_bytes<kMode, kRows>();
-  const long long kb = static_cast<long long>(args.K) * ModeTraits<kMode>::kElem;
-  if (kb % 16 != 0 || (args.M + 128LL * kRows) * kb >= (1LL << 31) ||
-      (args.N + static_cast<long long>(BN)) * kb >= (1LL << 31))
-    return cudaErrorInvalidValue;  // the kernel's 32-bit row offsets
-  cudaError_t err = cudaFuncSetAttribute(gemm_kernel<kMode, kRows>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+  typedef ModeTraits<kMode> Tr;
+  typedef GemmCfg<kMode, kRows> Cfg;
+  const uint64_t kb = static_cast<uint64_t>(args.K) * Tr::kElem;  // bytes per row
+  const int taps = kMode == kConv ? args.taps : 1;
+  if (kb % 16 != 0 || args.Bseq <= 0 || args.Tseq <= 0 ||
+      static_cast<long long>(args.Bseq) * args.Tseq != args.M || taps < 1 || taps > 3)
+    return cudaErrorInvalidValue;  // kConv stages at most 3 tap scales
+  const CUtensorMapDataType type =
+      Tr::kInt8 ? CU_TENSOR_MAP_DATA_TYPE_UINT8 : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16;
+  const uint32_t box0 = kRowBytes / Tr::kElem;
+  CUtensorMap ma, mb0, mb1;
+  cudaError_t err = hopper::make_map_3d(&ma, type, args.a, args.K, args.Tseq, args.Bseq, kb,
+                                        kb * args.Tseq, box0, kBM, 1);
+  if (err == cudaSuccess)
+    err = hopper::make_map_3d(&mb0, type, args.b0, args.K, args.N, taps, kb, kb * args.N, box0,
+                              Cfg::kBN, 1);
+  if (err == cudaSuccess)
+    err = Tr::kNB == 2 ? hopper::make_map_3d(&mb1, type, args.b1, args.K, args.N, 1, kb,
+                                             kb * args.N, box0, Cfg::kBN, 1)
+                       : (mb1 = mb0, cudaSuccess);
   if (err != cudaSuccess) return err;
-  const dim3 grid((args.M + 128 * kRows - 1) / (128 * kRows), (args.N + BN - 1) / BN);
-  gemm_kernel<kMode, kRows><<<grid, 256 * kRows, bytes, st>>>(args);
+  int device, sms;
+  if ((err = cudaGetDevice(&device)) != cudaSuccess ||
+      (err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device)) != cudaSuccess ||
+      (err = cudaFuncSetAttribute(gemm_kernel<kMode, kRows>,
+                                  cudaFuncAttributeMaxDynamicSharedMemorySize, Cfg::kSmem)) !=
+          cudaSuccess)
+    return err;
+  const int m_tiles = args.Bseq * ((args.Tseq + kBM - 1) / kBM);
+  const int tiles = (m_tiles + kRows - 1) / kRows * ((args.N + Cfg::kBN - 1) / Cfg::kBN);
+  gemm_kernel<kMode, kRows><<<tiles < sms ? tiles : sms, kGemmThreads, Cfg::kSmem, st>>>(
+      ma, mb0, mb1, args);
   return cudaGetLastError();
 }
 
@@ -537,18 +594,16 @@ struct FFScratch {
 };
 
 template <int kRows>
-cudaError_t launch_ff_rows(const bf16* x, const float* film, const FFWeights& w,
-                           const FFScratch& s, bf16* out, int B, int T, int C, int P,
-                           bool round_y, cudaStream_t st) {
+cudaError_t launch_ff_rows(const bf16* x, const void* film, bool film_bf16,
+                           const FFWeights& w, const FFScratch& s, bf16* out, int B, int T,
+                           int C, int P, bool round_y, cudaStream_t st) {
   const int M = B * T;
   const dim3 warps_grid((M + 7) / 8);
-  norm_film_kernel<true><<<warps_grid, 256, 0, st>>>(x, film, s.q, s.a, nullptr, M, T, C,
-                                                      static_cast<float>(sqrt(static_cast<double>(C))));
-  cudaError_t err = cudaGetLastError();
+  cudaError_t err = launch_norm_film<true>(x, film, film_bf16, s.q, s.a, nullptr, M, T, C, st);
   if (err != cudaSuccess) return err;
 
   GemmArgs a = {};
-  a.M = M; a.T = T; a.taps = 1;
+  a.M = M; a.Bseq = 1; a.Tseq = M; a.taps = 1;
   a.a = s.q; a.a_scale = s.a;
   a.b0 = w.wxq; a.b1 = w.wgq; a.w_scale0 = w.wxs; a.w_scale1 = w.wgs;
   a.bias0 = w.bx; a.bias1 = w.bg; a.out = s.g; a.N = P; a.K = C;
@@ -558,7 +613,7 @@ cudaError_t launch_ff_rows(const bf16* x, const float* film, const FFWeights& w,
   if ((err = cudaGetLastError()) != cudaSuccess) return err;
 
   GemmArgs c = {};
-  c.M = M; c.T = T; c.taps = 3; c.round_bf16 = round_y;
+  c.M = M; c.Bseq = B; c.Tseq = T; c.taps = 3; c.round_bf16 = round_y;
   c.a = s.q; c.a_scale = s.a; c.b0 = w.wcq; c.w_scale0 = w.wcs; c.bias0 = w.bc;
   c.out = s.y; c.N = P; c.K = P;
   if ((err = launch_gemm<kConv, kRows>(c, st)) != cudaSuccess) return err;
@@ -570,22 +625,23 @@ cudaError_t launch_ff_rows(const bf16* x, const float* film, const FFWeights& w,
   if ((err = cudaGetLastError()) != cudaSuccess) return err;
 
   GemmArgs o = {};
-  o.M = M; o.T = T; o.taps = 1;
+  o.M = M; o.Bseq = 1; o.Tseq = M; o.taps = 1;
   o.a = s.q; o.a_scale = s.a; o.b0 = w.wfq; o.w_scale0 = w.wfs; o.bias0 = w.bf;
   o.resid = x; o.out = out; o.N = C; o.K = P;
   return launch_gemm<kOut, kRows>(o, st);
 }
 
-// out = x + FF(normFiLM(x)); rows 1 or 2 selects the GEMMs' M tile (128 or
-// 256 tokens). Needs C % 64 == 0 and P % 64 == 0.
-inline cudaError_t launch_ff(const bf16* x, const float* film, const FFWeights& w,
-                             const FFScratch& s, bf16* out, int B, int T, int C, int P,
-                             bool round_y, int rows, cudaStream_t st) {
+// out = x + FF(normFiLM(x)); film f32 or (film_bf16) bf16; rows 1 or 2
+// selects the GEMMs' M tile (128 or 256 tokens). Needs C % 64 == 0 and
+// P % 64 == 0.
+inline cudaError_t launch_ff(const bf16* x, const void* film, bool film_bf16,
+                             const FFWeights& w, const FFScratch& s, bf16* out, int B,
+                             int T, int C, int P, bool round_y, int rows, cudaStream_t st) {
   if (B <= 0 || T <= 0 || C <= 0 || P <= 0 || C % 64 != 0 || P % 64 != 0 ||
       (rows != 1 && rows != 2))
     return cudaErrorInvalidValue;
-  return rows == 2 ? launch_ff_rows<2>(x, film, w, s, out, B, T, C, P, round_y, st)
-                   : launch_ff_rows<1>(x, film, w, s, out, B, T, C, P, round_y, st);
+  return rows == 2 ? launch_ff_rows<2>(x, film, film_bf16, w, s, out, B, T, C, P, round_y, st)
+                   : launch_ff_rows<1>(x, film, film_bf16, w, s, out, B, T, C, P, round_y, st);
 }
 
 }  // namespace ff

@@ -154,11 +154,16 @@ class CodeHiFiGANVocoder:
         self.module = module
 
     @classmethod
-    def from_config(cls, cfg: Dict, variables=None, device="cpu",
+    def from_config(cls, cfg: Dict, variables=None, device="cuda",
                     dtype: torch.dtype = torch.float32) -> "CodeHiFiGANVocoder":
         """The vocoder of a config dict; `variables` (a JAX variables tree)
-        loads its weights, else the init is torch's, from the global seed."""
+        loads its weights, else the init is torch's, from the global seed.
+        Runs on the card unless `device="cpu"` is asked for; raises without
+        CUDA otherwise."""
+        from diffnorm_tpu_torch.device import resolve_device
         from diffnorm_tpu_torch.weights import from_jax_variables
+
+        device = resolve_device(device)
 
         if cfg.get("multispkr"):
             raise NotImplementedError("the multi-speaker vocoder is not ported")

@@ -189,7 +189,8 @@ def ffpipe_layer(x: torch.Tensor, film_ff: torch.Tensor, w: Pack,
     if rows == 2 and not (b % 2 == 0 and b >= 4):
         rows = 1
     x = aligned(x)
-    film = aligned(film_ff.float())
+    film_bf16 = film_ff.dtype == torch.bfloat16  # else read as f32
+    film = aligned(film_ff if film_bf16 else film_ff.float())
     m = b * t
     out = torch.empty_like(x)
     q = torch.empty(m, max(c, p), dtype=torch.int8, device=x.device)
@@ -197,10 +198,10 @@ def ffpipe_layer(x: torch.Tensor, film_ff: torch.Tensor, w: Pack,
     g = torch.empty(m, p, dtype=torch.bfloat16, device=x.device)
     y = torch.empty(m, p, dtype=torch.float32, device=x.device)
     fn = _build.function("int8_ff", "int8_ff_bf16",
-                         [ctypes.c_void_p] * 19 + [ctypes.c_int] * 5 + [ctypes.c_void_p])
+                         [ctypes.c_void_p] * 19 + [ctypes.c_int] * 6 + [ctypes.c_void_p])
     stream = torch.cuda.current_stream(x.device).cuda_stream
     _build.check(fn(x.data_ptr(), film.data_ptr(), *(w[k].data_ptr() for k in FF_KEYS),
                     q.data_ptr(), a.data_ptr(), g.data_ptr(), y.data_ptr(), out.data_ptr(),
-                    b, t, c, p, rows, stream), "ffpipe_layer")
+                    b, t, c, p, rows, int(film_bf16), stream), "ffpipe_layer")
     _build.launch_counts["ffpipe_layer2" if rows == 2 else "ffpipe_layer"] += 1
     return out

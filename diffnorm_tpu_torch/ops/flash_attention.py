@@ -1,12 +1,15 @@
 """Non-causal attention with a key-padding mask, online softmax, f32 sums.
 
 Replaces diffnorm_tpu/ops/pallas_attention.py:flash_attention. The kernel is
-`csrc/flash_attention.cu`: one block per (64 queries, batch x head), K/V in
-64-key tiles through shared memory, bf16 mma.sync with f32 sums for q k^T
-and for P V (P split into bf16 hi + lo, so the probabilities keep f32
-precision as on the TPU), an f32 FMA kernel for float32 inputs. At the S2ST
-decoder's encoder attention (q [2,8,256,64], k/v [2,8,2112,64], bf16) it is
-bound by bytes on an H100: 9.7 MB, 2.9 us at 3.35 TB/s.
+`csrc/flash_attention.cu`: for bf16 with D 64/128, one warpgroup per 64
+queries on wgmma, K/V in 64-key tiles streamed by TMA through a ring of
+stages, P split into bf16 hi + lo (so the probabilities keep f32 precision
+as on the TPU); where the grid would leave the card under-filled, the key
+tiles are split into ranges (`split_plan`) whose partial results a second
+launch merges. D 32/96 keep an mma.sync kernel, float32 inputs an FMA
+kernel. At the S2ST decoder's encoder attention (q [2,8,256,64], k/v
+[2,8,2112,64], bf16) it is bound by bytes on an H100: 9.7 MB, 2.9 us at
+3.35 TB/s.
 `ops.attention.masked_attention` routes here for keys of length >= 2048 on
 the card.
 
@@ -30,6 +33,21 @@ from diffnorm_tpu_torch.ops import _build
 
 MASKED = -1.0e30  # pallas_attention.py NEG_INF
 BF16_DIMS = (32, 64, 96, 128)
+SPLIT_DIMS = (64, 128)  # the wgmma kernel's head widths, which split the keys
+BLOCK = 64  # query rows per block and keys per tile
+BLOCKS_PER_SM = 2  # split until the grid has about this many blocks per SM
+
+
+def split_plan(bh: int, tq: int, tk: int, sms: int):
+    """(n_splits, tiles_per_split) of the wgmma kernel: the Tk keys in
+    64-key tiles, cut into contiguous ranges only where (query tiles x B*H)
+    blocks would leave the card under BLOCKS_PER_SM blocks per SM. Every
+    range holds at least one key below Tk."""
+    tiles = -(-tk // BLOCK)
+    blocks = -(-tq // BLOCK) * bh
+    want = min(tiles, max(1, -(-BLOCKS_PER_SM * sms // blocks)))
+    per = -(-tiles // want)
+    return -(-tiles // per), per
 
 
 def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -43,6 +61,34 @@ def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     p = torch.exp(s - s.amax(dim=-1, keepdim=True))
     out = torch.matmul(p, v.float()) / p.sum(dim=-1, keepdim=True).clamp(min=1e-30)
     return out.to(q.dtype)
+
+
+def flash_attention_plain_split(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                                mask: Optional[torch.Tensor], n_splits: int) -> torch.Tensor:
+    """The split-key form of the kernel in PyTorch, f32: the keys cut into
+    contiguous ranges of ceil(Tk / n_splits) (so no range is empty), each
+    range's unnormalized o_i with its row max m_i and sum l_i, merged as the
+    kernel's merge launch does:
+        m* = max_i m_i,  o = sum_i e^(m_i - m*) o_i / max(sum_i e^(m_i - m*) l_i, 1e-30)
+    A range whose keys are all masked has m_i = -1e30 and weighs nothing
+    beside a range with a valid key; a row with no valid key is the mean of
+    v over the Tk keys. For the tests: no path calls it."""
+    tk = k.shape[2]
+    chunk = -(-tk // n_splits)
+    scale = q.shape[-1] ** -0.5
+    qf = q.float() * scale
+    parts = []
+    for k0 in range(0, tk, chunk):
+        s = torch.matmul(qf, k[:, :, k0:k0 + chunk].float().transpose(-1, -2))
+        if mask is not None:
+            s = s.masked_fill(~mask.bool()[:, None, None, k0:k0 + chunk], MASKED)
+        m = s.amax(dim=-1, keepdim=True)
+        p = torch.exp(s - m)
+        parts.append((torch.matmul(p, v[:, :, k0:k0 + chunk].float()), m, p.sum(-1, keepdim=True)))
+    m_star = torch.stack([m for _, m, _ in parts]).amax(dim=0)
+    o = sum(torch.exp(m - m_star) * o_i for o_i, m, _ in parts)
+    l = sum(torch.exp(m - m_star) * l_i for _, m, l_i in parts)
+    return (o / l.clamp(min=1e-30)).to(q.dtype)
 
 
 def _aligned(t: torch.Tensor) -> torch.Tensor:
@@ -91,11 +137,28 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         mask = mask.to(torch.bool).contiguous()
     q, k, v = _aligned(q), _aligned(k), _aligned(v)
     out = torch.empty_like(q)
-    fn = _build.function("flash_attention", symbol, [ctypes.c_void_p] * 5 + [ctypes.c_int] * 5
-                         + [ctypes.c_float, ctypes.c_void_p])
     stream = torch.cuda.current_stream(q.device).cuda_stream
-    _build.check(fn(q.data_ptr(), k.data_ptr(), v.data_ptr(),
-                    None if mask is None else mask.data_ptr(), out.data_ptr(),
-                    b * h, h, tq, tk, d, d ** -0.5, stream), "flash_attention")
+    ptrs = (q.data_ptr(), k.data_ptr(), v.data_ptr(), None if mask is None else mask.data_ptr(),
+            out.data_ptr())
+    if symbol == "flash_attention_f32":
+        fn = _build.function("flash_attention", symbol, [ctypes.c_void_p] * 5
+                             + [ctypes.c_int] * 5 + [ctypes.c_float, ctypes.c_void_p])
+        err = fn(*ptrs, b * h, h, tq, tk, d, d ** -0.5, stream)
+    else:
+        n_splits, per = 1, -(-tk // BLOCK)
+        o_part = ml_part = None
+        if d in SPLIT_DIMS:
+            sms = torch.cuda.get_device_properties(q.device).multi_processor_count
+            n_splits, per = split_plan(b * h, tq, tk, sms)
+        if n_splits > 1:
+            o_part = torch.empty(n_splits, b * h, tq, d, dtype=torch.float32, device=q.device)
+            ml_part = torch.empty(n_splits, b * h, tq, 2, dtype=torch.float32, device=q.device)
+        fn = _build.function("flash_attention", symbol, [ctypes.c_void_p] * 7
+                             + [ctypes.c_int] * 5 + [ctypes.c_float] + [ctypes.c_int] * 2
+                             + [ctypes.c_void_p])
+        err = fn(*ptrs, None if o_part is None else o_part.data_ptr(),
+                 None if ml_part is None else ml_part.data_ptr(),
+                 b * h, h, tq, tk, d, d ** -0.5, n_splits, per, stream)
+    _build.check(err, "flash_attention")
     _build.launch_counts["flash_attention"] += 1
     return out

@@ -116,7 +116,9 @@ def fused_layer(x: torch.Tensor, mask: torch.Tensor, film_attn: torch.Tensor,
             raise ValueError(f"fused_layer: {name} must be contiguous and aligned")
     x = aligned(x)
     mask = aligned(mask.to(torch.bool))
-    fa, ffm = aligned(film_attn.float()), aligned(film_ff.float())
+    film_bf16 = film_attn.dtype == film_ff.dtype == torch.bfloat16  # else read as f32
+    film_type = torch.bfloat16 if film_bf16 else torch.float32
+    fa, ffm = aligned(film_attn.to(film_type)), aligned(film_ff.to(film_type))
     m = b * t
     bf16 = dict(dtype=torch.bfloat16, device=x.device)
     hn, oh, x1 = (torch.empty(m, c, **bf16) for _ in range(3))
@@ -126,14 +128,14 @@ def fused_layer(x: torch.Tensor, mask: torch.Tensor, film_attn: torch.Tensor,
     g, y = torch.empty(m, p, **bf16), torch.empty(m, p, **bf16)
     out = torch.empty_like(x)
     fn = _build.function("fused_layer", "fused_layer_bf16",
-                         [ctypes.c_void_p] * 27 + [ctypes.c_int] * 6 + [ctypes.c_void_p])
+                         [ctypes.c_void_p] * 27 + [ctypes.c_int] * 7 + [ctypes.c_void_p])
     stream = torch.cuda.current_stream(x.device).cuda_stream
     _build.check(fn(x.data_ptr(), mask.data_ptr(), fa.data_ptr(), ffm.data_ptr(),
                     w["wqkv"].data_ptr(), w["wo"].data_ptr(),
                     *(w[k].data_ptr() for k in FF_KEYS),
                     hn.data_ptr(), qkv.data_ptr(), oh.data_ptr(), x1.data_ptr(),
                     q.data_ptr(), a.data_ptr(), g.data_ptr(), y.data_ptr(), out.data_ptr(),
-                    b, t, c, p, heads, dim_head, stream), "fused_layer")
+                    b, t, c, p, heads, dim_head, int(film_bf16), stream), "fused_layer")
     _build.launch_counts["fused_layer"] += 1
     return out
 

@@ -338,3 +338,39 @@ def test_cli_matches_jax_cli(tmp_path):
         b = _read_wav(os.path.join(tmp_path, "jax", f"utt{i}_pred.wav"))
         assert len(a) == len(b) > 0
         np.testing.assert_allclose(a, b, atol=2 / 32767)
+
+
+def test_vocoder_loaders_default_to_the_card(vocoder, tmp_path):
+    """`load_vocoder` and `CodeHiFiGANVocoder.from_config` run on the card
+    unless the CPU is asked for: without CUDA, a call without `device`
+    raises; with device="cpu" both load and run on the CPU (the loaded one
+    with the weights of the .npz)."""
+    from diffnorm_tpu_torch.cli.generate_waveform import load_vocoder
+    from diffnorm_tpu_torch.models.hifigan import CodeHiFiGANVocoder
+
+    _, variables, tv = vocoder
+    cfg = dict(num_embeddings=VOC["num_embeddings"], embedding_dim=VOC["embedding_dim"],
+               upsample_rates=list(VOC["upsample_rates"]),
+               upsample_kernel_sizes=list(VOC["upsample_kernel_sizes"]),
+               upsample_initial_channel=VOC["upsample_initial_channel"],
+               resblock_kernel_sizes=list(VOC["resblock_kernel_sizes"]),
+               resblock_dilation_sizes=[list(d) for d in VOC["resblock_dilation_sizes"]],
+               dur_predictor_params={"var_pred_hidden_dim": VOC["var_pred_hidden_dim"]})
+    cfg_path = tmp_path / "voc.json"
+    cfg_path.write_text(json.dumps(cfg))
+    save_npz(str(tmp_path / "voc.npz"), variables)
+    if not torch.cuda.is_available():
+        with pytest.raises(RuntimeError, match="CUDA"):
+            load_vocoder(str(tmp_path / "voc.npz"), str(cfg_path))
+        with pytest.raises(RuntimeError, match="CUDA"):
+            CodeHiFiGANVocoder.from_config(cfg)
+
+    code = torch.from_numpy(np.random.default_rng(8).integers(0, 20, size=(2, 9))).long()
+    loaded = load_vocoder(str(tmp_path / "voc.npz"), str(cfg_path), device="cpu").module
+    fresh = CodeHiFiGANVocoder.from_config(cfg, device="cpu").module
+    for module in (loaded, fresh):
+        assert {p.device.type for p in module.parameters()} == {"cpu"}
+    with torch.no_grad():
+        np.testing.assert_array_equal(loaded(code).numpy(), tv(code).numpy())
+        assert fresh(code).shape == (2, 9 * 4)
+        assert loaded.predict_durations(code).shape == (2, 9)
