@@ -20,6 +20,17 @@ prints no result:
    ragged key masks, a fully masked row, odd Tq/Tk, Tk = 1, Tk = 65 and a
    short last key split (bf16 and float32), D 32/96/128 and float32, timed
    beside F.scaled_dot_product_attention with the same boolean key mask.
+   Each also in float32 where it has a float32 kernel (rms_norm_film,
+   wavenet_chain, flash_attention); wavenet_chain at the denoiser's 8
+   dilations and the VAE's widths (timed, with one chain's device time per
+   launch), at T=200 (two M tiles, the second ragged), at T=37 with every
+   shifted tap dead, and at C=200. masked_attention at 2048 keys for shapes
+   the kernel does not take (bf16 D=80, float16) takes the module math and
+   launches nothing.
+2b. gradients: an MSE step of the denoiser's Wavenet (released width,
+   B8 x T128) and of a FiLM RMSNorm with the kernels' forwards (their
+   backward is the plain version's), in bf16 and float32, against the same
+   step through the plain versions.
 3. main path: ddim_sample at the released bf16 diff_discrete width (hidden
    512, latent 128, 768-d features, 12 + 4x8 denoiser, T=200, start step 50 =
    49 DDIM steps) from a seeded random init at B64 x T128, through the
@@ -28,6 +39,8 @@ prints no result:
 3b. int8 main path: the same weights with quant_int8, on the routes
    fused_layer, ffpipe and ffpipe2 (each kernel launched 12 x 49 times),
    against the plain-version run (ffpipe2 against ffpipe, bit for bit).
+3c. float32 main path: the same configuration in float32, 5 DDIM steps
+   (stride 10), through the float32 kernels, against the plain-version run.
 4. entry point: the weights written with weights.save_npz and the CLI run on
    8 synthetic utterances, in bf16 and with --quant-int8.
 5. S2ST chain at CVSS length: s2st_generate with the released
@@ -84,6 +97,9 @@ SECONDS_PER_UNIT = 0.02      # 50 Hz units
 # order, rounded to bf16 after every stack; per-row direction and the worst
 # error against the output's scale.
 CHAIN_ROW_COS, CHAIN_REL_ERR = 0.999, 2e-2
+# float32 chains: the same f32 products summed in another order, no rounding
+# between stacks
+CHAIN_F32_REL_ERR = 1e-5
 # the full 49-step path, kernels against plain versions: bf16 rounding
 # differences compound over the steps
 PATH_ROW_COS = 0.99
@@ -102,6 +118,16 @@ LAYER_ROW_COS, LAYER_REL_ERR = 0.9995, 3e-2
 # flash_attention: the tolerance of tests/test_pallas_ops.py:25 plus one ulp
 # of the output's type (kernel and plain version each round once)
 FLASH_RTOL, FLASH_ATOL = 2e-3, 2e-4
+# gradients on the card: a training forward through the kernels (their
+# backward is the plain version's) against the same step through the plain
+# versions, with an MSE loss, so the kernels' forward values reach the
+# gradients. bf16 forwards differ by an ulp here and there: each gradient
+# row's direction; float32 forwards by sum order: the worst error against
+# the gradient's scale
+GRAD_B, GRAD_ROW_COS, GRAD_F32_REL = 8, 0.999, 1e-4
+# float32 ddim_sample through the kernels against the plain-version run: f32
+# products in other orders, over 5 DDIM steps (stride 10) and the decode
+F32_STRIDE, F32_PATH_ROW_COS, F32_PATH_REL = 10, 0.9999, 1e-3
 
 # the S2ST chain (bench.py --e2e's shape) and its long form, where the
 # subsampled source reaches flash_attention's 2048 keys
@@ -183,10 +209,8 @@ def check_rms_norm_film(torch, norm):
     # PyTorch's two roundings differ by an f32 rounding of the summands,
     # which can exceed a bf16 ulp of the near-zero result: allow 4 f32 ulps
     # of |y * gamma| + |beta| on top
-    xf = x.float()
-    y = xf * torch.rsqrt(xf.square().sum(-1, keepdim=True).clamp(min=1e-24)) * 512 ** 0.5
-    gamma, beta = film.float()[:, None, :].chunk(2, dim=-1)
-    tol = ulp + ((y * gamma).abs() + beta.abs()) * 2.0 ** -21
+    summands = norm_summands(torch, x, film)
+    tol = ulp + summands * 2.0 ** -21
     err = (got - ref).abs()
     if not torch.isfinite(got).all() or (err > tol).any():
         fail(f"rms_norm_film: {(err > tol).sum().item()} elements beyond tolerance, "
@@ -199,45 +223,91 @@ def check_rms_norm_film(torch, norm):
           f"bound {bound_ms:.4f} ms ({bound_by}), max_abs_err {err.max().item():.3e}, "
           f"{(err > ulp).sum().item()} of {err.numel()} elements beyond 1 bf16 ulp "
           f"(all within 1 ulp + 4 f32 ulps of the summands)")
+
+    # float32: the same f32 math, no rounding to bf16 at the end; rsqrtf and
+    # the sum order move the result by a few f32 ulps of the summands
+    x32, film32 = x.float(), film.float()
+    got = norm.rms_norm_film(x32, film32)
+    ref = norm.rms_norm_film_plain(x32, film32)
+    err32 = (got - ref).abs()
+    tol = norm_summands(torch, x32, film32) * 2.0 ** -18
+    if not torch.isfinite(got).all() or (err32 > tol).any():
+        fail(f"rms_norm_film float32: {(err32 > tol).sum().item()} elements beyond 32 f32 "
+             f"ulps of the summands, max err {err32.max().item():.3e}")
+    ms32 = cuda_time_ms(lambda: norm.rms_norm_film(x32, film32))
+    bound32, _ = bound(2 * nbytes, 5.0 * x.numel(), F32_FLOP_PER_S)
+    print(f"kernel rms_norm_film [{B},{T},512] float32: {ms32:.4f} ms, bound {bound32:.4f} ms "
+          f"(bytes), max_abs_err {err32.max().item():.3e} (within 32 f32 ulps of the summands)")
     return dict(max_abs_err=err.max().item(), ms=ms, plain_ms=plain_ms,
                 bound_ms=bound_ms, bound_by=bound_by)
 
 
-def chain_inputs(torch, c, s, k, seed):
+def norm_summands(torch, x, film):
+    """|y * gamma| + |beta| of the norm, in f32: the scale of its rounding."""
+    xf = x.float()
+    y = xf * torch.rsqrt(xf.square().sum(-1, keepdim=True).clamp(min=1e-24)) * x.shape[-1] ** 0.5
+    gamma, beta = film.float()[:, None, :].chunk(2, dim=-1)
+    return (y * gamma).abs() + beta.abs()
+
+
+def chain_inputs(torch, c, s, k, seed, b=B, t=T, dtype=None):
+    """Random chain inputs: x [b, t, c] and the weights [out, in] in `dtype`
+    (bf16 by default), gamma and beta' float32."""
     g = torch.Generator(device="cuda").manual_seed(seed)
+    dtype = dtype or torch.bfloat16
 
     def rnd(*shape, scale=1.0):
         return torch.randn(*shape, generator=g, device="cuda") * scale
 
-    bf = torch.bfloat16
     return dict(
-        x=rnd(B, T, c).to(bf),
-        w_conv=rnd(s, k, c, c, scale=(k * c) ** -0.5).to(bf),
-        w_res=rnd(s, c, c, scale=c ** -0.5).to(bf),
-        w_skip=rnd(c, c, scale=c ** -0.5).to(bf),
-        b_res=rnd(s, c, scale=0.3).to(bf),
-        b_skip=rnd(c, scale=0.3).to(bf),
-        gamma=1.0 + rnd(B, s, c, scale=0.5),
-        beta=rnd(B, s, c, scale=0.3),
+        x=rnd(b, t, c).to(dtype),
+        w_conv=rnd(s, k, c, c, scale=(k * c) ** -0.5).to(dtype),
+        w_res=rnd(s, c, c, scale=c ** -0.5).to(dtype),
+        w_skip=rnd(c, c, scale=c ** -0.5).to(dtype),
+        b_res=rnd(s, c, scale=0.3).to(dtype),
+        b_skip=rnd(c, scale=0.3).to(dtype),
+        gamma=1.0 + rnd(b, s, c, scale=0.5),
+        beta=rnd(b, s, c, scale=0.3),
     )
 
 
 def chain_work(c, s, k, dilation, inputs):
     """Bytes the call must move and the operations this shape needs (a tap
     whose shift reaches T multiplies nothing but zeros)."""
-    live_rows = sum(max(T - (k - 1 - i) * dilation, 0) for i in range(k))
-    flops = 2.0 * B * c * c * (s * (live_rows + T) + T)
-    nbytes = sum(t.numel() * t.element_size() for t in inputs.values()) + B * T * c * 2
+    x = inputs["x"]
+    b, t = x.shape[:2]
+    live_rows = sum(max(t - (k - 1 - i) * dilation, 0) for i in range(k))
+    flops = 2.0 * b * c * c * (s * (live_rows + t) + t)
+    nbytes = sum(v.numel() * v.element_size() for v in inputs.values()) + x.numel() * x.element_size()
     return nbytes, flops
 
 
+# (what, B, T, C, S, dilation): the shapes the DDIM path runs, timed (the
+# denoiser's 8 dilations and the VAE's WaveNets), then edges checked only:
+# two M tiles per sequence with the second ragged, every shifted tap dead
+# (d 32 at T 37 shifts by 64 and 32, d 128 by 256 and 128), ragged K and N
+CHAIN_PATH_CASES = ([("denoiser", B, T, 512, 4, d) for d in (1, 2, 4, 8, 16, 32, 64, 128)]
+                    + [("vae encoder", B, T, 256, 2, 4), ("vae decoder", B, T, 768, 2, 1)])
+CHAIN_EDGE_CASES = [("T=200", 4, 200, 512, 4, 1), ("T=200", 4, 200, 512, 4, 64),
+                    ("T=37", 4, 37, 512, 4, 32), ("T=37", 4, 37, 512, 4, 128),
+                    ("C=200", 4, 37, 200, 2, 1)]
+CHAIN_F32_CASES = [("denoiser", B, T, 512, 4, 1), ("denoiser", B, T, 512, 4, 64),
+                   ("T=200", 4, 200, 512, 4, 64), ("T=37", 4, 37, 512, 4, 32),
+                   ("C=200", 4, 37, 200, 2, 1)]
+
+
 def check_wavenet_chain(torch, chain):
-    cases = [("denoiser", 512, 4, d) for d in (1, 2, 4, 8, 16, 32, 64, 128)]
-    cases += [("vae encoder", 256, 2, 4), ("vae decoder", 768, 2, 1)]
+    """Every case against the plain version: bf16 at CHAIN_ROW_COS and
+    CHAIN_REL_ERR, float32 at CHAIN_F32_REL_ERR. The path's shapes are timed;
+    the kernel line keeps the bf16 denoiser mean, and the float32 times go on
+    their own line."""
     denoiser = dict(ms=0.0, plain_ms=0.0, bound_ms=0.0, max_abs_err=0.0)
-    bound_by = None
-    for n, (what, c, s, d) in enumerate(cases):
-        inp = chain_inputs(torch, c, s, 3, seed=20 + n)
+    bound_by, f32_times = None, []
+    cases = ([(c, torch.bfloat16, True) for c in CHAIN_PATH_CASES]
+             + [(c, torch.bfloat16, False) for c in CHAIN_EDGE_CASES]
+             + [(c, torch.float32, c[1] == B) for c in CHAIN_F32_CASES])
+    for n, ((what, b, t, c, s, d), dtype, timed) in enumerate(cases):
+        inp = chain_inputs(torch, c, s, 3, seed=20 + n, b=b, t=t, dtype=dtype)
         got = chain.wavenet_chain(**inp, dilation=d).float()
         ref = chain.wavenet_chain_plain(**inp, dilation=d).float()
         torch.cuda.synchronize()
@@ -245,23 +315,39 @@ def check_wavenet_chain(torch, chain):
             got.reshape(-1, c), ref.reshape(-1, c), dim=-1).min().item()
         err = (got - ref).abs().max().item()
         rel = err / ref.abs().max().item()
-        if not torch.isfinite(got).all() or cos <= CHAIN_ROW_COS or rel >= CHAIN_REL_ERR:
-            fail(f"wavenet_chain {what} C={c} d={d}: row-cos {cos:.6f}, "
-                 f"max-abs/scale {rel:.3e}")
+        kind = str(dtype)[6:]
+        label = f"wavenet_chain {what} [{b},{t},{c}] S={s} d={d} {kind}"
+        bad = (rel > CHAIN_F32_REL_ERR if dtype == torch.float32
+               else cos <= CHAIN_ROW_COS or rel >= CHAIN_REL_ERR)
+        if not torch.isfinite(got).all() or bad:
+            fail(f"{label}: row-cos {cos:.6f}, max-abs/scale {rel:.3e}")
+        if not timed:
+            print(f"kernel {label}: row-cos {cos:.6f}, max-abs/scale {rel:.2e}")
+            continue
         ms = cuda_time_ms(lambda: chain.wavenet_chain(**inp, dilation=d))
         plain_ms = cuda_time_ms(lambda: chain.wavenet_chain_plain(**inp, dilation=d),
                                 iters=3, reps=3)
         nbytes, flops = chain_work(c, s, 3, d, inp)
-        bound_ms, by = bound(nbytes, flops, BF16_FLOP_PER_S)
-        print(f"kernel wavenet_chain {what} [{B},{T},{c}] S={s} d={d}: {ms:.4f} ms, "
-              f"plain {plain_ms:.4f} ms, bound {bound_ms:.4f} ms ({by}), "
-              f"{flops / ms / 1e9:.1f} TFLOP/s, row-cos {cos:.6f}, "
+        bound_ms, by = bound(nbytes, flops,
+                             F32_FLOP_PER_S if dtype == torch.float32 else BF16_FLOP_PER_S)
+        print(f"kernel {label}: {ms:.4f} ms, plain {plain_ms:.4f} ms, bound {bound_ms:.4f} ms "
+              f"({by}), {flops / ms / 1e9:.1f} TFLOP/s, row-cos {cos:.6f}, "
               f"max-abs/scale {rel:.2e}")
-        if what == "denoiser":
+        if dtype == torch.float32:
+            f32_times.append(f"d={d} {ms:.4f} ms (bound {bound_ms:.4f}, plain {plain_ms:.4f})")
+        elif what == "denoiser":
             for key, val in (("ms", ms), ("plain_ms", plain_ms), ("bound_ms", bound_ms)):
                 denoiser[key] += val / 8
             denoiser["max_abs_err"] = max(denoiser["max_abs_err"], err)
             bound_by = by
+    print(f"kernel wavenet_chain float32 at [{B},{T},512] S=4: " + "; ".join(f32_times)
+          + f"; every float32 case within max-abs/scale {CHAIN_F32_REL_ERR}")
+    inp = chain_inputs(torch, 512, 4, 3, seed=19)
+    for d in (1, 64):
+        split = launch_split(torch, lambda: chain.wavenet_chain(**inp, dilation=d))
+        print(f"kernel wavenet_chain denoiser d={d} per launch (torch.profiler, median of 5 "
+              f"calls): " + ("not measured (the profiler saw no device time)" if split is None
+                             else "; ".join(f"{name[:40]} {us:.1f} us" for name, us in split)))
     print(f"kernel wavenet_chain: one denoiser step's 8 chains {8 * denoiser['ms']:.4f} ms, "
           f"bound {8 * denoiser['bound_ms']:.4f} ms")
     return dict(denoiser, bound_by=bound_by)
@@ -518,6 +604,150 @@ def check_flash_attention(torch, flash):
         timed[what] = dict(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
                            library_ms=library_ms)
     return dict(timed["path"], max_abs_err=max_err), timed["PERFORMANCE.md"]
+
+
+def check_attention_routing(torch, flash):
+    """masked_attention at Tk = FLASH_MIN_LEN for shapes the kernel does not
+    take (bf16 with D=80, float16): `supports` says no, no flash_attention
+    launches, and the result is the module math's, here held to the same
+    function on the CPU (sum order and one rounding of the output's type
+    apart: the flash tolerance plus 2 ulps)."""
+    from diffnorm_tpu_torch.ops import _build
+    from diffnorm_tpu_torch.ops.attention import FLASH_MIN_LEN, masked_attention
+
+    g = torch.Generator(device="cuda").manual_seed(51)
+    for what, dtype, d, mant in (("bf16 D=80", torch.bfloat16, 80, 8),
+                                 ("float16 D=64", torch.float16, 64, 11)):
+        q, k, v = (torch.randn(2, 4, t, d, generator=g, device="cuda").to(dtype)
+                   for t in (64, FLASH_MIN_LEN, FLASH_MIN_LEN))
+        mask = (torch.arange(FLASH_MIN_LEN, device="cuda")[None, :]
+                < torch.tensor([FLASH_MIN_LEN, 1000], device="cuda")[:, None])
+        if flash.supports(q, k, v, mask):
+            fail(f"flash_attention.supports is True for {what}")
+        before = _build.launch_counts["flash_attention"]
+        got = masked_attention(q, k, v, mask).float()
+        torch.cuda.synchronize()
+        if _build.launch_counts["flash_attention"] != before:
+            fail(f"masked_attention {what} launched flash_attention")
+        ref = masked_attention(q.cpu(), k.cpu(), v.cpu(), mask.cpu()).float().cuda()
+        ulp = torch.ldexp(torch.ones_like(ref), torch.frexp(ref).exponent - mant)
+        err = (got - ref).abs()
+        n_bad = (err > FLASH_ATOL + FLASH_RTOL * ref.abs() + 2 * ulp).sum().item()
+        if got.shape != q.shape or not torch.isfinite(got).all() or n_bad:
+            fail(f"masked_attention {what}: {n_bad} elements beyond tolerance of the module "
+                 f"math on the CPU, max err {err.max().item():.3e}")
+        print(f"attention routing {what} at Tk={FLASH_MIN_LEN}: supports() False, no "
+              f"flash_attention launch, module math on the card against the CPU's: max err "
+              f"{err.max().item():.3e}")
+
+
+def param_grads(torch, model, forward, target):
+    """{name: float32 gradient} of an MSE step: sum((forward(model) - target)^2)."""
+    model.zero_grad(set_to_none=True)
+    ((forward(model).float() - target) ** 2).sum().backward()
+    return {n: p.grad.float().clone() for n, p in model.named_parameters() if p.grad is not None}
+
+
+def check_gradients(torch, mods, smi):
+    """Phase 2b: parameter gradients of the denoiser's Wavenet (released
+    width, 4 stacks x 8 chains, B8 x T128) and of a FiLM RMSNorm, with the
+    kernels' forwards, against the plain versions' run: bf16 rows at
+    GRAD_ROW_COS, float32 at GRAD_F32_REL."""
+    import copy
+
+    from diffnorm_tpu_torch.models.layers import RMSNorm
+    from diffnorm_tpu_torch.models.wavenet import Wavenet
+    from diffnorm_tpu_torch.ops import _build
+
+    t0 = time.perf_counter()
+    torch.manual_seed(2)
+    with torch.device("cuda"):
+        modules = {"Wavenet": Wavenet(C, C, 4, 8, cond_dim=4 * C),
+                   "RMSNorm": RMSNorm(C, scale=False, cond_dim=4 * C)}
+    g = torch.Generator(device="cuda").manual_seed(70)
+    x = torch.randn(GRAD_B, T, C, generator=g, device="cuda")
+    cond = torch.randn(GRAD_B, 4 * C, generator=g, device="cuda")
+    target = torch.randn(GRAD_B, T, C, generator=g, device="cuda")
+    forwards = {"Wavenet": (lambda m, dt: m(x.to(dt), cond.to(dt)), "wavenet_chain"),
+                "RMSNorm": (lambda m, dt: m(x.to(dt), film=m.film(cond.to(dt))),
+                            "rms_norm_film")}
+    for dtype in (torch.bfloat16, torch.float32):
+        for name, module in modules.items():
+            fwd, kernel = forwards[name]
+            model = copy.deepcopy(module).to(dtype)
+            _build.launch_counts.clear()
+            grads = param_grads(torch, model, lambda m: fwd(m, dtype), target)
+            launches = _build.launch_counts[kernel]
+            with plain_versions(*mods):
+                ref = param_grads(torch, model, lambda m: fwd(m, dtype), target)
+            if launches == 0 or set(grads) != {n for n, _ in model.named_parameters()}:
+                fail(f"gradients of {name} {dtype}: {launches} {kernel} launches, "
+                     f"{len(grads)} of {len(list(model.parameters()))} parameters with a gradient")
+            worst_cos, worst_rel = 1.0, 0.0
+            for n, gr in grads.items():
+                rr = ref[n]
+                rows, ref_rows = gr.reshape(gr.shape[0], -1), rr.reshape(rr.shape[0], -1)
+                if gr.dim() == 1:
+                    rows, ref_rows = gr[None], rr[None]
+                cos = torch.nn.functional.cosine_similarity(rows, ref_rows, dim=-1).min().item()
+                rel = ((gr - rr).abs().max() / rr.abs().max()).item()
+                worst_cos, worst_rel = min(worst_cos, cos), max(worst_rel, rel)
+                bad = (rel > GRAD_F32_REL if dtype == torch.float32 else cos < GRAD_ROW_COS)
+                if not torch.isfinite(gr).all() or bad:
+                    fail(f"gradient of {name}.{n} {dtype}: row-cos {cos:.6f}, "
+                         f"max-abs/scale {rel:.3e} against the plain-version run")
+            print(f"gradients {name} {str(dtype)[6:]} (B{GRAD_B}xT{T}, C={C}, MSE): {len(grads)} "
+                  f"parameters, {launches} {kernel} launches in the forward; against the "
+                  f"plain-version run min row-cos {worst_cos:.6f}, max-abs/scale "
+                  f"{worst_rel:.3e}")
+    print(f"phase gradients: {time.perf_counter() - t0:.1f} s; {smi}")
+
+
+def run_f32_path(torch, ddim_sample, inputs, mods, smi):
+    """Phase 3c: float32 ddim_sample at the released width, 5 DDIM steps
+    (stride F32_STRIDE), through the float32 kernels, with its launches, and
+    the same run through the plain versions."""
+    from diffnorm_tpu_torch.models.diffusion import LatentDiffusionModule
+    from diffnorm_tpu_torch.ops import _build
+
+    t0 = time.perf_counter()
+    torch.manual_seed(0)
+    with torch.device("cuda"):
+        model = LatentDiffusionModule().eval()
+
+    def run():
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        out = ddim_sample(model, inputs["feature"], inputs["mask"], start_step=START_STEP,
+                          stride=F32_STRIDE, enc_noise=inputs["enc"],
+                          init_noise=inputs["init"], device="cuda")
+        torch.cuda.synchronize()
+        return out, time.perf_counter() - t1
+
+    run()  # warm-up
+    _build.launch_counts.clear()
+    (units, recon), wall = run()
+    launches = dict(_build.launch_counts)
+    steps = len(range(START_STEP, 0, -F32_STRIDE))
+    for name, n in {"rms_norm_film": 24 * steps, "wavenet_chain": 8 * steps + 6}.items():
+        if launches.get(name, 0) < n:
+            fail(f"float32 path launched {name} {launches.get(name, 0)} times, expected >= {n}")
+    if recon.dtype != torch.float32 or not torch.isfinite(recon).all():
+        fail("float32 path: recon_feature is not finite float32")
+    with plain_versions(*mods):
+        (units_ref, recon_ref), wall_ref = run()
+    cos = torch.nn.functional.cosine_similarity(
+        recon.reshape(-1, 768), recon_ref.reshape(-1, 768), dim=-1).min().item()
+    rel = ((recon - recon_ref).abs().max() / recon_ref.abs().max()).item()
+    if cos < F32_PATH_ROW_COS or rel > F32_PATH_REL:
+        fail(f"float32 path: recon row-cos {cos:.6f}, max-abs/scale {rel:.3e} against the "
+             f"plain-version run")
+    print(f"main path float32: B{B}xT{T}, {steps} DDIM steps (stride {F32_STRIDE}): wall "
+          f"{wall:.4f} s, launches {launches}; plain-version run {wall_ref:.4f} s, recon "
+          f"row-cos min {cos:.6f}, max-abs/scale {rel:.3e} (bounds {F32_PATH_ROW_COS}, "
+          f"{F32_PATH_REL}), unit agreement {(units == units_ref).float().mean().item():.4f}; "
+          f"{smi}")
+    print(f"phase main path float32: {time.perf_counter() - t0:.1f} s")
 
 
 @contextlib.contextmanager
@@ -926,8 +1156,13 @@ def main() -> int:
                **check_ffpipe(torch, ffpipe)}
     int_mm_conv_ms = results.pop("int_mm_conv_ms")
     results["flash_attention"], flash_perf_shape = check_flash_attention(torch, flash)
+    check_attention_routing(torch, flash)
     print(f"phase kernels: {time.perf_counter() - t0:.1f} s, every kernel within "
           f"tolerance of its plain version; {smi}")
+    mods = (norm, chain, ffpipe, fused, flash)
+
+    # 2b. gradients through the kernels' forwards
+    check_gradients(torch, mods, smi)
 
     # 3. the main path at full width
     t0 = time.perf_counter()
@@ -965,7 +1200,6 @@ def main() -> int:
              f"[{units.min().item()}, {units.max().item()}]")
     if recon.shape != (B, T, 768) or not torch.isfinite(recon).all():
         fail("recon_feature is not finite [B, T, 768]")
-    mods = (norm, chain, ffpipe, fused, flash)
     with plain_versions(*mods):
         units_ref, recon_ref, wall_ref = run_main_path(torch, model, ddim_sample, inputs)
     cos = torch.nn.functional.cosine_similarity(
@@ -984,6 +1218,9 @@ def main() -> int:
     # 3b. the int8 main path at full width, on each kernel route
     launches.update(run_int8_routes(torch, qmodel, ddim_sample, inputs, units, smi, mods))
     del qmodel
+
+    # 3c. float32 through the float32 kernels
+    run_f32_path(torch, ddim_sample, inputs, mods, smi)
 
     # 4. the entry point
     run_cli(torch, model, smi)

@@ -1,290 +1,441 @@
 // One WaveNet chain (all stacks at one dilation) for the DDIM denoiser and
-// the speech VAE, bf16 in and out, f32 accumulation.
+// the speech VAE: bf16 in and out with f32 sums (wavenet_chain_bf16), or
+// float32 throughout (wavenet_chain_f32).
 //
 // Replaces diffnorm_tpu/ops/pallas_wavenet.py:wavenet_chain (_chain_kernel).
 // Per stack s, for x [B, T, C]:
 //     res = x W_res[s] + b_res[s]
 //     h   = sum_i shift(x, (k-1-i) d) W_conv[s, i]        (causal taps)
 //     h   = h * gamma[b, s] + beta'[b, s]                  (conv bias in beta')
-//     x   = bf16(tanh(h) * sigmoid(h) + res)
-// and after the last stack skip = x W_skip + b_skip.
+//     x   = tanh(h) * sigmoid(h) + res                     (rounded to x's type)
+// and after the last stack skip = x W_skip + b_skip. Every weight is stored
+// [out, in] (K-major: the input channel is contiguous).
 //
 // Bound on an H100: operations. One denoiser chain at B64 x T128, C=512,
 // S=4, k=3 is 2 * 8192 * (S (k+1) + 1) * C^2 = 73 GFLOP against ~25 MB of
 // weights and activations, ~2900 FLOP per byte; 74 us at 989 TFLOP/s dense
-// bf16 when every tap is live (a tap whose shift reaches T is skipped).
+// bf16 when every tap is live (a tap whose rows all fall before t = 0 is
+// skipped, so at large dilations the bound is lower).
 //
-// Design: one launch per stack plus one for the skip projection. Each block
-// computes a 128 x 64 tile of the [B*T, C] output; 8 warps of 32 x 32 run
-// bf16 mma.sync (m16n8k16) on fragments read with ldmatrix, accumulating in
-// f32 registers. The (tap, 64-channel) steps stream through a 3-stage
-// cp.async ring in shared memory, so loads of later steps overlap the
-// products of the current one. The causal shift is applied while the A tile
-// is loaded: row (b, t) of tap i reads row (b, t - shift), or zeros (the
-// copy's zero-fill) before t = 0. The tap with shift 0 also feeds the
-// residual 1x1 conv from the same A tile. The whole epilogue (FiLM,
-// tanh * sigmoid, residual, biases) runs on the accumulator registers, so
-// the conv output never reaches memory. Between stacks the activation goes
-// through device memory (8 MB at the denoiser shape, mostly served from the
-// 50 MB L2). Keeping it on chip across stacks, TMA and wgmma are later work.
-// Ragged M (= B*T) and C are masked at 8-channel granularity: C % 8 == 0.
+// bf16 design: one launch per stack and one for the skip projection, each a
+// persistent grid of at most one block per SM walking 128 x 128 output
+// tiles. An M tile is 128 rows of one sequence. Warpgroup 2 is the
+// producer: one thread keeps TMA loads in flight through a ring of
+// mbarrier-guarded, 128B-swizzled stages, each 64 channels of K: the A tile
+// of x (16 KB), the tap's weight tile (16 KB) and, for the unshifted tap,
+// the residual weight tile (16 KB). x is read through a 3-D tensor map
+// [B, T, C]: tap i loads its A tile at (b, t0 - shift_i, k0), and TMA's
+// zero fill supplies the causal zeros before t = 0 and the rows past T, as
+// the int8 conv GEMM does (int8_ff.cuh, design (a)). The unshifted tap feeds
+// the residual product from the same A stage. Warpgroups 0 and 1 take rows
+// 0-63 and 64-127 on wgmma m64n128k16 with f32 accumulators: 64 registers a
+// thread for h and 64 for res. A tap whose shifted rows all fall before
+// t = 0 is neither loaded (whole tile) nor multiplied (one warpgroup's 64
+// rows). Each tile's gamma, beta' and bias columns are staged in shared
+// memory before its products, and the epilogue computes a row's values
+// before it stores them (tanhf / expf, not the fast intrinsics). Between
+// stacks the activation goes through device memory (8 MB at the denoiser
+// shape, mostly served from the 50 MB L2); keeping it on chip across
+// stacks, and the chains in one launch, are later work.
+//
+// float32 design: the same launches on a plain SIMT kernel, 64 x 64 tiles of
+// 256 threads with 4 x 4 outputs each, K in steps of 16 through shared
+// memory, FMA in f32. It is correct first; its speed is recorded, not tuned.
+//
+// Shapes: C % 8 == 0 (16-byte rows for TMA; the K and N tails are
+// zero-filled), any B and T.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "hopper.cuh"
+
 namespace {
 
 typedef __nv_bfloat16 bf16;
 
-constexpr int BM = 128, BN = 64, BK = 64;
-constexpr int kWarpsM = 4, kWarpsN = 2;           // warp tile 32 x 32
-constexpr int kThreads = kWarpsM * kWarpsN * 32;  // 256
-constexpr int kStages = 3;
-constexpr int LDA = BK + 8;  // padded rows (144 B): ldmatrix reads
-constexpr int LDB = BN + 8;  // 8 rows without bank conflicts
-constexpr int kVec = 8;      // bf16 values per 16-byte copy
-constexpr int kATile = BM * LDA;
-constexpr int kBTile = BK * LDB;
-constexpr int kStageElems = kATile + 2 * kBTile;  // A, B, B of the residual
-constexpr int kSmemBytes = kStages * kStageElems * 2;
+// ------------------------------------------------------------------ bf16
 
-__device__ __forceinline__ uint32_t smem_addr(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
+constexpr int kBM = 128;   // rows of an M tile: two consumer warpgroups x 64
+constexpr int kBN = 128;   // output columns of a tile
+constexpr int kBK = 64;    // K channels per stage: one 128-byte swizzled row
+constexpr int kRowBytes = kBK * 2;
+constexpr int kThreads = 384;  // warpgroups 0, 1 consume; warpgroup 2 produces
+constexpr int kATile = kBM * kRowBytes;
+constexpr int kBTile = kBN * kRowBytes;
 
-// 16-byte global -> shared copy; zero-fills instead of reading when !valid.
-__device__ __forceinline__ void cp_async16(void* dst, const void* src, bool valid) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem_addr(dst)),
-               "l"(src), "r"(valid ? 16 : 0));
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
-}
-
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
-}
-
-__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], const void* p) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(smem_addr(p)));
-}
-
-__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4], const void* p) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(smem_addr(p)));
-}
-
-// d += a (16 x 16, row-major) * b (16 x 8, k-major pairs), f32 accumulators
-__device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4],
-                                         uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-// The warp's 32 x 32 share of sa * sb over one BK step (2 x 4 mma tiles),
-// and of sa * sb_res into acc_res when with_res, reusing the A fragments.
-__device__ __forceinline__ void mma_step(const bf16* sa, const bf16* sb,
-                                         const bf16* sb_res, bool with_res,
-                                         float (&acc)[2][4][4],
-                                         float (&acc_res)[2][4][4], int wm, int wn,
-                                         int lane) {
-#pragma unroll
-  for (int ks = 0; ks < BK / 16; ++ks) {
-    uint32_t a[2][4];
-#pragma unroll
-    for (int mi = 0; mi < 2; ++mi)
-      ldmatrix_x4(a[mi], sa + (wm * 32 + mi * 16 + lane % 16) * LDA + ks * 16 +
-                             (lane / 16) * 8);
-    const int b_off = (ks * 16 + lane % 16) * LDB + wn * 32 + (lane / 16) * 8;
-#pragma unroll
-    for (int nj = 0; nj < 2; ++nj) {
-      uint32_t b[4];
-      ldmatrix_x4_trans(b, sb + b_off + nj * 16);
-#pragma unroll
-      for (int mi = 0; mi < 2; ++mi) {
-        mma_bf16(acc[mi][2 * nj], a[mi], b[0], b[1]);
-        mma_bf16(acc[mi][2 * nj + 1], a[mi], b[2], b[3]);
-      }
-    }
-    if (with_res) {
-#pragma unroll
-      for (int nj = 0; nj < 2; ++nj) {
-        uint32_t b[4];
-        ldmatrix_x4_trans(b, sb_res + b_off + nj * 16);
-#pragma unroll
-        for (int mi = 0; mi < 2; ++mi) {
-          mma_bf16(acc_res[mi][2 * nj], a[mi], b[0], b[1]);
-          mma_bf16(acc_res[mi][2 * nj + 1], a[mi], b[2], b[3]);
-        }
-      }
-    }
-  }
-}
-
-// kStack: one WaveNet stack (K causal taps of w, the residual 1x1 w_res,
-// FiLM + gated activation epilogue). Otherwise a 1x1 projection x w + bias
-// (the chain's skip conv).
 template <bool kStack>
-__global__ void __launch_bounds__(kThreads, 2)  // <= 128 registers: 2 blocks/SM
-chain_gemm_kernel(const bf16* __restrict__ x,
-                  const bf16* __restrict__ w,      // [K, C, C]
-                  const bf16* __restrict__ w_res,  // [C, C]
-                  const bf16* __restrict__ bias,   // [C]
-                  const float* __restrict__ gamma, // row b at b * film_stride
-                  const float* __restrict__ beta, int film_stride,
-                  bf16* __restrict__ out, int M, int T, int C, int K, int dilation) {
-  extern __shared__ __align__(128) unsigned char smem_raw[];
-  bf16* smem = reinterpret_cast<bf16*>(smem_raw);
+struct Cfg {
+  static constexpr int kStageBytes = kATile + (kStack ? 2 : 1) * kBTile;
+  static constexpr int kStages = kStack ? 4 : 6;
+  static constexpr int kSmem = kStages * kStageBytes + 1024;  // + alignment
+};
 
-  const int tid = threadIdx.x, lane = tid % 32, warp = tid / 32;
-  const int wm = warp / kWarpsN, wn = warp % kWarpsN;
-  const int m0 = blockIdx.x * BM, n0 = blockIdx.y * BN;
+struct ChainArgs {
+  const void* bias;    // [C]: b_res (stack) or b_skip
+  const float* gamma;  // stack: row b at b * film_stride
+  const float* beta;
+  void* out;           // [B, T, C]
+  int film_stride, B, T, C, taps, dilation;
+};
 
-  // live taps: i_first .. K-1 (a tap whose shift reaches T reads only zeros)
-  int i_first = 0;
-  if (kStack)
-    while ((K - 1 - i_first) * dilation >= T) ++i_first;
-  const int n_taps = K - i_first;
-  const int n_iter = ((C + BK - 1) / BK) * n_taps;
+// the first tap whose shifted rows reach t >= 0 for some row <= last_row
+__device__ __forceinline__ int first_live_tap(int last_row, int taps, int dilation) {
+  int i = 0;
+  while (i < taps - 1 && (taps - 1 - i) * dilation > last_row) ++i;
+  return i;
+}
 
-  auto load_stage = [&](int it, int stage) {
-    const int k0 = (it / n_taps) * BK, i = i_first + it % n_taps;
-    const int shift = kStack ? (K - 1 - i) * dilation : 0;
-    bf16* sa = smem + stage * kStageElems;
-    bf16* sb = sa + kATile;
-#pragma unroll
-    for (int c = tid; c < BM * BK / kVec; c += kThreads) {
-      const int r = c / (BK / kVec), col = (c % (BK / kVec)) * kVec;
-      const int m = m0 + r, k = k0 + col;
-      const bool ok = m < M && k < C && m % T >= shift;
-      cp_async16(sa + r * LDA + col,
-                 ok ? x + static_cast<size_t>(m - shift) * C + k : x, ok);
-    }
-#pragma unroll
-    for (int c = tid; c < BK * BN / kVec; c += kThreads) {
-      const int r = c / (BN / kVec), col = (c % (BN / kVec)) * kVec;
-      const int k = k0 + r, n = n0 + col;
-      const bool ok = k < C && n < C;
-      const size_t off = static_cast<size_t>(k) * C + n;
-      const bf16* wi = w + static_cast<size_t>(i) * C * C;
-      cp_async16(sb + r * LDB + col, ok ? wi + off : w, ok);
-      if (kStack && shift == 0)
-        cp_async16(sb + kBTile + r * LDB + col, ok ? w_res + off : w_res, ok);
-    }
-  };
+// tile -> (sequence, first row, first column); the columns run fastest, so
+// consecutive tiles share their A rows in L2
+struct Tile {
+  int b, t0, n0, last;  // last: the tile's last row below T
 
-  float acc[2][4][4], acc_res[2][4][4];
-#pragma unroll
-  for (int mi = 0; mi < 2; ++mi)
-#pragma unroll
-    for (int ni = 0; ni < 4; ++ni)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) acc[mi][ni][e] = acc_res[mi][ni][e] = 0.f;
-
-#pragma unroll
-  for (int s = 0; s < kStages - 1; ++s) {
-    if (s < n_iter) load_stage(s, s);
-    cp_async_commit();
+  __device__ __forceinline__ Tile(int tile, int n_tiles_n, int tiles_per_seq, int T) {
+    const int m = tile / n_tiles_n;
+    n0 = (tile % n_tiles_n) * kBN;
+    b = m / tiles_per_seq;
+    t0 = (m % tiles_per_seq) * kBM;
+    last = min(t0 + kBM - 1, T - 1);
   }
-  for (int it = 0; it < n_iter; ++it) {
-    cp_async_wait<kStages - 2>();
-    __syncthreads();  // stage `it` has landed; stage it-1 is free to refill
-    if (it + kStages - 1 < n_iter) load_stage(it + kStages - 1, (it + kStages - 1) % kStages);
-    cp_async_commit();
-    const bf16* sa = smem + (it % kStages) * kStageElems;
-    const bool with_res = kStack && i_first + it % n_taps == K - 1;  // unshifted tap
-    mma_step(sa, sa + kATile, sa + kATile + kBTile, with_res, acc, acc_res, wm, wn, lane);
-  }
-  cp_async_wait<0>();
+};
 
-  // epilogue on the accumulators: thread holds rows g, g+8 and columns
-  // 2q, 2q+1 of each 16 x 8 tile
-  const int g = lane / 4, q = lane % 4;
+// one stage of a warpgroup's 64 rows: 4 k-steps into h (and res)
+template <bool kRes>
+__device__ __forceinline__ void consume_stage(float (&h)[64], float (&res)[64],
+                                              const unsigned char* st, int wg) {
 #pragma unroll
-  for (int mi = 0; mi < 2; ++mi)
-#pragma unroll
-    for (int half = 0; half < 2; ++half) {
-      const int m = m0 + wm * 32 + mi * 16 + g + half * 8;
-      if (m >= M) continue;
-      const size_t f_row = static_cast<size_t>(m / T) * film_stride;
-#pragma unroll
-      for (int ni = 0; ni < 4; ++ni) {
-        const int n = n0 + wn * 32 + ni * 8 + 2 * q;
-        if (n >= C) continue;
-        const float2 bn = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(bias + n));
-        float v0 = acc[mi][ni][2 * half], v1 = acc[mi][ni][2 * half + 1];
-        if (kStack) {
-          const float2 gm = *reinterpret_cast<const float2*>(gamma + f_row + n);
-          const float2 bt = *reinterpret_cast<const float2*>(beta + f_row + n);
-          const float h0 = v0 * gm.x + bt.x, h1 = v1 * gm.y + bt.y;
-          const float r0 = acc_res[mi][ni][2 * half] + bn.x;
-          const float r1 = acc_res[mi][ni][2 * half + 1] + bn.y;
-          v0 = tanhf(h0) * (1.f / (1.f + expf(-h0))) + r0;
-          v1 = tanhf(h1) * (1.f / (1.f + expf(-h1))) + r1;
-        } else {
-          v0 += bn.x;
-          v1 += bn.y;
+  for (int ks = 0; ks < kBK / 16; ++ks) {
+    const uint64_t da = hopper::desc_sw128(st + wg * 64 * kRowBytes + ks * 32);
+    hopper::wgmma_bf16_n128(h, da, hopper::desc_sw128(st + kATile + ks * 32), 1);
+    if constexpr (kRes)
+      hopper::wgmma_bf16_n128(res, da, hopper::desc_sw128(st + kATile + kBTile + ks * 32), 1);
+  }
+}
+
+// kStack: one WaveNet stack (the taps of tm_w, the residual tm_res, FiLM and
+// the gated activation). Otherwise the 1x1 projection x W + bias (skip).
+template <bool kStack>
+__global__ void __launch_bounds__(kThreads, 1)
+chain_kernel(__grid_constant__ const CUtensorMap tm_x,    // x [B, T, C]
+             __grid_constant__ const CUtensorMap tm_w,    // [taps, C_out, C_in]
+             __grid_constant__ const CUtensorMap tm_res,  // [1, C_out, C_in]
+             const ChainArgs p) {
+  typedef Cfg<kStack> G;
+  constexpr int kS = G::kStages;
+  extern __shared__ unsigned char smem_raw[];
+  __shared__ __align__(8) uint64_t full[kS], empty[kS];
+  // the tile's gamma, beta' and bias columns, double-buffered by tile
+  __shared__ float params[2][3][kBN];
+  unsigned char* smem = hopper::align1024(smem_raw);
+
+  const int tiles_per_seq = (p.T + kBM - 1) / kBM;
+  const int n_tiles_n = (p.C + kBN - 1) / kBN;
+  const int n_tiles = p.B * tiles_per_seq * n_tiles_n;
+  const int nk = (p.C + kBK - 1) / kBK;
+
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < kS; ++s) {
+      hopper::mbar_init(&full[s], 1);
+      hopper::mbar_init(&empty[s], 2);  // one arrival per consumer warpgroup
+    }
+    hopper::fence_barrier_init();
+  }
+  __syncthreads();
+
+  // warp-uniform by construction (a shuffle from lane 0), so the compiler
+  // sees no divergence in the warpgroup's branches around its wgmma
+  const int wg = __shfl_sync(0xffffffffu, threadIdx.x / 128, 0);
+  if (wg == 2) {
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 40;\n");
+    if (threadIdx.x == 256) {
+      int g_it = 0;  // stages loaded so far, over all of the block's tiles
+      for (int tile = blockIdx.x; tile < n_tiles; tile += gridDim.x) {
+        const Tile tl(tile, n_tiles_n, tiles_per_seq, p.T);
+        for (int i = first_live_tap(tl.last, p.taps, p.dilation); i < p.taps; ++i) {
+          const int shift = (p.taps - 1 - i) * p.dilation;
+          const bool with_res = kStack && shift == 0;
+          for (int kb = 0; kb < nk; ++kb, ++g_it) {
+            const int s = g_it % kS;
+            hopper::mbar_wait(&empty[s], ((g_it / kS) & 1) ^ 1);
+            hopper::mbar_arrive_expect_tx(&full[s], kATile + (with_res ? 2 : 1) * kBTile);
+            unsigned char* st = smem + s * G::kStageBytes;
+            hopper::tma_load_3d(st, &tm_x, &full[s], kb * kBK, tl.t0 - shift, tl.b);
+            hopper::tma_load_3d(st + kATile, &tm_w, &full[s], kb * kBK, tl.n0, i);
+            if (with_res)
+              hopper::tma_load_3d(st + kATile + kBTile, &tm_res, &full[s], kb * kBK, tl.n0, 0);
+          }
         }
-        *reinterpret_cast<__nv_bfloat162*>(out + static_cast<size_t>(m) * C + n) =
-            __floats2bfloat162_rn(v0, v1);
       }
     }
+  } else {
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 232;\n");
+    const int tid = threadIdx.x % 128, warp = tid / 32, lane = tid % 32;
+    const int g = lane / 4, q = lane % 4;
+    // accumulator element i of the warpgroup's 64 x 128 tile: row
+    // 16 warp + g + 8 (i % 4 / 2), column 8 (i / 4) + 2 q + i % 2
+    float h[64], res[64];
+    int g_it = 0;  // stages consumed so far, over all of the block's tiles
+    for (int tile = blockIdx.x, parity = 0; tile < n_tiles; tile += gridDim.x, parity ^= 1) {
+      const Tile tl(tile, n_tiles_n, tiles_per_seq, p.T);
+      float(&prm)[3][kBN] = params[parity];
+      for (int c = threadIdx.x; c < 3 * kBN; c += 256) {
+        const int which = c / kBN, n = tl.n0 + c % kBN;
+        float v = 0.f;
+        if (n < p.C) {
+          if (which == 2)
+            v = __bfloat162float(static_cast<const bf16*>(p.bias)[n]);
+          else if (kStack)
+            v = (which == 0 ? p.gamma : p.beta)[static_cast<size_t>(tl.b) * p.film_stride + n];
+        }
+        prm[which][c % kBN] = v;
+      }
+      // the 256 consumer threads: every one is done with the buffer's last
+      // tile (two tiles back) and sees this one's parameters
+      asm volatile("bar.sync 1, 256;\n" ::: "memory");
+
+#pragma unroll
+      for (int i = 0; i < 64; ++i) h[i] = res[i] = 0.f;
+      // this warpgroup's last row below T; it multiplies a tap only where
+      // some of its rows, shifted, reach t >= 0
+      const int wg_t0 = tl.t0 + wg * 64;
+      const int wg_last = min(wg_t0 + 63, p.T - 1);
+      int held = -1;  // the stage the group in flight reads
+      for (int i = first_live_tap(tl.last, p.taps, p.dilation); i < p.taps; ++i) {
+        const int shift = (p.taps - 1 - i) * p.dilation;
+        const bool live = wg_last >= wg_t0 && shift <= wg_last;
+        const bool with_res = kStack && shift == 0;
+        for (int kb = 0; kb < nk; ++kb, ++g_it) {
+          const int s = g_it % kS;
+          hopper::mbar_wait(&full[s], (g_it / kS) & 1);
+          const unsigned char* st = smem + s * G::kStageBytes;
+          hopper::wgmma_fence();
+          if (live) {
+            if (with_res)
+              consume_stage<true>(h, res, st, wg);
+            else
+              consume_stage<false>(h, res, st, wg);
+          }
+          hopper::wgmma_commit();  // an empty group where the rows are dead
+          hopper::wgmma_wait<1>();  // the previous stage's group is done
+          if (held >= 0 && tid == 0) hopper::mbar_arrive(&empty[held]);
+          held = s;
+        }
+      }
+      hopper::wgmma_wait<0>();
+      if (held >= 0 && tid == 0) hopper::mbar_arrive(&empty[held]);
+      hopper::fence_operand(h);
+      if constexpr (kStack) hopper::fence_operand(res);
+
+      // epilogue: the thread holds rows g, g + 8 of its warp's 16 and columns
+      // 2q, 2q + 1 of each 8; a row's values are all computed, then stored
+#pragma unroll
+      for (int half = 0; half < 2; ++half) {
+        const int t = wg_t0 + warp * 16 + g + half * 8;
+        if (t >= p.T) continue;
+        __nv_bfloat162 v[kBN / 8];
+#pragma unroll
+        for (int ni = 0; ni < kBN / 8; ++ni) {
+          float o[2];
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            const int i = 4 * ni + 2 * half + e, c = ni * 8 + 2 * q + e;
+            if constexpr (kStack) {
+              const float hv = h[i] * prm[0][c] + prm[1][c];
+              o[e] = tanhf(hv) * (1.f / (1.f + expf(-hv))) + (res[i] + prm[2][c]);
+            } else {
+              o[e] = h[i] + prm[2][c];
+            }
+          }
+          v[ni] = __floats2bfloat162_rn(o[0], o[1]);
+        }
+        bf16* row = static_cast<bf16*>(p.out) + (static_cast<size_t>(tl.b) * p.T + t) * p.C;
+#pragma unroll
+        for (int ni = 0; ni < kBN / 8; ++ni) {
+          const int n = tl.n0 + ni * 8 + 2 * q;
+          if (n < p.C) *reinterpret_cast<__nv_bfloat162*>(row + n) = v[ni];
+        }
+      }
+    }
+  }
+}
+
+template <bool kStack>
+cudaError_t launch_bf16(const void* x, const void* w, const void* w_res, const ChainArgs& p,
+                        int sms, cudaStream_t st) {
+  typedef Cfg<kStack> G;
+  const uint64_t row = static_cast<uint64_t>(p.C) * 2;
+  CUtensorMap mx, mw, mr;
+  cudaError_t err = hopper::make_map_3d(&mx, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, x, p.C, p.T, p.B,
+                                        row, row * p.T, kBK, kBM, 1);
+  if (err == cudaSuccess)
+    err = hopper::make_map_3d(&mw, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, w, p.C, p.C, p.taps, row,
+                              row * p.C, kBK, kBN, 1);
+  if (err == cudaSuccess)
+    err = kStack ? hopper::make_map_3d(&mr, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, w_res, p.C, p.C, 1,
+                                       row, row * p.C, kBK, kBN, 1)
+                 : (mr = mw, cudaSuccess);
+  if (err == cudaSuccess)
+    err = cudaFuncSetAttribute(chain_kernel<kStack>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               G::kSmem);
+  if (err != cudaSuccess) return err;
+  const int tiles = p.B * ((p.T + kBM - 1) / kBM) * ((p.C + kBN - 1) / kBN);
+  chain_kernel<kStack><<<tiles < sms ? tiles : sms, kThreads, G::kSmem, st>>>(mx, mw, mr, p);
+  return cudaGetLastError();
+}
+
+// --------------------------------------------------------------- float32
+
+constexpr int kFM = 64, kFN = 64, kFK = 16;  // tile and K step
+constexpr int kFThreads = 256;               // 16 x 16 threads, 4 x 4 outputs each
+
+// The float32 form of chain_kernel: rows m of the flattened [B*T, C] x.
+template <bool kStack>
+__global__ void __launch_bounds__(kFThreads)
+chain_f32_kernel(const float* __restrict__ x, const float* __restrict__ w,
+                 const float* __restrict__ w_res, const ChainArgs p) {
+  __shared__ float sa[kFK][kFM + 4];  // [k][row]
+  __shared__ float sb[kFK][kFN + 4];  // [k][column]
+  __shared__ float sr[kFK][kFN + 4];
+  const int M = p.B * p.T, C = p.C;
+  const int m0 = blockIdx.x * kFM, n0 = blockIdx.y * kFN;
+  const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
+  float h[4][4] = {}, res[4][4] = {};
+
+  int i_first = 0;  // a tap whose shift reaches T reads only zeros
+  while (i_first < p.taps - 1 && (p.taps - 1 - i_first) * p.dilation >= p.T) ++i_first;
+  for (int i = i_first; i < p.taps; ++i) {
+    const int shift = (p.taps - 1 - i) * p.dilation;
+    const bool with_res = kStack && shift == 0;
+    const float* wi = w + static_cast<size_t>(i) * C * C;
+    for (int k0 = 0; k0 < C; k0 += kFK) {
+      for (int e = threadIdx.x; e < kFM * kFK; e += kFThreads) {
+        const int r = e / kFK, kk = e % kFK, m = m0 + r, k = k0 + kk;
+        const bool ok = m < M && k < C && m % p.T >= shift;
+        sa[kk][r] = ok ? x[static_cast<size_t>(m - shift) * C + k] : 0.f;
+        const int n = n0 + r;  // kFN == kFM: the same loop fills the weights
+        const size_t off = static_cast<size_t>(n) * C + k;
+        sb[kk][r] = n < C && k < C ? wi[off] : 0.f;
+        if (with_res) sr[kk][r] = n < C && k < C ? w_res[off] : 0.f;
+      }
+      __syncthreads();
+#pragma unroll
+      for (int kk = 0; kk < kFK; ++kk) {
+        float a[4], b[4], br[4];
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          a[j] = sa[kk][ty + 16 * j];
+          b[j] = sb[kk][tx + 16 * j];
+          br[j] = with_res ? sr[kk][tx + 16 * j] : 0.f;
+        }
+#pragma unroll
+        for (int r = 0; r < 4; ++r)
+#pragma unroll
+          for (int c = 0; c < 4; ++c) {
+            h[r][c] = fmaf(a[r], b[c], h[r][c]);
+            if (with_res) res[r][c] = fmaf(a[r], br[c], res[r][c]);
+          }
+      }
+      __syncthreads();
+    }
+  }
+
+  const float* bias = static_cast<const float*>(p.bias);
+  float* out = static_cast<float*>(p.out);
+#pragma unroll
+  for (int r = 0; r < 4; ++r) {
+    const int m = m0 + ty + 16 * r;
+    if (m >= M) continue;
+    const size_t f_row = static_cast<size_t>(m / p.T) * p.film_stride;
+#pragma unroll
+    for (int c = 0; c < 4; ++c) {
+      const int n = n0 + tx + 16 * c;
+      if (n >= C) continue;
+      float o;
+      if (kStack) {
+        const float hv = h[r][c] * p.gamma[f_row + n] + p.beta[f_row + n];
+        o = tanhf(hv) * (1.f / (1.f + expf(-hv))) + (res[r][c] + bias[n]);
+      } else {
+        o = h[r][c] + bias[n];
+      }
+      out[static_cast<size_t>(m) * C + n] = o;
+    }
+  }
+}
+
+template <bool kStack>
+cudaError_t launch_f32(const void* x, const void* w, const void* w_res, const ChainArgs& p,
+                       int /*sms*/, cudaStream_t st) {
+  const dim3 grid((p.B * p.T + kFM - 1) / kFM, (p.C + kFN - 1) / kFN);
+  chain_f32_kernel<kStack><<<grid, kFThreads, 0, st>>>(
+      static_cast<const float*>(x), static_cast<const float*>(w),
+      static_cast<const float*>(w_res), p);
+  return cudaGetLastError();
+}
+
+// ------------------------------------------------------------ the chain
+
+// S stack launches, ping-ponging through buf0 / buf1, then the skip launch
+// into out; Elem is the element type of x, the weights, biases and outputs.
+template <typename Elem, bool kBf16>
+int run_chain(const void* x, const void* w_conv, const void* w_res, const void* w_skip,
+              const void* b_res, const void* b_skip, const void* gamma, const void* beta,
+              void* buf0, void* buf1, void* out, int B, int T, int C, int S, int K,
+              int dilation, void* stream) {
+  if (B <= 0 || T <= 0 || C <= 0 || S <= 0 || K <= 0 || dilation <= 0 || C % 8 != 0)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  int sms = 0;
+  if (kBf16) {
+    int device;
+    cudaError_t err = cudaGetDevice(&device);
+    if (err == cudaSuccess)
+      err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
+  const size_t cc = static_cast<size_t>(C) * C;
+  const Elem* cur = static_cast<const Elem*>(x);
+  for (int s = 0; s < S; ++s) {
+    Elem* dst = static_cast<Elem*>(s % 2 == 0 ? buf0 : buf1);
+    ChainArgs a = {static_cast<const Elem*>(b_res) + static_cast<size_t>(s) * C,
+                   static_cast<const float*>(gamma) + static_cast<size_t>(s) * C,
+                   static_cast<const float*>(beta) + static_cast<size_t>(s) * C,
+                   dst, S * C, B, T, C, K, dilation};
+    const Elem* ws = static_cast<const Elem*>(w_conv) + s * K * cc;
+    const Elem* wr = static_cast<const Elem*>(w_res) + s * cc;
+    const cudaError_t err = kBf16 ? launch_bf16<true>(cur, ws, wr, a, sms, st)
+                                  : launch_f32<true>(cur, ws, wr, a, sms, st);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    cur = dst;
+  }
+  ChainArgs a = {b_skip, nullptr, nullptr, out, 0, B, T, C, 1, 1};
+  return static_cast<int>(kBf16 ? launch_bf16<false>(cur, w_skip, nullptr, a, sms, st)
+                                : launch_f32<false>(cur, w_skip, nullptr, a, sms, st));
 }
 
 }  // namespace
 
-// x, out, buf0, buf1: [B, T, C] bf16; w_conv [S, K, C, C], w_res [S, C, C],
-// w_skip [C, C] bf16, each weight [in, out]; b_res [S, C], b_skip [C] bf16;
-// gamma, beta [B, S, C] f32 (beta with the conv bias folded in). All
-// contiguous, C % 8 == 0. buf0/buf1 are scratch for the stack outputs. Every
+// x, out, buf0, buf1: [B, T, C]; w_conv [S, K, C, C], w_res [S, C, C],
+// w_skip [C, C], each weight [out, in]; b_res [S, C], b_skip [C]; all in bf16
+// (wavenet_chain_bf16) or float32 (wavenet_chain_f32); gamma, beta [B, S, C]
+// float32 (beta with the conv bias folded in). All contiguous and 16-byte
+// aligned, C % 8 == 0. buf0 / buf1 are scratch for the stack outputs. Every
 // launch goes on `stream`; returns the first non-zero cudaError_t, else 0.
-extern "C" int wavenet_chain_bf16(const void* x, const void* w_conv,
-                                  const void* w_res, const void* w_skip,
-                                  const void* b_res, const void* b_skip,
-                                  const void* gamma, const void* beta,
-                                  void* buf0, void* buf1, void* out, int B,
-                                  int T, int C, int S, int K, int dilation,
+extern "C" int wavenet_chain_bf16(const void* x, const void* w_conv, const void* w_res,
+                                  const void* w_skip, const void* b_res, const void* b_skip,
+                                  const void* gamma, const void* beta, void* buf0, void* buf1,
+                                  void* out, int B, int T, int C, int S, int K, int dilation,
                                   void* stream) {
-  if (B <= 0 || T <= 0 || C <= 0 || S <= 0 || K <= 0 || dilation <= 0 ||
-      C % kVec != 0)
-    return static_cast<int>(cudaErrorInvalidValue);
-  // more than 48 KB of dynamic shared memory must be allowed explicitly
-  cudaError_t attr = cudaFuncSetAttribute(
-      chain_gemm_kernel<true>, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmemBytes);
-  if (attr == cudaSuccess)
-    attr = cudaFuncSetAttribute(chain_gemm_kernel<false>,
-                                cudaFuncAttributeMaxDynamicSharedMemorySize, kSmemBytes);
-  if (attr != cudaSuccess) return static_cast<int>(attr);
-  const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const int M = B * T;
-  const dim3 grid((M + BM - 1) / BM, (C + BN - 1) / BN);
-  const size_t cc = static_cast<size_t>(C) * C;
-  const bf16* cur = static_cast<const bf16*>(x);
-  for (int s = 0; s < S; ++s) {
-    bf16* dst = static_cast<bf16*>(s % 2 == 0 ? buf0 : buf1);
-    chain_gemm_kernel<true><<<grid, kThreads, kSmemBytes, st>>>(
-        cur, static_cast<const bf16*>(w_conv) + s * K * cc,
-        static_cast<const bf16*>(w_res) + s * cc,
-        static_cast<const bf16*>(b_res) + static_cast<size_t>(s) * C,
-        static_cast<const float*>(gamma) + static_cast<size_t>(s) * C,
-        static_cast<const float*>(beta) + static_cast<size_t>(s) * C, S * C,
-        dst, M, T, C, K, dilation);
-    const cudaError_t err = cudaGetLastError();
-    if (err != cudaSuccess) return static_cast<int>(err);
-    cur = dst;
-  }
-  chain_gemm_kernel<false><<<grid, kThreads, kSmemBytes, st>>>(
-      cur, static_cast<const bf16*>(w_skip), nullptr,
-      static_cast<const bf16*>(b_skip), nullptr, nullptr, 0,
-      static_cast<bf16*>(out), M, T, C, 1, 1);
-  return static_cast<int>(cudaGetLastError());
+  return run_chain<bf16, true>(x, w_conv, w_res, w_skip, b_res, b_skip, gamma, beta, buf0, buf1,
+                               out, B, T, C, S, K, dilation, stream);
+}
+
+extern "C" int wavenet_chain_f32(const void* x, const void* w_conv, const void* w_res,
+                                 const void* w_skip, const void* b_res, const void* b_skip,
+                                 const void* gamma, const void* beta, void* buf0, void* buf1,
+                                 void* out, int B, int T, int C, int S, int K, int dilation,
+                                 void* stream) {
+  return run_chain<float, false>(x, w_conv, w_res, w_skip, b_res, b_skip, gamma, beta, buf0,
+                                 buf1, out, B, T, C, S, K, dilation, stream);
 }

@@ -11,12 +11,18 @@ initialisers follow flax's (lecun-normal kernels, zero biases).
 path (ops/quant.py): int8 weight codes and float32 scales are packed from the
 float32 parameters into `Int8Pack`s, which `.to(dtype)` moves but never
 casts, so they are built before the model is cast to bf16 and survive it.
+
+Float packs (`FeedForward`'s padded copies, the WaveNet chains) are cached
+buffers for inference, rebuilt when a parameter they copy has changed in
+place (`param_versions`). A forward that trains (grad mode on, a packed
+parameter requiring grad) builds them from the parameters as it runs, so
+gradients reach the parameters (`packs_from_params`).
 """
 
 from __future__ import annotations
 
 import math
-from typing import Dict, Optional
+from typing import Dict, Optional, Sequence, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -38,6 +44,29 @@ def _lecun_normal_(weight: torch.Tensor, fan_in: int) -> torch.Tensor:
     # flax lecun_normal: truncated normal at +-2 std, variance 1 / fan_in
     std = (1.0 / fan_in) ** 0.5 / 0.87962566103423978
     return nn.init.trunc_normal_(weight, std=std, a=-2 * std, b=2 * std)
+
+
+def packs_from_params(params: Sequence[torch.Tensor]) -> bool:
+    """Whether a forward builds its packed weights from `params` as it runs
+    (differentiably): grad mode is on and one of them requires grad.
+    Otherwise it reads its cached packs."""
+    return torch.is_grad_enabled() and any(p.requires_grad for p in params)
+
+
+def param_versions(params: Sequence[torch.Tensor]) -> Tuple[int, ...]:
+    """The parameters' in-place version counters (an optimizer step or
+    `load_state_dict` moves them): a pack built at these versions is current
+    while the counters still read so."""
+    return tuple(p._version for p in params)
+
+
+def repack_after_load(module: nn.Module, incompatible_keys=None) -> None:
+    """A `load_state_dict` post-hook: a load may replace the parameter
+    objects (assign=True), which the version check cannot see, so the float
+    packs are rebuilt from the loaded parameters. (Int8 packs are built from
+    float32 masters and are left to `weights.pack_all`.)"""
+    if not getattr(module, "quant", False):
+        module.pack_weights()
 
 
 def l2norm(x: torch.Tensor, eps: float = 1e-12) -> torch.Tensor:
@@ -228,7 +257,9 @@ class FeedForward(nn.Module):
     the released width 512 the inner width is 1365, and an odd leading
     dimension sends every cuBLAS product that touches it to an unaligned
     kernel several times slower. The padded channels stay exact zeros
-    through GEGLU (gelu(0) * 0) and the conv (zero weights and bias).
+    through GEGLU (gelu(0) * 0) and the conv (zero weights and bias). A
+    training forward pads the parameters as it runs, and the cached copies
+    are rebuilt when a parameter changed in place (module docstring).
 
     With `quant` it is JAX's int8 module path instead (QDense proj_in, GEGLU,
     int8 conv, QDense proj_out, unpadded), and `pack_weights` also packs the
@@ -245,6 +276,26 @@ class FeedForward(nn.Module):
                      if causal_conv else None)
         self.proj_out = Dense(self.inner, dim, quant=quant)
         self.pack_weights()
+        self.register_load_state_dict_post_hook(repack_after_load)
+
+    def _pack_sources(self) -> list:
+        return [p for m in (self.proj_in, self.conv, self.proj_out) if m is not None
+                for p in m.parameters()]
+
+    def _float_packs(self) -> Dict[str, torch.Tensor]:
+        """The float weights with the inner width padded to a multiple of 8,
+        built from the parameters by differentiable ops."""
+        pad = (-self.inner) % 8
+        halves = [F.pad(w, (0, 0, 0, pad)) for w in self.proj_in.weight.chunk(2)]
+        packed = {
+            "w_in": torch.cat(halves),
+            "b_in": torch.cat([F.pad(b, (0, pad)) for b in self.proj_in.bias.chunk(2)]),
+            "w_out": F.pad(self.proj_out.weight, (0, pad)),
+        }
+        if self.conv is not None:
+            packed["w_conv"] = F.pad(self.conv.weight.permute(2, 0, 1), (0, pad, 0, pad))
+            packed["b_conv"] = F.pad(self.conv.bias, (0, pad))
+        return {name: tensor.contiguous() for name, tensor in packed.items()}
 
     @torch.no_grad()
     def pack_weights(self) -> None:
@@ -257,18 +308,18 @@ class FeedForward(nn.Module):
                     _master(self.conv.weight), self.conv.bias,
                     _master(self.proj_out.weight), self.proj_out.bias))
             return
-        pad = (-self.inner) % 8
-        halves = [F.pad(w, (0, 0, 0, pad)) for w in self.proj_in.weight.chunk(2)]
-        packed = {
-            "w_in": torch.cat(halves),
-            "b_in": torch.cat([F.pad(b, (0, pad)) for b in self.proj_in.bias.chunk(2)]),
-            "w_out": F.pad(self.proj_out.weight, (0, pad)),
-        }
-        if self.conv is not None:
-            packed["w_conv"] = F.pad(self.conv.weight.permute(2, 0, 1), (0, pad, 0, pad))
-            packed["b_conv"] = F.pad(self.conv.bias, (0, pad))
-        for name, tensor in packed.items():
-            self.register_buffer(name, tensor.detach().contiguous(), persistent=False)
+        for name, tensor in self._float_packs().items():
+            self.register_buffer(name, tensor, persistent=False)
+        self._pack_params = tuple(self._pack_sources())
+        self._packed_versions = param_versions(self._pack_params)
+
+    def _packs(self) -> Dict[str, torch.Tensor]:
+        if packs_from_params(self._pack_params):
+            return self._float_packs()
+        if param_versions(self._pack_params) != self._packed_versions:
+            self.pack_weights()
+        names = ("w_in", "b_in", "w_out") + (("w_conv", "b_conv") if self.conv is not None else ())
+        return {name: getattr(self, name) for name in names}
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if self.quant:
@@ -276,10 +327,11 @@ class FeedForward(nn.Module):
             if self.conv is not None:
                 h = self.conv(h)
             return self.proj_out(h)
-        h = geglu(F.linear(x.to(self.w_in.dtype), self.w_in, self.b_in))
+        w = self._packs()
+        h = geglu(F.linear(x.to(w["w_in"].dtype), w["w_in"], w["b_in"]))
         if self.conv is not None:
-            h = causal_taps(h, self.w_conv, 1) + self.b_conv
-        return F.linear(h, self.w_out, self.proj_out.bias)
+            h = causal_taps(h, w["w_conv"], 1) + w["b_conv"]
+        return F.linear(h, w["w_out"], self.proj_out.bias)
 
 
 class Attention(nn.Module):

@@ -7,23 +7,36 @@ convs, and the chains meet only where their skips are summed before
 from `to_time_cond`, when conditioned); x = tanh(h) * sigmoid(h) + res_conv(x).
 
 `Wavenet` runs every chain through `ops.wavenet_chain` (the CUDA kernel on a
-CUDA tensor, its plain version on the CPU) with weights packed per chain by
-`pack_weights`, once when weights load, not per step. The conv bias enters the
-chain folded into the FiLM shift as beta' = beta + gamma * b_conv; an
-unconditioned WaveNet uses gamma = 1, beta' = b_conv.
+CUDA tensor, its plain version on the CPU) with weights packed per chain
+([out, in] per tap, torch's Linear layout). For inference the packs are
+buffers built by `pack_weights` when weights load, not per step, and rebuilt
+when a block parameter has changed in place since (an optimizer step,
+`load_state_dict`). A training forward (grad mode on, a block parameter
+requiring grad) packs from the parameters as it runs, so gradients reach
+`conv`, `res_conv` and `skip_conv` through the chain's autograd (the plain
+version's backward). The conv bias enters the chain folded into the FiLM
+shift as beta' = beta + gamma * b_conv; an unconditioned WaveNet uses
+gamma = 1, beta' = b_conv.
 """
 
 from __future__ import annotations
 
-from typing import List, Optional, Tuple
+from typing import Dict, List, Optional, Tuple
 
 import torch
 from torch import nn
 
-from diffnorm_tpu_torch.models.layers import CausalConv1d, Dense
+from diffnorm_tpu_torch.models.layers import (
+    CausalConv1d,
+    Dense,
+    packs_from_params,
+    param_versions,
+    repack_after_load,
+)
 from diffnorm_tpu_torch.ops import wavenet_chain as chain_ops
 
 Film = List[Tuple[torch.Tensor, torch.Tensor]]
+Pack = Dict[str, torch.Tensor]
 
 
 class WavenetResBlock(nn.Module):
@@ -53,23 +66,32 @@ class WavenetStack(nn.Module):
         return getattr(self, f"block_{j}")
 
 
-class _PackedChain(nn.Module):
-    """One chain's stacked weights as the kernel takes them (buffers, so
-    `.to()` moves and casts them with the parameters; not saved)."""
+def _pack_chain(blocks: List[WavenetResBlock]) -> Pack:
+    """One chain's stacked weights as the kernel takes them, from the block
+    parameters by differentiable ops."""
+    packed = {
+        # torch conv weight [out, in, k] -> [k, out, in] per stack
+        "w_conv": torch.stack([b.conv.weight.permute(2, 0, 1) for b in blocks]),
+        "w_res": torch.stack([b.res_conv.weight[:, :, 0] for b in blocks]),
+        "w_skip": blocks[-1].skip_conv.weight[:, :, 0],
+        "b_res": torch.stack([b.res_conv.bias for b in blocks]),
+        "b_skip": blocks[-1].skip_conv.bias,
+        "b_conv": torch.stack([b.conv.bias for b in blocks]),
+    }
+    return {name: tensor.contiguous() for name, tensor in packed.items()}
 
-    def __init__(self, blocks: List[WavenetResBlock]):
+
+class _PackedChain(nn.Module):
+    """One chain's packed weights as buffers (`.to()` moves and casts them
+    with the parameters; not saved)."""
+
+    def __init__(self, pack: Pack):
         super().__init__()
-        packed = {
-            # torch conv weight [out, in, k] -> [k, in, out] per stack
-            "w_conv": torch.stack([b.conv.weight.permute(2, 1, 0) for b in blocks]),
-            "w_res": torch.stack([b.res_conv.weight[:, :, 0].T for b in blocks]),
-            "w_skip": blocks[-1].skip_conv.weight[:, :, 0].T,
-            "b_res": torch.stack([b.res_conv.bias for b in blocks]),
-            "b_skip": blocks[-1].skip_conv.bias,
-            "b_conv": torch.stack([b.conv.bias for b in blocks]),
-        }
-        for name, tensor in packed.items():
-            self.register_buffer(name, tensor.detach().contiguous(), persistent=False)
+        for name, tensor in pack.items():
+            self.register_buffer(name, tensor.detach(), persistent=False)
+
+    def tensors(self) -> Pack:
+        return dict(self._buffers)
 
 
 class Wavenet(nn.Module):
@@ -88,6 +110,7 @@ class Wavenet(nn.Module):
                 dim, layers, has_skip=(s == stacks - 1), cond_dim=cond_dim))
         self.final_conv = CausalConv1d(dim, dim, 1)
         self.pack_weights()
+        self.register_load_state_dict_post_hook(repack_after_load)
 
     def stack(self, s: int) -> WavenetStack:
         return getattr(self, f"stack_{s}")
@@ -95,29 +118,50 @@ class Wavenet(nn.Module):
     def chain_blocks(self, j: int) -> List[WavenetResBlock]:
         return [self.stack(s).block(j) for s in range(self.stacks)]
 
+    def _block_params(self) -> List[nn.Parameter]:
+        """Every parameter the chain packs copy."""
+        return [p for j in range(self.layers) for b in self.chain_blocks(j)
+                for m in (b.conv, b.res_conv, b.skip_conv) if m is not None
+                for p in m.parameters()]
+
     @torch.no_grad()
     def pack_weights(self) -> None:
         """Rebuild the per-chain packed weights from the block parameters.
-        Call after the parameters change (weights.from_jax_params does)."""
+        Called when weights load (weights.from_jax_params does), and by a
+        forward that finds a block parameter changed since."""
         self.chains = nn.ModuleList(
-            _PackedChain(self.chain_blocks(j)) for j in range(self.layers))
+            _PackedChain(_pack_chain(self.chain_blocks(j))) for j in range(self.layers))
+        self._pack_params = tuple(self._block_params())
+        self._packed_versions = param_versions(self._pack_params)
 
-    def precompute_film(self, t: torch.Tensor) -> Film:
+    def packs(self) -> List[Pack]:
+        """Per chain, its packed weights: built from the parameters when a
+        forward trains (`packs_from_params`), else the cached packs, rebuilt
+        first if a block parameter changed in place since they were built.
+        (A parameter replaced by assignment needs `pack_weights()`.)"""
+        if packs_from_params(self._pack_params):
+            return [_pack_chain(self.chain_blocks(j)) for j in range(self.layers)]
+        if param_versions(self._pack_params) != self._packed_versions:
+            self.pack_weights()
+        return [chain.tensors() for chain in self.chains]
+
+    def precompute_film(self, t: torch.Tensor,
+                        packs: Optional[List[Pack]] = None) -> Film:
         """Per chain (gamma, beta'), each [N, S, C] float32, for condition t
         [N, cond_dim]: every to_time_cond projection, with the conv bias
         folded into the shift (beta' = beta + gamma * b_conv)."""
         film = []
-        for j, chain in enumerate(self.chains):
+        for j, pack in enumerate(packs or self.packs()):
             tc = torch.stack([b.film(t) for b in self.chain_blocks(j)], dim=1)
             gamma, beta = tc.float().chunk(2, dim=-1)
-            beta = beta + gamma * chain.b_conv.float()
+            beta = beta + gamma * pack["b_conv"].float()
             film.append((gamma.contiguous(), beta.contiguous()))
         return film
 
-    def _unconditioned_film(self, batch: int) -> Film:
+    def _unconditioned_film(self, batch: int, packs: List[Pack]) -> Film:
         film = []
-        for chain in self.chains:
-            beta = chain.b_conv.float().expand(batch, -1, -1).contiguous()
+        for pack in packs:
+            beta = pack["b_conv"].float().expand(batch, -1, -1).contiguous()
             film.append((torch.ones_like(beta), beta))
         return film
 
@@ -125,13 +169,14 @@ class Wavenet(nn.Module):
                 film: Optional[Film] = None) -> torch.Tensor:
         """x [B, T, in_dim]; t [B, cond_dim] or a precomputed `film`."""
         x = self.init_conv(x)
+        packs = self.packs()
         if film is None:
-            film = (self.precompute_film(t) if self.conditioned
-                    else self._unconditioned_film(x.shape[0]))
+            film = (self.precompute_film(t, packs) if self.conditioned
+                    else self._unconditioned_film(x.shape[0], packs))
         skips = [
             chain_ops.wavenet_chain(
-                x, c.w_conv, c.w_res, c.w_skip, c.b_res, c.b_skip, gamma, beta,
-                dilation=2 ** j)
-            for j, (c, (gamma, beta)) in enumerate(zip(self.chains, film))
+                x, p["w_conv"], p["w_res"], p["w_skip"], p["b_res"], p["b_skip"],
+                gamma, beta, dilation=2 ** j)
+            for j, (p, (gamma, beta)) in enumerate(zip(packs, film))
         ]
         return self.final_conv(sum(skips))

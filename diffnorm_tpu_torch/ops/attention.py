@@ -7,11 +7,15 @@ probabilities cast to bf16 for probs @ v when v is bf16.
 
 Keys of length >= 2048 on the card go to the flash-attention kernel
 (`ops/flash_attention.py`), as the JAX package routes them to its Pallas
-kernel on a TPU (attention.py:53-63). That is JAX's plain masked case; the
-port's callers pass no bias, causal mask or dropout, which JAX keeps off
-the kernel. JAX takes the route only under DIFFNORM_FLASH_ATTENTION=1, on
-the strength of a TPU v5e measurement; on the card it is on by default. On
-the CPU masked_attention stays plain, as JAX's does off the TPU. The S2ST
+kernel on a TPU (attention.py:53-63), where `flash_attention.supports` says
+the kernel takes the shapes and types (checked before any launch, as JAX
+checks its length threshold). Every other call, on any device, is the
+module math below, JAX's default path, which takes any shape. The kernel
+serves JAX's plain masked case; the port's callers pass no bias, causal
+mask or dropout, which JAX keeps off the kernel. JAX takes the route only
+under DIFFNORM_FLASH_ATTENTION=1, on the strength of a TPU v5e
+measurement; on the card it is on by default. On the CPU masked_attention
+stays plain, as JAX's does off the TPU. The S2ST
 chain reaches the kernel through the NAR decoder's encoder attention when
 the subsampled source has >= 2048 frames (about 82 s of speech); the
 conformer's rel-pos attention computes its scores inline and never calls
@@ -33,7 +37,7 @@ def masked_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                      mask: Optional[torch.Tensor] = None) -> torch.Tensor:
     """q [B, H, Tq, D], k/v [B, H, Tk, D], mask [B, Tk] bool (True = valid).
     Returns [B, H, Tq, D] in q.dtype."""
-    if q.is_cuda and k.shape[-2] >= FLASH_MIN_LEN:
+    if q.is_cuda and k.shape[-2] >= FLASH_MIN_LEN and flash_ops.supports(q, k, v, mask):
         return flash_ops.flash_attention(q, k, v, mask)
     scale = q.shape[-1] ** -0.5
     sim = torch.matmul(q.float(), k.float().transpose(-1, -2)) * scale

@@ -164,6 +164,7 @@ def check_ff_pack(w: Pack, c: int, device: torch.device, what: str) -> int:
     return p
 
 
+@torch.no_grad()
 def ffpipe_layer(x: torch.Tensor, film_ff: torch.Tensor, w: Pack,
                  rows: int = 1) -> torch.Tensor:
     """x [B, T, C] bf16 (the post-attention residual stream); film_ff
@@ -172,7 +173,8 @@ def ffpipe_layer(x: torch.Tensor, film_ff: torch.Tensor, w: Pack,
     rows=2 is JAX's DIFFNORM_FFPIPE_ROWS=2; as there, it applies when B is
     even and >= 4, and rows 1 runs otherwise. A CPU tensor takes the plain
     version; a CUDA tensor launches the kernel (bf16, C and P multiples of
-    64) or raises."""
+    64) or raises. Inference only: no gradient, as JAX serves its int8
+    routes."""
     if rows not in (1, 2):
         raise ValueError(f"ffpipe_layer: rows must be 1 or 2, got {rows}")
     if x.device.type == "cpu":

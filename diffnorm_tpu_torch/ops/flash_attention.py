@@ -11,7 +11,7 @@ kernel. At the S2ST decoder's encoder attention (q [2,8,256,64], k/v
 [2,8,2112,64], bf16) it is bound by bytes on an H100: 9.7 MB, 2.9 us at
 3.35 TB/s.
 `ops.attention.masked_attention` routes here for keys of length >= 2048 on
-the card.
+the card where `supports` says the kernel takes the inputs.
 
 The function (pallas_attention.py:26-80), in f32:
     s = (q / sqrt(D)) k^T, s = -1e30 where the key is masked
@@ -30,6 +30,7 @@ from typing import Optional
 import torch
 
 from diffnorm_tpu_torch.ops import _build
+from diffnorm_tpu_torch.ops._autograd import with_plain_backward
 
 MASKED = -1.0e30  # pallas_attention.py NEG_INF
 BF16_DIMS = (32, 64, 96, 128)
@@ -96,44 +97,59 @@ def _aligned(t: torch.Tensor) -> torch.Tensor:
     return t if t.data_ptr() % 16 == 0 else t.clone()
 
 
-def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                    mask: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """q [B, H, Tq, D]; k/v [B, H, Tk, D]; mask [B, Tk] bool (True = valid
-    key) or None. Returns [B, H, Tq, D] in q.dtype.
+def _refusal(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+             mask: Optional[torch.Tensor]) -> Optional[Exception]:
+    """Why the kernel cannot take these inputs (the error the wrapper
+    raises), or None where it can. The device type is not checked here."""
+    if q.dim() != 4 or k.dim() != 4 or k.shape != v.shape:
+        return ValueError(f"flash_attention: q, k, v must be [B, H, T, D], got "
+                          f"{tuple(q.shape)}, {tuple(k.shape)}, {tuple(v.shape)}")
+    b, h, tq, d = q.shape
+    tk = k.shape[2]
+    if k.shape[:2] != (b, h) or k.shape[3] != d:
+        return ValueError(f"flash_attention: k/v {tuple(k.shape)} do not match q {tuple(q.shape)}")
+    if not (q.dtype == k.dtype == v.dtype):
+        return TypeError(f"flash_attention: q, k, v differ in type: {q.dtype}, {k.dtype}, {v.dtype}")
+    if q.dtype == torch.bfloat16:
+        if d not in BF16_DIMS:
+            return ValueError(f"flash_attention: the bf16 kernel takes D in {BF16_DIMS}, got {d}")
+    elif q.dtype == torch.float32:
+        if not 0 < d <= 128:
+            return ValueError(f"flash_attention: the f32 kernel takes D <= 128, got {d}")
+    else:
+        return TypeError(f"flash_attention: the kernel takes bf16 or float32, got {q.dtype}")
+    if not (q.device == k.device == v.device):
+        return ValueError("flash_attention: q, k, v on different devices")
+    if b * h > 65535 or tq == 0 or tk == 0:
+        return ValueError(f"flash_attention: unsupported shape B*H={b * h}, Tq={tq}, Tk={tk}")
+    if mask is not None and (mask.shape != (b, tk) or mask.device != q.device):
+        return ValueError(f"flash_attention: mask must be [{b}, {tk}] on {q.device}, "
+                          f"got {tuple(mask.shape)}")
+    return None
 
-    A CPU tensor takes the plain version; a CUDA tensor launches the kernel
-    (bf16 with D in 32/64/96/128, or float32 with D <= 128) or raises."""
+
+def supports(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+             mask: Optional[torch.Tensor] = None) -> bool:
+    """Whether `flash_attention` launches its kernel for these tensors on the
+    card rather than raising: the wrapper's own checks of shapes, types and
+    devices (both read `_refusal`). Callers that route to the kernel check
+    this before any launch."""
+    return _refusal(q, k, v, mask) is None
+
+
+def _launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+            mask: Optional[torch.Tensor]) -> torch.Tensor:
     if q.device.type == "cpu":
         return flash_attention_plain(q, k, v, mask)
     if q.device.type != "cuda":
         raise ValueError(f"flash_attention: unsupported device {q.device}")
-    if q.dim() != 4 or k.dim() != 4 or k.shape != v.shape:
-        raise ValueError(f"flash_attention: q, k, v must be [B, H, T, D], got "
-                         f"{tuple(q.shape)}, {tuple(k.shape)}, {tuple(v.shape)}")
+    refusal = _refusal(q, k, v, mask)
+    if refusal is not None:
+        raise refusal
     b, h, tq, d = q.shape
     tk = k.shape[2]
-    if k.shape[:2] != (b, h) or k.shape[3] != d:
-        raise ValueError(f"flash_attention: k/v {tuple(k.shape)} do not match q {tuple(q.shape)}")
-    if not (q.dtype == k.dtype == v.dtype):
-        raise TypeError(f"flash_attention: q, k, v differ in type: {q.dtype}, {k.dtype}, {v.dtype}")
-    if q.dtype == torch.bfloat16:
-        if d not in BF16_DIMS:
-            raise ValueError(f"flash_attention: the bf16 kernel takes D in {BF16_DIMS}, got {d}")
-        symbol = "flash_attention_bf16"
-    elif q.dtype == torch.float32:
-        if not 0 < d <= 128:
-            raise ValueError(f"flash_attention: the f32 kernel takes D <= 128, got {d}")
-        symbol = "flash_attention_f32"
-    else:
-        raise TypeError(f"flash_attention: the kernel takes bf16 or float32, got {q.dtype}")
-    if not (q.device == k.device == v.device):
-        raise ValueError("flash_attention: q, k, v on different devices")
-    if b * h > 65535 or tq == 0 or tk == 0:
-        raise ValueError(f"flash_attention: unsupported shape B*H={b * h}, Tq={tq}, Tk={tk}")
+    symbol = "flash_attention_bf16" if q.dtype == torch.bfloat16 else "flash_attention_f32"
     if mask is not None:
-        if mask.shape != (b, tk) or mask.device != q.device:
-            raise ValueError(f"flash_attention: mask must be [{b}, {tk}] on {q.device}, "
-                             f"got {tuple(mask.shape)}")
         mask = mask.to(torch.bool).contiguous()
     q, k, v = _aligned(q), _aligned(k), _aligned(v)
     out = torch.empty_like(q)
@@ -162,3 +178,15 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     _build.check(err, "flash_attention")
     _build.launch_counts["flash_attention"] += 1
     return out
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                    mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """q [B, H, Tq, D]; k/v [B, H, Tk, D]; mask [B, Tk] bool (True = valid
+    key) or None. Returns [B, H, Tq, D] in q.dtype.
+
+    A CPU tensor takes the plain version; a CUDA tensor launches the kernel
+    (bf16 with D in 32/64/96/128, or float32 with D <= 128: see `supports`)
+    or raises. Where an input needs a gradient, the backward is the plain
+    version's."""
+    return with_plain_backward(_launch, flash_attention_plain, (q, k, v, mask))

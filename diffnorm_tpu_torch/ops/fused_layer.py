@@ -84,13 +84,15 @@ def fused_layer_plain(x: torch.Tensor, mask: torch.Tensor, film_attn: torch.Tens
     return ff_sublayer_plain(x1, film_ff, w, round_y=True)
 
 
+@torch.no_grad()
 def fused_layer(x: torch.Tensor, mask: torch.Tensor, film_attn: torch.Tensor,
                 film_ff: torch.Tensor, w: Pack, heads: int, dim_head: int) -> torch.Tensor:
     """One layer: x [B, T, C] bf16; mask [B, T] bool (True = valid key);
     film_attn / film_ff [B, 2C]; w from `pack_layer_weights`. Returns bf16.
 
     A CPU tensor takes the plain version; a CUDA tensor launches the kernel
-    (bf16, dim_head 64, heads * 64 == C, P a multiple of 64) or raises."""
+    (bf16, dim_head 64, heads * 64 == C, P a multiple of 64) or raises.
+    Inference only: no gradient, as JAX serves its int8 routes."""
     if x.device.type == "cpu":
         return fused_layer_plain(x, mask, film_attn, film_ff, w, heads, dim_head)
     if x.device.type != "cuda":

@@ -2,9 +2,10 @@
 
 Replaces diffnorm_tpu/ops/pallas_norm.py:rms_norm_film. The kernel is
 `csrc/rms_norm_film.cu`: one warp per (b, t) row, f32 math, one read and one
-write of x. It is bound by bytes on an H100: 16.9 MB at the DDIM shape
-[64, 128, 512] bf16, 5.0 us at 3.35 TB/s. `models.layers.RMSNorm` routes here
-for every FiLM-conditioned norm on a CUDA tensor (24 per DDIM step).
+write of x, in bf16 or float32. It is bound by bytes on an H100: 16.9 MB at
+the DDIM shape [64, 128, 512] bf16, 5.0 us at 3.35 TB/s.
+`models.layers.RMSNorm` routes here for every FiLM-conditioned norm on a
+CUDA tensor (24 per DDIM step).
 """
 
 from __future__ import annotations
@@ -15,6 +16,9 @@ import math
 import torch
 
 from diffnorm_tpu_torch.ops import _build
+from diffnorm_tpu_torch.ops._autograd import with_plain_backward
+
+SYMBOLS = {torch.bfloat16: "rms_norm_film_bf16", torch.float32: "rms_norm_film_f32"}
 
 
 def rms_norm_film_plain(x: torch.Tensor, film: torch.Tensor,
@@ -29,12 +33,7 @@ def rms_norm_film_plain(x: torch.Tensor, film: torch.Tensor,
     return ((xf * inv) * gamma + beta).to(x.dtype)
 
 
-def rms_norm_film(x: torch.Tensor, film: torch.Tensor,
-                  eps: float = 1e-12) -> torch.Tensor:
-    """x [B, T, C]; film [B, 2C] (gamma ++ beta). Returns x.dtype.
-
-    A CPU tensor takes the plain version; a CUDA tensor launches the kernel
-    (bf16, contiguous, C % 8 == 0) or raises."""
+def _launch(x: torch.Tensor, film: torch.Tensor, eps: float) -> torch.Tensor:
     if x.device.type == "cpu":
         return rms_norm_film_plain(x, film, eps)
     if x.device.type != "cuda":
@@ -45,9 +44,9 @@ def rms_norm_film(x: torch.Tensor, film: torch.Tensor,
     if film.shape != (b, 2 * c):
         raise ValueError(
             f"rms_norm_film: film must be [{b}, {2 * c}], got {tuple(film.shape)}")
-    if x.dtype != torch.bfloat16 or film.dtype != torch.bfloat16:
-        raise TypeError(
-            f"rms_norm_film: the kernel takes bf16, got {x.dtype} / {film.dtype}")
+    if x.dtype not in SYMBOLS or film.dtype != x.dtype:
+        raise TypeError(f"rms_norm_film: the kernel takes bf16 or float32 x and film of "
+                        f"one type, got {x.dtype} / {film.dtype}")
     if film.device != x.device:
         raise ValueError("rms_norm_film: x and film on different devices")
     if not (x.is_contiguous() and film.is_contiguous()):
@@ -55,7 +54,7 @@ def rms_norm_film(x: torch.Tensor, film: torch.Tensor,
     if c % 8:
         raise ValueError(f"rms_norm_film: C={c} is not a multiple of 8")
     out = torch.empty_like(x)
-    fn = _build.function("rms_norm_film", "rms_norm_film_bf16", [
+    fn = _build.function("rms_norm_film", SYMBOLS[x.dtype], [
         ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
         ctypes.c_int, ctypes.c_int, ctypes.c_float, ctypes.c_void_p])
     stream = torch.cuda.current_stream(x.device).cuda_stream
@@ -63,3 +62,14 @@ def rms_norm_film(x: torch.Tensor, film: torch.Tensor,
                     eps, stream), "rms_norm_film")
     _build.launch_counts["rms_norm_film"] += 1
     return out
+
+
+def rms_norm_film(x: torch.Tensor, film: torch.Tensor,
+                  eps: float = 1e-12) -> torch.Tensor:
+    """x [B, T, C]; film [B, 2C] (gamma ++ beta). Returns x.dtype.
+
+    A CPU tensor takes the plain version; a CUDA tensor launches the kernel
+    (bf16 or float32 x and film of one type, contiguous, C % 8 == 0) or
+    raises. Where an input needs a gradient, the backward is the plain
+    version's."""
+    return with_plain_backward(_launch, rms_norm_film_plain, (x, film), eps=eps)

@@ -70,9 +70,11 @@ def test_wavenet_chain_matches_pallas_kernel(dilation):
     ref = np.asarray(jax_wavenet_chain(
         *map(jnp.asarray, (x, w_conv, w_res, w_skip, biases8, film8)),
         dilation=dilation, interpret=True))
+    # the port takes every weight as [out, in], the JAX kernel as [in, out]
     got = wavenet_chain(*map(torch.from_numpy, (
-        x, w_conv, w_res, w_skip, b_res, b_skip, gamma, beta)),
-        dilation=dilation)
+        x, np.ascontiguousarray(w_conv.transpose(0, 1, 3, 2)),
+        np.ascontiguousarray(w_res.transpose(0, 2, 1)), np.ascontiguousarray(w_skip.T),
+        b_res, b_skip, gamma, beta)), dilation=dilation)
     np.testing.assert_allclose(got.numpy(), ref, atol=2e-4, rtol=2e-4)
 
 
