@@ -61,6 +61,25 @@ prints no result:
 7. entry point: both models written with weights.save_npz and cli.s2st run
    on 8 synthetic .npy utterances with --dur-prediction.
 
+Phase 3d (after 3c), main path int8 static: JAX's DDIM serving headline
+(bench.py:38-49), the int8 module route with per-tensor weight and
+activation scales, int8 WaveNet convs and static activation scales
+calibrated on the batch (start step 50, 6 points), 49 steps at B64 x T128,
+with its site count, RTF and profile, against the same route through the
+plain versions (recon row-cos, unit agreement) and the bf16 path's units.
+
+8. train: bf16 training updates at the released widths, B64 x T128, float32
+   masters, the recipes' optimizer and schedule: the normalizer over a
+   frozen VAE (update_freq 2, 3 updates), then the VAE (2 updates), each
+   through the kernels' forwards and through the plain versions from one
+   initialization on the same injected draws (loss and gradient norm per
+   update held to bounds), the frozen VAE bit for bit, one update at
+   dropout 0.1; ms per update, launches per update, peak memory, profile.
+9. entry point train: cli.train on a small corpus at the released widths in
+   bf16: the VAE (2 updates, checkpoint), the normalizer over it (2 updates,
+   checkpoint, resumed to 4), then cli.diff_norm_synthesis --params-npz on
+   the trained normalizer.
+
 Then one JSON line of per-kernel numbers and, last, {"ok": true, "device": ...}.
 Exits non-zero without CUDA, and in a directory without the port.
 """
@@ -69,6 +88,7 @@ from __future__ import annotations
 
 import contextlib
 import json
+import math
 import statistics
 import subprocess
 import sys
@@ -128,6 +148,15 @@ GRAD_B, GRAD_ROW_COS, GRAD_F32_REL = 8, 0.999, 1e-4
 # float32 ddim_sample through the kernels against the plain-version run: f32
 # products in other orders, over 5 DDIM steps (stride 10) and the decode
 F32_STRIDE, F32_PATH_ROW_COS, F32_PATH_REL = 10, 0.9999, 1e-3
+# the int8 static route (JAX's serving headline): calibration points, and the
+# unit agreement of tests/test_variants.py:227-228, held against the same
+# route through the plain versions and against the bf16 kernel path
+STATIC_POINTS, STATIC_UNIT_AGREE = 6, 0.95
+# bf16 training updates through the kernels (forward) against the plain
+# versions: per update, the loss and the gradient norm. On an H100 the
+# normalizer gave 6.3e-5 and 4.5e-3, the VAE 3.6e-5 and 5.5e-5; the bounds
+# were 1e-2 and 2e-2 for that first run
+TRAIN_LOSS_REL, TRAIN_GNORM_REL = 1e-3, 1e-2
 
 # the S2ST chain (bench.py --e2e's shape) and its long form, where the
 # subsampled source reaches flash_attention's 2048 keys
@@ -909,6 +938,286 @@ def run_int8_routes(torch, qmodel, ddim_sample, inputs, units_bf16, smi, mods):
     return launches_by_kernel
 
 
+def run_int8_static(torch, smodel, ddim_sample, inputs, units_bf16, smi, mods):
+    """Phase 3d: JAX's DDIM serving headline (bench.py:38-49) on the card:
+    the int8 module route with per-tensor weight and activation scales,
+    int8 WaveNet convs, bf16 dequant, and static activation scales
+    calibrated on the batch (start step 50, 6 points), then the 49-step run,
+    its launches and profile, against the same route through the plain
+    versions and against the bf16 kernel path's units."""
+    from diffnorm_tpu_torch.models.diffusion import calibrate_act_scales
+    from diffnorm_tpu_torch.ops import _build
+    from diffnorm_tpu_torch.ops.quant import set_static_scales
+
+    t0 = time.perf_counter()
+    steps = START_STEP - 1
+    g = torch.Generator(device="cuda").manual_seed(5)
+    torch.cuda.synchronize()
+    t_cal = time.perf_counter()
+    n_sites = calibrate_act_scales(smodel, inputs["feature"], inputs["mask"],
+                                   start_step=START_STEP, n_points=STATIC_POINTS, generator=g)
+    torch.cuda.synchronize()
+    t_cal = time.perf_counter() - t_cal
+    # 4 stacks x 8 chains x (res_conv, conv) + 8 skip_convs + 12 layers x
+    # (attention, to_out, proj_in, conv, proj_out)
+    if n_sites != 4 * 8 * 2 + 8 + 12 * 5:
+        fail(f"int8 static: {n_sites} calibrated sites, expected {4 * 8 * 2 + 8 + 12 * 5}")
+    set_static_scales(smodel)
+    ddim_sample(smodel, inputs["feature"], inputs["mask"], start_step=START_STEP,
+                stride=START_STEP, enc_noise=inputs["enc"], init_noise=inputs["init"],
+                device="cuda")  # warm-up: one denoiser call
+    torch.cuda.reset_peak_memory_stats()
+    _build.launch_counts.clear()
+    units, recon, wall = run_main_path(torch, smodel, ddim_sample, inputs)
+    launches = dict(_build.launch_counts)
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    for name, n in {"rms_norm_film": 24 * steps, "wavenet_chain": 6}.items():
+        if launches.get(name, 0) < n:
+            fail(f"int8 static launched {name} {launches.get(name, 0)} times, expected >= {n}")
+    if units.shape != (B, T) or units.min() < -4 or units.max() >= 1000:
+        fail("int8 static: units out of range")
+    if recon.shape != (B, T, 768) or not torch.isfinite(recon).all():
+        fail("int8 static: recon_feature is not finite [B, T, 768]")
+    with plain_versions(*mods):
+        units_ref, recon_ref, wall_ref = run_main_path(torch, smodel, ddim_sample, inputs)
+    cos = torch.nn.functional.cosine_similarity(
+        recon.float().reshape(-1, 768), recon_ref.float().reshape(-1, 768), dim=-1)
+    agree = (units == units_ref).float().mean().item()
+    agree_bf16 = (units == units_bf16).float().mean().item()
+    if cos.min().item() <= PATH_ROW_COS or agree < STATIC_UNIT_AGREE:
+        fail(f"int8 static: recon row-cos {cos.min().item():.5f}, unit agreement {agree:.4f} "
+             f"against the plain-version run")
+    if agree_bf16 < STATIC_UNIT_AGREE:
+        fail(f"int8 static: unit agreement with the bf16 kernel path {agree_bf16:.4f}")
+    print(f"main path int8 static (module route, per-tensor scales, int8 WaveNet convs): "
+          f"{n_sites} sites calibrated in {t_cal:.3f} s; B{B}xT{T}, {steps} DDIM steps: wall "
+          f"{wall:.4f} s, RTF {B * T * SECONDS_PER_UNIT / wall:.2f}, launches {launches}, peak "
+          f"{peak_gb:.2f} GB; plain-version run {wall_ref:.4f} s, recon row-cos min "
+          f"{cos.min().item():.5f} mean {cos.mean().item():.5f}, unit agreement {agree:.4f}; "
+          f"unit agreement with the bf16 kernel path {agree_bf16:.4f} (bound "
+          f"{STATIC_UNIT_AGREE}); {smi}")
+    profile_run(torch, lambda: run_main_path(torch, smodel, ddim_sample, inputs), wall)
+    print(f"phase main path int8 static: {time.perf_counter() - t0:.1f} s")
+
+
+def train_batches(torch, n, seed, stage):
+    """n micro-batches of B x T (ragged lengths from T/2, 0-padded units),
+    with every draw of the training forward injected."""
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    out = []
+    for _ in range(n):
+        lengths = torch.randint(T // 2, T + 1, (B,), generator=g, device="cuda")
+        lengths[0] = T
+        mask = torch.arange(T, device="cuda")[None] < lengths[:, None]
+        units = torch.randint(4, 1004, (B, T), generator=g, device="cuda") * mask
+        batch = {"reduce_target": torch.randn(B, T, 768, generator=g, device="cuda")
+                 * mask[..., None], "reduce_target_unit": units.int(),
+                 "reduce_target_lengths": lengths.int()}
+        if stage == "vae":
+            batch["posterior_noise"] = torch.randn(B, T, 128, generator=g, device="cuda")
+        else:
+            batch["inject_times"] = torch.randint(1, 200, (B,), generator=g, device="cuda")
+            for key in ("enc_noise", "x1_noise", "q_noise"):
+                batch[f"inject_{key}"] = torch.randn(B, T, 128, generator=g, device="cuda")
+        out.append(batch)
+    return out
+
+
+def run_train(torch, mods, smi):
+    """Phase 8: bf16 training updates of both main-path stages at the
+    released widths, B64 x T128, the recipes' optimizer and schedule: the
+    normalizer (update_freq 2, 3 updates) over a frozen VAE, then the VAE
+    (2 updates). Each stage runs twice from one initialization on the same
+    injected draws with dropout 0, through the kernels and through the
+    plain versions: per update the loss within TRAIN_LOSS_REL and the
+    gradient norm within TRAIN_GNORM_REL. The frozen VAE stays bit for bit;
+    one more update at dropout 0.1 per stage is finite; the kernel run's
+    ms per update, launches per update, peak memory and device-busy share."""
+    from diffnorm_tpu_torch.criterions.ddpm_loss import DDPMDiscreteLoss
+    from diffnorm_tpu_torch.criterions.vae_loss import SpeechVAELoss
+    from diffnorm_tpu_torch.models.diffusion import LatentDiffusionModule
+    from diffnorm_tpu_torch.models.vae import SpeechVAEModule
+    from diffnorm_tpu_torch.ops import _build
+    from diffnorm_tpu_torch.train.trainer import Trainer, TrainerConfig
+
+    stages = {
+        # name: (model, criterion, frozen, lr, update_freq, updates, kernels)
+        "normalizer": (lambda dropout: LatentDiffusionModule(dropout=dropout),
+                       DDPMDiscreteLoss(), ("vae",), 1e-4, 2, 3,
+                       ("rms_norm_film", "wavenet_chain")),
+        "VAE": (lambda dropout: SpeechVAEModule(dropout=dropout), SpeechVAELoss(), (), 5e-4,
+                1, 2, ("wavenet_chain",)),
+    }
+    for name, (make, criterion, frozen, lr, freq, n_updates, kernels) in stages.items():
+        t0 = time.perf_counter()
+        stage = "vae" if name == "VAE" else "ddpm"
+        micros = train_batches(torch, freq * n_updates, 80, stage)
+        cfg = TrainerConfig(lr=lr, warmup_updates=10000, warmup_init_lr=1e-7,
+                            adam_betas=(0.9, 0.98), clip_norm=2.0, dtype="bfloat16", seed=42)
+
+        def build(dropout=0.0):
+            torch.manual_seed(11)
+            with torch.device("cuda"):
+                model = make(dropout)
+            return model, Trainer(cfg, model, criterion, frozen)
+
+        runs = {}
+        for version in ("kernels", "plain"):
+            model, trainer = build()
+            vae_before = {k: v.clone() for k, v in model.state_dict().items()
+                          if k.startswith("vae.")}
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            per_update = []
+            with plain_versions(*mods) if version == "plain" else contextlib.nullcontext():
+                for u in range(n_updates):
+                    _build.launch_counts.clear()
+                    t1 = time.perf_counter()
+                    mets = trainer.train_step(micros[u * freq:(u + 1) * freq])
+                    torch.cuda.synchronize()
+                    per_update.append((mets, 1e3 * (time.perf_counter() - t1),
+                                       dict(_build.launch_counts)))
+            peak_gb = torch.cuda.max_memory_allocated() / 1e9
+            for k, v in vae_before.items():
+                if not torch.equal(model.state_dict()[k], v):
+                    fail(f"train {name}: the frozen VAE parameter {k} moved")
+            runs[version] = (per_update, peak_gb)
+            if version == "kernels":
+                for _, _, launches in per_update:
+                    if any(launches.get(k, 0) == 0 for k in kernels):
+                        fail(f"train {name}: an update launched {launches}, expected {kernels}")
+                wall = statistics.median(ms for _, ms, _ in per_update[1:]) / 1e3
+                profile_run(torch, lambda: trainer.train_step(micros[:freq]), wall)
+            del model, trainer
+        worst_loss = worst_gnorm = 0.0
+        for (mk, _, _), (mp, _, _) in zip(runs["kernels"][0], runs["plain"][0]):
+            if not (math.isfinite(mk["loss"]) and math.isfinite(mk["gnorm"])):
+                fail(f"train {name}: non-finite loss or gradient norm {mk}")
+            worst_loss = max(worst_loss, abs(mk["loss"] - mp["loss"]) / abs(mp["loss"]))
+            worst_gnorm = max(worst_gnorm, abs(mk["gnorm"] - mp["gnorm"]) / abs(mp["gnorm"]))
+        if worst_loss > TRAIN_LOSS_REL or worst_gnorm > TRAIN_GNORM_REL:
+            fail(f"train {name}: kernels against plain versions, loss rel {worst_loss:.3e}, "
+                 f"gnorm rel {worst_gnorm:.3e}")
+        model, trainer = build(dropout=0.1)
+        mets = trainer.train_step(micros[:freq])
+        if not (math.isfinite(mets["loss"]) and math.isfinite(mets["gnorm"])):
+            fail(f"train {name}: dropout 0.1 gave {mets}")
+        del model, trainer
+        per_update, peak_gb = runs["kernels"]
+        plain_ms = [round(ms, 1) for _, ms, _ in runs["plain"][0]]
+        print(f"train {name}: B{B}xT{T} x update_freq {freq}, bf16 forward, float32 masters; "
+              f"losses {[round(m['loss'], 5) for m, _, _ in per_update]}, gnorms "
+              f"{[round(m['gnorm'], 4) for m, _, _ in per_update]}; ms per update "
+              f"{[round(ms, 1) for _, ms, _ in per_update]} (plain versions {plain_ms}); "
+              f"launches per update {per_update[-1][2]}; peak {peak_gb:.2f} GB; against the "
+              f"plain-version run loss rel {worst_loss:.2e} (bound {TRAIN_LOSS_REL}), gnorm rel "
+              f"{worst_gnorm:.2e} (bound {TRAIN_GNORM_REL}); frozen VAE bit-identical; "
+              f"dropout 0.1 update loss {mets['loss']:.5f}; {smi}")
+        print(f"phase train {name}: {time.perf_counter() - t0:.1f} s")
+
+
+def write_train_corpus(root: Path, seed: int = 4):
+    """A small corpus in the layout ReprToReprUnitDataset reads: train (24)
+    and dev (4) utterances of 40-128 units with 768-d features."""
+    import numpy as np
+
+    from diffnorm_tpu_torch.data.manifest import write_translation_manifest
+
+    rng = np.random.default_rng(seed)
+    feat_dir = root / "feat"
+    feat_dir.mkdir()
+    for split, n in (("train", 24), ("dev", 4), ("test", 4)):
+        rows, lines = [], [str(feat_dir)]
+        for i in range(n):
+            units = rng.integers(0, 1000, size=int(rng.integers(40, 129)))
+            name = f"{split}{i}"
+            np.save(feat_dir / f"{name}.feat.npy",
+                    rng.normal(size=(len(units), 768)).astype(np.float32))
+            lines.append(f"{name}.feat.npy\t{len(units)}")
+            rows.append({"id": name, "src_audio": f"{name}.wav", "src_n_frames": len(units),
+                         "tgt_audio": " ".join(map(str, units)), "tgt_n_frames": len(units)})
+        (feat_dir / f"{split}.manifest.tsv").write_text("\n".join(lines) + "\n")
+        write_translation_manifest(str(root / f"{split}.tsv"), rows)
+    return feat_dir
+
+
+def run_train_cli(torch, smi):
+    """Phase 9: cli.train at the released widths in bf16 on a small corpus:
+    the VAE for 2 updates and a checkpoint, the normalizer over it
+    (--speech-decoder-ckpt) for 2 updates and a checkpoint, resumed to 4,
+    then cli.diff_norm_synthesis --params-npz on the trained normalizer."""
+    import logging
+
+    from diffnorm_tpu_torch.cli import diff_norm_synthesis
+    from diffnorm_tpu_torch.cli import train as train_cli
+    from diffnorm_tpu_torch.ops import _build
+
+    class Lines(logging.Handler):
+        def __init__(self):
+            super().__init__()
+            self.lines = []
+
+        def emit(self, record):
+            self.lines.append(record.getMessage())
+
+    lines = Lines()
+    logging.getLogger("diffnorm_tpu_torch.train").addHandler(lines)
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = Path(tmp)
+        feat_dir = write_train_corpus(tmp)
+        common = [str(tmp), "--tgt-feat-dir", str(feat_dir), "--target-code-size", "1000",
+                  "--dropout", "0.1", "--keep-best-checkpoints", "5",
+                  "--best-checkpoint-metric", "loss", "--keep-last-epochs", "5",
+                  "--lr-scheduler", "inverse_sqrt", "--warmup-init-lr", "1e-7",
+                  "--warmup-updates", "10000", "--adam-betas", "(0.9,0.98)", "--clip-norm",
+                  "2.0", "--max-tokens", "1200", "--max-target-positions", "2048", "--seed",
+                  "42", "--prng-impl", "rbg", "--log-interval", "1", "--dtype", "bfloat16"]
+        vae_dir, diff_dir = tmp / "vae", tmp / "diff"
+        runs = [
+            ("VAE", ["--task", "speech_decoder", "--criterion", "speech_vae_decoder_loss",
+                     "--arch", "speech_vae_decoder", "--latent-dim", "128", "--lr", "5e-4",
+                     "--save-dir", str(vae_dir), "--max-update", "2"], 2),
+            ("normalizer", ["--task", "speech_diffusion_discrete", "--criterion",
+                            "ddpm_discrete_loss", "--arch", "diff_discrete", "--latent-dim",
+                            "128", "--multitask", "true", "--lr", "1e-4",
+                            "--speech-decoder-ckpt", str(vae_dir / "step_000000002"),
+                            "--validate-interval", "1", "--save-interval", "1",
+                            "--save-dir", str(diff_dir), "--max-update", "2"], 2),
+        ]
+        runs.append(("normalizer, resumed", runs[1][1][:-1] + ["4"], 4))
+        for what, extra, want_step in runs:
+            lines.lines.clear()
+            _build.launch_counts.clear()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            if train_cli.main(common + extra) != 0:
+                fail(f"cli.train {what} failed")
+            dt = time.perf_counter() - t0
+            need = [f"saved checkpoint at step {want_step}", "valid |", "| step"]
+            if what.endswith("resumed"):
+                need.append("resumed from step 2")
+            log = "\n".join(lines.lines)
+            missing = [n for n in need if n not in log]
+            if missing or not _build.launch_counts["wavenet_chain"]:
+                fail(f"cli.train {what}: log lacks {missing}, launches "
+                     f"{dict(_build.launch_counts)}")
+            print(f"phase entry point train ({what}): {dt:.2f} s for cli.train to step "
+                  f"{want_step} (released widths, bf16, 24 utterances), launches "
+                  f"{dict(_build.launch_counts)}; {smi}")
+        logging.getLogger("diffnorm_tpu_torch.train").removeHandler(lines)
+        out_dir = tmp / "normalized"
+        t0 = time.perf_counter()
+        rc = diff_norm_synthesis.main([
+            str(tmp), "--params-npz", str(diff_dir / "step_000000004" / "params.npz"),
+            "--tgt-feat-dir", str(feat_dir), "--output-dir", str(out_dir), "--splits", "test",
+            "--batch-size", "4"])
+        out = (out_dir / "test.tsv").read_text().splitlines()[1:] if rc == 0 else []
+        if len(out) != 4:
+            fail(f"diff_norm_synthesis on the trained normalizer: rc {rc}, {len(out)} rows")
+        print(f"phase entry point train (synthesis): {time.perf_counter() - t0:.2f} s for "
+              f"cli.diff_norm_synthesis --params-npz on the trained normalizer, 4 rows; {smi}")
+
+
 def s2st_models(torch):
     """The released nar_s2ut_conformer and code-HiFi-GAN (with its duration
     predictor), seeded random init in bf16. The specials' rows of the shared
@@ -1132,6 +1441,7 @@ def main() -> int:
     from diffnorm_tpu_torch.ops import flash_attention as flash
     from diffnorm_tpu_torch.ops import fused_layer as fused
     from diffnorm_tpu_torch.ops import wavenet_chain as chain
+    from diffnorm_tpu_torch.ops.quant import HEADLINE_KNOBS
     from diffnorm_tpu_torch.weights import pack_all
 
     # 1. build
@@ -1170,12 +1480,16 @@ def main() -> int:
     with torch.device("cuda"):
         model = LatentDiffusionModule()
         qmodel = LatentDiffusionModule(quant_int8=True)
-    # the int8 model carries the same float32 weights and packs its int8
+        smodel = LatentDiffusionModule(quant_int8=True, int8_route="module",
+                                       int8_knobs=HEADLINE_KNOBS)
+    # the int8 models carry the same float32 weights and pack their int8
     # weights from them before the cast to bf16
-    qmodel.load_state_dict(model.state_dict())
-    pack_all(qmodel)
+    for int8_model in (qmodel, smodel):
+        int8_model.load_state_dict(model.state_dict())
+        pack_all(int8_model)
     model = model.to(torch.bfloat16).eval()
     qmodel = qmodel.to(torch.bfloat16).eval()
+    smodel = smodel.to(torch.bfloat16).eval()
     g = torch.Generator(device="cuda").manual_seed(1)
     inputs = dict(
         feature=torch.randn(B, T, 768, generator=g, device="cuda"),
@@ -1222,6 +1536,10 @@ def main() -> int:
     # 3c. float32 through the float32 kernels
     run_f32_path(torch, ddim_sample, inputs, mods, smi)
 
+    # 3d. JAX's serving headline: int8 module route, static scales
+    run_int8_static(torch, smodel, ddim_sample, inputs, units, smi, mods)
+    del smodel
+
     # 4. the entry point
     run_cli(torch, model, smi)
     del model
@@ -1234,6 +1552,11 @@ def main() -> int:
         torch, "long form", s2st_generate, nar, voc, s2st_inputs(torch, LONG_B, LONG_FRAMES),
         mods, smi, long_form=True)["flash_attention"]
     run_s2st_cli(torch, nar, voc, smi)
+    del nar, voc
+
+    # 8.-9. training of both main-path stages, and through cli.train
+    run_train(torch, mods, smi)
+    run_train_cli(torch, smi)
 
     sources = {
         "rms_norm_film": ("rms_norm_film.cu", "diffnorm_tpu/ops/pallas_norm.py:34"),

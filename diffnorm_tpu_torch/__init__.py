@@ -4,8 +4,11 @@ Mirrors the JAX package's layout (models/, ops/, data/, cli/) and imports
 neither JAX nor anything of `diffnorm_tpu`. The kernels that the JAX package
 wrote in Pallas for the TPU are CUDA C++ sources under `csrc/`, built with
 nvcc on first use (`ops/_build.py`). Ported so far: the DiffNorm DDIM
-normalization path in bf16 and int8 (`models/diffusion.py:ddim_sample`,
-`python -m diffnorm_tpu_torch.cli.diff_norm_synthesis`) and the S2ST serving
+normalization path in bf16 and int8, on the int8 kernel routes and on JAX's
+static-scale module route (`models/diffusion.py:ddim_sample`,
+`python -m diffnorm_tpu_torch.cli.diff_norm_synthesis`), the S2ST serving
 chain for inference (`generate/s2st.py:s2st_generate`,
-`python -m diffnorm_tpu_torch.cli.s2st`).
+`python -m diffnorm_tpu_torch.cli.s2st`), and training of the two main-path
+stages, the speech VAE and the latent normalizer over it
+(`python -m diffnorm_tpu_torch.cli.train`).
 """

@@ -8,6 +8,12 @@ Runs on the GPU in bf16 (the kernels' configuration) unless --cpu is given,
 which runs in float32. `--quant-int8` runs the denoiser's transformer in
 int8 W8A8 on the route `--int8-route` names (default fused_layer; in float32
 on the CPU every route is the int8 module path, as in JAX).
+`--quant-int8 --quant-int8-static` is JAX's DDIM serving headline
+(bench.py:38-49): the int8 module route with per-tensor weight and
+activation scales, int8 WaveNet convs, and static activation scales
+calibrated on the first batch (JAX cli/diff_norm_synthesis.py:203-222).
+`--int8-convcat` and `--int8-quant-bf16` add JAX's DIFFNORM_INT8_CONVCAT
+and DIFFNORM_INT8_QUANT_BF16 switches to the int8 module route.
 
   python -m diffnorm_tpu_torch.cli.diff_norm_synthesis $DATA \\
       --params-npz diffusion.npz --tgt-feat-dir feat/ \\
@@ -20,6 +26,7 @@ on the CPU every route is the int8 module path, as in JAX).
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import json
 import logging
 import os
@@ -37,8 +44,18 @@ from diffnorm_tpu_torch.data.manifest import (
     write_translation_manifest,
 )
 from diffnorm_tpu_torch.device import resolve_device
-from diffnorm_tpu_torch.models.diffusion import LatentDiffusionModule, ddim_sample
+from diffnorm_tpu_torch.models.diffusion import (
+    LatentDiffusionModule,
+    calibrate_act_scales,
+    ddim_sample,
+)
 from diffnorm_tpu_torch.models.layers import INT8_ROUTES
+from diffnorm_tpu_torch.ops.quant import (
+    HEADLINE_KNOBS,
+    Int8Knobs,
+    quant_sites,
+    set_static_scales,
+)
 from diffnorm_tpu_torch.ops.unit_reduce import reduce_units
 from diffnorm_tpu_torch.weights import from_jax_params, load_npz
 
@@ -73,6 +90,16 @@ def parse_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
                    help="with --quant-int8: fused_layer (DIFFNORM_FUSED_BLOCK=1), "
                         "ffpipe (DIFFNORM_FFPIPE=1), ffpipe2 (and DIFFNORM_FFPIPE_ROWS=2) "
                         "or module (the int8 module path)")
+    p.add_argument("--quant-int8-static", action="store_true",
+                   help="with --quant-int8: the int8 module route with per-tensor scales "
+                        "and int8 WaveNet convs, activation scales calibrated on the "
+                        "first batch and then static")
+    p.add_argument("--int8-convcat", action="store_true",
+                   help="int8 module route: a k-tap conv under a per-tensor activation "
+                        "scale as one K = k * C product (DIFFNORM_INT8_CONVCAT=1)")
+    p.add_argument("--int8-quant-bf16", action="store_true",
+                   help="int8 module route on the card: the activation abs-max and divide "
+                        "in bf16 (DIFFNORM_INT8_QUANT_BF16=1)")
     p.add_argument("--hidden-dim", type=int, default=512)
     p.add_argument("--latent-dim", type=int, default=128)
     p.add_argument("--feature-dim", type=int, default=768)
@@ -89,7 +116,21 @@ def parse_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
     return p.parse_args(argv)
 
 
+def int8_config(args: argparse.Namespace) -> Tuple[str, Int8Knobs]:
+    """The int8 route and knobs that the flags select."""
+    if args.quant_int8_static and not args.quant_int8:
+        raise ValueError("--quant-int8-static needs --quant-int8")
+    route = "module" if args.quant_int8_static else args.int8_route
+    knobs = HEADLINE_KNOBS if args.quant_int8_static else Int8Knobs()
+    if (args.int8_convcat or args.int8_quant_bf16) and not (args.quant_int8 and route == "module"):
+        raise ValueError("--int8-convcat and --int8-quant-bf16 apply to the int8 module "
+                         "route: --quant-int8 with --quant-int8-static or --int8-route module")
+    return route, dataclasses.replace(knobs, convcat=args.int8_convcat,
+                                      quant_bf16=args.int8_quant_bf16)
+
+
 def build_model(args: argparse.Namespace, device: torch.device) -> LatentDiffusionModule:
+    route, knobs = int8_config(args)
     with torch.device(device):
         model = LatentDiffusionModule(
             dim=args.hidden_dim, latent_dim=args.latent_dim,
@@ -101,7 +142,7 @@ def build_model(args: argparse.Namespace, device: torch.device) -> LatentDiffusi
             vae_decoder_dim_head=args.vae_decoder_dim_head,
             vae_decoder_heads=args.vae_decoder_heads,
             chan_mults=args.chan_mults, quant_int8=args.quant_int8,
-            int8_route=args.int8_route)
+            int8_route=route, int8_knobs=knobs)
     from_jax_params(model, load_npz(args.params_npz))  # int8 packs from float32
     dtype = torch.float32 if device.type == "cpu" else torch.bfloat16
     return model.to(dtype).eval()
@@ -135,6 +176,15 @@ def normalize_split(model, args, device, generator, split: str) -> None:
         for j, (_, fpath, dedup, keep) in enumerate(chunk):
             feat[j, :len(dedup)] = np.load(fpath)[keep]
             mask[j, :len(dedup)] = True
+        if args.quant_int8_static and not any(
+                site.act_amax is not None for _, site in quant_sites(model)):
+            n_sites = calibrate_act_scales(
+                model, torch.from_numpy(feat).to(device), torch.from_numpy(mask).to(device),
+                start_step=args.start_step,
+                generator=torch.Generator(device=device).manual_seed(5))
+            set_static_scales(model)
+            logger.info("calibrated static int8 activation scales on the first batch "
+                        "(%d sites)", n_sites)
         enc_noise, init_noise = draw_noise(
             generator, (len(chunk), max_len, args.latent_dim), device)
         units, _ = ddim_sample(

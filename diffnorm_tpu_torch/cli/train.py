@@ -1,0 +1,209 @@
+"""Training CLI for the DiffNorm main-path stages (PyTorch port of
+diffnorm_tpu/cli/train.py): the speech VAE (`--task speech_decoder`) and
+the latent normalizer over the frozen VAE (`--task
+speech_diffusion_discrete`). It takes every flag of scripts/vae_train.sh and
+scripts/diffusion_train.sh with the same meaning; a flag it does not
+implement is an error.
+
+  python -m diffnorm_tpu_torch.cli.train $DATA --tgt-feat-dir $FEAT \\
+      --task speech_decoder --target-code-size 1000 \\
+      --criterion speech_vae_decoder_loss --arch speech_vae_decoder \\
+      --latent-dim 128 --dropout 0.1 --save-dir ckpt/vae \\
+      --lr 5e-4 --lr-scheduler inverse_sqrt --warmup-init-lr 1e-7 \\
+      --warmup-updates 10000 --adam-betas "(0.9,0.98)" --clip-norm 2.0 \\
+      --max-update 200000 --max-tokens 15000 --max-target-positions 2048 \\
+      --seed 42 --log-interval 50 --dtype bfloat16
+
+Runs on the GPU unless --cpu is given. Logs `epoch E | step N | ...`
+lines, `valid | ...`, `saved checkpoint at step N`; a re-run with a higher
+--max-update continues from the last checkpoint (`resumed from step N`).
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import logging
+import sys
+import time
+from typing import Dict, Optional, Sequence
+
+import torch
+
+from diffnorm_tpu_torch.data.iterators import EpochBatchIterator, grouped, iterate_valid
+from diffnorm_tpu_torch.device import resolve_device
+from diffnorm_tpu_torch.tasks import TASKS
+from diffnorm_tpu_torch.train.checkpoint import CheckpointManager
+from diffnorm_tpu_torch.train.trainer import Trainer, TrainerConfig, summarize
+from diffnorm_tpu_torch.weights import from_jax_params
+
+logger = logging.getLogger("diffnorm_tpu_torch.train")
+
+STAGES = {  # task: (criterion, arch)
+    "speech_decoder": ("speech_vae_decoder_loss", "speech_vae_decoder"),
+    "speech_diffusion_discrete": ("ddpm_discrete_loss", "diff_discrete"),
+}
+
+
+def _bool(value: str) -> bool:
+    if value.lower() not in ("true", "false", "1", "0"):
+        raise argparse.ArgumentTypeError(f"expected true or false, got {value!r}")
+    return value.lower() in ("true", "1")
+
+
+def _betas(value: str):
+    return tuple(float(b) for b in value.strip("()[] ").split(","))
+
+
+def parse_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
+    p = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    p.add_argument("data", help="directory of the {split}.tsv translation manifests")
+    p.add_argument("--tgt-feat-dir", required=True,
+                   help="directory of the {split}.manifest.tsv feature manifests")
+    p.add_argument("--task", required=True, choices=sorted(STAGES))
+    p.add_argument("--criterion", help="the task's criterion (checked against it)")
+    p.add_argument("--arch", help="the task's architecture (checked against it)")
+    p.add_argument("--target-code-size", type=int, default=1000)
+    p.add_argument("--speech-decoder-ckpt",
+                   help="the VAE stage's checkpoint step directory (the normalizer's frozen VAE)")
+    p.add_argument("--cpu", action="store_true", help="run on the CPU")
+    p.add_argument("--dtype", choices=("float32", "bfloat16"), default="float32",
+                   help="the forward's type; the master parameters are float32")
+    p.add_argument("--prng-impl", help="JAX-only (its PRNG implementation); accepted and "
+                                       "ignored: the port draws from torch.Generators")
+    # model
+    p.add_argument("--feature-dim", type=int, default=768)
+    p.add_argument("--latent-dim", type=int, default=128)
+    p.add_argument("--chan-mults", type=json.loads, default=None,
+                   help='VAE channel multipliers as JSON, e.g. "[3]"')
+    p.add_argument("--vae-decoder-depth", type=int, default=6)
+    p.add_argument("--vae-decoder-dim-head", type=int, default=96)
+    p.add_argument("--vae-decoder-heads", type=int, default=8)
+    p.add_argument("--hidden-dim", type=int, default=512)
+    p.add_argument("--timesteps", type=int, default=200)
+    p.add_argument("--denoiser-depth", type=int, default=12)
+    p.add_argument("--wavenet-layers", type=int, default=8)
+    p.add_argument("--wavenet-stacks", type=int, default=4)
+    p.add_argument("--multitask", type=_bool, default=True)
+    p.add_argument("--dropout", type=float, default=0.1,
+                   help="attention dropout of the transformers in training")
+    # data
+    p.add_argument("--train-subset", default="train")
+    p.add_argument("--valid-subset", default="dev")
+    p.add_argument("--max-tokens", type=int)
+    p.add_argument("--max-target-positions", type=int)
+    # optimization: fairseq Adam
+    p.add_argument("--lr", type=float, default=5e-4)
+    p.add_argument("--lr-scheduler", choices=("inverse_sqrt",), default="inverse_sqrt")
+    p.add_argument("--warmup-updates", type=int, default=4000)
+    p.add_argument("--warmup-init-lr", type=float, default=1e-7)
+    p.add_argument("--adam-betas", type=_betas, default=(0.9, 0.98))
+    p.add_argument("--weight-decay", type=float, default=0.0)
+    p.add_argument("--clip-norm", type=float, default=2.0)
+    p.add_argument("--update-freq", type=int, default=1)
+    p.add_argument("--max-update", type=int, required=True)
+    p.add_argument("--seed", type=int, default=1)
+    # checkpoints and logging
+    p.add_argument("--save-dir", default="checkpoints")
+    p.add_argument("--keep-best-checkpoints", type=int, default=5)
+    p.add_argument("--keep-last-epochs", type=int, default=5)
+    p.add_argument("--best-checkpoint-metric", default="loss")
+    p.add_argument("--validate-interval", type=int, default=1, help="epochs")
+    p.add_argument("--save-interval", type=int, default=1, help="epochs")
+    p.add_argument("--log-interval", type=int, default=100)
+    args = p.parse_args(argv)
+    criterion, arch = STAGES[args.task]
+    for flag, given, want in (("--criterion", args.criterion, criterion),
+                              ("--arch", args.arch, arch)):
+        if given is not None and given != want:
+            p.error(f"{flag} {given}: task {args.task} trains {want}")
+    return args
+
+
+def fmt_metrics(vals: Dict[str, float]) -> str:
+    return " ".join(f"{k} {vals[k]:.4g}" for k in sorted(vals)
+                    if k not in ("ntokens", "nsentences"))
+
+
+def main(argv: Optional[Sequence[str]] = None) -> int:
+    logging.basicConfig(level=logging.INFO, force=True,
+                        format="%(asctime)s | %(levelname)s | %(name)s | %(message)s")
+    args = parse_args(argv)
+    device = resolve_device("cpu" if args.cpu else "cuda")
+    torch.manual_seed(args.seed)  # the model's initialization
+    task = TASKS[args.task](args)
+    with torch.device(device):
+        model = task.build_model()
+    task.load_frozen_params(model)
+    trainer = Trainer(TrainerConfig(
+        lr=args.lr, warmup_updates=args.warmup_updates, warmup_init_lr=args.warmup_init_lr,
+        adam_betas=args.adam_betas, weight_decay=args.weight_decay, clip_norm=args.clip_norm,
+        dtype=args.dtype, seed=args.seed), model, task.build_criterion(),
+        frozen_keys=task.frozen_param_keys)
+    n_params = sum(p.numel() for p in trainer.params)
+    logger.info("model params (trainable): %.2fM on %s, forward in %s", n_params / 1e6,
+                device, args.dtype)
+
+    epoch_itr = EpochBatchIterator(
+        task.dataset(args.train_subset), max_tokens=args.max_tokens, seed=args.seed,
+        max_positions=args.max_target_positions, ignore_invalid_inputs=True)
+    ckpt = CheckpointManager(args.save_dir, keep_last=args.keep_last_epochs,
+                             keep_best=args.keep_best_checkpoints)
+    start_epoch = 1
+    last = ckpt.latest_step()
+    if last is not None:
+        params, state, extra = ckpt.load(last, device)
+        from_jax_params(model, params)
+        trainer.load_state_dict(state)
+        epoch_itr.load_state_dict(extra["iterator"])
+        start_epoch = extra["epoch"]
+        logger.info("resumed from step %d (epoch %d)", last, start_epoch)
+
+    def run_validation() -> Optional[float]:
+        try:
+            dataset = task.dataset(args.valid_subset)
+        except FileNotFoundError as e:
+            logger.warning("validation skipped: %s", e)
+            return None
+        generator = torch.Generator(device=device).manual_seed(0)
+        rows = [trainer.valid_step(batch, generator)
+                for batch in iterate_valid(dataset, args.max_tokens, args.max_target_positions)]
+        vals = summarize(rows) if rows else {}
+        logger.info("valid | %s", fmt_metrics(vals))
+        return vals.get(args.best_checkpoint_metric)
+
+    def save(epoch: int, metric: Optional[float]) -> None:
+        ckpt.save(trainer.num_updates, model, trainer.state_dict(), metric,
+                  {"epoch": epoch, "iterator": epoch_itr.state_dict()})
+        logger.info("saved checkpoint at step %d (metric=%s)", trainer.num_updates, metric)
+
+    step, done = trainer.num_updates, False
+    epoch = start_epoch
+    while not done:
+        interval, t0, first = [], time.time(), step
+        for micro in grouped(epoch_itr.next_epoch_itr(), args.update_freq):
+            mets = trainer.train_step(micro)
+            step = trainer.num_updates
+            interval.append(mets)
+            if step % args.log_interval == 0:
+                ups = args.log_interval / max(time.time() - t0, 1e-6)
+                logger.info("epoch %d | step %d | %s | ups %.2f", epoch, step,
+                            fmt_metrics(summarize(interval)), ups)
+                interval, t0 = [], time.time()
+            if step >= args.max_update:
+                done = True
+                break
+        if step == first:
+            raise ValueError(f"epoch {epoch} has no training batch: check "
+                             f"--max-tokens and --max-target-positions")
+        epoch_itr.finish_epoch()
+        metric = run_validation() if epoch % args.validate_interval == 0 or done else None
+        if epoch % args.save_interval == 0 or done:
+            save(epoch + 1, metric)
+        epoch += 1
+    logger.info("training done at step %d", step)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

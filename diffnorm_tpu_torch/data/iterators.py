@@ -1,0 +1,90 @@
+"""Epoch batch iteration with a resumable position (the port's copy of the
+parts of diffnorm_tpu/data/iterators.py the training CLI uses): batches by
+size, shuffled per epoch from (seed, epoch), resumed from a saved offset,
+grouped into update_freq micro-batches. Batches load on the calling thread."""
+
+from __future__ import annotations
+
+import logging
+from typing import Any, Dict, Iterator, List, Optional
+
+import numpy as np
+
+from diffnorm_tpu_torch.data.batching import batch_by_size
+
+logger = logging.getLogger("diffnorm_tpu_torch.data")
+
+
+def grouped(iterable, chunk_size: int) -> Iterator[List]:
+    """Lists of `chunk_size` items (the last may be shorter)."""
+    chunk = []
+    for item in iterable:
+        chunk.append(item)
+        if len(chunk) == chunk_size:
+            yield chunk
+            chunk = []
+    if chunk:
+        yield chunk
+
+
+class EpochBatchIterator:
+    """dataset: __len__, __getitem__, collater, ordered_indices, num_tokens.
+    `max_positions` drops samples longer than it (with a warning where
+    `ignore_invalid_inputs`, else raises), as fairseq's filter_by_size."""
+
+    def __init__(self, dataset, max_tokens: Optional[int] = None, seed: int = 1,
+                 shuffle: bool = True, max_positions: Optional[int] = None,
+                 ignore_invalid_inputs: bool = False):
+        self.dataset, self.max_tokens, self.seed, self.shuffle = dataset, max_tokens, seed, shuffle
+        self.max_positions, self.ignore_invalid_inputs = max_positions, ignore_invalid_inputs
+        self.epoch, self.offset = 1, 0
+        self._batches: Optional[List[np.ndarray]] = None
+
+    def _make_batches(self, epoch: int) -> List[np.ndarray]:
+        indices = self.dataset.ordered_indices()
+        sizes = np.asarray([self.dataset.num_tokens(i) for i in range(len(self.dataset))])
+        if self.max_positions is not None:
+            keep = sizes[indices] <= self.max_positions
+            bad = indices[~keep].tolist()
+            if bad and not self.ignore_invalid_inputs:
+                raise ValueError(f"Size of sample #{bad[0]} is invalid (={sizes[bad[0]]}) "
+                                 f"since max_positions={self.max_positions}")
+            if bad:
+                logger.warning("%d samples have invalid sizes and will be skipped, "
+                               "max_positions=%s, first few sample ids=%s",
+                               len(bad), self.max_positions, bad[:10])
+                indices = indices[keep]
+        batches = batch_by_size(indices, sizes, self.max_tokens)
+        if self.shuffle:
+            order = np.random.default_rng((self.seed, epoch)).permutation(len(batches))
+            batches = [batches[i] for i in order]
+        return batches
+
+    def next_epoch_itr(self) -> Iterator[Dict[str, np.ndarray]]:
+        """This epoch's batches from the saved offset on; `self.offset`
+        counts the batches handed out."""
+        self._batches = self._make_batches(self.epoch)
+        while self.offset < len(self._batches):
+            idxs = self._batches[self.offset]
+            self.offset += 1
+            yield self.dataset.collater([self.dataset[int(i)] for i in idxs])
+
+    def finish_epoch(self) -> None:
+        self.epoch += 1
+        self.offset = 0
+        self._batches = None
+
+    def state_dict(self) -> Dict[str, Any]:
+        return {"epoch": self.epoch, "offset": self.offset, "seed": self.seed}
+
+    def load_state_dict(self, state: Dict[str, Any]) -> None:
+        self.epoch, self.offset = state.get("epoch", 1), state.get("offset", 0)
+        self._batches = None
+
+
+def iterate_valid(dataset, max_tokens: Optional[int] = None,
+                  max_positions: Optional[int] = None) -> Iterator[Dict[str, np.ndarray]]:
+    """A validation pass, unshuffled; an over-long sample raises, as
+    fairseq's valid iterator does without --skip-invalid-size-inputs-valid-test."""
+    return EpochBatchIterator(dataset, max_tokens, shuffle=False,
+                              max_positions=max_positions).next_epoch_itr()

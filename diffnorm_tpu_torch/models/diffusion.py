@@ -3,17 +3,19 @@
 Counterpart of diffnorm_tpu/models/diffusion.py for the DiffNorm
 normalization path: `DDPMSchedule`, the `Denoiser` (1x1 latent -> dim,
 FiLM-time WaveNet, sinusoidal positions, adaptive-RMSNorm transformer, proj
-back), `LatentDiffusionModule` and `ddim_sample`.
+back), `LatentDiffusionModule` with its training forward, `ddim_sample` and
+`calibrate_act_scales`.
 
 `quant_int8` / `int8_route` select JAX's int8 W8A8 sampling configuration
 for the transformer (see `ConditionableTransformer`): route "fused_layer"
 is DIFFNORM_FUSED_BLOCK=1, "ffpipe" / "ffpipe2" DIFFNORM_FFPIPE=1 (rows 1 /
-2), "module" the int8 module path. The WaveNet runs its `wavenet_chain`
-kernel in the model's dtype whatever `quant_int8` says, as JAX's kernel
-route does (DIFFNORM_PALLAS_WAVENET=1). Not ported yet: the JAX module
-route's int8 WaveNet convs, static activation scales
-(`calibrate_act_scales`), the prompt-conditioned denoiser (`use_cond`,
-PerceiverResampler) and the training forward.
+2), "module" the int8 module path; `int8_knobs` are JAX's int8 environment
+switches. The WaveNet runs its `wavenet_chain` kernel in the model's dtype
+(JAX's DIFFNORM_PALLAS_WAVENET=1), except in an int8 model on route
+"module", whose WaveNet convs are int8 modules as on JAX's default module
+route (the DDIM serving headline, with static scales from
+`calibrate_act_scales`). Not ported: the prompt-conditioned denoiser
+(`use_cond`, PerceiverResampler).
 """
 
 from __future__ import annotations
@@ -36,6 +38,7 @@ from diffnorm_tpu_torch.models.layers import (
 )
 from diffnorm_tpu_torch.models.vae import SpeechVAEModule
 from diffnorm_tpu_torch.models.wavenet import Wavenet
+from diffnorm_tpu_torch.ops.quant import Int8Knobs, calibrating, quant_sites
 
 
 def cosine_betas(num_steps: int, max_beta: float = 0.999) -> np.ndarray:
@@ -74,6 +77,17 @@ class DDPMSchedule:
         return torch.as_tensor(getattr(self, name), dtype=torch.float32,
                                device=device)
 
+    def extract(self, name: str, t: torch.Tensor, ndim: int) -> torch.Tensor:
+        """table[t] for integer times t [B], as float32 [B, 1, ...] of `ndim`
+        dims (diffusion.py:extract)."""
+        vals = self.table(name, t.device)[t.long()]
+        return vals.reshape(vals.shape + (1,) * (ndim - 1))
+
+    def snr(self, t: torch.Tensor) -> torch.Tensor:
+        """alpha_bar / (1 - alpha_bar) at integer times t [B], float32."""
+        ac = self.table("alphas_cumprod", t.device)[t.long()]
+        return ac / (1.0 - ac)
+
 
 def safe_div(num, den, eps: float = 1e-10):
     return num / torch.clamp(den, min=eps)
@@ -103,7 +117,8 @@ class Denoiser(nn.Module):
 
     def __init__(self, dim: int = 512, latent_dim: int = 128, depth: int = 12,
                  wavenet_layers: int = 8, wavenet_stacks: int = 4,
-                 quant_int8: bool = False, int8_route: str = "fused_layer"):
+                 quant_int8: bool = False, int8_route: str = "fused_layer",
+                 int8_knobs: Int8Knobs = Int8Knobs(), dropout: float = 0.0):
         super().__init__()
         self.dim = dim
         dim_time = dim * 4  # the time condition (dim_cond_mult 4)
@@ -111,10 +126,12 @@ class Denoiser(nn.Module):
         self.time_proj = Dense(dim + 1, dim_time)
         self.init_conv = Dense(latent_dim, dim)
         self.wavenet = Wavenet(dim, dim, wavenet_stacks, wavenet_layers,
-                               cond_dim=dim_time)
+                               cond_dim=dim_time, quant=quant_int8, knobs=int8_knobs,
+                               chain_kernel=not (quant_int8 and int8_route == "module"))
         self.transformer = ConditionableTransformer(
             dim, depth, dim_head=64, heads=8, ff_mult=4, ff_causal_conv=True,
-            cond_dim=dim_time, quant_int8=quant_int8, int8_route=int8_route)
+            cond_dim=dim_time, quant_int8=quant_int8, int8_route=int8_route,
+            int8_knobs=int8_knobs, dropout=dropout)
         self.final_proj = Dense(dim, latent_dim)
 
     def time_cond(self, times: torch.Tensor) -> torch.Tensor:
@@ -154,8 +171,11 @@ class Denoiser(nn.Module):
 class LatentDiffusionModule(nn.Module):
     """Frozen speech VAE + latent denoiser (released `diff_discrete` shape by
     default: hidden 512, latent 128, 768-d features, 1004-unit vocab, T=200
-    cosine schedule). `quant_int8` and `int8_route` go to the denoiser's
-    transformer."""
+    cosine schedule, min-SNR gamma 5, multitask). `quant_int8`,
+    `int8_route` and `int8_knobs` go to the denoiser; `dropout` is the
+    denoiser's attention dropout in a training forward. The frozen VAE is
+    built without dropout: JAX decodes x1_hat through it deterministically
+    (`vae.decode`'s `deterministic=True`) in train mode too."""
 
     def __init__(self, dim: int = 512, latent_dim: int = 128,
                  feature_dim: int = 768, vocab_size: int = 1004,
@@ -163,15 +183,19 @@ class LatentDiffusionModule(nn.Module):
                  wavenet_stacks: int = 4, vae_decoder_depth: int = 6,
                  vae_decoder_dim_head: int = 96, vae_decoder_heads: int = 8,
                  chan_mults: Optional[Sequence[int]] = None, quant_int8: bool = False,
-                 int8_route: str = "fused_layer"):
+                 int8_route: str = "fused_layer", int8_knobs: Int8Knobs = Int8Knobs(),
+                 min_snr_gamma: float = 5.0,
+                 multitask: bool = True, dropout: float = 0.0):
         super().__init__()
         self.vae = SpeechVAEModule(
             feature_dim, latent_dim, vocab_size, vae_decoder_depth,
             vae_decoder_dim_head, vae_decoder_heads, chan_mults)
         self.denoiser = Denoiser(
             dim, latent_dim, denoiser_depth, wavenet_layers=wavenet_layers,
-            wavenet_stacks=wavenet_stacks, quant_int8=quant_int8, int8_route=int8_route)
+            wavenet_stacks=wavenet_stacks, quant_int8=quant_int8, int8_route=int8_route,
+            int8_knobs=int8_knobs, dropout=dropout)
         self.schedule = DDPMSchedule.create(timesteps)
+        self.timesteps, self.min_snr_gamma, self.multitask = timesteps, min_snr_gamma, multitask
 
     def encode(self, feature, noise=None, generator=None):
         return self.vae.encode(feature, noise=noise, generator=generator)
@@ -188,6 +212,73 @@ class LatentDiffusionModule(nn.Module):
     def precompute_pos(self, mask):
         """Loop-invariant sinusoidal positions for the denoiser."""
         return sinusoidal_positions(mask, self.denoiser.dim)
+
+    def forward(self, feature, mask, times=None, enc_noise=None, x1_noise=None,
+                q_noise=None, generator: Optional[torch.Generator] = None) -> dict:
+        """Training forward (diffusion.py:413-467): t ~ U[1, T), the frozen
+        VAE's encode under no_grad, the beta_0 jitter x1 = z + eps * beta_0,
+        q-sample, the denoiser's noise prediction, the min-SNR weights
+        min(snr, gamma) / snr, and x1_hat decoded through the VAE.
+
+        feature [B, T, feature_dim]; mask [B, T] bool. `times`, `enc_noise`,
+        `x1_noise` and `q_noise` inject the draws (JAX's keyword names);
+        those not given are drawn from `generator`, in that order. Returns
+        {pred_noise, true_noise, loss_weight, times, recon_feature,
+        lm_logits}."""
+        b, device = feature.shape[0], feature.device
+        if times is None:
+            times = torch.randint(1, self.timesteps, (b,), generator=generator,
+                                  device=device)
+        times = torch.as_tensor(times, device=device).long()
+        with torch.no_grad():
+            z = self.encode(feature, noise=enc_noise, generator=generator)
+
+        def draw(injected):  # an injected draw keeps its type, as in JAX
+            if injected is None:
+                return torch.randn(z.shape, generator=generator, device=device, dtype=z.dtype)
+            return torch.as_tensor(injected, device=device)
+
+        x1 = z + draw(x1_noise) * float(self.schedule.betas[0])
+        true_noise = draw(q_noise)
+        sac = self.schedule.extract("sqrt_alphas_cumprod", times, z.dim())
+        s1mac = self.schedule.extract("sqrt_one_minus_alphas_cumprod", times, z.dim())
+        x_t = sac * x1 + s1mac * true_noise
+        pred_noise = self.denoise(x_t, times, mask)
+        snr = self.schedule.snr(times)
+        x1_hat = safe_div(x_t - s1mac * pred_noise, sac)
+        recon_feature, lm_logits = self.vae.decode(x1_hat, mask)
+        return dict(pred_noise=pred_noise, true_noise=true_noise,
+                    loss_weight=torch.clamp(snr, max=self.min_snr_gamma) / snr,
+                    times=times, recon_feature=recon_feature, lm_logits=lm_logits)
+
+
+@torch.no_grad()
+def calibrate_act_scales(model: LatentDiffusionModule, feature, mask, *,
+                         start_step: int = 50, n_points: int = 6, enc_noise=None,
+                         noise=None, generator: Optional[torch.Generator] = None) -> int:
+    """Record every int8 site's activation amax over representative denoise
+    steps (diffusion.py:469-512): encode `feature`, q-sample at the times
+    unique(linspace(1, start_step - 1, n_points)) from the highest down with
+    one shared `noise`, and keep each site's running max across the points.
+    `enc_noise` and `noise` inject the VAE posterior eps and the q-sample
+    noise; otherwise they are drawn from `generator`. The sites keep their
+    mode: turn static scales on with `ops.quant.set_static_scales`. Returns
+    the number of sites that hold an amax (0 for a model without int8)."""
+    device = next(model.parameters()).device
+    feature = torch.as_tensor(feature, device=device)
+    mask = torch.as_tensor(mask, device=device, dtype=torch.bool)
+    z = model.encode(feature, noise=enc_noise, generator=generator)
+    if noise is None:
+        noise = torch.randn(z.shape, generator=generator, device=device, dtype=z.dtype)
+    noise = torch.as_tensor(noise, device=device).to(z.dtype)
+    ts = np.unique(np.linspace(1, start_step - 1, n_points).astype(np.int32))
+    with calibrating(model):
+        for t_int in ts[::-1]:
+            t = torch.full((z.shape[0],), int(t_int), dtype=torch.int32, device=device)
+            x = (model.schedule.extract("sqrt_alphas_cumprod", t, z.dim()) * z
+                 + model.schedule.extract("sqrt_one_minus_alphas_cumprod", t, z.dim()) * noise)
+            model.denoise(x, t, mask)
+    return sum(site.act_amax is not None for _, site in quant_sites(model))
 
 
 @torch.no_grad()

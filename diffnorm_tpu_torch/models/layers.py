@@ -11,6 +11,9 @@ initialisers follow flax's (lecun-normal kernels, zero biases).
 path (ops/quant.py): int8 weight codes and float32 scales are packed from the
 float32 parameters into `Int8Pack`s, which `.to(dtype)` moves but never
 casts, so they are built before the model is cast to bf16 and survive it.
+`knobs` (an `ops.quant.Int8Knobs`) carries JAX's int8 environment switches;
+each int8 `Dense`, `CausalConv1d` and self-attention is one activation site
+(`ops.quant.QuantSite`) that can hold a calibrated static scale.
 
 Float packs (`FeedForward`'s padded copies, the WaveNet chains) are cached
 buffers for inference, rebuilt when a parameter they copy has changed in
@@ -33,6 +36,7 @@ from diffnorm_tpu_torch.ops import ffpipe as ffpipe_ops
 from diffnorm_tpu_torch.ops import fused_layer as fused_ops
 from diffnorm_tpu_torch.ops import norm as norm_ops
 from diffnorm_tpu_torch.ops import quant as quant_ops
+from diffnorm_tpu_torch.ops.quant import Int8Knobs, QuantSite
 
 # ConditionableTransformer's int8 routes: JAX's DIFFNORM_FUSED_BLOCK=1,
 # DIFFNORM_FFPIPE=1, DIFFNORM_FFPIPE=1 with DIFFNORM_FFPIPE_ROWS=2, and
@@ -107,20 +111,22 @@ class Int8Pack(nn.Module):
         return dict(self._buffers)
 
 
-class Dense(nn.Linear):
+class Dense(QuantSite, nn.Linear):
     """flax nn.Dense, or QDense with `quant=True`: the input is cast to the
     weight's dtype. `weight` is [out, in], the transpose of the flax kernel.
 
     With `quant` the product is int8 W8A8 (diffnorm_tpu/models/layers.py
-    QDense): per-channel int8 codes packed from the float32 weight
-    (`pack_weights`), per-token activation codes (or `pre_quant`, shared
-    between products of one input), exact int32 sums and JAX's bf16 dequant
+    QDense): int8 codes packed from the float32 weight per channel (per
+    tensor with `knobs.wscalar`) by `pack_weights`, the input quantized at
+    this site (or `pre_quant`, shared between products of one input, which
+    bypasses the site as in JAX), exact int32 sums and JAX's dequant
     epilogue; the bias is added in the output dtype."""
 
     def __init__(self, in_features: int, out_features: int, bias: bool = True,
-                 quant: bool = False):
-        self.quant = quant
+                 quant: bool = False, knobs: Int8Knobs = Int8Knobs()):
+        self.quant, self.knobs = quant, knobs
         super().__init__(in_features, out_features, bias)
+        self._init_site()
         self.pack_weights()
 
     def reset_parameters(self) -> None:
@@ -131,14 +137,17 @@ class Dense(nn.Linear):
     @torch.no_grad()
     def pack_weights(self) -> None:
         if self.quant:
-            wq, ws = quant_ops.quantize_weight(_master(self.weight))
+            wq, ws = quant_ops.quantize_weight(_master(self.weight), self.knobs.granularity)
             self.int8 = Int8Pack({"wq": wq, "ws": ws})
 
     def forward(self, x: torch.Tensor, pre_quant=None) -> torch.Tensor:
         x = x.to(self.weight.dtype)
         if not self.quant:
             return F.linear(x, self.weight, self.bias)
-        y = quant_ops.int8_matmul(x, self.int8.wq, self.int8.ws, pre_quant=pre_quant)
+        if pre_quant is None:
+            pre_quant = self.quantize_input(x)
+        y = quant_ops.int8_matmul(x, self.int8.wq, self.int8.ws, pre_quant=pre_quant,
+                                  bf16_epilogue=self.knobs.deq_bf16)
         return y if self.bias is None else y + self.bias.to(y.dtype)
 
 
@@ -160,45 +169,66 @@ def causal_taps(x: torch.Tensor, taps: torch.Tensor, dilation: int) -> torch.Ten
     return out
 
 
-class CausalConv1d(nn.Module):
+def _shifted(x: torch.Tensor, shift: int) -> torch.Tensor:
+    """x[:, t - shift] with zeros before t = 0 ([B, T, C]; shift < T)."""
+    return x if shift == 0 else F.pad(x[:, :-shift], (0, 0, shift, 0))
+
+
+class CausalConv1d(QuantSite, nn.Module):
     """Left-padded dilated conv over [B, T, C] (pad = dilation * (k - 1)).
 
     `weight` is torch's conv layout [out, in, k]: weight[:, :, i] is the flax
     kernel[i] transposed, with no flip (see `causal_taps`).
 
     With `quant` the taps are int8 W8A8 as in the JAX module
-    (diffnorm_tpu/models/layers.py:160-248): the input is quantized once per
-    token and the shifted taps reuse its codes; one per-out-channel weight
-    scale over [k, in] is shared by the taps; each tap's int32 sum is scaled
-    by its shifted token scale and the taps sum in the compute dtype. Unlike
-    QDense, JAX quantizes the kernel after casting it to the compute dtype,
-    so this one quantizes its weight as it is at each call (ROADMAP Queue 3)."""
+    (diffnorm_tpu/models/layers.py:160-248): the input is quantized once at
+    this site and the shifted taps reuse its codes; one weight scale per
+    output channel over [k, in] (per tensor with `knobs.wscalar`) is shared
+    by the taps. With a per-token activation scale each tap's int32 sum is
+    scaled by its shifted token scale and the taps sum in the compute dtype
+    (a per-tensor weight scale folds into the token scale first); with one
+    per-tensor activation scale (`knobs.ascalar` or a static scale) the taps
+    sum in int32 and dequantize once, and `knobs.convcat` makes the k taps
+    one K = k * in product. Unlike QDense, JAX quantizes the kernel after
+    casting it to the compute dtype, so this one quantizes its weight as it
+    is at each call."""
 
     def __init__(self, in_dim: int, out_dim: int, kernel_size: int = 3,
-                 dilation: int = 1, quant: bool = False):
+                 dilation: int = 1, quant: bool = False,
+                 knobs: Int8Knobs = Int8Knobs()):
         super().__init__()
-        self.dilation, self.quant = dilation, quant
+        self.dilation, self.quant, self.knobs = dilation, quant, knobs
         self.weight = nn.Parameter(_lecun_normal_(
             torch.empty(out_dim, in_dim, kernel_size), in_dim * kernel_size))
         self.bias = nn.Parameter(torch.zeros(out_dim))
+        self._init_site()
 
     def _forward_int8(self, x: torch.Tensor) -> torch.Tensor:
-        xq, ax = quant_ops.quantize_act(x)
+        knobs, dtype = self.knobs, x.dtype
+        xq, ax = self.quantize_input(x)
         w = self.weight.detach()  # one scale per output channel over [in, k]
-        wq, ws = quant_ops.quantize_weight(w.reshape(w.shape[0], -1))
-        wq, ws = wq.reshape(w.shape).permute(2, 0, 1).contiguous(), ws.reshape(-1)
+        wq, ws = quant_ops.quantize_weight(w.reshape(w.shape[0], -1), knobs.granularity)
+        wq, ws = wq.reshape(w.shape).permute(2, 0, 1).contiguous(), ws.reshape(1, -1)
+        if ws.numel() == 1 and ax.numel() > 1:
+            ax, ws = ax.float() * ws.reshape(()), None  # folds into the token scale
         k, (b, t_len, _) = wq.shape[0], x.shape
+        shifts = [(k - 1 - i) * self.dilation for i in range(k)]
+        if ax.numel() == 1 and knobs.convcat and k > 1:
+            taps = [torch.zeros_like(xq) if s >= t_len else _shifted(xq, s) for s in shifts]
+            w_cat = wq.permute(1, 0, 2).reshape(wq.shape[1], -1)  # [out, k * in]
+            acc = quant_ops.int_mm(torch.cat(taps, dim=-1).reshape(b * t_len, -1), w_cat)
+            return quant_ops.dequant(acc.reshape(b, t_len, -1), ax, ws, dtype, knobs.deq_bf16)
         out = None
-        for i in range(k):
-            shift = (k - 1 - i) * self.dilation
+        for i, shift in enumerate(shifts):
             if shift >= t_len and shift > 0:
                 continue  # the whole tap falls before the sequence
-            xi = xq if shift == 0 else F.pad(xq[:, :-shift], (0, 0, shift, 0))
-            ai = ax if shift == 0 else F.pad(ax[:, :-shift], (0, 0, shift, 0))
-            acc = quant_ops.int_mm(xi.reshape(b * t_len, -1), wq[i]).reshape(b, t_len, -1)
-            term = acc.to(x.dtype) * ai.to(x.dtype)
+            acc = quant_ops.int_mm(_shifted(xq, shift).reshape(b * t_len, -1),
+                                   wq[i]).reshape(b, t_len, -1)
+            term = acc if ax.numel() == 1 else acc.to(dtype) * _shifted(ax, shift).to(dtype)
             out = term if out is None else out + term
-        return out * ws.to(x.dtype)
+        if ax.numel() == 1:
+            return quant_ops.dequant(out, ax, ws, dtype, knobs.deq_bf16)
+        return out if ws is None else out * ws.to(dtype)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         x = x.to(self.weight.dtype)
@@ -212,8 +242,9 @@ class RMSNorm(nn.Module):
     """l2norm * sqrt(dim) * gamma, or FiLM-conditioned (no gamma; (gamma,
     beta) from `to_gamma_beta(cond)`, or precomputed as `film`).
 
-    A FiLM norm of a 3-D CUDA tensor with `film` given runs the fused kernel
-    (ops/norm.py); everything else is the plain module math."""
+    A FiLM norm of a 3-D CUDA tensor runs the fused kernel (ops/norm.py),
+    with `film` given or projected here from `cond` (a training forward);
+    everything else is the plain module math."""
 
     def __init__(self, dim: int, scale: bool = True,
                  cond_dim: Optional[int] = None):
@@ -229,8 +260,8 @@ class RMSNorm(nn.Module):
 
     def forward(self, x, cond=None, film=None):
         if (self.to_gamma_beta is not None and self.gamma is None
-                and film is not None and x.dim() == 3 and x.is_cuda):
-            return norm_ops.rms_norm_film(x, film)
+                and x.dim() == 3 and x.is_cuda):
+            return norm_ops.rms_norm_film(x, film if film is not None else self.film(cond))
         out = l2norm(x) * math.sqrt(self.dim)
         if self.gamma is not None:
             out = out * self.gamma.to(x.dtype)
@@ -262,19 +293,20 @@ class FeedForward(nn.Module):
     are rebuilt when a parameter changed in place (module docstring).
 
     With `quant` it is JAX's int8 module path instead (QDense proj_in, GEGLU,
-    int8 conv, QDense proj_out, unpadded), and `pack_weights` also packs the
-    int8 weights of the fused kernels (`ops.ffpipe.pack_ff_weights`, inner
-    width padded to a multiple of 128) into `self.int8`."""
+    int8 conv, QDense proj_out, unpadded, under `knobs`), and `pack_weights`
+    also packs the int8 weights of the fused kernels
+    (`ops.ffpipe.pack_ff_weights`, inner width padded to a multiple of 128)
+    into `self.int8`."""
 
     def __init__(self, dim: int, mult: int = 4, causal_conv: bool = False,
-                 quant: bool = False):
+                 quant: bool = False, knobs: Int8Knobs = Int8Knobs()):
         super().__init__()
         self.inner = int(dim * mult * 2 / 3)
-        self.quant = quant
-        self.proj_in = Dense(dim, self.inner * 2, quant=quant)
-        self.conv = (CausalConv1d(self.inner, self.inner, 3, quant=quant)
+        self.quant, self.knobs = quant, knobs
+        self.proj_in = Dense(dim, self.inner * 2, quant=quant, knobs=knobs)
+        self.conv = (CausalConv1d(self.inner, self.inner, 3, quant=quant, knobs=knobs)
                      if causal_conv else None)
-        self.proj_out = Dense(self.inner, dim, quant=quant)
+        self.proj_out = Dense(self.inner, dim, quant=quant, knobs=knobs)
         self.pack_weights()
         self.register_load_state_dict_post_hook(repack_after_load)
 
@@ -306,7 +338,8 @@ class FeedForward(nn.Module):
                 self.int8 = Int8Pack(ffpipe_ops.pack_ff_weights(
                     _master(self.proj_in.weight), self.proj_in.bias,
                     _master(self.conv.weight), self.conv.bias,
-                    _master(self.proj_out.weight), self.proj_out.bias))
+                    _master(self.proj_out.weight), self.proj_out.bias,
+                    self.knobs.granularity))
             return
         for name, tensor in self._float_packs().items():
             self.register_buffer(name, tensor, persistent=False)
@@ -334,23 +367,30 @@ class FeedForward(nn.Module):
         return F.linear(h, w["w_out"], self.proj_out.bias)
 
 
-class Attention(nn.Module):
+class Attention(QuantSite, nn.Module):
     """Multi-head self-attention with a key-padding mask [B, T] (True =
     valid); unbiased q / kv / out projections, scale dim_head ** -0.5.
 
     With `quant` the projections are int8 QDense, and q and kv share one
-    per-token quantization of their common input, as in JAX
+    quantization of their common input at this module's site, as in JAX
     (diffnorm_tpu/models/layers.py:337-348); `pack_weights` also keeps the
-    bf16 [Wq; Wkv] and Wo of the fused layer kernel in `self.fused`."""
+    bf16 [Wq; Wkv] and Wo of the fused layer kernel in `self.fused`.
+
+    `dropout` drops attention probabilities in training mode (JAX's
+    `deterministic=False`), drawn from `self.generator`, which the trainer
+    sets (`set_dropout_generator`)."""
 
     def __init__(self, dim: int, dim_head: int = 64, heads: int = 8,
-                 quant: bool = False):
+                 quant: bool = False, knobs: Int8Knobs = Int8Knobs(),
+                 dropout: float = 0.0):
         super().__init__()
-        self.heads, self.dim_head, self.quant = heads, dim_head, quant
+        self.heads, self.dim_head, self.quant, self.knobs = heads, dim_head, quant, knobs
+        self.dropout, self.generator = dropout, None
         inner = heads * dim_head
-        self.to_q = Dense(dim, inner, bias=False, quant=quant)
-        self.to_kv = Dense(dim, 2 * inner, bias=False, quant=quant)
-        self.to_out = Dense(inner, dim, bias=False, quant=quant)
+        self.to_q = Dense(dim, inner, bias=False, quant=quant, knobs=knobs)
+        self.to_kv = Dense(dim, 2 * inner, bias=False, quant=quant, knobs=knobs)
+        self.to_out = Dense(inner, dim, bias=False, quant=quant, knobs=knobs)
+        self._init_site()
         self.pack_weights()
 
     @torch.no_grad()
@@ -363,13 +403,14 @@ class Attention(nn.Module):
     def forward(self, x: torch.Tensor,
                 mask: Optional[torch.Tensor] = None) -> torch.Tensor:
         b, n, _ = x.shape
-        pq = (quant_ops.quantize_act(x.to(self.to_q.weight.dtype))
-              if self.quant else None)
+        pq = self.quantize_input(x.to(self.to_q.weight.dtype)) if self.quant else None
         q = self.to_q(x, pre_quant=pq)
         k, v = self.to_kv(x, pre_quant=pq).chunk(2, dim=-1)
         q, k, v = (t.reshape(b, n, self.heads, self.dim_head).transpose(1, 2)
                    for t in (q, k, v))
-        out = attention_ops.masked_attention(q, k, v, mask=mask)
+        drop = self.dropout if self.training else 0.0
+        out = attention_ops.masked_attention(q, k, v, mask=mask, dropout=drop,
+                                             generator=self.generator)
         return self.to_out(out.transpose(1, 2).reshape(b, n, -1))
 
 
@@ -421,12 +462,16 @@ class ConditionableTransformer(nn.Module):
       "module"       the int8 module path throughout.
     A kernel route is taken only where JAX takes it: bf16 weights, `film`
     precomputed, a causal-conv FF, and heads * dim_head == dim for
-    "fused_layer"; any other call takes the module path."""
+    "fused_layer"; any other call takes the module path. `int8_knobs` are
+    JAX's int8 switches for the module path (the kernel packs take their
+    weight granularity). `dropout` is the attention dropout of a training
+    forward (JAX's ConditionableTransformer.dropout)."""
 
     def __init__(self, dim: int, depth: int, dim_head: int = 64, heads: int = 8,
                  ff_mult: int = 4, ff_causal_conv: bool = False,
                  cond_dim: Optional[int] = None, quant_int8: bool = False,
-                 int8_route: str = "fused_layer"):
+                 int8_route: str = "fused_layer", int8_knobs: Int8Knobs = Int8Knobs(),
+                 dropout: float = 0.0):
         super().__init__()
         if int8_route not in INT8_ROUTES:
             raise ValueError(f"int8_route must be one of {INT8_ROUTES}, got {int8_route!r}")
@@ -437,11 +482,12 @@ class ConditionableTransformer(nn.Module):
         for i in range(depth):
             self.add_module(f"attn_norm_{i}",
                             RMSNorm(dim, scale=not has_cond, cond_dim=cond_dim))
-            self.add_module(f"attn_{i}", Attention(dim, dim_head, heads, quant=quant_int8))
+            self.add_module(f"attn_{i}", Attention(dim, dim_head, heads, quant=quant_int8,
+                                                   knobs=int8_knobs, dropout=dropout))
             self.add_module(f"ff_norm_{i}",
                             RMSNorm(dim, scale=not has_cond, cond_dim=cond_dim))
             self.add_module(f"ff_{i}", FeedForward(dim, ff_mult, ff_causal_conv,
-                                                   quant=quant_int8))
+                                                   quant=quant_int8, knobs=int8_knobs))
         self.final_norm = RMSNorm(dim)
         self.to_pred = Dense(dim, dim, bias=False)
 
@@ -487,3 +533,10 @@ class ConditionableTransformer(nn.Module):
                 x, cond=cond, film=film["ff"][i] if film else None)
             x = x + self.layer("ff", i)(hn)
         return self.to_pred(self.final_norm(x))
+
+
+def set_dropout_generator(model: nn.Module, generator: Optional[torch.Generator]) -> None:
+    """The generator every attention dropout of `model` draws from."""
+    for m in model.modules():
+        if isinstance(m, Attention):
+            m.generator = generator

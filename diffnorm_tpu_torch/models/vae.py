@@ -1,8 +1,8 @@
 """Speech VAE: WaveNet down-stack -> diagonal Gaussian latent -> WaveNet
 up-stack -> Transformer decoder -> unit LM head.
 
-Counterpart of diffnorm_tpu/models/vae.py (encode and decode; the training
-forward and its KL are not ported yet). Channel multipliers per latent size:
+Counterpart of diffnorm_tpu/models/vae.py: encode, decode and the training
+forward with its masked KL. Channel multipliers per latent size:
 16 -> [4, 3, 2], 32 -> [4, 3], 128 -> [3].
 """
 
@@ -35,11 +35,24 @@ def gaussian_sample(params2c: torch.Tensor, noise: Optional[torch.Tensor] = None
     return mean + std * eps, mean, logvar
 
 
+def gaussian_kl_masked(mean: torch.Tensor, logvar: torch.Tensor,
+                       mask: torch.Tensor) -> torch.Tensor:
+    """Per-sequence KL to N(0, I) (reference kl_3d): padded frames zeroed,
+    then 0.5 * the mean over (T, C), zeros included. mask [B, T] True =
+    valid. Returns [B]."""
+    kl = mean.square() + torch.exp(logvar) - 1.0 - logvar
+    kl = torch.where(mask[..., None], kl, torch.zeros((), dtype=kl.dtype, device=kl.device))
+    return 0.5 * kl.mean(dim=(1, 2))
+
+
 class SpeechVAEModule(nn.Module):
+    """`dropout` is the decoder transformer's attention dropout in a
+    training forward."""
+
     def __init__(self, dim: int = 768, latent_dim: int = 128,
                  vocab_size: int = 1004, decoder_depth: int = 6,
                  decoder_dim_head: int = 96, decoder_heads: int = 8,
-                 chan_mults: Optional[Sequence[int]] = None):
+                 chan_mults: Optional[Sequence[int]] = None, dropout: float = 0.0):
         super().__init__()
         mults = list(chan_mults) if chan_mults is not None else CHAN_MULTS[latent_dim]
         cur = dim
@@ -56,7 +69,7 @@ class SpeechVAEModule(nn.Module):
         self.n_waves = len(mults)
         self.decoder_tf = ConditionableTransformer(
             dim, decoder_depth, dim_head=decoder_dim_head, heads=decoder_heads,
-            ff_mult=4, ff_causal_conv=True)
+            ff_mult=4, ff_causal_conv=True, dropout=dropout)
         self.decoder_lm = Dense(dim, vocab_size)
 
     def encode_params(self, feature: torch.Tensor) -> torch.Tensor:
@@ -80,3 +93,13 @@ class SpeechVAEModule(nn.Module):
             x = getattr(self, f"dec_wave_{i}")(x)
         feat = self.decoder_tf(x, mask=mask)
         return feat, self.decoder_lm(feat)
+
+    def forward(self, feature: torch.Tensor, mask: torch.Tensor, noise=None,
+                generator: Optional[torch.Generator] = None):
+        """Training forward (vae.py:122-132): feature [B, T, dim], mask
+        [B, T] -> (decoded feature, LM logits, KL per sequence [B]).
+        `noise` injects the posterior eps; otherwise it is drawn from
+        `generator`."""
+        z, mean, logvar = gaussian_sample(self.encode_params(feature), noise, generator)
+        feat, logits = self.decode(z, mask)
+        return feat, logits, gaussian_kl_masked(mean, logvar, mask)

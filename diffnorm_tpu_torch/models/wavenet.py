@@ -17,6 +17,12 @@ requiring grad) packs from the parameters as it runs, so gradients reach
 version's backward). The conv bias enters the chain folded into the FiLM
 shift as beta' = beta + gamma * b_conv; an unconditioned WaveNet uses
 gamma = 1, beta' = b_conv.
+
+`chain_kernel=False` (JAX without DIFFNORM_PALLAS_WAVENET=1, wavenet.py:150)
+runs the blocks as modules instead, in JAX's order (wavenet.py:55-68): the
+conv with its bias, FiLM, gating, plus the residual conv; with `quant` the
+blocks' `res_conv`, `conv` and `skip_conv` are int8 `CausalConv1d` sites
+(JAX's int8 module route, the DDIM serving headline).
 """
 
 from __future__ import annotations
@@ -34,6 +40,7 @@ from diffnorm_tpu_torch.models.layers import (
     repack_after_load,
 )
 from diffnorm_tpu_torch.ops import wavenet_chain as chain_ops
+from diffnorm_tpu_torch.ops.quant import Int8Knobs
 
 Film = List[Tuple[torch.Tensor, torch.Tensor]]
 Pack = Dict[str, torch.Tensor]
@@ -43,24 +50,40 @@ class WavenetResBlock(nn.Module):
     """The parameters of one block (flax names)."""
 
     def __init__(self, dim: int, dilation: int, kernel_size: int = 3,
-                 skip_conv: bool = False, cond_dim: Optional[int] = None):
+                 skip_conv: bool = False, cond_dim: Optional[int] = None,
+                 quant: bool = False, knobs: Int8Knobs = Int8Knobs()):
         super().__init__()
-        self.res_conv = CausalConv1d(dim, dim, 1)
-        self.conv = CausalConv1d(dim, dim, kernel_size, dilation)
+        self.res_conv = CausalConv1d(dim, dim, 1, quant=quant, knobs=knobs)
+        self.conv = CausalConv1d(dim, dim, kernel_size, dilation, quant=quant, knobs=knobs)
         self.to_time_cond = Dense(cond_dim, 2 * dim) if cond_dim else None
-        self.skip_conv = CausalConv1d(dim, dim, 1) if skip_conv else None
+        self.skip_conv = (CausalConv1d(dim, dim, 1, quant=quant, knobs=knobs)
+                          if skip_conv else None)
 
     def film(self, t: torch.Tensor) -> torch.Tensor:
         return self.to_time_cond(t)
 
+    def forward(self, x: torch.Tensor, tc: Optional[torch.Tensor]) -> torch.Tensor:
+        """The module block (wavenet.py:55-68); tc [B, 2C] its FiLM
+        projection, or None unconditioned. Returns the skip where the block
+        has one, else its output."""
+        res = self.res_conv(x)
+        h = self.conv(x)
+        if tc is not None:
+            gamma, beta = tc[:, None, :].chunk(2, dim=-1)
+            h = h * gamma + beta
+        h = torch.tanh(h) * torch.sigmoid(h) + res
+        return h if self.skip_conv is None else self.skip_conv(h)
+
 
 class WavenetStack(nn.Module):
     def __init__(self, dim: int, layers: int, kernel_size: int = 3,
-                 has_skip: bool = False, cond_dim: Optional[int] = None):
+                 has_skip: bool = False, cond_dim: Optional[int] = None,
+                 quant: bool = False, knobs: Int8Knobs = Int8Knobs()):
         super().__init__()
         for j in range(layers):
             self.add_module(f"block_{j}", WavenetResBlock(
-                dim, 2 ** j, kernel_size, skip_conv=has_skip, cond_dim=cond_dim))
+                dim, 2 ** j, kernel_size, skip_conv=has_skip, cond_dim=cond_dim,
+                quant=quant, knobs=knobs))
 
     def block(self, j: int) -> WavenetResBlock:
         return getattr(self, f"block_{j}")
@@ -97,17 +120,23 @@ class _PackedChain(nn.Module):
 class Wavenet(nn.Module):
     """init causal conv -> stacks (the last with skips) -> sum of the chain
     skips -> 1x1 causal `final_conv`. `in_dim` may differ from `dim` (the
-    VAE's encoder and decoder)."""
+    VAE's encoder and decoder). `chain_kernel` picks the `wavenet_chain`
+    route (JAX's DIFFNORM_PALLAS_WAVENET=1) over the module blocks; `quant`
+    makes the blocks' convs int8 on the module route."""
 
     def __init__(self, in_dim: int, dim: int, stacks: int, layers: int,
-                 init_conv_kernel: int = 3, cond_dim: Optional[int] = None):
+                 init_conv_kernel: int = 3, cond_dim: Optional[int] = None,
+                 quant: bool = False, knobs: Int8Knobs = Int8Knobs(),
+                 chain_kernel: bool = True):
         super().__init__()
         self.stacks, self.layers = stacks, layers
         self.conditioned = cond_dim is not None
+        self.chain_kernel = chain_kernel
         self.init_conv = CausalConv1d(in_dim, dim, init_conv_kernel)
         for s in range(stacks):
             self.add_module(f"stack_{s}", WavenetStack(
-                dim, layers, has_skip=(s == stacks - 1), cond_dim=cond_dim))
+                dim, layers, has_skip=(s == stacks - 1), cond_dim=cond_dim,
+                quant=quant, knobs=knobs))
         self.final_conv = CausalConv1d(dim, dim, 1)
         self.pack_weights()
         self.register_load_state_dict_post_hook(repack_after_load)
@@ -149,7 +178,11 @@ class Wavenet(nn.Module):
                         packs: Optional[List[Pack]] = None) -> Film:
         """Per chain (gamma, beta'), each [N, S, C] float32, for condition t
         [N, cond_dim]: every to_time_cond projection, with the conv bias
-        folded into the shift (beta' = beta + gamma * b_conv)."""
+        folded into the shift (beta' = beta + gamma * b_conv). On the module
+        route, per chain the projections themselves, [N, S, 2C]."""
+        if not self.chain_kernel:
+            return [torch.stack([b.film(t) for b in self.chain_blocks(j)], dim=1)
+                    for j in range(self.layers)]
         film = []
         for j, pack in enumerate(packs or self.packs()):
             tc = torch.stack([b.film(t) for b in self.chain_blocks(j)], dim=1)
@@ -169,6 +202,8 @@ class Wavenet(nn.Module):
                 film: Optional[Film] = None) -> torch.Tensor:
         """x [B, T, in_dim]; t [B, cond_dim] or a precomputed `film`."""
         x = self.init_conv(x)
+        if not self.chain_kernel:
+            return self._forward_modules(x, t, film)
         packs = self.packs()
         if film is None:
             film = (self.precompute_film(t, packs) if self.conditioned
@@ -180,3 +215,13 @@ class Wavenet(nn.Module):
             for j, (p, (gamma, beta)) in enumerate(zip(packs, film))
         ]
         return self.final_conv(sum(skips))
+
+    def _forward_modules(self, x: torch.Tensor, t: Optional[torch.Tensor],
+                         film: Optional[Film]) -> torch.Tensor:
+        if self.conditioned and film is None:
+            film = self.precompute_film(t)
+        hs = [x] * self.layers
+        for s in range(self.stacks):
+            hs = [self.stack(s).block(j)(h, film[j][:, s] if self.conditioned else None)
+                  for j, h in enumerate(hs)]
+        return self.final_conv(sum(hs))

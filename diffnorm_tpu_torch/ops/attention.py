@@ -11,8 +11,9 @@ kernel on a TPU (attention.py:53-63), where `flash_attention.supports` says
 the kernel takes the shapes and types (checked before any launch, as JAX
 checks its length threshold). Every other call, on any device, is the
 module math below, JAX's default path, which takes any shape. The kernel
-serves JAX's plain masked case; the port's callers pass no bias, causal
-mask or dropout, which JAX keeps off the kernel. JAX takes the route only
+serves JAX's plain masked case; the port's callers pass no bias or causal
+mask, and a call with dropout (a training forward) takes the module math,
+as JAX keeps all three off the kernel. JAX takes the route only
 under DIFFNORM_FLASH_ATTENTION=1, on the strength of a TPU v5e
 measurement; on the card it is on by default. On the CPU masked_attention
 stays plain, as JAX's does off the TPU. The S2ST
@@ -34,16 +35,25 @@ FLASH_MIN_LEN = 2048  # attention.py:_PALLAS_MIN_LEN
 
 
 def masked_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                     mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+                     mask: Optional[torch.Tensor] = None, dropout: float = 0.0,
+                     generator: Optional[torch.Generator] = None) -> torch.Tensor:
     """q [B, H, Tq, D], k/v [B, H, Tk, D], mask [B, Tk] bool (True = valid).
-    Returns [B, H, Tq, D] in q.dtype."""
-    if q.is_cuda and k.shape[-2] >= FLASH_MIN_LEN and flash_ops.supports(q, k, v, mask):
+    Returns [B, H, Tq, D] in q.dtype. `dropout` > 0 drops probabilities as
+    JAX does (keep with 1 - dropout, kept ones scaled by 1 / (1 - dropout)),
+    drawn from `generator`; such a call never takes the kernel."""
+    if (q.is_cuda and dropout == 0.0 and k.shape[-2] >= FLASH_MIN_LEN
+            and flash_ops.supports(q, k, v, mask)):
         return flash_ops.flash_attention(q, k, v, mask)
     scale = q.shape[-1] ** -0.5
     sim = torch.matmul(q.float(), k.float().transpose(-1, -2)) * scale
     if mask is not None:
         sim = sim.masked_fill(~mask[:, None, None, :], torch.finfo(torch.float32).min)
     attn = sim.softmax(dim=-1)
+    if dropout > 0.0:
+        if generator is None:
+            raise ValueError("masked_attention: dropout needs a generator")
+        keep = torch.rand(attn.shape, generator=generator, device=attn.device) < 1.0 - dropout
+        attn = torch.where(keep, attn / (1.0 - dropout), 0.0)
     if v.dtype == torch.bfloat16:
         out = torch.matmul(attn.to(torch.bfloat16), v)
     else:

@@ -1,0 +1,102 @@
+"""The port's checkpoints: keep-best-k / keep-last-N rotation as in
+diffnorm_tpu/train/checkpoint.py, in a format of the port's own.
+
+  save_dir/
+    step_000000100/params.npz   the model tree in flax paths (weights.save_npz of
+                                to_jax_params): the normalizer's is what
+                                cli.diff_norm_synthesis --params-npz reads
+    step_000000100/trainer.pt   the optimizer moments, the update count and
+                                the generator (Trainer.state_dict)
+    step_000000100.json         step, metric, epoch, iterator position
+    manifest.json               {"checkpoints": [...], "best": ..., "last": ...}
+
+A step directory is written under a temporary name and renamed, so a
+crash never leaves the manifest naming a partial checkpoint.
+"""
+
+from __future__ import annotations
+
+import json
+import os
+import shutil
+from typing import Any, Dict, Optional, Tuple
+
+import torch
+
+from diffnorm_tpu_torch.weights import load_npz, save_npz, to_jax_params
+
+PARAMS, TRAINER = "params.npz", "trainer.pt"
+
+
+def load_params(path: str) -> dict:
+    """The model tree of a checkpoint step directory (or of a .npz file)."""
+    if os.path.isdir(path):
+        path = os.path.join(path, PARAMS)
+    return load_npz(path)
+
+
+class CheckpointManager:
+    def __init__(self, save_dir: str, keep_last: int = 5, keep_best: int = 5):
+        self.save_dir = os.path.abspath(save_dir)
+        os.makedirs(self.save_dir, exist_ok=True)
+        self.keep_last, self.keep_best = keep_last, keep_best
+        self._manifest_path = os.path.join(self.save_dir, "manifest.json")
+        self.manifest = {"checkpoints": []}
+        if os.path.exists(self._manifest_path):
+            with open(self._manifest_path) as f:
+                self.manifest = json.load(f)
+
+    def path(self, step: int) -> str:
+        return os.path.join(self.save_dir, f"step_{step:09d}")
+
+    def save(self, step: int, model: torch.nn.Module, trainer_state: Dict,
+             metric_value: Optional[float] = None, extra: Optional[Dict[str, Any]] = None) -> str:
+        path = self.path(step)
+        tmp = path + ".tmp"
+        shutil.rmtree(tmp, ignore_errors=True)
+        os.makedirs(tmp)
+        save_npz(os.path.join(tmp, PARAMS), to_jax_params(model))
+        torch.save(trainer_state, os.path.join(tmp, TRAINER))
+        shutil.rmtree(path, ignore_errors=True)
+        os.replace(tmp, path)
+        with open(path + ".json", "w") as f:
+            json.dump({"step": step, "metric": metric_value, **(extra or {})}, f)
+        entries = [e for e in self.manifest["checkpoints"] if e["step"] != step]
+        entries.append({"step": step, "metric": metric_value})
+        self.manifest["checkpoints"] = sorted(entries, key=lambda e: e["step"])
+        self._rotate()
+        tmp_manifest = self._manifest_path + ".tmp"
+        with open(tmp_manifest, "w") as f:
+            json.dump(self.manifest, f, indent=2)
+        os.replace(tmp_manifest, self._manifest_path)
+        return path
+
+    def _rotate(self) -> None:
+        """Keep the last `keep_last` and the `keep_best` lowest by metric
+        (all when keep_last <= 0); delete the rest."""
+        entries = self.manifest["checkpoints"]
+        keep = {e["step"] for e in (entries[-self.keep_last:] if self.keep_last > 0 else entries)}
+        scored = sorted((e for e in entries if e.get("metric") is not None),
+                        key=lambda e: e["metric"])
+        if scored and self.keep_best > 0:
+            keep.update(e["step"] for e in scored[:self.keep_best])
+            self.manifest["best"] = scored[0]["step"]
+        if entries:
+            self.manifest["last"] = entries[-1]["step"]
+        for e in list(entries):
+            if e["step"] not in keep:
+                shutil.rmtree(self.path(e["step"]), ignore_errors=True)
+                if os.path.exists(self.path(e["step"]) + ".json"):
+                    os.remove(self.path(e["step"]) + ".json")
+                entries.remove(e)
+
+    def latest_step(self) -> Optional[int]:
+        return self.manifest.get("last")
+
+    def load(self, step: int, device) -> Tuple[dict, Dict, Dict[str, Any]]:
+        """(model tree, trainer state, sidecar) of checkpoint `step`."""
+        path = self.path(step)
+        state = torch.load(os.path.join(path, TRAINER), map_location=device)
+        with open(path + ".json") as f:
+            extra = json.load(f)
+        return load_params(path), state, extra

@@ -7,12 +7,14 @@ arrays) and the port's `state_dict()` share their paths. Leaf names map as
                flax `embedding` (nn.Embed)                 -> torch `weight`
                any other leaf keeps its name
   batch_stats  `mean` / `var`          -> the `running_mean` / `running_var` buffers
+  quant_stats  `act_amax`               -> the calibrated `act_amax` of the int8
+                                           site at that path (ops/quant.py QuantSite)
 A Dense kernel [in, out] is the transpose of a Linear weight; a conv kernel
 [k, in, out] becomes torch's [out, in, k], and a
 `ConvTranspose(transpose_kernel=True)` kernel [k, out, in] torch
 ConvTranspose1d's [in, out, k], both by `permute(2, 1, 0)` with no flip.
 Names are checked both ways, buffers included, so a missing or extra key
-raises.
+raises; `quant_stats` is optional and names int8 sites only.
 
 `save_npz` / `load_npz` store such a tree as one .npz with '/'-joined keys,
 the weight files the CLIs read (`--params-npz`, `--vocoder-npz`).
@@ -25,6 +27,8 @@ from typing import Dict, Mapping, Tuple
 import numpy as np
 import torch
 from torch import nn
+
+from diffnorm_tpu_torch.ops.quant import quant_sites
 
 
 Path = Tuple[str, ...]
@@ -83,13 +87,28 @@ def pack_all(model: nn.Module) -> nn.Module:
     return model
 
 
+def _load_quant_stats(model: nn.Module, tree: Mapping) -> None:
+    sites = dict(quant_sites(model))
+    for path, value in _flatten(tree).items():
+        site = sites.get(".".join(path[:-1]))
+        if site is None or path[-1] != "act_amax":
+            raise KeyError(f"quant_stats/{'/'.join(path)} names no int8 site of the model")
+        device = next(site.parameters()).device
+        site.act_amax = torch.tensor(np.asarray(value, np.float32).reshape(()),
+                                     device=device)
+
+
 def from_jax_variables(model: nn.Module, variables: Mapping) -> nn.Module:
     """Load a JAX variables tree ({"params"} and, where the model has
-    BatchNorm state, {"batch_stats"}) into `model` in place, on the model's
-    device and dtype, and rebuild its packed weight copies (`pack_all`).
-    Every parameter and persistent buffer must be covered. Returns `model`."""
+    BatchNorm state, {"batch_stats"}; calibrated int8 scales, where given,
+    as {"quant_stats"}) into `model` in place, on the model's device and
+    dtype, and rebuild its packed weight copies (`pack_all`). Every
+    parameter and persistent buffer must be covered. Returns `model`."""
     flat = {}
     for collection, tree in variables.items():
+        if collection == "quant_stats":
+            _load_quant_stats(model, tree)
+            continue
         for path, value in _flatten(tree).items():
             flat[_torch_name(collection, path)] = (path, value)
     named = model.state_dict(keep_vars=True)
@@ -123,7 +142,8 @@ def _jax_leaf(module: nn.Module) -> str:
 
 def to_jax_variables(model: nn.Module) -> dict:
     """The inverse of `from_jax_variables`: {"params": ...} and, where the
-    model has running statistics, {"batch_stats": ...}, float32 numpy."""
+    model has running statistics, {"batch_stats": ...}, and where an int8
+    site holds a calibrated amax, {"quant_stats": ...}; float32 numpy."""
     params, stats = {}, {}
     for name, t in model.state_dict().items():
         path = tuple(name.split("."))
@@ -141,6 +161,10 @@ def to_jax_variables(model: nn.Module) -> dict:
     out = {"params": _unflatten(params)}
     if stats:
         out["batch_stats"] = _unflatten(stats)
+    amax = {tuple(name.split(".")) + ("act_amax",): site.act_amax.float().cpu().numpy()
+            for name, site in quant_sites(model) if site.act_amax is not None}
+    if amax:
+        out["quant_stats"] = _unflatten(amax)
     return out
 
 
