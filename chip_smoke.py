@@ -79,6 +79,25 @@ plain versions (recon row-cos, unit agreement) and the bf16 path's units.
    bf16: the VAE (2 updates, checkpoint), the normalizer over it (2 updates,
    checkpoint, resumed to 4), then cli.diff_norm_synthesis --params-npz on
    the trained normalizer.
+10. train NAR: the released nar_s2ut_conformer (encoder 512 x 12, decoder
+   512 x 6, vocab 1004) from a seeded random init, bf16 forward, float32
+   masters, scripts/s2ut_train.sh's optimizer (Adam (0.9, 0.98), lr 5e-4,
+   inverse_sqrt warmup from 1e-7, clip 10, label smoothing 0.2, dropout
+   0.1). CVSS-shaped: B64 sorted ragged sources of 300-625 fbank frames
+   (--max-tokens 40000) with 100-250 units + EOS on a random-mask canvas,
+   3 updates and one at --cg-prob 0.15: ms per update, peak memory, the
+   profile, flash_attention launches (0). Long form: B2 x 8448 frames (S =
+   2112, the last row half length), 600 and 300 units, --attention-dropout
+   0: one update through the kernels and one through the plain versions
+   from one init on the same generators, each after a warm-up validation
+   forward (loss, gradient norm held to bounds; the decoder's 6 encoder
+   attentions launch flash_attention), then a valid_step the same two ways.
+11. entry point train NAR: 24 synthetic 16 kHz WAV utterances of 3-7 s
+   (written with `wave`, through the fbank front end), 40-200 unit targets,
+   config.yaml with utterance CMVN and SpecAugment on _train; cli.train at
+   the released widths in bf16 for 2 updates and a checkpoint, resumed to
+   4, then cli.s2st --params-npz on the step directory with the released
+   vocoder: its wall and RTF.
 
 Then one JSON line of per-kernel numbers and, last, {"ok": true, "device": ...}.
 Exits non-zero without CUDA, and in a directory without the port.
@@ -157,6 +176,11 @@ STATIC_POINTS, STATIC_UNIT_AGREE = 6, 0.95
 # normalizer gave 6.3e-5 and 4.5e-3, the VAE 3.6e-5 and 5.5e-5; the bounds
 # were 1e-2 and 2e-2 for that first run
 TRAIN_LOSS_REL, TRAIN_GNORM_REL = 1e-3, 1e-2
+# NAR training (phase 10): scripts/s2ut_train.sh's batch cap and optimizer;
+# the CVSS-shaped batch's longest source is the cap over the batch size
+NAR_B, NAR_MAX_TOKENS, NAR_UPDATES = 64, 40000, 3
+NAR_TRAIN = dict(lr=5e-4, warmup_updates=10000, warmup_init_lr=1e-7, adam_betas=(0.9, 0.98),
+                 clip_norm=10.0, dtype="bfloat16", seed=42)
 
 # the S2ST chain (bench.py --e2e's shape) and its long form, where the
 # subsampled source reaches flash_attention's 2048 keys
@@ -1218,6 +1242,242 @@ def run_train_cli(torch, smi):
               f"cli.diff_norm_synthesis --params-npz on the trained normalizer, 4 rows; {smi}")
 
 
+def nar_batch(rng, src_lengths, tgt_units):
+    """A collated NAR batch: normal fbank [B, bucket(T), 80] zero past each
+    length, unit targets (+ EOS, pad 1) [B, bucket(L)] and their
+    random-mask canvas."""
+    import numpy as np
+
+    from diffnorm_tpu_torch.data.batching import bucket_length
+    from diffnorm_tpu_torch.tasks.nar_s2ut_task import random_mask
+
+    src_lengths = np.asarray(src_lengths, np.int32)
+    t = bucket_length(int(src_lengths.max()))
+    mask = np.arange(t)[None, :] < src_lengths[:, None]
+    src = (rng.normal(size=(len(src_lengths), t, 80)) * mask[..., None]).astype(np.float32)
+    target = np.full((len(src_lengths), bucket_length(max(tgt_units) + 1)), 1, np.int32)
+    for i, n in enumerate(tgt_units):
+        target[i, :n] = rng.integers(4, 1004, size=n)
+        target[i, n] = 2
+    return {"src_tokens": src, "src_lengths": src_lengths, "target": target,
+            "prev_target": random_mask(target, rng)}
+
+
+def run_train_nar(torch, mods, smi):
+    """Phase 10: NAR S2UT training at the released widths (see the module
+    docstring)."""
+    import numpy as np
+
+    from diffnorm_tpu_torch.criterions.nar_loss import NARSpeechToUnitLoss
+    from diffnorm_tpu_torch.models.nar_transformer import NARS2UTModule
+    from diffnorm_tpu_torch.ops import _build
+    from diffnorm_tpu_torch.train.trainer import Trainer, TrainerConfig
+
+    t0 = time.perf_counter()
+    rng = np.random.default_rng(90)
+    hi = NAR_MAX_TOKENS // NAR_B
+    cvss = [nar_batch(rng, np.sort(rng.integers(300, hi + 1, NAR_B))[::-1],
+                      rng.integers(100, 251, NAR_B).tolist()) for _ in range(NAR_UPDATES + 1)]
+
+    def build(**kw):
+        torch.manual_seed(12)
+        with torch.device("cuda"):
+            model = NARS2UTModule(**kw)
+        return model, Trainer(TrainerConfig(**NAR_TRAIN), model, NARSpeechToUnitLoss(0.2))
+
+    model, trainer = build()
+    n_params = sum(p.numel() for p in model.parameters())
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _build.launch_counts.clear()
+    per_update = []
+    for u in range(NAR_UPDATES + 1):
+        if u == NAR_UPDATES:
+            trainer.model.cg_prob = 0.15
+        t1 = time.perf_counter()
+        mets = trainer.train_step([cvss[u]])
+        torch.cuda.synchronize()
+        per_update.append((mets, 1e3 * (time.perf_counter() - t1)))
+        if not (math.isfinite(mets["loss"]) and math.isfinite(mets["gnorm"])):
+            fail(f"train NAR: update {u} gave {mets}")
+    n_flash = _build.launch_counts.get("flash_attention", 0)
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    if n_flash:
+        fail(f"train NAR: flash_attention launched {n_flash} times at CVSS length")
+    wall = statistics.median(ms for _, ms in per_update[1:NAR_UPDATES]) / 1e3
+    frames = int(cvss[0]["src_lengths"].sum())
+    print(f"train NAR, CVSS-shaped: {n_params / 1e6:.1f}M parameters, B{NAR_B} x "
+          f"{cvss[0]['src_tokens'].shape[1]} padded frames ({frames} real, longest "
+          f"{int(cvss[0]['src_lengths'].max())}), targets {cvss[0]['target'].shape[1]} padded "
+          f"({int((cvss[0]['target'] != 1).sum())} tokens), bf16 forward, float32 masters; losses "
+          f"{[round(m['loss'], 5) for m, _ in per_update]}, gnorms "
+          f"{[round(m['gnorm'], 4) for m, _ in per_update]} (the last at cg_prob 0.15); ms "
+          f"per update {[round(ms, 1) for _, ms in per_update]}; peak {peak_gb:.2f} GB; "
+          f"flash_attention launches {n_flash}; {smi}")
+    profile_run(torch, lambda: trainer.train_step([cvss[1]]), wall)
+    del model, trainer
+
+    # long form: the decoder's encoder attention over S = 2112 keys
+    long = nar_batch(rng, [LONG_FRAMES, LONG_FRAMES // 2], [600, 300])
+    runs = {}
+    for version in ("kernels", "plain"):
+        model, trainer = build(attention_dropout=0.0)
+        with plain_versions(*mods) if version == "plain" else contextlib.nullcontext():
+            # warm-up: a validation forward draws nothing and leaves the
+            # statistics alone, so both runs still start alike
+            trainer.valid_step(long, torch.Generator(device="cuda").manual_seed(0))
+            torch.cuda.synchronize()
+            _build.launch_counts.clear()
+            t1 = time.perf_counter()
+            mets = trainer.train_step([long])
+            torch.cuda.synchronize()
+            ms = 1e3 * (time.perf_counter() - t1)
+            train_flash = _build.launch_counts.get("flash_attention", 0)
+            _build.launch_counts.clear()
+            valid = trainer.valid_step(long, torch.Generator(device="cuda").manual_seed(0))
+            valid_flash = _build.launch_counts.get("flash_attention", 0)
+        runs[version] = (mets, valid, ms, train_flash, valid_flash)
+        del model, trainer
+    (mk, vk, ms_k, flash_train, flash_valid), (mp, vp, ms_p, _, _) = runs["kernels"], runs["plain"]
+    layers = 6
+    if flash_train != layers or flash_valid != layers:
+        fail(f"train NAR long form: flash_attention launched {flash_train} times in the "
+             f"training forward and {flash_valid} in validation, expected {layers} each")
+    loss_rel = abs(mk["loss"] - mp["loss"]) / abs(mp["loss"])
+    gnorm_rel = abs(mk["gnorm"] - mp["gnorm"]) / abs(mp["gnorm"])
+    valid_rel = abs(vk["loss"] - vp["loss"]) / abs(vp["loss"])
+    if not all(math.isfinite(v) for v in (mk["loss"], mk["gnorm"], vk["loss"])):
+        fail(f"train NAR long form: non-finite {mk} / {vk}")
+    if loss_rel > TRAIN_LOSS_REL or gnorm_rel > TRAIN_GNORM_REL or valid_rel > TRAIN_LOSS_REL:
+        fail(f"train NAR long form: kernels against plain versions, loss rel {loss_rel:.3e}, "
+             f"gnorm rel {gnorm_rel:.3e}, valid loss rel {valid_rel:.3e}")
+    print(f"train NAR, long form: B2 x {LONG_FRAMES} frames (S = 2112, the last row half), "
+          f"600 / 300 units, --attention-dropout 0: update {ms_k:.1f} ms (plain versions "
+          f"{ms_p:.1f} ms), loss {mk['loss']:.5f}, gnorm {mk['gnorm']:.4f}; against the "
+          f"plain-version run loss rel {loss_rel:.2e} (bound {TRAIN_LOSS_REL}), gnorm rel "
+          f"{gnorm_rel:.2e} (bound {TRAIN_GNORM_REL}), valid loss {vk['loss']:.5f} rel "
+          f"{valid_rel:.2e}; flash_attention launches per forward: training {flash_train}, "
+          f"validation {flash_valid}; {smi}")
+    print(f"phase train NAR: {time.perf_counter() - t0:.1f} s")
+
+
+def write_nar_corpus(root: Path, seed: int = 5):
+    """train (24), dev (4) and test (4) splits of 3-7 s 16 kHz WAV sources
+    (written with `wave`) and 40-200 unit targets, and a config.yaml with
+    utterance CMVN and SpecAugment on _train."""
+    import wave
+
+    import numpy as np
+
+    from diffnorm_tpu_torch.data.manifest import write_translation_manifest
+
+    rng = np.random.default_rng(seed)
+    seconds = 0.0
+    for split, n in (("train", 24), ("dev", 4), ("test", 4)):
+        rows = []
+        for i in range(n):
+            pcm = (rng.normal(size=int(rng.uniform(3.0, 7.0) * 16000)) * 3000).astype(np.int16)
+            with wave.open(str(root / f"{split}{i}.wav"), "wb") as w:
+                w.setnchannels(1)
+                w.setsampwidth(2)
+                w.setframerate(16000)
+                w.writeframes(pcm.tobytes())
+            if split == "test":
+                seconds += len(pcm) / 16000
+            units = rng.integers(0, 1000, size=int(rng.integers(40, 201)))
+            rows.append({"id": f"{split}{i}", "src_audio": f"{split}{i}.wav",
+                         "src_n_frames": (len(pcm) - 400) // 160 + 1,
+                         "tgt_audio": " ".join(map(str, units)), "tgt_n_frames": len(units)})
+        write_translation_manifest(str(root / f"{split}.tsv"), rows)
+    (root / "config.yaml").write_text(
+        "transforms:\n  '*': [utterance_cmvn]\n  _train: [specaugment]\n"
+        "specaugment:\n  freq_mask_N: 2\n  freq_mask_F: 27\n  time_mask_N: 2\n"
+        "  time_mask_T: 100\n  time_mask_p: 1.0\n")
+    return seconds
+
+
+def run_train_nar_cli(torch, smi):
+    """Phase 11: cli.train on WAV sources at the released widths in bf16 (2
+    updates and a checkpoint, resumed to 4), then cli.s2st --params-npz on
+    the step directory."""
+    import logging
+
+    from diffnorm_tpu_torch.cli import s2st as s2st_cli
+    from diffnorm_tpu_torch.cli import train as train_cli
+    from diffnorm_tpu_torch.models.hifigan import CodeHiFiGANVocoder
+    from diffnorm_tpu_torch.weights import save_npz, to_jax_variables
+
+    class Lines(logging.Handler):
+        def __init__(self):
+            super().__init__()
+            self.lines = []
+
+        def emit(self, record):
+            self.lines.append(record.getMessage())
+
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = Path(tmp)
+        test_seconds = write_nar_corpus(tmp)
+        save_dir = tmp / "nar"
+        args = [str(tmp), "--config-yaml", "config.yaml", "--cg-prob", "0.0", "--task",
+                "speech_to_speech_fasttranslate", "--target-code-size", "1000", "--criterion",
+                "nar_speech_to_unit", "--label-smoothing", "0.2", "--arch",
+                "nar_s2ut_conformer", "--dropout", "0.1", "--train-subset", "train",
+                "--valid-subset", "dev", "--save-dir", str(save_dir),
+                "--keep-best-checkpoints", "5", "--best-checkpoint-metric", "loss",
+                "--keep-last-epochs", "5", "--lr", "5e-4", "--lr-scheduler", "inverse_sqrt",
+                "--warmup-init-lr", "1e-7", "--warmup-updates", "10000", "--adam-betas",
+                "(0.9,0.98)", "--clip-norm", "10.0", "--max-update", "2", "--max-tokens",
+                "8000", "--max-target-positions", "1024", "--seed", "42", "--prng-impl", "rbg",
+                "--validate-interval", "5", "--save-interval", "5", "--dtype", "bfloat16",
+                "--log-interval", "1"]
+        lines = Lines()
+        logging.getLogger("diffnorm_tpu_torch.train").addHandler(lines)
+        for what, max_update in (("2 updates", 2), ("resumed to 4", 4)):
+            lines.lines.clear()
+            i = args.index("--max-update") + 1
+            args[i] = str(max_update)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            if train_cli.main(args) != 0:
+                fail(f"cli.train NAR ({what}) failed")
+            dt = time.perf_counter() - t0
+            log = "\n".join(lines.lines)
+            need = [f"saved checkpoint at step {max_update}", "valid |", "| step"]
+            if max_update == 4:
+                need.append("resumed from step 2")
+            missing = [n for n in need if n not in log]
+            if missing:
+                fail(f"cli.train NAR ({what}): log lacks {missing}")
+            steps = [line for line in lines.lines if "| step" in line]
+            print(f"phase entry point train NAR ({what}): {dt:.2f} s for cli.train (released "
+                  f"widths, bf16, 24 WAV utterances of 3-7 s through the fbank front end); "
+                  f"last step: {steps[-1]}; {smi}")
+        logging.getLogger("diffnorm_tpu_torch.train").removeHandler(lines)
+        torch.manual_seed(3)
+        voc = CodeHiFiGANVocoder.from_config(VOCODER_CFG, device="cuda")
+        save_npz(str(tmp / "voc.npz"), to_jax_variables(voc.module))
+        (tmp / "voc.json").write_text(json.dumps(VOCODER_CFG))
+        del voc
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        rc = s2st_cli.main([str(tmp), "--params-npz", str(save_dir / "step_000000004"),
+                            "--vocoder-npz", str(tmp / "voc.npz"),
+                            "--vocoder-cfg", str(tmp / "voc.json"),
+                            "--results-path", str(tmp / "out"), "--batch-size", "4",
+                            "--dur-prediction", "--max-duration", "4"])
+        dt = time.perf_counter() - t0
+        if rc != 0:
+            fail(f"cli.s2st on the trained NAR checkpoint returned {rc}")
+        lines = (tmp / "out" / "s2st-test.unit").read_text().splitlines()
+        if sorted(line.split("|")[0] for line in lines) != [f"test{i}" for i in range(4)]:
+            fail(f"cli.s2st on the trained checkpoint: unit file {lines}")
+        print(f"phase entry point train NAR (cli.s2st): {dt:.2f} s for cli.s2st --params-npz "
+              f"<step directory> on 4 WAV utterances ({test_seconds:.1f} s of speech, RTF "
+              f"{test_seconds / dt:.2f} with the models' load), every {{id}}_pred.wav "
+              f"written; {smi}")
+
+
 def s2st_models(torch):
     """The released nar_s2ut_conformer and code-HiFi-GAN (with its duration
     predictor), seeded random init in bf16. The specials' rows of the shared
@@ -1557,6 +1817,10 @@ def main() -> int:
     # 8.-9. training of both main-path stages, and through cli.train
     run_train(torch, mods, smi)
     run_train_cli(torch, smi)
+
+    # 10.-11. NAR S2UT training, and through cli.train -> cli.s2st
+    run_train_nar(torch, mods, smi)
+    run_train_nar_cli(torch, smi)
 
     sources = {
         "rms_norm_film": ("rms_norm_film.cu", "diffnorm_tpu/ops/pallas_norm.py:34"),

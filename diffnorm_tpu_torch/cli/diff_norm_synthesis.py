@@ -19,7 +19,8 @@ and DIFFNORM_INT8_QUANT_BF16 switches to the int8 module route.
       --params-npz diffusion.npz --tgt-feat-dir feat/ \\
       --output-dir diff_unit_vae_50 --start-step 50 --batch-size 100
 
-`--params-npz` is the JAX parameter tree in the flat format of
+`--params-npz` is a JAX params tree, or a variables tree such as a
+`cli.train` checkpoint's `params.npz`, in the flat format of
 `diffnorm_tpu_torch.weights.save_npz`.
 """
 
@@ -57,7 +58,8 @@ from diffnorm_tpu_torch.ops.quant import (
     set_static_scales,
 )
 from diffnorm_tpu_torch.ops.unit_reduce import reduce_units
-from diffnorm_tpu_torch.weights import from_jax_params, load_npz
+from diffnorm_tpu_torch.train.checkpoint import load_variables
+from diffnorm_tpu_torch.weights import from_jax_variables
 
 logger = logging.getLogger("diffnorm_tpu_torch.diff_norm")
 
@@ -74,7 +76,7 @@ def parse_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
     p = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     p.add_argument("data", help="directory of the {split}.tsv translation manifests")
     p.add_argument("--params-npz", required=True,
-                   help="diffusion weights (JAX parameter tree, weights.save_npz)")
+                   help="diffusion weights (JAX params or variables tree, weights.save_npz)")
     p.add_argument("--tgt-feat-dir", required=True,
                    help="directory of the {split}.manifest.tsv feature manifests")
     p.add_argument("--output-dir", required=True)
@@ -143,7 +145,8 @@ def build_model(args: argparse.Namespace, device: torch.device) -> LatentDiffusi
             vae_decoder_heads=args.vae_decoder_heads,
             chan_mults=args.chan_mults, quant_int8=args.quant_int8,
             int8_route=route, int8_knobs=knobs)
-    from_jax_params(model, load_npz(args.params_npz))  # int8 packs from float32
+    # int8 packs from float32
+    from_jax_variables(model, load_variables(args.params_npz))
     dtype = torch.float32 if device.type == "cpu" else torch.bfloat16
     return model.to(dtype).eval()
 

@@ -16,7 +16,7 @@ import torch
 
 from diffnorm_tpu_torch.device import resolve_device
 from diffnorm_tpu_torch.models.hifigan import CodeHiFiGANVocoder
-from diffnorm_tpu_torch.weights import load_npz
+from diffnorm_tpu_torch.weights import as_variables, load_npz
 
 
 def write_wav(path: str, wav: np.ndarray, sample_rate: int = 16000) -> None:
@@ -38,7 +38,5 @@ def load_vocoder(npz_path: str, cfg_path: str, device="cuda",
     device = resolve_device(device)
     with open(cfg_path) as f:
         cfg = json.load(f)
-    variables = load_npz(npz_path)
-    if "params" not in variables:
-        variables = {"params": variables}
+    variables = as_variables(load_npz(npz_path))
     return CodeHiFiGANVocoder.from_config(cfg, variables, device=device, dtype=dtype)

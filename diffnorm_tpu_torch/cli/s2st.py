@@ -13,7 +13,8 @@ and writes `{utt_id}_pred.wav` at --sample-rate plus `s2st-{split}.unit`
 (`id|u1 u2 ...` reduced unit lines keyed by the manifest ids). Runs on the
 GPU (bf16 unless --dtype says otherwise) unless --cpu is given, which runs
 in float32. `--params-npz` / `--vocoder-npz` are JAX variables trees
-({"params", "batch_stats"}) in the format of `weights.save_npz`.
+({"params", "batch_stats"}) in the format of `weights.save_npz`;
+`--params-npz` may also name a `cli.train` checkpoint step directory.
 """
 
 from __future__ import annotations
@@ -33,7 +34,8 @@ from diffnorm_tpu_torch.data.s2s_dataset import SpeechToUnitDataset
 from diffnorm_tpu_torch.device import resolve_device
 from diffnorm_tpu_torch.generate.s2st import s2st_generate
 from diffnorm_tpu_torch.models.nar_transformer import NARS2UTModule
-from diffnorm_tpu_torch.weights import from_jax_variables, load_npz
+from diffnorm_tpu_torch.train.checkpoint import load_variables
+from diffnorm_tpu_torch.weights import from_jax_variables
 
 logger = logging.getLogger("diffnorm_tpu_torch.s2st")
 
@@ -47,7 +49,8 @@ def bucket(n: int, step: int = 64) -> int:
 def parse_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
     p = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     p.add_argument("data", help="directory of the {split}.tsv manifests (and config.yaml)")
-    p.add_argument("--params-npz", required=True, help="NAR S2UT weights (weights.save_npz)")
+    p.add_argument("--params-npz", required=True,
+                   help="NAR S2UT weights (weights.save_npz), or a cli.train step directory")
     p.add_argument("--vocoder-npz", required=True, help="code-HiFi-GAN weights")
     p.add_argument("--vocoder-cfg", required=True, help="code-HiFi-GAN config JSON")
     p.add_argument("--results-path", required=True)
@@ -94,7 +97,7 @@ def build_model(args: argparse.Namespace, device: torch.device,
             depthwise_kernel_size=args.depthwise_conv_kernel_size,
             conv_channels=args.conv_channels,
             conv_kernel_sizes=tuple(int(k) for k in args.conv_kernel_sizes.split(",")))
-    from_jax_variables(model, load_npz(args.params_npz))
+    from_jax_variables(model, load_variables(args.params_npz))
     return model.to(dtype).eval()
 
 

@@ -1,9 +1,12 @@
-"""Training CLI for the DiffNorm main-path stages (PyTorch port of
-diffnorm_tpu/cli/train.py): the speech VAE (`--task speech_decoder`) and
-the latent normalizer over the frozen VAE (`--task
-speech_diffusion_discrete`). It takes every flag of scripts/vae_train.sh and
-scripts/diffusion_train.sh with the same meaning; a flag it does not
-implement is an error.
+"""Training CLI of the PyTorch port (port of diffnorm_tpu/cli/train.py):
+the speech VAE (`--task speech_decoder`), the latent normalizer over the
+frozen VAE (`--task speech_diffusion_discrete`) and the NAR S2UT translator
+on unit targets (`--task speech_to_speech_fasttranslate`, DiffNorm's fourth
+stage). It takes every flag of scripts/vae_train.sh,
+scripts/diffusion_train.sh and scripts/s2ut_train.sh with the same meaning;
+a flag it does not implement is an error, and the NAR features not ported
+(encoder remat, multitask and CTC heads, target speaker, int8 training,
+n_frames_per_step > 1) raise.
 
   python -m diffnorm_tpu_torch.cli.train $DATA --tgt-feat-dir $FEAT \\
       --task speech_decoder --target-code-size 1000 \\
@@ -14,8 +17,23 @@ implement is an error.
       --max-update 200000 --max-tokens 15000 --max-target-positions 2048 \\
       --seed 42 --log-interval 50 --dtype bfloat16
 
-Runs on the GPU unless --cpu is given. Logs `epoch E | step N | ...`
-lines, `valid | ...`, `saved checkpoint at step N`; a re-run with a higher
+  python -m diffnorm_tpu_torch.cli.train $S2UT_DATA --config-yaml config.yaml \\
+      --task speech_to_speech_fasttranslate --target-code-size 1000 \\
+      --criterion nar_speech_to_unit --label-smoothing 0.2 \\
+      --arch nar_s2ut_conformer --dropout 0.1 --save-dir ckpt/nar \\
+      --lr 5e-4 --lr-scheduler inverse_sqrt --warmup-init-lr 1e-7 \\
+      --warmup-updates 10000 --adam-betas "(0.9,0.98)" --clip-norm 10.0 \\
+      --max-update 400000 --max-tokens 40000 --max-target-positions 1024 \\
+      --seed 42 --dtype bfloat16
+
+The NAR task reads `{split}.tsv` manifests whose sources are `.npy` fbank
+dumps or 16 kHz audio files (the fbank front end) and whose targets are unit
+strings; each batch's CMLM canvas is drawn from one
+`np.random.default_rng(seed)`, each training micro-batch in order, then each
+validation batch.
+
+Runs on the GPU unless --cpu is given. Logs `epoch E | step N | ...` lines,
+`valid | ...`, `saved checkpoint at step N`; a re-run with a higher
 --max-update continues from the last checkpoint (`resumed from step N`).
 """
 
@@ -28,21 +46,28 @@ import sys
 import time
 from typing import Dict, Optional, Sequence
 
+import numpy as np
 import torch
 
 from diffnorm_tpu_torch.data.iterators import EpochBatchIterator, grouped, iterate_valid
 from diffnorm_tpu_torch.device import resolve_device
+from diffnorm_tpu_torch.models.nar_transformer import ARCHS as NAR_ARCHS
 from diffnorm_tpu_torch.tasks import TASKS
 from diffnorm_tpu_torch.train.checkpoint import CheckpointManager
 from diffnorm_tpu_torch.train.trainer import Trainer, TrainerConfig, summarize
-from diffnorm_tpu_torch.weights import from_jax_params
+from diffnorm_tpu_torch.weights import from_jax_variables
 
 logger = logging.getLogger("diffnorm_tpu_torch.train")
 
-STAGES = {  # task: (criterion, arch)
-    "speech_decoder": ("speech_vae_decoder_loss", "speech_vae_decoder"),
-    "speech_diffusion_discrete": ("ddpm_discrete_loss", "diff_discrete"),
+NAR_TASK = "speech_to_speech_fasttranslate"
+STAGES = {  # task: (criterion, its architectures)
+    "speech_decoder": ("speech_vae_decoder_loss", ("speech_vae_decoder",)),
+    "speech_diffusion_discrete": ("ddpm_discrete_loss", ("diff_discrete",)),
+    NAR_TASK: ("nar_speech_to_unit", tuple(NAR_ARCHS)),
 }
+# flags of the JAX CLI's NAR model that the port does not implement
+UNPORTED = ("encoder_remat", "multitask_config_yaml", "multitask_ctc_vocab",
+            "target_speaker_embed", "quant_int8")
 
 
 def _bool(value: str) -> bool:
@@ -55,11 +80,21 @@ def _betas(value: str):
     return tuple(float(b) for b in value.strip("()[] ").split(","))
 
 
+def _ints(value: str):
+    return tuple(int(k) for k in value.strip("()[] ").replace(",", " ").split())
+
+
+def _flag(p: argparse.ArgumentParser, name: str, **kw) -> None:
+    """A boolean flag given alone or with true / false, as the JAX CLI's."""
+    p.add_argument(name, type=_bool, nargs="?", const=True, default=False, **kw)
+
+
 def parse_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
     p = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     p.add_argument("data", help="directory of the {split}.tsv translation manifests")
-    p.add_argument("--tgt-feat-dir", required=True,
-                   help="directory of the {split}.manifest.tsv feature manifests")
+    p.add_argument("--tgt-feat-dir",
+                   help="directory of the {split}.manifest.tsv feature manifests (the VAE and "
+                        "normalizer stages)")
     p.add_argument("--task", required=True, choices=sorted(STAGES))
     p.add_argument("--criterion", help="the task's criterion (checked against it)")
     p.add_argument("--arch", help="the task's architecture (checked against it)")
@@ -85,12 +120,40 @@ def parse_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
     p.add_argument("--wavenet-layers", type=int, default=8)
     p.add_argument("--wavenet-stacks", type=int, default=4)
     p.add_argument("--multitask", type=_bool, default=True)
-    p.add_argument("--dropout", type=float, default=0.1,
-                   help="attention dropout of the transformers in training")
+    p.add_argument("--dropout", type=float, default=None,
+                   help="dropout in training (default 0.1)")
+    # the NAR model (nar_s2ut_conformer; widths left unset take the arch's)
+    for flag in ("--encoder-embed-dim", "--encoder-ffn-embed-dim", "--encoder-layers",
+                 "--encoder-attention-heads", "--decoder-embed-dim", "--decoder-ffn-embed-dim",
+                 "--decoder-layers", "--decoder-attention-heads",
+                 "--depthwise-conv-kernel-size"):
+        p.add_argument(flag, type=int)
+    p.add_argument("--input-feat-per-channel", type=int, default=80)
+    p.add_argument("--conv-channels", type=int, default=1024)
+    p.add_argument("--conv-kernel-sizes", type=_ints, default=(5, 5))
+    p.add_argument("--attn-type")
+    p.add_argument("--pos-enc-type")
+    p.add_argument("--attention-dropout", type=float,
+                   help="dropout of attention probabilities (default --dropout)")
+    p.add_argument("--relu-dropout", "--activation-dropout", dest="relu_dropout", type=float,
+                   help="dropout of the FFN activations (default --dropout)")
+    p.add_argument("--cg-prob", type=float, default=0.0,
+                   help="classifier-free-guidance drop rate of whole sources")
+    _flag(p, "--use-sp", help="self-prompting")
+    _flag(p, "--use-side", help="the side mask in half of the CMLM canvases")
+    p.add_argument("--label-smoothing", type=float, default=0.2)
+    p.add_argument("--n-frames-per-step", type=int, default=1)
+    for name in UNPORTED:
+        p.add_argument("--" + name.replace("_", "-"), nargs="?", const=True, default=None,
+                       help="not ported: raises")
     # data
+    p.add_argument("--config-yaml", help="the data config, relative to DATA "
+                                          "(default config.yaml)")
+    p.add_argument("--dummy-config", help="alias of --config-yaml")
     p.add_argument("--train-subset", default="train")
     p.add_argument("--valid-subset", default="dev")
     p.add_argument("--max-tokens", type=int)
+    p.add_argument("--max-source-positions", type=int)
     p.add_argument("--max-target-positions", type=int)
     # optimization: fairseq Adam
     p.add_argument("--lr", type=float, default=5e-4)
@@ -112,12 +175,31 @@ def parse_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
     p.add_argument("--save-interval", type=int, default=1, help="epochs")
     p.add_argument("--log-interval", type=int, default=100)
     args = p.parse_args(argv)
-    criterion, arch = STAGES[args.task]
-    for flag, given, want in (("--criterion", args.criterion, criterion),
-                              ("--arch", args.arch, arch)):
-        if given is not None and given != want:
-            p.error(f"{flag} {given}: task {args.task} trains {want}")
+    criterion, archs = STAGES[args.task]
+    if args.criterion is not None and args.criterion != criterion:
+        p.error(f"--criterion {args.criterion}: task {args.task} trains {criterion}")
+    if args.arch is not None and args.arch not in archs:
+        p.error(f"--arch {args.arch}: task {args.task} trains {' or '.join(archs)}")
+    for name in UNPORTED:
+        if str(getattr(args, name)).lower() not in ("none", "false", "0"):
+            raise NotImplementedError(f"--{name.replace('_', '-')} is not ported")
+    if args.task == NAR_TASK:
+        NAR_ARCHS[args.arch or archs[0]](vars(args))
+    else:
+        if args.tgt_feat_dir is None:
+            p.error(f"task {args.task} needs --tgt-feat-dir")
+        args.dropout = 0.1 if args.dropout is None else args.dropout
+    args.config_yaml = args.config_yaml or args.dummy_config or "config.yaml"
     return args
+
+
+def max_positions(args: argparse.Namespace):
+    """The size cap of filter-by-size, (max_source_positions,
+    max_target_positions), or None when neither is set (JAX
+    cli/train.py:40-49)."""
+    if args.max_source_positions is None and args.max_target_positions is None:
+        return None
+    return args.max_source_positions, args.max_target_positions
 
 
 def fmt_metrics(vals: Dict[str, float]) -> str:
@@ -146,18 +228,19 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
 
     epoch_itr = EpochBatchIterator(
         task.dataset(args.train_subset), max_tokens=args.max_tokens, seed=args.seed,
-        max_positions=args.max_target_positions, ignore_invalid_inputs=True)
+        max_positions=max_positions(args), ignore_invalid_inputs=True)
     ckpt = CheckpointManager(args.save_dir, keep_last=args.keep_last_epochs,
                              keep_best=args.keep_best_checkpoints)
     start_epoch = 1
     last = ckpt.latest_step()
     if last is not None:
-        params, state, extra = ckpt.load(last, device)
-        from_jax_params(model, params)
+        variables, state, extra = ckpt.load(last, device)
+        from_jax_variables(model, variables)
         trainer.load_state_dict(state)
         epoch_itr.load_state_dict(extra["iterator"])
         start_epoch = extra["epoch"]
         logger.info("resumed from step %d (epoch %d)", last, start_epoch)
+    np_rng = np.random.default_rng(args.seed)  # the batches' draws (the CMLM canvases)
 
     def run_validation() -> Optional[float]:
         try:
@@ -166,8 +249,8 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
             logger.warning("validation skipped: %s", e)
             return None
         generator = torch.Generator(device=device).manual_seed(0)
-        rows = [trainer.valid_step(batch, generator)
-                for batch in iterate_valid(dataset, args.max_tokens, args.max_target_positions)]
+        rows = [trainer.valid_step(task.prepare_batch(batch, np_rng), generator)
+                for batch in iterate_valid(dataset, args.max_tokens, max_positions(args))]
         vals = summarize(rows) if rows else {}
         logger.info("valid | %s", fmt_metrics(vals))
         return vals.get(args.best_checkpoint_metric)
@@ -182,7 +265,7 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
     while not done:
         interval, t0, first = [], time.time(), step
         for micro in grouped(epoch_itr.next_epoch_itr(), args.update_freq):
-            mets = trainer.train_step(micro)
+            mets = trainer.train_step([task.prepare_batch(b, np_rng) for b in micro])
             step = trainer.num_updates
             interval.append(mets)
             if step % args.log_interval == 0:

@@ -1,29 +1,37 @@
-"""Conformer speech encoder with ESPnet-style relative-position attention,
-inference only (PyTorch, batch-first [B, T, C]).
+"""Conformer speech encoder with ESPnet-style relative-position attention
+(PyTorch, batch-first [B, T, C]).
 
 Counterpart of diffnorm_tpu/models/conformer.py (reference
 s2t_conformer.py / conformer_layer.py / espnet_multihead_attention.py):
   Conv1dSubsampler: two stride-2 GLU convs (4x temporal downsample)
   per layer: 0.5 * macaron FFN -> rel-pos MHA -> conv module (GLU pointwise,
-  depthwise k=31, BatchNorm on running statistics, SiLU) -> 0.5 * FFN ->
-  LayerNorm
+  depthwise k=31, BatchNorm, SiLU) -> 0.5 * FFN -> LayerNorm
 Submodule and parameter names follow the flax tree (`weights.py` maps
 `kernel` / `scale` and the BatchNorm statistics). Every LayerNorm uses flax's
 epsilon 1e-6 (torch's default is 1e-5). Each module computes in the dtype of
 its weights; attention scores, softmax and probs @ v are f32, as in JAX.
+
+In training mode (JAX's `deterministic=False`) the dropouts of JAX's modules
+apply: after the input projection, on the FFN's activation
+(`activation_dropout`) and output, on the attention probabilities
+(`attention_dropout`) and output, and on the conv module's output; the
+rates left None fall back to `dropout`. Each draws from its module's
+`generator` (`layers.set_dropout_generator`). BatchNorm normalizes with the
+batch's statistics and updates its running ones, as flax's does.
 """
 
 from __future__ import annotations
 
 import math
-from typing import Sequence, Tuple
+from typing import Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
 
-from diffnorm_tpu_torch.models.layers import Dense
+from diffnorm_tpu_torch.models.layers import Dense, Dropout, DropoutSite
+from diffnorm_tpu_torch.ops.attention import apply_dropout
 
 LN_EPS = 1e-6  # flax nn.LayerNorm
 
@@ -89,12 +97,14 @@ def rel_shift(x: torch.Tensor) -> torch.Tensor:
     return x.reshape(b, h, t, 2 * t - 1)[..., :t]
 
 
-class RelPosSelfAttention(nn.Module):
-    """Transformer-XL style self-attention with pos_bias_u / pos_bias_v."""
+class RelPosSelfAttention(DropoutSite, nn.Module):
+    """Transformer-XL style self-attention with pos_bias_u / pos_bias_v;
+    `dropout` drops attention probabilities in training mode."""
 
-    def __init__(self, dim: int, heads: int):
+    def __init__(self, dim: int, heads: int, dropout: float = 0.0):
         super().__init__()
         self.dim, self.heads = dim, heads
+        self.dropout = dropout
         d = dim // heads
         for name in ("linear_q", "linear_k", "linear_v", "linear_out"):
             self.add_module(name, Dense(dim, dim))
@@ -122,24 +132,41 @@ class RelPosSelfAttention(nn.Module):
         scores = (ac + rel_shift(bd)) / math.sqrt(d)
         scores = scores.masked_fill(~mask[:, None, None, :], torch.finfo(torch.float32).min)
         attn = scores.softmax(dim=-1)
+        if self.training and self.dropout > 0.0:
+            attn = apply_dropout(attn, self.dropout, self.generator)
         out = torch.matmul(attn, v.float()).to(x.dtype)
         return self.linear_out(out.transpose(1, 2).reshape(b, t, self.dim))
 
 
 class ConformerFFN(nn.Module):
-    def __init__(self, dim: int, ffn_dim: int):
+    def __init__(self, dim: int, ffn_dim: int, dropout: float = 0.0,
+                 activation_dropout: float = 0.0):
         super().__init__()
         self.layer_norm = layer_norm(dim)
         self.w_1 = Dense(dim, ffn_dim)
+        self.activation_dropout = Dropout(activation_dropout)
         self.w_2 = Dense(ffn_dim, dim)
+        self.dropout = Dropout(dropout)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return self.w_2(F.silu(self.w_1(self.layer_norm(x))))
+        h = self.activation_dropout(F.silu(self.w_1(self.layer_norm(x))))
+        return self.dropout(self.w_2(h))
 
 
 class BatchNorm(nn.Module):
-    """flax nn.BatchNorm(use_running_average=True) over the last axis: f32
-    (x - mean) * (scale * rsqrt(var + eps)) + bias, cast back to x's type."""
+    """flax nn.BatchNorm(momentum=0.9, epsilon=1e-5) over the last axis of
+    [B, T, C]: f32 (x - mean) * (scale * rsqrt(var + eps)) + bias, cast back
+    to x's type. In eval mode (use_running_average) mean and var are the
+    running statistics. In training mode they are the batch's, in float32
+    over every B x T frame, padding included: mean(x) and the biased
+    max(0, mean(x^2) - mean(x)^2), flax's fast variance; the running
+    statistics become 0.9 * old + 0.1 * batch. torch's BatchNorm keeps the
+    unbiased variance, so this is not nn.BatchNorm1d. The running statistics
+    stay float32 when the module is cast (`_apply`), as flax keeps
+    batch_stats."""
+
+    momentum = 0.9
+    STATS = ("running_mean", "running_var")
 
     def __init__(self, dim: int, eps: float = 1e-5):
         super().__init__()
@@ -149,14 +176,32 @@ class BatchNorm(nn.Module):
         self.register_buffer("running_mean", torch.zeros(dim))
         self.register_buffer("running_var", torch.ones(dim))
 
+    def _apply(self, fn, recurse=True):
+        stats = {k: self._buffers[k] for k in self.STATS}
+        out = super()._apply(fn, recurse)
+        for k, before in stats.items():
+            if self._buffers[k].dtype != torch.float32:
+                self._buffers[k] = before.to(self._buffers[k].device)
+        return out
+
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        mul = torch.rsqrt(self.running_var.float() + self.eps) * self.weight.float()
-        y = (x.float() - self.running_mean.float()) * mul + self.bias.float()
+        if self.training:
+            xf = x.float()
+            mean = xf.mean(dim=(0, 1))
+            var = torch.clamp(xf.square().mean(dim=(0, 1)) - mean.square(), min=0.0)
+            with torch.no_grad():
+                for name, batch in zip(self.STATS, (mean, var)):
+                    running = getattr(self, name)
+                    running.copy_(self.momentum * running + (1.0 - self.momentum) * batch)
+        else:
+            mean, var = self.running_mean.float(), self.running_var.float()
+        mul = torch.rsqrt(var + self.eps) * self.weight.float()
+        y = (x.float() - mean) * mul + self.bias.float()
         return y.to(x.dtype)
 
 
 class ConvModule(nn.Module):
-    def __init__(self, dim: int, kernel_size: int = 31):
+    def __init__(self, dim: int, kernel_size: int = 31, dropout: float = 0.0):
         super().__init__()
         self.layer_norm = layer_norm(dim)
         self.pointwise_conv1 = Conv1d(dim, 2 * dim, 1, bias=False)
@@ -164,47 +209,58 @@ class ConvModule(nn.Module):
                                      groups=dim, bias=False)
         self.batch_norm = BatchNorm(dim)
         self.pointwise_conv2 = Conv1d(dim, dim, 1, bias=False)
+        self.dropout = Dropout(dropout)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         x = F.glu(self.pointwise_conv1(self.layer_norm(x)), dim=-1)
         x = F.silu(self.batch_norm(self.depthwise_conv(x)))
-        return self.pointwise_conv2(x)
+        return self.dropout(self.pointwise_conv2(x))
 
 
 class ConformerLayer(nn.Module):
-    def __init__(self, dim: int, ffn_dim: int, heads: int, depthwise_kernel_size: int = 31):
+    def __init__(self, dim: int, ffn_dim: int, heads: int, depthwise_kernel_size: int = 31,
+                 dropout: float = 0.0, attention_dropout: float = 0.0,
+                 activation_dropout: float = 0.0):
         super().__init__()
-        self.ffn1 = ConformerFFN(dim, ffn_dim)
+        self.ffn1 = ConformerFFN(dim, ffn_dim, dropout, activation_dropout)
         self.self_attn_layer_norm = layer_norm(dim)
-        self.self_attn = RelPosSelfAttention(dim, heads)
-        self.conv_module = ConvModule(dim, depthwise_kernel_size)
-        self.ffn2 = ConformerFFN(dim, ffn_dim)
+        self.self_attn = RelPosSelfAttention(dim, heads, attention_dropout)
+        self.attn_dropout = Dropout(dropout)
+        self.conv_module = ConvModule(dim, depthwise_kernel_size, dropout)
+        self.ffn2 = ConformerFFN(dim, ffn_dim, dropout, activation_dropout)
         self.final_layer_norm = layer_norm(dim)
 
     def forward(self, x, pos_emb, mask):
         x = x + 0.5 * self.ffn1(x)
-        x = x + self.self_attn(self.self_attn_layer_norm(x), pos_emb, mask)
+        x = x + self.attn_dropout(self.self_attn(self.self_attn_layer_norm(x), pos_emb, mask))
         x = x + self.conv_module(x)
         x = x + 0.5 * self.ffn2(x)
         return self.final_layer_norm(x)
 
 
 class ConformerEncoder(nn.Module):
-    """Subsample -> scale -> linear -> layers. Returns (features [B, T', C],
-    mask [B, T'] True = valid)."""
+    """Subsample -> scale -> linear -> dropout -> layers. Returns (features
+    [B, T', C], mask [B, T'] True = valid). `attention_dropout` and
+    `activation_dropout` fall back to `dropout` where None."""
 
     def __init__(self, in_channels: int = 80, dim: int = 512, ffn_dim: int = 2048,
                  layers: int = 12, heads: int = 8, depthwise_kernel_size: int = 31,
-                 conv_channels: int = 1024, conv_kernel_sizes: Sequence[int] = (5, 5)):
+                 conv_channels: int = 1024, conv_kernel_sizes: Sequence[int] = (5, 5),
+                 dropout: float = 0.0, attention_dropout: Optional[float] = None,
+                 activation_dropout: Optional[float] = None):
         super().__init__()
         self.dim = dim
         self.subsample = Conv1dSubsampler(in_channels, conv_channels, dim,
                                           tuple(conv_kernel_sizes))
         self.linear = Dense(dim, dim)
+        self.input_dropout = Dropout(dropout)
+        attention_dropout = dropout if attention_dropout is None else attention_dropout
+        activation_dropout = dropout if activation_dropout is None else activation_dropout
         self.n_layers = layers
         for i in range(layers):
-            self.add_module(f"layer_{i}", ConformerLayer(dim, ffn_dim, heads,
-                                                         depthwise_kernel_size))
+            self.add_module(f"layer_{i}", ConformerLayer(
+                dim, ffn_dim, heads, depthwise_kernel_size, dropout, attention_dropout,
+                activation_dropout))
 
     def forward(self, src: torch.Tensor, src_lengths: torch.Tensor
                 ) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -213,7 +269,7 @@ class ConformerEncoder(nn.Module):
         x = x * math.sqrt(self.dim)
         pos = torch.from_numpy(rel_positional_encoding(x.shape[1], self.dim)).to(
             device=x.device, dtype=x.dtype)
-        x = self.linear(x)
+        x = self.input_dropout(self.linear(x))
         for i in range(self.n_layers):
             x = getattr(self, f"layer_{i}")(x, pos, mask)
         return x, mask

@@ -367,7 +367,14 @@ class FeedForward(nn.Module):
         return F.linear(h, w["w_out"], self.proj_out.bias)
 
 
-class Attention(QuantSite, nn.Module):
+class DropoutSite:
+    """A module whose training forward drops from `self.generator`, which
+    `set_dropout_generator` sets (the trainer's dropout stream)."""
+
+    generator: Optional[torch.Generator] = None
+
+
+class Attention(QuantSite, DropoutSite, nn.Module):
     """Multi-head self-attention with a key-padding mask [B, T] (True =
     valid); unbiased q / kv / out projections, scale dim_head ** -0.5.
 
@@ -385,7 +392,7 @@ class Attention(QuantSite, nn.Module):
                  dropout: float = 0.0):
         super().__init__()
         self.heads, self.dim_head, self.quant, self.knobs = heads, dim_head, quant, knobs
-        self.dropout, self.generator = dropout, None
+        self.dropout = dropout
         inner = heads * dim_head
         self.to_q = Dense(dim, inner, bias=False, quant=quant, knobs=knobs)
         self.to_kv = Dense(dim, 2 * inner, bias=False, quant=quant, knobs=knobs)
@@ -535,8 +542,27 @@ class ConditionableTransformer(nn.Module):
         return self.to_pred(self.final_norm(x))
 
 
+class Dropout(DropoutSite, nn.Module):
+    """flax nn.Dropout: in training mode (JAX's `deterministic=False`) each
+    element is kept with 1 - p and the kept ones scaled by 1 / (1 - p),
+    drawn from `self.generator`; the identity in eval mode or at p = 0."""
+
+    def __init__(self, p: float):
+        super().__init__()
+        self.p = p
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if not self.training or self.p == 0.0:
+            return x
+        return attention_ops.apply_dropout(x, self.p, self.generator)
+
+    def extra_repr(self) -> str:
+        return f"p={self.p}"
+
+
 def set_dropout_generator(model: nn.Module, generator: Optional[torch.Generator]) -> None:
-    """The generator every attention dropout of `model` draws from."""
+    """The generator every dropout of `model` draws from (each
+    `DropoutSite`: `Dropout`, and the attentions that drop probabilities)."""
     for m in model.modules():
-        if isinstance(m, Attention):
+        if isinstance(m, DropoutSite):
             m.generator = generator

@@ -1,4 +1,4 @@
-"""Non-autoregressive CMLM speech-to-unit translator, inference only.
+"""Non-autoregressive CMLM speech-to-unit translator.
 
 Counterpart of diffnorm_tpu/models/nar_transformer.py with
 n_frames_per_step=1 and the shared input/output embedding: a conformer
@@ -8,33 +8,43 @@ positions keyed on the pad structure; logits = x @ embed^T) and a 256-way
 length head over the mean-pooled encoder states. The decoder's attention
 runs through `ops.attention.masked_attention`, whose encoder attention takes
 the flash-attention kernel on the card once the subsampled source reaches
-2048 frames. Names follow the flax tree (`weights.from_jax_variables`).
+2048 frames and no attention dropout applies. Names follow the flax tree
+(`weights.from_jax_variables`).
+
+Training (`NARS2UTModule.forward` in training mode) has JAX's dropouts, its
+classifier-free-guidance drop of whole sources (`cg_prob`) and
+self-prompting (`use_sp`); the dropouts draw from each module's `generator`
+(`layers.set_dropout_generator`), the CG and SP draws from the model's
+`cg_generator` and `sp_generator`, which the trainer sets.
 
 Dictionary layout: bos=0, pad=1, eos=2, unk=3 (mask token), units at +4.
 """
 
 from __future__ import annotations
 
+import contextlib
 import math
-from typing import Optional, Sequence
+from typing import Dict, Optional, Sequence
 
 import torch
 import torch.nn.functional as F
 from torch import nn
 
 from diffnorm_tpu_torch.models.conformer import ConformerEncoder, layer_norm
-from diffnorm_tpu_torch.models.layers import Dense, sinusoidal_positions
+from diffnorm_tpu_torch.models.layers import Dense, Dropout, DropoutSite, sinusoidal_positions
 from diffnorm_tpu_torch.ops import attention as attention_ops
 
 PAD, BOS, EOS, UNK = 1, 0, 2, 3
 
 
-class MultiheadAttention(nn.Module):
-    """fairseq-style MHA (biased q/k/v/out projections)."""
+class MultiheadAttention(DropoutSite, nn.Module):
+    """fairseq-style MHA (biased q/k/v/out projections); `dropout` drops
+    attention probabilities in training mode."""
 
-    def __init__(self, dim: int, heads: int):
+    def __init__(self, dim: int, heads: int, dropout: float = 0.0):
         super().__init__()
         self.dim, self.heads = dim, heads
+        self.dropout = dropout
         for name in ("q_proj", "k_proj", "v_proj", "out_proj"):
             self.add_module(name, Dense(dim, dim))
 
@@ -48,27 +58,39 @@ class MultiheadAttention(nn.Module):
             return z.reshape(b, z.shape[1], h, d).transpose(1, 2)
 
         q, k, v = heads_of(self.q_proj(x)), heads_of(self.k_proj(ctx)), heads_of(self.v_proj(ctx))
-        out = attention_ops.masked_attention(q, k, v, mask=mask)
+        out = attention_ops.masked_attention(
+            q, k, v, mask=mask, dropout=self.dropout if self.training else 0.0,
+            generator=self.generator)
         return self.out_proj(out.transpose(1, 2).reshape(b, tq, self.dim))
 
 
 class DecoderLayer(nn.Module):
-    """Pre-norm decoder layer: self-attention, encoder attention, ReLU FF."""
+    """Pre-norm decoder layer: self-attention, encoder attention, ReLU FF,
+    each sublayer's output dropped by `dropout`, the FF activation by
+    `activation_dropout`, attention probabilities by `attention_dropout`."""
 
-    def __init__(self, dim: int, ffn_dim: int, heads: int):
+    def __init__(self, dim: int, ffn_dim: int, heads: int, dropout: float = 0.0,
+                 attention_dropout: float = 0.0, activation_dropout: float = 0.0):
         super().__init__()
         self.self_attn_layer_norm = layer_norm(dim)
-        self.self_attn = MultiheadAttention(dim, heads)
+        self.self_attn = MultiheadAttention(dim, heads, attention_dropout)
+        self.self_attn_dropout = Dropout(dropout)
         self.encoder_attn_layer_norm = layer_norm(dim)
-        self.encoder_attn = MultiheadAttention(dim, heads)
+        self.encoder_attn = MultiheadAttention(dim, heads, attention_dropout)
+        self.encoder_attn_dropout = Dropout(dropout)
         self.final_layer_norm = layer_norm(dim)
         self.fc1 = Dense(dim, ffn_dim)
+        self.activation_dropout = Dropout(activation_dropout)
         self.fc2 = Dense(ffn_dim, dim)
+        self.ff_dropout = Dropout(dropout)
 
     def forward(self, x, self_mask, enc, enc_mask):
-        x = x + self.self_attn(self.self_attn_layer_norm(x), mask=self_mask)
-        x = x + self.encoder_attn(self.encoder_attn_layer_norm(x), context=enc, mask=enc_mask)
-        return x + self.fc2(F.relu(self.fc1(self.final_layer_norm(x))))
+        x = x + self.self_attn_dropout(self.self_attn(self.self_attn_layer_norm(x),
+                                                      mask=self_mask))
+        x = x + self.encoder_attn_dropout(self.encoder_attn(
+            self.encoder_attn_layer_norm(x), context=enc, mask=enc_mask))
+        h = self.activation_dropout(F.relu(self.fc1(self.final_layer_norm(x))))
+        return x + self.ff_dropout(self.fc2(h))
 
 
 class NATUnitDecoder(nn.Module):
@@ -76,15 +98,19 @@ class NATUnitDecoder(nn.Module):
     input/output embedding)."""
 
     def __init__(self, vocab_size: int, dim: int = 512, ffn_dim: int = 2048,
-                 layers: int = 6, heads: int = 8, max_lengths: int = 256):
+                 layers: int = 6, heads: int = 8, max_lengths: int = 256,
+                 dropout: float = 0.0, attention_dropout: float = 0.0,
+                 activation_dropout: float = 0.0):
         super().__init__()
         self.dim, self.n_layers, self.max_lengths = dim, layers, max_lengths
         self.embed_tokens = nn.Embedding(vocab_size, dim)
         self.embed_length = nn.Embedding(max_lengths, dim)
         for emb in (self.embed_tokens, self.embed_length):
             nn.init.normal_(emb.weight, std=dim ** -0.5)
+        self.embed_dropout = Dropout(dropout)
         for i in range(layers):
-            self.add_module(f"layer_{i}", DecoderLayer(dim, ffn_dim, heads))
+            self.add_module(f"layer_{i}", DecoderLayer(dim, ffn_dim, heads, dropout,
+                                                       attention_dropout, activation_dropout))
         self.layer_norm = layer_norm(dim)
 
     def null_context(self) -> torch.Tensor:
@@ -97,7 +123,8 @@ class NATUnitDecoder(nn.Module):
         Returns logits [B, T, vocab] in the model's dtype."""
         valid = tokens != PAD
         x = self.embed_tokens(tokens) * math.sqrt(self.dim)
-        x = x + sinusoidal_positions(valid, self.dim, padding_idx=PAD).to(x.dtype)
+        x = self.embed_dropout(
+            x + sinusoidal_positions(valid, self.dim, padding_idx=PAD).to(x.dtype))
         for i in range(self.n_layers):
             x = getattr(self, f"layer_{i}")(x, valid, enc, enc_mask)
         x = self.layer_norm(x)
@@ -110,9 +137,20 @@ class NATUnitDecoder(nn.Module):
         return pooled @ self.embed_length.weight.to(pooled.dtype).t()
 
 
+@contextlib.contextmanager
+def _eval_mode(module: nn.Module):
+    """`module` in eval mode (no dropout) for the duration, then back."""
+    module.eval()
+    try:
+        yield module
+    finally:
+        module.train()
+
+
 class NARS2UTModule(nn.Module):
-    """Conformer encoder + NAT unit decoder (inference). Dimensions follow
-    the `nar_s2ut_conformer` arch defaults."""
+    """Conformer encoder + NAT unit decoder. Dimensions and dropout follow
+    the `nar_s2ut_conformer` arch defaults; `attention_dropout` and
+    `activation_dropout` fall back to `dropout` where None."""
 
     def __init__(self, vocab_size: int = 1004, in_channels: int = 80,
                  encoder_dim: int = 512, encoder_ffn_dim: int = 2048,
@@ -120,15 +158,25 @@ class NARS2UTModule(nn.Module):
                  decoder_dim: int = 512, decoder_ffn_dim: int = 2048,
                  decoder_layers: int = 6, decoder_heads: int = 8,
                  depthwise_kernel_size: int = 31, conv_channels: int = 1024,
-                 conv_kernel_sizes: Sequence[int] = (5, 5)):
+                 conv_kernel_sizes: Sequence[int] = (5, 5), dropout: float = 0.1,
+                 attention_dropout: Optional[float] = None,
+                 activation_dropout: Optional[float] = None, cg_prob: float = 0.0,
+                 use_sp: bool = False):
         super().__init__()
-        self.vocab_size = vocab_size
+        self.vocab_size, self.cg_prob, self.use_sp = vocab_size, cg_prob, use_sp
+        self.cg_generator: Optional[torch.Generator] = None
+        self.sp_generator: Optional[torch.Generator] = None
+        attention_dropout = dropout if attention_dropout is None else attention_dropout
+        activation_dropout = dropout if activation_dropout is None else activation_dropout
         self.encoder = ConformerEncoder(in_channels, encoder_dim, encoder_ffn_dim,
                                         encoder_layers, encoder_heads,
                                         depthwise_kernel_size, conv_channels,
-                                        conv_kernel_sizes)
+                                        conv_kernel_sizes, dropout, attention_dropout,
+                                        activation_dropout)
         self.decoder = NATUnitDecoder(vocab_size, decoder_dim, decoder_ffn_dim,
-                                      decoder_layers, decoder_heads)
+                                      decoder_layers, decoder_heads, dropout=dropout,
+                                      attention_dropout=attention_dropout,
+                                      activation_dropout=activation_dropout)
 
     def encode(self, src: torch.Tensor, src_lengths: torch.Tensor):
         return self.encoder(src, src_lengths)
@@ -146,3 +194,87 @@ class NARS2UTModule(nn.Module):
 
     def forward_length(self, enc, enc_mask):
         return self.decoder.forward_length(enc, enc_mask)
+
+    def self_prompt(self, prev_tokens: torch.Tensor, enc: torch.Tensor,
+                    enc_mask: torch.Tensor, use_prompt: torch.Tensor):
+        """Self-prompting (JAX nar_transformer.py:480-506): a draft y0 of the
+        canvas by the decoder without dropout or gradient, specials banned,
+        PAD and EOS kept; its embedding goes before the encoder frames where
+        `use_prompt` (a 0-d bool), else the frames are padded by as many
+        masked positions, so the key length does not depend on the draw."""
+        with torch.no_grad(), _eval_mode(self.decoder):
+            draft_logits = self.decoder(prev_tokens, enc, enc_mask).float()
+        draft_logits[..., :4] = torch.finfo(torch.float32).min
+        draft = draft_logits.argmax(-1).to(prev_tokens.dtype)
+        keep = (prev_tokens == PAD) | (prev_tokens == EOS)
+        y0 = torch.where(keep, prev_tokens, draft)
+        prompt = self.decoder.embed_tokens(y0).detach().to(enc.dtype)
+        n = prompt.shape[1]
+        sp_enc = torch.cat([prompt, enc], dim=1)
+        sp_mask = torch.cat([y0 != PAD, enc_mask], dim=1)
+        pad_enc = F.pad(enc, (0, 0, 0, n))
+        pad_mask = F.pad(enc_mask, (0, n), value=False)
+        return (torch.where(use_prompt, sp_enc, pad_enc),
+                torch.where(use_prompt, sp_mask, pad_mask))
+
+    def forward(self, src: torch.Tensor, src_lengths: torch.Tensor, prev_tokens: torch.Tensor,
+                tgt_tokens: torch.Tensor, cg_drop: Optional[torch.Tensor] = None,
+                use_prompt: Optional[torch.Tensor] = None) -> Dict[str, torch.Tensor]:
+        """The training and validation forward (JAX's __call__ with
+        tgt_tokens). src [B, T, 80], prev_tokens the CMLM canvas [B, L],
+        tgt_tokens the targets [B, L]. In training mode, rows are CG-dropped
+        with cg_prob and (use_sp) the self-prompt is taken with 0.5, drawn
+        from cg_generator and sp_generator unless given as `cg_drop` [B]
+        bool and `use_prompt` 0-d bool. Returns logits [B, L, V],
+        word_ins_mask (the canvas's UNK positions), length_logits [B, 256]
+        and length_tgt, the target lengths clipped to 255."""
+        enc, enc_mask = self.encoder(src, src_lengths)
+        length_logits = self.decoder.forward_length(enc, enc_mask)
+        length_tgt = torch.clamp((tgt_tokens != PAD).sum(dim=1), 0, self.decoder.max_lengths - 1)
+        if self.training and self.cg_prob > 0.0:
+            if cg_drop is None:
+                cg_drop = torch.rand(enc.shape[0], generator=self.cg_generator,
+                                     device=enc.device) < self.cg_prob
+            enc, enc_mask = self.apply_cg_drop(enc, enc_mask, cg_drop)
+        if self.training and self.use_sp:
+            if use_prompt is None:
+                use_prompt = torch.rand((), generator=self.sp_generator, device=enc.device) < 0.5
+            enc, enc_mask = self.self_prompt(prev_tokens, enc, enc_mask, use_prompt)
+        return {"logits": self.decoder(prev_tokens, enc, enc_mask),
+                "word_ins_mask": prev_tokens == UNK, "length_logits": length_logits,
+                "length_tgt": length_tgt}
+
+
+def _default(cfg: dict, key: str, value) -> None:
+    if cfg.get(key) is None:
+        cfg[key] = value
+
+
+def nar_s2ut_conformer_arch(cfg: dict) -> None:
+    """The `nar_s2ut_conformer` defaults for every width left None in
+    `cfg` (JAX nar_transformer.py:584-606); only ESPnet rel-pos attention is
+    implemented, as in JAX."""
+    for key, value in (("encoder_embed_dim", 512), ("encoder_ffn_embed_dim", 2048),
+                       ("encoder_layers", 12), ("encoder_attention_heads", 8)):
+        _default(cfg, key, value)
+    _default(cfg, "decoder_embed_dim", cfg["encoder_embed_dim"])
+    _default(cfg, "decoder_ffn_embed_dim", cfg["encoder_ffn_embed_dim"])
+    for key, value in (("decoder_layers", 6), ("decoder_attention_heads", 8),
+                       ("dropout", 0.1), ("depthwise_conv_kernel_size", 31),
+                       ("attn_type", "espnet"), ("pos_enc_type", "rel_pos")):
+        _default(cfg, key, value)
+    if cfg["attn_type"] != "espnet" or cfg["pos_enc_type"] != "rel_pos":
+        raise ValueError(
+            f"unsupported --attn-type {cfg['attn_type']} / --pos-enc-type "
+            f"{cfg['pos_enc_type']}: the conformer encoder implements the ESPnet rel-pos "
+            f"attention the DiffNorm recipes use")
+
+
+def nar_s2ut_conformer_fisher_arch(cfg: dict) -> None:
+    _default(cfg, "encoder_embed_dim", 256)
+    _default(cfg, "encoder_attention_heads", 4)
+    nar_s2ut_conformer_arch(cfg)
+
+
+ARCHS = {"nar_s2ut_conformer": nar_s2ut_conformer_arch,
+         "nar_s2ut_conformer_fisher": nar_s2ut_conformer_fisher_arch}

@@ -34,6 +34,15 @@ from diffnorm_tpu_torch.ops import flash_attention as flash_ops
 FLASH_MIN_LEN = 2048  # attention.py:_PALLAS_MIN_LEN
 
 
+def apply_dropout(x: torch.Tensor, p: float, generator: Optional[torch.Generator]) -> torch.Tensor:
+    """flax nn.Dropout's draw: keep each element with probability 1 - p and
+    scale the kept ones by 1 / (1 - p), from `generator`."""
+    if generator is None:
+        raise ValueError("dropout needs a generator (set_dropout_generator)")
+    keep = torch.rand(x.shape, generator=generator, device=x.device) < 1.0 - p
+    return torch.where(keep, x / (1.0 - p), 0.0)
+
+
 def masked_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                      mask: Optional[torch.Tensor] = None, dropout: float = 0.0,
                      generator: Optional[torch.Generator] = None) -> torch.Tensor:
@@ -50,10 +59,7 @@ def masked_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         sim = sim.masked_fill(~mask[:, None, None, :], torch.finfo(torch.float32).min)
     attn = sim.softmax(dim=-1)
     if dropout > 0.0:
-        if generator is None:
-            raise ValueError("masked_attention: dropout needs a generator")
-        keep = torch.rand(attn.shape, generator=generator, device=attn.device) < 1.0 - dropout
-        attn = torch.where(keep, attn / (1.0 - dropout), 0.0)
+        attn = apply_dropout(attn, dropout, generator)
     if v.dtype == torch.bfloat16:
         out = torch.matmul(attn.to(torch.bfloat16), v)
     else:

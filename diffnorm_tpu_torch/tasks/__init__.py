@@ -1,8 +1,10 @@
 """Training tasks of the PyTorch port (see diffnorm_tpu/tasks): the speech
-VAE stage and the latent normalizer over a frozen VAE."""
+VAE stage, the latent normalizer over a frozen VAE, and NAR S2UT training."""
 
 from diffnorm_tpu_torch.tasks.diffusion_task import SpeechDiffusionDiscreteTask
+from diffnorm_tpu_torch.tasks.nar_s2ut_task import NARS2UTTask
 from diffnorm_tpu_torch.tasks.vae_task import SpeechDecoderTask
 
 TASKS = {"speech_decoder": SpeechDecoderTask,
-         "speech_diffusion_discrete": SpeechDiffusionDiscreteTask}
+         "speech_diffusion_discrete": SpeechDiffusionDiscreteTask,
+         "speech_to_speech_fasttranslate": NARS2UTTask}

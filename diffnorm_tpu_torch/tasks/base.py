@@ -1,11 +1,14 @@
 """Task base (the port's copy of diffnorm_tpu/tasks/base.py): a task owns
 the dictionary and the datasets, builds the model and the criterion from
-the CLI's arguments, and names the parameter subtrees that stay frozen."""
+the CLI's arguments, prepares each batch, and names the parameter subtrees
+that stay frozen."""
 
 from __future__ import annotations
 
 import argparse
 from typing import Dict, Tuple
+
+import numpy as np
 
 from torch import nn
 
@@ -32,6 +35,11 @@ class Task:
         if split not in self.datasets:
             self.load_dataset(split)
         return self.datasets[split]
+
+    def prepare_batch(self, batch: Dict, rng: np.random.Generator) -> Dict:
+        """A collated batch made ready for the criterion, drawing from `rng`
+        (default: as it is)."""
+        return batch
 
     def load_frozen_params(self, model: nn.Module) -> None:
         """Restore the frozen subtrees from an earlier stage (default: none)."""

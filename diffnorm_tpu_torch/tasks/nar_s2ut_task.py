@@ -1,0 +1,110 @@
+"""NAR S2UT training ("speech_to_speech_fasttranslate", the port's copy of
+diffnorm_tpu/tasks/nar_s2ut_task.py; reference nat_s2s_task.py): the CMLM
+canvas of each batch, the unit dictionary, the speech-to-unit dataset, the
+conformer NAR model and its criterion.
+
+The masks draw from the numpy generator they are given, exactly as JAX's:
+the training CLI hands every batch one `np.random.default_rng(seed)`, each
+training micro-batch in order, then each validation batch.
+"""
+
+from __future__ import annotations
+
+from typing import Dict
+
+import numpy as np
+
+from diffnorm_tpu_torch.criterions.nar_loss import NARSpeechToUnitLoss
+from diffnorm_tpu_torch.data.dictionary import Dictionary
+from diffnorm_tpu_torch.data.s2s_dataset import SpeechToUnitDataset
+from diffnorm_tpu_torch.models.nar_transformer import NARS2UTModule
+from diffnorm_tpu_torch.tasks.base import Task
+
+PAD, BOS, EOS, UNK = 1, 0, 2, 3
+
+
+def _maskable(target: np.ndarray) -> np.ndarray:
+    return (target != PAD) & (target != BOS) & (target != EOS)
+
+
+def random_mask(target: np.ndarray, rng: np.random.Generator) -> np.ndarray:
+    """Uniform-count masking (nat_s2s_task.py:79-99): per sequence a budget
+    of int(U(0, 1) * len + 1) masked tokens, taken at the lowest random
+    scores; the masked ones become <unk>."""
+    masks = _maskable(target)
+    score = rng.random(target.shape)
+    score[~masks] = 2.0
+    lengths = masks.sum(axis=1).astype(np.float64)
+    budget = (lengths * rng.random(lengths.shape) + 1).astype(np.int64)
+    rank = np.argsort(score, axis=1)
+    cutoff = np.zeros_like(masks)
+    rows = np.arange(target.shape[0])[:, None]
+    cutoff[rows, rank] = np.arange(target.shape[1])[None, :] < budget[:, None]
+    out = target.copy()
+    out[cutoff] = UNK
+    return out
+
+
+def side_mask(target: np.ndarray, rng: np.random.Generator) -> np.ndarray:
+    """Gaussian "bowl" masking (nat_s2s_task.py:36-77): each position is
+    masked with a randomly shifted and scaled Gaussian probability peaked
+    mid-sequence. As the reference: the shift's bound is the integer
+    division len // 6, and the peak is normalized by the batch-global
+    maximum, not per row."""
+    masks = _maskable(target)
+    int_lengths = masks.sum(axis=1)
+    lengths = int_lengths.astype(np.float64)
+    bz, max_len = target.shape
+    shift = rng.random(bz) * (int_lengths // 6).astype(np.float64)
+    scale = rng.random(bz) * 6 + 2
+    mean = lengths / 2 - shift
+    std = np.maximum(lengths / scale, 1e-6)
+    idx = np.arange(max_len)[None, :]
+    probs = np.exp(-0.5 * ((idx - mean[:, None]) / std[:, None]) ** 2)
+    probs = probs / np.maximum(probs.max(), 1e-9)
+    probs = np.clip(probs * (rng.random((bz, 1)) + 0.5), 0, 1)
+    drawn = (rng.random(target.shape) < probs) & masks
+    out = target.copy()
+    out[drawn] = UNK
+    return out
+
+
+class NARS2UTTask(Task):
+    def __init__(self, args):
+        super().__init__(args)
+        if args.n_frames_per_step > 1:
+            raise NotImplementedError("n_frames_per_step > 1 (stacked units) is not ported")
+        self.tgt_dict = Dictionary.unit_dictionary(args.target_code_size)
+
+    def load_dataset(self, split: str) -> None:
+        # the dataset's seed stays 1 (its tie shuffle and SpecAugment
+        # stream), as JAX's task passes none
+        self.datasets[split] = SpeechToUnitDataset.from_tsv(
+            self.args.data, split, tgt_dict=self.tgt_dict, config_yaml=self.args.config_yaml,
+            is_train=split.startswith("train"))
+
+    def prepare_batch(self, batch: Dict[str, np.ndarray], rng: np.random.Generator) -> Dict:
+        """The CMLM canvas `prev_target`: with use_side, the side mask when
+        a draw is > 0.5, else the random mask."""
+        target = batch["target"]
+        if self.args.use_side and rng.random() > 0.5:
+            batch["prev_target"] = side_mask(target, rng)
+        else:
+            batch["prev_target"] = random_mask(target, rng)
+        return batch
+
+    def build_model(self) -> NARS2UTModule:
+        a = self.args
+        return NARS2UTModule(
+            vocab_size=len(self.tgt_dict), in_channels=a.input_feat_per_channel,
+            encoder_dim=a.encoder_embed_dim, encoder_ffn_dim=a.encoder_ffn_embed_dim,
+            encoder_layers=a.encoder_layers, encoder_heads=a.encoder_attention_heads,
+            decoder_dim=a.decoder_embed_dim, decoder_ffn_dim=a.decoder_ffn_embed_dim,
+            decoder_layers=a.decoder_layers, decoder_heads=a.decoder_attention_heads,
+            depthwise_kernel_size=a.depthwise_conv_kernel_size, conv_channels=a.conv_channels,
+            conv_kernel_sizes=a.conv_kernel_sizes, dropout=a.dropout,
+            attention_dropout=a.attention_dropout, activation_dropout=a.relu_dropout,
+            cg_prob=a.cg_prob, use_sp=a.use_sp)
+
+    def build_criterion(self) -> NARSpeechToUnitLoss:
+        return NARSpeechToUnitLoss(self.args.label_smoothing)

@@ -2,9 +2,12 @@
 diffnorm_tpu/train/checkpoint.py, in a format of the port's own.
 
   save_dir/
-    step_000000100/params.npz   the model tree in flax paths (weights.save_npz of
-                                to_jax_params): the normalizer's is what
-                                cli.diff_norm_synthesis --params-npz reads
+    step_000000100/params.npz   the model's variables tree in flax paths
+                                (weights.save_npz of to_jax_variables:
+                                "params", and "batch_stats" where the model
+                                has BatchNorm statistics): the normalizer's is
+                                what cli.diff_norm_synthesis --params-npz reads,
+                                the NAR model's what cli.s2st --params-npz does
     step_000000100/trainer.pt   the optimizer moments, the update count and
                                 the generator (Trainer.state_dict)
     step_000000100.json         step, metric, epoch, iterator position
@@ -23,16 +26,22 @@ from typing import Any, Dict, Optional, Tuple
 
 import torch
 
-from diffnorm_tpu_torch.weights import load_npz, save_npz, to_jax_params
+from diffnorm_tpu_torch.weights import as_variables, load_npz, save_npz, to_jax_variables
 
 PARAMS, TRAINER = "params.npz", "trainer.pt"
 
 
-def load_params(path: str) -> dict:
-    """The model tree of a checkpoint step directory (or of a .npz file)."""
+def load_variables(path: str) -> dict:
+    """The variables tree of a checkpoint step directory, or of a .npz file
+    (one holding a params tree alone is taken as its "params")."""
     if os.path.isdir(path):
         path = os.path.join(path, PARAMS)
-    return load_npz(path)
+    return as_variables(load_npz(path))
+
+
+def load_params(path: str) -> dict:
+    """The params tree of a checkpoint step directory (or of a .npz file)."""
+    return load_variables(path)["params"]
 
 
 class CheckpointManager:
@@ -55,7 +64,7 @@ class CheckpointManager:
         tmp = path + ".tmp"
         shutil.rmtree(tmp, ignore_errors=True)
         os.makedirs(tmp)
-        save_npz(os.path.join(tmp, PARAMS), to_jax_params(model))
+        save_npz(os.path.join(tmp, PARAMS), to_jax_variables(model))
         torch.save(trainer_state, os.path.join(tmp, TRAINER))
         shutil.rmtree(path, ignore_errors=True)
         os.replace(tmp, path)
@@ -94,9 +103,9 @@ class CheckpointManager:
         return self.manifest.get("last")
 
     def load(self, step: int, device) -> Tuple[dict, Dict, Dict[str, Any]]:
-        """(model tree, trainer state, sidecar) of checkpoint `step`."""
+        """(variables tree, trainer state, sidecar) of checkpoint `step`."""
         path = self.path(step)
         state = torch.load(os.path.join(path, TRAINER), map_location=device)
         with open(path + ".json") as f:
             extra = json.load(f)
-        return load_params(path), state, extra
+        return load_variables(path), state, extra

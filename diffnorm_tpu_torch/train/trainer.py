@@ -1,5 +1,5 @@
 """The trainer (the port's copy of diffnorm_tpu/train/trainer.py:55-409 as
-far as the VAE and normalizer stages use it).
+far as the VAE, normalizer and NAR S2UT stages use it).
 
 * The model's parameters split into trainable and frozen: a top-level
   submodule named in `frozen_keys` (the normalizer's `vae`) takes no
@@ -11,15 +11,24 @@ far as the VAE and normalizer stages use it).
   the working copy is refreshed in place from the masters, which moves the
   parameters' version counters, so the WaveNet / FeedForward packs follow.
   In float32 the working copy is the master itself.
+* BatchNorm running statistics (the conformer's) are model state: each
+  training micro-batch's forward updates them in order, as JAX threads
+  `mutated` per micro-batch. The working copy shares the master's float32
+  statistics tensors, so the checkpoint of the master holds them.
 * Gradient accumulation over the micro-batches of one update under the
-  criterion's "mean_loss" convention: the micro-batch gradients are summed,
-  divided by the total sample_size, clipped to `clip_norm` by global norm,
-  and applied by fairseq Adam at the inverse_sqrt lr of the update count.
-  An update with a non-finite gradient norm is skipped (the count still
-  moves, as in JAX).
-* Every draw of a training forward (times, noises, dropout) comes from the
-  trainer's generator, seeded from `seed`; metrics and the gradient norm
-  come to the host in one transfer per update.
+  criterion's `grad_accum` convention: "mean_loss" sums the micro-batch
+  gradients; "sum_loss" (the reference backwards a summed loss) first
+  scales each by its micro-batch's sample_size. Either sum is divided by
+  the total sample_size, clipped to `clip_norm` by global norm, and applied
+  by fairseq Adam at the inverse_sqrt lr of the update count. An update
+  with a non-finite gradient norm is skipped (the count still moves, as in
+  JAX).
+* Draws come from three generators seeded from `seed` (seed, seed + 1,
+  seed + 2), as JAX's NAR criterion splits its key three ways: dropout and
+  the criterions' own draws (times, noises), classifier-free-guidance drops
+  (`cg`) and self-prompting (`sp`), set on a model that has those draws.
+  Metrics and the gradient norm come to the host in one transfer per
+  update.
 """
 
 from __future__ import annotations
@@ -33,6 +42,7 @@ import numpy as np
 import torch
 from torch import nn
 
+from diffnorm_tpu_torch.models.conformer import BatchNorm
 from diffnorm_tpu_torch.models.layers import set_dropout_generator
 from diffnorm_tpu_torch.train.lr_schedules import inverse_sqrt
 from diffnorm_tpu_torch.train.optimizers import FairseqAdam
@@ -42,7 +52,10 @@ logger = logging.getLogger("diffnorm_tpu_torch.train")
 COUNT_KEYS = ("ntokens", "nsentences", "sample_size")
 BATCH_KEYS = ("reduce_target", "reduce_target_unit", "reduce_target_lengths",
               "posterior_noise", "inject_times", "inject_enc_noise", "inject_x1_noise",
-              "inject_q_noise")
+              "inject_q_noise", "src_tokens", "src_lengths", "target", "prev_target",
+              "inject_cg_drop", "inject_use_prompt")
+GRAD_ACCUM = ("mean_loss", "sum_loss")
+GENERATORS = ("generator", "cg_generator", "sp_generator")
 
 
 @dataclasses.dataclass
@@ -61,9 +74,9 @@ class TrainerConfig:
 class Trainer:
     def __init__(self, cfg: TrainerConfig, model: nn.Module, criterion,
                  frozen_keys: Sequence[str] = ()):
-        if getattr(criterion, "grad_accum", None) != "mean_loss":
+        if getattr(criterion, "grad_accum", None) not in GRAD_ACCUM:
             raise ValueError(f"{type(criterion).__name__}: the trainer takes criterions of "
-                             f"the mean_loss convention")
+                             f"the conventions {GRAD_ACCUM}")
         self.cfg, self.master, self.criterion = cfg, model, criterion
         self.device = next(model.parameters()).device
         for name, p in model.named_parameters():
@@ -72,6 +85,11 @@ class Trainer:
             p.requires_grad_(name.split(".")[0] not in frozen_keys)
         dtype = getattr(torch, cfg.dtype)
         self.model = model if dtype == torch.float32 else copy.deepcopy(model).to(dtype)
+        if self.model is not model:
+            for m, w in zip(model.modules(), self.model.modules()):
+                if isinstance(m, BatchNorm):
+                    for name in BatchNorm.STATS:
+                        w._buffers[name] = m._buffers[name]
         names = [n for n, p in model.named_parameters() if p.requires_grad]
         work = dict(self.model.named_parameters())
         masters = dict(model.named_parameters())
@@ -79,8 +97,11 @@ class Trainer:
         self.work_params = [work[n] for n in names]
         self.optimizer = FairseqAdam(self.params, cfg.adam_betas, cfg.adam_eps, cfg.weight_decay)
         self.schedule = inverse_sqrt(cfg.lr, cfg.warmup_updates, cfg.warmup_init_lr)
-        self.generator = torch.Generator(device=self.device).manual_seed(cfg.seed)
+        self.generator, self.cg_generator, self.sp_generator = (
+            torch.Generator(device=self.device).manual_seed(cfg.seed + i) for i in range(3))
         set_dropout_generator(self.model, self.generator)
+        if hasattr(self.model, "cg_generator"):
+            self.model.cg_generator, self.model.sp_generator = self.cg_generator, self.sp_generator
         self.num_updates = 0
         self.skipped_steps = 0
 
@@ -103,13 +124,15 @@ class Trainer:
         self.model.train()
         acc = [torch.zeros_like(p) for p in self.params]
         vecs, keys = [], None
+        sum_loss = self.criterion.grad_accum == "sum_loss"
         for batch in batches:
             loss, mets = self.criterion(self.model, self._to_device(batch),
                                         generator=self.generator)
             grads = torch.autograd.grad(loss, self.work_params, allow_unused=True)
+            scale = torch.as_tensor(mets["sample_size"], dtype=torch.float32) if sum_loss else None
             for a, g in zip(acc, grads):
                 if g is not None:
-                    a.add_(g.float())
+                    a.add_(g.float() * scale if sum_loss else g.float())
             keys = keys or sorted(mets)
             vecs.append(torch.stack([torch.as_tensor(mets[k], dtype=torch.float32,
                                                      device=self.device) for k in keys]).detach())
@@ -145,16 +168,18 @@ class Trainer:
 
     def state_dict(self) -> Dict:
         """Everything of the trainer a resume needs beside the master
-        parameters: the moments, the update count, the generator."""
+        variables: the moments, the update count, the generators."""
         return {"optimizer": self.optimizer.state_dict(), "num_updates": self.num_updates,
                 "skipped_steps": self.skipped_steps,
-                "generator": self.generator.get_state()}
+                **{key: getattr(self, key).get_state() for key in GENERATORS}}
 
     def load_state_dict(self, state: Dict) -> None:
         self.optimizer.load_state_dict(state["optimizer"])
         self.num_updates = int(state["num_updates"])
         self.skipped_steps = int(state["skipped_steps"])
-        self.generator.set_state(state["generator"].cpu())
+        for key in GENERATORS:
+            if key in state:  # an older checkpoint holds the first alone
+                getattr(self, key).set_state(state[key].cpu())
         self._refresh_working_copy()
 
 

@@ -173,6 +173,17 @@ def to_jax_params(model: nn.Module) -> dict:
     return to_jax_variables(model)["params"]
 
 
+COLLECTIONS = ("params", "batch_stats", "quant_stats")
+
+
+def as_variables(tree: Mapping) -> dict:
+    """A variables tree as it is; a params tree alone (whose top level names
+    modules, not collections) as {"params": tree}."""
+    if "params" in tree and set(tree) <= set(COLLECTIONS):
+        return dict(tree)
+    return {"params": tree}
+
+
 def save_npz(path: str, tree: Mapping) -> None:
     """Write a params or variables tree as one .npz with '/'-joined keys."""
     np.savez(path, **{"/".join(p): np.asarray(v, dtype=np.float32)

@@ -39,7 +39,7 @@ from diffnorm_tpu_torch.train.checkpoint import CheckpointManager, load_params
 from diffnorm_tpu_torch.train.lr_schedules import inverse_sqrt
 from diffnorm_tpu_torch.train.optimizers import FairseqAdam
 from diffnorm_tpu_torch.train.trainer import Trainer, TrainerConfig
-from diffnorm_tpu_torch.weights import from_jax_params, to_jax_params
+from diffnorm_tpu_torch.weights import from_jax_params, from_jax_variables, to_jax_params
 
 B, T, FEAT, LATENT, CODES = 2, 9, 24, 3, 16
 VAE = dict(feature_dim=FEAT, latent_dim=LATENT, chan_mults=[4], vae_decoder_depth=1,
@@ -300,8 +300,8 @@ def test_resume_is_bit_equal(tmp_path):
     ckpt = CheckpointManager(str(tmp_path))
     ckpt.save(6, model2, trainer2.state_dict(), None, {"epoch": 1})
     model3, trainer3 = fresh()
-    params, state, extra = ckpt.load(ckpt.latest_step(), "cpu")
-    from_jax_params(model3, params)
+    variables, state, extra = ckpt.load(ckpt.latest_step(), "cpu")
+    from_jax_variables(model3, variables)
     trainer3.load_state_dict(state)
     assert extra["epoch"] == 1 and trainer3.num_updates == 6
     resumed = first + [trainer3.train_step(micros[2 * u:2 * u + 2]) for u in range(6, 12)]
