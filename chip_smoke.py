@@ -98,6 +98,23 @@ plain versions (recon row-cos, unit agreement) and the bf16 path's units.
    the released widths in bf16 for 2 updates and a checkpoint, resumed to
    4, then cli.s2st --params-npz on the step directory with the released
    vocoder: its wall and RTF.
+12. prep bench: bench.py --prepare's program in eager form, mHuBERT-base
+   (768 x 12 heads, FFN 3072, the released conv extractor) from a seeded
+   init to layer 11 in bf16 on B8 x 10 s, then the K=1000 argmin on float32
+   features: the median wall of 5 calls, RTF, peak memory, profile; bf16
+   against the float32 forward (features row-cos and max-abs/scale held to
+   bounds, units under a fitted codebook).
+13. prep long form: one 70 s utterance (3499 frames) in float32, the CLI's
+   type: every layer's self-attention launches flash_attention (11 a
+   forward), held to the same forward through the plain versions (features,
+   units under a fitted K=1000 codebook).
+14. entry point prep: cli.get_manifest on 24 WAV utterances of 3-7 s and a
+   70 s one, then cli.prepare dump-features (the encoder from a
+   weights.save_npz file), learn-kmeans (K=1000) and quantize; each wall,
+   and every file checked (feature shapes from frames_for_samples, the
+   manifests, unit ids in [0, 1000)).
+Phase 2 also holds flash_attention's float32 kernel at HuBERT's long-form
+shape, [1, 12, 3499, 64] with no mask, timed beside SDPA in float32.
 
 Then one JSON line of per-kernel numbers and, last, {"ok": true, "device": ...}.
 Exits non-zero without CUDA, and in a directory without the port.
@@ -209,6 +226,22 @@ VOCODER_CFG = dict(num_embeddings=1000, embedding_dim=128, upsample_rates=[5, 4,
 # hardly depends on its units, so that bound says little there.
 S2ST_WAV_ROW_COS, LONG_WAV_ROW_COS = 0.99999, 0.9999
 LONG_UNIT_AGREE, LONG_LOGIT_ROW_COS, LONG_ARGMAX_AGREE = 0.5, 0.9999, 0.99
+# prep (DiffNorm's first stage, cli.prepare): bench.py --prepare's program,
+# B8 x 10 s of 16 kHz audio through mHuBERT-base to layer 11 in bf16, then the
+# K=1000 argmin on float32 features; and one 70 s utterance in float32 (the
+# CLI's type), whose 3499 frames send each layer's self-attention to
+# flash_attention
+PREP_B, PREP_SAMPLES, PREP_LAYER, PREP_K, PREP_REPS = 8, 160_000, 11, 1000, 5
+PREP_LONG_SAMPLES, PREP_LONG_FRAMES, SAMPLE_RATE = 1_120_000, 3499, 16000
+PREP_CLI_UTTS = 24  # 3-7 s each, beside one of PREP_LONG_SAMPLES
+# the long form through the kernel against the plain versions: float32 sums
+# in another order over 11 layers; units under a codebook fitted to the
+# plain run's features, where only near-ties may differ. bf16 against
+# float32 at the bench shape: on the CPU the same seeded model gave row-cos
+# 0.99993 and max-abs/scale 1.6e-2; bounds 10x and 3x those, to catch a
+# broken bf16 convolution (the CPU's oneDNN grouped one had row-cos 0.08)
+PREP_ROW_COS, PREP_REL, PREP_UNIT_AGREE = 0.99999, 1e-4, 0.99
+PREP_BF16_ROW_COS, PREP_BF16_REL = 0.999, 5e-2
 
 
 def fail(msg: str) -> None:
@@ -612,14 +645,17 @@ def check_flash_attention(torch, flash):
         ("float32 D=80", 1, 2, 33, 77, 80, [50], f32),
         ("path", 2, 8, 256, 2112, 64, [2112, 1056], bf),
         ("PERFORMANCE.md", 2, 8, 4096, 4096, 64, [4096, 3001], bf),
+        # HuBERT's self-attention over a 70 s utterance (cli.prepare), no mask
+        ("HuBERT long form", 1, 12, PREP_LONG_FRAMES, PREP_LONG_FRAMES, 64, None, f32),
     ]
     g = torch.Generator(device="cuda").manual_seed(50)
     max_err, timed = 0.0, {}
     for what, b, h, tq, tk, d, lengths, dtype in cases:
         q, k, v = (torch.randn(b, h, t, d, generator=g, device="cuda").to(dtype)
                    for t in (tq, tk, tk))
-        mask = (torch.arange(tk, device="cuda")[None, :]
-                < torch.tensor(lengths, device="cuda")[:, None])
+        mask = None if lengths is None else (
+            torch.arange(tk, device="cuda")[None, :]
+            < torch.tensor(lengths, device="cuda")[:, None])
         got = flash.flash_attention(q, k, v, mask).float()
         ref = flash.flash_attention_plain(q, k, v, mask).float()
         torch.cuda.synchronize()
@@ -633,30 +669,35 @@ def check_flash_attention(torch, flash):
                  f"max err {err.max().item():.3e}")
         max_err = max(max_err, err.max().item())
         print(f"kernel flash_attention {what} q [{b},{h},{tq},{d}] k/v [{b},{h},{tk},{d}] "
-              f"{str(dtype)[6:]} keys {lengths}: max err {err.max().item():.3e}, within "
+              f"{str(dtype)[6:]} {'no mask' if lengths is None else f'keys {lengths}'}: "
+              f"max err {err.max().item():.3e}, within "
               f"rtol {FLASH_RTOL} atol {FLASH_ATOL}" + (" + 1 bf16 ulp" if dtype == bf else ""))
-        if what not in ("path", "PERFORMANCE.md"):
+        if what not in ("path", "PERFORMANCE.md", "HuBERT long form"):
             continue
         ms = cuda_time_ms(lambda: flash.flash_attention(q, k, v, mask))
         plain_ms = cuda_time_ms(lambda: flash.flash_attention_plain(q, k, v, mask),
                                 iters=3, reps=3)
-        am = mask[:, None, None, :]
+        am = None if mask is None else mask[:, None, None, :]
 
         def sdpa():
             return torch.nn.functional.scaled_dot_product_attention(q, k, v, attn_mask=am)
 
         library_ms = cuda_time_eager_ms(sdpa)
         backend = device_kernels(torch, sdpa)[:1]
-        nbytes = (2 * q.numel() + k.numel() + v.numel()) * q.element_size() + mask.numel()
+        nbytes = ((2 * q.numel() + k.numel() + v.numel()) * q.element_size()
+                  + (0 if mask is None else mask.numel()))
         flops = 4.0 * b * h * tq * tk * d
-        bound_ms, bound_by = bound(nbytes, flops, BF16_FLOP_PER_S)
+        bound_ms, bound_by = bound(nbytes, flops,
+                                   BF16_FLOP_PER_S if dtype == bf else F32_FLOP_PER_S)
         print(f"kernel flash_attention {what}: {ms:.4f} ms, plain {plain_ms:.4f} ms, bound "
-              f"{bound_ms:.4f} ms ({bound_by}: {nbytes / 1e6:.2f} MB, {flops / 1e9:.2f} GFLOP), "
-              f"{flops / ms / 1e9:.1f} TFLOP/s; F.scaled_dot_product_attention with the mask "
-              f"{library_ms:.4f} ms, its kernel {backend}")
+              f"{bound_ms:.4f} ms ({bound_by}: {nbytes / 1e6:.2f} MB, {flops / 1e9:.2f} GFLOP "
+              f"{str(dtype)[6:]}), {flops / ms / 1e9:.1f} TFLOP/s; "
+              f"F.scaled_dot_product_attention " + ("without a mask" if mask is None else
+                                                    "with the mask")
+              + f" {library_ms:.4f} ms, its kernel {backend}")
         timed[what] = dict(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
                            library_ms=library_ms)
-    return dict(timed["path"], max_abs_err=max_err), timed["PERFORMANCE.md"]
+    return dict(timed["path"], max_abs_err=max_err), timed
 
 
 def check_attention_routing(torch, flash):
@@ -1681,6 +1722,231 @@ def run_s2st_cli(torch, nar, voc, smi):
               f"{dict(_build.launch_counts)}; {smi}")
 
 
+def prep_models(torch):
+    """mHuBERT-base (768 x 12 heads, FFN 3072, 12 layers, the released conv
+    extractor) from a seeded init, float32, and its bf16 copy."""
+    from diffnorm_tpu_torch.models.hubert import HubertEncoder
+
+    torch.manual_seed(20)
+    with torch.device("cuda"):
+        model, bf16 = HubertEncoder().eval(), HubertEncoder()
+    bf16.load_state_dict(model.state_dict())
+    return model, bf16.to(torch.bfloat16).eval()
+
+
+def fitted_codebook(torch, feats):
+    """A seeded K=1000 codebook fitted to [N, 768] features (kmeans_fit on the
+    card, 10 iterations): a random-init encoder's frames differ by a few
+    percent of their norm, so a random codebook would give one unit."""
+    from diffnorm_tpu_torch.models.kmeans import kmeans_fit
+
+    cent = kmeans_fit(feats.float().cpu().numpy(), PREP_K, iters=10, seed=0, device="cuda")
+    return torch.from_numpy(cent).cuda()
+
+
+def run_prep_bench(torch, model, bf16, smi):
+    """Phase 12: bench.py --prepare's program in the port's eager form."""
+    from diffnorm_tpu_torch.models.hubert import frames_for_samples
+    from diffnorm_tpu_torch.models.kmeans import kmeans_predict
+
+    t0 = time.perf_counter()
+    g = torch.Generator(device="cuda").manual_seed(21)
+    wav = 0.1 * torch.randn(PREP_B, PREP_SAMPLES, generator=g, device="cuda")
+    n = frames_for_samples(PREP_SAMPLES)
+
+    @torch.no_grad()
+    def features(m):
+        return m(wav, output_layer=PREP_LAYER).float()
+
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    feats32 = features(model)
+    torch.cuda.synchronize()
+    wall32 = time.perf_counter() - t1
+    cent = fitted_codebook(torch, feats32.reshape(-1, 768))
+
+    @torch.no_grad()
+    def step():
+        feats = features(bf16)
+        return feats, kmeans_predict(feats, cent)
+
+    step()  # warm-up
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    walls = []
+    for _ in range(PREP_REPS):
+        t1 = time.perf_counter()
+        feats, units = step()
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t1)
+    wall, peak_gb = statistics.median(walls), torch.cuda.max_memory_allocated() / 1e9
+    if feats.shape != (PREP_B, n, 768) or not torch.isfinite(feats).all():
+        fail(f"prep bench: features {tuple(feats.shape)}, expected finite [{PREP_B}, {n}, 768]")
+    if units.shape != (PREP_B, n) or units.min() < 0 or units.max() >= PREP_K:
+        fail(f"prep bench: units {tuple(units.shape)} in [{units.min().item()}, "
+             f"{units.max().item()}]")
+    units32 = kmeans_predict(feats32, cent)
+    cos = torch.nn.functional.cosine_similarity(feats.reshape(-1, 768),
+                                                feats32.reshape(-1, 768), dim=-1)
+    rel = ((feats - feats32).abs().max() / feats32.abs().max()).item()
+    agree = (units == units32).float().mean().item()
+    if cos.min().item() < PREP_BF16_ROW_COS or rel > PREP_BF16_REL:
+        fail(f"prep bench: bf16 features against float32 row-cos min {cos.min().item():.6f}, "
+             f"max-abs/scale {rel:.3e} (bounds {PREP_BF16_ROW_COS}, {PREP_BF16_REL})")
+    audio_s = PREP_B * PREP_SAMPLES / SAMPLE_RATE
+    print(f"prep bench: B{PREP_B} x {PREP_SAMPLES / SAMPLE_RATE:.0f} s, mHuBERT-base to layer "
+          f"{PREP_LAYER} in bf16 + K={PREP_K} argmin on float32 features ({n} frames a row): "
+          f"wall {wall:.4f} s (median of {PREP_REPS}: {[round(w, 4) for w in walls]}), RTF "
+          f"{audio_s / wall:.1f}, peak {peak_gb:.2f} GB; float32 forward {wall32:.4f} s (the "
+          f"first at this shape); bf16 against float32: features row-cos min "
+          f"{cos.min().item():.6f} mean {cos.mean().item():.6f}, max-abs/scale {rel:.3e}, "
+          f"units equal {agree:.4f} ({len(torch.unique(units32))} distinct units under the "
+          f"fitted codebook); {smi}")
+    profile_run(torch, step, wall)
+    print(f"phase prep bench: {time.perf_counter() - t0:.1f} s")
+
+
+def run_prep_long(torch, model, mods, smi):
+    """Phase 13: one 70 s utterance, float32, through the kernels and through
+    the plain versions. Returns the flash_attention launches of the run
+    through the kernels (one forward)."""
+    from diffnorm_tpu_torch.models.kmeans import kmeans_predict
+    from diffnorm_tpu_torch.ops import _build
+
+    t0 = time.perf_counter()
+    g = torch.Generator(device="cuda").manual_seed(23)
+    wav = 0.1 * torch.randn(1, PREP_LONG_SAMPLES, generator=g, device="cuda")
+    runs = {}
+    with torch.no_grad():
+        model(wav, output_layer=PREP_LAYER)  # warm-up at this shape
+        for version in ("kernels", "plain"):
+            with plain_versions(*mods) if version == "plain" else contextlib.nullcontext():
+                torch.cuda.synchronize()
+                _build.launch_counts.clear()
+                t1 = time.perf_counter()
+                feats = model(wav, output_layer=PREP_LAYER)[0]
+                torch.cuda.synchronize()
+                runs[version] = (feats, time.perf_counter() - t1,
+                                 _build.launch_counts.get("flash_attention", 0))
+    (feats, wall, n_flash), (ref, wall_ref, n_flash_ref) = runs["kernels"], runs["plain"]
+    if n_flash != PREP_LAYER or n_flash_ref:
+        fail(f"prep long form: flash_attention launched {n_flash} times through the kernels "
+             f"and {n_flash_ref} through the plain versions, expected {PREP_LAYER} and 0")
+    if feats.shape != (PREP_LONG_FRAMES, 768) or not torch.isfinite(feats).all():
+        fail(f"prep long form: features {tuple(feats.shape)}, expected finite "
+             f"[{PREP_LONG_FRAMES}, 768]")
+    cos = torch.nn.functional.cosine_similarity(feats, ref, dim=-1)
+    rel = ((feats - ref).abs().max() / ref.abs().max()).item()
+    cent = fitted_codebook(torch, ref)
+    units, units_ref = kmeans_predict(feats, cent), kmeans_predict(ref, cent)
+    agree = (units == units_ref).float().mean().item()
+    if cos.min().item() < PREP_ROW_COS or rel > PREP_REL or agree < PREP_UNIT_AGREE:
+        fail(f"prep long form: kernels against plain versions row-cos min "
+             f"{cos.min().item():.7f}, max-abs/scale {rel:.3e}, units equal {agree:.4f} "
+             f"(bounds {PREP_ROW_COS}, {PREP_REL}, {PREP_UNIT_AGREE})")
+    print(f"prep long form: 1 x {PREP_LONG_SAMPLES / SAMPLE_RATE:.0f} s ({PREP_LONG_FRAMES} "
+          f"frames), float32, to layer {PREP_LAYER}: {wall:.4f} s through the kernels "
+          f"(flash_attention launches {n_flash}), {wall_ref:.4f} s through the plain versions; "
+          f"features row-cos min {cos.min().item():.7f}, max-abs/scale {rel:.3e}, units equal "
+          f"{agree:.4f} under a fitted K={PREP_K} codebook ({len(torch.unique(units_ref))} "
+          f"distinct); {smi}")
+    print(f"phase prep long form: {time.perf_counter() - t0:.1f} s")
+    return n_flash
+
+
+def write_wav_pcm(path: Path, pcm) -> None:
+    import wave
+
+    with wave.open(str(path), "wb") as w:
+        w.setnchannels(1)
+        w.setsampwidth(2)
+        w.setframerate(SAMPLE_RATE)
+        w.writeframes(pcm.tobytes())
+
+
+def run_prep_cli(torch, model, smi):
+    """Phase 14: cli.get_manifest, then cli.prepare dump-features,
+    learn-kmeans (K=1000) and quantize on PREP_CLI_UTTS WAV utterances of 3-7
+    s and a 70 s one, with the seeded float32 encoder written by
+    weights.save_npz."""
+    import numpy as np
+
+    from diffnorm_tpu_torch.cli import get_manifest, prepare
+    from diffnorm_tpu_torch.data.manifest import read_feature_manifest
+    from diffnorm_tpu_torch.models.hubert import frames_for_samples
+    from diffnorm_tpu_torch.ops import _build
+    from diffnorm_tpu_torch.weights import save_npz, to_jax_params
+
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = Path(tmp)
+        (tmp / "audio").mkdir()
+        rng = np.random.default_rng(24)
+        lengths = {f"utt{i:02d}": int(rng.uniform(3.0, 7.0) * SAMPLE_RATE)
+                   for i in range(PREP_CLI_UTTS)}
+        lengths["long70s"] = PREP_LONG_SAMPLES
+        for utt, n in lengths.items():
+            write_wav_pcm(tmp / "audio" / f"{utt}.wav",
+                          (rng.normal(size=n) * 3000).astype(np.int16))
+        save_npz(str(tmp / "hubert.npz"), to_jax_params(model))
+        feat, manifest = tmp / "feat", tmp / "train_audio.tsv"
+        commands = [
+            ("get_manifest", get_manifest, [str(tmp / "audio"), "--dest", str(manifest)]),
+            ("dump-features", prepare, [
+                "dump-features", "--manifest", str(manifest), "--hubert-ckpt",
+                str(tmp / "hubert.npz"), "--layer", str(PREP_LAYER), "--out-dir", str(feat),
+                "--split", "train"]),
+            ("learn-kmeans", prepare, [
+                "learn-kmeans", "--feat-dir", str(feat), "--split", "train",
+                "--num-clusters", str(PREP_K), "--iters", "5", "--out", str(tmp / "km.npy")]),
+            ("quantize", prepare, [
+                "quantize", "--feat-dir", str(feat), "--split", "train", "--kmeans",
+                str(tmp / "km.npy"), "--out", str(tmp / "train.units")]),
+        ]
+        walls = {}
+        for what, cli, argv in commands:
+            torch.cuda.synchronize()
+            _build.launch_counts.clear()
+            t1 = time.perf_counter()
+            if cli.main(argv) != 0:
+                fail(f"prep entry point: {what} failed")
+            torch.cuda.synchronize()
+            walls[what] = time.perf_counter() - t1
+            if what == "dump-features":
+                n_flash = _build.launch_counts.get("flash_attention", 0)
+        # the checks: the manifest, every feature's shape, the codebook, the units
+        rows = manifest.read_text().splitlines()[1:]
+        if sorted(rows) != sorted(f"{utt}.wav\t{n}" for utt, n in lengths.items()):
+            fail(f"prep entry point: get_manifest wrote {rows[:3]}...")
+        feats = read_feature_manifest(str(feat / "train.manifest.tsv"))
+        frames = {utt: frames_for_samples(n) for utt, n in lengths.items()}
+        if {utt: n for utt, (_, n) in feats.items()} != frames:
+            fail("prep entry point: the feature manifest's lengths are not frames_for_samples")
+        for utt, (path, n) in feats.items():
+            x = np.load(path)
+            if x.shape != (n, 768) or x.dtype != np.float32 or not np.isfinite(x).all():
+                fail(f"prep entry point: {utt} features {x.shape} {x.dtype}")
+        cent = np.load(tmp / "km.npy")
+        if cent.shape != (PREP_K, 768) or not np.isfinite(cent).all():
+            fail(f"prep entry point: centroids {cent.shape}")
+        units = dict(line.split("|") for line in (tmp / "train.units").read_text().splitlines())
+        for utt, n in frames.items():
+            u = np.array(units.get(utt, "").split(), dtype=np.int64)
+            if len(u) != n or u.min() < 0 or u.max() >= PREP_K:
+                fail(f"prep entry point: {utt} has {len(u)} units, expected {n} in [0, {PREP_K})")
+        if n_flash != PREP_LAYER:
+            fail(f"prep entry point: dump-features launched flash_attention {n_flash} times, "
+                 f"expected {PREP_LAYER} (the 70 s utterance)")
+        audio_s = sum(lengths.values()) / SAMPLE_RATE
+        print(f"phase entry point prep: get_manifest {walls['get_manifest']:.2f} s, "
+              f"dump-features {walls['dump-features']:.2f} s ({len(lengths)} utterances, "
+              f"{audio_s:.1f} s of audio, RTF {audio_s / walls['dump-features']:.1f} with the "
+              f"encoder's load; flash_attention launches {n_flash}), learn-kmeans K={PREP_K} "
+              f"{walls['learn-kmeans']:.2f} s ({sum(frames.values())} frames, 5 iterations), "
+              f"quantize {walls['quantize']:.2f} s; every file checked; "
+              f"{time.perf_counter() - t0:.1f} s in all; {smi}")
+
+
 def main() -> int:
     try:
         import torch
@@ -1725,7 +1991,7 @@ def main() -> int:
                "fused_layer": check_fused_layer(torch, ffpipe, fused),
                **check_ffpipe(torch, ffpipe)}
     int_mm_conv_ms = results.pop("int_mm_conv_ms")
-    results["flash_attention"], flash_perf_shape = check_flash_attention(torch, flash)
+    results["flash_attention"], flash_timed = check_flash_attention(torch, flash)
     check_attention_routing(torch, flash)
     print(f"phase kernels: {time.perf_counter() - t0:.1f} s, every kernel within "
           f"tolerance of its plain version; {smi}")
@@ -1822,6 +2088,15 @@ def main() -> int:
     run_train_nar(torch, mods, smi)
     run_train_nar_cli(torch, smi)
 
+    # 12.-14. prep: the bench shape, the long form through flash_attention,
+    # and cli.get_manifest -> cli.prepare
+    hubert, hubert_bf16 = prep_models(torch)
+    run_prep_bench(torch, hubert, hubert_bf16, smi)
+    del hubert_bf16
+    launches["flash_attention"] += run_prep_long(torch, hubert, mods, smi)
+    run_prep_cli(torch, hubert, smi)
+    del hubert
+
     sources = {
         "rms_norm_film": ("rms_norm_film.cu", "diffnorm_tpu/ops/pallas_norm.py:34"),
         "wavenet_chain": ("wavenet_chain.cu", "diffnorm_tpu/ops/pallas_wavenet.py:66"),
@@ -1842,7 +2117,9 @@ def main() -> int:
           f"{int_mm_conv_ms:.4f} ms per layer (no single PyTorch call computes a sublayer); "
           f"fused_layer's conv-tap GEMM "
           + (f"{conv_us / 1e3:.4f} ms" if conv_us is not None else "not measured"))
-    print(f"flash_attention at PERFORMANCE.md's B2 H8 T4096 D64: {flash_perf_shape}")
+    print(f"flash_attention at PERFORMANCE.md's B2 H8 T4096 D64: {flash_timed['PERFORMANCE.md']}")
+    print(f"flash_attention float32 at HuBERT's long form [1,12,{PREP_LONG_FRAMES},64], no "
+          f"mask: {flash_timed['HuBERT long form']}")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

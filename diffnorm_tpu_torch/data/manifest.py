@@ -32,6 +32,14 @@ def read_feature_manifest(path: str) -> Dict[str, Tuple[str, int]]:
     return out
 
 
+def write_feature_manifest(path: str, feat_dir: str, rows: List[Tuple[str, int]]) -> None:
+    """The feature directory, then one `name\\tlength` row per utterance."""
+    with open(path, "w") as f:
+        f.write(feat_dir + "\n")
+        for name, length in rows:
+            f.write(f"{name}\t{length}\n")
+
+
 def read_translation_manifest(path: str) -> List[Dict[str, str]]:
     with open(path) as f:
         reader = csv.DictReader(f, delimiter="\t", quoting=csv.QUOTE_NONE,

@@ -20,7 +20,9 @@ stays plain, as JAX's does off the TPU. The S2ST
 chain reaches the kernel through the NAR decoder's encoder attention when
 the subsampled source has >= 2048 frames (about 82 s of speech); the
 conformer's rel-pos attention computes its scores inline and never calls
-this function.
+this function. HuBERT's self-attention (`models/hubert.py`, prep) reaches
+it for utterances of 41 s or more (2048 frames at 20 ms), in float32 from
+`cli.prepare`.
 """
 
 from __future__ import annotations

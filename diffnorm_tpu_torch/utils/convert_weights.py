@@ -1,0 +1,112 @@
+"""fairseq torch checkpoint -> the port's weights tree.
+
+The port's copy of the HuBERT part of diffnorm_tpu/utils/convert_weights.py.
+It returns the flax-path tree JAX's converter returns (`{"params": ...}` of
+float32 numpy arrays), which `weights.from_jax_params` loads, so the port's
+module paths stay flax paths. Layout rules:
+* torch Linear weight [out, in]       -> Dense kernel [in, out]
+* torch Conv1d weight [out, in, k]    -> Conv kernel [k, in, out]
+* torch grouped Conv1d [out, in/g, k] -> Conv kernel [k, in/g, out]
+* weight norm (weight_g / weight_v) is folded: w = g * v / ||v||, the norm
+  over every dim except `dim` (wav2vec2's pos_conv uses dim=2)
+"""
+
+from __future__ import annotations
+
+from typing import Dict
+
+import numpy as np
+import torch
+
+
+def _t(x) -> np.ndarray:
+    if isinstance(x, torch.Tensor):
+        return x.detach().cpu().float().numpy()
+    return np.asarray(x, np.float32)
+
+
+def fold_weight_norm(g, v, dim: int = 0) -> np.ndarray:
+    g, v = _t(g), _t(v)
+    axes = tuple(i for i in range(v.ndim) if i != dim)
+    norm = np.sqrt((v ** 2).sum(axis=axes, keepdims=True))
+    return g * v / np.maximum(norm, 1e-12)
+
+
+def conv_w(w) -> np.ndarray:
+    """[out, in, k] -> [k, in, out]"""
+    return _t(w).transpose(2, 1, 0)
+
+
+def dense_w(w) -> np.ndarray:
+    return _t(w).T
+
+
+def _get_conv(sd: Dict, prefix: str, wn_dim: int = 0) -> np.ndarray:
+    """A conv weight in torch's layout, weight norm folded where stored."""
+    if f"{prefix}.weight_g" in sd:
+        return fold_weight_norm(sd[f"{prefix}.weight_g"], sd[f"{prefix}.weight_v"], dim=wn_dim)
+    return _t(sd[f"{prefix}.weight"])
+
+
+def load_torch_state(path: str) -> Dict:
+    """A torch checkpoint's model state dict: the `model` entry of a full
+    fairseq checkpoint, else the file's dict itself."""
+    ckpt = torch.load(path, map_location="cpu", weights_only=False)
+    return ckpt.get("model", ckpt) if isinstance(ckpt, dict) else ckpt
+
+
+def convert_hubert_checkpoint(path: str, layers: int = 12) -> Dict:
+    """fairseq (m)HuBERT checkpoint -> HubertEncoder variables."""
+    return convert_hubert_state(load_torch_state(path), layers=layers)
+
+
+def _ln(sd: Dict, prefix: str) -> Dict:
+    return {"scale": _t(sd[f"{prefix}.weight"]), "bias": _t(sd[f"{prefix}.bias"])}
+
+
+def _dense(sd: Dict, prefix: str) -> Dict:
+    return {"kernel": dense_w(sd[f"{prefix}.weight"]), "bias": _t(sd[f"{prefix}.bias"])}
+
+
+def convert_hubert_state(sd: Dict, layers: int = 12) -> Dict:
+    """A fairseq HubertModel state dict -> {"params": HubertEncoder tree}."""
+    if all(k.startswith("encoder.") for k in sd):
+        sd = {k.removeprefix("encoder."): v for k, v in sd.items()}
+
+    fe: Dict = {}
+    # layer_norm extractor mode keeps a LayerNorm inside a TransposeLast
+    # sandwich at index .2.1 of every layer; default mode a GroupNorm at .2
+    # of layer 0 only
+    ln_mode = "feature_extractor.conv_layers.0.2.1.weight" in sd
+    i = 0
+    while f"feature_extractor.conv_layers.{i}.0.weight" in sd:
+        prefix = f"feature_extractor.conv_layers.{i}"
+        fe[f"conv_{i}"] = {"kernel": conv_w(sd[f"{prefix}.0.weight"])}
+        if f"{prefix}.0.bias" in sd:
+            fe[f"conv_{i}"]["bias"] = _t(sd[f"{prefix}.0.bias"])
+        if ln_mode:
+            fe[f"ln_{i}"] = _ln(sd, f"{prefix}.2.1")
+        i += 1
+    if not ln_mode:
+        fe["group_norm"] = _ln(sd, "feature_extractor.conv_layers.0.2")
+
+    params: Dict = {
+        "feature_extractor": fe,
+        "layer_norm": _ln(sd, "layer_norm"),
+        "post_extract_proj": _dense(sd, "post_extract_proj"),
+        "pos_conv": {"conv": {
+            "kernel": _get_conv(sd, "encoder.pos_conv.0", wn_dim=2).transpose(2, 1, 0),
+            "bias": _t(sd["encoder.pos_conv.0.bias"])}},
+        "encoder_layer_norm": _ln(sd, "encoder.layer_norm"),
+    }
+    for n in range(layers):
+        p = f"encoder.layers.{n}"
+        params[f"layer_{n}"] = {
+            **{proj: _dense(sd, f"{p}.self_attn.{proj}")
+               for proj in ("q_proj", "k_proj", "v_proj", "out_proj")},
+            "self_attn_layer_norm": _ln(sd, f"{p}.self_attn_layer_norm"),
+            "fc1": _dense(sd, f"{p}.fc1"),
+            "fc2": _dense(sd, f"{p}.fc2"),
+            "final_layer_norm": _ln(sd, f"{p}.final_layer_norm"),
+        }
+    return {"params": params}

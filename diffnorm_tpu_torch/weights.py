@@ -3,14 +3,15 @@
 The JAX tree (`{"params": ..., "batch_stats": ...}`, nested dicts of numpy
 arrays) and the port's `state_dict()` share their paths. Leaf names map as
   params       flax `kernel` (Dense, Conv, ConvTranspose)  -> torch `weight`
-               flax `scale` (LayerNorm, BatchNorm)         -> torch `weight`
+               flax `scale` (LayerNorm, GroupNorm, BatchNorm) -> torch `weight`
                flax `embedding` (nn.Embed)                 -> torch `weight`
                any other leaf keeps its name
   batch_stats  `mean` / `var`          -> the `running_mean` / `running_var` buffers
   quant_stats  `act_amax`               -> the calibrated `act_amax` of the int8
                                            site at that path (ops/quant.py QuantSite)
 A Dense kernel [in, out] is the transpose of a Linear weight; a conv kernel
-[k, in, out] becomes torch's [out, in, k], and a
+[k, in, out] becomes torch's [out, in, k] (a grouped one [k, in / groups,
+out] torch's [out, in / groups, k]), and a
 `ConvTranspose(transpose_kernel=True)` kernel [k, out, in] torch
 ConvTranspose1d's [in, out, k], both by `permute(2, 1, 0)` with no flip.
 Names are checked both ways, buffers included, so a missing or extra key
@@ -135,7 +136,7 @@ def from_jax_params(model: nn.Module, params: Mapping) -> nn.Module:
 def _jax_leaf(module: nn.Module) -> str:
     if isinstance(module, nn.Embedding):
         return "embedding"
-    if isinstance(module, nn.LayerNorm) or hasattr(module, "running_mean"):
+    if isinstance(module, (nn.LayerNorm, nn.GroupNorm)) or hasattr(module, "running_mean"):
         return "scale"
     return "kernel"
 

@@ -46,6 +46,8 @@ def test_port_imports_with_jax_blocked():
             "import diffnorm_tpu_torch.models.diffusion\n"
             "import diffnorm_tpu_torch.cli.diff_norm_synthesis\n"
             "import diffnorm_tpu_torch.cli.s2st\n"
+            "import diffnorm_tpu_torch.cli.prepare\n"
+            "import diffnorm_tpu_torch.cli.get_manifest\n"
             "print('ok')\n")
     env = dict(os.environ, PYTHONPATH=str(REPO))
     out = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
@@ -82,6 +84,14 @@ def test_entry_points_refuse_the_cpu_unless_asked(tmp_path):
     with pytest.raises(RuntimeError, match="CUDA"):
         s2st.main([str(tmp_path), "--params-npz", "absent.npz", "--vocoder-npz", "absent.npz",
                    "--vocoder-cfg", "absent.json", "--results-path", str(tmp_path / "wav")])
+
+    from diffnorm_tpu_torch.cli import prepare
+
+    for cmd in (["dump-features", "--manifest", "absent.tsv", "--out-dir", str(tmp_path)],
+                ["learn-kmeans", "--feat-dir", str(tmp_path), "--out", "km.npy"],
+                ["quantize", "--feat-dir", str(tmp_path), "--kmeans", "km.npy", "--out", "u"]):
+        with pytest.raises(RuntimeError, match="CUDA"):
+            prepare.main(cmd)
 
 
 def test_kernel_wrappers_launch_or_raise_off_the_cpu():
