@@ -113,8 +113,14 @@ plain versions (recon row-cos, unit agreement) and the bf16 path's units.
    weights.save_npz file), learn-kmeans (K=1000) and quantize; each wall,
    and every file checked (feature shapes from frames_for_samples, the
    manifests, unit ids in [0, 1000)).
-Phase 2 also holds flash_attention's float32 kernel at HuBERT's long-form
-shape, [1, 12, 3499, 64] with no mask, timed beside SDPA in float32.
+Phase 2 also holds flash_attention's float32 kernel (three tf32 passes on
+the tensor cores) at the shapes float32 callers send: HuBERT's long form
+[1, 12, 3499, 64] and cli.prepare's longest chunk [1, 12, 4999, 64], no
+mask, and the S2ST decoder's shape with its key mask, each timed beside the
+plain version and SDPA in float32 with both bounds (SIMT float32, three
+tf32 passes); and at D 80 and 128 with ragged keys and a fully masked row.
+The kernels JSON line reports the float32 kernel as flash_attention_f32
+(its launches those of phase 13) beside the bf16 one (phase 6's).
 
 Then one JSON line of per-kernel numbers and, last, {"ok": true, "device": ...}.
 Exits non-zero without CUDA, and in a directory without the port.
@@ -136,6 +142,7 @@ HBM_BYTES_PER_S = 3.35e12    # H100 SXM
 BF16_FLOP_PER_S = 989e12     # dense bf16 tensor cores
 INT8_OPS_PER_S = 1979e12     # dense int8 tensor cores
 F32_FLOP_PER_S = 67e12       # f32 outside the tensor cores
+TF32_FLOP_PER_S = 494.7e12   # dense tf32 tensor cores
 B, T, START_STEP = 64, 128, 50
 # more kernel-check shapes: at T=200 sequences straddle the int8 GEMMs'
 # 128-token tiles and the attention's 64-key blocks, and the last tile is
@@ -233,6 +240,7 @@ LONG_UNIT_AGREE, LONG_LOGIT_ROW_COS, LONG_ARGMAX_AGREE = 0.5, 0.9999, 0.99
 # flash_attention
 PREP_B, PREP_SAMPLES, PREP_LAYER, PREP_K, PREP_REPS = 8, 160_000, 11, 1000, 5
 PREP_LONG_SAMPLES, PREP_LONG_FRAMES, SAMPLE_RATE = 1_120_000, 3499, 16000
+PREP_CHUNK_FRAMES = 4999  # cli.prepare's longest chunk, 100 s (prepare.CHUNK samples)
 PREP_CLI_UTTS = 24  # 3-7 s each, beside one of PREP_LONG_SAMPLES
 # the long form through the kernel against the plain versions: float32 sums
 # in another order over 11 layers; units under a codebook fitted to the
@@ -623,7 +631,7 @@ def launch_split(torch, fn, reps: int = 5):
 def check_flash_attention(torch, flash):
     """flash_attention against its plain version: ragged masks, a fully
     masked row, Tq/Tk off the 64 tiles, one key, a key split of one key
-    and a short last split, D 32/96/128, float32; then the
+    and a short last split, D 32/96/128, float32 (D 24/64/80/96/128); then the
     path's shape and PERFORMANCE.md's, timed beside the plain version and
     F.scaled_dot_product_attention with the same boolean key mask."""
     bf, f32 = torch.bfloat16, torch.float32
@@ -643,13 +651,21 @@ def check_flash_attention(torch, flash):
         ("D=128", 2, 2, 70, 130, 128, [130, 64], bf),
         ("float32", 2, 2, 70, 130, 64, [90, 0], f32),
         ("float32 D=80", 1, 2, 33, 77, 80, [50], f32),
+        # each padded width's P.V channel chunks (DP 32, 96) over several key tiles
+        ("float32 D=24", 1, 3, 100, 150, 24, [150], f32),
+        ("float32 D=96", 2, 2, 70, 300, 96, [300, 133], f32),
+        ("float32 D=128, a fully masked row", 3, 2, 70, 200, 128, [200, 77, 0], f32),
         ("path", 2, 8, 256, 2112, 64, [2112, 1056], bf),
         ("PERFORMANCE.md", 2, 8, 4096, 4096, 64, [4096, 3001], bf),
-        # HuBERT's self-attention over a 70 s utterance (cli.prepare), no mask
+        # the S2ST decoder's encoder attention in float32
+        ("float32 path", 2, 8, 256, 2112, 64, [2112, 1056], f32),
+        # HuBERT's self-attention over a 70 s utterance and over cli.prepare's
+        # longest chunk (100 s), float32, no mask
         ("HuBERT long form", 1, 12, PREP_LONG_FRAMES, PREP_LONG_FRAMES, 64, None, f32),
+        ("HuBERT longest chunk", 1, 12, PREP_CHUNK_FRAMES, PREP_CHUNK_FRAMES, 64, None, f32),
     ]
     g = torch.Generator(device="cuda").manual_seed(50)
-    max_err, timed = 0.0, {}
+    max_err, timed = {bf: 0.0, f32: 0.0}, {}
     for what, b, h, tq, tk, d, lengths, dtype in cases:
         q, k, v = (torch.randn(b, h, t, d, generator=g, device="cuda").to(dtype)
                    for t in (tq, tk, tk))
@@ -667,12 +683,13 @@ def check_flash_attention(torch, flash):
         if not torch.isfinite(got).all() or n_bad:
             fail(f"flash_attention {what}: {n_bad} elements beyond tolerance, "
                  f"max err {err.max().item():.3e}")
-        max_err = max(max_err, err.max().item())
+        max_err[dtype] = max(max_err[dtype], err.max().item())
         print(f"kernel flash_attention {what} q [{b},{h},{tq},{d}] k/v [{b},{h},{tk},{d}] "
               f"{str(dtype)[6:]} {'no mask' if lengths is None else f'keys {lengths}'}: "
               f"max err {err.max().item():.3e}, within "
               f"rtol {FLASH_RTOL} atol {FLASH_ATOL}" + (" + 1 bf16 ulp" if dtype == bf else ""))
-        if what not in ("path", "PERFORMANCE.md", "HuBERT long form"):
+        if what not in ("path", "PERFORMANCE.md", "float32 path", "HuBERT long form",
+                        "HuBERT longest chunk"):
             continue
         ms = cuda_time_ms(lambda: flash.flash_attention(q, k, v, mask))
         plain_ms = cuda_time_ms(lambda: flash.flash_attention_plain(q, k, v, mask),
@@ -687,17 +704,25 @@ def check_flash_attention(torch, flash):
         nbytes = ((2 * q.numel() + k.numel() + v.numel()) * q.element_size()
                   + (0 if mask is None else mask.numel()))
         flops = 4.0 * b * h * tq * tk * d
-        bound_ms, bound_by = bound(nbytes, flops,
-                                   BF16_FLOP_PER_S if dtype == bf else F32_FLOP_PER_S)
+        if dtype == bf:
+            bound_ms, bound_by = bound(nbytes, flops, BF16_FLOP_PER_S)
+            bounds = f"{flops / 1e9:.2f} GFLOP bf16"
+        else:  # the lesser of the SIMT float32 bound and three tf32 passes
+            simt_ms, simt_by = bound(nbytes, flops, F32_FLOP_PER_S)
+            tf32_ms, tf32_by = bound(nbytes, 3 * flops, TF32_FLOP_PER_S)
+            bound_ms, bound_by = min((simt_ms, simt_by), (tf32_ms, tf32_by))
+            bounds = (f"{flops / 1e9:.2f} GFLOP float32: SIMT {simt_ms:.4f} ms, 3-pass tf32 "
+                      f"{tf32_ms:.4f} ms, the {'tf32' if tf32_ms < simt_ms else 'SIMT'} one binds")
         print(f"kernel flash_attention {what}: {ms:.4f} ms, plain {plain_ms:.4f} ms, bound "
-              f"{bound_ms:.4f} ms ({bound_by}: {nbytes / 1e6:.2f} MB, {flops / 1e9:.2f} GFLOP "
-              f"{str(dtype)[6:]}), {flops / ms / 1e9:.1f} TFLOP/s; "
+              f"{bound_ms:.4f} ms ({bound_by}: {nbytes / 1e6:.2f} MB, {bounds}), "
+              f"{flops / ms / 1e9:.1f} TFLOP/s; "
               f"F.scaled_dot_product_attention " + ("without a mask" if mask is None else
                                                     "with the mask")
               + f" {library_ms:.4f} ms, its kernel {backend}")
         timed[what] = dict(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
                            library_ms=library_ms)
-    return dict(timed["path"], max_abs_err=max_err), timed
+    return (dict(timed["path"], max_abs_err=max_err[bf]),
+            dict(timed["HuBERT long form"], max_abs_err=max_err[f32]), timed)
 
 
 def check_attention_routing(torch, flash):
@@ -1991,7 +2016,8 @@ def main() -> int:
                "fused_layer": check_fused_layer(torch, ffpipe, fused),
                **check_ffpipe(torch, ffpipe)}
     int_mm_conv_ms = results.pop("int_mm_conv_ms")
-    results["flash_attention"], flash_timed = check_flash_attention(torch, flash)
+    results["flash_attention"], results["flash_attention_f32"], flash_timed = \
+        check_flash_attention(torch, flash)
     check_attention_routing(torch, flash)
     print(f"phase kernels: {time.perf_counter() - t0:.1f} s, every kernel within "
           f"tolerance of its plain version; {smi}")
@@ -2093,7 +2119,7 @@ def main() -> int:
     hubert, hubert_bf16 = prep_models(torch)
     run_prep_bench(torch, hubert, hubert_bf16, smi)
     del hubert_bf16
-    launches["flash_attention"] += run_prep_long(torch, hubert, mods, smi)
+    launches["flash_attention_f32"] = run_prep_long(torch, hubert, mods, smi)
     run_prep_cli(torch, hubert, smi)
     del hubert
 
@@ -2104,6 +2130,7 @@ def main() -> int:
         "ffpipe_layer": ("int8_ff.cu", "diffnorm_tpu/ops/pallas_ffpipe.py:257"),
         "ffpipe_layer2": ("int8_ff.cu", "diffnorm_tpu/ops/pallas_ffpipe.py:316"),
         "flash_attention": ("flash_attention.cu", "diffnorm_tpu/ops/pallas_attention.py:87"),
+        "flash_attention_f32": ("flash_attention.cu", "diffnorm_tpu/ops/pallas_attention.py:87"),
     }
     kernels = [dict(name=name, route="cuda",
                     source=f"diffnorm_tpu_torch/csrc/{sources[name][0]}",
@@ -2118,8 +2145,8 @@ def main() -> int:
           f"fused_layer's conv-tap GEMM "
           + (f"{conv_us / 1e3:.4f} ms" if conv_us is not None else "not measured"))
     print(f"flash_attention at PERFORMANCE.md's B2 H8 T4096 D64: {flash_timed['PERFORMANCE.md']}")
-    print(f"flash_attention float32 at HuBERT's long form [1,12,{PREP_LONG_FRAMES},64], no "
-          f"mask: {flash_timed['HuBERT long form']}")
+    for what in ("HuBERT long form", "HuBERT longest chunk", "float32 path"):
+        print(f"flash_attention float32 {what}: {flash_timed[what]}")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

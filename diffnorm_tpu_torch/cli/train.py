@@ -226,9 +226,14 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
     logger.info("model params (trainable): %.2fM on %s, forward in %s", n_params / 1e6,
                 device, args.dtype)
 
+    dataset = task.dataset(args.train_subset)
     epoch_itr = EpochBatchIterator(
-        task.dataset(args.train_subset), max_tokens=args.max_tokens, seed=args.seed,
+        dataset, max_tokens=args.max_tokens, seed=args.seed,
         max_positions=max_positions(args), ignore_invalid_inputs=True)
+    # JAX builds its example batch from dataset[0] here, on every start, before
+    # a checkpoint is restored (cli/train.py:141-144): the item is thrown away,
+    # but the draw advances the dataset's SpecAugment generator as JAX's does
+    dataset[0]
     ckpt = CheckpointManager(args.save_dir, keep_last=args.keep_last_epochs,
                              keep_best=args.keep_best_checkpoints)
     start_epoch = 1

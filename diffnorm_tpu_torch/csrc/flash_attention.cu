@@ -13,7 +13,8 @@
 // Bound on an H100: bytes at the S2ST decoder's shape (q [2,8,256,64]
 // against k/v [2,8,2112,64], bf16: 9.7 MB, 2.9 us at 3.35 TB/s; 2.2 GFLOP),
 // operations at self-attention lengths (B2 H8 T4096 D64: 68.7 GFLOP, 69 us
-// at the bf16 peak).
+// at the bf16 peak; float32 at HuBERT's long form [1,12,3499,64]: 37.6
+// GFLOP, three tf32 passes of each product 0.228 ms at 494.7 TFLOP/s).
 //
 // Design, bf16 with D = 64 or 128 (attn_wgmma_kernel). A block is one
 // warpgroup of 64 query rows plus one producer warp. The producer loads Q
@@ -43,14 +44,40 @@
 // 64-query blocks of 4 warps, 64-key K/V tiles by cp.async, ldmatrix +
 // m16n8k16 with the same hi + lo P): their rows are 64 and 192 bytes, which
 // do not tile into the 128-byte swizzled rows the wgmma kernel is built on,
-// and no path of the port runs them. float32 inputs take a plain FMA kernel
-// (one warp per query row, a lane per key for the scores and per channel
-// for P.V).
+// and no path of the port runs them.
+//
+// Design, float32 with 1 <= D <= 128 (attn_tf32_kernel). The paths that
+// send float32 here (HuBERT in cli.prepare) run with TF32 off and are held
+// to a float32 SGEMM, and one tf32 pass (10-bit mantissas) misses the
+// kernel's tolerance at score std 9 (tests/test_torch_flash_attention.py
+// emulates both). So both products run on tf32 tensor cores in three
+// passes: x = hi + lo with hi = tf32(x) and lo = tf32(x - hi), and
+// x y = hi hi' + hi lo' + lo hi', which keeps float32's accuracy. Three
+// prologue launches write Q and K split into [hi; lo] halves and V^T split
+// the same way (tf32 wgmma reads shared operands K-major only, and P.V's B
+// operand is V), with D zero-padded to whole 32-float swizzle regions and
+// the keys of each group of 8 stored in V^T as 0, 2, 4, 6, 1, 3, 5, 7: then
+// the score accumulators are P's A fragments, split in registers with no
+// shuffle. The main kernel is the bf16 one's shape: a producer warp streams
+// 64-key tiles of the four operands by TMA through an mbarrier ring, and
+// two consumer warpgroups of 64 queries (one where D > 64) share each tile.
+// Where D > 64 only one stage fits in shared memory, so there loads and
+// compute take turns (no path runs float32 with D > 64).
+// The tensor cores truncate each k-step's float32 sum, so each product sums
+// its small cross terms first, and each tile's P.V starts from zero and is
+// added to the output with rounding to nearest. Summed in place over the
+// 3499 keys of HuBERT's long form, the truncation reached 7.3e-5 of the
+// features' scale after 11 layers on an H100 (2.6e-6 per tile; the SIMT
+// kernel this replaces gave 2.0e-6). No split over the keys: at the
+// float32 decoder shape the unsplit grid is already faster than SDPA's
+// float32 kernel.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
+
+#include <algorithm>
 
 #include "hopper.cuh"
 
@@ -263,94 +290,6 @@ attn_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     for (int ni = 0; ni < D / 8; ++ni)
       *reinterpret_cast<__nv_bfloat162*>(orow + ni * 8 + 2 * qd) =
           __floats2bfloat162_rn(o[ni][2 * r] / l, o[ni][2 * r + 1] / l);
-  }
-}
-
-// float32: 16 query rows per block, 4 per warp; 32-key tiles, a lane per
-// key for the scores and per channel (lane + 32 i) for P.V
-constexpr int kQ32 = 16, kK32 = 32, kMaxD = 128;
-
-__global__ void __launch_bounds__(kThreads)
-attn_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
-                const float* __restrict__ v, const uint8_t* __restrict__ mask,
-                float* __restrict__ out, int H, int Tq, int Tk, int D, float scale) {
-  __shared__ float sQ[kQ32][kMaxD];
-  __shared__ float sK[kK32][kMaxD + 1];  // odd stride: lane-per-key reads are conflict-free
-  __shared__ float sV[kK32][kMaxD];
-  const int tid = threadIdx.x, lane = tid % 32, warp = tid / 32;
-  const int bh = blockIdx.y, q0 = blockIdx.x * kQ32;
-  const float* qb = q + static_cast<size_t>(bh) * Tq * D;
-  const float* kb = k + static_cast<size_t>(bh) * Tk * D;
-  const float* vb = v + static_cast<size_t>(bh) * Tk * D;
-  const uint8_t* mrow = mask ? mask + static_cast<size_t>(bh / H) * Tk : nullptr;
-
-  for (int i = tid; i < kQ32 * D; i += kThreads) {
-    const int r = i / D, c = i % D;
-    sQ[r][c] = q0 + r < Tq ? qb[static_cast<size_t>(q0 + r) * D + c] * scale : 0.f;
-  }
-  float m_run[4], l_run[4], o[4][kMaxD / 32];
-#pragma unroll
-  for (int rr = 0; rr < 4; ++rr) {
-    m_run[rr] = -INFINITY;
-    l_run[rr] = 0.f;
-#pragma unroll
-    for (int i = 0; i < kMaxD / 32; ++i) o[rr][i] = 0.f;
-  }
-
-  for (int k0 = 0; k0 < Tk; k0 += kK32) {
-    __syncthreads();
-    for (int i = tid; i < kK32 * D; i += kThreads) {
-      const int r = i / D, c = i % D;
-      const bool ok = k0 + r < Tk;
-      sK[r][c] = ok ? kb[static_cast<size_t>(k0 + r) * D + c] : 0.f;
-      sV[r][c] = ok ? vb[static_cast<size_t>(k0 + r) * D + c] : 0.f;
-    }
-    __syncthreads();
-    const int j = k0 + lane;
-#pragma unroll
-    for (int rr = 0; rr < 4; ++rr) {
-      const int r = warp * 4 + rr;
-      float s = 0.f;
-      for (int c = 0; c < D; ++c) s = fmaf(sQ[r][c], sK[lane][c], s);
-      if (j >= Tk)
-        s = -INFINITY;
-      else if (mrow && !mrow[j])
-        s = kMasked;
-      float mx = s;
-#pragma unroll
-      for (int off = 16; off > 0; off >>= 1) mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, off));
-      const float m_new = fmaxf(m_run[rr], mx);
-      const float alpha = expf(m_run[rr] - m_new);
-      const float p = expf(s - m_new);
-      float sum = p;
-#pragma unroll
-      for (int off = 16; off > 0; off >>= 1) sum += __shfl_xor_sync(0xffffffffu, sum, off);
-      l_run[rr] = l_run[rr] * alpha + sum;
-      m_run[rr] = m_new;
-#pragma unroll
-      for (int i = 0; i < kMaxD / 32; ++i) {
-        const int d = lane + 32 * i;
-        float acc = o[rr][i] * alpha;
-        for (int jj = 0; jj < kK32; ++jj) {
-          const float pj = __shfl_sync(0xffffffffu, p, jj);
-          if (d < D) acc = fmaf(pj, sV[jj][d], acc);
-        }
-        o[rr][i] = acc;
-      }
-    }
-  }
-
-#pragma unroll
-  for (int rr = 0; rr < 4; ++rr) {
-    const int t = q0 + warp * 4 + rr;
-    if (t >= Tq) continue;
-    const float l = fmaxf(l_run[rr], 1e-30f);
-    float* orow = out + (static_cast<size_t>(bh) * Tq + t) * D;
-#pragma unroll
-    for (int i = 0; i < kMaxD / 32; ++i) {
-      const int d = lane + 32 * i;
-      if (d < D) orow[d] = o[rr][i] / l;
-    }
   }
 }
 
@@ -633,6 +572,357 @@ cudaError_t launch_mma(const void* q, const void* k, const void* v, const void* 
   return cudaGetLastError();
 }
 
+// ------------------------------------------ float32: tf32 wgmma, D <= 128
+
+// The split operands' padded widths: D to whole 32-float (128-byte) swizzle
+// regions, Tk to whole groups of 8 keys (V^T's rows). The wrapper sizes its
+// scratch through flash_attention_f32_scratch, which reads these too.
+constexpr int f32_padded_d(int D) { return (D + 31) / 32 * 32; }
+constexpr int f32_padded_tk(int Tk) { return (Tk + 7) / 8 * 8; }
+
+// tf32(x) rounded to nearest, ties away from zero (cvt.rna.tf32.f32), with
+// the 13 bits the tensor cores do not read cleared
+__device__ __forceinline__ uint32_t tf32_rna(float x) {
+  return (__float_as_uint(x) + 0x1000u) & 0xffffe000u;
+}
+
+// x = hi + lo + O(2^-22 |x|): hi = tf32(x), lo = tf32(x - hi)
+__device__ __forceinline__ void split_tf32(float x, uint32_t& hi, uint32_t& lo) {
+  hi = tf32_rna(x);
+  lo = tf32_rna(x - __uint_as_float(hi));
+}
+
+// DP: D padded to the 32-float (128-byte) column regions of the swizzled
+// tiles. Two consumer warpgroups share each K/V tile where the stages fit
+// beside their Q (DP <= 64), one otherwise; as many stages as fit in 227 KB,
+// up to 4. That is 4 at DP 32 and 2 at DP 64, but 1 at DP 96 and 128 (a 96
+// or 128 KB stage beside 48 or 64 KB of Q): there the producer loads tile
+// i + 1 only once every consumer warp has released tile i, so loads and
+// compute do not overlap. No path runs float32 with D > 64 (HuBERT's heads
+// are 64 wide).
+template <int DP>
+struct F32Cfg {
+  static constexpr int kWG = DP <= 64 ? 2 : 1;
+  static constexpr int kThreads = 128 * kWG + 32;
+  static constexpr int kRows = 64 * kWG;                 // query rows per block
+  static constexpr int kRegions = DP / 32;               // of a Q or K row
+  static constexpr int kQHalf = kRegions * kRegionBytes;  // 64 rows of Q hi (or lo)
+  static constexpr int kKHalf = kRegions * kRegionBytes;  // 64 keys of K hi (or lo)
+  static constexpr int kVHalf = (kBk / 32) * DP * 128;    // V^T hi (or lo): DP rows, 64 keys
+  static constexpr int kStage = 2 * kKHalf + 2 * kVHalf;
+  static constexpr int kQ = kWG * 2 * kQHalf;
+  static constexpr int kFit = (232448 - 2048 - kQ) / kStage;  // 227 KB, less alignment
+  static constexpr int kStages = kFit < 4 ? kFit : 4;
+  static constexpr int kSmem = kQ + kStages * kStage + 1024;
+};
+
+// src [rows, D] -> dst [2][rows, DP]: tf32 hi and lo of each element, zeros
+// in the columns D .. DP-1 (n = rows * DP)
+template <int DP>
+__global__ void split_rows_kernel(const float* __restrict__ src, float* __restrict__ dst,
+                                  size_t n, int D) {
+  for (size_t i = blockIdx.x * static_cast<size_t>(blockDim.x) + threadIdx.x; i < n;
+       i += static_cast<size_t>(gridDim.x) * blockDim.x) {
+    const size_t row = i / DP;
+    const int c = static_cast<int>(i % DP);
+    uint32_t hi, lo;
+    split_tf32(c < D ? src[row * D + c] : 0.f, hi, lo);
+    dst[i] = __uint_as_float(hi);
+    dst[n + i] = __uint_as_float(lo);
+  }
+}
+
+// v [BH, Tk, D] -> dst [2][BH, DP, Tkp]: V^T split into tf32 hi and lo, the
+// keys of each group of 8 stored in the order 0, 2, 4, 6, 1, 3, 5, 7 (see
+// the P.V step of attn_tf32_kernel), zeros past Tk and past D. A block
+// transposes 32 keys x 32 channels through shared memory.
+__global__ void __launch_bounds__(256)
+split_vt_kernel(const float* __restrict__ v, float* __restrict__ dst, int Tk, int Tkp, int D,
+                int DP) {
+  __shared__ float tile[32][33];
+  const int bh = blockIdx.z, p0 = blockIdx.x * 32, c0 = blockIdx.y * 32;
+  const int tx = threadIdx.x, ty = threadIdx.y;
+  for (int r = ty; r < 32; r += 8) {
+    const int key = p0 + r, c = c0 + tx;
+    tile[r][tx] = key < Tk && c < D ? v[(static_cast<size_t>(bh) * Tk + key) * D + c] : 0.f;
+  }
+  __syncthreads();
+  const int j = tx & 7, key = (tx & ~7) + (j < 4 ? 2 * j : 2 * j - 7);
+  const size_t half = static_cast<size_t>(gridDim.z) * DP * Tkp;
+  for (int r = ty; r < 32; r += 8) {
+    const int c = c0 + r, p = p0 + tx;
+    if (p >= Tkp) continue;
+    uint32_t hi, lo;
+    split_tf32(tile[key][r], hi, lo);
+    const size_t i = (static_cast<size_t>(bh) * DP + c) * Tkp + p;
+    dst[i] = __uint_as_float(hi);
+    dst[half + i] = __uint_as_float(lo);
+  }
+}
+
+// The float32 attention on tf32 tensor cores, three passes per product:
+// x y ~ hi hi' + hi lo' + lo hi' (the dropped lo lo' is under 2^-22 |x y|).
+// Q, K and V^T come split from the prologue launches ([hi; lo] stacked on
+// the head axis of each tensor map: coordinate bh + half * BH). A block is
+// kWG consumer warpgroups of 64 query rows and one producer warp that loads
+// Q once and streams 64-key tiles of K hi/lo and V^T hi/lo through the ring.
+// S = Q K^T is three wgmma per 8-channel k-step from shared Q and K (both
+// K-major). P.V: tf32 wgmma reads B K-major only, hence V^T (keys along the
+// row); the score accumulators of key group kk (thread: rows g, g + 8; keys
+// 2c, 2c + 1) are the A fragment of k-step kk (k indices c, c + 4) once the
+// keys of each group of 8 are stored in the order 0, 2, 4, 6, 1, 3, 5, 7,
+// so P, split into tf32 hi + lo in registers, feeds the product unshuffled.
+// Masking and the log2-domain online softmax are the bf16 kernel's.
+template <int DP>
+__global__ void __launch_bounds__(F32Cfg<DP>::kThreads, 1)
+attn_tf32_kernel(__grid_constant__ const CUtensorMap tm_q,
+                 __grid_constant__ const CUtensorMap tm_k,
+                 __grid_constant__ const CUtensorMap tm_v, const uint8_t* __restrict__ mask,
+                 float* __restrict__ out, int H, int Tq, int Tk, int D, float scale_log2) {
+  typedef F32Cfg<DP> Cfg;
+  constexpr int kS = Cfg::kStages;
+  extern __shared__ unsigned char smem_raw[];
+  __shared__ __align__(8) uint64_t full[kS], empty[kS], q_full;
+  __shared__ uint32_t mbits[kS][2];  // bit c of word w: key 32w + c of the tile is valid
+  // Q: [warpgroup][hi, lo][region][64 rows x 128 B]; a stage: K [hi, lo][region]
+  // [64 keys x 128 B], then V^T [hi, lo][key region][DP rows x 128 B]
+  unsigned char* sQ = hopper::align1024(smem_raw);
+  auto sK = [&](int s) { return sQ + Cfg::kQ + s * Cfg::kStage; };
+  auto sV = [&](int s) { return sK(s) + 2 * Cfg::kKHalf; };
+
+  const int q0 = blockIdx.x * Cfg::kRows, bh = blockIdx.y, BH = gridDim.y;
+  const int n_tiles = (Tk + kBk - 1) / kBk;
+
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < kS; ++s) {
+      hopper::mbar_init(&full[s], 1);
+      hopper::mbar_init(&empty[s], 4 * Cfg::kWG);  // one arrival per consumer warp
+    }
+    hopper::mbar_init(&q_full, 1);
+    hopper::fence_barrier_init();
+  }
+  __syncthreads();
+
+  if (threadIdx.x >= 128 * Cfg::kWG) {
+    const int lane = threadIdx.x - 128 * Cfg::kWG;
+    if (lane == 0) {
+      hopper::mbar_arrive_expect_tx(&q_full, Cfg::kQ);
+      for (int wg = 0; wg < Cfg::kWG; ++wg)
+        for (int half = 0; half < 2; ++half)
+          for (int r = 0; r < Cfg::kRegions; ++r)
+            hopper::tma_load_3d(sQ + (2 * wg + half) * Cfg::kQHalf + r * kRegionBytes, &tm_q,
+                                &q_full, 32 * r, q0 + 64 * wg, bh + half * BH);
+    }
+    const uint8_t* mrow = mask ? mask + static_cast<size_t>(bh / H) * Tk : nullptr;
+    for (int i = 0; i < n_tiles; ++i) {
+      const int s = i % kS;
+      const int k0 = i * kBk;
+      const int j0 = k0 + lane, j1 = k0 + 32 + lane;
+      const uint32_t w0 = __ballot_sync(0xffffffffu, j0 < Tk && (!mrow || mrow[j0]));
+      const uint32_t w1 = __ballot_sync(0xffffffffu, j1 < Tk && (!mrow || mrow[j1]));
+      if (lane == 0) {
+        hopper::mbar_wait(&empty[s], ((i / kS) & 1) ^ 1);
+        mbits[s][0] = w0;
+        mbits[s][1] = w1;
+        hopper::mbar_arrive_expect_tx(&full[s], Cfg::kStage);  // releases mbits[s]
+        for (int half = 0; half < 2; ++half) {
+          for (int r = 0; r < Cfg::kRegions; ++r)
+            hopper::tma_load_3d(sK(s) + half * Cfg::kKHalf + r * kRegionBytes, &tm_k, &full[s],
+                                32 * r, k0, bh + half * BH);
+          for (int j = 0; j < kBk / 32; ++j)
+            hopper::tma_load_3d(sV(s) + half * Cfg::kVHalf + j * DP * 128, &tm_v, &full[s],
+                                k0 + 32 * j, 0, bh + half * BH);
+        }
+      }
+      __syncwarp();
+    }
+    return;
+  }
+
+  // consumer warpgroup wg: thread holds rows g (r = 0: e = 0, 1) and g + 8
+  // (r = 1: e = 2, 3) of its warp's 16, columns 8 ni + 2 qd + (e & 1) of
+  // each accumulator (keys in sc, channels 32 c + column in o[c])
+  const int tid = threadIdx.x % 128, wg = threadIdx.x / 128, lane = tid % 32, warp = tid / 32;
+  const int g = lane / 4, qd = lane % 4;
+  const unsigned char* q_hi = sQ + 2 * wg * Cfg::kQHalf;
+  const unsigned char* q_lo = q_hi + Cfg::kQHalf;
+  float m_run[2] = {-INFINITY, -INFINITY}, l_run[2] = {0.f, 0.f};
+  float o[Cfg::kRegions][16];
+#pragma unroll
+  for (int c = 0; c < Cfg::kRegions; ++c)
+#pragma unroll
+    for (int i = 0; i < 16; ++i) o[c][i] = 0.f;
+
+  hopper::mbar_wait(&q_full, 0);
+  for (int i = 0; i < n_tiles; ++i) {
+    const int s = i % kS;
+    const int k0 = i * kBk;
+    hopper::mbar_wait(&full[s], (i / kS) & 1);
+    const unsigned char* k_hi = sK(s);
+    const unsigned char* k_lo = k_hi + Cfg::kKHalf;
+
+    // the tensor cores truncate each k-step's sum to float32, so the small
+    // cross terms go in first, while the sum is small, and hi hi' last
+    float sc[32];
+    hopper::wgmma_fence();
+#pragma unroll
+    for (int pass = 0; pass < 3; ++pass)
+#pragma unroll
+      for (int ks = 0; ks < DP / 8; ++ks) {
+        const int off = (ks / 4) * kRegionBytes + (ks % 4) * 32;
+        hopper::wgmma_tf32_n64(sc, hopper::desc_sw128((pass == 1 ? q_lo : q_hi) + off),
+                               hopper::desc_sw128((pass == 0 ? k_lo : k_hi) + off),
+                               pass > 0 || ks > 0);
+      }
+    hopper::wgmma_commit();
+    hopper::wgmma_wait<0>();
+    hopper::fence_operand(sc);
+
+    const uint32_t mb[2] = {mbits[s][0], mbits[s][1]};
+    const int lim = Tk - k0;  // keys at or past it are past Tk
+#pragma unroll
+    for (int ni = 0; ni < 8; ++ni)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int col = ni * 8 + 2 * qd + (e & 1);
+        const float x = sc[4 * ni + e] * scale_log2;
+        sc[4 * ni + e] = col >= lim ? -INFINITY : ((mb[ni / 4] >> (col % 32)) & 1u) ? x : kMasked;
+      }
+
+    // online softmax: key k0 < Tk is in the tile, so each row max is finite
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      float mx = -INFINITY;
+#pragma unroll
+      for (int ni = 0; ni < 8; ++ni)
+        mx = fmaxf(mx, fmaxf(sc[4 * ni + 2 * r], sc[4 * ni + 2 * r + 1]));
+      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
+      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
+      const float m_new = fmaxf(m_run[r], mx);
+      const float alpha = exp2f(m_run[r] - m_new);  // 0 on the first tile
+      float sum = 0.f;
+#pragma unroll
+      for (int ni = 0; ni < 8; ++ni)
+#pragma unroll
+        for (int e = 2 * r; e < 2 * r + 2; ++e) {
+          sc[4 * ni + e] = exp2f(sc[4 * ni + e] - m_new);
+          sum += sc[4 * ni + e];
+        }
+      sum += __shfl_xor_sync(0xffffffffu, sum, 1);
+      sum += __shfl_xor_sync(0xffffffffu, sum, 2);
+      l_run[r] = l_run[r] * alpha + sum;
+      m_run[r] = m_new;
+#pragma unroll
+      for (int c = 0; c < Cfg::kRegions; ++c)
+#pragma unroll
+        for (int ni = 0; ni < 4; ++ni) {
+          o[c][4 * ni + 2 * r] *= alpha;
+          o[c][4 * ni + 2 * r + 1] *= alpha;
+        }
+    }
+
+    // P.V: k-step kk takes keys 8 kk .. 8 kk + 7, stored in V^T as 0, 2, 4,
+    // 6, 1, 3, 5, 7, so k index qd is key 2 qd (accumulator e = 0 / 2 for
+    // rows g / g + 8) and k index qd + 4 is key 2 qd + 1 (e = 1 / 3); hi and
+    // lo stay untouched until the last wait
+    uint32_t hi[8][4], lo[8][4];
+#pragma unroll
+    for (int kk = 0; kk < 8; ++kk) {
+      split_tf32(sc[4 * kk + 0], hi[kk][0], lo[kk][0]);
+      split_tf32(sc[4 * kk + 2], hi[kk][1], lo[kk][1]);
+      split_tf32(sc[4 * kk + 1], hi[kk][2], lo[kk][2]);
+      split_tf32(sc[4 * kk + 3], hi[kk][3], lo[kk][3]);
+    }
+    // The tile's product goes into fresh accumulators t, cross terms first,
+    // and is added to o in float32 (round to nearest): summed in the tensor
+    // cores' accumulators across the tiles, every k-step would truncate the
+    // running sum (two 32-channel regions at a time where their count is
+    // even, to bound registers; one at a time at DP = 32 and 96)
+    const unsigned char* v_hi = sV(s);
+    const unsigned char* v_lo = v_hi + Cfg::kVHalf;
+    constexpr int kPair = Cfg::kRegions % 2 ? 1 : 2;
+    static_assert(Cfg::kRegions % kPair == 0, "P.V's chunks must tile the channel regions");
+#pragma unroll
+    for (int c0 = 0; c0 < Cfg::kRegions; c0 += kPair) {
+      float t[kPair][16];
+      hopper::wgmma_fence();
+#pragma unroll
+      for (int pass = 0; pass < 3; ++pass)
+#pragma unroll
+        for (int kk = 0; kk < 8; ++kk)
+#pragma unroll
+          for (int j = 0; j < kPair; ++j) {
+            const int off = (kk / 4) * DP * 128 + (kk % 4) * 32 + (c0 + j) * 32 * 128;
+            hopper::wgmma_tf32_n32_rs(t[j], pass == 1 ? lo[kk] : hi[kk],
+                                      hopper::desc_sw128((pass == 0 ? v_lo : v_hi) + off),
+                                      pass > 0 || kk > 0);
+          }
+      hopper::wgmma_commit();
+      hopper::wgmma_wait<0>();
+#pragma unroll
+      for (int j = 0; j < kPair; ++j) {
+        hopper::fence_operand(t[j]);
+#pragma unroll
+        for (int i = 0; i < 16; ++i) o[c0 + j][i] += t[j][i];
+      }
+    }
+    __syncwarp();
+    if (lane == 0) hopper::mbar_arrive(&empty[s]);  // K, V^T and mbits of stage s are read
+  }
+
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int t = q0 + 64 * wg + warp * 16 + g + 8 * r;
+    if (t >= Tq) continue;
+    const float l = fmaxf(l_run[r], 1e-30f);
+    float* orow = out + (static_cast<size_t>(bh) * Tq + t) * D;
+#pragma unroll
+    for (int c = 0; c < Cfg::kRegions; ++c)
+#pragma unroll
+      for (int ni = 0; ni < 4; ++ni)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int col = 32 * c + 8 * ni + 2 * qd + e;
+          if (col < D) orow[col] = o[c][4 * ni + 2 * r + e] / l;
+        }
+  }
+}
+
+template <int DP>
+cudaError_t launch_tf32(const void* q, const void* k, const void* v, const void* mask, void* out,
+                        float* qs, float* ks, float* vts, int BH, int H, int Tq, int Tk, int D,
+                        float scale, cudaStream_t st) {
+  typedef F32Cfg<DP> Cfg;
+  static_assert(DP % 32 == 0, "DP is D padded to whole 32-float regions");
+  const int Tkp = f32_padded_tk(Tk);
+  const size_t nq = static_cast<size_t>(BH) * Tq * DP, nk = static_cast<size_t>(BH) * Tk * DP;
+  split_rows_kernel<DP><<<static_cast<int>(std::min<size_t>((nq + 255) / 256, 4096)), 256, 0,
+                          st>>>(static_cast<const float*>(q), qs, nq, D);
+  split_rows_kernel<DP><<<static_cast<int>(std::min<size_t>((nk + 255) / 256, 4096)), 256, 0,
+                          st>>>(static_cast<const float*>(k), ks, nk, D);
+  split_vt_kernel<<<dim3((Tkp + 31) / 32, DP / 32, BH), dim3(32, 8), 0, st>>>(
+      static_cast<const float*>(v), vts, Tk, Tkp, D, DP);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  CUtensorMap maps[3];
+  const uint64_t tq = Tq, tk = Tk, tkp = Tkp, dp = DP;
+  if ((err = hopper::make_map_3d(&maps[0], CU_TENSOR_MAP_DATA_TYPE_FLOAT32, qs, dp, tq, 2 * BH,
+                                 dp * 4, tq * dp * 4, 32, 64, 1)) != cudaSuccess ||
+      (err = hopper::make_map_3d(&maps[1], CU_TENSOR_MAP_DATA_TYPE_FLOAT32, ks, dp, tk, 2 * BH,
+                                 dp * 4, tk * dp * 4, 32, 64, 1)) != cudaSuccess ||
+      (err = hopper::make_map_3d(&maps[2], CU_TENSOR_MAP_DATA_TYPE_FLOAT32, vts, tkp, dp, 2 * BH,
+                                 tkp * 4, dp * tkp * 4, 32, DP, 1)) != cudaSuccess)
+    return err;
+  if ((err = cudaFuncSetAttribute(attn_tf32_kernel<DP>,
+                                  cudaFuncAttributeMaxDynamicSharedMemorySize, Cfg::kSmem)) !=
+      cudaSuccess)
+    return err;
+  attn_tf32_kernel<DP><<<dim3((Tq + Cfg::kRows - 1) / Cfg::kRows, BH), Cfg::kThreads, Cfg::kSmem,
+                         st>>>(maps[0], maps[1], maps[2], static_cast<const uint8_t*>(mask),
+                               static_cast<float*>(out), H, Tq, Tk, D, scale * kLog2e);
+  return cudaGetLastError();
+}
+
 }  // namespace
 
 // q [BH, Tq, D], k/v [BH, Tk, D], out [BH, Tq, D], bf16, contiguous and
@@ -664,16 +954,44 @@ extern "C" int flash_attention_bf16(const void* q, const void* k, const void* v,
   }
 }
 
-// The same for float32 tensors, 1 <= D <= 128.
+static bool f32_args_ok(int BH, int H, int Tq, int Tk, int D) {
+  return BH > 0 && H > 0 && BH % H == 0 && Tq > 0 && Tk > 0 && BH <= 65535 && D > 0 && D <= 128;
+}
+
+// The element counts of flash_attention_f32's scratch for these shapes, into
+// counts[0..2]: qs [2, BH, Tq, DP], ks [2, BH, Tk, DP] and vts [2, BH, DP,
+// Tkp], with DP = f32_padded_d(D) and Tkp = f32_padded_tk(Tk). Returns
+// cudaErrorInvalidValue where flash_attention_f32 would refuse the shapes.
+extern "C" int flash_attention_f32_scratch(int BH, int H, int Tq, int Tk, int D,
+                                           long long* counts) {
+  if (!f32_args_ok(BH, H, Tq, Tk, D) || !counts) return static_cast<int>(cudaErrorInvalidValue);
+  const long long dp = f32_padded_d(D);
+  counts[0] = 2LL * BH * Tq * dp;
+  counts[1] = 2LL * BH * Tk * dp;
+  counts[2] = 2LL * BH * dp * f32_padded_tk(Tk);
+  return 0;
+}
+
+// The same as flash_attention_bf16 for float32 tensors, 1 <= D <= 128, on
+// tf32 tensor cores in three passes, with no split over the keys. The
+// scratch qs, ks and vts (f32, 16-byte aligned, of the element counts that
+// flash_attention_f32_scratch gives) take the split operands.
 extern "C" int flash_attention_f32(const void* q, const void* k, const void* v,
-                                   const void* mask, void* out, int BH, int H, int Tq, int Tk,
-                                   int D, float scale, void* stream) {
-  if (BH <= 0 || H <= 0 || BH % H != 0 || Tq <= 0 || Tk <= 0 || BH > 65535 || D <= 0 ||
-      D > kMaxD)
+                                   const void* mask, void* out, void* qs, void* ks, void* vts,
+                                   int BH, int H, int Tq, int Tk, int D, float scale,
+                                   void* stream) {
+  if (!f32_args_ok(BH, H, Tq, Tk, D) || !qs || !ks || !vts)
     return static_cast<int>(cudaErrorInvalidValue);
-  attn_f32_kernel<<<dim3((Tq + kQ32 - 1) / kQ32, BH), kThreads, 0,
-                    static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
-      static_cast<const uint8_t*>(mask), static_cast<float*>(out), H, Tq, Tk, D, scale);
-  return static_cast<int>(cudaGetLastError());
+  cudaError_t (*launch)(const void*, const void*, const void*, const void*, void*, float*,
+                        float*, float*, int, int, int, int, int, float, cudaStream_t);
+  switch (f32_padded_d(D)) {
+    case 32: launch = launch_tf32<32>; break;
+    case 64: launch = launch_tf32<64>; break;
+    case 96: launch = launch_tf32<96>; break;
+    default: launch = launch_tf32<128>;
+  }
+  const cudaError_t err = launch(q, k, v, mask, out, static_cast<float*>(qs),
+                                 static_cast<float*>(ks), static_cast<float*>(vts), BH, H, Tq, Tk,
+                                 D, scale, static_cast<cudaStream_t>(stream));
+  return static_cast<int>(err);
 }

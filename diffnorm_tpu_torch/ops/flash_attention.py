@@ -6,10 +6,14 @@ queries on wgmma, K/V in 64-key tiles streamed by TMA through a ring of
 stages, P split into bf16 hi + lo (so the probabilities keep f32 precision
 as on the TPU); where the grid would leave the card under-filled, the key
 tiles are split into ranges (`split_plan`) whose partial results a second
-launch merges. D 32/96 keep an mma.sync kernel, float32 inputs an FMA
-kernel. At the S2ST decoder's encoder attention (q [2,8,256,64], k/v
+launch merges. D 32/96 keep an mma.sync kernel. float32 inputs (D <= 128)
+take tf32 wgmma in three passes per product (hi hi' + hi lo' + lo hi', each
+operand and P split into tf32 hi + lo), which keeps float32's accuracy;
+prologue launches write the split Q, K and V^T into scratch the wrapper
+allocates. At the S2ST decoder's encoder attention (q [2,8,256,64], k/v
 [2,8,2112,64], bf16) it is bound by bytes on an H100: 9.7 MB, 2.9 us at
-3.35 TB/s.
+3.35 TB/s; at HuBERT's float32 long form ([1,12,3499,64]) by operations,
+three tf32 passes of 37.6 GFLOP, 0.228 ms.
 `ops.attention.masked_attention` routes here for keys of length >= 2048 on
 the card where `supports` says the kernel takes the inputs.
 
@@ -40,7 +44,7 @@ BLOCKS_PER_SM = 2  # split until the grid has about this many blocks per SM
 
 
 def split_plan(bh: int, tq: int, tk: int, sms: int):
-    """(n_splits, tiles_per_split) of the wgmma kernel: the Tk keys in
+    """(n_splits, tiles_per_split) of the bf16 wgmma kernel: the Tk keys in
     64-key tiles, cut into contiguous ranges only where (query tiles x B*H)
     blocks would leave the card under BLOCKS_PER_SM blocks per SM. Every
     range holds at least one key below Tk."""
@@ -148,7 +152,6 @@ def _launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         raise refusal
     b, h, tq, d = q.shape
     tk = k.shape[2]
-    symbol = "flash_attention_bf16" if q.dtype == torch.bfloat16 else "flash_attention_f32"
     if mask is not None:
         mask = mask.to(torch.bool).contiguous()
     q, k, v = _aligned(q), _aligned(k), _aligned(v)
@@ -156,10 +159,18 @@ def _launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     stream = torch.cuda.current_stream(q.device).cuda_stream
     ptrs = (q.data_ptr(), k.data_ptr(), v.data_ptr(), None if mask is None else mask.data_ptr(),
             out.data_ptr())
-    if symbol == "flash_attention_f32":
-        fn = _build.function("flash_attention", symbol, [ctypes.c_void_p] * 5
+    if q.dtype == torch.float32:
+        # the tf32 hi/lo halves of Q, K and V^T, padded as the kernel pads
+        # them: their sizes come from the library, which owns the layout
+        sizing = _build.function("flash_attention", "flash_attention_f32_scratch",
+                                 [ctypes.c_int] * 5 + [ctypes.POINTER(ctypes.c_longlong)])
+        counts = (ctypes.c_longlong * 3)()
+        _build.check(sizing(b * h, h, tq, tk, d, counts), "flash_attention")
+        scratch = [torch.empty(n, dtype=torch.float32, device=q.device) for n in counts]
+        fn = _build.function("flash_attention", "flash_attention_f32", [ctypes.c_void_p] * 8
                              + [ctypes.c_int] * 5 + [ctypes.c_float, ctypes.c_void_p])
-        err = fn(*ptrs, b * h, h, tq, tk, d, d ** -0.5, stream)
+        err = fn(*ptrs, *(t.data_ptr() for t in scratch), b * h, h, tq, tk, d, d ** -0.5,
+                 stream)
     else:
         n_splits, per = 1, -(-tk // BLOCK)
         o_part = ml_part = None
@@ -169,7 +180,7 @@ def _launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         if n_splits > 1:
             o_part = torch.empty(n_splits, b * h, tq, d, dtype=torch.float32, device=q.device)
             ml_part = torch.empty(n_splits, b * h, tq, 2, dtype=torch.float32, device=q.device)
-        fn = _build.function("flash_attention", symbol, [ctypes.c_void_p] * 7
+        fn = _build.function("flash_attention", "flash_attention_bf16", [ctypes.c_void_p] * 7
                              + [ctypes.c_int] * 5 + [ctypes.c_float] + [ctypes.c_int] * 2
                              + [ctypes.c_void_p])
         err = fn(*ptrs, None if o_part is None else o_part.data_ptr(),

@@ -10,6 +10,7 @@ the CG and SP draws injected, and dropout is checked by its statistics."""
 
 import copy
 import json
+import types
 import wave
 
 import jax
@@ -518,3 +519,48 @@ def test_cli_flags_not_ported_raise(extra, error):
     assert args.tgt_feat_dir is None and args.config_yaml == "config.yaml"
     with pytest.raises(SystemExit):  # the main-path stages still need their features
         train_cli.parse_args(["data", "--task", "speech_decoder", "--max-update", "1"])
+
+
+class _FirstBatch(Exception):
+    """Raised by a recording train step to stop a CLI after its first batch."""
+
+
+def test_cli_first_batch_matches_jax_cli(tmp_path, monkeypatch):
+    """From one seed and corpus (SpecAugment on train), the port's cli.train
+    and JAX's hand their trainers the same first batch: JAX draws an example
+    item (`dataset[0]`) before training, which advances the dataset's
+    SpecAugment generator, and the port draws it too. Each CLI's step
+    records its batch and stops; JAX's model is not initialized (the first
+    batch does not depend on it)."""
+    from diffnorm_tpu.cli import train as jtrain_cli
+    from diffnorm_tpu.cli.args import parse_args as jparse_args
+
+    _write_wav_corpus(tmp_path)
+    args = [str(tmp_path), "--config-yaml", "config.yaml", "--task",
+            "speech_to_speech_fasttranslate", "--target-code-size", str(CODES),
+            "--criterion", "nar_speech_to_unit", "--arch", "nar_s2ut_conformer",
+            "--max-update", "2", "--max-tokens", "200", "--seed", "42", "--cpu",
+            "--encoder-embed-dim", "32", "--encoder-ffn-embed-dim", "64",
+            "--encoder-layers", "2", "--encoder-attention-heads", "2",
+            "--decoder-layers", "2", "--decoder-attention-heads", "2",
+            "--depthwise-conv-kernel-size", "5", "--conv-channels", "32"]
+    seen = {}
+
+    def port_step(self, batches):
+        seen["port"] = np.asarray(batches[0]["src_tokens"])
+        raise _FirstBatch
+
+    def jax_step(self, state, batches, rng):
+        seen["jax"] = np.asarray(batches[0]["src_tokens"])
+        raise _FirstBatch
+
+    monkeypatch.setattr(Trainer, "train_step", port_step)
+    monkeypatch.setattr(JTrainer, "train_step", jax_step)
+    monkeypatch.setattr(JTrainer, "init_state",
+                        lambda self, rng, example: types.SimpleNamespace(params={}, step=0))
+    with pytest.raises(_FirstBatch):
+        train_cli.main(args + ["--save-dir", str(tmp_path / "port")])
+    with pytest.raises(_FirstBatch):
+        jtrain_cli.main(jparse_args(args + ["--save-dir", str(tmp_path / "jax")]))
+    assert seen["port"].shape == seen["jax"].shape
+    np.testing.assert_array_equal(seen["port"], seen["jax"])
