@@ -16,7 +16,8 @@ prints no result:
    bit for bit) at [64, 128, 512], P=1408, checked also at [4, 200],
    [1, 7] and [1, 6144], with one fused_layer call's device time per
    launch; flash_attention at the S2ST decoder's long-form shape (q
-   [2,8,256,64] against k/v [2,8,2112,64]) and at B2 H8 T4096 D64, with
+   [2,8,256,64] against k/v [2,8,2112,64]), at phase 15's (k/v
+   [2,8,3072,64], keys 2112 and 120) and at B2 H8 T4096 D64, with
    ragged key masks, a fully masked row, odd Tq/Tk, Tk = 1, Tk = 65 and a
    short last key split (bf16 and float32), D 32/96/128 and float32, timed
    beside F.scaled_dot_product_attention with the same boolean key mask.
@@ -119,8 +120,19 @@ the tensor cores) at the shapes float32 callers send: HuBERT's long form
 mask, and the S2ST decoder's shape with its key mask, each timed beside the
 plain version and SDPA in float32 with both bounds (SIMT float32, three
 tf32 passes); and at D 80 and 128 with ragged keys and a fully masked row.
+15. eval (scripts/s2ut_eval.sh): a seeded corpus of 16 CVSS-length .npy
+   sources (480 frames) and one of 8448, the released NAR and vocoder via
+   weights.save_npz and a seeded wav2vec2-large-lv60-shaped CTC checkpoint
+   written in Hugging Face's layout; cli.generate (--max-tokens 20000, 15
+   iterations; the long source's batch launches flash_attention), again with
+   --init-unit-file and with --cond-scale 2, eval.unit_bleu,
+   cli.generate_waveform --dur-prediction and eval.asr_bleu, each command's
+   wall; cli.generate's units against an in-process mask_predict_decode
+   (equal), the forced canvases' lengths, one wav per unit line, and the
+   ASR's logits on the card against its CPU float32 forward.
 The kernels JSON line reports the float32 kernel as flash_attention_f32
-(its launches those of phase 13) beside the bf16 one (phase 6's).
+(its launches those of phase 13) beside the bf16 one (phase 6's and the
+three cli.generate runs of phase 15).
 
 Then one JSON line of per-kernel numbers and, last, {"ok": true, "device": ...}.
 Exits non-zero without CUDA, and in a directory without the port.
@@ -129,7 +141,9 @@ Exits non-zero without CUDA, and in a directory without the port.
 from __future__ import annotations
 
 import contextlib
+import io
 import json
+import logging
 import math
 import statistics
 import subprocess
@@ -250,6 +264,37 @@ PREP_CLI_UTTS = 24  # 3-7 s each, beside one of PREP_LONG_SAMPLES
 # broken bf16 convolution (the CPU's oneDNN grouped one had row-cos 0.08)
 PREP_ROW_COS, PREP_REL, PREP_UNIT_AGREE = 0.99999, 1e-4, 0.99
 PREP_BF16_ROW_COS, PREP_BF16_REL = 0.999, 5e-2
+# the eval chain (phase 15, scripts/s2ut_eval.sh): 16 CVSS-length sources and
+# one long-form source whose subsampled frames reach flash_attention, batched
+# by the recipe's --max-tokens; the ASR is wav2vec2-large-960h-lv60-self's
+# shape (HF config.json), seeded, with its 32-token English vocabulary
+EVAL_SHORT, EVAL_SHORT_FRAMES, EVAL_LONG_FRAMES, EVAL_MAX_TOKENS = 16, 480, 8448, 20000
+EVAL_MAX_ITER = 15  # --iter-decode-max-iter
+EVAL_WIDTH_FLAGS: list = []  # the released nar_s2ut_conformer: the CLI's defaults
+ASR_CONFIG = dict(
+    model_type="wav2vec2", architectures=["Wav2Vec2ForCTC"], hidden_size=1024,
+    num_hidden_layers=24, num_attention_heads=16, intermediate_size=4096, conv_dim=[512] * 7,
+    conv_kernel=[10, 3, 3, 3, 3, 2, 2], conv_stride=[5, 2, 2, 2, 2, 2, 2], conv_bias=True,
+    feat_extract_norm="layer", do_stable_layer_norm=True, num_conv_pos_embeddings=128,
+    num_conv_pos_embedding_groups=16, layer_norm_eps=1e-5, hidden_act="gelu",
+    feat_extract_activation="gelu", vocab_size=32)
+ASR_VOCAB = ["<pad>", "<s>", "</s>", "<unk>", "|", "E", "T", "A", "O", "N", "I", "H", "S", "R",
+             "D", "L", "U", "M", "W", "C", "F", "G", "Y", "P", "B", "V", "K", "'", "X", "J",
+             "Q", "Z"]
+# the ASR on the card (float32, TF32 off) against the port's CPU float32
+# forward on the same wavs: float32 sums in other orders over 24 layers
+ASR_CHECK_WAVS, ASR_ROW_COS, ASR_ARGMAX_AGREE = 4, 0.9999, 0.99
+
+
+class LogLines(logging.Handler):
+    """Keeps the messages a logger emits."""
+
+    def __init__(self):
+        super().__init__()
+        self.lines = []
+
+    def emit(self, record):
+        self.lines.append(record.getMessage())
 
 
 def fail(msg: str) -> None:
@@ -656,6 +701,8 @@ def check_flash_attention(torch, flash):
         ("float32 D=96", 2, 2, 70, 300, 96, [300, 133], f32),
         ("float32 D=128, a fully masked row", 3, 2, 70, 200, 128, [200, 77, 0], f32),
         ("path", 2, 8, 256, 2112, 64, [2112, 1056], bf),
+        # phase 15's long batch: 8448 and 480 frames padded to the 12288 bucket
+        ("eval path", 2, 8, 256, 3072, 64, [2112, 120], bf),
         ("PERFORMANCE.md", 2, 8, 4096, 4096, 64, [4096, 3001], bf),
         # the S2ST decoder's encoder attention in float32
         ("float32 path", 2, 8, 256, 2112, 64, [2112, 1056], f32),
@@ -688,8 +735,8 @@ def check_flash_attention(torch, flash):
               f"{str(dtype)[6:]} {'no mask' if lengths is None else f'keys {lengths}'}: "
               f"max err {err.max().item():.3e}, within "
               f"rtol {FLASH_RTOL} atol {FLASH_ATOL}" + (" + 1 bf16 ulp" if dtype == bf else ""))
-        if what not in ("path", "PERFORMANCE.md", "float32 path", "HuBERT long form",
-                        "HuBERT longest chunk"):
+        if what not in ("path", "eval path", "PERFORMANCE.md", "float32 path",
+                        "HuBERT long form", "HuBERT longest chunk"):
             continue
         ms = cuda_time_ms(lambda: flash.flash_attention(q, k, v, mask))
         plain_ms = cuda_time_ms(lambda: flash.flash_attention_plain(q, k, v, mask),
@@ -1236,21 +1283,11 @@ def run_train_cli(torch, smi):
     the VAE for 2 updates and a checkpoint, the normalizer over it
     (--speech-decoder-ckpt) for 2 updates and a checkpoint, resumed to 4,
     then cli.diff_norm_synthesis --params-npz on the trained normalizer."""
-    import logging
-
     from diffnorm_tpu_torch.cli import diff_norm_synthesis
     from diffnorm_tpu_torch.cli import train as train_cli
     from diffnorm_tpu_torch.ops import _build
 
-    class Lines(logging.Handler):
-        def __init__(self):
-            super().__init__()
-            self.lines = []
-
-        def emit(self, record):
-            self.lines.append(record.getMessage())
-
-    lines = Lines()
+    lines = LogLines()
     logging.getLogger("diffnorm_tpu_torch.train").addHandler(lines)
     with tempfile.TemporaryDirectory() as tmp:
         tmp = Path(tmp)
@@ -1466,20 +1503,10 @@ def run_train_nar_cli(torch, smi):
     """Phase 11: cli.train on WAV sources at the released widths in bf16 (2
     updates and a checkpoint, resumed to 4), then cli.s2st --params-npz on
     the step directory."""
-    import logging
-
     from diffnorm_tpu_torch.cli import s2st as s2st_cli
     from diffnorm_tpu_torch.cli import train as train_cli
     from diffnorm_tpu_torch.models.hifigan import CodeHiFiGANVocoder
     from diffnorm_tpu_torch.weights import save_npz, to_jax_variables
-
-    class Lines(logging.Handler):
-        def __init__(self):
-            super().__init__()
-            self.lines = []
-
-        def emit(self, record):
-            self.lines.append(record.getMessage())
 
     with tempfile.TemporaryDirectory() as tmp:
         tmp = Path(tmp)
@@ -1497,7 +1524,7 @@ def run_train_nar_cli(torch, smi):
                 "8000", "--max-target-positions", "1024", "--seed", "42", "--prng-impl", "rbg",
                 "--validate-interval", "5", "--save-interval", "5", "--dtype", "bfloat16",
                 "--log-interval", "1"]
-        lines = Lines()
+        lines = LogLines()
         logging.getLogger("diffnorm_tpu_torch.train").addHandler(lines)
         for what, max_update in (("2 updates", 2), ("resumed to 4", 4)):
             lines.lines.clear()
@@ -1972,6 +1999,246 @@ def run_prep_cli(torch, model, smi):
               f"{time.perf_counter() - t0:.1f} s in all; {smi}")
 
 
+def write_eval_corpus(root: Path, seed: int = 15):
+    """test.tsv over EVAL_SHORT .npy sources of EVAL_SHORT_FRAMES fbank frames
+    and one of EVAL_LONG_FRAMES, with 40-250 unit targets, and a config.yaml
+    with utterance CMVN."""
+    import numpy as np
+
+    from diffnorm_tpu_torch.data.manifest import write_translation_manifest
+
+    rng = np.random.default_rng(seed)
+    rows = []
+    for i, n in enumerate([EVAL_SHORT_FRAMES] * EVAL_SHORT + [EVAL_LONG_FRAMES]):
+        np.save(root / f"utt{i}.npy", rng.normal(size=(n, 80)).astype(np.float32))
+        units = rng.integers(0, 1000, size=int(rng.integers(40, 251)))
+        rows.append({"id": f"utt{i}", "src_audio": f"utt{i}.npy", "src_n_frames": n,
+                     "tgt_audio": " ".join(map(str, units)), "tgt_n_frames": len(units)})
+    write_translation_manifest(str(root / "test.tsv"), rows)
+    (root / "config.yaml").write_text("input_feat_per_channel: 80\n"
+                                      "transforms:\n  '*': [utterance_cmvn]\n")
+
+
+def write_asr_checkpoint(torch, root: Path, seed: int = 16):
+    """A seeded wav2vec2-CTC checkpoint directory in Hugging Face's layout:
+    config.json, vocab.json, tokenizer_config.json, preprocessor_config.json
+    and pytorch_model.bin (torch.save), the positional conv's weight norm as
+    weight_g / weight_v, as the released checkpoints store it."""
+    from diffnorm_tpu_torch.models.wav2vec2_ctc import POS_CONV, Wav2Vec2CTC, hf_key
+
+    root.mkdir()
+    torch.manual_seed(seed)
+    with torch.device("cuda"):
+        model = Wav2Vec2CTC(ASR_CONFIG)
+    sd = {hf_key(k): v.detach().cpu() for k, v in model.state_dict().items()}
+    v = sd.pop(POS_CONV + ".weight")
+    sd[POS_CONV + ".weight_g"] = v.norm(dim=(0, 1), keepdim=True)
+    sd[POS_CONV + ".weight_v"] = v
+    torch.save(sd, root / "pytorch_model.bin")
+    del model, sd
+    (root / "config.json").write_text(json.dumps(ASR_CONFIG))
+    (root / "vocab.json").write_text(json.dumps({c: i for i, c in enumerate(ASR_VOCAB)}))
+    (root / "tokenizer_config.json").write_text(json.dumps(dict(
+        unk_token="<unk>", bos_token="<s>", eos_token="</s>", pad_token="<pad>",
+        do_lower_case=False, word_delimiter_token="|")))
+    (root / "preprocessor_config.json").write_text(json.dumps(dict(
+        do_normalize=True, feature_size=1, padding_value=0.0, sampling_rate=SAMPLE_RATE,
+        return_attention_mask=True)))
+
+
+def in_process_hyps(torch, nar, root: Path):
+    """H- unit strings of an in-process mask_predict_decode over the batches
+    cli.generate makes (the same dataset, iterator and dtype): {id: units}."""
+    from diffnorm_tpu_torch.cli.generate import strip_special
+    from diffnorm_tpu_torch.data.dictionary import Dictionary
+    from diffnorm_tpu_torch.data.iterators import EpochBatchIterator
+    from diffnorm_tpu_torch.data.s2s_dataset import SpeechToUnitDataset
+    from diffnorm_tpu_torch.generate.mask_predict import mask_predict_decode
+
+    tgt_dict = Dictionary.unit_dictionary(1000)
+    ds = SpeechToUnitDataset.from_tsv(str(root), "test", tgt_dict=tgt_dict)
+    hyps = {}
+    for batch in EpochBatchIterator(ds, EVAL_MAX_TOKENS, shuffle=False).next_epoch_itr():
+        tokens, _, _ = mask_predict_decode(
+            nar, torch.from_numpy(batch["src_tokens"]).cuda(),
+            torch.from_numpy(batch["src_lengths"]).cuda(), max_iter=EVAL_MAX_ITER, max_len=256)
+        for row, sid in zip(tokens.cpu().numpy(), batch["id"].tolist()):
+            hyps[sid] = strip_special(row, tgt_dict)
+    return hyps
+
+
+def read_hyps(path: Path):
+    """{id: units} of a generate-{split}.txt's H- lines."""
+    out = {}
+    for line in path.read_text().splitlines():
+        if line.startswith("H-"):
+            sid, _, units = line.split("\t")
+            out[int(sid[2:])] = units
+    return out
+
+
+def run_eval(torch, smi):
+    """Phase 15: scripts/s2ut_eval.sh through the port's four CLIs at full
+    width: cli.generate (default, --init-unit-file, --cond-scale 2),
+    eval.unit_bleu, cli.generate_waveform --dur-prediction and eval.asr_bleu
+    with a seeded wav2vec2-large-lv60-shaped CTC checkpoint. Returns the
+    flash_attention launches of the cli.generate runs."""
+    import numpy as np
+
+    from diffnorm_tpu_torch.cli import generate, generate_waveform
+    from diffnorm_tpu_torch.data.audio import read_audio
+    from diffnorm_tpu_torch.eval import asr_bleu, unit_bleu
+    from diffnorm_tpu_torch.eval.bleu import scorer_name
+    from diffnorm_tpu_torch.ops import _build
+    from diffnorm_tpu_torch.weights import save_npz, to_jax_variables
+
+    t0 = time.perf_counter()
+    nar, voc = s2st_models(torch)
+    lines = LogLines()
+    logging.getLogger("diffnorm_tpu_torch.generate").addHandler(lines)
+    walls, flash = {}, {}
+
+    def timed(what, fn):
+        torch.cuda.synchronize()
+        _build.launch_counts.clear()
+        out = io.StringIO()
+        t1 = time.perf_counter()
+        with contextlib.redirect_stdout(out):
+            rc = fn()
+        torch.cuda.synchronize()
+        walls[what] = time.perf_counter() - t1
+        flash[what] = dict(_build.launch_counts)
+        if rc != 0:
+            fail(f"eval: {what} returned {rc}")
+        return out.getvalue()
+
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = Path(tmp)
+        write_eval_corpus(tmp)
+        save_npz(str(tmp / "nar.npz"), to_jax_variables(nar))
+        save_npz(str(tmp / "voc.npz"), to_jax_variables(voc))
+        (tmp / "voc.json").write_text(json.dumps(VOCODER_CFG))
+        n_sent = EVAL_SHORT + 1
+        gen = [str(tmp), "--task", "speech_to_speech_fasttranslate", "--target-code-size",
+               "1000", "--arch", "nar_s2ut_conformer", "--path", str(tmp / "nar.npz"),
+               "--gen-subset", "test", "--max-tokens", str(EVAL_MAX_TOKENS),
+               "--iter-decode-max-iter", str(EVAL_MAX_ITER), *EVAL_WIDTH_FLAGS]
+        res = tmp / "res"
+        sent_s = {}
+        for what, extra, out in (
+                ("cli.generate", ["--cond-scale", "1.0"], res),
+                ("cli.generate --init-unit-file", ["--init-unit-file", str(res / "hyp.unit")],
+                 tmp / "res_init"),
+                ("cli.generate --cond-scale 2", ["--cond-scale", "2"], tmp / "res_cg")):
+            lines.lines.clear()
+            timed(what, lambda: generate.main(gen + extra + ["--results-path", str(out)]))
+            rate = [m for m in lines.lines if "sent/s" in m]
+            summary = (out / "generate-test.txt").read_text().splitlines()[-1]
+            hyps = read_hyps(out / "generate-test.txt")
+            if sorted(hyps) != list(range(n_sent)) or not rate:
+                fail(f"eval: {what} wrote ids {sorted(hyps)}, log {lines.lines}")
+            sent_s[what] = rate[0]
+            print(f"eval {what}: {rate[0]}; {summary}")
+            if what == "cli.generate":
+                printed = timed("eval.unit_bleu", lambda: unit_bleu.main(
+                    [str(out / "generate-test.txt"), str(out)]))
+                unit_lines = (out / "hyp.unit").read_text().splitlines()
+                if len(unit_lines) != n_sent or not printed.startswith("unit BLEU: "):
+                    fail(f"eval: unit_bleu wrote {len(unit_lines)} hyp.unit lines, "
+                         f"printed {printed!r}")
+                want = in_process_hyps(torch, nar, tmp)
+                if want != hyps:
+                    bad = [i for i in want if want[i] != hyps.get(i)]
+                    fail(f"eval: cli.generate's H- units differ from an in-process "
+                         f"mask_predict_decode for ids {bad}")
+                if flash[what].get("flash_attention", 0) < nar.decoder.n_layers:
+                    fail(f"eval: cli.generate launched flash_attention "
+                         f"{flash[what].get('flash_attention', 0)} times on the long-form "
+                         f"source")
+                forced = {int(line.split("\t")[0]): len(line.split("\t")[1].split()) + 1
+                          for line in unit_lines}
+            elif what == "cli.generate --init-unit-file":
+                # canvas len(units) + 1: EOS at its end, or re-masked and filled
+                bad = {i: (len(h.split()), forced[i]) for i, h in hyps.items()
+                       if len(h.split()) not in (forced[i] - 1, forced[i])}
+                if bad:
+                    fail(f"eval: --init-unit-file canvases off their forced lengths "
+                         f"(units, canvas) {bad}")
+            elif any(len(h.split()) == 0 for h in hyps.values()):
+                fail("eval: --cond-scale 2 gave an empty hypothesis")
+        logging.getLogger("diffnorm_tpu_torch.generate").removeHandler(lines)
+        del nar
+
+        wav_dir = res / "wav"
+        timed("cli.generate_waveform", lambda: generate_waveform.main([
+            "--in-code-file", str(res / "hyp.unit"), "--vocoder", str(tmp / "voc.npz"),
+            "--vocoder-cfg", str(tmp / "voc.json"), "--results-path", str(wav_dir),
+            "--dur-prediction"]))
+        wavs = [read_audio(str(wav_dir / f"{i}_pred.wav"))[0] for i in range(n_sent)]
+        if sorted(p.name for p in wav_dir.iterdir()) != sorted(
+                f"{i}_pred.wav" for i in range(n_sent)):
+            fail(f"eval: generate_waveform wrote {sorted(p.name for p in wav_dir.iterdir())}")
+        if min(len(w) for w in wavs) < 640 or not all(np.isfinite(w).all() for w in wavs):
+            fail("eval: generate_waveform wrote a short or non-finite wav")
+        audio_s = sum(len(w) for w in wavs) / SAMPLE_RATE
+
+        asr_dir = tmp / "asr"
+        write_asr_checkpoint(torch, asr_dir)
+        (tmp / "refs.txt").write_text("".join("the cat sat on the mat\n" for _ in wavs))
+        printed = timed("eval.asr_bleu", lambda: asr_bleu.main([
+            "--audio-dir", str(wav_dir), "--reference-path", str(tmp / "refs.txt"),
+            "--lang", "en", "--asr-model", str(asr_dir),
+            "--transcripts-path", str(tmp / "asr.txt")]))
+        if not printed.startswith("ASR-BLEU: "):
+            fail(f"eval: asr_bleu printed {printed!r}")
+        n_transcripts = len((tmp / "asr.txt").read_text().splitlines())
+
+        # the ASR on the card against the port's CPU float32 forward
+        card = asr_bleu.ASRGenerator(model_name=str(asr_dir), device="cuda")
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        for w in wavs:
+            card.transcribe(w)
+        asr_rate = audio_s / (time.perf_counter() - t1)
+        longest = max(wavs, key=len)
+        t1 = time.perf_counter()
+        card.transcribe(longest)
+        torch.cuda.synchronize()
+        one = time.perf_counter() - t1
+        print(f"eval ASR: one transcription of the longest wav ({len(longest) / SAMPLE_RATE:.2f} "
+              f"s) {one:.4f} s; {smi}")
+        profile_run(torch, lambda: card.transcribe(longest), one)
+        cpu = asr_bleu.ASRGenerator(model_name=str(asr_dir), device="cpu")
+        cos_min, agree_min = 1.0, 1.0
+        for w in sorted(wavs, key=len)[:ASR_CHECK_WAVS]:
+            got = card.logits(w).float().cpu()
+            ref = cpu.logits(w)
+            cos_min = min(cos_min, torch.nn.functional.cosine_similarity(
+                got, ref, dim=-1).min().item())
+            agree_min = min(agree_min, (got.argmax(-1) == ref.argmax(-1)).float().mean().item())
+        check = (f"ASR logits on the card against the CPU float32 forward on the "
+                 f"{ASR_CHECK_WAVS} shortest wavs: row-cos min {cos_min:.6f}, argmax agreement "
+                 f"min {agree_min:.4f}")
+        if cos_min < ASR_ROW_COS or agree_min < ASR_ARGMAX_AGREE:
+            fail(f"eval: {check}")
+        del card, cpu
+
+    gen_flash = {w: flash[w].get("flash_attention", 0) for w in sent_s}
+    print("eval walls (s): " + ", ".join(f"{w} {t:.2f}" for w, t in walls.items())
+          + f"; flash_attention launches {gen_flash}, in asr_bleu "
+          f"{flash['eval.asr_bleu']}; {smi}")
+    print(f"eval: {n_sent} sentences ({EVAL_SHORT} x {EVAL_SHORT_FRAMES} frames and 1 x "
+          f"{EVAL_LONG_FRAMES}), --max-tokens {EVAL_MAX_TOKENS}; cli.generate "
+          f"{n_sent / walls['cli.generate']:.2f} sent/s over its wall with the model's load "
+          f"({sent_s['cli.generate']}); generate_waveform {n_sent} wavs, {audio_s:.1f} s of "
+          f"audio; asr_bleu {printed.strip()} ({scorer_name()} scorer) over {n_transcripts} "
+          f"transcripts, {audio_s / walls['eval.asr_bleu']:.1f} audio-s per wall-s with the "
+          f"checkpoint's load, {asr_rate:.1f} without it (the recognizer alone, one wav at "
+          f"a time); {check}; {smi}")
+    print(f"phase eval: {time.perf_counter() - t0:.1f} s")
+    return sum(gen_flash.values())
+
+
 def main() -> int:
     try:
         import torch
@@ -2123,6 +2390,9 @@ def main() -> int:
     run_prep_cli(torch, hubert, smi)
     del hubert
 
+    # 15. eval: cli.generate -> unit BLEU -> cli.generate_waveform -> ASR-BLEU
+    launches["flash_attention"] += run_eval(torch, smi)
+
     sources = {
         "rms_norm_film": ("rms_norm_film.cu", "diffnorm_tpu/ops/pallas_norm.py:34"),
         "wavenet_chain": ("wavenet_chain.cu", "diffnorm_tpu/ops/pallas_wavenet.py:66"),
@@ -2145,6 +2415,7 @@ def main() -> int:
           f"fused_layer's conv-tap GEMM "
           + (f"{conv_us / 1e3:.4f} ms" if conv_us is not None else "not measured"))
     print(f"flash_attention at PERFORMANCE.md's B2 H8 T4096 D64: {flash_timed['PERFORMANCE.md']}")
+    print(f"flash_attention at phase 15's shape (k/v [2,8,3072,64]): {flash_timed['eval path']}")
     for what in ("HuBERT long form", "HuBERT longest chunk", "float32 path"):
         print(f"flash_attention float32 {what}: {flash_timed[what]}")
     print(json.dumps({"kernels": kernels}))

@@ -1,0 +1,214 @@
+"""Generation CLI, the NAR S2UT branch (PyTorch port of
+diffnorm_tpu/cli/generate.py; reference fairseq_cli/generate.py).
+
+  python -m diffnorm_tpu_torch.cli.generate $DATA \\
+      --task speech_to_speech_fasttranslate --target-code-size 1000 \\
+      --arch nar_s2ut_conformer --path ckpt/nar/step_000400000 \\
+      --gen-subset test --max-tokens 20000 --iter-decode-max-iter 15 \\
+      --cond-scale 1.0 --results-path results/
+
+Decodes `{gen_subset}.tsv` under DATA with mask-predict
+(`generate/mask_predict.py`) in batches of `--max-tokens` source frames
+(and at most `--batch-size` sentences), in the dataset's order (descending
+source length), and writes `generate-{split}.txt` under --results-path
+(stdout without it) with fairseq's lines per sentence: `T-{id}\\t{ref}`,
+`H-{id}\\t{score}\\t{hyp}` and `D-{id}\\t{score}\\t{hyp}`, ids being manifest
+indices, then `Generate {split} with beam={beam}: {score}` for the corpus:
+BLEU-4 from the counters of `eval/bleu.py` (`--scoring bleu`, the default),
+sacrebleu (`--scoring sacrebleu`) or WER (`--scoring wer`).
+
+`--path` is a `weights.save_npz` file or a `cli.train` step directory; the
+shape flags are cli.s2st's. `--cond-scale` != 1 decodes with classifier-free
+guidance, `--iter-decode-with-beam N` with a length beam,
+`--iter-decode-force-max-iter` without the adaptive exit, and
+`--init-unit-file F` on canvases of a prior run's lengths (`id\\tunits` lines
+keyed by sentence id, or plain unit lines keyed by line number; a canvas is
+len(units) + 1). Runs on the GPU (bf16 unless --dtype says otherwise)
+unless --cpu is given, which runs in float32.
+
+Not ported, and raising NotImplementedError: the other tasks and
+architectures (AR S2UT, UnitY, TTS, LevT: ROADMAP Queue 1 item 7),
+--quant-int8 (item 2), and --post-process / --remove-bpe,
+--retain-iter-history, the AR reranker, --decode-chunk and ensembles (a
+--path holding ':') (item 4).
+"""
+
+from __future__ import annotations
+
+import argparse
+import logging
+import os
+import sys
+import time
+from typing import Dict, Optional, Sequence, Union
+
+import torch
+
+from diffnorm_tpu_torch.cli.s2st import add_model_args, build_model, resolve_device_dtype
+from diffnorm_tpu_torch.data.dictionary import Dictionary
+from diffnorm_tpu_torch.data.iterators import EpochBatchIterator
+from diffnorm_tpu_torch.data.s2s_dataset import SpeechToUnitDataset
+from diffnorm_tpu_torch.eval.bleu import BleuAccumulator
+from diffnorm_tpu_torch.eval.wer import WerAccumulator
+from diffnorm_tpu_torch.generate.mask_predict import mask_predict_decode
+
+logger = logging.getLogger("diffnorm_tpu_torch.generate")
+
+PAD, EOS = 1, 2
+TASK, ARCH = "speech_to_speech_fasttranslate", "nar_s2ut_conformer"
+# flags of the JAX CLI's other branches: flag -> the ROADMAP item that ports it
+UNPORTED = {
+    "--quant-int8": "Queue 1 item 2 (int8 NAR decode)",
+    "--quant-int8-static": "Queue 1 item 2 (int8 NAR decode)",
+    "--post-process": "Queue 1 item 4",
+    "--remove-bpe": "Queue 1 item 4",
+    "--retain-iter-history": "Queue 1 item 4",
+    "--rerank-path": "Queue 1 item 4 (the AR reranker)",
+    "--decode-chunk": "Queue 1 item 4",
+}
+
+
+def strip_special(tokens, dictionary: Dictionary) -> str:
+    """Drop bos/pad/eos; map dictionary ids back to raw unit strings."""
+    return " ".join(dictionary[int(t)] for t in tokens if int(t) not in (0, PAD, EOS))
+
+
+def read_init_lengths(path: str) -> Dict[Union[int, str], int]:
+    """--init-unit-file: {sentence id (or line number): canvas length}, the
+    canvas holding the units and the EOS slot (reference nat_gen.py:110-113)."""
+    lengths: Dict[Union[int, str], int] = {}
+    with open(path) as f:
+        for j, line in enumerate(f):
+            line = line.rstrip("\n")
+            if not line:
+                continue
+            if "\t" in line:
+                sid, units = line.split("\t", 1)
+                key = int(sid) if sid.lstrip("-").isdigit() else sid
+            else:
+                key, units = j, line
+            lengths[key] = len(units.split()) + 1
+    return lengths
+
+
+def init_length(lengths: Dict[Union[int, str], int], sid: int) -> int:
+    for key in (int(sid), str(sid)):
+        if key in lengths:
+            return lengths[key]
+    raise KeyError(f"--init-unit-file has no units for utterance id {sid!r}")
+
+
+def parse_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
+    p = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    p.add_argument("data", help="directory of the {split}.tsv manifests (and config.yaml)")
+    p.add_argument("--task", default=TASK)
+    p.add_argument("--arch", default=ARCH)
+    p.add_argument("--path", required=True,
+                   help="NAR S2UT weights (weights.save_npz), or a cli.train step directory")
+    p.add_argument("--config-yaml", default="config.yaml", help="the data config, under DATA")
+    p.add_argument("--gen-subset", default="test")
+    p.add_argument("--results-path", default=None)
+    p.add_argument("--max-tokens", type=int, default=None)
+    p.add_argument("--batch-size", type=int, default=None)
+    p.add_argument("--max-target-positions", type=int, default=256)
+    p.add_argument("--iter-decode-max-iter", type=int, default=15)
+    p.add_argument("--iter-decode-with-beam", type=int, default=1)
+    p.add_argument("--iter-decode-force-max-iter", action="store_true")
+    p.add_argument("--cond-scale", type=float, default=1.0)
+    p.add_argument("--init-unit-file", default=None)
+    p.add_argument("--scoring", choices=("bleu", "sacrebleu", "wer"), default="bleu")
+    p.add_argument("--seed", type=int, default=1, help="accepted; mask-predict draws nothing")
+    add_model_args(p)
+    for flag in UNPORTED:
+        p.add_argument(flag, nargs="?", const=True, default=None, help=argparse.SUPPRESS)
+    args = p.parse_args(argv)
+    for flag, item in UNPORTED.items():
+        if getattr(args, flag[2:].replace("-", "_")) is not None:
+            raise NotImplementedError(f"{flag} is not ported (ROADMAP {item})")
+    if args.task != TASK or args.arch != ARCH:
+        raise NotImplementedError(
+            f"--task {args.task} --arch {args.arch}: only the NAR S2UT branch ({TASK}, {ARCH}) "
+            "is ported (ROADMAP Queue 1 item 7)")
+    if ":" in args.path:
+        raise NotImplementedError(
+            f"--path {args.path}: ensembles are not ported (ROADMAP Queue 1 item 4)")
+    return args
+
+
+def main(argv: Optional[Sequence[str]] = None) -> int:
+    logging.basicConfig(level=logging.INFO, force=True,
+                        format="%(asctime)s | %(levelname)s | %(message)s")
+    args = parse_args(argv)
+    device, dtype = resolve_device_dtype(args)
+    split, beam = args.gen_subset, args.iter_decode_with_beam
+    tgt_dict = Dictionary.unit_dictionary(args.target_code_size)
+    dataset = SpeechToUnitDataset.from_tsv(args.data, split, tgt_dict=tgt_dict,
+                                           config_yaml=args.config_yaml)
+    model = build_model(args, args.path, device, dtype)
+    logger.info("restored checkpoint from %s", args.path)
+    init_lengths = None
+    if args.init_unit_file:
+        init_lengths = read_init_lengths(args.init_unit_file)
+        logger.info("forcing canvas lengths from %s (%d utts)", args.init_unit_file,
+                    len(init_lengths))
+
+    out_f = sys.stdout
+    if args.results_path:
+        os.makedirs(args.results_path, exist_ok=True)
+        out_f = open(os.path.join(args.results_path, f"generate-{split}.txt"), "w")
+    try:
+        bleu, wer, sb_hyps, sb_refs = BleuAccumulator(), WerAccumulator(), [], []
+        n_sent, total_steps, t0 = 0, 0, time.time()
+        itr = EpochBatchIterator(dataset, max_tokens=args.max_tokens,
+                                 max_sentences=args.batch_size, shuffle=False)
+        for batch in itr.next_epoch_itr():
+            true_length = None
+            if init_lengths is not None:
+                true_length = torch.tensor([init_length(init_lengths, int(i))
+                                            for i in batch["id"]], device=device)
+            tokens, scores, steps = mask_predict_decode(
+                model, torch.from_numpy(batch["src_tokens"]).to(device),
+                torch.from_numpy(batch["src_lengths"]).to(device),
+                max_iter=args.iter_decode_max_iter, max_len=min(args.max_target_positions, 256),
+                cond_scale=args.cond_scale, length_beam=beam, true_length=true_length,
+                adaptive=not args.iter_decode_force_max_iter)
+            tokens, scores = tokens.cpu().numpy(), scores.cpu().numpy()
+            total_steps += int(steps.sum())
+            for i, sid in enumerate(batch["id"].tolist()):
+                hyp = strip_special(tokens[i], tgt_dict)
+                ref = strip_special(batch["target"][i], tgt_dict)
+                keep = tokens[i] != PAD
+                score = float(scores[i][keep].mean()) if keep.any() else 0.0
+                print(f"T-{sid}\t{ref}", file=out_f)
+                print(f"H-{sid}\t{score:.4f}\t{hyp}", file=out_f)
+                print(f"D-{sid}\t{score:.4f}\t{hyp}", file=out_f)
+                if args.scoring == "sacrebleu":
+                    sb_hyps.append(hyp)
+                    sb_refs.append(ref)
+                elif args.scoring == "wer":
+                    wer.add(ref, hyp)
+                else:
+                    bleu.add(ref.split(), hyp.split())
+                n_sent += 1
+        wall = time.time() - t0
+        logger.info("decoded %d sentences in %.1fs (%.2f sent/s, avg %.1f iters)",
+                    n_sent, wall, n_sent / max(wall, 1e-6), total_steps / max(n_sent, 1))
+        if args.scoring == "sacrebleu":
+            import sacrebleu
+
+            score_str = str(sacrebleu.corpus_bleu(sb_hyps, [sb_refs]))
+        elif args.scoring == "wer":
+            score_str = wer.result_string()
+        else:
+            score_str = bleu.result_string()
+        logger.info("Generate %s with beam=%d: %s", split, beam, score_str)
+        if args.results_path:
+            print(f"Generate {split} with beam={beam}: {score_str}", file=out_f)
+    finally:
+        if out_f is not sys.stdout:
+            out_f.close()
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,22 +1,41 @@
-"""Vocoder loading and WAV writing for the port's S2ST CLI.
+"""Unit-to-waveform CLI (PyTorch port of diffnorm_tpu/cli/generate_waveform.py;
+reference examples/speech_to_speech/generate_waveform_from_code.py).
 
-The port's copy of diffnorm_tpu/cli/generate_waveform.py:write_wav, and a
-`load_vocoder` that reads the vocoder as a `.npz` written by
-`weights.save_npz` (its JAX variables tree) plus its config JSON. The
-standalone unit-file CLI of that module is not ported.
+  python -m diffnorm_tpu_torch.cli.generate_waveform \\
+      --in-code-file R/hyp.unit --vocoder V --vocoder-cfg V.json \\
+      --results-path R/wav --dur-prediction [--reduce] [--cpu]
+
+Reads one utterance of units per line (`id|u1 u2 ...`, `id\\tu1 u2 ...` or
+bare units; a non-numeric token becomes an invalid code, which the vocoder
+drops), synthesizes each through the code-HiFi-GAN of --vocoder-cfg
+(optionally reduced and duration-expanded) and writes `{i}_pred.wav` at
+--sample-rate for the i-th non-empty line; a line with no valid code gives
+20 ms of silence. --vocoder is a fairseq checkpoint (`.pt`, `.ckpt`,
+`.bin`, through `utils/convert_weights.py`), or a `weights.save_npz` file
+or a step directory holding one, whose tree is the vocoder's variables, its
+params alone, or a GAN state with them under `g_params`. Runs in float32,
+on the GPU unless --cpu is given.
 """
 
 from __future__ import annotations
 
+import argparse
 import json
+import logging
+import os
+import sys
 import wave
+from typing import Optional, Sequence
 
 import numpy as np
 import torch
 
 from diffnorm_tpu_torch.device import resolve_device
 from diffnorm_tpu_torch.models.hifigan import CodeHiFiGANVocoder
+from diffnorm_tpu_torch.train.checkpoint import PARAMS
 from diffnorm_tpu_torch.weights import as_variables, load_npz
+
+logger = logging.getLogger("diffnorm_tpu_torch.generate_waveform")
 
 
 def write_wav(path: str, wav: np.ndarray, sample_rate: int = 16000) -> None:
@@ -30,13 +49,77 @@ def write_wav(path: str, wav: np.ndarray, sample_rate: int = 16000) -> None:
         f.writeframes(pcm.tobytes())
 
 
-def load_vocoder(npz_path: str, cfg_path: str, device="cuda",
+def parse_code_line(line: str) -> np.ndarray:
+    """A unit line -> int32 codes; a non-numeric token (an <unk> from an
+    undertrained model) becomes -1."""
+    line = line.strip()
+    if "|" in line:
+        _, units = line.split("|", 1)
+    elif "\t" in line:
+        _, units = line.split("\t", 1)
+    else:
+        units = line
+
+    def to_code(x: str) -> int:
+        try:
+            return int(x)
+        except ValueError:
+            return -1
+
+    return np.asarray([to_code(x) for x in units.split()], np.int32)
+
+
+def load_vocoder(ckpt_path: str, cfg_path: str, device="cuda",
                  dtype: torch.dtype = torch.float32) -> CodeHiFiGANVocoder:
     """The code-HiFi-GAN of config `cfg_path` with the weights of
-    `npz_path` ({"params": ...} or a bare params tree), on `device`: the
-    card unless `device="cpu"` is asked for (raises without CUDA)."""
+    `ckpt_path` (see the module docstring), on `device`: the card unless
+    `device="cpu"` is asked for (raises without CUDA)."""
     device = resolve_device(device)
     with open(cfg_path) as f:
         cfg = json.load(f)
-    variables = as_variables(load_npz(npz_path))
+    if ckpt_path.endswith((".pt", ".ckpt", ".bin")):
+        from diffnorm_tpu_torch.utils.convert_weights import convert_hifigan_checkpoint
+
+        variables = convert_hifigan_checkpoint(ckpt_path, cfg)
+    else:
+        tree = load_npz(os.path.join(ckpt_path, PARAMS) if os.path.isdir(ckpt_path)
+                        else ckpt_path)
+        # a GAN fine-tune's state: the generator subtree is the vocoder
+        variables = {"params": tree["g_params"]} if "g_params" in tree else as_variables(tree)
     return CodeHiFiGANVocoder.from_config(cfg, variables, device=device, dtype=dtype)
+
+
+def parse_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
+    p = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    p.add_argument("--in-code-file", required=True)
+    p.add_argument("--vocoder", required=True)
+    p.add_argument("--vocoder-cfg", required=True)
+    p.add_argument("--results-path", required=True)
+    p.add_argument("--dur-prediction", action="store_true")
+    p.add_argument("--reduce", action="store_true")
+    p.add_argument("--sample-rate", type=int, default=16000)
+    p.add_argument("--cpu", action="store_true", help="run on the CPU")
+    return p.parse_args(argv)
+
+
+def main(argv: Optional[Sequence[str]] = None) -> int:
+    logging.basicConfig(level=logging.INFO, force=True,
+                        format="%(asctime)s | %(levelname)s | %(message)s")
+    args = parse_args(argv)
+    vocoder = load_vocoder(args.vocoder, args.vocoder_cfg, device="cpu" if args.cpu else "cuda")
+    os.makedirs(args.results_path, exist_ok=True)
+    with open(args.in_code_file) as f:
+        lines = [line for line in f if line.strip()]
+    for i, line in enumerate(lines):
+        units = parse_code_line(line)
+        if (units >= 0).any():
+            wav = vocoder(units, dur_prediction=args.dur_prediction, reduce=args.reduce)
+        else:  # nothing synthesizable on this line
+            wav = np.zeros(args.sample_rate // 50, np.float32)
+        write_wav(os.path.join(args.results_path, f"{i}_pred.wav"), wav, args.sample_rate)
+    logger.info("wrote %d waveforms to %s", len(lines), args.results_path)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -64,10 +64,16 @@ def parse_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
     p.add_argument("--max-duration", type=int, default=8)
     p.add_argument("--vocoder-chunk", type=int, default=4)
     p.add_argument("--sample-rate", type=int, default=16000)
+    add_model_args(p)
+    return p.parse_args(argv)
+
+
+def add_model_args(p: argparse.ArgumentParser) -> None:
+    """--dtype, --cpu and the nar_s2ut_conformer shape flags
+    (nar_transformer.py's arch defaults), which `build_model` reads."""
     p.add_argument("--dtype", choices=sorted(DTYPES), default=None,
                    help="model dtype (default bfloat16 on the GPU, float32 with --cpu)")
     p.add_argument("--cpu", action="store_true", help="run on the CPU")
-    # nar_s2ut_conformer shape flags (nar_transformer.py arch defaults)
     p.add_argument("--target-code-size", type=int, default=1000)
     p.add_argument("--input-feat-per-channel", type=int, default=80)
     p.add_argument("--encoder-embed-dim", type=int, default=512)
@@ -81,11 +87,21 @@ def parse_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
     p.add_argument("--depthwise-conv-kernel-size", type=int, default=31)
     p.add_argument("--conv-channels", type=int, default=1024)
     p.add_argument("--conv-kernel-sizes", default="5,5")
-    return p.parse_args(argv)
 
 
-def build_model(args: argparse.Namespace, device: torch.device,
+def resolve_device_dtype(args: argparse.Namespace):
+    """(device, dtype) of the flags: the card in bf16 unless --cpu (float32)
+    or --dtype says otherwise; raises without CUDA unless --cpu."""
+    device = resolve_device("cpu" if args.cpu else "cuda")
+    dtype = DTYPES[args.dtype] if args.dtype else (
+        torch.float32 if device.type == "cpu" else torch.bfloat16)
+    return device, dtype
+
+
+def build_model(args: argparse.Namespace, path: str, device: torch.device,
                 dtype: torch.dtype) -> NARS2UTModule:
+    """The model of the shape flags with the weights of `path` (a
+    `weights.save_npz` file or a cli.train step directory)."""
     with torch.device(device):
         model = NARS2UTModule(
             vocab_size=args.target_code_size + 4, in_channels=args.input_feat_per_channel,
@@ -97,7 +113,7 @@ def build_model(args: argparse.Namespace, device: torch.device,
             depthwise_kernel_size=args.depthwise_conv_kernel_size,
             conv_channels=args.conv_channels,
             conv_kernel_sizes=tuple(int(k) for k in args.conv_kernel_sizes.split(",")))
-    from_jax_variables(model, load_variables(args.params_npz))
+    from_jax_variables(model, load_variables(path))
     return model.to(dtype).eval()
 
 
@@ -105,10 +121,8 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
     logging.basicConfig(level=logging.INFO, force=True,
                         format="%(asctime)s | %(levelname)s | %(message)s")
     args = parse_args(argv)
-    device = resolve_device("cpu" if args.cpu else "cuda")
-    dtype = DTYPES[args.dtype] if args.dtype else (
-        torch.float32 if device.type == "cpu" else torch.bfloat16)
-    model = build_model(args, device, dtype)
+    device, dtype = resolve_device_dtype(args)
+    model = build_model(args, args.params_npz, device, dtype)
     vocoder = load_vocoder(args.vocoder_npz, args.vocoder_cfg, device=device, dtype=dtype).module
     dataset = SpeechToUnitDataset.from_tsv(args.data, args.gen_subset)
     os.makedirs(args.results_path, exist_ok=True)

@@ -1,5 +1,5 @@
-"""The unit dictionary (the port's copy of what training uses of
-diffnorm_tpu/data/dictionary.py): bos=0 <s>, pad=1 <pad>, eos=2 </s>,
+"""The unit dictionary (the port's copy of what training and generation use
+of diffnorm_tpu/data/dictionary.py): bos=0 <s>, pad=1 <pad>, eos=2 </s>,
 unk=3 <unk>, then the units "0".."K-1", so unit k is index k + 4."""
 
 from __future__ import annotations
@@ -15,11 +15,15 @@ class Dictionary:
 
     def __init__(self, num_units: int):
         self.num_units = num_units
-        self.indices = {s: i for i, s in enumerate(SPECIALS)}
-        self.indices.update({str(u): u + self.nspecial for u in range(num_units)})
+        self.symbols = list(SPECIALS) + [str(u) for u in range(num_units)]
+        self.indices = {s: i for i, s in enumerate(self.symbols)}
 
     def __len__(self) -> int:
-        return self.nspecial + self.num_units
+        return len(self.symbols)
+
+    def __getitem__(self, idx: int) -> str:
+        """The symbol of an index; <unk> out of range."""
+        return self.symbols[idx] if 0 <= idx < len(self.symbols) else SPECIALS[UNK]
 
     @classmethod
     def unit_dictionary(cls, num_units: int) -> "Dictionary":

@@ -1,7 +1,8 @@
 """Epoch batch iteration with a resumable position (the port's copy of the
-parts of diffnorm_tpu/data/iterators.py the training CLI uses): batches by
-size, shuffled per epoch from (seed, epoch), resumed from a saved offset,
-grouped into update_freq micro-batches. Batches load on the calling thread."""
+parts of diffnorm_tpu/data/iterators.py the training and generation CLIs
+use): batches by size and sentence count, shuffled per epoch from (seed,
+epoch), resumed from a saved offset, grouped into update_freq
+micro-batches. Batches load on the calling thread."""
 
 from __future__ import annotations
 
@@ -41,8 +42,9 @@ class EpochBatchIterator:
 
     def __init__(self, dataset, max_tokens: Optional[int] = None, seed: int = 1,
                  shuffle: bool = True, max_positions: MaxPositions = None,
-                 ignore_invalid_inputs: bool = False):
+                 ignore_invalid_inputs: bool = False, max_sentences: Optional[int] = None):
         self.dataset, self.max_tokens, self.seed, self.shuffle = dataset, max_tokens, seed, shuffle
+        self.max_sentences = max_sentences
         self.max_positions, self.ignore_invalid_inputs = max_positions, ignore_invalid_inputs
         self.epoch, self.offset = 1, 0
         self._batches: Optional[List[np.ndarray]] = None
@@ -79,7 +81,7 @@ class EpochBatchIterator:
                                "max_positions=%s, first few sample ids=%s",
                                len(bad), self.max_positions, bad[:10])
                 indices = indices[keep]
-        batches = batch_by_size(indices, sizes, self.max_tokens)
+        batches = batch_by_size(indices, sizes, self.max_tokens, self.max_sentences)
         if self.shuffle:
             order = np.random.default_rng((self.seed, epoch)).permutation(len(batches))
             batches = [batches[i] for i in order]

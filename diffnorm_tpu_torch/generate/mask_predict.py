@@ -2,20 +2,25 @@
 
 Counterpart of diffnorm_tpu/generate/mask_predict.py for one model with
 n_frames_per_step=1:
-* canvas init from the 256-way length prediction (clamp min 2), all unk
-  with EOS at len - 1 (JAX's default `place_eos`)
+* canvas init from the 256-way length prediction, or from the lengths the
+  caller forces (`true_length`), clamped to >= 2: all unk with EOS at
+  len - 1 (JAX's default `place_eos`)
 * per step: fill masked positions with the argmax log-probs, with
   classifier-free guidance when cond_scale != 1
   (lp = uncond + scale * (cond - uncond)), then skeptically re-mask the
   floor((1 - (step+1)/max_step) * (len - 2)) lowest-scoring positions
 * adaptive exit: a row whose filled canvas repeats is frozen; the loop
   stops once every row is frozen (`early_exit`), which gives the outputs of
-  the fixed-trip loop (`early_exit=False`), as the JAX while_loop does
+  the fixed-trip loop (`early_exit=False`), as the JAX while_loop does;
+  `adaptive=False` (fairseq's --iter-decode-force-max-iter) freezes no row,
+  so every row runs max_iter + 1 fills
 * length beam: rows with lengths l + k - beam//2 (clamped to >= 2 before the
   offset), the best mean-score hypothesis per sentence
 """
 
 from __future__ import annotations
+
+from typing import Optional
 
 import torch
 
@@ -63,13 +68,18 @@ def init_canvas(length_tgt: torch.Tensor, max_len: int):
 @torch.no_grad()
 def mask_predict_decode(model, src: torch.Tensor, src_lengths: torch.Tensor, *,
                         max_iter: int = 15, max_len: int = 256, cond_scale: float = 1.0,
-                        length_beam: int = 1, early_exit: bool = True):
-    """model: a `models.nar_transformer.NARS2UTModule`. Returns (tokens
+                        length_beam: int = 1, true_length: Optional[torch.Tensor] = None,
+                        adaptive: bool = True, early_exit: bool = True):
+    """model: a `models.nar_transformer.NARS2UTModule`. `true_length` [B]
+    (int) replaces the length head's prediction. Returns (tokens
     [B, max_len] int64, scores [B, max_len] f32, n_steps [B] int32): the
     number of decoder iterations each row ran before it froze."""
     enc, enc_mask = model.encode(src, src_lengths)
-    length_lp = torch.log_softmax(model.forward_length(enc, enc_mask).float(), dim=-1)
-    length_tgt = length_lp.argmax(dim=-1)
+    if true_length is not None:
+        length_tgt = true_length.to(device=enc.device, dtype=torch.int64)
+    else:
+        length_lp = torch.log_softmax(model.forward_length(enc, enc_mask).float(), dim=-1)
+        length_tgt = length_lp.argmax(dim=-1)
     if length_beam > 1:
         # clamp before the offset (nar_transformer.py:858,:898 in the
         # reference), or every beam of a < 2 prediction shifts
@@ -106,7 +116,7 @@ def mask_predict_decode(model, src: torch.Tensor, src_lengths: torch.Tensor, *,
         filled_tokens, filled_scores, out_tokens, out_scores = fill_and_remask(
             tokens, scores, new_tokens, new_scores, step, max_step)
         # adaptive loop detection on the FILLED canvas (see the JAX module)
-        now_done = (filled_tokens == prev_tokens).all(dim=1)
+        now_done = (filled_tokens == prev_tokens).all(dim=1) & adaptive
         frozen = done[:, None]
         res_tokens = torch.where(frozen, res_tokens, filled_tokens)
         res_scores = torch.where(frozen, res_scores, filled_scores)

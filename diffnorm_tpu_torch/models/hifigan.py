@@ -180,3 +180,23 @@ class CodeHiFiGANVocoder:
         if variables is not None:
             from_jax_variables(module, variables)
         return cls(module.to(dtype).eval())
+
+    @torch.no_grad()
+    def __call__(self, units, dur_prediction: bool = False, reduce: bool = False) -> np.ndarray:
+        """units [T] int (host) -> waveform [T_wav] float32 (host). Invalid
+        (< 0) codes are dropped, as the reference wrapper does; `reduce`
+        collapses repeats first, `dur_prediction` repeats each unit by its
+        predicted duration."""
+        from diffnorm_tpu_torch.ops.unit_reduce import reduce_units
+
+        units = np.asarray(units)
+        units = units[units >= 0]
+        if reduce:
+            units, _, _ = reduce_units(units)
+        device = self.module.dict.weight.device
+        code = torch.as_tensor(np.asarray(units, np.int64), device=device)[None, :]
+        if dur_prediction:
+            if self.module.dur_predictor is None:
+                raise ValueError("the vocoder has no duration predictor")
+            code = torch.repeat_interleave(code[0], self.module.predict_durations(code)[0])[None]
+        return self.module(code)[0].float().cpu().numpy()

@@ -18,11 +18,12 @@ Submodule and parameter names follow the flax tree (`feature_extractor.conv_0`,
 `group_norm`, `pos_conv.conv`, `layer_3.q_proj`, ...), so weights carry over
 through `weights.from_jax_params`; `utils/convert_weights.py` maps a fairseq
 checkpoint onto that tree. LayerNorms use flax's epsilon 1e-6 except the
-extractor's (1e-5), as in JAX. Each module computes in the dtype of its
-weights; GroupNorm and the extractor's LayerNorms take their statistics in
-float32, as flax's do. Attention goes through `ops.attention.masked_attention`,
-which sends self-attention over 2048 or more frames (41 s of speech) on the
-card to the flash-attention kernel.
+extractor's (1e-5), as in JAX, unless `layer_norm_eps` says otherwise. Each
+module computes in the dtype of its weights; GroupNorm and the extractor's
+LayerNorms take their statistics in float32, as flax's do. Attention goes
+through `ops.attention.masked_attention`, which sends self-attention over
+2048 or more frames (41 s of speech) on the card to the flash-attention
+kernel.
 
 JAX's pretraining hooks (`mask_indices` / `mask_emb`, `channel_mask`,
 `feature_grad_mult`, LayerDrop and the training dropouts) wait for HuBERT
@@ -125,14 +126,14 @@ class TransformerSentenceEncoderLayer(nn.Module):
     hubert.py:95-156), without its dropouts (all 0 at inference)."""
 
     def __init__(self, dim: int = 768, heads: int = 12, ffn_dim: int = 3072,
-                 layer_norm_first: bool = False):
+                 layer_norm_first: bool = False, layer_norm_eps: float = LN_EPS):
         super().__init__()
         self.heads, self.layer_norm_first = heads, layer_norm_first
         self.q_proj, self.k_proj = Dense(dim, dim), Dense(dim, dim)
         self.v_proj, self.out_proj = Dense(dim, dim), Dense(dim, dim)
-        self.self_attn_layer_norm = nn.LayerNorm(dim, eps=LN_EPS)
+        self.self_attn_layer_norm = nn.LayerNorm(dim, eps=layer_norm_eps)
         self.fc1, self.fc2 = Dense(dim, ffn_dim), Dense(ffn_dim, dim)
-        self.final_layer_norm = nn.LayerNorm(dim, eps=LN_EPS)
+        self.final_layer_norm = nn.LayerNorm(dim, eps=layer_norm_eps)
 
     def attention(self, z: torch.Tensor, mask: Optional[torch.Tensor]) -> torch.Tensor:
         b, t, dim = z.shape
@@ -157,7 +158,10 @@ class TransformerSentenceEncoderLayer(nn.Module):
 
 class HubertEncoder(nn.Module):
     """JAX hubert.py:159-266 for inference. The training knobs are taken
-    only at their inference values (0, and `feature_grad_mult` 1)."""
+    only at their inference values (0, and `feature_grad_mult` 1).
+    `layer_norm_eps` (the feature, encoder and layer LayerNorms) and the
+    positional conv's kernel and groups default to HuBERT's; wav2vec2-CTC
+    (`models/wav2vec2_ctc.py`) sets them from its config."""
 
     def __init__(self, dim: int = 768, layers: int = 12, heads: int = 12,
                  ffn_dim: int = 3072,
@@ -166,7 +170,8 @@ class HubertEncoder(nn.Module):
                  layer_norm_first: bool = False, dropout: float = 0.0,
                  attention_dropout: float = 0.0, activation_dropout: float = 0.0,
                  dropout_input: float = 0.0, layerdrop: float = 0.0,
-                 feature_grad_mult: float = 1.0):
+                 feature_grad_mult: float = 1.0, layer_norm_eps: float = LN_EPS,
+                 pos_conv_kernel: int = 128, pos_conv_groups: int = 16):
         super().__init__()
         asked = {k: v for k, v in dict(
             dropout=dropout, attention_dropout=attention_dropout,
@@ -180,13 +185,13 @@ class HubertEncoder(nn.Module):
         self.feature_extractor = ConvFeatureExtractor(self.conv_feature_layers,
                                                       extractor_mode, conv_bias)
         conv_dim = self.conv_feature_layers[-1][0]
-        self.layer_norm = nn.LayerNorm(conv_dim, eps=LN_EPS)
+        self.layer_norm = nn.LayerNorm(conv_dim, eps=layer_norm_eps)
         self.post_extract_proj = Dense(conv_dim, dim)
-        self.pos_conv = ConvPositionalEmbedding(dim)
-        self.encoder_layer_norm = nn.LayerNorm(dim, eps=LN_EPS)
+        self.pos_conv = ConvPositionalEmbedding(dim, pos_conv_kernel, pos_conv_groups)
+        self.encoder_layer_norm = nn.LayerNorm(dim, eps=layer_norm_eps)
         for i in range(layers):
             self.add_module(f"layer_{i}", TransformerSentenceEncoderLayer(
-                dim, heads, ffn_dim, layer_norm_first))
+                dim, heads, ffn_dim, layer_norm_first, layer_norm_eps))
 
     def forward(self, wav: torch.Tensor, output_layer: Optional[int] = None,
                 mask: Optional[torch.Tensor] = None, mask_indices=None, mask_emb=None,

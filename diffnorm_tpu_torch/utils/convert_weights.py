@@ -1,14 +1,19 @@
 """fairseq torch checkpoint -> the port's weights tree.
 
-The port's copy of the HuBERT part of diffnorm_tpu/utils/convert_weights.py.
-It returns the flax-path tree JAX's converter returns (`{"params": ...}` of
-float32 numpy arrays), which `weights.from_jax_params` loads, so the port's
-module paths stay flax paths. Layout rules:
+The port's copy of the HuBERT and code-HiFi-GAN parts of
+diffnorm_tpu/utils/convert_weights.py. It returns the flax-path tree JAX's
+converter returns (`{"params": ...}` of float32 numpy arrays), which
+`weights.from_jax_params` loads, so the port's module paths stay flax
+paths. Layout rules:
 * torch Linear weight [out, in]       -> Dense kernel [in, out]
 * torch Conv1d weight [out, in, k]    -> Conv kernel [k, in, out]
 * torch grouped Conv1d [out, in/g, k] -> Conv kernel [k, in/g, out]
+* torch ConvTranspose1d [in, out, k]  -> ConvTranspose kernel [k, out, in]
+  (flax transpose_kernel=True)
+* torch Embedding [V, D]              -> Embed embedding [V, D]
 * weight norm (weight_g / weight_v) is folded: w = g * v / ||v||, the norm
-  over every dim except `dim` (wav2vec2's pos_conv uses dim=2)
+  over every dim except `dim` (HiFi-GAN uses dim=0, wav2vec2's pos_conv
+  dim=2)
 """
 
 from __future__ import annotations
@@ -66,6 +71,51 @@ def _ln(sd: Dict, prefix: str) -> Dict:
 
 def _dense(sd: Dict, prefix: str) -> Dict:
     return {"kernel": dense_w(sd[f"{prefix}.weight"]), "bias": _t(sd[f"{prefix}.bias"])}
+
+
+def convert_hifigan_checkpoint(path: str, cfg: Dict) -> Dict:
+    """fairseq code-HiFi-GAN checkpoint -> CodeGenerator variables (the
+    "generator" entry of a training checkpoint, else "model", else the
+    file's dict)."""
+    ckpt = torch.load(path, map_location="cpu", weights_only=False)
+    return convert_hifigan_state(ckpt.get("generator", ckpt.get("model", ckpt)), cfg)
+
+
+def _conv(sd: Dict, prefix: str) -> Dict:
+    """A weight-normed conv (or transposed conv) in the flax layout."""
+    return {"kernel": _get_conv(sd, prefix).transpose(2, 1, 0), "bias": _t(sd[f"{prefix}.bias"])}
+
+
+def convert_hifigan_state(sd: Dict, cfg: Dict) -> Dict:
+    """A code-HiFi-GAN generator state dict -> {"params": CodeGenerator tree}
+    for the vocoder config `cfg`."""
+    gen: Dict = {"conv_pre": _conv(sd, "conv_pre")}
+    n_k = len(cfg["resblock_kernel_sizes"])
+    for i in range(len(cfg["upsample_rates"])):
+        gen[f"up_{i}"] = _conv(sd, f"ups.{i}")
+        for j in range(n_k):
+            r = f"resblocks.{i * n_k + j}"
+            block: Dict = {}
+            for c in range(len(cfg["resblock_dilation_sizes"][j])):
+                block[f"conv1_{c}"] = _conv(sd, f"{r}.convs1.{c}")
+                block[f"conv2_{c}"] = _conv(sd, f"{r}.convs2.{c}")
+            gen[f"resblock_{i}_{j}"] = block
+    gen["conv_post"] = _conv(sd, "conv_post")
+    params: Dict = {"generator": gen, "dict": {"embedding": _t(sd["dict.weight"])}}
+    if any(k.startswith("spkr.") for k in sd):
+        params["spkr"] = {"embedding": _t(sd["spkr.weight"])}
+    if any(k.startswith("dur_predictor.") for k in sd):
+        d = "dur_predictor"
+        params[d] = {
+            "conv1": {"kernel": conv_w(sd[f"{d}.conv1.0.weight"]),
+                      "bias": _t(sd[f"{d}.conv1.0.bias"])},
+            "ln1": _ln(sd, f"{d}.ln1"),
+            "conv2": {"kernel": conv_w(sd[f"{d}.conv2.0.weight"]),
+                      "bias": _t(sd[f"{d}.conv2.0.bias"])},
+            "ln2": _ln(sd, f"{d}.ln2"),
+            "proj": _dense(sd, f"{d}.proj"),
+        }
+    return {"params": params}
 
 
 def convert_hubert_state(sd: Dict, layers: int = 12) -> Dict:

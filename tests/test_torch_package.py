@@ -1,6 +1,7 @@
 """The port stands alone: no module of diffnorm_tpu_torch/, not chip_smoke.py
-and not time_main_path.py imports JAX, flax or the JAX package, and the entry
-points run on the CPU only when asked to."""
+and not time_main_path.py imports JAX, flax or the JAX package, none imports
+transformers, sacrebleu or safetensors (absent on the GPU machine) at module
+level, and the entry points run on the CPU only when asked to."""
 
 import ast
 import os
@@ -14,6 +15,8 @@ import torch
 
 REPO = Path(__file__).resolve().parent.parent
 FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "orbax", "diffnorm_tpu")
+# not installed on the GPU machine: imported, where at all, inside a function
+NOT_ON_THE_CARD = ("transformers", "sacrebleu", "safetensors")
 
 
 def _port_sources():
@@ -39,15 +42,36 @@ def test_no_jax_imports_in_the_port():
     assert not bad, bad
 
 
+def test_no_module_level_imports_the_card_lacks():
+    bad = []
+    for path in _port_sources():
+        tree = ast.parse(path.read_text(), filename=str(path))
+        for node in tree.body:
+            names = ([a.name for a in node.names] if isinstance(node, ast.Import) else
+                     [node.module] if isinstance(node, ast.ImportFrom) and node.module else [])
+            bad += [(path.relative_to(REPO), n) for n in names
+                    if n.split(".")[0] in NOT_ON_THE_CARD]
+    assert not bad, bad
+
+
 def test_port_imports_with_jax_blocked():
     code = ("import sys\n"
-            "for name in ('jax', 'flax', 'diffnorm_tpu'):\n"
+            "for name in ('jax', 'flax', 'diffnorm_tpu', 'transformers', 'sacrebleu',\n"
+            "             'safetensors'):\n"
             "    sys.modules[name] = None\n"
             "import diffnorm_tpu_torch.models.diffusion\n"
             "import diffnorm_tpu_torch.cli.diff_norm_synthesis\n"
             "import diffnorm_tpu_torch.cli.s2st\n"
             "import diffnorm_tpu_torch.cli.prepare\n"
             "import diffnorm_tpu_torch.cli.get_manifest\n"
+            "import diffnorm_tpu_torch.cli.generate\n"
+            "import diffnorm_tpu_torch.cli.generate_waveform\n"
+            "import diffnorm_tpu_torch.eval.unit_bleu\n"
+            "import diffnorm_tpu_torch.eval.asr_bleu\n"
+            "import diffnorm_tpu_torch.eval.mcd\n"
+            "from diffnorm_tpu_torch.eval.bleu import corpus_bleu, scorer_name\n"
+            "assert scorer_name() == 'counters', scorer_name()\n"
+            "assert corpus_bleu(['1 2 3 4 5'], ['1 2 3 4 5']) == 100.0\n"
             "print('ok')\n")
     env = dict(os.environ, PYTHONPATH=str(REPO))
     out = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
@@ -84,6 +108,21 @@ def test_entry_points_refuse_the_cpu_unless_asked(tmp_path):
     with pytest.raises(RuntimeError, match="CUDA"):
         s2st.main([str(tmp_path), "--params-npz", "absent.npz", "--vocoder-npz", "absent.npz",
                    "--vocoder-cfg", "absent.json", "--results-path", str(tmp_path / "wav")])
+
+    from diffnorm_tpu_torch.cli import generate, generate_waveform
+    from diffnorm_tpu_torch.eval import asr_bleu
+
+    with pytest.raises(RuntimeError, match="CUDA"):
+        generate.main([str(tmp_path), "--path", "absent.npz", "--results-path", str(tmp_path)])
+    with pytest.raises(RuntimeError, match="CUDA"):
+        generate_waveform.main(["--in-code-file", "absent.unit", "--vocoder", "absent.npz",
+                                "--vocoder-cfg", "absent.json", "--results-path",
+                                str(tmp_path / "wav")])
+    (tmp_path / "0_pred.wav").write_bytes(b"")
+    (tmp_path / "refs.txt").write_text("hello\n")
+    with pytest.raises(RuntimeError, match="CUDA"):
+        asr_bleu.main(["--audio-dir", str(tmp_path), "--reference-path",
+                       str(tmp_path / "refs.txt"), "--asr-model", str(tmp_path)])
 
     from diffnorm_tpu_torch.cli import prepare
 
