@@ -129,10 +129,30 @@ tf32 passes); and at D 80 and 128 with ragged keys and a fully masked row.
    cli.generate_waveform --dur-prediction and eval.asr_bleu, each command's
    wall; cli.generate's units against an in-process mask_predict_decode
    (equal), the forced canvases' lengths, one wav per unit line, and the
-   ASR's logits on the card against its CPU float32 forward.
+   ASR's logits on the card against its CPU float32 forward. A fourth
+   cli.generate run with --quant-int8 --quant-int8-static: its calibration
+   log line, its H- units against an in-process int8-static decode
+   calibrated on the same first batch (equal), its flash_attention launches.
+16. (run after 7, beside the bf16 chain of phase 5) S2ST int8 static,
+   bench.py --e2e's default: the released NAR with quant_int8 from phase
+   5's seeded init, its 156 activation sites calibrated on the first batch's
+   canvas, the vocoder in bf16; phase 5's run and checks at B16 x 480 (wall,
+   RTF, profile), its reduced units against the bf16 decode's and one
+   teacher-forced decoder forward against bf16's logits; then the long form
+   (B2 x 8448) as phase 6 runs it, flash_attention against the plain
+   versions.
+17. recipe stage 6, the code-HiFi-GAN fine-tune: the released generator with
+   its duration predictor, full-width MPD (periods 2-11) and MSD (3 scales),
+   JAX's defaults, at scripts/full_recipe.sh's B32 x 28 units: ms per update,
+   peak memory and profile in float32 with TF32 on for the cuDNN convs
+   (torch's default, the CLI's), with TF32 off, and with --bf16-disc; one
+   update on the card against the CPU float32 update. Then cli.train_vocoder
+   on 24 WAVs of 3-7 s (10 updates, a save at 10, resumed to 20) and
+   cli.generate_waveform --dur-prediction from the step-20 directory on
+   phase 15's hyp.unit, each wall.
 The kernels JSON line reports the float32 kernel as flash_attention_f32
-(its launches those of phase 13) beside the bf16 one (phase 6's and the
-three cli.generate runs of phase 15).
+(its launches those of phase 13) beside the bf16 one (phase 6's, phase
+16's long form and the four cli.generate runs of phase 15).
 
 Then one JSON line of per-kernel numbers and, last, {"ok": true, "device": ...}.
 Exits non-zero without CUDA, and in a directory without the port.
@@ -245,6 +265,18 @@ VOCODER_CFG = dict(num_embeddings=1000, embedding_dim=128, upsample_rates=[5, 4,
 # long form gave 0.7222 of units equal, logits row-cos 0.999992 and argmax
 # agreement 1.0, waveform row-cos 0.999987: a random-init vocoder's waveform
 # hardly depends on its units, so that bound says little there.
+# the int8 NAR decode with static scales (phase 16): 8 sites a conformer
+# layer, 10 a decoder layer. Against the bf16 decode: on the CPU the same
+# seeded full-width models (B16 x 480, calibrated on the first batch) gave
+# 0.4484 of reduced units equal, while one decoder forward over a fixed
+# canvas gave logits row-cos min 0.99993 and argmax agreement 1.0 (encoder
+# output row-cos min 0.99949): int8 moves the length head's and the
+# re-mask's near-ties of a random decoder, the trajectories part, and a
+# reduced sequence that gains or loses a unit shifts every later position.
+# The unit bound is about half the CPU's share (broken scales give chance,
+# ~0.001); the teacher-forced bounds hold the int8 arithmetic itself
+S2ST_INT8_SITES = 12 * 8 + 6 * 10
+S2ST_INT8_UNIT_AGREE, S2ST_INT8_LOGIT_ROW_COS, S2ST_INT8_ARGMAX_AGREE = 0.25, 0.999, 0.99
 S2ST_WAV_ROW_COS, LONG_WAV_ROW_COS = 0.99999, 0.9999
 LONG_UNIT_AGREE, LONG_LOGIT_ROW_COS, LONG_ARGMAX_AGREE = 0.5, 0.9999, 0.99
 # prep (DiffNorm's first stage, cli.prepare): bench.py --prepare's program,
@@ -281,6 +313,16 @@ ASR_CONFIG = dict(
 ASR_VOCAB = ["<pad>", "<s>", "</s>", "<unk>", "|", "E", "T", "A", "O", "N", "I", "H", "S", "R",
              "D", "L", "U", "M", "W", "C", "F", "G", "Y", "P", "B", "V", "K", "'", "X", "J",
              "Q", "Z"]
+# recipe stage 6 (phase 17): scripts/full_recipe.sh's --batch-size 32
+# --crop-units 28, the update timed after warm-up; one update on the card
+# (TF32 off) against the port's CPU float32 update on the batch's first rows.
+# loss_d is computed before any update: float32 sums in another order. The
+# other metrics follow one AdamW step of the discriminators, whose first
+# step is lr x sign(g) where the gradient is far above eps, so a near-zero
+# gradient whose sign the sum order flips moves its parameter by 2 lr; such
+# parameters barely move the loss
+GAN_B, GAN_CROP, GAN_WARMUP, GAN_TIMED, GAN_CHECK_B, GAN_CLI_UTTS = 32, 28, 2, 10, 2, 24
+GAN_LOSS_D_REL, GAN_G_REL = 1e-4, 1e-3
 # the ASR on the card (float32, TF32 off) against the port's CPU float32
 # forward on the same wavs: float32 sums in other orders over 24 layers
 ASR_CHECK_WAVS, ASR_ROW_COS, ASR_ARGMAX_AGREE = 4, 0.9999, 0.99
@@ -1613,7 +1655,8 @@ def run_s2st(torch, s2st_generate, nar, voc, inputs):
 def s2st_phase(torch, what, s2st_generate, nar, voc, inputs, mods, smi, long_form):
     """s2st_generate through the kernels (warm-up, then a run with the
     counts set to 0 just before it and read just after), the same run
-    through the plain versions, and the checks. Returns the launches."""
+    through the plain versions, and the checks. Returns the launches, the
+    reduced units and their counts, and the median wall."""
     from diffnorm_tpu_torch.models.conformer import subsampled_lengths
     from diffnorm_tpu_torch.ops import _build
 
@@ -1673,7 +1716,7 @@ def s2st_phase(torch, what, s2st_generate, nar, voc, inputs, mods, smi, long_for
     if not long_form:
         profile_run(torch, lambda: run_s2st(torch, s2st_generate, nar, voc, inputs), wall)
     print(f"phase S2ST {what}: {time.perf_counter() - t0:.1f} s")
-    return launches
+    return dict(launches=launches, units=units, counts=counts, wall=wall)
 
 
 def s2st_stages(torch, nar, voc, inputs):
@@ -1772,6 +1815,100 @@ def run_s2st_cli(torch, nar, voc, smi):
               f"frames, batch 4, --dur-prediction, weights via save_npz): every "
               f"{{id}}_pred.wav written, unit file has every id ({n_units} units), launches "
               f"{dict(_build.launch_counts)}; {smi}")
+
+
+def s2st_int8_model(torch, nar):
+    """The released nar_s2ut_conformer of `s2st_models` with quant_int8
+    (JAX's default knobs), from the same seeded init (the int8 packs draw
+    nothing): its int8 weights are packed from the float32 masters before
+    the cast to bf16. Fails unless its float weights equal `nar`'s."""
+    from diffnorm_tpu_torch.models.nar_transformer import NARS2UTModule
+
+    torch.manual_seed(0)
+    with torch.device("cuda"):
+        qnar = NARS2UTModule(quant_int8=True)
+    with torch.no_grad():
+        emb = qnar.decoder.embed_tokens.weight
+        emb[:4] = 0.0
+        emb[4:] *= 10.0
+    qnar = qnar.to(torch.bfloat16).eval()
+    want = nar.state_dict()
+    if qnar.state_dict().keys() != want.keys() or not all(
+            torch.equal(t, want[k]) for k, t in qnar.state_dict().items()):
+        fail("S2ST int8: the int8 model's weights differ from the bf16 model's")
+    return qnar
+
+
+def calibration_target(torch, b, frames, seed=62):
+    """A seeded unit target per row (dictionary ids 4-1003, EOS last, PAD
+    after), one unit per subsampled source frame, as the canvas of the
+    first batch that calibration runs on (cli/generate.py:_calibrate_static)."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    n = frames // 4
+    tgt = np.full((b, n + 1), 1, np.int64)
+    for row in range(b):
+        m = n if row < b - 1 else n // 2
+        tgt[row, :m] = rng.integers(4, 1004, size=m)
+        tgt[row, m] = 2
+    return torch.from_numpy(tgt).cuda()
+
+
+def run_s2st_int8(torch, s2st_generate, nar, voc, bf16, mods, smi):
+    """Phase 16: bench.py --e2e's default, the int8 NAR decode with static
+    scales calibrated on the first batch's canvas (156 sites), the vocoder in
+    bf16, at CVSS length (B16 x 480) beside phase 5's bf16 chain, then in
+    long form (B2 x 8448, flash_attention in the decoder's encoder attention)
+    against the plain versions. Returns the long form's flash_attention
+    launches."""
+    from diffnorm_tpu_torch.models.nar_transformer import calibrate_act_scales
+    from diffnorm_tpu_torch.ops.quant import set_static_scales
+
+    t0 = time.perf_counter()
+    qnar = s2st_int8_model(torch, nar)
+    inputs = s2st_inputs(torch, S2ST_B, S2ST_FRAMES)
+    torch.cuda.synchronize()
+    t_cal = time.perf_counter()
+    n_sites = calibrate_act_scales(qnar, *inputs,
+                                   calibration_target(torch, S2ST_B, S2ST_FRAMES))
+    torch.cuda.synchronize()
+    t_cal = time.perf_counter() - t_cal
+    if n_sites != S2ST_INT8_SITES:
+        fail(f"S2ST int8: {n_sites} calibrated sites, expected {S2ST_INT8_SITES}")
+    set_static_scales(qnar)
+    int8 = s2st_phase(torch, "int8 static CVSS length", s2st_generate, qnar, voc, inputs,
+                      mods, smi, long_form=False)
+    units, counts = int8["units"], int8["counts"]
+    shared = torch.minimum(counts, bf16["counts"])
+    valid = torch.arange(units.shape[1], device=units.device)[None, :] < shared[:, None]
+    agree = ((units == bf16["units"]) & valid).sum().item() / max(valid.sum().item(), 1)
+    audio_s = S2ST_B * S2ST_FRAMES * SECONDS_PER_FRAME
+    line = (f"S2ST int8 static (bench.py --e2e's default): {n_sites} sites calibrated in "
+            f"{t_cal:.3f} s on the first batch's canvas; CVSS length wall {int8['wall']:.4f} s "
+            f"(RTF {audio_s / int8['wall']:.2f}) against the bf16 chain's {bf16['wall']:.4f} s "
+            f"(RTF {audio_s / bf16['wall']:.2f}) of phase 5; reduced units equal to the bf16 "
+            f"decode's in {agree:.4f} of positions (bound {S2ST_INT8_UNIT_AGREE}), unit counts "
+            f"{counts.tolist()} against {bf16['counts'].tolist()}; {smi}")
+    g = torch.Generator(device="cuda").manual_seed(60)
+    with torch.no_grad():
+        tokens = torch.randint(4, nar.vocab_size, (S2ST_B, S2ST_KW["max_len"]), generator=g,
+                               device="cuda")
+        ref = nar.decode(tokens, *nar.encode(*inputs)).float()
+        logits = qnar.decode(tokens, *qnar.encode(*inputs)).float()
+    cos = torch.nn.functional.cosine_similarity(logits, ref, dim=-1).min().item()
+    argmax = (logits.argmax(-1) == ref.argmax(-1)).float().mean().item()
+    line += (f"; the encoder and one decoder forward over a fixed canvas against bf16: "
+             f"logits row-cos min {cos:.6f} (bound {S2ST_INT8_LOGIT_ROW_COS}), argmax agreement "
+             f"{argmax:.4f} (bound {S2ST_INT8_ARGMAX_AGREE})")
+    if (agree < S2ST_INT8_UNIT_AGREE or cos < S2ST_INT8_LOGIT_ROW_COS
+            or argmax < S2ST_INT8_ARGMAX_AGREE):
+        fail(line)
+    print(line)
+    long_form = s2st_phase(torch, "int8 static long form", s2st_generate, qnar, voc,
+                           s2st_inputs(torch, LONG_B, LONG_FRAMES), mods, smi, long_form=True)
+    print(f"phase S2ST int8 static: {time.perf_counter() - t0:.1f} s")
+    return long_form["launches"].get("flash_attention", 0)
 
 
 def prep_models(torch):
@@ -2046,22 +2183,32 @@ def write_asr_checkpoint(torch, root: Path, seed: int = 16):
         return_attention_mask=True)))
 
 
-def in_process_hyps(torch, nar, root: Path):
+def in_process_hyps(torch, nar, root: Path, calibrate: bool = False):
     """H- unit strings of an in-process mask_predict_decode over the batches
-    cli.generate makes (the same dataset, iterator and dtype): {id: units}."""
+    cli.generate makes (the same dataset, iterator and dtype): {id: units}.
+    With `calibrate`, the int8 model's static scales are calibrated on the
+    first batch's target canvas before its decode, as --quant-int8-static
+    does."""
     from diffnorm_tpu_torch.cli.generate import strip_special
     from diffnorm_tpu_torch.data.dictionary import Dictionary
     from diffnorm_tpu_torch.data.iterators import EpochBatchIterator
     from diffnorm_tpu_torch.data.s2s_dataset import SpeechToUnitDataset
     from diffnorm_tpu_torch.generate.mask_predict import mask_predict_decode
+    from diffnorm_tpu_torch.models.nar_transformer import calibrate_act_scales
+    from diffnorm_tpu_torch.ops.quant import set_static_scales
 
     tgt_dict = Dictionary.unit_dictionary(1000)
     ds = SpeechToUnitDataset.from_tsv(str(root), "test", tgt_dict=tgt_dict)
     hyps = {}
     for batch in EpochBatchIterator(ds, EVAL_MAX_TOKENS, shuffle=False).next_epoch_itr():
-        tokens, _, _ = mask_predict_decode(
-            nar, torch.from_numpy(batch["src_tokens"]).cuda(),
-            torch.from_numpy(batch["src_lengths"]).cuda(), max_iter=EVAL_MAX_ITER, max_len=256)
+        src = torch.from_numpy(batch["src_tokens"]).cuda()
+        lengths = torch.from_numpy(batch["src_lengths"]).cuda()
+        if calibrate:
+            calibrate_act_scales(nar, src, lengths, torch.from_numpy(batch["target"]).cuda())
+            set_static_scales(nar)
+            calibrate = False
+        tokens, _, _ = mask_predict_decode(nar, src, lengths, max_iter=EVAL_MAX_ITER,
+                                           max_len=256)
         for row, sid in zip(tokens.cpu().numpy(), batch["id"].tolist()):
             hyps[sid] = strip_special(row, tgt_dict)
     return hyps
@@ -2079,13 +2226,15 @@ def read_hyps(path: Path):
 
 def run_eval(torch, smi):
     """Phase 15: scripts/s2ut_eval.sh through the port's four CLIs at full
-    width: cli.generate (default, --init-unit-file, --cond-scale 2),
-    eval.unit_bleu, cli.generate_waveform --dur-prediction and eval.asr_bleu
+    width: cli.generate (default, --init-unit-file, --cond-scale 2,
+    --quant-int8 --quant-int8-static), eval.unit_bleu, cli.generate_waveform --dur-prediction and eval.asr_bleu
     with a seeded wav2vec2-large-lv60-shaped CTC checkpoint. Returns the
-    flash_attention launches of the cli.generate runs."""
+    flash_attention launches of the cli.generate runs and the text of the
+    first run's hyp.unit."""
     import numpy as np
 
     from diffnorm_tpu_torch.cli import generate, generate_waveform
+    from diffnorm_tpu_torch.cli.s2st import build_model
     from diffnorm_tpu_torch.data.audio import read_audio
     from diffnorm_tpu_torch.eval import asr_bleu, unit_bleu
     from diffnorm_tpu_torch.eval.bleu import scorer_name
@@ -2147,6 +2296,7 @@ def run_eval(torch, smi):
                     fail(f"eval: unit_bleu wrote {len(unit_lines)} hyp.unit lines, "
                          f"printed {printed!r}")
                 want = in_process_hyps(torch, nar, tmp)
+                bf16_hyps = hyps
                 if want != hyps:
                     bad = [i for i in want if want[i] != hyps.get(i)]
                     fail(f"eval: cli.generate's H- units differ from an in-process "
@@ -2166,8 +2316,36 @@ def run_eval(torch, smi):
                          f"(units, canvas) {bad}")
             elif any(len(h.split()) == 0 for h in hyps.values()):
                 fail("eval: --cond-scale 2 gave an empty hypothesis")
+
+        # the int8 decode with static scales calibrated on the first batch
+        what, out = "cli.generate --quant-int8 --quant-int8-static", tmp / "res_int8"
+        int8_flags = ["--quant-int8", "--quant-int8-static"]
+        lines.lines.clear()
+        timed(what, lambda: generate.main(gen + int8_flags + ["--results-path", str(out)]))
+        rate = [m for m in lines.lines if "sent/s" in m]
+        calibrated = [m for m in lines.lines if "calibrated static int8" in m]
+        hyps = read_hyps(out / "generate-test.txt")
+        if sorted(hyps) != list(range(n_sent)) or not rate or len(calibrated) != 1:
+            fail(f"eval: {what} wrote ids {sorted(hyps)}, log {lines.lines}")
+        sent_s[what] = rate[0]
+        qnar = build_model(generate.parse_args(gen + int8_flags), str(tmp / "nar.npz"),
+                           torch.device("cuda"), torch.bfloat16, quant_int8=True)
+        want = in_process_hyps(torch, qnar, tmp, calibrate=True)
+        if want != hyps:
+            bad = [i for i in want if want[i] != hyps.get(i)]
+            fail(f"eval: {what}'s H- units differ from an in-process int8-static decode "
+                 f"for ids {bad}")
+        if flash[what].get("flash_attention", 0) < nar.decoder.n_layers:
+            fail(f"eval: {what} launched flash_attention "
+                 f"{flash[what].get('flash_attention', 0)} times on the long-form source")
+        pairs = [(hyps[i].split(), bf16_hyps[i].split()) for i in hyps]
+        int8_agree = sum(a == b for h, r in pairs for a, b in zip(h, r))
+        int8_total = sum(max(len(h), len(r)) for h, r in pairs)
+        print(f"eval {what}: {calibrated[0]}; {rate[0]}; H- units equal an in-process "
+              f"int8-static decode; {int8_agree / max(int8_total, 1):.4f} of units equal to "
+              f"the bf16 run's; {(out / 'generate-test.txt').read_text().splitlines()[-1]}")
         logging.getLogger("diffnorm_tpu_torch.generate").removeHandler(lines)
-        del nar
+        del nar, qnar
 
         wav_dir = res / "wav"
         timed("cli.generate_waveform", lambda: generate_waveform.main([
@@ -2181,6 +2359,7 @@ def run_eval(torch, smi):
         if min(len(w) for w in wavs) < 640 or not all(np.isfinite(w).all() for w in wavs):
             fail("eval: generate_waveform wrote a short or non-finite wav")
         audio_s = sum(len(w) for w in wavs) / SAMPLE_RATE
+        hyp_units = (res / "hyp.unit").read_text()
 
         asr_dir = tmp / "asr"
         write_asr_checkpoint(torch, asr_dir)
@@ -2236,7 +2415,170 @@ def run_eval(torch, smi):
           f"checkpoint's load, {asr_rate:.1f} without it (the recognizer alone, one wav at "
           f"a time); {check}; {smi}")
     print(f"phase eval: {time.perf_counter() - t0:.1f} s")
-    return sum(gen_flash.values())
+    return sum(gen_flash.values()), hyp_units
+
+
+def gan_batch(rows: int, seed: int = 70):
+    """A collated batch of the fine-tune at scripts/full_recipe.sh's crop:
+    `rows` x GAN_CROP units (runs of 1-3 equal units, as real units come)
+    with their 320-samples-a-unit waveforms and run-length labels."""
+    import numpy as np
+
+    from diffnorm_tpu_torch.data.code_dataset import SAMPLES_PER_UNIT, run_lengths
+
+    rng = np.random.default_rng(seed)
+    code = np.stack([np.repeat(rng.integers(0, 1000, size=GAN_CROP),
+                               rng.integers(1, 4, size=GAN_CROP))[:GAN_CROP]
+                     for _ in range(rows)]).astype(np.int32)
+    labels = [run_lengths(row, GAN_CROP) for row in code]
+    return {"code": code,
+            "wav": (rng.normal(size=(rows, GAN_CROP * SAMPLES_PER_UNIT)) * 0.1
+                    ).astype(np.float32),
+            "dur_code": np.stack([d for d, _ in labels]),
+            "durations": np.stack([n for _, n in labels])}
+
+
+def gan_trainer(torch, device, variables=None, bf16_disc=False):
+    """GanTrainer of the released code-HiFi-GAN (its duration predictor on)
+    with full-width MPD (2, 3, 5, 7, 11) and MSD (3 scales), JAX's
+    defaults, the weights of `variables` where given; and its variables."""
+    from diffnorm_tpu_torch.cli.train_vocoder import build_generator
+    from diffnorm_tpu_torch.train.gan_trainer import GanTrainer
+
+    torch.manual_seed(17)
+    with torch.device(device):
+        gen = build_generator(VOCODER_CFG)
+    trainer = GanTrainer(gen, {"bf16_disc": bf16_disc}, torch.device(device))
+    if variables is not None:
+        trainer.load_variables(variables)
+    return trainer, trainer.variables()
+
+
+def run_train_vocoder(torch, smi):
+    """Phase 17: GAN updates of recipe stage 6 at full width, B32 x 28 units
+    (8,960 samples a row): float32 with TF32 on for the cuDNN convs (torch's
+    default, what cli.train_vocoder runs), float32 with TF32 off, and
+    --bf16-disc; each from one init, GAN_WARMUP updates then the median of
+    GAN_TIMED, peak memory and a profile. Then one update on the card (TF32
+    off) against the port's CPU float32 update from the same weights on the
+    batch's first GAN_CHECK_B rows."""
+    t0 = time.perf_counter()
+    batch = gan_batch(GAN_B)
+    _, init = gan_trainer(torch, "cpu")
+    for what, tf32, bf16_disc in (("float32, TF32 on", True, False),
+                                  ("float32, TF32 off", False, False),
+                                  ("--bf16-disc, TF32 on", True, True)):
+        torch.backends.cudnn.allow_tf32 = tf32
+        trainer, _ = gan_trainer(torch, "cuda", init, bf16_disc)
+        for _ in range(GAN_WARMUP):
+            trainer.train_step(batch)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        walls = []
+        for _ in range(GAN_TIMED):
+            t1 = time.perf_counter()
+            mets = trainer.train_step(batch)  # ends in the metrics' copy to the host
+            walls.append(time.perf_counter() - t1)
+        peak_gb = torch.cuda.max_memory_allocated() / 1e9
+        if not all(math.isfinite(v) for v in mets.values()):
+            fail(f"vocoder train {what}: metrics {mets}")
+        wall = statistics.median(walls)
+        print(f"vocoder train {what}: B{GAN_B} x {GAN_CROP} units ({GAN_CROP * 320} samples a "
+              f"row): {1e3 * wall:.1f} ms an update (median of {GAN_TIMED} after {GAN_WARMUP} "
+              f"warm-up; {1e3 * min(walls):.1f}-{1e3 * max(walls):.1f}), peak {peak_gb:.2f} GB, "
+              f"last metrics " + " ".join(f"{k} {v:.4f}" for k, v in mets.items()) + f"; {smi}")
+        profile_run(torch, lambda: trainer.train_step(batch), wall)
+        del trainer
+    torch.backends.cudnn.allow_tf32 = False
+    small = {k: v[:GAN_CHECK_B] for k, v in batch.items()}
+    card, _ = gan_trainer(torch, "cuda", init)
+    got = card.train_step(small)
+    cpu, _ = gan_trainer(torch, "cpu", init)
+    want = cpu.train_step(small)
+    rel = {k: abs(got[k] - want[k]) / max(abs(want[k]), 1e-12) for k in want}
+    line = (f"vocoder train: one update on the card (float32, TF32 off) against the CPU "
+            f"float32 update, B{GAN_CHECK_B}: relative differences "
+            + " ".join(f"{k} {v:.2e}" for k, v in rel.items())
+            + f" (bounds loss_d {GAN_LOSS_D_REL}, the rest {GAN_G_REL})")
+    if rel["loss_d"] > GAN_LOSS_D_REL or max(rel.values()) > GAN_G_REL:
+        fail(line)
+    print(line)
+    print(f"phase vocoder train: {time.perf_counter() - t0:.1f} s")
+
+
+def write_vocoder_corpus(root: Path, seed: int = 71):
+    """24 seeded 16 kHz WAVs of 3-7 s and a train.units file of 50 Hz units
+    (runs of 1-3), the config JSON."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    lines = []
+    for i in range(GAN_CLI_UTTS):
+        n = int(rng.uniform(3.0, 7.0) * SAMPLE_RATE)
+        write_wav_pcm(root / f"v{i}.wav", (rng.normal(size=n) * 3000).astype(np.int16))
+        units = np.repeat(rng.integers(0, 1000, size=n // 320), rng.integers(1, 4, size=n // 320))
+        lines.append(f"v{i}|" + " ".join(map(str, units[:n // 320])))
+    (root / "train.units").write_text("\n".join(lines) + "\n")
+    (root / "voc.json").write_text(json.dumps(VOCODER_CFG))
+
+
+def run_train_vocoder_cli(torch, hyp_units: str, smi):
+    """Phase 17's entry point: cli.train_vocoder on 24 WAVs at the recipe's
+    --batch-size 32 --crop-units 28, 10 updates with a save at 10, resumed to
+    20, then cli.generate_waveform --dur-prediction from the last step
+    directory on phase 15's hyp.unit; each wall."""
+    import numpy as np
+
+    from diffnorm_tpu_torch.cli import generate_waveform, train_vocoder
+    from diffnorm_tpu_torch.data.audio import read_audio
+
+    t0 = time.perf_counter()
+    lines = LogLines()
+    logging.getLogger("diffnorm_tpu_torch.train_vocoder").addHandler(lines)
+    walls = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = Path(tmp)
+        write_vocoder_corpus(tmp)
+        base = ["--units-file", str(tmp / "train.units"), "--audio-dir", str(tmp),
+                "--vocoder-cfg", str(tmp / "voc.json"), "--save-dir", str(tmp / "ckpt"),
+                "--batch-size", "32", "--crop-units", str(GAN_CROP),
+                "--save-interval-updates", "10", "--log-interval", "5"]
+        for what, max_update, want in (
+                ("cli.train_vocoder", 10, ["saved checkpoint at step 10",
+                                           "vocoder training done at step 10"]),
+                ("cli.train_vocoder resumed", 20, ["resumed from step 10",
+                                                   "saved checkpoint at step 20",
+                                                   "vocoder training done at step 20"])):
+            lines.lines.clear()
+            t1 = time.perf_counter()
+            if train_vocoder.main(base + ["--max-update", str(max_update)]) != 0:
+                fail(f"{what} failed")
+            torch.cuda.synchronize()
+            walls[what] = time.perf_counter() - t1
+            missing = [m for m in want if m not in lines.lines]
+            if missing or "resumed" in " ".join(lines.lines) and max_update == 10:
+                fail(f"{what}: log lacks {missing}: {lines.lines}")
+            steps = [m for m in lines.lines if m.startswith("step ")]
+            print(f"vocoder {what}: {walls[what]:.2f} s; {steps[-1] if steps else ''}")
+        step_dir = tmp / "ckpt" / "step_000000020"
+        (tmp / "hyp.unit").write_text(hyp_units)
+        t1 = time.perf_counter()
+        if generate_waveform.main(["--in-code-file", str(tmp / "hyp.unit"), "--vocoder",
+                                   str(step_dir), "--vocoder-cfg", str(tmp / "voc.json"),
+                                   "--results-path", str(tmp / "wav"),
+                                   "--dur-prediction"]) != 0:
+            fail("cli.generate_waveform on the fine-tuned step directory failed")
+        walls["cli.generate_waveform"] = time.perf_counter() - t1
+        n_lines = len([line for line in hyp_units.splitlines() if line.strip()])
+        wavs = [read_audio(str(tmp / "wav" / f"{i}_pred.wav"))[0] for i in range(n_lines)]
+        if not wavs or not all(len(w) > 0 and np.isfinite(w).all() for w in wavs):
+            fail("cli.generate_waveform wrote an empty or non-finite wav")
+    logging.getLogger("diffnorm_tpu_torch.train_vocoder").removeHandler(lines)
+    print(f"phase entry point vocoder train: walls (s) "
+          + ", ".join(f"{w} {t:.2f}" for w, t in walls.items())
+          + f"; {len(wavs)} wavs from the step-20 directory, "
+          f"{sum(len(w) for w in wavs) / SAMPLE_RATE:.1f} s of audio; {smi}")
+    print(f"phase entry point vocoder train: {time.perf_counter() - t0:.1f} s")
 
 
 def main() -> int:
@@ -2365,12 +2707,16 @@ def main() -> int:
 
     # 5.-7. the S2ST chain at CVSS length, in long form, and its entry point
     nar, voc = s2st_models(torch)
-    s2st_phase(torch, "CVSS length", s2st_generate, nar, voc,
-               s2st_inputs(torch, S2ST_B, S2ST_FRAMES), mods, smi, long_form=False)
+    cvss = s2st_phase(torch, "CVSS length", s2st_generate, nar, voc,
+                      s2st_inputs(torch, S2ST_B, S2ST_FRAMES), mods, smi, long_form=False)
     launches["flash_attention"] = s2st_phase(
         torch, "long form", s2st_generate, nar, voc, s2st_inputs(torch, LONG_B, LONG_FRAMES),
-        mods, smi, long_form=True)["flash_attention"]
+        mods, smi, long_form=True)["launches"]["flash_attention"]
     run_s2st_cli(torch, nar, voc, smi)
+
+    # 16. the int8 static NAR decode (bench.py --e2e's default) beside phase 5
+    launches["flash_attention"] += run_s2st_int8(torch, s2st_generate, nar, voc, cvss, mods,
+                                                 smi)
     del nar, voc
 
     # 8.-9. training of both main-path stages, and through cli.train
@@ -2391,7 +2737,12 @@ def main() -> int:
     del hubert
 
     # 15. eval: cli.generate -> unit BLEU -> cli.generate_waveform -> ASR-BLEU
-    launches["flash_attention"] += run_eval(torch, smi)
+    eval_flash, hyp_units = run_eval(torch, smi)
+    launches["flash_attention"] += eval_flash
+
+    # 17. recipe stage 6, the code-HiFi-GAN fine-tune, then cli.train_vocoder
+    run_train_vocoder(torch, smi)
+    run_train_vocoder_cli(torch, hyp_units, smi)
 
     sources = {
         "rms_norm_film": ("rms_norm_film.cu", "diffnorm_tpu/ops/pallas_norm.py:34"),

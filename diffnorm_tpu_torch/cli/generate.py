@@ -26,11 +26,16 @@ keyed by sentence id, or plain unit lines keyed by line number; a canvas is
 len(units) + 1). Runs on the GPU (bf16 unless --dtype says otherwise)
 unless --cpu is given, which runs in float32.
 
+`--quant-int8` decodes with JAX's int8 W8A8 NAR model (per-token dynamic
+activation scales); with `--quant-int8-static` as well, every site's static
+activation scale is calibrated on the first batch (`calibrate_act_scales`,
+its target's canvas) before that batch's decode, and the decode runs on
+those scales. `--quant-int8-static` alone does nothing, as in JAX.
+
 Not ported, and raising NotImplementedError: the other tasks and
-architectures (AR S2UT, UnitY, TTS, LevT: ROADMAP Queue 1 item 7),
---quant-int8 (item 2), and --post-process / --remove-bpe,
---retain-iter-history, the AR reranker, --decode-chunk and ensembles (a
---path holding ':') (item 4).
+architectures (AR S2UT, UnitY, TTS, LevT: ROADMAP Queue 1 item 7), and
+--post-process / --remove-bpe, --retain-iter-history, the AR reranker,
+--decode-chunk and ensembles (a --path holding ':') (item 4).
 """
 
 from __future__ import annotations
@@ -51,6 +56,8 @@ from diffnorm_tpu_torch.data.s2s_dataset import SpeechToUnitDataset
 from diffnorm_tpu_torch.eval.bleu import BleuAccumulator
 from diffnorm_tpu_torch.eval.wer import WerAccumulator
 from diffnorm_tpu_torch.generate.mask_predict import mask_predict_decode
+from diffnorm_tpu_torch.models.nar_transformer import calibrate_act_scales
+from diffnorm_tpu_torch.ops.quant import set_static_scales
 
 logger = logging.getLogger("diffnorm_tpu_torch.generate")
 
@@ -58,8 +65,6 @@ PAD, EOS = 1, 2
 TASK, ARCH = "speech_to_speech_fasttranslate", "nar_s2ut_conformer"
 # flags of the JAX CLI's other branches: flag -> the ROADMAP item that ports it
 UNPORTED = {
-    "--quant-int8": "Queue 1 item 2 (int8 NAR decode)",
-    "--quant-int8-static": "Queue 1 item 2 (int8 NAR decode)",
     "--post-process": "Queue 1 item 4",
     "--remove-bpe": "Queue 1 item 4",
     "--retain-iter-history": "Queue 1 item 4",
@@ -118,6 +123,10 @@ def parse_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
     p.add_argument("--init-unit-file", default=None)
     p.add_argument("--scoring", choices=("bleu", "sacrebleu", "wer"), default="bleu")
     p.add_argument("--seed", type=int, default=1, help="accepted; mask-predict draws nothing")
+    p.add_argument("--quant-int8", action="store_true", help="the int8 W8A8 NAR model")
+    p.add_argument("--quant-int8-static", action="store_true",
+                   help="with --quant-int8: static activation scales, calibrated on the "
+                        "first batch")
     add_model_args(p)
     for flag in UNPORTED:
         p.add_argument(flag, nargs="?", const=True, default=None, help=argparse.SUPPRESS)
@@ -144,8 +153,9 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
     tgt_dict = Dictionary.unit_dictionary(args.target_code_size)
     dataset = SpeechToUnitDataset.from_tsv(args.data, split, tgt_dict=tgt_dict,
                                            config_yaml=args.config_yaml)
-    model = build_model(args, args.path, device, dtype)
+    model = build_model(args, args.path, device, dtype, quant_int8=args.quant_int8)
     logger.info("restored checkpoint from %s", args.path)
+    calibrate = args.quant_int8 and args.quant_int8_static
     init_lengths = None
     if args.init_unit_file:
         init_lengths = read_init_lengths(args.init_unit_file)
@@ -162,6 +172,15 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
         itr = EpochBatchIterator(dataset, max_tokens=args.max_tokens,
                                  max_sentences=args.batch_size, shuffle=False)
         for batch in itr.next_epoch_itr():
+            if calibrate:
+                target = batch.get("target")
+                if target is not None:
+                    target = torch.from_numpy(target).to(device)
+                calibrate_act_scales(model, torch.from_numpy(batch["src_tokens"]).to(device),
+                                     torch.from_numpy(batch["src_lengths"]).to(device), target)
+                set_static_scales(model, True)
+                logger.info("calibrated static int8 activation scales on the first batch")
+                calibrate = False
             true_length = None
             if init_lengths is not None:
                 true_length = torch.tensor([init_length(init_lengths, int(i))

@@ -99,9 +99,11 @@ def resolve_device_dtype(args: argparse.Namespace):
 
 
 def build_model(args: argparse.Namespace, path: str, device: torch.device,
-                dtype: torch.dtype) -> NARS2UTModule:
+                dtype: torch.dtype, quant_int8: bool = False) -> NARS2UTModule:
     """The model of the shape flags with the weights of `path` (a
-    `weights.save_npz` file or a cli.train step directory)."""
+    `weights.save_npz` file or a cli.train step directory), int8 with
+    `quant_int8`: the weights load in float32, which packs the int8 weights
+    from the float32 masters, and the model is cast to `dtype` after."""
     with torch.device(device):
         model = NARS2UTModule(
             vocab_size=args.target_code_size + 4, in_channels=args.input_feat_per_channel,
@@ -112,7 +114,8 @@ def build_model(args: argparse.Namespace, path: str, device: torch.device,
             decoder_layers=args.decoder_layers, decoder_heads=args.decoder_attention_heads,
             depthwise_kernel_size=args.depthwise_conv_kernel_size,
             conv_channels=args.conv_channels,
-            conv_kernel_sizes=tuple(int(k) for k in args.conv_kernel_sizes.split(",")))
+            conv_kernel_sizes=tuple(int(k) for k in args.conv_kernel_sizes.split(",")),
+            quant_int8=quant_int8)
     from_jax_variables(model, load_variables(path))
     return model.to(dtype).eval()
 

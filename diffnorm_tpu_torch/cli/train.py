@@ -2,7 +2,8 @@
 the speech VAE (`--task speech_decoder`), the latent normalizer over the
 frozen VAE (`--task speech_diffusion_discrete`) and the NAR S2UT translator
 on unit targets (`--task speech_to_speech_fasttranslate`, DiffNorm's fourth
-stage). It takes every flag of scripts/vae_train.sh,
+stage); `--task unit_to_speech` goes to `cli.train_vocoder` with the other
+arguments, as JAX's does. It takes every flag of scripts/vae_train.sh,
 scripts/diffusion_train.sh and scripts/s2ut_train.sh with the same meaning;
 a flag it does not implement is an error, and the NAR features not ported
 (encoder remat, multitask and CTC heads, target speaker, int8 training,
@@ -208,6 +209,19 @@ def fmt_metrics(vals: Dict[str, float]) -> str:
 
 
 def main(argv: Optional[Sequence[str]] = None) -> int:
+    argv = sys.argv[1:] if argv is None else list(argv)
+    # the vocoder fine-tunes train a GAN, which the Trainer does not model:
+    # JAX's cli/train.py:101-106 hands them to cli.train_vocoder
+    task_parser = argparse.ArgumentParser(add_help=False)
+    task_parser.add_argument("--task")
+    chosen, rest = task_parser.parse_known_args(argv)
+    if chosen.task == "repr_to_speech":
+        raise NotImplementedError("--task repr_to_speech (FeatureGenerator, "
+                                  "FeatureToSpeechDataset) is not ported (ROADMAP Queue 1 item 4)")
+    if chosen.task == "unit_to_speech":
+        from diffnorm_tpu_torch.cli import train_vocoder
+
+        return train_vocoder.main(rest)
     logging.basicConfig(level=logging.INFO, force=True,
                         format="%(asctime)s | %(levelname)s | %(name)s | %(message)s")
     args = parse_args(argv)

@@ -18,6 +18,12 @@ apply: after the input projection, on the FFN's activation
 rates left None fall back to `dropout`. Each draws from its module's
 `generator` (`layers.set_dropout_generator`). BatchNorm normalizes with the
 batch's statistics and updates its running ones, as flax's does.
+
+`quant` (JAX's `quant` through the encoder, inference only) makes the
+attention's q, k, v and out projections and both FFNs' w_1 and w_2 int8
+W8A8 `Dense` sites with JAX's default knobs; q, k and v each quantize their
+(same) input at their own site, as JAX's QDense do. `linear_pos`, the conv
+module, the subsampler and the input projection stay float.
 """
 
 from __future__ import annotations
@@ -101,13 +107,13 @@ class RelPosSelfAttention(DropoutSite, nn.Module):
     """Transformer-XL style self-attention with pos_bias_u / pos_bias_v;
     `dropout` drops attention probabilities in training mode."""
 
-    def __init__(self, dim: int, heads: int, dropout: float = 0.0):
+    def __init__(self, dim: int, heads: int, dropout: float = 0.0, quant: bool = False):
         super().__init__()
         self.dim, self.heads = dim, heads
         self.dropout = dropout
         d = dim // heads
         for name in ("linear_q", "linear_k", "linear_v", "linear_out"):
-            self.add_module(name, Dense(dim, dim))
+            self.add_module(name, Dense(dim, dim, quant=quant))
         self.linear_pos = Dense(dim, dim, bias=False)
         bound = math.sqrt(6.0 / (heads + d))  # flax xavier_uniform on [h, d]
         self.pos_bias_u = nn.Parameter(torch.empty(heads, d).uniform_(-bound, bound))
@@ -140,12 +146,12 @@ class RelPosSelfAttention(DropoutSite, nn.Module):
 
 class ConformerFFN(nn.Module):
     def __init__(self, dim: int, ffn_dim: int, dropout: float = 0.0,
-                 activation_dropout: float = 0.0):
+                 activation_dropout: float = 0.0, quant: bool = False):
         super().__init__()
         self.layer_norm = layer_norm(dim)
-        self.w_1 = Dense(dim, ffn_dim)
+        self.w_1 = Dense(dim, ffn_dim, quant=quant)
         self.activation_dropout = Dropout(activation_dropout)
-        self.w_2 = Dense(ffn_dim, dim)
+        self.w_2 = Dense(ffn_dim, dim, quant=quant)
         self.dropout = Dropout(dropout)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
@@ -220,14 +226,14 @@ class ConvModule(nn.Module):
 class ConformerLayer(nn.Module):
     def __init__(self, dim: int, ffn_dim: int, heads: int, depthwise_kernel_size: int = 31,
                  dropout: float = 0.0, attention_dropout: float = 0.0,
-                 activation_dropout: float = 0.0):
+                 activation_dropout: float = 0.0, quant: bool = False):
         super().__init__()
-        self.ffn1 = ConformerFFN(dim, ffn_dim, dropout, activation_dropout)
+        self.ffn1 = ConformerFFN(dim, ffn_dim, dropout, activation_dropout, quant)
         self.self_attn_layer_norm = layer_norm(dim)
-        self.self_attn = RelPosSelfAttention(dim, heads, attention_dropout)
+        self.self_attn = RelPosSelfAttention(dim, heads, attention_dropout, quant)
         self.attn_dropout = Dropout(dropout)
         self.conv_module = ConvModule(dim, depthwise_kernel_size, dropout)
-        self.ffn2 = ConformerFFN(dim, ffn_dim, dropout, activation_dropout)
+        self.ffn2 = ConformerFFN(dim, ffn_dim, dropout, activation_dropout, quant)
         self.final_layer_norm = layer_norm(dim)
 
     def forward(self, x, pos_emb, mask):
@@ -241,13 +247,14 @@ class ConformerLayer(nn.Module):
 class ConformerEncoder(nn.Module):
     """Subsample -> scale -> linear -> dropout -> layers. Returns (features
     [B, T', C], mask [B, T'] True = valid). `attention_dropout` and
-    `activation_dropout` fall back to `dropout` where None."""
+    `activation_dropout` fall back to `dropout` where None; `quant` makes
+    the layers' projections and FFNs int8 sites (inference only)."""
 
     def __init__(self, in_channels: int = 80, dim: int = 512, ffn_dim: int = 2048,
                  layers: int = 12, heads: int = 8, depthwise_kernel_size: int = 31,
                  conv_channels: int = 1024, conv_kernel_sizes: Sequence[int] = (5, 5),
                  dropout: float = 0.0, attention_dropout: Optional[float] = None,
-                 activation_dropout: Optional[float] = None):
+                 activation_dropout: Optional[float] = None, quant: bool = False):
         super().__init__()
         self.dim = dim
         self.subsample = Conv1dSubsampler(in_channels, conv_channels, dim,
@@ -260,7 +267,7 @@ class ConformerEncoder(nn.Module):
         for i in range(layers):
             self.add_module(f"layer_{i}", ConformerLayer(
                 dim, ffn_dim, heads, depthwise_kernel_size, dropout, attention_dropout,
-                activation_dropout))
+                activation_dropout, quant))
 
     def forward(self, src: torch.Tensor, src_lengths: torch.Tensor
                 ) -> Tuple[torch.Tensor, torch.Tensor]:

@@ -17,6 +17,16 @@ self-prompting (`use_sp`); the dropouts draw from each module's `generator`
 (`layers.set_dropout_generator`), the CG and SP draws from the model's
 `cg_generator` and `sp_generator`, which the trainer sets.
 
+`quant_int8` (JAX's `NARS2UTModule(quant_int8=True)`, the int8 NAR decode
+of `bench.py --e2e` and `cli.generate --quant-int8`) makes every projection
+of the conformer's attention and FFNs and of the decoder's self- and
+encoder attention and FF an int8 W8A8 `Dense` site (ops/quant.py, JAX's
+default knobs): 8 sites a conformer layer, 10 a decoder layer; the length
+head and the output projection stay float. Build the model in float32, load
+its weights (which packs the int8 weights from the float32 masters), then
+cast. `calibrate_act_scales` records the sites' static activation scales on
+one forward, as JAX's `calibrate_apply` does.
+
 Dictionary layout: bos=0, pad=1, eos=2, unk=3 (mask token), units at +4.
 """
 
@@ -33,6 +43,7 @@ from torch import nn
 from diffnorm_tpu_torch.models.conformer import ConformerEncoder, layer_norm
 from diffnorm_tpu_torch.models.layers import Dense, Dropout, DropoutSite, sinusoidal_positions
 from diffnorm_tpu_torch.ops import attention as attention_ops
+from diffnorm_tpu_torch.ops.quant import calibrating, quant_sites
 
 PAD, BOS, EOS, UNK = 1, 0, 2, 3
 
@@ -41,12 +52,12 @@ class MultiheadAttention(DropoutSite, nn.Module):
     """fairseq-style MHA (biased q/k/v/out projections); `dropout` drops
     attention probabilities in training mode."""
 
-    def __init__(self, dim: int, heads: int, dropout: float = 0.0):
+    def __init__(self, dim: int, heads: int, dropout: float = 0.0, quant: bool = False):
         super().__init__()
         self.dim, self.heads = dim, heads
         self.dropout = dropout
         for name in ("q_proj", "k_proj", "v_proj", "out_proj"):
-            self.add_module(name, Dense(dim, dim))
+            self.add_module(name, Dense(dim, dim, quant=quant))
 
     def forward(self, x: torch.Tensor, context: Optional[torch.Tensor] = None,
                 mask: Optional[torch.Tensor] = None) -> torch.Tensor:
@@ -70,18 +81,19 @@ class DecoderLayer(nn.Module):
     `activation_dropout`, attention probabilities by `attention_dropout`."""
 
     def __init__(self, dim: int, ffn_dim: int, heads: int, dropout: float = 0.0,
-                 attention_dropout: float = 0.0, activation_dropout: float = 0.0):
+                 attention_dropout: float = 0.0, activation_dropout: float = 0.0,
+                 quant: bool = False):
         super().__init__()
         self.self_attn_layer_norm = layer_norm(dim)
-        self.self_attn = MultiheadAttention(dim, heads, attention_dropout)
+        self.self_attn = MultiheadAttention(dim, heads, attention_dropout, quant)
         self.self_attn_dropout = Dropout(dropout)
         self.encoder_attn_layer_norm = layer_norm(dim)
-        self.encoder_attn = MultiheadAttention(dim, heads, attention_dropout)
+        self.encoder_attn = MultiheadAttention(dim, heads, attention_dropout, quant)
         self.encoder_attn_dropout = Dropout(dropout)
         self.final_layer_norm = layer_norm(dim)
-        self.fc1 = Dense(dim, ffn_dim)
+        self.fc1 = Dense(dim, ffn_dim, quant=quant)
         self.activation_dropout = Dropout(activation_dropout)
-        self.fc2 = Dense(ffn_dim, dim)
+        self.fc2 = Dense(ffn_dim, dim, quant=quant)
         self.ff_dropout = Dropout(dropout)
 
     def forward(self, x, self_mask, enc, enc_mask):
@@ -100,7 +112,7 @@ class NATUnitDecoder(nn.Module):
     def __init__(self, vocab_size: int, dim: int = 512, ffn_dim: int = 2048,
                  layers: int = 6, heads: int = 8, max_lengths: int = 256,
                  dropout: float = 0.0, attention_dropout: float = 0.0,
-                 activation_dropout: float = 0.0):
+                 activation_dropout: float = 0.0, quant: bool = False):
         super().__init__()
         self.dim, self.n_layers, self.max_lengths = dim, layers, max_lengths
         self.embed_tokens = nn.Embedding(vocab_size, dim)
@@ -110,7 +122,8 @@ class NATUnitDecoder(nn.Module):
         self.embed_dropout = Dropout(dropout)
         for i in range(layers):
             self.add_module(f"layer_{i}", DecoderLayer(dim, ffn_dim, heads, dropout,
-                                                       attention_dropout, activation_dropout))
+                                                       attention_dropout, activation_dropout,
+                                                       quant))
         self.layer_norm = layer_norm(dim)
 
     def null_context(self) -> torch.Tensor:
@@ -139,12 +152,14 @@ class NATUnitDecoder(nn.Module):
 
 @contextlib.contextmanager
 def _eval_mode(module: nn.Module):
-    """`module` in eval mode (no dropout) for the duration, then back."""
+    """`module` in eval mode (no dropout) for the duration, then back in the
+    mode it was in."""
+    was_training = module.training
     module.eval()
     try:
         yield module
     finally:
-        module.train()
+        module.train(was_training)
 
 
 class NARS2UTModule(nn.Module):
@@ -161,7 +176,7 @@ class NARS2UTModule(nn.Module):
                  conv_kernel_sizes: Sequence[int] = (5, 5), dropout: float = 0.1,
                  attention_dropout: Optional[float] = None,
                  activation_dropout: Optional[float] = None, cg_prob: float = 0.0,
-                 use_sp: bool = False):
+                 use_sp: bool = False, quant_int8: bool = False):
         super().__init__()
         self.vocab_size, self.cg_prob, self.use_sp = vocab_size, cg_prob, use_sp
         self.cg_generator: Optional[torch.Generator] = None
@@ -172,11 +187,11 @@ class NARS2UTModule(nn.Module):
                                         encoder_layers, encoder_heads,
                                         depthwise_kernel_size, conv_channels,
                                         conv_kernel_sizes, dropout, attention_dropout,
-                                        activation_dropout)
+                                        activation_dropout, quant_int8)
         self.decoder = NATUnitDecoder(vocab_size, decoder_dim, decoder_ffn_dim,
                                       decoder_layers, decoder_heads, dropout=dropout,
                                       attention_dropout=attention_dropout,
-                                      activation_dropout=activation_dropout)
+                                      activation_dropout=activation_dropout, quant=quant_int8)
 
     def encode(self, src: torch.Tensor, src_lengths: torch.Tensor):
         return self.encoder(src, src_lengths)
@@ -243,6 +258,27 @@ class NARS2UTModule(nn.Module):
         return {"logits": self.decoder(prev_tokens, enc, enc_mask),
                 "word_ins_mask": prev_tokens == UNK, "length_logits": length_logits,
                 "length_tgt": length_tgt}
+
+
+@torch.no_grad()
+def calibrate_act_scales(model: NARS2UTModule, src: torch.Tensor, src_lengths: torch.Tensor,
+                         target: Optional[torch.Tensor] = None) -> int:
+    """Record every int8 site's activation amax over one eval-mode forward
+    (JAX's `calibrate_apply` around `NARS2UTModule.__call__`, as
+    cli/generate.py:_calibrate_static runs it on the first batch): the
+    encoder over `src`, then the decoder over the canvas the decode loop
+    fills, UNK where `target` [B, L] is not PAD (an all-UNK canvas of 32
+    without a target). The sites keep their mode: turn static scales on with
+    `ops.quant.set_static_scales`. Returns the number of sites that hold an
+    amax (0 for a model without int8)."""
+    if target is not None:
+        canvas = torch.where(target != PAD, UNK, PAD)
+    else:
+        canvas = torch.full((src.shape[0], 32), UNK, dtype=torch.int64, device=src.device)
+    with calibrating(model), _eval_mode(model):
+        enc, enc_mask = model.encode(src, src_lengths)
+        model.decode(canvas, enc, enc_mask)
+    return sum(site.act_amax is not None for _, site in quant_sites(model))
 
 
 def _default(cfg: dict, key: str, value) -> None:

@@ -7,7 +7,10 @@ diffnorm_tpu/train/checkpoint.py, in a format of the port's own.
                                 "params", and "batch_stats" where the model
                                 has BatchNorm statistics): the normalizer's is
                                 what cli.diff_norm_synthesis --params-npz reads,
-                                the NAR model's what cli.s2st --params-npz does
+                                the NAR model's what cli.s2st --params-npz does;
+                                or a tree of the caller's (the GAN fine-tune's
+                                {"g_params", "d_params"}, which
+                                cli.generate_waveform --vocoder reads)
     step_000000100/trainer.pt   the optimizer moments, the update count and
                                 the generator (Trainer.state_dict)
     step_000000100.json         step, metric, epoch, iterator position
@@ -22,7 +25,7 @@ from __future__ import annotations
 import json
 import os
 import shutil
-from typing import Any, Dict, Optional, Tuple
+from typing import Any, Dict, Mapping, Optional, Tuple, Union
 
 import torch
 
@@ -58,13 +61,16 @@ class CheckpointManager:
     def path(self, step: int) -> str:
         return os.path.join(self.save_dir, f"step_{step:09d}")
 
-    def save(self, step: int, model: torch.nn.Module, trainer_state: Dict,
+    def save(self, step: int, model: Union[torch.nn.Module, Mapping], trainer_state: Dict,
              metric_value: Optional[float] = None, extra: Optional[Dict[str, Any]] = None) -> str:
+        """Write step `step`: `model`'s variables tree (or `model` itself
+        where it is a tree already) and `trainer_state`."""
         path = self.path(step)
         tmp = path + ".tmp"
         shutil.rmtree(tmp, ignore_errors=True)
         os.makedirs(tmp)
-        save_npz(os.path.join(tmp, PARAMS), to_jax_variables(model))
+        tree = to_jax_variables(model) if isinstance(model, torch.nn.Module) else model
+        save_npz(os.path.join(tmp, PARAMS), tree)
         torch.save(trainer_state, os.path.join(tmp, TRAINER))
         shutil.rmtree(path, ignore_errors=True)
         os.replace(tmp, path)

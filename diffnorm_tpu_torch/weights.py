@@ -13,7 +13,8 @@ A Dense kernel [in, out] is the transpose of a Linear weight; a conv kernel
 [k, in, out] becomes torch's [out, in, k] (a grouped one [k, in / groups,
 out] torch's [out, in / groups, k]), and a
 `ConvTranspose(transpose_kernel=True)` kernel [k, out, in] torch
-ConvTranspose1d's [in, out, k], both by `permute(2, 1, 0)` with no flip.
+ConvTranspose1d's [in, out, k], both by `permute(2, 1, 0)` with no flip; a
+2-D conv kernel [kh, kw, in, out] becomes torch's [out, in, kh, kw].
 Names are checked both ways, buffers included, so a missing or extra key
 raises; `quant_stats` is optional and names int8 sites only.
 
@@ -35,6 +36,13 @@ from diffnorm_tpu_torch.ops.quant import quant_sites
 Path = Tuple[str, ...]
 
 _TO_WEIGHT = ("kernel", "scale", "embedding")
+# flax kernel <-> torch weight by rank: Dense [in, out] <-> [out, in]; a 1-D
+# conv [k, in, out] <-> [out, in, k]; a 2-D conv [kh, kw, in, out] <->
+# [out, in, kh, kw]
+_KERNEL_TO_TORCH = {2: lambda t: t.T, 3: lambda t: t.permute(2, 1, 0),
+                    4: lambda t: t.permute(3, 2, 0, 1)}
+_KERNEL_TO_JAX = {2: lambda t: t.T, 3: lambda t: t.permute(2, 1, 0),
+                  4: lambda t: t.permute(2, 3, 1, 0)}
 _STATS = {"mean": "running_mean", "var": "running_var"}
 
 
@@ -118,7 +126,7 @@ def from_jax_variables(model: nn.Module, variables: Mapping) -> nn.Module:
         for name, (path, value) in flat.items():
             t = torch.from_numpy(np.array(value, dtype=np.float32))
             if path[-1] == "kernel":
-                t = t.T if t.dim() == 2 else t.permute(2, 1, 0)
+                t = _KERNEL_TO_TORCH[t.dim()](t)
             p = named[name]
             if tuple(t.shape) != tuple(p.shape):
                 raise ValueError(f"{name}: JAX shape {tuple(t.shape)} does not "
@@ -156,7 +164,7 @@ def to_jax_variables(model: nn.Module) -> dict:
         if path[-1] == "weight":
             leaf = _jax_leaf(owner)
             if leaf == "kernel":
-                t = t.T if t.dim() == 2 else t.permute(2, 1, 0)
+                t = _KERNEL_TO_JAX[t.dim()](t)
             path = path[:-1] + (leaf,)
         params[path] = t.contiguous().numpy()
     out = {"params": _unflatten(params)}

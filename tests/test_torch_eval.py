@@ -255,7 +255,8 @@ def test_cli_generate_refuses_unported_flags_and_missing_ids(generate_corpus, tm
     from diffnorm_tpu_torch.cli import generate
 
     base = [str(generate_corpus), "--cpu", "--path", str(generate_corpus / "nar.npz")]
-    for extra, match in ((["--quant-int8"], "item 2"), (["--retain-iter-history"], "item 4"),
+    for extra, match in ((["--rerank-path", "ar.npz"], "item 4"),
+                         (["--retain-iter-history"], "item 4"),
                          (["--post-process", "sentencepiece"], "item 4"),
                          (["--task", "speech_to_speech"], "item 7"),
                          (["--arch", "s2ut_conformer"], "item 7")):

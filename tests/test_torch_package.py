@@ -66,6 +66,7 @@ def test_port_imports_with_jax_blocked():
             "import diffnorm_tpu_torch.cli.get_manifest\n"
             "import diffnorm_tpu_torch.cli.generate\n"
             "import diffnorm_tpu_torch.cli.generate_waveform\n"
+            "import diffnorm_tpu_torch.cli.train_vocoder\n"
             "import diffnorm_tpu_torch.eval.unit_bleu\n"
             "import diffnorm_tpu_torch.eval.asr_bleu\n"
             "import diffnorm_tpu_torch.eval.mcd\n"
@@ -123,6 +124,15 @@ def test_entry_points_refuse_the_cpu_unless_asked(tmp_path):
     with pytest.raises(RuntimeError, match="CUDA"):
         asr_bleu.main(["--audio-dir", str(tmp_path), "--reference-path",
                        str(tmp_path / "refs.txt"), "--asr-model", str(tmp_path)])
+
+    from diffnorm_tpu_torch.cli import train, train_vocoder
+
+    vocoder = ["--units-file", "absent.units", "--audio-dir", str(tmp_path), "--vocoder-cfg",
+               "absent.json"]
+    with pytest.raises(RuntimeError, match="CUDA"):
+        train_vocoder.main(vocoder)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        train.main(["--task", "unit_to_speech", *vocoder])
 
     from diffnorm_tpu_torch.cli import prepare
 
