@@ -150,9 +150,28 @@ tf32 passes); and at D 80 and 128 with ragged keys and a fully masked row.
    on 24 WAVs of 3-7 s (10 updates, a save at 10, resumed to 20) and
    cli.generate_waveform --dur-prediction from the step-20 directory on
    phase 15's hyp.unit, each wall.
+18. checkpoints in: seeded fairseq state dicts at the released widths in
+   fairseq's released envelope (cfg, model, optimizer history, extra state,
+   the last optimizer state), written as .pt: the diff_discrete normalizer
+   of phase 3 (denoiser and frozen VAE), the nar_s2ut_conformer of phase 5,
+   full-width MPD and MSD; cli.convert_checkpoint on each (its balanced key
+   inventory, the .pt size and the wall). cli.diff_norm_synthesis --ckpt on
+   the converted normalizer over 64 utterances x 128 frames of 768-d
+   features: its manifest equal line for line to an in-process ddim_sample
+   of the same .pt (convert_diffusion_state + from_jax_variables, the CLI's
+   draw_noise), its rms_norm_film and wavenet_chain launches, recon against
+   the plain versions (PATH_ROW_COS). cli.generate --path on the converted
+   NAR over phase 15's corpus: H- units equal an in-process decode, its
+   flash_attention launches; cli.validate --path against an in-process
+   criterion forward (VALID_REL). cli.average_checkpoints over it and a
+   second seeded NAR (every leaf the mean within 1e-6), then cli.train
+   --restore-file <average> --reset-optimizer for 2 updates on phase 11's
+   corpus: its first loss against an in-process update from the mean
+   (WARM_LOSS_REL). Each command's wall.
 The kernels JSON line reports the float32 kernel as flash_attention_f32
 (its launches those of phase 13) beside the bf16 one (phase 6's, phase
-16's long form and the four cli.generate runs of phase 15).
+16's long form, the four cli.generate runs of phase 15 and phase 18's);
+rms_norm_film and wavenet_chain count phase 3's run and phase 18's CLI run.
 
 Then one JSON line of per-kernel numbers and, last, {"ok": true, "device": ...}.
 Exits non-zero without CUDA, and in a directory without the port.
@@ -323,9 +342,288 @@ ASR_VOCAB = ["<pad>", "<s>", "</s>", "<unk>", "|", "E", "T", "A", "O", "N", "I",
 # parameters barely move the loss
 GAN_B, GAN_CROP, GAN_WARMUP, GAN_TIMED, GAN_CHECK_B, GAN_CLI_UTTS = 32, 28, 2, 10, 2, 24
 GAN_LOSS_D_REL, GAN_G_REL = 1e-4, 1e-3
+# checkpoints in (phase 18): the builders' seeds and widths (empty: the
+# released shapes of phases 3 and 5; the discriminators at full width). The
+# CLI's validation against the in-process criterion: the same float32
+# forward of the same weights on the same card and draws, only the weights'
+# path differs (the step directory against the in-process conversion). The
+# warm start's first loss against an in-process update from the averaged
+# weights: the same bf16 forward on the same batch and dropout draws
+CKPT_SEED, CKPT_DIFFUSION, CKPT_DISC_WIDTH = 180, {}, 1.0
+VALID_REL, WARM_LOSS_REL = 1e-5, 1e-5
 # the ASR on the card (float32, TF32 off) against the port's CPU float32
 # forward on the same wavs: float32 sums in other orders over 24 layers
 ASR_CHECK_WAVS, ASR_ROW_COS, ASR_ARGMAX_AGREE = 4, 0.9999, 0.99
+
+
+# ---- seeded fairseq-layout state dicts (phase 18; tests/test_torch_convert.py)
+# The key layout is the one the converters read (diffnorm_tpu_torch/utils/
+# convert_weights.py, after diffnorm_tpu/utils/convert_weights.py): weights
+# N(0, 1 / fan_in), biases N(0, 0.1^2), norm scales 1 + N(0, 0.1^2), with
+# the buffers fairseq's save path emits.
+
+
+class SeededStateDict(dict):
+    """A state dict of seeded float32 CPU tensors, drawn in insertion order."""
+
+    def __init__(self, torch, seed: int):
+        import numpy as np
+
+        super().__init__()
+        self.torch, self.rng = torch, np.random.default_rng(seed)
+
+    def put(self, key: str, array) -> None:
+        import numpy as np
+
+        self[key] = self.torch.from_numpy(np.ascontiguousarray(array, dtype=np.float32))
+
+    def normal(self, key: str, shape, scale: float, shift: float = 0.0) -> None:
+        self.put(key, self.rng.standard_normal(tuple(shape), dtype="float32") * scale + shift)
+
+    def weight(self, key: str, *shape) -> None:
+        self.normal(key, shape, math.prod(shape[1:]) ** -0.5)
+
+    def linear(self, prefix: str, out: int, inp: int, bias: bool = True) -> None:
+        self.weight(f"{prefix}.weight", out, inp)
+        if bias:
+            self.normal(f"{prefix}.bias", (out,), 0.1)
+
+    def conv(self, prefix: str, out: int, inp: int, k: int, bias: bool = True) -> None:
+        self.weight(f"{prefix}.weight", out, inp, k)
+        if bias:
+            self.normal(f"{prefix}.bias", (out,), 0.1)
+
+    def norm(self, prefix: str, dim: int) -> None:
+        self.normal(f"{prefix}.weight", (dim,), 0.1, 1.0)
+        self.normal(f"{prefix}.bias", (dim,), 0.1)
+
+
+def _fairseq_wavenet(sd: SeededStateDict, prefix: str, c_in: int, c: int, stacks: int,
+                     layers: int, cond_dim=None) -> None:
+    """Wavenet / WavenetEncoder (latent_module.py:585-617, 1003-1032): the
+    skip convs on the last stack, FiLM time projections where conditioned."""
+    sd.conv(f"{prefix}.init_conv", c, c_in, 3)
+    for s in range(stacks):
+        for j in range(layers):
+            b = f"{prefix}.stacks.{s}.blocks.{j}"
+            if cond_dim:
+                sd.linear(f"{b}.to_time_cond", 2 * c, cond_dim)
+            sd.conv(f"{b}.conv", c, c, 3)
+            sd.conv(f"{b}.res_conv", c, c, 1)
+            if s == stacks - 1:
+                sd.conv(f"{b}.skip_conv", c, c, 1)
+    sd.conv(f"{prefix}.final_conv", c, c, 1)
+
+
+def _fairseq_transformer(sd: SeededStateDict, prefix: str, dim: int, depth: int,
+                         dim_head: int, heads: int, cond_dim=None) -> None:
+    """ConditionableTransformer (latent_module.py:642-706) with the causal-conv
+    GEGLU FF: per layer [norm, attention, None, None, norm, FF]."""
+    inner, ff = heads * dim_head, int(dim * 4 * 2 / 3)
+    for i in range(depth):
+        lp = f"{prefix}.layers.{i}"
+        for n in (0, 4):
+            if cond_dim:
+                sd.linear(f"{lp}.{n}.to_gamma_beta", 2 * dim, cond_dim)
+            else:
+                sd.normal(f"{lp}.{n}.gamma", (dim,), 0.1, 1.0)
+        sd.linear(f"{lp}.1.to_q", inner, dim, bias=False)
+        sd.linear(f"{lp}.1.to_kv", 2 * inner, dim, bias=False)
+        sd.linear(f"{lp}.1.to_out", dim, inner, bias=False)
+        sd.linear(f"{lp}.5.0", 2 * ff, dim)
+        sd.conv(f"{lp}.5.2.1", ff, ff, 3)
+        sd.linear(f"{lp}.5.3", dim, ff)
+    sd.normal(f"{prefix}.to_pred.0.gamma", (dim,), 0.1, 1.0)
+    sd.linear(f"{prefix}.to_pred.1", dim, dim, bias=False)
+
+
+def _fairseq_vae(sd: SeededStateDict, prefix: str, feature_dim: int = 768,
+                 latent_dim: int = 128, vocab_size: int = 1004, decoder_depth: int = 6,
+                 decoder_dim_head: int = 96, decoder_heads: int = 8, chan_mults=None) -> None:
+    """SpeechVAEEncoderDecoder (latent_module.py:1035-1142) under `prefix`."""
+    mults = list(chan_mults) if chan_mults else {16: [4, 3, 2], 32: [4, 3], 128: [3]}[latent_dim]
+    cur = feature_dim
+    for i, m in enumerate(mults):
+        _fairseq_wavenet(sd, f"{prefix}encoder_wave.{i}", cur, cur // m, 2, 3)
+        cur //= m
+    c_in = latent_dim
+    for i, m in enumerate(reversed(mults)):
+        _fairseq_wavenet(sd, f"{prefix}decoder_wave.{i}", c_in, cur * m, 2, 3)
+        cur = c_in = cur * m
+    _fairseq_transformer(sd, f"{prefix}decoder_tf", feature_dim, decoder_depth,
+                         decoder_dim_head, decoder_heads)
+    sd.linear(f"{prefix}decoder_lm", vocab_size, feature_dim)
+
+
+def fairseq_vae_state(torch, seed: int, **widths) -> SeededStateDict:
+    """A `speech_vae_decoder` model's state dict (the VAE under `encoder.`);
+    `widths` are SpeechVAEModule's (feature_dim for its dim)."""
+    sd = SeededStateDict(torch, seed)
+    _fairseq_vae(sd, "encoder.", **widths)
+    return sd
+
+
+def fairseq_diffusion_state(torch, seed: int, dim: int = 512, latent_dim: int = 128,
+                            feature_dim: int = 768, vocab_size: int = 1004,
+                            denoiser_depth: int = 12, wavenet_layers: int = 8,
+                            wavenet_stacks: int = 4, vae_decoder_depth: int = 6,
+                            vae_decoder_dim_head: int = 96, vae_decoder_heads: int = 8,
+                            chan_mults=None) -> SeededStateDict:
+    """A `diff_discrete` model's state dict (LatentDiscreteModel under
+    `encoder.`: the frozen VAE at `speech_decoder.`, the denoiser `Model`
+    at `model.`, latent_module.py:709-876) at LatentDiffusionModule's
+    widths (the released ones by default)."""
+    sd = SeededStateDict(torch, seed)
+    p, cond = "encoder.model.", 4 * dim
+    sd.normal(f"{p}to_time_cond.0.weights", (dim // 2,), 1.0)
+    sd.linear(f"{p}to_time_cond.1", cond, dim + 1)
+    sd.conv(f"{p}init_conv", dim, latent_dim, 1)
+    _fairseq_wavenet(sd, f"{p}wavenet", dim, dim, wavenet_stacks, wavenet_layers, cond)
+    _fairseq_transformer(sd, f"{p}transformer", dim, denoiser_depth, 64, 8, cond)
+    sd.linear(f"{p}final_proj", latent_dim, dim)
+    _fairseq_vae(sd, "encoder.speech_decoder.", feature_dim, latent_dim, vocab_size,
+                 vae_decoder_depth, vae_decoder_dim_head, vae_decoder_heads, chan_mults)
+    return sd
+
+
+def fairseq_nar_state(torch, seed: int, vocab_size: int = 1004, in_channels: int = 80,
+                      dim: int = 512, ffn_dim: int = 2048, encoder_layers: int = 12,
+                      encoder_heads: int = 8, decoder_layers: int = 6, decoder_heads: int = 8,
+                      depthwise_kernel_size: int = 31, conv_channels: int = 1024,
+                      conv_kernel_sizes=(5, 5), max_lengths: int = 256) -> SeededStateDict:
+    """A `nar_s2ut_conformer` model's state dict (S2SConformerEncoder +
+    TransformerUnitDecoder, research/TranSpeech nar_conformer.py and
+    nar_transformer.py) with the shared output projection
+    (--share-decoder-input-output-embed), BatchNorm running statistics and
+    the version and sinusoidal buffers, at NARS2UTModule's widths."""
+    sd = SeededStateDict(torch, seed)
+    n = len(conv_kernel_sizes)
+    for i, k in enumerate(conv_kernel_sizes):
+        sd.conv(f"encoder.subsample.conv_layers.{i}",
+                conv_channels if i < n - 1 else 2 * dim,
+                in_channels if i == 0 else conv_channels // 2, k)
+    sd.linear("encoder.linear", dim, dim)
+    for i in range(encoder_layers):
+        p = f"encoder.conformer_layers.{i}"
+        for ffn in ("ffn1", "ffn2"):
+            sd.norm(f"{p}.{ffn}.layer_norm", dim)
+            sd.linear(f"{p}.{ffn}.w_1", ffn_dim, dim)
+            sd.linear(f"{p}.{ffn}.w_2", dim, ffn_dim)
+        sd.norm(f"{p}.self_attn_layer_norm", dim)
+        for q in ("linear_q", "linear_k", "linear_v", "linear_out"):
+            sd.linear(f"{p}.self_attn.{q}", dim, dim)
+        sd.linear(f"{p}.self_attn.linear_pos", dim, dim, bias=False)
+        for u in ("pos_bias_u", "pos_bias_v"):
+            sd.normal(f"{p}.self_attn.{u}", (encoder_heads, dim // encoder_heads), 0.1)
+        c = f"{p}.conv_module"
+        sd.norm(f"{c}.layer_norm", dim)
+        sd.conv(f"{c}.pointwise_conv1", 2 * dim, dim, 1, bias=False)
+        sd.conv(f"{c}.depthwise_conv", dim, 1, depthwise_kernel_size, bias=False)
+        sd.norm(f"{c}.batch_norm", dim)
+        sd.normal(f"{c}.batch_norm.running_mean", (dim,), 0.1)
+        sd.put(f"{c}.batch_norm.running_var", 1.0 + abs(sd.rng.standard_normal(dim) * 0.2))
+        sd[f"{c}.batch_norm.num_batches_tracked"] = torch.tensor(1000)
+        sd.conv(f"{c}.pointwise_conv2", dim, dim, 1, bias=False)
+        sd.norm(f"{p}.final_layer_norm", dim)
+    sd.normal("decoder.embed_tokens.weight", (vocab_size, dim), dim ** -0.5)
+    sd.normal("decoder.embed_length.weight", (max_lengths, dim), dim ** -0.5)
+    sd["decoder.embed_positions._float_tensor"] = torch.zeros(1)
+    for i in range(decoder_layers):
+        p = f"decoder.layers.{i}"
+        for attn in ("self_attn", "encoder_attn"):
+            for q in ("q_proj", "k_proj", "v_proj", "out_proj"):
+                sd.linear(f"{p}.{attn}.{q}", dim, dim)
+            sd.norm(f"{p}.{attn}_layer_norm", dim)
+        sd.linear(f"{p}.fc1", ffn_dim, dim)
+        sd.linear(f"{p}.fc2", dim, ffn_dim)
+        sd.norm(f"{p}.final_layer_norm", dim)
+    sd.norm("decoder.layer_norm", dim)
+    sd["decoder.output_projection.weight"] = sd["decoder.embed_tokens.weight"]
+    sd["decoder.version"] = torch.tensor([3.0])
+    return sd
+
+
+def _weight_norm(sd: SeededStateDict, prefix: str, shape) -> None:
+    """torch weight_norm (dim 0): weight_g [out, 1, ...] and weight_v."""
+    sd.weight(f"{prefix}.weight_v", *shape)
+    sd.normal(f"{prefix}.weight_g", (shape[0],) + (1,) * (len(shape) - 1), 0.1, 1.0)
+
+
+def _spectral_norm(sd: SeededStateDict, prefix: str, shape) -> None:
+    """torch spectral_norm: weight_orig and the unit power-iteration vectors
+    weight_u [out] and weight_v [in * k]."""
+    import numpy as np
+
+    sd.weight(f"{prefix}.weight_orig", *shape)
+    for key, n in (("weight_u", shape[0]), ("weight_v", math.prod(shape[1:]))):
+        v = sd.rng.standard_normal(n)
+        sd.put(f"{prefix}.{key}", v / np.linalg.norm(v))
+
+
+def fairseq_discriminator_states(torch, seed: int, width: float = 1.0,
+                                 periods=(2, 3, 5, 7, 11), scales: int = 3):
+    """(mpd, msd) state dicts of TranSpeech hifigan's MultiPeriod and
+    MultiScale discriminators (research/TranSpeech/hifigan/models.py:128-249)
+    at models/hifigan_disc.py's `width`: weight-normed convs, the first
+    scale spectral-normed."""
+    from diffnorm_tpu_torch.models.hifigan_disc import PERIOD_CHANNELS, scale_specs
+
+    mpd = SeededStateDict(torch, seed)
+    chans = [max(4, int(c * width)) for c in PERIOD_CHANNELS]
+    for i, _ in enumerate(periods):
+        c_in = 1
+        for j, ch in enumerate(chans + [chans[-1]]):
+            _weight_norm(mpd, f"discriminators.{i}.convs.{j}", (ch, c_in, 5, 1))
+            mpd.normal(f"discriminators.{i}.convs.{j}.bias", (ch,), 0.1)
+            c_in = ch
+        _weight_norm(mpd, f"discriminators.{i}.conv_post", (1, c_in, 3, 1))
+        mpd.normal(f"discriminators.{i}.conv_post.bias", (1,), 0.1)
+    msd = SeededStateDict(torch, seed + 1)
+    for s in range(scales):
+        norm = _spectral_norm if s == 0 else _weight_norm
+        c_in = 1
+        for j, (ch, k, _, g) in enumerate(scale_specs(width)):
+            norm(msd, f"discriminators.{s}.convs.{j}", (ch, c_in // g, k))
+            msd.normal(f"discriminators.{s}.convs.{j}.bias", (ch,), 0.1)
+            c_in = ch
+        norm(msd, f"discriminators.{s}.conv_post", (1, c_in, 3))
+        msd.normal(f"discriminators.{s}.conv_post.bias", (1,), 0.1)
+    return mpd, msd
+
+
+def fairseq_envelope(torch, sd, criterion: str = "label_smoothed_cross_entropy") -> dict:
+    """The released-checkpoint wrapper of fairseq's save path
+    (checkpoint_utils.py:35-186, as tests/test_convert_released_inventory.py
+    writes it): cfg, the model state, optimizer history, extra_state and the
+    last optimizer state with Adam moments for every float tensor."""
+    flat = list(sd.items())
+    last_opt = {
+        "state": {i: {"step": torch.tensor(100), "exp_avg": torch.zeros_like(v.float()),
+                      "exp_avg_sq": torch.zeros_like(v.float())}
+                  for i, (_, v) in enumerate(flat) if v.dtype.is_floating_point},
+        "param_groups": [{"lr": 5e-4, "betas": (0.9, 0.98), "eps": 1e-8, "weight_decay": 0.0,
+                          "params": list(range(len(flat)))}],
+    }
+    return {"args": None,
+            "cfg": {"model": {"_name": "x"}, "task": {"_name": "y"},
+                    "criterion": {"_name": criterion}},
+            "model": dict(sd), "criterion": None,
+            "optimizer_history": [{"criterion_name": criterion,
+                                   "optimizer_name": "FairseqAdam",
+                                   "lr_scheduler_state": {"best": None},
+                                   "num_updates": 100}],
+            "task_state": {},
+            "extra_state": {"metrics": {}, "previous_training_time": 1.0,
+                            "train_iterator": {"epoch": 3}, "val_loss": 2.5},
+            "last_optimizer_state": last_opt}
+
+
+def discriminator_envelope(torch, mpd, msd) -> dict:
+    """A hifigan fine-tune's `do_*` checkpoint: both discriminators, their
+    optimizer state, steps and epoch."""
+    return {"mpd": dict(mpd), "msd": dict(msd),
+            "optim_d": {"state": {}, "param_groups": [{"lr": 2e-4, "betas": (0.8, 0.99)}]},
+            "steps": 500000, "epoch": 100}
 
 
 class LogLines(logging.Handler):
@@ -2581,6 +2879,315 @@ def run_train_vocoder_cli(torch, hyp_units: str, smi):
     print(f"phase entry point vocoder train: {time.perf_counter() - t0:.1f} s")
 
 
+def write_synthesis_corpus(root: Path, n: int, frames: int, feature_dim: int,
+                           seed: int = 18) -> Path:
+    """test.tsv over `n` utterances of `frames` units, no unit equal to the
+    one before it (so each reduces to itself and batches at `frames`), and
+    their feature dumps under feat/; returns the feature directory."""
+    import numpy as np
+
+    from diffnorm_tpu_torch.data.manifest import write_translation_manifest
+
+    rng = np.random.default_rng(seed)
+    feat_dir = root / "feat"
+    feat_dir.mkdir(parents=True)
+    rows, lines = [], [str(feat_dir)]
+    for i in range(n):
+        units = np.cumsum(rng.integers(1, 1000, size=frames)) % 1000
+        np.save(feat_dir / f"utt{i}.feat.npy",
+                rng.normal(size=(frames, feature_dim)).astype(np.float32))
+        lines.append(f"utt{i}.feat.npy\t{frames}")
+        rows.append({"id": f"utt{i}", "src_audio": f"utt{i}.wav", "src_n_frames": frames,
+                     "tgt_audio": " ".join(map(str, units)), "tgt_n_frames": frames})
+    (feat_dir / "test.manifest.tsv").write_text("\n".join(lines) + "\n")
+    write_translation_manifest(str(root / "test.tsv"), rows)
+    return feat_dir
+
+
+def synthesis_flags(widths: dict) -> list:
+    """cli.diff_norm_synthesis's width flags for LatentDiffusionModule's
+    `widths` (none for the released shape)."""
+    flags = []
+    for key, value in widths.items():
+        name = "hidden-dim" if key == "dim" else key.replace("_", "-")
+        flags += [f"--{name}", json.dumps(value) if isinstance(value, list) else str(value)]
+    return flags
+
+
+def nar_state_for(torch, args, seed: int):
+    """fairseq_nar_state at the widths of cli.train-style `args`."""
+    return fairseq_nar_state(
+        torch, seed, vocab_size=args.target_code_size + 4, dim=args.encoder_embed_dim,
+        ffn_dim=args.encoder_ffn_embed_dim, encoder_layers=args.encoder_layers,
+        encoder_heads=args.encoder_attention_heads, decoder_layers=args.decoder_layers,
+        decoder_heads=args.decoder_attention_heads,
+        depthwise_kernel_size=args.depthwise_conv_kernel_size,
+        conv_channels=args.conv_channels, conv_kernel_sizes=args.conv_kernel_sizes)
+
+
+@contextlib.contextmanager
+def first_update(trainer_cls):
+    """Record the batches and the metrics of each trainer's first
+    train_step: yields the list of (batches, metrics)."""
+    seen, step = [], trainer_cls.train_step
+
+    def train_step(self, batches):
+        mets = step(self, batches)
+        if not getattr(self, "_first_seen", False):
+            self._first_seen = True
+            seen.append((batches, mets))
+        return mets
+
+    trainer_cls.train_step = train_step
+    try:
+        yield seen
+    finally:
+        trainer_cls.train_step = step
+
+
+def run_checkpoints_in(torch, mods, smi):
+    """Phase 18: seeded fairseq checkpoints at the released widths (the
+    diff_discrete normalizer of phase 3, the nar_s2ut_conformer of phase 5,
+    full-width MPD and MSD) in the released envelope, through
+    cli.convert_checkpoint; cli.diff_norm_synthesis --ckpt against an
+    in-process ddim_sample of the same .pt and the plain versions;
+    cli.generate --path against an in-process decode; cli.validate against
+    an in-process criterion forward; cli.average_checkpoints; cli.train
+    --restore-file --reset-optimizer against an in-process first update.
+    Returns the launches of the synthesis and generate runs."""
+    import copy
+
+    import numpy as np
+
+    from diffnorm_tpu_torch.cli import average_checkpoints, convert_checkpoint, diff_norm_synthesis
+    from diffnorm_tpu_torch.cli import generate, validate
+    from diffnorm_tpu_torch.cli import train as train_cli
+    from diffnorm_tpu_torch.data.iterators import iterate_valid
+    from diffnorm_tpu_torch.models.diffusion import LatentDiffusionModule, ddim_sample
+    from diffnorm_tpu_torch.ops import _build
+    from diffnorm_tpu_torch.ops.unit_reduce import reduce_units
+    from diffnorm_tpu_torch.tasks import TASKS
+    from diffnorm_tpu_torch.train.checkpoint import load_variables
+    from diffnorm_tpu_torch.train.trainer import BATCH_KEYS, Trainer, TrainerConfig, summarize
+    from diffnorm_tpu_torch.utils import convert_weights as cw
+    from diffnorm_tpu_torch.weights import (
+        flatten_tree,
+        from_jax_variables,
+        save_npz,
+        unflatten_tree,
+    )
+
+    t0 = time.perf_counter()
+    walls, launches = {}, {}
+    conv_log = LogLines()
+    logging.getLogger("diffnorm_tpu_torch.convert_checkpoint").addHandler(conv_log)
+
+    def timed(what, fn):
+        torch.cuda.synchronize()
+        _build.launch_counts.clear()
+        t1 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        walls[what] = time.perf_counter() - t1
+        launches[what] = dict(_build.launch_counts)
+        return out
+
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = Path(tmp)
+        eval_root = tmp / "eval"
+        eval_root.mkdir()
+        write_eval_corpus(eval_root)
+        nar_flags = ["--task", "speech_to_speech_fasttranslate", "--target-code-size", "1000",
+                     "--arch", "nar_s2ut_conformer", "--path", str(tmp / "nar"),
+                     *EVAL_WIDTH_FLAGS]
+        vargs = validate.parse_args([str(eval_root), *nar_flags, "--valid-subset", "test",
+                                     "--max-tokens", str(EVAL_MAX_TOKENS)])
+        # 1.-2. the released envelopes as .pt files, then cli.convert_checkpoint
+        states = {"diffusion": fairseq_diffusion_state(torch, CKPT_SEED, **CKPT_DIFFUSION),
+                  "nar": nar_state_for(torch, vargs, CKPT_SEED + 1)}
+        envelopes = {
+            "diffusion": fairseq_envelope(torch, states["diffusion"], "ddpm_discrete_loss"),
+            "nar": fairseq_envelope(torch, states["nar"]),
+            "gan_discriminators": discriminator_envelope(
+                torch, *fairseq_discriminator_states(torch, CKPT_SEED + 2, CKPT_DISC_WIDTH))}
+        sizes = {}
+        for family, env in envelopes.items():
+            path = tmp / f"{family}.pt"
+            torch.save(env, path)
+            sizes[family] = path.stat().st_size
+            conv_log.lines.clear()
+            rc = timed(f"convert {family}", lambda: convert_checkpoint.main([
+                "--type", family, "--input", str(path), "--output", str(tmp / family)]))
+            balanced = [m for m in conv_log.lines if "key inventory balanced" in m]
+            if rc != 0 or not balanced:
+                fail(f"checkpoints in: cli.convert_checkpoint --type {family}: rc {rc}, log "
+                     f"{conv_log.lines}")
+            print(f"checkpoints in: {family}.pt {sizes[family] / 1e6:.1f} MB (the released "
+                  f"envelope), cli.convert_checkpoint {walls[f'convert {family}']:.2f} s: "
+                  f"{balanced[0]}")
+        del envelopes
+        logging.getLogger("diffnorm_tpu_torch.convert_checkpoint").removeHandler(conv_log)
+
+        # 3. DDIM normalization from the converted normalizer
+        with torch.device("cuda"):
+            model = LatentDiffusionModule(**CKPT_DIFFUSION)
+        feature_dim, latent_dim = model.vae.decoder_tf.dim, model.denoiser.final_proj.out_features
+        root = tmp / "synth"
+        feat_dir = write_synthesis_corpus(root, B, T, feature_dim)
+        out = tmp / "normalized"
+        rc = timed("cli.diff_norm_synthesis --ckpt", lambda: diff_norm_synthesis.main([
+            str(root), "--ckpt", str(tmp / "diffusion"), "--tgt-feat-dir", str(feat_dir),
+            "--output-dir", str(out), "--splits", "test", "--start-step", str(START_STEP),
+            "--batch-size", str(B), "--seed", "1", *synthesis_flags(CKPT_DIFFUSION)]))
+        got = ([line.split("\t") for line in (out / "test.tsv").read_text().splitlines()[1:]]
+               if rc == 0 else [])
+        syn_launches = launches["cli.diff_norm_synthesis --ckpt"]
+        steps = START_STEP - 1
+        # two FiLM norms a transformer layer, one chain launch a WaveNet layer
+        # (through every stack), each DDIM step
+        norms = 2 * model.denoiser.transformer.depth * steps
+        chains = model.denoiser.wavenet.layers * steps
+        if len(got) != B or syn_launches.get("rms_norm_film", 0) < norms \
+                or syn_launches.get("wavenet_chain", 0) < chains:
+            fail(f"checkpoints in: cli.diff_norm_synthesis --ckpt: rc {rc}, {len(got)} rows, "
+                 f"launches {syn_launches}")
+        from_jax_variables(model, {"params": cw.convert_diffusion_state(states["diffusion"])})
+        model = model.to(torch.bfloat16).eval()
+        feature = torch.from_numpy(np.stack([np.load(feat_dir / f"utt{i}.feat.npy")
+                                             for i in range(B)])).cuda()
+        mask = torch.ones(B, T, dtype=torch.bool, device="cuda")
+        enc, init = diff_norm_synthesis.draw_noise(
+            torch.Generator(device="cuda").manual_seed(1), (B, T, latent_dim),
+            torch.device("cuda"))
+        units, recon = ddim_sample(model, feature, mask, start_step=START_STEP, stride=1,
+                                   enc_noise=enc, init_noise=init, device="cuda")
+        want = [" ".join(str(int(u)) for u in reduce_units(row)[0])
+                for row in units.cpu().numpy()]
+        bad = [i for i, (row, w) in enumerate(zip(got, want))
+               if row[0] != f"utt{i}" or row[3] != w]
+        if bad:
+            fail(f"checkpoints in: cli.diff_norm_synthesis --ckpt's manifest differs from an "
+                 f"in-process ddim_sample of the same .pt on rows {bad[:10]}")
+        with plain_versions(*mods):
+            _, recon_ref = ddim_sample(model, feature, mask, start_step=START_STEP, stride=1,
+                                       enc_noise=enc, init_noise=init, device="cuda")
+        cos = torch.nn.functional.cosine_similarity(
+            recon.float().reshape(-1, feature_dim), recon_ref.float().reshape(-1, feature_dim),
+            dim=-1)
+        if not torch.isfinite(recon).all() or cos.min().item() <= PATH_ROW_COS:
+            fail(f"checkpoints in: converted normalizer's recon row-cos {cos.min().item():.5f} "
+                 f"against the plain versions")
+        print(f"checkpoints in: cli.diff_norm_synthesis --ckpt <converted normalizer> "
+              f"B{B}xT{T}, {steps} DDIM steps, bf16: "
+              f"{walls['cli.diff_norm_synthesis --ckpt']:.2f} s with the load, manifest equal "
+              f"line for line to an in-process ddim_sample of the .pt, launches {syn_launches}; "
+              f"recon row-cos against the plain versions min {cos.min().item():.5f}; {smi}")
+        del model, feature, recon, recon_ref, units
+
+        # 4. decode and validation from the converted NAR (phase 15's corpus)
+        res = tmp / "res"
+        rc = timed("cli.generate --path", lambda: generate.main([
+            str(eval_root), *nar_flags, "--gen-subset", "test", "--max-tokens",
+            str(EVAL_MAX_TOKENS), "--iter-decode-max-iter", str(EVAL_MAX_ITER),
+            "--results-path", str(res)]))
+        task = TASKS[vargs.task](vargs)
+        with torch.device("cuda"):
+            nar = task.build_model()
+        from_jax_variables(nar, cw.convert_nar_state(states["nar"]))
+        want = in_process_hyps(torch, copy.deepcopy(nar).to(torch.bfloat16).eval(), eval_root)
+        hyps = read_hyps(res / "generate-test.txt") if rc == 0 else {}
+        gen_flash = launches["cli.generate --path"].get("flash_attention", 0)
+        if want != hyps or gen_flash < nar.decoder.n_layers:
+            bad = [i for i in want if want[i] != hyps.get(i)]
+            fail(f"checkpoints in: cli.generate --path's H- units differ from an in-process "
+                 f"decode for ids {bad} (rc {rc}), flash_attention launches {gen_flash}")
+        vals = timed("cli.validate --path", lambda: validate.validate(vargs))
+        criterion, rng, rows = task.build_criterion(), np.random.default_rng(vargs.seed), []
+        dataset = task.dataset("test")
+        dataset[0]  # the CLI's example draw
+        with torch.no_grad():
+            for batch in iterate_valid(dataset, EVAL_MAX_TOKENS):
+                batch = task.prepare_batch(batch, rng)
+                _, mets = criterion(nar.eval(), {k: torch.as_tensor(batch[k]).cuda()
+                                                 for k in BATCH_KEYS if batch.get(k) is not None})
+                rows.append({k: float(v) for k, v in mets.items()})
+        ref = summarize(rows)
+        rel = max(abs(vals[k] - ref[k]) / max(abs(ref[k]), 1e-6) for k in ref)
+        if set(vals) != set(ref) or rel > VALID_REL:
+            fail(f"checkpoints in: cli.validate {vals} against the in-process criterion {ref}")
+        print(f"checkpoints in: cli.generate --path <converted NAR> "
+              f"{walls['cli.generate --path']:.2f} s, H- units equal an in-process decode of "
+              f"the .pt, flash_attention {gen_flash} launches; cli.validate --path "
+              f"{walls['cli.validate --path']:.2f} s: loss {vals['loss']:.6f} nll_loss "
+              f"{vals['nll_loss']:.6f} (float32), the in-process criterion within {rel:.1e} "
+              f"relative; {smi}")
+        del nar
+
+        # 5. averaging, then a warm start from the average
+        second = cw.convert_nar_state(nar_state_for(torch, vargs, CKPT_SEED + 3))
+        save_npz(str(tmp / "nar2.npz"), second)
+        avg = tmp / "avg"
+        with contextlib.redirect_stdout(io.StringIO()):
+            rc = timed("cli.average_checkpoints", lambda: average_checkpoints.main([
+                "--inputs", str(tmp / "nar"), str(tmp / "nar2.npz"), "--output", str(avg)]))
+        second = flatten_tree(second)
+        mean = {k: ((v.astype(np.float64) + second[k]) / 2).astype(np.float32)
+                for k, v in flatten_tree(load_variables(str(tmp / "nar"))).items()}
+        got = flatten_tree(load_variables(str(avg))) if rc == 0 else {}
+        worst = max((float(np.abs(got[k] - m).max() / max(np.abs(m).max(), 1e-12))
+                     for k, m in mean.items() if k in got), default=1.0)
+        if set(got) != set(mean) or worst > 1e-6:
+            fail(f"checkpoints in: cli.average_checkpoints rc {rc}, worst leaf {worst:.2e}")
+        corpus = tmp / "nar_corpus"
+        corpus.mkdir()
+        write_nar_corpus(corpus)
+        argv = [str(corpus), "--config-yaml", "config.yaml", "--task",
+                "speech_to_speech_fasttranslate", "--target-code-size", "1000", "--criterion",
+                "nar_speech_to_unit", "--label-smoothing", "0.2", "--arch", "nar_s2ut_conformer",
+                "--dropout", "0.1", "--save-dir", str(tmp / "warm"), "--lr", "5e-4",
+                "--warmup-updates", "10000", "--clip-norm", "10.0", "--max-update", "2",
+                "--max-tokens", "8000", "--seed", "42", "--dtype", "bfloat16",
+                "--log-interval", "1", "--restore-file", str(avg), "--reset-optimizer",
+                *EVAL_WIDTH_FLAGS]
+        train_log = LogLines()
+        logging.getLogger("diffnorm_tpu_torch.train").addHandler(train_log)
+        with first_update(Trainer) as seen:
+            rc = timed("cli.train --restore-file --reset-optimizer",
+                       lambda: train_cli.main(argv))
+        logging.getLogger("diffnorm_tpu_torch.train").removeHandler(train_log)
+        if rc != 0 or not seen or not any(f"warm-started params from {avg}" in m
+                                          for m in train_log.lines):
+            fail(f"checkpoints in: cli.train --restore-file: rc {rc}, log {train_log.lines}")
+        args = train_cli.parse_args(argv)
+        task = TASKS[args.task](args)
+        with torch.device("cuda"):
+            nar = task.build_model()
+        from_jax_variables(nar, unflatten_tree(mean))
+        trainer = Trainer(TrainerConfig(
+            lr=args.lr, warmup_updates=args.warmup_updates, warmup_init_lr=args.warmup_init_lr,
+            adam_betas=args.adam_betas, clip_norm=args.clip_norm, dtype=args.dtype,
+            seed=args.seed), nar, task.build_criterion())
+        batches, cli_mets = seen[0]
+        mets = trainer.train_step(batches)
+        rel = abs(mets["loss"] - cli_mets["loss"]) / abs(mets["loss"])
+        if rel > WARM_LOSS_REL:
+            fail(f"checkpoints in: cli.train --restore-file's first loss {cli_mets['loss']} "
+                 f"against {mets['loss']} in process")
+        print(f"checkpoints in: cli.average_checkpoints {walls['cli.average_checkpoints']:.2f} s "
+              f"(worst leaf {worst:.1e} of the mean); cli.train --restore-file <average> "
+              f"--reset-optimizer, 2 updates: "
+              f"{walls['cli.train --restore-file --reset-optimizer']:.2f} s, first loss "
+              f"{cli_mets['loss']:.6f} against {mets['loss']:.6f} in process ({rel:.1e}); {smi}")
+        del nar, trainer
+    print("checkpoints in: walls (s) " + ", ".join(f"{w} {t:.2f}" for w, t in walls.items())
+          + "; .pt sizes (MB) " + ", ".join(f"{k} {v / 1e6:.1f}" for k, v in sizes.items())
+          + f"; {smi}")
+    print(f"phase checkpoints in: {time.perf_counter() - t0:.1f} s")
+    return {"rms_norm_film": syn_launches.get("rms_norm_film", 0),
+            "wavenet_chain": syn_launches.get("wavenet_chain", 0),
+            "flash_attention": gen_flash}
+
+
 def main() -> int:
     try:
         import torch
@@ -2743,6 +3350,11 @@ def main() -> int:
     # 17. recipe stage 6, the code-HiFi-GAN fine-tune, then cli.train_vocoder
     run_train_vocoder(torch, smi)
     run_train_vocoder_cli(torch, hyp_units, smi)
+
+    # 18. checkpoints in: fairseq envelopes -> cli.convert_checkpoint -> the CLIs
+    ckpt_launches = run_checkpoints_in(torch, mods, smi)
+    for name, n in ckpt_launches.items():
+        launches[name] += n
 
     sources = {
         "rms_norm_film": ("rms_norm_film.cu", "diffnorm_tpu/ops/pallas_norm.py:34"),

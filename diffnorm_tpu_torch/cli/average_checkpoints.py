@@ -1,0 +1,57 @@
+"""Average model parameters across checkpoints (port of
+diffnorm_tpu/cli/average_checkpoints.py; reference
+scripts/average_checkpoints.py, used to average the best-k before
+evaluation).
+
+  python -m diffnorm_tpu_torch.cli.average_checkpoints \\
+      --inputs ckpt/nar/step_000390000 ckpt/nar/step_000400000 --output ckpt/nar/avg
+
+`--inputs` are step directories or weights.save_npz files with the same
+tree; `--output` is a step directory whose `params.npz` every CLI that takes
+a step directory reads. Floating leaves are averaged in float64 and cast
+back to their type; other leaves are the first input's, as in JAX.
+"""
+
+from __future__ import annotations
+
+import argparse
+import os
+import sys
+from typing import Dict, Optional, Sequence
+
+import numpy as np
+
+from diffnorm_tpu_torch.train.checkpoint import PARAMS, load_tree
+from diffnorm_tpu_torch.weights import flatten_tree, save_npz, unflatten_tree
+
+
+def average_checkpoints(paths: Sequence[str]) -> Dict:
+    flats = [flatten_tree(load_tree(p)) for p in paths]
+    for path, flat in zip(paths[1:], flats[1:]):
+        if set(flat) != set(flats[0]):
+            raise ValueError(f"{path} does not hold the tree of {paths[0]}: "
+                             f"{sorted(set(flat) ^ set(flats[0]))[:10]}")
+    out = {}
+    for key, first in flats[0].items():
+        if np.issubdtype(first.dtype, np.floating):
+            mean = sum(np.asarray(f[key], np.float64) for f in flats) / len(flats)
+            out[key] = mean.astype(first.dtype)
+        else:
+            out[key] = first
+    return unflatten_tree(out)
+
+
+def main(argv: Optional[Sequence[str]] = None) -> int:
+    p = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    p.add_argument("--inputs", nargs="+", required=True)
+    p.add_argument("--output", required=True)
+    args = p.parse_args(argv)
+    tree = average_checkpoints(args.inputs)
+    os.makedirs(args.output, exist_ok=True)
+    save_npz(os.path.join(args.output, PARAMS), tree)
+    print(f"averaged {len(args.inputs)} checkpoints -> {args.output}")
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -19,9 +19,10 @@ and DIFFNORM_INT8_QUANT_BF16 switches to the int8 module route.
       --params-npz diffusion.npz --tgt-feat-dir feat/ \\
       --output-dir diff_unit_vae_50 --start-step 50 --batch-size 100
 
-`--params-npz` is a JAX params tree, or a variables tree such as a
-`cli.train` checkpoint's `params.npz`, in the flat format of
-`diffnorm_tpu_torch.weights.save_npz`.
+`--params-npz` (or `--ckpt`, the name scripts/unit_gen.sh passes) is a JAX
+params tree, or a variables tree such as a `cli.train` checkpoint's
+`params.npz`, in the flat format of `diffnorm_tpu_torch.weights.save_npz`,
+or a step directory holding one (`cli.train`, `cli.convert_checkpoint`).
 """
 
 from __future__ import annotations
@@ -75,8 +76,10 @@ def draw_noise(generator: torch.Generator, shape: Tuple[int, ...],
 def parse_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
     p = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     p.add_argument("data", help="directory of the {split}.tsv translation manifests")
-    p.add_argument("--params-npz", required=True,
-                   help="diffusion weights (JAX params or variables tree, weights.save_npz)")
+    p.add_argument("--params-npz", "--ckpt", dest="params_npz", required=True,
+                   help="diffusion weights: a weights.save_npz file (JAX params or variables "
+                        "tree) or a step directory (cli.train, cli.convert_checkpoint); "
+                        "--ckpt is scripts/unit_gen.sh's name for it")
     p.add_argument("--tgt-feat-dir", required=True,
                    help="directory of the {split}.manifest.tsv feature manifests")
     p.add_argument("--output-dir", required=True)

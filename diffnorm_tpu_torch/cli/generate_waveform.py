@@ -32,8 +32,8 @@ import torch
 
 from diffnorm_tpu_torch.device import resolve_device
 from diffnorm_tpu_torch.models.hifigan import CodeHiFiGANVocoder
-from diffnorm_tpu_torch.train.checkpoint import PARAMS
-from diffnorm_tpu_torch.weights import as_variables, load_npz
+from diffnorm_tpu_torch.train.checkpoint import load_tree
+from diffnorm_tpu_torch.weights import as_variables
 
 logger = logging.getLogger("diffnorm_tpu_torch.generate_waveform")
 
@@ -82,8 +82,7 @@ def load_vocoder(ckpt_path: str, cfg_path: str, device="cuda",
 
         variables = convert_hifigan_checkpoint(ckpt_path, cfg)
     else:
-        tree = load_npz(os.path.join(ckpt_path, PARAMS) if os.path.isdir(ckpt_path)
-                        else ckpt_path)
+        tree = load_tree(ckpt_path)
         # a GAN fine-tune's state: the generator subtree is the vocoder
         variables = {"params": tree["g_params"]} if "g_params" in tree else as_variables(tree)
     return CodeHiFiGANVocoder.from_config(cfg, variables, device=device, dtype=dtype)

@@ -36,6 +36,20 @@ validation batch.
 Runs on the GPU unless --cpu is given. Logs `epoch E | step N | ...` lines,
 `valid | ...`, `saved checkpoint at step N`; a re-run with a higher
 --max-update continues from the last checkpoint (`resumed from step N`).
+
+`--restore-file PATH` (fairseq's, as JAX's cli/train.py:180-225) starts a
+run whose --save-dir holds no checkpoint of its own from another one; a run
+that resumes from its own directory ignores it. With `--reset-optimizer`
+only the model weights are taken, from a step directory or a .npz (a
+`cli.convert_checkpoint` or `scripts/orbax_to_npz.py` output included), and
+the optimizer starts at step 0; a frozen subtree (the normalizer's `vae`) is
+the file's where the file has it, else --speech-decoder-ckpt's. Without it
+PATH is a step directory of this CLI and the whole trainer state carries
+over: weights, moments, update count, generators, and from the sidecar
+`PATH.json` the epoch and iterator position, unless `--reset-dataloader`.
+`--reset-lr-scheduler` is accepted: inverse_sqrt, the one schedule, reads
+the update count and keeps no state of its own (JAX's keeps none for it
+either).
 """
 
 from __future__ import annotations
@@ -43,6 +57,7 @@ from __future__ import annotations
 import argparse
 import json
 import logging
+import os
 import sys
 import time
 from typing import Dict, Optional, Sequence
@@ -54,9 +69,9 @@ from diffnorm_tpu_torch.data.iterators import EpochBatchIterator, grouped, itera
 from diffnorm_tpu_torch.device import resolve_device
 from diffnorm_tpu_torch.models.nar_transformer import ARCHS as NAR_ARCHS
 from diffnorm_tpu_torch.tasks import TASKS
-from diffnorm_tpu_torch.train.checkpoint import CheckpointManager
+from diffnorm_tpu_torch.train.checkpoint import TRAINER, CheckpointManager, load_variables
 from diffnorm_tpu_torch.train.trainer import Trainer, TrainerConfig, summarize
-from diffnorm_tpu_torch.weights import from_jax_variables
+from diffnorm_tpu_torch.weights import from_jax_variables, to_jax_variables
 
 logger = logging.getLogger("diffnorm_tpu_torch.train")
 
@@ -90,8 +105,10 @@ def _flag(p: argparse.ArgumentParser, name: str, **kw) -> None:
     p.add_argument(name, type=_bool, nargs="?", const=True, default=False, **kw)
 
 
-def parse_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
-    p = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+def build_parser(description: str, train: bool = True) -> argparse.ArgumentParser:
+    """The flags of cli.train; with `train` False (cli.validate) the model,
+    data and task flags alone."""
+    p = argparse.ArgumentParser(description=description)
     p.add_argument("data", help="directory of the {split}.tsv translation manifests")
     p.add_argument("--tgt-feat-dir",
                    help="directory of the {split}.manifest.tsv feature manifests (the VAE and "
@@ -156,6 +173,9 @@ def parse_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
     p.add_argument("--max-tokens", type=int)
     p.add_argument("--max-source-positions", type=int)
     p.add_argument("--max-target-positions", type=int)
+    p.add_argument("--seed", type=int, default=1)
+    if not train:
+        return p
     # optimization: fairseq Adam
     p.add_argument("--lr", type=float, default=5e-4)
     p.add_argument("--lr-scheduler", choices=("inverse_sqrt",), default="inverse_sqrt")
@@ -166,16 +186,26 @@ def parse_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
     p.add_argument("--clip-norm", type=float, default=2.0)
     p.add_argument("--update-freq", type=int, default=1)
     p.add_argument("--max-update", type=int, required=True)
-    p.add_argument("--seed", type=int, default=1)
     # checkpoints and logging
     p.add_argument("--save-dir", default="checkpoints")
+    p.add_argument("--restore-file",
+                   help="warm start from this step directory (or, with --reset-optimizer, "
+                        ".npz) when --save-dir holds no checkpoint")
+    _flag(p, "--reset-optimizer", help="--restore-file: the model weights alone")
+    _flag(p, "--reset-dataloader", help="--restore-file: not its epoch and iterator position")
+    _flag(p, "--reset-lr-scheduler", help="--restore-file: not its schedule state")
     p.add_argument("--keep-best-checkpoints", type=int, default=5)
     p.add_argument("--keep-last-epochs", type=int, default=5)
     p.add_argument("--best-checkpoint-metric", default="loss")
     p.add_argument("--validate-interval", type=int, default=1, help="epochs")
     p.add_argument("--save-interval", type=int, default=1, help="epochs")
     p.add_argument("--log-interval", type=int, default=100)
-    args = p.parse_args(argv)
+    return p
+
+
+def check_args(p: argparse.ArgumentParser, args: argparse.Namespace) -> argparse.Namespace:
+    """The task's criterion and architecture, the unported flags, and the
+    defaults that depend on the task."""
     criterion, archs = STAGES[args.task]
     if args.criterion is not None and args.criterion != criterion:
         p.error(f"--criterion {args.criterion}: task {args.task} trains {criterion}")
@@ -194,6 +224,11 @@ def parse_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
     return args
 
 
+def parse_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
+    p = build_parser(__doc__.split("\n")[0])
+    return check_args(p, p.parse_args(argv))
+
+
 def max_positions(args: argparse.Namespace):
     """The size cap of filter-by-size, (max_source_positions,
     max_target_positions), or None when neither is set (JAX
@@ -206,6 +241,61 @@ def max_positions(args: argparse.Namespace):
 def fmt_metrics(vals: Dict[str, float]) -> str:
     return " ".join(f"{k} {vals[k]:.4g}" for k in sorted(vals)
                     if k not in ("ntokens", "nsentences"))
+
+
+def restore(args: argparse.Namespace, ckpt: CheckpointManager, model: torch.nn.Module,
+            device: torch.device, frozen_keys: Sequence[str]):
+    """Load the master weights from the save directory's last checkpoint or
+    from --restore-file (see the module docstring). Returns (trainer state,
+    sidecar), either None where the run starts afresh or keeps its own."""
+    last = ckpt.latest_step()
+    if last is not None:
+        variables, state, extra = ckpt.load(last, device)
+        from_jax_variables(model, variables)
+        logger.info("resumed from step %d (epoch %d)", last, extra["epoch"])
+        return state, extra
+    rf = args.restore_file
+    if not rf:
+        return None, None
+    if args.reset_optimizer:
+        variables = load_variables(rf)
+        params, mine = variables["params"], to_jax_variables(model)
+        missing = [k for k in mine["params"] if k not in params and k not in frozen_keys]
+        if missing:
+            raise ValueError(f"--restore-file {rf} lacks param subtrees {missing}")
+        from_jax_variables(model, {
+            col: ({k: params.get(k, v) for k, v in tree.items()} if col == "params"
+                  else variables.get(col, tree))
+            for col, tree in mine.items()})
+        logger.info("warm-started params from %s (optimizer reset)", rf)
+        return None, None
+    if not os.path.exists(os.path.join(rf, TRAINER)):
+        raise ValueError(f"--restore-file {rf} holds no trainer state ({TRAINER}), as a "
+                         f"converted or bridged checkpoint does: add --reset-optimizer")
+    state = torch.load(os.path.join(rf, TRAINER), map_location=device)
+    with open(rf.rstrip("/") + ".json") as f:
+        extra = json.load(f)
+    from_jax_variables(model, load_variables(rf))
+    logger.info("restored %s at step %s", rf, extra.get("step"))
+    return state, None if args.reset_dataloader else extra
+
+
+def validate_split(task, trainer: Trainer, args: argparse.Namespace,
+                   np_rng: np.random.Generator, device: torch.device,
+                   split: str) -> Optional[Dict[str, float]]:
+    """The criterion's metrics over `split` in eval mode, aggregated as
+    JAX's MetricsAggregator does (counts summed, the rest weighted by
+    sample_size); None when the split has no data. The batches' draws come
+    from `np_rng`, the criterion's from a generator seeded 0."""
+    try:
+        dataset = task.dataset(split)
+    except FileNotFoundError as e:
+        logger.warning("validation skipped: %s", e)
+        return None
+    generator = torch.Generator(device=device).manual_seed(0)
+    rows = [trainer.valid_step(task.prepare_batch(batch, np_rng), generator)
+            for batch in iterate_valid(dataset, args.max_tokens, max_positions(args))]
+    return summarize(rows) if rows else {}
 
 
 def main(argv: Optional[Sequence[str]] = None) -> int:
@@ -231,14 +321,6 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
     with torch.device(device):
         model = task.build_model()
     task.load_frozen_params(model)
-    trainer = Trainer(TrainerConfig(
-        lr=args.lr, warmup_updates=args.warmup_updates, warmup_init_lr=args.warmup_init_lr,
-        adam_betas=args.adam_betas, weight_decay=args.weight_decay, clip_norm=args.clip_norm,
-        dtype=args.dtype, seed=args.seed), model, task.build_criterion(),
-        frozen_keys=task.frozen_param_keys)
-    n_params = sum(p.numel() for p in trainer.params)
-    logger.info("model params (trainable): %.2fM on %s, forward in %s", n_params / 1e6,
-                device, args.dtype)
 
     dataset = task.dataset(args.train_subset)
     epoch_itr = EpochBatchIterator(
@@ -250,27 +332,28 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
     dataset[0]
     ckpt = CheckpointManager(args.save_dir, keep_last=args.keep_last_epochs,
                              keep_best=args.keep_best_checkpoints)
+    # the master weights are restored before the trainer casts its working copy
+    state, extra = restore(args, ckpt, model, device, task.frozen_param_keys)
+    trainer = Trainer(TrainerConfig(
+        lr=args.lr, warmup_updates=args.warmup_updates, warmup_init_lr=args.warmup_init_lr,
+        adam_betas=args.adam_betas, weight_decay=args.weight_decay, clip_norm=args.clip_norm,
+        dtype=args.dtype, seed=args.seed), model, task.build_criterion(),
+        frozen_keys=task.frozen_param_keys)
+    n_params = sum(p.numel() for p in trainer.params)
+    logger.info("model params (trainable): %.2fM on %s, forward in %s", n_params / 1e6,
+                device, args.dtype)
     start_epoch = 1
-    last = ckpt.latest_step()
-    if last is not None:
-        variables, state, extra = ckpt.load(last, device)
-        from_jax_variables(model, variables)
+    if state is not None:
         trainer.load_state_dict(state)
+    if extra is not None:
         epoch_itr.load_state_dict(extra["iterator"])
         start_epoch = extra["epoch"]
-        logger.info("resumed from step %d (epoch %d)", last, start_epoch)
     np_rng = np.random.default_rng(args.seed)  # the batches' draws (the CMLM canvases)
 
     def run_validation() -> Optional[float]:
-        try:
-            dataset = task.dataset(args.valid_subset)
-        except FileNotFoundError as e:
-            logger.warning("validation skipped: %s", e)
+        vals = validate_split(task, trainer, args, np_rng, device, args.valid_subset)
+        if vals is None:
             return None
-        generator = torch.Generator(device=device).manual_seed(0)
-        rows = [trainer.valid_step(task.prepare_batch(batch, np_rng), generator)
-                for batch in iterate_valid(dataset, args.max_tokens, max_positions(args))]
-        vals = summarize(rows) if rows else {}
         logger.info("valid | %s", fmt_metrics(vals))
         return vals.get(args.best_checkpoint_metric)
 

@@ -34,12 +34,16 @@ from diffnorm_tpu_torch.weights import as_variables, load_npz, save_npz, to_jax_
 PARAMS, TRAINER = "params.npz", "trainer.pt"
 
 
+def load_tree(path: str) -> dict:
+    """The tree of a checkpoint step directory's params.npz, or of a .npz
+    file, as it was saved."""
+    return load_npz(os.path.join(path, PARAMS) if os.path.isdir(path) else path)
+
+
 def load_variables(path: str) -> dict:
     """The variables tree of a checkpoint step directory, or of a .npz file
     (one holding a params tree alone is taken as its "params")."""
-    if os.path.isdir(path):
-        path = os.path.join(path, PARAMS)
-    return as_variables(load_npz(path))
+    return as_variables(load_tree(path))
 
 
 def load_params(path: str) -> dict:

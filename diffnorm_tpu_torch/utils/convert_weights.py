@@ -1,10 +1,13 @@
 """fairseq torch checkpoint -> the port's weights tree.
 
-The port's copy of the HuBERT and code-HiFi-GAN parts of
-diffnorm_tpu/utils/convert_weights.py. It returns the flax-path tree JAX's
-converter returns (`{"params": ...}` of float32 numpy arrays), which
-`weights.from_jax_params` loads, so the port's module paths stay flax
-paths. Layout rules:
+The port's copy of diffnorm_tpu/utils/convert_weights.py for the families
+the port runs: HuBERT, the code-HiFi-GAN, the DiffNorm speech VAE and latent
+normalizer, the NAR S2UT conformer and the GAN discriminators, with the
+key-inventory audit. Each converter returns the flax-path tree JAX's
+converter returns (float32 numpy arrays), which `weights.from_jax_variables`
+loads, so the port's module paths stay flax paths. Layouts the port's models
+do not have (the prompt-conditioned denoiser, stacked units) raise
+NotImplementedError. Layout rules:
 * torch Linear weight [out, in]       -> Dense kernel [in, out]
 * torch Conv1d weight [out, in, k]    -> Conv kernel [k, in, out]
 * torch grouped Conv1d [out, in/g, k] -> Conv kernel [k, in/g, out]
@@ -14,14 +17,19 @@ paths. Layout rules:
 * weight norm (weight_g / weight_v) is folded: w = g * v / ||v||, the norm
   over every dim except `dim` (HiFi-GAN uses dim=0, wav2vec2's pos_conv
   dim=2)
+* spectral norm (weight_orig / weight_u / weight_v) is folded at eval
+  semantics: W / (u^T W v) with the stored vectors, no power iteration
 """
 
 from __future__ import annotations
 
-from typing import Dict
+import re
+from typing import Dict, Mapping, Sequence, Tuple
 
 import numpy as np
 import torch
+
+from diffnorm_tpu_torch.weights import flatten_tree
 
 
 def _t(x) -> np.ndarray:
@@ -160,3 +168,353 @@ def convert_hubert_state(sd: Dict, layers: int = 12) -> Dict:
             "final_layer_norm": _ln(sd, f"{p}.final_layer_norm"),
         }
     return {"params": params}
+
+
+def torch_layer_count(sd: Dict) -> int:
+    """The transformer layer count of a HuBERT-layout state dict."""
+    n = -1
+    for k in sd:
+        m = re.search(r"encoder\.layers\.(\d+)\.", k)
+        if m:
+            n = max(n, int(m.group(1)))
+    return n + 1
+
+
+# ------------------------------------------- DiffNorm VAE / latent normalizer
+
+def _conv_tree(sd: Dict, prefix: str) -> Dict:
+    out = {"kernel": conv_w(sd[f"{prefix}.weight"])}
+    if f"{prefix}.bias" in sd:
+        out["bias"] = _t(sd[f"{prefix}.bias"])
+    return out
+
+
+def _linear_tree(sd: Dict, prefix: str) -> Dict:
+    out = {"kernel": dense_w(sd[f"{prefix}.weight"])}
+    if f"{prefix}.bias" in sd:
+        out["bias"] = _t(sd[f"{prefix}.bias"])
+    return out
+
+
+def _wavenet_tree(sd: Dict, prefix: str) -> Dict:
+    """A reference Wavenet / WavenetEncoder (latent_module.py:585-617,
+    1003-1032) under `prefix` -> the Wavenet tree; stacks and blocks are
+    counted by probing keys."""
+    tree: Dict = {"init_conv": _conv_tree(sd, f"{prefix}.init_conv"),
+                  "final_conv": _conv_tree(sd, f"{prefix}.final_conv")}
+    s = 0
+    while f"{prefix}.stacks.{s}.blocks.0.conv.weight" in sd:
+        blocks: Dict = {}
+        j = 0
+        while f"{prefix}.stacks.{s}.blocks.{j}.conv.weight" in sd:
+            bp = f"{prefix}.stacks.{s}.blocks.{j}"
+            block = {"conv": _conv_tree(sd, f"{bp}.conv"),
+                     "res_conv": _conv_tree(sd, f"{bp}.res_conv")}
+            if f"{bp}.skip_conv.weight" in sd:
+                block["skip_conv"] = _conv_tree(sd, f"{bp}.skip_conv")
+            if f"{bp}.to_time_cond.weight" in sd:
+                block["to_time_cond"] = _linear_tree(sd, f"{bp}.to_time_cond")
+            blocks[f"block_{j}"] = block
+            j += 1
+        tree[f"stack_{s}"] = blocks
+        s += 1
+    return tree
+
+
+def _rmsnorm_tree(sd: Dict, prefix: str, cond: bool) -> Dict:
+    if cond:
+        return {"to_gamma_beta": _linear_tree(sd, f"{prefix}.to_gamma_beta")}
+    return {"gamma": _t(sd[f"{prefix}.gamma"])}
+
+
+def _attention_tree(sd: Dict, prefix: str) -> Dict:
+    return {p: _linear_tree(sd, f"{prefix}.{p}") for p in ("to_q", "to_kv", "to_out")}
+
+
+def _ff_tree(sd: Dict, prefix: str) -> Dict:
+    """FeedForward (latent_module.py:887-903), a None-filtered Sequential:
+    0 the in-projection, 1 GEGLU; with the causal conv it sits at 2.1
+    (inside a Rearrange sandwich) and the out-projection at 3, else the
+    out-projection is at 2."""
+    tree = {"proj_in": _linear_tree(sd, f"{prefix}.0")}
+    if f"{prefix}.2.1.weight" in sd:
+        tree["conv"] = _conv_tree(sd, f"{prefix}.2.1")
+        tree["proj_out"] = _linear_tree(sd, f"{prefix}.3")
+    else:
+        tree["proj_out"] = _linear_tree(sd, f"{prefix}.2")
+    return tree
+
+
+def _cond_transformer_tree(sd: Dict, prefix: str, cond: bool) -> Dict:
+    """ConditionableTransformer (latent_module.py:642-706): each layer's
+    ModuleList holds [attn-norm, attn, cross-norm | None, cross-attn | None,
+    ff-norm, ff] at the fixed indices 0-5."""
+    tree: Dict = {}
+    layer = 0
+    while f"{prefix}.layers.{layer}.1.to_q.weight" in sd:
+        lp = f"{prefix}.layers.{layer}"
+        tree[f"attn_norm_{layer}"] = _rmsnorm_tree(sd, f"{lp}.0", cond)
+        tree[f"attn_{layer}"] = _attention_tree(sd, f"{lp}.1")
+        if f"{lp}.3.to_q.weight" in sd:
+            tree[f"cross_norm_{layer}"] = _rmsnorm_tree(sd, f"{lp}.2", cond)
+            tree[f"cross_attn_{layer}"] = _attention_tree(sd, f"{lp}.3")
+        tree[f"ff_norm_{layer}"] = _rmsnorm_tree(sd, f"{lp}.4", cond)
+        tree[f"ff_{layer}"] = _ff_tree(sd, f"{lp}.5")
+        layer += 1
+    tree["final_norm"] = {"gamma": _t(sd[f"{prefix}.to_pred.0.gamma"])}
+    tree["to_pred"] = {"kernel": dense_w(sd[f"{prefix}.to_pred.1.weight"])}
+    return tree
+
+
+def convert_vae_state(sd: Dict) -> Dict:
+    """A fairseq `speech_vae_decoder` state dict (SpeechVAEEncoderDecoder,
+    latent_module.py:1035-1142; the model wrapper nests it under
+    `encoder.`) -> the SpeechVAEModule params tree."""
+    if any(k.startswith("encoder.encoder_wave.") for k in sd):
+        sd = {k[len("encoder."):]: v for k, v in sd.items() if k.startswith("encoder.")}
+    params: Dict = {}
+    for side in ("enc", "dec"):
+        b = 0
+        while f"{side}oder_wave.{b}.init_conv.weight" in sd:
+            params[f"{side}_wave_{b}"] = _wavenet_tree(sd, f"{side}oder_wave.{b}")
+            b += 1
+    params["decoder_tf"] = _cond_transformer_tree(sd, "decoder_tf", cond=False)
+    params["decoder_lm"] = _linear_tree(sd, "decoder_lm")
+    return params
+
+
+def convert_denoiser_state(sd: Dict, prefix: str = "model") -> Dict:
+    """The denoiser `Model` (latent_module.py:709-876) -> the Denoiser params
+    tree. `to_time_cond` is a None-filtered Sequential
+    (LearnedSinusoidalPosEmb, Linear, SiLU); `init_conv` is a k=1 Conv1d,
+    which becomes a Dense. A prompt-conditioned denoiser (`null_prompt_cond`
+    present) raises: the port's Denoiser has no prompt branch."""
+    if f"{prefix}.null_prompt_cond" in sd:
+        raise NotImplementedError(
+            f"{prefix}.null_prompt_cond: a prompt-conditioned denoiser (condition_on_prompt, "
+            "the PerceiverResampler) is not ported (ROADMAP Queue 1 item 5)")
+    return {
+        "time_emb": {"weights": _t(sd[f"{prefix}.to_time_cond.0.weights"])},
+        "time_proj": _linear_tree(sd, f"{prefix}.to_time_cond.1"),
+        "init_conv": {"kernel": _t(sd[f"{prefix}.init_conv.weight"])[:, :, 0].T,
+                      "bias": _t(sd[f"{prefix}.init_conv.bias"])},
+        "wavenet": _wavenet_tree(sd, f"{prefix}.wavenet"),
+        "transformer": _cond_transformer_tree(sd, f"{prefix}.transformer", cond=True),
+        "final_proj": _linear_tree(sd, f"{prefix}.final_proj"),
+    }
+
+
+def convert_diffusion_state(sd: Dict) -> Dict:
+    """A fairseq `diff_discrete` state dict (LatentDiscreteModel under
+    `encoder.`: the frozen VAE at `speech_decoder.`, the denoiser at
+    `model.`, diff_discrete.py:71-85) -> the LatentDiffusionModule params
+    tree."""
+    if any(k.startswith("encoder.model.") for k in sd):
+        sd = {k[len("encoder."):]: v for k, v in sd.items() if k.startswith("encoder.")}
+    vae_sd = {k[len("speech_decoder."):]: v for k, v in sd.items()
+              if k.startswith("speech_decoder.")}
+    return {"denoiser": convert_denoiser_state(sd, "model"), "vae": convert_vae_state(vae_sd)}
+
+
+# ---------------------------------------------------------- NAR S2UT model
+
+def _mha_tree(sd: Dict, prefix: str) -> Dict:
+    """fairseq MultiheadAttention (q/k/v/out_proj with biases)."""
+    return {p: _linear_tree(sd, f"{prefix}.{p}")
+            for p in ("q_proj", "k_proj", "v_proj", "out_proj")}
+
+
+def _conformer_layer_trees(sd: Dict, prefix: str) -> Tuple[Dict, Dict]:
+    """fairseq ConformerEncoderLayer (modules/conformer_layer.py:133-286) ->
+    (params, batch_stats) of a ConformerLayer. The conv module's convs have
+    no bias; the rel-pos attention adds linear_pos (no bias) and the
+    pos_bias_u / pos_bias_v head biases."""
+    def ffn(p):
+        return {"layer_norm": _ln(sd, f"{p}.layer_norm"), "w_1": _linear_tree(sd, f"{p}.w_1"),
+                "w_2": _linear_tree(sd, f"{p}.w_2")}
+
+    a, c = f"{prefix}.self_attn", f"{prefix}.conv_module"
+    attn = {p: _linear_tree(sd, f"{a}.{p}")
+            for p in ("linear_q", "linear_k", "linear_v", "linear_out", "linear_pos")}
+    attn["pos_bias_u"] = _t(sd[f"{a}.pos_bias_u"])
+    attn["pos_bias_v"] = _t(sd[f"{a}.pos_bias_v"])
+    conv = {"layer_norm": _ln(sd, f"{c}.layer_norm"),
+            "pointwise_conv1": {"kernel": conv_w(sd[f"{c}.pointwise_conv1.weight"])},
+            "depthwise_conv": {"kernel": conv_w(sd[f"{c}.depthwise_conv.weight"])},
+            "batch_norm": _ln(sd, f"{c}.batch_norm"),
+            "pointwise_conv2": {"kernel": conv_w(sd[f"{c}.pointwise_conv2.weight"])}}
+    params = {"ffn1": ffn(f"{prefix}.ffn1"),
+              "self_attn_layer_norm": _ln(sd, f"{prefix}.self_attn_layer_norm"),
+              "self_attn": attn, "conv_module": conv, "ffn2": ffn(f"{prefix}.ffn2"),
+              "final_layer_norm": _ln(sd, f"{prefix}.final_layer_norm")}
+    stats = {"conv_module": {"batch_norm": {
+        "mean": _t(sd[f"{c}.batch_norm.running_mean"]),
+        "var": _t(sd[f"{c}.batch_norm.running_var"])}}}
+    return params, stats
+
+
+def convert_nar_state(sd: Dict) -> Dict:
+    """A fairseq `nar_s2ut_conformer` state dict (research/TranSpeech
+    nar_conformer.py S2SConformerEncoder + nar_transformer.py
+    TransformerUnitDecoder) -> the NARS2UTModule variables
+    ({"params", "batch_stats"}). Stacked units (n_frames_per_step > 1,
+    `decoder.embed_tokens.project_in_dim`) raise: the port's decoder has no
+    such input."""
+    for key in ("decoder.embed_tokens.project_in_dim.weight", "decoder.out_proj_n_frames.weight"):
+        if key in sd:
+            raise NotImplementedError(
+                f"{key}: stacked units (n_frames_per_step > 1) are not ported "
+                "(ROADMAP Queue 1 item 4)")
+    enc: Dict = {"subsample": {}}
+    i = 0
+    while f"encoder.subsample.conv_layers.{i}.weight" in sd:
+        enc["subsample"][f"conv_{i}"] = _conv_tree(sd, f"encoder.subsample.conv_layers.{i}")
+        i += 1
+    enc["linear"] = _linear_tree(sd, "encoder.linear")
+    stats: Dict = {}
+    i = 0
+    while f"encoder.conformer_layers.{i}.ffn1.w_1.weight" in sd:
+        enc[f"layer_{i}"], stats[f"layer_{i}"] = _conformer_layer_trees(
+            sd, f"encoder.conformer_layers.{i}")
+        i += 1
+
+    dec: Dict = {"embed_tokens": {"embedding": _t(sd["decoder.embed_tokens.weight"])},
+                 "embed_length": {"embedding": _t(sd["decoder.embed_length.weight"])}}
+    i = 0
+    while f"decoder.layers.{i}.self_attn.q_proj.weight" in sd:
+        p = f"decoder.layers.{i}"
+        dec[f"layer_{i}"] = {
+            "self_attn": _mha_tree(sd, f"{p}.self_attn"),
+            "self_attn_layer_norm": _ln(sd, f"{p}.self_attn_layer_norm"),
+            "encoder_attn": _mha_tree(sd, f"{p}.encoder_attn"),
+            "encoder_attn_layer_norm": _ln(sd, f"{p}.encoder_attn_layer_norm"),
+            "fc1": _linear_tree(sd, f"{p}.fc1"),
+            "fc2": _linear_tree(sd, f"{p}.fc2"),
+            "final_layer_norm": _ln(sd, f"{p}.final_layer_norm"),
+        }
+        i += 1
+    if "decoder.layer_norm.weight" in sd:
+        dec["layer_norm"] = _ln(sd, "decoder.layer_norm")
+    # --share-decoder-input-output-embed (the released recipe): the output
+    # projection is the embedding table, and the decoder reuses the table;
+    # an untied one becomes output_proj, which the port's decoder lacks
+    out_w = _t(sd["decoder.output_projection.weight"])
+    if not np.array_equal(out_w, _t(sd["decoder.embed_tokens.weight"])):
+        dec["output_proj"] = {"kernel": out_w.T}
+    return {"params": {"encoder": enc, "decoder": dec}, "batch_stats": {"encoder": stats}}
+
+
+# -------------------------------------------- GAN discriminators (MPD / MSD)
+
+def _fold_spectral_norm(orig, u, v) -> np.ndarray:
+    """The eval-mode weight of torch's spectral_norm: W / sigma with sigma =
+    u^T W_mat v from the stored power-iteration vectors
+    (SpectralNorm.compute_weight with do_power_iteration=False)."""
+    orig, u, v = _t(orig), _t(u), _t(v)
+    w_mat = orig.reshape(orig.shape[0], -1)
+    sigma = float(u @ (w_mat @ v))
+    return orig / sigma
+
+
+def _disc_conv(sd: Dict, prefix: str) -> np.ndarray:
+    if f"{prefix}.weight_g" in sd:
+        return fold_weight_norm(sd[f"{prefix}.weight_g"], sd[f"{prefix}.weight_v"])
+    if f"{prefix}.weight_orig" in sd:
+        return _fold_spectral_norm(sd[f"{prefix}.weight_orig"], sd[f"{prefix}.weight_u"],
+                                   sd[f"{prefix}.weight_v"])
+    return _t(sd[f"{prefix}.weight"])
+
+
+def convert_gan_discriminators(mpd_sd: Dict, msd_sd: Dict,
+                               periods: Sequence[int] = (2, 3, 5, 7, 11),
+                               scales: int = 3) -> Dict:
+    """TranSpeech hifigan MultiPeriod / MultiScale discriminator state dicts
+    (research/TranSpeech/hifigan/models.py:128-249; weight norm folded, the
+    spectral norm of the first MSD scale folded at eval semantics) ->
+    {"mpd": {"params"}, "msd": {"params"}} of models/hifigan_disc.py."""
+    def disc(sd, pre, n, perm):
+        d = {f"conv_{j}": {"kernel": _disc_conv(sd, f"{pre}.convs.{j}").transpose(perm),
+                           "bias": _t(sd[f"{pre}.convs.{j}.bias"])} for j in range(n)}
+        d["conv_post"] = {"kernel": _disc_conv(sd, f"{pre}.conv_post").transpose(perm),
+                          "bias": _t(sd[f"{pre}.conv_post.bias"])}
+        return d
+
+    # Conv2d [out, in, kh, kw] -> [kh, kw, in, out]; Conv1d [out, in, k] -> [k, in, out]
+    mpd = {f"period_{p}": disc(mpd_sd, f"discriminators.{i}", 5, (2, 3, 1, 0))
+           for i, p in enumerate(periods)}
+    msd = {f"scale_{s}": disc(msd_sd, f"discriminators.{s}", 7, (2, 1, 0))
+           for s in range(scales)}
+    return {"mpd": {"params": mpd}, "msd": {"params": msd}}
+
+
+# ------------------------------------------------------------ key inventory
+
+# torch buffers that carry no learned weights (fairseq's save paths emit them)
+_BUFFER_SUFFIXES = (".version", "._float_tensor", ".num_batches_tracked")
+
+
+def _numel(x) -> int:
+    return int(np.prod(tuple(x.shape)))
+
+
+def conversion_inventory(sd: Dict, converted: Mapping,
+                         expected_unconsumed: Sequence[str] = ()) -> Tuple[int, int]:
+    """Audit a conversion against the source state dict's key inventory:
+    every learned element of `sd` must land in the converted tree.
+
+      * buffers (`.version`, the sinusoidal `._float_tensor`, BatchNorm's
+        `num_batches_tracked`) carry no weights: ignored
+      * a weight-norm pair folds `weight_g` into the kernel: `weight_g` is
+        auxiliary, `weight_v` counts as the kernel
+      * a spectral-norm triplet (`weight_orig` / `weight_u` / `weight_v`)
+        folds to one kernel: `_u` and `_v` are auxiliary
+      * a `*.output_projection.weight` equal to an embedding table is the
+        shared in/out embedding: one tree leaf covers both keys
+      * `expected_unconsumed`: the family's pretraining-only heads (key
+        names or prefixes)
+
+    Raises ValueError naming the likely unaccounted keys when the element
+    counts differ. Returns (consumed elements, tree elements)."""
+    embed_tables = [_t(v) for k, v in sd.items() if k.endswith("embed_tokens.weight")]
+    consumed, counted = 0, []
+    for k, v in sd.items():
+        if k.endswith(_BUFFER_SUFFIXES):
+            continue
+        if any(k == e or k.startswith(e) for e in expected_unconsumed):
+            continue
+        base = k.rsplit(".", 1)[0]
+        if k.endswith(".weight_g") and f"{base}.weight_v" in sd:
+            continue  # weight-norm magnitude, folded
+        if k.endswith((".weight_u", ".weight_v")) and f"{base}.weight_orig" in sd:
+            continue  # spectral-norm power-iteration vectors, folded
+        if k.endswith("output_projection.weight") and any(
+                tuple(v.shape) == t.shape and np.array_equal(_t(v), t) for t in embed_tables):
+            continue
+        consumed += _numel(v)
+        counted.append(k)
+    tree_elems = sum(_numel(np.asarray(leaf)) for leaf in flatten_tree(converted).values())
+    if consumed != tree_elems:
+        diff = consumed - tree_elems
+        sizes = [(k, _numel(sd[k])) for k in counted]
+        exact = [f"{k} ({n})" for k, n in sizes if n == abs(diff)]
+        close = [f"{k} ({n})" for k, n in sorted(sizes, key=lambda kv: -kv[1]) if n < abs(diff)]
+        suspects = (exact + close)[:20]
+        raise ValueError(
+            f"conversion inventory mismatch: source carries {consumed} learned elements but "
+            f"the converted tree has {tree_elems} (difference {diff}). Unaccounted checkpoint "
+            f"keys are likely among: {suspects or '(none <= diff: shape mismatch?)'}; either "
+            "the converter must consume them or they belong in expected_unconsumed with a "
+            "documented reason.")
+    return consumed, tree_elems
+
+
+# per family, the pretraining-only heads the inference converters leave behind
+EXPECTED_UNCONSUMED = {
+    # the inference encoder drops the masked-prediction head and target embeddings
+    "hubert": ("label_embs_concat", "final_proj.", "mask_emb"),
+    "vae": (),
+    "diffusion": (),
+    "nar": (),
+    "hifigan": (),
+    "gan_discriminators": (),
+}

@@ -46,18 +46,20 @@ _KERNEL_TO_JAX = {2: lambda t: t.T, 3: lambda t: t.permute(2, 1, 0),
 _STATS = {"mean": "running_mean", "var": "running_var"}
 
 
-def _flatten(tree: Mapping, prefix: Path = ()) -> Dict[Path, np.ndarray]:
+def flatten_tree(tree: Mapping, prefix: Path = ()) -> Dict[Path, np.ndarray]:
+    """{path tuple: leaf} of a nested mapping."""
     flat = {}
     for key, value in tree.items():
         path = prefix + (str(key),)
         if isinstance(value, Mapping):
-            flat.update(_flatten(value, path))
+            flat.update(flatten_tree(value, path))
         else:
             flat[path] = value
     return flat
 
 
-def _unflatten(flat: Mapping[Path, np.ndarray]) -> dict:
+def unflatten_tree(flat: Mapping[Path, np.ndarray]) -> dict:
+    """The inverse of `flatten_tree`."""
     tree: dict = {}
     for path, value in flat.items():
         node = tree
@@ -98,7 +100,7 @@ def pack_all(model: nn.Module) -> nn.Module:
 
 def _load_quant_stats(model: nn.Module, tree: Mapping) -> None:
     sites = dict(quant_sites(model))
-    for path, value in _flatten(tree).items():
+    for path, value in flatten_tree(tree).items():
         site = sites.get(".".join(path[:-1]))
         if site is None or path[-1] != "act_amax":
             raise KeyError(f"quant_stats/{'/'.join(path)} names no int8 site of the model")
@@ -118,7 +120,7 @@ def from_jax_variables(model: nn.Module, variables: Mapping) -> nn.Module:
         if collection == "quant_stats":
             _load_quant_stats(model, tree)
             continue
-        for path, value in _flatten(tree).items():
+        for path, value in flatten_tree(tree).items():
             flat[_torch_name(collection, path)] = (path, value)
     named = model.state_dict(keep_vars=True)
     _check_names(named, flat)
@@ -167,13 +169,13 @@ def to_jax_variables(model: nn.Module) -> dict:
                 t = _KERNEL_TO_JAX[t.dim()](t)
             path = path[:-1] + (leaf,)
         params[path] = t.contiguous().numpy()
-    out = {"params": _unflatten(params)}
+    out = {"params": unflatten_tree(params)}
     if stats:
-        out["batch_stats"] = _unflatten(stats)
+        out["batch_stats"] = unflatten_tree(stats)
     amax = {tuple(name.split(".")) + ("act_amax",): site.act_amax.float().cpu().numpy()
             for name, site in quant_sites(model) if site.act_amax is not None}
     if amax:
-        out["quant_stats"] = _unflatten(amax)
+        out["quant_stats"] = unflatten_tree(amax)
     return out
 
 
@@ -196,10 +198,10 @@ def as_variables(tree: Mapping) -> dict:
 def save_npz(path: str, tree: Mapping) -> None:
     """Write a params or variables tree as one .npz with '/'-joined keys."""
     np.savez(path, **{"/".join(p): np.asarray(v, dtype=np.float32)
-                      for p, v in _flatten(tree).items()})
+                      for p, v in flatten_tree(tree).items()})
 
 
 def load_npz(path: str) -> dict:
     """Read a file written by `save_npz` back into its tree."""
     with np.load(path) as data:
-        return _unflatten({tuple(k.split("/")): data[k] for k in data.files})
+        return unflatten_tree({tuple(k.split("/")): data[k] for k in data.files})

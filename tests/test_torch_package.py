@@ -67,6 +67,9 @@ def test_port_imports_with_jax_blocked():
             "import diffnorm_tpu_torch.cli.generate\n"
             "import diffnorm_tpu_torch.cli.generate_waveform\n"
             "import diffnorm_tpu_torch.cli.train_vocoder\n"
+            "import diffnorm_tpu_torch.cli.convert_checkpoint\n"
+            "import diffnorm_tpu_torch.cli.average_checkpoints\n"
+            "import diffnorm_tpu_torch.cli.validate\n"
             "import diffnorm_tpu_torch.eval.unit_bleu\n"
             "import diffnorm_tpu_torch.eval.asr_bleu\n"
             "import diffnorm_tpu_torch.eval.mcd\n"
@@ -133,6 +136,12 @@ def test_entry_points_refuse_the_cpu_unless_asked(tmp_path):
         train_vocoder.main(vocoder)
     with pytest.raises(RuntimeError, match="CUDA"):
         train.main(["--task", "unit_to_speech", *vocoder])
+
+    from diffnorm_tpu_torch.cli import validate
+
+    with pytest.raises(RuntimeError, match="CUDA"):
+        validate.main([str(tmp_path), "--task", "speech_decoder", "--tgt-feat-dir",
+                       str(tmp_path), "--path", "absent.npz"])
 
     from diffnorm_tpu_torch.cli import prepare
 
