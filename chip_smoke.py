@@ -168,9 +168,29 @@ tf32 passes); and at D 80 and 128 with ragged keys and a fully masked row.
    --restore-file <average> --reset-optimizer for 2 updates on phase 11's
    corpus: its first loss against an in-process update from the mean
    (WARM_LOSS_REL). Each command's wall.
+19. the NAR model's options: the released nar_s2ut_conformer from a seeded
+   init with n_frames_per_step 2, 256-d target-speaker embeddings, the
+   three aux tasks of fairseq's direct_s2st_discrete_units.md
+   (source_letter and target_letter transformer heads on encoder layers 6
+   and 8, decoder_target_ctc on decoder layer 3; seeded letter
+   dictionaries and targets, the heads' dropout 0) and a CTC head with an
+   injected ctc_target. One training update at phase 10's CVSS shape (the
+   second update timed, the third profiled) and one in long form (B2 x
+   8448), each through the kernels and through the plain versions from one
+   init with attention dropout 0: loss, gradient norm and every aux term
+   held to phase 10's bounds; flash_attention 10 launches a long-form
+   forward (6 in the decoder, 4 in the aux heads' cross-attention),
+   training and validation. mask_predict_decode of the stacked,
+   speaker-conditioned model at B16 x 480 (units equal to the plain run)
+   and B2 x 8448 (LONG_UNIT_AGREE); s2st_generate with the released vocoder
+   made multi-speaker, one speaker per row (wall, RTF); cli.train for 2
+   updates with every option's flag on phase 11's corpus plus speakers and
+   letter targets, then cli.generate on its step directory (H- units equal
+   an in-process decode).
 The kernels JSON line reports the float32 kernel as flash_attention_f32
 (its launches those of phase 13) beside the bf16 one (phase 6's, phase
-16's long form, the four cli.generate runs of phase 15 and phase 18's);
+16's long form, the four cli.generate runs of phase 15, phase 18's and
+phase 19's);
 rms_norm_film and wavenet_chain count phase 3's run and phase 18's CLI run.
 
 Then one JSON line of per-kernel numbers and, last, {"ok": true, "device": ...}.
@@ -354,6 +374,21 @@ VALID_REL, WARM_LOSS_REL = 1e-5, 1e-5
 # the ASR on the card (float32, TF32 off) against the port's CPU float32
 # forward on the same wavs: float32 sums in other orders over 24 layers
 ASR_CHECK_WAVS, ASR_ROW_COS, ASR_ARGMAX_AGREE = 4, 0.9999, 0.99
+# the NAR model's options (phase 19): n_frames_per_step 2, 256-d target
+# speaker embeddings, --multitask-ctc-vocab over a 28-letter dictionary (+ 4
+# specials), and the three aux tasks of fairseq's
+# examples/speech_to_speech/docs/direct_s2st_discrete_units.md (name, decoder
+# type, tap, loss weight), the decoder args at their defaults (2 layers, 256
+# wide, 4 heads, FFN 2048) with dropout 0, so the heads' attention may take
+# the kernel; the multi-speaker vocoder's speaker count is seeded
+OPT_K, OPT_SPK_DIM, OPT_SPEAKERS = 2, 256, 200
+OPT_LETTERS = list("abcdefghijklmnopqrstuvwxyz'|")
+OPT_TASKS = (("source_letter", "transformer", "encoder_layer", 6, 8.0),
+             ("target_letter", "transformer", "encoder_layer", 8, 8.0),
+             ("decoder_target_ctc", "ctc", "decoder_layer", 3, 1.6))
+# flash_attention launches per long-form forward: the NAT decoder's 6 encoder
+# attentions and the two transformer heads' 2 + 2 cross-attentions
+OPT_FLASH_PER_FORWARD = 6 + 2 * 2
 
 
 # ---- seeded fairseq-layout state dicts (phase 18; tests/test_torch_convert.py)
@@ -1114,35 +1149,38 @@ def check_flash_attention(torch, flash):
 
 def check_attention_routing(torch, flash):
     """masked_attention at Tk = FLASH_MIN_LEN for shapes the kernel does not
-    take (bf16 with D=80, float16): `supports` says no, no flash_attention
-    launches, and the result is the module math's, here held to the same
-    function on the CPU (sum order and one rounding of the output's type
-    apart: the flash tolerance plus 2 ulps)."""
+    take (bf16 with D=80, float16), and a causal call at a shape it takes
+    (the aux heads' self-attention form, which JAX keeps off its kernel):
+    no flash_attention launches, and the result is the module math's, here
+    held to the same function on the CPU (sum order and one rounding of the
+    output's type apart: the flash tolerance plus 2 ulps)."""
     from diffnorm_tpu_torch.ops import _build
     from diffnorm_tpu_torch.ops.attention import FLASH_MIN_LEN, masked_attention
 
     g = torch.Generator(device="cuda").manual_seed(51)
-    for what, dtype, d, mant in (("bf16 D=80", torch.bfloat16, 80, 8),
-                                 ("float16 D=64", torch.float16, 64, 11)):
+    for what, dtype, d, mant, causal in (("bf16 D=80", torch.bfloat16, 80, 8, False),
+                                         ("float16 D=64", torch.float16, 64, 11, False),
+                                         ("bf16 D=64 causal", torch.bfloat16, 64, 8, True)):
         q, k, v = (torch.randn(2, 4, t, d, generator=g, device="cuda").to(dtype)
                    for t in (64, FLASH_MIN_LEN, FLASH_MIN_LEN))
         mask = (torch.arange(FLASH_MIN_LEN, device="cuda")[None, :]
                 < torch.tensor([FLASH_MIN_LEN, 1000], device="cuda")[:, None])
-        if flash.supports(q, k, v, mask):
-            fail(f"flash_attention.supports is True for {what}")
+        if flash.supports(q, k, v, mask) == (not causal):
+            fail(f"flash_attention.supports is {not causal} for {what}")
         before = _build.launch_counts["flash_attention"]
-        got = masked_attention(q, k, v, mask).float()
+        got = masked_attention(q, k, v, mask, causal=causal).float()
         torch.cuda.synchronize()
         if _build.launch_counts["flash_attention"] != before:
             fail(f"masked_attention {what} launched flash_attention")
-        ref = masked_attention(q.cpu(), k.cpu(), v.cpu(), mask.cpu()).float().cuda()
+        ref = masked_attention(q.cpu(), k.cpu(), v.cpu(), mask.cpu(),
+                               causal=causal).float().cuda()
         ulp = torch.ldexp(torch.ones_like(ref), torch.frexp(ref).exponent - mant)
         err = (got - ref).abs()
         n_bad = (err > FLASH_ATOL + FLASH_RTOL * ref.abs() + 2 * ulp).sum().item()
         if got.shape != q.shape or not torch.isfinite(got).all() or n_bad:
             fail(f"masked_attention {what}: {n_bad} elements beyond tolerance of the module "
                  f"math on the CPU, max err {err.max().item():.3e}")
-        print(f"attention routing {what} at Tk={FLASH_MIN_LEN}: supports() False, no "
+        print(f"attention routing {what} at Tk={FLASH_MIN_LEN}: supports() {causal}, no "
               f"flash_attention launch, module math on the card against the CPU's: max err "
               f"{err.max().item():.3e}")
 
@@ -3188,6 +3226,389 @@ def run_checkpoints_in(torch, mods, smi):
             "flash_attention": gen_flash}
 
 
+def write_options_data(root: Path, rng, units_by_split=None):
+    """The aux tasks' files under `root`: the letter dictionary, the
+    multitask YAML in the fairseq docs' form (paths relative to it) and, for
+    each split in `units_by_split` ({split: {id: unit count}}), each task's
+    {split}.tsv of seeded letter texts: letters (with "|" between words)
+    numbering a quarter of the utterance's units for the decoder CTC task,
+    whose canvas holds half as many steps, and half of them for the others.
+    Returns the YAML's path."""
+    import yaml
+
+    letters = root / "letters"
+    letters.mkdir(exist_ok=True)
+    (letters / "dict.txt").write_text("".join(f"{c} 1\n" for c in OPT_LETTERS))
+    config = {}
+    for name, decoder_type, tap, layer, weight in OPT_TASKS:
+        (root / name).mkdir(exist_ok=True)
+        config[name] = {"decoder_type": decoder_type, "dict": "letters/dict.txt", "data": name,
+                        tap: layer, "loss_weight": weight}
+        if decoder_type == "transformer":
+            config[name]["decoder_args"] = {"dropout": 0.0}
+        for split, units in (units_by_split or {}).items():
+            share = 4 if decoder_type == "ctc" else 2
+            lines = [f"{uid}\t{' '.join(rng.choice(OPT_LETTERS, size=max(n // share, 1)))}"
+                     for uid, n in units.items()]
+            (root / name / f"{split}.tsv").write_text("id\ttgt_text\n" + "\n".join(lines) + "\n")
+    path = root / "multitask.yaml"
+    path.write_text(yaml.safe_dump(config))
+    return path
+
+
+def options_batch(rng, tasks, src_lengths, tgt_units):
+    """A prepared training batch of the model with every option: phase 10's
+    NAR batch stacked to OPT_K (packed canvas, sub-frame target), seeded
+    letter targets for each aux task (lengths as write_options_data's),
+    256-d speaker embeddings and a ctc_target over the encoder frames."""
+    import numpy as np
+
+    from diffnorm_tpu_torch.data.batching import bucket_length
+    from diffnorm_tpu_torch.data.multitask import collate_text_targets
+    from diffnorm_tpu_torch.models.stacked import stack_target
+    from diffnorm_tpu_torch.tasks.nar_s2ut_task import random_mask
+
+    batch = nar_batch(rng, src_lengths, tgt_units)
+    packed, sub = stack_target(batch["target"], 1000, OPT_K)
+    batch.update(target=sub, target_packed=packed, prev_target=random_mask(packed, rng))
+    vocab = len(OPT_LETTERS) + 4
+    batch["multitask"] = {}
+    for name, tc in tasks.items():
+        share, eos = (4, []) if tc.decoder_type == "ctc" else (2, [2])
+        targets = [np.append(rng.integers(4, vocab, size=max(n // share, 1)), eos).astype(
+            np.int32) for n in tgt_units]
+        entry = collate_text_targets(targets, with_prev=tc.decoder_type != "ctc",
+                                     pad_to=bucket_length(max(len(t) for t in targets)))
+        entry["loss_weight"] = np.float32(tc.get_loss_weight(0))
+        batch["multitask"][name] = entry
+    b = len(src_lengths)
+    batch["tgt_speaker"] = rng.normal(size=(b, OPT_SPK_DIM)).astype(np.float32)
+    n_ctc = [max(int(n) // 16, 1) for n in src_lengths]  # a quarter of the subsampled frames
+    ctc = np.full((b, max(n_ctc)), 1, np.int32)
+    for i, n in enumerate(n_ctc):
+        ctc[i, :n] = rng.integers(4, vocab, size=n)
+    batch["ctc_target"] = ctc
+    return batch
+
+
+def options_model(torch, tasks, **kw):
+    """The released nar_s2ut_conformer with every option, seeded, on the
+    card in float32: stacked units, the aux heads of `tasks`, the CTC head,
+    the speaker projection."""
+    import types
+
+    from diffnorm_tpu_torch.models.nar_transformer import NARS2UTModule
+    from diffnorm_tpu_torch.tasks.multitask_mixin import MultitaskTaskMixin
+
+    specs = MultitaskTaskMixin.aux_task_specs(types.SimpleNamespace(multitask_tasks=tasks))
+    torch.manual_seed(19)
+    with torch.device("cuda"):
+        return NARS2UTModule(n_frames_per_step=OPT_K, multitask=specs,
+                             ctc_vocab=len(OPT_LETTERS) + 4, target_speaker_embed=True,
+                             speaker_embed_dim=OPT_SPK_DIM, **kw)
+
+
+def run_options_train(torch, mods, tasks, smi):
+    """Phase 19, training: one update at phase 10's CVSS shape and one in
+    long form, each through the kernels and through the plain versions from
+    one initialization and one set of generators (attention dropout 0), with
+    the loss, gradient norm and every aux term held to phase 10's bounds;
+    the flash_attention launches per long-form forward (training and
+    validation). Returns the launches of the kernel runs."""
+    import numpy as np
+
+    from diffnorm_tpu_torch.criterions.nar_loss import NARSpeechToUnitLoss
+    from diffnorm_tpu_torch.ops import _build
+    from diffnorm_tpu_torch.train.trainer import Trainer, TrainerConfig
+
+    rng = np.random.default_rng(190)
+    hi = NAR_MAX_TOKENS // NAR_B
+    cvss = options_batch(rng, tasks, np.sort(rng.integers(300, hi + 1, NAR_B))[::-1],
+                         rng.integers(100, 251, NAR_B).tolist())
+    long = options_batch(rng, tasks, [LONG_FRAMES, LONG_FRAMES // 2], [600, 300])
+    terms = ["loss", "gnorm", "nll_loss", "ctc_loss"] + [f"multitask_{n}_loss" for n in tasks]
+    launches = 0
+    for what, batch in (("CVSS-shaped", cvss), ("long form", long)):
+        runs = {}
+        for version in ("kernels", "plain"):
+            model = options_model(torch, tasks, attention_dropout=0.0)
+            trainer = Trainer(TrainerConfig(**NAR_TRAIN), model,
+                              NARSpeechToUnitLoss(0.2, multitask=tasks))
+            with plain_versions(*mods) if version == "plain" else contextlib.nullcontext():
+                # warm-up: a validation forward draws nothing and leaves the
+                # statistics alone, so both runs still start alike
+                trainer.valid_step(batch, torch.Generator(device="cuda").manual_seed(0))
+                torch.cuda.synchronize()
+                torch.cuda.reset_peak_memory_stats()
+                _build.launch_counts.clear()
+                t1 = time.perf_counter()
+                mets = trainer.train_step([batch])
+                torch.cuda.synchronize()
+                ms = 1e3 * (time.perf_counter() - t1)
+                peak = torch.cuda.max_memory_allocated() / 1e9
+                n_train = _build.launch_counts.get("flash_attention", 0)
+                _build.launch_counts.clear()
+                trainer.valid_step(batch, torch.Generator(device="cuda").manual_seed(0))
+                n_valid = _build.launch_counts.get("flash_attention", 0)
+                if what == "CVSS-shaped":
+                    # the first update of a process pays one-time costs: time a
+                    # second, and profile a third
+                    t1 = time.perf_counter()
+                    trainer.train_step([batch])
+                    torch.cuda.synchronize()
+                    ms = 1e3 * (time.perf_counter() - t1)
+                    if version == "kernels":
+                        profile_run(torch, lambda: trainer.train_step([batch]), ms / 1e3)
+            runs[version] = (mets, ms, peak, n_train, n_valid)
+            del model, trainer
+        (mk, ms_k, peak_k, n_train, n_valid), (mp, ms_p, _, _, _) = runs["kernels"], runs["plain"]
+        want = OPT_FLASH_PER_FORWARD if what == "long form" else 0
+        if n_train != want or n_valid != want:
+            fail(f"options train {what}: flash_attention launched {n_train} times in the training "
+                 f"forward and {n_valid} in validation, expected {want} each")
+        launches += n_train + n_valid
+        rel = {k: abs(mk[k] - mp[k]) / max(abs(mp[k]), 1e-12) for k in terms}
+        if not all(math.isfinite(mk[k]) for k in terms):
+            fail(f"options train {what}: non-finite metrics {mk}")
+        bad = {k: v for k, v in rel.items()
+               if v > (TRAIN_GNORM_REL if k == "gnorm" else TRAIN_LOSS_REL)}
+        if bad:
+            fail(f"options train {what}: kernels against plain versions {bad}")
+        b, t = batch["src_tokens"].shape[:2]
+        which = "the second update" if what == "CVSS-shaped" else "the first update"
+        print(f"options train {what}: B{b} x {t} padded frames, {batch['target'].shape[1]} "
+              f"packed steps x {OPT_K}, aux heads {list(tasks)}, the CTC head and 256-d "
+              f"speakers, bf16 forward: {which} {ms_k:.1f} ms (plain versions {ms_p:.1f} ms), "
+              f"peak {peak_k:.2f} GB; " + ", ".join(f"{k} {mk[k]:.5f}" for k in terms)
+              + "; rel to the plain-version run " + ", ".join(f"{k} {v:.2e}"
+                                                              for k, v in rel.items())
+              + f"; flash_attention launches per forward: training {n_train}, validation "
+              f"{n_valid}; {smi}")
+    return launches
+
+
+def options_decode_model(torch, tasks):
+    """The options model in bf16 eval mode, its sub-frame output rows of the
+    specials zeroed and the unit rows scaled by 10 (s2st_models' move), so
+    the decode emits varied units."""
+    nar = options_model(torch, tasks)
+    with torch.no_grad():
+        w = nar.decoder.subframe_out.weight
+        w[:4] = 0.0
+        w[4:] *= 10.0
+    return nar.to(torch.bfloat16).eval()
+
+
+def run_options_decode(torch, nar, mods, smi):
+    """Phase 19, decode: mask_predict_decode of the stacked,
+    speaker-conditioned model at B16 x 480 and B2 x 8448 through the kernels
+    and through the plain versions (units equal at CVSS length, phase 6's
+    share in long form). Returns the launches of the kernel runs."""
+    import numpy as np
+
+    from diffnorm_tpu_torch.generate.mask_predict import mask_predict_decode
+    from diffnorm_tpu_torch.ops import _build
+
+    launches = 0
+    for what, b, frames in (("CVSS length", S2ST_B, S2ST_FRAMES),
+                            ("long form", LONG_B, LONG_FRAMES)):
+        src, lengths = s2st_inputs(torch, b, frames)
+        spk = torch.from_numpy(np.random.default_rng(191).normal(
+            size=(b, OPT_SPK_DIM)).astype(np.float32)).cuda()
+        kw = dict(max_iter=S2ST_KW["max_iter"], max_len=S2ST_KW["max_len"], tgt_speaker=spk)
+        mask_predict_decode(nar, src, lengths, **kw)  # warm-up
+        torch.cuda.synchronize()
+        _build.launch_counts.clear()
+        t1 = time.perf_counter()
+        tokens, _, steps = mask_predict_decode(nar, src, lengths, **kw)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t1
+        n_flash = _build.launch_counts.get("flash_attention", 0)
+        launches += n_flash
+        with plain_versions(*mods):
+            ref, _, _ = mask_predict_decode(nar, src, lengths, **kw)
+        forwards = int(steps.max())
+        want = nar.decoder.n_layers * forwards if frames == LONG_FRAMES else 0
+        if n_flash < want or (not want and n_flash):
+            fail(f"options decode {what}: flash_attention launched {n_flash} times for "
+                 f"{forwards} decoder forwards")
+        units = (tokens >= 4) & (ref >= 4)
+        agree = ((tokens == ref) & units).sum().item() / max(units.sum().item(), 1)
+        if tokens.shape != (b, S2ST_KW["max_len"] * OPT_K) or (tokens >= 1004).any():
+            fail(f"options decode {what}: tokens {tuple(tokens.shape)} out of range")
+        if (what == "CVSS length" and not torch.equal(tokens, ref)) or agree < LONG_UNIT_AGREE:
+            fail(f"options decode {what}: against the plain-version run, share of equal "
+                 f"units {agree:.4f}")
+        print(f"options decode {what}: B{b} x {frames} frames, k {OPT_K}, 256-d speakers, bf16: "
+              f"wall {wall:.4f} s, iterations per row {steps.tolist()}, units per row "
+              f"{(tokens >= 4).sum(1).tolist()}, flash_attention launches {n_flash}; against "
+              f"the plain-version run {'equal' if torch.equal(tokens, ref) else 'differ'} "
+              f"(share of equal units {agree:.4f}); {smi}")
+    return launches
+
+
+def run_options_s2st(torch, nar, smi):
+    """Phase 19, S2ST: s2st_generate of the options model with the released
+    code-HiFi-GAN made multi-speaker (OPT_SPEAKERS seeded speakers), each
+    row its own speaker and target-speaker embedding, at B16 x 480: the
+    median wall of 3 runs and the RTF."""
+    import numpy as np
+
+    from diffnorm_tpu_torch.generate.s2st import s2st_generate
+    from diffnorm_tpu_torch.models.hifigan import CodeHiFiGANVocoder
+
+    torch.manual_seed(192)
+    voc = CodeHiFiGANVocoder.from_config(dict(VOCODER_CFG, multispkr=True,
+                                              num_speakers=OPT_SPEAKERS),
+                                         device="cuda", dtype=torch.bfloat16).module
+    src, lengths = s2st_inputs(torch, S2ST_B, S2ST_FRAMES)
+    spk = torch.from_numpy(np.random.default_rng(193).normal(
+        size=(S2ST_B, OPT_SPK_DIM)).astype(np.float32)).cuda()
+    spkr = torch.arange(S2ST_B, device="cuda") * 7 % OPT_SPEAKERS
+    walls = []
+    for _ in range(4):  # a warm-up, then 3 timed
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        wav, wav_lengths, units, counts, steps = s2st_generate(
+            nar, voc, src, lengths, tgt_speaker=spk, spkr=spkr, **S2ST_KW)
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t1)
+    wall = statistics.median(walls[1:])
+    n_wav = S2ST_KW["max_wav_units"] * voc.upsample
+    if wav.shape != (S2ST_B, n_wav) or not torch.isfinite(wav.float()).all() or \
+            counts.min() < 1:
+        fail(f"options S2ST: waveform {tuple(wav.shape)} (finite: "
+             f"{bool(torch.isfinite(wav.float()).all())}), unit counts {counts.tolist()}")
+    audio_s = S2ST_B * S2ST_FRAMES * SECONDS_PER_FRAME
+    print(f"options S2ST: B{S2ST_B} x {S2ST_FRAMES} frames, stacked and speaker-conditioned "
+          f"NAR, multi-speaker vocoder ({OPT_SPEAKERS} speakers, one per row), bf16: wall "
+          f"{wall:.4f} s (median of 3), RTF {audio_s / wall:.2f}, unit counts "
+          f"{counts.tolist()}; {smi}")
+    del voc
+
+
+def run_options_cli(torch, smi):
+    """Phase 19, the CLIs: cli.train for 2 updates on phase 11's corpus with
+    a speaker directory and the aux tasks' letter targets (every option's
+    flag), then cli.generate on the step directory: its H- units equal an
+    in-process decode of the same weights and batches. Returns cli.generate's
+    flash_attention launches."""
+    import numpy as np
+
+    from diffnorm_tpu_torch.cli import generate
+    from diffnorm_tpu_torch.cli import train as train_cli
+    from diffnorm_tpu_torch.cli.generate import strip_special
+    from diffnorm_tpu_torch.cli.s2st import build_model
+    from diffnorm_tpu_torch.data.dictionary import Dictionary
+    from diffnorm_tpu_torch.data.iterators import EpochBatchIterator
+    from diffnorm_tpu_torch.data.manifest import read_translation_manifest
+    from diffnorm_tpu_torch.data.s2s_dataset import SpeechToUnitDataset
+    from diffnorm_tpu_torch.generate.mask_predict import mask_predict_decode
+    from diffnorm_tpu_torch.ops import _build
+
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = Path(tmp)
+        write_nar_corpus(tmp)
+        rng = np.random.default_rng(194)
+        units = {}
+        (tmp / "spk").mkdir()
+        for split in ("train", "dev", "test"):
+            rows = read_translation_manifest(str(tmp / f"{split}.tsv"))
+            units[split] = {r["id"]: int(r["tgt_n_frames"]) for r in rows}
+            lines = ["id\tspeaker_embed"]
+            for r in rows:
+                np.save(tmp / "spk" / f"{r['id']}.npy",
+                        rng.normal(size=(OPT_SPK_DIM,)).astype(np.float32))
+                lines.append(f"{r['id']}\t{r['id']}.npy")
+            (tmp / "spk" / f"{split}.tsv").write_text("\n".join(lines) + "\n")
+        with open(tmp / "config.yaml", "a") as f:
+            f.write("target_speaker_embed: spk\n")
+        write_options_data(tmp, rng, {s: units[s] for s in ("train", "dev")})
+        options = ["--n-frames-per-step", str(OPT_K), "--target-speaker-embed",
+                   "--speaker-embed-dim", str(OPT_SPK_DIM)]
+        save_dir = tmp / "nar"
+        args = [str(tmp), "--task", "speech_to_speech_fasttranslate", "--target-code-size",
+                "1000", "--arch", "nar_s2ut_conformer", "--save-dir", str(save_dir),
+                "--lr", "5e-4", "--warmup-updates", "10000", "--clip-norm", "10.0",
+                "--max-update", "2", "--max-tokens", "8000", "--max-target-positions", "1024",
+                "--seed", "42", "--validate-interval", "5", "--save-interval", "5",
+                "--dtype", "bfloat16", "--log-interval", "1", "--multitask-config-yaml",
+                "multitask.yaml", "--multitask-ctc-vocab", str(len(OPT_LETTERS) + 4), *options,
+                *EVAL_WIDTH_FLAGS]
+        lines = LogLines()
+        logging.getLogger("diffnorm_tpu_torch.train").addHandler(lines)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        if train_cli.main(args) != 0:
+            fail("options cli.train failed")
+        train_s = time.perf_counter() - t0
+        logging.getLogger("diffnorm_tpu_torch.train").removeHandler(lines)
+        log = "\n".join(lines.lines)
+        missing = [n for n in ["saved checkpoint at step 2", "valid |", "| step"]
+                   + [f"multitask_{name}_loss" for name, *_ in OPT_TASKS] if n not in log]
+        if missing:
+            fail(f"options cli.train: log lacks {missing}")
+        steps = [line for line in lines.lines if "| step" in line]
+        step_dir = save_dir / "step_000000002"
+        out = tmp / "gen"
+        gen_args = [str(tmp), "--path", str(step_dir), "--gen-subset", "test",
+                    "--max-tokens", str(EVAL_MAX_TOKENS), "--iter-decode-max-iter",
+                    str(EVAL_MAX_ITER), *options, *EVAL_WIDTH_FLAGS]
+        torch.cuda.synchronize()
+        _build.launch_counts.clear()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(io.StringIO()):
+            rc = generate.main(gen_args + ["--results-path", str(out)])
+        torch.cuda.synchronize()
+        gen_s = time.perf_counter() - t0
+        launches = _build.launch_counts.get("flash_attention", 0)
+        if rc != 0:
+            fail(f"options cli.generate returned {rc}")
+        got = read_hyps(out / "generate-test.txt")
+        gargs = generate.parse_args(gen_args)
+        nar = build_model(gargs, str(step_dir), torch.device("cuda"), torch.bfloat16)
+        tgt_dict = Dictionary.unit_dictionary(1000)
+        ds = SpeechToUnitDataset.from_tsv(str(tmp), "test", tgt_dict=tgt_dict)
+        want = {}
+        for batch in EpochBatchIterator(ds, EVAL_MAX_TOKENS, shuffle=False).next_epoch_itr():
+            tokens, _, _ = mask_predict_decode(
+                nar, torch.from_numpy(batch["src_tokens"]).cuda(),
+                torch.from_numpy(batch["src_lengths"]).cuda(), max_iter=EVAL_MAX_ITER,
+                max_len=256, tgt_speaker=torch.from_numpy(batch["tgt_speaker"]).cuda())
+            for row, sid in zip(tokens.cpu().numpy(), batch["id"].tolist()):
+                want[sid] = strip_special(row, tgt_dict)
+        if got != want:
+            fail(f"options cli.generate: H- units differ from the in-process decode on "
+                 f"{sorted(k for k in want if got.get(k) != want[k])}")
+        print(f"phase options entry points: cli.train {train_s:.2f} s for 2 updates (released "
+              f"widths, bf16, every option's flag, 24 WAV utterances of 3-7 s; last step: "
+              f"{steps[-1]}); cli.generate {gen_s:.2f} s, its H- units (units per line "
+              f"{[len(u.split()) for _, u in sorted(got.items())]}) equal an in-process "
+              f"decode; {smi}")
+    return launches
+
+
+def run_options(torch, mods, smi):
+    """Phase 19: the NAR model's options at the released widths (see the
+    module docstring). Returns the flash_attention launches."""
+    from diffnorm_tpu_torch.data.multitask import MultitaskConfig
+
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        import numpy as np
+
+        tasks = MultitaskConfig(str(write_options_data(
+            Path(tmp), np.random.default_rng(195)))).get_all_tasks()
+        launches = run_options_train(torch, mods, tasks, smi)
+        nar = options_decode_model(torch, tasks)
+    launches += run_options_decode(torch, nar, mods, smi)
+    run_options_s2st(torch, nar, smi)
+    del nar
+    launches += run_options_cli(torch, smi)
+    print(f"phase options: {time.perf_counter() - t0:.1f} s")
+    return launches
+
+
 def main() -> int:
     try:
         import torch
@@ -3355,6 +3776,10 @@ def main() -> int:
     ckpt_launches = run_checkpoints_in(torch, mods, smi)
     for name, n in ckpt_launches.items():
         launches[name] += n
+
+    # 19. the NAR model's options: stacked units, aux and CTC heads, target
+    # speakers, the multi-speaker vocoder; training, decode, S2ST, the CLIs
+    launches["flash_attention"] += run_options(torch, mods, smi)
 
     sources = {
         "rms_norm_film": ("rms_norm_film.cu", "diffnorm_tpu/ops/pallas_norm.py:34"),

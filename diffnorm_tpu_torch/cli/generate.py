@@ -26,6 +26,13 @@ keyed by sentence id, or plain unit lines keyed by line number; a canvas is
 len(units) + 1). Runs on the GPU (bf16 unless --dtype says otherwise)
 unless --cpu is given, which runs in float32.
 
+A stacked-unit model (`--n-frames-per-step k`) decodes packed steps and
+writes the full-rate units; `--target-speaker-embed` conditions each
+sentence on the speaker embedding the data config names.
+`--post-process S` / `--remove-bpe S` detokenize the D- line and the
+reference by `data.encoders.post_process` (e.g. letter, subword_nmt), and
+the score reads those.
+
 `--quant-int8` decodes with JAX's int8 W8A8 NAR model (per-token dynamic
 activation scales); with `--quant-int8-static` as well, every site's static
 activation scale is calibrated on the first batch (`calibrate_act_scales`,
@@ -34,8 +41,8 @@ those scales. `--quant-int8-static` alone does nothing, as in JAX.
 
 Not ported, and raising NotImplementedError: the other tasks and
 architectures (AR S2UT, UnitY, TTS, LevT: ROADMAP Queue 1 item 7), and
---post-process / --remove-bpe, --retain-iter-history, the AR reranker,
---decode-chunk and ensembles (a --path holding ':') (item 4).
+--retain-iter-history, the AR reranker, --decode-chunk and ensembles (a
+--path holding ':') (item 4).
 """
 
 from __future__ import annotations
@@ -51,6 +58,7 @@ import torch
 
 from diffnorm_tpu_torch.cli.s2st import add_model_args, build_model, resolve_device_dtype
 from diffnorm_tpu_torch.data.dictionary import Dictionary
+from diffnorm_tpu_torch.data.encoders import post_process
 from diffnorm_tpu_torch.data.iterators import EpochBatchIterator
 from diffnorm_tpu_torch.data.s2s_dataset import SpeechToUnitDataset
 from diffnorm_tpu_torch.eval.bleu import BleuAccumulator
@@ -65,8 +73,6 @@ PAD, EOS = 1, 2
 TASK, ARCH = "speech_to_speech_fasttranslate", "nar_s2ut_conformer"
 # flags of the JAX CLI's other branches: flag -> the ROADMAP item that ports it
 UNPORTED = {
-    "--post-process": "Queue 1 item 4",
-    "--remove-bpe": "Queue 1 item 4",
     "--retain-iter-history": "Queue 1 item 4",
     "--rerank-path": "Queue 1 item 4 (the AR reranker)",
     "--decode-chunk": "Queue 1 item 4",
@@ -122,6 +128,9 @@ def parse_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
     p.add_argument("--cond-scale", type=float, default=1.0)
     p.add_argument("--init-unit-file", default=None)
     p.add_argument("--scoring", choices=("bleu", "sacrebleu", "wer"), default="bleu")
+    p.add_argument("--post-process", help="detokenize D- lines and references "
+                                          "(data.encoders.post_process)")
+    p.add_argument("--remove-bpe", help="--post-process's other name")
     p.add_argument("--seed", type=int, default=1, help="accepted; mask-predict draws nothing")
     p.add_argument("--quant-int8", action="store_true", help="the int8 W8A8 NAR model")
     p.add_argument("--quant-int8-static", action="store_true",
@@ -156,6 +165,7 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
     model = build_model(args, args.path, device, dtype, quant_int8=args.quant_int8)
     logger.info("restored checkpoint from %s", args.path)
     calibrate = args.quant_int8 and args.quant_int8_static
+    pp_symbol = args.post_process or args.remove_bpe
     init_lengths = None
     if args.init_unit_file:
         init_lengths = read_init_lengths(args.init_unit_file)
@@ -185,12 +195,15 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
             if init_lengths is not None:
                 true_length = torch.tensor([init_length(init_lengths, int(i))
                                             for i in batch["id"]], device=device)
+            tgt_speaker = batch.get("tgt_speaker")
             tokens, scores, steps = mask_predict_decode(
                 model, torch.from_numpy(batch["src_tokens"]).to(device),
                 torch.from_numpy(batch["src_lengths"]).to(device),
                 max_iter=args.iter_decode_max_iter, max_len=min(args.max_target_positions, 256),
                 cond_scale=args.cond_scale, length_beam=beam, true_length=true_length,
-                adaptive=not args.iter_decode_force_max_iter)
+                adaptive=not args.iter_decode_force_max_iter,
+                tgt_speaker=(None if tgt_speaker is None
+                             else torch.from_numpy(tgt_speaker).to(device)))
             tokens, scores = tokens.cpu().numpy(), scores.cpu().numpy()
             total_steps += int(steps.sum())
             for i, sid in enumerate(batch["id"].tolist()):
@@ -198,16 +211,19 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
                 ref = strip_special(batch["target"][i], tgt_dict)
                 keep = tokens[i] != PAD
                 score = float(scores[i][keep].mean()) if keep.any() else 0.0
+                hyp_d = hyp
+                if pp_symbol:
+                    hyp_d, ref = post_process(hyp, pp_symbol), post_process(ref, pp_symbol)
                 print(f"T-{sid}\t{ref}", file=out_f)
                 print(f"H-{sid}\t{score:.4f}\t{hyp}", file=out_f)
-                print(f"D-{sid}\t{score:.4f}\t{hyp}", file=out_f)
+                print(f"D-{sid}\t{score:.4f}\t{hyp_d}", file=out_f)
                 if args.scoring == "sacrebleu":
-                    sb_hyps.append(hyp)
+                    sb_hyps.append(hyp_d)
                     sb_refs.append(ref)
                 elif args.scoring == "wer":
-                    wer.add(ref, hyp)
+                    wer.add(ref, hyp_d)
                 else:
-                    bleu.add(ref.split(), hyp.split())
+                    bleu.add(ref.split(), hyp_d.split())
                 n_sent += 1
         wall = time.time() - t0
         logger.info("decoded %d sentences in %.1fs (%.2f sent/s, avg %.1f iters)",

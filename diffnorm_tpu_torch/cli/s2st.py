@@ -15,6 +15,10 @@ GPU (bf16 unless --dtype says otherwise) unless --cpu is given, which runs
 in float32. `--params-npz` / `--vocoder-npz` are JAX variables trees
 ({"params", "batch_stats"}) in the format of `weights.save_npz`;
 `--params-npz` may also name a `cli.train` checkpoint step directory.
+`--n-frames-per-step`, `--target-speaker-embed` and `--speaker-embed-dim`
+give the model's options (a data config with `target_speaker_embed`
+conditions each utterance on its speaker embedding). As in JAX, the CLI
+passes no vocoder speaker, so a multi-speaker vocoder (`multispkr`) raises.
 """
 
 from __future__ import annotations
@@ -69,8 +73,9 @@ def parse_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
 
 
 def add_model_args(p: argparse.ArgumentParser) -> None:
-    """--dtype, --cpu and the nar_s2ut_conformer shape flags
-    (nar_transformer.py's arch defaults), which `build_model` reads."""
+    """--dtype, --cpu, the nar_s2ut_conformer shape flags
+    (nar_transformer.py's arch defaults) and its inference options, which
+    `build_model` reads."""
     p.add_argument("--dtype", choices=sorted(DTYPES), default=None,
                    help="model dtype (default bfloat16 on the GPU, float32 with --cpu)")
     p.add_argument("--cpu", action="store_true", help="run on the CPU")
@@ -87,6 +92,10 @@ def add_model_args(p: argparse.ArgumentParser) -> None:
     p.add_argument("--depthwise-conv-kernel-size", type=int, default=31)
     p.add_argument("--conv-channels", type=int, default=1024)
     p.add_argument("--conv-kernel-sizes", default="5,5")
+    p.add_argument("--n-frames-per-step", type=int, default=1)
+    p.add_argument("--target-speaker-embed", action="store_true",
+                   help="the model conditions its encoder on a speaker embedding")
+    p.add_argument("--speaker-embed-dim", type=int, default=256)
 
 
 def resolve_device_dtype(args: argparse.Namespace):
@@ -103,7 +112,9 @@ def build_model(args: argparse.Namespace, path: str, device: torch.device,
     """The model of the shape flags with the weights of `path` (a
     `weights.save_npz` file or a cli.train step directory), int8 with
     `quant_int8`: the weights load in float32, which packs the int8 weights
-    from the float32 masters, and the model is cast to `dtype` after."""
+    from the float32 masters, and the model is cast to `dtype` after. The
+    training-only heads of a checkpoint (the aux heads `mt_*` and the CTC
+    head `ctc_proj`, which no decode runs) are left out."""
     with torch.device(device):
         model = NARS2UTModule(
             vocab_size=args.target_code_size + 4, in_channels=args.input_feat_per_channel,
@@ -115,8 +126,13 @@ def build_model(args: argparse.Namespace, path: str, device: torch.device,
             depthwise_kernel_size=args.depthwise_conv_kernel_size,
             conv_channels=args.conv_channels,
             conv_kernel_sizes=tuple(int(k) for k in args.conv_kernel_sizes.split(",")),
-            quant_int8=quant_int8)
-    from_jax_variables(model, load_variables(path))
+            quant_int8=quant_int8, n_frames_per_step=args.n_frames_per_step,
+            target_speaker_embed=args.target_speaker_embed,
+            speaker_embed_dim=args.speaker_embed_dim)
+    variables = load_variables(path)
+    variables["params"] = {k: v for k, v in variables["params"].items()
+                           if not (k.startswith("mt_") or k == "ctc_proj")}
+    from_jax_variables(model, variables)
     return model.to(dtype).eval()
 
 
@@ -139,13 +155,15 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
         pad = bucket(src.shape[1]) - src.shape[1]
         if pad:
             src = np.pad(src, ((0, 0), (0, pad), (0, 0)))
+        tgt_speaker = batch.get("tgt_speaker")
         wav, wav_lengths, units, counts = s2st_generate(
             model, vocoder, torch.from_numpy(src).to(device),
             torch.from_numpy(batch["src_lengths"]).to(device),
             max_iter=args.iter_decode_max_iter, max_len=args.max_target_positions,
             cond_scale=args.cond_scale, length_beam=args.iter_decode_with_beam,
             dur_prediction=args.dur_prediction, max_duration=args.max_duration,
-            vocoder_chunk=args.vocoder_chunk)
+            vocoder_chunk=args.vocoder_chunk,
+            tgt_speaker=None if tgt_speaker is None else torch.from_numpy(tgt_speaker).to(device))
         wav = wav.float().cpu().numpy()
         wav_lengths, units, counts = (t.cpu().numpy() for t in (wav_lengths, units, counts))
         for row, index in enumerate(batch["id"]):

@@ -6,8 +6,14 @@ stage); `--task unit_to_speech` goes to `cli.train_vocoder` with the other
 arguments, as JAX's does. It takes every flag of scripts/vae_train.sh,
 scripts/diffusion_train.sh and scripts/s2ut_train.sh with the same meaning;
 a flag it does not implement is an error, and the NAR features not ported
-(encoder remat, multitask and CTC heads, target speaker, int8 training,
-n_frames_per_step > 1) raise.
+(encoder remat, int8 training) raise. The NAR model's options:
+--n-frames-per-step k (stacked units), --multitask-config-yaml Y (aux
+heads, Y relative to DATA; each task's loss weight follows the update
+count as JAX's does, which prepares each batch two updates ahead of its
+step), --multitask-ctc-vocab N (the CTC head over the encoder, scored
+against a batch's ctc_target) and
+--target-speaker-embed with --speaker-embed-dim D (the speaker embeddings
+named by the data config's target_speaker_embed directory).
 
   python -m diffnorm_tpu_torch.cli.train $DATA --tgt-feat-dir $FEAT \\
       --task speech_decoder --target-code-size 1000 \\
@@ -82,8 +88,7 @@ STAGES = {  # task: (criterion, its architectures)
     NAR_TASK: ("nar_speech_to_unit", tuple(NAR_ARCHS)),
 }
 # flags of the JAX CLI's NAR model that the port does not implement
-UNPORTED = ("encoder_remat", "multitask_config_yaml", "multitask_ctc_vocab",
-            "target_speaker_embed", "quant_int8")
+UNPORTED = ("encoder_remat", "quant_int8")
 
 
 def _bool(value: str) -> bool:
@@ -160,7 +165,14 @@ def build_parser(description: str, train: bool = True) -> argparse.ArgumentParse
     _flag(p, "--use-sp", help="self-prompting")
     _flag(p, "--use-side", help="the side mask in half of the CMLM canvases")
     p.add_argument("--label-smoothing", type=float, default=0.2)
-    p.add_argument("--n-frames-per-step", type=int, default=1)
+    p.add_argument("--n-frames-per-step", type=int, default=1,
+                   help="units per decoder step (stacked units when > 1)")
+    p.add_argument("--multitask-config-yaml",
+                   help="the aux tasks' YAML, relative to DATA")
+    p.add_argument("--multitask-ctc-vocab", type=int, default=0,
+                   help="the vocabulary of a CTC head over the encoder (0: none)")
+    _flag(p, "--target-speaker-embed", help="condition the encoder on a speaker embedding")
+    p.add_argument("--speaker-embed-dim", type=int, default=256)
     for name in UNPORTED:
         p.add_argument("--" + name.replace("_", "-"), nargs="?", const=True, default=None,
                        help="not ported: raises")
@@ -351,6 +363,8 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
     np_rng = np.random.default_rng(args.seed)  # the batches' draws (the CMLM canvases)
 
     def run_validation() -> Optional[float]:
+        if hasattr(task, "set_num_updates"):
+            task.set_num_updates(trainer.num_updates)
         vals = validate_split(task, trainer, args, np_rng, device, args.valid_subset)
         if vals is None:
             return None
@@ -367,6 +381,11 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
     while not done:
         interval, t0, first = [], time.time(), step
         for micro in grouped(epoch_itr.next_epoch_itr(), args.update_freq):
+            if hasattr(task, "set_num_updates"):
+                # JAX prepares each group two ahead of its step (its device
+                # prefetch reads ahead by 2), so the loss weights it injects
+                # follow the update count of two steps before, within an epoch
+                task.set_num_updates(max(first, step - 2))
             mets = trainer.train_step([task.prepare_batch(b, np_rng) for b in micro])
             step = trainer.num_updates
             interval.append(mets)

@@ -97,7 +97,9 @@ def build_generator(vcfg: dict) -> CodeGenerator:
     """The config's CodeGenerator, as CodeHiFiGANVocoder.from_config builds
     it, so a fine-tuned step directory loads back at synthesis."""
     if vcfg.get("multispkr"):
-        raise NotImplementedError("the multi-speaker vocoder is not ported")
+        # JAX's cli/train_vocoder.py:74-83 builds a single-speaker generator
+        # whatever the config says: there is no multi-speaker fine-tune to port
+        raise NotImplementedError("the multi-speaker vocoder's fine-tune is not ported")
     dur = vcfg.get("dur_predictor_params") or {}
     return CodeGenerator(
         num_embeddings=vcfg["num_embeddings"], embedding_dim=vcfg["embedding_dim"],

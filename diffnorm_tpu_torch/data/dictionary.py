@@ -1,22 +1,30 @@
-"""The unit dictionary (the port's copy of what training and generation use
+"""Symbol dictionaries (the port's copy of what training and generation use
 of diffnorm_tpu/data/dictionary.py): bos=0 <s>, pad=1 <pad>, eos=2 </s>,
-unk=3 <unk>, then the units "0".."K-1", so unit k is index k + 4."""
+unk=3 <unk>, then the symbols. The unit dictionary's symbols are the units
+"0".."K-1", so unit k is index k + 4; `load` reads a fairseq dictionary file
+(`symbol count` lines, the multitask tasks' letter dictionaries)."""
 
 from __future__ import annotations
+
+from typing import Iterable
 
 import numpy as np
 
 SPECIALS = ("<s>", "<pad>", "</s>", "<unk>")
-EOS, UNK = 2, 3
+BOS, EOS, UNK = 0, 2, 3
 
 
 class Dictionary:
     nspecial = len(SPECIALS)
 
-    def __init__(self, num_units: int):
-        self.num_units = num_units
-        self.symbols = list(SPECIALS) + [str(u) for u in range(num_units)]
-        self.indices = {s: i for i, s in enumerate(self.symbols)}
+    def __init__(self, num_units: int = 0, symbols: Iterable[str] = ()):
+        """The specials, the units "0".."num_units-1", then `symbols`; a
+        symbol already present keeps its first index."""
+        self.symbols, self.indices = [], {}
+        for sym in [*SPECIALS, *(str(u) for u in range(num_units)), *symbols]:
+            if sym not in self.indices:
+                self.indices[sym] = len(self.symbols)
+                self.symbols.append(sym)
 
     def __len__(self) -> int:
         return len(self.symbols)
@@ -29,6 +37,34 @@ class Dictionary:
     def unit_dictionary(cls, num_units: int) -> "Dictionary":
         """Units 0..num_units-1; len == num_units + 4."""
         return cls(num_units)
+
+    @classmethod
+    def load(cls, path: str) -> "Dictionary":
+        """A fairseq dictionary file: one `symbol count` line per symbol (a
+        line without a count, or whose last field is not an integer, is the
+        symbol alone)."""
+        symbols = []
+        with open(path) as f:
+            for line in f:
+                line = line.rstrip()
+                if not line:
+                    continue
+                sym, space, count = line.rpartition(" ")
+                try:
+                    int(count)
+                except ValueError:
+                    space = ""
+                symbols.append(sym if space else line)
+        return cls(symbols=symbols)
+
+    def index(self, sym: str) -> int:
+        return self.indices.get(sym, UNK)
+
+    def bos(self) -> int:
+        return BOS
+
+    def unk(self) -> int:
+        return UNK
 
     def encode_line(self, line: str, append_eos: bool = True) -> np.ndarray:
         """The indices of a space-separated symbol line (an unknown symbol

@@ -11,9 +11,15 @@ seeded from `seed` on train splits and in manifest order otherwise; the
 collater sorts a batch by descending source length and pads the source (with
 zeros) and the target (with pad = 1) to their length buckets, as JAX's does.
 
-Not ported, and raising: `use_audio_input`, `target_speaker_embed`, the
-dataset transforms (`concataugment`, `noisyoverlapaugment`) and multitask
-targets.
+The config's `target_speaker_embed` names a directory whose `{split}.tsv`
+(columns id, speaker_embed) gives each utterance's speaker-embedding `.npy`,
+joined by id (reference speech_to_speech_dataset.py:90-96); the collater
+stacks them as `tgt_speaker` [B, D]. `add_multitask` joins an aux task's
+text targets (`data/multitask.py`), collated per task under
+`batch["multitask"][name]` and padded to their length bucket.
+
+Not ported, and raising: `use_audio_input` and the dataset transforms
+(`concataugment`, `noisyoverlapaugment`).
 """
 
 from __future__ import annotations
@@ -31,17 +37,19 @@ from diffnorm_tpu_torch.data.audio import (
 from diffnorm_tpu_torch.data.batching import bucket_length
 from diffnorm_tpu_torch.data.dictionary import Dictionary
 from diffnorm_tpu_torch.data.manifest import read_translation_manifest
+from diffnorm_tpu_torch.data.multitask import collate_text_targets
 
 PAD = 1
-UNPORTED_CONFIG = ("use_audio_input", "target_speaker_embed")
+UNPORTED_CONFIG = ("use_audio_input",)
 
 
 class SpeechToUnitDataset:
     def __init__(self, ids: List[str], src_audio_paths: List[str], src_n_frames: List[int],
                  tgt_units: Optional[List[np.ndarray]] = None, data_cfg: Optional[dict] = None,
-                 is_train: bool = False, seed: int = 1):
+                 is_train: bool = False, seed: int = 1,
+                 tgt_speakers: Optional[List[str]] = None):
         """tgt_units: dictionary-encoded targets with EOS appended (None for
-        inference)."""
+        inference); tgt_speakers: each utterance's speaker-embedding path."""
         self.ids = ids
         self.src_audio_paths = src_audio_paths
         self.src_n_frames = np.asarray(src_n_frames, dtype=np.int64)
@@ -58,6 +66,13 @@ class SpeechToUnitDataset:
             raise NotImplementedError(f"dataset transforms {names} are not ported")
         self.feature_transforms = build_feature_transforms(self.data_cfg, is_train)
         self._rng = np.random.default_rng(seed)  # SpecAugment's draws
+        self.tgt_speakers = tgt_speakers
+        self.multitask_data: Dict[str, Dict] = {}
+
+    def add_multitask(self, name: str, text_data, decoder_type: str) -> None:
+        """Attach one aux task's per-sample text targets (TextTargetData);
+        a transformer task's batch entry also gets prev_output_tokens."""
+        self.multitask_data[name] = {"data": text_data, "with_prev": decoder_type != "ctc"}
 
     def __len__(self):
         return len(self.ids)
@@ -83,6 +98,15 @@ class SpeechToUnitDataset:
         sample = {"index": index, "source": feat}
         if self.tgt_units is not None:
             sample["target"] = self.tgt_units[index]
+        if self.tgt_speakers is not None:
+            sample["tgt_speaker"] = np.asarray(
+                get_features_or_waveform(self.tgt_speakers[index]), np.float32).reshape(-1)
+        if self.multitask_data:
+            sample["multitask"] = {}
+            for name, mt in self.multitask_data.items():
+                enc = mt["data"].get(self.ids[index])
+                # an absent id gets an empty target (the reference warns)
+                sample["multitask"][name] = np.zeros((0,), np.int32) if enc is None else enc
         return sample
 
     def collater(self, samples: List[Dict]) -> Dict:
@@ -101,6 +125,15 @@ class SpeechToUnitDataset:
                 tgt[i, :tgt_lens[i]] = s["target"]
             batch.update(target=tgt, target_lengths=tgt_lens, ntokens=int(tgt_lens.sum()),
                          nsentences=len(samples))
+        if self.tgt_speakers is not None:
+            batch["tgt_speaker"] = np.stack([s["tgt_speaker"] for s in samples])
+        if self.multitask_data:
+            batch["multitask"] = {}
+            for name, mt in self.multitask_data.items():
+                targets = [s["multitask"][name] for s in samples]
+                pad_to = bucket_length(max(1, max(len(t) for t in targets)))
+                batch["multitask"][name] = collate_text_targets(
+                    targets, with_prev=mt["with_prev"], pad_to=pad_to)
         return batch
 
     @classmethod
@@ -123,6 +156,26 @@ class SpeechToUnitDataset:
                  else os.path.join(audio_root, r["src_audio"]) for r in rows]
         units = None if tgt_dict is None else [
             tgt_dict.encode_line(r["tgt_audio"], append_eos=True) for r in rows]
-        return cls(ids=[r["id"] for r in rows], src_audio_paths=paths,
+        ids = [r["id"] for r in rows]
+        return cls(ids=ids, src_audio_paths=paths,
                    src_n_frames=[int(r["src_n_frames"]) for r in rows], tgt_units=units,
-                   data_cfg=data_cfg, is_train=is_train, seed=seed)
+                   data_cfg=data_cfg, is_train=is_train, seed=seed,
+                   tgt_speakers=_speaker_paths(root, split, data_cfg, ids))
+
+
+def _speaker_paths(root: str, split: str, data_cfg: dict,
+                   ids: List[str]) -> Optional[List[str]]:
+    """The config's `target_speaker_embed` directory (relative to `root`)
+    joined by id: its `{split}.tsv` maps each id to a speaker-embedding
+    path, relative to the directory. None without the key."""
+    spk_dir = data_cfg.get("target_speaker_embed")
+    if not spk_dir:
+        return None
+    import csv
+
+    if not os.path.isabs(spk_dir):
+        spk_dir = os.path.join(root, spk_dir)
+    with open(os.path.join(spk_dir, f"{split}.tsv")) as f:
+        spk_map = {r["id"]: r["speaker_embed"] for r in csv.DictReader(f, delimiter="\t")}
+    return [spk_map[i] if os.path.isabs(spk_map[i]) else os.path.join(spk_dir, spk_map[i])
+            for i in ids]

@@ -1,7 +1,6 @@
 """Mask-predict iterative refinement decoding (CMLM), PyTorch.
 
-Counterpart of diffnorm_tpu/generate/mask_predict.py for one model with
-n_frames_per_step=1:
+Counterpart of diffnorm_tpu/generate/mask_predict.py for one model:
 * canvas init from the 256-way length prediction, or from the lengths the
   caller forces (`true_length`), clamped to >= 2: all unk with EOS at
   len - 1 (JAX's default `place_eos`)
@@ -16,6 +15,13 @@ n_frames_per_step=1:
   so every row runs max_iter + 1 fills
 * length beam: rows with lengths l + k - beam//2 (clamped to >= 2 before the
   offset), the best mean-score hypothesis per sentence
+* stacked units (the model's n_frames_per_step k > 1): the canvas holds
+  packed ids; a fill takes each sub-frame's argmax of the [B, T, k, V]
+  log-probs, scores the step by their mean, writes EOS where any sub-frame
+  is a special and re-packs the rest; the result is unpacked to the
+  full-rate stream [B, T * k] (specials repeated per sub-frame), each
+  step's score repeated
+* `tgt_speaker` [B, D] conditions the encoder (--target-speaker-embed)
 """
 
 from __future__ import annotations
@@ -23,6 +29,8 @@ from __future__ import annotations
 from typing import Optional
 
 import torch
+
+from diffnorm_tpu_torch.models.stacked import OFFSET, pack_units, unpack_units
 
 PAD, BOS, EOS, UNK = 1, 0, 2, 3
 
@@ -69,12 +77,17 @@ def init_canvas(length_tgt: torch.Tensor, max_len: int):
 def mask_predict_decode(model, src: torch.Tensor, src_lengths: torch.Tensor, *,
                         max_iter: int = 15, max_len: int = 256, cond_scale: float = 1.0,
                         length_beam: int = 1, true_length: Optional[torch.Tensor] = None,
-                        adaptive: bool = True, early_exit: bool = True):
+                        adaptive: bool = True, early_exit: bool = True,
+                        tgt_speaker: Optional[torch.Tensor] = None):
     """model: a `models.nar_transformer.NARS2UTModule`. `true_length` [B]
-    (int) replaces the length head's prediction. Returns (tokens
-    [B, max_len] int64, scores [B, max_len] f32, n_steps [B] int32): the
-    number of decoder iterations each row ran before it froze."""
-    enc, enc_mask = model.encode(src, src_lengths)
+    (int) replaces the length head's prediction (in packed steps when
+    stacked). Returns (tokens [B, max_len * k] int64, scores of the same
+    shape f32, n_steps [B] int32): the number of decoder iterations each row
+    ran before it froze. k is the model's n_frames_per_step, which JAX's
+    takes as an argument."""
+    kf = model.n_frames_per_step
+    sub_vocab = model.vocab_size - OFFSET
+    enc, enc_mask = model.encode(src, src_lengths, tgt_speaker=tgt_speaker)
     if true_length is not None:
         length_tgt = true_length.to(device=enc.device, dtype=torch.int64)
     else:
@@ -113,6 +126,11 @@ def mask_predict_decode(model, src: torch.Tensor, src_lengths: torch.Tensor, *,
             break  # every later iteration leaves every row as it is
         lp = decode_lprobs(tokens)
         new_scores, new_tokens = lp.max(dim=-1)
+        if kf > 1:
+            hit_special = (new_tokens < OFFSET).any(dim=-1)
+            packed = pack_units(torch.clamp(new_tokens - OFFSET, min=0), sub_vocab, kf)
+            new_tokens = torch.where(hit_special, EOS, packed)
+            new_scores = new_scores.mean(dim=-1)
         filled_tokens, filled_scores, out_tokens, out_scores = fill_and_remask(
             tokens, scores, new_tokens, new_scores, step, max_step)
         # adaptive loop detection on the FILLED canvas (see the JAX module)
@@ -135,4 +153,7 @@ def mask_predict_decode(model, src: torch.Tensor, src_lengths: torch.Tensor, *,
         tokens = tokens.reshape(-1, length_beam, tokens.shape[-1])[rows, best]
         scores = scores.reshape(-1, length_beam, scores.shape[-1])[rows, best]
         n_steps = n_steps.reshape(-1, length_beam)[rows, best]
+    if kf > 1:
+        tokens = unpack_units(tokens, sub_vocab, kf).reshape(tokens.shape[0], -1)
+        scores = scores.repeat_interleave(kf, dim=1)
     return tokens, scores, n_steps

@@ -5,7 +5,10 @@ Counterpart of diffnorm_tpu/generate/s2st.py:
   dedup (left-packed) -> duration prediction -> duration expansion
   (cumsum + searchsorted gather) -> code-HiFi-GAN synthesis
 with ragged boundaries carried as masks and counts, as in JAX. PyTorch runs
-it eagerly; nothing leaves the device between the stages.
+it eagerly; nothing leaves the device between the stages. `tgt_speaker`
+conditions the NAR encoder (--target-speaker-embed), `spkr` selects the
+multi-speaker vocoder's speaker per row; a stacked-unit model decodes its
+packed canvas to the full-rate units (JAX's chain takes k = 1 alone).
 """
 
 from __future__ import annotations
@@ -57,16 +60,18 @@ def s2st_generate(nar_model, vocoder, src: torch.Tensor, src_lengths: torch.Tens
                   max_iter: int = 15, max_len: int = 256, cond_scale: float = 1.0,
                   length_beam: int = 1, dur_prediction: bool = True, max_duration: int = 8,
                   max_wav_units: Optional[int] = None, vocoder_chunk: int = 4,
-                  return_steps: bool = False):
+                  return_steps: bool = False, spkr: Optional[torch.Tensor] = None,
+                  tgt_speaker: Optional[torch.Tensor] = None):
     """nar_model: `models.nar_transformer.NARS2UTModule`; vocoder:
     `models.hifigan.CodeGenerator`. Returns (wav [B, max_wav_units *
     upsample], wav_lengths [B] in samples, reduced units [B, T] (0-based, 0
     past the count), unit counts [B]) and, with `return_steps`, the per-row
     mask-predict iteration counts [B]. With dur_prediction=False the decoded
-    unit stream drives the vocoder unreduced and unexpanded."""
+    unit stream drives the vocoder unreduced and unexpanded. tgt_speaker
+    [B, D] conditions the decode, spkr [B] the vocoder."""
     tokens, _scores, n_steps = mask_predict_decode(
         nar_model, src, src_lengths, max_iter=max_iter, max_len=max_len,
-        cond_scale=cond_scale, length_beam=length_beam)
+        cond_scale=cond_scale, length_beam=length_beam, tgt_speaker=tgt_speaker)
     packed, packed_valid, reduced, counts = strip_and_reduce_tokens(tokens)
     t = reduced.shape[1]
     reduced_valid = torch.arange(t, device=tokens.device)[None, :] < counts[:, None]
@@ -83,7 +88,7 @@ def s2st_generate(nar_model, vocoder, src: torch.Tensor, src_lengths: torch.Tens
     if max_wav_units is None:
         max_wav_units = code.shape[1] * (max_duration if dur_prediction else 1)
     expanded, wav_unit_mask = expand_units_padded(code, durs, max_wav_units)
-    wav = _chunked_vocoder(vocoder, expanded, vocoder_chunk)
+    wav = _chunked_vocoder(vocoder, expanded, vocoder_chunk, spkr)
     upsample = wav.shape[-1] // max_wav_units
     wav_lengths = wav_unit_mask.sum(dim=-1) * upsample
     if return_steps:
@@ -91,11 +96,14 @@ def s2st_generate(nar_model, vocoder, src: torch.Tensor, src_lengths: torch.Tens
     return wav, wav_lengths, reduced, counts
 
 
-def _chunked_vocoder(vocoder, codes: torch.Tensor, chunk: int) -> torch.Tensor:
+def _chunked_vocoder(vocoder, codes: torch.Tensor, chunk: int,
+                     spkr: Optional[torch.Tensor] = None) -> torch.Tensor:
     """The vocoder over sub-batches of `chunk` rows (JAX's lax.map over
     4-row chunks, which kept the TPU's activations resident; here it bounds
-    the waveform-rate activations' memory). chunk=0 runs one batch."""
+    the waveform-rate activations' memory), `spkr` [B] sliced with the
+    codes (JAX pads both to whole chunks). chunk=0 runs one batch."""
     b = codes.shape[0]
     if chunk <= 0 or b <= chunk:
-        return vocoder(codes)
-    return torch.cat([vocoder(codes[i:i + chunk]) for i in range(0, b, chunk)])
+        return vocoder(codes, spkr)
+    return torch.cat([vocoder(codes[i:i + chunk], None if spkr is None else spkr[i:i + chunk])
+                      for i in range(0, b, chunk)])

@@ -29,7 +29,7 @@ module, the subsampler and the input projection stay float.
 from __future__ import annotations
 
 import math
-from typing import Optional, Sequence, Tuple
+from typing import Optional, Sequence
 
 import numpy as np
 import torch
@@ -269,14 +269,19 @@ class ConformerEncoder(nn.Module):
                 dim, ffn_dim, heads, depthwise_kernel_size, dropout, attention_dropout,
                 activation_dropout, quant))
 
-    def forward(self, src: torch.Tensor, src_lengths: torch.Tensor
-                ) -> Tuple[torch.Tensor, torch.Tensor]:
+    def forward(self, src: torch.Tensor, src_lengths: torch.Tensor,
+                return_all_layers: bool = False):
+        """With `return_all_layers` also the output of every layer, in
+        order (fairseq's return_all_hiddens encoder_states, which the
+        multitask aux heads tap): (features, mask, states)."""
         x, lengths = self.subsample(src, src_lengths)
         mask = torch.arange(x.shape[1], device=x.device)[None, :] < lengths[:, None]
         x = x * math.sqrt(self.dim)
         pos = torch.from_numpy(rel_positional_encoding(x.shape[1], self.dim)).to(
             device=x.device, dtype=x.dtype)
         x = self.input_dropout(self.linear(x))
+        states = []
         for i in range(self.n_layers):
             x = getattr(self, f"layer_{i}")(x, pos, mask)
-        return x, mask
+            states.append(x)
+        return (x, mask, states) if return_all_layers else (x, mask)

@@ -7,7 +7,10 @@ codehifigan.py, fastspeech2.py:VariancePredictor):
   mean of MRF ResBlocks] per stage -> leaky_relu(0.01) -> conv_post -> tanh
   ResBlock: dilated conv pairs with leaky-relu (slope 0.1)
   CodeGenerator: unit embedding table, optional duration predictor
-  (round(exp(d) - 1), min 1); the multi-speaker embedding is not ported
+  (round(exp(d) - 1), min 1); with `num_speakers` (a config's `multispkr`)
+  a speaker table `spkr` whose row of each utterance's speaker is
+  concatenated to every unit embedding (broadcast over time, the
+  generator's input doubling to 2 x embedding_dim)
 This is the direct-conv math. The JAX package's default for the stages of
 <= 64 channels, ops/packed_conv.py, is a TPU layout of the same convolutions
 (space-to-depth packing for the 128-lane MXU) and is not ported; the
@@ -18,7 +21,7 @@ module edges, [B, C, T] inside.
 
 from __future__ import annotations
 
-from typing import Dict, Sequence
+from typing import Dict, Optional, Sequence
 
 import numpy as np
 import torch
@@ -123,12 +126,13 @@ class CodeGenerator(nn.Module):
                  resblock_kernel_sizes: Sequence[int] = (3, 7, 11),
                  resblock_dilation_sizes: Sequence[Sequence[int]] = ((1, 3, 5),) * 3,
                  dur_predictor: bool = False, var_pred_hidden_dim: int = 256,
-                 var_pred_kernel_size: int = 3):
+                 var_pred_kernel_size: int = 3, num_speakers: int = 0):
         super().__init__()
         self.dict = nn.Embedding(num_embeddings, embedding_dim)
         self.generator = HifiGanGenerator(
-            embedding_dim, upsample_rates, upsample_kernel_sizes,
+            embedding_dim * (2 if num_speakers else 1), upsample_rates, upsample_kernel_sizes,
             upsample_initial_channel, resblock_kernel_sizes, resblock_dilation_sizes)
+        self.spkr = nn.Embedding(num_speakers, embedding_dim) if num_speakers else None
         self.upsample = int(np.prod(upsample_rates))
         self.dur_predictor = (VariancePredictor(embedding_dim, var_pred_hidden_dim,
                                                 var_pred_kernel_size)
@@ -143,8 +147,15 @@ class CodeGenerator(nn.Module):
         log_dur = self.log_durations(code).float()
         return torch.clamp(torch.round(torch.exp(log_dur) - 1.0).to(torch.int32), min=1)
 
-    def forward(self, code: torch.Tensor) -> torch.Tensor:
-        return self.generator(self.dict(code))
+    def forward(self, code: torch.Tensor, spkr: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """code [B, T] (duration-expanded); spkr [B] speaker ids, which a
+        multi-speaker generator needs."""
+        x = self.dict(code)
+        if self.spkr is not None:
+            if spkr is None:
+                raise ValueError("the multi-speaker vocoder needs speaker ids (spkr)")
+            x = torch.cat([x, self.spkr(spkr)[:, None, :].expand_as(x)], dim=-1)
+        return self.generator(x)
 
 
 class CodeHiFiGANVocoder:
@@ -165,8 +176,6 @@ class CodeHiFiGANVocoder:
 
         device = resolve_device(device)
 
-        if cfg.get("multispkr"):
-            raise NotImplementedError("the multi-speaker vocoder is not ported")
         dur = cfg.get("dur_predictor_params") or {}
         with torch.device(device):
             module = CodeGenerator(
@@ -176,7 +185,8 @@ class CodeHiFiGANVocoder:
                 upsample_initial_channel=cfg["upsample_initial_channel"],
                 resblock_kernel_sizes=tuple(cfg["resblock_kernel_sizes"]),
                 resblock_dilation_sizes=tuple(tuple(d) for d in cfg["resblock_dilation_sizes"]),
-                dur_predictor=bool(dur), var_pred_hidden_dim=dur.get("var_pred_hidden_dim", 256))
+                dur_predictor=bool(dur), var_pred_hidden_dim=dur.get("var_pred_hidden_dim", 256),
+                num_speakers=cfg.get("num_speakers", 0) if cfg.get("multispkr") else 0)
         if variables is not None:
             from_jax_variables(module, variables)
         return cls(module.to(dtype).eval())

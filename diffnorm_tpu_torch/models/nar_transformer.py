@@ -1,15 +1,30 @@
 """Non-autoregressive CMLM speech-to-unit translator.
 
-Counterpart of diffnorm_tpu/models/nar_transformer.py with
-n_frames_per_step=1 and the shared input/output embedding: a conformer
-encoder over 80-d fbank, a NAT unit decoder (pre-norm layers with
-full-context self-attention, encoder attention and a ReLU FF; sinusoidal
-positions keyed on the pad structure; logits = x @ embed^T) and a 256-way
-length head over the mean-pooled encoder states. The decoder's attention
-runs through `ops.attention.masked_attention`, whose encoder attention takes
-the flash-attention kernel on the card once the subsampled source reaches
-2048 frames and no attention dropout applies. Names follow the flax tree
+Counterpart of diffnorm_tpu/models/nar_transformer.py with the shared
+input/output embedding: a conformer encoder over 80-d fbank, a NAT unit
+decoder (pre-norm layers with full-context self-attention, encoder
+attention and a ReLU FF; sinusoidal positions keyed on the pad structure;
+logits = x @ embed^T) and a 256-way length head over the mean-pooled
+encoder states. The decoder's attention runs through
+`ops.attention.masked_attention`, whose encoder attention takes the
+flash-attention kernel on the card once the subsampled source reaches 2048
+frames and no attention dropout applies. Names follow the flax tree
 (`weights.from_jax_variables`).
+
+The model's options (JAX :38-116, :224-308, :362-420):
+* `n_frames_per_step` k > 1, stacked units: the canvas holds packed ids
+  (`models/stacked.py`), embedded by a `StackedEmbedding`; the final
+  features go through `out_proj_n_frames` (D -> k D, no bias) and
+  `subframe_out` (D -> V, no bias) to logits [B, T, k, V];
+* `multitask`, the --multitask-config-yaml aux heads (`AuxTaskSpec`): a
+  linear CTC head (`mt_{name}_ctc`) over a tapped encoder layer or decoder
+  inner state, or a small causal transformer decoder (`mt_{name}_decoder`,
+  `models/ar_transformer.py`) cross-attending a tapped encoder layer; they
+  run in the training and validation forward only;
+* `ctc_vocab`, the --multitask-ctc-vocab head `ctc_proj` over the final
+  encoder features;
+* `target_speaker_embed`: a [B, speaker_embed_dim] embedding concatenated
+  to every encoder frame and projected back by `spk_emb_proj`.
 
 Training (`NARS2UTModule.forward` in training mode) has JAX's dropouts, its
 classifier-free-guidance drop of whole sources (`cg_prob`) and
@@ -34,7 +49,7 @@ from __future__ import annotations
 
 import contextlib
 import math
-from typing import Dict, Optional, Sequence
+from typing import Dict, NamedTuple, Optional, Sequence
 
 import torch
 import torch.nn.functional as F
@@ -42,22 +57,92 @@ from torch import nn
 
 from diffnorm_tpu_torch.models.conformer import ConformerEncoder, layer_norm
 from diffnorm_tpu_torch.models.layers import Dense, Dropout, DropoutSite, sinusoidal_positions
+from diffnorm_tpu_torch.models.stacked import OFFSET, StackedEmbedding, pack_units
 from diffnorm_tpu_torch.ops import attention as attention_ops
 from diffnorm_tpu_torch.ops.quant import calibrating, quant_sites
 
 PAD, BOS, EOS, UNK = 1, 0, 2, 3
 
 
+class AuxTaskSpec(NamedTuple):
+    """One --multitask-config-yaml task as a model spec (reference
+    build_multitask_decoder, s2s_transformer.py:171-230, and the defaults of
+    base_multitask_text_transformer_decoder_arch :582-616). input_layer is
+    the Python index of the tapped state: -1 the final encoder layer or the
+    last decoder inner state."""
+
+    name: str
+    decoder_type: str  # "transformer" | "ctc"
+    vocab_size: int
+    input_from: str = "encoder"  # "encoder" | "decoder"
+    input_layer: int = -1
+    decoder_layers: int = 2
+    decoder_dim: int = 256
+    decoder_heads: int = 4
+    decoder_ffn_dim: int = 2048
+    dropout: float = 0.3
+
+
+def build_aux_heads(module: nn.Module, specs: Sequence[AuxTaskSpec], encoder_dim: int,
+                    decoder_dim: int) -> None:
+    """Add each spec's aux head to `module`: a linear CTC projection
+    `mt_{name}_ctc` over the tapped encoder or decoder state, or a causal
+    transformer decoder `mt_{name}_decoder` over the tapped encoder layer."""
+    from diffnorm_tpu_torch.models.ar_transformer import ARUnitDecoder
+
+    for spec in specs:
+        if spec.decoder_type == "ctc":
+            in_dim = decoder_dim if spec.input_from == "decoder" else encoder_dim
+            module.add_module(f"mt_{spec.name}_ctc", Dense(in_dim, spec.vocab_size))
+        else:
+            module.add_module(f"mt_{spec.name}_decoder", ARUnitDecoder(
+                spec.vocab_size, dim=spec.decoder_dim, ffn_dim=spec.decoder_ffn_dim,
+                layers=spec.decoder_layers, heads=spec.decoder_heads, dropout=spec.dropout,
+                context_dim=encoder_dim))
+
+
+def aux_head_outputs(module: nn.Module, specs: Sequence[AuxTaskSpec],
+                     multitask_prev: Optional[Dict[str, torch.Tensor]], enc_states,
+                     enc_mask: torch.Tensor, inner, dec_tokens: torch.Tensor) -> Dict:
+    """Each aux head over its tapped state: enc_states are the encoder's
+    per-layer outputs, inner the decoder's [embed_out, after layer 1, ...]
+    (None without a decoder tap), dec_tokens the decoder's input (the mask
+    of a decoder-tapped CTC head). A transformer head cross-attends the
+    tapped ENCODER state whatever its input_from, as the reference's
+    criterion.py:69-80 does. Returns {name: {"logits", and "mask" for a
+    CTC head}}."""
+    out = {}
+    for spec in specs:
+        if spec.decoder_type == "ctc":
+            if spec.input_from == "decoder":
+                tapped, mask = inner[spec.input_layer], dec_tokens != PAD
+            else:
+                tapped, mask = enc_states[spec.input_layer], enc_mask
+            out[spec.name] = {"logits": getattr(module, f"mt_{spec.name}_ctc")(tapped),
+                              "mask": mask}
+        else:
+            head = getattr(module, f"mt_{spec.name}_decoder")
+            out[spec.name] = {"logits": head(multitask_prev[spec.name],
+                                             enc_states[spec.input_layer], enc_mask)}
+    return out
+
+
 class MultiheadAttention(DropoutSite, nn.Module):
     """fairseq-style MHA (biased q/k/v/out projections); `dropout` drops
-    attention probabilities in training mode."""
+    attention probabilities in training mode; `causal` masks future keys;
+    the keys and values project from `context_dim` features (default
+    `dim`)."""
 
-    def __init__(self, dim: int, heads: int, dropout: float = 0.0, quant: bool = False):
+    def __init__(self, dim: int, heads: int, dropout: float = 0.0, quant: bool = False,
+                 causal: bool = False, context_dim: Optional[int] = None):
         super().__init__()
         self.dim, self.heads = dim, heads
-        self.dropout = dropout
-        for name in ("q_proj", "k_proj", "v_proj", "out_proj"):
-            self.add_module(name, Dense(dim, dim, quant=quant))
+        self.dropout, self.causal = dropout, causal
+        kv_dim = context_dim or dim
+        self.q_proj = Dense(dim, dim, quant=quant)
+        self.k_proj = Dense(kv_dim, dim, quant=quant)
+        self.v_proj = Dense(kv_dim, dim, quant=quant)
+        self.out_proj = Dense(dim, dim, quant=quant)
 
     def forward(self, x: torch.Tensor, context: Optional[torch.Tensor] = None,
                 mask: Optional[torch.Tensor] = None) -> torch.Tensor:
@@ -71,24 +156,27 @@ class MultiheadAttention(DropoutSite, nn.Module):
         q, k, v = heads_of(self.q_proj(x)), heads_of(self.k_proj(ctx)), heads_of(self.v_proj(ctx))
         out = attention_ops.masked_attention(
             q, k, v, mask=mask, dropout=self.dropout if self.training else 0.0,
-            generator=self.generator)
+            generator=self.generator, causal=self.causal)
         return self.out_proj(out.transpose(1, 2).reshape(b, tq, self.dim))
 
 
 class DecoderLayer(nn.Module):
-    """Pre-norm decoder layer: self-attention, encoder attention, ReLU FF,
-    each sublayer's output dropped by `dropout`, the FF activation by
+    """Pre-norm decoder layer: self-attention (causal where `causal`, the AR
+    decoder's), encoder attention over `context_dim` features, ReLU FF, each
+    sublayer's output dropped by `dropout`, the FF activation by
     `activation_dropout`, attention probabilities by `attention_dropout`."""
 
     def __init__(self, dim: int, ffn_dim: int, heads: int, dropout: float = 0.0,
                  attention_dropout: float = 0.0, activation_dropout: float = 0.0,
-                 quant: bool = False):
+                 quant: bool = False, causal: bool = False,
+                 context_dim: Optional[int] = None):
         super().__init__()
         self.self_attn_layer_norm = layer_norm(dim)
-        self.self_attn = MultiheadAttention(dim, heads, attention_dropout, quant)
+        self.self_attn = MultiheadAttention(dim, heads, attention_dropout, quant, causal=causal)
         self.self_attn_dropout = Dropout(dropout)
         self.encoder_attn_layer_norm = layer_norm(dim)
-        self.encoder_attn = MultiheadAttention(dim, heads, attention_dropout, quant)
+        self.encoder_attn = MultiheadAttention(dim, heads, attention_dropout, quant,
+                                               context_dim=context_dim)
         self.encoder_attn_dropout = Dropout(dropout)
         self.final_layer_norm = layer_norm(dim)
         self.fc1 = Dense(dim, ffn_dim, quant=quant)
@@ -106,18 +194,28 @@ class DecoderLayer(nn.Module):
 
 
 class NATUnitDecoder(nn.Module):
-    """NAT unit decoder with a length head (n_frames_per_step=1, shared
-    input/output embedding)."""
+    """NAT unit decoder with a length head (shared input/output embedding;
+    with n_frames_per_step k > 1 the stacked-unit input and sub-frame
+    output)."""
 
     def __init__(self, vocab_size: int, dim: int = 512, ffn_dim: int = 2048,
                  layers: int = 6, heads: int = 8, max_lengths: int = 256,
                  dropout: float = 0.0, attention_dropout: float = 0.0,
-                 activation_dropout: float = 0.0, quant: bool = False):
+                 activation_dropout: float = 0.0, quant: bool = False,
+                 n_frames_per_step: int = 1):
         super().__init__()
         self.dim, self.n_layers, self.max_lengths = dim, layers, max_lengths
-        self.embed_tokens = nn.Embedding(vocab_size, dim)
+        self.n_frames_per_step = n_frames_per_step
+        if n_frames_per_step > 1:
+            self.embed_tokens = StackedEmbedding(vocab_size, dim, n_frames_per_step)
+            self.out_proj_n_frames = Dense(dim, dim * n_frames_per_step, bias=False)
+            self.subframe_out = Dense(dim, vocab_size, bias=False)
+        else:
+            self.embed_tokens = nn.Embedding(vocab_size, dim)
         self.embed_length = nn.Embedding(max_lengths, dim)
-        for emb in (self.embed_tokens, self.embed_length):
+        tables = (self.embed_length,) if n_frames_per_step > 1 else (
+            self.embed_tokens, self.embed_length)
+        for emb in tables:
             nn.init.normal_(emb.weight, std=dim ** -0.5)
         self.embed_dropout = Dropout(dropout)
         for i in range(layers):
@@ -128,20 +226,33 @@ class NATUnitDecoder(nn.Module):
 
     def null_context(self) -> torch.Tensor:
         """The BOS embedding, the CG null encoder feature [1, dim]."""
+        if self.n_frames_per_step > 1:
+            return self.embed_tokens(torch.full((1,), BOS, device=self.layer_norm.weight.device))
         return self.embed_tokens.weight[BOS:BOS + 1]
 
-    def forward(self, tokens: torch.Tensor, enc: torch.Tensor,
-                enc_mask: torch.Tensor) -> torch.Tensor:
+    def forward(self, tokens: torch.Tensor, enc: torch.Tensor, enc_mask: torch.Tensor,
+                return_inner: bool = False):
         """tokens [B, T]; enc [B, S, C]; enc_mask [B, S] True = valid.
-        Returns logits [B, T, vocab] in the model's dtype."""
+        Returns logits [B, T, vocab] ([B, T, k, vocab] when stacked) in the
+        model's dtype; with `return_inner` also the hidden states before the
+        final norm, [embed_out, after layer 1, ...] (fairseq's
+        inner_states, which decoder-tapped CTC heads index)."""
         valid = tokens != PAD
         x = self.embed_tokens(tokens) * math.sqrt(self.dim)
         x = self.embed_dropout(
             x + sinusoidal_positions(valid, self.dim, padding_idx=PAD).to(x.dtype))
+        inner = [x]
         for i in range(self.n_layers):
             x = getattr(self, f"layer_{i}")(x, valid, enc, enc_mask)
+            inner.append(x)
         x = self.layer_norm(x)
-        return F.linear(x, self.embed_tokens.weight)
+        k = self.n_frames_per_step
+        if k > 1:
+            b, t, _ = x.shape
+            logits = self.subframe_out(self.out_proj_n_frames(x).reshape(b, t, k, self.dim))
+        else:
+            logits = F.linear(x, self.embed_tokens.weight)
+        return (logits, inner) if return_inner else logits
 
     def forward_length(self, enc: torch.Tensor, enc_mask: torch.Tensor) -> torch.Tensor:
         """Mean-pooled encoder states -> [B, max_lengths] logits."""
@@ -165,7 +276,9 @@ def _eval_mode(module: nn.Module):
 class NARS2UTModule(nn.Module):
     """Conformer encoder + NAT unit decoder. Dimensions and dropout follow
     the `nar_s2ut_conformer` arch defaults; `attention_dropout` and
-    `activation_dropout` fall back to `dropout` where None."""
+    `activation_dropout` fall back to `dropout` where None. The options
+    (module docstring): `n_frames_per_step`, `multitask` (AuxTaskSpecs),
+    `ctc_vocab`, `target_speaker_embed` with `speaker_embed_dim`."""
 
     def __init__(self, vocab_size: int = 1004, in_channels: int = 80,
                  encoder_dim: int = 512, encoder_ffn_dim: int = 2048,
@@ -176,13 +289,19 @@ class NARS2UTModule(nn.Module):
                  conv_kernel_sizes: Sequence[int] = (5, 5), dropout: float = 0.1,
                  attention_dropout: Optional[float] = None,
                  activation_dropout: Optional[float] = None, cg_prob: float = 0.0,
-                 use_sp: bool = False, quant_int8: bool = False):
+                 use_sp: bool = False, quant_int8: bool = False,
+                 n_frames_per_step: int = 1, multitask: Sequence[AuxTaskSpec] = (),
+                 ctc_vocab: int = 0, target_speaker_embed: bool = False,
+                 speaker_embed_dim: int = 256):
         super().__init__()
         self.vocab_size, self.cg_prob, self.use_sp = vocab_size, cg_prob, use_sp
+        self.n_frames_per_step, self.multitask = n_frames_per_step, tuple(multitask)
         self.cg_generator: Optional[torch.Generator] = None
         self.sp_generator: Optional[torch.Generator] = None
         attention_dropout = dropout if attention_dropout is None else attention_dropout
         activation_dropout = dropout if activation_dropout is None else activation_dropout
+        if target_speaker_embed:
+            self.spk_emb_proj = Dense(encoder_dim + speaker_embed_dim, encoder_dim)
         self.encoder = ConformerEncoder(in_channels, encoder_dim, encoder_ffn_dim,
                                         encoder_layers, encoder_heads,
                                         depthwise_kernel_size, conv_channels,
@@ -191,10 +310,26 @@ class NARS2UTModule(nn.Module):
         self.decoder = NATUnitDecoder(vocab_size, decoder_dim, decoder_ffn_dim,
                                       decoder_layers, decoder_heads, dropout=dropout,
                                       attention_dropout=attention_dropout,
-                                      activation_dropout=activation_dropout, quant=quant_int8)
+                                      activation_dropout=activation_dropout, quant=quant_int8,
+                                      n_frames_per_step=n_frames_per_step)
+        if ctc_vocab:
+            self.ctc_proj = Dense(encoder_dim, ctc_vocab)
+        build_aux_heads(self, self.multitask, encoder_dim, decoder_dim)
 
-    def encode(self, src: torch.Tensor, src_lengths: torch.Tensor):
-        return self.encoder(src, src_lengths)
+    def apply_speaker(self, enc: torch.Tensor, tgt_speaker: Optional[torch.Tensor]):
+        """The speaker-conditioned encoder output: the [B, D] embedding
+        concatenated to every frame, projected back to encoder_dim
+        (s2s_transformer.py:44-52). As it is without the option or an
+        embedding."""
+        if not hasattr(self, "spk_emb_proj") or tgt_speaker is None:
+            return enc
+        spk = tgt_speaker[:, None, :].to(enc.dtype).expand(-1, enc.shape[1], -1)
+        return self.spk_emb_proj(torch.cat([enc, spk], dim=-1))
+
+    def encode(self, src: torch.Tensor, src_lengths: torch.Tensor,
+               tgt_speaker: Optional[torch.Tensor] = None):
+        enc, enc_mask = self.encoder(src, src_lengths)
+        return self.apply_speaker(enc, tgt_speaker), enc_mask
 
     def apply_cg_drop(self, enc: torch.Tensor, enc_mask: torch.Tensor, drop: torch.Tensor):
         """Replace dropped rows' encoder output with the BOS null context and
@@ -214,15 +349,19 @@ class NARS2UTModule(nn.Module):
                     enc_mask: torch.Tensor, use_prompt: torch.Tensor):
         """Self-prompting (JAX nar_transformer.py:480-506): a draft y0 of the
         canvas by the decoder without dropout or gradient, specials banned,
-        PAD and EOS kept; its embedding goes before the encoder frames where
-        `use_prompt` (a 0-d bool), else the frames are padded by as many
-        masked positions, so the key length does not depend on the draw."""
+        PAD and EOS kept (stacked: the sub-frames' argmax re-packed); its
+        embedding goes before the encoder frames where `use_prompt` (a 0-d
+        bool), else the frames are padded by as many masked positions, so
+        the key length does not depend on the draw."""
         with torch.no_grad(), _eval_mode(self.decoder):
             draft_logits = self.decoder(prev_tokens, enc, enc_mask).float()
         draft_logits[..., :4] = torch.finfo(torch.float32).min
-        draft = draft_logits.argmax(-1).to(prev_tokens.dtype)
+        draft = draft_logits.argmax(-1)
+        if draft.dim() == 3:
+            draft = pack_units(torch.clamp(draft - OFFSET, min=0), self.vocab_size - OFFSET,
+                               self.n_frames_per_step)
         keep = (prev_tokens == PAD) | (prev_tokens == EOS)
-        y0 = torch.where(keep, prev_tokens, draft)
+        y0 = torch.where(keep, prev_tokens, draft.to(prev_tokens.dtype))
         prompt = self.decoder.embed_tokens(y0).detach().to(enc.dtype)
         n = prompt.shape[1]
         sp_enc = torch.cat([prompt, enc], dim=1)
@@ -234,18 +373,31 @@ class NARS2UTModule(nn.Module):
 
     def forward(self, src: torch.Tensor, src_lengths: torch.Tensor, prev_tokens: torch.Tensor,
                 tgt_tokens: torch.Tensor, cg_drop: Optional[torch.Tensor] = None,
-                use_prompt: Optional[torch.Tensor] = None) -> Dict[str, torch.Tensor]:
+                use_prompt: Optional[torch.Tensor] = None,
+                multitask_prev: Optional[Dict[str, torch.Tensor]] = None,
+                tgt_speaker: Optional[torch.Tensor] = None) -> Dict[str, torch.Tensor]:
         """The training and validation forward (JAX's __call__ with
         tgt_tokens). src [B, T, 80], prev_tokens the CMLM canvas [B, L],
-        tgt_tokens the targets [B, L]. In training mode, rows are CG-dropped
-        with cg_prob and (use_sp) the self-prompt is taken with 0.5, drawn
-        from cg_generator and sp_generator unless given as `cg_drop` [B]
-        bool and `use_prompt` 0-d bool. Returns logits [B, L, V],
-        word_ins_mask (the canvas's UNK positions), length_logits [B, 256]
-        and length_tgt, the target lengths clipped to 255."""
-        enc, enc_mask = self.encoder(src, src_lengths)
+        tgt_tokens the targets [B, L] ([B, L, k] per sub-frame when
+        stacked), multitask_prev {task: prev_output_tokens} of the
+        transformer aux heads, tgt_speaker [B, D]. In training mode, rows
+        are CG-dropped with cg_prob and (use_sp) the self-prompt is taken
+        with 0.5, drawn from cg_generator and sp_generator unless given as
+        `cg_drop` [B] bool and `use_prompt` 0-d bool. Returns logits
+        [B, L, V] ([B, L, k, V]), word_ins_mask (the canvas's UNK
+        positions), length_logits [B, 256] and length_tgt, the target
+        lengths (packed steps) clipped to 255; ctc_logits and ctc_mask with
+        the CTC head; multitask, the aux heads' outputs (`aux_head_outputs`),
+        which tap the encoder states before the speaker, CG and SP."""
+        if self.multitask:
+            enc, enc_mask, enc_states = self.encoder(src, src_lengths, return_all_layers=True)
+        else:
+            enc, enc_mask = self.encoder(src, src_lengths)
+        enc = self.apply_speaker(enc, tgt_speaker)
+        raw_enc_mask = enc_mask
         length_logits = self.decoder.forward_length(enc, enc_mask)
-        length_tgt = torch.clamp((tgt_tokens != PAD).sum(dim=1), 0, self.decoder.max_lengths - 1)
+        tgt_steps = tgt_tokens[..., 0] if tgt_tokens.dim() == 3 else tgt_tokens
+        length_tgt = torch.clamp((tgt_steps != PAD).sum(dim=1), 0, self.decoder.max_lengths - 1)
         if self.training and self.cg_prob > 0.0:
             if cg_drop is None:
                 cg_drop = torch.rand(enc.shape[0], generator=self.cg_generator,
@@ -255,9 +407,21 @@ class NARS2UTModule(nn.Module):
             if use_prompt is None:
                 use_prompt = torch.rand((), generator=self.sp_generator, device=enc.device) < 0.5
             enc, enc_mask = self.self_prompt(prev_tokens, enc, enc_mask, use_prompt)
-        return {"logits": self.decoder(prev_tokens, enc, enc_mask),
-                "word_ins_mask": prev_tokens == UNK, "length_logits": length_logits,
-                "length_tgt": length_tgt}
+        need_inner = any(s.input_from == "decoder" for s in self.multitask)
+        logits = self.decoder(prev_tokens, enc, enc_mask, return_inner=need_inner)
+        if need_inner:
+            logits, inner = logits
+        out = {"logits": logits, "word_ins_mask": prev_tokens == UNK,
+               "length_logits": length_logits, "length_tgt": length_tgt}
+        if hasattr(self, "ctc_proj"):
+            out["ctc_logits"], out["ctc_mask"] = self.ctc_proj(enc), enc_mask
+        if self.multitask:
+            # decoder taps index inner_states[decoder_layer - 1] over the
+            # CMLM canvas, as fairseq's (research/TranSpeech/criterion.py:62-67)
+            out["multitask"] = aux_head_outputs(
+                self, self.multitask, multitask_prev, enc_states, raw_enc_mask,
+                inner if need_inner else None, prev_tokens)
+        return out
 
 
 @torch.no_grad()

@@ -6,6 +6,15 @@ conformer NAR model and its criterion.
 The masks draw from the numpy generator they are given, exactly as JAX's:
 the training CLI hands every batch one `np.random.default_rng(seed)`, each
 training micro-batch in order, then each validation batch.
+
+With --n-frames-per-step k > 1 the canvas is the packed-id sequence
+(`models.stacked.stack_target`) and the target the per-sub-frame view
+[B, T, k]. --multitask-config-yaml adds the aux tasks (`MultitaskTaskMixin`):
+their heads in the model, their text targets in the dataset, their loss
+weights in each batch. --multitask-ctc-vocab adds the model's `ctc_proj`
+head, scored against a batch's `ctc_target` where one is given;
+--target-speaker-embed the speaker projection, fed the dataset's
+`tgt_speaker` (the data config's `target_speaker_embed` directory).
 """
 
 from __future__ import annotations
@@ -18,7 +27,9 @@ from diffnorm_tpu_torch.criterions.nar_loss import NARSpeechToUnitLoss
 from diffnorm_tpu_torch.data.dictionary import Dictionary
 from diffnorm_tpu_torch.data.s2s_dataset import SpeechToUnitDataset
 from diffnorm_tpu_torch.models.nar_transformer import NARS2UTModule
+from diffnorm_tpu_torch.models.stacked import stack_target
 from diffnorm_tpu_torch.tasks.base import Task
+from diffnorm_tpu_torch.tasks.multitask_mixin import MultitaskTaskMixin
 
 PAD, BOS, EOS, UNK = 1, 0, 2, 3
 
@@ -69,28 +80,38 @@ def side_mask(target: np.ndarray, rng: np.random.Generator) -> np.ndarray:
     return out
 
 
-class NARS2UTTask(Task):
+class NARS2UTTask(MultitaskTaskMixin, Task):
     def __init__(self, args):
         super().__init__(args)
-        if args.n_frames_per_step > 1:
-            raise NotImplementedError("n_frames_per_step > 1 (stacked units) is not ported")
         self.tgt_dict = Dictionary.unit_dictionary(args.target_code_size)
+        self._init_multitask(args)
 
     def load_dataset(self, split: str) -> None:
         # the dataset's seed stays 1 (its tie shuffle and SpecAugment
         # stream), as JAX's task passes none
-        self.datasets[split] = SpeechToUnitDataset.from_tsv(
+        ds = SpeechToUnitDataset.from_tsv(
             self.args.data, split, tgt_dict=self.tgt_dict, config_yaml=self.args.config_yaml,
             is_train=split.startswith("train"))
+        self.attach_multitask(ds, split)
+        self.datasets[split] = ds
 
     def prepare_batch(self, batch: Dict[str, np.ndarray], rng: np.random.Generator) -> Dict:
         """The CMLM canvas `prev_target`: with use_side, the side mask when
-        a draw is > 0.5, else the random mask."""
+        a draw is > 0.5, else the random mask. Stacked (k > 1): `target`
+        becomes the sub-frame view [B, T, k], `target_packed` the packed
+        ids the canvas masks. Then the aux tasks' loss weights."""
+        k = self.args.n_frames_per_step
         target = batch["target"]
+        if k > 1 and target.ndim == 2:
+            target, batch["target"] = stack_target(target, self.args.target_code_size, k)
+            batch["target_packed"] = target
+        elif target.ndim == 3:
+            target = batch["target_packed"]
         if self.args.use_side and rng.random() > 0.5:
             batch["prev_target"] = side_mask(target, rng)
         else:
             batch["prev_target"] = random_mask(target, rng)
+        self.inject_loss_weights(batch)
         return batch
 
     def build_model(self) -> NARS2UTModule:
@@ -104,7 +125,10 @@ class NARS2UTTask(Task):
             depthwise_kernel_size=a.depthwise_conv_kernel_size, conv_channels=a.conv_channels,
             conv_kernel_sizes=a.conv_kernel_sizes, dropout=a.dropout,
             attention_dropout=a.attention_dropout, activation_dropout=a.relu_dropout,
-            cg_prob=a.cg_prob, use_sp=a.use_sp)
+            cg_prob=a.cg_prob, use_sp=a.use_sp, n_frames_per_step=a.n_frames_per_step,
+            multitask=self.aux_task_specs(), ctc_vocab=a.multitask_ctc_vocab,
+            target_speaker_embed=bool(a.target_speaker_embed),
+            speaker_embed_dim=a.speaker_embed_dim)
 
     def build_criterion(self) -> NARSpeechToUnitLoss:
-        return NARSpeechToUnitLoss(self.args.label_smoothing)
+        return NARSpeechToUnitLoss(self.args.label_smoothing, multitask=self.multitask_tasks)

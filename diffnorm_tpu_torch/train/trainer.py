@@ -53,7 +53,7 @@ COUNT_KEYS = ("ntokens", "nsentences", "sample_size")
 BATCH_KEYS = ("reduce_target", "reduce_target_unit", "reduce_target_lengths",
               "posterior_noise", "inject_times", "inject_enc_noise", "inject_x1_noise",
               "inject_q_noise", "src_tokens", "src_lengths", "target", "prev_target",
-              "inject_cg_drop", "inject_use_prompt")
+              "inject_cg_drop", "inject_use_prompt", "tgt_speaker", "ctc_target", "multitask")
 GRAD_ACCUM = ("mean_loss", "sum_loss")
 GENERATORS = ("generator", "cg_generator", "sp_generator")
 
@@ -105,11 +105,16 @@ class Trainer:
         self.num_updates = 0
         self.skipped_steps = 0
 
-    def _to_device(self, batch: Dict) -> Dict[str, torch.Tensor]:
-        """The criterion's inputs of a batch (numpy arrays or tensors) on the
-        model's device."""
-        return {key: torch.as_tensor(batch[key]).to(self.device, non_blocking=True)
-                for key in BATCH_KEYS if batch.get(key) is not None}
+    def _to_device(self, batch: Dict) -> Dict:
+        """The criterion's inputs of a batch (numpy arrays or tensors, and
+        the aux tasks' nested entries under "multitask") on the model's
+        device."""
+        def put(value):
+            if isinstance(value, dict):
+                return {k: put(v) for k, v in value.items()}
+            return torch.as_tensor(value).to(self.device, non_blocking=True)
+
+        return {key: put(batch[key]) for key in BATCH_KEYS if batch.get(key) is not None}
 
     @torch.no_grad()
     def _refresh_working_copy(self) -> None:

@@ -357,14 +357,15 @@ def convert_nar_state(sd: Dict) -> Dict:
     """A fairseq `nar_s2ut_conformer` state dict (research/TranSpeech
     nar_conformer.py S2SConformerEncoder + nar_transformer.py
     TransformerUnitDecoder) -> the NARS2UTModule variables
-    ({"params", "batch_stats"}). Stacked units (n_frames_per_step > 1,
-    `decoder.embed_tokens.project_in_dim`) raise: the port's decoder has no
-    such input."""
-    for key in ("decoder.embed_tokens.project_in_dim.weight", "decoder.out_proj_n_frames.weight"):
-        if key in sd:
-            raise NotImplementedError(
-                f"{key}: stacked units (n_frames_per_step > 1) are not ported "
-                "(ROADMAP Queue 1 item 4)")
+    ({"params", "batch_stats"}), as JAX's converter maps it (JAX
+    convert_weights.py:640-713). Stacked units (n_frames_per_step > 1): the
+    StackedEmbedding's table and `decoder.embed_tokens.project_in_dim`,
+    `decoder.out_proj_n_frames`, and `subframe_out` from
+    `decoder.output_projection`, which the reference applies per sub-frame.
+    Like JAX's, it maps no speaker projection and no aux head: a checkpoint
+    holding them fails the key-inventory audit, and so does a stacked one
+    whose output projection is its shared embedding table (the audit counts
+    that leaf once, the tree holds it twice)."""
     enc: Dict = {"subsample": {}}
     i = 0
     while f"encoder.subsample.conv_layers.{i}.weight" in sd:
@@ -378,7 +379,11 @@ def convert_nar_state(sd: Dict) -> Dict:
             sd, f"encoder.conformer_layers.{i}")
         i += 1
 
-    dec: Dict = {"embed_tokens": {"embedding": _t(sd["decoder.embed_tokens.weight"])},
+    table = {"embedding": _t(sd["decoder.embed_tokens.weight"])}
+    if "decoder.embed_tokens.project_in_dim.weight" in sd:  # stacked units
+        table = {"embed": table,
+                 "project_in_dim": _linear_tree(sd, "decoder.embed_tokens.project_in_dim")}
+    dec: Dict = {"embed_tokens": table,
                  "embed_length": {"embedding": _t(sd["decoder.embed_length.weight"])}}
     i = 0
     while f"decoder.layers.{i}.self_attn.q_proj.weight" in sd:
@@ -401,6 +406,9 @@ def convert_nar_state(sd: Dict) -> Dict:
     out_w = _t(sd["decoder.output_projection.weight"])
     if not np.array_equal(out_w, _t(sd["decoder.embed_tokens.weight"])):
         dec["output_proj"] = {"kernel": out_w.T}
+    if "decoder.out_proj_n_frames.weight" in sd:
+        dec["out_proj_n_frames"] = {"kernel": dense_w(sd["decoder.out_proj_n_frames.weight"])}
+        dec["subframe_out"] = {"kernel": dense_w(sd["decoder.output_projection.weight"])}
     return {"params": {"encoder": enc, "decoder": dec}, "batch_stats": {"encoder": stats}}
 
 

@@ -289,9 +289,22 @@ def test_unported_layouts_raise_naming_their_roadmap_item(tmp_path, case):
         with pytest.raises(NotImplementedError, match="Queue 1 item 5"):
             cw.convert_diffusion_state(sd)
     else:
-        sd["decoder.embed_tokens.project_in_dim.weight"] = torch.zeros(32, 64)
-        with pytest.raises(NotImplementedError, match="Queue 1 item 4"):
-            cw.convert_nar_state(sd)
+        # stacked units are ported: the map equals JAX's bit for bit and loads
+        # into a stacked model; as JAX's, the audit counts the shared output
+        # projection once and the tree holds it twice (table and subframe_out)
+        gen = torch.Generator().manual_seed(3)
+        sd["decoder.embed_tokens.project_in_dim.weight"] = torch.randn(32, 64, generator=gen)
+        sd["decoder.out_proj_n_frames.weight"] = torch.randn(64, 32, generator=gen)
+        got, want = _flat(cw.convert_nar_state(sd)), _flat(jcw.convert_nar_state(sd))
+        assert sorted(got) == sorted(want)
+        for k, v in want.items():
+            np.testing.assert_array_equal(got[k], v, err_msg=k)
+        assert "params/decoder/embed_tokens/project_in_dim/kernel" in got
+        from_jax_variables(NARS2UTModule(n_frames_per_step=2, **NAR_PORT),
+                           cw.convert_nar_state(sd))
+        for module in (cw, jcw):
+            with pytest.raises(ValueError, match="inventory mismatch"):
+                module.conversion_inventory(sd, module.convert_nar_state(sd))
 
 
 # ---- the converted step directory feeds the port's CLIs ----

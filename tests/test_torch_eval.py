@@ -257,7 +257,7 @@ def test_cli_generate_refuses_unported_flags_and_missing_ids(generate_corpus, tm
     base = [str(generate_corpus), "--cpu", "--path", str(generate_corpus / "nar.npz")]
     for extra, match in ((["--rerank-path", "ar.npz"], "item 4"),
                          (["--retain-iter-history"], "item 4"),
-                         (["--post-process", "sentencepiece"], "item 4"),
+                         (["--decode-chunk", "4"], "item 4"),
                          (["--task", "speech_to_speech"], "item 7"),
                          (["--arch", "s2ut_conformer"], "item 7")):
         with pytest.raises(NotImplementedError, match=match):

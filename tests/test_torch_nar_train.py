@@ -35,6 +35,7 @@ from diffnorm_tpu_torch.models.conformer import BatchNorm, ConformerEncoder
 from diffnorm_tpu_torch.models.hifigan import CodeHiFiGANVocoder
 from diffnorm_tpu_torch.models.layers import Dropout, set_dropout_generator
 from diffnorm_tpu_torch.models.nar_transformer import NARS2UTModule
+from diffnorm_tpu_torch.tasks import TASKS
 from diffnorm_tpu_torch.tasks.nar_s2ut_task import random_mask
 from diffnorm_tpu_torch.train.checkpoint import CheckpointManager, load_variables
 from diffnorm_tpu_torch.train.trainer import Trainer, TrainerConfig
@@ -498,20 +499,39 @@ def test_cli_chain_train_resume_s2st(tmp_path, capsys):
     np.testing.assert_allclose(enc.numpy(), np.asarray(ref), rtol=FWD_TOL, atol=FWD_TOL)
 
 
+# the flags ported since (error None) and the head each adds to the model
+PORTED_HEADS = {"--multitask-config-yaml": "mt_letters_ctc",
+                "--target-speaker-embed": "spk_emb_proj", "--multitask-ctc-vocab": "ctc_proj"}
+
+
 @pytest.mark.parametrize("extra, error", [
     (["--encoder-remat"], NotImplementedError), (["--quant-int8", "true"], NotImplementedError),
-    (["--multitask-config-yaml", "mt.yaml"], NotImplementedError),
-    (["--target-speaker-embed"], NotImplementedError),
-    (["--multitask-ctc-vocab", "100"], NotImplementedError),
+    (["--multitask-config-yaml", "mt.yaml"], None),
+    (["--target-speaker-embed"], None),
+    (["--multitask-ctc-vocab", "100"], None),
     (["--attn-type", "abs"], ValueError), (["--arch", "nar_transformer"], SystemExit),
     (["--ema-decay", "0.999"], SystemExit)])
-def test_cli_flags_not_ported_raise(extra, error):
+def test_cli_flags_not_ported_raise(tmp_path, extra, error):
     """The NAR features the port leaves out raise by name, an arch or attention
     other than the recipes' is refused, and an unknown flag is an error;
-    `--encoder-remat false` and the arch defaults parse."""
-    base = ["data", "--task", "speech_to_speech_fasttranslate", "--max-update", "1"]
-    with pytest.raises(error):
-        train_cli.parse_args(base + extra)
+    `--encoder-remat false` and the arch defaults parse. The multitask, CTC
+    and target-speaker flags (error None) parse and reach the model: the task
+    builds it with their head."""
+    base = [str(tmp_path), "--task", "speech_to_speech_fasttranslate", "--max-update", "1"]
+    if error is None:
+        (tmp_path / "dict.txt").write_text("a 1\nb 1\n")
+        (tmp_path / "mt.yaml").write_text(yaml.safe_dump(
+            {"letters": {"decoder_type": "ctc", "dict": "dict.txt", "encoder_layer": 1}}))
+        args = train_cli.parse_args(base + extra + [
+            "--target-code-size", str(CODES), "--encoder-embed-dim", "32",
+            "--encoder-ffn-embed-dim", "64", "--encoder-layers", "2",
+            "--encoder-attention-heads", "2", "--decoder-layers", "1",
+            "--decoder-attention-heads", "2", "--conv-channels", "32"])
+        model = TASKS[args.task](args).build_model()
+        assert isinstance(getattr(model, PORTED_HEADS[extra[0]]), torch.nn.Module)
+    else:
+        with pytest.raises(error):
+            train_cli.parse_args(base + extra)
     args = train_cli.parse_args(base + ["--encoder-remat", "false", "--arch",
                                         "nar_s2ut_conformer_fisher"])
     assert (args.encoder_embed_dim, args.encoder_attention_heads, args.decoder_embed_dim,

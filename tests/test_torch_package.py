@@ -33,9 +33,14 @@ def _imported_roots(path: Path):
             yield node.module
 
 
+NEW_MODULES = ("models/stacked.py", "models/ar_transformer.py", "data/encoders.py",
+               "data/multitask.py", "tasks/multitask_mixin.py")
+
+
 def test_no_jax_imports_in_the_port():
     sources = _port_sources()
     assert len(sources) > 10
+    assert all(REPO / "diffnorm_tpu_torch" / m in sources for m in NEW_MODULES)
     bad = [(p.relative_to(REPO), name) for p in sources
            for name in _imported_roots(p)
            if name.split(".")[0] in FORBIDDEN]
@@ -73,6 +78,11 @@ def test_port_imports_with_jax_blocked():
             "import diffnorm_tpu_torch.eval.unit_bleu\n"
             "import diffnorm_tpu_torch.eval.asr_bleu\n"
             "import diffnorm_tpu_torch.eval.mcd\n"
+            "import diffnorm_tpu_torch.models.stacked\n"
+            "import diffnorm_tpu_torch.models.ar_transformer\n"
+            "import diffnorm_tpu_torch.data.encoders\n"
+            "import diffnorm_tpu_torch.data.multitask\n"
+            "import diffnorm_tpu_torch.tasks.multitask_mixin\n"
             "from diffnorm_tpu_torch.eval.bleu import corpus_bleu, scorer_name\n"
             "assert scorer_name() == 'counters', scorer_name()\n"
             "assert corpus_bleu(['1 2 3 4 5'], ['1 2 3 4 5']) == 100.0\n"

@@ -205,7 +205,7 @@ def test_dataset_items_and_batches_match_jax(tmp_path, split, is_train):
 
 
 def test_dataset_raises_for_what_is_not_ported(tmp_path):
-    for cfg in ({"use_audio_input": True}, {"target_speaker_embed": "spk"},
+    for cfg in ({"use_audio_input": True},
                 {"dataset_transforms": {"_train": ["concataugment"]}},
                 {"dataset_transforms": {"*": ["noisyoverlapaugment"]}}):
         write_corpus(tmp_path, n=2, config=cfg)
@@ -298,6 +298,15 @@ def test_prepare_batch_matches_jax_over_a_stream_of_batches(tmp_path, use_side):
         want = jtask.prepare_batch({"target": target}, r2)["prev_target"]
         np.testing.assert_array_equal(got, want)
     assert r1.random() == r2.random()
+    # stacked units (k = 2): the packed canvas and the per-sub-frame target
     Args.n_frames_per_step = 2
-    with pytest.raises(NotImplementedError, match="n_frames_per_step"):
-        nar_s2ut_task.NARS2UTTask(Args)
+    task = nar_s2ut_task.NARS2UTTask(Args)
+    jtask = jax_task.NARS2UTTask(Config(data=str(tmp_path), target_code_size=CODES,
+                                        use_side=use_side, n_frames_per_step=2))
+    for k in range(4):
+        target = _targets(30 + k)
+        got = task.prepare_batch({"target": target}, r1)
+        want = jtask.prepare_batch({"target": target}, r2)
+        assert got["target"].shape == want["target"].shape == (len(target), 12, 2)
+        for key in ("prev_target", "target", "target_packed"):
+            np.testing.assert_array_equal(got[key], want[key], err_msg=key)
