@@ -187,10 +187,27 @@ tf32 passes); and at D 80 and 128 with ragged keys and a fully masked row.
    updates with every option's flag on phase 11's corpus plus speakers and
    letter targets, then cli.generate on its step directory (H- units equal
    an in-process decode).
+20. the S2ST options left out until then, at the released widths: a
+   2-member ensemble of seeded NARs (mask_predict_decode over a list) at
+   B16 x 480 and B2 x 8448, against one member's wall, through the plain
+   versions (units equal at CVSS length, LONG_UNIT_AGREE in long form;
+   flash_attention 12 launches a long-form forward) and chunked with the
+   history (--decode-chunk 4 / 1: the last step is the canvas, a share of
+   units equal to the unchunked decode); cli.generate --path a:b
+   --retain-iter-history --decode-chunk 4 on phase 15's corpus, its H- and
+   E- lines equal to an in-process decode. encoder_remat: one long-form
+   NAR update with dropout without and with remat (ms, peak memory, loss
+   and gnorm, BatchNorm statistics and generator states equal). The
+   augments: cli.train (NAR) with concataugment and SpecAugment, and
+   cli.train_vocoder --data-config with noise, babble, sporadic noise and
+   noisy overlap at B32 x 28 units, 2 updates each (ms per update, the
+   transforms' share of host time). repr_to_speech: cli.prepare
+   dump-features, then cli.train_vocoder --input-type features at B32 x 32
+   frames of 768-d features (ms, peak, profile).
 The kernels JSON line reports the float32 kernel as flash_attention_f32
 (its launches those of phase 13) beside the bf16 one (phase 6's, phase
-16's long form, the four cli.generate runs of phase 15, phase 18's and
-phase 19's);
+16's long form, the four cli.generate runs of phase 15, phase 18's,
+phase 19's and phase 20's);
 rms_norm_film and wavenet_chain count phase 3's run and phase 18's CLI run.
 
 Then one JSON line of per-kernel numbers and, last, {"ok": true, "device": ...}.
@@ -389,6 +406,19 @@ OPT_TASKS = (("source_letter", "transformer", "encoder_layer", 6, 8.0),
 # flash_attention launches per long-form forward: the NAT decoder's 6 encoder
 # attentions and the two transformer heads' 2 + 2 cross-attentions
 OPT_FLASH_PER_FORWARD = 6 + 2 * 2
+# the S2ST options left out until phase 20: a 2-member ensemble of the
+# released NAR (12 flash_attention launches a long-form decoder forward),
+# decoded with the history in chunks of EXTRAS_CHUNK rows (CVSS length,
+# long form); chunked against unchunked, bf16 GEMMs at another M part
+# near-tied trajectories, so a share of equal units is held (a broken
+# reassembly gives chance, ~0.001), as phase 16's int8 decode is. The remat
+# update against the one without: the same forward (loss within 1e-6) and a
+# backward whose sums may differ in order (gnorm within 1e-4). The augments
+# at the recipe's shapes: noise WAVs of 1-3 s, 32 vocoder utterances (B32 x
+# 28 units); repr_to_speech at B32 x 32 frames of 768-d features
+EXTRAS_MEMBERS, EXTRAS_REPS, EXTRAS_CHUNK = 2, 3, {S2ST_FRAMES: 4, LONG_FRAMES: 1}
+EXTRAS_CHUNK_AGREE, REMAT_LOSS_REL, REMAT_GNORM_REL = 0.25, 1e-6, 1e-4
+AUG_NOISES, AUG_VOCODER_UTTS, FEAT_UTTS, FEAT_CROP = 8, 32, 32, 32
 
 
 # ---- seeded fairseq-layout state dicts (phase 18; tests/test_torch_convert.py)
@@ -1955,17 +1985,25 @@ def s2st_models(torch):
     embedding (their output columns) are zeroed and the unit rows scaled by
     10, as tests/test_cli_s2st.py does, so the decode emits varied units."""
     from diffnorm_tpu_torch.models.hifigan import CodeHiFiGANVocoder
+
+    nar = seeded_nar(torch, 0)
+    voc = CodeHiFiGANVocoder.from_config(VOCODER_CFG, device="cuda", dtype=torch.bfloat16)
+    return nar, voc.module
+
+
+def seeded_nar(torch, seed: int):
+    """The released nar_s2ut_conformer from `seed`, the specials' rows of
+    its shared embedding zeroed and the unit rows scaled by 10; bf16."""
     from diffnorm_tpu_torch.models.nar_transformer import NARS2UTModule
 
-    torch.manual_seed(0)
+    torch.manual_seed(seed)
     with torch.device("cuda"):
         nar = NARS2UTModule()
     with torch.no_grad():
         emb = nar.decoder.embed_tokens.weight
         emb[:4] = 0.0
         emb[4:] *= 10.0
-    voc = CodeHiFiGANVocoder.from_config(VOCODER_CFG, device="cuda", dtype=torch.bfloat16)
-    return nar.to(torch.bfloat16).eval(), voc.module
+    return nar.to(torch.bfloat16).eval()
 
 
 def s2st_inputs(torch, b, frames, seed=0):
@@ -2842,14 +2880,14 @@ def run_train_vocoder(torch, smi):
     print(f"phase vocoder train: {time.perf_counter() - t0:.1f} s")
 
 
-def write_vocoder_corpus(root: Path, seed: int = 71):
-    """24 seeded 16 kHz WAVs of 3-7 s and a train.units file of 50 Hz units
-    (runs of 1-3), the config JSON."""
+def write_vocoder_corpus(root: Path, seed: int = 71, n_utts: int = GAN_CLI_UTTS):
+    """`n_utts` seeded 16 kHz WAVs of 3-7 s and a train.units file of 50 Hz
+    units (runs of 1-3), the config JSON."""
     import numpy as np
 
     rng = np.random.default_rng(seed)
     lines = []
-    for i in range(GAN_CLI_UTTS):
+    for i in range(n_utts):
         n = int(rng.uniform(3.0, 7.0) * SAMPLE_RATE)
         write_wav_pcm(root / f"v{i}.wav", (rng.normal(size=n) * 3000).astype(np.int16))
         units = np.repeat(rng.integers(0, 1000, size=n // 320), rng.integers(1, 4, size=n // 320))
@@ -3609,6 +3647,429 @@ def run_options(torch, mods, smi):
     return launches
 
 
+def timed_decode(torch, fn, reps: int = EXTRAS_REPS):
+    """fn() after a warm-up: (the output of a run with the launch counts set
+    to 0 just before it, the counts read just after it, the median wall of
+    `reps` runs with that one)."""
+    from diffnorm_tpu_torch.ops import _build
+
+    fn()
+    torch.cuda.synchronize()
+    _build.launch_counts.clear()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    walls = [time.perf_counter() - t0]
+    counts = dict(_build.launch_counts)
+    for _ in range(reps - 1):
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+    return out, counts, statistics.median(walls)
+
+
+def unit_agreement(a, b) -> float:
+    """The share of positions where two decodes' tokens agree, over the
+    positions either one fills."""
+    used = (a != 1) | (b != 1)
+    return ((a == b) & used).sum().item() / max(used.sum().item(), 1)
+
+
+def run_decode_extras(torch, mods, smi):
+    """Phase 20, the decode extras: a 2-member ensemble at the S2ST cell's
+    two shapes (see the module docstring), then cli.generate --path a:b
+    --retain-iter-history --decode-chunk 4 on phase 15's corpus. Returns the
+    flash_attention launches of the counted runs."""
+    from diffnorm_tpu_torch.cli import generate
+    from diffnorm_tpu_torch.cli.generate import strip_special
+    from diffnorm_tpu_torch.data.dictionary import Dictionary
+    from diffnorm_tpu_torch.data.iterators import EpochBatchIterator
+    from diffnorm_tpu_torch.data.s2s_dataset import SpeechToUnitDataset
+    from diffnorm_tpu_torch.generate.mask_predict import (
+        mask_predict_decode,
+        mask_predict_decode_chunked,
+    )
+    from diffnorm_tpu_torch.ops import _build
+    from diffnorm_tpu_torch.weights import save_npz, to_jax_variables
+
+    t0 = time.perf_counter()
+    members = [seeded_nar(torch, seed) for seed in range(EXTRAS_MEMBERS)]
+    per_forward = EXTRAS_MEMBERS * members[0].decoder.n_layers
+    kw = {k: S2ST_KW[k] for k in ("max_iter", "max_len")}
+    n_flash = 0
+    for what, b, frames in (("CVSS length", S2ST_B, S2ST_FRAMES),
+                            ("long form", LONG_B, LONG_FRAMES)):
+        inputs = s2st_inputs(torch, b, frames)
+        long_form, chunk = frames == LONG_FRAMES, EXTRAS_CHUNK[frames]
+        audio_s = b * frames * SECONDS_PER_FRAME
+        one, _, single = timed_decode(torch, lambda: mask_predict_decode(members[0], *inputs, **kw))
+        ens, counts, wall = timed_decode(torch, lambda: mask_predict_decode(members, *inputs, **kw))
+        forwards = int(ens[2].max())
+        flash = counts.get("flash_attention", 0)
+        if flash != (per_forward * forwards if long_form else 0):
+            fail(f"decode extras {what}: flash_attention launched {flash} times for {forwards} "
+                 f"forwards of {EXTRAS_MEMBERS} members")
+        with plain_versions(*mods):
+            plain, plain_counts, plain_wall = timed_decode(
+                torch, lambda: mask_predict_decode(members, *inputs, **kw), reps=1)
+        agree_plain = unit_agreement(ens[0], plain[0])
+        if plain_counts.get("flash_attention", 0) or (
+                agree_plain < LONG_UNIT_AGREE if long_form else not torch.equal(ens[0], plain[0])):
+            fail(f"decode extras {what}: the plain-version run, share equal {agree_plain:.4f}, "
+                 f"launches {plain_counts}")
+        hist_out, hist_counts, hist_wall = timed_decode(
+            torch, lambda: mask_predict_decode_chunked(members, *inputs, chunk=chunk,
+                                                       retain_history=True, **kw), reps=1)
+        tokens, _, _, history = hist_out
+        hist_flash = hist_counts.get("flash_attention", 0)
+        want = per_forward * (kw["max_iter"] + 1) * -(-b // chunk) if long_form else 0
+        if history.shape != (kw["max_iter"] + 1, b, kw["max_len"]) or not torch.equal(
+                history[-1], tokens) or hist_flash != want:
+            fail(f"decode extras {what}: history {tuple(history.shape)}, last step equal "
+                 f"{torch.equal(history[-1], tokens)}, flash_attention {hist_flash} (want {want})")
+        agree_chunk = unit_agreement(tokens, ens[0])
+        if agree_chunk < EXTRAS_CHUNK_AGREE:
+            fail(f"decode extras {what}: chunked against unchunked, share equal {agree_chunk:.4f}")
+        n_flash += flash + hist_flash
+        print(f"decode extras {what}: B{b}x{frames} frames, {EXTRAS_MEMBERS}-member ensemble, "
+              f"bf16: wall {wall:.4f} s (median of {EXTRAS_REPS}), RTF {audio_s / wall:.2f}, "
+              f"one member {single:.4f} s (RTF {audio_s / single:.2f}, ensemble "
+              f"{wall / single:.2f}x, {int(one[2].max())} forwards), decoder forwards "
+              f"{forwards}, flash_attention {flash}; "
+              f"plain versions {plain_wall:.4f} s, units share equal {agree_plain:.4f}; "
+              f"--decode-chunk {chunk} with the history {hist_wall:.4f} s, "
+              f"{kw['max_iter'] + 1} forwards a chunk, flash_attention {hist_flash}, units "
+              f"against the unchunked decode share equal {agree_chunk:.4f}; {smi}")
+
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = Path(tmp)
+        write_eval_corpus(tmp)
+        paths = []
+        for i, m in enumerate(members):
+            paths.append(str(tmp / f"nar{i}.npz"))
+            save_npz(paths[-1], to_jax_variables(m))
+        torch.cuda.synchronize()
+        _build.launch_counts.clear()
+        t1 = time.perf_counter()
+        rc = generate.main([str(tmp), "--path", ":".join(paths), "--gen-subset", "test",
+                            "--max-tokens", str(EVAL_MAX_TOKENS), "--iter-decode-max-iter",
+                            str(EVAL_MAX_ITER), "--retain-iter-history", "--decode-chunk", "4",
+                            "--results-path", str(tmp / "res"), *EVAL_WIDTH_FLAGS])
+        torch.cuda.synchronize()
+        cli_wall = time.perf_counter() - t1
+        cli_flash = _build.launch_counts.get("flash_attention", 0)
+        if rc != 0:
+            fail(f"decode extras: cli.generate --path a:b returned {rc}")
+        lines = (tmp / "res" / "generate-test.txt").read_text().splitlines()
+        got_h = read_hyps(tmp / "res" / "generate-test.txt")
+        got_e = [line for line in lines if line.startswith("E-")]
+        tgt_dict = Dictionary.unit_dictionary(1000)
+        ds = SpeechToUnitDataset.from_tsv(str(tmp), "test", tgt_dict=tgt_dict)
+        want_h, want_e = {}, []
+        for batch in EpochBatchIterator(ds, EVAL_MAX_TOKENS, shuffle=False).next_epoch_itr():
+            toks, _, _, hist = mask_predict_decode_chunked(
+                members, torch.from_numpy(batch["src_tokens"]).cuda(),
+                torch.from_numpy(batch["src_lengths"]).cuda(), chunk=4, retain_history=True,
+                max_iter=EVAL_MAX_ITER, max_len=256)
+            toks, hist = toks.cpu().numpy(), hist.cpu().numpy()
+            for row, sid in enumerate(batch["id"].tolist()):
+                want_h[sid] = strip_special(toks[row], tgt_dict)
+                want_e += [f"E-{sid}_{st}\t{strip_special(hist[st, row], tgt_dict)}"
+                           for st in range(hist.shape[0])]
+        if got_h != want_h or sorted(got_e) != sorted(want_e):
+            bad = [i for i in want_h if want_h[i] != got_h.get(i)]
+            fail(f"decode extras: cli.generate's H- units (ids {bad} differ) or E- lines "
+                 f"({len(got_e)} against {len(want_e)}) are not the in-process decode's")
+        if cli_flash < per_forward * (EVAL_MAX_ITER + 1):
+            fail(f"decode extras: cli.generate launched flash_attention {cli_flash} times")
+    n_flash += cli_flash
+    print(f"decode extras entry point: cli.generate --path a:b --retain-iter-history "
+          f"--decode-chunk 4 on phase 15's {EVAL_SHORT + 1} sources: {cli_wall:.2f} s with both "
+          f"members' load, H- units and {len(got_e)} E- lines equal to an in-process ensemble "
+          f"decode, flash_attention {cli_flash}; {smi}")
+    print(f"phase decode extras: {time.perf_counter() - t0:.1f} s")
+    return n_flash
+
+
+def run_remat(torch, smi):
+    """Phase 20, encoder_remat: one long-form NAR update (phase 10's long
+    batch shape, dropout 0.1) without and with remat, each after a
+    validation warm-up: ms, peak memory, loss and gradient norm, the
+    BatchNorm running statistics and the dropout, CG and SP generators'
+    states after the update; then a second update's ms."""
+    import numpy as np
+
+    from diffnorm_tpu_torch.criterions.nar_loss import NARSpeechToUnitLoss
+    from diffnorm_tpu_torch.models.conformer import BatchNorm
+    from diffnorm_tpu_torch.models.nar_transformer import NARS2UTModule
+    from diffnorm_tpu_torch.train.trainer import GENERATORS, Trainer, TrainerConfig
+
+    t0 = time.perf_counter()
+    long = nar_batch(np.random.default_rng(201), [LONG_FRAMES, LONG_FRAMES // 2], [600, 300])
+    runs = {}
+    for remat in (False, True):
+        torch.manual_seed(12)
+        with torch.device("cuda"):
+            model = NARS2UTModule(encoder_remat=remat)
+        trainer = Trainer(TrainerConfig(**NAR_TRAIN), model, NARSpeechToUnitLoss(0.2))
+        trainer.valid_step(long, torch.Generator(device="cuda").manual_seed(0))
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t1 = time.perf_counter()
+        mets = trainer.train_step([long])
+        torch.cuda.synchronize()
+        ms = [1e3 * (time.perf_counter() - t1)]
+        peak_gb = torch.cuda.max_memory_allocated() / 1e9
+        stats = [m._buffers[k].clone() for m in model.modules() if isinstance(m, BatchNorm)
+                 for k in BatchNorm.STATS]
+        gens = [getattr(trainer, name).get_state() for name in GENERATORS]
+        t1 = time.perf_counter()
+        mets2 = trainer.train_step([long])
+        torch.cuda.synchronize()
+        ms.append(1e3 * (time.perf_counter() - t1))
+        runs[remat] = (mets, mets2, ms, peak_gb, stats, gens)
+        del model, trainer
+        torch.cuda.empty_cache()
+    (m0, m0b, ms0, gb0, s0, g0), (m1, m1b, ms1, gb1, s1, g1) = runs[False], runs[True]
+    loss_rel = abs(m1["loss"] - m0["loss"]) / abs(m0["loss"])
+    gnorm_rel = abs(m1["gnorm"] - m0["gnorm"]) / abs(m0["gnorm"])
+    stats_equal = all(torch.equal(a, b) for a, b in zip(s0, s1))
+    gens_equal = all(torch.equal(a, b) for a, b in zip(g0, g1))
+    line = (f"encoder_remat: long-form NAR update (B2 x {LONG_FRAMES}, dropout 0.1, bf16): "
+            f"without remat {ms0[0]:.1f} / {ms0[1]:.1f} ms (first / second update), peak "
+            f"{gb0:.2f} GB; with remat {ms1[0]:.1f} / {ms1[1]:.1f} ms, peak {gb1:.2f} GB; loss "
+            f"{m0['loss']:.6f} / {m1['loss']:.6f} (rel {loss_rel:.2e}, bound {REMAT_LOSS_REL}), "
+            f"gnorm rel {gnorm_rel:.2e} (bound {REMAT_GNORM_REL}), second update loss rel "
+            f"{abs(m1b['loss'] - m0b['loss']) / abs(m0b['loss']):.2e}; BatchNorm running "
+            f"statistics {'equal' if stats_equal else 'DIFFER'} ({len(s0)} tensors), generator "
+            f"states {'equal' if gens_equal else 'DIFFER'}; {smi}")
+    if (loss_rel > REMAT_LOSS_REL or gnorm_rel > REMAT_GNORM_REL or not stats_equal
+            or not gens_equal or gb1 >= gb0):
+        fail(line)
+    print(line)
+    print(f"phase encoder_remat: {time.perf_counter() - t0:.1f} s")
+
+
+@contextlib.contextmanager
+def timed_calls(targets):
+    """Each (owner, attribute) callable patched to append each call's wall
+    time to totals["Owner.attribute"]."""
+    totals, saved = {}, []
+    for owner, name in targets:
+        fn, key = getattr(owner, name), f"{owner.__name__}.{name}"
+        totals[key] = []
+
+        def wrapped(*args, _fn=fn, _key=key, **kwargs):
+            t0 = time.perf_counter()
+            try:
+                return _fn(*args, **kwargs)
+            finally:
+                totals[_key].append(time.perf_counter() - t0)
+
+        saved.append((owner, name, fn))
+        setattr(owner, name, wrapped)
+    try:
+        yield totals
+    finally:
+        for owner, name, fn in saved:
+            setattr(owner, name, fn)
+
+
+def write_noise_dir(root: Path, seed: int = 202):
+    """AUG_NOISES seeded 16 kHz noise WAVs of 1-3 s."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    for i in range(AUG_NOISES):
+        n = int(rng.uniform(1.0, 3.0) * SAMPLE_RATE)
+        write_wav_pcm(root / f"noise{i}.wav", (rng.normal(size=n) * 2000).astype(np.int16))
+
+
+def update_ms(walls) -> str:
+    return "ms per update " + " / ".join(f"{1e3 * w:.1f}" for w in walls) + " (the first warms up)"
+
+
+def host_shares(totals, wall, update_key, transform_keys):
+    """Each update's ms, and the transforms' seconds over the CLI's wall and
+    over its host time outside the updates."""
+    transforms_s = sum(sum(totals[k]) for k in transform_keys)
+    outside = max(wall - sum(totals[update_key]), 1e-9)
+    return (f"{update_ms(totals[update_key])}, transforms {1e3 * transforms_s:.1f} ms = "
+            f"{100 * transforms_s / wall:.2f}% of the {wall:.2f} s wall and "
+            f"{100 * transforms_s / outside:.2f}% of its host time outside the updates ("
+            + ", ".join(f"{k} {1e3 * sum(v):.1f} ms / {len(v)} calls" for k, v in totals.items())
+            + ")")
+
+
+def run_augments(torch, smi):
+    """Phase 20, the augments: cli.train (NAR, released widths, bf16) on
+    phase 11's corpus with concataugment and SpecAugment for 2 updates, then
+    cli.train_vocoder --data-config with noise, babble, sporadic noise and
+    noisyoverlapaugment at scripts/full_recipe.sh's B32 x 28 units for 2
+    updates (TF32 on for its cuDNN convs, the CLI's default): ms per update
+    and the transforms' share of the host time."""
+    from diffnorm_tpu_torch.cli import train as train_cli
+    from diffnorm_tpu_torch.cli import train_vocoder
+    from diffnorm_tpu_torch.data.audio import SpecAugment
+    from diffnorm_tpu_torch.data.augment import ConcatAugment, NoiseAugment, NoisyOverlapAugment
+    from diffnorm_tpu_torch.data.code_dataset import CodeToSpeechDataset
+    from diffnorm_tpu_torch.data.s2s_dataset import SpeechToUnitDataset
+    from diffnorm_tpu_torch.train.gan_trainer import GanTrainer
+    from diffnorm_tpu_torch.train.trainer import Trainer
+
+    t0 = time.perf_counter()
+    lines = LogLines()
+    logging.getLogger("diffnorm_tpu_torch.train").addHandler(lines)
+    logging.getLogger("diffnorm_tpu_torch.train_vocoder").addHandler(lines)
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = Path(tmp)
+        for d in ("noise", "nar", "voc"):
+            (tmp / d).mkdir()
+        write_noise_dir(tmp / "noise")
+        write_nar_corpus(tmp / "nar")
+        with open(tmp / "nar" / "config.yaml", "a") as f:
+            f.write("dataset_transforms:\n  _train: [concataugment]\n"
+                    "concataugment:\n  rate: 0.5\n  max_tokens: 1400\n")
+        args = [str(tmp / "nar"), "--task", "speech_to_speech_fasttranslate",
+                "--target-code-size", "1000", "--save-dir", str(tmp / "nar_ckpt"),
+                "--max-update", "2", "--max-tokens", "8000", "--max-target-positions", "1024",
+                "--seed", "42", "--dtype", "bfloat16", "--log-interval", "1",
+                "--validate-interval", "5", "--save-interval", "5", *EVAL_WIDTH_FLAGS]
+        keys = ["ConcatAugment.find_indices", "SpecAugment.__call__"]
+        with timed_calls([(Trainer, "train_step"), (SpeechToUnitDataset, "__getitem__"),
+                          (ConcatAugment, "find_indices"), (SpecAugment, "__call__")]) as totals:
+            t1 = time.perf_counter()
+            if train_cli.main(args) != 0 or "saved checkpoint at step 2" not in " ".join(
+                    lines.lines):
+                fail(f"augments: cli.train with concataugment: {lines.lines[-3:]}")
+            wall = time.perf_counter() - t1
+        if not totals["ConcatAugment.find_indices"]:
+            fail("augments: cli.train drew no concataugment partner")
+        print(f"augments cli.train NAR (concataugment rate 0.5 + SpecAugment, released widths, "
+              f"bf16): {host_shares(totals, wall, 'Trainer.train_step', keys)}; {smi}")
+
+        write_vocoder_corpus(tmp / "voc", n_utts=AUG_VOCODER_UTTS)
+        noise = str(tmp / "noise")
+        (tmp / "aug.yaml").write_text(json.dumps({
+            "waveform_transforms": {"_train": ["noiseaugment", "babbleaugment",
+                                               "sporadicnoiseaugment"]},
+            "noiseaugment": {"samples_path": noise}, "babbleaugment": {"samples_path": noise},
+            "sporadicnoiseaugment": {"samples_path": noise},
+            "dataset_transforms": {"_train": ["noisyoverlapaugment"]},
+            "noisyoverlapaugment": {"noise_path": noise}}))
+        keys = ["NoiseAugment.__call__", "NoisyOverlapAugment.__call__"]
+        lines.lines.clear()
+        torch.backends.cudnn.allow_tf32 = True
+        with timed_calls([(GanTrainer, "train_step"), (CodeToSpeechDataset, "__getitem__"),
+                          (CodeToSpeechDataset, "collater"), (NoiseAugment, "__call__"),
+                          (NoisyOverlapAugment, "__call__")]) as totals:
+            t1 = time.perf_counter()
+            rc = train_vocoder.main([
+                "--units-file", str(tmp / "voc" / "train.units"), "--audio-dir",
+                str(tmp / "voc"), "--vocoder-cfg", str(tmp / "voc" / "voc.json"),
+                "--save-dir", str(tmp / "voc_ckpt"), "--batch-size", "32", "--crop-units",
+                str(GAN_CROP), "--max-update", "2", "--log-interval", "1", "--data-config",
+                str(tmp / "aug.yaml")])
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t1
+        torch.backends.cudnn.allow_tf32 = False
+        if rc != 0 or "vocoder training done at step 2" not in lines.lines:
+            fail(f"augments: cli.train_vocoder --data-config: {lines.lines[-3:]}")
+        if not all(totals[k] for k in keys):
+            fail(f"augments: a transform never ran: {totals}")
+        print(f"augments cli.train_vocoder --data-config (noise, babble, sporadic noise, noisy "
+              f"overlap at their default rates; B32 x {GAN_CROP} units, TF32 on): "
+              f"{host_shares(totals, wall, 'GanTrainer.train_step', keys)}; {smi}")
+    logging.getLogger("diffnorm_tpu_torch.train").removeHandler(lines)
+    logging.getLogger("diffnorm_tpu_torch.train_vocoder").removeHandler(lines)
+    print(f"phase augments: {time.perf_counter() - t0:.1f} s")
+
+
+def run_repr_to_speech(torch, smi):
+    """Phase 20, repr_to_speech: cli.get_manifest and cli.prepare
+    dump-features (a random full-size mHuBERT from seed 0, layer 11) on
+    FEAT_UTTS WAVs of 1-2 s, then cli.train_vocoder --input-type features at
+    the released generator widths with model_in_dim 768, B32 x FEAT_CROP
+    frames (10,240 samples a row), 2 updates (TF32 on): ms per update, peak
+    memory, and a profile of one more update of the CLI's trainer."""
+    import numpy as np
+
+    from diffnorm_tpu_torch.cli import get_manifest, prepare, train_vocoder
+    from diffnorm_tpu_torch.models.hifigan import FeatureGenerator
+    from diffnorm_tpu_torch.train.gan_trainer import GanTrainer
+
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = Path(tmp)
+        (tmp / "wavs").mkdir()
+        rng = np.random.default_rng(203)
+        for i in range(FEAT_UTTS):
+            n = int(rng.uniform(1.0, 2.0) * SAMPLE_RATE)
+            write_wav_pcm(tmp / "wavs" / f"f{i:02d}.wav", (rng.normal(size=n) * 3000).astype(np.int16))
+        t1 = time.perf_counter()
+        if get_manifest.main([str(tmp / "wavs"), "--dest", str(tmp / "audio.tsv")]) != 0 or \
+                prepare.main(["dump-features", "--manifest", str(tmp / "audio.tsv"), "--layer",
+                              str(PREP_LAYER), "--out-dir", str(tmp / "feat"), "--split",
+                              "train"]) != 0:
+            fail("repr_to_speech: cli.get_manifest / cli.prepare dump-features failed")
+        torch.cuda.synchronize()
+        dump_s = time.perf_counter() - t1
+        cfg = {k: v for k, v in VOCODER_CFG.items() if k != "dur_predictor_params"}
+        (tmp / "voc.json").write_text(json.dumps(dict(cfg, model_in_dim=768)))
+        seen = {}
+        step = GanTrainer.train_step
+
+        def recording(self, batch):
+            seen["trainer"], seen["batch"] = self, batch
+            return step(self, batch)
+
+        GanTrainer.train_step = recording
+        torch.backends.cudnn.allow_tf32 = True
+        torch.cuda.reset_peak_memory_stats()
+        try:
+            with timed_calls([(GanTrainer, "train_step")]) as totals:
+                t1 = time.perf_counter()
+                rc = train_vocoder.main([
+                    "--input-type", "features", "--feat-manifest",
+                    str(tmp / "feat" / "train.manifest.tsv"), "--audio-dir", str(tmp / "wavs"),
+                    "--vocoder-cfg", str(tmp / "voc.json"), "--save-dir", str(tmp / "ckpt"),
+                    "--batch-size", "32", "--crop-units", str(FEAT_CROP), "--max-update", "2",
+                    "--log-interval", "1"])
+                torch.cuda.synchronize()
+                wall = time.perf_counter() - t1
+            peak_gb = torch.cuda.max_memory_allocated() / 1e9
+            trainer, batch = seen["trainer"], seen["batch"]
+            if rc != 0 or not isinstance(trainer.gen, FeatureGenerator) or \
+                    batch["features"].shape != (32, FEAT_CROP, 768):
+                fail(f"repr_to_speech: cli.train_vocoder --input-type features returned {rc}, "
+                     f"batch {({k: np.shape(v) for k, v in batch.items()})}")
+            walls = totals["GanTrainer.train_step"]
+            print(f"repr_to_speech: dump-features {dump_s:.2f} s ({FEAT_UTTS} WAVs of 1-2 s, the "
+                  f"encoder's build included); cli.train_vocoder --input-type features B32 x "
+                  f"{FEAT_CROP} frames ({FEAT_CROP * 320} samples a row), released generator "
+                  f"widths, TF32 on: {update_ms(walls)}, peak {peak_gb:.2f} GB, the CLI "
+                  f"{wall:.2f} s; {smi}")
+            profile_run(torch, lambda: trainer.train_step(batch), walls[-1])
+        finally:
+            GanTrainer.train_step = step
+            torch.backends.cudnn.allow_tf32 = False
+    print(f"phase repr_to_speech: {time.perf_counter() - t0:.1f} s")
+
+
+def run_s2st_extras(torch, mods, smi):
+    """Phase 20: ensembles and the decode extras, encoder_remat, the
+    augments and repr_to_speech (see the module docstring). Returns the
+    flash_attention launches."""
+    t0 = time.perf_counter()
+    launches = run_decode_extras(torch, mods, smi)
+    run_remat(torch, smi)
+    run_augments(torch, smi)
+    run_repr_to_speech(torch, smi)
+    print(f"phase S2ST extras: {time.perf_counter() - t0:.1f} s")
+    return launches
+
+
 def main() -> int:
     try:
         import torch
@@ -3780,6 +4241,10 @@ def main() -> int:
     # 19. the NAR model's options: stacked units, aux and CTC heads, target
     # speakers, the multi-speaker vocoder; training, decode, S2ST, the CLIs
     launches["flash_attention"] += run_options(torch, mods, smi)
+
+    # 20. the S2ST options left out: ensembles, the history and the chunked
+    # decode, encoder_remat, the augments, repr_to_speech
+    launches["flash_attention"] += run_s2st_extras(torch, mods, smi)
 
     sources = {
         "rms_norm_film": ("rms_norm_film.cu", "diffnorm_tpu/ops/pallas_norm.py:34"),

@@ -39,10 +39,16 @@ activation scale is calibrated on the first batch (`calibrate_act_scales`,
 its target's canvas) before that batch's decode, and the decode runs on
 those scales. `--quant-int8-static` alone does nothing, as in JAX.
 
+`--path a:b:c` decodes with an ensemble of those checkpoints (one
+architecture; the members' log-probs averaged each step, each member
+calibrated on its own with --quant-int8-static). `--retain-iter-history`
+writes each step's filled canvas as `E-{id}_{step}\t{units}` lines after
+the sentence's D- line; `--decode-chunk N` decodes each batch in
+sub-batches of N rows (`mask_predict_decode_chunked`).
+
 Not ported, and raising NotImplementedError: the other tasks and
-architectures (AR S2UT, UnitY, TTS, LevT: ROADMAP Queue 1 item 7), and
---retain-iter-history, the AR reranker, --decode-chunk and ensembles (a
---path holding ':') (item 4).
+architectures (AR S2UT, UnitY, TTS, LevT) and the AR reranker
+(--rerank-path), ROADMAP Queue 1 item 4.
 """
 
 from __future__ import annotations
@@ -63,7 +69,7 @@ from diffnorm_tpu_torch.data.iterators import EpochBatchIterator
 from diffnorm_tpu_torch.data.s2s_dataset import SpeechToUnitDataset
 from diffnorm_tpu_torch.eval.bleu import BleuAccumulator
 from diffnorm_tpu_torch.eval.wer import WerAccumulator
-from diffnorm_tpu_torch.generate.mask_predict import mask_predict_decode
+from diffnorm_tpu_torch.generate.mask_predict import mask_predict_decode_chunked
 from diffnorm_tpu_torch.models.nar_transformer import calibrate_act_scales
 from diffnorm_tpu_torch.ops.quant import set_static_scales
 
@@ -72,11 +78,7 @@ logger = logging.getLogger("diffnorm_tpu_torch.generate")
 PAD, EOS = 1, 2
 TASK, ARCH = "speech_to_speech_fasttranslate", "nar_s2ut_conformer"
 # flags of the JAX CLI's other branches: flag -> the ROADMAP item that ports it
-UNPORTED = {
-    "--retain-iter-history": "Queue 1 item 4",
-    "--rerank-path": "Queue 1 item 4 (the AR reranker)",
-    "--decode-chunk": "Queue 1 item 4",
-}
+UNPORTED = {"--rerank-path": "Queue 1 item 4 (the AR reranker)"}
 
 
 def strip_special(tokens, dictionary: Dictionary) -> str:
@@ -115,7 +117,8 @@ def parse_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
     p.add_argument("--task", default=TASK)
     p.add_argument("--arch", default=ARCH)
     p.add_argument("--path", required=True,
-                   help="NAR S2UT weights (weights.save_npz), or a cli.train step directory")
+                   help="NAR S2UT weights (weights.save_npz), or a cli.train step directory; "
+                        "a:b:c for an ensemble")
     p.add_argument("--config-yaml", default="config.yaml", help="the data config, under DATA")
     p.add_argument("--gen-subset", default="test")
     p.add_argument("--results-path", default=None)
@@ -136,6 +139,10 @@ def parse_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
     p.add_argument("--quant-int8-static", action="store_true",
                    help="with --quant-int8: static activation scales, calibrated on the "
                         "first batch")
+    p.add_argument("--retain-iter-history", action="store_true",
+                   help="E-{id}_{step} lines: each step's filled canvas")
+    p.add_argument("--decode-chunk", type=int, default=0,
+                   help="decode in sub-batches of this many rows (0: whole batches)")
     add_model_args(p)
     for flag in UNPORTED:
         p.add_argument(flag, nargs="?", const=True, default=None, help=argparse.SUPPRESS)
@@ -146,10 +153,7 @@ def parse_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
     if args.task != TASK or args.arch != ARCH:
         raise NotImplementedError(
             f"--task {args.task} --arch {args.arch}: only the NAR S2UT branch ({TASK}, {ARCH}) "
-            "is ported (ROADMAP Queue 1 item 7)")
-    if ":" in args.path:
-        raise NotImplementedError(
-            f"--path {args.path}: ensembles are not ported (ROADMAP Queue 1 item 4)")
+            "is ported (ROADMAP Queue 1 item 4)")
     return args
 
 
@@ -162,8 +166,12 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
     tgt_dict = Dictionary.unit_dictionary(args.target_code_size)
     dataset = SpeechToUnitDataset.from_tsv(args.data, split, tgt_dict=tgt_dict,
                                            config_yaml=args.config_yaml)
-    model = build_model(args, args.path, device, dtype, quant_int8=args.quant_int8)
-    logger.info("restored checkpoint from %s", args.path)
+    paths = [p for p in args.path.split(":") if p]
+    models = [build_model(args, p, device, dtype, quant_int8=args.quant_int8) for p in paths]
+    if len(models) > 1:
+        logger.info("restored %d-model ensemble from %s", len(models), ", ".join(paths))
+    else:
+        logger.info("restored checkpoint from %s", paths[0])
     calibrate = args.quant_int8 and args.quant_int8_static
     pp_symbol = args.post_process or args.remove_bpe
     init_lengths = None
@@ -186,9 +194,12 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
                 target = batch.get("target")
                 if target is not None:
                     target = torch.from_numpy(target).to(device)
-                calibrate_act_scales(model, torch.from_numpy(batch["src_tokens"]).to(device),
-                                     torch.from_numpy(batch["src_lengths"]).to(device), target)
-                set_static_scales(model, True)
+                for model in models:
+                    calibrate_act_scales(model,
+                                         torch.from_numpy(batch["src_tokens"]).to(device),
+                                         torch.from_numpy(batch["src_lengths"]).to(device),
+                                         target)
+                    set_static_scales(model, True)
                 logger.info("calibrated static int8 activation scales on the first batch")
                 calibrate = False
             true_length = None
@@ -196,15 +207,17 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
                 true_length = torch.tensor([init_length(init_lengths, int(i))
                                             for i in batch["id"]], device=device)
             tgt_speaker = batch.get("tgt_speaker")
-            tokens, scores, steps = mask_predict_decode(
-                model, torch.from_numpy(batch["src_tokens"]).to(device),
-                torch.from_numpy(batch["src_lengths"]).to(device),
+            out = mask_predict_decode_chunked(
+                models, torch.from_numpy(batch["src_tokens"]).to(device),
+                torch.from_numpy(batch["src_lengths"]).to(device), chunk=args.decode_chunk,
                 max_iter=args.iter_decode_max_iter, max_len=min(args.max_target_positions, 256),
                 cond_scale=args.cond_scale, length_beam=beam, true_length=true_length,
                 adaptive=not args.iter_decode_force_max_iter,
                 tgt_speaker=(None if tgt_speaker is None
-                             else torch.from_numpy(tgt_speaker).to(device)))
-            tokens, scores = tokens.cpu().numpy(), scores.cpu().numpy()
+                             else torch.from_numpy(tgt_speaker).to(device)),
+                retain_history=args.retain_iter_history)
+            tokens, scores, steps = (t.cpu().numpy() for t in out[:3])
+            history = out[3].cpu().numpy() if args.retain_iter_history else None
             total_steps += int(steps.sum())
             for i, sid in enumerate(batch["id"].tolist()):
                 hyp = strip_special(tokens[i], tgt_dict)
@@ -217,6 +230,10 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
                 print(f"T-{sid}\t{ref}", file=out_f)
                 print(f"H-{sid}\t{score:.4f}\t{hyp}", file=out_f)
                 print(f"D-{sid}\t{score:.4f}\t{hyp_d}", file=out_f)
+                if history is not None:  # fairseq's retain_iter_history lines
+                    for st in range(history.shape[0]):
+                        print(f"E-{sid}_{st}\t{strip_special(history[st, i], tgt_dict)}",
+                              file=out_f)
                 if args.scoring == "sacrebleu":
                     sb_hyps.append(hyp_d)
                     sb_refs.append(ref)

@@ -3,10 +3,13 @@ the speech VAE (`--task speech_decoder`), the latent normalizer over the
 frozen VAE (`--task speech_diffusion_discrete`) and the NAR S2UT translator
 on unit targets (`--task speech_to_speech_fasttranslate`, DiffNorm's fourth
 stage); `--task unit_to_speech` goes to `cli.train_vocoder` with the other
-arguments, as JAX's does. It takes every flag of scripts/vae_train.sh,
+arguments, as JAX's does, and `--task repr_to_speech` too with
+`--input-type features`. It takes every flag of scripts/vae_train.sh,
 scripts/diffusion_train.sh and scripts/s2ut_train.sh with the same meaning;
-a flag it does not implement is an error, and the NAR features not ported
-(encoder remat, int8 training) raise. The NAR model's options:
+a flag it does not implement is an error, and int8 training
+(`--quant-int8`), which is not ported, raises. --encoder-remat recomputes
+each conformer layer in the backward (less activation memory on long
+sources, the same update). The NAR model's options:
 --n-frames-per-step k (stacked units), --multitask-config-yaml Y (aux
 heads, Y relative to DATA; each task's loss weight follows the update
 count as JAX's does, which prepares each batch two updates ahead of its
@@ -88,7 +91,7 @@ STAGES = {  # task: (criterion, its architectures)
     NAR_TASK: ("nar_speech_to_unit", tuple(NAR_ARCHS)),
 }
 # flags of the JAX CLI's NAR model that the port does not implement
-UNPORTED = ("encoder_remat", "quant_int8")
+UNPORTED = ("quant_int8",)
 
 
 def _bool(value: str) -> bool:
@@ -173,6 +176,7 @@ def build_parser(description: str, train: bool = True) -> argparse.ArgumentParse
                    help="the vocabulary of a CTC head over the encoder (0: none)")
     _flag(p, "--target-speaker-embed", help="condition the encoder on a speaker embedding")
     p.add_argument("--speaker-embed-dim", type=int, default=256)
+    _flag(p, "--encoder-remat", help="recompute each conformer layer in the backward")
     for name in UNPORTED:
         p.add_argument("--" + name.replace("_", "-"), nargs="?", const=True, default=None,
                        help="not ported: raises")
@@ -317,12 +321,11 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
     task_parser = argparse.ArgumentParser(add_help=False)
     task_parser.add_argument("--task")
     chosen, rest = task_parser.parse_known_args(argv)
-    if chosen.task == "repr_to_speech":
-        raise NotImplementedError("--task repr_to_speech (FeatureGenerator, "
-                                  "FeatureToSpeechDataset) is not ported (ROADMAP Queue 1 item 4)")
-    if chosen.task == "unit_to_speech":
+    if chosen.task in ("unit_to_speech", "repr_to_speech"):
         from diffnorm_tpu_torch.cli import train_vocoder
 
+        if chosen.task == "repr_to_speech":
+            rest = rest + ["--input-type", "features"]
         return train_vocoder.main(rest)
     logging.basicConfig(level=logging.INFO, force=True,
                         format="%(asctime)s | %(levelname)s | %(name)s | %(message)s")

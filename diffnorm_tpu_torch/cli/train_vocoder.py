@@ -10,17 +10,23 @@ on run-length labels where the config declares one.
 
 The generator is the config's `CodeGenerator` in float32, trained from its
 initialization; `name|u1 u2 ...` lines of --units-file pair with
-`{name}.wav` (16 kHz) under --audio-dir. Checkpoints are step directories
+`{name}.wav` (16 kHz) under --audio-dir. `--data-config Y` (YAML) gives the
+dataset its `waveform_transforms` and `dataset_transforms` blocks
+(data/augment.py: noise, music, babble and sporadic noise on each crop,
+noisy overlap over each batch). `--input-type features --feat-manifest M`
+trains repr_to_speech's `FeatureGenerator` (the config's `model_in_dim`,
+768 by default, projected to `embedding_dim`) on the feature dumps that the
+feature manifest M lists (`cli.prepare dump-features`' `{split}.manifest.tsv`),
+paired with `{utt}.wav` under --audio-dir. Checkpoints are step directories
 under --save-dir: `params.npz` holds {"g_params", "d_params": {"mpd",
 "msd"}} in flax paths (what `cli.generate_waveform --vocoder STEP_DIR`
-reads), `trainer.pt` both optimizers' moments and counts. A re-run with a
-higher --max-update continues from the last one (`resumed from step N`).
-Runs on the GPU unless --cpu is given.
+reads for a CodeGenerator), `trainer.pt` both optimizers' moments and
+counts. A re-run with a higher --max-update continues from the last one
+(`resumed from step N`). Runs on the GPU unless --cpu is given.
 
-Not ported, and raising NotImplementedError: --data-config (the dataset's
-waveform and dataset transforms), --input-type features (repr_to_speech's
-FeatureGenerator; both ROADMAP Queue 1 item 4) and --num-workers > 0
-(item 5).
+Not ported, and raising NotImplementedError: --num-workers > 0 (ROADMAP
+Queue 1 item 2), and the multi-speaker fine-tune (a `multispkr` config with
+--input-type code: JAX's CLI builds a single-speaker generator for it).
 """
 
 from __future__ import annotations
@@ -34,10 +40,10 @@ from typing import Optional, Sequence
 
 import torch
 
-from diffnorm_tpu_torch.data.code_dataset import CodeToSpeechDataset
+from diffnorm_tpu_torch.data.code_dataset import CodeToSpeechDataset, FeatureToSpeechDataset
 from diffnorm_tpu_torch.data.iterators import EpochBatchIterator
 from diffnorm_tpu_torch.device import resolve_device
-from diffnorm_tpu_torch.models.hifigan import CodeGenerator
+from diffnorm_tpu_torch.models.hifigan import CodeGenerator, FeatureGenerator
 from diffnorm_tpu_torch.train.checkpoint import CheckpointManager
 from diffnorm_tpu_torch.train.gan_trainer import DEFAULTS, GanTrainer
 
@@ -53,7 +59,9 @@ def parse_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
     p.add_argument("data", nargs="?",
                    help="accepted and unused, as by JAX's CLI: --units-file and --audio-dir "
                         "name the data")
-    p.add_argument("--units-file", required=True, help="`name|u1 u2 ...` lines")
+    p.add_argument("--units-file", help="`name|u1 u2 ...` lines (--input-type code)")
+    p.add_argument("--feat-manifest",
+                   help="the feature manifest of the dumps (--input-type features)")
     p.add_argument("--audio-dir", required=True, help="{name}.wav, 16 kHz")
     p.add_argument("--vocoder-cfg", required=True, help="the code-HiFi-GAN config JSON")
     p.add_argument("--save-dir", default="ckpt/vocoder")
@@ -77,38 +85,57 @@ def parse_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
                    help="run-length duration labels (on whenever the config has "
                         "dur_predictor_params)")
     p.add_argument("--cpu", action="store_true", help="run on the CPU")
-    p.add_argument("--data-config", help="not ported: raises")
+    p.add_argument("--data-config", help="the dataset's transforms (YAML)")
     p.add_argument("--input-type", choices=("code", "features"), default="code")
     p.add_argument("--num-workers", type=int, default=0)
     args = p.parse_args(argv)
-    if args.data_config:
-        raise NotImplementedError("--data-config (the vocoder dataset's transforms) is not "
-                                  "ported (ROADMAP Queue 1 item 4)")
-    if args.input_type == "features":
-        raise NotImplementedError("--input-type features (repr_to_speech, FeatureGenerator) is "
-                                  "not ported (ROADMAP Queue 1 item 4)")
+    needs = "feat_manifest" if args.input_type == "features" else "units_file"
+    if getattr(args, needs) is None:
+        p.error(f"--input-type {args.input_type} needs --{needs.replace('_', '-')}")
     if args.num_workers > 0:
         raise NotImplementedError("--num-workers > 0 is not ported: batches load on the "
-                                  "training thread (ROADMAP Queue 1 item 5)")
+                                  "training thread (ROADMAP Queue 1 item 2)")
     return args
 
 
-def build_generator(vcfg: dict) -> CodeGenerator:
+def build_generator(vcfg: dict, input_type: str = "code"):
     """The config's CodeGenerator, as CodeHiFiGANVocoder.from_config builds
-    it, so a fine-tuned step directory loads back at synthesis."""
+    it, so a fine-tuned step directory loads back at synthesis; with
+    `input_type` "features" repr_to_speech's FeatureGenerator."""
+    common = dict(
+        embedding_dim=vcfg["embedding_dim"], upsample_rates=tuple(vcfg["upsample_rates"]),
+        upsample_kernel_sizes=tuple(vcfg["upsample_kernel_sizes"]),
+        upsample_initial_channel=vcfg["upsample_initial_channel"],
+        resblock_kernel_sizes=tuple(vcfg["resblock_kernel_sizes"]),
+        resblock_dilation_sizes=tuple(tuple(d) for d in vcfg["resblock_dilation_sizes"]))
+    if input_type == "features":
+        return FeatureGenerator(feature_dim=vcfg.get("model_in_dim", 768), **common)
     if vcfg.get("multispkr"):
         # JAX's cli/train_vocoder.py:74-83 builds a single-speaker generator
         # whatever the config says: there is no multi-speaker fine-tune to port
         raise NotImplementedError("the multi-speaker vocoder's fine-tune is not ported")
     dur = vcfg.get("dur_predictor_params") or {}
-    return CodeGenerator(
-        num_embeddings=vcfg["num_embeddings"], embedding_dim=vcfg["embedding_dim"],
-        upsample_rates=tuple(vcfg["upsample_rates"]),
-        upsample_kernel_sizes=tuple(vcfg["upsample_kernel_sizes"]),
-        upsample_initial_channel=vcfg["upsample_initial_channel"],
-        resblock_kernel_sizes=tuple(vcfg["resblock_kernel_sizes"]),
-        resblock_dilation_sizes=tuple(tuple(d) for d in vcfg["resblock_dilation_sizes"]),
-        dur_predictor=bool(dur), var_pred_hidden_dim=dur.get("var_pred_hidden_dim", 256))
+    return CodeGenerator(num_embeddings=vcfg["num_embeddings"], dur_predictor=bool(dur),
+                         var_pred_hidden_dim=dur.get("var_pred_hidden_dim", 256), **common)
+
+
+def build_dataset(args: argparse.Namespace, vcfg: dict):
+    """--input-type code: the units file's CodeToSpeechDataset with the
+    --data-config transforms; features: the feature manifest's
+    FeatureToSpeechDataset (no transforms, as JAX's)."""
+    if args.input_type == "features":
+        return FeatureToSpeechDataset.from_manifest(
+            args.feat_manifest, args.audio_dir, crop_units=args.crop_units, seed=args.seed)
+    data_cfg = None
+    if args.data_config:
+        import yaml
+
+        with open(args.data_config) as f:
+            data_cfg = yaml.safe_load(f)
+    return CodeToSpeechDataset.from_files(
+        args.units_file, args.audio_dir, crop_units=args.crop_units, seed=args.seed,
+        dedup_dur=bool(args.dur_training or vcfg.get("dur_predictor_params")),
+        data_cfg=data_cfg)
 
 
 def main(argv: Optional[Sequence[str]] = None) -> int:
@@ -120,17 +147,16 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
         vcfg = json.load(f)
     torch.manual_seed(args.seed)  # the models' initialization
     with torch.device(device):
-        gen = build_generator(vcfg)
-    dataset = CodeToSpeechDataset.from_files(
-        args.units_file, args.audio_dir, crop_units=args.crop_units, seed=args.seed,
-        dedup_dur=bool(args.dur_training or vcfg.get("dur_predictor_params")))
+        gen = build_generator(vcfg, args.input_type)
+    dataset = build_dataset(args, vcfg)
     trainer = GanTrainer(gen, vars(args), device)
     logger.info("dataset: %d utterances", len(dataset))
     itr = EpochBatchIterator(dataset, max_sentences=args.batch_size, seed=args.seed)
     # JAX builds its example batch from dataset[0] here, on every start
-    # (train_vocoder.py:111): the item is thrown away, but the draw advances
-    # the dataset's crop generator as JAX's does
-    dataset[0]
+    # (train_vocoder.py:111): the batch is thrown away, but its draws
+    # (the crop, the transforms, the collater's noisy overlap) advance the
+    # dataset's generator as JAX's do
+    dataset.collater([dataset[0]])
     ckpt = CheckpointManager(args.save_dir, keep_last=args.keep_last_epochs, keep_best=0)
     last = ckpt.latest_step()
     if last is not None:

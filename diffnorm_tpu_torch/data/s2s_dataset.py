@@ -18,8 +18,15 @@ stacks them as `tgt_speaker` [B, D]. `add_multitask` joins an aux task's
 text targets (`data/multitask.py`), collated per task under
 `batch["multitask"][name]` and padded to their length bucket.
 
-Not ported, and raising: `use_audio_input` and the dataset transforms
-(`concataugment`, `noisyoverlapaugment`).
+The config's `dataset_transforms` (data/augment.py) apply: with
+`concataugment`, an item draws a partner index from the dataset's
+generator before SpecAugment does, on the same generator; the sources are
+concatenated, and so are the targets, the first one's EOS dropped. Its
+speaker embedding and aux targets are the first item's, as JAX's.
+`noisyoverlapaugment` is built and unused here, as in JAX (the vocoder
+dataset applies it).
+
+Not ported, and raising: `use_audio_input` (ROADMAP Queue 1 item 4).
 """
 
 from __future__ import annotations
@@ -33,6 +40,11 @@ from diffnorm_tpu_torch.data.audio import (
     SpecAugment,
     build_feature_transforms,
     get_features_or_waveform,
+)
+from diffnorm_tpu_torch.data.augment import (
+    ConcatAugment,
+    build_dataset_transforms,
+    get_transform,
 )
 from diffnorm_tpu_torch.data.batching import bucket_length
 from diffnorm_tpu_torch.data.dictionary import Dictionary
@@ -58,14 +70,10 @@ class SpeechToUnitDataset:
         self.is_train, self.seed = is_train, seed
         for key in UNPORTED_CONFIG:
             if self.data_cfg.get(key):
-                raise NotImplementedError(f"{key} is not ported")
-        transforms = self.data_cfg.get("dataset_transforms") or {}
-        names = list(transforms.get("*", [])) + list(
-            transforms.get("_train" if is_train else "_eval", []))
-        if names:
-            raise NotImplementedError(f"dataset transforms {names} are not ported")
+                raise NotImplementedError(f"{key} is not ported (ROADMAP Queue 1 item 4)")
         self.feature_transforms = build_feature_transforms(self.data_cfg, is_train)
-        self._rng = np.random.default_rng(seed)  # SpecAugment's draws
+        self.dataset_transforms = build_dataset_transforms(self.data_cfg, is_train)
+        self._rng = np.random.default_rng(seed)  # ConcatAugment's and SpecAugment's draws
         self.tgt_speakers = tgt_speakers
         self.multitask_data: Dict[str, Dict] = {}
 
@@ -91,13 +99,21 @@ class SpeechToUnitDataset:
         return np.lexsort((order, -self.src_n_frames))
 
     def __getitem__(self, index: int) -> Dict:
-        feat = np.asarray(get_features_or_waveform(self.src_audio_paths[index]),
-                          dtype=np.float32)
+        indices = [index]
+        concat = get_transform(self.dataset_transforms, ConcatAugment)
+        if concat is not None:
+            indices = concat.find_indices(index, self.src_n_frames, len(self), rng=self._rng)
+        feat = np.concatenate([
+            np.asarray(get_features_or_waveform(self.src_audio_paths[i]), dtype=np.float32)
+            for i in indices], axis=0)
         for t in self.feature_transforms:
             feat = t(feat, rng=self._rng) if isinstance(t, SpecAugment) else t(feat)
         sample = {"index": index, "source": feat}
-        if self.tgt_units is not None:
+        if self.tgt_units is not None and len(indices) == 1:
             sample["target"] = self.tgt_units[index]
+        elif self.tgt_units is not None:  # each target ends in EOS: the first one's goes
+            sample["target"] = np.concatenate(
+                [self.tgt_units[index][:-1]] + [self.tgt_units[i] for i in indices[1:]])
         if self.tgt_speakers is not None:
             sample["tgt_speaker"] = np.asarray(
                 get_features_or_waveform(self.tgt_speakers[index]), np.float32).reshape(-1)

@@ -1,6 +1,6 @@
 """Mask-predict iterative refinement decoding (CMLM), PyTorch.
 
-Counterpart of diffnorm_tpu/generate/mask_predict.py for one model:
+Counterpart of diffnorm_tpu/generate/mask_predict.py:
 * canvas init from the 256-way length prediction, or from the lengths the
   caller forces (`true_length`), clamped to >= 2: all unk with EOS at
   len - 1 (JAX's default `place_eos`)
@@ -22,10 +22,21 @@ Counterpart of diffnorm_tpu/generate/mask_predict.py for one model:
   full-rate stream [B, T * k] (specials repeated per sub-frame), each
   step's score repeated
 * `tgt_speaker` [B, D] conditions the encoder (--target-speaker-embed)
+* an ensemble (a list of models of one architecture, fairseq's --path a:b):
+  every member encodes, the encoder mask is the first member's, and the
+  length and token log-probs are averaged as logsumexp over the members
+  minus log M in float32, each member's guidance applied before the average
+* `retain_history` (--retain-iter-history) also returns each step's filled
+  canvas [max_iter + 1, B, T] (rows frozen by the adaptive exit repeat their
+  final canvas, beams selected as the tokens are, stacked units unpacked);
+  it runs every step, as JAX turns its early exit off for it
+* `mask_predict_decode_chunked` decodes sub-batches of `chunk` rows
+  (--decode-chunk), the last padded with copies of the last row
 """
 
 from __future__ import annotations
 
+import math
 from typing import Optional
 
 import torch
@@ -73,47 +84,65 @@ def init_canvas(length_tgt: torch.Tensor, max_len: int):
     return tokens, torch.zeros(tokens.shape, dtype=torch.float32, device=tokens.device)
 
 
+def _average_log_probs(lps):
+    """One member's log-probs as they are; an ensemble's as logsumexp over
+    the members minus log M (fairseq's EnsembleModel, float32)."""
+    if len(lps) == 1:
+        return lps[0]
+    return torch.logsumexp(torch.stack(lps), dim=0) - math.log(len(lps))
+
+
 @torch.no_grad()
 def mask_predict_decode(model, src: torch.Tensor, src_lengths: torch.Tensor, *,
                         max_iter: int = 15, max_len: int = 256, cond_scale: float = 1.0,
                         length_beam: int = 1, true_length: Optional[torch.Tensor] = None,
                         adaptive: bool = True, early_exit: bool = True,
-                        tgt_speaker: Optional[torch.Tensor] = None):
-    """model: a `models.nar_transformer.NARS2UTModule`. `true_length` [B]
-    (int) replaces the length head's prediction (in packed steps when
-    stacked). Returns (tokens [B, max_len * k] int64, scores of the same
-    shape f32, n_steps [B] int32): the number of decoder iterations each row
-    ran before it froze. k is the model's n_frames_per_step, which JAX's
-    takes as an argument."""
-    kf = model.n_frames_per_step
-    sub_vocab = model.vocab_size - OFFSET
-    enc, enc_mask = model.encode(src, src_lengths, tgt_speaker=tgt_speaker)
+                        tgt_speaker: Optional[torch.Tensor] = None,
+                        retain_history: bool = False):
+    """model: a `models.nar_transformer.NARS2UTModule`, or a list of them of
+    one architecture (an ensemble). `true_length` [B] (int) replaces the
+    length head's prediction (in packed steps when stacked). Returns
+    (tokens [B, max_len * k] int64, scores of the same shape f32, n_steps
+    [B] int32): the number of decoder iterations each row ran before it
+    froze; with `retain_history` also the history [max_iter + 1, B,
+    max_len * k]. k is the model's n_frames_per_step, which JAX's takes as
+    an argument."""
+    models = list(model) if isinstance(model, (list, tuple)) else [model]
+    kf = models[0].n_frames_per_step
+    sub_vocab = models[0].vocab_size - OFFSET
+    pairs = [m.encode(src, src_lengths, tgt_speaker=tgt_speaker) for m in models]
+    encs, enc_mask = [e for e, _ in pairs], pairs[0][1]
     if true_length is not None:
-        length_tgt = true_length.to(device=enc.device, dtype=torch.int64)
+        length_tgt = true_length.to(device=enc_mask.device, dtype=torch.int64)
     else:
-        length_lp = torch.log_softmax(model.forward_length(enc, enc_mask).float(), dim=-1)
+        length_lp = _average_log_probs([
+            torch.log_softmax(m.forward_length(e, enc_mask).float(), dim=-1)
+            for m, e in zip(models, encs)])
         length_tgt = length_lp.argmax(dim=-1)
     if length_beam > 1:
         # clamp before the offset (nar_transformer.py:858,:898 in the
         # reference), or every beam of a < 2 prediction shifts
         length_tgt = torch.clamp(length_tgt, min=2)
-        offsets = torch.arange(length_beam, device=enc.device) - length_beam // 2
+        offsets = torch.arange(length_beam, device=enc_mask.device) - length_beam // 2
         length_tgt = (length_tgt[:, None] + offsets[None, :]).reshape(-1)
-        enc = enc.repeat_interleave(length_beam, dim=0)
+        encs = [e.repeat_interleave(length_beam, dim=0) for e in encs]
         enc_mask = enc_mask.repeat_interleave(length_beam, dim=0)
     tokens, scores = init_canvas(length_tgt, max_len)
 
     use_cg = cond_scale != 1.0
     if use_cg:
-        null_enc, null_mask = model.apply_cg_drop(
-            enc, enc_mask, torch.ones(enc.shape[0], dtype=torch.bool, device=enc.device))
+        drop = torch.ones(encs[0].shape[0], dtype=torch.bool, device=enc_mask.device)
+        nulls = [m.apply_cg_drop(e, enc_mask, drop) for m, e in zip(models, encs)]
 
     def decode_lprobs(tok):
-        lp = torch.log_softmax(model.decode(tok, enc, enc_mask).float(), dim=-1)
-        if use_cg:
-            null_lp = torch.log_softmax(model.decode(tok, null_enc, null_mask).float(), dim=-1)
-            lp = null_lp + cond_scale * (lp - null_lp)
-        return lp
+        lps = []
+        for i, (m, e) in enumerate(zip(models, encs)):
+            lp = torch.log_softmax(m.decode(tok, e, enc_mask).float(), dim=-1)
+            if use_cg:
+                null_lp = torch.log_softmax(m.decode(tok, *nulls[i]).float(), dim=-1)
+                lp = null_lp + cond_scale * (lp - null_lp)
+            lps.append(lp)
+        return _average_log_probs(lps)
 
     max_step = max_iter + 1
     n = tokens.shape[0]
@@ -121,8 +150,9 @@ def mask_predict_decode(model, src: torch.Tensor, src_lengths: torch.Tensor, *,
     prev_tokens, res_tokens = tokens, tokens
     res_scores = torch.zeros_like(scores)
     n_steps = torch.zeros(n, dtype=torch.int32, device=tokens.device)
+    history = []
     for step in range(max_step):
-        if early_exit and bool(done.all()):
+        if early_exit and not retain_history and bool(done.all()):
             break  # every later iteration leaves every row as it is
         lp = decode_lprobs(tokens)
         new_scores, new_tokens = lp.max(dim=-1)
@@ -143,7 +173,10 @@ def mask_predict_decode(model, src: torch.Tensor, src_lengths: torch.Tensor, *,
         n_steps += (~done).to(torch.int32)
         done = done | now_done
         prev_tokens = filled_tokens
+        if retain_history:
+            history.append(res_tokens)
     tokens, scores = res_tokens, res_scores
+    history = torch.stack(history) if retain_history else None
 
     if length_beam > 1:
         non_pad = tokens != PAD
@@ -153,7 +186,44 @@ def mask_predict_decode(model, src: torch.Tensor, src_lengths: torch.Tensor, *,
         tokens = tokens.reshape(-1, length_beam, tokens.shape[-1])[rows, best]
         scores = scores.reshape(-1, length_beam, scores.shape[-1])[rows, best]
         n_steps = n_steps.reshape(-1, length_beam)[rows, best]
+        if history is not None:
+            history = history.reshape(max_step, -1, length_beam, history.shape[-1])[:, rows, best]
     if kf > 1:
         tokens = unpack_units(tokens, sub_vocab, kf).reshape(tokens.shape[0], -1)
         scores = scores.repeat_interleave(kf, dim=1)
+        if history is not None:
+            s, bh = history.shape[:2]
+            history = unpack_units(history.reshape(s * bh, -1), sub_vocab, kf).reshape(s, bh, -1)
+    if retain_history:
+        return tokens, scores, n_steps, history
     return tokens, scores, n_steps
+
+
+ROW_INPUTS = ("true_length", "tgt_speaker")
+
+
+def mask_predict_decode_chunked(model, src: torch.Tensor, src_lengths: torch.Tensor, *,
+                                chunk: int = 4, **kw):
+    """`mask_predict_decode` over sub-batches of `chunk` rows, one after
+    another (JAX's lax.map over chunks): B is padded to whole chunks with
+    copies of the last row, the per-row inputs (`true_length`,
+    `tgt_speaker`) ride along, and the outputs are cut back to B (the
+    history reassembled to [S, B, T]). `chunk <= 0` or B <= chunk is the
+    plain call."""
+    b = src.shape[0]
+    if chunk <= 0 or b <= chunk:
+        return mask_predict_decode(model, src, src_lengths, **kw)
+    pad = (-b) % chunk
+
+    def pad_rows(x):
+        return torch.cat([x, x[-1:].expand(pad, *x.shape[1:])]) if pad else x
+
+    rows = {k: pad_rows(v) for k in ROW_INPUTS if (v := kw.pop(k, None)) is not None}
+    src, src_lengths = pad_rows(src), pad_rows(src_lengths)
+    outs = [mask_predict_decode(model, src[i:i + chunk], src_lengths[i:i + chunk],
+                                **{k: v[i:i + chunk] for k, v in rows.items()}, **kw)
+            for i in range(0, b + pad, chunk)]
+    merged = [torch.cat([o[j] for o in outs])[:b] for j in range(3)]
+    if len(outs[0]) == 4:
+        merged.append(torch.cat([o[3] for o in outs], dim=1)[:, :b])
+    return tuple(merged)

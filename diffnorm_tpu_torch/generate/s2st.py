@@ -62,7 +62,8 @@ def s2st_generate(nar_model, vocoder, src: torch.Tensor, src_lengths: torch.Tens
                   max_wav_units: Optional[int] = None, vocoder_chunk: int = 4,
                   return_steps: bool = False, spkr: Optional[torch.Tensor] = None,
                   tgt_speaker: Optional[torch.Tensor] = None):
-    """nar_model: `models.nar_transformer.NARS2UTModule`; vocoder:
+    """nar_model: `models.nar_transformer.NARS2UTModule`, or a list of them
+    (an ensemble, `mask_predict_decode`'s); vocoder:
     `models.hifigan.CodeGenerator`. Returns (wav [B, max_wav_units *
     upsample], wav_lengths [B] in samples, reduced units [B, T] (0-based, 0
     past the count), unit counts [B]) and, with `return_steps`, the per-row

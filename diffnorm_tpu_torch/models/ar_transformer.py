@@ -14,7 +14,7 @@ norm. Its encoder attention takes the flash-attention kernel on the card
 under `ops.attention.masked_attention`'s routing (>= 2048 keys, no
 attention dropout).
 
-Not ported here, with the AR S2UT family (ROADMAP Queue 1 item 7): the KV
+Not ported here, with the AR S2UT family (ROADMAP Queue 1 item 4): the KV
 cache and single-step decoding, the stacked-unit AR decoder,
 `ARS2UTModule` and its archs.
 """

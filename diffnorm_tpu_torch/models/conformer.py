@@ -19,6 +19,17 @@ rates left None fall back to `dropout`. Each draws from its module's
 `generator` (`layers.set_dropout_generator`). BatchNorm normalizes with the
 batch's statistics and updates its running ones, as flax's does.
 
+`remat` (JAX's `encoder_remat`, nn.remat around each ConformerLayer)
+recomputes each layer's activations in the backward instead of keeping them
+(`torch.utils.checkpoint`, non-reentrant), in training with gradients only.
+The recompute replays the forward's dropout draws: each explicit generator
+the layer draws from is set back to its state at the layer's forward, and
+after the recompute to where the stream stood before it, so later draws
+do not move (checkpoint's `preserve_rng_state` covers only the default
+generators). BatchNorm keeps the forward's update of its running
+statistics: the recompute normalizes with the same batch statistics and
+leaves the running ones alone, as flax keeps the forward's `batch_stats`.
+
 `quant` (JAX's `quant` through the encoder, inference only) makes the
 attention's q, k, v and out projections and both FFNs' w_1 and w_2 int8
 W8A8 `Dense` sites with JAX's default knobs; q, k and v each quantize their
@@ -28,6 +39,7 @@ module, the subsampler and the input projection stay float.
 
 from __future__ import annotations
 
+import contextlib
 import math
 from typing import Optional, Sequence
 
@@ -35,6 +47,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from diffnorm_tpu_torch.models.layers import Dense, Dropout, DropoutSite
 from diffnorm_tpu_torch.ops.attention import apply_dropout
@@ -173,6 +186,7 @@ class BatchNorm(nn.Module):
 
     momentum = 0.9
     STATS = ("running_mean", "running_var")
+    update_stats = True  # False while a rematerialized layer recomputes
 
     def __init__(self, dim: int, eps: float = 1e-5):
         super().__init__()
@@ -196,7 +210,7 @@ class BatchNorm(nn.Module):
             mean = xf.mean(dim=(0, 1))
             var = torch.clamp(xf.square().mean(dim=(0, 1)) - mean.square(), min=0.0)
             with torch.no_grad():
-                for name, batch in zip(self.STATS, (mean, var)):
+                for name, batch in zip(self.STATS if self.update_stats else (), (mean, var)):
                     running = getattr(self, name)
                     running.copy_(self.momentum * running + (1.0 - self.momentum) * batch)
         else:
@@ -244,19 +258,59 @@ class ConformerLayer(nn.Module):
         return self.final_layer_norm(x)
 
 
+@contextlib.contextmanager
+def _stats_frozen(layer: nn.Module):
+    norms = [m for m in layer.modules() if isinstance(m, BatchNorm)]
+    for m in norms:
+        m.update_stats = False
+    try:
+        yield
+    finally:
+        for m in norms:
+            del m.update_stats
+
+
+def rematerialized(layer: nn.Module, *args) -> torch.Tensor:
+    """`layer(*args)` whose activations are recomputed in the backward
+    (JAX's nn.remat): the recompute draws the forward's dropout masks and
+    leaves the BatchNorm running statistics as the forward left them."""
+    gens = list({id(m.generator): m.generator for m in layer.modules()
+                 if isinstance(m, DropoutSite) and m.generator is not None}.values())
+    at_forward = [g.get_state() for g in gens]
+    ran = []
+
+    def run(*inputs):
+        if not ran:
+            ran.append(True)
+            return layer(*inputs)
+        now = [g.get_state() for g in gens]
+        for g, state in zip(gens, at_forward):
+            g.set_state(state)
+        try:
+            with _stats_frozen(layer):
+                return layer(*inputs)
+        finally:
+            for g, state in zip(gens, now):
+                g.set_state(state)
+
+    return checkpoint(run, *args, use_reentrant=False, preserve_rng_state=False)
+
+
 class ConformerEncoder(nn.Module):
     """Subsample -> scale -> linear -> dropout -> layers. Returns (features
     [B, T', C], mask [B, T'] True = valid). `attention_dropout` and
     `activation_dropout` fall back to `dropout` where None; `quant` makes
-    the layers' projections and FFNs int8 sites (inference only)."""
+    the layers' projections and FFNs int8 sites (inference only); `remat`
+    recomputes each layer in the backward (`rematerialized`)."""
 
     def __init__(self, in_channels: int = 80, dim: int = 512, ffn_dim: int = 2048,
                  layers: int = 12, heads: int = 8, depthwise_kernel_size: int = 31,
                  conv_channels: int = 1024, conv_kernel_sizes: Sequence[int] = (5, 5),
                  dropout: float = 0.0, attention_dropout: Optional[float] = None,
-                 activation_dropout: Optional[float] = None, quant: bool = False):
+                 activation_dropout: Optional[float] = None, quant: bool = False,
+                 remat: bool = False):
         super().__init__()
-        self.dim = dim
+        self.dim, self.remat = dim, remat
         self.subsample = Conv1dSubsampler(in_channels, conv_channels, dim,
                                           tuple(conv_kernel_sizes))
         self.linear = Dense(dim, dim)
@@ -281,7 +335,9 @@ class ConformerEncoder(nn.Module):
             device=x.device, dtype=x.dtype)
         x = self.input_dropout(self.linear(x))
         states = []
+        remat = self.remat and self.training and torch.is_grad_enabled()
         for i in range(self.n_layers):
-            x = getattr(self, f"layer_{i}")(x, pos, mask)
+            layer = getattr(self, f"layer_{i}")
+            x = rematerialized(layer, x, pos, mask) if remat else layer(x, pos, mask)
             states.append(x)
         return (x, mask, states) if return_all_layers else (x, mask)

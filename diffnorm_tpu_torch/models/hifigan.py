@@ -11,6 +11,9 @@ codehifigan.py, fastspeech2.py:VariancePredictor):
   a speaker table `spkr` whose row of each utterance's speaker is
   concatenated to every unit embedding (broadcast over time, the
   generator's input doubling to 2 x embedding_dim)
+  FeatureGenerator (repr_to_speech): a `proj` Dense from continuous features
+  (768-d mHuBERT by default) to embedding_dim in place of the unit table,
+  in front of the same generator
 This is the direct-conv math. The JAX package's default for the stages of
 <= 64 channels, ops/packed_conv.py, is a TPU layout of the same convolutions
 (space-to-depth packing for the 128-lane MXU) and is not ported; the
@@ -156,6 +159,29 @@ class CodeGenerator(nn.Module):
                 raise ValueError("the multi-speaker vocoder needs speaker ids (spkr)")
             x = torch.cat([x, self.spkr(spkr)[:, None, :].expand_as(x)], dim=-1)
         return self.generator(x)
+
+
+class FeatureGenerator(nn.Module):
+    """Continuous features [B, T, feature_dim] -> waveform [B, T *
+    prod(upsample_rates)] (JAX models/hifigan.py:304-333, reference
+    repr_hifigan_task.py): `proj` to embedding_dim, then the HiFi-GAN
+    generator unchanged. The trainer's and the checkpoints' tree is JAX's
+    (`proj`, `generator`)."""
+
+    def __init__(self, feature_dim: int = 768, embedding_dim: int = 128,
+                 upsample_rates: Sequence[int] = (5, 4, 4, 2, 2),
+                 upsample_kernel_sizes: Sequence[int] = (11, 8, 8, 4, 4),
+                 upsample_initial_channel: int = 512,
+                 resblock_kernel_sizes: Sequence[int] = (3, 7, 11),
+                 resblock_dilation_sizes: Sequence[Sequence[int]] = ((1, 3, 5),) * 3):
+        super().__init__()
+        self.proj = Dense(feature_dim, embedding_dim)
+        self.generator = HifiGanGenerator(embedding_dim, upsample_rates, upsample_kernel_sizes,
+                                          upsample_initial_channel, resblock_kernel_sizes,
+                                          resblock_dilation_sizes)
+
+    def forward(self, features: torch.Tensor) -> torch.Tensor:
+        return self.generator(self.proj(features))
 
 
 class CodeHiFiGANVocoder:

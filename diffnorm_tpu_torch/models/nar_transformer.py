@@ -278,7 +278,8 @@ class NARS2UTModule(nn.Module):
     the `nar_s2ut_conformer` arch defaults; `attention_dropout` and
     `activation_dropout` fall back to `dropout` where None. The options
     (module docstring): `n_frames_per_step`, `multitask` (AuxTaskSpecs),
-    `ctc_vocab`, `target_speaker_embed` with `speaker_embed_dim`."""
+    `ctc_vocab`, `target_speaker_embed` with `speaker_embed_dim`;
+    `encoder_remat` recomputes each conformer layer in the backward."""
 
     def __init__(self, vocab_size: int = 1004, in_channels: int = 80,
                  encoder_dim: int = 512, encoder_ffn_dim: int = 2048,
@@ -292,7 +293,7 @@ class NARS2UTModule(nn.Module):
                  use_sp: bool = False, quant_int8: bool = False,
                  n_frames_per_step: int = 1, multitask: Sequence[AuxTaskSpec] = (),
                  ctc_vocab: int = 0, target_speaker_embed: bool = False,
-                 speaker_embed_dim: int = 256):
+                 speaker_embed_dim: int = 256, encoder_remat: bool = False):
         super().__init__()
         self.vocab_size, self.cg_prob, self.use_sp = vocab_size, cg_prob, use_sp
         self.n_frames_per_step, self.multitask = n_frames_per_step, tuple(multitask)
@@ -306,7 +307,8 @@ class NARS2UTModule(nn.Module):
                                         encoder_layers, encoder_heads,
                                         depthwise_kernel_size, conv_channels,
                                         conv_kernel_sizes, dropout, attention_dropout,
-                                        activation_dropout, quant_int8)
+                                        activation_dropout, quant_int8,
+                                        remat=encoder_remat)
         self.decoder = NATUnitDecoder(vocab_size, decoder_dim, decoder_ffn_dim,
                                       decoder_layers, decoder_heads, dropout=dropout,
                                       attention_dropout=attention_dropout,

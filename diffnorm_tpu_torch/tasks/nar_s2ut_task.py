@@ -128,7 +128,8 @@ class NARS2UTTask(MultitaskTaskMixin, Task):
             cg_prob=a.cg_prob, use_sp=a.use_sp, n_frames_per_step=a.n_frames_per_step,
             multitask=self.aux_task_specs(), ctc_vocab=a.multitask_ctc_vocab,
             target_speaker_embed=bool(a.target_speaker_embed),
-            speaker_embed_dim=a.speaker_embed_dim)
+            speaker_embed_dim=a.speaker_embed_dim,
+            encoder_remat=a.encoder_remat)
 
     def build_criterion(self) -> NARSpeechToUnitLoss:
         return NARSpeechToUnitLoss(self.args.label_smoothing, multitask=self.multitask_tasks)

@@ -15,16 +15,19 @@ One update is JAX's d step, then its g step:
 Two optimizers, each `train.optimizers.OptaxAdamW` with betas (0.8, 0.99),
 the decay schedule on its own count. The generator is float32; with
 `bf16_disc` the discriminators compute in bf16 over float32 parameters.
+A `FeatureGenerator` (repr_to_speech) takes the batch's `features` where a
+`CodeGenerator` takes its `code`, as JAX's trainer reads
+`example.get("features", example.get("code"))`, with no duration term.
 """
 
 from __future__ import annotations
 
-from typing import Dict, Mapping
+from typing import Dict, Mapping, Union
 
 import numpy as np
 import torch
 
-from diffnorm_tpu_torch.models.hifigan import CodeGenerator
+from diffnorm_tpu_torch.models.hifigan import CodeGenerator, FeatureGenerator
 from diffnorm_tpu_torch.models.hifigan_disc import (
     MultiPeriodDiscriminator,
     MultiScaleDiscriminator,
@@ -48,7 +51,8 @@ class GanTrainer:
     and the discriminators' are trained in place; `train_step(batch)` takes
     a collated batch (numpy) and returns JAX's metrics."""
 
-    def __init__(self, generator: CodeGenerator, cfg: Mapping, device: torch.device):
+    def __init__(self, generator: Union[CodeGenerator, FeatureGenerator], cfg: Mapping,
+                 device: torch.device):
         cfg = {**DEFAULTS, **{k: v for k, v in cfg.items() if v is not None}}
         self.gen, self.device = generator, device
         dtype = torch.bfloat16 if cfg["bf16_disc"] else torch.float32
@@ -72,18 +76,22 @@ class GanTrainer:
         return None if value is None else torch.as_tensor(np.asarray(value), device=self.device)
 
     def train_step(self, batch: Mapping) -> Dict[str, float]:
-        code, wav = self._tensor(batch, "code").long(), self._tensor(batch, "wav").float()
+        if isinstance(self.gen, FeatureGenerator):
+            inputs = self._tensor(batch, "features").float()
+        else:
+            inputs = self._tensor(batch, "code").long()
+        wav = self._tensor(batch, "wav").float()
         durations = self._tensor(batch, "durations")
         dur_code = self._tensor(batch, "dur_code")
 
         with torch.no_grad():
-            fake = self.gen(code)
+            fake = self.gen(inputs)
         real = wav[:, :fake.shape[1]]
         loss_d = (discriminator_loss(self.mpd(real, fake))
                   + discriminator_loss(self.msd(real, fake)))
         self.d_opt.step(list(torch.autograd.grad(loss_d, self.d_params)))
 
-        fake = self.gen(code)
+        fake = self.gen(inputs)
         mpd_outs, msd_outs = self.mpd(real, fake), self.msd(real, fake)
         adv = generator_adv_loss(mpd_outs) + generator_adv_loss(msd_outs)
         fm = feature_matching_loss(mpd_outs) + feature_matching_loss(msd_outs)
@@ -92,7 +100,7 @@ class GanTrainer:
         loss_g = adv + self.fm_weight * fm + self.mel_weight * mel
         aux = {"adv": adv, "fm": fm, "mel": mel}
         if durations is not None and self.gen.dur_predictor is not None:
-            log_dur = self.gen.log_durations((dur_code if dur_code is not None else code).long())
+            log_dur = self.gen.log_durations((dur_code if dur_code is not None else inputs).long())
             keep = durations != -100
             target = torch.log(torch.clamp(durations, min=0).float() + 1.0)
             sq = torch.square(log_dur - target)

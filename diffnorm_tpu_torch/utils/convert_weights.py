@@ -292,7 +292,7 @@ def convert_denoiser_state(sd: Dict, prefix: str = "model") -> Dict:
     if f"{prefix}.null_prompt_cond" in sd:
         raise NotImplementedError(
             f"{prefix}.null_prompt_cond: a prompt-conditioned denoiser (condition_on_prompt, "
-            "the PerceiverResampler) is not ported (ROADMAP Queue 1 item 5)")
+            "the PerceiverResampler) is not ported (ROADMAP Queue 1 item 2)")
     return {
         "time_emb": {"weights": _t(sd[f"{prefix}.to_time_cond.0.weights"])},
         "time_proj": _linear_tree(sd, f"{prefix}.to_time_cond.1"),

@@ -279,14 +279,14 @@ def test_cli_convert_hifigan_and_hubert(tmp_path, family, capsys):
 @pytest.mark.parametrize("case", ["prompt_conditioned", "stacked_units", "hubert_ctc"])
 def test_unported_layouts_raise_naming_their_roadmap_item(tmp_path, case):
     if case == "hubert_ctc":
-        with pytest.raises(NotImplementedError, match="Queue 1 item 7"):
+        with pytest.raises(NotImplementedError, match="Queue 1 item 4"):
             convert_checkpoint.main(["--type", "hubert_ctc", "--input", "absent.pt",
                                      "--output", str(tmp_path / "out")])
         return
     sd = dict(_state("diffusion" if case == "prompt_conditioned" else "nar"))
     if case == "prompt_conditioned":
         sd["encoder.model.null_prompt_cond"] = torch.zeros(16)
-        with pytest.raises(NotImplementedError, match="Queue 1 item 5"):
+        with pytest.raises(NotImplementedError, match="Queue 1 item 2"):
             cw.convert_diffusion_state(sd)
     else:
         # stacked units are ported: the map equals JAX's bit for bit and loads

@@ -499,13 +499,14 @@ def test_cli_chain_train_resume_s2st(tmp_path, capsys):
     np.testing.assert_allclose(enc.numpy(), np.asarray(ref), rtol=FWD_TOL, atol=FWD_TOL)
 
 
-# the flags ported since (error None) and the head each adds to the model
+# the flags ported since (error None) and the module each gives the model
 PORTED_HEADS = {"--multitask-config-yaml": "mt_letters_ctc",
-                "--target-speaker-embed": "spk_emb_proj", "--multitask-ctc-vocab": "ctc_proj"}
+                "--target-speaker-embed": "spk_emb_proj", "--multitask-ctc-vocab": "ctc_proj",
+                "--encoder-remat": "encoder"}
 
 
 @pytest.mark.parametrize("extra, error", [
-    (["--encoder-remat"], NotImplementedError), (["--quant-int8", "true"], NotImplementedError),
+    (["--encoder-remat"], None), (["--quant-int8", "true"], NotImplementedError),
     (["--multitask-config-yaml", "mt.yaml"], None),
     (["--target-speaker-embed"], None),
     (["--multitask-ctc-vocab", "100"], None),
@@ -514,9 +515,10 @@ PORTED_HEADS = {"--multitask-config-yaml": "mt_letters_ctc",
 def test_cli_flags_not_ported_raise(tmp_path, extra, error):
     """The NAR features the port leaves out raise by name, an arch or attention
     other than the recipes' is refused, and an unknown flag is an error;
-    `--encoder-remat false` and the arch defaults parse. The multitask, CTC
-    and target-speaker flags (error None) parse and reach the model: the task
-    builds it with their head."""
+    `--encoder-remat false` and the arch defaults parse. The multitask, CTC,
+    target-speaker and encoder-remat flags (error None) parse and reach the
+    model: the task builds it with their head, or a rematerializing
+    encoder."""
     base = [str(tmp_path), "--task", "speech_to_speech_fasttranslate", "--max-update", "1"]
     if error is None:
         (tmp_path / "dict.txt").write_text("a 1\nb 1\n")
@@ -529,11 +531,13 @@ def test_cli_flags_not_ported_raise(tmp_path, extra, error):
             "--decoder-attention-heads", "2", "--conv-channels", "32"])
         model = TASKS[args.task](args).build_model()
         assert isinstance(getattr(model, PORTED_HEADS[extra[0]]), torch.nn.Module)
+        assert model.encoder.remat is (extra[0] == "--encoder-remat")
     else:
         with pytest.raises(error):
             train_cli.parse_args(base + extra)
     args = train_cli.parse_args(base + ["--encoder-remat", "false", "--arch",
                                         "nar_s2ut_conformer_fisher"])
+    assert args.encoder_remat is False
     assert (args.encoder_embed_dim, args.encoder_attention_heads, args.decoder_embed_dim,
             args.encoder_layers, args.dropout) == (256, 4, 256, 12, 0.1)
     assert args.tgt_feat_dir is None and args.config_yaml == "config.yaml"

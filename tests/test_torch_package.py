@@ -34,7 +34,7 @@ def _imported_roots(path: Path):
 
 
 NEW_MODULES = ("models/stacked.py", "models/ar_transformer.py", "data/encoders.py",
-               "data/multitask.py", "tasks/multitask_mixin.py")
+               "data/multitask.py", "tasks/multitask_mixin.py", "data/augment.py")
 
 
 def test_no_jax_imports_in_the_port():
@@ -83,6 +83,7 @@ def test_port_imports_with_jax_blocked():
             "import diffnorm_tpu_torch.data.encoders\n"
             "import diffnorm_tpu_torch.data.multitask\n"
             "import diffnorm_tpu_torch.tasks.multitask_mixin\n"
+            "import diffnorm_tpu_torch.data.augment\n"
             "from diffnorm_tpu_torch.eval.bleu import corpus_bleu, scorer_name\n"
             "assert scorer_name() == 'counters', scorer_name()\n"
             "assert corpus_bleu(['1 2 3 4 5'], ['1 2 3 4 5']) == 100.0\n"

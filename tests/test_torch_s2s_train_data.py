@@ -205,13 +205,25 @@ def test_dataset_items_and_batches_match_jax(tmp_path, split, is_train):
 
 
 def test_dataset_raises_for_what_is_not_ported(tmp_path):
-    for cfg in ({"use_audio_input": True},
-                {"dataset_transforms": {"_train": ["concataugment"]}},
-                {"dataset_transforms": {"*": ["noisyoverlapaugment"]}}):
+    """use_audio_input raises, naming its ROADMAP item; the dataset
+    transforms, ported since, build what the config names
+    (tests/test_torch_augment.py holds them to JAX's)."""
+    from diffnorm_tpu_torch.data.augment import ConcatAugment, NoisyOverlapAugment
+
+    for cfg, built in (({"use_audio_input": True}, None),
+                       ({"dataset_transforms": {"_train": ["concataugment"]}}, ConcatAugment),
+                       ({"dataset_transforms": {"*": ["noisyoverlapaugment"]},
+                         "noisyoverlapaugment": {"mixing_noise_rate": 0.0}},
+                        NoisyOverlapAugment)):
         write_corpus(tmp_path, n=2, config=cfg)
-        with pytest.raises(NotImplementedError):
-            SpeechToUnitDataset.from_tsv(str(tmp_path), "train", Dictionary(CODES),
-                                         is_train=True)
+        if built is None:
+            with pytest.raises(NotImplementedError, match="item 4"):
+                SpeechToUnitDataset.from_tsv(str(tmp_path), "train", Dictionary(CODES),
+                                             is_train=True)
+            continue
+        ds = SpeechToUnitDataset.from_tsv(str(tmp_path), "train", Dictionary(CODES),
+                                          is_train=True)
+        assert [type(t) for t in ds.dataset_transforms] == [built]
 
 
 @pytest.mark.parametrize("max_positions", [(40, None), (None, 12), (45, 15), (1000, 1000),

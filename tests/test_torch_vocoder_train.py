@@ -161,9 +161,15 @@ def test_dataset_crops_labels_and_batch_order_match_jax(tmp_path):
     item = tds[3]  # the short one: padded units and -100 past its runs
     assert item["wav"].shape == (8 * 320,) and (item["durations"] != -100).any()
     assert item["durations"][item["durations"] > 0].sum() == 8
-    with pytest.raises(NotImplementedError, match="item 4"):
-        CodeToSpeechDataset.from_files(str(root / "train.units"), str(root),
-                                       data_cfg={"waveform_transforms": {}})
+    # a data config's transforms, ported since (tests/test_torch_augment.py
+    # holds them to JAX's), reach the dataset
+    from diffnorm_tpu_torch.data.augment import NoiseAugment
+
+    with_cfg = CodeToSpeechDataset.from_files(
+        str(root / "train.units"), str(root),
+        data_cfg={"waveform_transforms": {"_train": ["noiseaugment"]},
+                  "noiseaugment": {"samples_path": str(root)}})
+    assert [type(t) for t in with_cfg.waveform_transforms] == [NoiseAugment]
 
 
 def test_optax_adamw_matches_optax():
@@ -266,13 +272,40 @@ def test_cli_train_vocoder_saves_resumes_and_vocodes(tmp_path, capsys):
 
 
 def test_cli_train_vocoder_refuses_unported_flags(tmp_path):
+    """--num-workers > 0 raises, naming its ROADMAP item. Ported since:
+    --data-config and --input-type features parse (features needs
+    --feat-manifest), and `cli.train --task repr_to_speech` reaches
+    cli.train_vocoder with --input-type features
+    (tests/test_torch_repr_to_speech.py runs both)."""
     from diffnorm_tpu_torch.cli import train, train_vocoder
 
     base = ["--cpu", "--units-file", "u", "--audio-dir", str(tmp_path), "--vocoder-cfg", "c"]
-    for extra, match in ((["--data-config", "d.yaml"], "item 4"),
-                         (["--input-type", "features"], "item 4"),
-                         (["--num-workers", "2"], "item 5")):
-        with pytest.raises(NotImplementedError, match=match):
-            train_vocoder.parse_args(base + extra)
-    with pytest.raises(NotImplementedError, match="repr_to_speech"):
-        train.main(["--task", "repr_to_speech", *base])
+    with pytest.raises(NotImplementedError, match="item 2"):
+        train_vocoder.parse_args(base + ["--num-workers", "2"])
+    assert train_vocoder.parse_args(base + ["--data-config", "d.yaml"]).data_config == "d.yaml"
+    with pytest.raises(SystemExit):  # features without a feature manifest
+        train_vocoder.parse_args(base + ["--input-type", "features"])
+    args = train_vocoder.parse_args(base + ["--input-type", "features", "--feat-manifest", "m"])
+    assert (args.input_type, args.feat_manifest) == ("features", "m")
+    with pytest.raises(FileNotFoundError, match="'c'"):  # past the dispatch, at the config
+        train.main(["--task", "repr_to_speech", *base, "--feat-manifest", "m"])
+
+
+def test_cli_train_vocoder_refuses_a_multispeaker_config(tmp_path):
+    """A `multispkr` config with --input-type code raises before any
+    training: JAX's CLI builds a single-speaker generator for it, which the
+    synthesis side cannot load, so there is no multi-speaker fine-tune to
+    port (ROADMAP Queue 3). --input-type features takes the config."""
+    from diffnorm_tpu_torch.cli import train_vocoder
+
+    root = _write_corpus(tmp_path)
+    (root / "spk.json").write_text(json.dumps(dict(VOC_CFG, multispkr=True, num_speakers=3)))
+    args = ["--cpu", "--units-file", str(root / "train.units"), "--audio-dir", str(root),
+            "--vocoder-cfg", str(root / "spk.json"), "--save-dir", str(root / "ckpt"),
+            "--max-update", "1", *VOCODER_ARGS]
+    with pytest.raises(NotImplementedError, match="multi-speaker"):
+        train_vocoder.main(args)
+    assert not (root / "ckpt").exists()
+    gen = train_vocoder.build_generator(dict(VOC_CFG, multispkr=True, model_in_dim=12),
+                                        "features")
+    assert gen.proj.in_features == 12
