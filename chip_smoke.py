@@ -204,11 +204,33 @@ tf32 passes); and at D 80 and 128 with ragged keys and a fully masked row.
    transforms' share of host time). repr_to_speech: cli.prepare
    dump-features, then cli.train_vocoder --input-type features at B32 x 32
    frames of 768-d features (ms, peak, profile).
+21. the training remainder: (a) the prompt-conditioned normalizer
+   (use_cond: the PerceiverResampler, depth 2, 64 latents over 768-d
+   prompts, cross-attention in all 12 layers, FiLM condition 4096) at the
+   released widths, B64 x T128 with 160-frame prompts: 3 bf16 updates
+   through the kernels and through the plain versions from one init on the
+   same injected draws and drop mask at dropout 0 (loss and gradient norm
+   per update held to phase 8's bounds), ms and launches per update (at
+   least a forward's rms_norm_film and wavenet_chain sites), peak memory,
+   profile; forward_with_cond_scale at 1 (equal to the conditioned
+   forward) and 2 against the plain versions; one update and one guided
+   forward at a 1984-frame prompt with their flash_attention launches.
+   (b) cli.train in bf16 for 2 updates each: speech_diffusion (diff_latent),
+   speech_diffusion_hubert (diff_hubert), hubert_vae, and
+   speech_diffusion_discrete --arch diffusion_transformer; walls, ms per
+   update, launches. (c) cli.train --optimizer adamax --lr-scheduler cosine
+   --ema-decay 0.999 on the released normalizer, 3 updates then
+   --restore-file 2 more, equal bit for bit to a 5-update run; every other
+   optimizer under a schedule (manual and reduce_lr_on_plateau among them)
+   on the card against the CPU: one float32 Trainer update of a small
+   normalizer, and 2 steps of the optimizer alone on seeded gradients.
 The kernels JSON line reports the float32 kernel as flash_attention_f32
 (its launches those of phase 13) beside the bf16 one (phase 6's, phase
 16's long form, the four cli.generate runs of phase 15, phase 18's,
 phase 19's and phase 20's);
-rms_norm_film and wavenet_chain count phase 3's run and phase 18's CLI run.
+rms_norm_film and wavenet_chain count phase 3's run, phase 18's CLI run and
+phase 21's kernel runs (21a's updates and guided forwards, 21b's CLI runs),
+where flash_attention counts 21a's long-prompt runs too.
 
 Then one JSON line of per-kernel numbers and, last, {"ok": true, "device": ...}.
 Exits non-zero without CUDA, and in a directory without the port.
@@ -295,6 +317,51 @@ TRAIN_LOSS_REL, TRAIN_GNORM_REL = 1e-3, 1e-2
 NAR_B, NAR_MAX_TOKENS, NAR_UPDATES = 64, 40000, 3
 NAR_TRAIN = dict(lr=5e-4, warmup_updates=10000, warmup_init_lr=1e-7, adam_betas=(0.9, 0.98),
                  clip_norm=10.0, dtype="bfloat16", seed=42)
+
+# the training remainder (phase 21): the prompt-conditioned normalizer at the
+# released widths (FiLM condition 4096) at phase 8's B x T with a 160-frame
+# prompt, then one update and a guided forward at a 1984-frame prompt, whose
+# 64 latents + 1984 frames are flash_attention's 2048 keys; a single bf16
+# denoiser forward through the kernels against the plain versions by row
+# cosine; cli.train's optimizer run (adamax, cosine, EMA) at one batch per
+# epoch (24 utterances under --max-tokens 4096), 3 + 2 updates against 5;
+# every other optimizer with a schedule on the card against the CPU, as the
+# norm of the difference over the norm of the change. One float32 Trainer
+# update of a small no-VAE normalizer: its gradients agree within ~1e-4 per
+# tensor on an H100 (float32 reductions in another order), but a sign-like
+# first step (adam, adafactor: u ~ g / |g|) flips the elements near zero
+# (the first runs on an H100: up to 2.5e-2 of the update, against a first bound of
+# 1e-3). 2 steps of the optimizer alone on the same seeded gradients,
+# unclipped: float32 rounding, up to 8.9e-6, but adafactor's block-RMS clip
+# sits at its kink on a first step (rms(u) ~ 1, the threshold), where a
+# mean of squares summed in another order sets the factor: 6.7e-5 in the
+# composite group (with global-norm clipping all grew to ~1e-4)
+COND_PROMPT, COND_UPDATES, COND_LONG_B, COND_LONG_PROMPT = 160, 3, 4, 1984
+# one bf16 denoiser forward, kernels against plain versions, the least row
+# cosine: the conditioned and null outputs sum 8 chains (each held to
+# CHAIN_ROW_COS alone) and 12 layers of bf16 rounding (an H100 gave 0.99897
+# and 0.9989 in the first runs, against a first bound of 0.999);
+# guidance, null + 2 (cond - null), doubles a difference that is small
+# against each output at a random init (0.99556), so its rows take the
+# DDIM path's bound
+COND_ROW_COS, GUIDED_ROW_COS = 0.995, 0.99
+OPTIM_DEVICE_REL, OPTIM_STEP_REL = 5e-2, 2e-4
+OPTIM_CASES = (
+    ("adam", dict(lr_scheduler="inverse_sqrt", warmup_updates=2, weight_decay=0.01)),
+    ("adadelta", dict(lr_scheduler="fixed", lr=1.0, weight_decay=0.01)),
+    ("lamb", dict(lr_scheduler="polynomial_decay", max_updates=4, power=2.0)),
+    ("nag", dict(lr_scheduler="step", lr_decay_period=1, lr_decay=0.5)),
+    ("adafactor", dict(lr_scheduler="tri_stage", warmup_steps=1, decay_steps=4)),
+    ("adagrad", dict(lr_scheduler="triangular", lr=1e-2, max_lr=5e-2, lr_period_updates=4,
+                     initial_accumulator_value=0.1)),
+    ("sgd", dict(lr_scheduler="manual", lr=1e-2, momentum=0.9, nesterov=True,
+                 update2lr="{'1': 5e-3}")),
+    ("composite", dict(lr_scheduler="reduce_lr_on_plateau", composite_default="sgd",
+                       composite_groups={"denoiser": {"optimizer": "adafactor",
+                                                      "lr_scheduler": "cosine",
+                                                      "warmup_init_lr": 1e-3,
+                                                      "max_updates": 4}})),
+)
 
 # the S2ST chain (bench.py --e2e's shape) and its long form, where the
 # subsampled source reaches flash_attention's 2048 keys
@@ -1545,25 +1612,25 @@ def run_int8_static(torch, smodel, ddim_sample, inputs, units_bf16, smi, mods):
     print(f"phase main path int8 static: {time.perf_counter() - t0:.1f} s")
 
 
-def train_batches(torch, n, seed, stage):
-    """n micro-batches of B x T (ragged lengths from T/2, 0-padded units),
+def train_batches(torch, n, seed, stage, b=B, t=T):
+    """n micro-batches of b x t (ragged lengths from t/2, 0-padded units),
     with every draw of the training forward injected."""
     g = torch.Generator(device="cuda").manual_seed(seed)
     out = []
     for _ in range(n):
-        lengths = torch.randint(T // 2, T + 1, (B,), generator=g, device="cuda")
-        lengths[0] = T
-        mask = torch.arange(T, device="cuda")[None] < lengths[:, None]
-        units = torch.randint(4, 1004, (B, T), generator=g, device="cuda") * mask
-        batch = {"reduce_target": torch.randn(B, T, 768, generator=g, device="cuda")
+        lengths = torch.randint(t // 2, t + 1, (b,), generator=g, device="cuda")
+        lengths[0] = t
+        mask = torch.arange(t, device="cuda")[None] < lengths[:, None]
+        units = torch.randint(4, 1004, (b, t), generator=g, device="cuda") * mask
+        batch = {"reduce_target": torch.randn(b, t, 768, generator=g, device="cuda")
                  * mask[..., None], "reduce_target_unit": units.int(),
                  "reduce_target_lengths": lengths.int()}
         if stage == "vae":
-            batch["posterior_noise"] = torch.randn(B, T, 128, generator=g, device="cuda")
+            batch["posterior_noise"] = torch.randn(b, t, 128, generator=g, device="cuda")
         else:
-            batch["inject_times"] = torch.randint(1, 200, (B,), generator=g, device="cuda")
+            batch["inject_times"] = torch.randint(1, 200, (b,), generator=g, device="cuda")
             for key in ("enc_noise", "x1_noise", "q_noise"):
-                batch[f"inject_{key}"] = torch.randn(B, T, 128, generator=g, device="cuda")
+                batch[f"inject_{key}"] = torch.randn(b, t, 128, generator=g, device="cuda")
         out.append(batch)
     return out
 
@@ -4070,6 +4137,394 @@ def run_s2st_extras(torch, mods, smi):
     return launches
 
 
+def cond_batches(torch, n, b, t, prompt_frames, seed):
+    """n micro-batches of phase 8's kind (train_batches) at B x T with a
+    768-d prompt of `prompt_frames` (ragged masks, the first row full) and
+    an injected drop mask that drops a quarter of the rows."""
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    out = []
+    for batch in train_batches(torch, n, seed, "ddpm", b, t):
+        lengths = torch.randint(prompt_frames // 2, prompt_frames + 1, (b,), generator=g,
+                                device="cuda")
+        lengths[0] = prompt_frames
+        mask = torch.arange(prompt_frames, device="cuda")[None] < lengths[:, None]
+        batch["prompt"] = torch.randn(b, prompt_frames, 768, generator=g, device="cuda") \
+            * mask[..., None]
+        batch["prompt_mask"] = mask
+        batch["inject_cg_drop"] = torch.arange(b, device="cuda") % 4 == 1
+        out.append(batch)
+    return out
+
+
+def guidance_cos(torch, outs, refs):
+    """The least row cosine of each denoiser output [B, T, latent] against
+    its plain-version run."""
+    return [round(torch.nn.functional.cosine_similarity(
+        o.float().reshape(-1, o.shape[-1]), r.float().reshape(-1, r.shape[-1]),
+        dim=-1).min().item(), 5) for o, r in zip(outs, refs)]
+
+
+def kernel_sites(model):
+    """The wavenet_chain and rms_norm_film launches one forward of `model`
+    needs: a chain per WaveNet layer, a kernel per FiLM RMSNorm."""
+    from diffnorm_tpu_torch.models.layers import RMSNorm
+    from diffnorm_tpu_torch.models.wavenet import Wavenet
+
+    return {"wavenet_chain": sum(m.layers for m in model.modules()
+                                 if isinstance(m, Wavenet) and m.chain_kernel),
+            "rms_norm_film": sum(1 for m in model.modules() if isinstance(m, RMSNorm)
+                                 and m.to_gamma_beta is not None and m.gamma is None)}
+
+
+def run_train_cond(torch, mods, smi):
+    """Phase 21a: the prompt-conditioned normalizer (LatentDiffusionModule
+    use_cond: resampler depth 2 with 64 latents, 768-d prompt, cross
+    attention in every layer, FiLM condition 4096) at the released widths:
+    COND_UPDATES bf16 updates at B x T with a COND_PROMPT-frame prompt, run
+    twice from one init on the same injected draws and drop mask at dropout
+    0, through the kernels and through the plain versions (loss and
+    gradient norm per update held to TRAIN_LOSS_REL / TRAIN_GNORM_REL), ms
+    and launches per update, peak memory, busy share; forward_with_cond_scale
+    at 1 (equal to the conditioned forward) and 2 against the plain
+    versions; then one update and one guided forward at a COND_LONG_PROMPT
+    prompt. Returns the launches of the kernels' runs."""
+    from diffnorm_tpu_torch.criterions.ddpm_loss import DDPMDiscreteLoss
+    from diffnorm_tpu_torch.models.diffusion import LatentDiffusionModule
+    from diffnorm_tpu_torch.ops import _build
+    from diffnorm_tpu_torch.train.trainer import Trainer, TrainerConfig
+
+    t0 = time.perf_counter()
+    cfg = TrainerConfig(lr=1e-4, warmup_updates=10000, warmup_init_lr=1e-7,
+                        adam_betas=(0.9, 0.98), clip_norm=2.0, dtype="bfloat16", seed=42)
+    micros = cond_batches(torch, COND_UPDATES, B, T, COND_PROMPT, 81)
+    total = {}
+
+    def build():
+        torch.manual_seed(21)
+        with torch.device("cuda"):
+            model = LatentDiffusionModule(use_cond=True)
+        return model, Trainer(cfg, model, DDPMDiscreteLoss(), ("vae",))
+
+    def count(launches):
+        for k, v in launches.items():
+            total[k] = total.get(k, 0) + v
+
+    runs = {}
+    for version in ("kernels", "plain"):
+        model, trainer = build()
+        need = kernel_sites(trainer.model)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        per_update = []
+        with plain_versions(*mods) if version == "plain" else contextlib.nullcontext():
+            for u in range(COND_UPDATES):
+                _build.launch_counts.clear()
+                t1 = time.perf_counter()
+                mets = trainer.train_step(micros[u:u + 1])
+                torch.cuda.synchronize()
+                per_update.append((mets, 1e3 * (time.perf_counter() - t1),
+                                   dict(_build.launch_counts)))
+        runs[version] = (per_update, torch.cuda.max_memory_allocated() / 1e9)
+        if version == "kernels":
+            for _, _, launches in per_update:
+                count(launches)
+                if any(launches.get(k, 0) < n for k, n in need.items()):
+                    fail(f"train conditioned: an update launched {launches}, a forward "
+                         f"needs {need}")
+            wall = statistics.median(ms for _, ms, _ in per_update[1:]) / 1e3
+            profile_run(torch, lambda: trainer.train_step(micros[:1]), wall)
+            work = trainer.model
+        del model, trainer
+    worst_loss = worst_gnorm = 0.0
+    for (mk, _, _), (mp, _, _) in zip(runs["kernels"][0], runs["plain"][0]):
+        if not (math.isfinite(mk["loss"]) and math.isfinite(mk["gnorm"])):
+            fail(f"train conditioned: non-finite loss or gradient norm {mk}")
+        worst_loss = max(worst_loss, abs(mk["loss"] - mp["loss"]) / abs(mp["loss"]))
+        worst_gnorm = max(worst_gnorm, abs(mk["gnorm"] - mp["gnorm"]) / abs(mp["gnorm"]))
+    if worst_loss > TRAIN_LOSS_REL or worst_gnorm > TRAIN_GNORM_REL:
+        fail(f"train conditioned: kernels against plain versions, loss rel {worst_loss:.3e}, "
+             f"gnorm rel {worst_gnorm:.3e}")
+    per_update, peak_gb = runs["kernels"]
+    print(f"train conditioned: B{B}xT{T}, prompt {COND_PROMPT} frames, bf16 forward, float32 "
+          f"masters; losses {[round(m['loss'], 5) for m, _, _ in per_update]}, gnorms "
+          f"{[round(m['gnorm'], 4) for m, _, _ in per_update]}; ms per update "
+          f"{[round(ms, 1) for _, ms, _ in per_update]} (plain versions "
+          f"{[round(ms, 1) for _, ms, _ in runs['plain'][0]]}); launches per update "
+          f"{per_update[-1][2]} (a forward needs {kernel_sites(work)}); peak {peak_gb:.2f} GB; "
+          f"against the plain-version run loss rel {worst_loss:.2e}, gnorm rel "
+          f"{worst_gnorm:.2e}; {smi}")
+
+    # classifier-free guidance, eval mode
+    work.eval()
+    den = work.denoiser
+    g = torch.Generator(device="cuda").manual_seed(82)
+    batch = micros[0]
+    x = torch.randn(B, T, 128, generator=g, device="cuda", dtype=torch.bfloat16)
+    times = torch.randint(1, 200, (B,), generator=g, device="cuda")
+    mask = batch["reduce_target_lengths"][:, None] > torch.arange(T, device="cuda")[None]
+    cond_kw = dict(prompt=batch["prompt"], prompt_mask=batch["prompt_mask"])
+    with torch.no_grad():
+        cond = den(x, times, mask, **cond_kw)
+        if not torch.equal(den.forward_with_cond_scale(x, times, mask, cond_scale=1.0, **cond_kw),
+                           cond):
+            fail("forward_with_cond_scale at 1 differs from the conditioned forward")
+        null = den(x, times, mask, cond_drop_prob=1.0, **cond_kw)
+        guided = den.forward_with_cond_scale(x, times, mask, cond_scale=2.0, **cond_kw)
+        with plain_versions(*mods):
+            refs = (den(x, times, mask, **cond_kw),
+                    den(x, times, mask, cond_drop_prob=1.0, **cond_kw),
+                    den.forward_with_cond_scale(x, times, mask, cond_scale=2.0, **cond_kw))
+    cos = guidance_cos(torch, (cond, null, guided), refs)
+    if not (torch.isfinite(guided).all() and torch.equal(guided, null + (cond - null) * 2.0)
+            and min(cos[:2]) >= COND_ROW_COS and cos[2] >= GUIDED_ROW_COS):
+        fail(f"forward_with_cond_scale 2: row-cos of the conditioned, null and guided outputs "
+             f"{cos} against the plain versions (bounds {COND_ROW_COS}, {GUIDED_ROW_COS})")
+
+    # the long prompt: one update (training: the resampler's dropout 0.1) and
+    # one guided forward (eval), each with its flash_attention launches
+    long_batch = cond_batches(torch, 1, COND_LONG_B, T, COND_LONG_PROMPT, 83)
+    model, trainer = build()
+    _build.launch_counts.clear()
+    t1 = time.perf_counter()
+    mets = trainer.train_step(long_batch)
+    torch.cuda.synchronize()
+    long_ms = 1e3 * (time.perf_counter() - t1)
+    long_launches = dict(_build.launch_counts)
+    count(long_launches)
+    if not math.isfinite(mets["loss"]):
+        fail(f"train conditioned, long prompt: {mets}")
+    trainer.model.eval()
+    den = trainer.model.denoiser
+    lb = long_batch[0]
+    xl, tl = x[:COND_LONG_B], times[:COND_LONG_B]
+    maskl = lb["reduce_target_lengths"][:, None] > torch.arange(T, device="cuda")[None]
+    kw = dict(prompt=lb["prompt"], prompt_mask=lb["prompt_mask"], cond_scale=2.0)
+    with torch.no_grad():
+        _build.launch_counts.clear()
+        guided_long = den.forward_with_cond_scale(xl, tl, maskl, **kw)
+        guided_launches = dict(_build.launch_counts)
+        count(guided_launches)
+        with plain_versions(*mods):
+            guided_long_ref = den.forward_with_cond_scale(xl, tl, maskl, **kw)
+    cos_long = guidance_cos(torch, (guided_long,), (guided_long_ref,))[0]
+    if cos_long < GUIDED_ROW_COS:
+        fail(f"guided forward at a {COND_LONG_PROMPT}-frame prompt: row-cos {cos_long:.5f} "
+             f"against the plain versions")
+    del model, trainer, work
+    print(f"train conditioned, guidance: forward_with_cond_scale 1 equals the conditioned "
+          f"forward; against the plain versions row-cos {cos} for the conditioned, null and "
+          f"scale-2 outputs (bounds {COND_ROW_COS}, {GUIDED_ROW_COS}). Prompt {COND_LONG_PROMPT} frames (64 latents + {COND_LONG_PROMPT} "
+          f"= {64 + COND_LONG_PROMPT} keys), B{COND_LONG_B}xT{T}: one update {long_ms:.1f} ms, "
+          f"launches {long_launches} (flash_attention "
+          f"{long_launches.get('flash_attention', 0)}: the resampler's training dropout 0.1 "
+          f"keeps it on the plain path); the guided forward (eval) launches "
+          f"{guided_launches}, row-cos {cos_long:.5f}; {smi}")
+    print(f"phase train conditioned: {time.perf_counter() - t0:.1f} s")
+    return total
+
+
+class StepTimer:
+    """Times every Trainer.train_step (synchronised) while it is open."""
+
+    def __init__(self, torch):
+        from diffnorm_tpu_torch.train.trainer import Trainer
+
+        self.torch, self.cls, self.ms = torch, Trainer, []
+
+    def __enter__(self):
+        step = self.orig = self.cls.train_step
+
+        def timed(trainer, batches):
+            self.torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            out = step(trainer, batches)
+            self.torch.cuda.synchronize()
+            self.ms.append(1e3 * (time.perf_counter() - t1))
+            return out
+
+        self.cls.train_step = timed
+        return self
+
+    def __exit__(self, *exc):
+        self.cls.train_step = self.orig
+
+
+def run_train_tasks_cli(torch, smi):
+    """Phase 21b: cli.train at the released widths in bf16 with seeded
+    weights on phase 9's corpus, 2 updates each: speech_diffusion
+    (diff_latent), speech_diffusion_hubert (diff_hubert, no VAE), hubert_vae
+    and speech_diffusion_discrete --arch diffusion_transformer. Returns the
+    launches."""
+    from diffnorm_tpu_torch.cli import train as train_cli
+    from diffnorm_tpu_torch.ops import _build
+
+    total = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = Path(tmp)
+        feat_dir = write_train_corpus(tmp)
+        common = [str(tmp), "--tgt-feat-dir", str(feat_dir), "--target-code-size", "1000",
+                  "--dropout", "0.1", "--lr", "1e-4", "--max-tokens", "1200",
+                  "--max-update", "2", "--seed", "42", "--log-interval", "1",
+                  "--dtype", "bfloat16"]
+        runs = (("speech_diffusion", "diff_latent", "ddpm_latent_loss"),
+                ("speech_diffusion_hubert", "diff_hubert", "ddpm_latent_loss"),
+                ("hubert_vae", "speech_vae_decoder", "hubert_vae_loss"),
+                ("speech_diffusion_discrete", "diffusion_transformer", "ddpm_discrete_loss"))
+        for task, arch, criterion in runs:
+            _build.launch_counts.clear()
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            with StepTimer(torch) as timer:
+                rc = train_cli.main(common + ["--task", task, "--arch", arch, "--criterion",
+                                              criterion, "--save-dir", str(tmp / task)])
+            dt = time.perf_counter() - t1
+            launches = dict(_build.launch_counts)
+            if rc != 0 or not (tmp / task / "step_000000002" / "params.npz").exists():
+                fail(f"cli.train --task {task} --arch {arch}: rc {rc}")
+            if not launches.get("wavenet_chain") or (
+                    task != "hubert_vae" and not launches.get("rms_norm_film")):
+                fail(f"cli.train --task {task}: launches {launches}")
+            for k, v in launches.items():
+                total[k] = total.get(k, 0) + v
+            print(f"phase entry point train ({task}, --arch {arch}): {dt:.2f} s for cli.train "
+                  f"to step 2 (released widths, bf16, 24 utterances); ms per update "
+                  f"{[round(ms, 1) for ms in timer.ms]}; launches {launches}; {smi}")
+    return total
+
+
+def run_optim_cli(torch, smi):
+    """Phase 21c (first half): the released-width normalizer through
+    cli.train --optimizer adamax --lr-scheduler cosine --ema-decay 0.999, one
+    batch per epoch: 3 updates, then --restore-file and 2 more in another
+    directory, against a 5-update run: parameters, EMA and moments equal
+    bit for bit."""
+    import numpy as np
+
+    from diffnorm_tpu_torch.cli import train as train_cli
+
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = Path(tmp)
+        feat_dir = write_train_corpus(tmp)
+        common = [str(tmp), "--tgt-feat-dir", str(feat_dir), "--target-code-size", "1000",
+                  "--task", "speech_diffusion_discrete", "--arch", "diff_discrete",
+                  "--dropout", "0.1", "--optimizer", "adamax", "--lr-scheduler", "cosine",
+                  "--lr", "1e-4", "--warmup-updates", "2", "--ema-decay", "0.999",
+                  "--max-tokens", "4096", "--seed", "42", "--log-interval", "1",
+                  "--validate-interval", "100", "--save-interval", "100",
+                  "--dtype", "bfloat16"]
+        walls = {}
+        for what, max_update, extra in (
+                ("straight", 5, []), ("first", 3, []),
+                ("resumed", 5, ["--restore-file", str(tmp / "first" / "step_000000003")])):
+            t1 = time.perf_counter()
+            with StepTimer(torch) as timer:
+                rc = train_cli.main(common + ["--save-dir", str(tmp / what), "--max-update",
+                                              str(max_update), *extra])
+            walls[what] = (round(time.perf_counter() - t1, 2), [round(m, 1) for m in timer.ms])
+            if rc != 0:
+                fail(f"cli.train adamax/cosine/EMA {what}: rc {rc}")
+        a, b = tmp / "straight" / "step_000000005", tmp / "resumed" / "step_000000005"
+        pa, pb = np.load(a / "params.npz"), np.load(b / "params.npz")
+        sa = torch.load(a / "trainer.pt", map_location="cpu")
+        sb = torch.load(b / "trainer.pt", map_location="cpu")
+        differ = [k for k in pa.files if not np.array_equal(pa[k], pb[k])]
+        differ += [f"ema {i}" for i, (x, y) in enumerate(zip(sa["ema"]["params"],
+                                                              sb["ema"]["params"]))
+                   if not torch.equal(x, y)]
+        if differ or sa["optimizer"]["count"] != 5 or sb["num_updates"] != 5:
+            fail(f"cli.train 3 + --restore-file 2 against 5 updates: {len(differ)} arrays "
+                 f"differ ({differ[:5]})")
+    print(f"phase entry point train (adamax, cosine, EMA 0.999): 3 updates + --restore-file 2 "
+          f"equal a 5-update run bit for bit ({len(pa.files)} parameter arrays and the EMA); "
+          f"walls (s) and ms per update {walls}; {smi}")
+
+
+def run_optim_devices(torch, smi):
+    """Phase 21c (second half): each other optimizer under a schedule (the
+    host-driven ones among them) on the card against the CPU, on a small
+    no-VAE normalizer (dim 128, FiLM-conditioned WaveNet and transformer,
+    the float32 kernels on the card): one Trainer update from one init on
+    one batch, ||p_card - p_cpu|| / ||p_cpu - p_0|| <= OPTIM_DEVICE_REL;
+    then 2 updates of the optimizer alone (unclipped) on the same seeded
+    gradients, <= OPTIM_STEP_REL. (Two Trainer updates part further: the learned
+    Fourier time embedding multiplies a weight's difference by 2 pi t, up to
+    ~1250, PERF.md §6.)"""
+    import numpy as np
+
+    from diffnorm_tpu_torch.criterions.ddpm_loss import DDPMLatentLoss
+    from diffnorm_tpu_torch.models.diffusion import LatentDiffusionModule
+    from diffnorm_tpu_torch.train.lr_schedules import build_lr_schedule
+    from diffnorm_tpu_torch.train.optimizers import build_optimizer
+    from diffnorm_tpu_torch.train.trainer import Trainer, TrainerConfig
+
+    rng = np.random.default_rng(84)
+    lengths = np.asarray([32, 24, 17, 32], np.int32)
+    mask = np.arange(32)[None] < lengths[:, None]
+    batch = {"reduce_target": (rng.normal(size=(4, 32, 64)) * mask[..., None]).astype(np.float32),
+             "reduce_target_lengths": lengths, "inject_times": rng.integers(1, 200, size=4),
+             **{f"inject_{k}": rng.normal(size=(4, 32, 64)).astype(np.float32)
+                for k in ("enc_noise", "x1_noise", "q_noise")}}
+    widths = dict(dim=128, latent_dim=64, feature_dim=64, denoiser_depth=2, wavenet_layers=2,
+                  wavenet_stacks=2, use_vae=False)
+    torch.manual_seed(85)
+    init = LatentDiffusionModule(**widths).state_dict()
+    gen = torch.Generator().manual_seed(86)
+    grads = [[torch.randn(v.shape, generator=gen) * 0.01 for v in init.values()]
+             for _ in range(2)]
+
+    def rel(finals, p0):
+        moved = (finals["cpu"] - p0).norm().item()
+        return (finals["cuda"] - finals["cpu"]).norm().item() / max(moved, 1e-30), moved
+
+    results, worst = {}, []
+    for name, options in OPTIM_CASES:
+        opts = {k: v for k, v in options.items() if k not in ("lr", "lr_scheduler")}
+        cfg = TrainerConfig(lr=options.get("lr", 1e-3), optimizer=name,
+                            lr_scheduler=options["lr_scheduler"], clip_norm=1.0, options=opts,
+                            seed=3)
+        trained, stepped = {}, {}
+        for device in ("cpu", "cuda"):
+            with torch.device(device):
+                model = LatentDiffusionModule(**widths)
+            model.load_state_dict(init)
+            Trainer(cfg, model, DDPMLatentLoss()).train_step([batch])
+            trained[device] = torch.cat([p.detach().cpu().reshape(-1)
+                                         for p in model.parameters()])
+            params = [v.detach().to(device).clone() for v in init.values()]
+            schedule = build_lr_schedule(cfg.optimization())
+            opt = build_optimizer(cfg.optimization(), schedule, params, list(init))
+            for i, g in enumerate(grads):
+                lr = schedule.step_update(i) if getattr(schedule, "host_driven", False) else None
+                opt.step([x.to(device) for x in g], lr)
+            stepped[device] = torch.cat([p.cpu().reshape(-1) for p in params])
+        p0 = torch.cat([v.reshape(-1) for v in init.values()])
+        p0_trained = torch.cat([init[n].reshape(-1) for n, _ in model.named_parameters()])
+        (r1, m1), (r2, m2) = rel(trained, p0_trained), rel(stepped, p0)
+        key = f"{name}/{options['lr_scheduler']}"
+        results[key] = f"update {r1:.2e} of {m1:.3e}, steps {r2:.2e} of {m2:.3e}"
+        if not (m1 > 0 and m2 > 0 and r1 <= OPTIM_DEVICE_REL and r2 <= OPTIM_STEP_REL):
+            worst.append(key)
+    print(f"phase optimizers on the card: a small normalizer's float32 Trainer update and 2 "
+          f"optimizer steps on seeded gradients, card against CPU, ||diff|| / ||change|| per "
+          f"optimizer/schedule {results} (bounds {OPTIM_DEVICE_REL}, {OPTIM_STEP_REL}); {smi}")
+    if worst:
+        fail(f"optimizers on the card against the CPU beyond their bounds: {worst}")
+
+
+def run_training_remainder(torch, mods, smi):
+    """Phase 21: the prompt-conditioned normalizer, the continuous tasks
+    through cli.train, and the optimizers and schedules (see the module
+    docstring). Returns the kernels' launches."""
+    t0 = time.perf_counter()
+    launches = run_train_cond(torch, mods, smi)
+    for k, v in run_train_tasks_cli(torch, smi).items():
+        launches[k] = launches.get(k, 0) + v
+    run_optim_cli(torch, smi)
+    run_optim_devices(torch, smi)
+    print(f"phase training remainder: {time.perf_counter() - t0:.1f} s; {smi}")
+    return launches
+
+
 def main() -> int:
     try:
         import torch
@@ -4245,6 +4700,12 @@ def main() -> int:
     # 20. the S2ST options left out: ensembles, the history and the chunked
     # decode, encoder_remat, the augments, repr_to_speech
     launches["flash_attention"] += run_s2st_extras(torch, mods, smi)
+
+    # 21. the training remainder: the prompt-conditioned normalizer, the
+    # continuous tasks, the optimizers and schedules
+    for name, n in run_training_remainder(torch, mods, smi).items():
+        if name in launches:
+            launches[name] += n
 
     sources = {
         "rms_norm_film": ("rms_norm_film.cu", "diffnorm_tpu/ops/pallas_norm.py:34"),

@@ -29,8 +29,8 @@ the state dict must land in the tree (each discriminator against its own),
 the family's pretraining-only heads excepted, else a ValueError names the
 suspect keys. `--type hubert_ctc` raises: the port has no HubertCTCModule
 (ROADMAP Queue 1 item 4); its ASR reads Hugging Face directories
-(models/wav2vec2_ctc.py). The prompt-conditioned denoiser (item 2) raises
-as well.
+(models/wav2vec2_ctc.py). `--type diffusion` takes the prompt-conditioned
+denoiser too (its resampler, null embeddings and cross-attention layers).
 """
 
 from __future__ import annotations

@@ -1,8 +1,9 @@
 """Training CLI of the PyTorch port (port of diffnorm_tpu/cli/train.py):
-the speech VAE (`--task speech_decoder`), the latent normalizer over the
-frozen VAE (`--task speech_diffusion_discrete`) and the NAR S2UT translator
-on unit targets (`--task speech_to_speech_fasttranslate`, DiffNorm's fourth
-stage); `--task unit_to_speech` goes to `cli.train_vocoder` with the other
+the speech VAE (`--task speech_decoder`, or `hubert_vae`), the latent
+normalizer over the frozen VAE (`--task speech_diffusion_discrete`, or the
+continuous `speech_diffusion` / `speech_diffusion_hubert`) and the NAR S2UT
+translator on unit targets (`--task speech_to_speech_fasttranslate`,
+DiffNorm's fourth stage); `--task unit_to_speech` goes to `cli.train_vocoder` with the other
 arguments, as JAX's does, and `--task repr_to_speech` too with
 `--input-type features`. It takes every flag of scripts/vae_train.sh,
 scripts/diffusion_train.sh and scripts/s2ut_train.sh with the same meaning;
@@ -54,11 +55,34 @@ only the model weights are taken, from a step directory or a .npz (a
 the optimizer starts at step 0; a frozen subtree (the normalizer's `vae`) is
 the file's where the file has it, else --speech-decoder-ckpt's. Without it
 PATH is a step directory of this CLI and the whole trainer state carries
-over: weights, moments, update count, generators, and from the sidecar
-`PATH.json` the epoch and iterator position, unless `--reset-dataloader`.
-`--reset-lr-scheduler` is accepted: inverse_sqrt, the one schedule, reads
-the update count and keeps no state of its own (JAX's keeps none for it
-either).
+over: weights, the optimizer's state, update count, generators and EMA, and
+from the sidecar `PATH.json` the epoch and iterator position, unless
+`--reset-dataloader`, and a host-driven schedule's state, unless
+`--reset-lr-scheduler`.
+
+The continuous tasks: `--task speech_diffusion` (`--arch diff_latent`,
+ddpm_latent_loss) and `speech_diffusion_hubert` (`--arch diff_hubert`: the
+diffusion over the 768-d features, no VAE), `--task hubert_vae`
+(hubert_vae_loss, `--kl-beta`); `--arch diffusion_transformer` (one 1x1
+WaveNet layer, 16 transformer layers) under either normalizer task. Width
+flags left unset take the architecture's defaults (`models.diffusion.ARCHS`).
+`--use-cond` is refused: no task feeds the prompt-conditioned denoiser a
+prompt, as none does in JAX.
+
+Optimization follows JAX's flags: `--optimizer` adam (fairseq's; default),
+adamax, adadelta, lamb, nag, adafactor, adagrad, sgd or composite
+(`--composite-groups` JSON: a top-level parameter key to an optimizer name
+or to {"optimizer", "lr_scheduler", "lr", ...}), each with its own flags;
+`--lr-scheduler` inverse_sqrt (default), fixed, cosine, polynomial_decay,
+step, triangular, pass_through, tri_stage, or the host-driven manual
+(`--epoch2lr`, `--update2lr`) and reduce_lr_on_plateau (`--lr-shrink`,
+`--lr-patience`, `--lr-threshold`: it reads each epoch's validation
+`--best-checkpoint-metric`); `--clip-norm`, `--loss-scale`,
+`--freeze-finetune-updates` with `--freeze-finetune-subtrees`, and
+`--ema-decay` (an EMA of the trainable weights, kept in trainer.pt).
+`--log-format json` prints each logged step as JSON, and
+`--tensorboard-logdir` writes TensorBoard scalars where the package is
+installed.
 """
 
 from __future__ import annotations
@@ -76,10 +100,15 @@ import torch
 
 from diffnorm_tpu_torch.data.iterators import EpochBatchIterator, grouped, iterate_valid
 from diffnorm_tpu_torch.device import resolve_device
+from diffnorm_tpu_torch.models.diffusion import ARCHS as DIFFUSION_ARCHS
 from diffnorm_tpu_torch.models.nar_transformer import ARCHS as NAR_ARCHS
 from diffnorm_tpu_torch.tasks import TASKS
+from diffnorm_tpu_torch.train import metrics as metrics_mod
 from diffnorm_tpu_torch.train.checkpoint import TRAINER, CheckpointManager, load_variables
-from diffnorm_tpu_torch.train.trainer import Trainer, TrainerConfig, summarize
+from diffnorm_tpu_torch.train.lr_schedules import LR_SCHEDULES
+from diffnorm_tpu_torch.train.optimizers import OPTIMIZER_NAMES
+from diffnorm_tpu_torch.train.progress import LOG_FORMATS, ProgressWriter
+from diffnorm_tpu_torch.train.trainer import Trainer, TrainerConfig
 from diffnorm_tpu_torch.weights import from_jax_variables, to_jax_variables
 
 logger = logging.getLogger("diffnorm_tpu_torch.train")
@@ -87,9 +116,23 @@ logger = logging.getLogger("diffnorm_tpu_torch.train")
 NAR_TASK = "speech_to_speech_fasttranslate"
 STAGES = {  # task: (criterion, its architectures)
     "speech_decoder": ("speech_vae_decoder_loss", ("speech_vae_decoder",)),
-    "speech_diffusion_discrete": ("ddpm_discrete_loss", ("diff_discrete",)),
+    "hubert_vae": ("hubert_vae_loss", ("speech_vae_decoder",)),
+    "speech_diffusion_discrete": ("ddpm_discrete_loss", ("diff_discrete", "diffusion_transformer")),
+    "speech_diffusion": ("ddpm_latent_loss", ("diff_latent", "diffusion_transformer")),
+    "speech_diffusion_hubert": ("ddpm_latent_loss", ("diff_hubert",)),
     NAR_TASK: ("nar_speech_to_unit", tuple(NAR_ARCHS)),
 }
+# the optimizer's and schedule's flags beside --lr, --warmup-*, --adam-*
+# and --weight-decay, under JAX's config keys (TrainerConfig.options)
+OPTIONS = ("min_lr", "end_learning_rate", "power", "lr_decay_period", "lr_deacy_period",
+           "lr_decay", "max_lr", "lr_period_updates", "lr_shrink", "shrink_min", "epoch2lr",
+           "update2lr", "lr_threshold", "lr_patience", "maximize_best_checkpoint_metric",
+           "warmup_steps", "hold_steps", "decay_steps", "init_lr_scale", "final_lr_scale",
+           "adamax_betas", "adamax_eps", "no_bias_correction", "adadelta_rho",
+           "adadelta_eps", "lamb_betas", "lamb_eps", "momentum", "nesterov", "decay_rate",
+           "clip_threshold", "initial_accumulator_value", "composite_groups",
+           "composite_default", "freeze_finetune_updates", "freeze_finetune_subtrees",
+           "loss_scale")
 # flags of the JAX CLI's NAR model that the port does not implement
 UNPORTED = ("quant_int8",)
 
@@ -106,6 +149,18 @@ def _betas(value: str):
 
 def _ints(value: str):
     return tuple(int(k) for k in value.strip("()[] ").replace(",", " ").split())
+
+
+def _json(value: str):
+    """A JSON value with tuples' parentheses as lists, as JAX's args.py
+    reads a flag that starts with a bracket."""
+    return json.loads(value.replace("(", "[").replace(")", "]"))
+
+
+def _names(value: str):
+    """Top-level parameter keys: a JSON list or comma-separated names."""
+    value = value.strip()
+    return tuple(_json(value)) if value[:1] in "[(" else tuple(value.split(","))
 
 
 def _flag(p: argparse.ArgumentParser, name: str, **kw) -> None:
@@ -134,18 +189,20 @@ def build_parser(description: str, train: bool = True) -> argparse.ArgumentParse
                                        "ignored: the port draws from torch.Generators")
     # model
     p.add_argument("--feature-dim", type=int, default=768)
-    p.add_argument("--latent-dim", type=int, default=128)
+    p.add_argument("--latent-dim", type=int,
+                   help="the VAE's latent width (default 128; diff_hubert's 768)")
     p.add_argument("--chan-mults", type=json.loads, default=None,
                    help='VAE channel multipliers as JSON, e.g. "[3]"')
     p.add_argument("--vae-decoder-depth", type=int, default=6)
     p.add_argument("--vae-decoder-dim-head", type=int, default=96)
     p.add_argument("--vae-decoder-heads", type=int, default=8)
-    p.add_argument("--hidden-dim", type=int, default=512)
-    p.add_argument("--timesteps", type=int, default=200)
-    p.add_argument("--denoiser-depth", type=int, default=12)
-    p.add_argument("--wavenet-layers", type=int, default=8)
-    p.add_argument("--wavenet-stacks", type=int, default=4)
-    p.add_argument("--multitask", type=_bool, default=True)
+    for flag in ("--hidden-dim", "--timesteps", "--denoiser-depth", "--wavenet-layers",
+                 "--wavenet-stacks"):
+        p.add_argument(flag, type=int, help="default: the architecture's")
+    p.add_argument("--multitask", type=_bool, help="default: the architecture's")
+    _flag(p, "--use-cond", help="the prompt-conditioned denoiser: refused (no task feeds "
+                                "it a prompt)")
+    p.add_argument("--kl-beta", type=float, default=1e-4, help="hubert_vae_loss's KL weight")
     p.add_argument("--dropout", type=float, default=None,
                    help="dropout in training (default 0.1)")
     # the NAR model (nar_s2ut_conformer; widths left unset take the arch's)
@@ -192,14 +249,41 @@ def build_parser(description: str, train: bool = True) -> argparse.ArgumentParse
     p.add_argument("--seed", type=int, default=1)
     if not train:
         return p
-    # optimization: fairseq Adam
+    # optimization (flags left unset take each optimizer's and schedule's
+    # own default, as in JAX)
+    p.add_argument("--optimizer", choices=OPTIMIZER_NAMES, default="adam")
     p.add_argument("--lr", type=float, default=5e-4)
-    p.add_argument("--lr-scheduler", choices=("inverse_sqrt",), default="inverse_sqrt")
-    p.add_argument("--warmup-updates", type=int, default=4000)
-    p.add_argument("--warmup-init-lr", type=float, default=1e-7)
+    p.add_argument("--lr-scheduler", choices=sorted(LR_SCHEDULES), default="inverse_sqrt")
+    p.add_argument("--warmup-updates", type=int)
+    p.add_argument("--warmup-init-lr", type=float)
     p.add_argument("--adam-betas", type=_betas, default=(0.9, 0.98))
+    p.add_argument("--adam-eps", type=float, default=1e-8)
     p.add_argument("--weight-decay", type=float, default=0.0)
     p.add_argument("--clip-norm", type=float, default=2.0)
+    for flag in ("--min-lr", "--end-learning-rate", "--power", "--lr-decay", "--max-lr",
+                 "--lr-period-updates", "--lr-shrink", "--lr-threshold", "--init-lr-scale",
+                 "--final-lr-scale", "--adamax-eps", "--adadelta-rho", "--adadelta-eps",
+                 "--lamb-eps", "--momentum", "--decay-rate", "--clip-threshold",
+                 "--initial-accumulator-value", "--loss-scale"):
+        p.add_argument(flag, type=float)
+    for flag in ("--lr-decay-period", "--lr-deacy-period", "--lr-patience", "--warmup-steps",
+                 "--hold-steps", "--decay-steps", "--freeze-finetune-updates"):
+        p.add_argument(flag, type=int)
+    for flag in ("--shrink-min", "--no-bias-correction", "--nesterov",
+                 "--maximize-best-checkpoint-metric"):
+        _flag(p, flag)
+    p.add_argument("--adamax-betas", type=_betas)
+    p.add_argument("--lamb-betas", type=_betas)
+    p.add_argument("--epoch2lr", help="manual: {epoch: lr} (keys '1,2', '3-5' or '6')")
+    p.add_argument("--update2lr", help="manual: {update: lr}")
+    p.add_argument("--composite-groups", type=_json,
+                   help='composite: JSON {"top_key": "sgd" | {"optimizer": ..., '
+                        '"lr_scheduler": ..., "lr": ...}}')
+    p.add_argument("--composite-default", help="composite: the other groups' optimizer")
+    p.add_argument("--freeze-finetune-subtrees", type=_names,
+                   help="top-level keys frozen for --freeze-finetune-updates")
+    p.add_argument("--ema-decay", type=float, default=0.0,
+                   help="keep an EMA of the trainable weights at this decay")
     p.add_argument("--update-freq", type=int, default=1)
     p.add_argument("--max-update", type=int, required=True)
     # checkpoints and logging
@@ -216,6 +300,9 @@ def build_parser(description: str, train: bool = True) -> argparse.ArgumentParse
     p.add_argument("--validate-interval", type=int, default=1, help="epochs")
     p.add_argument("--save-interval", type=int, default=1, help="epochs")
     p.add_argument("--log-interval", type=int, default=100)
+    p.add_argument("--log-format", choices=LOG_FORMATS, default="simple")
+    p.add_argument("--tensorboard-logdir")
+    p.add_argument("--wandb-project")
     return p
 
 
@@ -230,12 +317,26 @@ def check_args(p: argparse.ArgumentParser, args: argparse.Namespace) -> argparse
     for name in UNPORTED:
         if str(getattr(args, name)).lower() not in ("none", "false", "0"):
             raise NotImplementedError(f"--{name.replace('_', '-')} is not ported")
+    if args.use_cond:
+        p.error("--use-cond: no task feeds the prompt-conditioned denoiser a prompt (nor does "
+                "JAX's: its criterions pass none, and its Denoiser asserts one, "
+                "models/diffusion.py:271); build LatentDiffusionModule(use_cond=True) and "
+                "pass batches with a prompt instead")
     if args.task == NAR_TASK:
         NAR_ARCHS[args.arch or archs[0]](vars(args))
     else:
         if args.tgt_feat_dir is None:
             p.error(f"task {args.task} needs --tgt-feat-dir")
         args.dropout = 0.1 if args.dropout is None else args.dropout
+        if args.task in ("speech_decoder", "hubert_vae"):
+            args.latent_dim = 128 if args.latent_dim is None else args.latent_dim
+        else:
+            widths = vars(args)
+            DIFFUSION_ARCHS[args.arch or archs[0]](widths)
+            for key, value in (("denoiser_depth", 12), ("wavenet_layers", 8),
+                               ("wavenet_stacks", 4), ("use_vae", True)):
+                if widths.get(key) is None:
+                    widths[key] = value
     args.config_yaml = args.config_yaml or args.dummy_config or "config.yaml"
     return args
 
@@ -243,6 +344,17 @@ def check_args(p: argparse.ArgumentParser, args: argparse.Namespace) -> argparse
 def parse_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
     p = build_parser(__doc__.split("\n")[0])
     return check_args(p, p.parse_args(argv))
+
+
+def trainer_config(args: argparse.Namespace) -> TrainerConfig:
+    """The trainer's configuration from the optimization flags."""
+    return TrainerConfig(
+        lr=args.lr, warmup_updates=args.warmup_updates, warmup_init_lr=args.warmup_init_lr,
+        adam_betas=args.adam_betas, adam_eps=args.adam_eps, weight_decay=args.weight_decay,
+        clip_norm=args.clip_norm, dtype=args.dtype, seed=args.seed, optimizer=args.optimizer,
+        lr_scheduler=args.lr_scheduler, ema_decay=args.ema_decay,
+        options={"max_updates": args.max_update,
+                 **{key: getattr(args, key) for key in OPTIONS}})
 
 
 def max_positions(args: argparse.Namespace):
@@ -263,16 +375,17 @@ def restore(args: argparse.Namespace, ckpt: CheckpointManager, model: torch.nn.M
             device: torch.device, frozen_keys: Sequence[str]):
     """Load the master weights from the save directory's last checkpoint or
     from --restore-file (see the module docstring). Returns (trainer state,
-    sidecar), either None where the run starts afresh or keeps its own."""
+    sidecar, host-driven schedule state), each None where the run starts
+    afresh or keeps its own."""
     last = ckpt.latest_step()
     if last is not None:
         variables, state, extra = ckpt.load(last, device)
         from_jax_variables(model, variables)
         logger.info("resumed from step %d (epoch %d)", last, extra["epoch"])
-        return state, extra
+        return state, extra, extra.get("lr_scheduler")
     rf = args.restore_file
     if not rf:
-        return None, None
+        return None, None, None
     if args.reset_optimizer:
         variables = load_variables(rf)
         params, mine = variables["params"], to_jax_variables(model)
@@ -284,7 +397,7 @@ def restore(args: argparse.Namespace, ckpt: CheckpointManager, model: torch.nn.M
                   else variables.get(col, tree))
             for col, tree in mine.items()})
         logger.info("warm-started params from %s (optimizer reset)", rf)
-        return None, None
+        return None, None, None
     if not os.path.exists(os.path.join(rf, TRAINER)):
         raise ValueError(f"--restore-file {rf} holds no trainer state ({TRAINER}), as a "
                          f"converted or bridged checkpoint does: add --reset-optimizer")
@@ -293,7 +406,8 @@ def restore(args: argparse.Namespace, ckpt: CheckpointManager, model: torch.nn.M
         extra = json.load(f)
     from_jax_variables(model, load_variables(rf))
     logger.info("restored %s at step %s", rf, extra.get("step"))
-    return state, None if args.reset_dataloader else extra
+    return (state, None if args.reset_dataloader else extra,
+            None if args.reset_lr_scheduler else extra.get("lr_scheduler"))
 
 
 def validate_split(task, trainer: Trainer, args: argparse.Namespace,
@@ -309,9 +423,10 @@ def validate_split(task, trainer: Trainer, args: argparse.Namespace,
         logger.warning("validation skipped: %s", e)
         return None
     generator = torch.Generator(device=device).manual_seed(0)
-    rows = [trainer.valid_step(task.prepare_batch(batch, np_rng), generator)
-            for batch in iterate_valid(dataset, args.max_tokens, max_positions(args))]
-    return summarize(rows) if rows else {}
+    with metrics_mod.aggregate() as agg:
+        for batch in iterate_valid(dataset, args.max_tokens, max_positions(args)):
+            trainer.valid_step(task.prepare_batch(batch, np_rng), generator)
+    return agg.get_smoothed_values()
 
 
 def main(argv: Optional[Sequence[str]] = None) -> int:
@@ -346,14 +461,12 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
     # but the draw advances the dataset's SpecAugment generator as JAX's does
     dataset[0]
     ckpt = CheckpointManager(args.save_dir, keep_last=args.keep_last_epochs,
-                             keep_best=args.keep_best_checkpoints)
+                             keep_best=args.keep_best_checkpoints,
+                             maximize=args.maximize_best_checkpoint_metric)
     # the master weights are restored before the trainer casts its working copy
-    state, extra = restore(args, ckpt, model, device, task.frozen_param_keys)
-    trainer = Trainer(TrainerConfig(
-        lr=args.lr, warmup_updates=args.warmup_updates, warmup_init_lr=args.warmup_init_lr,
-        adam_betas=args.adam_betas, weight_decay=args.weight_decay, clip_norm=args.clip_norm,
-        dtype=args.dtype, seed=args.seed), model, task.build_criterion(),
-        frozen_keys=task.frozen_param_keys)
+    state, extra, lr_state = restore(args, ckpt, model, device, task.frozen_param_keys)
+    trainer = Trainer(trainer_config(args), model, task.build_criterion(),
+                      frozen_keys=task.frozen_param_keys)
     n_params = sum(p.numel() for p in trainer.params)
     logger.info("model params (trainable): %.2fM on %s, forward in %s", n_params / 1e6,
                 device, args.dtype)
@@ -363,7 +476,9 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
     if extra is not None:
         epoch_itr.load_state_dict(extra["iterator"])
         start_epoch = extra["epoch"]
+    trainer.load_lr_state_dict(lr_state)
     np_rng = np.random.default_rng(args.seed)  # the batches' draws (the CMLM canvases)
+    progress = ProgressWriter(args.log_format, args.tensorboard_logdir, args.wandb_project)
 
     def run_validation() -> Optional[float]:
         if hasattr(task, "set_num_updates"):
@@ -375,39 +490,46 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
         return vals.get(args.best_checkpoint_metric)
 
     def save(epoch: int, metric: Optional[float]) -> None:
-        ckpt.save(trainer.num_updates, model, trainer.state_dict(), metric,
-                  {"epoch": epoch, "iterator": epoch_itr.state_dict()})
+        sidecar = {"epoch": epoch, "iterator": epoch_itr.state_dict()}
+        if trainer.lr_state_dict() is not None:  # a host-driven schedule's
+            sidecar["lr_scheduler"] = trainer.lr_state_dict()
+        ckpt.save(trainer.num_updates, model, trainer.state_dict(), metric, sidecar)
         logger.info("saved checkpoint at step %d (metric=%s)", trainer.num_updates, metric)
 
     step, done = trainer.num_updates, False
     epoch = start_epoch
     while not done:
-        interval, t0, first = [], time.time(), step
-        for micro in grouped(epoch_itr.next_epoch_itr(), args.update_freq):
-            if hasattr(task, "set_num_updates"):
-                # JAX prepares each group two ahead of its step (its device
-                # prefetch reads ahead by 2), so the loss weights it injects
-                # follow the update count of two steps before, within an epoch
-                task.set_num_updates(max(first, step - 2))
-            mets = trainer.train_step([task.prepare_batch(b, np_rng) for b in micro])
-            step = trainer.num_updates
-            interval.append(mets)
-            if step % args.log_interval == 0:
-                ups = args.log_interval / max(time.time() - t0, 1e-6)
-                logger.info("epoch %d | step %d | %s | ups %.2f", epoch, step,
-                            fmt_metrics(summarize(interval)), ups)
-                interval, t0 = [], time.time()
-            if step >= args.max_update:
-                done = True
-                break
+        trainer.lr_step_begin_epoch(epoch)  # manual's epoch2lr
+        interval, t0, first = metrics_mod.MetricsAggregator(), time.time(), step
+        with metrics_mod.aggregate(interval):
+            for micro in grouped(epoch_itr.next_epoch_itr(), args.update_freq):
+                if hasattr(task, "set_num_updates"):
+                    # JAX prepares each group two ahead of its step (its device
+                    # prefetch reads ahead by 2), so the loss weights it injects
+                    # follow the update count of two steps before, within an epoch
+                    task.set_num_updates(max(first, step - 2))
+                mets = trainer.train_step([task.prepare_batch(b, np_rng) for b in micro])
+                step = trainer.num_updates
+                if step % args.log_interval == 0:
+                    progress.log(mets, step)
+                    ups = args.log_interval / max(time.time() - t0, 1e-6)
+                    logger.info("epoch %d | step %d | %s | ups %.2f", epoch, step,
+                                fmt_metrics(interval.get_smoothed_values()), ups)
+                    interval.reset()
+                    t0 = time.time()
+                if step >= args.max_update:
+                    done = True
+                    break
         if step == first:
             raise ValueError(f"epoch {epoch} has no training batch: check "
                              f"--max-tokens and --max-target-positions")
         epoch_itr.finish_epoch()
         metric = run_validation() if epoch % args.validate_interval == 0 or done else None
+        trainer.lr_step_epoch(epoch, metric)  # reduce_lr_on_plateau reads the metric
         if epoch % args.save_interval == 0 or done:
             save(epoch + 1, metric)
         epoch += 1
+    progress.close()
     logger.info("training done at step %d", step)
     return 0
 

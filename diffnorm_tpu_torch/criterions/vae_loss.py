@@ -4,7 +4,8 @@ The port's copy of diffnorm_tpu/criterions/vae_loss.py:25-94 (reference
 speech_vae_decoder_loss.py:45-100): CE with label smoothing 0.1 and
 ignore_index 0 (units pad with 0), summed and divided by the batch's
 ntokens; MSE over the valid feature elements only; the per-sequence masked
-KL averaged over the batch; sample_size = nsentences.
+KL averaged over the batch; sample_size = nsentences. HubertVAELoss
+(hubert_vae_loss, :96-104) weighs the CE 0 and the KL by `kl_beta`.
 """
 
 from __future__ import annotations
@@ -61,3 +62,11 @@ class SpeechVAELoss:
             "sample_size": feature.shape[0],
         }
         return loss, metrics
+
+
+class HubertVAELoss(SpeechVAELoss):
+    """The HuBERT-feature VAE's loss: 10 * MSE + kl_beta * KL, no unit term
+    (its CE is weighted 0; the metrics keep nll_loss and acc)."""
+
+    def __init__(self, kl_beta: float = 1e-4):
+        self.ce_weight, self.kl_weight = 0.0, kl_beta

@@ -14,15 +14,22 @@ switches. The WaveNet runs its `wavenet_chain` kernel in the model's dtype
 (JAX's DIFFNORM_PALLAS_WAVENET=1), except in an int8 model on route
 "module", whose WaveNet convs are int8 modules as on JAX's default module
 route (the DDIM serving headline, with static scales from
-`calibrate_act_scales`). Not ported: the prompt-conditioned denoiser
-(`use_cond`, PerceiverResampler).
+`calibrate_act_scales`).
+
+The prompt-conditioned denoiser (`use_cond`, off in the released recipe):
+a `PerceiverResampler` turns a 768-d prompt into cross-attention tokens,
+the pooled prompt joins the time condition, and per-row classifier-free
+dropout swaps in learned null embeddings (`Denoiser.forward_with_cond_scale`
+guides). As in JAX, no sampler feeds it a prompt: `ddim_sample` refuses
+such a model. `use_vae=False` runs the diffusion on the features
+themselves (`diff_hubert`). `ARCHS` holds JAX's architecture defaults.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Optional, Sequence, Union
+from typing import Callable, Dict, Optional, Sequence, Union
 
 import numpy as np
 import torch
@@ -31,9 +38,12 @@ from torch import nn
 
 from diffnorm_tpu_torch.device import resolve_device
 from diffnorm_tpu_torch.models.layers import (
+    Attention,
     ConditionableTransformer,
     Dense,
+    FeedForward,
     LearnedSinusoidalPosEmb,
+    RMSNorm,
     sinusoidal_positions,
 )
 from diffnorm_tpu_torch.models.vae import SpeechVAEModule
@@ -111,27 +121,82 @@ def _split_steps(tree, steps: int):
     return type(tree)(_split_steps(v, steps) for v in tree)
 
 
+class PerceiverResampler(nn.Module):
+    """A variable-length prompt [B, Tp, dim_context] -> `num_latents` tokens
+    [B, N, dim] (JAX diffusion.py:110-149): learned latents plus sinusoidal
+    positions; per layer attention of the latents over [latents; projected
+    prompt] (the queries included in the context, under the prompt's mask)
+    with attention dropout 0.1 in training, and a GEGLU FF; a final RMSNorm."""
+
+    def __init__(self, dim: int, depth: int = 2, dim_context: int = 768,
+                 num_latents: int = 64, dim_head: int = 64, heads: int = 8):
+        super().__init__()
+        self.dim, self.depth = dim, depth
+        self.proj_context = Dense(dim_context, dim)
+        self.latents = nn.Parameter(torch.randn(num_latents, dim) * 0.02)
+        for i in range(depth):
+            self.add_module(f"attn_{i}", Attention(dim, dim_head, heads, dropout=0.1))
+            self.add_module(f"ff_{i}", FeedForward(dim, 4))
+        self.norm = RMSNorm(dim)
+
+    def forward(self, prompt: torch.Tensor,
+                prompt_mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+        b = prompt.shape[0]
+        ctx = self.proj_context(prompt)
+        lat_mask = torch.ones(b, self.latents.shape[0], dtype=torch.bool, device=ctx.device)
+        x = self.latents.to(ctx.dtype)[None].expand(b, -1, -1)
+        x = x + sinusoidal_positions(lat_mask, self.dim).to(x.dtype)
+        if prompt_mask is None:
+            prompt_mask = torch.ones(prompt.shape[:2], dtype=torch.bool, device=ctx.device)
+        full_mask = torch.cat([lat_mask, prompt_mask.bool()], dim=1)
+        for i in range(self.depth):
+            x = x + getattr(self, f"attn_{i}")(x, mask=full_mask,
+                                               context=torch.cat([x, ctx], dim=1))
+            x = x + getattr(self, f"ff_{i}")(x)
+        return self.norm(x)
+
+
 class Denoiser(nn.Module):
     """1x1 latent -> dim, FiLM-time WaveNet (stacks x chains), sinusoidal
-    positions, adaptive-RMSNorm transformer with causal-conv FF, proj back."""
+    positions, adaptive-RMSNorm transformer with causal-conv FF, proj back.
+
+    The time condition is dim * dim_cond_mult wide. With
+    `condition_on_prompt` (JAX diffusion.py:152-231) the mean of the masked
+    prompt, projected (`to_prompt_cond`), joins it, so the WaveNet's and the
+    transformer's condition is twice as wide, and the transformer
+    cross-attends to the prompt's `PerceiverResampler` tokens. A row that
+    drops the prompt takes `null_prompt_cond` and `null_prompt_tokens`
+    instead: all rows at cond_drop_prob 1, none at 0, else each with
+    probability cond_drop_prob from `generator` (JAX's "cg" stream), or as
+    the injected bool [B] `cond_drop` says."""
 
     def __init__(self, dim: int = 512, latent_dim: int = 128, depth: int = 12,
                  wavenet_layers: int = 8, wavenet_stacks: int = 4,
                  quant_int8: bool = False, int8_route: str = "fused_layer",
-                 int8_knobs: Int8Knobs = Int8Knobs(), dropout: float = 0.0):
+                 int8_knobs: Int8Knobs = Int8Knobs(), dropout: float = 0.0,
+                 dim_head: int = 64, heads: int = 8, dim_cond_mult: int = 4,
+                 condition_on_prompt: bool = False, dim_prompt: int = 768,
+                 num_latents_m: int = 64, resampler_depth: int = 2):
         super().__init__()
-        self.dim = dim
-        dim_time = dim * 4  # the time condition (dim_cond_mult 4)
+        self.dim, self.condition_on_prompt = dim, condition_on_prompt
+        dim_time = dim * dim_cond_mult
+        cond_dim = dim_time * (2 if condition_on_prompt else 1)
         self.time_emb = LearnedSinusoidalPosEmb(dim)
         self.time_proj = Dense(dim + 1, dim_time)
+        if condition_on_prompt:
+            self.to_prompt_cond = Dense(dim_prompt, dim_time)
+            self.null_prompt_cond = nn.Parameter(torch.randn(dim_time) * 0.02)
+            self.null_prompt_tokens = nn.Parameter(torch.randn(num_latents_m, dim) * 0.02)
+            self.perceiver_resampler = PerceiverResampler(
+                dim, resampler_depth, dim_prompt, num_latents_m, dim_head, heads)
         self.init_conv = Dense(latent_dim, dim)
         self.wavenet = Wavenet(dim, dim, wavenet_stacks, wavenet_layers,
-                               cond_dim=dim_time, quant=quant_int8, knobs=int8_knobs,
+                               cond_dim=cond_dim, quant=quant_int8, knobs=int8_knobs,
                                chain_kernel=not (quant_int8 and int8_route == "module"))
         self.transformer = ConditionableTransformer(
-            dim, depth, dim_head=64, heads=8, ff_mult=4, ff_causal_conv=True,
-            cond_dim=dim_time, quant_int8=quant_int8, int8_route=int8_route,
-            int8_knobs=int8_knobs, dropout=dropout)
+            dim, depth, dim_head=dim_head, heads=heads, ff_mult=4, ff_causal_conv=True,
+            cond_dim=cond_dim, quant_int8=quant_int8, int8_route=int8_route,
+            int8_knobs=int8_knobs, dropout=dropout, cross_attn=condition_on_prompt)
         self.final_proj = Dense(dim, latent_dim)
 
     def time_cond(self, times: torch.Tensor) -> torch.Tensor:
@@ -140,7 +205,11 @@ class Denoiser(nn.Module):
     def precompute_step_conds(self, times_all: torch.Tensor) -> dict:
         """times_all [S, B] -> every FiLM projection for every step, leaves
         shaped [S, B, ...]: the projection weights are read once per
-        sampling call instead of once per step."""
+        sampling call instead of once per step. The unconditioned denoiser
+        only, as JAX asserts (diffusion.py:241)."""
+        if self.condition_on_prompt:
+            raise ValueError("precompute_step_conds: a prompt-conditioned denoiser projects "
+                             "its condition per step")
         steps = times_all.shape[0]
         t = self.time_cond(times_all.reshape(-1))
         return _split_steps({
@@ -148,9 +217,27 @@ class Denoiser(nn.Module):
             "transformer": self.transformer.precompute_film(t),
         }, steps)
 
-    def forward(self, x, times=None, mask=None, step_cond=None, pos=None):
+    def _drop_mask(self, b: int, device, cond_drop_prob: float, cond_drop,
+                   generator: Optional[torch.Generator]) -> torch.Tensor:
+        if cond_drop is not None:
+            return torch.as_tensor(cond_drop, device=device).bool().reshape(b)
+        if cond_drop_prob >= 1.0:
+            return torch.ones(b, dtype=torch.bool, device=device)
+        if cond_drop_prob <= 0.0:
+            return torch.zeros(b, dtype=torch.bool, device=device)
+        if generator is None:
+            raise ValueError("classifier-free dropout needs a generator (the trainer's "
+                             "cg_generator)")
+        return torch.rand(b, generator=generator, device=device) < cond_drop_prob
+
+    def forward(self, x, times=None, mask=None, step_cond=None, pos=None, prompt=None,
+                prompt_mask=None, cond_drop_prob: float = 0.0, cond_drop=None,
+                generator: Optional[torch.Generator] = None):
         """x [B, T, latent]; times [B]; mask [B, T] bool. `step_cond` is one
-        step of `precompute_step_conds`; `pos` the precomputed positions."""
+        step of `precompute_step_conds`; `pos` the precomputed positions. A
+        prompt-conditioned denoiser takes `prompt` [B, Tp, dim_prompt] with
+        `prompt_mask` [B, Tp] and the drop arguments (class docstring)."""
+        context = None
         if step_cond is not None:
             t = None
             wavenet_film = step_cond["wavenet"]
@@ -158,14 +245,43 @@ class Denoiser(nn.Module):
         else:
             t = self.time_cond(times)
             wavenet_film = transformer_film = None
+        if self.condition_on_prompt:
+            if prompt is None or t is None:
+                raise ValueError("a prompt-conditioned denoiser takes a prompt and the times "
+                                 "(not step_cond)")
+            b = x.shape[0]
+            if prompt_mask is None:
+                prompt_mask = torch.ones(prompt.shape[:2], dtype=torch.bool, device=x.device)
+            drop = self._drop_mask(b, x.device, cond_drop_prob, cond_drop, generator)
+            pooled = torch.where(prompt_mask[..., None], prompt, 0.0).mean(dim=1)
+            prompt_cond = F.silu(self.to_prompt_cond(pooled))
+            prompt_cond = torch.where(drop[:, None], self.null_prompt_cond.to(prompt_cond.dtype),
+                                      prompt_cond)
+            t = torch.cat([t, prompt_cond], dim=-1)
+            resampled = self.perceiver_resampler(prompt, prompt_mask)
+            context = torch.where(drop[:, None, None],
+                                  self.null_prompt_tokens.to(resampled.dtype), resampled)
         h = self.wavenet(self.init_conv(x), t, film=wavenet_film)
         if mask is None:
             mask = torch.ones(h.shape[:2], dtype=torch.bool, device=h.device)
         if pos is None:
             pos = sinusoidal_positions(mask, self.dim)
         h = h + pos.to(h.dtype)
-        h = self.transformer(h, cond=t, mask=mask, film=transformer_film)
+        h = self.transformer(h, cond=t, mask=mask, film=transformer_film, context=context)
         return self.final_proj(h)
+
+    def forward_with_cond_scale(self, x, times, mask=None, prompt=None, prompt_mask=None,
+                                cond_scale: float = 1.0):
+        """Classifier-free guidance (JAX diffusion.py:311-321): null + scale *
+        (cond - null), the conditioned output alone at scale 1. Call it in
+        eval mode (JAX runs it deterministic)."""
+        cond = self(x, times, mask, prompt=prompt, prompt_mask=prompt_mask,
+                    cond_drop_prob=0.0)
+        if cond_scale == 1.0:
+            return cond
+        null = self(x, times, mask, prompt=prompt, prompt_mask=prompt_mask,
+                    cond_drop_prob=1.0)
+        return null + (cond - null) * cond_scale
 
 
 class LatentDiffusionModule(nn.Module):
@@ -175,7 +291,15 @@ class LatentDiffusionModule(nn.Module):
     `int8_route` and `int8_knobs` go to the denoiser; `dropout` is the
     denoiser's attention dropout in a training forward. The frozen VAE is
     built without dropout: JAX decodes x1_hat through it deterministically
-    (`vae.decode`'s `deterministic=True`) in train mode too."""
+    (`vae.decode`'s `deterministic=True`) in train mode too.
+
+    `use_vae=False` (`diff_hubert`) builds no VAE: `encode` returns the
+    feature and the training forward decodes nothing. `use_cond` makes the
+    denoiser prompt-conditioned over `feature_dim`-wide prompts; its
+    training forward drops the prompt per row with probability 0.1 from
+    `cg_generator` (the trainer's "cg" stream), which the trainer sets."""
+
+    cg_generator: Optional[torch.Generator] = None
 
     def __init__(self, dim: int = 512, latent_dim: int = 128,
                  feature_dim: int = 768, vocab_size: int = 1004,
@@ -185,25 +309,36 @@ class LatentDiffusionModule(nn.Module):
                  chan_mults: Optional[Sequence[int]] = None, quant_int8: bool = False,
                  int8_route: str = "fused_layer", int8_knobs: Int8Knobs = Int8Knobs(),
                  min_snr_gamma: float = 5.0,
-                 multitask: bool = True, dropout: float = 0.0):
+                 multitask: bool = True, dropout: float = 0.0, use_vae: bool = True,
+                 use_cond: bool = False):
         super().__init__()
-        self.vae = SpeechVAEModule(
-            feature_dim, latent_dim, vocab_size, vae_decoder_depth,
-            vae_decoder_dim_head, vae_decoder_heads, chan_mults)
+        if use_vae:
+            self.vae = SpeechVAEModule(
+                feature_dim, latent_dim, vocab_size, vae_decoder_depth,
+                vae_decoder_dim_head, vae_decoder_heads, chan_mults)
         self.denoiser = Denoiser(
             dim, latent_dim, denoiser_depth, wavenet_layers=wavenet_layers,
             wavenet_stacks=wavenet_stacks, quant_int8=quant_int8, int8_route=int8_route,
-            int8_knobs=int8_knobs, dropout=dropout)
+            int8_knobs=int8_knobs, dropout=dropout, condition_on_prompt=use_cond,
+            dim_prompt=feature_dim)
         self.schedule = DDPMSchedule.create(timesteps)
         self.timesteps, self.min_snr_gamma, self.multitask = timesteps, min_snr_gamma, multitask
+        self.use_vae, self.use_cond = use_vae, use_cond
 
     def encode(self, feature, noise=None, generator=None):
+        if not self.use_vae:
+            return feature
         return self.vae.encode(feature, noise=noise, generator=generator)
 
     def decode(self, latent, mask):
         return self.vae.decode(latent, mask)
 
-    def denoise(self, x_t, times, mask, step_cond=None, pos=None):
+    def denoise(self, x_t, times, mask, step_cond=None, pos=None, prompt=None,
+                prompt_mask=None, cond_drop_prob: float = 0.0, cond_drop=None):
+        if self.use_cond:
+            return self.denoiser(x_t, times, mask, prompt=prompt, prompt_mask=prompt_mask,
+                                 cond_drop_prob=cond_drop_prob, cond_drop=cond_drop,
+                                 generator=self.cg_generator)
         return self.denoiser(x_t, times, mask, step_cond=step_cond, pos=pos)
 
     def precompute_step_conds(self, times_all):
@@ -214,17 +349,21 @@ class LatentDiffusionModule(nn.Module):
         return sinusoidal_positions(mask, self.denoiser.dim)
 
     def forward(self, feature, mask, times=None, enc_noise=None, x1_noise=None,
-                q_noise=None, generator: Optional[torch.Generator] = None) -> dict:
+                q_noise=None, generator: Optional[torch.Generator] = None, prompt=None,
+                prompt_mask=None, cond_drop=None, decode: bool = True) -> dict:
         """Training forward (diffusion.py:413-467): t ~ U[1, T), the frozen
         VAE's encode under no_grad, the beta_0 jitter x1 = z + eps * beta_0,
-        q-sample, the denoiser's noise prediction, the min-SNR weights
-        min(snr, gamma) / snr, and x1_hat decoded through the VAE.
+        q-sample, the denoiser's noise prediction (with `use_cond`, of the
+        `prompt` at drop probability 0.1, or the injected `cond_drop`), the
+        min-SNR weights min(snr, gamma) / snr, and x1_hat decoded through
+        the VAE (with a VAE, and unless `decode` is False: a criterion that
+        reads no reconstruction skips it).
 
         feature [B, T, feature_dim]; mask [B, T] bool. `times`, `enc_noise`,
         `x1_noise` and `q_noise` inject the draws (JAX's keyword names);
         those not given are drawn from `generator`, in that order. Returns
-        {pred_noise, true_noise, loss_weight, times, recon_feature,
-        lm_logits}."""
+        {pred_noise, true_noise, loss_weight, times[, recon_feature,
+        lm_logits]}."""
         b, device = feature.shape[0], feature.device
         if times is None:
             times = torch.randint(1, self.timesteps, (b,), generator=generator,
@@ -243,13 +382,60 @@ class LatentDiffusionModule(nn.Module):
         sac = self.schedule.extract("sqrt_alphas_cumprod", times, z.dim())
         s1mac = self.schedule.extract("sqrt_one_minus_alphas_cumprod", times, z.dim())
         x_t = sac * x1 + s1mac * true_noise
-        pred_noise = self.denoise(x_t, times, mask)
+        pred_noise = self.denoise(x_t, times, mask, prompt=prompt, prompt_mask=prompt_mask,
+                                  cond_drop_prob=0.1 if self.use_cond else 0.0,
+                                  cond_drop=cond_drop)
         snr = self.schedule.snr(times)
-        x1_hat = safe_div(x_t - s1mac * pred_noise, sac)
-        recon_feature, lm_logits = self.vae.decode(x1_hat, mask)
-        return dict(pred_noise=pred_noise, true_noise=true_noise,
-                    loss_weight=torch.clamp(snr, max=self.min_snr_gamma) / snr,
-                    times=times, recon_feature=recon_feature, lm_logits=lm_logits)
+        out = dict(pred_noise=pred_noise, true_noise=true_noise,
+                   loss_weight=torch.clamp(snr, max=self.min_snr_gamma) / snr, times=times)
+        if self.use_vae and decode:
+            x1_hat = safe_div(x_t - s1mac * pred_noise, sac)
+            out["recon_feature"], out["lm_logits"] = self.vae.decode(x1_hat, mask)
+        return out
+
+
+def _diff_discrete(cfg: Dict) -> None:
+    for key, value in (("hidden_dim", 512), ("latent_dim", 128), ("timesteps", 200),
+                       ("multitask", True)):
+        _setdefault(cfg, key, value)
+
+
+def _diff_latent(cfg: Dict) -> None:
+    """Continuous latent diffusion (task speech_diffusion). As in JAX
+    (diffusion.py:675-680) diff_discrete's defaults come first, so
+    multitask stays True unless given; ddpm_latent_loss reads no
+    reconstruction either way."""
+    _diff_discrete(cfg)
+    _setdefault(cfg, "multitask", False)
+
+
+def _diff_hubert(cfg: Dict) -> None:
+    """Diffusion over the 768-d features themselves, no VAE (task
+    speech_diffusion_hubert)."""
+    for key, value in (("hidden_dim", 512), ("latent_dim", 768), ("timesteps", 200)):
+        _setdefault(cfg, key, value)
+    cfg["use_vae"], cfg["multitask"] = False, False
+
+
+def _diffusion_transformer(cfg: Dict) -> None:
+    """The WaveNet collapses to one 1x1 stack of one layer and the
+    transformer deepens to 16."""
+    _diff_discrete(cfg)
+    for key, value in (("wavenet_stacks", 1), ("wavenet_layers", 1), ("denoiser_depth", 16)):
+        _setdefault(cfg, key, value)
+
+
+def _setdefault(cfg: Dict, key: str, value) -> None:
+    if cfg.get(key) is None:
+        cfg[key] = value
+
+
+# JAX's latent_diffusion architectures (diffusion.py:666-702): each fills
+# the unset (None) keys of a config dict with its defaults
+ARCHS: Dict[str, Callable[[Dict], None]] = {
+    "diff_discrete": _diff_discrete, "diff_latent": _diff_latent,
+    "diff_hubert": _diff_hubert, "diffusion_transformer": _diffusion_transformer,
+}
 
 
 @torch.no_grad()
@@ -300,6 +486,10 @@ def ddim_sample(model: LatentDiffusionModule, feature, mask, *,
     the model must already be. Returns (pred_units [B, T] int32 with the -4
     dictionary offset applied, recon_feature [B, T, feature_dim]).
     """
+    if model.use_cond:
+        raise ValueError("ddim_sample: a prompt-conditioned model (use_cond) has no sampler; "
+                         "JAX's ddim_sample passes it no prompt and its Denoiser asserts "
+                         "(diffusion.py:271,585)")
     device = resolve_device(device)
     param = next(model.parameters())
     if param.device != device:

@@ -375,12 +375,15 @@ class DropoutSite:
 
 
 class Attention(QuantSite, DropoutSite, nn.Module):
-    """Multi-head self-attention with a key-padding mask [B, T] (True =
-    valid); unbiased q / kv / out projections, scale dim_head ** -0.5.
+    """Multi-head attention with a key-padding mask [B, Tk] (True = valid);
+    unbiased q / kv / out projections, scale dim_head ** -0.5. Self-attention
+    by default; with `context` [B, Tk, dim] cross-attention, q from x and
+    k / v from the context (JAX layers.py:316-362).
 
-    With `quant` the projections are int8 QDense, and q and kv share one
-    quantization of their common input at this module's site, as in JAX
-    (diffnorm_tpu/models/layers.py:337-348); `pack_weights` also keeps the
+    With `quant` the projections are int8 QDense, and in self-attention q
+    and kv share one quantization of their common input at this module's
+    site, as in JAX (diffnorm_tpu/models/layers.py:337-348; with a context
+    each projection quantizes its own input); `pack_weights` also keeps the
     bf16 [Wq; Wkv] and Wo of the fused layer kernel in `self.fused`.
 
     `dropout` drops attention probabilities in training mode (JAX's
@@ -407,13 +410,14 @@ class Attention(QuantSite, DropoutSite, nn.Module):
                 _master(self.to_q.weight), _master(self.to_kv.weight),
                 _master(self.to_out.weight), {}))
 
-    def forward(self, x: torch.Tensor,
-                mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, mask: Optional[torch.Tensor] = None,
+                context: Optional[torch.Tensor] = None) -> torch.Tensor:
         b, n, _ = x.shape
-        pq = self.quantize_input(x.to(self.to_q.weight.dtype)) if self.quant else None
+        pq = (self.quantize_input(x.to(self.to_q.weight.dtype))
+              if self.quant and context is None else None)
         q = self.to_q(x, pre_quant=pq)
-        k, v = self.to_kv(x, pre_quant=pq).chunk(2, dim=-1)
-        q, k, v = (t.reshape(b, n, self.heads, self.dim_head).transpose(1, 2)
+        k, v = self.to_kv(x if context is None else context, pre_quant=pq).chunk(2, dim=-1)
+        q, k, v = (t.reshape(b, t.shape[1], self.heads, self.dim_head).transpose(1, 2)
                    for t in (q, k, v))
         drop = self.dropout if self.training else 0.0
         out = attention_ops.masked_attention(q, k, v, mask=mask, dropout=drop,
@@ -472,25 +476,35 @@ class ConditionableTransformer(nn.Module):
     "fused_layer"; any other call takes the module path. `int8_knobs` are
     JAX's int8 switches for the module path (the kernel packs take their
     weight granularity). `dropout` is the attention dropout of a training
-    forward (JAX's ConditionableTransformer.dropout)."""
+    forward (JAX's ConditionableTransformer.dropout).
+
+    `cross_attn` adds per layer, between the attention and the FF, an
+    adaptive `cross_norm_i` and a float `cross_attn_i` over a `context`
+    with no key mask (JAX layers.py:444-453,528-540, the prompt-conditioned
+    denoiser); such a transformer takes no kernel route (`:485`)."""
 
     def __init__(self, dim: int, depth: int, dim_head: int = 64, heads: int = 8,
                  ff_mult: int = 4, ff_causal_conv: bool = False,
                  cond_dim: Optional[int] = None, quant_int8: bool = False,
                  int8_route: str = "fused_layer", int8_knobs: Int8Knobs = Int8Knobs(),
-                 dropout: float = 0.0):
+                 dropout: float = 0.0, cross_attn: bool = False):
         super().__init__()
         if int8_route not in INT8_ROUTES:
             raise ValueError(f"int8_route must be one of {INT8_ROUTES}, got {int8_route!r}")
         self.dim, self.depth, self.dim_head, self.heads = dim, depth, dim_head, heads
         self.ff_causal_conv, self.quant_int8 = ff_causal_conv, quant_int8
-        self.int8_route = int8_route
+        self.int8_route, self.cross_attn = int8_route, cross_attn
         has_cond = cond_dim is not None
         for i in range(depth):
             self.add_module(f"attn_norm_{i}",
                             RMSNorm(dim, scale=not has_cond, cond_dim=cond_dim))
             self.add_module(f"attn_{i}", Attention(dim, dim_head, heads, quant=quant_int8,
                                                    knobs=int8_knobs, dropout=dropout))
+            if cross_attn:
+                self.add_module(f"cross_norm_{i}",
+                                RMSNorm(dim, scale=not has_cond, cond_dim=cond_dim))
+                self.add_module(f"cross_attn_{i}",
+                                Attention(dim, dim_head, heads, dropout=dropout))
             self.add_module(f"ff_norm_{i}",
                             RMSNorm(dim, scale=not has_cond, cond_dim=cond_dim))
             self.add_module(f"ff_{i}", FeedForward(dim, ff_mult, ff_causal_conv,
@@ -503,21 +517,27 @@ class ConditionableTransformer(nn.Module):
 
     def precompute_film(self, cond: torch.Tensor) -> dict:
         """Every adaptive-norm projection of `cond` [..., cond_dim], hoisted
-        out of a sampling loop: {"attn": [...], "ff": [...]} per layer."""
+        out of a sampling loop: {"attn": [...], "ff": [...]} per layer, and
+        "cross" with `cross_attn`."""
+        kinds = ("attn", "cross", "ff") if self.cross_attn else ("attn", "ff")
         return {kind: [self.layer(f"{kind}_norm", i).film(cond)
-                       for i in range(self.depth)] for kind in ("attn", "ff")}
+                       for i in range(self.depth)] for kind in kinds}
 
     def route(self, film) -> str:
         """The int8 route a call with this `film` takes ("module" also for a
         model without int8)."""
         if not (self.quant_int8 and film is not None and self.ff_causal_conv
-                and self.to_pred.weight.dtype == torch.bfloat16):
+                and not self.cross_attn and self.to_pred.weight.dtype == torch.bfloat16):
             return "module"
         if self.int8_route == "fused_layer" and self.heads * self.dim_head != self.dim:
             return "module"
         return self.int8_route
 
-    def forward(self, x, cond=None, mask=None, film=None):
+    def forward(self, x, cond=None, mask=None, film=None, context=None):
+        """x [B, T, dim]; `cond` or its precomputed `film`; mask [B, T];
+        `context` [B, Tc, dim] for the cross-attention."""
+        if self.cross_attn and context is None:
+            raise ValueError("a cross-attention transformer needs a context")
         route = self.route(film)
         if route == "fused_layer":
             if mask is None:
@@ -532,6 +552,10 @@ class ConditionableTransformer(nn.Module):
             hn = self.layer("attn_norm", i)(
                 x, cond=cond, film=film["attn"][i] if film else None)
             x = x + self.layer("attn", i)(hn, mask=mask)
+            if self.cross_attn:
+                hn = self.layer("cross_norm", i)(
+                    x, cond=cond, film=film["cross"][i] if film else None)
+                x = x + self.layer("cross_attn", i)(hn, context=context)
             if route in ("ffpipe", "ffpipe2"):
                 x = ffpipe_ops.ffpipe_layer(x, film["ff"][i], self.layer("ff", i).int8.tensors(),
                                             rows=2 if route == "ffpipe2" else 1)

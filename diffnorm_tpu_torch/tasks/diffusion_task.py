@@ -1,14 +1,26 @@
-"""The latent normalizer stage ("speech_diffusion_discrete", the port's copy
-of diffnorm_tpu/tasks/diffusion_task.py:21-53): the VAE stage's data and
-dictionary, LatentDiffusionModule with its `vae` subtree frozen and restored
-from `--speech-decoder-ckpt` (a checkpoint of the port's VAE stage), and
-DDPMDiscreteLoss."""
+"""The latent normalizer stages (the port's copy of
+diffnorm_tpu/tasks/diffusion_task.py): the VAE stage's data and dictionary
+with LatentDiffusionModule.
+
+* speech_diffusion_discrete: the `vae` subtree frozen and restored from
+  `--speech-decoder-ckpt` (a checkpoint of the port's VAE stage), and
+  DDPMDiscreteLoss;
+* speech_diffusion (continuous, `diff_latent`): the same composition with
+  DDPMLatentLoss;
+* speech_diffusion_hubert (`diff_hubert`): the diffusion on the features
+  themselves, no VAE, nothing frozen or loaded, DDPMLatentLoss;
+* hubert_vae: the VAE stage with HubertVAELoss (no unit term, `--kl-beta`).
+
+The model's widths come from the CLI's arguments after the architecture's
+defaults (`models.diffusion.ARCHS`) filled them.
+"""
 
 from __future__ import annotations
 
 import logging
 
-from diffnorm_tpu_torch.criterions.ddpm_loss import DDPMDiscreteLoss
+from diffnorm_tpu_torch.criterions.ddpm_loss import DDPMDiscreteLoss, DDPMLatentLoss
+from diffnorm_tpu_torch.criterions.vae_loss import HubertVAELoss
 from diffnorm_tpu_torch.models.diffusion import LatentDiffusionModule
 from diffnorm_tpu_torch.tasks.vae_task import SpeechDecoderTask
 from diffnorm_tpu_torch.train.checkpoint import load_params
@@ -29,7 +41,7 @@ class SpeechDiffusionDiscreteTask(SpeechDecoderTask):
             wavenet_stacks=a.wavenet_stacks, vae_decoder_depth=a.vae_decoder_depth,
             vae_decoder_dim_head=a.vae_decoder_dim_head,
             vae_decoder_heads=a.vae_decoder_heads, chan_mults=a.chan_mults,
-            multitask=a.multitask, dropout=a.dropout)
+            multitask=a.multitask, dropout=a.dropout, use_vae=a.use_vae)
 
     def build_criterion(self) -> DDPMDiscreteLoss:
         return DDPMDiscreteLoss()
@@ -41,3 +53,20 @@ class SpeechDiffusionDiscreteTask(SpeechDecoderTask):
         if ckpt:
             from_jax_params(model.vae, load_params(ckpt))
             logger.info("restored the frozen VAE from %s", ckpt)
+
+
+class SpeechDiffusionTask(SpeechDiffusionDiscreteTask):
+    def build_criterion(self) -> DDPMLatentLoss:
+        return DDPMLatentLoss()
+
+
+class SpeechDiffusionHubertTask(SpeechDiffusionTask):
+    frozen_param_keys = ()
+
+    def load_frozen_params(self, model: LatentDiffusionModule) -> None:
+        """No VAE: nothing to restore."""
+
+
+class HubertVAETask(SpeechDecoderTask):
+    def build_criterion(self) -> HubertVAELoss:
+        return HubertVAELoss(kl_beta=self.args.kl_beta)

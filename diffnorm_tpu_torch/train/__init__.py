@@ -1,2 +1,3 @@
-"""Training of the PyTorch port (see diffnorm_tpu/train): fairseq Adam, the
-inverse_sqrt schedule, the trainer and the port's checkpoints."""
+"""Training of the PyTorch port (see diffnorm_tpu/train): JAX's optimizers
+and LR schedules on tensors, EMA, the trainer, metric aggregation and
+progress sinks, and the port's checkpoints."""

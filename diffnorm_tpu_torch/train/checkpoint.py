@@ -11,9 +11,10 @@ diffnorm_tpu/train/checkpoint.py, in a format of the port's own.
                                 or a tree of the caller's (the GAN fine-tune's
                                 {"g_params", "d_params"}, which
                                 cli.generate_waveform --vocoder reads)
-    step_000000100/trainer.pt   the optimizer moments, the update count and
-                                the generator (Trainer.state_dict)
-    step_000000100.json         step, metric, epoch, iterator position
+    step_000000100/trainer.pt   the optimizer's state, the update count, the
+                                generators and the EMA (Trainer.state_dict)
+    step_000000100.json         step, metric, epoch, iterator position, and
+                                a host-driven schedule's state
     manifest.json               {"checkpoints": [...], "best": ..., "last": ...}
 
 A step directory is written under a temporary name and renamed, so a
@@ -52,10 +53,11 @@ def load_params(path: str) -> dict:
 
 
 class CheckpointManager:
-    def __init__(self, save_dir: str, keep_last: int = 5, keep_best: int = 5):
+    def __init__(self, save_dir: str, keep_last: int = 5, keep_best: int = 5,
+                 maximize: bool = False):
         self.save_dir = os.path.abspath(save_dir)
         os.makedirs(self.save_dir, exist_ok=True)
-        self.keep_last, self.keep_best = keep_last, keep_best
+        self.keep_last, self.keep_best, self.maximize = keep_last, keep_best, maximize
         self._manifest_path = os.path.join(self.save_dir, "manifest.json")
         self.manifest = {"checkpoints": []}
         if os.path.exists(self._manifest_path):
@@ -91,12 +93,13 @@ class CheckpointManager:
         return path
 
     def _rotate(self) -> None:
-        """Keep the last `keep_last` and the `keep_best` lowest by metric
-        (all when keep_last <= 0); delete the rest."""
+        """Keep the last `keep_last` and the `keep_best` best by metric (the
+        lowest, the highest with `maximize`; all when keep_last <= 0);
+        delete the rest."""
         entries = self.manifest["checkpoints"]
         keep = {e["step"] for e in (entries[-self.keep_last:] if self.keep_last > 0 else entries)}
         scored = sorted((e for e in entries if e.get("metric") is not None),
-                        key=lambda e: e["metric"])
+                        key=lambda e: -e["metric"] if self.maximize else e["metric"])
         if scored and self.keep_best > 0:
             keep.update(e["step"] for e in scored[:self.keep_best])
             self.manifest["best"] = scored[0]["step"]

@@ -19,16 +19,24 @@ far as the VAE, normalizer and NAR S2UT stages use it).
   criterion's `grad_accum` convention: "mean_loss" sums the micro-batch
   gradients; "sum_loss" (the reference backwards a summed loss) first
   scales each by its micro-batch's sample_size. Either sum is divided by
-  the total sample_size, clipped to `clip_norm` by global norm, and applied
-  by fairseq Adam at the inverse_sqrt lr of the update count. An update
-  with a non-finite gradient norm is skipped (the count still moves, as in
-  JAX).
+  the total sample_size; "mean_loss_per_batch" (the reference logs a
+  sample_size it does not divide by) sums them and divides by the number
+  of micro-batches. The optimizer is `optimizers.build_optimizer`'s chain
+  (fairseq Adam and inverse_sqrt by default; `TrainerConfig.optimizer` and
+  `lr_scheduler` pick JAX's others, `options` their settings), clipping to
+  `clip_norm` by global norm inside it. Under a host-driven schedule
+  (manual, reduce_lr_on_plateau) the chain runs at unit lr and its updates
+  are scaled by the schedule's `step_update(num_updates)` (JAX
+  trainer.py:318-320,364); the epoch hooks are `lr_step_begin_epoch` and
+  `lr_step_epoch`. With `ema_decay` an `optimizers.EMA` of the trainable
+  masters follows every applied update. An update with a non-finite
+  gradient norm is skipped (the count still moves, as in JAX).
 * Draws come from three generators seeded from `seed` (seed, seed + 1,
   seed + 2), as JAX's NAR criterion splits its key three ways: dropout and
   the criterions' own draws (times, noises), classifier-free-guidance drops
   (`cg`) and self-prompting (`sp`), set on a model that has those draws.
   Metrics and the gradient norm come to the host in one transfer per
-  update.
+  update; each step's metrics go to the active `train.metrics` aggregators.
 """
 
 from __future__ import annotations
@@ -36,7 +44,7 @@ from __future__ import annotations
 import copy
 import dataclasses
 import logging
-from typing import Dict, List, Sequence, Tuple
+from typing import Any, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -44,8 +52,9 @@ from torch import nn
 
 from diffnorm_tpu_torch.models.conformer import BatchNorm
 from diffnorm_tpu_torch.models.layers import set_dropout_generator
-from diffnorm_tpu_torch.train.lr_schedules import inverse_sqrt
-from diffnorm_tpu_torch.train.optimizers import FairseqAdam
+from diffnorm_tpu_torch.train import metrics as metrics_mod
+from diffnorm_tpu_torch.train.lr_schedules import build_lr_schedule
+from diffnorm_tpu_torch.train.optimizers import EMA, build_optimizer
 
 logger = logging.getLogger("diffnorm_tpu_torch.train")
 
@@ -53,22 +62,40 @@ COUNT_KEYS = ("ntokens", "nsentences", "sample_size")
 BATCH_KEYS = ("reduce_target", "reduce_target_unit", "reduce_target_lengths",
               "posterior_noise", "inject_times", "inject_enc_noise", "inject_x1_noise",
               "inject_q_noise", "src_tokens", "src_lengths", "target", "prev_target",
-              "inject_cg_drop", "inject_use_prompt", "tgt_speaker", "ctc_target", "multitask")
-GRAD_ACCUM = ("mean_loss", "sum_loss")
+              "inject_cg_drop", "inject_use_prompt", "tgt_speaker", "ctc_target", "multitask",
+              "prompt", "prompt_mask")
+GRAD_ACCUM = ("mean_loss", "sum_loss", "mean_loss_per_batch")
 GENERATORS = ("generator", "cg_generator", "sp_generator")
 
 
 @dataclasses.dataclass
 class TrainerConfig:
     lr: float = 5e-4
-    warmup_updates: int = 4000
-    warmup_init_lr: float = 1e-7
+    # None: the schedule's own default (inverse_sqrt's 4000 and 1e-7)
+    warmup_updates: Optional[int] = None
+    warmup_init_lr: Optional[float] = None
     adam_betas: Tuple[float, float] = (0.9, 0.98)
     adam_eps: float = 1e-8
     weight_decay: float = 0.0
     clip_norm: float = 2.0
     dtype: str = "float32"  # the forward's; the masters are float32
     seed: int = 1
+    optimizer: str = "adam"
+    lr_scheduler: str = "inverse_sqrt"
+    ema_decay: float = 0.0
+    # the optimizer's and schedule's other settings under JAX's config keys
+    # (max_updates, min_lr, adamax_betas, composite_groups, loss_scale, ...)
+    options: Dict[str, Any] = dataclasses.field(default_factory=dict)
+
+    def optimization(self) -> Dict[str, Any]:
+        """The keys build_lr_schedule and build_optimizer read; unset (None)
+        options are left out, so each takes its own default as in JAX."""
+        cfg = {"lr": self.lr, "warmup_updates": self.warmup_updates,
+               "warmup_init_lr": self.warmup_init_lr, "adam_betas": self.adam_betas,
+               "adam_eps": self.adam_eps, "weight_decay": self.weight_decay,
+               "optimizer": self.optimizer, "lr_scheduler": self.lr_scheduler,
+               **self.options}
+        return {k: v for k, v in cfg.items() if v is not None}
 
 
 class Trainer:
@@ -95,8 +122,12 @@ class Trainer:
         masters = dict(model.named_parameters())
         self.params = [masters[n] for n in names]
         self.work_params = [work[n] for n in names]
-        self.optimizer = FairseqAdam(self.params, cfg.adam_betas, cfg.adam_eps, cfg.weight_decay)
-        self.schedule = inverse_sqrt(cfg.lr, cfg.warmup_updates, cfg.warmup_init_lr)
+        opt_cfg = cfg.optimization()
+        self.schedule = build_lr_schedule(opt_cfg)
+        self.host_lr_sched = self.schedule if getattr(self.schedule, "host_driven", False) else None
+        self.optimizer = build_optimizer(opt_cfg, self.schedule, self.params, names,
+                                         cfg.clip_norm)
+        self.ema = EMA(self.params, cfg.ema_decay) if cfg.ema_decay else None
         self.generator, self.cg_generator, self.sp_generator = (
             torch.Generator(device=self.device).manual_seed(cfg.seed + i) for i in range(3))
         set_dropout_generator(self.model, self.generator)
@@ -129,29 +160,37 @@ class Trainer:
         self.model.train()
         acc = [torch.zeros_like(p) for p in self.params]
         vecs, keys = [], None
-        sum_loss = self.criterion.grad_accum == "sum_loss"
+        accum = self.criterion.grad_accum
         for batch in batches:
             loss, mets = self.criterion(self.model, self._to_device(batch),
                                         generator=self.generator)
             grads = torch.autograd.grad(loss, self.work_params, allow_unused=True)
-            scale = torch.as_tensor(mets["sample_size"], dtype=torch.float32) if sum_loss else None
+            scale = (torch.as_tensor(mets["sample_size"], dtype=torch.float32)
+                     if accum == "sum_loss" else None)
             for a, g in zip(acc, grads):
                 if g is not None:
-                    a.add_(g.float() * scale if sum_loss else g.float())
+                    a.add_(g.float() * scale if scale is not None else g.float())
             keys = keys or sorted(mets)
             vecs.append(torch.stack([torch.as_tensor(mets[k], dtype=torch.float32,
                                                      device=self.device) for k in keys]).detach())
         vec = torch.stack(vecs)
-        ss = vec[:, keys.index("sample_size")]
-        grads = torch._foreach_div(acc, torch.clamp(ss.sum(), min=1.0))
+        if accum == "mean_loss_per_batch":
+            denom = float(len(batches))
+        else:
+            denom = torch.clamp(vec[:, keys.index("sample_size")].sum(), min=1.0)
+        grads = torch._foreach_div(acc, denom)
         gnorm = torch.linalg.vector_norm(torch.stack(torch._foreach_norm(grads)))
         host = torch.cat([vec.reshape(-1), gnorm[None]]).cpu().numpy()  # the one pull
         vec_h, gnorm_h = host[:-1].reshape(vec.shape), float(host[-1])
-        lr = self.schedule(self.num_updates)
+        if self.host_lr_sched is not None:
+            # fairseq's convention: update k runs at the lr after step_update(k)
+            lr = lr_value = self.host_lr_sched.step_update(self.num_updates)
+        else:
+            lr, lr_value = float(self.schedule(self.num_updates)), None
         if np.isfinite(gnorm_h):
-            if self.cfg.clip_norm > 0 and gnorm_h > self.cfg.clip_norm:
-                torch._foreach_mul_(grads, self.cfg.clip_norm / gnorm_h)
-            self.optimizer.step(grads, lr)
+            self.optimizer.step(grads, lr_value)
+            if self.ema is not None:
+                self.ema.update(self.params)
             self._refresh_working_copy()
         else:
             self.skipped_steps += 1
@@ -159,7 +198,28 @@ class Trainer:
         self.num_updates += 1
         out = summarize([dict(zip(keys, row)) for row in vec_h])
         out["gnorm"], out["lr"] = gnorm_h, lr
+        metrics_mod.log_dict(out)
         return out
+
+    def lr_step_begin_epoch(self, epoch: int) -> Optional[float]:
+        """The host-driven schedule's epoch-start hook (manual's epoch2lr)."""
+        if self.host_lr_sched is not None:
+            return self.host_lr_sched.step_begin_epoch(epoch)
+        return None
+
+    def lr_step_epoch(self, epoch: int, val_loss: Optional[float] = None) -> Optional[float]:
+        """The host-driven schedule's epoch-end hook (reduce_lr_on_plateau
+        reads the epoch's validation metric)."""
+        if self.host_lr_sched is not None:
+            return self.host_lr_sched.step_epoch(epoch, val_loss)
+        return None
+
+    def lr_state_dict(self) -> Optional[Dict]:
+        return self.host_lr_sched.state_dict() if self.host_lr_sched is not None else None
+
+    def load_lr_state_dict(self, state: Optional[Dict]) -> None:
+        if self.host_lr_sched is not None and state:
+            self.host_lr_sched.load_state_dict(state)
 
     @torch.no_grad()
     def valid_step(self, batch: Dict, generator: torch.Generator) -> Dict[str, float]:
@@ -169,14 +229,21 @@ class Trainer:
         keys = sorted(mets)
         vec = torch.stack([torch.as_tensor(mets[k], dtype=torch.float32, device=self.device)
                            for k in keys])
-        return dict(zip(keys, vec.cpu().numpy().tolist()))
+        out = dict(zip(keys, vec.cpu().numpy().tolist()))
+        metrics_mod.log_dict(out)
+        return out
 
     def state_dict(self) -> Dict:
         """Everything of the trainer a resume needs beside the master
-        variables: the moments, the update count, the generators."""
-        return {"optimizer": self.optimizer.state_dict(), "num_updates": self.num_updates,
-                "skipped_steps": self.skipped_steps,
-                **{key: getattr(self, key).get_state() for key in GENERATORS}}
+        variables: the optimizer's state, the update count, the generators
+        and the EMA. (A host-driven schedule's state goes to the
+        checkpoint's sidecar, `lr_state_dict`, as in JAX.)"""
+        state = {"optimizer": self.optimizer.state_dict(), "num_updates": self.num_updates,
+                 "skipped_steps": self.skipped_steps,
+                 **{key: getattr(self, key).get_state() for key in GENERATORS}}
+        if self.ema is not None:
+            state["ema"] = self.ema.state_dict()
+        return state
 
     def load_state_dict(self, state: Dict) -> None:
         self.optimizer.load_state_dict(state["optimizer"])
@@ -185,6 +252,10 @@ class Trainer:
         for key in GENERATORS:
             if key in state:  # an older checkpoint holds the first alone
                 getattr(self, key).set_state(state[key].cpu())
+        if self.ema is not None:
+            if "ema" not in state:
+                raise ValueError("--ema-decay: the checkpoint holds no EMA")
+            self.ema.load_state_dict(state["ema"])
         self._refresh_working_copy()
 
 

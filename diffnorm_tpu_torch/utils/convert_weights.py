@@ -5,9 +5,7 @@ the port runs: HuBERT, the code-HiFi-GAN, the DiffNorm speech VAE and latent
 normalizer, the NAR S2UT conformer and the GAN discriminators, with the
 key-inventory audit. Each converter returns the flax-path tree JAX's
 converter returns (float32 numpy arrays), which `weights.from_jax_variables`
-loads, so the port's module paths stay flax paths. Layouts the port's models
-do not have (the prompt-conditioned denoiser, stacked units) raise
-NotImplementedError. Layout rules:
+loads, so the port's module paths stay flax paths. Layout rules:
 * torch Linear weight [out, in]       -> Dense kernel [in, out]
 * torch Conv1d weight [out, in, k]    -> Conv kernel [k, in, out]
 * torch grouped Conv1d [out, in/g, k] -> Conv kernel [k, in/g, out]
@@ -283,17 +281,29 @@ def convert_vae_state(sd: Dict) -> Dict:
     return params
 
 
+def _perceiver_tree(sd: Dict, prefix: str) -> Dict:
+    """PerceiverResampler (latent_module.py:416-471): the latents, the
+    context projection, per layer [attention, FF], the final RMSNorm."""
+    tree: Dict = {"latents": _t(sd[f"{prefix}.latents"]),
+                  "proj_context": _linear_tree(sd, f"{prefix}.proj_context"),
+                  "norm": {"gamma": _t(sd[f"{prefix}.norm.gamma"])}}
+    layer = 0
+    while f"{prefix}.layers.{layer}.0.to_q.weight" in sd:
+        tree[f"attn_{layer}"] = _attention_tree(sd, f"{prefix}.layers.{layer}.0")
+        tree[f"ff_{layer}"] = _ff_tree(sd, f"{prefix}.layers.{layer}.1")
+        layer += 1
+    return tree
+
+
 def convert_denoiser_state(sd: Dict, prefix: str = "model") -> Dict:
     """The denoiser `Model` (latent_module.py:709-876) -> the Denoiser params
     tree. `to_time_cond` is a None-filtered Sequential
     (LearnedSinusoidalPosEmb, Linear, SiLU); `init_conv` is a k=1 Conv1d,
     which becomes a Dense. A prompt-conditioned denoiser (`null_prompt_cond`
-    present) raises: the port's Denoiser has no prompt branch."""
-    if f"{prefix}.null_prompt_cond" in sd:
-        raise NotImplementedError(
-            f"{prefix}.null_prompt_cond: a prompt-conditioned denoiser (condition_on_prompt, "
-            "the PerceiverResampler) is not ported (ROADMAP Queue 1 item 2)")
-    return {
+    present) adds the null embeddings, `to_prompt_cond` (Identity, Linear,
+    SiLU), the resampler, and the transformer's cross norms and attentions
+    (JAX convert_weights.py:542-549)."""
+    params = {
         "time_emb": {"weights": _t(sd[f"{prefix}.to_time_cond.0.weights"])},
         "time_proj": _linear_tree(sd, f"{prefix}.to_time_cond.1"),
         "init_conv": {"kernel": _t(sd[f"{prefix}.init_conv.weight"])[:, :, 0].T,
@@ -302,6 +312,12 @@ def convert_denoiser_state(sd: Dict, prefix: str = "model") -> Dict:
         "transformer": _cond_transformer_tree(sd, f"{prefix}.transformer", cond=True),
         "final_proj": _linear_tree(sd, f"{prefix}.final_proj"),
     }
+    if f"{prefix}.null_prompt_cond" in sd:  # condition_on_prompt
+        params["null_prompt_cond"] = _t(sd[f"{prefix}.null_prompt_cond"])
+        params["null_prompt_tokens"] = _t(sd[f"{prefix}.null_prompt_tokens"])
+        params["to_prompt_cond"] = _linear_tree(sd, f"{prefix}.to_prompt_cond.1")
+        params["perceiver_resampler"] = _perceiver_tree(sd, f"{prefix}.perceiver_resampler")
+    return params
 
 
 def convert_diffusion_state(sd: Dict) -> Dict:

@@ -283,28 +283,34 @@ def test_unported_layouts_raise_naming_their_roadmap_item(tmp_path, case):
             convert_checkpoint.main(["--type", "hubert_ctc", "--input", "absent.pt",
                                      "--output", str(tmp_path / "out")])
         return
-    sd = dict(_state("diffusion" if case == "prompt_conditioned" else "nar"))
     if case == "prompt_conditioned":
-        sd["encoder.model.null_prompt_cond"] = torch.zeros(16)
-        with pytest.raises(NotImplementedError, match="Queue 1 item 2"):
-            cw.convert_diffusion_state(sd)
-    else:
-        # stacked units are ported: the map equals JAX's bit for bit and loads
-        # into a stacked model; as JAX's, the audit counts the shared output
-        # projection once and the tree holds it twice (table and subframe_out)
-        gen = torch.Generator().manual_seed(3)
-        sd["decoder.embed_tokens.project_in_dim.weight"] = torch.randn(32, 64, generator=gen)
-        sd["decoder.out_proj_n_frames.weight"] = torch.randn(64, 32, generator=gen)
-        got, want = _flat(cw.convert_nar_state(sd)), _flat(jcw.convert_nar_state(sd))
-        assert sorted(got) == sorted(want)
+        # ported since: the map equals JAX's bit for bit and passes the audit
+        from tests.test_torch_prompt_cond import _fairseq_conditioned_state
+
+        sd, _ = _fairseq_conditioned_state(3)
+        got, want = _flat(cw.convert_diffusion_state(sd)), _flat(jcw.convert_diffusion_state(sd))
+        assert sorted(got) == sorted(want) and "denoiser/null_prompt_cond" in got
         for k, v in want.items():
             np.testing.assert_array_equal(got[k], v, err_msg=k)
-        assert "params/decoder/embed_tokens/project_in_dim/kernel" in got
-        from_jax_variables(NARS2UTModule(n_frames_per_step=2, **NAR_PORT),
-                           cw.convert_nar_state(sd))
-        for module in (cw, jcw):
-            with pytest.raises(ValueError, match="inventory mismatch"):
-                module.conversion_inventory(sd, module.convert_nar_state(sd))
+        cw.conversion_inventory(sd, cw.convert_diffusion_state(sd))
+        return
+    sd = dict(_state("nar"))
+    # stacked units are ported: the map equals JAX's bit for bit and loads
+    # into a stacked model; as JAX's, the audit counts the shared output
+    # projection once and the tree holds it twice (table and subframe_out)
+    gen = torch.Generator().manual_seed(3)
+    sd["decoder.embed_tokens.project_in_dim.weight"] = torch.randn(32, 64, generator=gen)
+    sd["decoder.out_proj_n_frames.weight"] = torch.randn(64, 32, generator=gen)
+    got, want = _flat(cw.convert_nar_state(sd)), _flat(jcw.convert_nar_state(sd))
+    assert sorted(got) == sorted(want)
+    for k, v in want.items():
+        np.testing.assert_array_equal(got[k], v, err_msg=k)
+    assert "params/decoder/embed_tokens/project_in_dim/kernel" in got
+    from_jax_variables(NARS2UTModule(n_frames_per_step=2, **NAR_PORT),
+                       cw.convert_nar_state(sd))
+    for module in (cw, jcw):
+        with pytest.raises(ValueError, match="inventory mismatch"):
+            module.conversion_inventory(sd, module.convert_nar_state(sd))
 
 
 # ---- the converted step directory feeds the port's CLIs ----

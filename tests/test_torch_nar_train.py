@@ -511,14 +511,14 @@ PORTED_HEADS = {"--multitask-config-yaml": "mt_letters_ctc",
     (["--target-speaker-embed"], None),
     (["--multitask-ctc-vocab", "100"], None),
     (["--attn-type", "abs"], ValueError), (["--arch", "nar_transformer"], SystemExit),
-    (["--ema-decay", "0.999"], SystemExit)])
+    (["--ema-decay", "0.999"], None), (["--use-bmuf"], SystemExit)])
 def test_cli_flags_not_ported_raise(tmp_path, extra, error):
     """The NAR features the port leaves out raise by name, an arch or attention
     other than the recipes' is refused, and an unknown flag is an error;
     `--encoder-remat false` and the arch defaults parse. The multitask, CTC,
     target-speaker and encoder-remat flags (error None) parse and reach the
     model: the task builds it with their head, or a rematerializing
-    encoder."""
+    encoder; --ema-decay (ported since) reaches the trainer's EMA."""
     base = [str(tmp_path), "--task", "speech_to_speech_fasttranslate", "--max-update", "1"]
     if error is None:
         (tmp_path / "dict.txt").write_text("a 1\nb 1\n")
@@ -530,7 +530,12 @@ def test_cli_flags_not_ported_raise(tmp_path, extra, error):
             "--encoder-attention-heads", "2", "--decoder-layers", "1",
             "--decoder-attention-heads", "2", "--conv-channels", "32"])
         model = TASKS[args.task](args).build_model()
-        assert isinstance(getattr(model, PORTED_HEADS[extra[0]]), torch.nn.Module)
+        if extra[0] == "--ema-decay":
+            trainer = Trainer(train_cli.trainer_config(args), model,
+                              TASKS[args.task](args).build_criterion())
+            assert trainer.ema is not None and trainer.ema.decay == 0.999
+        else:
+            assert isinstance(getattr(model, PORTED_HEADS[extra[0]]), torch.nn.Module)
         assert model.encoder.remat is (extra[0] == "--encoder-remat")
     else:
         with pytest.raises(error):

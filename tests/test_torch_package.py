@@ -34,7 +34,10 @@ def _imported_roots(path: Path):
 
 
 NEW_MODULES = ("models/stacked.py", "models/ar_transformer.py", "data/encoders.py",
-               "data/multitask.py", "tasks/multitask_mixin.py", "data/augment.py")
+               "data/multitask.py", "tasks/multitask_mixin.py", "data/augment.py",
+               "train/metrics.py", "train/progress.py", "train/lr_schedules.py",
+               "train/optimizers.py", "criterions/ddpm_loss.py", "criterions/vae_loss.py",
+               "tasks/diffusion_task.py", "tasks/vae_task.py", "tasks/__init__.py")
 
 
 def test_no_jax_imports_in_the_port():
@@ -84,6 +87,14 @@ def test_port_imports_with_jax_blocked():
             "import diffnorm_tpu_torch.data.multitask\n"
             "import diffnorm_tpu_torch.tasks.multitask_mixin\n"
             "import diffnorm_tpu_torch.data.augment\n"
+            "import diffnorm_tpu_torch.train.metrics\n"
+            "import diffnorm_tpu_torch.train.progress\n"
+            "import diffnorm_tpu_torch.train.lr_schedules\n"
+            "import diffnorm_tpu_torch.train.optimizers\n"
+            "import diffnorm_tpu_torch.criterions.ddpm_loss\n"
+            "import diffnorm_tpu_torch.criterions.vae_loss\n"
+            "import diffnorm_tpu_torch.tasks\n"
+            "import diffnorm_tpu_torch.cli.train\n"
             "from diffnorm_tpu_torch.eval.bleu import corpus_bleu, scorer_name\n"
             "assert scorer_name() == 'counters', scorer_name()\n"
             "assert corpus_bleu(['1 2 3 4 5'], ['1 2 3 4 5']) == 100.0\n"

@@ -37,7 +37,7 @@ from diffnorm_tpu_torch.models.layers import set_dropout_generator
 from diffnorm_tpu_torch.models.vae import SpeechVAEModule
 from diffnorm_tpu_torch.train.checkpoint import CheckpointManager, load_params
 from diffnorm_tpu_torch.train.lr_schedules import inverse_sqrt
-from diffnorm_tpu_torch.train.optimizers import FairseqAdam
+from diffnorm_tpu_torch.train.optimizers import build_optimizer
 from diffnorm_tpu_torch.train.trainer import Trainer, TrainerConfig
 from diffnorm_tpu_torch.weights import from_jax_params, from_jax_variables, to_jax_params
 
@@ -360,10 +360,11 @@ def test_dataset_collates_like_jax(tmp_path):
 
 
 def test_fairseq_adam_and_schedule_match_jax_not_torch_adam():
-    """FairseqAdam against JAX's scale_by_fairseq_adam with decoupled decay
-    (float64); without decay, against torch.optim.Adam, which adds eps
-    after the bias correction: on small gradients the trajectories part.
-    The inverse_sqrt schedule is JAX's at every step."""
+    """The port's fairseq Adam (build_optimizer's "adam", at a unit schedule
+    with the lr given per step) against JAX's scale_by_fairseq_adam with
+    decoupled decay (float64); without decay, against torch.optim.Adam,
+    which adds eps after the bias correction: on small gradients the
+    trajectories part. The inverse_sqrt schedule is JAX's at every step."""
     rng = np.random.default_rng(0)
     p0 = rng.normal(size=(7, 5))
     grads = [rng.normal(size=(7, 5)) * 1e-6 for _ in range(10)]
@@ -377,7 +378,8 @@ def test_fairseq_adam_and_schedule_match_jax_not_torch_adam():
                 p = p - lr * (upd + wd * p)
             want = np.asarray(p)
         mine = torch.tensor(p0)
-        opt = FairseqAdam([mine], BETAS, eps, wd)
+        opt = build_optimizer(dict(optimizer="adam", adam_betas=BETAS, adam_eps=eps,
+                                   weight_decay=wd), lambda step: 1.0, [mine], ["p"])
         for g in grads:
             opt.step([torch.tensor(g)], lr)
         np.testing.assert_allclose(mine.numpy(), want, rtol=1e-12, atol=1e-15)
@@ -454,6 +456,10 @@ def test_cli_chain_vae_normalizer_resume_synthesis(tmp_path, capsys):
         "--vae-decoder-heads", "2", "--chan-mults", "[4]"]) == 0
     rows = (out / "test.tsv").read_text().splitlines()[1:]
     assert len(rows) == 10
+    # --ema-decay is ported since: it parses and reaches the trainer
+    args = train_cli.parse_args([str(tmp_path), "--tgt-feat-dir", "x", "--task",
+                                 "speech_decoder", "--ema-decay", "0.999", "--max-update", "1"])
+    assert train_cli.trainer_config(args).ema_decay == 0.999
     with pytest.raises(SystemExit):
         train_cli.parse_args([str(tmp_path), "--tgt-feat-dir", "x", "--task", "speech_decoder",
-                              "--ema-decay", "0.999"])  # a flag the port does not implement
+                              "--use-bmuf", "--max-update", "1"])  # a flag the port lacks
