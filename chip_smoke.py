@@ -224,13 +224,33 @@ tf32 passes); and at D 80 and 128 with ragged keys and a fully masked row.
    optimizer under a schedule (manual and reduce_lr_on_plateau among them)
    on the card against the CPU: one float32 Trainer update of a small
    normalizer, and 2 steps of the optimizer alone on seeded gradients.
+22. the recipe's last training options: (a) cli.train (the released NAR,
+   bf16) on phase 11's corpus in two shard directories (--data a:b), 2
+   epochs, with --num-workers 4 (a checkpoint at update 2, mid-epoch) and
+   0: the same batch lists, each epoch's those of the iterator on its
+   shard, the same losses; a --restore-file resume from the mid-epoch
+   checkpoint starts at the first untrained batch with the same losses; ms
+   per update and the host share of the loop. (b) cli.train_vocoder at
+   B32 x 28 units on 96 WAVs with --num-workers 0 and 4. (c)
+   cli.diff_norm_synthesis with its file prefetch on 32 utterances in
+   chunks of 8, row for row against a sequential in-process ddim_sample.
+   (d) --quant-int8 training on the int8 module route: a released-width
+   normalizer update (B64 x T128; its bf16 gradient against the float32
+   recompute) and a long-form NAR update (6 flash_attention launches). (e)
+   the int8 vocoder, dynamic and static, at S2ST's decode canvas against
+   the float vocoder (JAX's bounds), then cli.s2st --int8-vocoder static.
+   (f) a released normalizer step directory with a seeded Adam state in
+   the bridge's format; cli.train --restore-file for 1 update against an
+   in-process Trainer loaded with the same state.
 The kernels JSON line reports the float32 kernel as flash_attention_f32
 (its launches those of phase 13) beside the bf16 one (phase 6's, phase
 16's long form, the four cli.generate runs of phase 15, phase 18's,
 phase 19's and phase 20's);
 rms_norm_film and wavenet_chain count phase 3's run, phase 18's CLI run and
-phase 21's kernel runs (21a's updates and guided forwards, 21b's CLI runs),
-where flash_attention counts 21a's long-prompt runs too.
+phase 21's kernel runs (21a's updates and guided forwards, 21b's CLI runs)
+and phase 22's (22c's CLI run, 22d's updates, 22f's CLI update), where
+flash_attention counts 21a's long-prompt runs and 22d's long-form update
+too.
 
 Then one JSON line of per-kernel numbers and, last, {"ok": true, "device": ...}.
 Exits non-zero without CUDA, and in a directory without the port.
@@ -1419,7 +1439,8 @@ def run_main_path(torch, model, ddim_sample, inputs):
 
 def profile_run(torch, fn, wall):
     """Device time by kernel over one more call of `fn` (torch.profiler): the
-    busy share of the unprofiled wall time and the largest kernels."""
+    busy share of the unprofiled wall time (returned; None where the
+    profiler saw no device time) and the largest kernels."""
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
@@ -1429,12 +1450,13 @@ def profile_run(torch, fn, wall):
     busy_ms = sum(e.self_device_time_total for e in kernels) / 1e3
     if busy_ms == 0:
         print("profile: the profiler saw no device time (not measured)")
-        return
+        return None
     print(f"profile: device busy {busy_ms:.1f} ms = {100 * busy_ms / 1e3 / wall:.1f}% "
           f"of the {wall:.3f} s wall; top kernels by device time:")
     for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:10]:
         print(f"profile:   {e.self_device_time_total / 1e3:9.2f} ms {e.count:6d}x  "
               f"{e.key[:90]}")
+    return busy_ms / 1e3 / wall
 
 
 def run_cli(torch, model, smi):
@@ -4525,6 +4547,724 @@ def run_training_remainder(torch, mods, smi):
     return launches
 
 
+# the recipe's last training options (phase 22): the loader's workers and
+# read-ahead, sharded --data, --quant-int8 training, the int8 vocoder, and
+# a JAX optimizer state through the bridge
+LOADER_MAX_TOKENS = 3000      # ~5 of phase 11's 3-7 s utterances a batch
+LOADER_WORKERS = 4
+# a resumed run, and one with another worker count, repeat the uninterrupted
+# run's batches and draws: its losses within this (float rounding only)
+LOADER_LOSS_REL = 1e-5
+DDIM_CLI_UTTS, DDIM_CLI_BATCH = 32, 8
+LOADER_VOCODER_UTTS = 96      # 3 batches of the recipe's 32 an epoch
+# --quant-int8 training: a bf16 update's gradient against the float32
+# recompute of the same scale-only gradient (the int8 codes of bf16 and
+# float32 activations differ where a value sits near a rounding boundary).
+# Guessed 0.99 / 0.2 at first; the first chip run measured cos 0.9747, rel
+# 0.2261 at the released width (PERF.md, PR 18), and the float model's own
+# bf16-against-float32 agreement is printed beside it
+INT8_TRAIN_GRAD_COS, INT8_TRAIN_GRAD_REL = 0.95, 0.35
+VAE_CHAINS = 6  # the frozen VAE's WaveNet chains in a normalizer forward
+# JAX's bounds of its int8 vocoder against the float one
+# (tests/test_packed_vocoder.py:157-160)
+INT8_VOCODER_REL = {"dynamic": 0.05, "static": 0.06}
+VOCODER_REPS = 5
+# the bridged optimizer state: the CLI's update against an in-process
+# Trainer loaded with the same state, relative to the update's size
+BRIDGE_UPDATE_REL = 1e-5
+
+
+def write_nar_shards(root: Path):
+    """Phase 11's corpus with its train split in two shard directories
+    (halves, sources by absolute path), each with the dev split and a data
+    config without SpecAugment (its draws come from one shared generator,
+    whose order workers change)."""
+    from diffnorm_tpu_torch.data.manifest import (
+        read_translation_manifest,
+        write_translation_manifest,
+    )
+
+    write_nar_corpus(root)
+    rows = {split: read_translation_manifest(str(root / f"{split}.tsv"))
+            for split in ("train", "dev")}
+    for split_rows in rows.values():
+        for row in split_rows:
+            row["src_audio"] = str(root / row["src_audio"])
+    half = len(rows["train"]) // 2
+    shards = []
+    for k, part in enumerate((rows["train"][:half], rows["train"][half:])):
+        shard = root / f"shard{k}"
+        shard.mkdir()
+        write_translation_manifest(str(shard / "train.tsv"), part)
+        write_translation_manifest(str(shard / "dev.tsv"), rows["dev"])
+        (shard / "config.yaml").write_text("transforms:\n  '*': [utterance_cmvn]\n")
+        shards.append(shard)
+    return shards
+
+
+def nar_cli_args(data: str, save_dir: Path) -> list:
+    return [data, "--config-yaml", "config.yaml", "--task", "speech_to_speech_fasttranslate",
+            "--target-code-size", "1000", "--criterion", "nar_speech_to_unit",
+            "--label-smoothing", "0.2", "--arch", "nar_s2ut_conformer", "--dropout", "0.1",
+            "--save-dir", str(save_dir), "--keep-last-epochs", "10", "--lr", "5e-4",
+            "--lr-scheduler", "inverse_sqrt", "--warmup-init-lr", "1e-7", "--warmup-updates",
+            "10000", "--adam-betas", "(0.9,0.98)", "--clip-norm", "10.0", "--max-tokens",
+            str(LOADER_MAX_TOKENS), "--max-target-positions", "1024", "--seed", "42",
+            "--validate-interval", "5", "--save-interval", "5", "--dtype", "bfloat16",
+            "--log-interval", "1"]
+
+
+@contextlib.contextmanager
+def recorded_cli_run(task_cls):
+    """The batch ids a cli.train run prepares for training (not for
+    validation), in order, and each update's (loss, wall) and the first
+    update's start and the last one's end."""
+    import numpy as np
+
+    from diffnorm_tpu_torch.cli import train as train_cli
+    from diffnorm_tpu_torch.train.trainer import Trainer
+
+    from diffnorm_tpu_torch.train.checkpoint import CheckpointManager
+
+    rec = {"ids": [], "updates": [], "span": [], "saves": []}
+    prepare, validate, step = task_cls.prepare_batch, train_cli.validate_split, Trainer.train_step
+    save = CheckpointManager.save
+    validating = []
+
+    def timed_save(self, *args, **kwargs):
+        t0 = time.perf_counter()
+        try:
+            return save(self, *args, **kwargs)
+        finally:
+            rec["saves"].append((t0, time.perf_counter()))
+
+    def record_prepare(self, batch, rng):
+        ids = [int(i) for i in batch["id"]]
+        if not validating:
+            rec["ids"].append(ids)
+        # each batch's host draws (the CMLM canvas) from a generator of its
+        # ids: a run restarts the CLI's generator at every start (JAX's
+        # too), so a resumed run repeats the uninterrupted one's losses
+        # only with the draws injected, as the other phases inject them
+        return prepare(self, batch, np.random.default_rng(sum(ids) * 131 + len(ids)))
+
+    def flagged(*args):
+        validating.append(True)
+        try:
+            return validate(*args)
+        finally:
+            validating.clear()
+
+    def timed_step(self, batches):
+        t0 = time.perf_counter()
+        mets = step(self, batches)  # ends in the metrics' copy to the host
+        t1 = time.perf_counter()
+        rec["updates"].append((mets["loss"], t1 - t0))
+        rec["span"] = [rec["span"][0] if rec["span"] else t1, t1]  # from the first's end
+        return mets
+
+    task_cls.prepare_batch, train_cli.validate_split = record_prepare, flagged
+    Trainer.train_step, CheckpointManager.save = timed_step, timed_save
+    try:
+        yield rec
+    finally:
+        task_cls.prepare_batch, train_cli.validate_split = prepare, validate
+        Trainer.train_step, CheckpointManager.save = step, save
+
+
+def host_share(rec) -> float:
+    """The share of the training loop's wall outside the updates (loading,
+    the batches' preparation and upload, logging) from the first update's
+    end (which pays the process's warm-up) to the last one's, checkpoint
+    saves left out."""
+    start, end = rec["span"]
+    saves = sum(b - a for a, b in rec.get("saves", []) if a >= start and b <= end)
+    span = end - start - saves
+    return 1.0 - sum(w for _, w in rec["updates"][1:]) / max(span, 1e-9)
+
+
+def loss_rel(a, b) -> float:
+    return max(abs(x - y) / max(abs(y), 1e-12) for x, y in zip(a, b))
+
+
+def run_loader_nar(torch, smi):
+    """Phase 22a: cli.train (the released NAR, bf16) on phase 11's corpus
+    in two shards over 2 epochs, each batch's canvas drawn from its ids:
+    --num-workers 4 against 0 (the same batch lists, losses), each epoch's
+    batches those of the iterator on its shard (the rotation rule), and a
+    --restore-file resume from a mid-epoch checkpoint
+    (--save-interval-updates 2) against the uninterrupted run."""
+    from diffnorm_tpu_torch.cli import train as train_cli
+    from diffnorm_tpu_torch.data.iterators import EpochBatchIterator
+    from diffnorm_tpu_torch.tasks.nar_s2ut_task import NARS2UTTask
+
+    lines = LogLines()
+    logging.getLogger("diffnorm_tpu_torch.train").addHandler(lines)
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = Path(tmp)
+        shards = write_nar_shards(tmp)
+        data = ":".join(map(str, shards))
+        task = NARS2UTTask(train_cli.parse_args(nar_cli_args(data, tmp / "x")
+                                                + ["--max-update", "1"]))
+        epochs = []
+        for epoch in (1, 2):
+            itr = EpochBatchIterator(task.dataset("train", epoch=epoch),
+                                     max_tokens=LOADER_MAX_TOKENS, seed=42, num_prefetch=0,
+                                     max_positions=(None, 1024), ignore_invalid_inputs=True)
+            itr.epoch = epoch
+            epochs.append([[int(i) for i in b["id"]] for b in itr.next_epoch_itr()])
+        if len(epochs[0]) < 3:
+            fail(f"loader NAR: epoch 1 has {len(epochs[0])} batches; a mid-epoch save needs 3")
+        total = len(epochs[0]) + len(epochs[1])
+        want = epochs[0] + epochs[1]
+        runs = {}
+        for what, extra in (("workers 0", ["--num-workers", "0"]),  # pays the cold start
+                            ("workers 4", ["--num-workers", str(LOADER_WORKERS),
+                                           "--save-interval-updates", "2"]),
+                            ("resumed", ["--num-workers", str(LOADER_WORKERS), "--restore-file",
+                                         str(tmp / "workers 4" / "step_000000002")])):
+            lines.lines.clear()
+            with recorded_cli_run(NARS2UTTask) as rec:
+                t0 = time.perf_counter()
+                if train_cli.main(nar_cli_args(data, tmp / what)
+                                  + ["--max-update", str(total), *extra]) != 0:
+                    fail(f"loader NAR cli.train ({what}) failed")
+                rec["wall"] = time.perf_counter() - t0
+            rec["log"] = list(lines.lines)
+            runs[what] = rec
+        logging.getLogger("diffnorm_tpu_torch.train").removeHandler(lines)
+        side = json.loads((tmp / "workers 4" / "step_000000002.json").read_text())
+    four, zero, resumed = runs["workers 4"], runs["workers 0"], runs["resumed"]
+    n = len(four["updates"])
+    if n != total or four["ids"][:total] != want or zero["ids"][:total] != want:
+        fail(f"loader NAR: batches differ from the iterator's on each shard ({n} updates)")
+    if resumed["ids"][:total - 2] != want[2:] or len(resumed["updates"]) != total - 2:
+        fail("loader NAR: the resumed run did not start at the first untrained batch")
+    if side["iterator"]["offset"] != 2 or side["epoch"] != 1:
+        fail(f"loader NAR: the mid-epoch checkpoint recorded {side['iterator']}")
+    shard_line = f"loaded data shard {shards[1]} for epoch 2"
+    if not any(shard_line in line for line in four["log"]):
+        fail(f"loader NAR: no '{shard_line}'")
+    rel_workers = loss_rel([x for x, _ in zero["updates"]], [x for x, _ in four["updates"]])
+    rel_resume = loss_rel([x for x, _ in resumed["updates"]], [x for x, _ in four["updates"][2:]])
+    if rel_workers > LOADER_LOSS_REL or rel_resume > LOADER_LOSS_REL:
+        fail(f"loader NAR: losses against the workers-4 run: workers 0 rel {rel_workers:.2e}, "
+             f"resumed rel {rel_resume:.2e} (bound {LOADER_LOSS_REL})")
+    for what, rec in runs.items():
+        ms = [round(1e3 * w, 1) for _, w in rec["updates"]]
+        print(f"loader NAR cli.train ({what}): {rec['wall']:.2f} s, {len(ms)} updates over 2 "
+              f"epochs of 2 shards (batches of <= {LOADER_MAX_TOKENS} frames), ms per update "
+              f"{ms}, host share of the training loop after the first update "
+              f"{100 * host_share(rec):.1f}% (checkpoint saves left out: "
+              f"{sum(b - a for a, b in rec['saves']):.2f} s); {smi}")
+    print(f"loader NAR: batch lists equal for workers 4 and 0 and the iterator's on each "
+          f"shard ({[len(e) for e in epochs]} batches an epoch); the mid-epoch checkpoint at "
+          f"offset 2 resumed at batch 3; losses against the workers-4 run: workers 0 rel "
+          f"{rel_workers:.2e}, resumed rel {rel_resume:.2e} (bound {LOADER_LOSS_REL})")
+
+
+def run_loader_vocoder(torch, smi):
+    """Phase 22b: cli.train_vocoder at the recipe's B32 x 28 units on 96
+    WAVs (3 batches an epoch), 6 updates, --num-workers 0 and 4: ms per
+    update and the host share."""
+    from diffnorm_tpu_torch.cli import train_vocoder
+    from diffnorm_tpu_torch.train.gan_trainer import GanTrainer
+
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = Path(tmp)
+        write_vocoder_corpus(tmp, n_utts=LOADER_VOCODER_UTTS)
+        base = ["--units-file", str(tmp / "train.units"), "--audio-dir", str(tmp),
+                "--vocoder-cfg", str(tmp / "voc.json"), "--batch-size", str(GAN_B),
+                "--crop-units", str(GAN_CROP), "--max-update", "6", "--log-interval", "3",
+                "--save-interval-updates", "1000"]
+        for workers in ("0", str(LOADER_WORKERS)):
+            step = GanTrainer.train_step
+            rec = {"updates": [], "span": []}
+
+            def timed_step(self, batch, _step=step, _rec=rec):
+                t0 = time.perf_counter()
+                mets = _step(self, batch)
+                t1 = time.perf_counter()
+                _rec["updates"].append((0.0, t1 - t0))
+                _rec["span"] = [_rec["span"][0] if _rec["span"] else t1, t1]
+                return mets
+
+            GanTrainer.train_step = timed_step
+            try:
+                t0 = time.perf_counter()
+                if train_vocoder.main(base + ["--save-dir", str(tmp / workers),
+                                              "--num-workers", workers]) != 0:
+                    fail(f"cli.train_vocoder --num-workers {workers} failed")
+                wall = time.perf_counter() - t0
+            finally:
+                GanTrainer.train_step = step
+            ms = [round(1e3 * w, 1) for _, w in rec["updates"]]
+            print(f"loader vocoder cli.train_vocoder --num-workers {workers}: {wall:.2f} s, "
+                  f"B{GAN_B} x {GAN_CROP} units, ms per update {ms} (median of the last 5 "
+                  f"{statistics.median(ms[1:]):.1f}), host share of the training loop after "
+                  f"the first update {100 * host_share(rec):.1f}%; {smi}")
+
+
+def run_loader_ddim(torch, smi):
+    """Phase 22c: cli.diff_norm_synthesis (the released normalizer, bf16)
+    with its file prefetch on phase 9's 32 utterances (40-128 units) in
+    chunks of 8: the manifest
+    equal to a sequential in-process ddim_sample over the same chunks with
+    the same noise, and the walls. Returns the CLI's launches."""
+    import numpy as np
+
+    from diffnorm_tpu_torch.cli import diff_norm_synthesis
+    from diffnorm_tpu_torch.data.batching import bucket_length
+    from diffnorm_tpu_torch.data.manifest import (
+        read_translation_manifest,
+        write_translation_manifest,
+    )
+    from diffnorm_tpu_torch.models.diffusion import LatentDiffusionModule, ddim_sample
+    from diffnorm_tpu_torch.ops import _build
+    from diffnorm_tpu_torch.ops.unit_reduce import reduce_units
+    from diffnorm_tpu_torch.weights import save_npz, to_jax_params
+
+    lines = LogLines()
+    logging.getLogger("diffnorm_tpu_torch.diff_norm").addHandler(lines)
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = Path(tmp)
+        torch.manual_seed(0)
+        with torch.device("cuda"):
+            model = LatentDiffusionModule()
+        save_npz(str(tmp / "params.npz"), to_jax_params(model))
+        del model
+        feat_dir = write_train_corpus(tmp)  # 24 + 4 + 4 utterances, all of them "all"
+        rows, feat_lines = [], [str(feat_dir)]
+        for split in ("train", "dev", "test"):
+            rows += read_translation_manifest(str(tmp / f"{split}.tsv"))
+            feat_lines += (feat_dir / f"{split}.manifest.tsv").read_text().splitlines()[1:]
+        if len(rows) != DDIM_CLI_UTTS:
+            fail(f"loader DDIM CLI: {len(rows)} utterances, expected {DDIM_CLI_UTTS}")
+        write_translation_manifest(str(tmp / "all.tsv"), rows)
+        (feat_dir / "all.manifest.tsv").write_text("\n".join(feat_lines) + "\n")
+        args = [str(tmp), "--params-npz", str(tmp / "params.npz"), "--tgt-feat-dir",
+                str(feat_dir), "--output-dir", str(tmp / "out"), "--splits", "all",
+                "--batch-size", str(DDIM_CLI_BATCH), "--seed", "1"]
+        parsed = diff_norm_synthesis.parse_args(args)
+        device = torch.device("cuda")
+        model = diff_norm_synthesis.build_model(parsed, device)
+        generator = torch.Generator(device=device).manual_seed(1)
+        items = []
+        for row in rows:
+            dedup, _, keep = reduce_units(np.asarray(row["tgt_audio"].split(), np.int64))
+            items.append((row, dedup, keep))
+        items.sort(key=lambda it: len(it[1]))
+        expected, sample_wall, warm = [], 0.0, True
+        for start in range(0, len(items), DDIM_CLI_BATCH):
+            chunk = items[start:start + DDIM_CLI_BATCH]
+            max_len = bucket_length(max(len(c[1]) for c in chunk))
+            feat = np.zeros((len(chunk), max_len, 768), np.float32)
+            mask = np.zeros((len(chunk), max_len), bool)
+            for j, (row, dedup, keep) in enumerate(chunk):
+                feat[j, :len(dedup)] = np.load(feat_dir / f"{row['id']}.feat.npy")[keep]
+                mask[j, :len(dedup)] = True
+            enc, init = diff_norm_synthesis.draw_noise(generator, (len(chunk), max_len, 128),
+                                                       device)
+            feat_d, mask_d = torch.from_numpy(feat).cuda(), torch.from_numpy(mask).cuda()
+            if warm:  # the process's first sampling call, on other noise
+                ddim_sample(model, feat_d, mask_d, start_step=parsed.start_step,
+                            stride=parsed.ddim_stride, enc_noise=torch.randn_like(enc),
+                            init_noise=torch.randn_like(init), device=device)
+                warm = False
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            units, _ = ddim_sample(model, feat_d, mask_d, start_step=parsed.start_step,
+                                   stride=parsed.ddim_stride, enc_noise=enc, init_noise=init,
+                                   device=device)
+            units = units.cpu().numpy()
+            sample_wall += time.perf_counter() - t1
+            for j, (row, dedup, _) in enumerate(chunk):
+                norm_units, _, _ = reduce_units(units[j, :len(dedup)])
+                expected.append({**row, "tgt_audio": " ".join(map(str, norm_units)),
+                                 "tgt_n_frames": str(len(norm_units))})
+        del model
+        lines.lines.clear()
+        _build.launch_counts.clear()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        if diff_norm_synthesis.main(args) != 0:
+            fail("cli.diff_norm_synthesis with the prefetch failed")
+        cli_wall = time.perf_counter() - t0
+        launches = dict(_build.launch_counts)
+        split_line = [m for m in lines.lines if m.startswith("all: normalized")]
+        got = read_translation_manifest(str(tmp / "out" / "all.tsv"))
+    logging.getLogger("diffnorm_tpu_torch.diff_norm").removeHandler(lines)
+    if got != expected:
+        bad = sum(a != b for a, b in zip(got, expected))
+        fail(f"cli.diff_norm_synthesis with the prefetch: {bad} of {len(expected)} rows differ "
+             f"from the sequential in-process run")
+    print(f"loader DDIM CLI: {cli_wall:.2f} s for cli.diff_norm_synthesis on "
+          f"{DDIM_CLI_UTTS} utterances in chunks of {DDIM_CLI_BATCH} (the model's load "
+          f"included); {split_line[0] if split_line else 'no split line'}; in-process "
+          f"ddim_sample over the same chunks {sample_wall:.2f} s; rows equal row for row; "
+          f"launches {launches}; {smi}")
+    return launches
+
+
+def gradient_vector(torch, model, params, batch, criterion):
+    loss, _ = criterion(model, batch)
+    grads = torch.autograd.grad(loss, params, allow_unused=True)
+    return torch.cat([(torch.zeros_like(p) if g is None else g).float().reshape(-1)
+                      for p, g in zip(params, grads)])
+
+
+def run_int8_train(torch, smi):
+    """Phase 22d: --quant-int8 training, the int8 module route: one
+    released-width normalizer update (B64 x T128, bf16, 2 timed after a
+    warm-up; its bf16 gradient against the float32 recompute of the same
+    scale-only gradient) and one long-form NAR update (B2 x 8448). Returns
+    the launches of the timed updates."""
+    import copy
+
+    import numpy as np
+
+    from diffnorm_tpu_torch.criterions.ddpm_loss import DDPMDiscreteLoss
+    from diffnorm_tpu_torch.criterions.nar_loss import NARSpeechToUnitLoss
+    from diffnorm_tpu_torch.models.diffusion import LatentDiffusionModule
+    from diffnorm_tpu_torch.models.layers import set_live_int8
+    from diffnorm_tpu_torch.models.nar_transformer import NARS2UTModule
+    from diffnorm_tpu_torch.ops import _build
+    from diffnorm_tpu_torch.ops.quant import quant_sites
+    from diffnorm_tpu_torch.train.trainer import Trainer, TrainerConfig
+
+    totals = {}
+    micros = train_batches(torch, 3, 82, "ddpm")
+    torch.manual_seed(11)
+    with torch.device("cuda"):
+        master = LatentDiffusionModule(quant_int8=True, int8_route="module", dropout=0.0)
+    n_sites = len(quant_sites(master))
+    cfg = TrainerConfig(lr=1e-4, warmup_updates=10000, warmup_init_lr=1e-7,
+                        adam_betas=(0.9, 0.98), clip_norm=2.0, dtype="bfloat16", seed=42)
+    crit = DDPMDiscreteLoss()
+    # the gradient check first, on the initial weights; the float model's
+    # own bf16-against-float32 agreement beside it
+    def agreement(model):
+        params = [p for n, p in model.named_parameters() if not n.startswith("vae.")]
+        work = copy.deepcopy(model).to(torch.bfloat16).train()
+        set_live_int8(work, model)
+        wparams = [p for n, p in work.named_parameters() if not n.startswith("vae.")]
+        g16 = gradient_vector(torch, work, wparams, micros[0], crit)
+        del work
+        set_live_int8(model)
+        g32 = gradient_vector(torch, model.train(), params, micros[0], crit)
+        finite = bool(torch.isfinite(g16).all() and torch.isfinite(g32).all())
+        return (float(torch.dot(g16, g32) / (g16.norm() * g32.norm())),
+                float((g16 - g32).norm() / g32.norm()), finite)
+
+    cos, rel, finite = agreement(master)
+    torch.manual_seed(11)
+    with torch.device("cuda"):
+        float_model = LatentDiffusionModule(dropout=0.0)
+    float_model.load_state_dict(master.state_dict())
+    cos_float, rel_float, _ = agreement(float_model)
+    del float_model
+    if not finite or cos < INT8_TRAIN_GRAD_COS or rel > INT8_TRAIN_GRAD_REL:
+        fail(f"int8 train normalizer: bf16 gradient against the float32 recompute: finite "
+             f"{finite}, cos {cos:.5f} (bound {INT8_TRAIN_GRAD_COS}), rel {rel:.4f} "
+             f"(bound {INT8_TRAIN_GRAD_REL})")
+    trainer = Trainer(cfg, master, crit, ("vae",))
+    trainer.train_step([micros[0]])  # warm-up
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    per = []
+    for u in (1, 2):
+        _build.launch_counts.clear()
+        t1 = time.perf_counter()
+        mets = trainer.train_step([micros[u]])
+        per.append((mets, 1e3 * (time.perf_counter() - t1), dict(_build.launch_counts)))
+        if not (math.isfinite(mets["loss"]) and math.isfinite(mets["gnorm"])):
+            fail(f"int8 train normalizer: update {u} gave {mets}")
+        for k, v in per[-1][2].items():
+            totals[k] = totals.get(k, 0) + v
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    if per[-1][2] != {"wavenet_chain": VAE_CHAINS, "rms_norm_film": 24}:
+        fail(f"int8 train normalizer: launches {per[-1][2]}: the denoiser's int8 module route "
+             f"launches no wavenet_chain (the frozen VAE's {VAE_CHAINS} chains do) and its 12 "
+             f"layers' 24 adaptive norms rms_norm_film")
+    wall = statistics.median(ms for _, ms, _ in per) / 1e3
+    busy = profile_run(torch, lambda: trainer.train_step([micros[1]]), wall)
+    print(f"int8 train normalizer: --quant-int8 ({n_sites} int8 sites, module route), "
+          f"B{B}xT{T}, bf16 forward, float32 masters: ms per update "
+          f"{[round(ms, 1) for _, ms, _ in per]}, losses {[round(m['loss'], 5) for m, _, _ in per]},"
+          f" gnorms {[round(m['gnorm'], 4) for m, _, _ in per]}, launches per update "
+          f"{per[-1][2]}, peak {peak_gb:.2f} GB, busy "
+          f"{'not measured' if busy is None else f'{100 * busy:.1f}%'}; bf16 gradient against "
+          f"the float32 recompute: cos {cos:.5f} (bound {INT8_TRAIN_GRAD_COS}), rel {rel:.4f} "
+          f"(bound {INT8_TRAIN_GRAD_REL}); the float model's: cos {cos_float:.5f}, rel "
+          f"{rel_float:.4f}; {smi}")
+    del trainer, master
+
+    rng = np.random.default_rng(91)
+    long = nar_batch(rng, [LONG_FRAMES, LONG_FRAMES // 2], [600, 300])
+    torch.manual_seed(12)
+    with torch.device("cuda"):
+        model = NARS2UTModule(quant_int8=True, attention_dropout=0.0)
+    trainer = Trainer(TrainerConfig(**NAR_TRAIN), model, NARSpeechToUnitLoss(0.2))
+    trainer.valid_step(long, torch.Generator(device="cuda").manual_seed(0))  # warm-up
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _build.launch_counts.clear()
+    t1 = time.perf_counter()
+    mets = trainer.train_step([long])
+    ms = 1e3 * (time.perf_counter() - t1)
+    launches = dict(_build.launch_counts)
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    for k, v in launches.items():
+        totals[k] = totals.get(k, 0) + v
+    if not (math.isfinite(mets["loss"]) and math.isfinite(mets["gnorm"])):
+        fail(f"int8 train NAR long form: {mets}")
+    if launches.get("flash_attention", 0) != 6:
+        fail(f"int8 train NAR long form: flash_attention launched "
+             f"{launches.get('flash_attention', 0)} times, expected 6 (the decoder's encoder "
+             f"attentions)")
+    busy = profile_run(torch, lambda: trainer.train_step([long]), ms / 1e3)
+    print(f"int8 train NAR, long form: --quant-int8 ({len(quant_sites(model))} int8 sites), "
+          f"B2 x {LONG_FRAMES} frames (S = 2112): update {ms:.1f} ms, loss {mets['loss']:.5f}, "
+          f"gnorm {mets['gnorm']:.4f}, launches {launches}, peak {peak_gb:.2f} GB, busy "
+          f"{'not measured' if busy is None else f'{100 * busy:.1f}%'}; {smi}")
+    del trainer, model
+    return totals
+
+
+def run_int8_vocoder(torch, smi):
+    """Phase 22e: the int8 vocoder (the released code-HiFi-GAN, bf16),
+    dynamic and static, on S2ST's decode shape: codes [16, 384] in chunks
+    of 4 (phase 5's canvas): the wall against the float vocoder's, the
+    relative error against it under JAX's bounds; then cli.s2st
+    --int8-vocoder static on 8 utterances."""
+    import numpy as np
+
+    from diffnorm_tpu_torch.cli import s2st as s2st_cli
+    from diffnorm_tpu_torch.data.manifest import write_translation_manifest
+    from diffnorm_tpu_torch.generate.s2st import _chunked_vocoder
+    from diffnorm_tpu_torch.models.hifigan import CodeHiFiGANVocoder
+    from diffnorm_tpu_torch.weights import save_npz, to_jax_variables
+
+    rng = np.random.default_rng(93)
+    codes = torch.from_numpy(rng.integers(0, 1000, size=(S2ST_B, S2ST_KW["max_wav_units"]))).cuda()
+    outs, walls = {}, {}
+    for mode in ("off", "dynamic", "static"):
+        torch.manual_seed(3)
+        voc = CodeHiFiGANVocoder.from_config(VOCODER_CFG, device="cuda", dtype=torch.bfloat16,
+                                             int8_vocoder=mode).module
+        with torch.no_grad():
+            _chunked_vocoder(voc, codes, S2ST_KW["vocoder_chunk"])  # warm-up
+            reps = []
+            for _ in range(VOCODER_REPS):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                wav = _chunked_vocoder(voc, codes, S2ST_KW["vocoder_chunk"])
+                torch.cuda.synchronize()
+                reps.append(time.perf_counter() - t0)
+        outs[mode], walls[mode] = wav.float(), statistics.median(reps)
+        if mode == "static":
+            n_blocks = len(voc.generator.int8_stats())
+        del voc
+    rels = {}
+    for mode in ("dynamic", "static"):
+        if not torch.isfinite(outs[mode]).all():
+            fail(f"int8 vocoder {mode}: non-finite waveform")
+        rels[mode] = float((outs[mode] - outs["off"]).norm() / outs["off"].norm())
+        if rels[mode] >= INT8_VOCODER_REL[mode]:
+            fail(f"int8 vocoder {mode}: relative error {rels[mode]:.4f} against the float "
+                 f"vocoder (JAX's bound {INT8_VOCODER_REL[mode]})")
+    print(f"int8 vocoder: codes [{S2ST_B}, {S2ST_KW['max_wav_units']}] in chunks of "
+          f"{S2ST_KW['vocoder_chunk']}, bf16, median of {VOCODER_REPS}: float "
+          f"{1e3 * walls['off']:.1f} ms, dynamic {1e3 * walls['dynamic']:.1f} ms "
+          f"({walls['dynamic'] / walls['off']:.2f}x), static {1e3 * walls['static']:.1f} ms "
+          f"({walls['static'] / walls['off']:.2f}x, {n_blocks} calibrated blocks); relative "
+          f"error against the float vocoder: dynamic {rels['dynamic']:.4f} (bound "
+          f"{INT8_VOCODER_REL['dynamic']}), static {rels['static']:.4f} (bound "
+          f"{INT8_VOCODER_REL['static']}); {smi}")
+
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = Path(tmp)
+        save_npz(str(tmp / "nar.npz"), to_jax_variables(seeded_nar(torch, 0)))
+        torch.manual_seed(3)
+        voc = CodeHiFiGANVocoder.from_config(VOCODER_CFG, device="cuda")
+        save_npz(str(tmp / "voc.npz"), to_jax_variables(voc.module))
+        del voc
+        (tmp / "voc.json").write_text(json.dumps(VOCODER_CFG))
+        rows = []
+        for i in range(8):
+            n = int(rng.integers(300, 701))
+            np.save(tmp / f"utt{i}.npy", rng.normal(size=(n, 80)).astype(np.float32))
+            rows.append({"id": f"utt{i}", "src_audio": f"utt{i}.npy", "src_n_frames": n,
+                         "tgt_audio": "0", "tgt_n_frames": 1})
+        write_translation_manifest(str(tmp / "test.tsv"), rows)
+        t0 = time.perf_counter()
+        rc = s2st_cli.main([str(tmp), "--params-npz", str(tmp / "nar.npz"), "--vocoder-npz",
+                            str(tmp / "voc.npz"), "--vocoder-cfg", str(tmp / "voc.json"),
+                            "--results-path", str(tmp / "out"), "--batch-size", "4",
+                            "--dur-prediction", "--max-duration", "4", "--int8-vocoder",
+                            "static"])
+        dt = time.perf_counter() - t0
+        wavs = sorted(p.name for p in (tmp / "out").glob("*_pred.wav")) if rc == 0 else []
+        if rc != 0 or len(wavs) != 8:
+            fail(f"cli.s2st --int8-vocoder static: rc {rc}, {len(wavs)} waveforms")
+    print(f"int8 vocoder cli.s2st --int8-vocoder static: {dt:.2f} s on 8 utterances (300-700 "
+          f"frames, batch 4, the models' load and the calibration included), every "
+          f"{{id}}_pred.wav written; {smi}")
+
+
+def run_bridge(torch, smi):
+    """Phase 22f: a released-width normalizer step directory with a seeded
+    Adam state in the bridge's format, written with numpy; cli.train
+    --restore-file on it for 1 update (bf16) against an in-process Trainer
+    loaded with the same state on the CLI's batch; the restore's wall.
+    Returns the CLI's launches."""
+    import importlib.util
+
+    import numpy as np
+
+    from diffnorm_tpu_torch.cli import train as train_cli
+    from diffnorm_tpu_torch.models.diffusion import LatentDiffusionModule
+    from diffnorm_tpu_torch.ops import _build
+    from diffnorm_tpu_torch.tasks.diffusion_task import SpeechDiffusionDiscreteTask
+    from diffnorm_tpu_torch.train.checkpoint import load_optax_state, load_variables
+    from diffnorm_tpu_torch.train.trainer import Trainer
+    from diffnorm_tpu_torch.weights import from_jax_variables, save_npz, to_jax_variables
+
+    spec = importlib.util.spec_from_file_location(
+        "orbax_to_npz", Path(__file__).resolve().parent / "scripts" / "orbax_to_npz.py")
+    bridge = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(bridge)  # its numpy writer; JAX is imported only to restore
+    step0 = 5
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = Path(tmp)
+        feat_dir = write_train_corpus(tmp)
+        torch.manual_seed(21)
+        with torch.device("cuda"):
+            model = LatentDiffusionModule()
+        variables = to_jax_variables(model)
+        del model
+        step_dir = tmp / "bridged"
+        step_dir.mkdir()
+        t0 = time.perf_counter()
+        save_npz(str(step_dir / "params.npz"), variables)
+        rng = np.random.default_rng(22)
+        trainable = {k: v for k, v in variables["params"].items() if k != "vae"}
+
+        def moments(tree):
+            """Adam's moments of gradients ~ N(0, 1e-3^2) seen step0 times:
+            mu ~ 1e-3 N(0, 1), nu = mu^2 + 1e-6 (so |mu| / sqrt(nu) < 1)."""
+            mu, nu = {}, {}
+            for k, v in tree.items():
+                if isinstance(v, dict):
+                    mu[k], nu[k] = moments(v)
+                else:
+                    mu[k] = (rng.normal(size=v.shape) * 1e-3).astype(np.float32)
+                    nu[k] = (mu[k].astype(np.float64) ** 2 + 1e-6).astype(np.float32)
+            return mu, nu
+
+        mu, nu = moments(trainable)
+        opt_state = [None, [{"count": np.int32(step0), "mu": mu, "nu": nu}, None,
+                            {"count": np.int32(step0)}]]
+        np.savez(step_dir / "optax_state.npz", **bridge.optax_arrays(opt_state, step0, None))
+        (tmp / "bridged.json").write_text(json.dumps({"step": step0, "epoch": 1, "iterator": {
+            "epoch": 1, "offset": 0, "seed": 42}}))
+        write_wall = time.perf_counter() - t0
+        del variables, opt_state, mu, nu
+        args = [str(tmp), "--tgt-feat-dir", str(feat_dir), "--target-code-size", "1000",
+                "--task", "speech_diffusion_discrete", "--criterion", "ddpm_discrete_loss",
+                "--arch", "diff_discrete", "--latent-dim", "128", "--multitask", "true",
+                "--lr", "1e-3", "--lr-scheduler", "inverse_sqrt", "--warmup-init-lr", "1e-7",
+                "--warmup-updates", "2", "--adam-betas", "(0.9,0.98)", "--clip-norm",
+                "2.0", "--max-tokens", "1200", "--max-target-positions", "2048", "--seed",
+                "42", "--log-interval", "1", "--dtype", "bfloat16", "--dropout", "0.1",
+                "--max-update", str(step0 + 1), "--save-dir", str(tmp / "resumed"),
+                "--restore-file", str(step_dir)]
+        seen = {}
+        step = Trainer.train_step
+        restore, load = train_cli.restore, Trainer.load_optax_state
+
+        def capture(self, batches):
+            seen["batches"] = [{k: v.clone() if torch.is_tensor(v) else v
+                                for k, v in b.items()} for b in batches]
+            seen["before"] = [p.detach().clone() for p in self.params]
+            mets = step(self, batches)
+            seen["after"] = [p.detach().clone() for p in self.params]
+            return mets
+
+        def timed_restore(*a, **kw):
+            t1 = time.perf_counter()
+            try:
+                return restore(*a, **kw)
+            finally:
+                seen["restore_s"] = time.perf_counter() - t1
+
+        def timed_load(self, bridged):
+            t1 = time.perf_counter()
+            try:
+                return load(self, bridged)
+            finally:
+                seen["load_s"] = time.perf_counter() - t1
+
+        Trainer.train_step, Trainer.load_optax_state = capture, timed_load
+        train_cli.restore = timed_restore
+        try:
+            _build.launch_counts.clear()
+            t0 = time.perf_counter()
+            rc = train_cli.main(args)
+            cli_wall = time.perf_counter() - t0
+            launches = dict(_build.launch_counts)
+        finally:
+            Trainer.train_step, Trainer.load_optax_state = step, load
+            train_cli.restore = restore
+        if rc != 0 or "after" not in seen:
+            fail(f"cli.train --restore-file on the bridged step directory: rc {rc}")
+        parsed = train_cli.parse_args(args)
+        task = SpeechDiffusionDiscreteTask(parsed)
+        with torch.device("cuda"):
+            model = task.build_model()
+        from_jax_variables(model, load_variables(str(step_dir)))
+        trainer = Trainer(train_cli.trainer_config(parsed), model, task.build_criterion(),
+                          frozen_keys=task.frozen_param_keys)
+        trainer.load_optax_state(load_optax_state(str(step_dir)))
+        if any(not torch.equal(a, b) for a, b in zip(trainer.params, seen["before"])):
+            fail("bridge: the in-process trainer's weights differ from the CLI's before the update")
+        trainer.train_step(seen["batches"])
+        diff = max(float((p.detach() - a).abs().max())
+                   for p, a in zip(trainer.params, seen["after"]))
+        upd = max(float((a - b).abs().max()) for a, b in zip(seen["after"], seen["before"]))
+        del trainer, model
+    if diff > BRIDGE_UPDATE_REL * upd:
+        fail(f"bridge: the CLI's update against the in-process Trainer's: {diff:.3e} against an "
+             f"update of {upd:.3e} (bound {BRIDGE_UPDATE_REL} of it)")
+    print(f"bridge: a released-width normalizer step directory with a seeded Adam state "
+          f"(step {step0}) written by numpy in {write_wall:.2f} s; cli.train --restore-file, 1 "
+          f"update in bf16: {cli_wall:.2f} s in all, restore {seen['restore_s']:.2f} s, optimizer "
+          f"state load {seen['load_s']:.2f} s; against an in-process Trainer with the same state "
+          f"on the same batch: max difference {diff:.3e}, the update's largest change "
+          f"{upd:.3e} (bound {BRIDGE_UPDATE_REL} of it); launches {launches}; {smi}")
+    return launches
+
+
+def run_recipe_options(torch, smi):
+    """Phase 22: the recipe's last training options (see the module
+    docstring). Returns the kernels' launches."""
+    t0 = time.perf_counter()
+    launches = {}
+
+    def add(counts):
+        for k, v in counts.items():
+            launches[k] = launches.get(k, 0) + v
+
+    run_loader_nar(torch, smi)
+    run_loader_vocoder(torch, smi)
+    add(run_loader_ddim(torch, smi))
+    add(run_int8_train(torch, smi))
+    run_int8_vocoder(torch, smi)
+    add(run_bridge(torch, smi))
+    print(f"phase recipe options: {time.perf_counter() - t0:.1f} s, launches {launches}; {smi}")
+    return launches
+
+
 def main() -> int:
     try:
         import torch
@@ -4704,6 +5444,12 @@ def main() -> int:
     # 21. the training remainder: the prompt-conditioned normalizer, the
     # continuous tasks, the optimizers and schedules
     for name, n in run_training_remainder(torch, mods, smi).items():
+        if name in launches:
+            launches[name] += n
+
+    # 22. the recipe's last training options: loader workers and read-ahead,
+    # sharded --data, --quant-int8 training, the int8 vocoder, the bridge
+    for name, n in run_recipe_options(torch, smi).items():
         if name in launches:
             launches[name] += n
 

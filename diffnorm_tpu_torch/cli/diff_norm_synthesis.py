@@ -13,7 +13,10 @@ on the CPU every route is the int8 module path, as in JAX).
 activation scales, int8 WaveNet convs, and static activation scales
 calibrated on the first batch (JAX cli/diff_norm_synthesis.py:203-222).
 `--int8-convcat` and `--int8-quant-bf16` add JAX's DIFFNORM_INT8_CONVCAT
-and DIFFNORM_INT8_QUANT_BF16 switches to the int8 module route.
+and DIFFNORM_INT8_QUANT_BF16 switches to the int8 module route. The next
+batch's feature files load on a worker thread while the card samples the
+current batch, whose units are read back after the next batch's sampling
+is launched; the rows and their order do not change.
 
   python -m diffnorm_tpu_torch.cli.diff_norm_synthesis $DATA \\
       --params-npz diffusion.npz --tgt-feat-dir feat/ \\
@@ -34,6 +37,7 @@ import logging
 import os
 import sys
 import time
+from concurrent.futures import ThreadPoolExecutor
 from typing import List, Optional, Sequence, Tuple
 
 import numpy as np
@@ -174,29 +178,19 @@ def normalize_split(model, args, device, generator, split: str) -> None:
     out_rows: List[dict] = []
     n_match = n_total = 0
     t0 = time.time()
-    for start in range(0, len(items), args.batch_size):
-        chunk = items[start:start + args.batch_size]
+
+    def load(chunk) -> Tuple[np.ndarray, np.ndarray]:
+        """A chunk's bucketed features and mask (host work: the .npy reads)."""
         max_len = bucket_length(max(len(c[2]) for c in chunk))
         feat = np.zeros((len(chunk), max_len, args.feature_dim), np.float32)
         mask = np.zeros((len(chunk), max_len), bool)
         for j, (_, fpath, dedup, keep) in enumerate(chunk):
             feat[j, :len(dedup)] = np.load(fpath)[keep]
             mask[j, :len(dedup)] = True
-        if args.quant_int8_static and not any(
-                site.act_amax is not None for _, site in quant_sites(model)):
-            n_sites = calibrate_act_scales(
-                model, torch.from_numpy(feat).to(device), torch.from_numpy(mask).to(device),
-                start_step=args.start_step,
-                generator=torch.Generator(device=device).manual_seed(5))
-            set_static_scales(model)
-            logger.info("calibrated static int8 activation scales on the first batch "
-                        "(%d sites)", n_sites)
-        enc_noise, init_noise = draw_noise(
-            generator, (len(chunk), max_len, args.latent_dim), device)
-        units, _ = ddim_sample(
-            model, torch.from_numpy(feat).to(device), torch.from_numpy(mask).to(device),
-            start_step=args.start_step, stride=args.ddim_stride,
-            enc_noise=enc_noise, init_noise=init_noise, device=device)
+        return feat, mask
+
+    def emit(chunk, units: torch.Tensor) -> None:
+        nonlocal n_match, n_total
         units = units.cpu().numpy()
         for j, (row, _, dedup, _) in enumerate(chunk):
             pred = units[j, :len(dedup)]
@@ -205,6 +199,37 @@ def normalize_split(model, args, device, generator, split: str) -> None:
             norm_units, _, _ = reduce_units(pred)
             out_rows.append(dict(row, tgt_audio=" ".join(str(int(u)) for u in norm_units),
                                  tgt_n_frames=len(norm_units)))
+
+    chunks = [items[s:s + args.batch_size] for s in range(0, len(items), args.batch_size)]
+    # the next chunk's files load on one worker while the card samples this
+    # one, and a chunk's units come back one chunk behind, after the next
+    # chunk's sampling is launched (JAX cli/diff_norm_synthesis.py:185-235)
+    behind = None
+    with ThreadPoolExecutor(max_workers=1) as pool:
+        pending = pool.submit(load, chunks[0]) if chunks else None
+        for k, chunk in enumerate(chunks):
+            feat, mask = pending.result()
+            if k + 1 < len(chunks):
+                pending = pool.submit(load, chunks[k + 1])
+            feat_d, mask_d = torch.from_numpy(feat).to(device), torch.from_numpy(mask).to(device)
+            if args.quant_int8_static and not any(
+                    site.act_amax is not None for _, site in quant_sites(model)):
+                n_sites = calibrate_act_scales(
+                    model, feat_d, mask_d, start_step=args.start_step,
+                    generator=torch.Generator(device=device).manual_seed(5))
+                set_static_scales(model)
+                logger.info("calibrated static int8 activation scales on the first batch "
+                            "(%d sites)", n_sites)
+            enc_noise, init_noise = draw_noise(
+                generator, (len(chunk), feat.shape[1], args.latent_dim), device)
+            units, _ = ddim_sample(
+                model, feat_d, mask_d, start_step=args.start_step, stride=args.ddim_stride,
+                enc_noise=enc_noise, init_noise=init_noise, device=device)
+            if behind is not None:
+                emit(*behind)
+            behind = (chunk, units)
+    if behind is not None:
+        emit(*behind)
     logger.info("%s: normalized %d utts in %.1fs (unit acc vs orig %.3f)",
                 split, len(out_rows), time.time() - t0, n_match / max(n_total, 1))
     write_translation_manifest(os.path.join(args.output_dir, f"{split}.tsv"), out_rows)

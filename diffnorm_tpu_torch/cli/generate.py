@@ -39,6 +39,10 @@ activation scale is calibrated on the first batch (`calibrate_act_scales`,
 its target's canvas) before that batch's decode, and the decode runs on
 those scales. `--quant-int8-static` alone does nothing, as in JAX.
 
+Batches load on a background thread, or on `--num-workers N` host
+threads, in order; the next two batches' sources are uploaded to the card
+while the current one decodes (JAX cli/generate.py:519-588).
+
 `--path a:b:c` decodes with an ensemble of those checkpoints (one
 architecture; the members' log-probs averaged each step, each member
 calibrated on its own with --quant-int8-static). `--retain-iter-history`
@@ -65,7 +69,7 @@ import torch
 from diffnorm_tpu_torch.cli.s2st import add_model_args, build_model, resolve_device_dtype
 from diffnorm_tpu_torch.data.dictionary import Dictionary
 from diffnorm_tpu_torch.data.encoders import post_process
-from diffnorm_tpu_torch.data.iterators import EpochBatchIterator
+from diffnorm_tpu_torch.data.iterators import EpochBatchIterator, read_ahead
 from diffnorm_tpu_torch.data.s2s_dataset import SpeechToUnitDataset
 from diffnorm_tpu_torch.eval.bleu import BleuAccumulator
 from diffnorm_tpu_torch.eval.wer import WerAccumulator
@@ -124,6 +128,8 @@ def parse_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
     p.add_argument("--results-path", default=None)
     p.add_argument("--max-tokens", type=int, default=None)
     p.add_argument("--batch-size", type=int, default=None)
+    p.add_argument("--num-workers", type=int, default=0,
+                   help="host threads that load the batches (0: one background thread)")
     p.add_argument("--max-target-positions", type=int, default=256)
     p.add_argument("--iter-decode-max-iter", type=int, default=15)
     p.add_argument("--iter-decode-with-beam", type=int, default=1)
@@ -188,16 +194,22 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
         bleu, wer, sb_hyps, sb_refs = BleuAccumulator(), WerAccumulator(), [], []
         n_sent, total_steps, t0 = 0, 0, time.time()
         itr = EpochBatchIterator(dataset, max_tokens=args.max_tokens,
-                                 max_sentences=args.batch_size, shuffle=False)
-        for batch in itr.next_epoch_itr():
+                                 max_sentences=args.batch_size, shuffle=False,
+                                 num_workers=args.num_workers)
+
+        def upload(batch: Dict) -> Dict:
+            """The batch with its sources on the card (started ahead of
+            their decode)."""
+            return {**batch, **{key: torch.from_numpy(batch[key]).to(device, non_blocking=True)
+                                for key in ("src_tokens", "src_lengths")}}
+
+        for batch in read_ahead(itr.next_epoch_itr(), upload, depth=2):
             if calibrate:
                 target = batch.get("target")
                 if target is not None:
                     target = torch.from_numpy(target).to(device)
                 for model in models:
-                    calibrate_act_scales(model,
-                                         torch.from_numpy(batch["src_tokens"]).to(device),
-                                         torch.from_numpy(batch["src_lengths"]).to(device),
+                    calibrate_act_scales(model, batch["src_tokens"], batch["src_lengths"],
                                          target)
                     set_static_scales(model, True)
                 logger.info("calibrated static int8 activation scales on the first batch")
@@ -208,8 +220,7 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
                                             for i in batch["id"]], device=device)
             tgt_speaker = batch.get("tgt_speaker")
             out = mask_predict_decode_chunked(
-                models, torch.from_numpy(batch["src_tokens"]).to(device),
-                torch.from_numpy(batch["src_lengths"]).to(device), chunk=args.decode_chunk,
+                models, batch["src_tokens"], batch["src_lengths"], chunk=args.decode_chunk,
                 max_iter=args.iter_decode_max_iter, max_len=min(args.max_target_positions, 256),
                 cond_scale=args.cond_scale, length_beam=beam, true_length=true_length,
                 adaptive=not args.iter_decode_force_max_iter,

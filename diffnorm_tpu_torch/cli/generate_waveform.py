@@ -14,7 +14,9 @@ drops), synthesizes each through the code-HiFi-GAN of --vocoder-cfg
 `.bin`, through `utils/convert_weights.py`), or a `weights.save_npz` file
 or a step directory holding one, whose tree is the vocoder's variables, its
 params alone, or a GAN state with them under `g_params`. Runs in float32,
-on the GPU unless --cpu is given.
+on the GPU unless --cpu is given. `--int8-vocoder dynamic|static` runs the
+narrow stages' ResBlock convs W8A8, as JAX's DIFFNORM_INT8_VOCODER
+(`models/hifigan.py`; static calibrates on JAX's seeded batch first).
 """
 
 from __future__ import annotations
@@ -31,7 +33,7 @@ import numpy as np
 import torch
 
 from diffnorm_tpu_torch.device import resolve_device
-from diffnorm_tpu_torch.models.hifigan import CodeHiFiGANVocoder
+from diffnorm_tpu_torch.models.hifigan import INT8_MODES, CodeHiFiGANVocoder
 from diffnorm_tpu_torch.train.checkpoint import load_tree
 from diffnorm_tpu_torch.weights import as_variables
 
@@ -70,10 +72,12 @@ def parse_code_line(line: str) -> np.ndarray:
 
 
 def load_vocoder(ckpt_path: str, cfg_path: str, device="cuda",
-                 dtype: torch.dtype = torch.float32) -> CodeHiFiGANVocoder:
+                 dtype: torch.dtype = torch.float32,
+                 int8_vocoder: str = "off") -> CodeHiFiGANVocoder:
     """The code-HiFi-GAN of config `cfg_path` with the weights of
     `ckpt_path` (see the module docstring), on `device`: the card unless
-    `device="cpu"` is asked for (raises without CUDA)."""
+    `device="cpu"` is asked for (raises without CUDA); `int8_vocoder` as
+    `CodeHiFiGANVocoder.from_config` takes it."""
     device = resolve_device(device)
     with open(cfg_path) as f:
         cfg = json.load(f)
@@ -85,7 +89,8 @@ def load_vocoder(ckpt_path: str, cfg_path: str, device="cuda",
         tree = load_tree(ckpt_path)
         # a GAN fine-tune's state: the generator subtree is the vocoder
         variables = {"params": tree["g_params"]} if "g_params" in tree else as_variables(tree)
-    return CodeHiFiGANVocoder.from_config(cfg, variables, device=device, dtype=dtype)
+    return CodeHiFiGANVocoder.from_config(cfg, variables, device=device, dtype=dtype,
+                                          int8_vocoder=int8_vocoder)
 
 
 def parse_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
@@ -98,6 +103,8 @@ def parse_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
     p.add_argument("--reduce", action="store_true")
     p.add_argument("--sample-rate", type=int, default=16000)
     p.add_argument("--cpu", action="store_true", help="run on the CPU")
+    p.add_argument("--int8-vocoder", choices=INT8_MODES, default="off",
+                   help="W8A8 ResBlock convs on the narrow stages")
     return p.parse_args(argv)
 
 
@@ -105,7 +112,8 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
     logging.basicConfig(level=logging.INFO, force=True,
                         format="%(asctime)s | %(levelname)s | %(message)s")
     args = parse_args(argv)
-    vocoder = load_vocoder(args.vocoder, args.vocoder_cfg, device="cpu" if args.cpu else "cuda")
+    vocoder = load_vocoder(args.vocoder, args.vocoder_cfg, device="cpu" if args.cpu else "cuda",
+                           int8_vocoder=args.int8_vocoder)
     os.makedirs(args.results_path, exist_ok=True)
     with open(args.in_code_file) as f:
         lines = [line for line in f if line.strip()]

@@ -19,6 +19,8 @@ in float32. `--params-npz` / `--vocoder-npz` are JAX variables trees
 give the model's options (a data config with `target_speaker_embed`
 conditions each utterance on its speaker embedding). As in JAX, the CLI
 passes no vocoder speaker, so a multi-speaker vocoder (`multispkr`) raises.
+`--int8-vocoder dynamic|static` runs the vocoder's narrow-stage ResBlock
+convs W8A8, as JAX's DIFFNORM_INT8_VOCODER (`models/hifigan.py`).
 """
 
 from __future__ import annotations
@@ -34,6 +36,7 @@ import numpy as np
 import torch
 
 from diffnorm_tpu_torch.cli.generate_waveform import load_vocoder, write_wav
+from diffnorm_tpu_torch.models.hifigan import INT8_MODES
 from diffnorm_tpu_torch.data.s2s_dataset import SpeechToUnitDataset
 from diffnorm_tpu_torch.device import resolve_device
 from diffnorm_tpu_torch.generate.s2st import s2st_generate
@@ -67,6 +70,8 @@ def parse_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
     p.add_argument("--dur-prediction", action="store_true")
     p.add_argument("--max-duration", type=int, default=8)
     p.add_argument("--vocoder-chunk", type=int, default=4)
+    p.add_argument("--int8-vocoder", choices=INT8_MODES, default="off",
+                   help="W8A8 ResBlock convs on the vocoder's narrow stages")
     p.add_argument("--sample-rate", type=int, default=16000)
     add_model_args(p)
     return p.parse_args(argv)
@@ -142,7 +147,8 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
     args = parse_args(argv)
     device, dtype = resolve_device_dtype(args)
     model = build_model(args, args.params_npz, device, dtype)
-    vocoder = load_vocoder(args.vocoder_npz, args.vocoder_cfg, device=device, dtype=dtype).module
+    vocoder = load_vocoder(args.vocoder_npz, args.vocoder_cfg, device=device, dtype=dtype,
+                           int8_vocoder=args.int8_vocoder).module
     dataset = SpeechToUnitDataset.from_tsv(args.data, args.gen_subset)
     os.makedirs(args.results_path, exist_ok=True)
 

@@ -7,8 +7,10 @@ DiffNorm's fourth stage); `--task unit_to_speech` goes to `cli.train_vocoder` wi
 arguments, as JAX's does, and `--task repr_to_speech` too with
 `--input-type features`. It takes every flag of scripts/vae_train.sh,
 scripts/diffusion_train.sh and scripts/s2ut_train.sh with the same meaning;
-a flag it does not implement is an error, and int8 training
-(`--quant-int8`), which is not ported, raises. --encoder-remat recomputes
+a flag it does not implement is an error. `--quant-int8` trains the
+normalizer's and the NAR model's matmuls as int8 W8A8 on the int8 module
+path, the gradient reaching inputs and weights through their scales alone,
+as JAX's does (the VAE ignores it, as JAX's builder does). --encoder-remat recomputes
 each conformer layer in the backward (less activation memory on long
 sources, the same update). The NAR model's options:
 --n-frames-per-step k (stacked units), --multitask-config-yaml Y (aux
@@ -43,6 +45,17 @@ strings; each batch's CMLM canvas is drawn from one
 `np.random.default_rng(seed)`, each training micro-batch in order, then each
 validation batch.
 
+Batches: --max-tokens and --batch-size (sentences) bound them, in
+multiples of --required-batch-size-multiple; --curriculum N keeps them in
+order for the first N epochs; --num-workers N loads them on N host threads
+(one background thread by default), in order, so batch lists and resume
+offsets do not depend on it. The upload of the next two batches to the
+card runs while the current update does; each update marks its batches
+trained, so a checkpoint taken mid-epoch (--save-interval-updates) resumes
+at the first batch not trained. `DATA` may be `dir1:dir2:...`: epoch e
+trains on shard (e - 1) % n, validation reads the first (JAX
+tasks/base.py:48-80); a resumed mid-epoch position carries into its shard.
+
 Runs on the GPU unless --cpu is given. Logs `epoch E | step N | ...` lines,
 `valid | ...`, `saved checkpoint at step N`; a re-run with a higher
 --max-update continues from the last checkpoint (`resumed from step N`).
@@ -58,7 +71,12 @@ PATH is a step directory of this CLI and the whole trainer state carries
 over: weights, the optimizer's state, update count, generators and EMA, and
 from the sidecar `PATH.json` the epoch and iterator position, unless
 `--reset-dataloader`, and a host-driven schedule's state, unless
-`--reset-lr-scheduler`.
+`--reset-lr-scheduler`. A step directory that `scripts/orbax_to_npz.py`
+bridged from a JAX TrainState holds `optax_state.npz` in place of
+trainer.pt: its optimizer state (the chain that the same flags build in
+JAX; another chain is refused), update count and EMA load into the
+trainer, and the generators, which JAX's PRNG keys cannot become, are
+seeded from --seed.
 
 The continuous tasks: `--task speech_diffusion` (`--arch diff_latent`,
 ddpm_latent_loss) and `speech_diffusion_hubert` (`--arch diff_hubert`: the
@@ -98,13 +116,24 @@ from typing import Dict, Optional, Sequence
 import numpy as np
 import torch
 
-from diffnorm_tpu_torch.data.iterators import EpochBatchIterator, grouped, iterate_valid
+from diffnorm_tpu_torch.data.iterators import (
+    EpochBatchIterator,
+    grouped,
+    iterate_valid,
+    read_ahead,
+)
 from diffnorm_tpu_torch.device import resolve_device
 from diffnorm_tpu_torch.models.diffusion import ARCHS as DIFFUSION_ARCHS
 from diffnorm_tpu_torch.models.nar_transformer import ARCHS as NAR_ARCHS
 from diffnorm_tpu_torch.tasks import TASKS
 from diffnorm_tpu_torch.train import metrics as metrics_mod
-from diffnorm_tpu_torch.train.checkpoint import TRAINER, CheckpointManager, load_variables
+from diffnorm_tpu_torch.train.checkpoint import (
+    OPTAX_STATE,
+    TRAINER,
+    CheckpointManager,
+    load_optax_state,
+    load_variables,
+)
 from diffnorm_tpu_torch.train.lr_schedules import LR_SCHEDULES
 from diffnorm_tpu_torch.train.optimizers import OPTIMIZER_NAMES
 from diffnorm_tpu_torch.train.progress import LOG_FORMATS, ProgressWriter
@@ -133,8 +162,6 @@ OPTIONS = ("min_lr", "end_learning_rate", "power", "lr_decay_period", "lr_deacy_
            "clip_threshold", "initial_accumulator_value", "composite_groups",
            "composite_default", "freeze_finetune_updates", "freeze_finetune_subtrees",
            "loss_scale")
-# flags of the JAX CLI's NAR model that the port does not implement
-UNPORTED = ("quant_int8",)
 
 
 def _bool(value: str) -> bool:
@@ -234,9 +261,7 @@ def build_parser(description: str, train: bool = True) -> argparse.ArgumentParse
     _flag(p, "--target-speaker-embed", help="condition the encoder on a speaker embedding")
     p.add_argument("--speaker-embed-dim", type=int, default=256)
     _flag(p, "--encoder-remat", help="recompute each conformer layer in the backward")
-    for name in UNPORTED:
-        p.add_argument("--" + name.replace("_", "-"), nargs="?", const=True, default=None,
-                       help="not ported: raises")
+    _flag(p, "--quant-int8", help="int8 W8A8 matmuls in the normalizer and the NAR model")
     # data
     p.add_argument("--config-yaml", help="the data config, relative to DATA "
                                           "(default config.yaml)")
@@ -244,6 +269,13 @@ def build_parser(description: str, train: bool = True) -> argparse.ArgumentParse
     p.add_argument("--train-subset", default="train")
     p.add_argument("--valid-subset", default="dev")
     p.add_argument("--max-tokens", type=int)
+    p.add_argument("--batch-size", "--max-sentences", dest="batch_size", type=int,
+                   help="sentences per batch at most")
+    p.add_argument("--required-batch-size-multiple", type=int, default=1)
+    p.add_argument("--num-workers", type=int, default=0,
+                   help="host threads that load the batches (0: one background thread)")
+    p.add_argument("--curriculum", type=int, default=0,
+                   help="the batches in order for the first N epochs")
     p.add_argument("--max-source-positions", type=int)
     p.add_argument("--max-target-positions", type=int)
     p.add_argument("--seed", type=int, default=1)
@@ -299,6 +331,8 @@ def build_parser(description: str, train: bool = True) -> argparse.ArgumentParse
     p.add_argument("--best-checkpoint-metric", default="loss")
     p.add_argument("--validate-interval", type=int, default=1, help="epochs")
     p.add_argument("--save-interval", type=int, default=1, help="epochs")
+    p.add_argument("--save-interval-updates", type=int, default=0,
+                   help="also save every N updates, mid-epoch (0: off)")
     p.add_argument("--log-interval", type=int, default=100)
     p.add_argument("--log-format", choices=LOG_FORMATS, default="simple")
     p.add_argument("--tensorboard-logdir")
@@ -314,9 +348,6 @@ def check_args(p: argparse.ArgumentParser, args: argparse.Namespace) -> argparse
         p.error(f"--criterion {args.criterion}: task {args.task} trains {criterion}")
     if args.arch is not None and args.arch not in archs:
         p.error(f"--arch {args.arch}: task {args.task} trains {' or '.join(archs)}")
-    for name in UNPORTED:
-        if str(getattr(args, name)).lower() not in ("none", "false", "0"):
-            raise NotImplementedError(f"--{name.replace('_', '-')} is not ported")
     if args.use_cond:
         p.error("--use-cond: no task feeds the prompt-conditioned denoiser a prompt (nor does "
                 "JAX's: its criterions pass none, and its Denoiser asserts one, "
@@ -398,16 +429,27 @@ def restore(args: argparse.Namespace, ckpt: CheckpointManager, model: torch.nn.M
             for col, tree in mine.items()})
         logger.info("warm-started params from %s (optimizer reset)", rf)
         return None, None, None
-    if not os.path.exists(os.path.join(rf, TRAINER)):
-        raise ValueError(f"--restore-file {rf} holds no trainer state ({TRAINER}), as a "
-                         f"converted or bridged checkpoint does: add --reset-optimizer")
-    state = torch.load(os.path.join(rf, TRAINER), map_location=device)
-    with open(rf.rstrip("/") + ".json") as f:
-        extra = json.load(f)
+    if os.path.exists(os.path.join(rf, TRAINER)):
+        state = torch.load(os.path.join(rf, TRAINER), map_location=device)
+    elif os.path.exists(os.path.join(rf, OPTAX_STATE)):  # bridged from JAX
+        state = {OPTAX_STATE: load_optax_state(rf)}
+    else:
+        raise ValueError(f"--restore-file {rf} holds no trainer state ({TRAINER} or "
+                         f"{OPTAX_STATE}), as a converted checkpoint does: add "
+                         f"--reset-optimizer")
+    sidecar = rf.rstrip("/") + ".json"
+    extra = {}
+    if os.path.exists(sidecar):
+        with open(sidecar) as f:
+            extra = json.load(f)
+    elif OPTAX_STATE not in state:
+        raise ValueError(f"--restore-file {rf}: no sidecar {sidecar}")
     from_jax_variables(model, load_variables(rf))
     logger.info("restored %s at step %s", rf, extra.get("step"))
-    return (state, None if args.reset_dataloader else extra,
-            None if args.reset_lr_scheduler else extra.get("lr_scheduler"))
+    if "iterator" not in extra:  # a bridged step directory without its sidecar
+        extra = None
+    return (state, None if args.reset_dataloader or extra is None else extra,
+            None if args.reset_lr_scheduler or extra is None else extra.get("lr_scheduler"))
 
 
 def validate_split(task, trainer: Trainer, args: argparse.Namespace,
@@ -452,10 +494,15 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
         model = task.build_model()
     task.load_frozen_params(model)
 
+    def make_epoch_itr(ds) -> EpochBatchIterator:
+        return EpochBatchIterator(
+            ds, max_tokens=args.max_tokens, max_sentences=args.batch_size,
+            required_batch_size_multiple=args.required_batch_size_multiple, seed=args.seed,
+            num_workers=args.num_workers, max_positions=max_positions(args),
+            ignore_invalid_inputs=True, curriculum=args.curriculum)
+
     dataset = task.dataset(args.train_subset)
-    epoch_itr = EpochBatchIterator(
-        dataset, max_tokens=args.max_tokens, seed=args.seed,
-        max_positions=max_positions(args), ignore_invalid_inputs=True)
+    epoch_itr = make_epoch_itr(dataset)
     # JAX builds its example batch from dataset[0] here, on every start, before
     # a checkpoint is restored (cli/train.py:141-144): the item is thrown away,
     # but the draw advances the dataset's SpecAugment generator as JAX's does
@@ -471,13 +518,20 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
     logger.info("model params (trainable): %.2fM on %s, forward in %s", n_params / 1e6,
                 device, args.dtype)
     start_epoch = 1
-    if state is not None:
+    if state is not None and OPTAX_STATE in state:
+        trainer.load_optax_state(state[OPTAX_STATE])
+        logger.info("loaded the JAX optimizer state of %s at step %d; the generators are "
+                    "seeded from --seed %d (JAX's PRNG keys do not carry over)",
+                    args.restore_file, trainer.num_updates, args.seed)
+    elif state is not None:
         trainer.load_state_dict(state)
     if extra is not None:
         epoch_itr.load_state_dict(extra["iterator"])
         start_epoch = extra["epoch"]
     trainer.load_lr_state_dict(lr_state)
     np_rng = np.random.default_rng(args.seed)  # the batches' draws (the CMLM canvases)
+    if hasattr(task, "set_num_updates"):
+        task.set_num_updates(trainer.num_updates)
     progress = ProgressWriter(args.log_format, args.tensorboard_logdir, args.wandb_project)
 
     def run_validation() -> Optional[float]:
@@ -488,6 +542,10 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
             return None
         logger.info("valid | %s", fmt_metrics(vals))
         return vals.get(args.best_checkpoint_metric)
+
+    def prepare(micro):
+        """A group's batches prepared (their draws, in order) and on the card."""
+        return [trainer.upload(task.prepare_batch(b, np_rng)) for b in micro]
 
     def save(epoch: int, metric: Optional[float]) -> None:
         sidecar = {"epoch": epoch, "iterator": epoch_itr.state_dict()}
@@ -500,16 +558,32 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
     epoch = start_epoch
     while not done:
         trainer.lr_step_begin_epoch(epoch)  # manual's epoch2lr
+        if task.has_sharded_data():
+            # --data dir1:dir2:...: a new shard, a new iterator, which takes a
+            # resumed mid-epoch position in the first epoch (JAX cli/train.py:295-310)
+            ds = task.dataset(args.train_subset, epoch=epoch)
+            if ds is not dataset:
+                saved = epoch_itr.state_dict() if epoch == start_epoch else None
+                dataset, epoch_itr = ds, make_epoch_itr(ds)
+                if saved is not None:
+                    epoch_itr.load_state_dict(saved)
+                else:
+                    epoch_itr.epoch = epoch
+                logger.info("loaded data shard %s for epoch %d", task.data_path(epoch), epoch)
         interval, t0, first = metrics_mod.MetricsAggregator(), time.time(), step
         with metrics_mod.aggregate(interval):
-            for micro in grouped(epoch_itr.next_epoch_itr(), args.update_freq):
-                if hasattr(task, "set_num_updates"):
-                    # JAX prepares each group two ahead of its step (its device
-                    # prefetch reads ahead by 2), so the loss weights it injects
-                    # follow the update count of two steps before, within an epoch
-                    task.set_num_updates(max(first, step - 2))
-                mets = trainer.train_step([task.prepare_batch(b, np_rng) for b in micro])
+            # the next two groups are prepared and uploaded while this one
+            # trains, as JAX's device prefetch: the multitask loss weights a
+            # group takes follow the update count two updates before its own
+            groups = grouped(epoch_itr.next_epoch_itr(), args.update_freq)
+            for micro in read_ahead(groups, prepare, depth=2):
+                mets = trainer.train_step(micro)
                 step = trainer.num_updates
+                if hasattr(task, "set_num_updates"):
+                    task.set_num_updates(step)
+                epoch_itr.mark_trained(len(micro))  # the resume offset
+                if args.save_interval_updates and step % args.save_interval_updates == 0:
+                    save(epoch, None)
                 if step % args.log_interval == 0:
                     progress.log(mets, step)
                     ups = args.log_interval / max(time.time() - t0, 1e-6)

@@ -24,9 +24,14 @@ reads for a CodeGenerator), `trainer.pt` both optimizers' moments and
 counts. A re-run with a higher --max-update continues from the last one
 (`resumed from step N`). Runs on the GPU unless --cpu is given.
 
-Not ported, and raising NotImplementedError: --num-workers > 0 (ROADMAP
-Queue 1 item 2), and the multi-speaker fine-tune (a `multispkr` config with
---input-type code: JAX's CLI builds a single-speaker generator for it).
+Batches load on a background thread, or with `--num-workers N` on N host
+threads (the audio reads, crops and transforms), in order: the batch lists
+do not depend on N, but crops and transforms drawn from the dataset's one
+generator come in another order under N > 1, as in JAX.
+
+Not ported, and raising NotImplementedError: the multi-speaker fine-tune
+(a `multispkr` config with --input-type code: JAX's CLI builds a
+single-speaker generator for it).
 """
 
 from __future__ import annotations
@@ -87,14 +92,12 @@ def parse_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
     p.add_argument("--cpu", action="store_true", help="run on the CPU")
     p.add_argument("--data-config", help="the dataset's transforms (YAML)")
     p.add_argument("--input-type", choices=("code", "features"), default="code")
-    p.add_argument("--num-workers", type=int, default=0)
+    p.add_argument("--num-workers", type=int, default=0,
+                   help="host threads that load the batches (0: one background thread)")
     args = p.parse_args(argv)
     needs = "feat_manifest" if args.input_type == "features" else "units_file"
     if getattr(args, needs) is None:
         p.error(f"--input-type {args.input_type} needs --{needs.replace('_', '-')}")
-    if args.num_workers > 0:
-        raise NotImplementedError("--num-workers > 0 is not ported: batches load on the "
-                                  "training thread (ROADMAP Queue 1 item 2)")
     return args
 
 
@@ -151,7 +154,8 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
     dataset = build_dataset(args, vcfg)
     trainer = GanTrainer(gen, vars(args), device)
     logger.info("dataset: %d utterances", len(dataset))
-    itr = EpochBatchIterator(dataset, max_sentences=args.batch_size, seed=args.seed)
+    itr = EpochBatchIterator(dataset, max_sentences=args.batch_size, seed=args.seed,
+                             num_workers=args.num_workers)
     # JAX builds its example batch from dataset[0] here, on every start
     # (train_vocoder.py:111): the batch is thrown away, but its draws
     # (the crop, the transforms, the collater's noisy overlap) advance the

@@ -20,11 +20,25 @@ This is the direct-conv math. The JAX package's default for the stages of
 convolutions here go to cuDNN (F.conv1d / conv_transpose1d) on the card, as
 JAX leaves them to XLA outside any Pallas kernel. Layout [B, T, C] at the
 module edges, [B, C, T] inside.
+
+The int8 vocoder (JAX's DIFFNORM_INT8_VOCODER, opt-in; `int8_vocoder` on
+the generators, "dynamic" or "static"): every ResBlock conv of a stage of
+<= 64 channels (128 % C == 0, the stages JAX packs) runs W8A8 with the
+function of JAX's packed int8 conv in the direct layout: one per-tensor
+weight scale amax|w| / 127 (in the weights' type), one per-tensor
+activation scale per conv input (amax|x| / 127, or a calibrated amax),
+the int32 sum over the k dilated taps in one `torch._int_mm` (the taps
+side by side, k * C deep), then acc * (a_scale * k_scale) and the bias. JAX pads T to a multiple of its packing factor and
+zeroes the tail after every conv, so its sums and scales are the direct
+layout's. "static" quantizes by the amaxes `calibrating` recorded (JAX's
+`quant_stats/packed_{i}_{j}`: max|lrelu(.)| before each conv of a block, two
+per dilation), a block without them dynamically.
 """
 
 from __future__ import annotations
 
-from typing import Dict, Optional, Sequence
+import contextlib
+from typing import Dict, Iterator, List, Optional, Sequence
 
 import numpy as np
 import torch
@@ -33,6 +47,7 @@ from torch import nn
 
 from diffnorm_tpu_torch.models.conformer import layer_norm
 from diffnorm_tpu_torch.models.layers import Dense
+from diffnorm_tpu_torch.ops import quant as quant_ops
 
 LRELU_SLOPE = 0.1
 
@@ -45,7 +60,39 @@ def _conv(c_in: int, c_out: int, k: int, dilation: int = 1) -> nn.Conv1d:
     return nn.Conv1d(c_in, c_out, k, dilation=dilation, padding=(k * dilation - dilation) // 2)
 
 
+INT8_MODES = ("off", "dynamic", "static")
+
+
+def int8_same_conv(x: torch.Tensor, conv: nn.Conv1d,
+                   act_amax: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """The W8A8 SAME dilated conv of JAX's packed_same_conv (int8 branch,
+    ops/packed_conv.py:145-237) in the direct layout: x [B, C, T] ->
+    [B, C_out, T] in x's type."""
+    w, d = conv.weight, conv.dilation[0]
+    k = w.shape[-1]
+    k_scale = torch.clamp(quant_ops._div(w.abs().amax(), 127.0), min=1e-12)
+    wq = torch.round(quant_ops._div(w.float(), k_scale.float())).to(torch.int8)
+    xt = x.transpose(1, 2)
+    if act_amax is not None:
+        xq, a_scale = quant_ops.quantize_act_static(xt, act_amax)
+    else:
+        xq, a_scale = quant_ops.quantize_act(xt, per_tensor=True)
+    b, t, c = xq.shape
+    pad = (k - 1) // 2 * d
+    xp = F.pad(xq, (0, 0, pad, pad))
+    cols = torch.cat([xp[:, j * d:j * d + t] for j in range(k)], dim=-1)  # [B, T, k*C]
+    acc = quant_ops.int_mm(cols.reshape(b * t, k * c), wq.permute(0, 2, 1).reshape(w.shape[0], -1))
+    scale = a_scale.reshape(()).float() * k_scale.float()
+    y = (acc.float() * scale).to(x.dtype) + conv.bias.to(x.dtype)
+    return y.reshape(b, t, -1).transpose(1, 2)
+
+
 class ResBlock(nn.Module):
+    """`int8` ("off", "dynamic", "static") runs the convs W8A8
+    (`int8_same_conv`); `act_amax` [2 * len(dilations)] holds the
+    calibrated input amaxes (conv1_j at 2j, conv2_j at 2j + 1), recorded
+    while `calibrating`."""
+
     def __init__(self, channels: int, kernel_size: int = 3,
                  dilations: Sequence[int] = (1, 3, 5)):
         super().__init__()
@@ -53,12 +100,34 @@ class ResBlock(nn.Module):
         for j, d in enumerate(dilations):
             self.add_module(f"conv1_{j}", _conv(channels, channels, kernel_size, d))
             self.add_module(f"conv2_{j}", _conv(channels, channels, kernel_size))
+        self.int8, self.calibrating = "off", False
+        self.register_buffer("act_amax", None, persistent=False)
+
+    def _apply(self, fn, recurse=True):
+        amax = self._buffers.get("act_amax")
+        out = super()._apply(fn, recurse)
+        if amax is not None:  # calibrated amaxes stay float32
+            self._buffers["act_amax"] = amax.to(self._buffers["act_amax"].device)
+        return out
+
+    def _conv(self, name: str, h: torch.Tensor, site: int, observed: List) -> torch.Tensor:
+        conv = getattr(self, name)
+        if self.int8 == "off":
+            return conv(h)
+        static = self.int8 == "static" and self.act_amax is not None
+        if self.calibrating and not static:
+            observed.append(h.abs().amax().float())
+        return int8_same_conv(h, conv, self.act_amax[site] if static else None)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         """x [B, C, T]."""
+        observed: List[torch.Tensor] = []
         for j in range(self.n):
-            h = getattr(self, f"conv1_{j}")(leaky_relu(x))
-            x = x + getattr(self, f"conv2_{j}")(leaky_relu(h))
+            h = self._conv(f"conv1_{j}", leaky_relu(x), 2 * j, observed)
+            x = x + self._conv(f"conv2_{j}", leaky_relu(h), 2 * j + 1, observed)
+        if observed:  # a running max over the calibration calls
+            seen = torch.stack(observed)
+            self.act_amax = seen if self.act_amax is None else torch.maximum(self.act_amax, seen)
         return x
 
 
@@ -84,6 +153,36 @@ class HifiGanGenerator(nn.Module):
             for j, (rk, rd) in enumerate(zip(resblock_kernel_sizes, resblock_dilation_sizes)):
                 self.add_module(f"resblock_{i}_{j}", ResBlock(ch, rk, tuple(rd)))
         self.conv_post = _conv(ch, 1, 7)
+
+    def int8_blocks(self) -> Dict[str, ResBlock]:
+        """JAX's packed_{i}_{j} name of every ResBlock the int8 vocoder runs
+        (the stages of <= 64 channels that divide 128)."""
+        out = {}
+        for i in range(self.n_up):
+            for j in range(self.n_res):
+                block = getattr(self, f"resblock_{i}_{j}")
+                ch = block.conv1_0.weight.shape[0]
+                if ch <= 64 and 128 % ch == 0:
+                    out[f"packed_{i}_{j}"] = block
+        return out
+
+    def set_int8(self, mode: str) -> None:
+        if mode not in INT8_MODES:
+            raise ValueError(f"int8 vocoder mode must be one of {INT8_MODES}, got {mode!r}")
+        for block in self.int8_blocks().values():
+            block.int8 = mode
+
+    def int8_stats(self) -> Dict[str, np.ndarray]:
+        """The calibrated amaxes as JAX's quant_stats: {packed_i_j: [2n]}."""
+        return {name: b.act_amax.float().cpu().numpy()
+                for name, b in self.int8_blocks().items() if b.act_amax is not None}
+
+    def load_int8_stats(self, stats: Dict[str, np.ndarray]) -> None:
+        blocks = self.int8_blocks()
+        for name, amax in stats.items():
+            block = blocks[name]
+            block.act_amax = torch.as_tensor(np.asarray(amax, np.float32),
+                                             device=block.conv1_0.weight.device)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         x = self.conv_pre(x.to(self.conv_pre.weight.dtype).transpose(1, 2))
@@ -129,12 +228,14 @@ class CodeGenerator(nn.Module):
                  resblock_kernel_sizes: Sequence[int] = (3, 7, 11),
                  resblock_dilation_sizes: Sequence[Sequence[int]] = ((1, 3, 5),) * 3,
                  dur_predictor: bool = False, var_pred_hidden_dim: int = 256,
-                 var_pred_kernel_size: int = 3, num_speakers: int = 0):
+                 var_pred_kernel_size: int = 3, num_speakers: int = 0,
+                 int8_vocoder: str = "off"):
         super().__init__()
         self.dict = nn.Embedding(num_embeddings, embedding_dim)
         self.generator = HifiGanGenerator(
             embedding_dim * (2 if num_speakers else 1), upsample_rates, upsample_kernel_sizes,
             upsample_initial_channel, resblock_kernel_sizes, resblock_dilation_sizes)
+        self.generator.set_int8(int8_vocoder)
         self.spkr = nn.Embedding(num_speakers, embedding_dim) if num_speakers else None
         self.upsample = int(np.prod(upsample_rates))
         self.dur_predictor = (VariancePredictor(embedding_dim, var_pred_hidden_dim,
@@ -159,6 +260,37 @@ class CodeGenerator(nn.Module):
                 raise ValueError("the multi-speaker vocoder needs speaker ids (spkr)")
             x = torch.cat([x, self.spkr(spkr)[:, None, :].expand_as(x)], dim=-1)
         return self.generator(x)
+
+
+@contextlib.contextmanager
+def calibrating(generator: HifiGanGenerator) -> Iterator[None]:
+    """JAX's calibrate_apply over the enclosed forwards: every int8 block
+    without static amaxes records the running max of its conv inputs."""
+    blocks = list(generator.int8_blocks().values())
+    for block in blocks:
+        block.calibrating = True
+    try:
+        yield
+    finally:
+        for block in blocks:
+            block.calibrating = False
+
+
+CALIBRATION_CODES = (4, 64)  # bench.py:964-966's codes: rng 2, [4, 64]
+
+
+@torch.no_grad()
+def calibrate_int8_vocoder(module: "CodeGenerator") -> None:
+    """Record the static amaxes on JAX's calibration batch, seeded codes
+    [4, 64] from np.random.default_rng(2) (bench.py:959-967; speaker 0
+    for a multi-speaker vocoder)."""
+    codes = np.random.default_rng(2).integers(0, module.dict.num_embeddings,
+                                              size=CALIBRATION_CODES)
+    device = module.dict.weight.device
+    spkr = (torch.zeros(CALIBRATION_CODES[0], dtype=torch.long, device=device)
+            if module.spkr is not None else None)
+    with calibrating(module.generator):
+        module(torch.as_tensor(codes, device=device), spkr)
 
 
 class FeatureGenerator(nn.Module):
@@ -192,11 +324,13 @@ class CodeHiFiGANVocoder:
 
     @classmethod
     def from_config(cls, cfg: Dict, variables=None, device="cuda",
-                    dtype: torch.dtype = torch.float32) -> "CodeHiFiGANVocoder":
+                    dtype: torch.dtype = torch.float32,
+                    int8_vocoder: str = "off") -> "CodeHiFiGANVocoder":
         """The vocoder of a config dict; `variables` (a JAX variables tree)
         loads its weights, else the init is torch's, from the global seed.
         Runs on the card unless `device="cpu"` is asked for; raises without
-        CUDA otherwise."""
+        CUDA otherwise. `int8_vocoder` "static" calibrates on JAX's batch
+        (`calibrate_int8_vocoder`) after the cast to `dtype`."""
         from diffnorm_tpu_torch.device import resolve_device
         from diffnorm_tpu_torch.weights import from_jax_variables
 
@@ -212,10 +346,14 @@ class CodeHiFiGANVocoder:
                 resblock_kernel_sizes=tuple(cfg["resblock_kernel_sizes"]),
                 resblock_dilation_sizes=tuple(tuple(d) for d in cfg["resblock_dilation_sizes"]),
                 dur_predictor=bool(dur), var_pred_hidden_dim=dur.get("var_pred_hidden_dim", 256),
-                num_speakers=cfg.get("num_speakers", 0) if cfg.get("multispkr") else 0)
+                num_speakers=cfg.get("num_speakers", 0) if cfg.get("multispkr") else 0,
+                int8_vocoder=int8_vocoder)
         if variables is not None:
             from_jax_variables(module, variables)
-        return cls(module.to(dtype).eval())
+        module = module.to(dtype).eval()
+        if int8_vocoder == "static":
+            calibrate_int8_vocoder(module)
+        return cls(module)
 
     @torch.no_grad()
     def __call__(self, units, dur_prediction: bool = False, reduce: bool = False) -> np.ndarray:

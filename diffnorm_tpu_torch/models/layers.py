@@ -15,6 +15,15 @@ casts, so they are built before the model is cast to bf16 and survive it.
 each int8 `Dense`, `CausalConv1d` and self-attention is one activation site
 (`ops.quant.QuantSite`) that can hold a calibrated static scale.
 
+Int8 training (`cli.train --quant-int8`) takes the int8 module path with the
+gradient JAX's `jax.grad` gives it: the int8 codes, `round` and the integer
+products carry none, so the gradient reaches x and w only through their
+scales, ax = amax|x| / 127 and ws = amax|w| / 127, in the dequant acc * ax *
+ws (no straight-through estimator). A trainer sets `live_int8` on the int8
+`Dense` sites of the model it trains: they then quantize their weight as it
+is at each call (their float32 master's values, `int8_master`, under a bf16
+working copy), not the pack.
+
 Float packs (`FeedForward`'s padded copies, the WaveNet chains) are cached
 buffers for inference, rebuilt when a parameter they copy has changed in
 place (`param_versions`). A forward that trains (grad mode on, a packed
@@ -122,6 +131,12 @@ class Dense(QuantSite, nn.Linear):
     bypasses the site as in JAX), exact int32 sums and JAX's dequant
     epilogue; the bias is added in the output dtype."""
 
+    # set by a trainer: quantize the weight at each call, not the pack
+    live_int8 = False
+    # (the float32 master,) of a bf16 working copy's weight, as JAX
+    # quantizes its float32 masters
+    int8_master: Tuple[torch.Tensor, ...] = ()
+
     def __init__(self, in_features: int, out_features: int, bias: bool = True,
                  quant: bool = False, knobs: Int8Knobs = Int8Knobs()):
         self.quant, self.knobs = quant, knobs
@@ -146,7 +161,15 @@ class Dense(QuantSite, nn.Linear):
             return F.linear(x, self.weight, self.bias)
         if pre_quant is None:
             pre_quant = self.quantize_input(x)
-        y = quant_ops.int8_matmul(x, self.int8.wq, self.int8.ws, pre_quant=pre_quant,
+        wq, ws = self.int8.wq, self.int8.ws
+        if self.live_int8:
+            w = self.weight.float()
+            if self.int8_master:
+                # the master's float32 values, the gradient to this weight
+                # (exact: w is the master rounded to bf16)
+                w = w + (self.int8_master[0] - w).detach()
+            wq, ws = quant_ops.quantize_weight(w, self.knobs.granularity)
+        y = quant_ops.int8_matmul(x, wq, ws, pre_quant=pre_quant,
                                   bf16_epilogue=self.knobs.deq_bf16)
         return y if self.bias is None else y + self.bias.to(y.dtype)
 
@@ -206,7 +229,7 @@ class CausalConv1d(QuantSite, nn.Module):
     def _forward_int8(self, x: torch.Tensor) -> torch.Tensor:
         knobs, dtype = self.knobs, x.dtype
         xq, ax = self.quantize_input(x)
-        w = self.weight.detach()  # one scale per output channel over [in, k]
+        w = self.weight  # one scale per output channel over [in, k]
         wq, ws = quant_ops.quantize_weight(w.reshape(w.shape[0], -1), knobs.granularity)
         wq, ws = wq.reshape(w.shape).permute(2, 0, 1).contiguous(), ws.reshape(1, -1)
         if ws.numel() == 1 and ax.numel() > 1:
@@ -365,6 +388,17 @@ class FeedForward(nn.Module):
         if self.conv is not None:
             h = causal_taps(h, w["w_conv"], 1) + w["b_conv"]
         return F.linear(h, w["w_out"], self.proj_out.bias)
+
+
+def set_live_int8(model: nn.Module, masters: Optional[nn.Module] = None) -> None:
+    """Int8 training: every int8 `Dense` of `model` quantizes its weight at
+    each call; with `masters` (the float32 model a bf16 `model` was cast
+    from) by the master weight's values."""
+    for name, m in model.named_modules():
+        if isinstance(m, Dense) and m.quant:
+            m.live_int8 = True
+            if masters is not None and masters is not model:
+                m.int8_master = (masters.get_submodule(name).weight,)
 
 
 class DropoutSite:

@@ -41,7 +41,9 @@ class SpeechDiffusionDiscreteTask(SpeechDecoderTask):
             wavenet_stacks=a.wavenet_stacks, vae_decoder_depth=a.vae_decoder_depth,
             vae_decoder_dim_head=a.vae_decoder_dim_head,
             vae_decoder_heads=a.vae_decoder_heads, chan_mults=a.chan_mults,
-            multitask=a.multitask, dropout=a.dropout, use_vae=a.use_vae)
+            multitask=a.multitask, dropout=a.dropout, use_vae=a.use_vae,
+            # training's int8 is the module route, as JAX's (no kernel has a backward)
+            quant_int8=bool(getattr(a, "quant_int8", False)), int8_route="module")
 
     def build_criterion(self) -> DDPMDiscreteLoss:
         return DDPMDiscreteLoss()

@@ -29,7 +29,7 @@ class MultitaskTaskMixin:
         mt_yaml = getattr(args, "multitask_config_yaml", None)
         if mt_yaml:
             if not os.path.isabs(mt_yaml):
-                mt_yaml = os.path.join(args.data, mt_yaml)
+                mt_yaml = os.path.join(self.data_path(1), mt_yaml)
             self.multitask_config = MultitaskConfig(mt_yaml)
             self.multitask_tasks = self.multitask_config.get_all_tasks()
 

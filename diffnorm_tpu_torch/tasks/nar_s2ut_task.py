@@ -86,11 +86,11 @@ class NARS2UTTask(MultitaskTaskMixin, Task):
         self.tgt_dict = Dictionary.unit_dictionary(args.target_code_size)
         self._init_multitask(args)
 
-    def load_dataset(self, split: str) -> None:
+    def load_dataset(self, split: str, epoch: int = 1) -> None:
         # the dataset's seed stays 1 (its tie shuffle and SpecAugment
         # stream), as JAX's task passes none
         ds = SpeechToUnitDataset.from_tsv(
-            self.args.data, split, tgt_dict=self.tgt_dict, config_yaml=self.args.config_yaml,
+            self.data_path(epoch), split, tgt_dict=self.tgt_dict, config_yaml=self.args.config_yaml,
             is_train=split.startswith("train"))
         self.attach_multitask(ds, split)
         self.datasets[split] = ds
@@ -129,7 +129,7 @@ class NARS2UTTask(MultitaskTaskMixin, Task):
             multitask=self.aux_task_specs(), ctc_vocab=a.multitask_ctc_vocab,
             target_speaker_embed=bool(a.target_speaker_embed),
             speaker_embed_dim=a.speaker_embed_dim,
-            encoder_remat=a.encoder_remat)
+            encoder_remat=a.encoder_remat, quant_int8=bool(getattr(a, "quant_int8", False)))
 
     def build_criterion(self) -> NARSpeechToUnitLoss:
         return NARSpeechToUnitLoss(self.args.label_smoothing, multitask=self.multitask_tasks)

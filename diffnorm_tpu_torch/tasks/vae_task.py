@@ -16,10 +16,10 @@ class SpeechDecoderTask(Task):
         super().__init__(args)
         self.tgt_dict = Dictionary.unit_dictionary(args.target_code_size)
 
-    def load_dataset(self, split: str) -> None:
+    def load_dataset(self, split: str, epoch: int = 1) -> None:
         train = split.startswith("train")
         self.datasets[split] = ReprToReprUnitDataset.from_tsv(
-            root=self.args.data, tgt_feat_dir=self.args.tgt_feat_dir, split=split,
+            root=self.data_path(epoch), tgt_feat_dir=self.args.tgt_feat_dir, split=split,
             tgt_dict=self.tgt_dict, is_train=train, max_samples=None if train else 4000)
 
     def build_model(self) -> SpeechVAEModule:

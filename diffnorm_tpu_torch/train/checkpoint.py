@@ -15,6 +15,12 @@ diffnorm_tpu/train/checkpoint.py, in a format of the port's own.
                                 generators and the EMA (Trainer.state_dict)
     step_000000100.json         step, metric, epoch, iterator position, and
                                 a host-driven schedule's state
+
+A step directory bridged from a JAX TrainState (`scripts/orbax_to_npz.py`)
+holds `optax_state.npz` in place of trainer.pt: "step", the `opt_state`
+tree's arrays under "opt_state/<path>" and the EMA's under
+"ema_params/<path>", and under "tree" the JSON of the opt_state tree, each
+array leaf named by its key, each empty state null (`load_optax_state`).
     manifest.json               {"checkpoints": [...], "best": ..., "last": ...}
 
 A step directory is written under a temporary name and renamed, so a
@@ -30,9 +36,15 @@ from typing import Any, Dict, Mapping, Optional, Tuple, Union
 
 import torch
 
-from diffnorm_tpu_torch.weights import as_variables, load_npz, save_npz, to_jax_variables
+from diffnorm_tpu_torch.weights import (
+    as_variables,
+    load_npz,
+    save_npz,
+    to_jax_variables,
+    unflatten_tree,
+)
 
-PARAMS, TRAINER = "params.npz", "trainer.pt"
+PARAMS, TRAINER, OPTAX_STATE = "params.npz", "trainer.pt", "optax_state.npz"
 
 
 def load_tree(path: str) -> dict:
@@ -50,6 +62,29 @@ def load_variables(path: str) -> dict:
 def load_params(path: str) -> dict:
     """The params tree of a checkpoint step directory (or of a .npz file)."""
     return load_variables(path)["params"]
+
+
+def load_optax_state(path: str) -> Dict[str, Any]:
+    """{"opt_state": the JAX opt_state tree (lists, dicts, None, numpy
+    arrays), "step": int, "ema_params": the EMA's tree or None} of a
+    bridged step directory."""
+    import numpy as np
+
+    with np.load(os.path.join(path, OPTAX_STATE)) as data:
+        arrays = {k: data[k] for k in data.files}
+
+    def build(node):
+        if isinstance(node, str):
+            return arrays[node]
+        if isinstance(node, list):
+            return [build(v) for v in node]
+        if isinstance(node, dict):
+            return {k: build(v) for k, v in node.items()}
+        return None
+
+    ema = {tuple(k.split("/")[1:]): v for k, v in arrays.items() if k.startswith("ema_params/")}
+    return {"opt_state": build(json.loads(str(arrays["tree"]))), "step": int(arrays["step"]),
+            "ema_params": unflatten_tree(ema) if ema else None}
 
 
 class CheckpointManager:

@@ -303,7 +303,8 @@ class ScaleByFactoredRms(Transform):
                  eps: float = 1e-30):
         self.decay_rate, self.min_dim, self.eps = decay_rate, min_dim_size_to_factor, eps
         self.count = 0
-        self.dims = [_factored_dims(tuple(p.shape), min_dim_size_to_factor) for p in params]
+        self.shapes = [tuple(p.shape) for p in params]
+        self.dims = [_factored_dims(shape, min_dim_size_to_factor) for shape in self.shapes]
         one = lambda p: torch.zeros(1, dtype=p.dtype, device=p.device)  # noqa: E731
         self.v_row, self.v_col, self.v = [], [], []
         for p, dims in zip(params, self.dims):
@@ -473,8 +474,10 @@ def _adamax(cfg, schedule, params):
 
 
 def _adadelta(cfg, schedule, params):
-    """torch's Adadelta placement: L2 decay into the gradient first."""
-    return Chain(AddDecayedWeights(float(_opt(cfg, "weight_decay", 0.0))),
+    """torch's Adadelta placement: L2 decay into the gradient first, where
+    it is set (JAX's chain has the transform only then)."""
+    wd = float(_opt(cfg, "weight_decay", 0.0))
+    return Chain(*([AddDecayedWeights(wd)] if wd else []),
                  ScaleByAdadelta(params, float(_opt(cfg, "adadelta_rho", 0.9)),
                                  float(_opt(cfg, "adadelta_eps", 1e-6))),
                  scale_by_learning_rate(schedule))
@@ -499,7 +502,9 @@ def _adafactor(cfg, schedule, params):
     chain = [ScaleByFactoredRms(params, float(_opt(cfg, "decay_rate", 0.8)))]
     if _opt(cfg, "clip_threshold", 1.0) is not None:
         chain.append(ClipByBlockRms(float(_opt(cfg, "clip_threshold", 1.0))))
-    chain += [scale_by_learning_rate(schedule, flip_sign=False), ScaleByParamBlockRms()]
+    if schedule is not None:  # pass_through: adafactor's relative steps
+        chain.append(scale_by_learning_rate(schedule, flip_sign=False))
+    chain.append(ScaleByParamBlockRms())
     if cfg.get("weight_decay"):
         chain.append(AddDecayedWeights(float(cfg["weight_decay"])))
     chain.append(Scale(-1.0))
@@ -512,9 +517,11 @@ def _adagrad(cfg, schedule, params):
 
 
 def _sgd(cfg, schedule, params):
+    """optax.sgd: a trace with momentum, the identity without (an empty
+    chain, as optax keeps an empty state there)."""
     momentum = cfg.get("momentum") or None
-    chain = [Trace(params, float(momentum), bool(cfg.get("nesterov")))] if momentum else []
-    return Chain(*chain, scale_by_learning_rate(schedule))
+    trace = Trace(params, float(momentum), bool(cfg.get("nesterov"))) if momentum else Chain()
+    return Chain(trace, scale_by_learning_rate(schedule))
 
 
 def _composite(cfg, schedule, params, labels):

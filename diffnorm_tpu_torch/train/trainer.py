@@ -37,6 +37,10 @@ far as the VAE, normalizer and NAR S2UT stages use it).
   (`cg`) and self-prompting (`sp`), set on a model that has those draws.
   Metrics and the gradient norm come to the host in one transfer per
   update; each step's metrics go to the active `train.metrics` aggregators.
+* An int8 model (`quant_int8`) trains on the int8 module path: its `Dense`
+  sites quantize the current weights at each call (`live_int8`), from the
+  float32 masters' values under bf16, and the gradient flows through the
+  scales alone, as `jax.grad` through JAX's int8 matmuls.
 """
 
 from __future__ import annotations
@@ -51,10 +55,12 @@ import torch
 from torch import nn
 
 from diffnorm_tpu_torch.models.conformer import BatchNorm
-from diffnorm_tpu_torch.models.layers import set_dropout_generator
+from diffnorm_tpu_torch.models.layers import set_dropout_generator, set_live_int8
 from diffnorm_tpu_torch.train import metrics as metrics_mod
+from diffnorm_tpu_torch.train import optax_bridge
 from diffnorm_tpu_torch.train.lr_schedules import build_lr_schedule
 from diffnorm_tpu_torch.train.optimizers import EMA, build_optimizer
+from diffnorm_tpu_torch.weights import jax_param_path
 
 logger = logging.getLogger("diffnorm_tpu_torch.train")
 
@@ -117,9 +123,11 @@ class Trainer:
                 if isinstance(m, BatchNorm):
                     for name in BatchNorm.STATS:
                         w._buffers[name] = m._buffers[name]
+        set_live_int8(self.model, model)  # --quant-int8 training
         names = [n for n, p in model.named_parameters() if p.requires_grad]
         work = dict(self.model.named_parameters())
         masters = dict(model.named_parameters())
+        self.names = names
         self.params = [masters[n] for n in names]
         self.work_params = [work[n] for n in names]
         opt_cfg = cfg.optimization()
@@ -136,10 +144,10 @@ class Trainer:
         self.num_updates = 0
         self.skipped_steps = 0
 
-    def _to_device(self, batch: Dict) -> Dict:
+    def upload(self, batch: Dict) -> Dict:
         """The criterion's inputs of a batch (numpy arrays or tensors, and
         the aux tasks' nested entries under "multitask") on the model's
-        device."""
+        device; `train_step` takes a batch before or after it."""
         def put(value):
             if isinstance(value, dict):
                 return {k: put(v) for k, v in value.items()}
@@ -162,7 +170,7 @@ class Trainer:
         vecs, keys = [], None
         accum = self.criterion.grad_accum
         for batch in batches:
-            loss, mets = self.criterion(self.model, self._to_device(batch),
+            loss, mets = self.criterion(self.model, self.upload(batch),
                                         generator=self.generator)
             grads = torch.autograd.grad(loss, self.work_params, allow_unused=True)
             scale = (torch.as_tensor(mets["sample_size"], dtype=torch.float32)
@@ -225,7 +233,7 @@ class Trainer:
     def valid_step(self, batch: Dict, generator: torch.Generator) -> Dict[str, float]:
         """The criterion's metrics on one batch, dropout off."""
         self.model.eval()
-        _, mets = self.criterion(self.model, self._to_device(batch), generator=generator)
+        _, mets = self.criterion(self.model, self.upload(batch), generator=generator)
         keys = sorted(mets)
         vec = torch.stack([torch.as_tensor(mets[k], dtype=torch.float32, device=self.device)
                            for k in keys])
@@ -244,6 +252,19 @@ class Trainer:
         if self.ema is not None:
             state["ema"] = self.ema.state_dict()
         return state
+
+    def load_optax_state(self, bridged: Dict) -> None:
+        """A JAX TrainState's optimizer state, update count and EMA
+        (`train.checkpoint.load_optax_state` of a bridged step directory).
+        The generators keep their seeding from `cfg.seed`: JAX's PRNG keys
+        do not carry over."""
+        paths = [jax_param_path(self.master, n) for n in self.names]
+        params = optax_bridge.ParamPaths([p for p, _ in paths], [k for _, k in paths])
+        optax_bridge.load_transform(self.optimizer.transform, bridged["opt_state"], params)
+        optax_bridge.load_ema(self.ema, bridged.get("ema_params"), params)
+        self.num_updates = self.optimizer.count = int(bridged["step"])
+        self.skipped_steps = 0
+        self._refresh_working_copy()
 
     def load_state_dict(self, state: Dict) -> None:
         self.optimizer.load_state_dict(state["optimizer"])

@@ -151,6 +151,27 @@ def _jax_leaf(module: nn.Module) -> str:
     return "kernel"
 
 
+def jax_param_path(model: nn.Module, name: str) -> Tuple[Path, bool]:
+    """The flax path of the parameter `name` ("a.b.weight") and whether it is
+    a kernel (whose layout `leaf_to_torch` converts)."""
+    path = tuple(name.split("."))
+    if path[-1] != "weight":
+        return path, False
+    leaf = _jax_leaf(model.get_submodule(".".join(path[:-1])))
+    return path[:-1] + (leaf,), leaf == "kernel"
+
+
+def kernel_axes(ndim: int) -> Tuple[int, ...]:
+    """The flax axis of each axis of a converted kernel of rank `ndim`."""
+    return {2: (1, 0), 3: (2, 1, 0), 4: (3, 2, 0, 1)}[ndim]
+
+
+def leaf_to_torch(value, kernel: bool) -> torch.Tensor:
+    """A JAX leaf as the port's float32 tensor (a kernel in torch's layout)."""
+    t = torch.from_numpy(np.array(value, dtype=np.float32))
+    return _KERNEL_TO_TORCH[t.dim()](t) if kernel else t
+
+
 def to_jax_variables(model: nn.Module) -> dict:
     """The inverse of `from_jax_variables`: {"params": ...} and, where the
     model has running statistics, {"batch_stats": ...}, and where an int8

@@ -9,7 +9,17 @@ variables tree, or an output of `diffnorm_tpu.cli.convert_checkpoint`. It is
 restored with `diffnorm_tpu.train.checkpoint.load_checkpoint_params` and
 `restored_to_variables`, so a TrainState's frozen subtrees (the normalizer's
 VAE) are folded back into its params and its model-state collections
-(batch_stats) kept; the optimizer state is not carried.
+(batch_stats) kept.
+
+A TrainState's optimizer state comes along in OUT/optax_state.npz: its
+`opt_state` tree (each array under "opt_state/<path>", and under "tree" the
+JSON of the tree with each array named by its key and each empty state
+null), its `step`, and its `ema_params` where it keeps an EMA (under
+"ema_params/<path>"). The checkpoint's JSON sidecar (CKPT.json: epoch,
+iterator position, a host-driven schedule's state), where there is one, is
+copied to OUT.json. `cli.train --restore-file OUT` without
+--reset-optimizer then continues the run in the port; its generators are
+seeded from --seed, as JAX's PRNG keys cannot become torch generators.
 
 OUT becomes a step directory of the port: OUT/params.npz in the format of
 `diffnorm_tpu_torch.weights.save_npz` ('/'-joined flax paths, every leaf
@@ -23,7 +33,9 @@ torch, and runs where the JAX package is installed.
 from __future__ import annotations
 
 import argparse
+import json
 import os
+import shutil
 import sys
 from typing import Dict, Mapping, Tuple
 
@@ -42,8 +54,30 @@ def flatten(tree: Mapping, prefix: Tuple[str, ...] = ()) -> Dict[str, np.ndarray
     return flat
 
 
+def optax_arrays(opt_state, step, ema_params) -> Dict[str, np.ndarray]:
+    """The arrays of OUT/optax_state.npz (see the module docstring)."""
+    arrays: Dict[str, np.ndarray] = {"step": np.asarray(step, np.int64)}
+
+    def skeleton(node, path: Tuple[str, ...]):
+        if node is None:
+            return None
+        if isinstance(node, Mapping):
+            return {str(k): skeleton(v, path + (str(k),)) for k, v in node.items()}
+        if isinstance(node, (list, tuple)):
+            return [skeleton(v, path + (str(i),)) for i, v in enumerate(node)]
+        key = "/".join(("opt_state",) + path)
+        arrays[key] = np.asarray(node)
+        return key
+
+    arrays["tree"] = np.asarray(json.dumps(skeleton(opt_state, ())))
+    if ema_params is not None:
+        arrays.update({"ema_params/" + k: v for k, v in flatten(ema_params).items()})
+    return arrays
+
+
 def bridge(ckpt: str, out: str) -> int:
-    """Write OUT/params.npz from the orbax checkpoint CKPT; returns the leaf
+    """Write OUT/params.npz (and for a TrainState OUT/optax_state.npz and
+    OUT.json) from the orbax checkpoint CKPT; returns the weights' leaf
     count."""
     from diffnorm_tpu.train.checkpoint import load_checkpoint_params, restored_to_variables
 
@@ -55,6 +89,13 @@ def bridge(ckpt: str, out: str) -> int:
     flat = flatten(variables)
     os.makedirs(out, exist_ok=True)
     np.savez(os.path.join(out, "params.npz"), **flat)
+    if "opt_state" in restored:
+        np.savez(os.path.join(out, "optax_state.npz"),
+                 **optax_arrays(restored["opt_state"], restored["step"],
+                                restored.get("ema_params")))
+        sidecar = ckpt.rstrip("/") + ".json"
+        if os.path.exists(sidecar):
+            shutil.copyfile(sidecar, out.rstrip("/") + ".json")
     return len(flat)
 
 

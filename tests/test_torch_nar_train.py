@@ -35,6 +35,7 @@ from diffnorm_tpu_torch.models.conformer import BatchNorm, ConformerEncoder
 from diffnorm_tpu_torch.models.hifigan import CodeHiFiGANVocoder
 from diffnorm_tpu_torch.models.layers import Dropout, set_dropout_generator
 from diffnorm_tpu_torch.models.nar_transformer import NARS2UTModule
+from diffnorm_tpu_torch.ops.quant import quant_sites
 from diffnorm_tpu_torch.tasks import TASKS
 from diffnorm_tpu_torch.tasks.nar_s2ut_task import random_mask
 from diffnorm_tpu_torch.train.checkpoint import CheckpointManager, load_variables
@@ -506,7 +507,7 @@ PORTED_HEADS = {"--multitask-config-yaml": "mt_letters_ctc",
 
 
 @pytest.mark.parametrize("extra, error", [
-    (["--encoder-remat"], None), (["--quant-int8", "true"], NotImplementedError),
+    (["--encoder-remat"], None), (["--quant-int8", "true"], None),
     (["--multitask-config-yaml", "mt.yaml"], None),
     (["--target-speaker-embed"], None),
     (["--multitask-ctc-vocab", "100"], None),
@@ -518,7 +519,8 @@ def test_cli_flags_not_ported_raise(tmp_path, extra, error):
     `--encoder-remat false` and the arch defaults parse. The multitask, CTC,
     target-speaker and encoder-remat flags (error None) parse and reach the
     model: the task builds it with their head, or a rematerializing
-    encoder; --ema-decay (ported since) reaches the trainer's EMA."""
+    encoder; --ema-decay (ported since) reaches the trainer's EMA, and
+    --quant-int8 (ported since) gives the model its int8 sites."""
     base = [str(tmp_path), "--task", "speech_to_speech_fasttranslate", "--max-update", "1"]
     if error is None:
         (tmp_path / "dict.txt").write_text("a 1\nb 1\n")
@@ -534,6 +536,8 @@ def test_cli_flags_not_ported_raise(tmp_path, extra, error):
             trainer = Trainer(train_cli.trainer_config(args), model,
                               TASKS[args.task](args).build_criterion())
             assert trainer.ema is not None and trainer.ema.decay == 0.999
+        elif extra[0] == "--quant-int8":
+            assert len(quant_sites(model)) > 0
         else:
             assert isinstance(getattr(model, PORTED_HEADS[extra[0]]), torch.nn.Module)
         assert model.encoder.remat is (extra[0] == "--encoder-remat")

@@ -272,16 +272,16 @@ def test_cli_train_vocoder_saves_resumes_and_vocodes(tmp_path, capsys):
 
 
 def test_cli_train_vocoder_refuses_unported_flags(tmp_path):
-    """--num-workers > 0 raises, naming its ROADMAP item. Ported since:
-    --data-config and --input-type features parse (features needs
+    """Ported since: --num-workers parses and reaches the iterator
+    (tests/test_torch_loader.py trains with it), --data-config and
+    --input-type features parse (features needs
     --feat-manifest), and `cli.train --task repr_to_speech` reaches
     cli.train_vocoder with --input-type features
     (tests/test_torch_repr_to_speech.py runs both)."""
     from diffnorm_tpu_torch.cli import train, train_vocoder
 
     base = ["--cpu", "--units-file", "u", "--audio-dir", str(tmp_path), "--vocoder-cfg", "c"]
-    with pytest.raises(NotImplementedError, match="item 2"):
-        train_vocoder.parse_args(base + ["--num-workers", "2"])
+    assert train_vocoder.parse_args(base + ["--num-workers", "2"]).num_workers == 2
     assert train_vocoder.parse_args(base + ["--data-config", "d.yaml"]).data_config == "d.yaml"
     with pytest.raises(SystemExit):  # features without a feature manifest
         train_vocoder.parse_args(base + ["--input-type", "features"])
