@@ -242,6 +242,28 @@ tf32 passes); and at D 80 and 128 with ragged keys and a fully masked row.
    (f) a released normalizer step directory with a seeded Adam state in
    the bridge's format; cli.train --restore-file for 1 update against an
    in-process Trainer loaded with the same state.
+23. the AR S2UT family: fairseq's s2ut_conformer at its released widths
+   (encoder 512 x 12, causal decoder 512 x 6, vocab 1004), seeded, bf16.
+   (a) the beam decode (beam 5, max_len 256, through the KV cache) at B16 x
+   480: wall (median of 3), steps, device kernels a step and busy share (a
+   32-step decode profiled); the cached decode against the full teacher-forced forward on the best
+   hypotheses (logits row-cos). (b) the same in long form, B2 x 8448: 6
+   flash_attention launches a step (one query a row), held against the same
+   decode through the plain versions (a share of equal units; the
+   teacher-forced logits on the kernel path's hypotheses by row-cos). (c)
+   s2ut_transformer's long-form teacher-forced forward: the encoder's 12
+   self-attentions and the decoder's 6 encoder attentions through the
+   kernel, against the plain versions. (d) one AR update with
+   label_smoothed_cross_entropy and one with speech_to_unit and an aux head
+   at phase 10's --max-tokens 40000 batch (ms, peak, busy); cli.train --task
+   speech_to_speech_ar on phase 11's corpus, then cli.generate with beam 5,
+   --sampling, --score-reference, --n-frames-per-step 2 (a seeded stacked
+   model) and the NAR decode with --rerank-path, each one's units against
+   an in-process decode.
+Phase 2 times flash_attention also at phase 23's decode step (q
+[10,8,1,64] against k/v [10,8,2112,64], beams of the half-length row
+masked at 1056 keys) and its S2T encoder's self-attention ([2,8,2112,64])
+beside SDPA and its bound.
 The kernels JSON line reports the float32 kernel as flash_attention_f32
 (its launches those of phase 13) beside the bf16 one (phase 6's, phase
 16's long form, the four cli.generate runs of phase 15, phase 18's,
@@ -249,8 +271,8 @@ phase 19's and phase 20's);
 rms_norm_film and wavenet_chain count phase 3's run, phase 18's CLI run and
 phase 21's kernel runs (21a's updates and guided forwards, 21b's CLI runs)
 and phase 22's (22c's CLI run, 22d's updates, 22f's CLI update), where
-flash_attention counts 21a's long-prompt runs and 22d's long-form update
-too.
+flash_attention counts 21a's long-prompt runs, 22d's long-form update and
+phase 23's long-form beam decode and s2ut_transformer forward too.
 
 Then one JSON line of per-kernel numbers and, last, {"ok": true, "device": ...}.
 Exits non-zero without CUDA, and in a directory without the port.
@@ -1169,8 +1191,9 @@ def check_flash_attention(torch, flash):
     """flash_attention against its plain version: ragged masks, a fully
     masked row, Tq/Tk off the 64 tiles, one key, a key split of one key
     and a short last split, D 32/96/128, float32 (D 24/64/80/96/128); then the
-    path's shape and PERFORMANCE.md's, timed beside the plain version and
-    F.scaled_dot_product_attention with the same boolean key mask."""
+    path's shape and PERFORMANCE.md's, timed beside the plain version,
+    F.scaled_dot_product_attention with the same boolean key mask and the
+    bound of the valid keys' work."""
     bf, f32 = torch.bfloat16, torch.float32
     cases = [  # (what, B, H, Tq, Tk, D, key lengths, dtype)
         ("odd, a fully masked row", 3, 4, 200, 2100, 64, [2100, 977, 0], bf),
@@ -1196,6 +1219,11 @@ def check_flash_attention(torch, flash):
         # phase 15's long batch: 8448 and 480 frames padded to the 12288 bucket
         ("eval path", 2, 8, 256, 3072, 64, [2112, 120], bf),
         ("PERFORMANCE.md", 2, 8, 4096, 4096, 64, [4096, 3001], bf),
+        # the AR beam decode's encoder attention, one query a row: B2 x beam
+        # 5 rows, each sentence's beams contiguous, the second half length
+        ("AR decode step", 10, 8, 1, 2112, 64, [2112] * 5 + [1056] * 5, bf),
+        # s2ut_transformer's encoder self-attention in long form (phase 23c)
+        ("S2T encoder", 2, 8, 2112, 2112, 64, [2112, 1056], bf),
         # the S2ST decoder's encoder attention in float32
         ("float32 path", 2, 8, 256, 2112, 64, [2112, 1056], f32),
         # HuBERT's self-attention over a 70 s utterance and over cli.prepare's
@@ -1227,8 +1255,8 @@ def check_flash_attention(torch, flash):
               f"{str(dtype)[6:]} {'no mask' if lengths is None else f'keys {lengths}'}: "
               f"max err {err.max().item():.3e}, within "
               f"rtol {FLASH_RTOL} atol {FLASH_ATOL}" + (" + 1 bf16 ulp" if dtype == bf else ""))
-        if what not in ("path", "eval path", "PERFORMANCE.md", "float32 path",
-                        "HuBERT long form", "HuBERT longest chunk"):
+        if what not in ("path", "eval path", "PERFORMANCE.md", "AR decode step", "S2T encoder",
+                        "float32 path", "HuBERT long form", "HuBERT longest chunk"):
             continue
         ms = cuda_time_ms(lambda: flash.flash_attention(q, k, v, mask))
         plain_ms = cuda_time_ms(lambda: flash.flash_attention_plain(q, k, v, mask),
@@ -1240,9 +1268,12 @@ def check_flash_attention(torch, flash):
 
         library_ms = cuda_time_eager_ms(sdpa)
         backend = device_kernels(torch, sdpa)[:1]
-        nbytes = ((2 * q.numel() + k.numel() + v.numel()) * q.element_size()
+        # the least work: each row's valid keys, the masked ones neither read
+        # nor multiplied
+        keys = b * tk if lengths is None else sum(lengths)
+        nbytes = ((2 * q.numel() + 2 * h * keys * d) * q.element_size()
                   + (0 if mask is None else mask.numel()))
-        flops = 4.0 * b * h * tq * tk * d
+        flops = 4.0 * h * tq * keys * d
         if dtype == bf:
             bound_ms, bound_by = bound(nbytes, flops, BF16_FLOP_PER_S)
             bounds = f"{flops / 1e9:.2f} GFLOP bf16"
@@ -1438,9 +1469,10 @@ def run_main_path(torch, model, ddim_sample, inputs):
 
 
 def profile_run(torch, fn, wall):
-    """Device time by kernel over one more call of `fn` (torch.profiler): the
-    busy share of the unprofiled wall time (returned; None where the
-    profiler saw no device time) and the largest kernels."""
+    """Device time by kernel over one more call of `fn` (torch.profiler),
+    printed with the largest kernels. Returns (the busy share of the
+    unprofiled wall time, the call's device kernel launches): (None, None)
+    where the profiler saw no device time."""
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
@@ -1448,15 +1480,17 @@ def profile_run(torch, fn, wall):
     kernels = [e for e in prof.key_averages()
                if e.device_type == torch.autograd.DeviceType.CUDA]
     busy_ms = sum(e.self_device_time_total for e in kernels) / 1e3
+    n_launches = sum(e.count for e in kernels)
     if busy_ms == 0:
         print("profile: the profiler saw no device time (not measured)")
-        return None
+        return None, None
     print(f"profile: device busy {busy_ms:.1f} ms = {100 * busy_ms / 1e3 / wall:.1f}% "
-          f"of the {wall:.3f} s wall; top kernels by device time:")
+          f"of the {wall:.3f} s wall, {n_launches} device kernels; top kernels by device "
+          f"time:")
     for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:10]:
         print(f"profile:   {e.self_device_time_total / 1e3:9.2f} ms {e.count:6d}x  "
               f"{e.key[:90]}")
-    return busy_ms / 1e3 / wall
+    return busy_ms / 1e3 / wall, n_launches
 
 
 def run_cli(torch, model, smi):
@@ -4987,7 +5021,7 @@ def run_int8_train(torch, smi):
              f"launches no wavenet_chain (the frozen VAE's {VAE_CHAINS} chains do) and its 12 "
              f"layers' 24 adaptive norms rms_norm_film")
     wall = statistics.median(ms for _, ms, _ in per) / 1e3
-    busy = profile_run(torch, lambda: trainer.train_step([micros[1]]), wall)
+    busy, _ = profile_run(torch, lambda: trainer.train_step([micros[1]]), wall)
     print(f"int8 train normalizer: --quant-int8 ({n_sites} int8 sites, module route), "
           f"B{B}xT{T}, bf16 forward, float32 masters: ms per update "
           f"{[round(ms, 1) for _, ms, _ in per]}, losses {[round(m['loss'], 5) for m, _, _ in per]},"
@@ -5022,7 +5056,7 @@ def run_int8_train(torch, smi):
         fail(f"int8 train NAR long form: flash_attention launched "
              f"{launches.get('flash_attention', 0)} times, expected 6 (the decoder's encoder "
              f"attentions)")
-    busy = profile_run(torch, lambda: trainer.train_step([long]), ms / 1e3)
+    busy, _ = profile_run(torch, lambda: trainer.train_step([long]), ms / 1e3)
     print(f"int8 train NAR, long form: --quant-int8 ({len(quant_sites(model))} int8 sites), "
           f"B2 x {LONG_FRAMES} frames (S = 2112): update {ms:.1f} ms, loss {mets['loss']:.5f}, "
           f"gnorm {mets['gnorm']:.4f}, launches {launches}, peak {peak_gb:.2f} GB, busy "
@@ -5265,6 +5299,406 @@ def run_recipe_options(torch, smi):
     return launches
 
 
+# the AR S2UT family (phase 23): fairseq's s2ut_conformer at its released
+# widths (encoder 512 x 12, causal decoder 512 x 6, 8 heads, FFN 2048, vocab
+# 1004), seeded, bf16, decoded as cli.generate does by default (beam 5,
+# max_len 256): a random decoder seldom ranks EOS among the top candidates,
+# so its decodes run to or near the 256 steps, the worst case. The cached
+# decode against the full teacher-forced forward on the best hypotheses is
+# one function in other GEMM shapes, bf16 rounding apart: its logits' rows
+# are held to a cosine bound. In long form the decode through the kernel is
+# held against the same decode through the plain versions: the encoder
+# attention differs by sum order and a bf16 rounding, and a beam search parts
+# at the first near-tie at the beam's boundary, after which its later units
+# differ as well; so its units are held to a share (a broken kernel gives
+# chance, ~0.001) and the teacher-forced logits on the kernel path's
+# hypotheses, which follow no trajectory, to the row-cos bound
+AR_BEAM, AR_MAX_LEN, AR_REPS = 5, 256, 3
+# a decode step's profile is the difference of two decodes cut to these
+# lengths, which cancels the encode: a whole decode's ~90,000 kernels and
+# their host events take the profiler minutes to gather. Their walls are
+# medians of more runs, as a difference doubles the host clock's spread
+AR_PROFILE_LENS, AR_PROFILE_REPS = (8, 40), 5
+AR_ROW_COS, AR_LONG_UNIT_AGREE = 0.999, 0.25
+AR_FLASH_PER_STEP = 6  # the decoder's encoder attentions, one query a row
+# the s2ut_transformer encoder's 12 self-attentions and the decoder's 6
+# encoder attentions in a long-form teacher-forced forward
+AR_TRANSFORMER_FLASH = 12 + 6
+AR_RERANK_BEAM = 3
+
+
+def seeded_ar(torch, seed: int, **kw):
+    """The released s2ut_conformer (s2ut_transformer with
+    encoder_type="transformer") from `seed`, bf16, eval mode."""
+    from diffnorm_tpu_torch.models.ar_transformer import ARS2UTModule
+
+    torch.manual_seed(seed)
+    with torch.device("cuda"):
+        model = ARS2UTModule(**kw)
+    return model.to(torch.bfloat16).eval()
+
+
+def shifted(torch, tokens):
+    """prev_output_tokens of targets [B, L] on the card (the task's
+    shift_right: EOS in front, PAD kept)."""
+    from diffnorm_tpu_torch.tasks.ar_s2ut_task import shift_right
+
+    return torch.from_numpy(shift_right(tokens.cpu().numpy())).to(tokens.device)
+
+
+def teacher_forced(torch, model, src, lengths, tokens):
+    """Each row of `tokens` [B, L] (a decode's best hypotheses) through the
+    model teacher-forced: (the full forward's logits, the cached decode's),
+    float32 [n, V] at the positions before each row's first PAD."""
+    with torch.no_grad():
+        prev = shifted(torch, tokens)
+        full = model(src, lengths, prev)["logits"]
+        enc, mask = model.encode(src, lengths)
+        cache = model.init_cache(enc, mask, prev.shape[1])
+        pos = torch.zeros(prev.shape[0], dtype=torch.int64, device=prev.device)
+        steps = [model.decode_step(prev[:, t:t + 1], cache, pos + t)[0]
+                 for t in range(prev.shape[1])]
+    real = torch.cumprod((prev != 1).long(), dim=1).bool()
+    return full[real].float(), torch.stack(steps, dim=1)[real].float()
+
+
+def min_row_cos(torch, a, b) -> float:
+    return torch.nn.functional.cosine_similarity(a, b, dim=-1).min().item()
+
+
+def beam_steps(seqs) -> int:
+    """The steps a beam search ran: its last finalized hypothesis's EOS
+    position + 1."""
+    return int((seqs == 2).int().argmax(dim=-1).max().item()) + 1
+
+
+def run_ar_decode(torch, mods, smi):
+    """Phase 23a-b: the beam decode at CVSS length and in long form (see the
+    module docstring). Returns the flash_attention launches of the long-form
+    decode's counted run."""
+    from diffnorm_tpu_torch.generate.beam_search import ar_generate
+    from diffnorm_tpu_torch.ops import _build
+
+    ar = seeded_ar(torch, 23)
+    launches = 0
+    for what, b, frames in (("CVSS length", S2ST_B, S2ST_FRAMES),
+                            ("long form", LONG_B, LONG_FRAMES)):
+        src, lengths = s2st_inputs(torch, b, frames)
+
+        def decode():
+            return ar_generate(ar, src, lengths, beam_size=AR_BEAM, max_len=AR_MAX_LEN)
+
+        (seqs, scores), counts, wall = timed_decode(torch, decode, reps=AR_REPS)
+        steps = beam_steps(seqs)
+        flash = counts.get("flash_attention", 0)
+        long_form = frames == LONG_FRAMES
+        want = AR_FLASH_PER_STEP * steps if long_form else 0
+        if flash != want:
+            fail(f"AR decode {what}: flash_attention launched {flash} times in {steps} steps, "
+                 f"expected {want}")
+        if seqs.shape != (b, AR_BEAM, AR_MAX_LEN) or not torch.isfinite(scores).all():
+            fail(f"AR decode {what}: seqs {tuple(seqs.shape)}, scores {scores}")
+        profiled = []  # (steps, wall, busy share, device kernels) of each short decode
+        for n in AR_PROFILE_LENS:
+            def short(n=n):
+                return ar_generate(ar, src, lengths, beam_size=AR_BEAM, max_len=n)
+
+            (short_seqs, _), _, short_wall = timed_decode(torch, short, reps=AR_PROFILE_REPS)
+            profiled.append((beam_steps(short_seqs), short_wall)
+                            + profile_run(torch, short, short_wall))
+        full, stepped = teacher_forced(torch, ar, src, lengths, seqs[:, 0])
+        cos = min_row_cos(torch, full, stepped)
+        if cos < AR_ROW_COS:
+            fail(f"AR decode {what}: the cached decode against the full forward, row-cos "
+                 f"{cos:.6f} < {AR_ROW_COS}")
+        audio_s = lengths.sum().item() * SECONDS_PER_FRAME
+        (n0, wall0, busy0, kern0), (n1, wall1, busy1, kern1) = profiled
+        if busy0 is None or busy1 is None or n1 <= n0:
+            per_step = "a decode step's profile not measured"
+        else:  # the encode, equal in both, cancels
+            dn = n1 - n0
+            step_wall, step_kernels = (wall1 - wall0) / dn, (kern1 - kern0) / dn
+            step_busy = (busy1 * wall1 - busy0 * wall0) / dn
+            per_step = (f"a decode step alone, the {n1}-step decode's profile less the "
+                        f"{n0}-step one's: {step_kernels:.1f} device kernels, wall "
+                        f"{1e3 * step_wall:.3f} ms, device busy {1e3 * step_busy:.3f} ms = "
+                        f"{100 * step_busy / step_wall:.1f}%, {1e6 * step_wall / step_kernels:.1f}"
+                        f" us of wall a kernel")
+        print(f"AR decode, {what}: B{b} x {frames} frames, beam {AR_BEAM}, max_len "
+              f"{AR_MAX_LEN}, bf16: wall {wall:.4f} s (median of {AR_REPS}), RTF "
+              f"{audio_s / wall:.2f}, {steps} steps, {1e3 * wall / steps:.3f} ms a step, "
+              f"{per_step}, flash_attention {flash} ({flash / steps:.1f} a step); best "
+              f"scores {[round(v, 4) for v in scores[:, 0].tolist()[:4]]}; the cached decode "
+              f"against the full teacher-forced forward on the best hypotheses ({len(full)} "
+              f"positions): row-cos min {cos:.6f} (bound {AR_ROW_COS}); {smi}")
+        if not long_form:
+            continue
+        launches += flash
+        with plain_versions(*mods):
+            (seqs_p, _), _, wall_p = timed_decode(torch, decode, reps=1)
+            full_p, stepped_p = teacher_forced(torch, ar, src, lengths, seqs[:, 0])
+        agree = unit_agreement(seqs[:, 0], seqs_p[:, 0])
+        parted = (seqs[:, 0] != seqs_p[:, 0]).int()
+        first = [int(r.argmax()) if r.any() else AR_MAX_LEN for r in parted]
+        cos_full, cos_step = min_row_cos(torch, full, full_p), min_row_cos(torch, stepped,
+                                                                            stepped_p)
+        print(f"AR decode, long form, through the plain versions: wall {wall_p:.4f} s; best "
+              f"hypotheses' units equal {agree:.4f} (bound {AR_LONG_UNIT_AGREE}), first "
+              f"parting step per row {first}; teacher-forced on the kernel path's hypotheses, "
+              f"kernel against plain: full forward row-cos min {cos_full:.6f}, cached decode "
+              f"row-cos min {cos_step:.6f} (bound {AR_ROW_COS}); {smi}")
+        if agree < AR_LONG_UNIT_AGREE or min(cos_full, cos_step) < AR_ROW_COS:
+            fail(f"AR decode long form against the plain versions: units {agree:.4f}, "
+                 f"row-cos {cos_full:.6f} / {cos_step:.6f}")
+    _build.launch_counts.clear()
+    return launches
+
+
+def run_ar_transformer(torch, mods, smi):
+    """Phase 23c: s2ut_transformer's long-form teacher-forced forward, the
+    encoder's self-attentions through the kernel in eval, against the plain
+    versions. Returns the counted forward's flash_attention launches."""
+    import numpy as np
+
+    model = seeded_ar(torch, 24, encoder_type="transformer")
+    src, lengths = s2st_inputs(torch, LONG_B, LONG_FRAMES)
+    rng = np.random.default_rng(231)
+    tokens = rng.integers(4, 1004, size=(LONG_B, AR_MAX_LEN))
+    tokens[:, -1] = 2
+    tokens[1, AR_MAX_LEN // 2:] = 1
+    tokens[1, AR_MAX_LEN // 2 - 1] = 2
+    prev = shifted(torch, torch.from_numpy(tokens).cuda())
+    real = prev != 1
+
+    def forward():
+        with torch.no_grad():
+            return model(src, lengths, prev)["logits"][real].float()
+
+    def encode():
+        with torch.no_grad():
+            enc, mask = model.encode(src, lengths)
+            return enc[mask].float()
+
+    logits, counts, wall = timed_decode(torch, forward, reps=AR_REPS)
+    flash = counts.get("flash_attention", 0)
+    if flash != AR_TRANSFORMER_FLASH:
+        fail(f"s2ut_transformer long form: flash_attention launched {flash} times, expected "
+             f"{AR_TRANSFORMER_FLASH}")
+    enc = encode()
+    with plain_versions(*mods):
+        enc_p, logits_p = encode(), forward()
+    cos_enc, cos = min_row_cos(torch, enc, enc_p), min_row_cos(torch, logits, logits_p)
+    if min(cos_enc, cos) < AR_ROW_COS or not torch.isfinite(logits).all():
+        fail(f"s2ut_transformer long form against the plain versions: encoder row-cos "
+             f"{cos_enc:.6f}, logits row-cos {cos:.6f}")
+    print(f"s2ut_transformer long form: B{LONG_B} x {LONG_FRAMES} frames (S = 2112, the last "
+          f"row half), teacher-forced on {int(real.sum())} tokens, bf16 eval: forward "
+          f"{wall:.4f} s (median of {AR_REPS}), flash_attention {flash} (12 in the encoder, 6 "
+          f"in the decoder); against the plain versions: encoder row-cos min "
+          f"{cos_enc:.6f}, logits row-cos min {cos:.6f} (bound {AR_ROW_COS}); {smi}")
+    return flash
+
+
+def ar_batch(rng, tasks, src_lengths, tgt_units):
+    """Phase 10's batch made an AR one (prev_output_tokens) with seeded
+    letter targets for each transformer aux task in `tasks`."""
+    import numpy as np
+
+    from diffnorm_tpu_torch.data.batching import bucket_length
+    from diffnorm_tpu_torch.data.multitask import collate_text_targets
+    from diffnorm_tpu_torch.tasks.ar_s2ut_task import shift_right
+
+    batch = nar_batch(rng, src_lengths, tgt_units)
+    del batch["prev_target"]
+    batch["prev_output_tokens"] = shift_right(batch["target"])
+    batch["multitask"] = {}
+    for name, tc in tasks.items():
+        targets = [np.append(rng.integers(4, len(OPT_LETTERS) + 4, size=max(n // 2, 1)),
+                             2).astype(np.int32) for n in tgt_units]
+        entry = collate_text_targets(targets, with_prev=True,
+                                     pad_to=bucket_length(max(len(t) for t in targets)))
+        entry["loss_weight"] = np.float32(tc.get_loss_weight(0))
+        batch["multitask"][name] = entry
+    return batch
+
+
+def run_ar_train(torch, smi):
+    """Phase 23d, training: one AR update with label_smoothed_cross_entropy
+    and one with speech_to_unit and the target_letter aux head (encoder layer
+    8) at phase 10's --max-tokens 40000 batch: ms, peak memory, busy share."""
+    import types
+
+    import numpy as np
+
+    from diffnorm_tpu_torch.criterions.ce_loss import LabelSmoothedCrossEntropy, SpeechToUnitLoss
+    from diffnorm_tpu_torch.data.multitask import MultitaskConfig
+    from diffnorm_tpu_torch.models.ar_transformer import ARS2UTModule
+    from diffnorm_tpu_torch.tasks.multitask_mixin import MultitaskTaskMixin
+    from diffnorm_tpu_torch.train.trainer import Trainer, TrainerConfig
+
+    rng = np.random.default_rng(232)
+    with tempfile.TemporaryDirectory() as tmp:
+        tasks = MultitaskConfig(str(write_options_data(Path(tmp), rng))).get_all_tasks()
+    tasks = {"target_letter": tasks["target_letter"]}
+    specs = MultitaskTaskMixin.aux_task_specs(types.SimpleNamespace(multitask_tasks=tasks))
+    hi = NAR_MAX_TOKENS // NAR_B
+    batches = [ar_batch(rng, tasks, np.sort(rng.integers(300, hi + 1, NAR_B))[::-1],
+                        rng.integers(100, 251, NAR_B).tolist()) for _ in range(3)]
+    for name, criterion, kw in (
+            ("label_smoothed_cross_entropy", LabelSmoothedCrossEntropy(0.1), {}),
+            ("speech_to_unit with target_letter", SpeechToUnitLoss(0.1, multitask=tasks),
+             dict(multitask=specs))):
+        torch.manual_seed(232)
+        with torch.device("cuda"):
+            model = ARS2UTModule(**kw)
+        trainer = Trainer(TrainerConfig(**NAR_TRAIN), model, criterion)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        ms, losses = [], []
+        for batch in batches[:2]:
+            t1 = time.perf_counter()
+            mets = trainer.train_step([batch])
+            torch.cuda.synchronize()
+            ms.append(1e3 * (time.perf_counter() - t1))
+            losses.append(mets["loss"])
+            if not (math.isfinite(mets["loss"]) and math.isfinite(mets["gnorm"])):
+                fail(f"AR train {name}: {mets}")
+        peak_gb = torch.cuda.max_memory_allocated() / 1e9
+        busy, _ = profile_run(torch, lambda: trainer.train_step([batches[2]]), ms[1] / 1e3)
+        aux = {k: round(v, 4) for k, v in mets.items() if k.startswith("multitask_")}
+        print(f"AR train, {name}: released s2ut_conformer, B{NAR_B} x "
+              f"{batches[0]['src_tokens'].shape[1]} padded frames, targets "
+              f"{batches[0]['target'].shape[1]} padded, bf16 forward, float32 masters: ms per "
+              f"update {[round(v, 1) for v in ms]} (the first a warm-up), peak {peak_gb:.2f} GB, "
+              f"busy "
+              + ("not measured" if busy is None else f"{100 * busy:.1f}%")
+              + f"; losses {[round(v, 4) for v in losses]} {aux}; {smi}")
+        del model, trainer
+
+
+def ar_hyps(torch, root: Path, decode):
+    """{id: H- units} of decode(src, lengths) -> tokens [B, L] over the
+    batches cli.generate makes of the test split (--max-tokens
+    EVAL_MAX_TOKENS)."""
+    from diffnorm_tpu_torch.cli.generate import strip_special
+    from diffnorm_tpu_torch.data.dictionary import Dictionary
+    from diffnorm_tpu_torch.data.iterators import EpochBatchIterator
+    from diffnorm_tpu_torch.data.s2s_dataset import SpeechToUnitDataset
+
+    tgt_dict = Dictionary.unit_dictionary(1000)
+    ds = SpeechToUnitDataset.from_tsv(str(root), "test", tgt_dict=tgt_dict)
+    hyps = {}
+    with torch.no_grad():
+        for batch in EpochBatchIterator(ds, EVAL_MAX_TOKENS, shuffle=False).next_epoch_itr():
+            tokens = decode(torch.from_numpy(batch["src_tokens"]).cuda(),
+                            torch.from_numpy(batch["src_lengths"]).cuda())
+            for row, sid in zip(tokens.cpu().numpy(), batch["id"].tolist()):
+                hyps[sid] = strip_special(row, tgt_dict)
+    return hyps
+
+
+def run_ar_cli(torch, smi):
+    """Phase 23d, the CLIs: cli.train --task speech_to_speech_ar on phase 11's
+    corpus (2 updates), then cli.generate on its step directory with beam 5,
+    with --sampling and with --score-reference, on a seeded stacked model
+    with --n-frames-per-step 2, and the NAR decode reranked by the AR model
+    (--rerank-path): each one's H- units against an in-process decode."""
+    from diffnorm_tpu_torch.cli import generate
+    from diffnorm_tpu_torch.cli import train as train_cli
+    from diffnorm_tpu_torch.generate.beam_search import ar_generate, ar_generate_stacked
+    from diffnorm_tpu_torch.generate.mask_predict import mask_predict_decode
+    from diffnorm_tpu_torch.weights import save_npz, to_jax_variables
+
+    cuda = torch.device("cuda", torch.cuda.current_device())
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = Path(tmp)
+        write_nar_corpus(tmp)
+        save_dir = tmp / "ar"
+        walls = {}
+        lines = LogLines()
+        logging.getLogger("diffnorm_tpu_torch.train").addHandler(lines)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        rc = train_cli.main([
+            str(tmp), "--config-yaml", "config.yaml", "--task", "speech_to_speech_ar",
+            "--target-code-size", "1000", "--criterion", "label_smoothed_cross_entropy",
+            "--label-smoothing", "0.1", "--arch", "s2ut_conformer", "--dropout", "0.1",
+            "--save-dir", str(save_dir), "--lr", "5e-4", "--lr-scheduler", "inverse_sqrt",
+            "--warmup-init-lr", "1e-7", "--warmup-updates", "10000", "--clip-norm", "10.0",
+            "--max-update", "2", "--max-tokens", "8000", "--max-target-positions", "1024",
+            "--seed", "42", "--validate-interval", "5", "--save-interval", "5", "--dtype",
+            "bfloat16", "--log-interval", "1"])
+        walls["cli.train"] = time.perf_counter() - t0
+        logging.getLogger("diffnorm_tpu_torch.train").removeHandler(lines)
+        if rc != 0 or "saved checkpoint at step 2" not in "\n".join(lines.lines):
+            fail(f"cli.train --task speech_to_speech_ar: rc {rc}, log {lines.lines[-3:]}")
+        step = save_dir / "step_000000002"
+        base = [str(tmp), "--task", "speech_to_speech_ar", "--gen-subset", "test",
+                "--max-tokens", str(EVAL_MAX_TOKENS)]
+        ar = generate.build_ar_model(generate.parse_args(base + ["--path", str(step)]),
+                                     str(step), cuda, torch.bfloat16)
+        stacked = seeded_ar(torch, 25, n_frames_per_step=2)
+        save_npz(str(tmp / "ar_k2.npz"), to_jax_variables(stacked))
+        nar = seeded_nar(torch, 0)
+        save_npz(str(tmp / "nar.npz"), to_jax_variables(nar))
+        sampler = torch.Generator(device=cuda).manual_seed(7)
+        runs = (
+            ("beam 5", ["--path", str(step), "--beam", str(AR_BEAM)],
+             lambda s, n: ar_generate(ar, s, n, beam_size=AR_BEAM)[0][:, 0]),
+            ("--sampling", ["--path", str(step), "--sampling", "--seed", "7"],
+             lambda s, n: ar_generate(ar, s, n, beam_size=AR_BEAM, sampling=True,
+                                      generator=sampler)[0][:, 0]),
+            ("--score-reference", ["--path", str(step), "--score-reference"], None),
+            ("--n-frames-per-step 2", ["--path", str(tmp / "ar_k2.npz"),
+                                       "--n-frames-per-step", "2"],
+             lambda s, n: ar_generate_stacked(stacked, s, n)[1].reshape(s.shape[0], -1)),
+            ("NAR --rerank-path", ["--task", "speech_to_speech_fasttranslate", "--arch",
+                                   "nar_s2ut_conformer", "--path", str(tmp / "nar.npz"),
+                                   "--iter-decode-with-beam", str(AR_RERANK_BEAM),
+                                   "--rerank-path", str(step)],
+             lambda s, n: mask_predict_decode(nar, s, n, max_iter=EVAL_MAX_ITER, max_len=256,
+                                              length_beam=AR_RERANK_BEAM, reranker=ar)[0]),
+        )
+        for i, (what, flags, in_process) in enumerate(runs):
+            out = tmp / f"gen{i}"
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            if generate.main(base + flags + ["--results-path", str(out)]) != 0:
+                fail(f"cli.generate {what} failed")
+            walls[f"cli.generate {what}"] = time.perf_counter() - t0
+            got = read_hyps(out / "generate-test.txt")
+            if in_process is None:  # --score-reference: the references, scored
+                text = (out / "generate-test.txt").read_text().splitlines()
+                refs = {int(x.split("\t")[0][2:]): x.split("\t")[1] for x in text
+                        if x.startswith("T-")}
+                scores = [float(x.split("\t")[1]) for x in text if x.startswith("H-")]
+                if got != refs or len(got) != 4 or not all(-50 < v < 0 for v in scores):
+                    fail(f"cli.generate --score-reference: hyps {got}, scores {scores}")
+                continue
+            want = ar_hyps(torch, tmp, in_process)
+            if got != want or len(got) != 4 or not all(got.values()):
+                fail(f"cli.generate {what}: H- units differ from the in-process decode "
+                     f"({sum(got.get(k) == v for k, v in want.items())} of {len(want)} equal)")
+        del ar, stacked, nar
+    print(f"AR CLIs on phase 11's corpus (released widths, bf16, 4 test WAVs of 3-7 s): "
+          + ", ".join(f"{k} {v:.2f} s" for k, v in walls.items())
+          + " (one run each); every cli.generate run's H- units equal to its in-process "
+            f"decode, --score-reference's hypotheses its references; {smi}")
+
+
+def run_ar_s2ut(torch, mods, smi):
+    """Phase 23: the AR S2UT family (see the module docstring). Returns the
+    flash_attention launches."""
+    t0 = time.perf_counter()
+    launches = run_ar_decode(torch, mods, smi)
+    launches += run_ar_transformer(torch, mods, smi)
+    run_ar_train(torch, smi)
+    run_ar_cli(torch, smi)
+    print(f"phase AR S2UT: {time.perf_counter() - t0:.1f} s, flash_attention launches "
+          f"{launches}; {smi}")
+    return launches
+
+
 def main() -> int:
     try:
         import torch
@@ -5453,6 +5887,10 @@ def main() -> int:
         if name in launches:
             launches[name] += n
 
+    # 23. the AR S2UT family: the KV-cached beam decode, s2ut_transformer,
+    # AR training, cli.train -> cli.generate and the AR reranker
+    launches["flash_attention"] += run_ar_s2ut(torch, mods, smi)
+
     sources = {
         "rms_norm_film": ("rms_norm_film.cu", "diffnorm_tpu/ops/pallas_norm.py:34"),
         "wavenet_chain": ("wavenet_chain.cu", "diffnorm_tpu/ops/pallas_wavenet.py:66"),
@@ -5476,6 +5914,10 @@ def main() -> int:
           + (f"{conv_us / 1e3:.4f} ms" if conv_us is not None else "not measured"))
     print(f"flash_attention at PERFORMANCE.md's B2 H8 T4096 D64: {flash_timed['PERFORMANCE.md']}")
     print(f"flash_attention at phase 15's shape (k/v [2,8,3072,64]): {flash_timed['eval path']}")
+    print(f"flash_attention at phase 23's decode step (q [10,8,1,64], k/v [10,8,2112,64]): "
+          f"{flash_timed['AR decode step']}")
+    print(f"flash_attention at phase 23's S2T encoder ([2,8,2112,64]): "
+          f"{flash_timed['S2T encoder']}")
     for what in ("HuBERT long form", "HuBERT longest chunk", "float32 path"):
         print(f"flash_attention float32 {what}: {flash_timed[what]}")
     print(json.dumps({"kernels": kernels}))

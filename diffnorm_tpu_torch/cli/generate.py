@@ -1,4 +1,4 @@
-"""Generation CLI, the NAR S2UT branch (PyTorch port of
+"""Generation CLI, the NAR and AR S2UT branches (PyTorch port of
 diffnorm_tpu/cli/generate.py; reference fairseq_cli/generate.py).
 
   python -m diffnorm_tpu_torch.cli.generate $DATA \\
@@ -7,11 +7,17 @@ diffnorm_tpu/cli/generate.py; reference fairseq_cli/generate.py).
       --gen-subset test --max-tokens 20000 --iter-decode-max-iter 15 \\
       --cond-scale 1.0 --results-path results/
 
+  python -m diffnorm_tpu_torch.cli.generate $DATA \\
+      --task speech_to_speech_ar --target-code-size 1000 \\
+      --arch s2ut_conformer --path ckpt/ar/step_000400000 \\
+      --gen-subset test --max-tokens 20000 --beam 5 --results-path results/
+
 Decodes `{gen_subset}.tsv` under DATA with mask-predict
-(`generate/mask_predict.py`) in batches of `--max-tokens` source frames
-(and at most `--batch-size` sentences), in the dataset's order (descending
-source length), and writes `generate-{split}.txt` under --results-path
-(stdout without it) with fairseq's lines per sentence: `T-{id}\\t{ref}`,
+(`generate/mask_predict.py`; the AR branch below) in batches of
+`--max-tokens` source frames (and at most `--batch-size` sentences), in
+the dataset's order (descending source length), and writes
+`generate-{split}.txt` under --results-path (stdout without it) with
+fairseq's lines per sentence: `T-{id}\\t{ref}`,
 `H-{id}\\t{score}\\t{hyp}` and `D-{id}\\t{score}\\t{hyp}`, ids being manifest
 indices, then `Generate {split} with beam={beam}: {score}` for the corpus:
 BLEU-4 from the counters of `eval/bleu.py` (`--scoring bleu`, the default),
@@ -50,9 +56,30 @@ writes each step's filled canvas as `E-{id}_{step}\t{units}` lines after
 the sentence's D- line; `--decode-chunk N` decodes each batch in
 sub-batches of N rows (`mask_predict_decode_chunked`).
 
+`--rerank-path AR` with `--iter-decode-with-beam N > 1` picks each
+sentence's candidate by its mean log-prob under that AR S2UT model
+(`mask_predict.ar_rerank_scores`); `--rerank-<flag> V` sets a model flag
+(`--rerank-arch`, `--rerank-encoder-layers`, ...) for the reranker alone,
+whose other flags are the run's, as JAX's --rerank-<key> overrides.
+
+The AR S2UT branch (`--task speech_to_speech_ar --arch s2ut_conformer`,
+`s2ut_transformer` or `s2ut_transformer_fisher`; a width left unset takes
+the arch's default) decodes with fairseq's beam search through the KV
+cache (`generate/beam_search.py`): `--beam`, `--lenpen`, `--min-len`,
+`--no-repeat-ngram-size`, `--unkpen`, `--prefix-size` (the reference's
+first tokens forced) and `--path a:b` ensembles; `--sampling` with
+`--sampling-topk`, `--sampling-topp` and `--temperature` draws `--beam`
+samples a sentence from a torch.Generator seeded with `--seed` (JAX's PRNG
+stream cannot be reproduced); `--score-reference` writes each reference
+with its teacher-forced log-probs; `--n-frames-per-step k > 1` decodes
+greedily k units a step (the first model of an ensemble). Its H- and D-
+lines carry the best hypothesis and its normalized score; the summary
+line names `--beam` (`--iter-decode-with-beam` for the stacked and the
+reference-scoring runs, as JAX's). The decode runs at most
+min(--max-target-positions, 256) steps.
+
 Not ported, and raising NotImplementedError: the other tasks and
-architectures (AR S2UT, UnitY, TTS, LevT) and the AR reranker
-(--rerank-path), ROADMAP Queue 1 item 4.
+architectures (UnitY, TTS, LevT, ...), ROADMAP Queue 1 item 4.
 """
 
 from __future__ import annotations
@@ -64,6 +91,7 @@ import sys
 import time
 from typing import Dict, Optional, Sequence, Union
 
+import numpy as np
 import torch
 
 from diffnorm_tpu_torch.cli.s2st import add_model_args, build_model, resolve_device_dtype
@@ -73,16 +101,26 @@ from diffnorm_tpu_torch.data.iterators import EpochBatchIterator, read_ahead
 from diffnorm_tpu_torch.data.s2s_dataset import SpeechToUnitDataset
 from diffnorm_tpu_torch.eval.bleu import BleuAccumulator
 from diffnorm_tpu_torch.eval.wer import WerAccumulator
-from diffnorm_tpu_torch.generate.mask_predict import mask_predict_decode_chunked
+from diffnorm_tpu_torch.generate.beam_search import ar_generate, ar_generate_stacked
+from diffnorm_tpu_torch.generate.mask_predict import average_log_probs, mask_predict_decode_chunked
+from diffnorm_tpu_torch.models.ar_transformer import ARCHS as AR_ARCHS
+from diffnorm_tpu_torch.models.ar_transformer import ARS2UTModule
 from diffnorm_tpu_torch.models.nar_transformer import calibrate_act_scales
 from diffnorm_tpu_torch.ops.quant import set_static_scales
+from diffnorm_tpu_torch.tasks.ar_s2ut_task import shift_right
+from diffnorm_tpu_torch.train.checkpoint import load_variables
+from diffnorm_tpu_torch.weights import from_jax_variables
 
 logger = logging.getLogger("diffnorm_tpu_torch.generate")
 
 PAD, EOS = 1, 2
 TASK, ARCH = "speech_to_speech_fasttranslate", "nar_s2ut_conformer"
-# flags of the JAX CLI's other branches: flag -> the ROADMAP item that ports it
-UNPORTED = {"--rerank-path": "Queue 1 item 4 (the AR reranker)"}
+AR_TASK = "speech_to_speech_ar"
+TASK_ARCHS = {TASK: (ARCH,), AR_TASK: tuple(AR_ARCHS)}  # the first, the task's default
+# the widths an AR arch gives where the flag is not set
+AR_WIDTHS = ("encoder_embed_dim", "encoder_ffn_embed_dim", "encoder_layers",
+             "encoder_attention_heads", "decoder_embed_dim", "decoder_ffn_embed_dim",
+             "decoder_layers", "decoder_attention_heads")
 
 
 def strip_special(tokens, dictionary: Dictionary) -> str:
@@ -115,13 +153,13 @@ def init_length(lengths: Dict[Union[int, str], int], sid: int) -> int:
     raise KeyError(f"--init-unit-file has no units for utterance id {sid!r}")
 
 
-def parse_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
+def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     p.add_argument("data", help="directory of the {split}.tsv manifests (and config.yaml)")
     p.add_argument("--task", default=TASK)
-    p.add_argument("--arch", default=ARCH)
+    p.add_argument("--arch", default=None, help="default: the task's first (TASK_ARCHS)")
     p.add_argument("--path", required=True,
-                   help="NAR S2UT weights (weights.save_npz), or a cli.train step directory; "
+                   help="the model's weights (weights.save_npz), or a cli.train step directory; "
                         "a:b:c for an ensemble")
     p.add_argument("--config-yaml", default="config.yaml", help="the data config, under DATA")
     p.add_argument("--gen-subset", default="test")
@@ -140,7 +178,8 @@ def parse_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
     p.add_argument("--post-process", help="detokenize D- lines and references "
                                           "(data.encoders.post_process)")
     p.add_argument("--remove-bpe", help="--post-process's other name")
-    p.add_argument("--seed", type=int, default=1, help="accepted; mask-predict draws nothing")
+    p.add_argument("--seed", type=int, default=1,
+                   help="the --sampling draws' generator (mask-predict draws nothing)")
     p.add_argument("--quant-int8", action="store_true", help="the int8 W8A8 NAR model")
     p.add_argument("--quant-int8-static", action="store_true",
                    help="with --quant-int8: static activation scales, calibrated on the "
@@ -149,18 +188,154 @@ def parse_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
                    help="E-{id}_{step} lines: each step's filled canvas")
     p.add_argument("--decode-chunk", type=int, default=0,
                    help="decode in sub-batches of this many rows (0: whole batches)")
+    p.add_argument("--rerank-path", help="an AR S2UT model that picks the length beam's "
+                                         "candidate (NAR, --iter-decode-with-beam > 1)")
+    # the AR branch (speech_to_speech_ar)
+    p.add_argument("--beam", type=int, default=5)
+    p.add_argument("--lenpen", type=float, default=1.0)
+    p.add_argument("--min-len", type=int, default=1)
+    p.add_argument("--no-repeat-ngram-size", type=int, default=0)
+    p.add_argument("--unkpen", type=float, default=0.0)
+    p.add_argument("--prefix-size", type=int, default=0)
+    p.add_argument("--sampling", action="store_true")
+    p.add_argument("--sampling-topk", type=int, default=0)
+    p.add_argument("--sampling-topp", type=float, default=0.0)
+    p.add_argument("--temperature", type=float, default=1.0)
+    p.add_argument("--score-reference", action="store_true")
     add_model_args(p)
-    for flag in UNPORTED:
-        p.add_argument(flag, nargs="?", const=True, default=None, help=argparse.SUPPRESS)
-    args = p.parse_args(argv)
-    for flag, item in UNPORTED.items():
-        if getattr(args, flag[2:].replace("-", "_")) is not None:
-            raise NotImplementedError(f"{flag} is not ported (ROADMAP {item})")
-    if args.task != TASK or args.arch != ARCH:
-        raise NotImplementedError(
-            f"--task {args.task} --arch {args.arch}: only the NAR S2UT branch ({TASK}, {ARCH}) "
-            "is ported (ROADMAP Queue 1 item 4)")
+    return p
+
+
+def rerank_overrides(extra: Sequence[str]) -> Dict:
+    """The `--rerank-<flag> [value]` arguments as {dest: value} of the model
+    flags (and --arch) they set for the reranker."""
+    q = argparse.ArgumentParser(prog="--rerank-<flag>")
+    q.add_argument("--arch")
+    add_model_args(q)
+    bad = [a for a in extra if a.startswith("-") and not a.startswith("--rerank-")]
+    if bad:
+        q.error(f"unrecognized arguments: {' '.join(bad)}")
+    given = [a[len("--rerank-"):].replace("-", "_") for a in extra if a.startswith("--rerank-")]
+    ns = q.parse_args([("--" + a[len("--rerank-"):]) if a.startswith("--rerank-") else a
+                       for a in extra], namespace=argparse.Namespace(**dict.fromkeys(given)))
+    return {key: getattr(ns, key) for key in given}
+
+
+def apply_ar_arch(args: argparse.Namespace) -> argparse.Namespace:
+    """The AR arch's defaults into the widths left unset (None)."""
+    AR_ARCHS[args.arch](vars(args))
     return args
+
+
+def parse_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
+    """The flags, with `rerank` the reranker's flags where --rerank-path is
+    given. Raises NotImplementedError for a task or arch not ported."""
+    p = build_parser()
+    chosen, _ = p.parse_known_args(argv)
+    archs = TASK_ARCHS.get(chosen.task)
+    if archs is None or (chosen.arch or archs[0]) not in archs:
+        raise NotImplementedError(
+            f"--task {chosen.task} --arch {chosen.arch}: the ported branches are {TASK} "
+            f"({ARCH}) and {AR_TASK} ({', '.join(TASK_ARCHS[AR_TASK])}) "
+            "(ROADMAP Queue 1 item 4)")
+    if chosen.task == AR_TASK:  # widths left unset take the arch's
+        p.set_defaults(**dict.fromkeys(AR_WIDTHS))
+    args, extra = p.parse_known_args(argv)
+    args.arch = args.arch or archs[0]
+    overrides = rerank_overrides(extra)
+    if args.task == AR_TASK:
+        apply_ar_arch(args)
+        if args.quant_int8:
+            p.error("--quant-int8: the int8 model is the NAR one")
+    args.rerank = None
+    if args.rerank_path:
+        rerank = argparse.Namespace(**{**vars(args), **overrides})
+        rerank.arch = overrides.get("arch", "s2ut_conformer")
+        if rerank.arch not in AR_ARCHS:
+            p.error(f"--rerank-arch {rerank.arch}: the reranker is an AR S2UT model")
+        args.rerank = apply_ar_arch(rerank)
+    return args
+
+
+def build_ar_model(args: argparse.Namespace, path: str, device: torch.device,
+                   dtype: torch.dtype) -> ARS2UTModule:
+    """The AR S2UT model of the shape flags with the weights of `path` (a
+    `weights.save_npz` file or a cli.train step directory), without a
+    checkpoint's aux heads (`mt_*`, which no decode runs), in eval mode."""
+    with torch.device(device):
+        model = ARS2UTModule(
+            vocab_size=args.target_code_size + 4, in_channels=args.input_feat_per_channel,
+            encoder_dim=args.encoder_embed_dim, encoder_ffn_dim=args.encoder_ffn_embed_dim,
+            encoder_layers=args.encoder_layers, encoder_heads=args.encoder_attention_heads,
+            decoder_dim=args.decoder_embed_dim, decoder_ffn_dim=args.decoder_ffn_embed_dim,
+            decoder_layers=args.decoder_layers, decoder_heads=args.decoder_attention_heads,
+            depthwise_kernel_size=args.depthwise_conv_kernel_size,
+            encoder_type=args.encoder_type, conv_channels=args.conv_channels,
+            conv_kernel_sizes=tuple(int(k) for k in args.conv_kernel_sizes.split(",")),
+            n_frames_per_step=args.n_frames_per_step,
+            target_speaker_embed=args.target_speaker_embed,
+            speaker_embed_dim=args.speaker_embed_dim)
+    variables = load_variables(path)
+    variables["params"] = {k: v for k, v in variables["params"].items()
+                           if not k.startswith("mt_")}
+    from_jax_variables(model, variables)
+    return model.to(dtype).eval()
+
+
+def ar_decoder(args: argparse.Namespace, models, device: torch.device):
+    """The AR branch's decode of a batch: (fn(batch) -> (tokens [B, L],
+    scores [B, L], steps [B]) numpy, the beam the summary line names)."""
+    max_len = min(args.max_target_positions, 256)
+
+    def out(tokens, scores):
+        return (tokens.cpu().numpy(), scores.float().cpu().numpy(),
+                np.ones(tokens.shape[0], np.int32))
+
+    def speaker(batch):
+        spk = batch.get("tgt_speaker")
+        return None if spk is None else torch.from_numpy(spk).to(device)
+
+    if args.n_frames_per_step > 1:
+        if len(models) > 1:
+            logger.warning("stacked-unit generation uses the first model of the ensemble")
+
+        def decode(batch):
+            _, sub = ar_generate_stacked(models[0], batch["src_tokens"], batch["src_lengths"],
+                                         max_len=max_len, tgt_speaker=speaker(batch))
+            tokens = sub.reshape(sub.shape[0], -1)  # the full-rate units
+            return out(tokens, torch.zeros(tokens.shape))
+
+        return decode, args.iter_decode_with_beam
+    if args.score_reference:
+        @torch.no_grad()
+        def decode(batch):
+            target = torch.from_numpy(batch["target"]).to(device).long()
+            prev = torch.from_numpy(shift_right(batch["target"])).to(device).long()
+            lps = [torch.log_softmax(m(batch["src_tokens"], batch["src_lengths"], prev,
+                                       tgt_speaker=speaker(batch))["logits"].float(), dim=-1)
+                   for m in models]
+            lp = average_log_probs(lps)
+            return out(target, lp.gather(-1, target[..., None])[..., 0])
+
+        return decode, args.iter_decode_with_beam
+    generator = (torch.Generator(device=device).manual_seed(args.seed) if args.sampling
+                 else None)
+
+    def decode(batch):
+        prefix = None
+        if args.prefix_size > 0:
+            prefix = torch.from_numpy(batch["target"][:, :args.prefix_size]).to(device)
+        seqs, scores = ar_generate(
+            models, batch["src_tokens"], batch["src_lengths"], beam_size=args.beam,
+            max_len=max_len, min_len=args.min_len, len_penalty=args.lenpen,
+            no_repeat_ngram=args.no_repeat_ngram_size, unk_penalty=args.unkpen,
+            prefix_tokens=prefix, sampling=args.sampling, sampling_topk=args.sampling_topk,
+            sampling_topp=args.sampling_topp, temperature=args.temperature,
+            generator=generator, tgt_speaker=speaker(batch))
+        best = seqs[:, 0]
+        return out(best, scores[:, :1].expand_as(best))
+
+    return decode, args.beam
 
 
 def main(argv: Optional[Sequence[str]] = None) -> int:
@@ -168,23 +343,35 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
                         format="%(asctime)s | %(levelname)s | %(message)s")
     args = parse_args(argv)
     device, dtype = resolve_device_dtype(args)
-    split, beam = args.gen_subset, args.iter_decode_with_beam
+    split = args.gen_subset
     tgt_dict = Dictionary.unit_dictionary(args.target_code_size)
     dataset = SpeechToUnitDataset.from_tsv(args.data, split, tgt_dict=tgt_dict,
                                            config_yaml=args.config_yaml)
     paths = [p for p in args.path.split(":") if p]
-    models = [build_model(args, p, device, dtype, quant_int8=args.quant_int8) for p in paths]
+    ar = args.task == AR_TASK
+    if ar:
+        models = [build_ar_model(args, p, device, dtype) for p in paths]
+    else:
+        models = [build_model(args, p, device, dtype, quant_int8=args.quant_int8)
+                  for p in paths]
     if len(models) > 1:
         logger.info("restored %d-model ensemble from %s", len(models), ", ".join(paths))
     else:
         logger.info("restored checkpoint from %s", paths[0])
     calibrate = args.quant_int8 and args.quant_int8_static
     pp_symbol = args.post_process or args.remove_bpe
-    init_lengths = None
-    if args.init_unit_file:
-        init_lengths = read_init_lengths(args.init_unit_file)
-        logger.info("forcing canvas lengths from %s (%d utts)", args.init_unit_file,
-                    len(init_lengths))
+    init_lengths = reranker = None
+    if ar:
+        decode_ar, beam = ar_decoder(args, models, device)
+    else:
+        beam = args.iter_decode_with_beam
+        if args.init_unit_file:
+            init_lengths = read_init_lengths(args.init_unit_file)
+            logger.info("forcing canvas lengths from %s (%d utts)", args.init_unit_file,
+                        len(init_lengths))
+        if args.rerank and beam > 1:
+            reranker = build_ar_model(args.rerank, args.rerank_path, device, dtype)
+            logger.info("reranking beam=%d with AR model from %s", beam, args.rerank_path)
 
     out_f = sys.stdout
     if args.results_path:
@@ -214,25 +401,30 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
                     set_static_scales(model, True)
                 logger.info("calibrated static int8 activation scales on the first batch")
                 calibrate = False
-            true_length = None
-            if init_lengths is not None:
-                true_length = torch.tensor([init_length(init_lengths, int(i))
-                                            for i in batch["id"]], device=device)
-            tgt_speaker = batch.get("tgt_speaker")
-            out = mask_predict_decode_chunked(
-                models, batch["src_tokens"], batch["src_lengths"], chunk=args.decode_chunk,
-                max_iter=args.iter_decode_max_iter, max_len=min(args.max_target_positions, 256),
-                cond_scale=args.cond_scale, length_beam=beam, true_length=true_length,
-                adaptive=not args.iter_decode_force_max_iter,
-                tgt_speaker=(None if tgt_speaker is None
-                             else torch.from_numpy(tgt_speaker).to(device)),
-                retain_history=args.retain_iter_history)
-            tokens, scores, steps = (t.cpu().numpy() for t in out[:3])
-            history = out[3].cpu().numpy() if args.retain_iter_history else None
+            history = None
+            if ar:
+                tokens, scores, steps = decode_ar(batch)
+            else:
+                true_length = None
+                if init_lengths is not None:
+                    true_length = torch.tensor([init_length(init_lengths, int(i))
+                                                for i in batch["id"]], device=device)
+                tgt_speaker = batch.get("tgt_speaker")
+                out = mask_predict_decode_chunked(
+                    models, batch["src_tokens"], batch["src_lengths"], chunk=args.decode_chunk,
+                    max_iter=args.iter_decode_max_iter,
+                    max_len=min(args.max_target_positions, 256), cond_scale=args.cond_scale,
+                    length_beam=beam, true_length=true_length,
+                    adaptive=not args.iter_decode_force_max_iter,
+                    tgt_speaker=(None if tgt_speaker is None
+                                 else torch.from_numpy(tgt_speaker).to(device)),
+                    retain_history=args.retain_iter_history, reranker=reranker)
+                tokens, scores, steps = (t.cpu().numpy() for t in out[:3])
+                history = out[3].cpu().numpy() if args.retain_iter_history else None
             total_steps += int(steps.sum())
             for i, sid in enumerate(batch["id"].tolist()):
                 hyp = strip_special(tokens[i], tgt_dict)
-                ref = strip_special(batch["target"][i], tgt_dict)
+                ref = strip_special(batch["target"][i].reshape(-1), tgt_dict)
                 keep = tokens[i] != PAD
                 score = float(scores[i][keep].mean()) if keep.any() else 0.0
                 hyp_d = hyp

@@ -3,8 +3,13 @@ the speech VAE (`--task speech_decoder`, or `hubert_vae`), the latent
 normalizer over the frozen VAE (`--task speech_diffusion_discrete`, or the
 continuous `speech_diffusion` / `speech_diffusion_hubert`) and the NAR S2UT
 translator on unit targets (`--task speech_to_speech_fasttranslate`,
-DiffNorm's fourth stage); `--task unit_to_speech` goes to `cli.train_vocoder` with the other
-arguments, as JAX's does, and `--task repr_to_speech` too with
+DiffNorm's fourth stage), and the AR S2UT translator, the paper's baseline
+(`--task speech_to_speech_ar`, `--arch s2ut_conformer`, `s2ut_transformer`
+or `s2ut_transformer_fisher`, `--criterion label_smoothed_cross_entropy` or
+`speech_to_unit` with the aux tasks' terms; the NAR model's options apply
+but the ones JAX's AR model lacks, and a width left unset takes the arch's
+default); `--task unit_to_speech` goes to `cli.train_vocoder` with the
+other arguments, as JAX's does, and `--task repr_to_speech` too with
 `--input-type features`. It takes every flag of scripts/vae_train.sh,
 scripts/diffusion_train.sh and scripts/s2ut_train.sh with the same meaning;
 a flag it does not implement is an error. `--quant-int8` trains the
@@ -123,6 +128,7 @@ from diffnorm_tpu_torch.data.iterators import (
     read_ahead,
 )
 from diffnorm_tpu_torch.device import resolve_device
+from diffnorm_tpu_torch.models.ar_transformer import ARCHS as AR_ARCHS
 from diffnorm_tpu_torch.models.diffusion import ARCHS as DIFFUSION_ARCHS
 from diffnorm_tpu_torch.models.nar_transformer import ARCHS as NAR_ARCHS
 from diffnorm_tpu_torch.tasks import TASKS
@@ -142,15 +148,19 @@ from diffnorm_tpu_torch.weights import from_jax_variables, to_jax_variables
 
 logger = logging.getLogger("diffnorm_tpu_torch.train")
 
-NAR_TASK = "speech_to_speech_fasttranslate"
-STAGES = {  # task: (criterion, its architectures)
-    "speech_decoder": ("speech_vae_decoder_loss", ("speech_vae_decoder",)),
-    "hubert_vae": ("hubert_vae_loss", ("speech_vae_decoder",)),
-    "speech_diffusion_discrete": ("ddpm_discrete_loss", ("diff_discrete", "diffusion_transformer")),
-    "speech_diffusion": ("ddpm_latent_loss", ("diff_latent", "diffusion_transformer")),
-    "speech_diffusion_hubert": ("ddpm_latent_loss", ("diff_hubert",)),
-    NAR_TASK: ("nar_speech_to_unit", tuple(NAR_ARCHS)),
+NAR_TASK, AR_TASK = "speech_to_speech_fasttranslate", "speech_to_speech_ar"
+STAGES = {  # task: (its criterions, the first the default; its architectures)
+    "speech_decoder": (("speech_vae_decoder_loss",), ("speech_vae_decoder",)),
+    "hubert_vae": (("hubert_vae_loss",), ("speech_vae_decoder",)),
+    "speech_diffusion_discrete": (("ddpm_discrete_loss",),
+                                  ("diff_discrete", "diffusion_transformer")),
+    "speech_diffusion": (("ddpm_latent_loss",), ("diff_latent", "diffusion_transformer")),
+    "speech_diffusion_hubert": (("ddpm_latent_loss",), ("diff_hubert",)),
+    NAR_TASK: (("nar_speech_to_unit",), tuple(NAR_ARCHS)),
+    AR_TASK: (("label_smoothed_cross_entropy", "speech_to_unit"), tuple(AR_ARCHS)),
 }
+# the criterions' label smoothing where --label-smoothing is not given
+LABEL_SMOOTHING = {NAR_TASK: 0.2, AR_TASK: 0.1}
 # the optimizer's and schedule's flags beside --lr, --warmup-*, --adam-*
 # and --weight-decay, under JAX's config keys (TrainerConfig.options)
 OPTIONS = ("min_lr", "end_learning_rate", "power", "lr_decay_period", "lr_deacy_period",
@@ -251,7 +261,8 @@ def build_parser(description: str, train: bool = True) -> argparse.ArgumentParse
                    help="classifier-free-guidance drop rate of whole sources")
     _flag(p, "--use-sp", help="self-prompting")
     _flag(p, "--use-side", help="the side mask in half of the CMLM canvases")
-    p.add_argument("--label-smoothing", type=float, default=0.2)
+    p.add_argument("--label-smoothing", type=float,
+                   help="default 0.2 (NAR), 0.1 (AR), as JAX's criterions")
     p.add_argument("--n-frames-per-step", type=int, default=1,
                    help="units per decoder step (stacked units when > 1)")
     p.add_argument("--multitask-config-yaml",
@@ -343,9 +354,10 @@ def build_parser(description: str, train: bool = True) -> argparse.ArgumentParse
 def check_args(p: argparse.ArgumentParser, args: argparse.Namespace) -> argparse.Namespace:
     """The task's criterion and architecture, the unported flags, and the
     defaults that depend on the task."""
-    criterion, archs = STAGES[args.task]
-    if args.criterion is not None and args.criterion != criterion:
-        p.error(f"--criterion {args.criterion}: task {args.task} trains {criterion}")
+    criteria, archs = STAGES[args.task]
+    if args.criterion is not None and args.criterion not in criteria:
+        p.error(f"--criterion {args.criterion}: task {args.task} trains {' or '.join(criteria)}")
+    args.criterion = args.criterion or criteria[0]
     if args.arch is not None and args.arch not in archs:
         p.error(f"--arch {args.arch}: task {args.task} trains {' or '.join(archs)}")
     if args.use_cond:
@@ -353,8 +365,18 @@ def check_args(p: argparse.ArgumentParser, args: argparse.Namespace) -> argparse
                 "JAX's: its criterions pass none, and its Denoiser asserts one, "
                 "models/diffusion.py:271); build LatentDiffusionModule(use_cond=True) and "
                 "pass batches with a prompt instead")
-    if args.task == NAR_TASK:
-        NAR_ARCHS[args.arch or archs[0]](vars(args))
+    if args.task == AR_TASK:
+        for flag, value in (("--cg-prob", args.cg_prob), ("--use-sp", args.use_sp),
+                            ("--use-side", args.use_side),
+                            ("--multitask-ctc-vocab", args.multitask_ctc_vocab),
+                            ("--encoder-remat", args.encoder_remat),
+                            ("--quant-int8", args.quant_int8)):
+            if value:
+                p.error(f"{flag}: an option of the NAR model; the AR model has none, as JAX's")
+    if args.task in (NAR_TASK, AR_TASK):
+        (NAR_ARCHS if args.task == NAR_TASK else AR_ARCHS)[args.arch or archs[0]](vars(args))
+        if args.label_smoothing is None:
+            args.label_smoothing = LABEL_SMOOTHING[args.task]
     else:
         if args.tgt_feat_dir is None:
             p.error(f"task {args.task} needs --tgt-feat-dir")

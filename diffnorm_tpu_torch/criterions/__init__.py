@@ -1,3 +1,3 @@
 """Training criterions of the PyTorch port (see diffnorm_tpu/criterions):
 the speech VAE's and the HuBERT VAE's, the latent normalizer's discrete and
-continuous DDPM losses, and NAR S2UT's, on tensors."""
+continuous DDPM losses, NAR S2UT's and AR S2UT's, on tensors."""

@@ -32,6 +32,10 @@ Counterpart of diffnorm_tpu/generate/mask_predict.py:
   it runs every step, as JAX turns its early exit off for it
 * `mask_predict_decode_chunked` decodes sub-batches of `chunk` rows
   (--decode-chunk), the last padded with copies of the last row
+* `reranker` (--rerank-path, an AR S2UT model): a length beam's candidates
+  are picked by their mean teacher-forced log-prob under it
+  (`ar_rerank_scores`, fairseq's iterative_refinement_generator.py:294-361)
+  instead of their mean fill score
 """
 
 from __future__ import annotations
@@ -75,6 +79,23 @@ def fill_and_remask(tokens, scores, new_tokens, new_scores, step: int, max_step:
     return filled_tokens, filled_scores, out_tokens, out_scores
 
 
+def ar_rerank_scores(ar_model, src: torch.Tensor, src_lengths: torch.Tensor,
+                     cand_tokens: torch.Tensor) -> torch.Tensor:
+    """The mean log-prob of each candidate [N, T] under an AR model
+    (`models.ar_transformer.ARS2UTModule`), src already repeated to N rows:
+    position 0 becomes EOS (the decoder's start), the decoder is
+    teacher-forced on tokens[:-1], and the log-probs of tokens[1:] are
+    averaged over their non-pad positions. One batched forward, float32
+    log-probs (JAX mask_predict.py:70-87)."""
+    toks = cand_tokens.clone()
+    toks[:, 0] = EOS
+    lp = torch.log_softmax(ar_model(src, src_lengths, toks[:, :-1])["logits"].float(), dim=-1)
+    tgt = toks[:, 1:]
+    tok_lp = lp.gather(-1, tgt[..., None])[..., 0]
+    m = (tgt != PAD).float()
+    return (tok_lp * m).sum(dim=1) / torch.clamp(m.sum(dim=1), min=1.0)
+
+
 def init_canvas(length_tgt: torch.Tensor, max_len: int):
     """[B] lengths -> (tokens [B, max_len] unk/eos/pad, f32 zero scores)."""
     length_tgt = torch.clamp(length_tgt, min=2)
@@ -84,7 +105,7 @@ def init_canvas(length_tgt: torch.Tensor, max_len: int):
     return tokens, torch.zeros(tokens.shape, dtype=torch.float32, device=tokens.device)
 
 
-def _average_log_probs(lps):
+def average_log_probs(lps):
     """One member's log-probs as they are; an ensemble's as logsumexp over
     the members minus log M (fairseq's EnsembleModel, float32)."""
     if len(lps) == 1:
@@ -98,9 +119,11 @@ def mask_predict_decode(model, src: torch.Tensor, src_lengths: torch.Tensor, *,
                         length_beam: int = 1, true_length: Optional[torch.Tensor] = None,
                         adaptive: bool = True, early_exit: bool = True,
                         tgt_speaker: Optional[torch.Tensor] = None,
-                        retain_history: bool = False):
+                        retain_history: bool = False, reranker=None):
     """model: a `models.nar_transformer.NARS2UTModule`, or a list of them of
-    one architecture (an ensemble). `true_length` [B] (int) replaces the
+    one architecture (an ensemble). `reranker`: an AR S2UT model (eval mode)
+    that picks the length beam's candidate (`ar_rerank_scores`; unit
+    canvases only, k = 1). `true_length` [B] (int) replaces the
     length head's prediction (in packed steps when stacked). Returns
     (tokens [B, max_len * k] int64, scores of the same shape f32, n_steps
     [B] int32): the number of decoder iterations each row ran before it
@@ -115,7 +138,7 @@ def mask_predict_decode(model, src: torch.Tensor, src_lengths: torch.Tensor, *,
     if true_length is not None:
         length_tgt = true_length.to(device=enc_mask.device, dtype=torch.int64)
     else:
-        length_lp = _average_log_probs([
+        length_lp = average_log_probs([
             torch.log_softmax(m.forward_length(e, enc_mask).float(), dim=-1)
             for m, e in zip(models, encs)])
         length_tgt = length_lp.argmax(dim=-1)
@@ -142,7 +165,7 @@ def mask_predict_decode(model, src: torch.Tensor, src_lengths: torch.Tensor, *,
                 null_lp = torch.log_softmax(m.decode(tok, *nulls[i]).float(), dim=-1)
                 lp = null_lp + cond_scale * (lp - null_lp)
             lps.append(lp)
-        return _average_log_probs(lps)
+        return average_log_probs(lps)
 
     max_step = max_iter + 1
     n = tokens.shape[0]
@@ -179,8 +202,14 @@ def mask_predict_decode(model, src: torch.Tensor, src_lengths: torch.Tensor, *,
     history = torch.stack(history) if retain_history else None
 
     if length_beam > 1:
-        non_pad = tokens != PAD
-        sel = (scores * non_pad).sum(dim=1) / torch.clamp(non_pad.sum(dim=1), min=1)
+        if reranker is not None:
+            if kf > 1:
+                raise ValueError("AR reranking takes unit canvases (n_frames_per_step 1)")
+            sel = ar_rerank_scores(reranker, src.repeat_interleave(length_beam, dim=0),
+                                   src_lengths.repeat_interleave(length_beam, dim=0), tokens)
+        else:
+            non_pad = tokens != PAD
+            sel = (scores * non_pad).sum(dim=1) / torch.clamp(non_pad.sum(dim=1), min=1)
         best = sel.reshape(-1, length_beam).argmax(dim=1)
         rows = torch.arange(best.shape[0], device=best.device)
         tokens = tokens.reshape(-1, length_beam, tokens.shape[-1])[rows, best]

@@ -131,7 +131,14 @@ class MultiheadAttention(DropoutSite, nn.Module):
     """fairseq-style MHA (biased q/k/v/out projections); `dropout` drops
     attention probabilities in training mode; `causal` masks future keys;
     the keys and values project from `context_dim` features (default
-    `dim`)."""
+    `dim`).
+
+    Decoding (models/ar_transformer.py's `KVCache`) passes `kv`, keys and
+    values [B, H, S, d] in place of the projected context: with `write_at`
+    = t a self-attention cache, into which the step's own keys and values go
+    at position t, the query attending positions <= t without the causal
+    mask (JAX's decode mode); without it the encoder keys and values, as
+    `project_kv` gives them once per decode."""
 
     def __init__(self, dim: int, heads: int, dropout: float = 0.0, quant: bool = False,
                  causal: bool = False, context_dim: Optional[int] = None):
@@ -144,19 +151,34 @@ class MultiheadAttention(DropoutSite, nn.Module):
         self.v_proj = Dense(kv_dim, dim, quant=quant)
         self.out_proj = Dense(dim, dim, quant=quant)
 
+    def _heads(self, z: torch.Tensor) -> torch.Tensor:
+        """[B, T, H * d] -> [B, H, T, d]."""
+        return z.reshape(z.shape[0], z.shape[1], self.heads, -1).transpose(1, 2)
+
+    def project_kv(self, context: torch.Tensor):
+        """The keys and values of `context` [B, S, C], [B, H, S, d] each,
+        contiguous as the flash-attention kernel reads them."""
+        return (self._heads(self.k_proj(context)).contiguous(),
+                self._heads(self.v_proj(context)).contiguous())
+
     def forward(self, x: torch.Tensor, context: Optional[torch.Tensor] = None,
-                mask: Optional[torch.Tensor] = None) -> torch.Tensor:
-        ctx = x if context is None else context
+                mask: Optional[torch.Tensor] = None, kv=None,
+                write_at: Optional[int] = None) -> torch.Tensor:
         b, tq, _ = x.shape
-        h, d = self.heads, self.dim // self.heads
-
-        def heads_of(z):
-            return z.reshape(b, z.shape[1], h, d).transpose(1, 2)
-
-        q, k, v = heads_of(self.q_proj(x)), heads_of(self.k_proj(ctx)), heads_of(self.v_proj(ctx))
+        q, causal = self._heads(self.q_proj(x)), self.causal
+        if kv is None:
+            ctx = x if context is None else context
+            k, v = self._heads(self.k_proj(ctx)), self._heads(self.v_proj(ctx))
+        else:
+            k, v = kv
+            if write_at is not None:
+                end = write_at + tq
+                k[:, :, write_at:end] = self._heads(self.k_proj(x))
+                v[:, :, write_at:end] = self._heads(self.v_proj(x))
+                k, v, causal = k[:, :, :end], v[:, :, :end], False
         out = attention_ops.masked_attention(
             q, k, v, mask=mask, dropout=self.dropout if self.training else 0.0,
-            generator=self.generator, causal=self.causal)
+            generator=self.generator, causal=causal)
         return self.out_proj(out.transpose(1, 2).reshape(b, tq, self.dim))
 
 
@@ -184,11 +206,14 @@ class DecoderLayer(nn.Module):
         self.fc2 = Dense(ffn_dim, dim, quant=quant)
         self.ff_dropout = Dropout(dropout)
 
-    def forward(self, x, self_mask, enc, enc_mask):
-        x = x + self.self_attn_dropout(self.self_attn(self.self_attn_layer_norm(x),
-                                                      mask=self_mask))
+    def forward(self, x, self_mask, enc, enc_mask, self_kv=None, enc_kv=None,
+                write_at: Optional[int] = None):
+        """`self_kv`, `write_at` and `enc_kv` are a decode step's cache
+        (`MultiheadAttention`'s `kv`), `enc` then unused."""
+        x = x + self.self_attn_dropout(self.self_attn(
+            self.self_attn_layer_norm(x), mask=self_mask, kv=self_kv, write_at=write_at))
         x = x + self.encoder_attn_dropout(self.encoder_attn(
-            self.encoder_attn_layer_norm(x), context=enc, mask=enc_mask))
+            self.encoder_attn_layer_norm(x), context=enc, mask=enc_mask, kv=enc_kv))
         h = self.activation_dropout(F.relu(self.fc1(self.final_layer_norm(x))))
         return x + self.ff_dropout(self.fc2(h))
 

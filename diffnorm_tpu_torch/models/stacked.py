@@ -10,11 +10,14 @@ V = 1000): `pack_units([[999] * 4], 1000, 4)` gives -727379965 there, which
 `unpack_units` then passes through as a special. Here it is
 1,000,000,000,003 and round-trips (pinned in tests/test_torch_stacked.py).
 
-Greedy stacked AR generation (JAX's `stack_unit_generate`) belongs to the AR
-family and is not ported here.
+`stack_unit_generate` is the greedy stacked AR generation (JAX's, fairseq's
+StackUnitSequenceGenerator): k sub-frames a decoder step, the step's packed
+id fed back, a row finished at the first step with EOS in any sub-frame.
 """
 
 from __future__ import annotations
+
+from typing import Callable
 
 import numpy as np
 import torch
@@ -102,3 +105,39 @@ class StackedEmbedding(nn.Module):
         sub = unpack_units(tokens, self.embed.num_embeddings - OFFSET, self.num_stacked)
         e = self.embed(sub)  # [..., n, D]
         return self.project_in_dim(e.reshape(e.shape[:-2] + (-1,)))
+
+
+@torch.no_grad()
+def stack_unit_generate(decode_step: Callable, batch_size: int, vocab_size: int,
+                        n_frames_per_step: int, max_len: int = 256, init_state=None,
+                        device=None):
+    """Greedy stacked-unit generation (JAX models/stacked.py:73-114).
+
+    decode_step(state, prev_packed [B], position [B]) -> (logits [B, k,
+    V + 4], state). Each step takes every sub-frame's argmax with PAD and
+    UNK banned; a row whose sub-frames hold an EOS finishes, that step and
+    every later one giving PAD, and is fed EOS from then on, as JAX's
+    frozen rows. The loop stops once every row has finished (one host sync
+    a step): the steps JAX still runs give PAD only. Returns (packed tokens
+    [B, max_len], sub-units [B, max_len, k]), int64."""
+    k = n_frames_per_step
+    packed_seq = torch.full((batch_size, max_len), PAD, dtype=torch.int64, device=device)
+    sub_seq = torch.full((batch_size, max_len, k), PAD, dtype=torch.int64, device=device)
+    prev = torch.full((batch_size,), EOS, dtype=torch.int64, device=device)
+    finished = torch.zeros(batch_size, dtype=torch.bool, device=device)
+    state = init_state
+    for step in range(max_len):
+        logits, state = decode_step(state, prev, torch.full_like(prev, step))
+        lp = torch.log_softmax(logits.float(), dim=-1)
+        lp[..., PAD] = -float("inf")
+        lp[..., UNK] = -float("inf")
+        sub = lp.argmax(dim=-1)  # [B, k]
+        done = finished | (sub == EOS).any(dim=-1)
+        packed = pack_units(torch.clamp(sub - OFFSET, min=0), vocab_size, k)
+        packed_seq[:, step] = torch.where(done, PAD, packed)
+        sub_seq[:, step] = torch.where(done[:, None], PAD, sub)
+        prev = torch.where(done, EOS, packed)
+        finished = done
+        if bool(finished.all()):
+            break
+    return packed_seq, sub_seq

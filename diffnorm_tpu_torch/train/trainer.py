@@ -68,8 +68,8 @@ COUNT_KEYS = ("ntokens", "nsentences", "sample_size")
 BATCH_KEYS = ("reduce_target", "reduce_target_unit", "reduce_target_lengths",
               "posterior_noise", "inject_times", "inject_enc_noise", "inject_x1_noise",
               "inject_q_noise", "src_tokens", "src_lengths", "target", "prev_target",
-              "inject_cg_drop", "inject_use_prompt", "tgt_speaker", "ctc_target", "multitask",
-              "prompt", "prompt_mask")
+              "prev_output_tokens", "inject_cg_drop", "inject_use_prompt", "tgt_speaker",
+              "ctc_target", "multitask", "prompt", "prompt_mask")
 GRAD_ACCUM = ("mean_loss", "sum_loss", "mean_loss_per_batch")
 GENERATORS = ("generator", "cg_generator", "sp_generator")
 

@@ -255,13 +255,15 @@ def test_cli_generate_refuses_unported_flags_and_missing_ids(generate_corpus, tm
     from diffnorm_tpu_torch.cli import generate
 
     base = [str(generate_corpus), "--cpu", "--path", str(generate_corpus / "nar.npz")]
-    for extra, match in ((["--rerank-path", "ar.npz"], "item 4"),
-                         (["--task", "speech_to_speech"], "item 4"),
+    for extra, match in ((["--task", "speech_to_speech"], "item 4"),
                          (["--arch", "s2ut_conformer"], "item 4")):
         with pytest.raises(NotImplementedError, match=match):
             generate.parse_args(base + extra)
-    # ported since: the history, the chunked decode and ensembles parse
-    # (tests/test_torch_decode_extras.py holds them to JAX's CLI)
+    # ported since: the history, the chunked decode, ensembles and the AR
+    # reranker parse (tests/test_torch_decode_extras.py and
+    # tests/test_torch_ar_cli.py hold them to JAX's CLI)
+    assert generate.parse_args(base + ["--rerank-path", "ar.npz"]).rerank.arch == \
+        "s2ut_conformer"
     assert generate.parse_args(base + ["--retain-iter-history"]).retain_iter_history is True
     assert generate.parse_args(base + ["--decode-chunk", "4"]).decode_chunk == 4
     assert generate.parse_args([str(generate_corpus), "--path", "a.npz:b.npz"]).path == \

@@ -37,7 +37,9 @@ NEW_MODULES = ("models/stacked.py", "models/ar_transformer.py", "data/encoders.p
                "data/multitask.py", "tasks/multitask_mixin.py", "data/augment.py",
                "train/metrics.py", "train/progress.py", "train/lr_schedules.py",
                "train/optimizers.py", "criterions/ddpm_loss.py", "criterions/vae_loss.py",
-               "tasks/diffusion_task.py", "tasks/vae_task.py", "tasks/__init__.py")
+               "tasks/diffusion_task.py", "tasks/vae_task.py", "tasks/__init__.py",
+               "models/s2t_transformer.py", "tasks/ar_s2ut_task.py", "criterions/ce_loss.py",
+               "generate/beam_search.py")
 
 
 def test_no_jax_imports_in_the_port():
@@ -95,6 +97,10 @@ def test_port_imports_with_jax_blocked():
             "import diffnorm_tpu_torch.criterions.vae_loss\n"
             "import diffnorm_tpu_torch.tasks\n"
             "import diffnorm_tpu_torch.cli.train\n"
+            "import diffnorm_tpu_torch.models.s2t_transformer\n"
+            "import diffnorm_tpu_torch.tasks.ar_s2ut_task\n"
+            "import diffnorm_tpu_torch.criterions.ce_loss\n"
+            "import diffnorm_tpu_torch.generate.beam_search\n"
             "from diffnorm_tpu_torch.eval.bleu import corpus_bleu, scorer_name\n"
             "assert scorer_name() == 'counters', scorer_name()\n"
             "assert corpus_bleu(['1 2 3 4 5'], ['1 2 3 4 5']) == 100.0\n"
@@ -140,6 +146,9 @@ def test_entry_points_refuse_the_cpu_unless_asked(tmp_path):
 
     with pytest.raises(RuntimeError, match="CUDA"):
         generate.main([str(tmp_path), "--path", "absent.npz", "--results-path", str(tmp_path)])
+    with pytest.raises(RuntimeError, match="CUDA"):  # the AR S2UT branch
+        generate.main([str(tmp_path), "--task", "speech_to_speech_ar", "--path", "absent.npz",
+                       "--results-path", str(tmp_path)])
     with pytest.raises(RuntimeError, match="CUDA"):
         generate_waveform.main(["--in-code-file", "absent.unit", "--vocoder", "absent.npz",
                                 "--vocoder-cfg", "absent.json", "--results-path",
@@ -158,6 +167,8 @@ def test_entry_points_refuse_the_cpu_unless_asked(tmp_path):
         train_vocoder.main(vocoder)
     with pytest.raises(RuntimeError, match="CUDA"):
         train.main(["--task", "unit_to_speech", *vocoder])
+    with pytest.raises(RuntimeError, match="CUDA"):
+        train.main([str(tmp_path), "--task", "speech_to_speech_ar", "--max-update", "1"])
 
     from diffnorm_tpu_torch.cli import validate
 
