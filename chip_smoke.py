@@ -51,7 +51,7 @@ prints no result:
    shape: B16 x 480 fbank frames, 15 iterations, max_len 256, max_duration
    4, a 384-unit wav canvas, vocoder chunk 4. The subsampled source (120
    frames) is too short for flash_attention, which launches 0 times here.
-   The wall is the median of 5 runs after a warm-up. Then the same run
+   The wall is the median of 3 runs after a warm-up. Then the same run
    through the plain versions: units equal, waveform row-cos held to a
    bound.
 6. S2ST chain, long form: B2 x 8448 frames (84.5 s, 2112 subsampled
@@ -77,7 +77,8 @@ plain versions (recon row-cos, unit agreement) and the bf16 path's units.
    update held to bounds), the frozen VAE bit for bit, one update at
    dropout 0.1; ms per update, launches per update, peak memory, profile.
 9. entry point train: cli.train on a small corpus at the released widths in
-   bf16: the VAE (2 updates, checkpoint), the normalizer over it (2 updates,
+   bf16, the depth cut (CLI_NORMALIZER: one WaveNet stack, two denoiser
+   layers, one VAE decoder layer): the VAE (2 updates, checkpoint), the normalizer over it (2 updates,
    checkpoint, resumed to 4), then cli.diff_norm_synthesis --params-npz on
    the trained normalizer.
 10. train NAR: the released nar_s2ut_conformer (encoder 512 x 12, decoder
@@ -150,7 +151,8 @@ tf32 passes); and at D 80 and 128 with ragged keys and a fully masked row.
    on 24 WAVs of 3-7 s (10 updates, a save at 10, resumed to 20) and
    cli.generate_waveform --dur-prediction from the step-20 directory on
    phase 15's hyp.unit, each wall.
-18. checkpoints in: seeded fairseq state dicts at the released widths in
+18. checkpoints in: seeded fairseq state dicts at the released widths (the
+   normalizer's and the NAR's depth cut: CLI_NORMALIZER, CLI_NAR_DEPTH) in
    fairseq's released envelope (cfg, model, optimizer history, extra state,
    the last optimizer state), written as .pt: the diff_discrete normalizer
    of phase 3 (denoiser and frozen VAE), the nar_s2ut_conformer of phase 5,
@@ -219,34 +221,37 @@ tf32 passes); and at D 80 and 128 with ragged keys and a fully masked row.
    speech_diffusion_hubert (diff_hubert), hubert_vae, and
    speech_diffusion_discrete --arch diffusion_transformer; walls, ms per
    update, launches. (c) cli.train --optimizer adamax --lr-scheduler cosine
-   --ema-decay 0.999 on the released normalizer, 3 updates then
+   --ema-decay 0.999 on the normalizer (CLI_NORMALIZER's depth), 3 updates then
    --restore-file 2 more, equal bit for bit to a 5-update run; every other
    optimizer under a schedule (manual and reduce_lr_on_plateau among them)
    on the card against the CPU: one float32 Trainer update of a small
    normalizer, and 2 steps of the optimizer alone on seeded gradients.
-22. the recipe's last training options: (a) cli.train (the released NAR,
-   bf16) on phase 11's corpus in two shard directories (--data a:b), 2
+22. the recipe's last training options: (a) cli.train (the NAR at the
+   released widths, two encoder and two decoder layers, bf16) on phase 11's
+   corpus in two shard directories (--data a:b), 2
    epochs, with --num-workers 4 (a checkpoint at update 2, mid-epoch) and
    0: the same batch lists, each epoch's those of the iterator on its
    shard, the same losses; a --restore-file resume from the mid-epoch
    checkpoint starts at the first untrained batch with the same losses; ms
    per update and the host share of the loop. (b) cli.train_vocoder at
    B32 x 28 units on 96 WAVs with --num-workers 0 and 4. (c)
-   cli.diff_norm_synthesis with its file prefetch on 32 utterances in
+   cli.diff_norm_synthesis (CLI_NORMALIZER's depth) with its file prefetch on
+   32 utterances in
    chunks of 8, row for row against a sequential in-process ddim_sample.
    (d) --quant-int8 training on the int8 module route: a released-width
    normalizer update (B64 x T128; its bf16 gradient against the float32
    recompute) and a long-form NAR update (6 flash_attention launches). (e)
    the int8 vocoder, dynamic and static, at S2ST's decode canvas against
    the float vocoder (JAX's bounds), then cli.s2st --int8-vocoder static.
-   (f) a released normalizer step directory with a seeded Adam state in
-   the bridge's format; cli.train --restore-file for 1 update against an
+   (f) a normalizer step directory (CLI_NORMALIZER's depth) with a seeded
+   Adam state in the bridge's format; cli.train --restore-file for 1 update against an
    in-process Trainer loaded with the same state.
 23. the AR S2UT family: fairseq's s2ut_conformer at its released widths
    (encoder 512 x 12, causal decoder 512 x 6, vocab 1004), seeded, bf16.
    (a) the beam decode (beam 5, max_len 256, through the KV cache) at B16 x
-   480: wall (median of 3), steps, device kernels a step and busy share (a
-   32-step decode profiled); the cached decode against the full teacher-forced forward on the best
+   480: wall (one run after a warm-up cut to 8 steps), steps, device kernels
+   a step and busy share (a 40-step decode's profile less an 8-step one's);
+   the cached decode against the full teacher-forced forward on the best
    hypotheses (logits row-cos). (b) the same in long form, B2 x 8448: 6
    flash_attention launches a step (one query a row), held against the same
    decode through the plain versions (a share of equal units; the
@@ -258,12 +263,37 @@ tf32 passes); and at D 80 and 128 with ragged keys and a fully masked row.
    at phase 10's --max-tokens 40000 batch (ms, peak, busy); cli.train --task
    speech_to_speech_ar on phase 11's corpus, then cli.generate with beam 5,
    --sampling, --score-reference, --n-frames-per-step 2 (a seeded stacked
-   model) and the NAR decode with --rerank-path, each one's units against
-   an in-process decode.
+   model), the AR decodes cut to CLI_MAX_LEN steps, and the NAR decode with
+   --rerank-path, each one's units against an in-process decode.
+24. the two-pass S2ST families and the spectrogram decoders at their
+   published widths, seeded, bf16: UnitY (unity_conformer, encoder 256 x
+   16, decoders 256 wide with 8 heads, the first pass 4 layers over 28
+   letters, 2 synthesizer layers, vocab 1004), s2spect_conformer (that
+   encoder, the mel decoder 512 x 6 with 4 heads, 80 bins) and
+   Translatotron2 (s2spect2_conformer). (a-c) each family's decode as
+   cli.generate runs it (beam 5 in every beam pass, the first pass to 200
+   tokens, units to 256, the mel rollout's 256 steps, the prenet's dropout
+   from a seeded generator) at B16 x 480 and B2 x 8448: wall (one run after
+   a warm-up cut to 8 steps a pass), steps, the cached steps against the teacher-forced forward (row-cos), and in long
+   form a step alone of the pass that reaches the kernel (an 8- and a
+   40-step decode's profiles less each other), flash_attention's launches
+   (4 a first-pass step and 4 for the handoff; 6 a mel step) and the decode
+   through the plain versions (first-pass tokens and units to phase 23's
+   share, teacher-forced logits or frames to its row-cos, mels over the
+   valid frames and over all 256 rollout frames to a mean row-cos).
+   (d) one update of each family at phase 10's --max-tokens 40000 batch (ms,
+   peak, busy). (e) cli.train --task speech_to_speech for UnitY and
+   Translatotron2 on phase 11's corpus with letter and seeded mel targets,
+   then cli.generate for both and a seeded s2spect_conformer, the decodes
+   cut to CLI_MAX_LEN_MT first-pass tokens and CLI_MAX_LEN units or frames:
+   H- units and .npy frames against in-process decodes, the mel vocoder's
+   WAVs.
 Phase 2 times flash_attention also at phase 23's decode step (q
 [10,8,1,64] against k/v [10,8,2112,64], beams of the half-length row
-masked at 1056 keys) and its S2T encoder's self-attention ([2,8,2112,64])
-beside SDPA and its bound.
+masked at 1056 keys), its S2T encoder's self-attention ([2,8,2112,64]) and
+phase 24's decode steps (UnitY's q [10,8,1,32], Translatotron2's
+[10,4,1,128], s2spect's [2,4,1,128], against 2112 keys) beside SDPA and
+its bound.
 The kernels JSON line reports the float32 kernel as flash_attention_f32
 (its launches those of phase 13) beside the bf16 one (phase 6's, phase
 16's long form, the four cli.generate runs of phase 15, phase 18's,
@@ -271,8 +301,9 @@ phase 19's and phase 20's);
 rms_norm_film and wavenet_chain count phase 3's run, phase 18's CLI run and
 phase 21's kernel runs (21a's updates and guided forwards, 21b's CLI runs)
 and phase 22's (22c's CLI run, 22d's updates, 22f's CLI update), where
-flash_attention counts 21a's long-prompt runs, 22d's long-form update and
-phase 23's long-form beam decode and s2ut_transformer forward too.
+flash_attention counts 21a's long-prompt runs, 22d's long-form update,
+phase 23's long-form beam decode and s2ut_transformer forward and phase
+24's long-form decodes too.
 
 Then one JSON line of per-kernel numbers and, last, {"ok": true, "device": ...}.
 Exits non-zero without CUDA, and in a directory without the port.
@@ -411,7 +442,7 @@ S2ST_B, S2ST_FRAMES = 16, 480
 LONG_B, LONG_FRAMES = 2, 8448
 S2ST_KW = dict(max_iter=15, max_len=256, max_duration=4, max_wav_units=384,
                vocoder_chunk=4, return_steps=True)
-S2ST_REPS = 5
+S2ST_REPS = 3
 SECONDS_PER_FRAME = 0.01     # 10 ms fbank shift
 VOCODER_CFG = dict(num_embeddings=1000, embedding_dim=128, upsample_rates=[5, 4, 4, 2, 2],
                    upsample_kernel_sizes=[11, 8, 8, 4, 4], upsample_initial_channel=512,
@@ -486,16 +517,30 @@ ASR_VOCAB = ["<pad>", "<s>", "</s>", "<unk>", "|", "E", "T", "A", "O", "N", "I",
 # step is lr x sign(g) where the gradient is far above eps, so a near-zero
 # gradient whose sign the sum order flips moves its parameter by 2 lr; such
 # parameters barely move the loss
-GAN_B, GAN_CROP, GAN_WARMUP, GAN_TIMED, GAN_CHECK_B, GAN_CLI_UTTS = 32, 28, 2, 10, 2, 24
+GAN_B, GAN_CROP, GAN_WARMUP, GAN_TIMED, GAN_CHECK_B, GAN_CLI_UTTS = 32, 28, 2, 5, 2, 24
 GAN_LOSS_D_REL, GAN_G_REL = 1e-4, 1e-3
-# checkpoints in (phase 18): the builders' seeds and widths (empty: the
-# released shapes of phases 3 and 5; the discriminators at full width). The
+# the normalizer wherever its checkpoints are written and read (phases 9,
+# 18, 21c, 22c and 22f): the released widths, its depth cut to one WaveNet
+# stack, two denoiser layers and one VAE decoder layer: 96 M parameters of
+# its 399 M (whose fairseq envelope is 4.8 GB, a step directory with Adam's
+# moments several GB). At full depth, writing and reading them took most of
+# those phases' time. Phases 3-4, 8, 21a-b and 22d keep every layer
+CLI_NORMALIZER = dict(denoiser_depth=2, wavenet_stacks=1, vae_decoder_depth=1)
+# the NAR's depth likewise in phases 18 and 22a (two encoder and two decoder
+# layers at the released widths): its envelope, averaged checkpoints, step
+# directories and loader runs' saves shrink with it, and what those phases
+# check (conversion, decode and validation against in-process runs, the
+# warm start's loss, the loader's batches and resumption) holds at any depth
+CLI_NAR_DEPTH = ["--encoder-layers", "2", "--decoder-layers", "2"]
+# checkpoints in (phase 18): the builders' seeds and widths (the normalizer
+# at CLI_NORMALIZER's depth, the NAR at CLI_NAR_DEPTH's, the discriminators
+# at full width). The
 # CLI's validation against the in-process criterion: the same float32
 # forward of the same weights on the same card and draws, only the weights'
 # path differs (the step directory against the in-process conversion). The
 # warm start's first loss against an in-process update from the averaged
 # weights: the same bf16 forward on the same batch and dropout draws
-CKPT_SEED, CKPT_DIFFUSION, CKPT_DISC_WIDTH = 180, {}, 1.0
+CKPT_SEED, CKPT_DIFFUSION, CKPT_DISC_WIDTH = 180, CLI_NORMALIZER, 1.0
 VALID_REL, WARM_LOSS_REL = 1e-5, 1e-5
 # the ASR on the card (float32, TF32 off) against the port's CPU float32
 # forward on the same wavs: float32 sums in other orders over 24 layers
@@ -1224,6 +1269,12 @@ def check_flash_attention(torch, flash):
         ("AR decode step", 10, 8, 1, 2112, 64, [2112] * 5 + [1056] * 5, bf),
         # s2ut_transformer's encoder self-attention in long form (phase 23c)
         ("S2T encoder", 2, 8, 2112, 2112, 64, [2112, 1056], bf),
+        # phase 24's decode steps: UnitY's first pass (256 wide, 8 heads)
+        # and Translatotron2's (512 wide, 4 heads), beam 5 on B2, and
+        # s2spect's mel decoder (512 wide, 4 heads), one row a sentence
+        ("UnitY decode step", 10, 8, 1, 2112, 32, [2112] * 5 + [1056] * 5, bf),
+        ("Translatotron2 decode step", 10, 4, 1, 2112, 128, [2112] * 5 + [1056] * 5, bf),
+        ("s2spect decode step", 2, 4, 1, 2112, 128, [2112, 1056], bf),
         # the S2ST decoder's encoder attention in float32
         ("float32 path", 2, 8, 256, 2112, 64, [2112, 1056], f32),
         # HuBERT's self-attention over a 70 s utterance and over cli.prepare's
@@ -1256,6 +1307,7 @@ def check_flash_attention(torch, flash):
               f"max err {err.max().item():.3e}, within "
               f"rtol {FLASH_RTOL} atol {FLASH_ATOL}" + (" + 1 bf16 ulp" if dtype == bf else ""))
         if what not in ("path", "eval path", "PERFORMANCE.md", "AR decode step", "S2T encoder",
+                        "UnitY decode step", "Translatotron2 decode step", "s2spect decode step",
                         "float32 path", "HuBERT long form", "HuBERT longest chunk"):
             continue
         ms = cuda_time_ms(lambda: flash.flash_attention(q, k, v, mask))
@@ -1469,27 +1521,36 @@ def run_main_path(torch, model, ddim_sample, inputs):
 
 
 def profile_run(torch, fn, wall):
-    """Device time by kernel over one more call of `fn` (torch.profiler),
-    printed with the largest kernels. Returns (the busy share of the
-    unprofiled wall time, the call's device kernel launches): (None, None)
-    where the profiler saw no device time."""
+    """Device time by kernel over one more call of `fn` (torch.profiler,
+    device activity only), printed with the largest kernels. The trace's raw
+    events are summed here: the profiler's own tables (key_averages) build a
+    Python object for every host op and kernel, which takes longer than the
+    call itself at tens of thousands of kernels. Returns (the busy share of
+    the unprofiled wall time, the call's device kernel launches): (None,
+    None) where the profiler saw no device time."""
     from torch.profiler import ProfilerActivity, profile
 
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
         fn()
-    kernels = [e for e in prof.key_averages()
-               if e.device_type == torch.autograd.DeviceType.CUDA]
-    busy_ms = sum(e.self_device_time_total for e in kernels) / 1e3
-    n_launches = sum(e.count for e in kernels)
+    cuda = torch.autograd.DeviceType.CUDA
+    by_name = {}  # kernel name -> [device ns, count]
+    for e in prof.profiler.kineto_results.events():
+        if (e.device_type() != cuda or e.is_user_annotation() or e.is_async()
+                or e.start_thread_id() != e.end_thread_id()):
+            continue
+        entry = by_name.setdefault(e.name(), [0, 0])
+        entry[0] += e.duration_ns()
+        entry[1] += 1
+    busy_ms = sum(ns for ns, _ in by_name.values()) / 1e6
+    n_launches = sum(n for _, n in by_name.values())
     if busy_ms == 0:
         print("profile: the profiler saw no device time (not measured)")
         return None, None
     print(f"profile: device busy {busy_ms:.1f} ms = {100 * busy_ms / 1e3 / wall:.1f}% "
           f"of the {wall:.3f} s wall, {n_launches} device kernels; top kernels by device "
           f"time:")
-    for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:10]:
-        print(f"profile:   {e.self_device_time_total / 1e3:9.2f} ms {e.count:6d}x  "
-              f"{e.key[:90]}")
+    for name, (ns, n) in sorted(by_name.items(), key=lambda kv: -kv[1][0])[:10]:
+        print(f"profile:   {ns / 1e6:9.2f} ms {n:6d}x  {name[:90]}")
     return busy_ms / 1e3 / wall, n_launches
 
 
@@ -1810,10 +1871,11 @@ def write_train_corpus(root: Path, seed: int = 4):
 
 
 def run_train_cli(torch, smi):
-    """Phase 9: cli.train at the released widths in bf16 on a small corpus:
-    the VAE for 2 updates and a checkpoint, the normalizer over it
-    (--speech-decoder-ckpt) for 2 updates and a checkpoint, resumed to 4,
-    then cli.diff_norm_synthesis --params-npz on the trained normalizer."""
+    """Phase 9: cli.train at the released widths (CLI_NORMALIZER's depth) in
+    bf16 on a small corpus: the VAE for 2 updates and a checkpoint, the
+    normalizer over it (--speech-decoder-ckpt) for 2 updates and a
+    checkpoint, resumed to 4, then cli.diff_norm_synthesis --params-npz on
+    the trained normalizer."""
     from diffnorm_tpu_torch.cli import diff_norm_synthesis
     from diffnorm_tpu_torch.cli import train as train_cli
     from diffnorm_tpu_torch.ops import _build
@@ -1829,7 +1891,8 @@ def run_train_cli(torch, smi):
                   "--lr-scheduler", "inverse_sqrt", "--warmup-init-lr", "1e-7",
                   "--warmup-updates", "10000", "--adam-betas", "(0.9,0.98)", "--clip-norm",
                   "2.0", "--max-tokens", "1200", "--max-target-positions", "2048", "--seed",
-                  "42", "--prng-impl", "rbg", "--log-interval", "1", "--dtype", "bfloat16"]
+                  "42", "--prng-impl", "rbg", "--log-interval", "1", "--dtype", "bfloat16",
+                  *normalizer_flags(CLI_NORMALIZER)]
         vae_dir, diff_dir = tmp / "vae", tmp / "diff"
         runs = [
             ("VAE", ["--task", "speech_decoder", "--criterion", "speech_vae_decoder_loss",
@@ -1860,7 +1923,8 @@ def run_train_cli(torch, smi):
                 fail(f"cli.train {what}: log lacks {missing}, launches "
                      f"{dict(_build.launch_counts)}")
             print(f"phase entry point train ({what}): {dt:.2f} s for cli.train to step "
-                  f"{want_step} (released widths, bf16, 24 utterances), launches "
+                  f"{want_step} (released widths, depth {CLI_NORMALIZER}, bf16, 24 "
+                  f"utterances), launches "
                   f"{dict(_build.launch_counts)}; {smi}")
         logging.getLogger("diffnorm_tpu_torch.train").removeHandler(lines)
         out_dir = tmp / "normalized"
@@ -1868,7 +1932,7 @@ def run_train_cli(torch, smi):
         rc = diff_norm_synthesis.main([
             str(tmp), "--params-npz", str(diff_dir / "step_000000004" / "params.npz"),
             "--tgt-feat-dir", str(feat_dir), "--output-dir", str(out_dir), "--splits", "test",
-            "--batch-size", "4"])
+            "--batch-size", "4", *normalizer_flags(CLI_NORMALIZER)])
         out = (out_dir / "test.tsv").read_text().splitlines()[1:] if rc == 0 else []
         if len(out) != 4:
             fail(f"diff_norm_synthesis on the trained normalizer: rc {rc}, {len(out)} rows")
@@ -3103,9 +3167,9 @@ def write_synthesis_corpus(root: Path, n: int, frames: int, feature_dim: int,
     return feat_dir
 
 
-def synthesis_flags(widths: dict) -> list:
-    """cli.diff_norm_synthesis's width flags for LatentDiffusionModule's
-    `widths` (none for the released shape)."""
+def normalizer_flags(widths: dict) -> list:
+    """cli.train's and cli.diff_norm_synthesis's width flags for
+    LatentDiffusionModule's `widths` (none for the released shape)."""
     flags = []
     for key, value in widths.items():
         name = "hidden-dim" if key == "dim" else key.replace("_", "-")
@@ -3198,7 +3262,7 @@ def run_checkpoints_in(torch, mods, smi):
         write_eval_corpus(eval_root)
         nar_flags = ["--task", "speech_to_speech_fasttranslate", "--target-code-size", "1000",
                      "--arch", "nar_s2ut_conformer", "--path", str(tmp / "nar"),
-                     *EVAL_WIDTH_FLAGS]
+                     *CLI_NAR_DEPTH]
         vargs = validate.parse_args([str(eval_root), *nar_flags, "--valid-subset", "test",
                                      "--max-tokens", str(EVAL_MAX_TOKENS)])
         # 1.-2. the released envelopes as .pt files, then cli.convert_checkpoint
@@ -3237,7 +3301,7 @@ def run_checkpoints_in(torch, mods, smi):
         rc = timed("cli.diff_norm_synthesis --ckpt", lambda: diff_norm_synthesis.main([
             str(root), "--ckpt", str(tmp / "diffusion"), "--tgt-feat-dir", str(feat_dir),
             "--output-dir", str(out), "--splits", "test", "--start-step", str(START_STEP),
-            "--batch-size", str(B), "--seed", "1", *synthesis_flags(CKPT_DIFFUSION)]))
+            "--batch-size", str(B), "--seed", "1", *normalizer_flags(CKPT_DIFFUSION)]))
         got = ([line.split("\t") for line in (out / "test.tsv").read_text().splitlines()[1:]]
                if rc == 0 else [])
         syn_launches = launches["cli.diff_norm_synthesis --ckpt"]
@@ -3347,7 +3411,7 @@ def run_checkpoints_in(torch, mods, smi):
                 "--warmup-updates", "10000", "--clip-norm", "10.0", "--max-update", "2",
                 "--max-tokens", "8000", "--seed", "42", "--dtype", "bfloat16",
                 "--log-interval", "1", "--restore-file", str(avg), "--reset-optimizer",
-                *EVAL_WIDTH_FLAGS]
+                *CLI_NAR_DEPTH]
         train_log = LogLines()
         logging.getLogger("diffnorm_tpu_torch.train").addHandler(train_log)
         with first_update(Trainer) as seen:
@@ -3770,13 +3834,15 @@ def run_options(torch, mods, smi):
     return launches
 
 
-def timed_decode(torch, fn, reps: int = EXTRAS_REPS):
-    """fn() after a warm-up: (the output of a run with the launch counts set
-    to 0 just before it, the counts read just after it, the median wall of
-    `reps` runs with that one)."""
+def timed_decode(torch, fn, reps: int = EXTRAS_REPS, warm=None):
+    """fn() after a warm-up, warm() where given (a shorter call through the
+    same code, say a decode cut to a few steps), else fn(). Returns (the
+    output of a run with the launch counts set to 0 just before it, the
+    counts read just after it, the median wall of `reps` runs with that
+    one)."""
     from diffnorm_tpu_torch.ops import _build
 
-    fn()
+    (warm or fn)()
     torch.cuda.synchronize()
     _build.launch_counts.clear()
     t0 = time.perf_counter()
@@ -4449,9 +4515,9 @@ def run_train_tasks_cli(torch, smi):
 
 
 def run_optim_cli(torch, smi):
-    """Phase 21c (first half): the released-width normalizer through
-    cli.train --optimizer adamax --lr-scheduler cosine --ema-decay 0.999, one
-    batch per epoch: 3 updates, then --restore-file and 2 more in another
+    """Phase 21c (first half): the normalizer (released widths,
+    CLI_NORMALIZER's depth) through cli.train --optimizer adamax
+    --lr-scheduler cosine --ema-decay 0.999, one batch per epoch: 3 updates, then --restore-file and 2 more in another
     directory, against a 5-update run: parameters, EMA and moments equal
     bit for bit."""
     import numpy as np
@@ -4467,7 +4533,7 @@ def run_optim_cli(torch, smi):
                   "--lr", "1e-4", "--warmup-updates", "2", "--ema-decay", "0.999",
                   "--max-tokens", "4096", "--seed", "42", "--log-interval", "1",
                   "--validate-interval", "100", "--save-interval", "100",
-                  "--dtype", "bfloat16"]
+                  "--dtype", "bfloat16", *normalizer_flags(CLI_NORMALIZER)]
         walls = {}
         for what, max_update, extra in (
                 ("straight", 5, []), ("first", 3, []),
@@ -4490,8 +4556,9 @@ def run_optim_cli(torch, smi):
         if differ or sa["optimizer"]["count"] != 5 or sb["num_updates"] != 5:
             fail(f"cli.train 3 + --restore-file 2 against 5 updates: {len(differ)} arrays "
                  f"differ ({differ[:5]})")
-    print(f"phase entry point train (adamax, cosine, EMA 0.999): 3 updates + --restore-file 2 "
-          f"equal a 5-update run bit for bit ({len(pa.files)} parameter arrays and the EMA); "
+    print(f"phase entry point train (adamax, cosine, EMA 0.999; depth {CLI_NORMALIZER}): 3 "
+          f"updates + --restore-file 2 equal a 5-update run bit for bit ({len(pa.files)} "
+          f"parameter arrays and the EMA); "
           f"walls (s) and ms per update {walls}; {smi}")
 
 
@@ -4645,7 +4712,7 @@ def nar_cli_args(data: str, save_dir: Path) -> list:
             "10000", "--adam-betas", "(0.9,0.98)", "--clip-norm", "10.0", "--max-tokens",
             str(LOADER_MAX_TOKENS), "--max-target-positions", "1024", "--seed", "42",
             "--validate-interval", "5", "--save-interval", "5", "--dtype", "bfloat16",
-            "--log-interval", "1"]
+            "--log-interval", "1", *CLI_NAR_DEPTH]
 
 
 @contextlib.contextmanager
@@ -4722,7 +4789,8 @@ def loss_rel(a, b) -> float:
 
 
 def run_loader_nar(torch, smi):
-    """Phase 22a: cli.train (the released NAR, bf16) on phase 11's corpus
+    """Phase 22a: cli.train (the NAR at the released widths and
+    CLI_NAR_DEPTH's depth, bf16) on phase 11's corpus
     in two shards over 2 epochs, each batch's canvas drawn from its ids:
     --num-workers 4 against 0 (the same batch lists, losses), each epoch's
     batches those of the iterator on its shard (the rotation rule), and a
@@ -4786,7 +4854,8 @@ def run_loader_nar(torch, smi):
              f"resumed rel {rel_resume:.2e} (bound {LOADER_LOSS_REL})")
     for what, rec in runs.items():
         ms = [round(1e3 * w, 1) for _, w in rec["updates"]]
-        print(f"loader NAR cli.train ({what}): {rec['wall']:.2f} s, {len(ms)} updates over 2 "
+        print(f"loader NAR cli.train ({what}; {' '.join(CLI_NAR_DEPTH)}): "
+              f"{rec['wall']:.2f} s, {len(ms)} updates over 2 "
               f"epochs of 2 shards (batches of <= {LOADER_MAX_TOKENS} frames), ms per update "
               f"{ms}, host share of the training loop after the first update "
               f"{100 * host_share(rec):.1f}% (checkpoint saves left out: "
@@ -4840,7 +4909,8 @@ def run_loader_vocoder(torch, smi):
 
 
 def run_loader_ddim(torch, smi):
-    """Phase 22c: cli.diff_norm_synthesis (the released normalizer, bf16)
+    """Phase 22c: cli.diff_norm_synthesis (the normalizer at the released
+    widths and CLI_NORMALIZER's depth, bf16)
     with its file prefetch on phase 9's 32 utterances (40-128 units) in
     chunks of 8: the manifest
     equal to a sequential in-process ddim_sample over the same chunks with
@@ -4864,7 +4934,7 @@ def run_loader_ddim(torch, smi):
         tmp = Path(tmp)
         torch.manual_seed(0)
         with torch.device("cuda"):
-            model = LatentDiffusionModule()
+            model = LatentDiffusionModule(**CLI_NORMALIZER)
         save_npz(str(tmp / "params.npz"), to_jax_params(model))
         del model
         feat_dir = write_train_corpus(tmp)  # 24 + 4 + 4 utterances, all of them "all"
@@ -4878,7 +4948,8 @@ def run_loader_ddim(torch, smi):
         (feat_dir / "all.manifest.tsv").write_text("\n".join(feat_lines) + "\n")
         args = [str(tmp), "--params-npz", str(tmp / "params.npz"), "--tgt-feat-dir",
                 str(feat_dir), "--output-dir", str(tmp / "out"), "--splits", "all",
-                "--batch-size", str(DDIM_CLI_BATCH), "--seed", "1"]
+                "--batch-size", str(DDIM_CLI_BATCH), "--seed", "1",
+                *normalizer_flags(CLI_NORMALIZER)]
         parsed = diff_norm_synthesis.parse_args(args)
         device = torch.device("cuda")
         model = diff_norm_synthesis.build_model(parsed, device)
@@ -4933,8 +5004,8 @@ def run_loader_ddim(torch, smi):
         fail(f"cli.diff_norm_synthesis with the prefetch: {bad} of {len(expected)} rows differ "
              f"from the sequential in-process run")
     print(f"loader DDIM CLI: {cli_wall:.2f} s for cli.diff_norm_synthesis on "
-          f"{DDIM_CLI_UTTS} utterances in chunks of {DDIM_CLI_BATCH} (the model's load "
-          f"included); {split_line[0] if split_line else 'no split line'}; in-process "
+          f"{DDIM_CLI_UTTS} utterances in chunks of {DDIM_CLI_BATCH} (depth {CLI_NORMALIZER}, "
+          f"the model's load included); {split_line[0] if split_line else 'no split line'}; in-process "
           f"ddim_sample over the same chunks {sample_wall:.2f} s; rows equal row for row; "
           f"launches {launches}; {smi}")
     return launches
@@ -5147,8 +5218,8 @@ def run_int8_vocoder(torch, smi):
 
 
 def run_bridge(torch, smi):
-    """Phase 22f: a released-width normalizer step directory with a seeded
-    Adam state in the bridge's format, written with numpy; cli.train
+    """Phase 22f: a normalizer step directory (released widths,
+    CLI_NORMALIZER's depth) with a seeded Adam state in the bridge's format, written with numpy; cli.train
     --restore-file on it for 1 update (bf16) against an in-process Trainer
     loaded with the same state on the CLI's batch; the restore's wall.
     Returns the CLI's launches."""
@@ -5174,7 +5245,7 @@ def run_bridge(torch, smi):
         feat_dir = write_train_corpus(tmp)
         torch.manual_seed(21)
         with torch.device("cuda"):
-            model = LatentDiffusionModule()
+            model = LatentDiffusionModule(**CLI_NORMALIZER)
         variables = to_jax_variables(model)
         del model
         step_dir = tmp / "bridged"
@@ -5212,7 +5283,7 @@ def run_bridge(torch, smi):
                 "2.0", "--max-tokens", "1200", "--max-target-positions", "2048", "--seed",
                 "42", "--log-interval", "1", "--dtype", "bfloat16", "--dropout", "0.1",
                 "--max-update", str(step0 + 1), "--save-dir", str(tmp / "resumed"),
-                "--restore-file", str(step_dir)]
+                "--restore-file", str(step_dir), *normalizer_flags(CLI_NORMALIZER)]
         seen = {}
         step = Trainer.train_step
         restore, load = train_cli.restore, Trainer.load_optax_state
@@ -5270,8 +5341,8 @@ def run_bridge(torch, smi):
     if diff > BRIDGE_UPDATE_REL * upd:
         fail(f"bridge: the CLI's update against the in-process Trainer's: {diff:.3e} against an "
              f"update of {upd:.3e} (bound {BRIDGE_UPDATE_REL} of it)")
-    print(f"bridge: a released-width normalizer step directory with a seeded Adam state "
-          f"(step {step0}) written by numpy in {write_wall:.2f} s; cli.train --restore-file, 1 "
+    print(f"bridge: a normalizer step directory (released widths, depth {CLI_NORMALIZER}) "
+          f"with a seeded Adam state (step {step0}) written by numpy in {write_wall:.2f} s; cli.train --restore-file, 1 "
           f"update in bf16: {cli_wall:.2f} s in all, restore {seen['restore_s']:.2f} s, optimizer "
           f"state load {seen['load_s']:.2f} s; against an in-process Trainer with the same state "
           f"on the same batch: max difference {diff:.3e}, the update's largest change "
@@ -5312,19 +5383,26 @@ def run_recipe_options(torch, smi):
 # at the first near-tie at the beam's boundary, after which its later units
 # differ as well; so its units are held to a share (a broken kernel gives
 # chance, ~0.001) and the teacher-forced logits on the kernel path's
-# hypotheses, which follow no trajectory, to the row-cos bound
-AR_BEAM, AR_MAX_LEN, AR_REPS = 5, 256, 3
+# hypotheses, which follow no trajectory, to the row-cos bound. A decode's
+# wall is one run after a warm-up cut to a few steps (the script's time
+# limit); the teacher-forced forward's, a fraction of a second, the median
+# of AR_FORWARD_REPS
+AR_BEAM, AR_MAX_LEN, AR_FORWARD_REPS = 5, 256, 3
 # a decode step's profile is the difference of two decodes cut to these
-# lengths, which cancels the encode: a whole decode's ~90,000 kernels and
-# their host events take the profiler minutes to gather. Their walls are
-# medians of more runs, as a difference doubles the host clock's spread
-AR_PROFILE_LENS, AR_PROFILE_REPS = (8, 40), 5
+# lengths, which cancels the encode and keeps the profiled runs short (a
+# whole decode launches ~90,000 kernels). Their walls are medians of more
+# runs, as a difference doubles the host clock's spread
+AR_PROFILE_LENS, AR_PROFILE_REPS = (8, 40), 3
 AR_ROW_COS, AR_LONG_UNIT_AGREE = 0.999, 0.25
 AR_FLASH_PER_STEP = 6  # the decoder's encoder attentions, one query a row
 # the s2ut_transformer encoder's 12 self-attentions and the decoder's 6
 # encoder attentions in a long-form teacher-forced forward
 AR_TRANSFORMER_FLASH = 12 + 6
 AR_RERANK_BEAM = 3
+# the CLIs' AR decodes (phases 23d and 24e), each held to the same decode in
+# process, cut to this many steps (--max-target-positions) and first-pass
+# tokens (--max-len-b-mt): the full lengths run in phases 23a-b and 24a-c
+CLI_MAX_LEN, CLI_MAX_LEN_MT = 64, 48
 
 
 def seeded_ar(torch, seed: int, **kw):
@@ -5385,10 +5463,13 @@ def run_ar_decode(torch, mods, smi):
                             ("long form", LONG_B, LONG_FRAMES)):
         src, lengths = s2st_inputs(torch, b, frames)
 
-        def decode():
-            return ar_generate(ar, src, lengths, beam_size=AR_BEAM, max_len=AR_MAX_LEN)
+        def decode(n=AR_MAX_LEN):
+            return ar_generate(ar, src, lengths, beam_size=AR_BEAM, max_len=n)
 
-        (seqs, scores), counts, wall = timed_decode(torch, decode, reps=AR_REPS)
+        def warm():  # the same kernels and shapes, a few steps
+            return decode(AR_PROFILE_LENS[0])
+
+        (seqs, scores), counts, wall = timed_decode(torch, decode, reps=1, warm=warm)
         steps = beam_steps(seqs)
         flash = counts.get("flash_attention", 0)
         long_form = frames == LONG_FRAMES
@@ -5425,7 +5506,7 @@ def run_ar_decode(torch, mods, smi):
                         f"{100 * step_busy / step_wall:.1f}%, {1e6 * step_wall / step_kernels:.1f}"
                         f" us of wall a kernel")
         print(f"AR decode, {what}: B{b} x {frames} frames, beam {AR_BEAM}, max_len "
-              f"{AR_MAX_LEN}, bf16: wall {wall:.4f} s (median of {AR_REPS}), RTF "
+              f"{AR_MAX_LEN}, bf16: wall {wall:.4f} s (one run), RTF "
               f"{audio_s / wall:.2f}, {steps} steps, {1e3 * wall / steps:.3f} ms a step, "
               f"{per_step}, flash_attention {flash} ({flash / steps:.1f} a step); best "
               f"scores {[round(v, 4) for v in scores[:, 0].tolist()[:4]]}; the cached decode "
@@ -5435,7 +5516,7 @@ def run_ar_decode(torch, mods, smi):
             continue
         launches += flash
         with plain_versions(*mods):
-            (seqs_p, _), _, wall_p = timed_decode(torch, decode, reps=1)
+            (seqs_p, _), _, wall_p = timed_decode(torch, decode, reps=1, warm=warm)
             full_p, stepped_p = teacher_forced(torch, ar, src, lengths, seqs[:, 0])
         agree = unit_agreement(seqs[:, 0], seqs_p[:, 0])
         parted = (seqs[:, 0] != seqs_p[:, 0]).int()
@@ -5479,7 +5560,7 @@ def run_ar_transformer(torch, mods, smi):
             enc, mask = model.encode(src, lengths)
             return enc[mask].float()
 
-    logits, counts, wall = timed_decode(torch, forward, reps=AR_REPS)
+    logits, counts, wall = timed_decode(torch, forward, reps=AR_FORWARD_REPS)
     flash = counts.get("flash_attention", 0)
     if flash != AR_TRANSFORMER_FLASH:
         fail(f"s2ut_transformer long form: flash_attention launched {flash} times, expected "
@@ -5493,7 +5574,7 @@ def run_ar_transformer(torch, mods, smi):
              f"{cos_enc:.6f}, logits row-cos {cos:.6f}")
     print(f"s2ut_transformer long form: B{LONG_B} x {LONG_FRAMES} frames (S = 2112, the last "
           f"row half), teacher-forced on {int(real.sum())} tokens, bf16 eval: forward "
-          f"{wall:.4f} s (median of {AR_REPS}), flash_attention {flash} (12 in the encoder, 6 "
+          f"{wall:.4f} s (median of {AR_FORWARD_REPS}), flash_attention {flash} (12 in the encoder, 6 "
           f"in the decoder); against the plain versions: encoder row-cos min "
           f"{cos_enc:.6f}, logits row-cos min {cos:.6f} (bound {AR_ROW_COS}); {smi}")
     return flash
@@ -5642,16 +5723,19 @@ def run_ar_cli(torch, smi):
         nar = seeded_nar(torch, 0)
         save_npz(str(tmp / "nar.npz"), to_jax_variables(nar))
         sampler = torch.Generator(device=cuda).manual_seed(7)
+        cut = ["--max-target-positions", str(CLI_MAX_LEN)]
         runs = (
-            ("beam 5", ["--path", str(step), "--beam", str(AR_BEAM)],
-             lambda s, n: ar_generate(ar, s, n, beam_size=AR_BEAM)[0][:, 0]),
-            ("--sampling", ["--path", str(step), "--sampling", "--seed", "7"],
-             lambda s, n: ar_generate(ar, s, n, beam_size=AR_BEAM, sampling=True,
-                                      generator=sampler)[0][:, 0]),
+            ("beam 5", ["--path", str(step), "--beam", str(AR_BEAM), *cut],
+             lambda s, n: ar_generate(ar, s, n, beam_size=AR_BEAM,
+                                      max_len=CLI_MAX_LEN)[0][:, 0]),
+            ("--sampling", ["--path", str(step), "--sampling", "--seed", "7", *cut],
+             lambda s, n: ar_generate(ar, s, n, beam_size=AR_BEAM, max_len=CLI_MAX_LEN,
+                                      sampling=True, generator=sampler)[0][:, 0]),
             ("--score-reference", ["--path", str(step), "--score-reference"], None),
             ("--n-frames-per-step 2", ["--path", str(tmp / "ar_k2.npz"),
-                                       "--n-frames-per-step", "2"],
-             lambda s, n: ar_generate_stacked(stacked, s, n)[1].reshape(s.shape[0], -1)),
+                                       "--n-frames-per-step", "2", *cut],
+             lambda s, n: ar_generate_stacked(stacked, s, n, max_len=CLI_MAX_LEN)[1].reshape(
+                 s.shape[0], -1)),
             ("NAR --rerank-path", ["--task", "speech_to_speech_fasttranslate", "--arch",
                                    "nar_s2ut_conformer", "--path", str(tmp / "nar.npz"),
                                    "--iter-decode-with-beam", str(AR_RERANK_BEAM),
@@ -5680,7 +5764,8 @@ def run_ar_cli(torch, smi):
                 fail(f"cli.generate {what}: H- units differ from the in-process decode "
                      f"({sum(got.get(k) == v for k, v in want.items())} of {len(want)} equal)")
         del ar, stacked, nar
-    print(f"AR CLIs on phase 11's corpus (released widths, bf16, 4 test WAVs of 3-7 s): "
+    print(f"AR CLIs on phase 11's corpus (released widths, bf16, 4 test WAVs of 3-7 s, "
+          f"decodes cut to {CLI_MAX_LEN} steps): "
           + ", ".join(f"{k} {v:.2f} s" for k, v in walls.items())
           + " (one run each); every cli.generate run's H- units equal to its in-process "
             f"decode, --score-reference's hypotheses its references; {smi}")
@@ -5695,6 +5780,598 @@ def run_ar_s2ut(torch, mods, smi):
     run_ar_train(torch, smi)
     run_ar_cli(torch, smi)
     print(f"phase AR S2UT: {time.perf_counter() - t0:.1f} s, flash_attention launches "
+          f"{launches}; {smi}")
+    return launches
+
+
+# the two-pass S2ST families and the spectrogram decoders (phase 24), at
+# their published widths, seeded, bf16 (no UnitY or Translatotron2
+# checkpoint is in the repository): UnitY (unity_conformer: encoder 256 x 16,
+# 4 heads, FFN 2048; decoders 256 wide, 8 heads, FFN 2048, the first pass 4
+# layers over phase 19's 28 letters + 4 specials, the unit decoder 6 over
+# vocab 1004, --synthesizer-encoder-layers 2), s2spect_conformer (the same
+# encoder, the mel decoder 512 x 6, 4 heads, FFN 2048, 80 bins, prenet
+# dropout 0.5) and Translatotron2 (s2spect2_conformer: that encoder and mel
+# decoder, the first pass 4 x 512), decoded as cli.generate does by default:
+# beam 5 in every beam pass, the first pass at --max-len-b-mt 200, units at
+# max_len 256, the mel rollout's 256 steps. The first pass's encoder
+# attention takes the kernel in long form (D = 32 UnitY, D = 128
+# Translatotron2), 4 launches a step plus 4 for its teacher-forced handoff;
+# the mel decoder's encoder attention in s2spect 6 a step (D = 128); the
+# second passes attend at most 200 text positions and never reach it. A
+# decode through the kernel is held against the same decode through the
+# plain versions: first-pass and unit tokens to phase 23's share, the
+# teacher-forced logits on the kernel path's hypotheses to phase 23's
+# row-cos, mels over each row's valid frames and over all the rollout's
+# frames (the same prenet draws: one generator seed; seeded weights fire
+# EOS at once, so a row's valid frames are few) to a mean row-cos; a
+# cached decode against the
+# teacher-forced forward (the prenet's draws off, which the two forms draw
+# in other shapes) to TP_ROW_COS
+TP_BEAM, TP_MAX_LEN, TP_MAX_LEN_MT, TP_MAX_ITER = 5, 256, 200, 256
+TP_REPS, TP_PROFILE_REPS = 1, 2
+TP_ROW_COS = 0.9999
+TP_MEL_MEAN_COS = 0.99  # stated in PERF.md before the phase's first chip run
+TP_PRENET_SEED = 24
+TP_SYNTH_LAYERS = 2
+TP_FLASH_PER_MT_STEP, TP_FLASH_PER_MEL_STEP = 4, 6
+# the CLI's frames against the same rollout in process: one computation on
+# the same inputs and generator seed, so equal but for a last-place bf16
+# difference should a library take another algorithm between the two runs
+TP_CLI_ATOL = 1.6e-2
+
+
+def tp_mt_spec():
+    """The first pass's task: target_letter over phase 19's letters."""
+    from diffnorm_tpu_torch.models.nar_transformer import AuxTaskSpec
+
+    return AuxTaskSpec(name="target_letter", decoder_type="transformer",
+                       vocab_size=len(OPT_LETTERS) + 4, dropout=0.0)
+
+
+def tp_model(torch, family: str, seed: int, dtype=None):
+    """The family's model at its published widths from `seed` on the card,
+    in eval mode and `dtype` (default bf16)."""
+    from diffnorm_tpu_torch.models.s2spect import S2SpecTModule
+    from diffnorm_tpu_torch.models.s2spect2 import S2SpecT2Module
+    from diffnorm_tpu_torch.models.unity import UnityS2UTModule
+
+    torch.manual_seed(seed)
+    with torch.device("cuda"):
+        if family == "unity":
+            model = UnityS2UTModule(mt_spec=tp_mt_spec(),
+                                    synthesizer_encoder_layers=TP_SYNTH_LAYERS)
+        elif family == "s2spect":
+            model = S2SpecTModule(encoder_type="conformer", enc_dim=256, enc_ffn_dim=2048,
+                                  enc_layers=16, enc_heads=4)
+        else:
+            model = S2SpecT2Module(mt_spec=tp_mt_spec())
+    return model.to(dtype or torch.bfloat16).eval()
+
+
+class StepCounter:
+    """Counts the calls of a model's step methods (the steps a pass ran)."""
+
+    def __init__(self, model, *names):
+        self.counts = dict.fromkeys(names, 0)
+        for name in names:
+            fn = getattr(model, name)
+
+            def wrapped(*args, _name=name, _fn=fn, **kw):
+                self.counts[_name] += 1
+                return _fn(*args, **kw)
+
+            setattr(model, name, wrapped)
+
+    def take(self):
+        out = dict(self.counts)
+        self.counts = dict.fromkeys(self.counts, 0)
+        return out
+
+
+def tp_generator(torch):
+    return torch.Generator(device="cuda").manual_seed(TP_PRENET_SEED)
+
+
+def tp_decoders(torch, family, model, counter, src, lengths):
+    """decode(n_mt, n) of the family as cli.generate runs it, cut to n_mt
+    first-pass and n second-pass steps: (its outputs, {pass: steps})."""
+    from diffnorm_tpu_torch.generate.speech_ar import ar_speech_generate
+    from diffnorm_tpu_torch.generate.translatotron2 import translatotron2_generate
+    from diffnorm_tpu_torch.generate.unity import unity_generate
+
+    def decode(n_mt=TP_MAX_LEN_MT, n=None):
+        counter.take()
+        if family == "unity":
+            out = unity_generate(model, src, lengths, beam_size=TP_BEAM, beam_size_mt=TP_BEAM,
+                                 max_len=n or TP_MAX_LEN, max_len_mt=n_mt)
+        elif family == "s2spect":
+            out = ar_speech_generate(model, src, lengths, max_iter=n or TP_MAX_ITER,
+                                     generator=tp_generator(torch))
+        else:
+            out = translatotron2_generate(model, src, lengths, beam_size_mt=TP_BEAM,
+                                          max_len_mt=n_mt, max_iter=n or TP_MAX_ITER,
+                                          generator=tp_generator(torch))
+        torch.cuda.synchronize()
+        return out, counter.take()
+
+    return decode
+
+
+def tp_step_profile(torch, short, what):
+    """A step alone of the pass that reaches the kernel (the first pass of a
+    two-pass model, the mel rollout of s2spect): the profile of a decode
+    whose pass is cut to AR_PROFILE_LENS[1] steps, less that of one cut to
+    [0] (the encode and the other pass, cut to 2 steps, cancel)."""
+    profiled = []
+    for n in AR_PROFILE_LENS:
+        (_, steps), _, wall = timed_decode(torch, lambda n=n: short(n), reps=TP_PROFILE_REPS)
+        profiled.append((sum(steps.values()), wall)
+                        + profile_run(torch, lambda n=n: short(n), wall))
+    (n0, wall0, busy0, kern0), (n1, wall1, busy1, kern1) = profiled
+    if busy0 is None or busy1 is None or n1 <= n0:
+        return f"a {what} step's profile not measured"
+    dn = n1 - n0
+    step_wall, step_kernels = (wall1 - wall0) / dn, (kern1 - kern0) / dn
+    step_busy = (busy1 * wall1 - busy0 * wall0) / dn
+    return (f"a {what} step alone, the {n1}-step decode's profile less the {n0}-step one's: "
+            f"{step_kernels:.1f} device kernels, wall {1e3 * step_wall:.3f} ms, device busy "
+            f"{1e3 * step_busy:.3f} ms = {100 * step_busy / step_wall:.1f}%, "
+            f"{1e6 * step_wall / step_kernels:.1f} us of wall a kernel")
+
+
+def tp_first_pass_forced(torch, model, enc, mask, mt_best):
+    """The first pass teacher-forced on mt_best [B, L]: (the full forward's
+    logits, the cached steps'), float32 [n, Vmt] before each row's first
+    PAD, and the handoff's context and mask."""
+    from diffnorm_tpu_torch.generate.unity import handoff_tokens
+
+    prev = handoff_tokens(mt_best)
+    full = model.mt_decoder(prev, enc, mask)
+    cache = model.init_mt_cache(enc, mask, prev.shape[1])
+    pos = torch.zeros(prev.shape[0], dtype=torch.int64, device=prev.device)
+    steps = torch.stack([model.decode_mt_step(prev[:, t:t + 1], cache, pos + t)[0]
+                         for t in range(prev.shape[1])], dim=1)
+    real = torch.cumprod((prev != 1).long(), dim=1).bool()
+    ctx, ctx_mask = model.synthesize(model.mt_features(prev, enc, mask), prev != 1)
+    return full[real].float(), steps[real].float(), ctx, ctx_mask
+
+
+def tp_units_forced(torch, model, t2u, t2u_mask, units):
+    """UnitY's unit pass teacher-forced on units [B, L] over t2u: (full,
+    cached) float32 logits before each row's first PAD."""
+    prev = shifted(torch, units)
+    full = model.decoder(prev, t2u, t2u_mask)
+    cache = model.init_cache(t2u, t2u_mask, prev.shape[1])
+    pos = torch.zeros(prev.shape[0], dtype=torch.int64, device=prev.device)
+    steps = torch.stack([model.decode_step(prev[:, t:t + 1], cache, pos + t)[0]
+                         for t in range(prev.shape[1])], dim=1)
+    real = torch.cumprod((prev != 1).long(), dim=1).bool()
+    return full[real].float(), steps[real].float()
+
+
+@contextlib.contextmanager
+def prenet_off(model):
+    saved, model.dec_prenet.p = model.dec_prenet.p, 0.0
+    try:
+        yield
+    finally:
+        model.dec_prenet.p = saved
+
+
+def tp_mels_forced(torch, model, ctx, ctx_mask, n):
+    """n cached mel steps over ctx from a zero frame, then decode_full
+    teacher-forced on them, the prenet's draws off: (the full form's
+    frames, the cached steps') float32 [B * n, out_dim]."""
+    with prenet_off(model):
+        cache = model.init_cache(ctx, ctx_mask, n)
+        prev = torch.zeros(ctx.shape[0], 1, model.out_dim, dtype=ctx.dtype, device=ctx.device)
+        steps = []
+        for t in range(n):
+            frame, _, cache = model.decode_step(prev, cache, t)
+            steps.append(frame)
+            prev = frame[:, None]
+        steps = torch.stack(steps, dim=1)
+        teacher = torch.cat([torch.zeros_like(steps[:, :1]), steps[:, :-1]], dim=1)
+        ones = torch.ones(teacher.shape[:2], dtype=torch.bool, device=ctx.device)
+        _, full, _ = model.decode_full(teacher, ones, ctx, ctx_mask)
+    return full.reshape(-1, model.out_dim).float(), steps.reshape(-1, model.out_dim).float()
+
+
+def mel_cos(torch, a, a_lens, b, b_lens):
+    """Row-cos of two rollouts' frames [B, T, D] over each row's valid frames
+    (the shorter length): (mean, min)."""
+    rows = [torch.nn.functional.cosine_similarity(a[i, :n].float(), b[i, :n].float(), dim=-1)
+            for i, n in enumerate(torch.minimum(a_lens, b_lens).tolist()) if n > 0]
+    cos = torch.cat(rows)
+    return cos.mean().item(), cos.min().item()
+
+
+def run_two_pass_decode(torch, family, mods, smi):
+    """Phase 24a-c, one family's decode at CVSS length and in long form (the
+    module docstring). Returns the long form's counted flash_attention
+    launches."""
+    from diffnorm_tpu_torch.ops import _build
+
+    model = tp_model(torch, family, {"unity": 241, "s2spect": 242, "t2": 243}[family])
+    names = {"unity": ("decode_mt_step", "decode_step"), "s2spect": ("decode_step",),
+             "t2": ("decode_mt_step", "decode_step")}[family]
+    counter = StepCounter(model, *names)
+    launches = 0
+    for what, b, frames in (("CVSS length", S2ST_B, S2ST_FRAMES),
+                            ("long form", LONG_B, LONG_FRAMES)):
+        src, lengths = s2st_inputs(torch, b, frames)
+        decode = tp_decoders(torch, family, model, counter, src, lengths)
+        long_form = frames == LONG_FRAMES
+
+        def warm():  # the same kernels and shapes, each pass cut to a few steps
+            return decode(n_mt=AR_PROFILE_LENS[0], n=AR_PROFILE_LENS[0])
+
+        (out, steps), counts, wall = timed_decode(torch, decode, reps=TP_REPS, warm=warm)
+        flash = counts.get("flash_attention", 0)
+        mt_steps = steps.get("decode_mt_step", 0)
+        want = 0
+        if long_form:
+            want = (TP_FLASH_PER_MEL_STEP * steps["decode_step"] if family == "s2spect"
+                    else TP_FLASH_PER_MT_STEP * (mt_steps + 1))
+        if flash != want:
+            fail(f"{family} decode {what}: flash_attention launched {flash} times in {steps}, "
+                 f"expected {want}")
+        per_step = "profiled in long form"
+        if long_form:
+            per_step = (tp_step_profile(torch, lambda n: decode(n_mt=n, n=2), "first-pass")
+                        if family != "s2spect" else
+                        tp_step_profile(torch, lambda n: decode(n=n), "mel"))
+        with torch.no_grad():
+            if family == "s2spect":
+                enc, mask = model.encode(src, lengths)
+                ctx, ctx_mask, cos_mt = enc, mask, None
+            else:
+                enc, mask = model.encode(src, lengths)
+                mt_best = out[2] if family == "unity" else out[3]
+                full_mt, step_mt, ctx, ctx_mask = tp_first_pass_forced(torch, model, enc, mask,
+                                                                       mt_best)
+                cos_mt = min_row_cos(torch, full_mt, step_mt)
+            if family == "unity":
+                full2, step2 = tp_units_forced(torch, model, ctx, ctx_mask, out[0][:, 0])
+            else:
+                full2, step2 = tp_mels_forced(torch, model, ctx, ctx_mask, 32)
+            cos2 = min_row_cos(torch, full2, step2)
+        if min(cos2, 1.0 if cos_mt is None else cos_mt) < TP_ROW_COS:
+            fail(f"{family} decode {what}: the cached steps against the teacher-forced forward, "
+                 f"row-cos {cos_mt} / {cos2:.6f} < {TP_ROW_COS}")
+        if family == "unity":
+            seqs, scores, mt_best = out
+            ok = seqs.shape == (b, TP_BEAM, TP_MAX_LEN) and torch.isfinite(scores).all()
+            result = (f"best scores {[round(v, 4) for v in scores[:, 0].tolist()[:4]]}, "
+                      f"first-pass lengths {(mt_best != 1).sum(1).tolist()[:4]}")
+        else:
+            feat, out_lens = out[0], out[1]
+            ok = (feat.shape == (b, TP_MAX_ITER, 80) and torch.isfinite(feat).all()
+                  and bool((out_lens >= 1).all()))
+            result = f"lengths {out_lens.tolist()[:4]}"
+        if not ok:
+            fail(f"{family} decode {what}: outputs {result}")
+        audio_s = lengths.sum().item() * SECONDS_PER_FRAME
+        print(f"{family} decode, {what}: B{b} x {frames} frames, bf16: wall {wall:.4f} s (one "
+              f"run), RTF {audio_s / wall:.2f}, steps {steps}, {per_step}, flash_attention "
+              f"{flash} (expected {want}); {result}; cached against teacher-forced, row-cos min "
+              f"first pass {cos_mt}, second pass {cos2:.6f} (bound {TP_ROW_COS}); {smi}")
+        if not long_form:
+            continue
+        launches += flash
+        with plain_versions(*mods):
+            (out_p, _), _, wall_p = timed_decode(torch, decode, reps=1, warm=warm)
+            if family != "s2spect":
+                with torch.no_grad():
+                    enc_p, mask_p = model.encode(src, lengths)
+                    full_p, step_p, _, _ = tp_first_pass_forced(torch, model, enc_p, mask_p,
+                                                                 mt_best)
+            else:
+                with torch.no_grad():
+                    full2_p, _ = tp_mels_forced(torch, model, enc, mask, 32)
+        checks = []
+        if family != "s2spect":
+            mt_best_p = out_p[2] if family == "unity" else out_p[3]
+            agree_mt = unit_agreement(mt_best, mt_best_p)
+            cos_tf = min(min_row_cos(torch, full_mt, full_p), min_row_cos(torch, step_mt, step_p))
+            checks.append((f"first-pass tokens equal {agree_mt:.4f}", agree_mt,
+                           AR_LONG_UNIT_AGREE))
+            checks.append((f"first pass teacher-forced on the kernel path's hypotheses, kernel "
+                           f"against plain, row-cos min {cos_tf:.6f}", cos_tf, AR_ROW_COS))
+        else:
+            cos_tf = min_row_cos(torch, full2, full2_p)
+            checks.append((f"mel decoder teacher-forced on the kernel path's frames, kernel "
+                           f"against plain, row-cos min {cos_tf:.6f}", cos_tf, AR_ROW_COS))
+        if family == "unity":
+            agree = unit_agreement(out[0][:, 0], out_p[0][:, 0])
+            checks.append((f"units equal {agree:.4f}", agree, AR_LONG_UNIT_AGREE))
+        else:
+            same = (slice(None) if family == "s2spect"
+                    else (mt_best == mt_best_p).all(dim=1))
+            n_rows = b if family == "s2spect" else int(same.sum())
+            if n_rows:
+                mean_cos, min_cos = mel_cos(torch, out[0][same], out[1][same],
+                                            out_p[0][same], out_p[1][same])
+                checks.append((f"mels over the valid frames of {n_rows} rows with equal "
+                               f"first passes, row-cos mean {mean_cos:.6f} (min {min_cos:.6f}); "
+                               f"lengths {out[1].tolist()} / {out_p[1].tolist()}", mean_cos,
+                               TP_MEL_MEAN_COS))
+                # the rollout runs all its steps whatever the lengths: every frame
+                full_len = torch.full_like(out[1][same], TP_MAX_ITER)
+                mean_all, min_all = mel_cos(torch, out[0][same], full_len, out_p[0][same],
+                                            full_len)
+                checks.append((f"mels over all {TP_MAX_ITER} rollout frames of those rows, "
+                               f"row-cos mean {mean_all:.6f} (min {min_all:.6f})", mean_all,
+                               TP_MEL_MEAN_COS))
+        print(f"{family} decode, long form, through the plain versions: wall {wall_p:.4f} s; "
+              + "; ".join(f"{text} (bound {bound_})" for text, _, bound_ in checks) + f"; {smi}")
+        for text, value, bound_ in checks:
+            if value < bound_:
+                fail(f"{family} decode long form against the plain versions: {text} < {bound_}")
+    _build.launch_counts.clear()
+    del model
+    return launches
+
+
+def tp_batch(rng, tasks, src_lengths, tgt_frames):
+    """Phase 10's sources with seeded 80-bin mel targets [B, bucket(T), 80]
+    (prev_feats the shift behind a zero frame) and the letter targets of
+    `tasks` (ar_batch's)."""
+    import numpy as np
+
+    from diffnorm_tpu_torch.data.batching import bucket_length
+
+    batch = ar_batch(rng, tasks, src_lengths, [max(n // 4, 1) for n in tgt_frames])
+    for key in ("target", "prev_output_tokens", "prev_target"):
+        batch.pop(key, None)
+    lens = np.asarray(tgt_frames, np.int32)
+    t = bucket_length(int(lens.max()))
+    mask = np.arange(t)[None, :] < lens[:, None]
+    feat = (rng.normal(size=(len(lens), t, 80)) * mask[..., None]).astype(np.float32)
+    prev = np.zeros_like(feat)
+    prev[:, 1:] = feat[:, :-1]
+    batch.update(feat_tgt=feat, prev_feats=prev, tgt_mask=mask, tgt_lengths=lens)
+    return batch
+
+
+def run_two_pass_train(torch, smi):
+    """Phase 24d: one update of each family at phase 10's --max-tokens 40000
+    batch (B64, 300-625 source frames; units 100-250; mels as long as the
+    sources): ms, peak memory, busy share. Training forwards drop out, so
+    the kernel is not reached (JAX keeps dropout off its kernel too)."""
+    import numpy as np
+
+    from diffnorm_tpu_torch.criterions.ce_loss import SpeechToUnit2PassLoss
+    from diffnorm_tpu_torch.criterions.tts_loss import SpeechToSpectrogram2PassLoss, Tacotron2Loss
+    from diffnorm_tpu_torch.data.multitask import MultitaskConfig
+    from diffnorm_tpu_torch.train.trainer import Trainer, TrainerConfig
+
+    rng = np.random.default_rng(244)
+    with tempfile.TemporaryDirectory() as tmp:
+        tasks = MultitaskConfig(str(write_options_data(Path(tmp), rng))).get_all_tasks()
+    tasks = {"target_letter": tasks["target_letter"]}
+    hi = NAR_MAX_TOKENS // NAR_B
+    for family, criterion in (
+            ("unity", SpeechToUnit2PassLoss(0.1, multitask=tasks, mt_task_name="target_letter")),
+            ("s2spect", Tacotron2Loss()),
+            ("t2", SpeechToSpectrogram2PassLoss(multitask=tasks, mt_task_name="target_letter"))):
+        batches = []
+        for _ in range(3):
+            src_lengths = np.sort(rng.integers(300, hi + 1, NAR_B))[::-1]
+            if family == "unity":
+                batches.append(ar_batch(rng, tasks, src_lengths,
+                                        rng.integers(100, 251, NAR_B).tolist()))
+            else:
+                batches.append(tp_batch(rng, tasks if family == "t2" else {}, src_lengths,
+                                        src_lengths.tolist()))
+        model = tp_model(torch, family, 244, dtype=torch.float32).train()
+        trainer = Trainer(TrainerConfig(**NAR_TRAIN), model, criterion)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        ms, losses = [], []
+        for batch in batches[:2]:
+            t1 = time.perf_counter()
+            mets = trainer.train_step([batch])
+            torch.cuda.synchronize()
+            ms.append(1e3 * (time.perf_counter() - t1))
+            losses.append(mets["loss"])
+            if not (math.isfinite(mets["loss"]) and math.isfinite(mets["gnorm"])):
+                fail(f"{family} train: {mets}")
+        peak_gb = torch.cuda.max_memory_allocated() / 1e9
+        busy, _ = profile_run(torch, lambda: trainer.train_step([batches[2]]), ms[1] / 1e3)
+        aux = {k: round(v, 4) for k, v in mets.items() if k.startswith("multitask_")}
+        print(f"{family} train: published widths, B{NAR_B} x "
+              f"{batches[0]['src_tokens'].shape[1]} padded frames, bf16 forward, float32 "
+              f"masters, {type(criterion).__name__}: ms per update "
+              f"{[round(v, 1) for v in ms]} (the first a warm-up), peak {peak_gb:.2f} GB, busy "
+              + ("not measured" if busy is None else f"{100 * busy:.1f}%")
+              + f"; losses {[round(v, 4) for v in losses]} {aux}; {smi}")
+        del model, trainer
+
+
+def write_two_pass_corpus(root: Path, rng):
+    """Phase 11's corpus (units) under `root` with a first-pass letter task
+    (target_letter, flagged, beside phase 19's two other aux tasks), and
+    under `root / "spect"` the same sources with seeded 80-bin mel targets
+    as long as their fbank and the same aux tasks. Returns the spectrogram
+    corpus's directory."""
+    import numpy as np
+    import yaml
+
+    from diffnorm_tpu_torch.data.manifest import (
+        read_translation_manifest,
+        write_translation_manifest,
+    )
+
+    write_nar_corpus(root)
+    units = {}
+    for split in ("train", "dev", "test"):
+        rows = read_translation_manifest(str(root / f"{split}.tsv"))
+        units[split] = {r["id"]: int(r["tgt_n_frames"]) for r in rows}
+        spect = root / "spect"
+        (spect / "mel").mkdir(parents=True, exist_ok=True)
+        out = []
+        for r in rows:
+            n = int(r["src_n_frames"])
+            np.save(spect / "mel" / f"{r['id']}.npy", rng.normal(size=(n, 80)).astype(np.float32))
+            out.append({**r, "src_audio": str(root / r["src_audio"]),
+                        "tgt_audio": str(spect / "mel" / f"{r['id']}.npy"), "tgt_n_frames": n})
+        write_translation_manifest(str(spect / f"{split}.tsv"), out)
+    for d in (root, root / "spect"):
+        path = write_options_data(d, rng, units)
+        config = yaml.safe_load(path.read_text())
+        config["target_letter"]["is_first_pass_decoder"] = True
+        path.write_text(yaml.safe_dump(config))
+    (root / "spect" / "config.yaml").write_text("{}\n")
+    return root / "spect"
+
+
+def run_two_pass_cli(torch, smi):
+    """Phase 24e, the CLIs on phase 11's corpus (bf16, published widths):
+    cli.train --task speech_to_speech --target-is-code --arch unity_conformer
+    (speech_to_unit_2pass, 2 updates) then cli.generate with beam 5, whose H-
+    units equal an in-process unity_generate of the step directory;
+    cli.train --arch s2spect2_conformer (speech_to_spectrogram_2pass, 2
+    updates) then cli.generate with a seeded mel-input vocoder, whose {id}.npy
+    frames equal an in-process translatotron2_generate (its prenet draws
+    from a generator seeded --seed), and cli.generate on a seeded
+    s2spect_conformer .npz against ar_speech_generate likewise."""
+    import numpy as np
+
+    from diffnorm_tpu_torch.cli import generate
+    from diffnorm_tpu_torch.cli import train as train_cli
+    from diffnorm_tpu_torch.cli.train_vocoder import build_generator
+    from diffnorm_tpu_torch.data.iterators import EpochBatchIterator
+    from diffnorm_tpu_torch.generate.speech_ar import ar_speech_generate
+    from diffnorm_tpu_torch.generate.translatotron2 import translatotron2_generate
+    from diffnorm_tpu_torch.generate.unity import unity_generate
+    from diffnorm_tpu_torch.tasks.s2spect_task import SpeechToSpectrogramDataset
+    from diffnorm_tpu_torch.weights import save_npz, to_jax_variables
+
+    cuda = torch.device("cuda", torch.cuda.current_device())
+    rng = np.random.default_rng(245)
+    walls = {}
+    train_flags = ["--lr", "5e-4", "--lr-scheduler", "inverse_sqrt", "--warmup-init-lr", "1e-7",
+                   "--warmup-updates", "10000", "--clip-norm", "10.0", "--max-update", "2",
+                   "--max-tokens", "8000", "--max-target-positions", "1024", "--seed", "42",
+                   "--validate-interval", "5", "--save-interval", "5", "--dtype", "bfloat16",
+                   "--log-interval", "1", "--multitask-config-yaml", "multitask.yaml"]
+    unity_flags = ["--task", "speech_to_speech", "--target-is-code", "--arch", "unity_conformer",
+                   "--synthesizer-encoder-layers", str(TP_SYNTH_LAYERS),
+                   "--multitask-config-yaml", "multitask.yaml"]
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = Path(tmp)
+        spect = write_two_pass_corpus(tmp, rng)
+        for what, data, flags in (("unity", tmp, unity_flags),
+                                  ("t2", spect, ["--task", "speech_to_speech", "--arch",
+                                                 "s2spect2_conformer"])):
+            lines = LogLines()
+            logging.getLogger("diffnorm_tpu_torch.train").addHandler(lines)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            rc = train_cli.main([str(data), *flags, "--save-dir", str(tmp / f"ck_{what}"),
+                                 *train_flags])
+            walls[f"cli.train {what}"] = time.perf_counter() - t0
+            logging.getLogger("diffnorm_tpu_torch.train").removeHandler(lines)
+            if rc != 0 or "saved checkpoint at step 2" not in "\n".join(lines.lines):
+                fail(f"cli.train {what}: rc {rc}, log {lines.lines[-3:]}")
+        # UnitY: cli.generate against the in-process decode
+        step = tmp / "ck_unity" / "step_000000002"
+        cut = ["--max-target-positions", str(CLI_MAX_LEN), "--max-len-b-mt",
+               str(CLI_MAX_LEN_MT)]
+        base = [str(tmp), *unity_flags, "--gen-subset", "test", "--max-tokens",
+                str(EVAL_MAX_TOKENS), "--path", str(step), "--beam", str(TP_BEAM), *cut]
+        t0 = time.perf_counter()
+        if generate.main(base + ["--results-path", str(tmp / "gen_unity")]) != 0:
+            fail("cli.generate unity failed")
+        walls["cli.generate unity"] = time.perf_counter() - t0
+        unity = generate.build_task_model(generate.parse_args(base), str(step), cuda,
+                                          torch.bfloat16)[1]
+        got = read_hyps(tmp / "gen_unity" / "generate-test.txt")
+        want = ar_hyps(torch, tmp, lambda s, n: unity_generate(
+            unity, s, n, beam_size=TP_BEAM, beam_size_mt=TP_BEAM, max_len=CLI_MAX_LEN,
+            max_len_mt=CLI_MAX_LEN_MT)[0][:, 0])
+        if got != want or len(got) != 4:
+            fail(f"cli.generate unity: H- units differ from the in-process decode "
+                 f"({sum(got.get(k) == v for k, v in want.items())} of {len(want)} equal)")
+        del unity
+        # the spectrogram branch: Translatotron2 trained, s2spect seeded
+        vcfg = {**VOCODER_CFG, "model_in_dim": 80}
+        torch.manual_seed(247)
+        voc = build_generator(vcfg, input_type="features")
+        save_npz(str(tmp / "voc.npz"), to_jax_variables(voc))
+        (tmp / "voc.json").write_text(json.dumps(vcfg))
+        hop = int(np.prod(VOCODER_CFG["upsample_rates"]))
+        del voc
+        s2spect = tp_model(torch, "s2spect", 246, dtype=torch.float32)
+        save_npz(str(tmp / "s2spect.npz"), to_jax_variables(s2spect))
+        del s2spect
+        for what, arch, path, extra in (
+                ("t2", "s2spect2_conformer", tmp / "ck_t2" / "step_000000002",
+                 ["--vocoder", str(tmp / "voc.npz"), "--vocoder-cfg", str(tmp / "voc.json")]),
+                ("s2spect", "s2spect_conformer", tmp / "s2spect.npz", [])):
+            base = [str(spect), "--task", "speech_to_speech", "--arch", arch,
+                    "--multitask-config-yaml", "multitask.yaml", "--gen-subset", "test",
+                    "--max-tokens", str(EVAL_MAX_TOKENS), "--path", str(path), "--beam",
+                    str(TP_BEAM), "--seed", "7", *cut]
+            out = tmp / f"gen_{what}"
+            t0 = time.perf_counter()
+            if generate.main(base + ["--results-path", str(out)] + extra) != 0:
+                fail(f"cli.generate {what} failed")
+            walls[f"cli.generate {what}"] = time.perf_counter() - t0
+            model = generate.build_task_model(generate.parse_args(base), str(path), cuda,
+                                              torch.bfloat16)[1]
+            ds = SpeechToSpectrogramDataset.from_tsv(str(spect), "test", is_train=False)
+            g = torch.Generator(device=cuda).manual_seed(7)
+            n_files, max_err = 0, 0.0
+            for batch in EpochBatchIterator(ds, EVAL_MAX_TOKENS, shuffle=False).next_epoch_itr():
+                src = torch.from_numpy(batch["src_tokens"]).to(cuda)
+                lens = torch.from_numpy(batch["src_lengths"]).to(cuda)
+                if what == "t2":
+                    feat, out_lens, _, _ = translatotron2_generate(
+                        model, src, lens, beam_size_mt=TP_BEAM, max_len_mt=CLI_MAX_LEN_MT,
+                        max_iter=CLI_MAX_LEN, generator=g)
+                else:
+                    feat, out_lens, _ = ar_speech_generate(model, src, lens,
+                                                           max_iter=CLI_MAX_LEN, generator=g)
+                for i, sid in enumerate(batch["id"].tolist()):
+                    got = np.load(out / f"{sid}.npy")
+                    want = feat[i, :int(out_lens[i])].float().cpu().numpy()
+                    if got.shape != want.shape:
+                        fail(f"cli.generate {what} {sid}.npy: {got.shape}, in process "
+                             f"{want.shape}")
+                    max_err = max(max_err, float(np.abs(got - want).max(initial=0.0)))
+                    if what == "t2":
+                        import wave
+
+                        with wave.open(str(out / f"{sid}_pred.wav")) as w:
+                            if w.getnframes() != got.shape[0] * hop:
+                                fail(f"cli.generate t2 {sid}_pred.wav: {w.getnframes()} samples")
+                    n_files += 1
+            if n_files != 4 or max_err > TP_CLI_ATOL:
+                fail(f"cli.generate {what}: {n_files} files, max abs difference to the "
+                     f"in-process rollout {max_err:.3e} > {TP_CLI_ATOL}")
+            walls[f"{what} frames' max abs difference"] = max_err
+            del model
+    print(f"two-pass and spectrogram CLIs on phase 11's corpus (published widths, bf16, 4 test "
+          f"WAVs of 3-7 s, decodes cut to {CLI_MAX_LEN_MT} first-pass tokens and {CLI_MAX_LEN} "
+          f"units or frames): " + ", ".join(f"{k} {v:.4g}" + ("" if "difference" in k else " s")
+                                         for k, v in walls.items())
+          + f" (one run each); UnitY's H- units equal to the in-process decode, every .npy "
+            f"within {TP_CLI_ATOL} of its in-process rollout, the vocoder's WAVs {hop} samples "
+            f"a frame; {smi}")
+
+
+def run_two_pass(torch, mods, smi):
+    """Phase 24: UnitY, s2spect_conformer and Translatotron2 (see the module
+    docstring). Returns the flash_attention launches."""
+    t0 = time.perf_counter()
+    launches = sum(run_two_pass_decode(torch, family, mods, smi)
+                   for family in ("unity", "s2spect", "t2"))
+    run_two_pass_train(torch, smi)
+    run_two_pass_cli(torch, smi)
+    print(f"phase two-pass S2ST: {time.perf_counter() - t0:.1f} s, flash_attention launches "
           f"{launches}; {smi}")
     return launches
 
@@ -5891,6 +6568,10 @@ def main() -> int:
     # AR training, cli.train -> cli.generate and the AR reranker
     launches["flash_attention"] += run_ar_s2ut(torch, mods, smi)
 
+    # 24. the two-pass S2ST families and the spectrogram decoders: UnitY,
+    # s2spect_conformer, Translatotron2; decode, training, the CLIs
+    launches["flash_attention"] += run_two_pass(torch, mods, smi)
+
     sources = {
         "rms_norm_film": ("rms_norm_film.cu", "diffnorm_tpu/ops/pallas_norm.py:34"),
         "wavenet_chain": ("wavenet_chain.cu", "diffnorm_tpu/ops/pallas_wavenet.py:66"),
@@ -5918,6 +6599,10 @@ def main() -> int:
           f"{flash_timed['AR decode step']}")
     print(f"flash_attention at phase 23's S2T encoder ([2,8,2112,64]): "
           f"{flash_timed['S2T encoder']}")
+    for what, shape in (("UnitY decode step", "q [10,8,1,32], k/v [10,8,2112,32]"),
+                        ("Translatotron2 decode step", "q [10,4,1,128], k/v [10,4,2112,128]"),
+                        ("s2spect decode step", "q [2,4,1,128], k/v [2,4,2112,128]")):
+        print(f"flash_attention at phase 24's {what} ({shape}): {flash_timed[what]}")
     for what in ("HuBERT long form", "HuBERT longest chunk", "float32 path"):
         print(f"flash_attention float32 {what}: {flash_timed[what]}")
     print(json.dumps({"kernels": kernels}))

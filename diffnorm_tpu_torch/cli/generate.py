@@ -78,8 +78,28 @@ line names `--beam` (`--iter-decode-with-beam` for the stacked and the
 reference-scoring runs, as JAX's). The decode runs at most
 min(--max-target-positions, 256) steps.
 
+UnitY (`--task speech_to_speech --target-is-code --arch unity_conformer`,
+or `--task speech_to_speech_ar`; the model's flags as cli.train takes them,
+its --multitask-config-yaml among them) decodes both beam passes
+(`generate/unity.py`): `--beam`, `--lenpen` and the rest for the units,
+`--beam-mt` (default --beam), `--lenpen-mt` and `--max-len-b-mt` (at most
+256) for the first pass; the first model of an ensemble; stacked units
+raise, as in JAX.
+
+The spectrogram branch (`--task speech_to_speech` without --target-is-code,
+or `speech_to_speech_spect`; `--arch s2spect_transformer`,
+`s2spect_transformer_fisher`, `s2spect_conformer`, `s2spect2_conformer`)
+writes each utterance's frames as `{id}.npy` under --results-path: the AR
+mel rollout (`generate/speech_ar.py`) of --max-target-positions steps with
+--eos-prob-threshold, after Translatotron2's first pass, whose hypothesis is
+logged as `MT-{id}\t{text}` (`generate/translatotron2.py`). The prenet
+draws from one generator seeded with --seed. `--vocoder W --vocoder-cfg C`
+(a `cli.train_vocoder --input-type features` generator) adds
+`{id}_pred.wav`.
+
 Not ported, and raising NotImplementedError: the other tasks and
-architectures (UnitY, TTS, LevT, ...), ROADMAP Queue 1 item 4.
+architectures (text-input TTS and fastspeech2, LevT, ...), ROADMAP Queue 1
+item 4.
 """
 
 from __future__ import annotations
@@ -94,6 +114,8 @@ from typing import Dict, Optional, Sequence, Union
 import numpy as np
 import torch
 
+from diffnorm_tpu_torch.cli import train as train_cli
+from diffnorm_tpu_torch.cli.generate_waveform import write_wav
 from diffnorm_tpu_torch.cli.s2st import add_model_args, build_model, resolve_device_dtype
 from diffnorm_tpu_torch.data.dictionary import Dictionary
 from diffnorm_tpu_torch.data.encoders import post_process
@@ -103,20 +125,29 @@ from diffnorm_tpu_torch.eval.bleu import BleuAccumulator
 from diffnorm_tpu_torch.eval.wer import WerAccumulator
 from diffnorm_tpu_torch.generate.beam_search import ar_generate, ar_generate_stacked
 from diffnorm_tpu_torch.generate.mask_predict import average_log_probs, mask_predict_decode_chunked
+from diffnorm_tpu_torch.generate.speech_ar import ARSpeechGenerator
+from diffnorm_tpu_torch.generate.translatotron2 import Translatotron2SpeechGenerator
+from diffnorm_tpu_torch.generate.unity import unity_generate
 from diffnorm_tpu_torch.models.ar_transformer import ARCHS as AR_ARCHS
 from diffnorm_tpu_torch.models.ar_transformer import ARS2UTModule
 from diffnorm_tpu_torch.models.nar_transformer import calibrate_act_scales
+from diffnorm_tpu_torch.models.unity import ARCHS as UNITY_ARCHS
 from diffnorm_tpu_torch.ops.quant import set_static_scales
+from diffnorm_tpu_torch.tasks import TASKS
 from diffnorm_tpu_torch.tasks.ar_s2ut_task import shift_right
-from diffnorm_tpu_torch.train.checkpoint import load_variables
-from diffnorm_tpu_torch.weights import from_jax_variables
+from diffnorm_tpu_torch.tasks.s2spect_task import ARCHS as SPECT_ARCHS
+from diffnorm_tpu_torch.tasks.s2spect_task import S2SPECT2_ARCHS
+from diffnorm_tpu_torch.train.checkpoint import load_tree, load_variables
+from diffnorm_tpu_torch.weights import as_variables, from_jax_variables
 
 logger = logging.getLogger("diffnorm_tpu_torch.generate")
 
 PAD, EOS = 1, 2
 TASK, ARCH = "speech_to_speech_fasttranslate", "nar_s2ut_conformer"
-AR_TASK = "speech_to_speech_ar"
-TASK_ARCHS = {TASK: (ARCH,), AR_TASK: tuple(AR_ARCHS)}  # the first, the task's default
+AR_TASK = train_cli.AR_TASK
+SPECT_TASK, S2S_TASK = train_cli.SPECT_TASK, train_cli.S2S_TASK
+TASK_ARCHS = {TASK: (ARCH,), AR_TASK: tuple(AR_ARCHS) + tuple(UNITY_ARCHS),
+              SPECT_TASK: tuple(SPECT_ARCHS)}  # the first, the task's default
 # the widths an AR arch gives where the flag is not set
 AR_WIDTHS = ("encoder_embed_dim", "encoder_ffn_embed_dim", "encoder_layers",
              "encoder_attention_heads", "decoder_embed_dim", "decoder_ffn_embed_dim",
@@ -202,7 +233,19 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--sampling-topp", type=float, default=0.0)
     p.add_argument("--temperature", type=float, default=1.0)
     p.add_argument("--score-reference", action="store_true")
+    # the two-pass models' first pass (UnitY, Translatotron2)
+    p.add_argument("--beam-mt", type=int, default=None, help="default: --beam")
+    p.add_argument("--lenpen-mt", type=float, default=1.0)
+    p.add_argument("--max-len-b-mt", type=int, default=200, help="at most 256")
+    # the spectrogram branch (s2spect, Translatotron2)
+    p.add_argument("--eos-prob-threshold", type=float, default=0.5)
+    p.add_argument("--vocoder", help="a mel-input vocoder's weights (cli.train_vocoder "
+                                     "--input-type features): writes {id}_pred.wav")
+    p.add_argument("--vocoder-cfg", help="its config JSON")
+    p.add_argument("--sample-rate", type=int, default=16000)
+    p.add_argument("--multitask-config-yaml", help="the aux tasks' YAML, relative to DATA")
     add_model_args(p)
+    train_cli.add_two_pass_args(p)
     return p
 
 
@@ -232,21 +275,34 @@ def parse_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
     given. Raises NotImplementedError for a task or arch not ported."""
     p = build_parser()
     chosen, _ = p.parse_known_args(argv)
-    archs = TASK_ARCHS.get(chosen.task)
+    task = chosen.task
+    if task == S2S_TASK:
+        task = AR_TASK if chosen.target_is_code else SPECT_TASK
+    archs = TASK_ARCHS.get(task)
     if archs is None or (chosen.arch or archs[0]) not in archs:
         raise NotImplementedError(
-            f"--task {chosen.task} --arch {chosen.arch}: the ported branches are {TASK} "
-            f"({ARCH}) and {AR_TASK} ({', '.join(TASK_ARCHS[AR_TASK])}) "
-            "(ROADMAP Queue 1 item 4)")
-    if chosen.task == AR_TASK:  # widths left unset take the arch's
+            f"--task {chosen.task} --arch {chosen.arch}: the ported branches are "
+            + "; ".join(f"{t} ({', '.join(a)})" for t, a in TASK_ARCHS.items())
+            + " (text-input TTS, fastspeech2 among the rest: ROADMAP Queue 1 item 4)")
+    if task == AR_TASK:  # widths left unset take the arch's
         p.set_defaults(**dict.fromkeys(AR_WIDTHS))
     args, extra = p.parse_known_args(argv)
-    args.arch = args.arch or archs[0]
+    args.task, args.arch = task, args.arch or archs[0]
+    # UnitY and the spectrogram models build through their task, on
+    # cli.train's model flags
+    args.model = None
+    if args.arch in UNITY_ARCHS or task == SPECT_TASK:
+        q = train_cli.build_parser("the model's flags", train=False)
+        margs = q.parse_known_args(argv)[0]
+        margs.task = task
+        args.model = train_cli.check_args(q, margs)
+        if args.arch in UNITY_ARCHS and args.n_frames_per_step > 1:
+            raise NotImplementedError("unity generation with n_frames_per_step>1 (as JAX's)")
     overrides = rerank_overrides(extra)
-    if args.task == AR_TASK:
+    if args.task == AR_TASK and args.model is None:
         apply_ar_arch(args)
-        if args.quant_int8:
-            p.error("--quant-int8: the int8 model is the NAR one")
+    if args.task != TASK and args.quant_int8:
+        p.error("--quant-int8: the int8 model is the NAR one")
     args.rerank = None
     if args.rerank_path:
         rerank = argparse.Namespace(**{**vars(args), **overrides})
@@ -280,6 +336,114 @@ def build_ar_model(args: argparse.Namespace, path: str, device: torch.device,
                            if not k.startswith("mt_")}
     from_jax_variables(model, variables)
     return model.to(dtype).eval()
+
+
+def build_task_model(args: argparse.Namespace, path: str, device: torch.device,
+                     dtype: torch.dtype):
+    """(task, model) of UnitY or a spectrogram model: built by its task from
+    cli.train's model flags (`args.model`), every weight of `path` loaded
+    (the aux heads' too), in eval mode."""
+    task = TASKS[args.model.task](args.model)
+    with torch.device(device):
+        model = task.build_model()
+    from_jax_variables(model, load_variables(path))
+    return task, model.to(dtype).eval()
+
+
+def unity_decoder(args: argparse.Namespace, model, device: torch.device):
+    """The UnitY decode of a batch (fn(batch) -> (tokens [B, L], scores [B,
+    L], steps [B]) numpy): both beam passes, the first with --beam-mt,
+    --lenpen-mt and --max-len-b-mt (JAX cli/generate.py:277-310)."""
+    def decode(batch):
+        spk = batch.get("tgt_speaker")
+        seqs, scores, _ = unity_generate(
+            model, batch["src_tokens"], batch["src_lengths"], beam_size=args.beam,
+            beam_size_mt=args.beam_mt or args.beam, max_len=min(args.max_target_positions, 256),
+            max_len_mt=min(args.max_len_b_mt, 256), min_len=args.min_len,
+            len_penalty=args.lenpen, len_penalty_mt=args.lenpen_mt,
+            no_repeat_ngram=args.no_repeat_ngram_size, unk_penalty=args.unkpen,
+            tgt_speaker=None if spk is None else torch.from_numpy(spk).to(device))
+        best = seqs[:, 0]
+        return (best.cpu().numpy(), scores[:, :1].expand_as(best).float().cpu().numpy(),
+                np.ones(best.shape[0], np.int32))
+
+    return decode
+
+
+def feature_vocoder(args: argparse.Namespace, device: torch.device, dtype: torch.dtype):
+    """--vocoder: frames [n, D] -> waveform, a FeatureGenerator (the
+    `--input-type features` fine-tune of cli.train_vocoder) whose input width
+    is the config's model_in_dim, else --output-frame-dim."""
+    import json
+
+    from diffnorm_tpu_torch.cli.train_vocoder import build_generator
+
+    with open(args.vocoder_cfg) as f:
+        vcfg = json.load(f)
+    vcfg.setdefault("model_in_dim", args.model.output_frame_dim)
+    with torch.device(device):
+        gen = build_generator(vcfg, input_type="features")
+    tree = load_tree(args.vocoder)
+    from_jax_variables(gen, {"params": tree["g_params"]} if "g_params" in tree
+                       else as_variables(tree))
+    gen = gen.to(dtype).eval()
+
+    @torch.no_grad()
+    def vocode(feat: np.ndarray) -> np.ndarray:
+        return gen(torch.from_numpy(feat).to(device, dtype)[None]).float().cpu().numpy()[0]
+
+    return vocode
+
+
+def spectrogram_generate(args: argparse.Namespace, device: torch.device,
+                         dtype: torch.dtype) -> int:
+    """The spectrogram branch (JAX cli/generate.py:_tts_generate): each
+    utterance's frames to `{results_path}/{id}.npy`, with --vocoder its
+    waveform to `{id}_pred.wav`; Translatotron2 logs each first-pass
+    hypothesis as `MT-{id}\t{text}`. The rollout runs
+    --max-target-positions steps; the prenet draws from one generator
+    seeded with --seed, batch after batch."""
+    paths = [p for p in args.path.split(":") if p]
+    if len(paths) > 1:
+        logger.warning("spectrogram generation uses the first model of the ensemble")
+    task, model = build_task_model(args, paths[0], device, dtype)
+    logger.info("restored checkpoint from %s", paths[0])
+    if args.arch in S2SPECT2_ARCHS:
+        mt_dict = task.multitask_tasks[task.mt_task_name].tgt_dict
+        gen = Translatotron2SpeechGenerator(
+            model, max_iter=args.max_target_positions,
+            eos_prob_threshold=args.eos_prob_threshold, beam_size_mt=args.beam_mt or args.beam,
+            max_len_mt=min(args.max_len_b_mt, 256), len_penalty_mt=args.lenpen_mt,
+            no_repeat_ngram=args.no_repeat_ngram_size)
+    else:
+        mt_dict = None
+        gen = ARSpeechGenerator(model, max_iter=args.max_target_positions,
+                                eos_prob_threshold=args.eos_prob_threshold)
+    vocode = feature_vocoder(args, device, dtype) if args.vocoder else None
+    results = args.results_path or "tts_out"
+    os.makedirs(results, exist_ok=True)
+    generator = torch.Generator(device=device).manual_seed(args.seed)
+    itr = EpochBatchIterator(task.dataset(args.gen_subset), max_tokens=args.max_tokens,
+                             max_sentences=args.batch_size, shuffle=False,
+                             num_workers=args.num_workers)
+    n_utts, n_frames, t0 = 0, 0, time.time()
+    for batch in itr.next_epoch_itr():
+        entries = gen.generate(torch.from_numpy(batch["src_tokens"]).to(device),
+                               torch.from_numpy(batch["src_lengths"]).to(device), generator)
+        for sid, entry in zip(batch["id"].tolist(), entries):
+            if mt_dict is not None:
+                logger.info("MT-%d\t%s", sid, " ".join(mt_dict[int(t)]
+                                                       for t in entry["mt_tokens"]))
+            feat = np.asarray(entry["feature"], np.float32)
+            np.save(os.path.join(results, f"{sid}.npy"), feat)
+            if vocode is not None and feat.shape[0] > 0:
+                write_wav(os.path.join(results, f"{sid}_pred.wav"), vocode(feat),
+                          args.sample_rate)
+            n_frames += feat.shape[0]
+            n_utts += 1
+    logger.info("synthesized %d utterances (%d frames, %.1f avg) in %.1fs -> %s", n_utts,
+                n_frames, n_frames / max(n_utts, 1), time.time() - t0, results)
+    return 0
 
 
 def ar_decoder(args: argparse.Namespace, models, device: torch.device):
@@ -343,13 +507,20 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
                         format="%(asctime)s | %(levelname)s | %(message)s")
     args = parse_args(argv)
     device, dtype = resolve_device_dtype(args)
+    if args.task == SPECT_TASK:
+        return spectrogram_generate(args, device, dtype)
     split = args.gen_subset
     tgt_dict = Dictionary.unit_dictionary(args.target_code_size)
     dataset = SpeechToUnitDataset.from_tsv(args.data, split, tgt_dict=tgt_dict,
                                            config_yaml=args.config_yaml)
     paths = [p for p in args.path.split(":") if p]
     ar = args.task == AR_TASK
-    if ar:
+    if args.model is not None:  # UnitY
+        if len(paths) > 1:
+            logger.warning("unity generation uses the first model of the ensemble")
+            paths = paths[:1]
+        models = [build_task_model(args, paths[0], device, dtype)[1]]
+    elif ar:
         models = [build_ar_model(args, p, device, dtype) for p in paths]
     else:
         models = [build_model(args, p, device, dtype, quant_int8=args.quant_int8)
@@ -361,7 +532,9 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
     calibrate = args.quant_int8 and args.quant_int8_static
     pp_symbol = args.post_process or args.remove_bpe
     init_lengths = reranker = None
-    if ar:
+    if args.model is not None:
+        decode_ar, beam = unity_decoder(args, models[0], device), args.beam
+    elif ar:
         decode_ar, beam = ar_decoder(args, models, device)
     else:
         beam = args.iter_decode_with_beam

@@ -8,7 +8,18 @@ DiffNorm's fourth stage), and the AR S2UT translator, the paper's baseline
 or `s2ut_transformer_fisher`, `--criterion label_smoothed_cross_entropy` or
 `speech_to_unit` with the aux tasks' terms; the NAR model's options apply
 but the ones JAX's AR model lacks, and a width left unset takes the arch's
-default); `--task unit_to_speech` goes to `cli.train_vocoder` with the
+default), UnitY among them (`--arch unity_conformer`, the legacy
+`s2ut_conformer_translatotron2`; `--criterion speech_to_unit_2pass`, its only
+one; the first pass is the --multitask-config-yaml task flagged
+is_first_pass_decoder, `--translation-decoder-layers`,
+`--synthesizer-encoder-layers`); the speech-to-spectrogram translators
+(`--task speech_to_speech_spect`, `--arch s2spect_transformer`,
+`s2spect_transformer_fisher`, `s2spect_conformer` with `--criterion
+speech_to_spectrogram` / `tacotron2_loss`, or Translatotron2's
+`s2spect2_conformer` with `speech_to_spectrogram_2pass`; mel targets, the
+prenet and postnet flags, `--bce-pos-weight`); fairseq's `--task
+speech_to_speech` is the AR task with --target-is-code and the spectrogram
+task without it; `--task unit_to_speech` goes to `cli.train_vocoder` with the
 other arguments, as JAX's does, and `--task repr_to_speech` too with
 `--input-type features`. It takes every flag of scripts/vae_train.sh,
 scripts/diffusion_train.sh and scripts/s2ut_train.sh with the same meaning;
@@ -131,7 +142,10 @@ from diffnorm_tpu_torch.device import resolve_device
 from diffnorm_tpu_torch.models.ar_transformer import ARCHS as AR_ARCHS
 from diffnorm_tpu_torch.models.diffusion import ARCHS as DIFFUSION_ARCHS
 from diffnorm_tpu_torch.models.nar_transformer import ARCHS as NAR_ARCHS
+from diffnorm_tpu_torch.models.unity import ARCHS as UNITY_ARCHS
 from diffnorm_tpu_torch.tasks import TASKS
+from diffnorm_tpu_torch.tasks.s2spect_task import ARCHS as SPECT_ARCHS
+from diffnorm_tpu_torch.tasks.s2spect_task import S2SPECT2_ARCHS
 from diffnorm_tpu_torch.train import metrics as metrics_mod
 from diffnorm_tpu_torch.train.checkpoint import (
     OPTAX_STATE,
@@ -149,6 +163,9 @@ from diffnorm_tpu_torch.weights import from_jax_variables, to_jax_variables
 logger = logging.getLogger("diffnorm_tpu_torch.train")
 
 NAR_TASK, AR_TASK = "speech_to_speech_fasttranslate", "speech_to_speech_ar"
+SPECT_TASK = "speech_to_speech_spect"
+# fairseq's speech_to_speech: --target-is-code picks AR_TASK, else SPECT_TASK
+S2S_TASK = "speech_to_speech"
 STAGES = {  # task: (its criterions, the first the default; its architectures)
     "speech_decoder": (("speech_vae_decoder_loss",), ("speech_vae_decoder",)),
     "hubert_vae": (("hubert_vae_loss",), ("speech_vae_decoder",)),
@@ -157,8 +174,14 @@ STAGES = {  # task: (its criterions, the first the default; its architectures)
     "speech_diffusion": (("ddpm_latent_loss",), ("diff_latent", "diffusion_transformer")),
     "speech_diffusion_hubert": (("ddpm_latent_loss",), ("diff_hubert",)),
     NAR_TASK: (("nar_speech_to_unit",), tuple(NAR_ARCHS)),
-    AR_TASK: (("label_smoothed_cross_entropy", "speech_to_unit"), tuple(AR_ARCHS)),
+    AR_TASK: (("label_smoothed_cross_entropy", "speech_to_unit", "speech_to_unit_2pass"),
+              tuple(AR_ARCHS) + tuple(UNITY_ARCHS)),
+    SPECT_TASK: (("speech_to_spectrogram", "tacotron2_loss", "tacotron2",
+                  "speech_to_spectrogram_2pass"), tuple(SPECT_ARCHS)),
 }
+# the two-pass models' criterions, which they alone train with
+TWO_PASS_CRITERIONS = {**dict.fromkeys(UNITY_ARCHS, "speech_to_unit_2pass"),
+                       **dict.fromkeys(S2SPECT2_ARCHS, "speech_to_spectrogram_2pass")}
 # the criterions' label smoothing where --label-smoothing is not given
 LABEL_SMOOTHING = {NAR_TASK: 0.2, AR_TASK: 0.1}
 # the optimizer's and schedule's flags beside --lr, --warmup-*, --adam-*
@@ -205,6 +228,23 @@ def _flag(p: argparse.ArgumentParser, name: str, **kw) -> None:
     p.add_argument(name, type=_bool, nargs="?", const=True, default=False, **kw)
 
 
+def add_two_pass_args(p: argparse.ArgumentParser) -> None:
+    """The flags of the two-pass and spectrogram models (UnitY, s2spect,
+    Translatotron2), which cli.generate takes as well."""
+    _flag(p, "--target-is-code", help="--task speech_to_speech: unit targets (else mels)")
+    for flag in ("--translation-decoder-layers", "--synthesizer-encoder-layers",
+                 "--decoder-transformer-layers", "--output-frame-dim", "--prenet-dim"):
+        p.add_argument(flag, type=int, help="default: the architecture's")
+    p.add_argument("--prenet-layers", type=int, default=2)
+    p.add_argument("--prenet-dropout", type=float, default=0.5)
+    p.add_argument("--postnet-layers", type=int, default=5)
+    p.add_argument("--postnet-conv-dim", type=int, default=512)
+    p.add_argument("--postnet-conv-kernel-size", type=int, default=5)
+    p.add_argument("--postnet-dropout", type=float, default=0.5)
+    p.add_argument("--bce-pos-weight", type=float, default=5.0,
+                   help="the Tacotron2 criterion's EOS positive weight")
+
+
 def build_parser(description: str, train: bool = True) -> argparse.ArgumentParser:
     """The flags of cli.train; with `train` False (cli.validate) the model,
     data and task flags alone."""
@@ -213,7 +253,7 @@ def build_parser(description: str, train: bool = True) -> argparse.ArgumentParse
     p.add_argument("--tgt-feat-dir",
                    help="directory of the {split}.manifest.tsv feature manifests (the VAE and "
                         "normalizer stages)")
-    p.add_argument("--task", required=True, choices=sorted(STAGES))
+    p.add_argument("--task", required=True, choices=sorted(STAGES) + [S2S_TASK])
     p.add_argument("--criterion", help="the task's criterion (checked against it)")
     p.add_argument("--arch", help="the task's architecture (checked against it)")
     p.add_argument("--target-code-size", type=int, default=1000)
@@ -272,6 +312,7 @@ def build_parser(description: str, train: bool = True) -> argparse.ArgumentParse
     _flag(p, "--target-speaker-embed", help="condition the encoder on a speaker embedding")
     p.add_argument("--speaker-embed-dim", type=int, default=256)
     _flag(p, "--encoder-remat", help="recompute each conformer layer in the backward")
+    add_two_pass_args(p)
     _flag(p, "--quant-int8", help="int8 W8A8 matmuls in the normalizer and the NAR model")
     # data
     p.add_argument("--config-yaml", help="the data config, relative to DATA "
@@ -354,27 +395,43 @@ def build_parser(description: str, train: bool = True) -> argparse.ArgumentParse
 def check_args(p: argparse.ArgumentParser, args: argparse.Namespace) -> argparse.Namespace:
     """The task's criterion and architecture, the unported flags, and the
     defaults that depend on the task."""
+    if args.task == S2S_TASK:
+        args.task = AR_TASK if args.target_is_code else SPECT_TASK
     criteria, archs = STAGES[args.task]
+    if args.arch is not None and args.arch not in archs:
+        p.error(f"--arch {args.arch}: task {args.task} trains {' or '.join(archs)}")
+    args.arch = args.arch or archs[0]
+    if args.arch in TWO_PASS_CRITERIONS:
+        want = TWO_PASS_CRITERIONS[args.arch]
+        if args.criterion not in (None, want):
+            p.error(f"--arch {args.arch} trains with --criterion {want}")
+        args.criterion = want
+    elif args.criterion in TWO_PASS_CRITERIONS.values():
+        p.error(f"--criterion {args.criterion}: a two-pass model's ({args.arch} is not one)")
     if args.criterion is not None and args.criterion not in criteria:
         p.error(f"--criterion {args.criterion}: task {args.task} trains {' or '.join(criteria)}")
     args.criterion = args.criterion or criteria[0]
-    if args.arch is not None and args.arch not in archs:
-        p.error(f"--arch {args.arch}: task {args.task} trains {' or '.join(archs)}")
     if args.use_cond:
         p.error("--use-cond: no task feeds the prompt-conditioned denoiser a prompt (nor does "
                 "JAX's: its criterions pass none, and its Denoiser asserts one, "
                 "models/diffusion.py:271); build LatentDiffusionModule(use_cond=True) and "
                 "pass batches with a prompt instead")
-    if args.task == AR_TASK:
-        for flag, value in (("--cg-prob", args.cg_prob), ("--use-sp", args.use_sp),
-                            ("--use-side", args.use_side),
-                            ("--multitask-ctc-vocab", args.multitask_ctc_vocab),
-                            ("--encoder-remat", args.encoder_remat),
-                            ("--quant-int8", args.quant_int8)):
+    if args.task in (AR_TASK, SPECT_TASK):
+        options = (("--cg-prob", args.cg_prob), ("--use-sp", args.use_sp),
+                   ("--use-side", args.use_side),
+                   ("--multitask-ctc-vocab", args.multitask_ctc_vocab),
+                   ("--encoder-remat", args.encoder_remat), ("--quant-int8", args.quant_int8))
+        if args.task == SPECT_TASK:
+            options += (("--target-speaker-embed", args.target_speaker_embed),)
+        for flag, value in options:
             if value:
-                p.error(f"{flag}: an option of the NAR model; the AR model has none, as JAX's")
-    if args.task in (NAR_TASK, AR_TASK):
-        (NAR_ARCHS if args.task == NAR_TASK else AR_ARCHS)[args.arch or archs[0]](vars(args))
+                p.error(f"{flag}: an option of the NAR model; {args.arch} has none, as JAX's")
+    if args.task == SPECT_TASK:
+        SPECT_ARCHS[args.arch](vars(args))
+        if args.prenet_dim is None:
+            args.prenet_dim = 256
+    elif args.task in (NAR_TASK, AR_TASK):
+        {**NAR_ARCHS, **AR_ARCHS, **UNITY_ARCHS}[args.arch](vars(args))
         if args.label_smoothing is None:
             args.label_smoothing = LABEL_SMOOTHING[args.task]
     else:
@@ -385,7 +442,7 @@ def check_args(p: argparse.ArgumentParser, args: argparse.Namespace) -> argparse
             args.latent_dim = 128 if args.latent_dim is None else args.latent_dim
         else:
             widths = vars(args)
-            DIFFUSION_ARCHS[args.arch or archs[0]](widths)
+            DIFFUSION_ARCHS[args.arch](widths)
             for key, value in (("denoiser_depth", 12), ("wavenet_layers", 8),
                                ("wavenet_stacks", 4), ("use_vae", True)):
                 if widths.get(key) is None:

@@ -8,9 +8,9 @@ metrics under JAX's names.
       --arch nar_s2ut_conformer --path ckpt/nar/step_000400000 \\
       --valid-subset dev --max-tokens 40000
 
-It takes the three tasks cli.train trains (speech_decoder,
-speech_diffusion_discrete, speech_to_speech_fasttranslate) with cli.train's
-model, data and task flags; `--path` is a step directory or a .npz
+It takes the tasks cli.train trains (the VAE and normalizer stages, NAR
+and AR S2UT, UnitY, the spectrogram translators) with cli.train's model,
+data and task flags; `--path` is a step directory or a .npz
 (weights.save_npz), a `cli.convert_checkpoint` output included. The
 batches' draws come from `np.random.default_rng(--seed)`, the criterion's
 (the VAE's posterior sample, the normalizer's times and noises) from a

@@ -11,6 +11,11 @@ label_smoothed_cross_entropy.py and speech_to_speech_criterion.py:159-225).
 * "speech_to_unit": the same, with the --multitask-config-yaml aux heads on
   (the forward gets tgt_tokens and the transformer heads'
   prev_output_tokens) and their terms (`nar_loss.apply_multitask_losses`).
+* "speech_to_unit_2pass" (UnitY; JAX ce_loss.py:108-131, reference
+  speech_to_speech_criterion.py:258-330): "speech_to_unit" whose forward
+  also gets the first-pass task's prev_output_tokens (`prev_tokens_mt`) and
+  always tgt_tokens; the first pass's loss is that task's multitask term,
+  its logits coming back under its name.
 """
 
 from __future__ import annotations
@@ -81,5 +86,22 @@ class SpeechToUnitLoss(LabelSmoothedCrossEntropy):
         return apply_multitask_losses(self.multitask, out, batch, loss, metrics, ntokens)
 
 
+class SpeechToUnit2PassLoss(SpeechToUnitLoss):
+    def __init__(self, label_smoothing: float = 0.1, multitask: Optional[Dict] = None,
+                 mt_task_name: Optional[str] = None):
+        """multitask: {task: SingleTaskConfig}, the first pass's among them
+        under `mt_task_name`."""
+        if not mt_task_name:
+            raise ValueError("speech_to_unit_2pass needs a first-pass decoder multitask")
+        super().__init__(label_smoothing, multitask)
+        self.mt_task_name = mt_task_name
+
+    def model_kwargs(self, batch: Dict) -> Dict:
+        return {"tgt_tokens": batch["target"],
+                "multitask_prev": _multitask_prev(batch, self.multitask),
+                "prev_tokens_mt": batch["multitask"][self.mt_task_name]["prev_output_tokens"]}
+
+
 CRITERIONS = {"label_smoothed_cross_entropy": LabelSmoothedCrossEntropy,
-              "speech_to_unit": SpeechToUnitLoss}
+              "speech_to_unit": SpeechToUnitLoss,
+              "speech_to_unit_2pass": SpeechToUnit2PassLoss}

@@ -43,8 +43,10 @@
 // D = 32 and 96 take an mma.sync kernel (attn_mma_kernel:
 // 64-query blocks of 4 warps, 64-key K/V tiles by cp.async, ldmatrix +
 // m16n8k16 with the same hi + lo P): their rows are 64 and 192 bytes, which
-// do not tile into the 128-byte swizzled rows the wgmma kernel is built on,
-// and no path of the port runs them.
+// do not tile into the 128-byte swizzled rows the wgmma kernel is built on.
+// D = 32 is UnitY's (decoders 256 wide, 8 heads): its first-pass decoder's
+// encoder attention in a long-form beam decode, one query a row against
+// >= 2048 encoder frames. No path of the port runs D = 96.
 //
 // Design, float32 with 1 <= D <= 128 (attn_tf32_kernel). The paths that
 // send float32 here (HuBERT in cli.prepare) run with TF32 off and are held

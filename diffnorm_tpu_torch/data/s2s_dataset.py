@@ -160,13 +160,7 @@ class SpeechToUnitDataset:
         `config_yaml` (relative to `root`); targets encoded with `tgt_dict`
         where one is given."""
         rows = read_translation_manifest(os.path.join(root, f"{split}.tsv"))
-        data_cfg = {}
-        cfg_path = os.path.join(root, config_yaml)
-        if os.path.exists(cfg_path):
-            import yaml
-
-            with open(cfg_path) as f:
-                data_cfg = yaml.safe_load(f) or {}
+        data_cfg = load_s2t_data_cfg(root, config_yaml)
         audio_root = data_cfg.get("audio_root", root)
         paths = [r["src_audio"] if os.path.isabs(r["src_audio"])
                  else os.path.join(audio_root, r["src_audio"]) for r in rows]
@@ -177,6 +171,18 @@ class SpeechToUnitDataset:
                    src_n_frames=[int(r["src_n_frames"]) for r in rows], tgt_units=units,
                    data_cfg=data_cfg, is_train=is_train, seed=seed,
                    tgt_speakers=_speaker_paths(root, split, data_cfg, ids))
+
+
+def load_s2t_data_cfg(root: str, config_yaml: str = "config.yaml") -> Dict:
+    """The data config `config_yaml` under `root`, {} where there is none
+    (JAX data/s2t_dataset.py:49-56)."""
+    cfg_path = os.path.join(root, config_yaml)
+    if not os.path.exists(cfg_path):
+        return {}
+    import yaml
+
+    with open(cfg_path) as f:
+        return yaml.safe_load(f) or {}
 
 
 def _speaker_paths(root: str, split: str, data_cfg: dict,

@@ -172,32 +172,47 @@ class ARUnitDecoder(nn.Module):
         """An empty cache of `max_len` positions for rows decoding against
         enc [N, S, C] (enc_mask [N, S]): each layer's encoder keys and values
         projected here, once."""
-        n, h = enc.shape[0], self.heads
-        dtype = self.layer_norm.weight.dtype
-        keys, values, enc_keys, enc_values = [], [], [], []
-        for layer in self.layers():
-            for buf in (keys, values):
-                buf.append(torch.zeros(n, h, max_len, self.dim // h, dtype=dtype,
-                                       device=enc.device))
-            k, v = layer.encoder_attn.project_kv(enc)
-            enc_keys.append(k)
-            enc_values.append(v)
-        return KVCache(keys, values, enc_keys, enc_values, enc_mask)
+        return init_layer_cache(self.layers(), self.heads, self.dim,
+                                self.layer_norm.weight.dtype, enc, enc_mask, max_len)
 
     def decode_step(self, tokens: torch.Tensor, cache: KVCache, position: torch.Tensor):
         """One step, in eval mode: tokens [N, 1] at `position` [N] ->
         (logits [N, V], or [N, k, V] when stacked; the cache with the step
         written)."""
-        t = cache.length
-        if t >= cache.max_len:
-            raise ValueError(f"decode_step: the cache holds {cache.max_len} positions")
         x = self.embed_tokens(tokens) * math.sqrt(self.dim)
         x = x + decode_position_embedding(position, self.dim)[:, None, :].to(x.dtype)
-        for i, layer in enumerate(self.layers()):
-            x = layer(x, None, None, cache.enc_mask, self_kv=(cache.keys[i], cache.values[i]),
-                      enc_kv=(cache.enc_keys[i], cache.enc_values[i]), write_at=t)
-        cache.length = t + 1
+        x = cached_layers(self.layers(), x, cache)
         return self.output_logits(self.layer_norm(x))[:, 0], cache
+
+
+def init_layer_cache(layers: Sequence[nn.Module], heads: int, dim: int, dtype: torch.dtype,
+                     enc: torch.Tensor, enc_mask: torch.Tensor, max_len: int) -> KVCache:
+    """An empty `KVCache` of `max_len` positions for causal `DecoderLayer`s
+    of width `dim` decoding against enc [N, S, C]: each layer's encoder keys
+    and values projected here, once."""
+    n = enc.shape[0]
+    keys, values, enc_keys, enc_values = [], [], [], []
+    for layer in layers:
+        for buf in (keys, values):
+            buf.append(torch.zeros(n, heads, max_len, dim // heads, dtype=dtype,
+                                   device=enc.device))
+        k, v = layer.encoder_attn.project_kv(enc)
+        enc_keys.append(k)
+        enc_values.append(v)
+    return KVCache(keys, values, enc_keys, enc_values, enc_mask)
+
+
+def cached_layers(layers: Sequence[nn.Module], x: torch.Tensor, cache: KVCache) -> torch.Tensor:
+    """One decode step x [N, 1, D] through `layers` on `cache`, whose write
+    index moves on by one."""
+    t = cache.length
+    if t >= cache.max_len:
+        raise ValueError(f"decode_step: the cache holds {cache.max_len} positions")
+    for i, layer in enumerate(layers):
+        x = layer(x, None, None, cache.enc_mask, self_kv=(cache.keys[i], cache.values[i]),
+                  enc_kv=(cache.enc_keys[i], cache.enc_values[i]), write_at=t)
+    cache.length = t + 1
+    return x
 
 
 class ARS2UTModule(nn.Module):

@@ -175,22 +175,22 @@ class ConformerFFN(nn.Module):
 class BatchNorm(nn.Module):
     """flax nn.BatchNorm(momentum=0.9, epsilon=1e-5) over the last axis of
     [B, T, C]: f32 (x - mean) * (scale * rsqrt(var + eps)) + bias, cast back
-    to x's type. In eval mode (use_running_average) mean and var are the
+    to x's type (`momentum` 0.99 is flax's default, the Tacotron
+    postnet's). In eval mode (use_running_average) mean and var are the
     running statistics. In training mode they are the batch's, in float32
     over every B x T frame, padding included: mean(x) and the biased
     max(0, mean(x^2) - mean(x)^2), flax's fast variance; the running
-    statistics become 0.9 * old + 0.1 * batch. torch's BatchNorm keeps the
+    statistics become momentum * old + (1 - momentum) * batch. torch's BatchNorm keeps the
     unbiased variance, so this is not nn.BatchNorm1d. The running statistics
     stay float32 when the module is cast (`_apply`), as flax keeps
     batch_stats."""
 
-    momentum = 0.9
     STATS = ("running_mean", "running_var")
     update_stats = True  # False while a rematerialized layer recomputes
 
-    def __init__(self, dim: int, eps: float = 1e-5):
+    def __init__(self, dim: int, eps: float = 1e-5, momentum: float = 0.9):
         super().__init__()
-        self.eps = eps
+        self.eps, self.momentum = eps, momentum
         self.weight = nn.Parameter(torch.ones(dim))
         self.bias = nn.Parameter(torch.zeros(dim))
         self.register_buffer("running_mean", torch.zeros(dim))

@@ -25,7 +25,13 @@ this function. HuBERT's self-attention (`models/hubert.py`, prep) reaches
 it for utterances of 41 s or more (2048 frames at 20 ms), in float32 from
 `cli.prepare`. The multitask aux heads' cross-attention over the tapped
 encoder states (`models/ar_transformer.py`) reaches it at the same source
-lengths as the NAR decoder's encoder attention.
+lengths as the NAR decoder's encoder attention, and so do, in eval, the AR
+S2UT decoder's encoder attention (D = 64), UnitY's first-pass decoder's
+(`models/unity.py`, D = 32), Translatotron2's first-pass decoder's
+(`models/s2spect2.py`, D = 128) and s2spect's mel decoder's
+(`models/tts_transformer.py`, D = 128), one query a row in a cached decode.
+UnitY's unit decoder and Translatotron2's mel decoder attend the first
+pass's text positions (at most 256) and never reach it.
 """
 
 from __future__ import annotations

@@ -1,6 +1,10 @@
 """Training tasks of the PyTorch port (see diffnorm_tpu/tasks): the speech
 VAE stage and the HuBERT VAE, the latent normalizer over a frozen VAE and
-its continuous variants, and NAR and AR S2UT training."""
+its continuous variants, NAR and AR S2UT training (UnitY among the latter),
+and speech-to-spectrogram training (s2spect, Translatotron2). fairseq's
+"speech_to_speech" is not a task here: cli.train's `check_args` sends it to
+the AR S2UT task with --target-is-code and otherwise to the spectrogram
+task (JAX tasks/aliases.py:25-40)."""
 
 from diffnorm_tpu_torch.tasks.ar_s2ut_task import ARS2UTTask
 from diffnorm_tpu_torch.tasks.diffusion_task import (
@@ -10,6 +14,7 @@ from diffnorm_tpu_torch.tasks.diffusion_task import (
     SpeechDiffusionTask,
 )
 from diffnorm_tpu_torch.tasks.nar_s2ut_task import NARS2UTTask
+from diffnorm_tpu_torch.tasks.s2spect_task import DummyS2SpectTask, S2SpectTask
 from diffnorm_tpu_torch.tasks.vae_task import SpeechDecoderTask
 
 TASKS = {"speech_decoder": SpeechDecoderTask,
@@ -18,4 +23,6 @@ TASKS = {"speech_decoder": SpeechDecoderTask,
          "speech_diffusion_hubert": SpeechDiffusionHubertTask,
          "hubert_vae": HubertVAETask,
          "speech_to_speech_fasttranslate": NARS2UTTask,
-         "speech_to_speech_ar": ARS2UTTask}
+         "speech_to_speech_ar": ARS2UTTask,
+         "speech_to_speech_spect": S2SpectTask,
+         "dummy_s2spect": DummyS2SpectTask}

@@ -6,7 +6,10 @@ batch's prev_output_tokens is its target shifted right behind an EOS.
 With --n-frames-per-step k > 1 the decoder reads the packed ids
 (`models.stacked.stack_target`) and the loss the per-sub-frame view
 [B, T, k]. The criterion is --criterion's: label_smoothed_cross_entropy,
-or speech_to_unit with the aux tasks' terms."""
+or speech_to_unit with the aux tasks' terms. UnitY (--arch unity_conformer
+or s2ut_conformer_translatotron2, `models/unity.py`) trains here too, its
+first-pass decoder the multitask task `mt_task_name` picks, with
+speech_to_unit_2pass."""
 
 from __future__ import annotations
 
@@ -17,6 +20,8 @@ import numpy as np
 from diffnorm_tpu_torch.criterions.ce_loss import CRITERIONS
 from diffnorm_tpu_torch.models.ar_transformer import ARS2UTModule
 from diffnorm_tpu_torch.models.stacked import stack_target
+from diffnorm_tpu_torch.models.unity import ARCHS as UNITY_ARCHS
+from diffnorm_tpu_torch.models.unity import UnityS2UTModule
 from diffnorm_tpu_torch.tasks.nar_s2ut_task import NARS2UTTask
 
 PAD, EOS = 1, 2
@@ -48,8 +53,24 @@ class ARS2UTTask(NARS2UTTask):
         self.inject_loss_weights(batch)
         return batch
 
-    def build_model(self) -> ARS2UTModule:
+    def build_model(self):
         a = self.args
+        if a.arch in UNITY_ARCHS:
+            mt_spec, others = self.first_pass_spec()
+            return UnityS2UTModule(
+                vocab_size=len(self.tgt_dict), mt_spec=mt_spec,
+                in_channels=a.input_feat_per_channel, encoder_dim=a.encoder_embed_dim,
+                encoder_ffn_dim=a.encoder_ffn_embed_dim, encoder_layers=a.encoder_layers,
+                encoder_heads=a.encoder_attention_heads, decoder_dim=a.decoder_embed_dim,
+                decoder_ffn_dim=a.decoder_ffn_embed_dim, decoder_layers=a.decoder_layers,
+                decoder_heads=a.decoder_attention_heads,
+                translation_decoder_layers=a.translation_decoder_layers,
+                synthesizer_encoder_layers=a.synthesizer_encoder_layers, dropout=a.dropout,
+                attention_dropout=a.attention_dropout, activation_dropout=a.relu_dropout,
+                depthwise_kernel_size=a.depthwise_conv_kernel_size,
+                n_frames_per_step=a.n_frames_per_step, multitask=others,
+                target_speaker_embed=bool(a.target_speaker_embed),
+                speaker_embed_dim=a.speaker_embed_dim)
         return ARS2UTModule(
             vocab_size=len(self.tgt_dict), in_channels=a.input_feat_per_channel,
             encoder_dim=a.encoder_embed_dim, encoder_ffn_dim=a.encoder_ffn_embed_dim,
@@ -68,4 +89,7 @@ class ARS2UTTask(NARS2UTTask):
         name = self.args.criterion
         if name == "speech_to_unit":
             return CRITERIONS[name](self.args.label_smoothing, multitask=self.multitask_tasks)
+        if name == "speech_to_unit_2pass":
+            return CRITERIONS[name](self.args.label_smoothing, multitask=self.multitask_tasks,
+                                    mt_task_name=self.mt_task_name)
         return CRITERIONS[name](self.args.label_smoothing)

@@ -3,9 +3,10 @@ diffnorm_tpu/tasks/multitask_mixin.py; reference
 fairseq/tasks/speech_to_speech.py:229-245 and :511-516): the config, the
 aux heads' specs, the loss weights' schedule by update count, and the text
 targets joined onto a dataset. The transformer heads' prev_output_tokens
-reach the model through the criterion (`criterions/nar_loss.py`); the
-UnitY / Translatotron2 first-pass helpers of JAX's mixin wait for those
-families."""
+reach the model through the criterion (`criterions/nar_loss.py`).
+`mt_task_name` picks the first-pass decoder's task of UnitY and
+Translatotron2 (JAX multitask_mixin.py:37): the last flagged
+is_first_pass_decoder, else the last transformer task named target*."""
 
 from __future__ import annotations
 
@@ -32,6 +33,33 @@ class MultitaskTaskMixin:
                 mt_yaml = os.path.join(self.data_path(1), mt_yaml)
             self.multitask_config = MultitaskConfig(mt_yaml)
             self.multitask_tasks = self.multitask_config.get_all_tasks()
+
+    @property
+    def mt_task_name(self) -> Optional[str]:
+        """The first-pass decoder's task (module docstring), or None."""
+        if self.multitask_config is None:
+            return None
+        idx = self.multitask_config.first_pass_decoder_task_index
+        return list(self.multitask_tasks)[idx] if idx >= 0 else None
+
+    def first_pass_spec(self) -> Tuple[Optional[AuxTaskSpec], Tuple[AuxTaskSpec, ...]]:
+        """(the first pass's spec or None, the other aux tasks' specs)."""
+        specs, name = self.aux_task_specs(), self.mt_task_name
+        return (next((s for s in specs if s.name == name), None),
+                tuple(s for s in specs if s.name != name))
+
+    def first_pass_prev_tokens(self, batch: Dict, pad: int = 1, eos: int = 2) -> np.ndarray:
+        """The first-pass decoder's prev_output_tokens of `batch`, or where the
+        split has no first-pass text a [B, 2] stub, [EOS, PAD] a row (JAX
+        multitask_mixin.py:104)."""
+        prev_mt = batch.get("multitask", {}).get(self.mt_task_name, {}).get(
+            "prev_output_tokens")
+        if prev_mt is None:
+            tgt = batch.get("target")
+            b = (tgt if tgt is not None else batch["feat_tgt"]).shape[0]
+            prev_mt = np.full((b, 2), pad, np.int32)
+            prev_mt[:, 0] = eos
+        return prev_mt
 
     def aux_task_specs(self) -> Tuple[AuxTaskSpec, ...]:
         """The aux heads' specs (reference build_multitask_decoder and the

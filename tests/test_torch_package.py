@@ -39,7 +39,10 @@ NEW_MODULES = ("models/stacked.py", "models/ar_transformer.py", "data/encoders.p
                "train/optimizers.py", "criterions/ddpm_loss.py", "criterions/vae_loss.py",
                "tasks/diffusion_task.py", "tasks/vae_task.py", "tasks/__init__.py",
                "models/s2t_transformer.py", "tasks/ar_s2ut_task.py", "criterions/ce_loss.py",
-               "generate/beam_search.py")
+               "generate/beam_search.py", "models/unity.py", "generate/unity.py",
+               "models/tts_transformer.py", "models/s2spect.py", "models/s2spect2.py",
+               "generate/speech_ar.py", "generate/translatotron2.py",
+               "criterions/tts_loss.py", "tasks/s2spect_task.py")
 
 
 def test_no_jax_imports_in_the_port():
@@ -101,6 +104,15 @@ def test_port_imports_with_jax_blocked():
             "import diffnorm_tpu_torch.tasks.ar_s2ut_task\n"
             "import diffnorm_tpu_torch.criterions.ce_loss\n"
             "import diffnorm_tpu_torch.generate.beam_search\n"
+            "import diffnorm_tpu_torch.models.unity\n"
+            "import diffnorm_tpu_torch.generate.unity\n"
+            "import diffnorm_tpu_torch.models.tts_transformer\n"
+            "import diffnorm_tpu_torch.models.s2spect\n"
+            "import diffnorm_tpu_torch.models.s2spect2\n"
+            "import diffnorm_tpu_torch.generate.speech_ar\n"
+            "import diffnorm_tpu_torch.generate.translatotron2\n"
+            "import diffnorm_tpu_torch.criterions.tts_loss\n"
+            "import diffnorm_tpu_torch.tasks.s2spect_task\n"
             "from diffnorm_tpu_torch.eval.bleu import corpus_bleu, scorer_name\n"
             "assert scorer_name() == 'counters', scorer_name()\n"
             "assert corpus_bleu(['1 2 3 4 5'], ['1 2 3 4 5']) == 100.0\n"
