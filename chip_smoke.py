@@ -288,11 +288,30 @@ tf32 passes); and at D 80 and 128 with ragged keys and a fully masked row.
    cut to CLI_MAX_LEN_MT first-pass tokens and CLI_MAX_LEN units or frames:
    H- units and .npy frames against in-process decodes, the mel vocoder's
    WAVs.
+25. text-input TTS and the S2T model at their published widths, seeded:
+   (a) the tts_transformer_base rollout (ar_speech_generate over the text
+   encoder, B8 rows of 90-160 phones, 256 steps, bf16): wall, lengths, no
+   flash_attention launch, the cached steps against the teacher-forced
+   decoder. (b) fastspeech2_base, its duration head set to 12 frames a token
+   (1080-1920 valid frames of the 2048-frame buffer a row): generation
+   (NonARSpeechGenerator) and validation (fastspeech2_loss on gold
+   durations) in float32 and bf16, each forward's 4 decoder self-attentions
+   through the kernel ([8, 2, 2048, 128] with the frame mask), against the
+   same runs through the plain versions (frames by row-cos over the valid
+   ones, losses by relative difference). (c) s2t_transformer's beam decode
+   (beam 5, 256 steps, vocab 8004) at B16 x 480 and B2 x 8448: 12 encoder
+   self-attentions and 6 encoder attentions a step (D = 64) through the
+   kernel in long form; s2t_conformer's in long form (6 a step, D = 32);
+   each long form against the plain versions (phase 23's bounds). (d) one update
+   of each model (ms, peak, busy). (e) cli.train -> cli.validate ->
+   cli.generate for the tts_transformer, FastSpeech2 and s2t_transformer,
+   each against its in-process run.
 Phase 2 times flash_attention also at phase 23's decode step (q
 [10,8,1,64] against k/v [10,8,2112,64], beams of the half-length row
-masked at 1056 keys), its S2T encoder's self-attention ([2,8,2112,64]) and
+masked at 1056 keys), its S2T encoder's self-attention ([2,8,2112,64]),
 phase 24's decode steps (UnitY's q [10,8,1,32], Translatotron2's
-[10,4,1,128], s2spect's [2,4,1,128], against 2112 keys) beside SDPA and
+[10,4,1,128], s2spect's [2,4,1,128], against 2112 keys) and phase 25's
+FastSpeech2 decoder ([8,2,2048,128] in bf16 and float32) beside SDPA and
 its bound.
 The kernels JSON line reports the float32 kernel as flash_attention_f32
 (its launches those of phase 13) beside the bf16 one (phase 6's, phase
@@ -302,8 +321,10 @@ rms_norm_film and wavenet_chain count phase 3's run, phase 18's CLI run and
 phase 21's kernel runs (21a's updates and guided forwards, 21b's CLI runs)
 and phase 22's (22c's CLI run, 22d's updates, 22f's CLI update), where
 flash_attention counts 21a's long-prompt runs, 22d's long-form update,
-phase 23's long-form beam decode and s2ut_transformer forward and phase
-24's long-form decodes too.
+phase 23's long-form beam decode and s2ut_transformer forward, phase
+24's long-form decodes and phase 25's bf16 FastSpeech2 runs (in process
+and its CLIs) and long-form S2T decode too; flash_attention_f32 phase 25's
+float32 FastSpeech2 generation and validation beside phase 13's.
 
 Then one JSON line of per-kernel numbers and, last, {"ok": true, "device": ...}.
 Exits non-zero without CUDA, and in a directory without the port.
@@ -312,6 +333,7 @@ Exits non-zero without CUDA, and in a directory without the port.
 from __future__ import annotations
 
 import contextlib
+import copy
 import io
 import json
 import logging
@@ -1275,6 +1297,11 @@ def check_flash_attention(torch, flash):
         ("UnitY decode step", 10, 8, 1, 2112, 32, [2112] * 5 + [1056] * 5, bf),
         ("Translatotron2 decode step", 10, 4, 1, 2112, 128, [2112] * 5 + [1056] * 5, bf),
         ("s2spect decode step", 2, 4, 1, 2112, 128, [2112, 1056], bf),
+        # phase 25's FastSpeech2 decoder self-attention: its 2048-frame
+        # buffer, 2 heads of 128, the rows' valid frames (12 a token), in
+        # bf16 and in float32, the model's default type
+        ("FastSpeech2 decoder", 8, 2, 2048, 2048, 128, FS2_FLASH_KEYS, bf),
+        ("FastSpeech2 decoder float32", 8, 2, 2048, 2048, 128, FS2_FLASH_KEYS, f32),
         # the S2ST decoder's encoder attention in float32
         ("float32 path", 2, 8, 256, 2112, 64, [2112, 1056], f32),
         # HuBERT's self-attention over a 70 s utterance and over cli.prepare's
@@ -1308,6 +1335,7 @@ def check_flash_attention(torch, flash):
               f"rtol {FLASH_RTOL} atol {FLASH_ATOL}" + (" + 1 bf16 ulp" if dtype == bf else ""))
         if what not in ("path", "eval path", "PERFORMANCE.md", "AR decode step", "S2T encoder",
                         "UnitY decode step", "Translatotron2 decode step", "s2spect decode step",
+                        "FastSpeech2 decoder", "FastSpeech2 decoder float32",
                         "float32 path", "HuBERT long form", "HuBERT longest chunk"):
             continue
         ms = cuda_time_ms(lambda: flash.flash_attention(q, k, v, mask))
@@ -6376,6 +6404,605 @@ def run_two_pass(torch, mods, smi):
     return launches
 
 
+# text-input TTS and the S2T model (phase 25), at their published widths,
+# seeded (no checkpoint of either is in the repository), bf16 unless stated:
+# tts_transformer_base (encoder 512 x 6 over 3 convs, 4 heads, the mel
+# decoder 512 x 6, 80 bins) and fastspeech2_base (256 wide, 4 + 4 layers, 2
+# heads, the 2048-frame buffer) over B8 sentences of 90-160 tokens of a
+# 70-phone inventory (LJSpeech-length utterances); s2t_transformer (512 x 12,
+# decoder 6, 8 heads) and s2t_conformer (256 x 16; decoder 256 x 6, 8 heads)
+# over MuST-C's 8000-unigram vocabulary at phase 23's shapes. The seeded
+# duration head of FastSpeech2 would predict no frame, so its output weights
+# are zeroed and its bias set to log(1 + FS2_DUR): each
+# token takes FS2_DUR frames and the rows fill 1080-1920 of the 2048 frames.
+# The FastSpeech2 decoder's 4 self-attentions take the kernel in every eval
+# forward, [8, 2, 2048, 128] with the frame mask, in float32 (the model's
+# default type; three tf32 passes) and bf16; s2t_transformer's 12 encoder
+# self-attentions and the decoders' 6 encoder attentions a step in long form
+# (D = 64; s2t_conformer's D = 32);
+# the tts_transformer attends at most 160 tokens and 256 frames and never
+# reaches it. Each path through the kernel is held to the same path through
+# the plain versions: FastSpeech2's frames over the valid ones by row-cos
+# (FS2_ROW_COS, stated in PERF.md before the phase's first chip run) and its
+# validation losses (FS2_LOSS_REL), the S2T decode's tokens and teacher-forced
+# logits to phase 23's bounds.
+TTS_VOCAB = 4 + 70
+TTS_TOKENS = (160, 150, 140, 130, 120, 110, 100, 90)  # a row's tokens, </s> included
+TTS_MAX_ITER = 256
+FS2_DUR, FS2_FRAMES, FS2_FLASH = 12, 2048, 4
+FS2_FLASH_KEYS = [FS2_DUR * n for n in TTS_TOKENS]  # each row's valid frames
+FS2_ROW_COS = {"float32": 0.99999, "bfloat16": 0.999}
+FS2_LOSS_REL = {"float32": 1e-5, "bfloat16": 1e-3}
+S2T_VOCAB = 4 + 8000
+S2T_ENCODER_FLASH = 12
+# the CLIs' corpora: FastSpeech2's generation from the trained weights with
+# its duration head set to this many frames a token
+CLI_FS2_DUR = 6
+
+
+def tts_tokens(torch, lengths, seed):
+    """Token rows [B, max(lengths)] on the card: phones 4.. TTS_VOCAB - 1, </s>
+    last, PAD after."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    toks = np.full((len(lengths), max(lengths)), 1, np.int64)
+    for i, n in enumerate(lengths):
+        toks[i, :n - 1] = rng.integers(4, TTS_VOCAB, size=n - 1)
+        toks[i, n - 1] = 2
+    return torch.from_numpy(toks).cuda()
+
+
+def set_durations(torch, model, frames_a_token: int):
+    """FastSpeech2's duration head predicting `frames_a_token` for every
+    token: its output weights 0, its bias log(1 + frames_a_token)."""
+    with torch.no_grad():
+        model.dur_predictor.proj.weight.zero_()
+        model.dur_predictor.proj.bias.fill_(math.log(1 + frames_a_token))
+    return model
+
+
+def fs2_batch(rng, tokens):
+    """A validation batch on `tokens` [B, S] (numpy): gold durations of
+    6-13 frames a token (total under the buffer), normal pitches and
+    energies, 80-bin targets as long as the durations."""
+    import numpy as np
+
+    valid = tokens != 1
+    dur = np.where(valid, rng.integers(6, 14, size=tokens.shape), 0).astype(np.int32)
+    lens = np.minimum(dur.sum(1), FS2_FRAMES).astype(np.int32)
+    mask = np.arange(int(lens.max()))[None, :] < lens[:, None]
+    return {"src_tokens": tokens, "src_lengths": valid.sum(1).astype(np.int32),
+            "durations": dur, "pitches": rng.normal(size=tokens.shape).astype(np.float32),
+            "energies": rng.normal(size=tokens.shape).astype(np.float32),
+            "feat_tgt": (rng.normal(size=mask.shape + (80,)) * mask[..., None]).astype(
+                np.float32),
+            "tgt_lengths": lens, "ntokens": int(lens.sum()), "nsentences": len(tokens)}
+
+
+def frames_cos(out, ref):
+    """Row-cos of two generations' features over each row's valid frames
+    (numpy): (mean, min)."""
+    import numpy as np
+
+    a = out["feature"][out["frame_mask"]].astype(np.float64)
+    b = ref["feature"][out["frame_mask"]].astype(np.float64)
+    cos = (a * b).sum(-1) / np.maximum(np.linalg.norm(a, axis=-1) * np.linalg.norm(b, axis=-1),
+                                       1e-30)
+    return float(cos.mean()), float(cos.min())
+
+
+def run_fastspeech2(torch, mods, smi):
+    """Phase 25b: fastspeech2_base's generation (NonARSpeechGenerator on
+    predicted variances) and validation (fastspeech2_loss on gold ones) in
+    float32 and bf16, each through the kernel and through the plain
+    versions. Returns the counted flash_attention launches by type."""
+    import numpy as np
+
+    from diffnorm_tpu_torch.criterions.tts_loss import FastSpeech2Loss
+    from diffnorm_tpu_torch.models.fastspeech2 import FastSpeech2Module, NonARSpeechGenerator
+    from diffnorm_tpu_torch.train.trainer import Trainer, TrainerConfig
+
+    torch.manual_seed(251)
+    with torch.device("cuda"):
+        master = set_durations(torch, FastSpeech2Module(vocab_size=TTS_VOCAB), FS2_DUR).eval()
+    tokens = tts_tokens(torch, TTS_TOKENS, 252)
+    batch = fs2_batch(np.random.default_rng(253), tokens.cpu().numpy())
+    want_frames = np.minimum(np.asarray(TTS_TOKENS) * FS2_DUR, FS2_FRAMES)
+    launches = {}
+    for dtype in ("float32", "bfloat16"):
+        model = master if dtype == "float32" else copy.deepcopy(master).to(torch.bfloat16)
+        gen = NonARSpeechGenerator(model)
+        out, counts, wall = timed_decode(torch, lambda: gen.generate(tokens), reps=3)
+        flash = counts.get("flash_attention", 0)
+        frames = out["frame_mask"].sum(1)
+        if (flash != FS2_FLASH or out["feature"].shape != (len(TTS_TOKENS), FS2_FRAMES, 80)
+                or not np.isfinite(out["feature"]).all() or not (frames == want_frames).all()):
+            fail(f"fastspeech2 generation {dtype}: flash_attention {flash} (expected "
+                 f"{FS2_FLASH}), frames a row {frames.tolist()} (expected "
+                 f"{want_frames.tolist()}), shape {out['feature'].shape}")
+        with plain_versions(*mods):
+            out_p, _, wall_p = timed_decode(torch, lambda: gen.generate(tokens), reps=1)
+        cos_mean, cos_min = frames_cos(out, out_p)
+        # validation: the trainer's valid step on the float32 master, the
+        # forward in `dtype` (its working copy), eval mode
+        trainer = Trainer(TrainerConfig(dtype=dtype, seed=1), master, FastSpeech2Loss())
+        g = torch.Generator(device="cuda")
+        vals, counts_v, wall_v = timed_decode(
+            torch, lambda: trainer.valid_step(batch, g.manual_seed(0)), reps=1)
+        flash_v = counts_v.get("flash_attention", 0)
+        with plain_versions(*mods):
+            vals_p = trainer.valid_step(batch, g.manual_seed(0))
+        keys = ("loss", "l1_loss", "dur_loss", "pitch_loss", "energy_loss")
+        rel = max(abs(vals[k] - vals_p[k]) / max(abs(vals_p[k]), 1e-12) for k in keys)
+        master.eval()
+        launches[dtype] = flash + flash_v
+        print(f"fastspeech2 {dtype}: B{len(TTS_TOKENS)} x {list(TTS_TOKENS)} tokens, the "
+              f"duration head at {FS2_DUR} frames a token: generation wall {wall:.4f} s (median "
+              f"of 3), plain versions {wall_p:.4f} s, flash_attention {flash} (expected "
+              f"{FS2_FLASH}), valid frames a row {frames.tolist()} of {FS2_FRAMES}; frames "
+              f"against the plain run over the valid ones row-cos mean {cos_mean:.7f} min "
+              f"{cos_min:.7f} (bound {FS2_ROW_COS[dtype]}); validation (gold durations, "
+              f"{batch['tgt_lengths'].tolist()} frames) wall {wall_v:.4f} s, flash_attention "
+              f"{flash_v}, {', '.join(f'{k} {vals[k]:.5f}' for k in keys)}, against the plain "
+              f"versions max rel {rel:.2e} (bound {FS2_LOSS_REL[dtype]}); {smi}")
+        if (flash_v != FS2_FLASH or cos_min < FS2_ROW_COS[dtype] or rel > FS2_LOSS_REL[dtype]
+                or not all(math.isfinite(vals[k]) for k in keys)):
+            fail(f"fastspeech2 {dtype} against the plain versions: row-cos {cos_min:.7f}, "
+                 f"validation rel {rel:.2e}, flash_attention {flash_v}")
+        del trainer, gen, model
+    return launches
+
+
+def run_tts_rollout(torch, smi):
+    """Phase 25a: the tts_transformer_base rollout (ar_speech_generate over
+    the text encoder, 256 steps, the prenet's dropout from a seeded
+    generator): wall, frames, no flash_attention launch, the cached steps
+    against the teacher-forced decoder (row-cos)."""
+    from diffnorm_tpu_torch.generate.speech_ar import ar_speech_generate
+    from diffnorm_tpu_torch.models.tts_transformer import TTSTransformerModule
+
+    torch.manual_seed(254)
+    with torch.device("cuda"):
+        model = TTSTransformerModule(vocab_size=TTS_VOCAB)
+    model = model.to(torch.bfloat16).eval()
+    tokens = tts_tokens(torch, TTS_TOKENS, 255)
+
+    def decode(n=TTS_MAX_ITER):
+        return ar_speech_generate(model, tokens, max_iter=n, generator=tp_generator(torch))
+
+    (feat, out_lens, _), counts, wall = timed_decode(torch, decode, reps=1,
+                                                     warm=lambda: decode(AR_PROFILE_LENS[0]))
+    flash = counts.get("flash_attention", 0)
+    with torch.no_grad():
+        enc, mask = model.encode(tokens)
+        full, stepped = tp_mels_forced(torch, model, enc, mask, 32)
+    cos = min_row_cos(torch, full, stepped)
+    ok = (feat.shape == (len(TTS_TOKENS), TTS_MAX_ITER, 80) and bool(torch.isfinite(feat).all())
+          and bool((out_lens >= 1).all()) and flash == 0 and cos >= TP_ROW_COS)
+    print(f"tts_transformer rollout: B{len(TTS_TOKENS)} x {list(TTS_TOKENS)} tokens, "
+          f"{TTS_MAX_ITER} steps, bf16: wall {wall:.4f} s (one run), "
+          f"{1e3 * wall / TTS_MAX_ITER:.3f} ms a step, lengths {out_lens.tolist()}, "
+          f"flash_attention {flash} (expected 0); cached steps against the teacher-forced "
+          f"decoder (32 frames, prenet off) row-cos min {cos:.6f} (bound {TP_ROW_COS}); {smi}")
+    if not ok:
+        fail(f"tts_transformer rollout: shape {tuple(feat.shape)}, lengths {out_lens.tolist()}, "
+             f"flash_attention {flash}, row-cos {cos:.6f}")
+    del model
+
+
+def run_s2t_decode(torch, mods, smi):
+    """Phase 25c: the S2T beam decode (beam 5, max_len 256): s2t_transformer
+    at B16 x 480 and B2 x 8448 (12 encoder self-attentions and 6 encoder
+    attentions a step, D = 64, through the kernel in long form) and
+    s2t_conformer in long form (its decoder's 6 encoder attentions a step
+    at D = 32, the conformer's own attention inline), each long form held to
+    the plain versions. Returns the long forms' counted flash_attention
+    launches."""
+    from diffnorm_tpu_torch.generate.beam_search import ar_generate
+    from diffnorm_tpu_torch.models.s2t_transformer import S2TModule, s2t_conformer_arch
+
+    conformer = {}
+    s2t_conformer_arch(conformer)
+    launches, models = 0, {}
+    for arch, what, b, frames in (("s2t_transformer", "CVSS length", S2ST_B, S2ST_FRAMES),
+                                  ("s2t_transformer", "long form", LONG_B, LONG_FRAMES),
+                                  ("s2t_conformer", "long form", LONG_B, LONG_FRAMES)):
+        if arch not in models:
+            models.clear()
+            widths = {} if arch == "s2t_transformer" else dict(
+                encoder_type="conformer", encoder_dim=conformer["encoder_embed_dim"],
+                encoder_ffn_dim=conformer["encoder_ffn_embed_dim"],
+                encoder_layers=conformer["encoder_layers"],
+                encoder_heads=conformer["encoder_attention_heads"],
+                decoder_dim=conformer["decoder_embed_dim"],
+                decoder_ffn_dim=conformer["decoder_ffn_embed_dim"],
+                decoder_heads=conformer["decoder_attention_heads"])
+            torch.manual_seed(256)
+            with torch.device("cuda"):
+                model = S2TModule(vocab_size=S2T_VOCAB, **widths)
+            models[arch] = model = model.to(torch.bfloat16).eval()
+        src, lengths = s2st_inputs(torch, b, frames)
+
+        def decode(n=AR_MAX_LEN):
+            return ar_generate(model, src, lengths, beam_size=AR_BEAM, max_len=n)
+
+        def warm():
+            return decode(AR_PROFILE_LENS[0])
+
+        (seqs, scores), counts, wall = timed_decode(torch, decode, reps=1, warm=warm)
+        steps = beam_steps(seqs)
+        flash = counts.get("flash_attention", 0)
+        long_form = frames == LONG_FRAMES
+        want = AR_FLASH_PER_STEP * steps if long_form else 0
+        if long_form and arch == "s2t_transformer":
+            want += S2T_ENCODER_FLASH
+        full, stepped = teacher_forced(torch, model, src, lengths, seqs[:, 0])
+        cos = min_row_cos(torch, full, stepped)
+        print(f"{arch} decode, {what}: B{b} x {frames} frames, beam {AR_BEAM}, vocab "
+              f"{S2T_VOCAB}, bf16: wall {wall:.4f} s (one run), {steps} steps, "
+              f"{1e3 * wall / steps:.3f} ms a step, flash_attention {flash} (expected {want}); "
+              f"best scores {[round(v, 4) for v in scores[:, 0].tolist()[:4]]}; the cached "
+              f"decode against the full teacher-forced forward row-cos min {cos:.6f} (bound "
+              f"{AR_ROW_COS}); {smi}")
+        if (flash != want or cos < AR_ROW_COS or seqs.shape != (b, AR_BEAM, AR_MAX_LEN)
+                or not torch.isfinite(scores).all()):
+            fail(f"{arch} decode {what}: flash_attention {flash} (expected {want}), "
+                 f"row-cos {cos:.6f}, seqs {tuple(seqs.shape)}")
+        if not long_form:
+            continue
+        launches += flash
+        with plain_versions(*mods):
+            (seqs_p, _), _, wall_p = timed_decode(torch, decode, reps=1, warm=warm)
+            full_p, stepped_p = teacher_forced(torch, model, src, lengths, seqs[:, 0])
+        agree = unit_agreement(seqs[:, 0], seqs_p[:, 0])
+        cos_full = min_row_cos(torch, full, full_p)
+        cos_step = min_row_cos(torch, stepped, stepped_p)
+        print(f"{arch} decode, long form, through the plain versions: wall {wall_p:.4f} s; "
+              f"best hypotheses' tokens equal {agree:.4f} (bound {AR_LONG_UNIT_AGREE}); "
+              f"teacher-forced on the kernel path's hypotheses, kernel against plain: full "
+              f"forward row-cos min {cos_full:.6f}, cached decode {cos_step:.6f} (bound "
+              f"{AR_ROW_COS}); {smi}")
+        if agree < AR_LONG_UNIT_AGREE or min(cos_full, cos_step) < AR_ROW_COS:
+            fail(f"{arch} long form against the plain versions: tokens {agree:.4f}, "
+                 f"row-cos {cos_full:.6f} / {cos_step:.6f}")
+    del models, model
+    return launches
+
+
+def tts_train_batch(rng, lengths, fs2: bool):
+    """A training batch of phone rows (`lengths` tokens, </s> included) with
+    80-bin mel targets: the tts_transformer's teacher-forced inputs, or
+    FastSpeech2's gold durations (3-9 frames a token), pitches and
+    energies."""
+    import numpy as np
+
+    from diffnorm_tpu_torch.data.batching import bucket_length
+
+    b, s = len(lengths), max(lengths)
+    tokens = np.full((b, s), 1, np.int32)
+    for i, n in enumerate(lengths):
+        tokens[i, :n - 1] = rng.integers(4, TTS_VOCAB, size=n - 1)
+        tokens[i, n - 1] = 2
+    valid = tokens != 1
+    dur = np.where(valid, rng.integers(3, 10, size=(b, s)), 0).astype(np.int32)
+    lens = dur.sum(1).astype(np.int32)
+    t = int(lens.max()) if fs2 else bucket_length(int(lens.max()))
+    mask = np.arange(t)[None, :] < lens[:, None]
+    feat = (rng.normal(size=(b, t, 80)) * mask[..., None]).astype(np.float32)
+    batch = {"src_tokens": tokens, "src_lengths": valid.sum(1).astype(np.int32),
+             "feat_tgt": feat, "tgt_lengths": lens, "ntokens": int(lens.sum()),
+             "nsentences": b}
+    if fs2:
+        batch.update(durations=dur, pitches=rng.normal(size=(b, s)).astype(np.float32),
+                     energies=rng.normal(size=(b, s)).astype(np.float32))
+    else:
+        prev = np.zeros_like(feat)
+        prev[:, 1:] = feat[:, :-1]
+        batch.update(prev_feats=prev, tgt_mask=mask)
+    return batch
+
+
+def run_tts_s2t_train(torch, smi):
+    """Phase 25d: one update of each model (bf16 forward, float32 masters,
+    scripts/s2ut_train.sh's optimizer): the tts_transformer and FastSpeech2
+    on B32 rows of 60-150 phones (3-9 frames a phone), the S2T model at phase
+    10's --max-tokens 40000 batch with 20-60 target tokens: ms, peak, busy.
+    Training forwards drop out, so no kernel is reached."""
+    import numpy as np
+
+    from diffnorm_tpu_torch.criterions.ce_loss import LabelSmoothedCrossEntropy
+    from diffnorm_tpu_torch.criterions.tts_loss import FastSpeech2Loss, Tacotron2Loss
+    from diffnorm_tpu_torch.models.fastspeech2 import FastSpeech2Module
+    from diffnorm_tpu_torch.models.s2t_transformer import S2TModule
+    from diffnorm_tpu_torch.models.tts_transformer import TTSTransformerModule
+    from diffnorm_tpu_torch.train.trainer import Trainer, TrainerConfig
+
+    rng = np.random.default_rng(257)
+    hi = NAR_MAX_TOKENS // NAR_B
+    for name in ("tts_transformer", "fastspeech2", "s2t_transformer"):
+        batches = []
+        for _ in range(3):
+            if name == "s2t_transformer":
+                src_lengths = np.sort(rng.integers(300, hi + 1, NAR_B))[::-1]
+                batches.append(ar_batch(rng, {}, src_lengths,
+                                        rng.integers(20, 61, NAR_B).tolist()))
+            else:
+                batches.append(tts_train_batch(rng, rng.integers(60, 151, 32).tolist(),
+                                               fs2=name == "fastspeech2"))
+        torch.manual_seed(257)
+        with torch.device("cuda"):
+            model, criterion = {
+                "tts_transformer": lambda: (TTSTransformerModule(vocab_size=TTS_VOCAB),
+                                            Tacotron2Loss()),
+                "fastspeech2": lambda: (FastSpeech2Module(vocab_size=TTS_VOCAB),
+                                        FastSpeech2Loss()),
+                "s2t_transformer": lambda: (S2TModule(vocab_size=S2T_VOCAB),
+                                            LabelSmoothedCrossEntropy(0.1))}[name]()
+        trainer = Trainer(TrainerConfig(**NAR_TRAIN), model, criterion)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        ms, losses = [], []
+        for batch in batches[:2]:
+            t1 = time.perf_counter()
+            mets = trainer.train_step([batch])
+            torch.cuda.synchronize()
+            ms.append(1e3 * (time.perf_counter() - t1))
+            losses.append(mets["loss"])
+            if not (math.isfinite(mets["loss"]) and math.isfinite(mets["gnorm"])):
+                fail(f"{name} train: {mets}")
+        peak_gb = torch.cuda.max_memory_allocated() / 1e9
+        busy, _ = profile_run(torch, lambda: trainer.train_step([batches[2]]), ms[1] / 1e3)
+        shape = (f"{batches[0]['src_tokens'].shape[1]} padded frames" if name == "s2t_transformer"
+                 else f"{batches[0]['feat_tgt'].shape[1]} padded mel frames")
+        print(f"{name} train: published widths, B{len(batches[0]['src_tokens'])} x {shape}, "
+              f"bf16 forward, float32 masters, {type(criterion).__name__}: ms per update "
+              f"{[round(v, 1) for v in ms]} (the first a warm-up), peak {peak_gb:.2f} GB, busy "
+              + ("not measured" if busy is None else f"{100 * busy:.1f}%")
+              + f"; losses {[round(v, 4) for v in losses]}; {smi}")
+        del model, trainer
+
+
+def write_tts_cli_corpus(root: Path, rng):
+    """train (8), dev (4) and test (4) utterances of 30-70 phones
+    (`dict.txt`), 80-bin mels of 3-9 frames a phone with their durations,
+    per-phone pitch and energy; absolute paths, as the dataset reads them."""
+    import numpy as np
+
+    phones = [f"p{k}" for k in range(TTS_VOCAB - 4)]
+    (root / "dict.txt").write_text("".join(f"{p} 1\n" for p in phones))
+    cols = ("id", "audio", "n_frames", "tgt_text", "duration", "pitch", "energy")
+    for split, n in (("train", 8), ("dev", 4), ("test", 4)):
+        lines = ["\t".join(cols)]
+        for i in range(n):
+            uid = f"{split}{i}"
+            text = rng.choice(phones, size=int(rng.integers(30, 71)))
+            dur = rng.integers(3, 10, size=len(text) + 1)
+            np.save(root / f"{uid}.npy", rng.normal(size=(int(dur.sum()), 80)).astype(np.float32))
+            for key in ("pitch", "energy"):
+                np.save(root / f"{uid}_{key}.npy",
+                        rng.normal(size=(len(text) + 1,)).astype(np.float32))
+            lines.append("\t".join([uid, str(root / f"{uid}.npy"), str(int(dur.sum())),
+                                    " ".join(text), " ".join(map(str, dur)),
+                                    str(root / f"{uid}_pitch.npy"),
+                                    str(root / f"{uid}_energy.npy")]))
+        (root / f"{split}.tsv").write_text("\n".join(lines) + "\n")
+
+
+def write_s2t_cli_corpus(root: Path, rng):
+    """Phase 11's WAV corpus under `root`, and under `root / "s2t"` its S2T
+    manifests (id, audio, n_frames, tgt_text) with 10-30 words of an
+    8000-word `dict.txt` a row, phase 11's transforms. Returns the S2T
+    directory."""
+    from diffnorm_tpu_torch.data.manifest import read_translation_manifest
+    from diffnorm_tpu_torch.data.s2t_dataset import write_s2t_manifest
+
+    write_nar_corpus(root)
+    s2t = root / "s2t"
+    s2t.mkdir()
+    words = [f"w{k}" for k in range(S2T_VOCAB - 4)]
+    (s2t / "dict.txt").write_text("".join(f"{w} 1\n" for w in words))
+    (s2t / "config.yaml").write_text((root / "config.yaml").read_text()
+                                     + "vocab_filename: dict.txt\n")
+    for split in ("train", "dev", "test"):
+        write_s2t_manifest(str(s2t / f"{split}.tsv"), [
+            {"id": r["id"], "audio": str(root / r["src_audio"]), "n_frames": r["src_n_frames"],
+             "tgt_text": " ".join(rng.choice(words, size=int(rng.integers(10, 31))))}
+            for r in read_translation_manifest(str(root / f"{split}.tsv"))])
+    return s2t
+
+
+def cli_validate_against(torch, data, flags, step, keys):
+    """cli.validate --dtype bfloat16 on `step` against the trainer's valid
+    step in process over the dev split's one batch (the same order): the
+    metrics, and the max relative difference of `keys`."""
+    import numpy as np
+
+    from diffnorm_tpu_torch.cli import train as train_cli
+    from diffnorm_tpu_torch.cli import validate
+    from diffnorm_tpu_torch.tasks import TASKS
+    from diffnorm_tpu_torch.train.checkpoint import load_variables
+    from diffnorm_tpu_torch.train.trainer import Trainer, TrainerConfig
+    from diffnorm_tpu_torch.weights import from_jax_variables
+
+    base = [str(data), "--valid-subset", "dev", "--max-tokens", "100000", "--dtype",
+            "bfloat16", *flags]
+    got = validate.validate(validate.parse_args(base + ["--path", str(step)]))
+    args = train_cli.parse_args(base + ["--max-update", "1"])
+    task = TASKS[args.task](args)
+    torch.manual_seed(args.seed)
+    with torch.device("cuda"):
+        model = task.build_model()
+    from_jax_variables(model, load_variables(str(step)))
+    trainer = Trainer(TrainerConfig(dtype="bfloat16", seed=args.seed), model,
+                      task.build_criterion())
+    ds = task.dataset("dev")
+    batch = task.prepare_batch(ds.collater([ds[int(i)] for i in ds.ordered_indices()]),
+                               np.random.default_rng(args.seed))
+    want = trainer.valid_step(batch, torch.Generator(device="cuda").manual_seed(0))
+    rel = max(abs(got[k] - want[k]) / max(abs(want[k]), 1e-12) for k in keys)
+    if rel > VALID_REL or got["nsentences"] != 4:
+        fail(f"cli.validate {flags[:4]}: {got} against in process {want}")
+    del trainer, model
+    return got, rel
+
+
+def run_tts_s2t_cli(torch, smi):
+    """Phase 25e, the CLIs at the published widths in bf16: cli.train (2
+    updates) -> cli.validate -> cli.generate for the tts_transformer and
+    FastSpeech2 on a seeded phone corpus and for s2t_transformer on phase 11's
+    WAVs with text targets. cli.validate against the in-process valid step;
+    the tts_transformer's `{id}.npy` (the rollout cut to CLI_MAX_LEN steps,
+    --seed 7) against ar_speech_generate with a generator seeded 7;
+    FastSpeech2's (its duration head set to CLI_FS2_DUR frames a token)
+    against NonARSpeechGenerator; the S2T H- lines (beam 5, CLI_MAX_LEN
+    steps) against ar_generate. Returns FastSpeech2's flash_attention
+    launches in its cli.validate and cli.generate runs."""
+    import numpy as np
+
+    from diffnorm_tpu_torch.cli import generate
+    from diffnorm_tpu_torch.cli import train as train_cli
+    from diffnorm_tpu_torch.cli.generate import strip_special
+    from diffnorm_tpu_torch.data.iterators import EpochBatchIterator
+    from diffnorm_tpu_torch.generate.beam_search import ar_generate
+    from diffnorm_tpu_torch.generate.speech_ar import ar_speech_generate
+    from diffnorm_tpu_torch.models.fastspeech2 import NonARSpeechGenerator
+    from diffnorm_tpu_torch.ops import _build
+    from diffnorm_tpu_torch.train.checkpoint import load_variables
+    from diffnorm_tpu_torch.weights import save_npz
+
+    cuda = torch.device("cuda", torch.cuda.current_device())
+    rng = np.random.default_rng(258)
+    walls, flash = {}, 0
+    train_flags = ["--lr", "5e-4", "--lr-scheduler", "inverse_sqrt", "--warmup-init-lr", "1e-7",
+                   "--warmup-updates", "4000", "--clip-norm", "5.0", "--max-update", "2",
+                   "--seed", "42", "--validate-interval", "5", "--save-interval", "5",
+                   "--dtype", "bfloat16", "--log-interval", "1"]
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = Path(tmp)
+        (tmp / "tts").mkdir()
+        write_tts_cli_corpus(tmp / "tts", rng)
+        s2t = write_s2t_cli_corpus(tmp, rng)
+        runs = (("tts_transformer", tmp / "tts", ["--task", "text_to_speech", "--arch",
+                                                   "tts_transformer"], "3000"),
+                ("fastspeech2", tmp / "tts", ["--task", "text_to_speech", "--arch",
+                                               "fastspeech2"], "3000"),
+                ("s2t_transformer", s2t, ["--task", "speech_to_text", "--arch",
+                                          "s2t_transformer"], "8000"))
+        for name, data, flags, max_tokens in runs:
+            lines = LogLines()
+            logging.getLogger("diffnorm_tpu_torch.train").addHandler(lines)
+            t0 = time.perf_counter()
+            rc = train_cli.main([str(data), *flags, "--save-dir", str(tmp / f"ck_{name}"),
+                                 "--max-tokens", max_tokens, *train_flags])
+            walls[f"cli.train {name}"] = time.perf_counter() - t0
+            logging.getLogger("diffnorm_tpu_torch.train").removeHandler(lines)
+            if rc != 0 or "saved checkpoint at step 2" not in "\n".join(lines.lines):
+                fail(f"cli.train {name}: rc {rc}, log {lines.lines[-3:]}")
+            step = tmp / f"ck_{name}" / "step_000000002"
+            keys = {"tts_transformer": ("loss", "l1_loss", "mse_loss", "eos_loss"),
+                    "fastspeech2": ("loss", "l1_loss", "dur_loss", "pitch_loss",
+                                    "energy_loss"),
+                    "s2t_transformer": ("loss", "nll_loss", "acc")}[name]
+            _build.launch_counts.clear()
+            t0 = time.perf_counter()
+            _, rel = cli_validate_against(torch, data, flags, step, keys)
+            walls[f"cli.validate {name} (and in process)"] = time.perf_counter() - t0
+            walls[f"cli.validate {name} max rel"] = rel
+            if name == "fastspeech2":
+                # the CLI's forward and the in-process one: 4 launches each
+                flash += _build.launch_counts.get("flash_attention", 0)
+                variables = load_variables(str(step))
+                proj = variables["params"]["dur_predictor"]["proj"]
+                proj["kernel"] = np.zeros_like(proj["kernel"])
+                proj["bias"] = np.full_like(proj["bias"], math.log(1 + CLI_FS2_DUR))
+                save_npz(str(tmp / "fs2.npz"), variables)
+                path = tmp / "fs2.npz"
+            else:
+                path = step
+            base = [str(data), *flags, "--gen-subset", "test", "--max-tokens", max_tokens,
+                    "--path", str(path), "--seed", "7"]
+            if name != "fastspeech2":  # FastSpeech2's flag is its frame buffer's
+                base += ["--max-target-positions", str(CLI_MAX_LEN)]
+            if name == "s2t_transformer":
+                base += ["--beam", str(AR_BEAM)]
+            out = tmp / f"gen_{name}"
+            _build.launch_counts.clear()
+            t0 = time.perf_counter()
+            if generate.main(base + ["--results-path", str(out)]) != 0:
+                fail(f"cli.generate {name} failed")
+            walls[f"cli.generate {name}"] = time.perf_counter() - t0
+            if name == "fastspeech2":
+                flash += _build.launch_counts.get("flash_attention", 0)
+            task, model = generate.build_task_model(generate.parse_args(base), str(path), cuda,
+                                                    torch.bfloat16)
+            ds = task.dataset("test")
+            g = torch.Generator(device=cuda).manual_seed(7)
+            max_err, n_rows = 0.0, 0
+            with torch.no_grad():
+                for batch in EpochBatchIterator(ds, int(max_tokens),
+                                                shuffle=False).next_epoch_itr():
+                    src = torch.from_numpy(batch["src_tokens"]).to(cuda)
+                    lens = torch.from_numpy(batch["src_lengths"]).to(cuda)
+                    if name == "s2t_transformer":
+                        tokens = ar_generate(model, src, lens, beam_size=AR_BEAM,
+                                             max_len=CLI_MAX_LEN)[0][:, 0].cpu().numpy()
+                        got = read_hyps(out / "generate-test.txt")
+                        for row, sid in zip(tokens, batch["id"].tolist()):
+                            if got.get(sid) != strip_special(row, task.tgt_dict):
+                                fail(f"cli.generate s2t_transformer H-{sid} differs from the "
+                                     f"in-process decode")
+                            n_rows += 1
+                        continue
+                    if name == "fastspeech2":
+                        res = NonARSpeechGenerator(model).generate(src)
+                        want = [f[m] for f, m in zip(res["feature"], res["frame_mask"])]
+                    else:
+                        feat, out_lens, _ = ar_speech_generate(model, src, lens,
+                                                               max_iter=CLI_MAX_LEN,
+                                                               generator=g)
+                        want = [feat[i, :int(n)].float().cpu().numpy()
+                                for i, n in enumerate(out_lens.tolist())]
+                    for w, sid in zip(want, batch["id"].tolist()):
+                        got = np.load(out / f"{sid}.npy")
+                        if got.shape != w.shape or got.shape[0] == 0:
+                            fail(f"cli.generate {name} {sid}.npy: {got.shape}, in process "
+                                 f"{w.shape}")
+                        max_err = max(max_err, float(np.abs(got - w).max()))
+                        n_rows += 1
+            if n_rows != 4 or max_err > TP_CLI_ATOL:
+                fail(f"cli.generate {name}: {n_rows} rows, max abs difference to the in-process "
+                     f"run {max_err:.3e} > {TP_CLI_ATOL}")
+            if name != "s2t_transformer":
+                walls[f"{name} frames' max abs difference"] = max_err
+            del model
+    print(f"TTS and S2T CLIs (published widths, bf16; the phone corpus of 8 + 4 + 4 "
+          f"utterances, phase 11's WAVs with text targets; the rollout and the S2T decode cut "
+          f"to {CLI_MAX_LEN} steps): "
+          + ", ".join(f"{k} {v:.4g}" + ("" if "difference" in k or "rel" in k else " s")
+                      for k, v in walls.items())
+          + f" (one run each); the S2T H- lines equal to the in-process decode, every .npy "
+            f"within {TP_CLI_ATOL} of its in-process run; fastspeech2's CLI runs "
+            f"flash_attention {flash}; {smi}")
+    return flash
+
+
+def run_tts_s2t(torch, mods, smi):
+    """Phase 25: text-input TTS and the S2T model (see the module
+    docstring). Returns the flash_attention launches by JSON row."""
+    t0 = time.perf_counter()
+    run_tts_rollout(torch, smi)
+    fs2 = run_fastspeech2(torch, mods, smi)
+    s2t = run_s2t_decode(torch, mods, smi)
+    run_tts_s2t_train(torch, smi)
+    cli = run_tts_s2t_cli(torch, smi)
+    launches = {"flash_attention": fs2["bfloat16"] + s2t + cli,
+                "flash_attention_f32": fs2["float32"]}
+    print(f"phase TTS and S2T: {time.perf_counter() - t0:.1f} s, flash_attention launches "
+          f"{launches}; {smi}")
+    return launches
+
+
 def main() -> int:
     try:
         import torch
@@ -6572,6 +7199,12 @@ def main() -> int:
     # s2spect_conformer, Translatotron2; decode, training, the CLIs
     launches["flash_attention"] += run_two_pass(torch, mods, smi)
 
+    # 25. text-input TTS (tts_transformer, FastSpeech2) and the S2T model:
+    # the rollout, FastSpeech2 in float32 and bf16, the S2T decode, training,
+    # the CLIs
+    for name, n in run_tts_s2t(torch, mods, smi).items():
+        launches[name] += n
+
     sources = {
         "rms_norm_film": ("rms_norm_film.cu", "diffnorm_tpu/ops/pallas_norm.py:34"),
         "wavenet_chain": ("wavenet_chain.cu", "diffnorm_tpu/ops/pallas_wavenet.py:66"),
@@ -6603,6 +7236,9 @@ def main() -> int:
                         ("Translatotron2 decode step", "q [10,4,1,128], k/v [10,4,2112,128]"),
                         ("s2spect decode step", "q [2,4,1,128], k/v [2,4,2112,128]")):
         print(f"flash_attention at phase 24's {what} ({shape}): {flash_timed[what]}")
+    for what in ("FastSpeech2 decoder", "FastSpeech2 decoder float32"):
+        print(f"flash_attention at phase 25's {what} ([8,2,2048,128], keys "
+              f"{FS2_FLASH_KEYS}): {flash_timed[what]}")
     for what in ("HuBERT long form", "HuBERT longest chunk", "float32 path"):
         print(f"flash_attention float32 {what}: {flash_timed[what]}")
     print(json.dumps({"kernels": kernels}))

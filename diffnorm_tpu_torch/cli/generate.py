@@ -1,5 +1,6 @@
-"""Generation CLI, the NAR and AR S2UT branches (PyTorch port of
-diffnorm_tpu/cli/generate.py; reference fairseq_cli/generate.py).
+"""Generation CLI: the NAR and AR S2UT, S2T and speech-synthesis branches
+(PyTorch port of diffnorm_tpu/cli/generate.py; reference
+fairseq_cli/generate.py).
 
   python -m diffnorm_tpu_torch.cli.generate $DATA \\
       --task speech_to_speech_fasttranslate --target-code-size 1000 \\
@@ -78,6 +79,12 @@ line names `--beam` (`--iter-decode-with-beam` for the stacked and the
 reference-scoring runs, as JAX's). The decode runs at most
 min(--max-target-positions, 256) steps.
 
+The S2T model (`--task speech_to_text --arch s2t_transformer`,
+`s2t_transformer_s`, `s2t_transformer_xs` or `s2t_conformer`; the model's
+flags as cli.train takes them) decodes through that AR branch (beam,
+`--sampling`, `--score-reference`, ensembles) on `tasks/s2t_task.py`'s
+manifests; its H-, D- and T- lines are text through the task's dictionary.
+
 UnitY (`--task speech_to_speech --target-is-code --arch unity_conformer`,
 or `--task speech_to_speech_ar`; the model's flags as cli.train takes them,
 its --multitask-config-yaml among them) decodes both beam passes
@@ -95,11 +102,16 @@ mel rollout (`generate/speech_ar.py`) of --max-target-positions steps with
 logged as `MT-{id}\t{text}` (`generate/translatotron2.py`). The prenet
 draws from one generator seeded with --seed. `--vocoder W --vocoder-cfg C`
 (a `cli.train_vocoder --input-type features` generator) adds
-`{id}_pred.wav`.
+`{id}_pred.wav`. Text-input TTS (`--task text_to_speech`, `--arch
+tts_transformer` or `tts_transformer_base`: the same rollout after the
+text encoder; `fastspeech2` or `fastspeech2_base`: one forward on the
+predicted variances over its --max-target-positions frame buffer (the
+model's flag, default 2048), each row cut by its frame mask) writes the
+same files.
 
-Not ported, and raising NotImplementedError: the other tasks and
-architectures (text-input TTS and fastspeech2, LevT, ...), ROADMAP Queue 1
-item 4.
+Not ported, and raising NotImplementedError naming their ROADMAP Queue 1
+items: the other tasks and architectures (text MT and the text CMLM, item
+3; LevT, SEDD and the unit LM, item 4; the CTC fine-tune, item 5).
 """
 
 from __future__ import annotations
@@ -130,13 +142,16 @@ from diffnorm_tpu_torch.generate.translatotron2 import Translatotron2SpeechGener
 from diffnorm_tpu_torch.generate.unity import unity_generate
 from diffnorm_tpu_torch.models.ar_transformer import ARCHS as AR_ARCHS
 from diffnorm_tpu_torch.models.ar_transformer import ARS2UTModule
+from diffnorm_tpu_torch.models.fastspeech2 import FastSpeech2Module, NonARSpeechGenerator
 from diffnorm_tpu_torch.models.nar_transformer import calibrate_act_scales
+from diffnorm_tpu_torch.models.s2t_transformer import ARCHS as S2T_ARCHS
 from diffnorm_tpu_torch.models.unity import ARCHS as UNITY_ARCHS
 from diffnorm_tpu_torch.ops.quant import set_static_scales
 from diffnorm_tpu_torch.tasks import TASKS
 from diffnorm_tpu_torch.tasks.ar_s2ut_task import shift_right
 from diffnorm_tpu_torch.tasks.s2spect_task import ARCHS as SPECT_ARCHS
 from diffnorm_tpu_torch.tasks.s2spect_task import S2SPECT2_ARCHS
+from diffnorm_tpu_torch.tasks.tts_task import ARCHS as TTS_ARCHS
 from diffnorm_tpu_torch.train.checkpoint import load_tree, load_variables
 from diffnorm_tpu_torch.weights import as_variables, from_jax_variables
 
@@ -146,8 +161,12 @@ PAD, EOS = 1, 2
 TASK, ARCH = "speech_to_speech_fasttranslate", "nar_s2ut_conformer"
 AR_TASK = train_cli.AR_TASK
 SPECT_TASK, S2S_TASK = train_cli.SPECT_TASK, train_cli.S2S_TASK
+TTS_TASK, S2T_TASK = train_cli.TTS_TASK, train_cli.S2T_TASK
 TASK_ARCHS = {TASK: (ARCH,), AR_TASK: tuple(AR_ARCHS) + tuple(UNITY_ARCHS),
-              SPECT_TASK: tuple(SPECT_ARCHS)}  # the first, the task's default
+              SPECT_TASK: tuple(SPECT_ARCHS), TTS_TASK: tuple(TTS_ARCHS),
+              S2T_TASK: tuple(S2T_ARCHS)}  # the first, the task's default
+# the tasks whose model and data their task builds, on cli.train's flags
+TASK_BUILT = (SPECT_TASK, TTS_TASK, S2T_TASK)
 # the widths an AR arch gives where the flag is not set
 AR_WIDTHS = ("encoder_embed_dim", "encoder_ffn_embed_dim", "encoder_layers",
              "encoder_attention_heads", "decoder_embed_dim", "decoder_ffn_embed_dim",
@@ -283,21 +302,23 @@ def parse_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
         raise NotImplementedError(
             f"--task {chosen.task} --arch {chosen.arch}: the ported branches are "
             + "; ".join(f"{t} ({', '.join(a)})" for t, a in TASK_ARCHS.items())
-            + " (text-input TTS, fastspeech2 among the rest: ROADMAP Queue 1 item 4)")
+            + " (not ported: text MT and the text CMLM, ROADMAP Queue 1 item 3; LevT, SEDD "
+              "and the unit LM, item 4; the CTC fine-tune, item 5)")
     if task == AR_TASK:  # widths left unset take the arch's
         p.set_defaults(**dict.fromkeys(AR_WIDTHS))
     args, extra = p.parse_known_args(argv)
     args.task, args.arch = task, args.arch or archs[0]
-    # UnitY and the spectrogram models build through their task, on
-    # cli.train's model flags
+    # UnitY, the spectrogram, TTS and S2T models build through their task,
+    # on cli.train's model flags
     args.model = None
-    if args.arch in UNITY_ARCHS or task == SPECT_TASK:
+    if args.arch in UNITY_ARCHS or task in TASK_BUILT:
         q = train_cli.build_parser("the model's flags", train=False)
-        margs = q.parse_known_args(argv)[0]
+        margs, unknown = q.parse_known_args(argv)
         margs.task = task
         args.model = train_cli.check_args(q, margs)
         if args.arch in UNITY_ARCHS and args.n_frames_per_step > 1:
             raise NotImplementedError("unity generation with n_frames_per_step>1 (as JAX's)")
+        extra = [a for a in extra if a in unknown]  # the model's flags (--dropout) taken
     overrides = rerank_overrides(extra)
     if args.task == AR_TASK and args.model is None:
         apply_ar_arch(args)
@@ -400,14 +421,19 @@ def spectrogram_generate(args: argparse.Namespace, device: torch.device,
     """The spectrogram branch (JAX cli/generate.py:_tts_generate): each
     utterance's frames to `{results_path}/{id}.npy`, with --vocoder its
     waveform to `{id}_pred.wav`; Translatotron2 logs each first-pass
-    hypothesis as `MT-{id}\t{text}`. The rollout runs
+    hypothesis as `MT-{id}\t{text}`. The AR rollout runs
     --max-target-positions steps; the prenet draws from one generator
-    seeded with --seed, batch after batch."""
+    seeded with --seed, batch after batch. FastSpeech2 runs its forward on
+    predicted variances over its frame buffer, each row cut by its frame
+    mask."""
     paths = [p for p in args.path.split(":") if p]
     if len(paths) > 1:
         logger.warning("spectrogram generation uses the first model of the ensemble")
     task, model = build_task_model(args, paths[0], device, dtype)
     logger.info("restored checkpoint from %s", paths[0])
+    nar_gen = None
+    if isinstance(model, FastSpeech2Module):
+        nar_gen = NonARSpeechGenerator(model)
     if args.arch in S2SPECT2_ARCHS:
         mt_dict = task.multitask_tasks[task.mt_task_name].tgt_dict
         gen = Translatotron2SpeechGenerator(
@@ -428,8 +454,14 @@ def spectrogram_generate(args: argparse.Namespace, device: torch.device,
                              num_workers=args.num_workers)
     n_utts, n_frames, t0 = 0, 0, time.time()
     for batch in itr.next_epoch_itr():
-        entries = gen.generate(torch.from_numpy(batch["src_tokens"]).to(device),
-                               torch.from_numpy(batch["src_lengths"]).to(device), generator)
+        src = torch.from_numpy(batch["src_tokens"]).to(device)
+        if nar_gen is not None:
+            out = nar_gen.generate(src)
+            entries = [{"feature": feat[mask]}
+                       for feat, mask in zip(out["feature"], out["frame_mask"])]
+        else:
+            entries = gen.generate(src, torch.from_numpy(batch["src_lengths"]).to(device),
+                                   generator)
         for sid, entry in zip(batch["id"].tolist(), entries):
             if mt_dict is not None:
                 logger.info("MT-%d\t%s", sid, " ".join(mt_dict[int(t)]
@@ -507,15 +539,21 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
                         format="%(asctime)s | %(levelname)s | %(message)s")
     args = parse_args(argv)
     device, dtype = resolve_device_dtype(args)
-    if args.task == SPECT_TASK:
+    if args.task in (SPECT_TASK, TTS_TASK):
         return spectrogram_generate(args, device, dtype)
     split = args.gen_subset
-    tgt_dict = Dictionary.unit_dictionary(args.target_code_size)
-    dataset = SpeechToUnitDataset.from_tsv(args.data, split, tgt_dict=tgt_dict,
-                                           config_yaml=args.config_yaml)
     paths = [p for p in args.path.split(":") if p]
-    ar = args.task == AR_TASK
-    if args.model is not None:  # UnitY
+    if args.task == S2T_TASK:  # the text dictionary and manifests are the task's
+        task = TASKS[S2T_TASK](args.model)
+        tgt_dict, dataset = task.tgt_dict, task.dataset(split)
+    else:
+        tgt_dict = Dictionary.unit_dictionary(args.target_code_size)
+        dataset = SpeechToUnitDataset.from_tsv(args.data, split, tgt_dict=tgt_dict,
+                                               config_yaml=args.config_yaml)
+    ar = args.task in (AR_TASK, S2T_TASK)
+    if args.task == S2T_TASK:
+        models = [build_task_model(args, p, device, dtype)[1] for p in paths]
+    elif args.arch in UNITY_ARCHS:
         if len(paths) > 1:
             logger.warning("unity generation uses the first model of the ensemble")
             paths = paths[:1]
@@ -532,7 +570,7 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
     calibrate = args.quant_int8 and args.quant_int8_static
     pp_symbol = args.post_process or args.remove_bpe
     init_lengths = reranker = None
-    if args.model is not None:
+    if args.arch in UNITY_ARCHS:
         decode_ar, beam = unity_decoder(args, models[0], device), args.beam
     elif ar:
         decode_ar, beam = ar_decoder(args, models, device)

@@ -19,7 +19,18 @@ speech_to_spectrogram` / `tacotron2_loss`, or Translatotron2's
 `s2spect2_conformer` with `speech_to_spectrogram_2pass`; mel targets, the
 prenet and postnet flags, `--bce-pos-weight`); fairseq's `--task
 speech_to_speech` is the AR task with --target-is-code and the spectrogram
-task without it; `--task unit_to_speech` goes to `cli.train_vocoder` with the
+task without it; text-to-speech (`--task text_to_speech`, `--arch
+tts_transformer` or `tts_transformer_base` with `--criterion
+tacotron2_loss` / `tacotron2`, `fastspeech2` or `fastspeech2_base` with
+`fastspeech2_loss` / `fastspeech2`; `tasks/tts_task.py`'s manifests, the
+encoder's `--encoder-transformer-layers`, `--encoder-conv-layers`,
+`--encoder-conv-kernel-size`, `--encoder-dropout` and the prenet and
+postnet flags; FastSpeech2's frame buffer is --max-target-positions,
+default 2048); speech-to-text (`--task speech_to_text`, `--arch
+s2t_transformer`, `s2t_transformer_s`, `s2t_transformer_xs` or
+`s2t_conformer`, `--criterion label_smoothed_cross_entropy`,
+`--share-decoder-input-output-embed`);
+`--task unit_to_speech` goes to `cli.train_vocoder` with the
 other arguments, as JAX's does, and `--task repr_to_speech` too with
 `--input-type features`. It takes every flag of scripts/vae_train.sh,
 scripts/diffusion_train.sh and scripts/s2ut_train.sh with the same meaning;
@@ -142,10 +153,13 @@ from diffnorm_tpu_torch.device import resolve_device
 from diffnorm_tpu_torch.models.ar_transformer import ARCHS as AR_ARCHS
 from diffnorm_tpu_torch.models.diffusion import ARCHS as DIFFUSION_ARCHS
 from diffnorm_tpu_torch.models.nar_transformer import ARCHS as NAR_ARCHS
+from diffnorm_tpu_torch.models.s2t_transformer import ARCHS as S2T_ARCHS
 from diffnorm_tpu_torch.models.unity import ARCHS as UNITY_ARCHS
 from diffnorm_tpu_torch.tasks import TASKS
 from diffnorm_tpu_torch.tasks.s2spect_task import ARCHS as SPECT_ARCHS
 from diffnorm_tpu_torch.tasks.s2spect_task import S2SPECT2_ARCHS
+from diffnorm_tpu_torch.tasks.tts_task import ARCH_CRITERIONS as TTS_CRITERIONS
+from diffnorm_tpu_torch.tasks.tts_task import ARCHS as TTS_ARCHS
 from diffnorm_tpu_torch.train import metrics as metrics_mod
 from diffnorm_tpu_torch.train.checkpoint import (
     OPTAX_STATE,
@@ -164,6 +178,7 @@ logger = logging.getLogger("diffnorm_tpu_torch.train")
 
 NAR_TASK, AR_TASK = "speech_to_speech_fasttranslate", "speech_to_speech_ar"
 SPECT_TASK = "speech_to_speech_spect"
+TTS_TASK, S2T_TASK = "text_to_speech", "speech_to_text"
 # fairseq's speech_to_speech: --target-is-code picks AR_TASK, else SPECT_TASK
 S2S_TASK = "speech_to_speech"
 STAGES = {  # task: (its criterions, the first the default; its architectures)
@@ -178,12 +193,15 @@ STAGES = {  # task: (its criterions, the first the default; its architectures)
               tuple(AR_ARCHS) + tuple(UNITY_ARCHS)),
     SPECT_TASK: (("speech_to_spectrogram", "tacotron2_loss", "tacotron2",
                   "speech_to_spectrogram_2pass"), tuple(SPECT_ARCHS)),
+    TTS_TASK: (("tacotron2_loss", "tacotron2", "fastspeech2_loss", "fastspeech2"),
+               tuple(TTS_ARCHS)),
+    S2T_TASK: (("label_smoothed_cross_entropy",), tuple(S2T_ARCHS)),
 }
 # the two-pass models' criterions, which they alone train with
 TWO_PASS_CRITERIONS = {**dict.fromkeys(UNITY_ARCHS, "speech_to_unit_2pass"),
                        **dict.fromkeys(S2SPECT2_ARCHS, "speech_to_spectrogram_2pass")}
 # the criterions' label smoothing where --label-smoothing is not given
-LABEL_SMOOTHING = {NAR_TASK: 0.2, AR_TASK: 0.1}
+LABEL_SMOOTHING = {NAR_TASK: 0.2, AR_TASK: 0.1, S2T_TASK: 0.1}
 # the optimizer's and schedule's flags beside --lr, --warmup-*, --adam-*
 # and --weight-decay, under JAX's config keys (TrainerConfig.options)
 OPTIONS = ("min_lr", "end_learning_rate", "power", "lr_decay_period", "lr_deacy_period",
@@ -229,12 +247,19 @@ def _flag(p: argparse.ArgumentParser, name: str, **kw) -> None:
 
 
 def add_two_pass_args(p: argparse.ArgumentParser) -> None:
-    """The flags of the two-pass and spectrogram models (UnitY, s2spect,
-    Translatotron2), which cli.generate takes as well."""
+    """The flags of the two-pass, spectrogram, TTS and S2T models (UnitY,
+    s2spect, Translatotron2, tts_transformer, FastSpeech2, the S2T model),
+    which cli.generate takes as well."""
     _flag(p, "--target-is-code", help="--task speech_to_speech: unit targets (else mels)")
     for flag in ("--translation-decoder-layers", "--synthesizer-encoder-layers",
-                 "--decoder-transformer-layers", "--output-frame-dim", "--prenet-dim"):
+                 "--decoder-transformer-layers", "--output-frame-dim", "--prenet-dim",
+                 "--encoder-transformer-layers", "--encoder-conv-layers",
+                 "--encoder-conv-kernel-size"):
         p.add_argument(flag, type=int, help="default: the architecture's")
+    p.add_argument("--encoder-dropout", type=float,
+                   help="the TTS encoder's conv dropout (default: the architecture's)")
+    _flag(p, "--share-decoder-input-output-embed",
+          help="the S2T decoder's output projection tied to its embedding")
     p.add_argument("--prenet-layers", type=int, default=2)
     p.add_argument("--prenet-dropout", type=float, default=0.5)
     p.add_argument("--postnet-layers", type=int, default=5)
@@ -408,6 +433,11 @@ def check_args(p: argparse.ArgumentParser, args: argparse.Namespace) -> argparse
         args.criterion = want
     elif args.criterion in TWO_PASS_CRITERIONS.values():
         p.error(f"--criterion {args.criterion}: a two-pass model's ({args.arch} is not one)")
+    elif args.arch in TTS_CRITERIONS:
+        want = TTS_CRITERIONS[args.arch]
+        if args.criterion not in (None,) + want:
+            p.error(f"--arch {args.arch} trains with --criterion {' or '.join(want)}")
+        args.criterion = args.criterion or want[0]
     if args.criterion is not None and args.criterion not in criteria:
         p.error(f"--criterion {args.criterion}: task {args.task} trains {' or '.join(criteria)}")
     args.criterion = args.criterion or criteria[0]
@@ -416,17 +446,33 @@ def check_args(p: argparse.ArgumentParser, args: argparse.Namespace) -> argparse
                 "JAX's: its criterions pass none, and its Denoiser asserts one, "
                 "models/diffusion.py:271); build LatentDiffusionModule(use_cond=True) and "
                 "pass batches with a prompt instead")
-    if args.task in (AR_TASK, SPECT_TASK):
+    if args.task in (AR_TASK, SPECT_TASK, TTS_TASK, S2T_TASK):
         options = (("--cg-prob", args.cg_prob), ("--use-sp", args.use_sp),
                    ("--use-side", args.use_side),
                    ("--multitask-ctc-vocab", args.multitask_ctc_vocab),
                    ("--encoder-remat", args.encoder_remat), ("--quant-int8", args.quant_int8))
-        if args.task == SPECT_TASK:
+        if args.task != AR_TASK:
             options += (("--target-speaker-embed", args.target_speaker_embed),)
+        if args.task in (TTS_TASK, S2T_TASK):
+            options += (("--multitask-config-yaml", args.multitask_config_yaml),)
+        if args.task == S2T_TASK:
+            options += (("--n-frames-per-step", args.n_frames_per_step > 1),)
         for flag, value in options:
             if value:
                 p.error(f"{flag}: an option of the NAR model; {args.arch} has none, as JAX's")
-    if args.task == SPECT_TASK:
+        if args.task == TTS_TASK and args.n_frames_per_step > 1:
+            p.error("--n-frames-per-step: the text_to_speech dataset does not stack its "
+                    "frames (nor does JAX's, whose criterion then fails on the shapes)")
+    if args.task != S2T_TASK and args.share_decoder_input_output_embed:
+        p.error(f"--share-decoder-input-output-embed: an option of the S2T model (--task "
+                f"{S2T_TASK})")
+    if args.task == TTS_TASK:
+        TTS_ARCHS[args.arch](vars(args))
+    elif args.task == S2T_TASK:
+        S2T_ARCHS[args.arch](vars(args))
+        if args.label_smoothing is None:
+            args.label_smoothing = LABEL_SMOOTHING[args.task]
+    elif args.task == SPECT_TASK:
         SPECT_ARCHS[args.arch](vars(args))
         if args.prenet_dim is None:
             args.prenet_dim = 256

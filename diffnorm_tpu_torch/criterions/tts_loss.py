@@ -1,7 +1,7 @@
 """The spectrogram decoders' criterions (the port of
-diffnorm_tpu/criterions/tts_loss.py:21-124; reference
-fairseq/criterions/tacotron2_loss.py and speech_to_speech_criterion.py:333,
-:434-520).
+diffnorm_tpu/criterions/tts_loss.py:21-180; reference
+fairseq/criterions/tacotron2_loss.py, fastspeech2_loss.py and
+speech_to_speech_criterion.py:333, :434-520).
 
 * "tacotron2_loss" (also "tacotron2" and "speech_to_spectrogram", the
   single-pass s2spect's): the teacher-forced forward on prev_feats and
@@ -15,6 +15,13 @@ fairseq/criterions/tacotron2_loss.py and speech_to_speech_criterion.py:333,
   tgt_tokens; every multitask term, the first pass's included, is added to
   the mean mel loss with denominator 1, the reference's mix of a mean and
   sums, kept as JAX keeps it.
+* "fastspeech2_loss" (also "fastspeech2"; JAX tts_loss.py:126-180,
+  reference fastspeech2_loss.py): the FastSpeech2 forward on the gold
+  durations, pitches and energies; masked L1 on `mel` and `mel_post`, cut
+  to the batch's longest target and over the valid target frames (a mean
+  over frames x bins), plus MSE on log(1 + duration), pitch and energy over
+  the valid source tokens (`src_tokens != PAD`). sample_size =
+  nsentences; the loss is a mean ("mean_loss").
 """
 
 from __future__ import annotations
@@ -25,6 +32,8 @@ import torch
 
 from diffnorm_tpu_torch.criterions.nar_loss import _multitask_prev, apply_multitask_losses
 from diffnorm_tpu_torch.models.tts_transformer import tts_loss
+
+PAD = 1
 
 
 class Tacotron2Loss:
@@ -79,6 +88,48 @@ class SpeechToSpectrogram2PassLoss(Tacotron2Loss):
         return apply_multitask_losses(self.multitask, out, batch, loss, metrics, 1.0)
 
 
+class FastSpeech2Loss:
+    grad_accum = "mean_loss"
+
+    def __call__(self, model, batch: Dict[str, torch.Tensor],
+                 generator: Optional[torch.Generator] = None
+                 ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+        """batch: src_tokens [B, S], durations [B, S], pitches and energies
+        [B, S], feat_tgt [B, T, D], tgt_lengths [B]. Returns (loss,
+        metrics); `generator` is not read (the model's dropouts draw from
+        the trainer's stream)."""
+        durations = batch["durations"]
+        pitches, energies = batch["pitches"].float(), batch["energies"].float()
+        out = model(batch["src_tokens"], durations=durations, pitches=pitches,
+                    energies=energies)
+        feat_tgt = batch["feat_tgt"].float()
+        b, t, d = feat_tgt.shape
+        tgt_mask = (torch.arange(t, device=feat_tgt.device)[None, :]
+                    < batch["tgt_lengths"][:, None])
+        denom = torch.clamp(tgt_mask.sum(), min=1) * d
+
+        def masked_l1(pred):
+            diff = (pred[:, :t].float() - feat_tgt).abs()
+            return torch.where(tgt_mask[..., None], diff, 0.0).sum() / denom
+
+        l1 = masked_l1(out["mel"]) + masked_l1(out["mel_post"])
+        src_valid = batch["src_tokens"] != PAD
+        n_src = torch.clamp(src_valid.sum(), min=1)
+
+        def masked_mse(pred, tgt):
+            return torch.where(src_valid, (pred.float() - tgt).square(), 0.0).sum() / n_src
+
+        dur_loss = masked_mse(out["log_dur"], torch.log1p(durations.float()))
+        pitch_loss = masked_mse(out["pitch"], pitches)
+        energy_loss = masked_mse(out["energy"], energies)
+        loss = l1 + dur_loss + pitch_loss + energy_loss
+        return loss, {"loss": loss, "l1_loss": l1, "dur_loss": dur_loss,
+                      "pitch_loss": pitch_loss, "energy_loss": energy_loss,
+                      "ntokens": batch["tgt_lengths"].sum(), "nsentences": b,
+                      "sample_size": b}
+
+
 CRITERIONS = {"tacotron2_loss": Tacotron2Loss, "tacotron2": Tacotron2Loss,
               "speech_to_spectrogram": Tacotron2Loss,
-              "speech_to_spectrogram_2pass": SpeechToSpectrogram2PassLoss}
+              "speech_to_spectrogram_2pass": SpeechToSpectrogram2PassLoss,
+              "fastspeech2_loss": FastSpeech2Loss, "fastspeech2": FastSpeech2Loss}

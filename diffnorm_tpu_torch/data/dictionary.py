@@ -2,7 +2,9 @@
 of diffnorm_tpu/data/dictionary.py): bos=0 <s>, pad=1 <pad>, eos=2 </s>,
 unk=3 <unk>, then the symbols. The unit dictionary's symbols are the units
 "0".."K-1", so unit k is index k + 4; `load` reads a fairseq dictionary file
-(`symbol count` lines, the multitask tasks' letter dictionaries)."""
+(`symbol count` lines, the multitask tasks' letter dictionaries, the S2T
+and TTS tasks' dict.txt); `add_symbol` grows one (the TTS task's dictionary
+built from its training text)."""
 
 from __future__ import annotations
 
@@ -56,6 +58,13 @@ class Dictionary:
                     space = ""
                 symbols.append(sym if space else line)
         return cls(symbols=symbols)
+
+    def add_symbol(self, sym: str) -> int:
+        """The index of `sym`, appended where it is new."""
+        if sym not in self.indices:
+            self.indices[sym] = len(self.symbols)
+            self.symbols.append(sym)
+        return self.indices[sym]
 
     def index(self, sym: str) -> int:
         return self.indices.get(sym, UNK)

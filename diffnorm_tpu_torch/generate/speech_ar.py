@@ -1,6 +1,7 @@
 """Autoregressive spectrogram generation (the port of
 diffnorm_tpu/generate/speech_ar.py; reference fairseq/speech_generator.py
-AutoRegressiveSpeechGenerator:36-127).
+AutoRegressiveSpeechGenerator:36-127), for the speech-input s2spect and the
+text-input tts_transformer.
 
 `ar_rollout` is JAX's shape-static rollout: all `max_iter` steps run, each
 on the decoder's `KVCache` from the previous frame (zeros first); a row's
@@ -67,14 +68,21 @@ def ar_rollout(model, enc: torch.Tensor, enc_mask: torch.Tensor, max_iter: int =
 
 
 @torch.no_grad()
-def ar_speech_generate(model, src: torch.Tensor, src_lengths: torch.Tensor,
+def ar_speech_generate(model, src: torch.Tensor, src_lengths: Optional[torch.Tensor] = None,
                        max_iter: int = 512, eos_prob_threshold: float = 0.5,
                        generator: Optional[torch.Generator] = None,
                        gcmvn_stats: Optional[Dict] = None):
-    """The speech-input model's encode, then `ar_rollout`: (feat [B,
-    max_iter * k, raw_dim] postnet-refined and denormalized, out_lens [B],
-    eos_prob [B, max_iter * k])."""
-    enc, enc_mask = model.encode(src, src_lengths)
+    """The model's encode, then `ar_rollout`: (feat [B, max_iter * k,
+    raw_dim] postnet-refined and denormalized, out_lens [B], eos_prob [B,
+    max_iter * k]). A speech-input encoder (`encode_needs_lengths`, s2spect)
+    takes `src_lengths`; the text-input TTS encoder takes the tokens alone,
+    its mask coming from the pad id (JAX speech_ar.py:129-137)."""
+    if getattr(model, "encode_needs_lengths", False):
+        if src_lengths is None:
+            raise ValueError("this encoder needs src_lengths")
+        enc, enc_mask = model.encode(src, src_lengths)
+    else:
+        enc, enc_mask = model.encode(src)
     return ar_rollout(model, enc, enc_mask, max_iter=max_iter,
                       eos_prob_threshold=eos_prob_threshold, generator=generator,
                       gcmvn_stats=gcmvn_stats)
@@ -106,7 +114,7 @@ class ARSpeechGenerator:
         self.model, self.vocoder, self.gcmvn_stats = model, vocoder, gcmvn_stats
         self.max_iter, self.eos_prob_threshold = max_iter, eos_prob_threshold
 
-    def generate(self, src: torch.Tensor, src_lengths: torch.Tensor,
+    def generate(self, src: torch.Tensor, src_lengths: Optional[torch.Tensor] = None,
                  generator: Optional[torch.Generator] = None) -> List[Dict]:
         return finalize(*ar_speech_generate(
             self.model, src, src_lengths, max_iter=self.max_iter,

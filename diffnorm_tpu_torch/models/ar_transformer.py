@@ -49,7 +49,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from diffnorm_tpu_torch.models.conformer import ConformerEncoder, layer_norm
-from diffnorm_tpu_torch.models.layers import Dense, Dropout, sinusoidal_positions
+from diffnorm_tpu_torch.models.layers import Dense, Dropout, arch_default, sinusoidal_positions
 from diffnorm_tpu_torch.models.nar_transformer import (
     AuxTaskSpec,
     DecoderLayer,
@@ -298,11 +298,6 @@ class ARS2UTModule(nn.Module):
         return out
 
 
-def _default(cfg: dict, key: str, value) -> None:
-    if cfg.get(key) is None:
-        cfg[key] = value
-
-
 def s2ut_conformer_arch(cfg: dict) -> None:
     """The `s2ut_conformer` defaults for every width left None in `cfg`
     (JAX ar_transformer.py:408-417, and build_model's depthwise kernel, :394):
@@ -313,24 +308,24 @@ def s2ut_conformer_arch(cfg: dict) -> None:
                        ("decoder_layers", 6), ("decoder_attention_heads", 8),
                        ("dropout", 0.1), ("encoder_type", "conformer"),
                        ("depthwise_conv_kernel_size", 31)):
-        _default(cfg, key, value)
+        arch_default(cfg, key, value)
 
 
 def s2ut_transformer_arch(cfg: dict) -> None:
     """`s2ut_transformer` (reference s2ut_architecture_base): the S2T
     transformer encoder, the decoder's widths defaulting to the encoder's."""
     cfg["encoder_type"] = "transformer"
-    _default(cfg, "encoder_embed_dim", 512)
-    _default(cfg, "encoder_ffn_embed_dim", 2048)
-    _default(cfg, "decoder_embed_dim", cfg["encoder_embed_dim"])
-    _default(cfg, "decoder_ffn_embed_dim", cfg["encoder_ffn_embed_dim"])
+    arch_default(cfg, "encoder_embed_dim", 512)
+    arch_default(cfg, "encoder_ffn_embed_dim", 2048)
+    arch_default(cfg, "decoder_embed_dim", cfg["encoder_embed_dim"])
+    arch_default(cfg, "decoder_ffn_embed_dim", cfg["encoder_ffn_embed_dim"])
     s2ut_conformer_arch(cfg)
 
 
 def s2ut_transformer_fisher_arch(cfg: dict) -> None:
     """`s2ut_transformer_fisher` (reference s2ut_architecture_fisher)."""
-    _default(cfg, "encoder_embed_dim", 256)
-    _default(cfg, "encoder_attention_heads", 4)
+    arch_default(cfg, "encoder_embed_dim", 256)
+    arch_default(cfg, "encoder_attention_heads", 4)
     s2ut_transformer_arch(cfg)
 
 

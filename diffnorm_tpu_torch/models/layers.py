@@ -491,6 +491,12 @@ def sinusoidal_positions(mask: torch.Tensor, dim: int,
     return torch.where((positions == padding_idx)[..., None], 0.0, emb)
 
 
+def arch_default(cfg: dict, key: str, value) -> None:
+    """An architecture's default: cfg[key] = value where the flag was left
+    unset (None), as JAX's cfg.setdefault on an absent key."""
+    if cfg.get(key) is None:
+        cfg[key] = value
+
 class ConditionableTransformer(nn.Module):
     """Pre-norm transformer: per layer RMSNorm -> masked MHA -> residual ->
     RMSNorm -> GEGLU FF -> residual; then RMSNorm and an unbiased `to_pred`.

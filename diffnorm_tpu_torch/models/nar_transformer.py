@@ -56,7 +56,13 @@ import torch.nn.functional as F
 from torch import nn
 
 from diffnorm_tpu_torch.models.conformer import ConformerEncoder, layer_norm
-from diffnorm_tpu_torch.models.layers import Dense, Dropout, DropoutSite, sinusoidal_positions
+from diffnorm_tpu_torch.models.layers import (
+    Dense,
+    Dropout,
+    DropoutSite,
+    arch_default,
+    sinusoidal_positions,
+)
 from diffnorm_tpu_torch.models.stacked import OFFSET, StackedEmbedding, pack_units
 from diffnorm_tpu_torch.ops import attention as attention_ops
 from diffnorm_tpu_torch.ops.quant import calibrating, quant_sites
@@ -472,24 +478,19 @@ def calibrate_act_scales(model: NARS2UTModule, src: torch.Tensor, src_lengths: t
     return sum(site.act_amax is not None for _, site in quant_sites(model))
 
 
-def _default(cfg: dict, key: str, value) -> None:
-    if cfg.get(key) is None:
-        cfg[key] = value
-
-
 def nar_s2ut_conformer_arch(cfg: dict) -> None:
     """The `nar_s2ut_conformer` defaults for every width left None in
     `cfg` (JAX nar_transformer.py:584-606); only ESPnet rel-pos attention is
     implemented, as in JAX."""
     for key, value in (("encoder_embed_dim", 512), ("encoder_ffn_embed_dim", 2048),
                        ("encoder_layers", 12), ("encoder_attention_heads", 8)):
-        _default(cfg, key, value)
-    _default(cfg, "decoder_embed_dim", cfg["encoder_embed_dim"])
-    _default(cfg, "decoder_ffn_embed_dim", cfg["encoder_ffn_embed_dim"])
+        arch_default(cfg, key, value)
+    arch_default(cfg, "decoder_embed_dim", cfg["encoder_embed_dim"])
+    arch_default(cfg, "decoder_ffn_embed_dim", cfg["encoder_ffn_embed_dim"])
     for key, value in (("decoder_layers", 6), ("decoder_attention_heads", 8),
                        ("dropout", 0.1), ("depthwise_conv_kernel_size", 31),
                        ("attn_type", "espnet"), ("pos_enc_type", "rel_pos")):
-        _default(cfg, key, value)
+        arch_default(cfg, key, value)
     if cfg["attn_type"] != "espnet" or cfg["pos_enc_type"] != "rel_pos":
         raise ValueError(
             f"unsupported --attn-type {cfg['attn_type']} / --pos-enc-type "
@@ -498,8 +499,8 @@ def nar_s2ut_conformer_arch(cfg: dict) -> None:
 
 
 def nar_s2ut_conformer_fisher_arch(cfg: dict) -> None:
-    _default(cfg, "encoder_embed_dim", 256)
-    _default(cfg, "encoder_attention_heads", 4)
+    arch_default(cfg, "encoder_embed_dim", 256)
+    arch_default(cfg, "encoder_attention_heads", 4)
     nar_s2ut_conformer_arch(cfg)
 
 

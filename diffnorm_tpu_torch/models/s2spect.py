@@ -19,6 +19,7 @@ import torch
 from torch import nn
 
 from diffnorm_tpu_torch.models.conformer import ConformerEncoder
+from diffnorm_tpu_torch.models.layers import arch_default
 from diffnorm_tpu_torch.models.s2t_transformer import S2TTransformerEncoder
 from diffnorm_tpu_torch.models.tts_transformer import TTSDecoderMixin
 
@@ -27,6 +28,8 @@ class S2SpecTModule(TTSDecoderMixin, nn.Module):
     """Speech encoder + spectrogram decoder (module docstring); widths
     default to s2spect_transformer's. The decoder cross-attends features of
     `context_dim` (default the encoder's width)."""
+
+    encode_needs_lengths = True  # generate/speech_ar.py
 
     def __init__(self, in_channels: int = 80, enc_dim: int = 512, enc_ffn_dim: int = 2048,
                  enc_layers: int = 12, enc_heads: int = 8, encoder_type: str = "transformer",
@@ -67,26 +70,21 @@ class S2SpecTModule(TTSDecoderMixin, nn.Module):
         return {"post_feat": post, "feat": feat, "eos_logits": eos_logits}
 
 
-def _default(cfg: dict, key: str, value) -> None:
-    if cfg.get(key) is None:
-        cfg[key] = value
-
-
 def _spect_decoder_defaults(cfg: dict) -> None:
     for key, value in (("decoder_embed_dim", 512), ("decoder_ffn_embed_dim", 2048),
                        ("decoder_transformer_layers", 6), ("decoder_attention_heads", 4),
                        ("output_frame_dim", 80), ("dropout", 0.1),
                        ("depthwise_conv_kernel_size", 31)):
-        _default(cfg, key, value)
+        arch_default(cfg, key, value)
 
 
 def s2spect_transformer_arch(cfg: dict) -> None:
     """fairseq's s2spect_architecture_base (JAX s2spect.py:118-130) for the
     widths left None in `cfg`."""
-    _default(cfg, "encoder_type", "transformer")
+    arch_default(cfg, "encoder_type", "transformer")
     for key, value in (("encoder_embed_dim", 512), ("encoder_ffn_embed_dim", 2048),
                        ("encoder_layers", 12), ("encoder_attention_heads", 8)):
-        _default(cfg, key, value)
+        arch_default(cfg, key, value)
     _spect_decoder_defaults(cfg)
 
 
@@ -94,7 +92,7 @@ def s2spect_transformer_fisher_arch(cfg: dict) -> None:
     """s2spect_architecture_fisher (JAX s2spect.py:133-141)."""
     for key, value in (("encoder_embed_dim", 256), ("encoder_ffn_embed_dim", 256 * 8),
                        ("encoder_attention_heads", 4), ("prenet_dim", 32)):
-        _default(cfg, key, value)
+        arch_default(cfg, key, value)
     s2spect_transformer_arch(cfg)
 
 
@@ -104,7 +102,7 @@ def s2spect_conformer_arch(cfg: dict) -> None:
     cfg["encoder_type"] = "conformer"
     for key, value in (("encoder_embed_dim", 256), ("encoder_ffn_embed_dim", 2048),
                        ("encoder_layers", 16), ("encoder_attention_heads", 4)):
-        _default(cfg, key, value)
+        arch_default(cfg, key, value)
     s2spect_transformer_arch(cfg)
 
 

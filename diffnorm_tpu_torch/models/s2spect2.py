@@ -21,6 +21,7 @@ from typing import Dict, Optional, Sequence
 import torch
 
 from diffnorm_tpu_torch.models.ar_transformer import ARUnitDecoder
+from diffnorm_tpu_torch.models.layers import arch_default
 from diffnorm_tpu_torch.models.nar_transformer import (
     AuxTaskSpec,
     aux_head_outputs,
@@ -88,11 +89,6 @@ class S2SpecT2Module(FirstPassMixin, S2SpecTModule):
         return out
 
 
-def _default(cfg: dict, key: str, value) -> None:
-    if cfg.get(key) is None:
-        cfg[key] = value
-
-
 def s2spect2_conformer_arch(cfg: dict) -> None:
     """s2spect2_conformer's defaults (JAX s2spect2.py:233-250): encoder 256 x
     16, 4 heads, FFN 2048; decoder 512 x 6, 4 heads, FFN 4 x its width; 80
@@ -102,12 +98,12 @@ def s2spect2_conformer_arch(cfg: dict) -> None:
                        ("encoder_layers", 16), ("encoder_attention_heads", 4),
                        ("depthwise_conv_kernel_size", 31), ("dropout", 0.1),
                        ("decoder_embed_dim", 512)):
-        _default(cfg, key, value)
+        arch_default(cfg, key, value)
     for key, value in (("decoder_ffn_embed_dim", 4 * cfg["decoder_embed_dim"]),
                        ("decoder_transformer_layers", 6), ("decoder_attention_heads", 4),
                        ("output_frame_dim", 80), ("translation_decoder_layers", 4),
                        ("synthesizer_encoder_layers", 0)):
-        _default(cfg, key, value)
+        arch_default(cfg, key, value)
 
 
 ARCHS = {"s2spect2_conformer": s2spect2_conformer_arch,

@@ -25,7 +25,19 @@ PRNG stream cannot be reproduced, so the port's draws are its own.
 `tts_loss` is JAX's Tacotron2 criterion: masked L1 + MSE on the pre- and
 post-net frames, BCE with logits on the EOS head, positive at each row's
 last valid frame and weighted by `bce_pos_weight`, means over the valid
-frames. The text encoder and the `tts_transformer` model are not ported.
+frames.
+
+`TTSTransformerModule` is the text-input model (`tts_transformer`, JAX
+tts_transformer.py:131-202; reference TTSTransformerEncoder :45-131): the
+token embedding (not scaled), `conv_layers` x (SAME conv of
+`conv_kernel`, BatchNorm with flax's momentum 0.99, ReLU, dropout
+`conv_dropout`), `prenet_proj`, plus `enc_pos_alpha` times the sinusoidal
+positions keyed on the pad structure (padding_idx PAD), dropout, the
+`TextEncoderLayer`s under the mask `tokens != PAD` and `enc_norm`; then the
+spectrogram decoder above over the encoder's width. Its encoder takes no
+lengths (`encode_needs_lengths` False, which `generate/speech_ar.py`
+reads). It attends a few hundred text tokens at most, so it never reaches
+the flash-attention kernel.
 """
 
 from __future__ import annotations
@@ -38,8 +50,15 @@ import torch.nn.functional as F
 from torch import nn
 
 from diffnorm_tpu_torch.models.ar_transformer import KVCache, cached_layers, init_layer_cache
+from diffnorm_tpu_torch.models.cmlm_text import TextEncoderLayer
 from diffnorm_tpu_torch.models.conformer import BatchNorm, Conv1d, layer_norm
-from diffnorm_tpu_torch.models.layers import Dense, Dropout, DropoutSite
+from diffnorm_tpu_torch.models.layers import (
+    Dense,
+    Dropout,
+    DropoutSite,
+    arch_default,
+    sinusoidal_positions,
+)
 from diffnorm_tpu_torch.models.nar_transformer import DecoderLayer
 from diffnorm_tpu_torch.ops import attention as attention_ops
 
@@ -184,6 +203,67 @@ class TTSDecoderMixin:
         return feat + self.postnet(feat)
 
 
+class TTSTransformerModule(TTSDecoderMixin, nn.Module):
+    """Text encoder + spectrogram decoder (module docstring); widths default
+    to tts_transformer_base's, the decoder as wide as the encoder."""
+
+    encode_needs_lengths = False
+
+    def __init__(self, vocab_size: int, dim: int = 512, ffn_dim: int = 2048,
+                 encoder_layers: int = 6, decoder_layers: int = 6, heads: int = 4,
+                 dropout: float = 0.1, out_dim: int = 80, n_frames_per_step: int = 1,
+                 conv_layers: int = 3, conv_kernel: int = 5, conv_dropout: float = 0.5,
+                 prenet_layers: int = 2, prenet_dim: int = 256, prenet_dropout: float = 0.5,
+                 postnet_layers: int = 5, postnet_dim: int = 512, postnet_kernel: int = 5,
+                 postnet_dropout: float = 0.5):
+        super().__init__()
+        self.n_conv, self.n_enc_layers = conv_layers, encoder_layers
+        self.embed_tokens = nn.Embedding(vocab_size, dim)
+        nn.init.normal_(self.embed_tokens.weight, std=dim ** -0.5)
+        # flax's SAME: k - 1 frames of zeros, the odd one after
+        self.conv_pad = ((conv_kernel - 1) // 2, conv_kernel // 2)
+        for i in range(conv_layers):
+            self.add_module(f"enc_conv_{i}", Conv1d(dim, dim, conv_kernel))
+            self.add_module(f"enc_bn_{i}", BatchNorm(dim, momentum=0.99))
+        self.prenet_proj = Dense(dim, dim)
+        for i in range(encoder_layers):
+            self.add_module(f"enc_layer_{i}", TextEncoderLayer(dim, ffn_dim, heads, dropout))
+        self.enc_norm = layer_norm(dim)
+        self.enc_pos_alpha = nn.Parameter(torch.ones(1))
+        self.enc_conv_dropout = Dropout(conv_dropout)
+        self.enc_dropout = Dropout(dropout)
+        self._setup_tts_decoder(dim, ffn_dim, decoder_layers, heads, dropout, out_dim,
+                                n_frames_per_step, dim, prenet_layers, prenet_dim,
+                                prenet_dropout, postnet_layers, postnet_dim, postnet_kernel,
+                                postnet_dropout)
+
+    def encode(self, src_tokens: torch.Tensor):
+        """(enc [B, S, dim], enc_mask [B, S] True = valid) of tokens [B, S]."""
+        valid = src_tokens != PAD
+        x = self.embed_tokens(src_tokens)
+        for i in range(self.n_conv):
+            x = getattr(self, f"enc_conv_{i}")(F.pad(x, (0, 0) + self.conv_pad))
+            x = self.enc_conv_dropout(F.relu(getattr(self, f"enc_bn_{i}")(x)))
+        x = self.prenet_proj(x)
+        x = x + self.enc_pos_alpha * sinusoidal_positions(valid, self.dim,
+                                                          padding_idx=PAD).to(x.dtype)
+        x = self.enc_dropout(x)
+        for i in range(self.n_enc_layers):
+            x = getattr(self, f"enc_layer_{i}")(x, valid)
+        return self.enc_norm(x), valid
+
+    def forward(self, src_tokens: torch.Tensor, src_lengths: Optional[torch.Tensor],
+                prev_feats: torch.Tensor, tgt_mask: torch.Tensor,
+                generator: Optional[torch.Generator] = None) -> Dict:
+        """Teacher-forced: {"post_feat", "feat" [B, T, out_dim], "eos_logits"
+        [B, T]}; `src_lengths` is not read (the mask comes from the pad id),
+        the prenet draws from `generator`."""
+        enc, enc_mask = self.encode(src_tokens)
+        post, feat, eos_logits = self.decode_full(prev_feats, tgt_mask, enc, enc_mask,
+                                                  generator=generator)
+        return {"post_feat": post, "feat": feat, "eos_logits": eos_logits}
+
+
 def tts_loss(out: Dict, feat_tgt: torch.Tensor, tgt_lengths: torch.Tensor,
              bce_pos_weight: float = 1.0):
     """(loss, {"loss", "l1_loss", "mse_loss", "eos_loss"}) of the decoder's
@@ -209,3 +289,19 @@ def tts_loss(out: Dict, feat_tgt: torch.Tensor, tgt_lengths: torch.Tensor,
     eos_loss = torch.where(mask, per, 0.0).sum() / denom
     loss = l1 + mse + eos_loss
     return loss, {"loss": loss, "l1_loss": l1, "mse_loss": mse, "eos_loss": eos_loss}
+
+
+def tts_transformer_base_arch(cfg: dict) -> None:
+    """tts_transformer_base's defaults for the widths left None in `cfg`
+    (JAX tts_transformer.py:327-337, and build_model's defaults, :296-322)."""
+    for key, value in (("encoder_embed_dim", 512), ("encoder_ffn_embed_dim", 2048),
+                       ("encoder_transformer_layers", 6), ("decoder_transformer_layers", 6),
+                       ("encoder_attention_heads", 4), ("dropout", 0.1),
+                       ("output_frame_dim", 80), ("prenet_dim", 256),
+                       ("postnet_conv_dim", 512), ("encoder_conv_layers", 3),
+                       ("encoder_conv_kernel_size", 5), ("encoder_dropout", 0.5)):
+        arch_default(cfg, key, value)
+
+
+ARCHS = {"tts_transformer": tts_transformer_base_arch,
+         "tts_transformer_base": tts_transformer_base_arch}

@@ -10,8 +10,9 @@ text-to-unit encoder, and a second-pass unit decoder:
   layers at the main decoder's width and heads, its task's dropout, the
   shared embedding;
 * the second pass reads the first pass's features after its final norm,
-  refined by `synthesizer_encoder` (`TextEncoderNoEmb`, pre-norm layers with
-  a ReLU FF and a final LayerNorm) when --synthesizer-encoder-layers > 0;
+  refined by `synthesizer_encoder` (`TextEncoderNoEmb`: pre-norm layers
+  with a ReLU FF, `models/cmlm_text.py`'s `TextEncoderLayer`, and a final
+  LayerNorm) when --synthesizer-encoder-layers > 0;
 * the unit decoder (`decoder`) cross-attends those features under the
   first-pass token mask;
 * the other multitask tasks are the NAR model's aux heads over encoder or
@@ -30,44 +31,20 @@ from __future__ import annotations
 from typing import Dict, Optional, Sequence
 
 import torch
-import torch.nn.functional as F
 from torch import nn
 
 from diffnorm_tpu_torch.models.ar_transformer import ARUnitDecoder, KVCache
+from diffnorm_tpu_torch.models.cmlm_text import TextEncoderLayer
 from diffnorm_tpu_torch.models.conformer import ConformerEncoder, layer_norm
-from diffnorm_tpu_torch.models.layers import Dense, Dropout
+from diffnorm_tpu_torch.models.layers import Dense, arch_default
 from diffnorm_tpu_torch.models.nar_transformer import (
     AuxTaskSpec,
-    MultiheadAttention,
     NARS2UTModule,
     aux_head_outputs,
     build_aux_heads,
 )
 
 PAD, BOS, EOS, UNK = 1, 0, 2, 3
-
-
-class TextEncoderLayer(nn.Module):
-    """Pre-norm transformer encoder layer (fairseq's TransformerEncoderLayer
-    with normalize_before): self-attention under a key-padding mask, then a
-    ReLU FF; `dropout` drops attention probabilities, each sublayer's output
-    and the FF activation."""
-
-    def __init__(self, dim: int, ffn_dim: int, heads: int, dropout: float = 0.0):
-        super().__init__()
-        self.self_attn_layer_norm = layer_norm(dim)
-        self.self_attn = MultiheadAttention(dim, heads, dropout)
-        self.self_attn_dropout = Dropout(dropout)
-        self.final_layer_norm = layer_norm(dim)
-        self.fc1 = Dense(dim, ffn_dim)
-        self.activation_dropout = Dropout(dropout)
-        self.fc2 = Dense(ffn_dim, dim)
-        self.ff_dropout = Dropout(dropout)
-
-    def forward(self, x: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
-        x = x + self.self_attn_dropout(self.self_attn(self.self_attn_layer_norm(x), mask=mask))
-        h = self.activation_dropout(F.relu(self.fc1(self.final_layer_norm(x))))
-        return x + self.ff_dropout(self.fc2(h))
 
 
 class TextEncoderNoEmb(nn.Module):
@@ -204,11 +181,6 @@ class UnityS2UTModule(FirstPassMixin, nn.Module):
         return out
 
 
-def _default(cfg: dict, key: str, value) -> None:
-    if cfg.get(key) is None:
-        cfg[key] = value
-
-
 def unity_conformer_arch(cfg: dict) -> None:
     """unity_conformer's defaults for every width left None in `cfg` (JAX
     unity.py:331-345): encoder 256 x 16, 4 heads, FFN 2048, depthwise kernel
@@ -217,13 +189,13 @@ def unity_conformer_arch(cfg: dict) -> None:
     for key, value in (("encoder_embed_dim", 256), ("encoder_ffn_embed_dim", 2048),
                        ("encoder_layers", 16), ("encoder_attention_heads", 4),
                        ("depthwise_conv_kernel_size", 31)):
-        _default(cfg, key, value)
+        arch_default(cfg, key, value)
     for key, value in (("decoder_embed_dim", cfg["encoder_embed_dim"]),
                        ("decoder_ffn_embed_dim", cfg["encoder_ffn_embed_dim"]),
                        ("decoder_layers", 6), ("decoder_attention_heads", 8),
                        ("translation_decoder_layers", 4), ("synthesizer_encoder_layers", 0),
                        ("dropout", 0.1), ("encoder_type", "conformer")):
-        _default(cfg, key, value)
+        arch_default(cfg, key, value)
 
 
 ARCHS = {"unity_conformer": unity_conformer_arch,

@@ -1,7 +1,8 @@
 """Training tasks of the PyTorch port (see diffnorm_tpu/tasks): the speech
 VAE stage and the HuBERT VAE, the latent normalizer over a frozen VAE and
 its continuous variants, NAR and AR S2UT training (UnitY among the latter),
-and speech-to-spectrogram training (s2spect, Translatotron2). fairseq's
+speech-to-spectrogram training (s2spect, Translatotron2), text-to-speech
+(tts_transformer, FastSpeech2) and speech-to-text (the S2T model). fairseq's
 "speech_to_speech" is not a task here: cli.train's `check_args` sends it to
 the AR S2UT task with --target-is-code and otherwise to the spectrogram
 task (JAX tasks/aliases.py:25-40)."""
@@ -15,6 +16,8 @@ from diffnorm_tpu_torch.tasks.diffusion_task import (
 )
 from diffnorm_tpu_torch.tasks.nar_s2ut_task import NARS2UTTask
 from diffnorm_tpu_torch.tasks.s2spect_task import DummyS2SpectTask, S2SpectTask
+from diffnorm_tpu_torch.tasks.s2t_task import DummyS2TTask, S2TTask
+from diffnorm_tpu_torch.tasks.tts_task import DummyTTSTask, TextToSpeechTask
 from diffnorm_tpu_torch.tasks.vae_task import SpeechDecoderTask
 
 TASKS = {"speech_decoder": SpeechDecoderTask,
@@ -25,4 +28,8 @@ TASKS = {"speech_decoder": SpeechDecoderTask,
          "speech_to_speech_fasttranslate": NARS2UTTask,
          "speech_to_speech_ar": ARS2UTTask,
          "speech_to_speech_spect": S2SpectTask,
-         "dummy_s2spect": DummyS2SpectTask}
+         "dummy_s2spect": DummyS2SpectTask,
+         "text_to_speech": TextToSpeechTask,
+         "dummy_tts": DummyTTSTask,
+         "speech_to_text": S2TTask,
+         "dummy_s2t": DummyS2TTask}

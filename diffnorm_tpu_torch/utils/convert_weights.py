@@ -2,7 +2,8 @@
 
 The port's copy of diffnorm_tpu/utils/convert_weights.py for the families
 the port runs: HuBERT, the code-HiFi-GAN, the DiffNorm speech VAE and latent
-normalizer, the NAR S2UT conformer and the GAN discriminators, with the
+normalizer, the NAR S2UT conformer, the GAN discriminators and the S2T
+transformer encoder (a function, no CLI type, as in JAX), with the
 key-inventory audit. Each converter returns the flax-path tree JAX's
 converter returns (float32 numpy arrays), which `weights.from_jax_variables`
 loads, so the port's module paths stay flax paths. Layout rules:
@@ -429,6 +430,33 @@ def convert_nar_state(sd: Dict) -> Dict:
 
 
 # -------------------------------------------- GAN discriminators (MPD / MSD)
+
+def convert_s2t_encoder_state(sd: Dict, layers: int) -> Dict:
+    """fairseq S2TTransformerEncoder state dict (s2t_transformer.py:295-376,
+    keys under `encoder.` or bare) -> the `S2TTransformerEncoder` tree
+    {"params": ...} (JAX convert_weights.py:797-836): the subsampler's
+    convs, `layers` pre-LN layers and the final LayerNorm."""
+    if any(k.startswith("encoder.") for k in sd):
+        sd = {k[len("encoder."):]: v for k, v in sd.items() if k.startswith("encoder.")}
+    params: Dict = {"subsample": {}}
+    i = 0
+    while f"subsample.conv_layers.{i}.weight" in sd:
+        params["subsample"][f"conv_{i}"] = {
+            "kernel": conv_w(sd[f"subsample.conv_layers.{i}.weight"]),
+            "bias": _t(sd[f"subsample.conv_layers.{i}.bias"])}
+        i += 1
+    for n in range(layers):
+        p = f"transformer_layers.{n}"
+        params[f"layer_{n}"] = {
+            "self_attn": {proj: _linear_tree(sd, f"{p}.self_attn.{proj}")
+                          for proj in ("q_proj", "k_proj", "v_proj", "out_proj")},
+            "self_attn_layer_norm": _ln(sd, f"{p}.self_attn_layer_norm"),
+            "fc1": _linear_tree(sd, f"{p}.fc1"),
+            "fc2": _linear_tree(sd, f"{p}.fc2"),
+            "final_layer_norm": _ln(sd, f"{p}.final_layer_norm")}
+    params["layer_norm"] = _ln(sd, "layer_norm")
+    return {"params": params}
+
 
 def _fold_spectral_norm(orig, u, v) -> np.ndarray:
     """The eval-mode weight of torch's spectral_norm: W / sigma with sigma =

@@ -42,7 +42,9 @@ NEW_MODULES = ("models/stacked.py", "models/ar_transformer.py", "data/encoders.p
                "generate/beam_search.py", "models/unity.py", "generate/unity.py",
                "models/tts_transformer.py", "models/s2spect.py", "models/s2spect2.py",
                "generate/speech_ar.py", "generate/translatotron2.py",
-               "criterions/tts_loss.py", "tasks/s2spect_task.py")
+               "criterions/tts_loss.py", "tasks/s2spect_task.py", "models/cmlm_text.py",
+               "models/fastspeech2.py", "tasks/tts_task.py", "data/s2t_dataset.py",
+               "tasks/s2t_task.py")
 
 
 def test_no_jax_imports_in_the_port():
@@ -113,6 +115,11 @@ def test_port_imports_with_jax_blocked():
             "import diffnorm_tpu_torch.generate.translatotron2\n"
             "import diffnorm_tpu_torch.criterions.tts_loss\n"
             "import diffnorm_tpu_torch.tasks.s2spect_task\n"
+            "import diffnorm_tpu_torch.models.cmlm_text\n"
+            "import diffnorm_tpu_torch.models.fastspeech2\n"
+            "import diffnorm_tpu_torch.tasks.tts_task\n"
+            "import diffnorm_tpu_torch.data.s2t_dataset\n"
+            "import diffnorm_tpu_torch.tasks.s2t_task\n"
             "from diffnorm_tpu_torch.eval.bleu import corpus_bleu, scorer_name\n"
             "assert scorer_name() == 'counters', scorer_name()\n"
             "assert corpus_bleu(['1 2 3 4 5'], ['1 2 3 4 5']) == 100.0\n"

@@ -7,8 +7,8 @@ weights (an orbax copy): generate-test.txt line for line; Translatotron2
 cli.generate, whose `{id}.npy` frames equal the port's in-process
 translatotron2_generate with the same seed (prenet dropout on), with a
 mel-input vocoder writing `{id}_pred.wav`; cli.validate for both; and the
-refusals: fastspeech2 and text_to_speech (ROADMAP), a criterion a two-pass
-model does not train with."""
+refusals: fastspeech2 under the spectrogram task and text MT (ROADMAP), a
+criterion a two-pass model does not train with."""
 
 import json
 
@@ -160,13 +160,15 @@ def test_translatotron2_cli_train_generate_validate(tmp_path):
 
 
 def test_cli_refusals(tmp_path):
-    """fastspeech2 and text_to_speech are not ported (ROADMAP); a two-pass
-    model trains with its own criterion alone, and a single-pass one not
-    with it; --task speech_to_speech picks its task on --target-is-code."""
+    """fastspeech2 is not a spectrogram translator (it is text_to_speech's,
+    ported since: tests/test_torch_tts_s2t_cli.py) and text MT is not
+    ported (ROADMAP); a two-pass model trains with its own criterion alone,
+    and a single-pass one not with it; --task speech_to_speech picks its
+    task on --target-is-code."""
     from diffnorm_tpu_torch.cli import generate, train
 
     base = [str(tmp_path), "--cpu", "--path", "m.npz"]
-    for extra in (["--task", "text_to_speech"],
+    for extra in (["--task", "translation"],
                   ["--task", "speech_to_speech", "--arch", "fastspeech2"]):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             generate.parse_args(base + extra)
