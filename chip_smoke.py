@@ -306,13 +306,31 @@ tf32 passes); and at D 80 and 128 with ragged keys and a fully masked row.
    of each model (ms, peak, busy). (e) cli.train -> cli.validate ->
    cli.generate for the tts_transformer, FastSpeech2 and s2t_transformer,
    each against its in-process run.
+26. text machine translation at the published widths, seeded, bf16, over
+   32768-token source and target tables: (a) transformer_wmt_en_de_big's
+   beam decode (beam 4, lenpen 0.6, 200 steps) over B64 newstest-length
+   sentences (10-100 tokens; no flash_attention launch) and B2 x 2112 tokens
+   (the second row 1056): its 6 encoder self-attentions ([2,16,2112,64]) and
+   6 encoder attentions a step (q [8,16,1,64]) through the kernel; the cached
+   steps against the full forward; the long form against the plain versions
+   (tokens, teacher-forced logits). (b) cmlm_transformer's mask-predict (10
+   iterations, length beam 5, 256-token canvases, every fill run) and (c)
+   levenshtein_transformer's decode (9 iterations, eos penalty 0) at the
+   same shapes, 6 launches in the encoder and 6 a decoder pass in long form,
+   each held to the plain versions (tokens, the decoder's logits). (d) one
+   update of each at --max-tokens 4096 (ms, peak, busy). (e) cli.preprocess
+   -> cli.train (2 updates, 2 + 2 layers) -> cli.generate -> cli.interactive
+   -> cli.score for each on a seeded bitext, the H- lines against the
+   in-process decodes and the BLEU against cli.generate's.
 Phase 2 times flash_attention also at phase 23's decode step (q
 [10,8,1,64] against k/v [10,8,2112,64], beams of the half-length row
 masked at 1056 keys), its S2T encoder's self-attention ([2,8,2112,64]),
 phase 24's decode steps (UnitY's q [10,8,1,32], Translatotron2's
 [10,4,1,128], s2spect's [2,4,1,128], against 2112 keys) and phase 25's
-FastSpeech2 decoder ([8,2,2048,128] in bf16 and float32) beside SDPA and
-its bound.
+FastSpeech2 decoder ([8,2,2048,128] in bf16 and float32) and phase 26's
+text MT shapes (the big transformer's encoder [2,16,2112,64] and decode step
+q [8,16,1,64], the CMLM decoder's q [10,8,256,64]) beside SDPA and its
+bound.
 The kernels JSON line reports the float32 kernel as flash_attention_f32
 (its launches those of phase 13) beside the bf16 one (phase 6's, phase
 16's long form, the four cli.generate runs of phase 15, phase 18's,
@@ -323,7 +341,8 @@ and phase 22's (22c's CLI run, 22d's updates, 22f's CLI update), where
 flash_attention counts 21a's long-prompt runs, 22d's long-form update,
 phase 23's long-form beam decode and s2ut_transformer forward, phase
 24's long-form decodes and phase 25's bf16 FastSpeech2 runs (in process
-and its CLIs) and long-form S2T decode too; flash_attention_f32 phase 25's
+and its CLIs) and long-form S2T decode and phase 26's long-form text MT
+decodes too; flash_attention_f32 phase 25's
 float32 FastSpeech2 generation and validation beside phase 13's.
 
 Then one JSON line of per-kernel numbers and, last, {"ok": true, "device": ...}.
@@ -340,6 +359,7 @@ import logging
 import math
 import statistics
 import subprocess
+import re
 import sys
 import tempfile
 import time
@@ -1302,6 +1322,15 @@ def check_flash_attention(torch, flash):
         # bf16 and in float32, the model's default type
         ("FastSpeech2 decoder", 8, 2, 2048, 2048, 128, FS2_FLASH_KEYS, bf),
         ("FastSpeech2 decoder float32", 8, 2, 2048, 2048, 128, FS2_FLASH_KEYS, f32),
+        # phase 26's text MT long form (B2 x 2112 tokens, the second row 1056):
+        # transformer_wmt_en_de_big's encoder self-attention (16 heads of 64),
+        # its decode step's encoder attention (beam 4), and the text CMLM's
+        # decoder over its 256-token canvases (length beam 5); the text
+        # encoder at 8 heads is "S2T encoder", the Levenshtein decoder's
+        # encoder attention over its 256-token canvas "path"
+        ("MT encoder", 2, 16, 2112, 2112, 64, [2112, 1056], bf),
+        ("MT decode step", 8, 16, 1, 2112, 64, [2112] * 4 + [1056] * 4, bf),
+        ("CMLM decoder", 10, 8, 256, 2112, 64, [2112] * 5 + [1056] * 5, bf),
         # the S2ST decoder's encoder attention in float32
         ("float32 path", 2, 8, 256, 2112, 64, [2112, 1056], f32),
         # HuBERT's self-attention over a 70 s utterance and over cli.prepare's
@@ -1336,7 +1365,7 @@ def check_flash_attention(torch, flash):
         if what not in ("path", "eval path", "PERFORMANCE.md", "AR decode step", "S2T encoder",
                         "UnitY decode step", "Translatotron2 decode step", "s2spect decode step",
                         "FastSpeech2 decoder", "FastSpeech2 decoder float32",
-                        "float32 path", "HuBERT long form", "HuBERT longest chunk"):
+                        "MT encoder", "MT decode step", "CMLM decoder", "float32 path", "HuBERT long form", "HuBERT longest chunk"):
             continue
         ms = cuda_time_ms(lambda: flash.flash_attention(q, k, v, mask))
         plain_ms = cuda_time_ms(lambda: flash.flash_attention_plain(q, k, v, mask),
@@ -7003,6 +7032,473 @@ def run_tts_s2t(torch, mods, smi):
     return launches
 
 
+# Phase 26: text machine translation at full width (module docstring). The
+# AR transformer_wmt_en_de_big over separate 32768-token source and target
+# tables (WMT'14 En-De's joined BPE size), the text CMLM (cmlm_transformer)
+# and the Levenshtein transformer (levenshtein_transformer), seeded, bf16.
+# Each decodes B64 newstest-length sentences (10-100 tokens, </s> in), which
+# reach no kernel, and B2 x 2112 tokens with the second row half valid
+# (phase 23's key lengths): the text encoder's 6 self-attentions and, per
+# decode step or decoder pass, the decoder's 6 encoder attentions go through
+# flash_attention; the long forms are held to the plain versions.
+MT_VOCAB = 32768
+MT_B, MT_SRC_LENS = 64, (10, 100)
+MT_BEAM, MT_LENPEN, MT_MAX_LEN = 4, 0.6, 200  # fairseq's WMT recipe; its max_len_b 200
+MT_LONG_LENS = (2112, 1056)
+MT_FLASH_LAYERS = 6  # an encoder's self-attentions; a decoder step's or pass's encoder ones
+CMLM_ITER, CMLM_LENGTH_BEAM = 10, 5  # the CMLM paper's mask-predict
+LEV_ITER, NAT_MAX_LEN = 9, 256  # fairseq's NAT recipe; the canvases' width
+# the decodes against their plain versions: tokens equal (the share expected
+# and the hard bound, phase 23's), teacher-forced logits' row-cos; the
+# cached AR steps against the full forward
+MT_AGREE_EXPECTED, MT_AGREE_BOUND, MT_ROW_COS, MT_STEP_COS = 0.5, 0.25, 0.999, 0.9999
+MT_TRAIN_B, MT_TRAIN_MAX = 40, 100  # --max-tokens 4096: 40 rows of at most 100 tokens
+MT_CLI_LAYERS = 2  # the CLIs' depth, where checkpoints are written
+MT_CLI_WORDS = 600
+
+
+def mt_tokens(torch, lengths, seed):
+    """Token rows [B, max(lengths)] on the card: words 4..MT_VOCAB - 1, </s>
+    last, PAD after."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    toks = np.full((len(lengths), max(lengths)), 1, np.int64)
+    for i, n in enumerate(lengths):
+        toks[i, :n - 1] = rng.integers(4, MT_VOCAB, size=n - 1)
+        toks[i, n - 1] = 2
+    return torch.from_numpy(toks).cuda()
+
+
+def mt_shapes(torch, seed):
+    """{what: (src, lengths)}: B64 newstest lengths (longest first, as the
+    batcher orders them) and the B2 long form."""
+    import numpy as np
+
+    short = sorted(np.random.default_rng(seed).integers(MT_SRC_LENS[0], MT_SRC_LENS[1] + 1,
+                                                        MT_B).tolist(), reverse=True)
+    out = {}
+    for what, lengths in (("newstest length", short), ("long form", list(MT_LONG_LENS))):
+        out[what] = (mt_tokens(torch, lengths, seed + len(out)),
+                     torch.tensor(lengths, device="cuda"))
+    return out
+
+
+def mt_model(torch, kind: str, seed: int, vocab: int = MT_VOCAB):
+    """The released model of `kind` (transformer_wmt_en_de_big, cmlm, lev)
+    from `seed`, bf16, eval mode."""
+    from diffnorm_tpu_torch.models.cmlm_text import TextCMLMModule
+    from diffnorm_tpu_torch.models.levenshtein import LevenshteinModule
+    from diffnorm_tpu_torch.models.transformer_text import (
+        TextTransformerModule,
+        transformer_wmt_en_de_big_arch,
+    )
+
+    torch.manual_seed(seed)
+    with torch.device("cuda"):
+        if kind == "transformer":
+            w = {}
+            transformer_wmt_en_de_big_arch(w)
+            model = TextTransformerModule(
+                vocab, vocab, encoder_dim=w["encoder_embed_dim"],
+                encoder_ffn_dim=w["encoder_ffn_embed_dim"], encoder_layers=w["encoder_layers"],
+                encoder_heads=w["encoder_attention_heads"], decoder_dim=w["decoder_embed_dim"],
+                decoder_ffn_dim=w["decoder_ffn_embed_dim"], decoder_layers=w["decoder_layers"],
+                decoder_heads=w["decoder_attention_heads"], dropout=w["dropout"])
+        elif kind == "cmlm":
+            model = TextCMLMModule(vocab, vocab)
+        else:
+            model = LevenshteinModule(vocab, vocab)
+    return model.to(torch.bfloat16).eval()
+
+
+@contextlib.contextmanager
+def counted_passes(module):
+    """[n]: the forward calls of `module` while the block runs."""
+    count = [0]
+    handle = module.register_forward_hook(lambda *_: count.__setitem__(0, count[0] + 1))
+    try:
+        yield count
+    finally:
+        handle.remove()
+
+
+def rows_cos(torch, a, b, mask) -> float:
+    """The least row-cos of a and b [..., V] over the positions of `mask`."""
+    return min_row_cos(torch, a[mask].float(), b[mask].float())
+
+
+def run_mt_ar(torch, mods, smi):
+    """Phase 26a: transformer_wmt_en_de_big's beam decode (beam 4, lenpen
+    0.6, MT_MAX_LEN steps) at both shapes; the cached steps against the
+    full forward; the long form against the plain versions. Returns the
+    counted long-form decode's flash_attention launches."""
+    from diffnorm_tpu_torch.generate.beam_search import ar_generate
+
+    model = mt_model(torch, "transformer", 261)
+    n_params = sum(p.numel() for p in model.parameters())
+    launches = 0
+    for what, (src, lengths) in mt_shapes(torch, 262).items():
+        def decode(n=MT_MAX_LEN):
+            return ar_generate(model, src, lengths, beam_size=MT_BEAM, max_len=n,
+                               len_penalty=MT_LENPEN)
+
+        (seqs, scores), counts, wall = timed_decode(torch, decode, reps=1,
+                                                    warm=lambda: decode(AR_PROFILE_LENS[0]))
+        steps = beam_steps(seqs)
+        flash = counts.get("flash_attention", 0)
+        long_form = what == "long form"
+        want = MT_FLASH_LAYERS * (1 + steps) if long_form else 0
+        short_wall = timed_decode(torch, lambda: decode(AR_PROFILE_LENS[1]), reps=1)[2]
+        busy, kernels = profile_run(torch, lambda: decode(AR_PROFILE_LENS[1]), short_wall)
+        full, stepped = teacher_forced(torch, model, src, lengths, seqs[:, 0])
+        cos = min_row_cos(torch, full, stepped)
+        print(f"transformer_wmt_en_de_big decode, {what}: {n_params / 1e6:.1f} M parameters, "
+              f"B{src.shape[0]} x {src.shape[1]} tokens ({lengths.sum().item()} valid), beam "
+              f"{MT_BEAM}, lenpen {MT_LENPEN}, vocab {MT_VOCAB}, bf16: wall {wall:.4f} s (one "
+              f"run), {steps} steps, {1e3 * wall / steps:.3f} ms a step, "
+              f"{src.shape[0] * steps / wall:.1f} sentence-steps/s; a {AR_PROFILE_LENS[1]}-step "
+              f"decode {short_wall:.4f} s, device busy "
+              + ("not measured" if busy is None else f"{100 * busy:.1f}%, {kernels} kernels")
+              + f"; flash_attention {flash} (expected {want}); best scores "
+              f"{[round(v, 4) for v in scores[:, 0].tolist()[:4]]}; cached steps against the "
+              f"full forward on the best hypotheses ({len(full)} positions) row-cos min "
+              f"{cos:.6f} (bound {MT_STEP_COS}); {smi}")
+        if (flash != want or cos < MT_STEP_COS or seqs.shape != (src.shape[0], MT_BEAM,
+                                                                   MT_MAX_LEN)
+                or not torch.isfinite(scores).all()):
+            fail(f"transformer decode {what}: flash_attention {flash} (expected {want}), "
+                 f"row-cos {cos:.6f}, seqs {tuple(seqs.shape)}")
+        if not long_form:
+            continue
+        launches += flash
+        with plain_versions(*mods):
+            (seqs_p, _), _, wall_p = timed_decode(torch, decode, reps=1,
+                                                  warm=lambda: decode(AR_PROFILE_LENS[0]))
+            full_p, stepped_p = teacher_forced(torch, model, src, lengths, seqs[:, 0])
+        agree = unit_agreement(seqs[:, 0], seqs_p[:, 0])
+        cos_full = min_row_cos(torch, full, full_p)
+        cos_step = min_row_cos(torch, stepped, stepped_p)
+        print(f"transformer_wmt_en_de_big decode, long form, through the plain versions: wall "
+              f"{wall_p:.4f} s; best hypotheses' tokens equal {agree:.4f} (expected >= "
+              f"{MT_AGREE_EXPECTED}, bound {MT_AGREE_BOUND}); teacher-forced on the kernel "
+              f"path's hypotheses, kernel against plain: full forward row-cos min "
+              f"{cos_full:.6f}, cached decode {cos_step:.6f} (bound {MT_ROW_COS}); {smi}")
+        if agree < MT_AGREE_BOUND or min(cos_full, cos_step) < MT_ROW_COS:
+            fail(f"transformer long form against the plain versions: tokens {agree:.4f}, "
+                 f"row-cos {cos_full:.6f} / {cos_step:.6f}")
+    del model
+    return launches
+
+
+def nat_forced(torch, model, src, lengths, canvas, head=0):
+    """The NAT decoder's logits (head `head` of a Levenshtein decoder's
+    output) on `canvas` [B', T], the encoder states repeated to its rows."""
+    with torch.no_grad():
+        enc, mask = model.encode(src, lengths)
+        rep = canvas.shape[0] // enc.shape[0]
+        out = model.decode(canvas, enc.repeat_interleave(rep, dim=0),
+                           mask.repeat_interleave(rep, dim=0))
+    return out[head] if isinstance(out, tuple) else out
+
+
+def run_mt_nat(torch, mods, smi):
+    """Phase 26b-c: cmlm_transformer's mask-predict (CMLM_ITER iterations,
+    length beam CMLM_LENGTH_BEAM, every fill run: a seeded model with a tied
+    output refills each <unk> with <unk>, so its canvas would repeat at once
+    and the adaptive exit end the decode after one pass; fairseq's
+    --iter-decode-force-max-iter) and levenshtein_transformer's decode
+    (LEV_ITER iterations, eos penalty 0) at both shapes on NAT_MAX_LEN-token
+    canvases; the long forms against the plain versions (tokens, and the
+    decoder's logits on the kernel path's output). Returns the counted
+    long-form decodes' flash_attention launches."""
+    from diffnorm_tpu_torch.generate.mask_predict import mask_predict_decode
+    from diffnorm_tpu_torch.models.levenshtein import levenshtein_decode
+
+    launches = 0
+    for kind, name in (("cmlm", "cmlm_transformer"), ("lev", "levenshtein_transformer")):
+        model = mt_model(torch, kind, 263 if kind == "cmlm" else 264)
+        for what, (src, lengths) in mt_shapes(torch, 265).items():
+            if kind == "cmlm":
+                def decode(n=CMLM_ITER):
+                    return mask_predict_decode(model, src, lengths, max_iter=n,
+                                               max_len=NAT_MAX_LEN, adaptive=False,
+                                               length_beam=CMLM_LENGTH_BEAM)[0]
+            else:
+                def decode(n=LEV_ITER):
+                    return levenshtein_decode(model, src, lengths, max_iter=n,
+                                              max_len=NAT_MAX_LEN)
+
+            decode(1)  # the warm-up: one iteration
+            with counted_passes(model.decoder) as passes:
+                tokens, counts, wall = timed_decode(torch, decode, reps=1, warm=lambda: None)
+            flash = counts.get("flash_attention", 0)
+            long_form = what == "long form"
+            filled = (tokens != 1).sum(dim=1)
+            # the kernel's share in long form: the encoder's, then each pass's
+            want = MT_FLASH_LAYERS * (1 + passes[0]) if long_form else 0
+            print(f"{name} decode, {what}: B{src.shape[0]} x {src.shape[1]} tokens, "
+                  + (f"{CMLM_ITER} iterations, length beam {CMLM_LENGTH_BEAM}" if kind == "cmlm"
+                     else f"{LEV_ITER} iterations, eos penalty 0")
+                  + f", canvas {NAT_MAX_LEN}, bf16: wall {wall:.4f} s (one run), "
+                  f"{passes[0]} decoder passes, {1e3 * wall / passes[0]:.3f} ms a pass, "
+                  f"flash_attention {flash} (expected {want}); tokens a row "
+                  f"{filled.min().item()}-{filled.max().item()}; {smi}")
+            if flash != want or not bool((filled > 0).all()):
+                fail(f"{name} decode {what}: flash_attention {flash}, filled {filled.tolist()}")
+            if not long_form:
+                continue
+            launches += flash
+            with plain_versions(*mods):
+                tokens_p, _, wall_p = timed_decode(torch, decode, reps=1, warm=lambda: None)
+                forced_p = nat_forced(torch, model, src, lengths, tokens)
+            forced = nat_forced(torch, model, src, lengths, tokens)
+            agree = unit_agreement(tokens, tokens_p)
+            cos = rows_cos(torch, forced, forced_p, tokens != 1)
+            print(f"{name} decode, long form, through the plain versions: wall {wall_p:.4f} s; "
+                  f"tokens equal {agree:.4f} (expected >= {MT_AGREE_EXPECTED}, bound "
+                  f"{MT_AGREE_BOUND}); the decoder's word logits on the kernel path's output, "
+                  f"kernel against plain, row-cos min {cos:.6f} (bound {MT_ROW_COS}); {smi}")
+            if agree < MT_AGREE_BOUND or cos < MT_ROW_COS:
+                fail(f"{name} long form against the plain versions: tokens {agree:.4f}, "
+                     f"row-cos {cos:.6f}")
+        del model
+    return launches
+
+
+def mt_task(torch, tmp: Path, task: str, arch: str, *extra):
+    """The port's task of --task `task` --arch `arch` on the unit
+    dictionaries of MT_VOCAB symbols (no data files), bf16 forward."""
+    from diffnorm_tpu_torch.cli import train as train_cli
+    from diffnorm_tpu_torch.tasks import TASKS
+
+    args = train_cli.parse_args([str(tmp), "--task", task, "--arch", arch, "--max-update", "2",
+                                 "--src-vocab-size", str(MT_VOCAB), "--target-code-size",
+                                 str(MT_VOCAB - 4), "--dtype", "bfloat16", "--warmup-updates",
+                                 "4000", *extra])
+    return args, TASKS[task](args)
+
+
+def run_mt_train(torch, smi):
+    """Phase 26d: one update of each model at --max-tokens 4096 (MT_TRAIN_B
+    rows of at most MT_TRAIN_MAX tokens a side), the task's own batch
+    preparation (the CMLM canvas, the Levenshtein canvases,
+    prev_output_tokens): ms, peak memory, busy share, the losses finite."""
+    import numpy as np
+
+    from diffnorm_tpu_torch.cli import train as train_cli
+    from diffnorm_tpu_torch.train.trainer import Trainer
+
+    rng = np.random.default_rng(266)
+    with tempfile.TemporaryDirectory() as tmp:
+        for task_name, arch in (("translation", "transformer_wmt_en_de_big"),
+                                ("cmlm_cg", "cmlm_transformer"),
+                                ("translation_lev", "levenshtein_transformer")):
+            args, task = mt_task(torch, Path(tmp), task_name, arch)
+            batches = []
+            for _ in range(3):
+                src_lens = sorted(rng.integers(MT_SRC_LENS[0], MT_TRAIN_MAX + 1,
+                                               MT_TRAIN_B).tolist(), reverse=True)
+                tgt_lens = rng.integers(MT_SRC_LENS[0], MT_TRAIN_MAX + 1, MT_TRAIN_B).tolist()
+                src = mt_tokens(torch, src_lens, int(rng.integers(1 << 30))).cpu().numpy()
+                tgt = mt_tokens(torch, tgt_lens, int(rng.integers(1 << 30))).cpu().numpy()
+                if task_name == "translation_lev":
+                    tgt = np.concatenate([np.zeros((len(tgt), 1), tgt.dtype), tgt], axis=1)
+                batch = {"src_tokens": src.astype(np.int32),
+                         "src_lengths": np.asarray(src_lens, np.int32),
+                         "target": tgt.astype(np.int32)}
+                batches.append(task.prepare_batch(batch, rng))
+            torch.manual_seed(267)
+            with torch.device("cuda"):
+                model = task.build_model()
+            trainer = Trainer(train_cli.trainer_config(args), model, task.build_criterion())
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            ms, losses = [], []
+            for batch in batches[:2]:
+                t1 = time.perf_counter()
+                mets = trainer.train_step([batch])
+                torch.cuda.synchronize()
+                ms.append(1e3 * (time.perf_counter() - t1))
+                losses.append(mets["loss"])
+                if not (math.isfinite(mets["loss"]) and math.isfinite(mets["gnorm"])):
+                    fail(f"{arch} update: {mets}")
+            peak_gb = torch.cuda.max_memory_allocated() / 1e9
+            busy, _ = profile_run(torch, lambda: trainer.train_step([batches[2]]), ms[1] / 1e3)
+            n_params = sum(p.numel() for p in trainer.params)
+            tokens = int(sum((b["src_tokens"] != 1).sum() + (b["target"] != 1).sum()
+                             for b in batches[:1]))
+            print(f"{arch} update ({args.criterion}): {n_params / 1e6:.1f} M parameters, "
+                  f"B{MT_TRAIN_B} x {batches[0]['src_tokens'].shape[1]} source and "
+                  f"{batches[0]['target'].shape[1]} target tokens padded ({tokens} real), bf16 "
+                  f"forward, float32 masters: ms per update {[round(v, 1) for v in ms]} (the "
+                  f"first a warm-up), peak {peak_gb:.2f} GB, busy "
+                  + ("not measured" if busy is None else f"{100 * busy:.1f}%")
+                  + f"; losses {[round(v, 4) for v in losses]}; {smi}")
+            del model, trainer
+
+
+def write_mt_cli_corpus(root: Path, rng):
+    """A seeded de-en bitext under `root`: 32 training, 8 valid and 8 test
+    pairs of 10-40 words of MT_CLI_WORDS a side (every word in the training
+    text)."""
+    for lang in ("de", "en"):
+        words = [f"{lang}{k}" for k in range(MT_CLI_WORDS)]
+        for split, n in (("train", 32), ("valid", 8), ("test", 8)):
+            lines = [" ".join(rng.choice(words, size=int(rng.integers(10, 41))))
+                     for _ in range(n)]
+            if split == "train":  # every word seen, so every test word has an entry
+                lines += [" ".join(words[i:i + 40]) for i in range(0, MT_CLI_WORDS, 40)]
+            (root / f"{split}.{lang}").write_text("\n".join(lines) + "\n")
+
+
+def run_mt_cli(torch, smi):
+    """Phase 26e, the CLIs (published widths, MT_CLI_LAYERS + MT_CLI_LAYERS
+    layers, bf16) on a seeded bitext: cli.preprocess -> cli.train (2
+    updates) -> cli.generate -> cli.interactive -> cli.score for each task;
+    the H- lines of cli.generate and cli.interactive against the same
+    decode in process, cli.score's BLEU against cli.generate's."""
+    import numpy as np
+
+    from diffnorm_tpu_torch.cli import generate, interactive, preprocess, score
+    from diffnorm_tpu_torch.cli import train as train_cli
+    from diffnorm_tpu_torch.data.iterators import EpochBatchIterator
+    from diffnorm_tpu_torch.generate.beam_search import ar_generate
+    from diffnorm_tpu_torch.generate.mask_predict import mask_predict_decode
+    from diffnorm_tpu_torch.models.levenshtein import levenshtein_decode
+
+    cuda = torch.device("cuda", torch.cuda.current_device())
+    walls = {}
+    langs = ["--source-lang", "de", "--target-lang", "en"]
+    decodes = {"translation": ["--beam", str(MT_BEAM), "--lenpen", str(MT_LENPEN)],
+               "cmlm_cg": ["--iter-decode-max-iter", str(CMLM_ITER), "--iter-decode-with-beam",
+                           str(CMLM_LENGTH_BEAM)],
+               "translation_lev": ["--iter-decode-max-iter", str(LEV_ITER)]}
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = Path(tmp)
+        write_mt_cli_corpus(tmp, np.random.default_rng(268))
+        t0 = time.perf_counter()
+        if preprocess.main(["--source-lang", "de", "--target-lang", "en", "--trainpref",
+                            str(tmp / "train"), "--validpref", str(tmp / "valid"), "--testpref",
+                            str(tmp / "test"), "--destdir", str(tmp / "bin")]) != 0:
+            fail("cli.preprocess failed")
+        walls["cli.preprocess"] = time.perf_counter() - t0
+        data = str(tmp / "bin")
+        for task_name, arch in (("translation", "transformer_wmt_en_de_big"),
+                                ("cmlm_cg", "cmlm_transformer"),
+                                ("translation_lev", "levenshtein_transformer")):
+            model_flags = [data, "--task", task_name, "--arch", arch, *langs, "--encoder-layers",
+                           str(MT_CLI_LAYERS), "--decoder-layers", str(MT_CLI_LAYERS)]
+            lines = LogLines()
+            logging.getLogger("diffnorm_tpu_torch.train").addHandler(lines)
+            t0 = time.perf_counter()
+            rc = train_cli.main([*model_flags, "--save-dir", str(tmp / f"ck_{task_name}"),
+                                 "--max-tokens", "4096", "--max-update", "2", "--lr", "5e-4",
+                                 "--warmup-updates", "4000", "--dtype", "bfloat16",
+                                 "--valid-subset", "valid", "--log-interval", "1"])
+            walls[f"cli.train {arch}"] = time.perf_counter() - t0
+            logging.getLogger("diffnorm_tpu_torch.train").removeHandler(lines)
+            if rc != 0 or "saved checkpoint at step 2" not in "\n".join(lines.lines):
+                fail(f"cli.train {task_name}: rc {rc}, log {lines.lines[-3:]}")
+            step = str(tmp / f"ck_{task_name}" / "step_000000002")
+            base = [*model_flags, "--path", step, "--max-target-positions", str(CLI_MAX_LEN)]
+            out = tmp / f"gen_{task_name}"
+            t0 = time.perf_counter()
+            if generate.main(base + ["--gen-subset", "test", "--max-tokens", "4096",
+                                     "--results-path", str(out), *decodes[task_name]]) != 0:
+                fail(f"cli.generate {task_name} failed")
+            walls[f"cli.generate {arch}"] = time.perf_counter() - t0
+            args = generate.parse_args(base)
+            task, model = generate.build_task_model(args, step, cuda, torch.bfloat16)
+
+            def in_process(src, lens, length_beam=CMLM_LENGTH_BEAM):
+                if task_name == "translation":
+                    return ar_generate(model, src, lens, beam_size=MT_BEAM, max_len=CLI_MAX_LEN,
+                                       len_penalty=MT_LENPEN)[0][:, 0]
+                if task_name == "cmlm_cg":
+                    return mask_predict_decode(model, src, lens, max_iter=CMLM_ITER,
+                                               max_len=CLI_MAX_LEN,
+                                               length_beam=length_beam)[0]
+                return levenshtein_decode(model, src, lens, max_iter=LEV_ITER,
+                                          max_len=CLI_MAX_LEN)
+
+            got = read_hyps(out / "generate-test.txt")
+            n_rows = 0
+            with torch.no_grad():
+                for b in EpochBatchIterator(task.dataset("test"), 4096,
+                                            shuffle=False).next_epoch_itr():
+                    tokens = in_process(torch.from_numpy(b["src_tokens"]).long().to(cuda),
+                                        torch.from_numpy(b["src_lengths"]).to(cuda))
+                    for row, sid in zip(tokens.cpu().numpy(), b["id"].tolist()):
+                        if got.get(sid) != generate.strip_special(row, task.tgt_dict):
+                            fail(f"cli.generate {task_name} H-{sid} differs from the "
+                                 f"in-process decode")
+                        n_rows += 1
+            if n_rows != 8:
+                fail(f"cli.generate {task_name}: {n_rows} rows")
+            # cli.interactive on three test sources, one line each
+            src_lines = (tmp / "test.de").read_text().splitlines()[:3]
+            stdin, stdout = sys.stdin, sys.stdout
+            sys.stdin, sys.stdout = io.StringIO("\n".join(src_lines) + "\n"), io.StringIO()
+            t0 = time.perf_counter()
+            try:
+                rc = interactive.main(base + (decodes[task_name][:2] if task_name == "cmlm_cg"
+                                              else decodes[task_name]))
+            finally:
+                printed = sys.stdout.getvalue()
+                sys.stdin, sys.stdout = stdin, stdout
+            walls[f"cli.interactive {arch}"] = time.perf_counter() - t0
+            hyps = re.findall(r"^H-(\d+)\t(.*)$", printed, re.M)
+            if rc != 0 or [int(i) for i, _ in hyps] != [0, 1, 2]:
+                fail(f"cli.interactive {task_name}: rc {rc}, {printed[-300:]}")
+            with torch.no_grad():
+                for (_, hyp), line in zip(hyps, src_lines):
+                    ids = torch.from_numpy(task.src_dict.encode_line(line)[None]).long().to(cuda)
+                    row = in_process(ids, torch.tensor([ids.shape[1]], device=cuda),
+                                     length_beam=1)[0].tolist()
+                    if task_name == "translation_lev":
+                        row = row[1:]  # the canvas's BOS
+                    if hyp != " ".join(task.tgt_dict[t] for t in row if t not in (1, 2)):
+                        fail(f"cli.interactive {task_name}: {hyp!r} differs from the in-process "
+                             f"decode")
+            # cli.score on cli.generate's D- and T- lines
+            text = (out / "generate-test.txt").read_text()
+            (tmp / "hyp.txt").write_text("\n".join(re.findall(r"^D-\d+\t\S+\t(.*)$", text, re.M))
+                                         + "\n")
+            (tmp / "ref.txt").write_text("\n".join(re.findall(r"^T-\d+\t(.*)$", text, re.M))
+                                         + "\n")
+            stdout, sys.stdout = sys.stdout, io.StringIO()
+            try:
+                rc = score.main(["--sys", str(tmp / "hyp.txt"), "--ref", str(tmp / "ref.txt")])
+            finally:
+                scored = sys.stdout.getvalue().strip()
+                sys.stdout = stdout
+            if rc != 0 or not text.rstrip().endswith(scored):
+                fail(f"cli.score {task_name}: {scored!r} against cli.generate's "
+                     f"{text.splitlines()[-1]!r}")
+            walls[f"{arch} BLEU"] = scored
+            del model
+    print("text MT CLIs (published widths, " + f"{MT_CLI_LAYERS} + {MT_CLI_LAYERS} layers, bf16; "
+          f"a seeded bitext of {MT_CLI_WORDS} words a side, 32 + 8 + 8 pairs): "
+          + ", ".join(f"{k} {v:.4g} s" if isinstance(v, float) else f"{k}: {v}"
+                      for k, v in walls.items())
+          + f"; every H- line of cli.generate and cli.interactive equal to the in-process "
+            f"decode, cli.score's BLEU equal to cli.generate's; {smi}")
+
+
+def run_text_mt(torch, mods, smi):
+    """Phase 26: text machine translation (see the module docstring).
+    Returns the flash_attention launches of the counted long-form decodes."""
+    t0 = time.perf_counter()
+    launches = run_mt_ar(torch, mods, smi)
+    launches += run_mt_nat(torch, mods, smi)
+    run_mt_train(torch, smi)
+    run_mt_cli(torch, smi)
+    print(f"phase text MT: {time.perf_counter() - t0:.1f} s, flash_attention launches "
+          f"{launches}; {smi}")
+    return launches
+
+
 def main() -> int:
     try:
         import torch
@@ -7205,6 +7701,11 @@ def main() -> int:
     for name, n in run_tts_s2t(torch, mods, smi).items():
         launches[name] += n
 
+    # 26. text machine translation: transformer_wmt_en_de_big's beam decode,
+    # the text CMLM's mask-predict, the Levenshtein decode, their training,
+    # cli.preprocess -> train -> generate -> interactive -> score
+    launches["flash_attention"] += run_text_mt(torch, mods, smi)
+
     sources = {
         "rms_norm_film": ("rms_norm_film.cu", "diffnorm_tpu/ops/pallas_norm.py:34"),
         "wavenet_chain": ("wavenet_chain.cu", "diffnorm_tpu/ops/pallas_wavenet.py:66"),
@@ -7239,6 +7740,12 @@ def main() -> int:
     for what in ("FastSpeech2 decoder", "FastSpeech2 decoder float32"):
         print(f"flash_attention at phase 25's {what} ([8,2,2048,128], keys "
               f"{FS2_FLASH_KEYS}): {flash_timed[what]}")
+    for what, shape in (("MT encoder", "[2,16,2112,64]"),
+                        ("MT decode step", "q [8,16,1,64], k/v [8,16,2112,64]"),
+                        ("CMLM decoder", "q [10,8,256,64], k/v [10,8,2112,64]"),
+                        ("S2T encoder", "the 8-head text encoder's [2,8,2112,64]"),
+                        ("path", "the Levenshtein decoder's q [2,8,256,64], k/v [2,8,2112,64]")):
+        print(f"flash_attention at phase 26's {what} ({shape}): {flash_timed[what]}")
     for what in ("HuBERT long form", "HuBERT longest chunk", "float32 path"):
         print(f"flash_attention float32 {what}: {flash_timed[what]}")
     print(json.dumps({"kernels": kernels}))

@@ -109,9 +109,26 @@ predicted variances over its --max-target-positions frame buffer (the
 model's flag, default 2048), each row cut by its frame mask) writes the
 same files.
 
+Text machine translation (`--task translation`, `cmlm_cg` or
+`translation_lev`; the model's flags, the bitext and its dictionaries as
+cli.train takes them: `--source-lang`, `--target-lang`, `--src-dict`,
+`--tgt-dict-path`) writes the same lines in text through the target
+dictionary (JAX cli/generate.py:254-276): the AR transformer through the
+AR branch's beam search (`--beam`, `--lenpen`, `--no-repeat-ngram-size`,
+the rest of its flags; at most 256 steps), the text CMLM through
+mask-predict (`--iter-decode-max-iter`, `--iter-decode-with-beam`,
+`--cond-scale`), the Levenshtein transformer through
+`models.levenshtein.levenshtein_decode` (`--iter-decode-max-iter`,
+`--iter-decode-eos-penalty`) on a canvas of min(--max-target-positions,
+256) tokens, each with `--remove-bpe` / `--post-process` and BLEU, WER or
+sacrebleu scoring (sacrebleu fails to import where it is not installed,
+as in JAX).
+
 Not ported, and raising NotImplementedError naming their ROADMAP Queue 1
-items: the other tasks and architectures (text MT and the text CMLM, item
-3; LevT, SEDD and the unit LM, item 4; the CTC fine-tune, item 5).
+items: the other tasks and architectures (SEDD, IDDPM, the unit LM and MoE,
+item 4; wav2vec2 and HuBERT pretraining and the CTC fine-tune, item 5; the
+TranSpeech normalization, item 6; the rest of the runtime, item 7;
+parallelism, item 8).
 """
 
 from __future__ import annotations
@@ -142,9 +159,13 @@ from diffnorm_tpu_torch.generate.translatotron2 import Translatotron2SpeechGener
 from diffnorm_tpu_torch.generate.unity import unity_generate
 from diffnorm_tpu_torch.models.ar_transformer import ARCHS as AR_ARCHS
 from diffnorm_tpu_torch.models.ar_transformer import ARS2UTModule
+from diffnorm_tpu_torch.models.cmlm_text import ARCHS as CMLM_ARCHS
 from diffnorm_tpu_torch.models.fastspeech2 import FastSpeech2Module, NonARSpeechGenerator
+from diffnorm_tpu_torch.models.levenshtein import ARCHS as LEV_ARCHS
+from diffnorm_tpu_torch.models.levenshtein import levenshtein_decode
 from diffnorm_tpu_torch.models.nar_transformer import calibrate_act_scales
 from diffnorm_tpu_torch.models.s2t_transformer import ARCHS as S2T_ARCHS
+from diffnorm_tpu_torch.models.transformer_text import ARCHS as MT_ARCHS
 from diffnorm_tpu_torch.models.unity import ARCHS as UNITY_ARCHS
 from diffnorm_tpu_torch.ops.quant import set_static_scales
 from diffnorm_tpu_torch.tasks import TASKS
@@ -162,11 +183,15 @@ TASK, ARCH = "speech_to_speech_fasttranslate", "nar_s2ut_conformer"
 AR_TASK = train_cli.AR_TASK
 SPECT_TASK, S2S_TASK = train_cli.SPECT_TASK, train_cli.S2S_TASK
 TTS_TASK, S2T_TASK = train_cli.TTS_TASK, train_cli.S2T_TASK
+MT_TASK, CMLM_TASK, LEV_TASK = train_cli.MT_TASK, train_cli.CMLM_TASK, train_cli.LEV_TASK
 TASK_ARCHS = {TASK: (ARCH,), AR_TASK: tuple(AR_ARCHS) + tuple(UNITY_ARCHS),
               SPECT_TASK: tuple(SPECT_ARCHS), TTS_TASK: tuple(TTS_ARCHS),
-              S2T_TASK: tuple(S2T_ARCHS)}  # the first, the task's default
+              S2T_TASK: tuple(S2T_ARCHS), MT_TASK: tuple(MT_ARCHS),
+              CMLM_TASK: tuple(CMLM_ARCHS), LEV_TASK: tuple(LEV_ARCHS)}  # the first, the default
 # the tasks whose model and data their task builds, on cli.train's flags
-TASK_BUILT = (SPECT_TASK, TTS_TASK, S2T_TASK)
+TASK_BUILT = (SPECT_TASK, TTS_TASK, S2T_TASK) + train_cli.TEXT_TASKS
+# the tasks that decode with the AR branch (beam search)
+AR_DECODED = (AR_TASK, S2T_TASK, MT_TASK)
 # the widths an AR arch gives where the flag is not set
 AR_WIDTHS = ("encoder_embed_dim", "encoder_ffn_embed_dim", "encoder_layers",
              "encoder_attention_heads", "decoder_embed_dim", "decoder_ffn_embed_dim",
@@ -222,6 +247,8 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--iter-decode-max-iter", type=int, default=15)
     p.add_argument("--iter-decode-with-beam", type=int, default=1)
     p.add_argument("--iter-decode-force-max-iter", action="store_true")
+    p.add_argument("--iter-decode-eos-penalty", type=float, default=0.0,
+                   help="the Levenshtein decode's penalty on inserting nothing")
     p.add_argument("--cond-scale", type=float, default=1.0)
     p.add_argument("--init-unit-file", default=None)
     p.add_argument("--scoring", choices=("bleu", "sacrebleu", "wer"), default="bleu")
@@ -302,8 +329,9 @@ def parse_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
         raise NotImplementedError(
             f"--task {chosen.task} --arch {chosen.arch}: the ported branches are "
             + "; ".join(f"{t} ({', '.join(a)})" for t, a in TASK_ARCHS.items())
-            + " (not ported: text MT and the text CMLM, ROADMAP Queue 1 item 3; LevT, SEDD "
-              "and the unit LM, item 4; the CTC fine-tune, item 5)")
+            + " (not ported: SEDD, IDDPM, the unit LM and MoE, ROADMAP Queue 1 item 4; "
+              "wav2vec2 and HuBERT pretraining and the CTC fine-tune, item 5; the TranSpeech "
+              "normalization, item 6; the rest of the runtime, item 7; parallelism, item 8)")
     if task == AR_TASK:  # widths left unset take the arch's
         p.set_defaults(**dict.fromkeys(AR_WIDTHS))
     args, extra = p.parse_known_args(argv)
@@ -324,6 +352,9 @@ def parse_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
         apply_ar_arch(args)
     if args.task != TASK and args.quant_int8:
         p.error("--quant-int8: the int8 model is the NAR one")
+    if args.task in train_cli.TEXT_TASKS and args.rerank_path:
+        p.error("--rerank-path: the reranker, an AR S2UT model, scores the NAR S2UT decode's "
+                "length beam")
     args.rerank = None
     if args.rerank_path:
         rerank = argparse.Namespace(**{**vars(args), **overrides})
@@ -534,6 +565,21 @@ def ar_decoder(args: argparse.Namespace, models, device: torch.device):
     return decode, args.beam
 
 
+def levenshtein_decoder(args: argparse.Namespace, models):
+    """The Levenshtein transformer's decode of a batch (JAX
+    cli/generate.py:254-266): the canvas, zero scores and --iter-decode-max-iter
+    steps a row, numpy."""
+    def decode(batch):
+        canvas = levenshtein_decode(
+            models, batch["src_tokens"], batch["src_lengths"],
+            max_iter=args.iter_decode_max_iter, max_len=min(args.max_target_positions, 256),
+            eos_penalty=args.iter_decode_eos_penalty).cpu().numpy()
+        return (canvas, np.zeros(canvas.shape, np.float32),
+                np.full(canvas.shape[0], args.iter_decode_max_iter, np.int32))
+
+    return decode
+
+
 def main(argv: Optional[Sequence[str]] = None) -> int:
     logging.basicConfig(level=logging.INFO, force=True,
                         format="%(asctime)s | %(levelname)s | %(message)s")
@@ -543,15 +589,15 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
         return spectrogram_generate(args, device, dtype)
     split = args.gen_subset
     paths = [p for p in args.path.split(":") if p]
-    if args.task == S2T_TASK:  # the text dictionary and manifests are the task's
-        task = TASKS[S2T_TASK](args.model)
+    if args.task in TASK_BUILT:  # the dictionary and the data are the task's
+        task = TASKS[args.task](args.model)
         tgt_dict, dataset = task.tgt_dict, task.dataset(split)
     else:
         tgt_dict = Dictionary.unit_dictionary(args.target_code_size)
         dataset = SpeechToUnitDataset.from_tsv(args.data, split, tgt_dict=tgt_dict,
                                                config_yaml=args.config_yaml)
-    ar = args.task in (AR_TASK, S2T_TASK)
-    if args.task == S2T_TASK:
+    ar = args.task in AR_DECODED
+    if args.task in TASK_BUILT:
         models = [build_task_model(args, p, device, dtype)[1] for p in paths]
     elif args.arch in UNITY_ARCHS:
         if len(paths) > 1:
@@ -569,11 +615,14 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
         logger.info("restored checkpoint from %s", paths[0])
     calibrate = args.quant_int8 and args.quant_int8_static
     pp_symbol = args.post_process or args.remove_bpe
-    init_lengths = reranker = None
+    # a batch's decode where it is not mask-predict's (which the loop drives)
+    init_lengths = reranker = decode_batch = None
     if args.arch in UNITY_ARCHS:
-        decode_ar, beam = unity_decoder(args, models[0], device), args.beam
+        decode_batch, beam = unity_decoder(args, models[0], device), args.beam
     elif ar:
-        decode_ar, beam = ar_decoder(args, models, device)
+        decode_batch, beam = ar_decoder(args, models, device)
+    elif args.task == LEV_TASK:
+        decode_batch, beam = levenshtein_decoder(args, models), args.iter_decode_with_beam
     else:
         beam = args.iter_decode_with_beam
         if args.init_unit_file:
@@ -613,8 +662,8 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
                 logger.info("calibrated static int8 activation scales on the first batch")
                 calibrate = False
             history = None
-            if ar:
-                tokens, scores, steps = decode_ar(batch)
+            if decode_batch is not None:
+                tokens, scores, steps = decode_batch(batch)
             else:
                 true_length = None
                 if init_lengths is not None:

@@ -29,7 +29,19 @@ postnet flags; FastSpeech2's frame buffer is --max-target-positions,
 default 2048); speech-to-text (`--task speech_to_text`, `--arch
 s2t_transformer`, `s2t_transformer_s`, `s2t_transformer_xs` or
 `s2t_conformer`, `--criterion label_smoothed_cross_entropy`,
-`--share-decoder-input-output-embed`);
+`--share-decoder-input-output-embed`); text machine translation on a
+bitext (`tasks/cmlm_cg_task.py`: `{split}.{src}` / `{split}.{tgt}` line
+files, or cli.preprocess's binarized pairs with its dict.{lang}.txt;
+`--source-lang`, `--target-lang`, `--src-dict`, `--tgt-dict-path`,
+`--src-vocab-size`): the AR transformer (`--task translation`, `--arch
+transformer`, `transformer_iwslt_de_en` or `transformer_wmt_en_de_big`,
+`--criterion label_smoothed_cross_entropy`; the decoder's output tied to
+its embedding unless `--share-decoder-input-output-embed false`;
+`--share-all-embeddings` is refused, as JAX refuses it), the text CMLM
+(`--task cmlm_cg`, `--arch cmlm_transformer`, `--criterion
+nar_speech_to_unit` or `nat_loss`, `--cg-prob`, `--use-side`) and the
+Levenshtein transformer (`--task translation_lev`, `--arch
+levenshtein_transformer`, `--criterion nat_loss` or `levenshtein_loss`);
 `--task unit_to_speech` goes to `cli.train_vocoder` with the
 other arguments, as JAX's does, and `--task repr_to_speech` too with
 `--input-type features`. It takes every flag of scripts/vae_train.sh,
@@ -151,9 +163,12 @@ from diffnorm_tpu_torch.data.iterators import (
 )
 from diffnorm_tpu_torch.device import resolve_device
 from diffnorm_tpu_torch.models.ar_transformer import ARCHS as AR_ARCHS
+from diffnorm_tpu_torch.models.cmlm_text import ARCHS as CMLM_ARCHS
 from diffnorm_tpu_torch.models.diffusion import ARCHS as DIFFUSION_ARCHS
+from diffnorm_tpu_torch.models.levenshtein import ARCHS as LEV_ARCHS
 from diffnorm_tpu_torch.models.nar_transformer import ARCHS as NAR_ARCHS
 from diffnorm_tpu_torch.models.s2t_transformer import ARCHS as S2T_ARCHS
+from diffnorm_tpu_torch.models.transformer_text import ARCHS as MT_ARCHS
 from diffnorm_tpu_torch.models.unity import ARCHS as UNITY_ARCHS
 from diffnorm_tpu_torch.tasks import TASKS
 from diffnorm_tpu_torch.tasks.s2spect_task import ARCHS as SPECT_ARCHS
@@ -179,6 +194,8 @@ logger = logging.getLogger("diffnorm_tpu_torch.train")
 NAR_TASK, AR_TASK = "speech_to_speech_fasttranslate", "speech_to_speech_ar"
 SPECT_TASK = "speech_to_speech_spect"
 TTS_TASK, S2T_TASK = "text_to_speech", "speech_to_text"
+MT_TASK, CMLM_TASK, LEV_TASK = "translation", "cmlm_cg", "translation_lev"
+TEXT_TASKS = (MT_TASK, CMLM_TASK, LEV_TASK)
 # fairseq's speech_to_speech: --target-is-code picks AR_TASK, else SPECT_TASK
 S2S_TASK = "speech_to_speech"
 STAGES = {  # task: (its criterions, the first the default; its architectures)
@@ -196,12 +213,17 @@ STAGES = {  # task: (its criterions, the first the default; its architectures)
     TTS_TASK: (("tacotron2_loss", "tacotron2", "fastspeech2_loss", "fastspeech2"),
                tuple(TTS_ARCHS)),
     S2T_TASK: (("label_smoothed_cross_entropy",), tuple(S2T_ARCHS)),
+    MT_TASK: (("label_smoothed_cross_entropy",), tuple(MT_ARCHS)),
+    CMLM_TASK: (("nar_speech_to_unit", "nat_loss"), tuple(CMLM_ARCHS)),
+    LEV_TASK: (("nat_loss", "levenshtein_loss"), tuple(LEV_ARCHS)),
 }
+TEXT_ARCHS = {**MT_ARCHS, **CMLM_ARCHS, **LEV_ARCHS}
 # the two-pass models' criterions, which they alone train with
 TWO_PASS_CRITERIONS = {**dict.fromkeys(UNITY_ARCHS, "speech_to_unit_2pass"),
                        **dict.fromkeys(S2SPECT2_ARCHS, "speech_to_spectrogram_2pass")}
 # the criterions' label smoothing where --label-smoothing is not given
-LABEL_SMOOTHING = {NAR_TASK: 0.2, AR_TASK: 0.1, S2T_TASK: 0.1}
+LABEL_SMOOTHING = {NAR_TASK: 0.2, AR_TASK: 0.1, S2T_TASK: 0.1, MT_TASK: 0.1, CMLM_TASK: 0.2,
+                   LEV_TASK: 0.1}
 # the optimizer's and schedule's flags beside --lr, --warmup-*, --adam-*
 # and --weight-decay, under JAX's config keys (TrainerConfig.options)
 OPTIONS = ("min_lr", "end_learning_rate", "power", "lr_decay_period", "lr_deacy_period",
@@ -241,9 +263,9 @@ def _names(value: str):
     return tuple(_json(value)) if value[:1] in "[(" else tuple(value.split(","))
 
 
-def _flag(p: argparse.ArgumentParser, name: str, **kw) -> None:
+def _flag(p: argparse.ArgumentParser, name: str, default=False, **kw) -> None:
     """A boolean flag given alone or with true / false, as the JAX CLI's."""
-    p.add_argument(name, type=_bool, nargs="?", const=True, default=False, **kw)
+    p.add_argument(name, type=_bool, nargs="?", const=True, default=default, **kw)
 
 
 def add_two_pass_args(p: argparse.ArgumentParser) -> None:
@@ -258,8 +280,9 @@ def add_two_pass_args(p: argparse.ArgumentParser) -> None:
         p.add_argument(flag, type=int, help="default: the architecture's")
     p.add_argument("--encoder-dropout", type=float,
                    help="the TTS encoder's conv dropout (default: the architecture's)")
-    _flag(p, "--share-decoder-input-output-embed",
-          help="the S2T decoder's output projection tied to its embedding")
+    _flag(p, "--share-decoder-input-output-embed", default=None,
+          help="the decoder's output projection tied to its embedding (default: the S2T "
+               "model's not, the text transformer's tied)")
     p.add_argument("--prenet-layers", type=int, default=2)
     p.add_argument("--prenet-dropout", type=float, default=0.5)
     p.add_argument("--postnet-layers", type=int, default=5)
@@ -356,6 +379,15 @@ def build_parser(description: str, train: bool = True) -> argparse.ArgumentParse
     p.add_argument("--max-source-positions", type=int)
     p.add_argument("--max-target-positions", type=int)
     p.add_argument("--seed", type=int, default=1)
+    # the bitext tasks (translation, cmlm_cg, translation_lev)
+    p.add_argument("--source-lang", help="the source files' suffix (default src)")
+    p.add_argument("--target-lang", help="the target files' suffix (default tgt)")
+    p.add_argument("--src-dict", help="the source dictionary (default DATA/dict.{src}.txt)")
+    p.add_argument("--tgt-dict-path", help="the target dictionary (default DATA/dict.{tgt}.txt)")
+    p.add_argument("--src-vocab-size", type=int,
+                   help="the source vocabulary without a dictionary file (default 1000)")
+    _flag(p, "--share-all-embeddings", help="refused: the text transformer's source and "
+                                           "target tables are separate, as JAX's")
     if not train:
         return p
     # optimization (flags left unset take each optimizer's and schedule's
@@ -446,16 +478,17 @@ def check_args(p: argparse.ArgumentParser, args: argparse.Namespace) -> argparse
                 "JAX's: its criterions pass none, and its Denoiser asserts one, "
                 "models/diffusion.py:271); build LatentDiffusionModule(use_cond=True) and "
                 "pass batches with a prompt instead")
-    if args.task in (AR_TASK, SPECT_TASK, TTS_TASK, S2T_TASK):
-        options = (("--cg-prob", args.cg_prob), ("--use-sp", args.use_sp),
-                   ("--use-side", args.use_side),
+    if args.task in (AR_TASK, SPECT_TASK, TTS_TASK, S2T_TASK) + TEXT_TASKS:
+        options = (("--use-sp", args.use_sp),
                    ("--multitask-ctc-vocab", args.multitask_ctc_vocab),
                    ("--encoder-remat", args.encoder_remat), ("--quant-int8", args.quant_int8))
+        if args.task != CMLM_TASK:
+            options += (("--cg-prob", args.cg_prob), ("--use-side", args.use_side))
         if args.task != AR_TASK:
             options += (("--target-speaker-embed", args.target_speaker_embed),)
-        if args.task in (TTS_TASK, S2T_TASK):
+        if args.task in (TTS_TASK, S2T_TASK) + TEXT_TASKS:
             options += (("--multitask-config-yaml", args.multitask_config_yaml),)
-        if args.task == S2T_TASK:
+        if args.task in (S2T_TASK,) + TEXT_TASKS:
             options += (("--n-frames-per-step", args.n_frames_per_step > 1),)
         for flag, value in options:
             if value:
@@ -463,9 +496,12 @@ def check_args(p: argparse.ArgumentParser, args: argparse.Namespace) -> argparse
         if args.task == TTS_TASK and args.n_frames_per_step > 1:
             p.error("--n-frames-per-step: the text_to_speech dataset does not stack its "
                     "frames (nor does JAX's, whose criterion then fails on the shapes)")
-    if args.task != S2T_TASK and args.share_decoder_input_output_embed:
-        p.error(f"--share-decoder-input-output-embed: an option of the S2T model (--task "
-                f"{S2T_TASK})")
+    if args.task not in (S2T_TASK, MT_TASK) and args.share_decoder_input_output_embed:
+        p.error(f"--share-decoder-input-output-embed: an option of the S2T model and the text "
+                f"transformer (--task {S2T_TASK} or {MT_TASK})")
+    if args.share_all_embeddings:
+        p.error("--share-all-embeddings is not supported (the encoder's and decoder's "
+                "embeddings are separate tables); use --share-decoder-input-output-embed")
     if args.task == TTS_TASK:
         TTS_ARCHS[args.arch](vars(args))
     elif args.task == S2T_TASK:
@@ -476,6 +512,12 @@ def check_args(p: argparse.ArgumentParser, args: argparse.Namespace) -> argparse
         SPECT_ARCHS[args.arch](vars(args))
         if args.prenet_dim is None:
             args.prenet_dim = 256
+    elif args.task in TEXT_TASKS:
+        TEXT_ARCHS[args.arch](vars(args))
+        if args.task == MT_TASK and args.share_decoder_input_output_embed is None:
+            args.share_decoder_input_output_embed = True  # JAX's default
+        if args.label_smoothing is None:
+            args.label_smoothing = LABEL_SMOOTHING[args.task]
     elif args.task in (NAR_TASK, AR_TASK):
         {**NAR_ARCHS, **AR_ARCHS, **UNITY_ARCHS}[args.arch](vars(args))
         if args.label_smoothing is None:

@@ -9,8 +9,10 @@ metrics under JAX's names.
       --valid-subset dev --max-tokens 40000
 
 It takes the tasks cli.train trains (the VAE and normalizer stages, NAR
-and AR S2UT, UnitY, the spectrogram translators, text-to-speech and
-speech-to-text) with cli.train's model,
+and AR S2UT, UnitY, the spectrogram translators, text-to-speech,
+speech-to-text and text translation: translation, cmlm_cg and
+translation_lev on a bitext or cli.preprocess's binarized pairs) with
+cli.train's model,
 data and task flags; `--path` is a step directory or a .npz
 (weights.save_npz), a `cli.convert_checkpoint` output included. The
 batches' draws come from `np.random.default_rng(--seed)`, the criterion's

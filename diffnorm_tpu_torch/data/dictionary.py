@@ -1,10 +1,12 @@
-"""Symbol dictionaries (the port's copy of what training and generation use
-of diffnorm_tpu/data/dictionary.py): bos=0 <s>, pad=1 <pad>, eos=2 </s>,
-unk=3 <unk>, then the symbols. The unit dictionary's symbols are the units
-"0".."K-1", so unit k is index k + 4; `load` reads a fairseq dictionary file
-(`symbol count` lines, the multitask tasks' letter dictionaries, the S2T
-and TTS tasks' dict.txt); `add_symbol` grows one (the TTS task's dictionary
-built from its training text)."""
+"""Symbol dictionaries (the port's copy of diffnorm_tpu/data/dictionary.py):
+bos=0 <s>, pad=1 <pad>, eos=2 </s>, unk=3 <unk>, then the symbols, each
+with its count. The unit dictionary's symbols are the units "0".."K-1", so
+unit k is index k + 4; `load` reads a fairseq dictionary file (`symbol
+count` lines: the multitask tasks' letter dictionaries, the S2T and TTS
+tasks' dict.txt, cli.preprocess's dict.{lang}.txt) and `save` writes one,
+the symbols after the specials with their counts, byte for byte as JAX's;
+`add_symbol` grows one and counts (cli.preprocess's `build_dictionary`, the
+TTS task's dictionary built from its training text)."""
 
 from __future__ import annotations
 
@@ -13,20 +15,18 @@ from typing import Iterable
 import numpy as np
 
 SPECIALS = ("<s>", "<pad>", "</s>", "<unk>")
-BOS, EOS, UNK = 0, 2, 3
+BOS, PAD, EOS, UNK = 0, 1, 2, 3
 
 
 class Dictionary:
     nspecial = len(SPECIALS)
 
     def __init__(self, num_units: int = 0, symbols: Iterable[str] = ()):
-        """The specials, the units "0".."num_units-1", then `symbols`; a
-        symbol already present keeps its first index."""
-        self.symbols, self.indices = [], {}
+        """The specials, the units "0".."num_units-1", then `symbols`, each
+        counted once; a symbol already present keeps its first index."""
+        self.symbols, self.count, self.indices = [], [], {}
         for sym in [*SPECIALS, *(str(u) for u in range(num_units)), *symbols]:
-            if sym not in self.indices:
-                self.indices[sym] = len(self.symbols)
-                self.symbols.append(sym)
+            self.add_symbol(sym)
 
     def __len__(self) -> int:
         return len(self.symbols)
@@ -44,8 +44,8 @@ class Dictionary:
     def load(cls, path: str) -> "Dictionary":
         """A fairseq dictionary file: one `symbol count` line per symbol (a
         line without a count, or whose last field is not an integer, is the
-        symbol alone)."""
-        symbols = []
+        symbol alone, counted once); a repeated symbol adds its count."""
+        d = cls()
         with open(path) as f:
             for line in f:
                 line = line.rstrip()
@@ -53,17 +53,29 @@ class Dictionary:
                     continue
                 sym, space, count = line.rpartition(" ")
                 try:
-                    int(count)
+                    n = int(count)
                 except ValueError:
                     space = ""
-                symbols.append(sym if space else line)
-        return cls(symbols=symbols)
+                if not space:
+                    sym, n = line, 1
+                d.add_symbol(sym, n)
+        return d
 
-    def add_symbol(self, sym: str) -> int:
-        """The index of `sym`, appended where it is new."""
-        if sym not in self.indices:
-            self.indices[sym] = len(self.symbols)
-            self.symbols.append(sym)
+    def save(self, path: str) -> None:
+        """Write the symbols after the specials as `symbol count` lines."""
+        with open(path, "w") as f:
+            for sym, n in zip(self.symbols[self.nspecial:], self.count[self.nspecial:]):
+                f.write(f"{sym} {n}\n")
+
+    def add_symbol(self, sym: str, n: int = 1) -> int:
+        """The index of `sym`, appended where it is new; its count grows by n."""
+        if sym in self.indices:
+            idx = self.indices[sym]
+            self.count[idx] += n
+            return idx
+        self.indices[sym] = len(self.symbols)
+        self.symbols.append(sym)
+        self.count.append(n)
         return self.indices[sym]
 
     def index(self, sym: str) -> int:
@@ -75,10 +87,22 @@ class Dictionary:
     def unk(self) -> int:
         return UNK
 
-    def encode_line(self, line: str, append_eos: bool = True) -> np.ndarray:
+    def encode_line(self, line: str, append_eos: bool = True,
+                    add_if_not_exist: bool = False) -> np.ndarray:
         """The indices of a space-separated symbol line (an unknown symbol
-        is <unk>), </s> appended where `append_eos`; int32."""
-        ids = [self.indices.get(w, UNK) for w in line.split()]
+        is <unk>, or with `add_if_not_exist` added and counted), </s>
+        appended where `append_eos`; int32."""
+        words = line.split()
+        if add_if_not_exist:
+            ids = [self.add_symbol(w) for w in words]
+        else:
+            ids = [self.indices.get(w, UNK) for w in words]
         if append_eos:
             ids.append(EOS)
         return np.asarray(ids, dtype=np.int32)
+
+    def string(self, tokens, remove_special: bool = True) -> str:
+        """The symbols of an index sequence joined by spaces, the specials
+        left out where `remove_special`."""
+        return " ".join(self[int(i)] for i in np.asarray(tokens).reshape(-1)
+                        if not (remove_special and int(i) < self.nspecial))

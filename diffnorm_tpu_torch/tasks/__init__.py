@@ -2,21 +2,26 @@
 VAE stage and the HuBERT VAE, the latent normalizer over a frozen VAE and
 its continuous variants, NAR and AR S2UT training (UnitY among the latter),
 speech-to-spectrogram training (s2spect, Translatotron2), text-to-speech
-(tts_transformer, FastSpeech2) and speech-to-text (the S2T model). fairseq's
+(tts_transformer, FastSpeech2), speech-to-text (the S2T model) and text
+machine translation (the AR transformer, the text CMLM, the Levenshtein
+transformer, each with its in-process dummy task). fairseq's
 "speech_to_speech" is not a task here: cli.train's `check_args` sends it to
 the AR S2UT task with --target-is-code and otherwise to the spectrogram
 task (JAX tasks/aliases.py:25-40)."""
 
 from diffnorm_tpu_torch.tasks.ar_s2ut_task import ARS2UTTask
+from diffnorm_tpu_torch.tasks.cmlm_cg_task import CMLMCGTask, DummyCMLMCGTask
 from diffnorm_tpu_torch.tasks.diffusion_task import (
     HubertVAETask,
     SpeechDiffusionDiscreteTask,
     SpeechDiffusionHubertTask,
     SpeechDiffusionTask,
 )
+from diffnorm_tpu_torch.tasks.levenshtein_task import DummyLevenshteinTask, LevenshteinTask
 from diffnorm_tpu_torch.tasks.nar_s2ut_task import NARS2UTTask
 from diffnorm_tpu_torch.tasks.s2spect_task import DummyS2SpectTask, S2SpectTask
 from diffnorm_tpu_torch.tasks.s2t_task import DummyS2TTask, S2TTask
+from diffnorm_tpu_torch.tasks.translation_task import DummyTranslationTask, TranslationTask
 from diffnorm_tpu_torch.tasks.tts_task import DummyTTSTask, TextToSpeechTask
 from diffnorm_tpu_torch.tasks.vae_task import SpeechDecoderTask
 
@@ -32,4 +37,10 @@ TASKS = {"speech_decoder": SpeechDecoderTask,
          "text_to_speech": TextToSpeechTask,
          "dummy_tts": DummyTTSTask,
          "speech_to_text": S2TTask,
-         "dummy_s2t": DummyS2TTask}
+         "dummy_s2t": DummyS2TTask,
+         "translation": TranslationTask,
+         "dummy_translation": DummyTranslationTask,
+         "cmlm_cg": CMLMCGTask,
+         "dummy_cmlm_cg": DummyCMLMCGTask,
+         "translation_lev": LevenshteinTask,
+         "dummy_lev": DummyLevenshteinTask}

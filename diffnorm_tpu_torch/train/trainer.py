@@ -70,7 +70,8 @@ BATCH_KEYS = ("reduce_target", "reduce_target_unit", "reduce_target_lengths",
               "inject_q_noise", "src_tokens", "src_lengths", "target", "prev_target",
               "prev_output_tokens", "inject_cg_drop", "inject_use_prompt", "tgt_speaker",
               "ctc_target", "multitask", "prompt", "prompt_mask", "feat_tgt", "tgt_lengths",
-              "prev_feats", "tgt_mask", "durations", "pitches", "energies")
+              "prev_feats", "tgt_mask", "durations", "pitches", "energies", "prev_del",
+              "prev_kept", "prev_ins", "del_target", "ins_target", "ins_valid")
 GRAD_ACCUM = ("mean_loss", "sum_loss", "mean_loss_per_batch")
 GENERATORS = ("generator", "cg_generator", "sp_generator")
 

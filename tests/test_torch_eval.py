@@ -255,9 +255,10 @@ def test_cli_generate_refuses_unported_flags_and_missing_ids(generate_corpus, tm
     from diffnorm_tpu_torch.cli import generate
 
     base = [str(generate_corpus), "--cpu", "--path", str(generate_corpus / "nar.npz")]
-    # --task speech_to_speech (tests/test_torch_twopass_cli.py) and
-    # text_to_speech (tests/test_torch_tts_s2t_cli.py) are ported since
-    for extra, match in ((["--task", "translation"], "item 3"),
+    # --task speech_to_speech (tests/test_torch_twopass_cli.py),
+    # text_to_speech (tests/test_torch_tts_s2t_cli.py) and translation
+    # (tests/test_torch_text_cli.py) are ported since
+    for extra, match in ((["--task", "audio_finetuning"], "item 5"),
                          (["--arch", "s2ut_conformer"], "item 4")):
         with pytest.raises(NotImplementedError, match=match):
             generate.parse_args(base + extra)

@@ -44,7 +44,11 @@ NEW_MODULES = ("models/stacked.py", "models/ar_transformer.py", "data/encoders.p
                "generate/speech_ar.py", "generate/translatotron2.py",
                "criterions/tts_loss.py", "tasks/s2spect_task.py", "models/cmlm_text.py",
                "models/fastspeech2.py", "tasks/tts_task.py", "data/s2t_dataset.py",
-               "tasks/s2t_task.py")
+               "tasks/s2t_task.py", "data/dictionary.py", "data/indexed_dataset.py",
+               "tasks/cmlm_cg_task.py", "tasks/translation_task.py", "models/transformer_text.py",
+               "models/levenshtein.py", "tasks/levenshtein_task.py",
+               "criterions/levenshtein_loss.py", "cli/preprocess.py", "cli/interactive.py",
+               "cli/score.py")
 
 
 def test_no_jax_imports_in_the_port():
@@ -120,6 +124,16 @@ def test_port_imports_with_jax_blocked():
             "import diffnorm_tpu_torch.tasks.tts_task\n"
             "import diffnorm_tpu_torch.data.s2t_dataset\n"
             "import diffnorm_tpu_torch.tasks.s2t_task\n"
+            "import diffnorm_tpu_torch.data.indexed_dataset\n"
+            "import diffnorm_tpu_torch.tasks.cmlm_cg_task\n"
+            "import diffnorm_tpu_torch.tasks.translation_task\n"
+            "import diffnorm_tpu_torch.models.transformer_text\n"
+            "import diffnorm_tpu_torch.models.levenshtein\n"
+            "import diffnorm_tpu_torch.tasks.levenshtein_task\n"
+            "import diffnorm_tpu_torch.criterions.levenshtein_loss\n"
+            "import diffnorm_tpu_torch.cli.preprocess\n"
+            "import diffnorm_tpu_torch.cli.interactive\n"
+            "import diffnorm_tpu_torch.cli.score\n"
             "from diffnorm_tpu_torch.eval.bleu import corpus_bleu, scorer_name\n"
             "assert scorer_name() == 'counters', scorer_name()\n"
             "assert corpus_bleu(['1 2 3 4 5'], ['1 2 3 4 5']) == 100.0\n"
@@ -188,6 +202,16 @@ def test_entry_points_refuse_the_cpu_unless_asked(tmp_path):
         train.main(["--task", "unit_to_speech", *vocoder])
     with pytest.raises(RuntimeError, match="CUDA"):
         train.main([str(tmp_path), "--task", "speech_to_speech_ar", "--max-update", "1"])
+    for task in ("translation", "cmlm_cg", "translation_lev"):  # the text MT tasks
+        with pytest.raises(RuntimeError, match="CUDA"):
+            train.main([str(tmp_path), "--task", task, "--max-update", "1"])
+        with pytest.raises(RuntimeError, match="CUDA"):
+            generate.main([str(tmp_path), "--task", task, "--path", "absent.npz"])
+
+    from diffnorm_tpu_torch.cli import interactive
+
+    with pytest.raises(RuntimeError, match="CUDA"):
+        interactive.main([str(tmp_path), "--task", "translation", "--path", "absent.npz"])
 
     from diffnorm_tpu_torch.cli import validate
 

@@ -161,14 +161,14 @@ def test_translatotron2_cli_train_generate_validate(tmp_path):
 
 def test_cli_refusals(tmp_path):
     """fastspeech2 is not a spectrogram translator (it is text_to_speech's,
-    ported since: tests/test_torch_tts_s2t_cli.py) and text MT is not
-    ported (ROADMAP); a two-pass model trains with its own criterion alone,
+    ported since: tests/test_torch_tts_s2t_cli.py) and SEDD is not ported
+    (ROADMAP; text MT is since: tests/test_torch_text_cli.py); a two-pass model trains with its own criterion alone,
     and a single-pass one not with it; --task speech_to_speech picks its
     task on --target-is-code."""
     from diffnorm_tpu_torch.cli import generate, train
 
     base = [str(tmp_path), "--cpu", "--path", "m.npz"]
-    for extra in (["--task", "translation"],
+    for extra in (["--task", "sedd"],
                   ["--task", "speech_to_speech", "--arch", "fastspeech2"]):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             generate.parse_args(base + extra)
