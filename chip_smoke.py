@@ -322,6 +322,34 @@ tf32 passes); and at D 80 and 128 with ragged keys and a fully masked row.
    -> cli.train (2 updates, 2 + 2 layers) -> cli.generate -> cli.interactive
    -> cli.score for each on a seeded bitext, the H- lines against the
    in-process decodes and the BLEU against cli.generate's.
+27. SEDD, the unit LM, IDDPM and MoE, seeded: (a) sedd_absorb (512 x 8, 8
+   heads, 1004 units + MASK) in bf16 and float32, the arch's type: its
+   FiLM norms at [16,1024,512] and [2,2112,512] and its self-attention at
+   [2,8,2112,64] (the second row's keys 1056) held to the plain versions;
+   sedd_sample (64 steps) at B16 x 1024 (the --tokens-per-sample block: 16
+   rms_norm_film launches a score call, no flash_attention) and at B2 x
+   2112, the second row 1056 valid (8 flash_attention launches a score
+   call too), and sedd_refine (16 steps) there on a canvas 30% <unk>; each
+   score forward and one sampler update on shared uniforms against the
+   plain versions, every MASK resolved, the refinement changing only the
+   masked positions. (b) one sedd_loss update at B8 x 1024 (bf16 forward,
+   float32 masters). (c) transformer_lm (512 x 6, FF 2048): cli.eval_lm's
+   NLL over B16 x 1024 blocks and one update; its causal attention reaches
+   no kernel. (d) IDDPM: create_diffusion(learn_sigma=False,
+   timestep_respacing="ddim25") over the released normalizer's Denoiser
+   (latent 128, B64 x T128, bf16) as the denoise_fn: ddim_sample_loop
+   against the plain versions on the same noises, with each kernel alone
+   through its plain version too, and one training_losses update; one
+   Denoiser call at the loop's first step against the float32 plain call,
+   the kernels' bf16 error beside the plain versions', and at its last
+   step against the plain versions; in float32 the first call against the
+   plain versions and the sample against a float64 run, its error beside
+   the plain versions'. (e) BaseLayer (512, FF 2048, 8 experts, 16384
+   tokens, bf16) forward, sinkhorn_routing on the card against the CPU on
+   the same scores, balanced_assignment_host on the host. (f) cli.train
+   --task sedd_lm (2 updates, 2 layers) -> cli.validate, and cli.train
+   --task language_modeling (2 updates, 2 layers) -> cli.eval_lm, its
+   perplexity against the in-process evaluation.
 Phase 2 times flash_attention also at phase 23's decode step (q
 [10,8,1,64] against k/v [10,8,2112,64], beams of the half-length row
 masked at 1056 keys), its S2T encoder's self-attention ([2,8,2112,64]),
@@ -343,7 +371,11 @@ phase 23's long-form beam decode and s2ut_transformer forward, phase
 24's long-form decodes and phase 25's bf16 FastSpeech2 runs (in process
 and its CLIs) and long-form S2T decode and phase 26's long-form text MT
 decodes too; flash_attention_f32 phase 25's
-float32 FastSpeech2 generation and validation beside phase 13's.
+float32 FastSpeech2 generation and validation beside phase 13's. Phase 27
+adds its counted SEDD runs to rms_norm_film, flash_attention (bf16) and
+flash_attention_f32 (float32), and its IDDPM sample to rms_norm_film and
+wavenet_chain. Phase 2 also times flash_attention at SEDD's long form
+([2,8,2112,64], keys 2112 and 1056) in bf16 and float32.
 
 Then one JSON line of per-kernel numbers and, last, {"ok": true, "device": ...}.
 Exits non-zero without CUDA, and in a directory without the port.
@@ -354,6 +386,7 @@ from __future__ import annotations
 import contextlib
 import copy
 import io
+import itertools
 import json
 import logging
 import math
@@ -366,6 +399,7 @@ import time
 from pathlib import Path
 
 HBM_BYTES_PER_S = 3.35e12    # H100 SXM
+L2_BYTES = 50 * 2 ** 20      # H100 SXM
 BF16_FLOP_PER_S = 989e12     # dense bf16 tensor cores
 INT8_OPS_PER_S = 1979e12     # dense int8 tensor cores
 F32_FLOP_PER_S = 67e12       # f32 outside the tensor cores
@@ -933,15 +967,32 @@ def cuda_time_ms(fn, iters: int = 20, reps: int = 5) -> float:
     return statistics.median(samples)
 
 
+def cuda_time_cold_ms(fn, *inputs) -> float:
+    """cuda_time_ms of fn(*inputs) with the inputs rotated through copies
+    that together fill twice the L2, so that each call reads them from HBM
+    (where the L2 would hold one set, a hot replay beats the byte bound)."""
+    n = 2 * L2_BYTES // sum(x.numel() * x.element_size() for x in inputs) + 1
+    sets = itertools.cycle([[x.clone() for x in inputs] for _ in range(n)])
+    return cuda_time_ms(lambda: fn(*next(sets)), iters=n * math.ceil(20 / n))
+
+
 def bound(nbytes: float, flops: float, peak_flops: float):
     t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / peak_flops
     return (1e3 * max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations")
 
 
-def check_rms_norm_film(torch, norm):
+def check_rms_norm_film(torch, norm, b=B, t=T, cold=False):
+    """rms_norm_film at [b, t, 512] in bf16 and float32 against its plain
+    version, timed beside its bound (with the inputs hot in L2, or read
+    from HBM where `cold`); the bf16 numbers."""
+
+    def timed(fn, *inputs):
+        return cuda_time_cold_ms(fn, *inputs) if cold else cuda_time_ms(lambda: fn(*inputs))
+
+    where = ", inputs from HBM" if cold else ""
     g = torch.Generator(device="cuda").manual_seed(10)
-    x = torch.randn(B, T, 512, generator=g, device="cuda").to(torch.bfloat16)
-    film = torch.randn(B, 1024, generator=g, device="cuda").to(torch.bfloat16)
+    x = torch.randn(b, t, 512, generator=g, device="cuda").to(torch.bfloat16)
+    film = torch.randn(b, 1024, generator=g, device="cuda").to(torch.bfloat16)
     got = norm.rms_norm_film(x, film).float()
     ref = norm.rms_norm_film_plain(x, film).float()  # f32 math, rounded to bf16
     ulp = torch.ldexp(torch.ones_like(ref), torch.frexp(ref).exponent - 8)
@@ -955,13 +1006,13 @@ def check_rms_norm_film(torch, norm):
     if not torch.isfinite(got).all() or (err > tol).any():
         fail(f"rms_norm_film: {(err > tol).sum().item()} elements beyond tolerance, "
              f"max err {err.max().item():.3e}")
-    ms = cuda_time_ms(lambda: norm.rms_norm_film(x, film))
-    plain_ms = cuda_time_ms(lambda: norm.rms_norm_film_plain(x, film))
+    ms = timed(norm.rms_norm_film, x, film)
+    plain_ms = timed(norm.rms_norm_film_plain, x, film)
     nbytes = 2 * x.numel() * 2 + film.numel() * 2
     bound_ms, bound_by = bound(nbytes, 5.0 * x.numel(), F32_FLOP_PER_S)
-    print(f"kernel rms_norm_film [{B},{T},512] bf16: {ms:.4f} ms, plain {plain_ms:.4f} ms, "
-          f"bound {bound_ms:.4f} ms ({bound_by}), max_abs_err {err.max().item():.3e}, "
-          f"{(err > ulp).sum().item()} of {err.numel()} elements beyond 1 bf16 ulp "
+    print(f"kernel rms_norm_film [{b},{t},512] bf16{where}: {ms:.4f} ms, plain "
+          f"{plain_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by}), max_abs_err "
+          f"{err.max().item():.3e}, {(err > ulp).sum().item()} of {err.numel()} elements beyond 1 bf16 ulp "
           f"(all within 1 ulp + 4 f32 ulps of the summands)")
 
     # float32: the same f32 math, no rounding to bf16 at the end; rsqrtf and
@@ -974,10 +1025,12 @@ def check_rms_norm_film(torch, norm):
     if not torch.isfinite(got).all() or (err32 > tol).any():
         fail(f"rms_norm_film float32: {(err32 > tol).sum().item()} elements beyond 32 f32 "
              f"ulps of the summands, max err {err32.max().item():.3e}")
-    ms32 = cuda_time_ms(lambda: norm.rms_norm_film(x32, film32))
+    ms32 = timed(norm.rms_norm_film, x32, film32)
+    plain32 = timed(norm.rms_norm_film_plain, x32, film32)
     bound32, _ = bound(2 * nbytes, 5.0 * x.numel(), F32_FLOP_PER_S)
-    print(f"kernel rms_norm_film [{B},{T},512] float32: {ms32:.4f} ms, bound {bound32:.4f} ms "
-          f"(bytes), max_abs_err {err32.max().item():.3e} (within 32 f32 ulps of the summands)")
+    print(f"kernel rms_norm_film [{b},{t},512] float32{where}: {ms32:.4f} ms, plain "
+          f"{plain32:.4f} ms, bound {bound32:.4f} ms (bytes), max_abs_err "
+          f"{err32.max().item():.3e} (within 32 f32 ulps of the summands)")
     return dict(max_abs_err=err.max().item(), ms=ms, plain_ms=plain_ms,
                 bound_ms=bound_ms, bound_by=bound_by)
 
@@ -1333,6 +1386,10 @@ def check_flash_attention(torch, flash):
         ("CMLM decoder", 10, 8, 256, 2112, 64, [2112] * 5 + [1056] * 5, bf),
         # the S2ST decoder's encoder attention in float32
         ("float32 path", 2, 8, 256, 2112, 64, [2112, 1056], f32),
+        # phase 27's SEDD self-attention in long form (8 heads of 64, the
+        # second row 1056 valid), in bf16 and in float32, the arch's type
+        ("SEDD self-attention", 2, 8, 2112, 2112, 64, [2112, 1056], bf),
+        ("SEDD self-attention float32", 2, 8, 2112, 2112, 64, [2112, 1056], f32),
         # HuBERT's self-attention over a 70 s utterance and over cli.prepare's
         # longest chunk (100 s), float32, no mask
         ("HuBERT long form", 1, 12, PREP_LONG_FRAMES, PREP_LONG_FRAMES, 64, None, f32),
@@ -1365,7 +1422,9 @@ def check_flash_attention(torch, flash):
         if what not in ("path", "eval path", "PERFORMANCE.md", "AR decode step", "S2T encoder",
                         "UnitY decode step", "Translatotron2 decode step", "s2spect decode step",
                         "FastSpeech2 decoder", "FastSpeech2 decoder float32",
-                        "MT encoder", "MT decode step", "CMLM decoder", "float32 path", "HuBERT long form", "HuBERT longest chunk"):
+                        "MT encoder", "MT decode step", "CMLM decoder", "float32 path",
+                        "HuBERT long form", "HuBERT longest chunk", "SEDD self-attention",
+                        "SEDD self-attention float32"):
             continue
         ms = cuda_time_ms(lambda: flash.flash_attention(q, k, v, mask))
         plain_ms = cuda_time_ms(lambda: flash.flash_attention_plain(q, k, v, mask),
@@ -1565,6 +1624,48 @@ def plain_versions(norm, chain, ffpipe, fused, flash):
     finally:
         (norm.rms_norm_film, chain.wavenet_chain, ffpipe.ffpipe_layer, fused.fused_layer,
          flash.flash_attention) = saved
+
+
+@contextlib.contextmanager
+def plain_kernel(mod, name):
+    """Route one kernel's wrapper through its plain version."""
+    saved = getattr(mod, name)
+    setattr(mod, name, getattr(mod, f"{name}_plain"))
+    try:
+        yield
+    finally:
+        setattr(mod, name, saved)
+
+
+@contextlib.contextmanager
+def float64_versions(norm, chain):
+    """Route rms_norm_film and wavenet_chain through their plain versions'
+    math in float64: a reference for float32 runs."""
+    import torch
+    import torch.nn.functional as F
+
+    def rms_norm_film(x, film, eps=1e-12):
+        xd = x.double()
+        inv = torch.rsqrt(xd.square().sum(-1, keepdim=True).clamp(min=eps * eps))
+        gamma, beta = film.double()[:, None, :].chunk(2, dim=-1)
+        return xd * inv * math.sqrt(x.shape[-1]) * gamma + beta
+
+    def wavenet_chain(x, w_conv, w_res, w_skip, b_res, b_skip, gamma, beta, dilation):
+        h_in, k = x.double(), w_conv.shape[1]
+        for s in range(w_conv.shape[0]):
+            h = sum(F.linear(chain._shift(h_in, (k - 1 - i) * dilation), w_conv[s, i].double())
+                    for i in range(k) if (k - 1 - i) * dilation < x.shape[1])
+            h = h * gamma[:, s, None, :].double() + beta[:, s, None, :].double()
+            h_in = (torch.tanh(h) * torch.sigmoid(h)
+                    + F.linear(h_in, w_res[s].double(), b_res[s].double()))
+        return F.linear(h_in, w_skip.double(), b_skip.double())
+
+    saved = norm.rms_norm_film, chain.wavenet_chain
+    norm.rms_norm_film, chain.wavenet_chain = rms_norm_film, wavenet_chain
+    try:
+        yield
+    finally:
+        norm.rms_norm_film, chain.wavenet_chain = saved
 
 
 def run_main_path(torch, model, ddim_sample, inputs):
@@ -3913,6 +4014,23 @@ def timed_decode(torch, fn, reps: int = EXTRAS_REPS, warm=None):
         torch.cuda.synchronize()
         walls.append(time.perf_counter() - t0)
     return out, counts, statistics.median(walls)
+
+
+def timed_updates(torch, trainer, batches, what):
+    """ms of each update of `trainer` over `batches` (the first a warm-up),
+    the peak GB and each update's metrics; fails on a loss or gradient norm
+    that is not finite."""
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ms, mets = [], []
+    for batch in batches:
+        t1 = time.perf_counter()
+        mets.append(trainer.train_step([batch]))
+        torch.cuda.synchronize()
+        ms.append(1e3 * (time.perf_counter() - t1))
+        if not (math.isfinite(mets[-1]["loss"]) and math.isfinite(mets[-1]["gnorm"])):
+            fail(f"{what} update: {mets[-1]}")
+    return ms, torch.cuda.max_memory_allocated() / 1e9, mets
 
 
 def unit_agreement(a, b) -> float:
@@ -7312,18 +7430,8 @@ def run_mt_train(torch, smi):
             with torch.device("cuda"):
                 model = task.build_model()
             trainer = Trainer(train_cli.trainer_config(args), model, task.build_criterion())
-            torch.cuda.synchronize()
-            torch.cuda.reset_peak_memory_stats()
-            ms, losses = [], []
-            for batch in batches[:2]:
-                t1 = time.perf_counter()
-                mets = trainer.train_step([batch])
-                torch.cuda.synchronize()
-                ms.append(1e3 * (time.perf_counter() - t1))
-                losses.append(mets["loss"])
-                if not (math.isfinite(mets["loss"]) and math.isfinite(mets["gnorm"])):
-                    fail(f"{arch} update: {mets}")
-            peak_gb = torch.cuda.max_memory_allocated() / 1e9
+            ms, peak_gb, mets = timed_updates(torch, trainer, batches[:2], arch)
+            losses = [m["loss"] for m in mets]
             busy, _ = profile_run(torch, lambda: trainer.train_step([batches[2]]), ms[1] / 1e3)
             n_params = sum(p.numel() for p in trainer.params)
             tokens = int(sum((b["src_tokens"] != 1).sum() + (b["target"] != 1).sum()
@@ -7495,6 +7603,491 @@ def run_text_mt(torch, mods, smi):
     run_mt_train(torch, smi)
     run_mt_cli(torch, smi)
     print(f"phase text MT: {time.perf_counter() - t0:.1f} s, flash_attention launches "
+          f"{launches}; {smi}")
+    return launches
+
+
+# Phase 27: SEDD, the unit LM, IDDPM and MoE (module docstring). sedd_absorb
+# and transformer_lm over the 1004-symbol unit dictionary (1000 units, the
+# released unit vocabulary), seeded; SEDD's sampler at the --tokens-per-sample
+# block (B16 x 1024) and in long form (B2 x 2112, the second row 1056 valid:
+# 42 s of units at 50 Hz, past the 2048 keys where its self-attention goes
+# through flash_attention).
+SEDD_VOCAB = 1004
+SEDD_STEPS, SEDD_REFINE_STEPS, SEDD_UNK_SHARE = 64, 16, 0.3
+SEDD_SHAPES = {"block": [1024] * 16, "long form": [2112, 1056]}
+SEDD_NORMS, SEDD_FLASH = 16, 8  # a score call's FiLM norms (2 x 8 layers), self-attentions
+SEDD_ROW_COS = {"bfloat16": 0.999, "float32": 0.99999}
+SEDD_TOKENS_EQUAL = 0.99  # one sampler update on shared uniforms, kernels against plain
+SEDD_PROFILE_STEPS = 8
+SEDD_TRAIN_B = 8
+LM_B, LM_T = 16, 1024
+# IDDPM over the Denoiser, kernels against the plain versions on the same
+# noises. At the loop's first step (t = 960) the Denoiser magnifies
+# rounding: an H100 put the kernels' and the plain versions' bf16 calls
+# each 0.384 of the norm from the float32 call (0.9258 apart by row-cos),
+# and the float32 samples 0.9984 apart by row-cos after 25 steps, the
+# float32 calls 0.999999. So the bf16 sample is held by row-cos (25 steps
+# of bf16 rounding: 0.991155), the bf16 call at t = 960 and the float32
+# sample by their error against a reference (float32, float64), at most
+# IDDPM_ERR_RATIO times the plain versions' error; the bf16 call at the
+# last step (t = 0) and the float32 call at t = 960 by row-cos.
+IDDPM_RESPACING, IDDPM_ROW_COS, IDDPM_ERR_RATIO = "ddim25", 0.99, {"call": 1.1, "sample": 1.25}
+IDDPM_CALL_ROW_COS = {"bfloat16": 0.9995, "float32": 0.99999}
+MOE_DIM, MOE_FFN, MOE_EXPERTS, MOE_TOKENS, MOE_AGREE = 512, 2048, 8, 16384, 0.99
+LM_CLI_LAYERS = 2  # the CLIs' depth, where checkpoints are written
+LM_CLI_UTTS = {"train": 64, "dev": 8, "test": 8}
+
+
+def sedd_model(torch, seed, dtype):
+    """sedd_absorb from `seed` on the card, in `dtype`, eval mode."""
+    from diffnorm_tpu_torch.models.sedd import SEDDModule, sedd_absorb_arch
+
+    w = {}
+    sedd_absorb_arch(w)
+    torch.manual_seed(seed)
+    with torch.device("cuda"):
+        model = SEDDModule(SEDD_VOCAB, dim=w["sedd_dim"], depth=w["sedd_depth"],
+                           heads=w["sedd_heads"])
+    return model.to(dtype).eval()
+
+
+def sedd_mask(torch, lengths):
+    return (torch.arange(max(lengths), device="cuda")[None, :]
+            < torch.tensor(lengths, device="cuda")[:, None])
+
+
+def run_sedd_decode(torch, mods, smi):
+    """Phase 27a (module docstring). Returns the counted runs' launches by
+    JSON row."""
+    from diffnorm_tpu_torch.models import sedd
+    from diffnorm_tpu_torch.ops import _build
+
+    for lengths in SEDD_SHAPES.values():  # the FiLM norms' shapes, bf16 and float32
+        check_rms_norm_film(torch, mods[0], len(lengths), max(lengths), cold=True)
+    launches = {"rms_norm_film": 0, "flash_attention": 0, "flash_attention_f32": 0}
+    for dtype in (torch.bfloat16, torch.float32):
+        name = str(dtype)[6:]
+        model = sedd_model(torch, 274, dtype)
+        n_params = sum(p.numel() for p in model.parameters())
+        for what, lengths in SEDD_SHAPES.items():
+            b, t = len(lengths), max(lengths)
+            valid = sedd_mask(torch, lengths)
+            long_form = what == "long form"
+            per_call = {"rms_norm_film": SEDD_NORMS,
+                        "flash_attention": SEDD_FLASH if long_form else 0}
+            g = torch.Generator(device="cuda").manual_seed(275)
+            tokens = torch.randint(4, SEDD_VOCAB, (b, t), generator=g, device="cuda")
+            x = torch.where(torch.rand(b, t, generator=g, device="cuda") < 0.5, model.mask_id,
+                            tokens)
+            sigma = torch.linspace(0.05, 3.0, b, device="cuda")
+            # one score call through the kernels, counted, and through the
+            # plain versions
+            with torch.no_grad():
+                _build.launch_counts.clear()
+                got = model.log_score(x, sigma, valid)
+                torch.cuda.synchronize()
+                one = dict(_build.launch_counts)
+                with plain_versions(*mods):
+                    ref = model.log_score(x, sigma, valid)
+            cos = rows_cos(torch, got, ref, valid)
+            # one sampler update on shared uniforms (t = 0.5, dt of 64 steps)
+            u = torch.rand(b, t, model.mask_id + 1, generator=g, device="cuda")
+            tt = torch.full((b,), 0.5, device="cuda")
+            dt = (1.0 - 1e-5) / SEDD_STEPS
+            with torch.no_grad():
+                step = sedd._update(model, x, tt, dt, valid, u, truncate=False)
+                with plain_versions(*mods):
+                    step_p = sedd._update(model, x, tt, dt, valid, u, truncate=False)
+            equal = (step == step_p)[valid].float().mean().item()
+            unmasked = ((step != model.mask_id) & (x == model.mask_id) & valid).sum().item()
+
+            def sample(steps=SEDD_STEPS):
+                gen = torch.Generator(device="cuda").manual_seed(276)
+                return sedd.sedd_sample(model, b, t, steps=steps, valid_mask=valid,
+                                        generator=gen)
+
+            out, counts, wall = timed_decode(torch, sample, reps=1, warm=lambda: sample(2))
+            want = {k: n * SEDD_STEPS for k, n in per_call.items()}
+            got_counts = {k: counts.get(k, 0) for k in want}
+            short_wall = timed_decode(torch, lambda: sample(SEDD_PROFILE_STEPS), reps=1)[2]
+            busy, kernels = profile_run(torch, lambda: sample(SEDD_PROFILE_STEPS), short_wall)
+            n_tokens = sum(lengths)
+            print(f"sedd_absorb sample, {what}, {name}: {n_params / 1e6:.1f} M parameters, B{b} "
+                  f"x {t} ({n_tokens} valid), {SEDD_STEPS} steps: wall {wall:.4f} s (one run), "
+                  f"{1e3 * wall / SEDD_STEPS:.3f} ms a step, {n_tokens / wall:.1f} tokens/s; a "
+                  f"{SEDD_PROFILE_STEPS}-step sample {short_wall:.4f} s, device busy "
+                  + ("not measured" if busy is None else f"{100 * busy:.1f}%, {kernels} kernels")
+                  + f"; launches {got_counts} (expected {want}); one score call {one}; its "
+                  f"log-scores against the plain versions row-cos min {cos:.6f} (bound "
+                  f"{SEDD_ROW_COS[name]}); one update on shared uniforms: tokens equal "
+                  f"{equal:.5f} (bound {SEDD_TOKENS_EQUAL}), {unmasked} positions unmasked; "
+                  f"{smi}")
+            if (got_counts != want or {k: one.get(k, 0) for k in per_call} != per_call
+                    or cos < SEDD_ROW_COS[name] or equal < SEDD_TOKENS_EQUAL
+                    or out.shape != (b, t) or (out == model.mask_id).any()
+                    or out.min() < 0):
+                fail(f"sedd_absorb {what} {name}: launches {got_counts} / {one}, row-cos "
+                     f"{cos:.6f}, tokens equal {equal:.5f}, MASK left "
+                     f"{(out == model.mask_id).sum().item()}")
+            flash_key = "flash_attention" if dtype == torch.bfloat16 else "flash_attention_f32"
+            launches["rms_norm_film"] += got_counts["rms_norm_film"]
+            launches[flash_key] += got_counts["flash_attention"]
+            if not long_form:
+                continue
+            canvas = torch.where(torch.rand(b, t, generator=g, device="cuda") < SEDD_UNK_SHARE,
+                                 sedd.UNK, tokens)
+            canvas = torch.where(valid, canvas, 1)
+
+            def refine():
+                gen = torch.Generator(device="cuda").manual_seed(277)
+                return sedd.sedd_refine(model, canvas, valid, steps=SEDD_REFINE_STEPS,
+                                        generator=gen)
+
+            fixed, counts, wall = timed_decode(torch, refine, reps=1)
+            want = {k: n * SEDD_REFINE_STEPS for k, n in per_call.items()}
+            got_counts = {k: counts.get(k, 0) for k in want}
+            masked = canvas == sedd.UNK
+            kept = (fixed == canvas)[~masked].all().item()
+            filled = (fixed != sedd.UNK)[masked & valid].float().mean().item()
+            print(f"sedd_absorb refine, long form, {name}: {SEDD_REFINE_STEPS} steps on a canvas "
+                  f"{masked[valid].float().mean().item():.3f} <unk>: wall {wall:.4f} s, launches "
+                  f"{got_counts} (expected {want}); unmasked positions unchanged {kept}, "
+                  f"masked positions filled {filled:.4f}; {smi}")
+            if got_counts != want or not kept:
+                fail(f"sedd_refine {name}: launches {got_counts}, unmasked kept {kept}")
+            launches["rms_norm_film"] += got_counts["rms_norm_film"]
+            launches[flash_key] += got_counts["flash_attention"]
+        del model
+    return launches
+
+
+def lm_task(torch, tmp, task, *extra):
+    """The port's task of --task `task` on the 1000-unit dictionary (no
+    data files), bf16 forward."""
+    from diffnorm_tpu_torch.cli import train as train_cli
+    from diffnorm_tpu_torch.tasks import TASKS
+
+    args = train_cli.parse_args([str(tmp), "--task", task, "--max-update", "2", "--dtype",
+                                 "bfloat16", "--warmup-updates", "4000", *extra])
+    return args, TASKS[task](args)
+
+
+def unit_rows(b, t, seed):
+    import numpy as np
+
+    return np.random.default_rng(seed).integers(4, SEDD_VOCAB, (b, t)).astype(np.int32)
+
+
+def run_sedd_lm_train(torch, smi):
+    """Phase 27b and c: one sedd_loss update at B8 x 1024 and
+    transformer_lm's eval_lm NLL over B16 x 1024 blocks and one update."""
+    import numpy as np
+
+    from diffnorm_tpu_torch.cli import eval_lm
+    from diffnorm_tpu_torch.cli import train as train_cli
+    from diffnorm_tpu_torch.ops import _build
+    from diffnorm_tpu_torch.train.trainer import Trainer
+
+    with tempfile.TemporaryDirectory() as tmp:
+        args, task = lm_task(torch, tmp, "sedd")
+        torch.manual_seed(278)
+        with torch.device("cuda"):
+            model = task.build_model()
+        trainer = Trainer(train_cli.trainer_config(args), model, task.build_criterion())
+        batches = [{"target_unit": unit_rows(SEDD_TRAIN_B, 1024, 279 + i),
+                    "target_lengths": np.full(SEDD_TRAIN_B, 1024, np.int32)} for i in range(2)]
+        _build.launch_counts.clear()
+        ms, peak, mets = timed_updates(torch, trainer, batches, "sedd_absorb")
+        mets = mets[-1]
+        counts = dict(_build.launch_counts)
+        print(f"sedd_absorb update (sedd_loss): B{SEDD_TRAIN_B} x 1024, bf16 forward, float32 "
+              f"masters: ms per update {[round(v, 1) for v in ms]} (the first a warm-up), peak "
+              f"{peak:.2f} GB, loss {mets['loss']:.4f}, gnorm {mets['gnorm']:.4f}, launches "
+              f"{counts}; {smi}")
+        if counts.get("rms_norm_film", 0) != 2 * SEDD_NORMS:
+            fail(f"sedd update launches {counts}")
+        del model, trainer
+
+        args, task = lm_task(torch, tmp, "language_modeling")
+        torch.manual_seed(280)
+        with torch.device("cuda"):
+            model = task.build_model()
+        n_params = sum(p.numel() for p in model.parameters())
+        tokens = torch.from_numpy(unit_rows(LM_B, LM_T, 281)).long().cuda()
+        nlls = {}
+        for dtype in (torch.float32, torch.bfloat16):
+            lm = model.to(dtype).eval()
+            eval_lm.nll(lm, tokens)
+            torch.cuda.synchronize()
+            _build.launch_counts.clear()
+            t1 = time.perf_counter()
+            s, n = eval_lm.nll(lm, tokens)
+            torch.cuda.synchronize()
+            nlls[str(dtype)[6:]] = (float(s) / int(n), time.perf_counter() - t1,
+                                    dict(_build.launch_counts))
+        model = model.float().train()
+        trainer = Trainer(train_cli.trainer_config(args), model, task.build_criterion())
+        batches = [{"target_unit": unit_rows(LM_B, LM_T, 282 + i)} for i in range(2)]
+        ms, peak, mets = timed_updates(torch, trainer, batches, "transformer_lm")
+        mets = mets[-1]
+        print(f"transformer_lm: {n_params / 1e6:.1f} M parameters; eval_lm's NLL over B{LM_B} x "
+              f"{LM_T} tokens, "
+              + ", ".join(f"{k}: {v[0]:.5f} nats ({1e3 * v[1]:.1f} ms, launches {v[2]})"
+                          for k, v in nlls.items())
+              + f"; update (lm_cross_entropy) bf16 forward: ms {[round(v, 1) for v in ms]}, "
+                f"peak {peak:.2f} GB, loss {mets['loss']:.4f}; {smi}")
+        if (any(v[2] for v in nlls.values())
+                or abs(nlls["bfloat16"][0] - nlls["float32"][0]) > 0.05 * nlls["float32"][0]):
+            fail(f"transformer_lm NLL: {nlls}")
+        del model, trainer
+
+
+def run_iddpm(torch, mods, smi):
+    """Phase 27d: IDDPM over the released normalizer's Denoiser (module
+    docstring). Returns the counted samples' launches."""
+    from diffnorm_tpu_torch.models.diffusion import Denoiser
+    from diffnorm_tpu_torch.models.gaussian_diffusion import create_diffusion
+
+    norm, chain = mods[:2]
+    diffusion, cfg = create_diffusion(learn_sigma=False, timestep_respacing=IDDPM_RESPACING)
+    steps = diffusion.num_timesteps
+    torch.manual_seed(283)
+    with torch.device("cuda"):
+        denoiser = Denoiser()
+    mask = torch.ones(B, T, dtype=torch.bool, device="cuda")
+    shape = (B, T, 128)
+    dtype = torch.float32
+
+    def denoise_fn(x, t):
+        out = denoiser(x.to(dtype), t.float(), mask)
+        return out if dtype == torch.float64 else out.float()
+
+    g = torch.Generator(device="cuda").manual_seed(284)
+    noises = [torch.randn(shape, generator=g, device="cuda") for _ in range(steps + 1)]
+    kw = dict(model_mean_type=cfg["model_mean_type"], model_var_type=cfg["model_var_type"])
+    t_first, t_last = (diffusion.map_t(torch.full((B,), i, device="cuda")) for i in (steps - 1, 0))
+
+    def sample():
+        return diffusion.ddim_sample_loop(denoise_fn, shape, noise=noises, **kw)
+
+    def flat(x):
+        return x.reshape(-1, 128)
+
+    def rel_err(a, ref):
+        return ((a - ref).norm() / ref.norm()).item()
+
+    def calls(t):
+        """One Denoiser call at t through the kernels and the plain versions."""
+        with torch.no_grad():
+            call = denoise_fn(noises[0], t)
+            with plain_versions(*mods):
+                return call, denoise_fn(noises[0], t)
+
+    def samples():
+        """The sample through the kernels (counted) and the plain versions."""
+        out, counts, wall = timed_decode(torch, sample, reps=1)
+        with plain_versions(*mods):
+            ref, _, wall_p = timed_decode(torch, sample, reps=1)
+        return out, ref, {k: counts.get(k, 0) for k in want}, wall, wall_p
+
+    want = {"rms_norm_film": 24 * steps, "wavenet_chain": 8 * steps}
+    denoiser = denoiser.eval()
+    call32 = calls(t_first)[1]  # the float32 reference of the bf16 call
+    dtype = torch.bfloat16
+    denoiser = denoiser.to(dtype)
+    call, call_p = calls(t_first)
+    err, err_p = rel_err(call, call32), rel_err(call_p, call32)
+    last_cos = min_row_cos(torch, *map(flat, calls(t_last)))
+    out, ref, counts, wall, wall_p = samples()
+    cos = min_row_cos(torch, flat(out), flat(ref))
+    # which kernel moves the sample: each alone through its plain version
+    moved = {}
+    for mod, name in ((norm, "rms_norm_film"), (chain, "wavenet_chain")):
+        with plain_kernel(mod, name):
+            moved[name] = min_row_cos(torch, flat(out), flat(sample()))
+    busy, kernels = profile_run(torch, sample, wall)
+    x0 = torch.randn(shape, generator=g, device="cuda")
+    t = torch.randint(0, steps, (B,), generator=g, device="cuda")
+    denoiser.train()
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    losses, _ = diffusion.training_losses(denoise_fn, x0, t, loss_type=cfg["loss_type"],
+                                          noise=noises[0], **kw)
+    loss = losses["loss"].mean()
+    loss.backward()
+    torch.cuda.synchronize()
+    ms = 1e3 * (time.perf_counter() - t1)
+    gnorm = math.sqrt(sum(float(p.grad.float().square().sum()) for p in denoiser.parameters()
+                          if p.grad is not None))
+    print(f"IDDPM over the Denoiser ({cfg}, {IDDPM_RESPACING} of 1000 linear steps), B{B} x "
+          f"T{T} x 128, bf16: ddim_sample_loop wall {wall:.4f} s ({steps} steps), launches "
+          f"{counts} (expected {want}), device busy "
+          + ("not measured" if busy is None else f"{100 * busy:.1f}%")
+          + f"; the plain versions {wall_p:.4f} s; the samples row-cos min {cos:.6f} (bound "
+          f"{IDDPM_ROW_COS}), against the sample with one kernel's plain version: "
+          + ", ".join(f"{k} {v:.6f}" for k, v in moved.items())
+          + f"; one Denoiser call at t {int(t_first[0])}: its error against the float32 "
+          f"plain call (norm of the difference over the norm) {err:.4e}, the plain versions' "
+          f"{err_p:.4e} (bound {IDDPM_ERR_RATIO['call']}x), row-cos min "
+          f"{min_row_cos(torch, flat(call), flat(call_p)):.6f} between them; at t "
+          f"{int(t_last[0])} row-cos min {last_cos:.6f} (bound "
+          f"{IDDPM_CALL_ROW_COS['bfloat16']}); training_losses forward and backward "
+          f"{ms:.1f} ms, loss {loss.item():.5f}, gnorm {gnorm:.4f}; {smi}")
+    if (counts != want or cos < IDDPM_ROW_COS or err > IDDPM_ERR_RATIO["call"] * err_p
+            or last_cos < IDDPM_CALL_ROW_COS["bfloat16"] or not torch.isfinite(out).all()
+            or not math.isfinite(gnorm)):
+        fail(f"IDDPM: launches {counts}, row-cos {cos:.6f}, call error {err:.4e} against "
+             f"{err_p:.4e}, row-cos at t 0 {last_cos:.6f}, gnorm {gnorm}")
+    launches = counts
+
+    # float32, and a float64 reference of its sample
+    denoiser.zero_grad(set_to_none=True)
+    dtype = torch.float32
+    denoiser = denoiser.to(dtype).eval()
+    call_cos = min_row_cos(torch, *map(flat, calls(t_first)))
+    out, ref, counts, wall, wall_p = samples()
+    dtype = torch.float64
+    denoiser = denoiser.to(dtype)
+    with float64_versions(norm, chain):
+        ref64 = sample()
+    err, err_p = rel_err(out.double(), ref64), rel_err(ref.double(), ref64)
+    print(f"IDDPM over the Denoiser, float32: ddim_sample_loop wall {wall:.4f} s, launches "
+          f"{counts} (expected {want}); the plain versions {wall_p:.4f} s; one Denoiser call at "
+          f"t {int(t_first[0])} against the plain versions row-cos min {call_cos:.6f} (bound "
+          f"{IDDPM_CALL_ROW_COS['float32']}); the sample's error against the float64 one "
+          f"{err:.4e}, the plain versions' {err_p:.4e} (bound {IDDPM_ERR_RATIO['sample']}x), "
+          f"row-cos min {min_row_cos(torch, flat(out), flat(ref)):.6f} between them; {smi}")
+    if (counts != want or call_cos < IDDPM_CALL_ROW_COS["float32"]
+            or err > IDDPM_ERR_RATIO["sample"] * err_p or not torch.isfinite(out).all()):
+        fail(f"IDDPM float32: launches {counts}, row-cos {call_cos:.6f}, sample error "
+             f"{err:.4e} against {err_p:.4e}")
+    del denoiser
+    return {k: n + counts[k] for k, n in launches.items()}
+
+
+def run_moe(torch, smi):
+    """Phase 27e: BaseLayer's bf16 forward, sinkhorn_routing on the card
+    against the CPU, balanced_assignment_host on the host."""
+    import numpy as np
+
+    from diffnorm_tpu_torch.models.moe import BaseLayer, balanced_assignment_host, sinkhorn_routing
+
+    torch.manual_seed(285)
+    with torch.device("cuda"):
+        layer = BaseLayer(MOE_DIM, MOE_FFN, MOE_EXPERTS, dtype=torch.bfloat16)
+    g = torch.Generator(device="cuda").manual_seed(286)
+    x = torch.randn(MOE_TOKENS, MOE_DIM, generator=g, device="cuda").to(torch.bfloat16)
+    with torch.no_grad():
+        out = layer(x)
+        ms = cuda_time_eager_ms(lambda: layer(x), iters=5, reps=3)
+        scores = x.float() @ layer.expert_centroids.float().T
+        ids = sinkhorn_routing(scores)
+        ids_cpu = sinkhorn_routing(scores.cpu())
+    agree = (ids.cpu() == ids_cpu).float().mean().item()
+    balance = torch.bincount(ids, minlength=MOE_EXPERTS).tolist()
+    t1 = time.perf_counter()
+    host = balanced_assignment_host(scores.cpu().numpy())
+    host_s = time.perf_counter() - t1
+    flops = 2.0 * MOE_TOKENS * MOE_DIM * MOE_FFN * 2
+    bound_ms, bound_by = bound(2 * x.numel() * 2 + 2 * layer.experts_w1.numel() * 2, flops,
+                               BF16_FLOP_PER_S)
+    print(f"BaseLayer {MOE_DIM} x FF {MOE_FFN}, {MOE_EXPERTS} experts, {MOE_TOKENS} tokens, bf16 "
+          f"forward: {ms:.4f} ms (the experts' products {flops / 1e9:.1f} GFLOP, bound "
+          f"{bound_ms:.4f} ms by {bound_by}); sinkhorn_routing on the card against the CPU: "
+          f"{agree:.5f} of the tokens equal, counts {balance}; balanced_assignment_host on the "
+          f"host {host_s:.3f} s, counts {np.bincount(host).tolist()}; {smi}")
+    if (agree < MOE_AGREE or balance != [MOE_TOKENS // MOE_EXPERTS] * MOE_EXPERTS
+            or not torch.isfinite(out).all()
+            or np.bincount(host, minlength=MOE_EXPERTS).tolist()
+            != [MOE_TOKENS // MOE_EXPERTS] * MOE_EXPERTS):
+        fail(f"MoE: agreement {agree:.5f}, counts {balance}")
+
+
+def write_unit_manifests(root: Path, rng):
+    """{split}.tsv translation manifests with 100-400 units a target."""
+    from diffnorm_tpu_torch.data.manifest import write_translation_manifest
+
+    for split, n in LM_CLI_UTTS.items():
+        rows = []
+        for i in range(n):
+            units = rng.integers(0, SEDD_VOCAB - 4, size=int(rng.integers(100, 401)))
+            rows.append({"id": f"{split}{i}", "src_audio": "none.npy", "src_n_frames": 1,
+                         "tgt_audio": " ".join(map(str, units)), "tgt_n_frames": len(units)})
+        write_translation_manifest(str(root / f"{split}.tsv"), rows)
+
+
+def run_sedd_lm_cli(torch, smi):
+    """Phase 27f: cli.train -> cli.validate (sedd_lm) and cli.train ->
+    cli.eval_lm (language_modeling) at LM_CLI_LAYERS layers, bf16, blocks of
+    1024 tokens."""
+    import numpy as np
+
+    from diffnorm_tpu_torch.cli import eval_lm, validate
+    from diffnorm_tpu_torch.cli import train as train_cli
+
+    walls = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = Path(tmp)
+        write_unit_manifests(tmp, np.random.default_rng(287))
+        blocks = ["--tokens-per-sample", "1024", "--sample-break-mode", "none"]
+        for task, depth in (("sedd_lm", "--sedd-depth"), ("language_modeling", "--decoder-layers")):
+            flags = [str(tmp), "--task", task, depth, str(LM_CLI_LAYERS), *blocks]
+            lines = LogLines()
+            logging.getLogger("diffnorm_tpu_torch.train").addHandler(lines)
+            t0 = time.perf_counter()
+            rc = train_cli.main(flags + ["--save-dir", str(tmp / task), "--max-update", "2",
+                                         "--max-tokens", "8192", "--dtype", "bfloat16",
+                                         "--warmup-updates", "4000", "--log-interval", "1"])
+            walls[f"cli.train {task}"] = time.perf_counter() - t0
+            logging.getLogger("diffnorm_tpu_torch.train").removeHandler(lines)
+            if rc != 0 or "saved checkpoint at step 2" not in "\n".join(lines.lines):
+                fail(f"cli.train {task}: rc {rc}, log {lines.lines[-3:]}")
+            step = str(tmp / task / "step_000000002")
+            if task == "sedd_lm":
+                lines = LogLines()
+                logging.getLogger("diffnorm_tpu_torch.validate").addHandler(lines)
+                t0 = time.perf_counter()
+                rc = validate.main(flags + ["--path", step, "--dtype", "bfloat16"])
+                walls["cli.validate sedd_lm"] = time.perf_counter() - t0
+                logging.getLogger("diffnorm_tpu_torch.validate").removeHandler(lines)
+                got = re.findall(r"^dev \| .*loss (\S+)", "\n".join(lines.lines), re.M)
+                if rc != 0 or not got or not math.isfinite(float(got[-1])):
+                    fail(f"cli.validate sedd_lm: rc {rc}, {lines.lines[-2:]}")
+                walls["validation loss"] = float(got[-1])
+                continue
+            args = flags + ["--path", step, "--gen-subset", "test", "--dtype", "bfloat16"]
+            stdout, sys.stdout = sys.stdout, io.StringIO()
+            t0 = time.perf_counter()
+            try:
+                rc = eval_lm.main(args)
+            finally:
+                printed = sys.stdout.getvalue().strip()
+                sys.stdout = stdout
+            walls["cli.eval_lm"] = time.perf_counter() - t0
+            avg, n = eval_lm.evaluate(eval_lm.parse_args(args))
+            want = f"Loss (nats): {avg:.4f}, Perplexity: {math.exp(avg):.2f}"
+            if rc != 0 or printed.splitlines()[-1] != want:
+                fail(f"cli.eval_lm: {printed[-200:]!r} against the in-process {want!r}")
+            walls["eval_lm"] = f"{printed.splitlines()[-1]} over {n} tokens"
+    print(f"SEDD and unit LM CLIs ({LM_CLI_LAYERS} layers, bf16, blocks of 1024 over "
+          f"{LM_CLI_UTTS} utterances of 100-400 units): "
+          + ", ".join(f"{k} {v:.4g}" + (" s" if k.startswith("cli") else "")
+                      if isinstance(v, float) else f"{k}: {v}" for k, v in walls.items())
+          + f"; cli.eval_lm's line equal to the in-process evaluation; {smi}")
+
+
+def run_sedd_lm(torch, mods, smi):
+    """Phase 27: SEDD, the unit LM, IDDPM and MoE (module docstring).
+    Returns the counted runs' launches by JSON row."""
+    t0 = time.perf_counter()
+    launches = run_sedd_decode(torch, mods, smi)
+    run_sedd_lm_train(torch, smi)
+    for name, n in run_iddpm(torch, mods, smi).items():
+        launches[name] = launches.get(name, 0) + n
+    run_moe(torch, smi)
+    run_sedd_lm_cli(torch, smi)
+    print(f"phase SEDD, unit LM, IDDPM, MoE: {time.perf_counter() - t0:.1f} s, launches "
           f"{launches}; {smi}")
     return launches
 
@@ -7706,6 +8299,11 @@ def main() -> int:
     # cli.preprocess -> train -> generate -> interactive -> score
     launches["flash_attention"] += run_text_mt(torch, mods, smi)
 
+    # 27. SEDD (the sampler and the refinement, bf16 and float32), the unit
+    # LM, IDDPM over the Denoiser, the BASE MoE layer; their CLIs
+    for name, n in run_sedd_lm(torch, mods, smi).items():
+        launches[name] += n
+
     sources = {
         "rms_norm_film": ("rms_norm_film.cu", "diffnorm_tpu/ops/pallas_norm.py:34"),
         "wavenet_chain": ("wavenet_chain.cu", "diffnorm_tpu/ops/pallas_wavenet.py:66"),
@@ -7746,6 +8344,9 @@ def main() -> int:
                         ("S2T encoder", "the 8-head text encoder's [2,8,2112,64]"),
                         ("path", "the Levenshtein decoder's q [2,8,256,64], k/v [2,8,2112,64]")):
         print(f"flash_attention at phase 26's {what} ({shape}): {flash_timed[what]}")
+    for what in ("SEDD self-attention", "SEDD self-attention float32"):
+        print(f"flash_attention at phase 27's {what} ([2,8,2112,64], keys [2112, 1056]): "
+              f"{flash_timed[what]}")
     for what in ("HuBERT long form", "HuBERT longest chunk", "float32 path"):
         print(f"flash_attention float32 {what}: {flash_timed[what]}")
     print(json.dumps({"kernels": kernels}))

@@ -28,7 +28,7 @@ The key-inventory audit is on unless --no-strict: every learned element of
 the state dict must land in the tree (each discriminator against its own),
 the family's pretraining-only heads excepted, else a ValueError names the
 suspect keys. `--type hubert_ctc` raises: the port has no HubertCTCModule
-(ROADMAP Queue 1 item 4); its ASR reads Hugging Face directories
+(ROADMAP Queue 1 item 5); its ASR reads Hugging Face directories
 (models/wav2vec2_ctc.py). `--type diffusion` takes the prompt-conditioned
 denoiser too (its resampler, null embeddings and cross-attention layers).
 """
@@ -71,7 +71,7 @@ def convert(args: argparse.Namespace):
     """(variables tree, [(state dict, the tree it must balance against)])."""
     if args.type == "hubert_ctc":
         raise NotImplementedError(
-            "--type hubert_ctc: the port has no HubertCTCModule (ROADMAP Queue 1 item 4); "
+            "--type hubert_ctc: the port has no HubertCTCModule (ROADMAP Queue 1 item 5); "
             "its ASR reads Hugging Face wav2vec2-CTC directories (models/wav2vec2_ctc.py)")
     ckpt = torch.load(args.input, map_location="cpu", weights_only=False)
     if args.type == "gan_discriminators":

@@ -124,11 +124,12 @@ mask-predict (`--iter-decode-max-iter`, `--iter-decode-with-beam`,
 sacrebleu scoring (sacrebleu fails to import where it is not installed,
 as in JAX).
 
-Not ported, and raising NotImplementedError naming their ROADMAP Queue 1
-items: the other tasks and architectures (SEDD, IDDPM, the unit LM and MoE,
-item 4; wav2vec2 and HuBERT pretraining and the CTC fine-tune, item 5; the
-TranSpeech normalization, item 6; the rest of the runtime, item 7;
-parallelism, item 8).
+SEDD and the unit LM have no branch here, as in JAX: `models.sedd`'s
+`sedd_sample` / `sedd_refine` decode in process and `cli.eval_lm` scores
+the LM. Not ported, and raising NotImplementedError naming their ROADMAP
+Queue 1 items: the other tasks and architectures (wav2vec2 and HuBERT
+pretraining and the CTC fine-tune, item 5; the TranSpeech normalization,
+item 6; the rest of the runtime, item 7; parallelism, item 8).
 """
 
 from __future__ import annotations
@@ -329,8 +330,8 @@ def parse_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
         raise NotImplementedError(
             f"--task {chosen.task} --arch {chosen.arch}: the ported branches are "
             + "; ".join(f"{t} ({', '.join(a)})" for t, a in TASK_ARCHS.items())
-            + " (not ported: SEDD, IDDPM, the unit LM and MoE, ROADMAP Queue 1 item 4; "
-              "wav2vec2 and HuBERT pretraining and the CTC fine-tune, item 5; the TranSpeech "
+            + " (not ported: wav2vec2 and HuBERT pretraining and the CTC fine-tune, ROADMAP "
+              "Queue 1 item 5; the TranSpeech "
               "normalization, item 6; the rest of the runtime, item 7; parallelism, item 8)")
     if task == AR_TASK:  # widths left unset take the arch's
         p.set_defaults(**dict.fromkeys(AR_WIDTHS))

@@ -42,6 +42,15 @@ its embedding unless `--share-decoder-input-output-embed false`;
 nar_speech_to_unit` or `nat_loss`, `--cg-prob`, `--use-side`) and the
 Levenshtein transformer (`--task translation_lev`, `--arch
 levenshtein_transformer`, `--criterion nat_loss` or `levenshtein_loss`);
+discrete diffusion and language modeling over the unit sequences of the
+translation manifests' targets (`tasks/sedd_task.py`): SEDD (`--task sedd`
+or `sedd_lm`, `--arch sedd_absorb` or `sedd`, `--criterion sedd_loss`,
+`--sedd-dim`, `--sedd-depth`, `--sedd-heads`) and the unit LM (`--task
+unit_lm` or `language_modeling`, or sedd / sedd_lm with its arch; `--arch
+transformer_lm` or `unit_lm`, `--criterion lm_cross_entropy`, the
+`--decoder-*` widths), re-cut into
+`--tokens-per-sample` blocks under `--sample-break-mode` where either is
+given, each sequence cut to `--max-target-positions`;
 `--task unit_to_speech` goes to `cli.train_vocoder` with the
 other arguments, as JAX's does, and `--task repr_to_speech` too with
 `--input-type features`. It takes every flag of scripts/vae_train.sh,
@@ -168,11 +177,14 @@ from diffnorm_tpu_torch.models.diffusion import ARCHS as DIFFUSION_ARCHS
 from diffnorm_tpu_torch.models.levenshtein import ARCHS as LEV_ARCHS
 from diffnorm_tpu_torch.models.nar_transformer import ARCHS as NAR_ARCHS
 from diffnorm_tpu_torch.models.s2t_transformer import ARCHS as S2T_ARCHS
+from diffnorm_tpu_torch.models.sedd import ARCHS as SEDD_ARCHS
 from diffnorm_tpu_torch.models.transformer_text import ARCHS as MT_ARCHS
+from diffnorm_tpu_torch.models.unit_lm import ARCHS as LM_ARCHS
 from diffnorm_tpu_torch.models.unity import ARCHS as UNITY_ARCHS
 from diffnorm_tpu_torch.tasks import TASKS
 from diffnorm_tpu_torch.tasks.s2spect_task import ARCHS as SPECT_ARCHS
 from diffnorm_tpu_torch.tasks.s2spect_task import S2SPECT2_ARCHS
+from diffnorm_tpu_torch.tasks.sedd_task import ARCH_CRITERIONS as LM_CRITERIONS
 from diffnorm_tpu_torch.tasks.tts_task import ARCH_CRITERIONS as TTS_CRITERIONS
 from diffnorm_tpu_torch.tasks.tts_task import ARCHS as TTS_ARCHS
 from diffnorm_tpu_torch.train import metrics as metrics_mod
@@ -196,6 +208,7 @@ SPECT_TASK = "speech_to_speech_spect"
 TTS_TASK, S2T_TASK = "text_to_speech", "speech_to_text"
 MT_TASK, CMLM_TASK, LEV_TASK = "translation", "cmlm_cg", "translation_lev"
 TEXT_TASKS = (MT_TASK, CMLM_TASK, LEV_TASK)
+SEDD_TASKS, LM_TASKS = ("sedd", "sedd_lm"), ("unit_lm", "language_modeling")
 # fairseq's speech_to_speech: --target-is-code picks AR_TASK, else SPECT_TASK
 S2S_TASK = "speech_to_speech"
 STAGES = {  # task: (its criterions, the first the default; its architectures)
@@ -216,8 +229,13 @@ STAGES = {  # task: (its criterions, the first the default; its architectures)
     MT_TASK: (("label_smoothed_cross_entropy",), tuple(MT_ARCHS)),
     CMLM_TASK: (("nar_speech_to_unit", "nat_loss"), tuple(CMLM_ARCHS)),
     LEV_TASK: (("nat_loss", "levenshtein_loss"), tuple(LEV_ARCHS)),
+    **dict.fromkeys(SEDD_TASKS, (("sedd_loss", "lm_cross_entropy"),
+                                 tuple(SEDD_ARCHS) + tuple(LM_ARCHS))),
+    **dict.fromkeys(LM_TASKS, (("lm_cross_entropy",), tuple(LM_ARCHS))),
 }
 TEXT_ARCHS = {**MT_ARCHS, **CMLM_ARCHS, **LEV_ARCHS}
+# the criterions of the archs that pick their own, the first the default
+ARCH_CRITERIONS = {**TTS_CRITERIONS, **LM_CRITERIONS}
 # the two-pass models' criterions, which they alone train with
 TWO_PASS_CRITERIONS = {**dict.fromkeys(UNITY_ARCHS, "speech_to_unit_2pass"),
                        **dict.fromkeys(S2SPECT2_ARCHS, "speech_to_spectrogram_2pass")}
@@ -293,15 +311,17 @@ def add_two_pass_args(p: argparse.ArgumentParser) -> None:
                    help="the Tacotron2 criterion's EOS positive weight")
 
 
-def build_parser(description: str, train: bool = True) -> argparse.ArgumentParser:
+def build_parser(description: str, train: bool = True,
+                 task: Optional[str] = None) -> argparse.ArgumentParser:
     """The flags of cli.train; with `train` False (cli.validate) the model,
-    data and task flags alone."""
+    data and task flags alone; `task` the default --task (else required)."""
     p = argparse.ArgumentParser(description=description)
     p.add_argument("data", help="directory of the {split}.tsv translation manifests")
     p.add_argument("--tgt-feat-dir",
                    help="directory of the {split}.manifest.tsv feature manifests (the VAE and "
                         "normalizer stages)")
-    p.add_argument("--task", required=True, choices=sorted(STAGES) + [S2S_TASK])
+    p.add_argument("--task", required=task is None, default=task,
+                   choices=sorted(STAGES) + [S2S_TASK])
     p.add_argument("--criterion", help="the task's criterion (checked against it)")
     p.add_argument("--arch", help="the task's architecture (checked against it)")
     p.add_argument("--target-code-size", type=int, default=1000)
@@ -388,6 +408,14 @@ def build_parser(description: str, train: bool = True) -> argparse.ArgumentParse
                    help="the source vocabulary without a dictionary file (default 1000)")
     _flag(p, "--share-all-embeddings", help="refused: the text transformer's source and "
                                            "target tables are separate, as JAX's")
+    # SEDD and the unit LM (tasks/sedd_task.py)
+    for flag in ("--sedd-dim", "--sedd-depth", "--sedd-heads"):
+        p.add_argument(flag, type=int, help="SEDD's width (default: the architecture's)")
+    p.add_argument("--tokens-per-sample", type=int,
+                   help="re-cut the unit stream into blocks of this many tokens (default 1024 "
+                        "where --sample-break-mode is given)")
+    p.add_argument("--sample-break-mode", choices=("none", "complete", "complete_doc", "eos"),
+                   help="how the blocks break (default none where --tokens-per-sample is given)")
     if not train:
         return p
     # optimization (flags left unset take each optimizer's and schedule's
@@ -465,8 +493,8 @@ def check_args(p: argparse.ArgumentParser, args: argparse.Namespace) -> argparse
         args.criterion = want
     elif args.criterion in TWO_PASS_CRITERIONS.values():
         p.error(f"--criterion {args.criterion}: a two-pass model's ({args.arch} is not one)")
-    elif args.arch in TTS_CRITERIONS:
-        want = TTS_CRITERIONS[args.arch]
+    elif args.arch in ARCH_CRITERIONS:
+        want = ARCH_CRITERIONS[args.arch]
         if args.criterion not in (None,) + want:
             p.error(f"--arch {args.arch} trains with --criterion {' or '.join(want)}")
         args.criterion = args.criterion or want[0]
@@ -478,7 +506,8 @@ def check_args(p: argparse.ArgumentParser, args: argparse.Namespace) -> argparse
                 "JAX's: its criterions pass none, and its Denoiser asserts one, "
                 "models/diffusion.py:271); build LatentDiffusionModule(use_cond=True) and "
                 "pass batches with a prompt instead")
-    if args.task in (AR_TASK, SPECT_TASK, TTS_TASK, S2T_TASK) + TEXT_TASKS:
+    lm_tasks = SEDD_TASKS + LM_TASKS
+    if args.task in (AR_TASK, SPECT_TASK, TTS_TASK, S2T_TASK) + TEXT_TASKS + lm_tasks:
         options = (("--use-sp", args.use_sp),
                    ("--multitask-ctc-vocab", args.multitask_ctc_vocab),
                    ("--encoder-remat", args.encoder_remat), ("--quant-int8", args.quant_int8))
@@ -486,9 +515,9 @@ def check_args(p: argparse.ArgumentParser, args: argparse.Namespace) -> argparse
             options += (("--cg-prob", args.cg_prob), ("--use-side", args.use_side))
         if args.task != AR_TASK:
             options += (("--target-speaker-embed", args.target_speaker_embed),)
-        if args.task in (TTS_TASK, S2T_TASK) + TEXT_TASKS:
+        if args.task in (TTS_TASK, S2T_TASK) + TEXT_TASKS + lm_tasks:
             options += (("--multitask-config-yaml", args.multitask_config_yaml),)
-        if args.task in (S2T_TASK,) + TEXT_TASKS:
+        if args.task in (S2T_TASK,) + TEXT_TASKS + lm_tasks:
             options += (("--n-frames-per-step", args.n_frames_per_step > 1),)
         for flag, value in options:
             if value:
@@ -518,6 +547,10 @@ def check_args(p: argparse.ArgumentParser, args: argparse.Namespace) -> argparse
             args.share_decoder_input_output_embed = True  # JAX's default
         if args.label_smoothing is None:
             args.label_smoothing = LABEL_SMOOTHING[args.task]
+    elif args.task in lm_tasks:
+        {**SEDD_ARCHS, **LM_ARCHS}[args.arch](vars(args))
+        if args.label_smoothing is None:
+            args.label_smoothing = 0.0  # lm_cross_entropy's default
     elif args.task in (NAR_TASK, AR_TASK):
         {**NAR_ARCHS, **AR_ARCHS, **UNITY_ARCHS}[args.arch](vars(args))
         if args.label_smoothing is None:

@@ -11,12 +11,14 @@ metrics under JAX's names.
 It takes the tasks cli.train trains (the VAE and normalizer stages, NAR
 and AR S2UT, UnitY, the spectrogram translators, text-to-speech,
 speech-to-text and text translation: translation, cmlm_cg and
-translation_lev on a bitext or cli.preprocess's binarized pairs) with
-cli.train's model,
+translation_lev on a bitext or cli.preprocess's binarized pairs, SEDD's
+sedd / sedd_lm and the unit LM's unit_lm / language_modeling on the unit
+manifests) with cli.train's model,
 data and task flags; `--path` is a step directory or a .npz
 (weights.save_npz), a `cli.convert_checkpoint` output included. The
 batches' draws come from `np.random.default_rng(--seed)`, the criterion's
-(the VAE's posterior sample, the normalizer's times and noises) from a
+(the VAE's posterior sample, the normalizer's times and noises, SEDD's
+times and masks) from a
 generator seeded 0. Runs on the GPU (in --dtype) unless --cpu is given.
 Logs `{split} | loss ... nll_loss ...`.
 """

@@ -16,6 +16,9 @@ label_smoothed_cross_entropy.py and speech_to_speech_criterion.py:159-225).
   also gets the first-pass task's prev_output_tokens (`prev_tokens_mt`) and
   always tgt_tokens; the first pass's loss is that task's multitask term,
   its logits coming back under its name.
+* "lm_cross_entropy" (the unit LM; JAX ce_loss.py:136-171): next-token CE
+  on the targets shifted right behind an EOS, label-smoothed, pad (1)
+  ignored, divided by ntokens; sample_size = ntokens, "sum_loss" as above.
 """
 
 from __future__ import annotations
@@ -27,7 +30,7 @@ import torch
 from diffnorm_tpu_torch.criterions.label_smoothing import label_smoothed_nll_loss
 from diffnorm_tpu_torch.criterions.nar_loss import _multitask_prev, apply_multitask_losses
 
-PAD = 1
+PAD, EOS = 1, 2
 
 
 class LabelSmoothedCrossEntropy:
@@ -102,6 +105,31 @@ class SpeechToUnit2PassLoss(SpeechToUnitLoss):
                 "prev_tokens_mt": batch["multitask"][self.mt_task_name]["prev_output_tokens"]}
 
 
+class LMCrossEntropy:
+    grad_accum = "sum_loss"
+
+    def __init__(self, label_smoothing: float = 0.0):
+        self.eps = label_smoothing
+
+    def __call__(self, model, batch: Dict[str, torch.Tensor],
+                 generator: Optional[torch.Generator] = None
+                 ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+        """batch: target_unit [B, T]. The model's dropouts draw from their
+        own generators. Returns (loss, metrics)."""
+        tokens = batch["target_unit"].long()
+        prev = torch.cat([torch.full_like(tokens[:, :1], EOS), tokens[:, :-1]], dim=1)
+        logits = model(prev)
+        lprobs = torch.log_softmax(logits.float(), dim=-1).reshape(-1, logits.shape[-1])
+        loss_sum, nll_sum = label_smoothed_nll_loss(lprobs, tokens.reshape(-1), self.eps,
+                                                    ignore_index=PAD)
+        ntokens = torch.clamp((tokens != PAD).sum(), min=1)
+        loss = loss_sum / ntokens
+        return loss, {"loss": loss, "nll_loss": nll_sum / ntokens,
+                      "ppl": torch.exp(nll_sum / ntokens), "ntokens": ntokens,
+                      "nsentences": tokens.shape[0], "sample_size": ntokens}
+
+
 CRITERIONS = {"label_smoothed_cross_entropy": LabelSmoothedCrossEntropy,
               "speech_to_unit": SpeechToUnitLoss,
-              "speech_to_unit_2pass": SpeechToUnit2PassLoss}
+              "speech_to_unit_2pass": SpeechToUnit2PassLoss,
+              "lm_cross_entropy": LMCrossEntropy}

@@ -26,7 +26,7 @@ speaker embedding and aux targets are the first item's, as JAX's.
 `noisyoverlapaugment` is built and unused here, as in JAX (the vocoder
 dataset applies it).
 
-Not ported, and raising: `use_audio_input` (ROADMAP Queue 1 item 4).
+Not ported, and raising: `use_audio_input` (ROADMAP Queue 1 item 5).
 """
 
 from __future__ import annotations
@@ -70,7 +70,7 @@ class SpeechToUnitDataset:
         self.is_train, self.seed = is_train, seed
         for key in UNPORTED_CONFIG:
             if self.data_cfg.get(key):
-                raise NotImplementedError(f"{key} is not ported (ROADMAP Queue 1 item 4)")
+                raise NotImplementedError(f"{key} is not ported (ROADMAP Queue 1 item 5)")
         self.feature_transforms = build_feature_transforms(self.data_cfg, is_train)
         self.dataset_transforms = build_dataset_transforms(self.data_cfg, is_train)
         self._rng = np.random.default_rng(seed)  # ConcatAugment's and SpecAugment's draws

@@ -4,7 +4,9 @@ its continuous variants, NAR and AR S2UT training (UnitY among the latter),
 speech-to-spectrogram training (s2spect, Translatotron2), text-to-speech
 (tts_transformer, FastSpeech2), speech-to-text (the S2T model) and text
 machine translation (the AR transformer, the text CMLM, the Levenshtein
-transformer, each with its in-process dummy task). fairseq's
+transformer, each with its in-process dummy task), SEDD and the unit LM
+(`sedd`, `sedd_lm`, `unit_lm` and its alias `language_modeling`, with the
+in-process `dummy_sedd`, `dummy_unit_lm` and its alias `dummy_lm`). fairseq's
 "speech_to_speech" is not a task here: cli.train's `check_args` sends it to
 the AR S2UT task with --target-is-code and otherwise to the spectrogram
 task (JAX tasks/aliases.py:25-40)."""
@@ -21,6 +23,7 @@ from diffnorm_tpu_torch.tasks.levenshtein_task import DummyLevenshteinTask, Leve
 from diffnorm_tpu_torch.tasks.nar_s2ut_task import NARS2UTTask
 from diffnorm_tpu_torch.tasks.s2spect_task import DummyS2SpectTask, S2SpectTask
 from diffnorm_tpu_torch.tasks.s2t_task import DummyS2TTask, S2TTask
+from diffnorm_tpu_torch.tasks.sedd_task import DummySEDDTask, SEDDTask
 from diffnorm_tpu_torch.tasks.translation_task import DummyTranslationTask, TranslationTask
 from diffnorm_tpu_torch.tasks.tts_task import DummyTTSTask, TextToSpeechTask
 from diffnorm_tpu_torch.tasks.vae_task import SpeechDecoderTask
@@ -43,4 +46,11 @@ TASKS = {"speech_decoder": SpeechDecoderTask,
          "cmlm_cg": CMLMCGTask,
          "dummy_cmlm_cg": DummyCMLMCGTask,
          "translation_lev": LevenshteinTask,
-         "dummy_lev": DummyLevenshteinTask}
+         "dummy_lev": DummyLevenshteinTask,
+         "sedd": SEDDTask,
+         "sedd_lm": SEDDTask,
+         "dummy_sedd": DummySEDDTask,
+         "unit_lm": SEDDTask,
+         "language_modeling": SEDDTask,
+         "dummy_unit_lm": DummySEDDTask,
+         "dummy_lm": DummySEDDTask}

@@ -71,7 +71,8 @@ BATCH_KEYS = ("reduce_target", "reduce_target_unit", "reduce_target_lengths",
               "prev_output_tokens", "inject_cg_drop", "inject_use_prompt", "tgt_speaker",
               "ctc_target", "multitask", "prompt", "prompt_mask", "feat_tgt", "tgt_lengths",
               "prev_feats", "tgt_mask", "durations", "pitches", "energies", "prev_del",
-              "prev_kept", "prev_ins", "del_target", "ins_target", "ins_valid")
+              "prev_kept", "prev_ins", "del_target", "ins_target", "ins_valid", "target_unit",
+              "target_lengths", "inject_mask_u")
 GRAD_ACCUM = ("mean_loss", "sum_loss", "mean_loss_per_batch")
 GENERATORS = ("generator", "cg_generator", "sp_generator")
 

@@ -5,7 +5,9 @@ arrays) and the port's `state_dict()` share their paths. Leaf names map as
   params       flax `kernel` (Dense, Conv, ConvTranspose)  -> torch `weight`
                flax `scale` (LayerNorm, GroupNorm, BatchNorm) -> torch `weight`
                flax `embedding` (nn.Embed)                 -> torch `weight`
-               any other leaf keeps its name
+               any other leaf keeps its name and layout (the
+                 MoE layer's experts_w1 [E, dim, ffn], experts_w2 and
+                 expert_centroids are plain params, not Dense kernels)
   batch_stats  `mean` / `var`          -> the `running_mean` / `running_var` buffers
   quant_stats  `act_amax`               -> the calibrated `act_amax` of the int8
                                            site at that path (ops/quant.py QuantSite)

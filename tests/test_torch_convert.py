@@ -279,7 +279,7 @@ def test_cli_convert_hifigan_and_hubert(tmp_path, family, capsys):
 @pytest.mark.parametrize("case", ["prompt_conditioned", "stacked_units", "hubert_ctc"])
 def test_unported_layouts_raise_naming_their_roadmap_item(tmp_path, case):
     if case == "hubert_ctc":
-        with pytest.raises(NotImplementedError, match="Queue 1 item 4"):
+        with pytest.raises(NotImplementedError, match="Queue 1 item 5"):
             convert_checkpoint.main(["--type", "hubert_ctc", "--input", "absent.pt",
                                      "--output", str(tmp_path / "out")])
         return

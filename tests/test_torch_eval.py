@@ -259,7 +259,7 @@ def test_cli_generate_refuses_unported_flags_and_missing_ids(generate_corpus, tm
     # text_to_speech (tests/test_torch_tts_s2t_cli.py) and translation
     # (tests/test_torch_text_cli.py) are ported since
     for extra, match in ((["--task", "audio_finetuning"], "item 5"),
-                         (["--arch", "s2ut_conformer"], "item 4")):
+                         (["--arch", "s2ut_conformer"], "item 5")):
         with pytest.raises(NotImplementedError, match=match):
             generate.parse_args(base + extra)
     # ported since: the history, the chunked decode, ensembles and the AR

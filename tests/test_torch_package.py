@@ -48,7 +48,9 @@ NEW_MODULES = ("models/stacked.py", "models/ar_transformer.py", "data/encoders.p
                "tasks/cmlm_cg_task.py", "tasks/translation_task.py", "models/transformer_text.py",
                "models/levenshtein.py", "tasks/levenshtein_task.py",
                "criterions/levenshtein_loss.py", "cli/preprocess.py", "cli/interactive.py",
-               "cli/score.py")
+               "cli/score.py", "models/sedd.py", "criterions/sedd_loss.py",
+               "data/unit_lm_dataset.py", "tasks/sedd_task.py", "models/unit_lm.py",
+               "cli/eval_lm.py", "models/gaussian_diffusion.py", "models/moe.py")
 
 
 def test_no_jax_imports_in_the_port():
@@ -134,6 +136,14 @@ def test_port_imports_with_jax_blocked():
             "import diffnorm_tpu_torch.cli.preprocess\n"
             "import diffnorm_tpu_torch.cli.interactive\n"
             "import diffnorm_tpu_torch.cli.score\n"
+            "import diffnorm_tpu_torch.models.sedd\n"
+            "import diffnorm_tpu_torch.criterions.sedd_loss\n"
+            "import diffnorm_tpu_torch.data.unit_lm_dataset\n"
+            "import diffnorm_tpu_torch.tasks.sedd_task\n"
+            "import diffnorm_tpu_torch.models.unit_lm\n"
+            "import diffnorm_tpu_torch.cli.eval_lm\n"
+            "import diffnorm_tpu_torch.models.gaussian_diffusion\n"
+            "import diffnorm_tpu_torch.models.moe\n"
             "from diffnorm_tpu_torch.eval.bleu import corpus_bleu, scorer_name\n"
             "assert scorer_name() == 'counters', scorer_name()\n"
             "assert corpus_bleu(['1 2 3 4 5'], ['1 2 3 4 5']) == 100.0\n"
@@ -202,6 +212,13 @@ def test_entry_points_refuse_the_cpu_unless_asked(tmp_path):
         train.main(["--task", "unit_to_speech", *vocoder])
     with pytest.raises(RuntimeError, match="CUDA"):
         train.main([str(tmp_path), "--task", "speech_to_speech_ar", "--max-update", "1"])
+    for task in ("sedd", "sedd_lm", "unit_lm", "language_modeling"):
+        with pytest.raises(RuntimeError, match="CUDA"):
+            train.main([str(tmp_path), "--task", task, "--max-update", "1"])
+    from diffnorm_tpu_torch.cli import eval_lm
+
+    with pytest.raises(RuntimeError, match="CUDA"):
+        eval_lm.main([str(tmp_path), "--path", "absent.npz"])
     for task in ("translation", "cmlm_cg", "translation_lev"):  # the text MT tasks
         with pytest.raises(RuntimeError, match="CUDA"):
             train.main([str(tmp_path), "--task", task, "--max-update", "1"])

@@ -217,7 +217,7 @@ def test_dataset_raises_for_what_is_not_ported(tmp_path):
                         NoisyOverlapAugment)):
         write_corpus(tmp_path, n=2, config=cfg)
         if built is None:
-            with pytest.raises(NotImplementedError, match="item 4"):
+            with pytest.raises(NotImplementedError, match="item 5"):
                 SpeechToUnitDataset.from_tsv(str(tmp_path), "train", Dictionary(CODES),
                                              is_train=True)
             continue
