@@ -350,6 +350,25 @@ tf32 passes); and at D 80 and 128 with ragged keys and a fully masked row.
    --task sedd_lm (2 updates, 2 layers) -> cli.validate, and cli.train
    --task language_modeling (2 updates, 2 layers) -> cli.eval_lm, its
    perplexity against the in-process evaluation.
+28. wav2vec2 and HuBERT pretraining and the CTC fine-tune at base width
+   (768 x 12, FFN 3072, the released conv extractor), seeded, float32: (a)
+   hubert_base (K = 504, the recipe's dropouts, LayerDrop 0.05,
+   feature_grad_mult 0.1): one update at B4 x 250,000 samples (780 frames;
+   ms, peak, busy, the host's mask draw), then a validation forward at B2 x
+   720,000 / 512,000 samples (2249 / 1599 frames) through the kernels (12
+   flash_attention_f32 launches) and the plain versions: logits row-cos and
+   the loss. (b) wav2vec2_base (100 negatives, loss weights [0.1, 10]): the
+   same, on the contrastive logits' finite entries (the removed negatives
+   at the same places). (c) hubert_ctc at base width: one fine-tune update
+   with the time and channel masks, feature_grad_mult 0 and
+   freeze_finetune_updates 1, then the long-form greedy CTC decode in
+   float32 and bf16 against the plain versions (frame tokens, logits
+   row-cos; 12 launches a forward). (d) at 2 layers: cli.train
+   hubert_pretraining and audio_pretraining on written manifests, labels
+   and dict.km.txt, cli.train audio_finetuning --w2v-path on the HuBERT step
+   directory with use_audio_input -> cli.validate -> cli.generate, its D-
+   lines against the in-process greedy decode; cli.convert_checkpoint
+   --type hubert_ctc on a seeded fairseq state dict, loaded into the model.
 Phase 2 times flash_attention also at phase 23's decode step (q
 [10,8,1,64] against k/v [10,8,2112,64], beams of the half-length row
 masked at 1056 keys), its S2T encoder's self-attention ([2,8,2112,64]),
@@ -375,7 +394,10 @@ float32 FastSpeech2 generation and validation beside phase 13's. Phase 27
 adds its counted SEDD runs to rms_norm_film, flash_attention (bf16) and
 flash_attention_f32 (float32), and its IDDPM sample to rms_norm_film and
 wavenet_chain. Phase 2 also times flash_attention at SEDD's long form
-([2,8,2112,64], keys 2112 and 1056) in bf16 and float32.
+([2,8,2112,64], keys 2112 and 1056) in bf16 and float32. Phase 28 adds its
+long-form forwards' launches to flash_attention_f32 (float32) and
+flash_attention (the bf16 CTC decode); phase 2 times the kernel at its
+encoder's [2,12,2249,64], keys 2249 and 1599, in both types.
 
 Then one JSON line of per-kernel numbers and, last, {"ok": true, "device": ...}.
 Exits non-zero without CUDA, and in a directory without the port.
@@ -1390,6 +1412,11 @@ def check_flash_attention(torch, flash):
         # second row 1056 valid), in bf16 and in float32, the arch's type
         ("SEDD self-attention", 2, 8, 2112, 2112, 64, [2112, 1056], bf),
         ("SEDD self-attention float32", 2, 8, 2112, 2112, 64, [2112, 1056], f32),
+        # phase 28's HuBERT / wav2vec2 encoder self-attention in long form
+        # (12 heads of 64, 45 s and 32 s: 2249 and 1599 frames), in float32,
+        # the models' type, and in bf16 (--dtype bfloat16)
+        ("HuBERT eval long form", 2, 12, 2249, 2249, 64, [2249, 1599], bf),
+        ("HuBERT eval long form float32", 2, 12, 2249, 2249, 64, [2249, 1599], f32),
         # HuBERT's self-attention over a 70 s utterance and over cli.prepare's
         # longest chunk (100 s), float32, no mask
         ("HuBERT long form", 1, 12, PREP_LONG_FRAMES, PREP_LONG_FRAMES, 64, None, f32),
@@ -1424,7 +1451,8 @@ def check_flash_attention(torch, flash):
                         "FastSpeech2 decoder", "FastSpeech2 decoder float32",
                         "MT encoder", "MT decode step", "CMLM decoder", "float32 path",
                         "HuBERT long form", "HuBERT longest chunk", "SEDD self-attention",
-                        "SEDD self-attention float32"):
+                        "SEDD self-attention float32", "HuBERT eval long form",
+                        "HuBERT eval long form float32"):
             continue
         ms = cuda_time_ms(lambda: flash.flash_attention(q, k, v, mask))
         plain_ms = cuda_time_ms(lambda: flash.flash_attention_plain(q, k, v, mask),
@@ -8092,6 +8120,493 @@ def run_sedd_lm(torch, mods, smi):
     return launches
 
 
+# Phase 28: wav2vec2 and HuBERT pretraining and the CTC fine-tune (module
+# docstring), at base width (768 x 12, FFN 3072, the released conv extractor),
+# seeded, float32 (the models' default type). An update's rows are cropped to
+# the recipes' 250,000-sample canvas (780 frames); the long forms are 45 s and
+# 32 s (2249 and 1599 frames, past the 2048 keys where the encoder's
+# self-attention goes through flash_attention).
+AUDIO_TRAIN_B, AUDIO_TRAIN_SAMPLES = 4, 250_000
+AUDIO_LONG_SAMPLES = (720_000, 512_000)
+AUDIO_LONG_FRAMES = (2249, 1599)
+AUDIO_FLASH = 12  # the encoder's self-attentions a forward
+HUBERT_UNITS, CTC_LETTERS = 500, 28  # dictionaries of 504 and 32 symbols
+# kernels against the plain versions on the same weights and inputs: the
+# float32 kernel's three tf32 passes keep float32 accuracy (rows within
+# 1e-5 of the plain versions' through 12 layers); bf16 rounds P and V
+AUDIO_ROW_COS = {"float32": 0.99999, "bfloat16": 0.999}
+AUDIO_LOSS_REL = 1e-4
+AUDIO_LOGIT_ATOL = 1e-3  # the contrastive logits (cosines / 0.1, in [-10, 10])
+# greedy CTC tokens over every frame: an argmax flips where two letters'
+# log-probabilities are within the kernels' rounding
+CTC_TOKENS_EQUAL = {"float32": 0.999, "bfloat16": 0.98}
+AUDIO_CLI_LAYERS = 2  # the CLIs' depth, where checkpoints are written
+AUDIO_CLI_UTTS = {"train": 12, "dev": 4, "test": 4}
+HUBERT_FLAGS = ["--mask-prob", "0.8"]
+W2V_FLAGS = ["--num-negatives", "100", "--loss-weights", "[0.1,10]"]
+CTC_FLAGS = ["--apply-mask", "--mask-prob", "0.65", "--mask-channel-prob", "0.5",
+             "--mask-channel-length", "64", "--feature-grad-mult", "0", "--dropout", "0.1",
+             "--attention-dropout", "0.1", "--encoder-layerdrop", "0.1"]
+CTC_TRAIN_FLAGS = ["--freeze-finetune-updates", "1"]  # cli.train's alone
+
+
+def audio_task(torch, data, task, *extra):
+    """The port's cli.train arguments and task of --task `task` over `data`
+    (float32, the recipes' Adam)."""
+    from diffnorm_tpu_torch.cli import train as train_cli
+    from diffnorm_tpu_torch.tasks import TASKS
+
+    args = train_cli.parse_args([str(data), "--task", task, "--max-update", "4",
+                                 "--warmup-updates", "4000", "--adam-betas", "(0.9,0.98)",
+                                 "--adam-eps", "1e-6", "--clip-norm", "10",
+                                 "--target-code-size", str(HUBERT_UNITS), *extra])
+    return args, TASKS[task](args)
+
+
+def audio_waveforms(rng, lengths, canvas=None):
+    """0.1-scaled normal waveforms [B, canvas] zero past each length."""
+    import numpy as np
+
+    canvas = canvas or max(lengths)
+    wav = (rng.standard_normal((len(lengths), canvas), dtype=np.float32) * 0.1)
+    for i, n in enumerate(lengths):
+        wav[i, n:] = 0.0
+    return wav, np.asarray(lengths, np.int32)
+
+
+def audio_batch(task, rng, lengths, labels=False, letters=0):
+    """A batch the task prepares on the host (its draws timed): waveforms,
+    frame labels in [4, K) over the valid frames (HuBERT) or `letters`
+    letters a row ending in EOS (CTC). Returns (batch, host seconds)."""
+    import numpy as np
+
+    from diffnorm_tpu_torch.data.hubert_dataset import host_frames_for_samples
+
+    wav, lens = audio_waveforms(rng, lengths)
+    batch = {"src_tokens": wav, "src_lengths": lens, "nsentences": len(lengths)}
+    if labels:
+        n = host_frames_for_samples(wav.shape[1])
+        target = rng.integers(4, 4 + HUBERT_UNITS, (len(lengths), n)).astype(np.int64)
+        for i, x in enumerate(lens):
+            target[i, host_frames_for_samples(int(x)):] = -1
+        batch.update(target=target, ntokens=int((target >= 0).sum()))
+    if letters:
+        batch["src_tokens"] = wav[..., None]
+        tgt = rng.integers(4, 4 + CTC_LETTERS, (len(lengths), letters)).astype(np.int32)
+        tgt[:, -1] = 2
+        batch.update(target=tgt, ntokens=int(tgt.size))
+    t0 = time.perf_counter()
+    batch = task.prepare_batch(batch, rng)
+    return batch, time.perf_counter() - t0
+
+
+def audio_update(torch, args, task, model, batches, what):
+    """Updates of `model` over `batches` (the first a warm-up): ms, peak,
+    busy share of a profiled update and its launches. Training forwards
+    drop out, so no kernel is reached."""
+    from diffnorm_tpu_torch.cli import train as train_cli
+    from diffnorm_tpu_torch.ops import _build
+    from diffnorm_tpu_torch.train.trainer import Trainer
+
+    trainer = Trainer(train_cli.trainer_config(args), model, task.build_criterion())
+    _build.launch_counts.clear()
+    ms, peak, mets = timed_updates(torch, trainer, batches, what)
+    counts = dict(_build.launch_counts)
+    busy, _ = profile_run(torch, lambda: trainer.train_step([batches[-1]]), ms[-1] / 1e3)
+    if counts:
+        fail(f"{what} update launched {counts} (attention dropout keeps training forwards "
+             f"off the kernels)")
+    return trainer, ms, peak, mets[-1], busy
+
+
+def long_form_check(torch, model, criterion, batch, mods, what, dtype_name, compare, smi):
+    """The eval forward and the criterion's loss on a long-form batch
+    through the kernels (launches counted) and through the plain versions.
+    `compare(out, ref, batch)` -> (agreement, its bound, text). Returns the
+    flash launches."""
+    from diffnorm_tpu_torch.ops import _build
+
+    up = {k: torch.as_tensor(v).cuda() for k, v in batch.items()
+          if k not in ("nsentences", "ntokens")}
+    model.eval()
+    with torch.no_grad():
+        torch.cuda.synchronize()
+        _build.launch_counts.clear()
+        t1 = time.perf_counter()
+        loss, mets = criterion(model, up)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t1
+        counts = dict(_build.launch_counts)
+        out = model_outputs(model, up)
+        with plain_versions(*mods):
+            ref_loss, _ = criterion(model, up)
+            ref = model_outputs(model, up)
+    key = "flash_attention_f32" if dtype_name == "float32" else "flash_attention"
+    frames = out["mask"].sum(1).tolist()
+    if frames != list(AUDIO_LONG_FRAMES):
+        fail(f"{what} long form: valid frames {frames}, expected {list(AUDIO_LONG_FRAMES)}")
+    rel = abs(loss.item() - ref_loss.item()) / max(abs(ref_loss.item()), 1e-12)
+    agree, bound_, text = compare(out, ref, up)
+    print(f"{what} long form, {dtype_name}, B2 x {list(AUDIO_LONG_SAMPLES)} samples "
+          f"({list(AUDIO_LONG_FRAMES)} frames): the criterion's forward {1e3 * wall:.1f} ms, "
+          f"launches {counts} (expected {AUDIO_FLASH}, the JSON row {key}); against the plain "
+          f"versions {text}, loss {loss.item():.5f} vs {ref_loss.item():.5f} (rel {rel:.2e}, "
+          f"bound {AUDIO_LOSS_REL}); {smi}")
+    if (counts != {"flash_attention": AUDIO_FLASH} or agree < bound_ or rel > AUDIO_LOSS_REL
+            or not math.isfinite(loss.item())):
+        fail(f"{what} long form: launches {counts}, agreement {agree}, loss rel {rel:.2e}")
+    return {key: AUDIO_FLASH}
+
+
+def model_outputs(model, up):
+    """The model's eval outputs on an uploaded batch (the criterion's
+    inputs)."""
+    keys = {"HubertPretrainModule": ("src_tokens", "src_lengths", "mask_indices"),
+            "Wav2Vec2PretrainModule": ("src_tokens", "src_lengths", "mask_indices",
+                                       "masked_pos", "masked_valid", "neg_idxs")}
+    return model(*(up[k] for k in keys[type(model).__name__]))
+
+
+def run_hubert_pretrain(torch, mods, smi):
+    """Phase 28a: hubert_base, one update at B4 x 250,000 samples, then the
+    long-form validation forward. Returns its launches."""
+    import numpy as np
+
+    with tempfile.TemporaryDirectory() as tmp:
+        args, task = audio_task(torch, tmp, "hubert_pretraining", *HUBERT_FLAGS)
+        torch.manual_seed(288)
+        with torch.device("cuda"):
+            model = task.build_model()
+        n_params = sum(p.numel() for p in model.parameters())
+        rng = np.random.default_rng(288)
+        drawn = [audio_batch(task, rng, [AUDIO_TRAIN_SAMPLES] * AUDIO_TRAIN_B, labels=True)
+                 for _ in range(2)]
+        trainer, ms, peak, mets, busy = audio_update(
+            torch, args, task, model, [b for b, _ in drawn], "hubert_base")
+        host_ms = [round(1e3 * s, 2) for _, s in drawn]
+        print(f"hubert_base update (hubert, recipe dropouts, LayerDrop 0.05, feature_grad_mult "
+              f"0.1): {n_params / 1e6:.1f} M parameters, K = {len(task.tgt_dict)}, B"
+              f"{AUDIO_TRAIN_B} x {AUDIO_TRAIN_SAMPLES} samples (780 frames), float32: ms per "
+              f"update {[round(v, 1) for v in ms]} (the first a warm-up), peak {peak:.2f} GB, "
+              f"busy " + ("not measured" if busy is None else f"{100 * busy:.1f}%")
+              + f", loss {mets['loss']:.4f}, masked frames {mets['count_m']:.0f}, the host's "
+              f"mask draw {host_ms} ms (two batches); {smi}")
+        del trainer
+        batch, _ = audio_batch(task, rng, list(AUDIO_LONG_SAMPLES), labels=True)
+
+        def compare(out, ref, up):
+            valid = out["mask"]
+            cos = rows_cos(torch, out["logits"], ref["logits"], valid)
+            return cos, AUDIO_ROW_COS["float32"], (f"logits row-cos min {cos:.7f} (bound "
+                                                   f"{AUDIO_ROW_COS['float32']})")
+
+        launches = long_form_check(torch, model, task.build_criterion(), batch, mods,
+                                   "hubert_base validation", "float32", compare, smi)
+        del model
+    return launches
+
+
+def run_wav2vec2_pretrain(torch, mods, smi):
+    """Phase 28b: wav2vec2_base, one update, then the long-form check on
+    the contrastive logits' finite entries. Returns its launches."""
+    import numpy as np
+
+    with tempfile.TemporaryDirectory() as tmp:
+        args, task = audio_task(torch, tmp, "audio_pretraining", *W2V_FLAGS)
+        torch.manual_seed(289)
+        with torch.device("cuda"):
+            model = task.build_model()
+        n_params = sum(p.numel() for p in model.parameters())
+        rng = np.random.default_rng(289)
+        drawn = [audio_batch(task, rng, [AUDIO_TRAIN_SAMPLES] * AUDIO_TRAIN_B)
+                 for _ in range(2)]
+        trainer, ms, peak, mets, busy = audio_update(
+            torch, args, task, model, [b for b, _ in drawn], "wav2vec2_base")
+        host_ms = [round(1e3 * s, 2) for _, s in drawn]
+        slots = drawn[0][0]["masked_pos"].shape[1]
+        print(f"wav2vec2_base update (wav2vec, 100 negatives, loss weights [0.1, 10], the "
+              f"recipe dropouts): {n_params / 1e6:.1f} M parameters, B{AUDIO_TRAIN_B} x "
+              f"{AUDIO_TRAIN_SAMPLES} samples, {slots} masked slots a row, float32: ms per "
+              f"update {[round(v, 1) for v in ms]} (the first a warm-up), peak {peak:.2f} GB, "
+              f"busy " + ("not measured" if busy is None else f"{100 * busy:.1f}%")
+              + f", loss {mets['loss']:.4f}, prob perplexity {mets['prob_perplexity']:.1f}, "
+              f"the host's mask and negative draws {host_ms} ms (two batches); {smi}")
+        del trainer
+        batch, _ = audio_batch(task, rng, list(AUDIO_LONG_SAMPLES))
+
+        def compare(out, ref, up):
+            a, b = out["logits"], ref["logits"]
+            same_inf = torch.equal(torch.isfinite(a), torch.isfinite(b))
+            fin = torch.isfinite(a) & up["masked_valid"][..., None]
+            err = (a[fin] - b[fin]).abs().max().item()
+            ok = 1.0 if same_inf and err <= AUDIO_LOGIT_ATOL else 0.0
+            return ok, 1.0, (f"contrastive logits: -inf at the same places {same_inf} "
+                             f"({(~torch.isfinite(a)).sum().item()} removed negatives), the "
+                             f"finite ones max err {err:.2e} (bound {AUDIO_LOGIT_ATOL})")
+
+        launches = long_form_check(torch, model, task.build_criterion(), batch, mods,
+                                   "wav2vec2_base validation", "float32", compare, smi)
+        del model
+    return launches
+
+
+def run_ctc_finetune(torch, mods, smi):
+    """Phase 28c: hubert_ctc at base width, one fine-tune update with the
+    masks, then the long-form greedy decode in float32 and bf16 against the
+    plain versions. Returns its launches."""
+    import numpy as np
+
+    from diffnorm_tpu_torch.generate.ctc import ctc_greedy_decode
+
+    with tempfile.TemporaryDirectory() as tmp:
+        args, task = audio_task(torch, tmp, "audio_finetuning", *CTC_FLAGS, *CTC_TRAIN_FLAGS,
+                                "--target-code-size", str(CTC_LETTERS))
+        torch.manual_seed(290)
+        with torch.device("cuda"):
+            model = task.build_model()
+        rng = np.random.default_rng(290)
+        drawn = [audio_batch(task, rng, [AUDIO_TRAIN_SAMPLES] * AUDIO_TRAIN_B, letters=200)
+                 for _ in range(2)]
+        frozen = model.w2v_model.layer_0.fc1.weight.detach().clone()
+        trainer, ms, peak, mets, busy = audio_update(
+            torch, args, task, model, [b for b, _ in drawn], "hubert_ctc")
+        moved = not torch.equal(frozen, model.w2v_model.layer_0.fc1.weight)
+        print(f"hubert_ctc fine-tune update (ctc, time and channel masks, feature_grad_mult 0, "
+              f"freeze_finetune_updates 1, LayerDrop 0.1): vocab {len(task.tgt_dict)}, "
+              f"B{AUDIO_TRAIN_B} x {AUDIO_TRAIN_SAMPLES} samples, 200 letters a row, float32: "
+              f"ms per update {[round(v, 1) for v in ms]} (the first frozen), peak {peak:.2f} "
+              f"GB, busy " + ("not measured" if busy is None else f"{100 * busy:.1f}%")
+              + f", loss {mets['loss']:.4f}, the encoder moved after the frozen update "
+              f"{moved}; {smi}")
+        if not moved:
+            fail("hubert_ctc: the encoder did not train after freeze_finetune_updates")
+        del trainer, model
+        # the decode on a fresh seeded model
+        torch.manual_seed(291)
+        with torch.device("cuda"):
+            model = task.build_model()
+        wav, lens = audio_waveforms(rng, list(AUDIO_LONG_SAMPLES))
+        src = torch.from_numpy(wav).cuda()[..., None]
+        lengths = torch.from_numpy(lens).cuda()
+        launches = {}
+        for dtype in (torch.float32, torch.bfloat16):
+            name = str(dtype)[6:]
+            m = model.to(dtype).eval()
+            out, counts, wall = timed_decode(torch, lambda: ctc_greedy_decode([m], src, lengths),
+                                             reps=1)
+            with plain_versions(*mods):
+                ref = ctc_greedy_decode([m], src, lengths)
+            with torch.no_grad():
+                fwd = m(src, lengths)
+                valid, logits = fwd["mask"], fwd["logits"]
+                with plain_versions(*mods):
+                    ref_logits = m(src, lengths)["logits"]
+            cos = rows_cos(torch, logits, ref_logits, valid)
+            equal = (out[0] == ref[0])[valid].float().mean().item()
+            argmax = (logits.argmax(-1) == ref_logits.argmax(-1))[valid].float().mean().item()
+            # seeded weights: how much the logits move from frame to frame
+            # against their spread over the letters (a 12-layer random
+            # encoder gives nearly the same output at every frame)
+            first = logits[0, :AUDIO_LONG_FRAMES[0]].float()
+            spread = (first.std(0).mean() / first.std(1).mean()).item()
+            emitted = (out[0] != 1).sum().item()
+            key = "flash_attention_f32" if dtype == torch.float32 else "flash_attention"
+            print(f"hubert_ctc greedy decode, long form, {name}: B2 x {list(AUDIO_LONG_SAMPLES)}"
+                  f" samples, wall {1e3 * wall:.1f} ms, launches {counts} (expected "
+                  f"{AUDIO_FLASH} a forward, the JSON row {key}); against the plain versions "
+                  f"frame tokens equal {equal:.5f} and frame argmax equal {argmax:.5f} (bound "
+                  f"{CTC_TOKENS_EQUAL[name]} each), {emitted} tokens emitted, the logits' "
+                  f"spread over frames {spread:.4f} of theirs over letters, logits row-cos "
+                  f"min {cos:.7f} (bound {AUDIO_ROW_COS[name]}); {smi}")
+            if (counts != {"flash_attention": AUDIO_FLASH} or min(equal, argmax)
+                    < CTC_TOKENS_EQUAL[name] or cos < AUDIO_ROW_COS[name]):
+                fail(f"hubert_ctc decode {name}: launches {counts}, tokens equal {equal}, "
+                     f"row-cos {cos}")
+            launches[key] = launches.get(key, 0) + AUDIO_FLASH
+        del model
+    return launches
+
+
+def write_audio_cli_corpus(root: Path, rng):
+    """16 kHz WAVs of 3-5 s under pre/ (a wav2vec manifest, 50 Hz labels over
+    500 units, dict.km.txt) and ft/ (S2T manifests of 6-20 letters a row,
+    config.yaml with use_audio_input and dict.ltr.txt)."""
+    import numpy as np
+
+    from diffnorm_tpu_torch.data.s2t_dataset import write_s2t_manifest
+
+    pre, ft = root / "pre", root / "ft"
+    pre.mkdir()
+    ft.mkdir()
+    (pre / "dict.km.txt").write_text("".join(f"{i} 1\n" for i in range(HUBERT_UNITS)))
+    letters = list("abcdefghijklmnopqrstuvwxyz'|")
+    (ft / "dict.ltr.txt").write_text("".join(f"{c} 1\n" for c in letters))
+    (ft / "config.yaml").write_text("use_audio_input: true\nvocab_filename: dict.ltr.txt\n")
+    for split, n in AUDIO_CLI_UTTS.items():
+        lines, labels, rows = [str(pre)], [], []
+        for i in range(n):
+            size = int(rng.integers(48_000, 80_001))
+            pcm = (rng.standard_normal(size) * 3000).astype(np.int16)
+            write_wav_pcm(pre / f"{split}{i}.wav", pcm)
+            write_wav_pcm(ft / f"{split}{i}.wav", pcm)
+            lines.append(f"{split}{i}.wav\t{size}")
+            labels.append(" ".join(map(str, rng.integers(0, HUBERT_UNITS, size // 320))))
+            rows.append(dict(id=f"{split}{i}", audio=f"{split}{i}.wav", n_frames=size,
+                             tgt_text=" ".join(rng.choice(letters, int(rng.integers(6, 21))))))
+        (pre / f"{split}.tsv").write_text("\n".join(lines) + "\n")
+        (pre / f"{split}.km").write_text("\n".join(labels) + "\n")
+        write_s2t_manifest(str(ft / f"{split}.tsv"), rows)
+    return pre, ft
+
+
+def fairseq_hubert_ctc_state(torch, seed: int, layers: int, vocab: int) -> SeededStateDict:
+    """A fairseq HubertCtc state dict at base width (w2v_encoder.w2v_model.*,
+    the pos_conv weight-normed over dim 2, the pretraining heads left in,
+    w2v_encoder.proj) with the buffers' version keys."""
+    sd = SeededStateDict(torch, seed)
+    p = "w2v_encoder.w2v_model"
+    cin = 1
+    for i, (dim, k, _) in enumerate(((512, 10, 5),) + ((512, 3, 2),) * 4 + ((512, 2, 2),) * 2):
+        sd.conv(f"{p}.feature_extractor.conv_layers.{i}.0", dim, cin, k, bias=False)
+        cin = dim
+    sd.norm(f"{p}.feature_extractor.conv_layers.0.2", 512)
+    sd.norm(f"{p}.layer_norm", 512)
+    sd.linear(f"{p}.post_extract_proj", 768, 512)
+    sd.normal(f"{p}.encoder.pos_conv.0.weight_g", (1, 1, 128), 0.1, 1.0)
+    sd.weight(f"{p}.encoder.pos_conv.0.weight_v", 768, 48, 128)
+    sd.normal(f"{p}.encoder.pos_conv.0.bias", (768,), 0.1)
+    sd.norm(f"{p}.encoder.layer_norm", 768)
+    for n in range(layers):
+        q = f"{p}.encoder.layers.{n}"
+        for proj in ("q_proj", "k_proj", "v_proj", "out_proj"):
+            sd.linear(f"{q}.self_attn.{proj}", 768, 768)
+        sd.norm(f"{q}.self_attn_layer_norm", 768)
+        sd.linear(f"{q}.fc1", 3072, 768)
+        sd.linear(f"{q}.fc2", 768, 3072)
+        sd.norm(f"{q}.final_layer_norm", 768)
+    sd.normal(f"{p}.mask_emb", (768,), 1.0)
+    sd.normal(f"{p}.label_embs_concat", (504, 256), 1.0)
+    sd.linear(f"{p}.final_proj", 256, 768)
+    sd.linear("w2v_encoder.proj", vocab, 768)
+    sd.put(f"{p}.encoder.version", [2.0])
+    return sd
+
+
+def cli_run(mod, argv, logger_name):
+    """mod.main(argv) with its logger's lines kept: (rc, wall, lines)."""
+    lines = LogLines()
+    logging.getLogger(logger_name).addHandler(lines)
+    t0 = time.perf_counter()
+    try:
+        rc = mod.main(argv)
+    finally:
+        logging.getLogger(logger_name).removeHandler(lines)
+    return rc, time.perf_counter() - t0, lines.lines
+
+
+def run_audio_cli(torch, smi):
+    """Phase 28d: cli.train hubert_pretraining and audio_pretraining, then
+    audio_finetuning --w2v-path on the HuBERT step directory (use_audio_input)
+    at AUDIO_CLI_LAYERS layers -> cli.validate -> cli.generate (CTC) against
+    the in-process decode of the same batches; cli.convert_checkpoint --type
+    hubert_ctc on a seeded fairseq state dict, loaded into the model."""
+    import numpy as np
+
+    from diffnorm_tpu_torch.cli import convert_checkpoint, generate, validate
+    from diffnorm_tpu_torch.cli import train as train_cli
+    from diffnorm_tpu_torch.cli.generate import strip_special
+    from diffnorm_tpu_torch.data.iterators import EpochBatchIterator
+    from diffnorm_tpu_torch.generate.ctc import ctc_greedy_decode
+    from diffnorm_tpu_torch.tasks import TASKS
+    from diffnorm_tpu_torch.train.checkpoint import load_variables
+    from diffnorm_tpu_torch.weights import from_jax_variables
+
+    walls = {}
+    depth = ["--encoder-layers", str(AUDIO_CLI_LAYERS)]
+    common = ["--max-update", "2", "--warmup-updates", "4000", "--log-interval", "1",
+              "--max-sample-size", "80000", "--max-tokens", "320000", *depth]
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = Path(tmp)
+        pre, ft = write_audio_cli_corpus(tmp, np.random.default_rng(291))
+        for task, extra in (("hubert_pretraining", HUBERT_FLAGS), ("audio_pretraining", W2V_FLAGS)):
+            rc, walls[f"cli.train {task}"], lines = cli_run(
+                train_cli, [str(pre), "--task", task, "--save-dir", str(tmp / task), *common,
+                            *extra], "diffnorm_tpu_torch.train")
+            if rc != 0 or "saved checkpoint at step 2" not in "\n".join(lines):
+                fail(f"cli.train {task}: rc {rc}, {lines[-3:]}")
+        w2v = tmp / "hubert_pretraining" / "step_000000002"
+        ft_flags = [str(ft), "--task", "audio_finetuning", *CTC_FLAGS, *depth]
+        rc, walls["cli.train audio_finetuning --w2v-path"], lines = cli_run(
+            train_cli, ft_flags + ["--save-dir", str(tmp / "ctc"), "--w2v-path", str(w2v),
+                                   *common, *CTC_TRAIN_FLAGS], "diffnorm_tpu_torch.train")
+        if rc != 0 or "saved checkpoint at step 2" not in "\n".join(lines):
+            fail(f"cli.train audio_finetuning: rc {rc}, {lines[-3:]}")
+        step = tmp / "ctc" / "step_000000002"
+        rc, walls["cli.validate audio_finetuning"], lines = cli_run(
+            validate, ft_flags + ["--path", str(step), "--valid-subset", "dev", "--max-tokens",
+                                  "320000"], "diffnorm_tpu_torch.validate")
+        got = re.findall(r"^dev \| .*loss (\S+)", "\n".join(lines), re.M)
+        if rc != 0 or not got or not math.isfinite(float(got[-1])):
+            fail(f"cli.validate audio_finetuning: rc {rc}, {lines[-2:]}")
+        out = tmp / "gen"
+        rc, walls["cli.generate audio_finetuning"], _ = cli_run(
+            generate, ft_flags + ["--path", str(step), "--gen-subset", "test", "--max-tokens",
+                                  "320000", "--dtype", "float32", "--results-path", str(out)],
+            "diffnorm_tpu_torch.generate")
+        printed = {line.split("\t")[0][2:]: line.split("\t")[-1]
+                   for line in (out / "generate-test.txt").read_text().splitlines()
+                   if line.startswith("D-")}
+        args = train_cli.parse_args(ft_flags + ["--max-update", "1"])
+        task = TASKS["audio_finetuning"](args)
+        with torch.device("cuda"):
+            model = task.build_model()
+        from_jax_variables(model, load_variables(str(step)))
+        model.eval()
+        want = {}
+        ds = task.dataset("test")
+        for batch in EpochBatchIterator(ds, max_tokens=320000, shuffle=False).next_epoch_itr():
+            tokens, _ = ctc_greedy_decode([model], torch.from_numpy(batch["src_tokens"]).cuda(),
+                                          torch.from_numpy(batch["src_lengths"]).cuda())
+            for i, sid in enumerate(batch["id"].tolist()):
+                want[str(sid)] = strip_special(tokens[i].cpu().numpy(), task.tgt_dict)
+        if rc != 0 or printed != want:
+            fail(f"cli.generate CTC: rc {rc}, lines {printed} against in process {want}")
+        del model
+        sd = fairseq_hubert_ctc_state(torch, 292, AUDIO_CLI_LAYERS, 4 + CTC_LETTERS)
+        torch.save(fairseq_envelope(torch, dict(sd), criterion="ctc"), tmp / "ctc.pt")
+        rc, walls["cli.convert_checkpoint hubert_ctc"], lines = cli_run(
+            convert_checkpoint, ["--type", "hubert_ctc", "--input", str(tmp / "ctc.pt"),
+                                 "--output", str(tmp / "ctc_conv")],
+            "diffnorm_tpu_torch.convert_checkpoint")
+        with torch.device("cuda"):
+            model = TASKS["audio_finetuning"](train_cli.parse_args(
+                [str(ft), "--task", "audio_finetuning", "--max-update", "1", "--apply-mask",
+                 *depth])).build_model()
+        from_jax_variables(model, load_variables(str(tmp / "ctc_conv")))
+        if rc != 0:
+            fail(f"cli.convert_checkpoint hubert_ctc: rc {rc}, {lines[-2:]}")
+    print(f"wav2vec2 / HuBERT CLIs ({AUDIO_CLI_LAYERS} layers, float32, "
+          f"{AUDIO_CLI_UTTS} utterances of 3-5 s): "
+          + ", ".join(f"{k} {v:.2f} s" for k, v in walls.items())
+          + f"; validation loss {float(got[-1]):.4f}; cli.generate's {len(printed)} D- lines "
+          f"equal to the in-process greedy decode; the converted fairseq CTC checkpoint loads; "
+          f"{smi}")
+
+
+def run_audio_pretrain(torch, mods, smi):
+    """Phase 28 (module docstring). Returns the counted runs' launches by
+    JSON row."""
+    t0 = time.perf_counter()
+    launches = {}
+    for fn in (run_hubert_pretrain, run_wav2vec2_pretrain, run_ctc_finetune):
+        for name, n in fn(torch, mods, smi).items():
+            launches[name] = launches.get(name, 0) + n
+    run_audio_cli(torch, smi)
+    print(f"phase wav2vec2 / HuBERT: {time.perf_counter() - t0:.1f} s, launches {launches}; "
+          f"{smi}")
+    return launches
+
+
 def main() -> int:
     try:
         import torch
@@ -8304,6 +8819,12 @@ def main() -> int:
     for name, n in run_sedd_lm(torch, mods, smi).items():
         launches[name] += n
 
+    # 28. wav2vec2 and HuBERT pretraining and the CTC fine-tune: an update of
+    # each at base width, the long-form validation forwards and CTC decodes
+    # through flash_attention, the CLIs
+    for name, n in run_audio_pretrain(torch, mods, smi).items():
+        launches[name] += n
+
     sources = {
         "rms_norm_film": ("rms_norm_film.cu", "diffnorm_tpu/ops/pallas_norm.py:34"),
         "wavenet_chain": ("wavenet_chain.cu", "diffnorm_tpu/ops/pallas_wavenet.py:66"),
@@ -8347,6 +8868,9 @@ def main() -> int:
     for what in ("SEDD self-attention", "SEDD self-attention float32"):
         print(f"flash_attention at phase 27's {what} ([2,8,2112,64], keys [2112, 1056]): "
               f"{flash_timed[what]}")
+    for what in ("HuBERT eval long form", "HuBERT eval long form float32"):
+        print(f"flash_attention at phase 28's {what} ([2,12,2249,64], keys "
+              f"{list(AUDIO_LONG_FRAMES)}): {flash_timed[what]}")
     for what in ("HuBERT long form", "HuBERT longest chunk", "float32 path"):
         print(f"flash_attention float32 {what}: {flash_timed[what]}")
     print(json.dumps({"kernels": kernels}))

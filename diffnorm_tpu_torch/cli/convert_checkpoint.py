@@ -11,6 +11,8 @@
       --input g_00500000 --vocoder-cfg config.json --output ckpts/vocoder
   python -m diffnorm_tpu_torch.cli.convert_checkpoint --type hubert \\
       --input mhubert_base.pt --hubert-layers 12 --output ckpts/hubert
+  python -m diffnorm_tpu_torch.cli.convert_checkpoint --type hubert_ctc \\
+      --input hubert_base_ls960_ctc.pt --output ckpts/hubert_ctc
   python -m diffnorm_tpu_torch.cli.convert_checkpoint --type gan_discriminators \\
       --input do_00500000 --output ckpts/discriminators
 
@@ -27,10 +29,12 @@ cli.prepare --hubert-ckpt, cli.validate --path and cli.train --restore-file
 The key-inventory audit is on unless --no-strict: every learned element of
 the state dict must land in the tree (each discriminator against its own),
 the family's pretraining-only heads excepted, else a ValueError names the
-suspect keys. `--type hubert_ctc` raises: the port has no HubertCTCModule
-(ROADMAP Queue 1 item 5); its ASR reads Hugging Face directories
-(models/wav2vec2_ctc.py). `--type diffusion` takes the prompt-conditioned
-denoiser too (its resampler, null embeddings and cross-attention layers).
+suspect keys. `--type hubert_ctc` converts a fairseq CTC fine-tune
+(`w2v_encoder.*`) to `models/hubert.py:HubertCTCModule`'s tree, which
+cli.generate --task audio_finetuning reads; the ASR of eval/asr_bleu.py
+reads Hugging Face directories (models/wav2vec2_ctc.py). `--type
+diffusion` takes the prompt-conditioned denoiser too (its resampler, null
+embeddings and cross-attention layers).
 """
 
 from __future__ import annotations
@@ -61,7 +65,8 @@ def parse_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
     p.add_argument("--output", required=True, help="step directory to create")
     p.add_argument("--vocoder-cfg", help="HiFi-GAN config.json (required for --type hifigan)")
     p.add_argument("--hubert-layers", type=int, default=None,
-                   help="transformer layer count for hubert (default: counted from the keys)")
+                   help="transformer layer count for hubert and hubert_ctc (default: counted "
+                        "from the keys)")
     p.add_argument("--no-strict", dest="strict", action="store_false",
                    help="skip the key-inventory audit")
     return p.parse_args(argv)
@@ -69,10 +74,6 @@ def parse_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
 
 def convert(args: argparse.Namespace):
     """(variables tree, [(state dict, the tree it must balance against)])."""
-    if args.type == "hubert_ctc":
-        raise NotImplementedError(
-            "--type hubert_ctc: the port has no HubertCTCModule (ROADMAP Queue 1 item 5); "
-            "its ASR reads Hugging Face wav2vec2-CTC directories (models/wav2vec2_ctc.py)")
     ckpt = torch.load(args.input, map_location="cpu", weights_only=False)
     if args.type == "gan_discriminators":
         variables = cw.convert_gan_discriminators(ckpt["mpd"], ckpt["msd"])
@@ -92,6 +93,9 @@ def convert(args: argparse.Namespace):
             variables = {"params": cw.convert_diffusion_state(sd)}
         elif args.type == "nar":
             variables = cw.convert_nar_state(sd)
+        elif args.type == "hubert_ctc":
+            variables = cw.convert_hubert_ctc_state(
+                sd, layers=args.hubert_layers or cw.torch_layer_count(sd))
         else:
             variables = cw.convert_hubert_state(
                 sd, layers=args.hubert_layers or cw.torch_layer_count(sd))

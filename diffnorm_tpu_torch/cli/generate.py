@@ -124,12 +124,19 @@ mask-predict (`--iter-decode-max-iter`, `--iter-decode-with-beam`,
 sacrebleu scoring (sacrebleu fails to import where it is not installed,
 as in JAX).
 
+The CTC fine-tune (`--task audio_finetuning --arch hubert_ctc` or
+`wav2vec_ctc`; the model's and the data's flags as cli.train takes them, the
+data config's `use_audio_input` among them) decodes greedily
+(`generate/ctc.py`: best path over the frames, an ensemble's frame
+log-probabilities averaged) and writes the same lines in text through the
+task's dictionary, one step a sentence; it takes no int8 route, as in JAX.
+
 SEDD and the unit LM have no branch here, as in JAX: `models.sedd`'s
 `sedd_sample` / `sedd_refine` decode in process and `cli.eval_lm` scores
 the LM. Not ported, and raising NotImplementedError naming their ROADMAP
-Queue 1 items: the other tasks and architectures (wav2vec2 and HuBERT
-pretraining and the CTC fine-tune, item 5; the TranSpeech normalization,
-item 6; the rest of the runtime, item 7; parallelism, item 8).
+Queue 1 items: the other tasks and architectures (the TranSpeech
+normalization, item 6; the rest of the runtime, item 7; parallelism,
+item 8).
 """
 
 from __future__ import annotations
@@ -154,6 +161,7 @@ from diffnorm_tpu_torch.data.s2s_dataset import SpeechToUnitDataset
 from diffnorm_tpu_torch.eval.bleu import BleuAccumulator
 from diffnorm_tpu_torch.eval.wer import WerAccumulator
 from diffnorm_tpu_torch.generate.beam_search import ar_generate, ar_generate_stacked
+from diffnorm_tpu_torch.generate.ctc import ctc_greedy_decode
 from diffnorm_tpu_torch.generate.mask_predict import average_log_probs, mask_predict_decode_chunked
 from diffnorm_tpu_torch.generate.speech_ar import ARSpeechGenerator
 from diffnorm_tpu_torch.generate.translatotron2 import Translatotron2SpeechGenerator
@@ -162,6 +170,7 @@ from diffnorm_tpu_torch.models.ar_transformer import ARCHS as AR_ARCHS
 from diffnorm_tpu_torch.models.ar_transformer import ARS2UTModule
 from diffnorm_tpu_torch.models.cmlm_text import ARCHS as CMLM_ARCHS
 from diffnorm_tpu_torch.models.fastspeech2 import FastSpeech2Module, NonARSpeechGenerator
+from diffnorm_tpu_torch.models.hubert import CTC_ARCHS
 from diffnorm_tpu_torch.models.levenshtein import ARCHS as LEV_ARCHS
 from diffnorm_tpu_torch.models.levenshtein import levenshtein_decode
 from diffnorm_tpu_torch.models.nar_transformer import calibrate_act_scales
@@ -183,14 +192,15 @@ PAD, EOS = 1, 2
 TASK, ARCH = "speech_to_speech_fasttranslate", "nar_s2ut_conformer"
 AR_TASK = train_cli.AR_TASK
 SPECT_TASK, S2S_TASK = train_cli.SPECT_TASK, train_cli.S2S_TASK
-TTS_TASK, S2T_TASK = train_cli.TTS_TASK, train_cli.S2T_TASK
+TTS_TASK, S2T_TASK, CTC_TASK = train_cli.TTS_TASK, train_cli.S2T_TASK, train_cli.CTC_TASK
 MT_TASK, CMLM_TASK, LEV_TASK = train_cli.MT_TASK, train_cli.CMLM_TASK, train_cli.LEV_TASK
 TASK_ARCHS = {TASK: (ARCH,), AR_TASK: tuple(AR_ARCHS) + tuple(UNITY_ARCHS),
               SPECT_TASK: tuple(SPECT_ARCHS), TTS_TASK: tuple(TTS_ARCHS),
               S2T_TASK: tuple(S2T_ARCHS), MT_TASK: tuple(MT_ARCHS),
-              CMLM_TASK: tuple(CMLM_ARCHS), LEV_TASK: tuple(LEV_ARCHS)}  # the first, the default
+              CMLM_TASK: tuple(CMLM_ARCHS), LEV_TASK: tuple(LEV_ARCHS),
+              CTC_TASK: tuple(CTC_ARCHS)}  # the first, the default
 # the tasks whose model and data their task builds, on cli.train's flags
-TASK_BUILT = (SPECT_TASK, TTS_TASK, S2T_TASK) + train_cli.TEXT_TASKS
+TASK_BUILT = (SPECT_TASK, TTS_TASK, S2T_TASK, CTC_TASK) + train_cli.TEXT_TASKS
 # the tasks that decode with the AR branch (beam search)
 AR_DECODED = (AR_TASK, S2T_TASK, MT_TASK)
 # the widths an AR arch gives where the flag is not set
@@ -330,9 +340,8 @@ def parse_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
         raise NotImplementedError(
             f"--task {chosen.task} --arch {chosen.arch}: the ported branches are "
             + "; ".join(f"{t} ({', '.join(a)})" for t, a in TASK_ARCHS.items())
-            + " (not ported: wav2vec2 and HuBERT pretraining and the CTC fine-tune, ROADMAP "
-              "Queue 1 item 5; the TranSpeech "
-              "normalization, item 6; the rest of the runtime, item 7; parallelism, item 8)")
+            + " (not ported: the TranSpeech normalization, ROADMAP Queue 1 item 6; the rest "
+              "of the runtime, item 7; parallelism, item 8)")
     if task == AR_TASK:  # widths left unset take the arch's
         p.set_defaults(**dict.fromkeys(AR_WIDTHS))
     args, extra = p.parse_known_args(argv)
@@ -566,6 +575,17 @@ def ar_decoder(args: argparse.Namespace, models, device: torch.device):
     return decode, args.beam
 
 
+def ctc_decoder(models):
+    """The greedy CTC decode of a batch (JAX cli/generate.py:355-375):
+    tokens and scores [B, F] and one step a row, numpy."""
+    def decode(batch):
+        tokens, scores = ctc_greedy_decode(models, batch["src_tokens"], batch["src_lengths"])
+        return (tokens.cpu().numpy(), scores.cpu().numpy(),
+                np.ones(tokens.shape[0], np.int32))
+
+    return decode
+
+
 def levenshtein_decoder(args: argparse.Namespace, models):
     """The Levenshtein transformer's decode of a batch (JAX
     cli/generate.py:254-266): the canvas, zero scores and --iter-decode-max-iter
@@ -624,6 +644,8 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
         decode_batch, beam = ar_decoder(args, models, device)
     elif args.task == LEV_TASK:
         decode_batch, beam = levenshtein_decoder(args, models), args.iter_decode_with_beam
+    elif args.task == CTC_TASK:
+        decode_batch, beam = ctc_decoder(models), args.iter_decode_with_beam
     else:
         beam = args.iter_decode_with_beam
         if args.init_unit_file:

@@ -51,6 +51,20 @@ transformer_lm` or `unit_lm`, `--criterion lm_cross_entropy`, the
 `--decoder-*` widths), re-cut into
 `--tokens-per-sample` blocks under `--sample-break-mode` where either is
 given, each sequence cut to `--max-target-positions`;
+wav2vec2 and HuBERT pretraining and the CTC fine-tune (`tasks/
+{audio_pretrain,hubert_pretrain,s2t}_task.py`): `--task audio_pretraining`
+(`--arch wav2vec2`, `wav2vec2_base` or `wav2vec2_large`, `--criterion
+wav2vec`; `--num-negatives`, `--latent-temp`, `--loss-weights`) and
+`hubert_pretraining` (`hubert`, `hubert_base` or `hubert_large`, `--criterion
+hubert`; `--labels`, `--label-dir`, `--label-rate`) on a wav2vec manifest
+cropped to `--max-sample-size`, with the span-mask flags (`--mask-prob`,
+`--mask-length`, `--mask-selection`, ...), and `audio_finetuning`
+(`hubert_ctc` or `wav2vec_ctc`, `--criterion ctc`) on S2T manifests with the
+data config's use_audio_input, `--apply-mask` and the channel-mask flags,
+`--w2v-path` (a pretraining .pt or step directory, dropped when the run
+resumes its own checkpoint) and `--freeze-finetune-updates`; the encoder's
+`--conv-feature-layers`, `--extractor-mode`, `--feature-grad-mult`,
+`--dropout-input`, `--encoder-layerdrop` and the rest under JAX's names.
 `--task unit_to_speech` goes to `cli.train_vocoder` with the
 other arguments, as JAX's does, and `--task repr_to_speech` too with
 `--input-type features`. It takes every flag of scripts/vae_train.sh,
@@ -174,6 +188,7 @@ from diffnorm_tpu_torch.device import resolve_device
 from diffnorm_tpu_torch.models.ar_transformer import ARCHS as AR_ARCHS
 from diffnorm_tpu_torch.models.cmlm_text import ARCHS as CMLM_ARCHS
 from diffnorm_tpu_torch.models.diffusion import ARCHS as DIFFUSION_ARCHS
+from diffnorm_tpu_torch.models.hubert import CTC_ARCHS, PRETRAIN_ARCHS
 from diffnorm_tpu_torch.models.levenshtein import ARCHS as LEV_ARCHS
 from diffnorm_tpu_torch.models.nar_transformer import ARCHS as NAR_ARCHS
 from diffnorm_tpu_torch.models.s2t_transformer import ARCHS as S2T_ARCHS
@@ -181,6 +196,7 @@ from diffnorm_tpu_torch.models.sedd import ARCHS as SEDD_ARCHS
 from diffnorm_tpu_torch.models.transformer_text import ARCHS as MT_ARCHS
 from diffnorm_tpu_torch.models.unit_lm import ARCHS as LM_ARCHS
 from diffnorm_tpu_torch.models.unity import ARCHS as UNITY_ARCHS
+from diffnorm_tpu_torch.models.wav2vec2 import ARCHS as W2V_ARCHS
 from diffnorm_tpu_torch.tasks import TASKS
 from diffnorm_tpu_torch.tasks.s2spect_task import ARCHS as SPECT_ARCHS
 from diffnorm_tpu_torch.tasks.s2spect_task import S2SPECT2_ARCHS
@@ -209,6 +225,8 @@ TTS_TASK, S2T_TASK = "text_to_speech", "speech_to_text"
 MT_TASK, CMLM_TASK, LEV_TASK = "translation", "cmlm_cg", "translation_lev"
 TEXT_TASKS = (MT_TASK, CMLM_TASK, LEV_TASK)
 SEDD_TASKS, LM_TASKS = ("sedd", "sedd_lm"), ("unit_lm", "language_modeling")
+HUBERT_TASK, W2V_TASK, CTC_TASK = "hubert_pretraining", "audio_pretraining", "audio_finetuning"
+AUDIO_TASKS = (HUBERT_TASK, W2V_TASK, CTC_TASK)
 # fairseq's speech_to_speech: --target-is-code picks AR_TASK, else SPECT_TASK
 S2S_TASK = "speech_to_speech"
 STAGES = {  # task: (its criterions, the first the default; its architectures)
@@ -232,7 +250,11 @@ STAGES = {  # task: (its criterions, the first the default; its architectures)
     **dict.fromkeys(SEDD_TASKS, (("sedd_loss", "lm_cross_entropy"),
                                  tuple(SEDD_ARCHS) + tuple(LM_ARCHS))),
     **dict.fromkeys(LM_TASKS, (("lm_cross_entropy",), tuple(LM_ARCHS))),
+    HUBERT_TASK: (("hubert",), tuple(PRETRAIN_ARCHS)),
+    W2V_TASK: (("wav2vec",), tuple(W2V_ARCHS)),
+    CTC_TASK: (("ctc",), tuple(CTC_ARCHS)),
 }
+AUDIO_ARCHS = {**PRETRAIN_ARCHS, **W2V_ARCHS, **CTC_ARCHS}
 TEXT_ARCHS = {**MT_ARCHS, **CMLM_ARCHS, **LEV_ARCHS}
 # the criterions of the archs that pick their own, the first the default
 ARCH_CRITERIONS = {**TTS_CRITERIONS, **LM_CRITERIONS}
@@ -311,6 +333,68 @@ def add_two_pass_args(p: argparse.ArgumentParser) -> None:
                    help="the Tacotron2 criterion's EOS positive weight")
 
 
+def _floats(value: str):
+    """A number, or a list of them ("[0.1, 10]", "(2, 0.5, 0.999995)")."""
+    value = value.strip()
+    return [float(v) for v in _json(value)] if value[:1] in "[(" else float(value)
+
+
+def add_audio_args(p: argparse.ArgumentParser) -> None:
+    """The flags of wav2vec2 and HuBERT pretraining and the CTC fine-tune,
+    under JAX's names (the encoder's widths are --encoder-*)."""
+    g = p.add_argument_group("wav2vec2 / HuBERT pretraining and the CTC fine-tune")
+    # data (hubert_pretraining, audio_pretraining)
+    g.add_argument("--labels", default="km", help="the label files' suffix ({split}.{labels})")
+    g.add_argument("--label-dir", help="the labels' and dict.{labels}.txt's directory "
+                                        "(default DATA)")
+    g.add_argument("--label-rate", type=float, default=50.0)
+    g.add_argument("--sample-rate", type=int, default=16000)
+    g.add_argument("--max-sample-size", type=int, default=250000,
+                   help="every row cropped to this static canvas")
+    g.add_argument("--min-sample-size", type=int, default=32000)
+    _flag(g, "--normalize", help="normalize each waveform to zero mean, unit variance")
+    _flag(g, "--random-crop", default=True, help="crop training rows at a random start")
+    # the span masks
+    g.add_argument("--mask-prob", type=float, default=0.65)
+    g.add_argument("--mask-length", type=int, default=10)
+    g.add_argument("--mask-selection", default="static",
+                   choices=("static", "uniform", "normal", "poisson"))
+    g.add_argument("--mask-other", type=float, default=0.0)
+    _flag(g, "--no-mask-overlap")
+    g.add_argument("--mask-min-space", type=int, default=1)
+    g.add_argument("--mask-dropout", type=float, default=0.0)
+    _flag(g, "--apply-mask", help="audio_finetuning: the time and channel masks")
+    g.add_argument("--mask-channel-prob", type=float, default=0.0)
+    g.add_argument("--mask-channel-length", type=int, default=10)
+    g.add_argument("--mask-channel-selection", default="static",
+                   choices=("static", "uniform", "normal", "poisson"))
+    g.add_argument("--mask-channel-other", type=float, default=0.0)
+    _flag(g, "--no-mask-channel-overlap")
+    g.add_argument("--mask-channel-min-space", type=int, default=1)
+    # the models (defaults: the architecture's, then JAX's build_model's)
+    g.add_argument("--conv-feature-layers",
+                   help='the extractor\'s "[(dim, kernel, stride), ...]"')
+    g.add_argument("--extractor-mode", choices=("default", "layer_norm"))
+    _flag(g, "--conv-bias", default=None)
+    _flag(g, "--layer-norm-first", default=None)
+    # wav2vec2's codebook width is --latent-dim (0 or unset: --final-dim)
+    for flag in ("--final-dim", "--latent-vars", "--latent-groups", "--num-classes"):
+        g.add_argument(flag, type=int)
+    for flag in ("--logit-temp", "--feature-grad-mult", "--dropout-input", "--dropout-features",
+                 "--encoder-layerdrop", "--final-dropout"):
+        g.add_argument(flag, type=float)
+    g.add_argument("--num-negatives", type=int, default=100)
+    g.add_argument("--latent-temp", type=_floats,
+                   help="the Gumbel temperature (max, min, decay); default (2, 0.5, 0.999995)")
+    # the criterions
+    g.add_argument("--pred-masked-weight", type=float, default=1.0)
+    g.add_argument("--pred-nomask-weight", type=float, default=0.0)
+    g.add_argument("--loss-weights", type=_floats,
+                   help="the extra losses' weights (hubert [10], wav2vec [0.1, 10])")
+    g.add_argument("--w2v-path", help="audio_finetuning: warm-start the encoder from this "
+                                      "pretraining checkpoint (fairseq .pt or step directory)")
+
+
 def build_parser(description: str, train: bool = True,
                  task: Optional[str] = None) -> argparse.ArgumentParser:
     """The flags of cli.train; with `train` False (cli.validate) the model,
@@ -335,7 +419,8 @@ def build_parser(description: str, train: bool = True,
     # model
     p.add_argument("--feature-dim", type=int, default=768)
     p.add_argument("--latent-dim", type=int,
-                   help="the VAE's latent width (default 128; diff_hubert's 768)")
+                   help="the VAE's latent width (default 128; diff_hubert's 768); wav2vec2's "
+                        "quantized width (default --final-dim)")
     p.add_argument("--chan-mults", type=json.loads, default=None,
                    help='VAE channel multipliers as JSON, e.g. "[3]"')
     p.add_argument("--vae-decoder-depth", type=int, default=6)
@@ -416,6 +501,7 @@ def build_parser(description: str, train: bool = True,
                         "where --sample-break-mode is given)")
     p.add_argument("--sample-break-mode", choices=("none", "complete", "complete_doc", "eos"),
                    help="how the blocks break (default none where --tokens-per-sample is given)")
+    add_audio_args(p)
     if not train:
         return p
     # optimization (flags left unset take each optimizer's and schedule's
@@ -506,7 +592,7 @@ def check_args(p: argparse.ArgumentParser, args: argparse.Namespace) -> argparse
                 "JAX's: its criterions pass none, and its Denoiser asserts one, "
                 "models/diffusion.py:271); build LatentDiffusionModule(use_cond=True) and "
                 "pass batches with a prompt instead")
-    lm_tasks = SEDD_TASKS + LM_TASKS
+    lm_tasks = SEDD_TASKS + LM_TASKS + AUDIO_TASKS
     if args.task in (AR_TASK, SPECT_TASK, TTS_TASK, S2T_TASK) + TEXT_TASKS + lm_tasks:
         options = (("--use-sp", args.use_sp),
                    ("--multitask-ctc-vocab", args.multitask_ctc_vocab),
@@ -525,6 +611,8 @@ def check_args(p: argparse.ArgumentParser, args: argparse.Namespace) -> argparse
         if args.task == TTS_TASK and args.n_frames_per_step > 1:
             p.error("--n-frames-per-step: the text_to_speech dataset does not stack its "
                     "frames (nor does JAX's, whose criterion then fails on the shapes)")
+    if args.w2v_path and args.task != CTC_TASK:
+        p.error(f"--w2v-path: the {CTC_TASK} task's warm start")
     if args.task not in (S2T_TASK, MT_TASK) and args.share_decoder_input_output_embed:
         p.error(f"--share-decoder-input-output-embed: an option of the S2T model and the text "
                 f"transformer (--task {S2T_TASK} or {MT_TASK})")
@@ -547,6 +635,8 @@ def check_args(p: argparse.ArgumentParser, args: argparse.Namespace) -> argparse
             args.share_decoder_input_output_embed = True  # JAX's default
         if args.label_smoothing is None:
             args.label_smoothing = LABEL_SMOOTHING[args.task]
+    elif args.task in AUDIO_TASKS:
+        AUDIO_ARCHS[args.arch](vars(args))
     elif args.task in lm_tasks:
         {**SEDD_ARCHS, **LM_ARCHS}[args.arch](vars(args))
         if args.label_smoothing is None:
@@ -688,6 +778,14 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
                         format="%(asctime)s | %(levelname)s | %(name)s | %(message)s")
     args = parse_args(argv)
     device = resolve_device("cpu" if args.cpu else "cuda")
+    ckpt = CheckpointManager(args.save_dir, keep_last=args.keep_last_epochs,
+                             keep_best=args.keep_best_checkpoints,
+                             maximize=args.maximize_best_checkpoint_metric)
+    if args.w2v_path and ckpt.latest_step() is not None:
+        # the restore overwrites the graft, and the pretraining file may be
+        # gone (JAX cli/train.py:150-157)
+        logger.info("resuming from %s; ignoring --w2v-path", args.save_dir)
+        args.w2v_path = None
     torch.manual_seed(args.seed)  # the model's initialization
     task = TASKS[args.task](args)
     with torch.device(device):
@@ -707,9 +805,6 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
     # a checkpoint is restored (cli/train.py:141-144): the item is thrown away,
     # but the draw advances the dataset's SpecAugment generator as JAX's does
     dataset[0]
-    ckpt = CheckpointManager(args.save_dir, keep_last=args.keep_last_epochs,
-                             keep_best=args.keep_best_checkpoints,
-                             maximize=args.maximize_best_checkpoint_metric)
     # the master weights are restored before the trainer casts its working copy
     state, extra, lr_state = restore(args, ckpt, model, device, task.frozen_param_keys)
     trainer = Trainer(trainer_config(args), model, task.build_criterion(),

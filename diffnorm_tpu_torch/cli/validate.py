@@ -13,13 +13,16 @@ and AR S2UT, UnitY, the spectrogram translators, text-to-speech,
 speech-to-text and text translation: translation, cmlm_cg and
 translation_lev on a bitext or cli.preprocess's binarized pairs, SEDD's
 sedd / sedd_lm and the unit LM's unit_lm / language_modeling on the unit
-manifests) with cli.train's model,
+manifests, wav2vec2's audio_pretraining, HuBERT's hubert_pretraining and
+the CTC fine-tune's audio_finetuning) with cli.train's model,
 data and task flags; `--path` is a step directory or a .npz
 (weights.save_npz), a `cli.convert_checkpoint` output included. The
 batches' draws come from `np.random.default_rng(--seed)`, the criterion's
 (the VAE's posterior sample, the normalizer's times and noises, SEDD's
 times and masks) from a
-generator seeded 0. Runs on the GPU (in --dtype) unless --cpu is given.
+generator seeded 0 (wav2vec2's and HuBERT's span masks and negatives from
+the former, at the Gumbel temperature of update 0). Runs on the GPU (in
+--dtype) unless --cpu is given.
 Logs `{split} | loss ... nll_loss ...`.
 """
 

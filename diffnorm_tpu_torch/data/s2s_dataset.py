@@ -26,7 +26,9 @@ speaker embedding and aux targets are the first item's, as JAX's.
 `noisyoverlapaugment` is built and unused here, as in JAX (the vocoder
 dataset applies it).
 
-Not ported, and raising: `use_audio_input` (ROADMAP Queue 1 item 5).
+The config's `use_audio_input` (reference data_cfg.py:116-119, the CTC
+fine-tune's) gives the raw waveform as the source, [T, 1], with no feature
+transform, and the item's own target (JAX s2s_dataset.py:107-125).
 """
 
 from __future__ import annotations
@@ -52,7 +54,6 @@ from diffnorm_tpu_torch.data.manifest import read_translation_manifest
 from diffnorm_tpu_torch.data.multitask import collate_text_targets
 
 PAD = 1
-UNPORTED_CONFIG = ("use_audio_input",)
 
 
 class SpeechToUnitDataset:
@@ -68,9 +69,6 @@ class SpeechToUnitDataset:
         self.tgt_units = tgt_units
         self.data_cfg = data_cfg or {}
         self.is_train, self.seed = is_train, seed
-        for key in UNPORTED_CONFIG:
-            if self.data_cfg.get(key):
-                raise NotImplementedError(f"{key} is not ported (ROADMAP Queue 1 item 5)")
         self.feature_transforms = build_feature_transforms(self.data_cfg, is_train)
         self.dataset_transforms = build_dataset_transforms(self.data_cfg, is_train)
         self._rng = np.random.default_rng(seed)  # ConcatAugment's and SpecAugment's draws
@@ -103,9 +101,19 @@ class SpeechToUnitDataset:
         concat = get_transform(self.dataset_transforms, ConcatAugment)
         if concat is not None:
             indices = concat.find_indices(index, self.src_n_frames, len(self), rng=self._rng)
+        raw_audio = bool(self.data_cfg.get("use_audio_input", False))
         feat = np.concatenate([
-            np.asarray(get_features_or_waveform(self.src_audio_paths[i]), dtype=np.float32)
+            np.asarray(get_features_or_waveform(self.src_audio_paths[i], need_waveform=raw_audio),
+                       dtype=np.float32)
             for i in indices], axis=0)
+        if raw_audio:
+            sample = {"index": index, "source": feat[:, None] if feat.ndim == 1 else feat}
+            if self.tgt_units is not None:
+                sample["target"] = self.tgt_units[index]
+            if self.tgt_speakers is not None:
+                sample["tgt_speaker"] = np.asarray(
+                    get_features_or_waveform(self.tgt_speakers[index]), np.float32).reshape(-1)
+            return sample
         for t in self.feature_transforms:
             feat = t(feat, rng=self._rng) if isinstance(t, SpecAugment) else t(feat)
         sample = {"index": index, "source": feat}

@@ -6,12 +6,16 @@ speech-to-spectrogram training (s2spect, Translatotron2), text-to-speech
 machine translation (the AR transformer, the text CMLM, the Levenshtein
 transformer, each with its in-process dummy task), SEDD and the unit LM
 (`sedd`, `sedd_lm`, `unit_lm` and its alias `language_modeling`, with the
-in-process `dummy_sedd`, `dummy_unit_lm` and its alias `dummy_lm`). fairseq's
+in-process `dummy_sedd`, `dummy_unit_lm` and its alias `dummy_lm`), and
+wav2vec2 and HuBERT pretraining and the CTC fine-tune (`audio_pretraining`,
+`hubert_pretraining`, `audio_finetuning`, with the in-process
+`dummy_wav2vec2`, `dummy_hubert` and `dummy_ctc`). fairseq's
 "speech_to_speech" is not a task here: cli.train's `check_args` sends it to
 the AR S2UT task with --target-is-code and otherwise to the spectrogram
 task (JAX tasks/aliases.py:25-40)."""
 
 from diffnorm_tpu_torch.tasks.ar_s2ut_task import ARS2UTTask
+from diffnorm_tpu_torch.tasks.audio_pretrain_task import AudioPretrainingTask, DummyWav2Vec2Task
 from diffnorm_tpu_torch.tasks.cmlm_cg_task import CMLMCGTask, DummyCMLMCGTask
 from diffnorm_tpu_torch.tasks.diffusion_task import (
     HubertVAETask,
@@ -19,10 +23,16 @@ from diffnorm_tpu_torch.tasks.diffusion_task import (
     SpeechDiffusionHubertTask,
     SpeechDiffusionTask,
 )
+from diffnorm_tpu_torch.tasks.hubert_pretrain_task import DummyHubertTask, HubertPretrainingTask
 from diffnorm_tpu_torch.tasks.levenshtein_task import DummyLevenshteinTask, LevenshteinTask
 from diffnorm_tpu_torch.tasks.nar_s2ut_task import NARS2UTTask
 from diffnorm_tpu_torch.tasks.s2spect_task import DummyS2SpectTask, S2SpectTask
-from diffnorm_tpu_torch.tasks.s2t_task import DummyS2TTask, S2TTask
+from diffnorm_tpu_torch.tasks.s2t_task import (
+    AudioFinetuningTask,
+    DummyCTCTask,
+    DummyS2TTask,
+    S2TTask,
+)
 from diffnorm_tpu_torch.tasks.sedd_task import DummySEDDTask, SEDDTask
 from diffnorm_tpu_torch.tasks.translation_task import DummyTranslationTask, TranslationTask
 from diffnorm_tpu_torch.tasks.tts_task import DummyTTSTask, TextToSpeechTask
@@ -53,4 +63,10 @@ TASKS = {"speech_decoder": SpeechDecoderTask,
          "unit_lm": SEDDTask,
          "language_modeling": SEDDTask,
          "dummy_unit_lm": DummySEDDTask,
-         "dummy_lm": DummySEDDTask}
+         "dummy_lm": DummySEDDTask,
+         "hubert_pretraining": HubertPretrainingTask,
+         "dummy_hubert": DummyHubertTask,
+         "audio_pretraining": AudioPretrainingTask,
+         "dummy_wav2vec2": DummyWav2Vec2Task,
+         "audio_finetuning": AudioFinetuningTask,
+         "dummy_ctc": DummyCTCTask}

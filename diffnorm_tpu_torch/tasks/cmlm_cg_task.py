@@ -170,14 +170,15 @@ class CMLMCGTask(NARS2UTTask):
                                    "target": tgt}, rng)
 
 
-def dummy_dataset(task, default_len: int) -> list:
+def dummy_dataset(task, default_len: int, default_batch: int = 4, default_size: int = 8) -> list:
     """`dataset_size` copies of the task's `dummy_batch(batch_size,
     tokens_per_sample)` (JAX's _SyntheticDataset, whose batches are all
-    drawn from a generator seeded 0), as a list."""
+    drawn from a generator seeded 0), as a list; the defaults are the JAX
+    dummy task's."""
     a = task.args
-    batch = task.dummy_batch(getattr(a, "batch_size", None) or 4,
+    batch = task.dummy_batch(getattr(a, "batch_size", None) or default_batch,
                              getattr(a, "tokens_per_sample", None) or default_len)
-    return [batch] * (getattr(a, "dataset_size", None) or 8)
+    return [batch] * (getattr(a, "dataset_size", None) or default_size)
 
 
 class DummyCMLMCGTask(CMLMCGTask):

@@ -601,7 +601,7 @@ def build_optimizer(cfg: Mapping, schedule, params: Sequence[torch.Tensor],
                          + (" (bmuf is not ported)" if name == "bmuf" else ""))
     if cfg.get("use_bmuf") or cfg.get("ddp_backend") == "slowmo":
         raise NotImplementedError("BMUF (--use-bmuf, --ddp-backend slowmo) is not ported "
-                                  "(ROADMAP Queue 1 item 5)")
+                                  "(ROADMAP Queue 1 item 8, parallelism)")
     if getattr(schedule, "host_driven", False):
         if name == "nag":
             raise ValueError("nag's lr-corrected momentum needs the schedule inside the "

@@ -72,7 +72,8 @@ BATCH_KEYS = ("reduce_target", "reduce_target_unit", "reduce_target_lengths",
               "ctc_target", "multitask", "prompt", "prompt_mask", "feat_tgt", "tgt_lengths",
               "prev_feats", "tgt_mask", "durations", "pitches", "energies", "prev_del",
               "prev_kept", "prev_ins", "del_target", "ins_target", "ins_valid", "target_unit",
-              "target_lengths", "inject_mask_u")
+              "target_lengths", "inject_mask_u", "mask_indices", "masked_pos", "masked_valid",
+              "neg_idxs", "gumbel_temp", "channel_mask")
 GRAD_ACCUM = ("mean_loss", "sum_loss", "mean_loss_per_batch")
 GENERATORS = ("generator", "cg_generator", "sp_generator")
 

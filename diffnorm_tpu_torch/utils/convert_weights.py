@@ -1,9 +1,10 @@
 """fairseq torch checkpoint -> the port's weights tree.
 
 The port's copy of diffnorm_tpu/utils/convert_weights.py for the families
-the port runs: HuBERT, the code-HiFi-GAN, the DiffNorm speech VAE and latent
-normalizer, the NAR S2UT conformer, the GAN discriminators and the S2T
-transformer encoder (a function, no CLI type, as in JAX), with the
+the port runs: HuBERT (the encoder, the CTC fine-tune, HuBERT's and
+wav2vec2's pretraining models, and the --w2v-path warm start), the
+code-HiFi-GAN, the DiffNorm speech VAE and latent normalizer, the NAR S2UT
+conformer, the GAN discriminators and the S2T transformer encoder (a function, no CLI type, as in JAX), with the
 key-inventory audit. Each converter returns the flax-path tree JAX's
 converter returns (float32 numpy arrays), which `weights.from_jax_variables`
 loads, so the port's module paths stay flax paths. Layout rules:
@@ -177,6 +178,113 @@ def torch_layer_count(sd: Dict) -> int:
         if m:
             n = max(n, int(m.group(1)))
     return n + 1
+
+
+def convert_hubert_ctc_checkpoint(path: str, layers: int = 12) -> Dict:
+    """A fairseq CTC fine-tune checkpoint (hubert_asr.py HubertCtc:
+    `w2v_encoder.w2v_model.*` and `w2v_encoder.proj`) -> {"params":
+    HubertCTCModule tree} (JAX convert_weights.py:152-171), with
+    `mask_emb` where the checkpoint has one."""
+    return convert_hubert_ctc_state(load_torch_state(path), layers=layers)
+
+
+def convert_hubert_ctc_state(sd: Dict, layers: int = 12) -> Dict:
+    sd = {k.removeprefix("w2v_encoder."): v for k, v in sd.items()}
+    inner = {k.removeprefix("w2v_model."): v for k, v in sd.items()
+             if k.startswith("w2v_model.")}
+    params = {"w2v_model": convert_hubert_state(inner, layers=layers)["params"],
+              "proj": _dense(sd, "proj")}
+    if "w2v_model.mask_emb" in sd:
+        params["mask_emb"] = _t(sd["w2v_model.mask_emb"])
+    return {"params": params}
+
+
+def convert_hubert_pretrain_state(sd: Dict, layers: int = 12) -> Dict:
+    """A fairseq HubertModel pretraining state dict -> {"params":
+    HubertPretrainModule tree}: the backbone, mask_emb, final_proj and
+    label_embs_concat (JAX :174-189)."""
+    backbone = {k: v for k, v in sd.items()
+                if k not in ("mask_emb", "label_embs_concat") and not k.startswith("final_proj.")}
+    return {"params": {"encoder": convert_hubert_state(backbone, layers=layers)["params"],
+                       "mask_emb": _t(sd["mask_emb"]), "final_proj": _dense(sd, "final_proj"),
+                       "label_embs_concat": _t(sd["label_embs_concat"])}}
+
+
+W2V_HEADS = ("mask_emb", "quantizer.vars", "quantizer.weight_proj.weight",
+             "quantizer.weight_proj.bias", "project_q.weight", "project_q.bias",
+             "final_proj.weight", "final_proj.bias")
+
+
+def convert_wav2vec2_pretrain_state(sd: Dict, layers: int = 12) -> Dict:
+    """A fairseq Wav2Vec2Model pretraining state dict -> {"params":
+    Wav2Vec2PretrainModule tree}: the backbone, mask_emb, the quantizer,
+    project_q and final_proj (JAX :192-215)."""
+    backbone = {k: v for k, v in sd.items() if k not in W2V_HEADS}
+    return {"params": {
+        "encoder": convert_hubert_state(backbone, layers=layers)["params"],
+        "mask_emb": _t(sd["mask_emb"]),
+        "quantizer": {"vars": _t(sd["quantizer.vars"]),
+                      "weight_proj": _dense(sd, "quantizer.weight_proj")},
+        "project_q": _dense(sd, "project_q"), "final_proj": _dense(sd, "final_proj")}}
+
+
+def load_pretrained_encoder(path: str, layers: int = 12):
+    """fairseq --w2v-path (hubert_asr.py:334-368; JAX :240-280): (the
+    encoder's params tree, mask_emb or None) of a pretraining checkpoint: a
+    fairseq .pt (a Wav2Vec2Model or HubertModel state dict, or a bare
+    backbone), or a step directory (or .npz) of the port's
+    hubert_pretraining / audio_pretraining runs, which holds the tree under
+    "encoder". A .pt of another depth than `layers` raises."""
+    import os
+
+    if os.path.isdir(path) or path.endswith(".npz"):
+        from diffnorm_tpu_torch.train.checkpoint import load_params
+
+        params = load_params(path)
+        if "encoder" not in params:
+            raise ValueError(f"no 'encoder' subtree in pretraining checkpoint {path}; "
+                             f"top-level keys: {sorted(params)}")
+        return params["encoder"], params.get("mask_emb")
+    sd = load_torch_state(path)
+    ckpt_layers = torch_layer_count(sd)
+    if ckpt_layers and ckpt_layers != layers:
+        raise ValueError(f"{path} has {ckpt_layers} transformer layers but the fine-tune "
+                         f"model is configured with encoder_layers={layers}")
+    mask_emb = _t(sd["mask_emb"]) if "mask_emb" in sd else None
+    if any(k.startswith("quantizer.") for k in sd):
+        enc = convert_wav2vec2_pretrain_state(sd, layers=layers)["params"]["encoder"]
+    elif "label_embs_concat" in sd:
+        enc = convert_hubert_pretrain_state(sd, layers=layers)["params"]["encoder"]
+    else:
+        enc = convert_hubert_state(sd, layers=layers)["params"]
+    return enc, mask_emb
+
+
+def _shapes(tree: Mapping) -> Dict:
+    return {k: tuple(np.shape(v)) for k, v in flatten_tree(tree).items()}
+
+
+def graft_encoder_params(variables: Dict, encoder_params: Dict, name: str = "w2v_model",
+                         mask_emb=None) -> Dict:
+    """`variables` with params[name] replaced by `encoder_params`, whose
+    tree and shapes must match (else a ValueError shows both); a model
+    `mask_emb` (the fine-tune's time mask) takes the checkpoint's where it
+    has one (JAX :283-311)."""
+    target = variables["params"].get(name)
+    if target is None:
+        raise ValueError(f"model has no '{name}' subtree; keys: {sorted(variables['params'])}")
+    if _shapes(target) != _shapes(encoder_params):
+        raise ValueError("pretrained encoder does not match the fine-tune model (check "
+                         "encoder dims/conv spec/layers/--extractor-mode/--conv-bias):\n"
+                         f"model:  {_shapes(target)}\nckpt:   {_shapes(encoder_params)}")
+    params = dict(variables["params"])
+    params[name] = encoder_params
+    if mask_emb is not None and "mask_emb" in params:
+        if np.shape(params["mask_emb"]) != np.shape(mask_emb):
+            raise ValueError(f"mask_emb shape mismatch: model {np.shape(params['mask_emb'])} "
+                             f"vs ckpt {np.shape(mask_emb)}")
+        params["mask_emb"] = mask_emb
+    return {**variables, "params": params}
 
 
 # ------------------------------------------- DiffNorm VAE / latent normalizer
@@ -564,6 +672,10 @@ def conversion_inventory(sd: Dict, converted: Mapping,
 EXPECTED_UNCONSUMED = {
     # the inference encoder drops the masked-prediction head and target embeddings
     "hubert": ("label_embs_concat", "final_proj.", "mask_emb"),
+    # the CTC fine-tune keeps the backbone (and a mask_emb); its pretraining
+    # heads stay behind
+    "hubert_ctc": ("w2v_encoder.w2v_model.label_embs_concat",
+                   "w2v_encoder.w2v_model.final_proj."),
     "vae": (),
     "diffusion": (),
     "nar": (),

@@ -33,6 +33,7 @@ from diffnorm_tpu_torch.tasks.ar_s2ut_task import shift_right
 from diffnorm_tpu_torch.weights import from_jax_params, from_jax_variables, to_jax_variables
 from tests.test_torch_multitask import _assert_batches_equal, _nested_torch
 from tests.test_torch_nar_train import FWD_TOL, GRAD_TOL, _assert_trees_close, _perturb
+from tests.torch_threads import torch_threads_per_worker  # noqa: F401 (autouse)
 
 PAD, EOS = 1, 2
 CODES = 16

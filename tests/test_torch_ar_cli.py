@@ -20,6 +20,7 @@ from diffnorm_tpu_torch.train.checkpoint import load_variables
 from diffnorm_tpu_torch.weights import save_npz
 from tests.test_torch_eval import _assert_generate_files_agree, _generate_lines
 from tests.test_torch_nar_train import _perturb
+from tests.torch_threads import torch_threads_per_worker  # noqa: F401 (autouse)
 
 WIDTHS = dict(encoder_embed_dim=32, encoder_ffn_embed_dim=64, encoder_layers=1,
               encoder_attention_heads=2, decoder_embed_dim=32, decoder_ffn_embed_dim=64,
@@ -174,7 +175,7 @@ def test_cli_refusals(tmp_path):
     gen = [str(tmp_path), "--cpu", "--path", "ar.npz", "--task", "speech_to_speech_ar"]
     with pytest.raises(SystemExit):
         generate.parse_args(gen + ["--quant-int8"])
-    with pytest.raises(NotImplementedError, match="item 5"):  # UnitY is ported since
+    with pytest.raises(NotImplementedError, match="item 6"):  # UnitY is ported since
         generate.parse_args(gen + ["--arch", "fastspeech2"])
     args = generate.parse_args(gen + ["--arch", "s2ut_conformer", "--encoder-embed-dim", "64"])
     assert (args.encoder_embed_dim, args.decoder_embed_dim, args.encoder_layers) == (64, 512, 12)

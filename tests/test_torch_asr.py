@@ -20,6 +20,7 @@ from diffnorm_tpu_torch.models.wav2vec2_ctc import (
     read_safetensors,
 )
 from tests.helpers import CTC_VOCAB, make_tiny_ctc_checkpoint, write_wav16
+from tests.torch_threads import torch_threads_per_worker  # noqa: F401 (autouse)
 
 transformers = pytest.importorskip("transformers")
 

@@ -21,6 +21,7 @@ from diffnorm_tpu_torch.data.iterators import EpochBatchIterator
 from tests.helpers import write_wav16
 from tests.test_torch_s2s_train_data import CONFIG, _datasets, write_corpus
 from tests.test_torch_vocoder_train import _write_corpus
+from tests.torch_threads import torch_threads_per_worker  # noqa: F401 (autouse)
 
 SR = 16000
 

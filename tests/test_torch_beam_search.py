@@ -24,6 +24,7 @@ from diffnorm_tpu_torch.generate import beam_search
 from diffnorm_tpu_torch.generate.mask_predict import ar_rerank_scores, mask_predict_decode
 from tests.test_torch_ar import jax_model, prepared, write_ar_corpus, ar_tasks
 from tests.test_torch_nar_train import NAR, _batch, _port, _perturb
+from tests.torch_threads import torch_threads_per_worker  # noqa: F401 (autouse)
 
 PAD, BOS, EOS, UNK = 1, 0, 2, 3
 V, L, B = 16, 9, 3

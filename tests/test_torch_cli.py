@@ -21,6 +21,7 @@ from diffnorm_tpu.models.wavenet import Wavenet as JWavenet
 from diffnorm_tpu.ops.unit_reduce import reduce_units
 from diffnorm_tpu_torch.cli import diff_norm_synthesis
 from diffnorm_tpu_torch.weights import save_npz
+from tests.torch_threads import torch_threads_per_worker  # noqa: F401 (autouse)
 
 TINY = dict(hidden_dim=16, latent_dim=3, feature_dim=24, chan_mults=[4],
             vae_decoder_depth=1, vae_decoder_dim_head=8, vae_decoder_heads=2,

@@ -23,6 +23,7 @@ from diffnorm_tpu_torch.tasks import TASKS
 from diffnorm_tpu_torch.train.trainer import Trainer, TrainerConfig
 from diffnorm_tpu_torch.weights import from_jax_params
 from tests.test_torch_train import CODES, FEAT, LATENT, _write_corpus
+from tests.torch_threads import torch_threads_per_worker  # noqa: F401 (autouse)
 
 _import_all()
 B, T = 2, 9

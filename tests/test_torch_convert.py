@@ -35,6 +35,7 @@ from diffnorm_tpu_torch.models.vae import SpeechVAEModule
 from diffnorm_tpu_torch.train.checkpoint import load_variables
 from diffnorm_tpu_torch.utils import convert_weights as cw
 from diffnorm_tpu_torch.weights import flatten_tree, from_jax_variables, save_npz
+from tests.torch_threads import torch_threads_per_worker  # noqa: F401 (autouse)
 
 REPO = Path(__file__).resolve().parent.parent
 VAE_W = dict(feature_dim=24, latent_dim=3, vocab_size=20, decoder_depth=1,
@@ -279,9 +280,29 @@ def test_cli_convert_hifigan_and_hubert(tmp_path, family, capsys):
 @pytest.mark.parametrize("case", ["prompt_conditioned", "stacked_units", "hubert_ctc"])
 def test_unported_layouts_raise_naming_their_roadmap_item(tmp_path, case):
     if case == "hubert_ctc":
-        with pytest.raises(NotImplementedError, match="Queue 1 item 5"):
-            convert_checkpoint.main(["--type", "hubert_ctc", "--input", "absent.pt",
-                                     "--output", str(tmp_path / "out")])
+        # ported since: the CLI's tree equals JAX's converter's bit for bit,
+        # passes the audit (the pretraining heads left behind) and loads
+        # into HubertCTCModule
+        from diffnorm_tpu_torch.models.hubert import HubertCTCModule
+        from diffnorm_tpu_torch.weights import from_jax_variables as load_into
+        from tests.test_torch_prepare import SMALL as PREP_SMALL
+        from tests.test_torch_prepare import fairseq_state_dict as hubert_state
+
+        sd = {f"w2v_encoder.w2v_model.{k}": v for k, v in hubert_state(3).items()}
+        sd["w2v_encoder.w2v_model.label_embs_concat"] = torch.zeros(12, 16)
+        sd["w2v_encoder.proj.weight"] = torch.randn(9, 64,
+                                                   generator=torch.Generator().manual_seed(0))
+        sd["w2v_encoder.proj.bias"] = torch.zeros(9)
+        torch.save(chip_smoke.fairseq_envelope(torch, sd), tmp_path / "ctc.pt")
+        out = tmp_path / "out"
+        assert convert_checkpoint.main(["--type", "hubert_ctc", "--input",
+                                        str(tmp_path / "ctc.pt"), "--output", str(out)]) == 0
+        got = _flat(load_variables(str(out)))
+        want = _flat(jcw.convert_hubert_ctc_checkpoint(str(tmp_path / "ctc.pt"), layers=2))
+        assert sorted(got) == sorted(want) and "proj/kernel" in "".join(got)
+        for k, v in want.items():
+            np.testing.assert_array_equal(got[k], v, err_msg=k)
+        load_into(HubertCTCModule(9, **PREP_SMALL), load_variables(str(out)))
         return
     if case == "prompt_conditioned":
         # ported since: the map equals JAX's bit for bit and passes the audit

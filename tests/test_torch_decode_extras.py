@@ -35,6 +35,7 @@ from tests.test_torch_eval import (  # noqa: F401
 from tests.test_torch_nar_train import _batch
 from tests.test_torch_s2st import _perturb
 from tests.test_torch_stacked import NAR1, VOCAB, _stacked_batch
+from tests.torch_threads import torch_threads_per_worker  # noqa: F401 (autouse)
 
 SCORE_TOL = 1e-5
 SPK_DIM = 8

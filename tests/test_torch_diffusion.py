@@ -13,6 +13,7 @@ from diffnorm_tpu.models.diffusion import LatentDiffusionModel
 from diffnorm_tpu.models.diffusion import ddim_sample as jax_ddim_sample
 from diffnorm_tpu_torch.models.diffusion import LatentDiffusionModule, ddim_sample
 from diffnorm_tpu_torch.weights import from_jax_params
+from tests.torch_threads import torch_threads_per_worker  # noqa: F401 (autouse)
 
 # the shape of tests/test_diffusion.py's tiny config
 TINY = dict(hidden_dim=16, latent_dim=3, feature_dim=24, chan_mults=[4],

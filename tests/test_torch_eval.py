@@ -27,6 +27,7 @@ from diffnorm_tpu_torch.generate.mask_predict import mask_predict_decode
 from diffnorm_tpu_torch.models.nar_transformer import NARS2UTModule
 from diffnorm_tpu_torch.weights import from_jax_variables, save_npz
 from tests.test_torch_s2st import NAR, NAR_CFG, VOCAB, _perturb, _src
+from tests.torch_threads import torch_threads_per_worker  # noqa: F401 (autouse)
 
 
 def _unit_pairs(seed, n=24):
@@ -256,12 +257,13 @@ def test_cli_generate_refuses_unported_flags_and_missing_ids(generate_corpus, tm
 
     base = [str(generate_corpus), "--cpu", "--path", str(generate_corpus / "nar.npz")]
     # --task speech_to_speech (tests/test_torch_twopass_cli.py),
-    # text_to_speech (tests/test_torch_tts_s2t_cli.py) and translation
-    # (tests/test_torch_text_cli.py) are ported since
-    for extra, match in ((["--task", "audio_finetuning"], "item 5"),
-                         (["--arch", "s2ut_conformer"], "item 5")):
-        with pytest.raises(NotImplementedError, match=match):
-            generate.parse_args(base + extra)
+    # text_to_speech (tests/test_torch_tts_s2t_cli.py), translation
+    # (tests/test_torch_text_cli.py) and audio_finetuning
+    # (tests/test_torch_ctc_finetune.py) are ported since
+    args = generate.parse_args(base + ["--task", "audio_finetuning"])
+    assert (args.arch, args.model.criterion) == ("hubert_ctc", "ctc")
+    with pytest.raises(NotImplementedError, match="item 6"):
+        generate.parse_args(base + ["--arch", "s2ut_conformer"])
     # ported since: the history, the chunked decode, ensembles and the AR
     # reranker parse (tests/test_torch_decode_extras.py and
     # tests/test_torch_ar_cli.py hold them to JAX's CLI)

@@ -18,6 +18,7 @@ from diffnorm_tpu_torch.ops.flash_attention import (
     flash_attention_plain_split,
     split_plan,
 )
+from tests.torch_threads import torch_threads_per_worker  # noqa: F401 (autouse)
 
 
 def _inputs(seed, b, h, tq, tk, d, lengths):

@@ -31,6 +31,7 @@ from diffnorm_tpu_torch.ops import norm as norm_ops
 from diffnorm_tpu_torch.ops import wavenet_chain as chain_ops
 from diffnorm_tpu_torch.ops.attention import FLASH_MIN_LEN, masked_attention
 from diffnorm_tpu_torch.weights import from_jax_params, to_jax_params
+from tests.torch_threads import torch_threads_per_worker  # noqa: F401 (autouse)
 
 # float32 on both sides: the same function with sums taken in other orders
 GRAD_REL = 1e-4

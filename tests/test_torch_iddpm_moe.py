@@ -25,6 +25,7 @@ from diffnorm_tpu_torch.models import gaussian_diffusion as gd
 from diffnorm_tpu_torch.models import moe
 from diffnorm_tpu_torch.weights import flatten_tree, from_jax_params, to_jax_params
 from tests.test_torch_sedd import _close, _perturbed
+from tests.torch_threads import torch_threads_per_worker  # noqa: F401 (autouse)
 
 TOL = 1e-5
 SHAPE = (3, 5, 4)  # N, T, C

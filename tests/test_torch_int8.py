@@ -25,6 +25,7 @@ from diffnorm_tpu_torch.ops import _build
 from diffnorm_tpu_torch.ops.ffpipe import ffpipe_layer, pack_ff_weights
 from diffnorm_tpu_torch.ops.fused_layer import fused_layer, pack_layer_weights
 from diffnorm_tpu_torch.weights import from_jax_params, to_jax_params
+from tests.torch_threads import torch_threads_per_worker  # noqa: F401 (autouse)
 
 DIM, HEADS, DIM_HEAD, T = 128, 2, 64, 32
 INNER, P = 341, 384

@@ -33,6 +33,7 @@ from diffnorm_tpu_torch.ops.quant import quant_sites, set_static_scales
 from diffnorm_tpu_torch.weights import from_jax_variables, to_jax_variables
 from tests.test_torch_eval import WIDTH_FLAGS, _generate_lines, generate_corpus  # noqa: F401
 from tests.test_torch_s2st import NAR, VOCAB, _perturb, _src, vocoder  # noqa: F401
+from tests.torch_threads import torch_threads_per_worker  # noqa: F401 (autouse)
 
 AGREE = 0.98  # port int8 against JAX int8, share of equal positions
 FLOAT_AGREE = 0.75  # int8 against the float decode (tests/test_variants.py:188)

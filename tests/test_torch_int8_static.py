@@ -29,6 +29,7 @@ from diffnorm_tpu_torch.models.diffusion import (
 from diffnorm_tpu_torch.ops import quant
 from diffnorm_tpu_torch.ops.quant import Int8Knobs
 from diffnorm_tpu_torch.weights import from_jax_variables, save_npz, to_jax_variables
+from tests.torch_threads import torch_threads_per_worker  # noqa: F401 (autouse)
 
 # the configuration of tests/test_variants.py:191-228
 VARIANT = dict(hidden_dim=64, latent_dim=3, feature_dim=24, timesteps=50, vocab_size=52,
@@ -136,17 +137,33 @@ def test_a_site_without_stats_quantizes_dynamically():
     assert site.act_amax.item() == pytest.approx((x * 100).abs().max().item(), rel=1e-6)
 
 
-def _variant_models(knobs: Int8Knobs):
-    """The JAX float and int8 models of tests/test_variants.py with biases
-    made non-zero, and the port's int8 static-route model on those weights."""
+@pytest.fixture(scope="module")
+def variant_init():
+    """JAX's init of the float model of tests/test_variants.py, once for the
+    module (it compiles the whole program; the int8 knobs do not reach the
+    float model)."""
     jf = LatentDiffusionModel.build_model(Config(**VARIANT))
-    jq_model = LatentDiffusionModel.build_model(Config(**VARIANT, quant_int8=True))
-    rng = np.random.default_rng(0)
+    feat, mask = _variant_inputs(np.random.default_rng(0))
+    return jax.device_get(jf.module.init({"params": jax.random.PRNGKey(0)}, feat,
+                                         jnp.asarray(mask), jax.random.PRNGKey(0),
+                                         deterministic=True))
+
+
+def _variant_inputs(rng):
     feat = jnp.asarray(rng.normal(size=(4, 32, 24)), jnp.float32)
     mask = np.ones((4, 32), bool)
     mask[1, 27:] = False
-    v = jf.module.init({"params": jax.random.PRNGKey(0)}, feat, jnp.asarray(mask),
-                       jax.random.PRNGKey(0), deterministic=True)
+    return feat, mask
+
+
+def _variant_models(knobs: Int8Knobs, v):
+    """The JAX float and int8 models of tests/test_variants.py with biases
+    made non-zero on the float model's init `v`, and the port's int8
+    static-route model on those weights."""
+    jf = LatentDiffusionModel.build_model(Config(**VARIANT))
+    jq_model = LatentDiffusionModel.build_model(Config(**VARIANT, quant_int8=True))
+    rng = np.random.default_rng(0)
+    feat, mask = _variant_inputs(rng)
     params = jax.tree_util.tree_map(
         lambda a: (np.asarray(a) + (0.05 * rng.normal(size=a.shape) if a.ndim == 1
                                     else 0.0)).astype(np.float32), v["params"])
@@ -175,7 +192,7 @@ def _jax_draws(key, shape):
 
 
 @pytest.mark.parametrize("convcat", [False, True], ids=["taps", "convcat"])
-def test_calibration_and_static_ddim_match_jax(monkeypatch, convcat):
+def test_calibration_and_static_ddim_match_jax(monkeypatch, variant_init, convcat):
     """calibrate_act_scales on JAX's draws records JAX's quant_stats sites
     (names equal) with the same amax within 1e-6 relative; static
     ddim_sample then agrees with JAX's static ddim_sample within
@@ -183,7 +200,7 @@ def test_calibration_and_static_ddim_match_jax(monkeypatch, convcat):
     knobs = Int8Knobs(wscalar=True, ascalar=True, convcat=convcat)
     _set_jax_knobs(monkeypatch, knobs)
     monkeypatch.delenv("DIFFNORM_PALLAS_WAVENET", raising=False)
-    jf, jmodel, variables, feat, mask, model = _variant_models(knobs)
+    jf, jmodel, variables, feat, mask, model = _variant_models(knobs, variant_init)
     shape = (4, 32, VARIANT["latent_dim"])
 
     v_cal = jax_calibrate(jmodel, variables, feat, mask, jax.random.PRNGKey(3),

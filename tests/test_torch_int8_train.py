@@ -42,6 +42,7 @@ from tests.test_torch_train import (
     _torch_batch,
     _write_corpus,
 )
+from tests.torch_threads import torch_threads_per_worker  # noqa: F401 (autouse)
 
 # per site: the same float products as JAX's in another order, no code
 # differs (measured within 1e-6 of each leaf's scale)

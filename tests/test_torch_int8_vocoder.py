@@ -29,6 +29,7 @@ from diffnorm_tpu_torch.models.hifigan import (
 )
 from diffnorm_tpu_torch.ops import quant as quant_ops
 from diffnorm_tpu_torch.weights import from_jax_params, save_npz, to_jax_variables
+from tests.torch_threads import torch_threads_per_worker  # noqa: F401 (autouse)
 
 # the stages: 32 channels (P = 4) at 2T, 16 (P = 8) at 4T; T = 37 pads both
 GEN = dict(upsample_rates=(2, 2), upsample_kernel_sizes=(4, 4), upsample_initial_channel=64,

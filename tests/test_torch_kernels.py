@@ -18,6 +18,7 @@ from diffnorm_tpu_torch.ops import _build
 from diffnorm_tpu_torch.ops.norm import rms_norm_film, rms_norm_film_plain
 from diffnorm_tpu_torch.ops.wavenet_chain import wavenet_chain
 from diffnorm_tpu_torch.weights import from_jax_params
+from tests.torch_threads import torch_threads_per_worker  # noqa: F401 (autouse)
 
 
 def test_rms_norm_film_matches_pallas_kernel():

@@ -10,6 +10,7 @@ import torch
 import diffnorm_tpu.models.layers as JL
 from diffnorm_tpu_torch.models import layers as TL
 from diffnorm_tpu_torch.weights import from_jax_params
+from tests.torch_threads import torch_threads_per_worker  # noqa: F401 (autouse)
 
 TOL = dict(atol=1e-5, rtol=1e-4)
 

@@ -30,6 +30,7 @@ from tests.test_torch_eval import WIDTH_FLAGS, generate_corpus  # noqa: F401
 from tests.test_torch_train import CODES, FEAT, _cli_args
 from tests.test_torch_vocoder_train import VOCODER_ARGS
 from tests.test_torch_vocoder_train import _write_corpus as _write_vocoder_corpus
+from tests.torch_threads import torch_threads_per_worker  # noqa: F401 (autouse)
 
 
 class Toy:

@@ -43,6 +43,7 @@ from tests.test_torch_nar_train import (
     _torch,
     _trainer_cfg,
 )
+from tests.torch_threads import torch_threads_per_worker  # noqa: F401 (autouse)
 
 PAD, EOS = 1, 2
 CODES = 10

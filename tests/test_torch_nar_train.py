@@ -41,6 +41,7 @@ from diffnorm_tpu_torch.tasks.nar_s2ut_task import random_mask
 from diffnorm_tpu_torch.train.checkpoint import CheckpointManager, load_variables
 from diffnorm_tpu_torch.train.trainer import Trainer, TrainerConfig
 from diffnorm_tpu_torch.weights import from_jax_variables, save_npz, to_jax_variables
+from tests.torch_threads import torch_threads_per_worker  # noqa: F401 (autouse)
 
 CODES = 16
 VOCAB = CODES + 4

@@ -35,6 +35,7 @@ from diffnorm_tpu_torch.train.optimizers import build_optimizer
 from diffnorm_tpu_torch.weights import jax_param_path, leaf_to_torch, to_jax_params
 from tests.test_torch_continuous_tasks import STAGES, _inject_draws, _Injected
 from tests.test_torch_train import CODES, FEAT, _write_corpus
+from tests.torch_threads import torch_threads_per_worker  # noqa: F401 (autouse)
 
 REPO = pathlib.Path(__file__).resolve().parents[1]
 # float32 on both sides, the same update rules in other orders: measured

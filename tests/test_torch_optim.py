@@ -20,6 +20,7 @@ from diffnorm_tpu.train.optimizers import build_optimizer as jbuild_optimizer
 from diffnorm_tpu_torch.train.lr_schedules import build_lr_schedule
 from diffnorm_tpu_torch.train.optimizers import EMA, build_optimizer
 from diffnorm_tpu_torch.weights import flatten_tree, from_jax_params, to_jax_params
+from tests.torch_threads import torch_threads_per_worker  # noqa: F401 (autouse)
 
 STEPS, REL = 10, 1e-6
 

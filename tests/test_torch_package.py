@@ -13,6 +13,8 @@ import numpy as np
 import pytest
 import torch
 
+from tests.torch_threads import torch_threads_per_worker  # noqa: F401 (autouse)
+
 REPO = Path(__file__).resolve().parent.parent
 FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "orbax", "diffnorm_tpu")
 # not installed on the GPU machine: imported, where at all, inside a function
@@ -50,7 +52,11 @@ NEW_MODULES = ("models/stacked.py", "models/ar_transformer.py", "data/encoders.p
                "criterions/levenshtein_loss.py", "cli/preprocess.py", "cli/interactive.py",
                "cli/score.py", "models/sedd.py", "criterions/sedd_loss.py",
                "data/unit_lm_dataset.py", "tasks/sedd_task.py", "models/unit_lm.py",
-               "cli/eval_lm.py", "models/gaussian_diffusion.py", "models/moe.py")
+               "cli/eval_lm.py", "models/gaussian_diffusion.py", "models/moe.py",
+               "utils/masking.py", "models/hubert.py", "models/wav2vec2.py",
+               "data/hubert_dataset.py", "tasks/hubert_pretrain_task.py",
+               "tasks/audio_pretrain_task.py", "criterions/hubert_loss.py",
+               "criterions/wav2vec_loss.py", "criterions/ctc_loss.py", "generate/ctc.py")
 
 
 def test_no_jax_imports_in_the_port():
@@ -138,6 +144,15 @@ def test_port_imports_with_jax_blocked():
             "import diffnorm_tpu_torch.cli.score\n"
             "import diffnorm_tpu_torch.models.sedd\n"
             "import diffnorm_tpu_torch.criterions.sedd_loss\n"
+            "import diffnorm_tpu_torch.utils.masking\n"
+            "import diffnorm_tpu_torch.models.wav2vec2\n"
+            "import diffnorm_tpu_torch.data.hubert_dataset\n"
+            "import diffnorm_tpu_torch.tasks.hubert_pretrain_task\n"
+            "import diffnorm_tpu_torch.tasks.audio_pretrain_task\n"
+            "import diffnorm_tpu_torch.criterions.hubert_loss\n"
+            "import diffnorm_tpu_torch.criterions.wav2vec_loss\n"
+            "import diffnorm_tpu_torch.criterions.ctc_loss\n"
+            "import diffnorm_tpu_torch.generate.ctc\n"
             "import diffnorm_tpu_torch.data.unit_lm_dataset\n"
             "import diffnorm_tpu_torch.tasks.sedd_task\n"
             "import diffnorm_tpu_torch.models.unit_lm\n"

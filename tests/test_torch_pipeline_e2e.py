@@ -33,6 +33,7 @@ import yaml
 
 import chip_smoke
 from tests.test_pipeline_e2e import CODE_SIZE, FEAT_DIM, synth_data
+from tests.torch_threads import torch_threads_per_worker  # noqa: F401 (autouse)
 
 REPO = Path(__file__).resolve().parent.parent
 VAE_WIDTHS = ["--feature-dim", str(FEAT_DIM), "--latent-dim", "3", "--chan-mults", "[4]",

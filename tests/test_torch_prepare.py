@@ -33,6 +33,7 @@ from diffnorm_tpu_torch.models.hubert import (
 )
 from diffnorm_tpu_torch.utils.convert_weights import convert_hubert_state
 from diffnorm_tpu_torch.weights import from_jax_params, to_jax_params
+from tests.torch_threads import torch_threads_per_worker  # noqa: F401 (autouse)
 
 SPEC = ((32, 10, 5), (32, 3, 2), (32, 2, 2))
 SMALL = dict(dim=64, layers=2, heads=2, ffn_dim=128, conv_feature_layers=SPEC)
@@ -125,13 +126,31 @@ def test_frame_counts_match_jax():
 
 
 def test_pretraining_hooks_raise():
-    with pytest.raises(NotImplementedError, match="layerdrop"):
-        HubertEncoder(**SMALL, layerdrop=0.05)
-    with pytest.raises(NotImplementedError, match="feature_grad_mult"):
-        HubertEncoder(**SMALL, feature_grad_mult=0.1)
-    model = HubertEncoder(**SMALL)
-    with pytest.raises(NotImplementedError, match="mask_indices"):
-        model(torch.zeros(1, N_SAMPLES), mask_indices=torch.zeros(1, 199, dtype=torch.bool))
+    """Ported since: the training knobs build and leave the eval forward as
+    it was (LayerDrop and feature_grad_mult act in training alone), and the
+    hooks (mask_indices with mask_emb, channel_mask) give JAX's output
+    within 1e-5; tests/test_torch_hubert_pretrain.py holds the training
+    path to JAX."""
+    kw, params, model = _small_models("default", False)
+    knobs = from_jax_params(HubertEncoder(**kw, layerdrop=0.05, feature_grad_mult=0.1),
+                            params).eval()
+    wav, mask = _wav_and_mask()
+    frames = mask.shape[1]
+    spans = torch.zeros(2, frames, dtype=torch.bool)
+    spans[0, 10:20], spans[1, 3:9] = True, True
+    channels = torch.zeros(2, 64, dtype=torch.bool)
+    channels[1, 5:12] = True
+    emb = torch.from_numpy(np.random.default_rng(2).uniform(size=64).astype(np.float32))
+    ref = np.asarray(JHubertEncoder(**kw).apply(
+        {"params": params}, jnp.asarray(wav), mask=jnp.asarray(mask.numpy()),
+        mask_indices=jnp.asarray(spans.numpy()), mask_emb=jnp.asarray(emb.numpy()),
+        channel_mask=jnp.asarray(channels.numpy())))
+    with torch.no_grad():
+        assert torch.equal(knobs(torch.from_numpy(wav), mask=mask),
+                           model(torch.from_numpy(wav), mask=mask))
+        got = knobs(torch.from_numpy(wav), mask=mask, mask_indices=spans, mask_emb=emb,
+                    channel_mask=channels).numpy()
+    np.testing.assert_allclose(got, ref, atol=1e-5, rtol=0)
 
 
 # ------------------------------------------------------------ fairseq map

@@ -25,6 +25,7 @@ from diffnorm_tpu_torch.models.diffusion import (
 from diffnorm_tpu_torch.models.layers import ConditionableTransformer
 from diffnorm_tpu_torch.utils import convert_weights as cw
 from diffnorm_tpu_torch.weights import flatten_tree, from_jax_params
+from tests.torch_threads import torch_threads_per_worker  # noqa: F401 (autouse)
 
 RTOL, ATOL = 1e-4, 1e-5  # tests/test_prompt_cond.py
 DECODED_TOL = 1e-3  # decoded features, tests/test_convert_vae_diffusion.py:385-390

@@ -16,6 +16,7 @@ from diffnorm_tpu_torch.ops import quant
 from diffnorm_tpu_torch.ops.ffpipe import pack_ff_weights
 from diffnorm_tpu_torch.ops.fused_layer import pack_layer_weights
 from diffnorm_tpu_torch.weights import from_jax_params
+from tests.torch_threads import torch_threads_per_worker  # noqa: F401 (autouse)
 
 DIM, HEADS, DIM_HEAD = 128, 2, 64
 INNER = int(DIM * 4 * 2 / 3)  # 341 -> P = 384

@@ -44,6 +44,7 @@ from tests.test_torch_nar_train import (
     _torch,
     _trainer_cfg,
 )
+from tests.torch_threads import torch_threads_per_worker  # noqa: F401 (autouse)
 
 DROPOUT = dict(dropout=0.1, attention_dropout=0.1, activation_dropout=0.1)
 

@@ -26,6 +26,7 @@ from diffnorm_tpu_torch.train.gan_trainer import GanTrainer
 from diffnorm_tpu_torch.weights import from_jax_params, load_npz
 from tests.helpers import write_wav16
 from tests.test_torch_vocoder_train import MEL, VOCODER_ARGS
+from tests.torch_threads import torch_threads_per_worker  # noqa: F401 (autouse)
 
 FEAT_DIM = 24
 GEN = dict(feature_dim=FEAT_DIM, embedding_dim=8, upsample_rates=(4, 2),

@@ -24,6 +24,7 @@ from diffnorm_tpu_torch.data.iterators import EpochBatchIterator
 from diffnorm_tpu_torch.data.manifest import write_translation_manifest
 from diffnorm_tpu_torch.data.s2s_dataset import SpeechToUnitDataset
 from diffnorm_tpu_torch.tasks import nar_s2ut_task
+from tests.torch_threads import torch_threads_per_worker  # noqa: F401 (autouse)
 
 CODES, SR = 16, 16000
 SPEC = {"freq_mask_N": 2, "freq_mask_F": 10, "time_mask_N": 2, "time_mask_T": 12,
@@ -205,21 +206,26 @@ def test_dataset_items_and_batches_match_jax(tmp_path, split, is_train):
 
 
 def test_dataset_raises_for_what_is_not_ported(tmp_path):
-    """use_audio_input raises, naming its ROADMAP item; the dataset
-    transforms, ported since, build what the config names
+    """use_audio_input, ported since, gives the waveforms as [T, 1] sources
+    with no feature transform, batches equal to JAX's bit for bit; the
+    dataset transforms, ported since, build what the config names
     (tests/test_torch_augment.py holds them to JAX's)."""
     from diffnorm_tpu_torch.data.augment import ConcatAugment, NoisyOverlapAugment
 
-    for cfg, built in (({"use_audio_input": True}, None),
+    for cfg, built in (({"use_audio_input": True, **CONFIG}, None),
                        ({"dataset_transforms": {"_train": ["concataugment"]}}, ConcatAugment),
                        ({"dataset_transforms": {"*": ["noisyoverlapaugment"]},
                          "noisyoverlapaugment": {"mixing_noise_rate": 0.0}},
                         NoisyOverlapAugment)):
         write_corpus(tmp_path, n=2, config=cfg)
         if built is None:
-            with pytest.raises(NotImplementedError, match="item 5"):
-                SpeechToUnitDataset.from_tsv(str(tmp_path), "train", Dictionary(CODES),
-                                             is_train=True)
+            write_corpus(tmp_path, n=4, config=cfg)
+            jds, tds = _datasets(tmp_path, "train", is_train=True)
+            want = jds.collater([jds[0], jds[2]])  # two .wav sources
+            got = tds.collater([tds[0], tds[2]])
+            assert got["src_tokens"].shape[2] == 1 and sorted(got) == sorted(want)
+            for key, value in want.items():
+                np.testing.assert_array_equal(got[key], value, err_msg=key)
             continue
         ds = SpeechToUnitDataset.from_tsv(str(tmp_path), "train", Dictionary(CODES),
                                           is_train=True)

@@ -56,6 +56,7 @@ from tests.test_torch_nar_train import (
     _flat,
     _perturb,
 )
+from tests.torch_threads import torch_threads_per_worker  # noqa: F401 (autouse)
 
 PAD, EOS = 1, 2
 MEL = 6

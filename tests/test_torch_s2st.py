@@ -39,6 +39,7 @@ from diffnorm_tpu_torch.weights import (
     save_npz,
     to_jax_variables,
 )
+from tests.torch_threads import torch_threads_per_worker  # noqa: F401 (autouse)
 
 NAR = dict(encoder_dim=32, encoder_ffn_dim=64, encoder_layers=2, encoder_heads=2,
            decoder_dim=32, decoder_ffn_dim=64, decoder_layers=2, decoder_heads=2,

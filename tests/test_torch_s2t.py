@@ -34,6 +34,7 @@ from diffnorm_tpu_torch.weights import flatten_tree, from_jax_variables
 from tests.test_torch_multitask import _assert_batches_equal, _nested_torch
 from tests.test_torch_nar_train import FWD_TOL
 from tests.test_torch_tts import seeded_variables
+from tests.torch_threads import torch_threads_per_worker  # noqa: F401 (autouse)
 
 PAD, EOS = 1, 2
 WORDS = [f"w{k}" for k in range(10)]

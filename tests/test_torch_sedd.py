@@ -32,6 +32,7 @@ from diffnorm_tpu_torch.models import sedd
 from diffnorm_tpu_torch.models.unit_lm import UnitLMModule
 from diffnorm_tpu_torch.tasks import TASKS
 from diffnorm_tpu_torch.weights import flatten_tree, from_jax_variables, to_jax_variables
+from tests.torch_threads import torch_threads_per_worker  # noqa: F401 (autouse)
 
 MATH_TOL, FWD_TOL = 1e-6, 1e-5
 CODES = 12  # units; the vocabulary is CODES + 4, MASK one more

@@ -43,6 +43,7 @@ from diffnorm_tpu_torch.weights import from_jax_variables
 from tests.test_torch_eval import _assert_generate_files_agree, _generate_lines
 from tests.test_torch_nar_train import TRAJ_RTOL, _trainer_cfg
 from tests.test_torch_s2st import NAR, VOC, VOCAB, _perturb, _src
+from tests.torch_threads import torch_threads_per_worker  # noqa: F401 (autouse)
 
 SPK_DIM = 16
 FWD_TOL = 1e-5  # float32, the same sums in other orders

@@ -32,6 +32,7 @@ from diffnorm_tpu_torch.models.stacked import (
 from diffnorm_tpu_torch.tasks.nar_s2ut_task import random_mask
 from diffnorm_tpu_torch.weights import from_jax_params, from_jax_variables
 from tests.test_torch_nar_train import FWD_TOL, NAR, _batch, _perturb, _torch
+from tests.torch_threads import torch_threads_per_worker  # noqa: F401 (autouse)
 
 CODES = 16
 VOCAB = CODES + 4

@@ -34,6 +34,7 @@ from diffnorm_tpu_torch.train.checkpoint import load_variables
 from diffnorm_tpu_torch.weights import from_jax_variables
 from tests.test_torch_ar_cli import save_orbax
 from tests.test_torch_text_mt import _float_text_attention, write_bitext  # noqa: F401
+from tests.torch_threads import torch_threads_per_worker  # noqa: F401 (autouse)
 
 WIDTHS = dict(encoder_embed_dim=16, encoder_ffn_embed_dim=32, encoder_layers=1,
               decoder_layers=2, encoder_attention_heads=2, decoder_embed_dim=16,

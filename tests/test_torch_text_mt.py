@@ -57,6 +57,7 @@ from diffnorm_tpu_torch.weights import flatten_tree, from_jax_variables, to_jax_
 from tests.test_torch_multitask import _assert_batches_equal, _nested_torch
 from tests.test_torch_nar_train import FWD_TOL, _assert_trees_close, _perturb
 from tests.test_torch_tts import _keyword_mha
+from tests.torch_threads import torch_threads_per_worker  # noqa: F401 (autouse)
 
 _import_all()
 SRC_V, TGT_V = 40, 44

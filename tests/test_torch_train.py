@@ -40,6 +40,7 @@ from diffnorm_tpu_torch.train.lr_schedules import inverse_sqrt
 from diffnorm_tpu_torch.train.optimizers import build_optimizer
 from diffnorm_tpu_torch.train.trainer import Trainer, TrainerConfig
 from diffnorm_tpu_torch.weights import from_jax_params, from_jax_variables, to_jax_params
+from tests.torch_threads import torch_threads_per_worker  # noqa: F401 (autouse)
 
 B, T, FEAT, LATENT, CODES = 2, 9, 24, 3, 16
 VAE = dict(feature_dim=FEAT, latent_dim=LATENT, chan_mults=[4], vae_decoder_depth=1,
@@ -159,8 +160,20 @@ def _trainer_cfg(dtype="float32", seed=1):
                          seed=seed)
 
 
+@pytest.fixture
+def default_threads(torch_threads_per_worker):
+    """torch's default intra-op thread count for the test: the 12 updates'
+    final parameters were measured against JAX at it (the thread count
+    splits torch's float32 reductions; tests/torch_threads.py sets fewer
+    under pytest-xdist)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(torch_threads_per_worker)
+    yield
+    torch.set_num_threads(n)
+
+
 @pytest.mark.parametrize("stage", ["vae", "ddpm"])
-def test_trajectory_matches_jax_trainer(stage):
+def test_trajectory_matches_jax_trainer(default_threads, stage):
     """12 float32 updates of update_freq 2 (clip 2.0, lr 5e-4, inverse_sqrt
     warmup 4 from 1e-7, betas (0.9, 0.98), dropout 0, draws injected) on
     both trainers from one initialization: per-update loss and gradient

@@ -61,6 +61,7 @@ from diffnorm_tpu_torch.weights import (
 )
 from tests.test_torch_multitask import _assert_batches_equal, _nested_torch
 from tests.test_torch_nar_train import FWD_TOL, STATS_TOL, _assert_trees_close, _perturb
+from tests.torch_threads import torch_threads_per_worker  # noqa: F401 (autouse)
 
 PAD = 1
 MEL = 6

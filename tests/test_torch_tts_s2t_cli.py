@@ -35,6 +35,7 @@ from tests.test_torch_repr_to_speech import VOC_CFG
 from tests.test_torch_s2t import TINY as S2T_TINY
 from tests.test_torch_s2t import write_s2t_corpus
 from tests.test_torch_tts import FS2_TINY, MEL, TTS_TINY, write_tts_corpus
+from tests.torch_threads import torch_threads_per_worker  # noqa: F401 (autouse)
 
 TRAIN = ["--cpu", "--max-update", "2", "--lr", "1e-3", "--warmup-updates", "2",
          "--log-interval", "1", "--seed", "3", "--validate-interval", "5"]
@@ -236,5 +237,5 @@ def test_cli_refusals_and_arch_defaults(tmp_path):
     gen = [str(tmp_path), "--cpu", "--path", "m.npz"]
     assert generate.parse_args(gen + ["--task", "text_to_speech", "--arch",
                                       "fastspeech2"]).model.criterion == "fastspeech2_loss"
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 5"):
+    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 6"):
         generate.parse_args(gen + ["--task", "speech_to_text", "--arch", "cmlm_transformer"])

@@ -26,6 +26,7 @@ from tests.test_torch_s2spect import MEL, write_spect_corpus
 from tests.test_torch_s2spect import TINY as SPECT_TINY
 from tests.test_torch_unity import WIDTHS as UNITY_WIDTHS
 from tests.test_torch_unity import write_unity_corpus
+from tests.torch_threads import torch_threads_per_worker  # noqa: F401 (autouse)
 
 SPLITS = (("train", 4), ("dev", 2), ("test", 3))
 MAX_TOKENS = "240"

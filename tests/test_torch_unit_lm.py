@@ -35,6 +35,7 @@ from diffnorm_tpu_torch.data.iterators import EpochBatchIterator
 from diffnorm_tpu_torch.tasks import TASKS
 from diffnorm_tpu_torch.weights import flatten_tree, from_jax_variables, to_jax_variables
 from tests.test_torch_sedd import CODES, _close, _perturbed, write_unit_corpus
+from tests.torch_threads import torch_threads_per_worker  # noqa: F401 (autouse)
 
 FWD_TOL = 1e-5
 LM_TINY = dict(decoder_embed_dim=16, decoder_ffn_embed_dim=32, decoder_layers=2,

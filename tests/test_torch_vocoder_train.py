@@ -33,6 +33,7 @@ from diffnorm_tpu_torch.train.gan_trainer import GanTrainer
 from diffnorm_tpu_torch.train.optimizers import OptaxAdamW
 from diffnorm_tpu_torch.weights import from_jax_params, to_jax_params
 from tests.helpers import write_wav16
+from tests.torch_threads import torch_threads_per_worker  # noqa: F401 (autouse)
 
 MEL = dict(n_fft=64, hop_size=32, win_size=64, num_mels=20)
 DISC = dict(mpd_periods=(2, 3), msd_scales=2, disc_width=0.0625)
