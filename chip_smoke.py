@@ -25,7 +25,8 @@ prints no result:
    wavenet_chain, flash_attention); wavenet_chain at the denoiser's 8
    dilations and the VAE's widths (timed, with one chain's device time per
    launch), at T=200 (two M tiles, the second ragged), at T=37 with every
-   shifted tap dead, and at C=200. masked_attention at 2048 keys for shapes
+   shifted tap dead, at C=200, and at phase 29's dummy_vae shapes (B8 x
+   T400, C 256 and 768, d 1, 2, 4). masked_attention at 2048 keys for shapes
    the kernel does not take (bf16 D=80, float16) takes the module math and
    launches nothing.
 2b. gradients: an MSE step of the denoiser's Wavenet (released width,
@@ -399,6 +400,25 @@ long-form forwards' launches to flash_attention_f32 (float32) and
 flash_attention (the bf16 CTC decode); phase 2 times the kernel at its
 encoder's [2,12,2249,64], keys 2249 and 1599, in both types.
 
+29. TranSpeech's baseline normalization and the runtime remainder: (a)
+   cli.speech_norm on two splits of 32 seeded synthetic voices (2-8 s at 16
+   kHz, f0 90-240 Hz, vibrato, noise, silence at both ends; YIN on the
+   card), each of its three passes timed, YIN's time a second of audio and
+   its medians against the f0 that made each voice, then the CLI on two of
+   them on the card and with --cpu (medians within 1e-4 relative, wavs
+   within SN_WAV_ATOL); (b) lightconv and dynamicconv at [8, 1024, 512], H
+   8, K 31 (lightconv_iwslt_de_en's widest layer), causal and same, float32
+   and bf16, against their float64 definition, timed; (c)
+   expected_alignment_from_p_choose at [64, 128, 512] float32 with a
+   padding mask against the host twin, timed; (d) cli.train without data
+   on disk, 2 updates each in bf16 at the archs' widths, the depth cut to 2
+   layers where checkpoints are written: dummy_vae (768-d features, latent
+   128, B8 x 400 frames), dummy_nar (B8 x 480 fbank frames), dummy_ar and
+   dummy_mt at their defaults, cli.hydra_train on dummy_vae with dotted
+   overrides, a --user-dir plugin's task from a --config YAML, then
+   cli.interactive on the dummy_nar checkpoint with two .npy lines; (e) the
+   wavenet_chain launches of the VAE runs' encoder are added to that
+   kernel's row.
 Then one JSON line of per-kernel numbers and, last, {"ok": true, "device": ...}.
 Exits non-zero without CUDA, and in a directory without the port.
 """
@@ -1105,7 +1125,10 @@ CHAIN_PATH_CASES = ([("denoiser", B, T, 512, 4, d) for d in (1, 2, 4, 8, 16, 32,
                     + [("vae encoder", B, T, 256, 2, 4), ("vae decoder", B, T, 768, 2, 1)])
 CHAIN_EDGE_CASES = [("T=200", 4, 200, 512, 4, 1), ("T=200", 4, 200, 512, 4, 64),
                     ("T=37", 4, 37, 512, 4, 32), ("T=37", 4, 37, 512, 4, 128),
-                    ("C=200", 4, 37, 200, 2, 1)]
+                    ("C=200", 4, 37, 200, 2, 1)] + [
+    # phase 29's dummy_vae cli.train runs: B8 x T400, each WaveNet's three chains
+    (f"dummy_vae {part}", 8, 400, c, 2, d)
+    for part, c in (("encoder", 256), ("decoder", 768)) for d in (1, 2, 4)]
 CHAIN_F32_CASES = [("denoiser", B, T, 512, 4, 1), ("denoiser", B, T, 512, 4, 64),
                    ("T=200", 4, 200, 512, 4, 64), ("T=37", 4, 37, 512, 4, 32),
                    ("C=200", 4, 37, 200, 2, 1)]
@@ -8607,6 +8630,318 @@ def run_audio_pretrain(torch, mods, smi):
     return launches
 
 
+# 29. TranSpeech's baseline normalization, lightconv / dynamicconv, the MMA
+# expected alignment and the runtime remainder
+SN_UTTS = 32  # utterances a split, two splits (a CVSS-sized split's share of a batch job)
+SN_SECONDS = (2.0, 8.0)  # each utterance's length at 16 kHz, f0 90-240 Hz
+SN_SR = 16000
+SN_F0_OFF = 0.05  # a median further than this from the f0 that made it counts as off
+SN_F0_REL = 1e-4  # the card's medians against the --cpu run's
+SN_WAV_ATOL = 1e-4  # the card's output wavs against the --cpu run's: 3 16-bit steps
+CONV_SHAPE, CONV_HEADS, CONV_K = (8, 1024, 512), 8, 31  # lightconv_iwslt_de_en's widest layer
+CONV_ATOL = {"float32": 1e-5}  # bf16: 2^-8 of each output (its own rounding), PERF.md
+ALIGN_SHAPE, ALIGN_ATOL = (64, 128, 512), 1e-4
+RT_DEPTH = 2  # the layers of the models whose checkpoints cli.train writes
+RT_COMMON = ["--max-update", "2", "--dataset-size", "2", "--log-interval", "1",
+             "--dtype", "bfloat16", "--seed", "42"]
+RT_RUNS = (  # cli.train's dummy tasks at the archs' widths, depth cut to RT_DEPTH
+    ("dummy_vae", ["--batch-size", "8", "--tokens-per-sample", "400",
+                   "--vae-decoder-depth", str(RT_DEPTH)]),
+    ("dummy_nar", ["--batch-size", "8", "--tokens-per-sample", "480",
+                   "--encoder-layers", str(RT_DEPTH), "--decoder-layers", str(RT_DEPTH)]),
+    ("dummy_ar", ["--encoder-layers", str(RT_DEPTH), "--decoder-layers", str(RT_DEPTH)]),
+    ("dummy_mt", ["--encoder-layers", str(RT_DEPTH), "--decoder-layers", str(RT_DEPTH)]),
+)
+
+
+def synthetic_voice(rng, f0: float, seconds: float):
+    """A harmonic voice at f0 with a random vibrato, breath noise and 0.1-0.4
+    s of silence at each end, float32 at SN_SR."""
+    import numpy as np
+
+    n = int(seconds * SN_SR)
+    t = np.arange(n) / SN_SR
+    rate, depth = rng.uniform(4.0, 6.0), rng.uniform(0.01, 0.03)
+    phase = 2 * np.pi * np.cumsum(f0 * (1 + depth * np.sin(2 * np.pi * rate * t))) / SN_SR
+    x = sum(np.sin(k * phase + rng.uniform(0, 2 * np.pi)) / k for k in range(1, 7)) * 0.25
+    x = x + rng.uniform(0.003, 0.02) * rng.normal(size=n)
+    for cut in (slice(0, int(rng.uniform(0.1, 0.4) * SN_SR)),
+                slice(n - int(rng.uniform(0.1, 0.4) * SN_SR), n)):
+        x[cut] = 0.0
+    return x.astype(np.float32)
+
+
+def write_speech_norm_corpus(root: Path, rng):
+    """{split: {name: the f0 that made it}} of SN_UTTS wavs a split under
+    root/{train,dev}, and the seconds of audio written."""
+    from diffnorm_tpu_torch.cli.generate_waveform import write_wav
+
+    made, seconds = {}, 0.0
+    for split in ("train", "dev"):
+        (root / split).mkdir(parents=True)
+        made[split] = {}
+        for i in range(SN_UTTS):
+            f0, sec = float(rng.uniform(90.0, 240.0)), float(rng.uniform(*SN_SECONDS))
+            write_wav(str(root / split / f"{split}{i:03d}.wav"), synthetic_voice(rng, f0, sec),
+                      SN_SR)
+            made[split][f"{split}{i:03d}"] = f0
+            seconds += sec
+    return made, seconds
+
+
+def run_speech_norm_cli(torch, smi):
+    """Phase 29a: cli.speech_norm on two splits of SN_UTTS synthetic voices
+    (its three passes timed), YIN's time a second of audio and its medians
+    against the f0 that made each voice; then the CLI on two of those
+    utterances on the card and with --cpu: the medians within SN_F0_REL, the
+    output wavs within SN_WAV_ATOL."""
+    import shutil
+
+    import numpy as np
+
+    from diffnorm_tpu_torch.cli import speech_norm
+    from diffnorm_tpu_torch.data.audio import read_audio
+    from diffnorm_tpu_torch.ops.speech_norm import pitch_median
+
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = Path(tmp)
+        made, seconds = write_speech_norm_corpus(tmp / "wav", np.random.default_rng(2901))
+        out = io.StringIO()
+        t1 = time.perf_counter()
+        with contextlib.redirect_stdout(out):
+            rc = speech_norm.main(["--wav", str(tmp / "wav"), "--out", str(tmp / "out"),
+                                   "--splits", "train,dev"])
+        wall = time.perf_counter() - t1
+        passes = re.findall(r"\[(\w+)\] wrote (\d+) .*\(medians (\S+) s, shift (\S+) s, "
+                            r"energy (\S+) s\)", out.getvalue())
+        written = sorted(p.name for p in (tmp / "out").glob("*/result/*.wav"))
+        if rc != 0 or len(passes) != 2 or len(written) != 2 * SN_UTTS:
+            fail(f"cli.speech_norm: rc {rc}, {len(written)} wavs, {out.getvalue()[-300:]}")
+        wavs = {name: read_audio(str(tmp / "wav" / split / f"{name}.wav"))[0]
+                for split in made for name in made[split]}
+        for wav in list(wavs.values())[:2]:  # warm-up
+            pitch_median(wav, SN_SR, device="cuda")
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        medians = {name: pitch_median(wav, SN_SR, device="cuda") for name, wav in wavs.items()}
+        torch.cuda.synchronize()
+        yin_s = time.perf_counter() - t1
+        f0 = {name: hz for split in made.values() for name, hz in split.items()}
+        off = sorted(abs(medians[n] / f0[n] - 1) for n in f0)
+        if sum(e > SN_F0_OFF for e in off) > 1:
+            fail(f"cli.speech_norm: YIN medians off the voices' f0 by {off[-3:]}")
+        # two utterances through the CLI on the card and with --cpu
+        pair = sorted(wavs)[:2]
+        (tmp / "pair" / "pair").mkdir(parents=True)
+        for name in pair:
+            shutil.copy(tmp / "wav" / ("train" if name.startswith("train") else "dev")
+                        / f"{name}.wav", tmp / "pair" / "pair")
+        runs = {}
+        for where, extra in (("card", []), ("cpu", ["--cpu"])):
+            with contextlib.redirect_stdout(io.StringIO()):
+                speech_norm.main(["--wav", str(tmp / "pair"), "--out", str(tmp / where),
+                                  "--splits", "pair", *extra])
+            runs[where] = {n: read_audio(str(tmp / where / "pair" / "result" / f"{n}.wav"))[0]
+                           for n in pair}
+        med_rel = max(abs(pitch_median(wavs[n], SN_SR, device="cuda")
+                          / pitch_median(wavs[n], SN_SR, device="cpu") - 1) for n in pair)
+        wav_err = max(float(np.abs(runs["card"][n] - runs["cpu"][n]).max()) for n in pair)
+        if med_rel > SN_F0_REL or wav_err > SN_WAV_ATOL:
+            fail(f"cli.speech_norm card against --cpu: medians {med_rel:.3g} relative (bound "
+                 f"{SN_F0_REL}), wavs {wav_err:.3g} (bound {SN_WAV_ATOL})")
+    shares = "; ".join(f"{split}: medians {m} s, shift {s} s, energy {e} s"
+                       for split, _, m, s, e in passes)
+    print(f"cli.speech_norm: 2 x {SN_UTTS} utterances, {seconds:.1f} s of audio at 16 kHz, "
+          f"{wall:.2f} s wall ({shares}); YIN on the card {1e3 * yin_s / seconds:.3f} ms a "
+          f"second of audio ({yin_s:.3f} s for all); medians against the voices' f0: median "
+          f"{np.median(off):.2e}, max {off[-1]:.2e} relative ({sum(e > SN_F0_OFF for e in off)} "
+          f"beyond {SN_F0_OFF}); card against --cpu on 2 utterances: medians "
+          f"{med_rel:.2e} relative, wavs max-abs {wav_err:.2e}; {smi}")
+
+
+def conv_f64(torch, x, w, padding: str):
+    """lightconv / dynamicconv's definition in float64: x [B, T, C], w [H,
+    K] or [B, T, H, K]."""
+    import torch.nn.functional as F
+
+    k, h, c, t = w.shape[-1], w.shape[-2], x.shape[-1], x.shape[1]
+    w = torch.softmax(w.double(), dim=-1).repeat_interleave(c // h, dim=-2)
+    left = k - 1 if padding == "causal" else k // 2
+    xd = F.pad(x.double(), (0, 0, left, k - 1 - left))
+    return sum(xd[:, i:i + t] * w[..., i] for i in range(k))
+
+
+def run_lightconv(torch, smi):
+    """Phase 29b: lightconv and dynamicconv at CONV_SHAPE, causal and same,
+    float32 and bf16, against their float64 definition, each timed."""
+    from diffnorm_tpu_torch.ops.lightconv import dynamicconv, lightconv
+
+    b, t, c = CONV_SHAPE
+    g = torch.Generator(device="cuda").manual_seed(2902)
+    x = torch.randn(b, t, c, generator=g, device="cuda")
+    weights = {"lightconv": torch.randn(CONV_HEADS, CONV_K, generator=g, device="cuda"),
+               "dynamicconv": torch.randn(b, t, CONV_HEADS, CONV_K, generator=g, device="cuda")}
+    rows = []
+    for name, fn in (("lightconv", lightconv), ("dynamicconv", dynamicconv)):
+        w = weights[name]
+        for padding in ("causal", "same"):
+            for dtype in (torch.float32, torch.bfloat16):
+                xd = x.to(dtype)
+                got = fn(xd, w, padding=padding)
+                ref = conv_f64(torch, xd, w, padding)
+                err = (got.double() - ref).abs()
+                if dtype == torch.float32:
+                    ok = err.max().item() <= CONV_ATOL["float32"]
+                else:
+                    ok = bool((err <= 2.0 ** -8 * ref.abs() + 1e-6).all())
+                if got.dtype != dtype or not ok:
+                    fail(f"{name} {padding} {dtype}: max-abs {err.max().item():.3g} against "
+                         f"float64")
+                ms = cuda_time_ms(lambda: fn(xd, w, padding=padding), iters=10, reps=3)
+                rows.append(f"{name} {padding} {str(dtype)[6:]} {ms:.3f} ms (max-abs "
+                            f"{err.max().item():.2e})")
+                del got, ref, err
+    print(f"lightconv / dynamicconv at {list(CONV_SHAPE)}, H {CONV_HEADS}, K {CONV_K} "
+          f"(plain PyTorch on the card, K shifted multiply-adds): " + "; ".join(rows)
+          + f"; {smi}")
+
+
+def run_alignment(torch, smi):
+    """Phase 29c: expected_alignment_from_p_choose at ALIGN_SHAPE float32
+    with a padding mask against the host twin, timed."""
+    import numpy as np
+
+    from diffnorm_tpu_torch.ops.alignment import (
+        expected_alignment_from_p_choose,
+        expected_alignment_host,
+    )
+
+    b, tgt, src = ALIGN_SHAPE
+    g = torch.Generator(device="cuda").manual_seed(2903)
+    p = torch.sigmoid(torch.randn(b, tgt, src, generator=g, device="cuda") - 1.0)
+    lengths = torch.randint(src // 2, src + 1, (b,), generator=g, device="cuda")
+    mask = torch.arange(src, device="cuda")[None, :] >= lengths[:, None]
+    got = expected_alignment_from_p_choose(p, mask)
+    host = expected_alignment_host(p.masked_fill(mask[:, None, :], 0.0).cpu().numpy())
+    err = float(np.abs(got.cpu().numpy() - host).max())
+    if got.shape != p.shape or err > ALIGN_ATOL or bool(got[mask[:, None, :].expand_as(got)].any()):
+        fail(f"expected_alignment_from_p_choose: max-abs {err:.3g} against the host twin")
+    ms = cuda_time_ms(lambda: expected_alignment_from_p_choose(p, mask), iters=2, reps=3)
+    print(f"expected_alignment_from_p_choose at {list(ALIGN_SHAPE)} float32 with a padding "
+          f"mask (plain PyTorch on the card, a loop over the {tgt} target rows): {ms:.3f} ms, "
+          f"max-abs {err:.2e} against the host twin (bound {ALIGN_ATOL}); {smi}")
+
+
+SMOKE_PLUGIN = '''
+from diffnorm_tpu_torch.registry import register_task
+from diffnorm_tpu_torch.tasks.dummy import DummyVAETask
+
+
+@register_task("smoke_dummy_vae")
+class SmokeDummyVAETask(DummyVAETask):
+    """A plugin's task: dummy_vae under its own name."""
+'''
+
+
+def run_runtime_cli(torch, smi):
+    """Phase 29d-e: cli.train on the dummy tasks of RT_RUNS, 2 updates each
+    in bf16 without data on disk; cli.hydra_train on dummy_vae with dotted
+    overrides; cli.train on a --user-dir plugin's task with a --config YAML;
+    cli.interactive on the dummy_nar checkpoint with .npy lines. Returns the
+    cli.train runs' kernel launches."""
+    import numpy as np
+    import yaml
+
+    from diffnorm_tpu_torch.cli import hydra_train, interactive
+    from diffnorm_tpu_torch.cli import train as train_cli
+    from diffnorm_tpu_torch.data.dictionary import Dictionary
+    from diffnorm_tpu_torch.ops import _build
+
+    total, rows = {}, []
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = Path(tmp)
+        (tmp / "smoke_plugin").mkdir()
+        (tmp / "smoke_plugin" / "__init__.py").write_text(SMOKE_PLUGIN)
+        vae = dict(RT_RUNS)["dummy_vae"]
+        (tmp / "cfg.yaml").write_text(yaml.safe_dump({
+            "task": "smoke_dummy_vae", "dtype": "bfloat16",
+            "optimization": {"max_update": 2, "lr": 1e-4},
+            "dataset": {"batch_size": 8, "tokens_per_sample": 400, "dataset_size": 2},
+            "model": {"vae_decoder_depth": RT_DEPTH}}))
+        runs = [(name, train_cli, ["--task", name, *RT_COMMON, *flags])
+                for name, flags in RT_RUNS]
+        runs.append(("hydra_train dummy_vae", hydra_train, [
+            "--task", "dummy_vae", "optimization.max_update=2", "dataset.batch_size=8",
+            "dataset.tokens_per_sample=400", "dataset.dataset_size=2", "optimization.lr=[1e-4]",
+            f"model.vae_decoder_depth={RT_DEPTH}", "common.dtype=bfloat16"]))
+        runs.append(("--user-dir --config", train_cli, [
+            "--user-dir", str(tmp / "smoke_plugin"), "--config", str(tmp / "cfg.yaml")]))
+        for i, (what, mod, argv) in enumerate(runs):
+            save = tmp / f"ckpt{i}"
+            if mod is hydra_train:
+                argv = argv + [f"checkpoint.save_dir={save}"]
+            else:
+                argv = argv + ["--save-dir", str(save)]
+            _build.launch_counts.clear()
+            with StepTimer(torch) as timer:
+                rc, wall, lines = cli_run(mod, argv, "diffnorm_tpu_torch.train")
+            launches = dict(_build.launch_counts)
+            valid = re.findall(r"valid \| .*loss (\S+)", "\n".join(lines))
+            if (rc != 0 or not (save / "step_000000002" / "params.npz").exists() or not valid
+                    or not math.isfinite(float(valid[-1]))):
+                fail(f"cli.train {what}: rc {rc}, {lines[-3:]}")
+            if what not in ("dummy_nar", "dummy_ar", "dummy_mt") and not launches.get(
+                    "wavenet_chain"):
+                fail(f"cli.train {what}: the VAE's encoder launched no wavenet_chain "
+                     f"({launches})")
+            for k, v in launches.items():
+                total[k] = total.get(k, 0) + v
+            rows.append(f"{what} {wall:.2f} s (ms per update "
+                        f"{[round(ms, 1) for ms in timer.ms]}, valid loss {float(valid[-1]):.4g}, "
+                        f"launches {launches})")
+        # cli.interactive on the dummy_nar run's step directory: a .npy path a line
+        nar_step = tmp / f"ckpt{[name for name, _ in RT_RUNS].index('dummy_nar')}"
+        feats = np.random.default_rng(2904).normal(size=(2, 480, 80)).astype(np.float32)
+        lines = []
+        for k, feat in enumerate(feats):
+            np.save(tmp / f"u{k}.npy", feat)
+            lines.append(f"{tmp / f'u{k}.npy'}\n")
+        out, stdin = io.StringIO(), sys.stdin
+        sys.stdin = io.StringIO("".join(lines))
+        t1 = time.perf_counter()
+        try:
+            with contextlib.redirect_stdout(out):
+                rc = interactive.main([str(tmp), "--path", str(nar_step / "step_000000002"),
+                                       "--encoder-layers", str(RT_DEPTH), "--decoder-layers",
+                                       str(RT_DEPTH)])
+        finally:
+            sys.stdin = stdin
+        wall = time.perf_counter() - t1
+        hyps = re.findall(r"^H-(\d+)\t(.*)$", out.getvalue(), re.M)
+        symbols = set(Dictionary.unit_dictionary(1000).symbols)
+        if (rc != 0 or [i for i, _ in hyps] != ["0", "1"]
+                or not all(u in symbols for _, h in hyps for u in h.split())):
+            fail(f"cli.interactive NAR on .npy lines: rc {rc}, {out.getvalue()[-300:]}")
+        rows.append(f"cli.interactive (NAR, 2 lines of 480 frames, bf16) {wall:.2f} s, "
+                    f"{[len(h.split()) for _, h in hyps]} units")
+    print(f"cli.train without data on disk (bf16, the archs' widths, depth {RT_DEPTH} where "
+          f"checkpoints are written): " + "; ".join(rows) + f"; {smi}")
+    return total
+
+
+def run_speech_norm_runtime(torch, mods, smi):
+    """Phase 29 (module docstring). Returns the CLI runs' launches by JSON
+    row."""
+    t0 = time.perf_counter()
+    run_speech_norm_cli(torch, smi)
+    run_lightconv(torch, smi)
+    run_alignment(torch, smi)
+    launches = run_runtime_cli(torch, smi)
+    print(f"phase speech norm / runtime: {time.perf_counter() - t0:.1f} s, launches "
+          f"{launches}; {smi}")
+    return launches
+
+
 def main() -> int:
     try:
         import torch
@@ -8823,6 +9158,12 @@ def main() -> int:
     # each at base width, the long-form validation forwards and CTC decodes
     # through flash_attention, the CLIs
     for name, n in run_audio_pretrain(torch, mods, smi).items():
+        launches[name] += n
+
+    # 29. TranSpeech's baseline normalization (cli.speech_norm), lightconv /
+    # dynamicconv, the MMA alignment, and the dummy tasks, hydra_train,
+    # --user-dir and --config through cli.train
+    for name, n in run_speech_norm_runtime(torch, mods, smi).items():
         launches[name] += n
 
     sources = {

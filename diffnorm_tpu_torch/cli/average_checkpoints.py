@@ -9,7 +9,11 @@ evaluation).
 `--inputs` are step directories or weights.save_npz files with the same
 tree; `--output` is a step directory whose `params.npz` every CLI that takes
 a step directory reads. Floating leaves are averaged in float64 and cast
-back to their type; other leaves are the first input's, as in JAX.
+back to their type; other leaves are the first input's, as in JAX. bf16
+leaves, which np.load reads back as raw 2-byte voids, are averaged too and
+rounded to bf16, as JAX's jnp.issubdtype check averages them
+(average_checkpoints.py:19-28); the output holds them widened to float32,
+as every file of the port does.
 """
 
 from __future__ import annotations
@@ -20,9 +24,20 @@ import sys
 from typing import Dict, Optional, Sequence
 
 import numpy as np
+import torch
 
 from diffnorm_tpu_torch.train.checkpoint import PARAMS, load_tree
 from diffnorm_tpu_torch.weights import flatten_tree, save_npz, unflatten_tree
+
+
+def _bf16_bits(a: np.ndarray) -> bool:
+    """A bf16 leaf as np.load gives it back: 2-byte voids."""
+    return a.dtype.kind == "V" and a.dtype.itemsize == 2
+
+
+def _widened(a: np.ndarray) -> np.ndarray:
+    """bf16 bit patterns as float32."""
+    return (a.view(np.uint16).astype(np.uint32) << 16).view(np.float32)
 
 
 def average_checkpoints(paths: Sequence[str]) -> Dict:
@@ -36,6 +51,9 @@ def average_checkpoints(paths: Sequence[str]) -> Dict:
         if np.issubdtype(first.dtype, np.floating):
             mean = sum(np.asarray(f[key], np.float64) for f in flats) / len(flats)
             out[key] = mean.astype(first.dtype)
+        elif _bf16_bits(first):
+            mean = sum(_widened(f[key]).astype(np.float64) for f in flats) / len(flats)
+            out[key] = torch.from_numpy(mean).to(torch.bfloat16).float().numpy()
         else:
             out[key] = first
     return unflatten_tree(out)

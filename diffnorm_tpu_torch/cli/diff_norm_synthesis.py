@@ -43,6 +43,7 @@ from typing import List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from diffnorm_tpu_torch import registry
 from diffnorm_tpu_torch.data.batching import bucket_length
 from diffnorm_tpu_torch.data.manifest import (
     read_feature_manifest,
@@ -122,6 +123,7 @@ def parse_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
     p.add_argument("--vae-decoder-heads", type=int, default=8)
     p.add_argument("--chan-mults", type=json.loads, default=None,
                    help='VAE channel multipliers as JSON, e.g. "[3]"')
+    p.add_argument("--user-dir", help="a plugin imported first (registry.py)")
     return p.parse_args(argv)
 
 
@@ -239,6 +241,7 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
     logging.basicConfig(level=logging.INFO, force=True,
                         format="%(asctime)s | %(levelname)s | %(message)s")
     args = parse_args(argv)
+    registry.import_user_module(args.user_dir)
     device = resolve_device("cpu" if args.cpu else "cuda")
     os.makedirs(args.output_dir, exist_ok=True)
     model = build_model(args, device)

@@ -38,11 +38,13 @@ PAD, EOS = 1, 2
 
 
 def parse_args(argv: Optional[Sequence[str]] = None):
+    pre = train_cli.preparse(argv)
     p = train_cli.build_parser(__doc__.split("\n")[0], train=False, task="sedd_lm")
     p.add_argument("--path", required=True,
                    help="the checkpoint: a step directory or a weights.save_npz file")
     p.add_argument("--gen-subset", default="test")
     p.set_defaults(arch="transformer_lm", max_tokens=8192)
+    train_cli.apply_config(p, pre.config)
     return train_cli.check_args(p, p.parse_args(argv))
 
 

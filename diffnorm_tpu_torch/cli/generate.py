@@ -133,10 +133,10 @@ task's dictionary, one step a sentence; it takes no int8 route, as in JAX.
 
 SEDD and the unit LM have no branch here, as in JAX: `models.sedd`'s
 `sedd_sample` / `sedd_refine` decode in process and `cli.eval_lm` scores
-the LM. Not ported, and raising NotImplementedError naming their ROADMAP
-Queue 1 items: the other tasks and architectures (the TranSpeech
-normalization, item 6; the rest of the runtime, item 7; parallelism,
-item 8).
+the LM. Another task or architecture (the pretraining tasks, the VAE and
+normalizer stages, whose generation is cli.diff_norm_synthesis) raises
+NotImplementedError. `--user-dir` imports a plugin before the flags are
+read (registry.py).
 """
 
 from __future__ import annotations
@@ -244,6 +244,8 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("data", help="directory of the {split}.tsv manifests (and config.yaml)")
     p.add_argument("--task", default=TASK)
     p.add_argument("--arch", default=None, help="default: the task's first (TASK_ARCHS)")
+    p.add_argument("--user-dir", help="a plugin imported before the flags are read "
+                                      "(registry.py)")
     p.add_argument("--path", required=True,
                    help="the model's weights (weights.save_npz), or a cli.train step directory; "
                         "a:b:c for an ensemble")
@@ -329,7 +331,9 @@ def apply_ar_arch(args: argparse.Namespace) -> argparse.Namespace:
 
 def parse_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
     """The flags, with `rerank` the reranker's flags where --rerank-path is
-    given. Raises NotImplementedError for a task or arch not ported."""
+    given. Raises NotImplementedError for a task or arch without a decode
+    branch."""
+    train_cli.preparse(argv)
     p = build_parser()
     chosen, _ = p.parse_known_args(argv)
     task = chosen.task
@@ -338,10 +342,10 @@ def parse_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
     archs = TASK_ARCHS.get(task)
     if archs is None or (chosen.arch or archs[0]) not in archs:
         raise NotImplementedError(
-            f"--task {chosen.task} --arch {chosen.arch}: the ported branches are "
-            + "; ".join(f"{t} ({', '.join(a)})" for t, a in TASK_ARCHS.items())
-            + " (not ported: the TranSpeech normalization, ROADMAP Queue 1 item 6; the rest "
-              "of the runtime, item 7; parallelism, item 8)")
+            f"--task {chosen.task} --arch {chosen.arch}: no decode branch; cli.generate "
+            "decodes " + "; ".join(f"{t} ({', '.join(a)})" for t, a in TASK_ARCHS.items())
+            + " (SEDD and the unit LM sample in process and score with cli.eval_lm, the "
+              "normalizer generates through cli.diff_norm_synthesis, as in JAX)")
     if task == AR_TASK:  # widths left unset take the arch's
         p.set_defaults(**dict.fromkeys(AR_WIDTHS))
     args, extra = p.parse_known_args(argv)

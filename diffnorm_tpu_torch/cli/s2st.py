@@ -35,6 +35,7 @@ from typing import Optional, Sequence
 import numpy as np
 import torch
 
+from diffnorm_tpu_torch import registry
 from diffnorm_tpu_torch.cli.generate_waveform import load_vocoder, write_wav
 from diffnorm_tpu_torch.models.hifigan import INT8_MODES
 from diffnorm_tpu_torch.data.s2s_dataset import SpeechToUnitDataset
@@ -73,6 +74,7 @@ def parse_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
     p.add_argument("--int8-vocoder", choices=INT8_MODES, default="off",
                    help="W8A8 ResBlock convs on the vocoder's narrow stages")
     p.add_argument("--sample-rate", type=int, default=16000)
+    p.add_argument("--user-dir", help="a plugin imported first (registry.py)")
     add_model_args(p)
     return p.parse_args(argv)
 
@@ -145,6 +147,7 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
     logging.basicConfig(level=logging.INFO, force=True,
                         format="%(asctime)s | %(levelname)s | %(message)s")
     args = parse_args(argv)
+    registry.import_user_module(args.user_dir)
     device, dtype = resolve_device_dtype(args)
     model = build_model(args, args.params_npz, device, dtype)
     vocoder = load_vocoder(args.vocoder_npz, args.vocoder_cfg, device=device, dtype=dtype,

@@ -163,6 +163,20 @@ step, triangular, pass_through, tri_stage, or the host-driven manual
 `--log-format json` prints each logged step as JSON, and
 `--tensorboard-logdir` writes TensorBoard scalars where the package is
 installed.
+
+Every family's dummy task trains without DATA (`Task.synthetic`: dummy_vae,
+dummy_nar, dummy_ar, dummy_mt / dummy_translation, dummy_s2spect,
+dummy_tts, dummy_s2t, dummy_cmlm_cg, dummy_lev, dummy_sedd, dummy_unit_lm /
+dummy_lm, dummy_hubert, dummy_wav2vec2, dummy_ctc) on `--dataset-size`
+synthetic batches of `--batch-size` x `--tokens-per-sample`, with the
+flags, criterions and architectures of the task it derives from; with no
+collater there is no batch iterator (JAX cli/train.py:140-147). fairseq's
+criterion names resolve (`criterions/aliases.py`: cross_entropy, nat_loss,
+ddpm_loss, speech_decoder_loss). `--user-dir PATH` imports a plugin whose
+`registry.register_*` calls add tasks, criterions and architectures before
+the flags are read; `--config FILE` reads a YAML of flag defaults under the
+explicit flags (hydra's groups flattened); `cli.hydra_train` takes hydra's
+dotted overrides.
 """
 
 from __future__ import annotations
@@ -178,8 +192,11 @@ from typing import Dict, Optional, Sequence
 import numpy as np
 import torch
 
+from diffnorm_tpu_torch import registry
+from diffnorm_tpu_torch.criterions import aliases
 from diffnorm_tpu_torch.data.iterators import (
     EpochBatchIterator,
+    SyntheticEpochIterator,
     grouped,
     iterate_valid,
     read_ahead,
@@ -224,7 +241,9 @@ SPECT_TASK = "speech_to_speech_spect"
 TTS_TASK, S2T_TASK = "text_to_speech", "speech_to_text"
 MT_TASK, CMLM_TASK, LEV_TASK = "translation", "cmlm_cg", "translation_lev"
 TEXT_TASKS = (MT_TASK, CMLM_TASK, LEV_TASK)
-SEDD_TASKS, LM_TASKS = ("sedd", "sedd_lm"), ("unit_lm", "language_modeling")
+# the unit LM's dummy names share dummy_sedd's class, so they name their row
+SEDD_TASKS = ("sedd", "sedd_lm")
+LM_TASKS = ("unit_lm", "language_modeling", "dummy_unit_lm", "dummy_lm")
 HUBERT_TASK, W2V_TASK, CTC_TASK = "hubert_pretraining", "audio_pretraining", "audio_finetuning"
 AUDIO_TASKS = (HUBERT_TASK, W2V_TASK, CTC_TASK)
 # fairseq's speech_to_speech: --target-is-code picks AR_TASK, else SPECT_TASK
@@ -232,19 +251,20 @@ S2S_TASK = "speech_to_speech"
 STAGES = {  # task: (its criterions, the first the default; its architectures)
     "speech_decoder": (("speech_vae_decoder_loss",), ("speech_vae_decoder",)),
     "hubert_vae": (("hubert_vae_loss",), ("speech_vae_decoder",)),
-    "speech_diffusion_discrete": (("ddpm_discrete_loss",),
+    "speech_diffusion_discrete": (("ddpm_discrete_loss", "speech_decoder_loss"),
                                   ("diff_discrete", "diffusion_transformer")),
-    "speech_diffusion": (("ddpm_latent_loss",), ("diff_latent", "diffusion_transformer")),
-    "speech_diffusion_hubert": (("ddpm_latent_loss",), ("diff_hubert",)),
-    NAR_TASK: (("nar_speech_to_unit",), tuple(NAR_ARCHS)),
-    AR_TASK: (("label_smoothed_cross_entropy", "speech_to_unit", "speech_to_unit_2pass"),
-              tuple(AR_ARCHS) + tuple(UNITY_ARCHS)),
+    "speech_diffusion": (("ddpm_latent_loss", "ddpm_loss"),
+                         ("diff_latent", "diffusion_transformer")),
+    "speech_diffusion_hubert": (("ddpm_latent_loss", "ddpm_loss"), ("diff_hubert",)),
+    NAR_TASK: (("nar_speech_to_unit", "nat_loss"), tuple(NAR_ARCHS)),
+    AR_TASK: (("label_smoothed_cross_entropy", "speech_to_unit", "speech_to_unit_2pass",
+               "cross_entropy"), tuple(AR_ARCHS) + tuple(UNITY_ARCHS)),
     SPECT_TASK: (("speech_to_spectrogram", "tacotron2_loss", "tacotron2",
                   "speech_to_spectrogram_2pass"), tuple(SPECT_ARCHS)),
     TTS_TASK: (("tacotron2_loss", "tacotron2", "fastspeech2_loss", "fastspeech2"),
                tuple(TTS_ARCHS)),
-    S2T_TASK: (("label_smoothed_cross_entropy",), tuple(S2T_ARCHS)),
-    MT_TASK: (("label_smoothed_cross_entropy",), tuple(MT_ARCHS)),
+    S2T_TASK: (("label_smoothed_cross_entropy", "cross_entropy"), tuple(S2T_ARCHS)),
+    MT_TASK: (("label_smoothed_cross_entropy", "cross_entropy"), tuple(MT_ARCHS)),
     CMLM_TASK: (("nar_speech_to_unit", "nat_loss"), tuple(CMLM_ARCHS)),
     LEV_TASK: (("nat_loss", "levenshtein_loss"), tuple(LEV_ARCHS)),
     **dict.fromkeys(SEDD_TASKS, (("sedd_loss", "lm_cross_entropy"),
@@ -254,7 +274,6 @@ STAGES = {  # task: (its criterions, the first the default; its architectures)
     W2V_TASK: (("wav2vec",), tuple(W2V_ARCHS)),
     CTC_TASK: (("ctc",), tuple(CTC_ARCHS)),
 }
-AUDIO_ARCHS = {**PRETRAIN_ARCHS, **W2V_ARCHS, **CTC_ARCHS}
 TEXT_ARCHS = {**MT_ARCHS, **CMLM_ARCHS, **LEV_ARCHS}
 # the criterions of the archs that pick their own, the first the default
 ARCH_CRITERIONS = {**TTS_CRITERIONS, **LM_CRITERIONS}
@@ -400,12 +419,20 @@ def build_parser(description: str, train: bool = True,
     """The flags of cli.train; with `train` False (cli.validate) the model,
     data and task flags alone; `task` the default --task (else required)."""
     p = argparse.ArgumentParser(description=description)
-    p.add_argument("data", help="directory of the {split}.tsv translation manifests")
+    p.add_argument("data", nargs="?",
+                   help="directory of the {split}.tsv translation manifests (none for a dummy "
+                        "task)")
     p.add_argument("--tgt-feat-dir",
                    help="directory of the {split}.manifest.tsv feature manifests (the VAE and "
                         "normalizer stages)")
     p.add_argument("--task", required=task is None, default=task,
-                   choices=sorted(STAGES) + [S2S_TASK])
+                   choices=sorted(set(STAGES) | set(TASKS)) + [S2S_TASK])
+    p.add_argument("--user-dir", help="a plugin package or module whose register_* calls "
+                                      "add tasks, criterions and architectures (registry.py)")
+    p.add_argument("--config", help="a YAML of flag defaults (flag names with underscores; "
+                                    "hydra's groups flattened), under the explicit flags")
+    p.add_argument("--dataset-size", type=int,
+                   help="a dummy task's batches a split (default: the task's)")
     p.add_argument("--criterion", help="the task's criterion (checked against it)")
     p.add_argument("--arch", help="the task's architecture (checked against it)")
     p.add_argument("--target-code-size", type=int, default=1000)
@@ -563,93 +590,116 @@ def build_parser(description: str, train: bool = True,
     return p
 
 
+def stage_of(name: str) -> str:
+    """The STAGES row of a task: its own, or for a dummy task or a task a
+    --user-dir plugin registered, that of the nearest task it derives from."""
+    if name in STAGES:
+        return name
+    for cls in TASKS[name].__mro__[1:]:
+        for other, other_cls in TASKS.items():
+            if other_cls is cls and other in STAGES:
+                return other
+    raise ValueError(f"--task {name}: {TASKS[name].__name__} derives from no task cli.train "
+                     f"trains")
+
+
 def check_args(p: argparse.ArgumentParser, args: argparse.Namespace) -> argparse.Namespace:
     """The task's criterion and architecture, the unported flags, and the
-    defaults that depend on the task."""
+    defaults that depend on the task. A dummy task (and a plugin's task)
+    takes the checks and defaults of the task it derives from
+    (`args.task` stays its own name)."""
     if args.task == S2S_TASK:
         args.task = AR_TASK if args.target_is_code else SPECT_TASK
-    criteria, archs = STAGES[args.task]
-    if args.arch is not None and args.arch not in archs:
+    task = stage_of(args.task)  # the task whose checks apply
+    synthetic = TASKS[args.task].synthetic
+    if args.data is None and not synthetic:
+        p.error(f"task {args.task} needs its data directory (DATA)")
+    criteria, archs = STAGES[task]
+    if args.arch is not None and registry.ARCH_BASES.get(args.arch, args.arch) not in archs:
         p.error(f"--arch {args.arch}: task {args.task} trains {' or '.join(archs)}")
     args.arch = args.arch or archs[0]
-    if args.arch in TWO_PASS_CRITERIONS:
-        want = TWO_PASS_CRITERIONS[args.arch]
+    base_arch = registry.ARCH_BASES.get(args.arch, args.arch)  # a plugin's: the arch it extends
+    if base_arch in TWO_PASS_CRITERIONS:
+        want = TWO_PASS_CRITERIONS[base_arch]
         if args.criterion not in (None, want):
             p.error(f"--arch {args.arch} trains with --criterion {want}")
         args.criterion = want
     elif args.criterion in TWO_PASS_CRITERIONS.values():
         p.error(f"--criterion {args.criterion}: a two-pass model's ({args.arch} is not one)")
-    elif args.arch in ARCH_CRITERIONS:
-        want = ARCH_CRITERIONS[args.arch]
+    elif base_arch in ARCH_CRITERIONS:
+        want = ARCH_CRITERIONS[base_arch]
         if args.criterion not in (None,) + want:
             p.error(f"--arch {args.arch} trains with --criterion {' or '.join(want)}")
         args.criterion = args.criterion or want[0]
-    if args.criterion is not None and args.criterion not in criteria:
+    if (args.criterion is not None and args.criterion not in criteria
+            and args.criterion not in registry.USER_CRITERIONS):
         p.error(f"--criterion {args.criterion}: task {args.task} trains {' or '.join(criteria)}")
     args.criterion = args.criterion or criteria[0]
+    if args.criterion == "cross_entropy" and args.label_smoothing is None:
+        args.label_smoothing = 0.0  # fairseq's cross_entropy smooths nothing
     if args.use_cond:
         p.error("--use-cond: no task feeds the prompt-conditioned denoiser a prompt (nor does "
                 "JAX's: its criterions pass none, and its Denoiser asserts one, "
                 "models/diffusion.py:271); build LatentDiffusionModule(use_cond=True) and "
                 "pass batches with a prompt instead")
     lm_tasks = SEDD_TASKS + LM_TASKS + AUDIO_TASKS
-    if args.task in (AR_TASK, SPECT_TASK, TTS_TASK, S2T_TASK) + TEXT_TASKS + lm_tasks:
+    if task in (AR_TASK, SPECT_TASK, TTS_TASK, S2T_TASK) + TEXT_TASKS + lm_tasks:
         options = (("--use-sp", args.use_sp),
                    ("--multitask-ctc-vocab", args.multitask_ctc_vocab),
                    ("--encoder-remat", args.encoder_remat), ("--quant-int8", args.quant_int8))
-        if args.task != CMLM_TASK:
+        if task != CMLM_TASK:
             options += (("--cg-prob", args.cg_prob), ("--use-side", args.use_side))
-        if args.task != AR_TASK:
+        if task != AR_TASK:
             options += (("--target-speaker-embed", args.target_speaker_embed),)
-        if args.task in (TTS_TASK, S2T_TASK) + TEXT_TASKS + lm_tasks:
+        if task in (TTS_TASK, S2T_TASK) + TEXT_TASKS + lm_tasks:
             options += (("--multitask-config-yaml", args.multitask_config_yaml),)
-        if args.task in (S2T_TASK,) + TEXT_TASKS + lm_tasks:
+        if task in (S2T_TASK,) + TEXT_TASKS + lm_tasks:
             options += (("--n-frames-per-step", args.n_frames_per_step > 1),)
         for flag, value in options:
             if value:
                 p.error(f"{flag}: an option of the NAR model; {args.arch} has none, as JAX's")
-        if args.task == TTS_TASK and args.n_frames_per_step > 1:
+        if task == TTS_TASK and args.n_frames_per_step > 1:
             p.error("--n-frames-per-step: the text_to_speech dataset does not stack its "
                     "frames (nor does JAX's, whose criterion then fails on the shapes)")
-    if args.w2v_path and args.task != CTC_TASK:
+    if args.w2v_path and task != CTC_TASK:
         p.error(f"--w2v-path: the {CTC_TASK} task's warm start")
-    if args.task not in (S2T_TASK, MT_TASK) and args.share_decoder_input_output_embed:
+    if task not in (S2T_TASK, MT_TASK) and args.share_decoder_input_output_embed:
         p.error(f"--share-decoder-input-output-embed: an option of the S2T model and the text "
                 f"transformer (--task {S2T_TASK} or {MT_TASK})")
     if args.share_all_embeddings:
         p.error("--share-all-embeddings is not supported (the encoder's and decoder's "
                 "embeddings are separate tables); use --share-decoder-input-output-embed")
-    if args.task == TTS_TASK:
+    if task == TTS_TASK:
         TTS_ARCHS[args.arch](vars(args))
-    elif args.task == S2T_TASK:
+    elif task == S2T_TASK:
         S2T_ARCHS[args.arch](vars(args))
         if args.label_smoothing is None:
-            args.label_smoothing = LABEL_SMOOTHING[args.task]
-    elif args.task == SPECT_TASK:
+            args.label_smoothing = LABEL_SMOOTHING[task]
+    elif task == SPECT_TASK:
         SPECT_ARCHS[args.arch](vars(args))
         if args.prenet_dim is None:
             args.prenet_dim = 256
-    elif args.task in TEXT_TASKS:
-        TEXT_ARCHS[args.arch](vars(args))
-        if args.task == MT_TASK and args.share_decoder_input_output_embed is None:
+    elif task in TEXT_TASKS:
+        {**MT_ARCHS, **CMLM_ARCHS, **LEV_ARCHS}[args.arch](vars(args))  # with plugins' archs
+        if task == MT_TASK and args.share_decoder_input_output_embed is None:
             args.share_decoder_input_output_embed = True  # JAX's default
         if args.label_smoothing is None:
-            args.label_smoothing = LABEL_SMOOTHING[args.task]
-    elif args.task in AUDIO_TASKS:
-        AUDIO_ARCHS[args.arch](vars(args))
-    elif args.task in lm_tasks:
+            args.label_smoothing = LABEL_SMOOTHING[task]
+    elif task in AUDIO_TASKS:
+        {**PRETRAIN_ARCHS, **W2V_ARCHS, **CTC_ARCHS}[args.arch](vars(args))
+    elif task in lm_tasks:
         {**SEDD_ARCHS, **LM_ARCHS}[args.arch](vars(args))
         if args.label_smoothing is None:
             args.label_smoothing = 0.0  # lm_cross_entropy's default
-    elif args.task in (NAR_TASK, AR_TASK):
+    elif task in (NAR_TASK, AR_TASK):
         {**NAR_ARCHS, **AR_ARCHS, **UNITY_ARCHS}[args.arch](vars(args))
         if args.label_smoothing is None:
-            args.label_smoothing = LABEL_SMOOTHING[args.task]
+            args.label_smoothing = LABEL_SMOOTHING[task]
     else:
-        if args.tgt_feat_dir is None:
-            p.error(f"task {args.task} needs --tgt-feat-dir")
+        if args.tgt_feat_dir is None and not synthetic:
+            p.error(f"task {task} needs --tgt-feat-dir")
         args.dropout = 0.1 if args.dropout is None else args.dropout
-        if args.task in ("speech_decoder", "hubert_vae"):
+        if task in ("speech_decoder", "hubert_vae"):
             args.latent_dim = 128 if args.latent_dim is None else args.latent_dim
         else:
             widths = vars(args)
@@ -662,9 +712,60 @@ def check_args(p: argparse.ArgumentParser, args: argparse.Namespace) -> argparse
     return args
 
 
+def preparse(argv: Optional[Sequence[str]]) -> argparse.Namespace:
+    """--user-dir and --config, read before the parser is built: the
+    plugin's imports register the names the parser's --task choices list."""
+    q = argparse.ArgumentParser(add_help=False, allow_abbrev=False)
+    q.add_argument("--user-dir")
+    q.add_argument("--config")
+    pre, _ = q.parse_known_args(argv)
+    registry.import_user_module(pre.user_dir)
+    return pre
+
+
+def apply_config(p: argparse.ArgumentParser, path: Optional[str]) -> None:
+    """--config's YAML as the parser's defaults, under the explicit flags
+    (JAX cli/args.py:38-67): keys are flag names with underscores (dashes
+    taken too), a mapping that names no flag is a hydra group whose keys
+    are read in turn, and a key that names no flag is an error."""
+    if not path:
+        return
+    import yaml
+
+    with open(path) as f:
+        tree = yaml.safe_load(f) or {}
+    actions = {a.dest: a for a in p._actions}
+    flat = {}
+
+    def walk(node: dict) -> None:
+        for key, value in node.items():
+            key = str(key).replace("-", "_")
+            if isinstance(value, dict) and key not in actions:
+                walk(value)
+            else:
+                flat[key] = value
+
+    walk(tree)
+    unknown = sorted(k for k in flat if k not in actions or k in ("help", "config", "user_dir"))
+    if unknown:
+        p.error(f"--config {path}: no flags {unknown}")
+    for key in flat:
+        actions[key].required = False
+    p.set_defaults(**flat)
+
+
 def parse_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
+    pre = preparse(argv)
     p = build_parser(__doc__.split("\n")[0])
+    apply_config(p, pre.config)
     return check_args(p, p.parse_args(argv))
+
+
+def build_criterion(task, args: argparse.Namespace):
+    """The criterion --criterion names: fairseq's name for a ported one or
+    a plugin's (`criterions.aliases.CRITERIONS`), else the task's own."""
+    named = aliases.CRITERIONS.get(args.criterion)
+    return named(args, task) if named is not None else task.build_criterion()
 
 
 def trainer_config(args: argparse.Namespace) -> TrainerConfig:
@@ -757,7 +858,8 @@ def validate_split(task, trainer: Trainer, args: argparse.Namespace,
     generator = torch.Generator(device=device).manual_seed(0)
     with metrics_mod.aggregate() as agg:
         for batch in iterate_valid(dataset, args.max_tokens, max_positions(args)):
-            trainer.valid_step(task.prepare_batch(batch, np_rng), generator)
+            # on a copy: a dummy task's batch is the same dict every time
+            trainer.valid_step(task.prepare_batch(dict(batch), np_rng), generator)
     return agg.get_smoothed_values()
 
 
@@ -792,7 +894,9 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
         model = task.build_model()
     task.load_frozen_params(model)
 
-    def make_epoch_itr(ds) -> EpochBatchIterator:
+    def make_epoch_itr(ds):
+        if not hasattr(ds, "collater"):  # a dummy task's synthetic batches
+            return SyntheticEpochIterator(ds)
         return EpochBatchIterator(
             ds, max_tokens=args.max_tokens, max_sentences=args.batch_size,
             required_batch_size_multiple=args.required_batch_size_multiple, seed=args.seed,
@@ -801,13 +905,15 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
 
     dataset = task.dataset(args.train_subset)
     epoch_itr = make_epoch_itr(dataset)
-    # JAX builds its example batch from dataset[0] here, on every start, before
-    # a checkpoint is restored (cli/train.py:141-144): the item is thrown away,
-    # but the draw advances the dataset's SpecAugment generator as JAX's does
-    dataset[0]
+    if hasattr(dataset, "collater"):
+        # JAX builds its example batch from dataset[0] here, on every start,
+        # before a checkpoint is restored (cli/train.py:141-144): the item is
+        # thrown away, but the draw advances the dataset's SpecAugment
+        # generator as JAX's does
+        dataset[0]
     # the master weights are restored before the trainer casts its working copy
     state, extra, lr_state = restore(args, ckpt, model, device, task.frozen_param_keys)
-    trainer = Trainer(trainer_config(args), model, task.build_criterion(),
+    trainer = Trainer(trainer_config(args), model, build_criterion(task, args),
                       frozen_keys=task.frozen_param_keys)
     n_params = sum(p.numel() for p in trainer.params)
     logger.info("model params (trainable): %.2fM on %s, forward in %s", n_params / 1e6,
@@ -839,8 +945,9 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
         return vals.get(args.best_checkpoint_metric)
 
     def prepare(micro):
-        """A group's batches prepared (their draws, in order) and on the card."""
-        return [trainer.upload(task.prepare_batch(b, np_rng)) for b in micro]
+        """A group's batches prepared (their draws, in order, on a copy: a
+        dummy task's batch is the same dict every step) and on the card."""
+        return [trainer.upload(task.prepare_batch(dict(b), np_rng)) for b in micro]
 
     def save(epoch: int, metric: Optional[float]) -> None:
         sidecar = {"epoch": epoch, "iterator": epoch_itr.state_dict()}

@@ -14,8 +14,9 @@ speech-to-text and text translation: translation, cmlm_cg and
 translation_lev on a bitext or cli.preprocess's binarized pairs, SEDD's
 sedd / sedd_lm and the unit LM's unit_lm / language_modeling on the unit
 manifests, wav2vec2's audio_pretraining, HuBERT's hubert_pretraining and
-the CTC fine-tune's audio_finetuning) with cli.train's model,
-data and task flags; `--path` is a step directory or a .npz
+the CTC fine-tune's audio_finetuning, and each family's dummy task on its
+synthetic batches) with cli.train's model, data and task flags, its
+criterion names, --user-dir and --config; `--path` is a step directory or a .npz
 (weights.save_npz), a `cli.convert_checkpoint` output included. The
 batches' draws come from `np.random.default_rng(--seed)`, the criterion's
 (the VAE's posterior sample, the normalizer's times and noises, SEDD's
@@ -46,9 +47,11 @@ logger = logging.getLogger("diffnorm_tpu_torch.validate")
 
 
 def parse_args(argv: Optional[Sequence[str]] = None):
+    pre = train_cli.preparse(argv)
     p = train_cli.build_parser(__doc__.split("\n")[0], train=False)
     p.add_argument("--path", required=True,
                    help="the checkpoint: a step directory or a weights.save_npz file")
+    train_cli.apply_config(p, pre.config)
     return train_cli.check_args(p, p.parse_args(argv))
 
 
@@ -62,10 +65,11 @@ def validate(args) -> Dict[str, float]:
     from_jax_variables(model, load_variables(args.path))
     logger.info("restored %s", args.path)
     trainer = Trainer(TrainerConfig(dtype=args.dtype, seed=args.seed), model,
-                      task.build_criterion(), frozen_keys=task.frozen_param_keys)
+                      train_cli.build_criterion(task, args), frozen_keys=task.frozen_param_keys)
     dataset = task.dataset(args.valid_subset)
-    # JAX draws its example item before the state's init (validate.py:49-53)
-    dataset[0]
+    if hasattr(dataset, "collater"):  # not a dummy task's synthetic batches
+        # JAX draws its example item before the state's init (validate.py:49-53)
+        dataset[0]
     vals = train_cli.validate_split(task, trainer, args, np.random.default_rng(args.seed),
                                     device, args.valid_subset)
     return vals or {}

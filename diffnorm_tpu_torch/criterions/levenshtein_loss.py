@@ -67,9 +67,12 @@ class LevenshteinLoss:
                       "sample_size": ntokens}
 
 
-def nat_loss(arch: str, label_smoothing: Optional[float] = None):
+def nat_loss(arch: str, label_smoothing: Optional[float] = None,
+             multitask: Optional[Dict] = None):
     """fairseq's nat_loss for `arch` (module docstring), each criterion at
-    its own default smoothing where `label_smoothing` is None."""
+    its own default smoothing where `label_smoothing` is None; `multitask`:
+    the NAR model's aux heads ({task: SingleTaskConfig})."""
     if "levenshtein" in arch:
         return LevenshteinLoss(0.1 if label_smoothing is None else label_smoothing)
-    return NARSpeechToUnitLoss(0.2 if label_smoothing is None else label_smoothing)
+    return NARSpeechToUnitLoss(0.2 if label_smoothing is None else label_smoothing,
+                               multitask=multitask)

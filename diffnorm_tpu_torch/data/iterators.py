@@ -312,10 +312,37 @@ class EpochBatchIterator:
         self._batches = None
 
 
+class SyntheticEpochIterator:
+    """EpochBatchIterator's interface over a dummy task's batches (a dataset
+    without a collater, JAX cli/train.py:140-147): every epoch yields them as
+    they are, and there is no position inside an epoch to keep."""
+
+    def __init__(self, dataset):
+        self.dataset, self.epoch = dataset, 1
+
+    def next_epoch_itr(self) -> Iterator[Dict[str, np.ndarray]]:
+        return iter(self.dataset)
+
+    def mark_trained(self, n_batches: int) -> None:
+        pass
+
+    def finish_epoch(self) -> None:
+        self.epoch += 1
+
+    def state_dict(self) -> Dict[str, Any]:
+        return {"epoch": self.epoch}
+
+    def load_state_dict(self, state: Dict[str, Any]) -> None:
+        self.epoch = state.get("epoch", 1)
+
+
 def iterate_valid(dataset, max_tokens: Optional[int] = None,
                   max_positions: MaxPositions = None) -> Iterator[Dict[str, np.ndarray]]:
     """A validation pass, unshuffled, on the calling thread; an over-long
     sample raises, as fairseq's valid iterator does without
-    --skip-invalid-size-inputs-valid-test."""
+    --skip-invalid-size-inputs-valid-test. A dummy task's batches come as
+    they are."""
+    if not hasattr(dataset, "collater"):
+        return iter(dataset)
     return EpochBatchIterator(dataset, max_tokens, shuffle=False, max_positions=max_positions,
                               num_prefetch=0).next_epoch_itr()

@@ -9,7 +9,8 @@ With --n-frames-per-step k > 1 the decoder reads the packed ids
 or speech_to_unit with the aux tasks' terms. UnitY (--arch unity_conformer
 or s2ut_conformer_translatotron2, `models/unity.py`) trains here too, its
 first-pass decoder the multitask task `mt_task_name` picks, with
-speech_to_unit_2pass."""
+speech_to_unit_2pass. `dummy_batch` is the NAR task's batch, its
+canvas dropped, prepared again (JAX ar_s2ut_task.py:120-123)."""
 
 from __future__ import annotations
 
@@ -52,6 +53,11 @@ class ARS2UTTask(NARS2UTTask):
             batch["prev_output_tokens"] = shift_right(target)
         self.inject_loss_weights(batch)
         return batch
+
+    def dummy_batch(self, batch_size: int = 2, seq_len: int = 48) -> Dict:
+        batch = super().dummy_batch(batch_size, seq_len)
+        batch.pop("prev_target", None)
+        return self.prepare_batch(batch, np.random.default_rng(0))
 
     def build_model(self):
         a = self.args

@@ -120,5 +120,7 @@ class AudioPretrainingTask(Task):
 
 
 class DummyWav2Vec2Task(AudioPretrainingTask):
+    synthetic = True
+
     def load_dataset(self, split: str, epoch: int = 1) -> None:
         self.datasets[split] = dummy_dataset(self, 8000, default_batch=2, default_size=4)

@@ -18,6 +18,8 @@ from torch import nn
 class Task:
     # top-level submodules of the model that the optimizer leaves alone
     frozen_param_keys: Tuple[str, ...] = ()
+    # a dummy task: synthetic batches, no data on disk
+    synthetic: bool = False
 
     def __init__(self, args: argparse.Namespace):
         self.args = args

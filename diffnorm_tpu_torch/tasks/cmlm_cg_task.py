@@ -30,7 +30,6 @@ from typing import Dict, List, Optional
 
 import numpy as np
 
-from diffnorm_tpu_torch.criterions.levenshtein_loss import nat_loss
 from diffnorm_tpu_torch.criterions.nar_loss import NARSpeechToUnitLoss
 from diffnorm_tpu_torch.data.dictionary import Dictionary
 from diffnorm_tpu_torch.data.indexed_dataset import IndexedDataset
@@ -147,9 +146,7 @@ class CMLMCGTask(NARS2UTTask):
     def build_model(self) -> TextCMLMModule:
         return TextCMLMModule(cg_prob=self.args.cg_prob, **self.model_widths())
 
-    def build_criterion(self):
-        if self.args.criterion == "nat_loss":
-            return nat_loss(self.args.arch, self.args.label_smoothing)
+    def build_criterion(self) -> NARSpeechToUnitLoss:
         return NARSpeechToUnitLoss(self.args.label_smoothing)
 
     def random_pair(self, batch_size: int, seq_len: int, rng: np.random.Generator):
@@ -182,5 +179,7 @@ def dummy_dataset(task, default_len: int, default_batch: int = 4, default_size: 
 
 
 class DummyCMLMCGTask(CMLMCGTask):
+    synthetic = True
+
     def load_dataset(self, split: str, epoch: int = 1) -> None:
         self.datasets[split] = dummy_dataset(self, 16)

@@ -118,5 +118,7 @@ class HubertPretrainingTask(Task):
 
 
 class DummyHubertTask(HubertPretrainingTask):
+    synthetic = True
+
     def load_dataset(self, split: str, epoch: int = 1) -> None:
         self.datasets[split] = dummy_dataset(self, 8000, default_batch=2, default_size=4)

@@ -16,7 +16,7 @@ The keep probability reaches 0, so the empty [BOS, EOS] canvas, where a
 decode starts, stays in the training distribution. The model is
 `models/levenshtein.py`'s, the criterion levenshtein_loss (nat_loss
 dispatches to it). `DummyLevenshteinTask` ("dummy_lev") trains on
-`dataset_size` copies of `dummy_batch`, in process.
+`dataset_size` copies of `dummy_batch`, in process or through cli.train.
 """
 
 from __future__ import annotations
@@ -76,5 +76,7 @@ class LevenshteinTask(CMLMCGTask):
 
 
 class DummyLevenshteinTask(LevenshteinTask):
+    synthetic = True
+
     def load_dataset(self, split: str, epoch: int = 1) -> None:
         self.datasets[split] = dummy_dataset(self, 12)

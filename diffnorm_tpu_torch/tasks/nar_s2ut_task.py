@@ -15,6 +15,7 @@ weights in each batch. --multitask-ctc-vocab adds the model's `ctc_proj`
 head, scored against a batch's `ctc_target` where one is given;
 --target-speaker-embed the speaker projection, fed the dataset's
 `tgt_speaker` (the data config's `target_speaker_embed` directory).
+`dummy_batch` is JAX's synthetic batch, prepared (nar_s2ut_task.py:139-160).
 """
 
 from __future__ import annotations
@@ -113,6 +114,27 @@ class NARS2UTTask(MultitaskTaskMixin, Task):
             batch["prev_target"] = random_mask(target, rng)
         self.inject_loss_weights(batch)
         return batch
+
+    def dummy_batch(self, batch_size: int = 2, seq_len: int = 48) -> Dict:
+        """Normal fbank sources [B, seq_len, 80] (the last row's length
+        max(seq_len // 2, 9)) and max(seq_len // 4, 4) target units a row
+        ending in EOS (the last row's EOS at half length, pad after it), from
+        a generator seeded 0 that `prepare_batch` then draws from (JAX
+        nar_s2ut_task.py:139-160)."""
+        rng = np.random.default_rng(0)
+        tgt_len = max(seq_len // 4, 4)
+        src_lengths = np.full((batch_size,), seq_len, dtype=np.int32)
+        src_lengths[-1] = max(seq_len // 2, 9)
+        target = rng.integers(4, 4 + self.args.target_code_size,
+                              size=(batch_size, tgt_len)).astype(np.int32)
+        target[:, -1] = EOS
+        # the short row keeps an EOS before its pad tail
+        target[-1, tgt_len // 2:] = PAD
+        target[-1, tgt_len // 2] = EOS
+        feat = self.args.input_feat_per_channel
+        batch = {"src_tokens": rng.normal(size=(batch_size, seq_len, feat)).astype(np.float32),
+                 "src_lengths": src_lengths, "target": target}
+        return self.prepare_batch(batch, rng)
 
     def build_model(self) -> NARS2UTModule:
         a = self.args

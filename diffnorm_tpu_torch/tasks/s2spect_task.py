@@ -20,7 +20,7 @@ The models are `s2spect_transformer`, `s2spect_transformer_fisher`,
 `s2spect2_conformer` (`models/s2spect2.py`, which needs the first-pass task
 of --multitask-config-yaml); the criterions `criterions/tts_loss.py`'s.
 `DummyS2SpectTask` ("dummy_s2spect") trains on identical synthetic batches
-(`dummy_batch`), in process; cli.train takes no dummy task.
+(`dummy_batch`), in process or through cli.train without DATA.
 """
 
 from __future__ import annotations
@@ -196,6 +196,8 @@ class S2SpectTask(MultitaskTaskMixin, Task):
 class DummyS2SpectTask(S2SpectTask):
     """`dataset_size` identical batches of `dummy_batch(batch_size,
     tokens_per_sample)`, as a list."""
+
+    synthetic = True
 
     def load_dataset(self, split: str, epoch: int = 1) -> None:
         a = self.args

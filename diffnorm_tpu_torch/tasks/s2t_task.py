@@ -11,7 +11,7 @@ dictionary of --target-code-size symbols; the manifests are
 right behind an EOS (`prev_output_tokens`). cli.generate decodes it with
 the AR branch (`ar_generation`): beam search, sampling or
 --score-reference. `DummyS2TTask` ("dummy_s2t") trains on `dataset_size`
-copies of `dummy_batch`, in process; cli.train takes no dummy task.
+copies of `dummy_batch`, in process or through cli.train without DATA.
 
 "audio_finetuning" (`AudioFinetuningTask`, JAX s2t_task.py:111-220;
 reference fairseq/tasks/audio_finetuning.py) is the CTC fine-tune on the
@@ -27,7 +27,7 @@ fairseq .pt or a cli.train step directory of hubert_pretraining or
 audio_pretraining) when the model is built; cli.train drops it when it
 resumes its own checkpoint. cli.generate decodes it greedily
 (`ctc_generation`). `DummyCTCTask` ("dummy_ctc") serves copies of JAX's
-unprepared `dummy_batch`, in process.
+unprepared `dummy_batch`, in process or through cli.train.
 """
 
 from __future__ import annotations
@@ -118,6 +118,8 @@ class DummyS2TTask(S2TTask):
     """`dataset_size` identical batches of `dummy_batch(batch_size,
     tokens_per_sample)` (defaults 8, 4 and 48, JAX's), as a list."""
 
+    synthetic = True
+
     def load_dataset(self, split: str, epoch: int = 1) -> None:
         a = self.args
         batch = self.dummy_batch(getattr(a, "batch_size", None) or 4,
@@ -178,5 +180,7 @@ class AudioFinetuningTask(S2TTask):
 
 
 class DummyCTCTask(AudioFinetuningTask):
+    synthetic = True
+
     def load_dataset(self, split: str, epoch: int = 1) -> None:
         self.datasets[split] = dummy_dataset(self, 2000, default_batch=2, default_size=4)

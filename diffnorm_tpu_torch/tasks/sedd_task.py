@@ -89,5 +89,7 @@ class SEDDTask(Task):
 
 
 class DummySEDDTask(SEDDTask):
+    synthetic = True
+
     def load_dataset(self, split: str, epoch: int = 1) -> None:
         self.datasets[split] = dummy_dataset(self, 32)

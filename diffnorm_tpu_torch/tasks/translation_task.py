@@ -7,7 +7,7 @@ shifted right behind an EOS (`prev_output_tokens`), the AR text transformer
 transformer_wmt_en_de_big) and label_smoothed_cross_entropy. cli.generate
 decodes it with the AR branch (`ar_generation`): fairseq's beam search.
 `DummyTranslationTask` ("dummy_translation") trains on `dataset_size`
-copies of `dummy_batch`, in process.
+copies of `dummy_batch`, in process or through cli.train.
 """
 
 from __future__ import annotations
@@ -48,5 +48,7 @@ class TranslationTask(CMLMCGTask):
 
 
 class DummyTranslationTask(TranslationTask):
+    synthetic = True
+
     def load_dataset(self, split: str, epoch: int = 1) -> None:
         self.datasets[split] = dummy_dataset(self, 16)

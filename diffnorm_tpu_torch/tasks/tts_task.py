@@ -20,7 +20,7 @@ text, else `vocab_size` - 4 numbered symbols; the target dictionary is the
 source's. The arch picks the forward: FastSpeech2 takes the tokens and the
 gold variances, the tts_transformer the teacher-forced frames.
 `DummyTTSTask` ("dummy_tts") trains on `dataset_size` copies of
-`dummy_batch`, in process; cli.train takes no dummy task.
+`dummy_batch`, in process or through cli.train without DATA.
 """
 
 from __future__ import annotations
@@ -199,6 +199,8 @@ class DummyTTSTask(TextToSpeechTask):
     """`dataset_size` identical batches of `dummy_batch(batch_size,
     tokens_per_sample)` (defaults 8, 4 and 16, JAX's), as a list, over a
     dictionary of `vocab_size` symbols."""
+
+    synthetic = True
 
     def _build_dict(self) -> Dictionary:
         d = Dictionary()

@@ -175,7 +175,7 @@ def test_cli_refusals(tmp_path):
     gen = [str(tmp_path), "--cpu", "--path", "ar.npz", "--task", "speech_to_speech_ar"]
     with pytest.raises(SystemExit):
         generate.parse_args(gen + ["--quant-int8"])
-    with pytest.raises(NotImplementedError, match="item 6"):  # UnitY is ported since
+    with pytest.raises(NotImplementedError, match="no decode branch"):  # UnitY is ported since
         generate.parse_args(gen + ["--arch", "fastspeech2"])
     args = generate.parse_args(gen + ["--arch", "s2ut_conformer", "--encoder-embed-dim", "64"])
     assert (args.encoder_embed_dim, args.decoder_embed_dim, args.encoder_layers) == (64, 512, 12)

@@ -56,7 +56,10 @@ NEW_MODULES = ("models/stacked.py", "models/ar_transformer.py", "data/encoders.p
                "utils/masking.py", "models/hubert.py", "models/wav2vec2.py",
                "data/hubert_dataset.py", "tasks/hubert_pretrain_task.py",
                "tasks/audio_pretrain_task.py", "criterions/hubert_loss.py",
-               "criterions/wav2vec_loss.py", "criterions/ctc_loss.py", "generate/ctc.py")
+               "criterions/wav2vec_loss.py", "criterions/ctc_loss.py", "generate/ctc.py",
+               "ops/speech_norm.py", "ops/lightconv.py", "ops/alignment.py", "tasks/dummy.py",
+               "criterions/aliases.py", "registry.py", "cli/speech_norm.py",
+               "cli/hydra_train.py")
 
 
 def test_no_jax_imports_in_the_port():
@@ -159,6 +162,14 @@ def test_port_imports_with_jax_blocked():
             "import diffnorm_tpu_torch.cli.eval_lm\n"
             "import diffnorm_tpu_torch.models.gaussian_diffusion\n"
             "import diffnorm_tpu_torch.models.moe\n"
+            "import diffnorm_tpu_torch.ops.speech_norm\n"
+            "import diffnorm_tpu_torch.ops.lightconv\n"
+            "import diffnorm_tpu_torch.ops.alignment\n"
+            "import diffnorm_tpu_torch.tasks.dummy\n"
+            "import diffnorm_tpu_torch.criterions.aliases\n"
+            "import diffnorm_tpu_torch.registry\n"
+            "import diffnorm_tpu_torch.cli.speech_norm\n"
+            "import diffnorm_tpu_torch.cli.hydra_train\n"
             "from diffnorm_tpu_torch.eval.bleu import corpus_bleu, scorer_name\n"
             "assert scorer_name() == 'counters', scorer_name()\n"
             "assert corpus_bleu(['1 2 3 4 5'], ['1 2 3 4 5']) == 100.0\n"

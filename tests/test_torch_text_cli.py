@@ -260,8 +260,10 @@ def test_levenshtein_interactive_fault_of_the_reference(binarized, trained, tmp_
 
 def test_cli_refusals(binarized, capsys):
     """--share-all-embeddings (as JAX's build_model refuses it), the NAR
-    model's options on the text tasks, cli.interactive on a speech task, and
-    cli.generate's AR S2UT reranker on a text task."""
+    model's options on the text tasks, cli.interactive on a speech task
+    without its route (speech_to_text; the S2UT tasks' lines are taken
+    since: tests/test_torch_runtime.py), and cli.generate's AR S2UT
+    reranker on a text task."""
     base = [str(binarized), "--cpu", "--max-update", "1"]
     for extra, message in (
             (["--task", "translation", "--share-all-embeddings"], "--share-all-embeddings"),
@@ -273,8 +275,9 @@ def test_cli_refusals(binarized, capsys):
         with pytest.raises(SystemExit):
             train.parse_args(base + extra)
         assert message in capsys.readouterr().err
-    with pytest.raises(NotImplementedError, match="Queue 1 item 7"):
-        interactive.parse_args([str(binarized), "--cpu", "--path", "x"])
+    with pytest.raises(NotImplementedError, match="takes text lines"):
+        interactive.parse_args([str(binarized), "--cpu", "--path", "x", "--task",
+                                "speech_to_text"])
     with pytest.raises(SystemExit):  # the reranker is an AR S2UT model
         generate.parse_args([str(binarized), "--cpu", "--task", "cmlm_cg", "--path", "x",
                              "--rerank-path", "ar.npz"])

@@ -237,5 +237,5 @@ def test_cli_refusals_and_arch_defaults(tmp_path):
     gen = [str(tmp_path), "--cpu", "--path", "m.npz"]
     assert generate.parse_args(gen + ["--task", "text_to_speech", "--arch",
                                       "fastspeech2"]).model.criterion == "fastspeech2_loss"
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 6"):
+    with pytest.raises(NotImplementedError, match="no decode branch"):
         generate.parse_args(gen + ["--task", "speech_to_text", "--arch", "cmlm_transformer"])

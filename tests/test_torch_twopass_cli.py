@@ -162,8 +162,9 @@ def test_translatotron2_cli_train_generate_validate(tmp_path):
 
 def test_cli_refusals(tmp_path):
     """fastspeech2 is not a spectrogram translator (it is text_to_speech's,
-    ported since: tests/test_torch_tts_s2t_cli.py) and SEDD is not ported
-    (ROADMAP; text MT is since: tests/test_torch_text_cli.py); a two-pass model trains with its own criterion alone,
+    ported since: tests/test_torch_tts_s2t_cli.py) and SEDD has no decode
+    branch (it samples in process, as in JAX; text MT is ported since:
+    tests/test_torch_text_cli.py); a two-pass model trains with its own criterion alone,
     and a single-pass one not with it; --task speech_to_speech picks its
     task on --target-is-code."""
     from diffnorm_tpu_torch.cli import generate, train
@@ -171,7 +172,7 @@ def test_cli_refusals(tmp_path):
     base = [str(tmp_path), "--cpu", "--path", "m.npz"]
     for extra in (["--task", "sedd"],
                   ["--task", "speech_to_speech", "--arch", "fastspeech2"]):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
+        with pytest.raises(NotImplementedError, match="no decode branch"):
             generate.parse_args(base + extra)
     tr = [str(tmp_path), "--cpu", "--max-update", "1", "--task", "speech_to_speech"]
     with pytest.raises(SystemExit):
