@@ -419,6 +419,28 @@ encoder's [2,12,2249,64], keys 2249 and 1599, in both types.
    cli.interactive on the dummy_nar checkpoint with two .npy lines; (e) the
    wavenet_chain launches of the VAE runs' encoder are added to that
    kernel's row.
+30. Data parallelism (parallel/, the trainer's --zero-sharding os and
+   --fsdp). The card holds one H100 and NCCL takes one rank a device, so two
+   ranks share cuda:0 over gloo (the port stages each collective on CUDA
+   tensors through host memory under gloo), started once as processes of
+   this script (dp_worker); rank 0 also makes the one-process runs. Each
+   against the one-process run at the released widths: (a) DDIM B64 x
+   T128, 49 steps, bf16, one block of rows a rank: units equal, both timed;
+   (b) two float32 normalizer updates (dropout 0, sgd with momentum, the
+   trainer's own draws) on B33 x T128 split 17 + 16, replicated,
+   --zero-sharding os and --fsdp: the first loss within DP_LOSS_REL and the
+   masters' update within DP_UPDATE_REL, each rank's ms and peak memory;
+   (c) the long-form S2ST decode (B2 x 8448) in float32, a row a rank (in
+   bf16 the random decoder's near-ties part the units of any two batch
+   shapes): units equal, waveform within LONG_WAV_ROW_COS,
+   flash_attention_f32 counted; (d) cli.train of the normalizer at
+   CLI_NORMALIZER's depth at 2 ranks with --fsdp --zero-sharding os in
+   bf16, then cli.validate at one rank on its checkpoint against the run's
+   own validation loss; (e) cli.diff_norm_synthesis --data-parallel 2 on
+   it: test.tsv byte for byte the one-process run's. Before the ranks, a
+   process group of one rank over NCCL in this process runs the same code
+   (a DDIM and an update at CLI_NORMALIZER's depth against the run without
+   a group). Only world sizes 1 (NCCL) and 2 (gloo, one device) run here.
 Then one JSON line of per-kernel numbers and, last, {"ok": true, "device": ...}.
 Exits non-zero without CUDA, and in a directory without the port.
 """
@@ -2387,9 +2409,10 @@ def s2st_models(torch):
     return nar, voc.module
 
 
-def seeded_nar(torch, seed: int):
+def seeded_nar(torch, seed: int, dtype=None):
     """The released nar_s2ut_conformer from `seed`, the specials' rows of
-    its shared embedding zeroed and the unit rows scaled by 10; bf16."""
+    its shared embedding zeroed and the unit rows scaled by 10; bf16 (or
+    `dtype`)."""
     from diffnorm_tpu_torch.models.nar_transformer import NARS2UTModule
 
     torch.manual_seed(seed)
@@ -2399,7 +2422,7 @@ def seeded_nar(torch, seed: int):
         emb = nar.decoder.embed_tokens.weight
         emb[:4] = 0.0
         emb[4:] *= 10.0
-    return nar.to(torch.bfloat16).eval()
+    return nar.to(dtype or torch.bfloat16).eval()
 
 
 def s2st_inputs(torch, b, frames, seed=0):
@@ -8942,6 +8965,490 @@ def run_speech_norm_runtime(torch, mods, smi):
     return launches
 
 
+# Phase 30: data parallelism (module docstring). Two ranks share the one
+# card over gloo (NCCL takes one rank a device), each collective on CUDA
+# tensors staged through host memory by the port (parallel/mesh.py); one
+# rank over NCCL runs the same code in the script's own process.
+DP_WORLD = 2
+DP_RANK_TIMEOUT_S = 300  # each rank's gloo timeout and the phase's wait for the ranks
+DP_TRAIN_B = 33  # (b)'s rows: 17 + 16 over the two ranks
+DP_TRAIN = dict(optimizer="sgd", options={"momentum": 0.9}, lr=1e-2, lr_scheduler="fixed",
+                clip_norm=2.0, seed=42)
+DP_MODES = {"replicated": {}, "--zero-sharding os": {"zero_sharding": "os"},
+            "--fsdp": {"fsdp": True}}
+# (b)'s bounds against the one-process run, in float32, stated in PERF.md
+# before the run that tested them: the first update's loss, and the update
+# the two updates made to the masters (relative L2 over the trainable
+# masters); a rank's weight gradients sum its own rows, so the sums split
+# where the one process's do not. (b) runs in float32: in bf16 that rounding
+# moves the random-init normalizer's gradient by tens of percent (PERF.md,
+# PR 26: 0.245 of the update against a first loss within 1.7e-4; phase 8's
+# kernels against plain versions, the same kind of rounding, give 4.5e-3 in
+# the gradient norm). (d)'s cli.train trains in bf16
+DP_LOSS_REL, DP_UPDATE_REL = 1e-5, 1e-3
+# bf16 forwards: (d)'s 2-rank validation loss against cli.validate at one
+# rank, and the one-rank NCCL update's loss against the run without a group
+DP_VALID_REL = DP_NCCL_LOSS_REL = 2e-3
+DP_SYNTH_UTTS, DP_SYNTH_BATCH = 7, 3  # (e): batches of 3, 3 and 1 rows, padded to 4, 4, 2
+DP_ONE_RANK_B = 8  # the one-rank NCCL group's DDIM and update rows
+
+
+def dp_flat(torch, model, names):
+    """The parameters `names` of `model`, flat in float32."""
+    params = dict(model.named_parameters())
+    return torch.cat([params[n].detach().float().reshape(-1) for n in names])
+
+
+def dp_ddim(torch, mesh, launches):
+    """(a) at full width: DDIM B64 x T128, START_STEP - 1 steps, bf16, its rows
+    split over the ranks, against the one-process run (rank 0)."""
+    from diffnorm_tpu_torch.models.diffusion import LatentDiffusionModule, ddim_sample
+    from diffnorm_tpu_torch.ops import _build
+
+    torch.manual_seed(0)
+    with torch.device("cuda"):
+        model = LatentDiffusionModule()
+    model = model.to(torch.bfloat16).eval()
+    g = torch.Generator(device="cuda").manual_seed(1)
+    feature = torch.randn(B, T, 768, generator=g, device="cuda")
+    mask = torch.ones(B, T, dtype=torch.bool, device="cuda")
+    enc, init = (torch.randn(B, T, 128, generator=g, device="cuda") for _ in range(2))
+
+    def run(m, stride=1):
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        out = ddim_sample(model, feature, mask, start_step=START_STEP, stride=stride,
+                          enc_noise=enc, init_noise=init, device="cuda", mesh=m)
+        torch.cuda.synchronize()
+        return out, time.perf_counter() - t1
+
+    run(mesh, stride=START_STEP)  # warm-up: one denoiser call
+    mesh.barrier()
+    _build.launch_counts.clear()
+    (units, recon), wall = run(mesh)
+    counted = dict(_build.launch_counts)
+    for k, v in counted.items():
+        launches[k] = launches.get(k, 0) + v
+    out = {"wall": wall, "launches": counted}
+    if mesh.index == 0:
+        (ref, ref_recon), out["wall_one"] = run(None)
+        out["units_differ"] = int((units != ref).sum().item())
+        out["recon_max_abs"] = (recon.float() - ref_recon.float()).abs().max().item()
+        out["shape"] = list(units.shape)
+    mesh.barrier()
+    return out
+
+
+def dp_updates(torch, mesh, launches):
+    """(b) at full width: two float32 normalizer updates (dropout 0, draws
+    made by the trainer) on B33 x T128, replicated, with --zero-sharding os
+    and with --fsdp, against the one-process run (rank 0): losses, gradient
+    norms, the masters' update, ms and peak memory per rank."""
+    from diffnorm_tpu_torch.criterions.ddpm_loss import DDPMDiscreteLoss
+    from diffnorm_tpu_torch.models.diffusion import LatentDiffusionModule
+    from diffnorm_tpu_torch.ops import _build
+    from diffnorm_tpu_torch.train.trainer import Trainer, TrainerConfig
+
+    micros = [{k: v for k, v in batch.items() if not k.startswith("inject_")}
+              for batch in train_batches(torch, 2, 80, "ddpm", b=DP_TRAIN_B)]
+    def run(extra, m):
+        torch.manual_seed(11)
+        with torch.device("cuda"):
+            model = LatentDiffusionModule(dropout=0.0)
+        names = [n for n, _ in model.named_parameters() if not n.startswith("vae.")]
+        start = dp_flat(torch, model, names).cpu()
+        trainer = Trainer(TrainerConfig(**DP_TRAIN, **extra), model, DDPMDiscreteLoss(),
+                          ("vae",), mesh=m)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        rows = []
+        _build.launch_counts.clear()
+        for batch in micros:
+            t1 = time.perf_counter()
+            mets = trainer.train_step([batch])
+            torch.cuda.synchronize()
+            rows.append((mets["loss"], mets["gnorm"], 1e3 * (time.perf_counter() - t1)))
+        peak = torch.cuda.max_memory_allocated() / 1e9
+        counted = dict(_build.launch_counts)
+        with trainer.gathered_master() as master:
+            delta = dp_flat(torch, master, names).cpu() - start
+        del trainer, model
+        torch.cuda.empty_cache()
+        return rows, peak, delta, counted
+
+    out, ref = {}, None
+    if mesh.index == 0:
+        rows, peak, ref, _ = run({}, None)
+        out["one process"] = {"rows": rows, "peak_gb": peak}
+    mesh.barrier()
+    for mode, extra in DP_MODES.items():
+        rows, peak, delta, counted = run(extra, mesh)
+        for k, v in counted.items():
+            launches[k] = launches.get(k, 0) + v
+        out[mode] = {"rows": rows, "peak_gb": peak, "launches": counted}
+        if ref is not None:
+            out[mode]["update_rel"] = ((delta - ref).norm() / ref.norm()).item()
+        mesh.barrier()
+    return out
+
+
+def dp_s2st(torch, mesh, launches):
+    """(c): the long-form S2ST chain (B2 x 8448 frames) in float32 with its
+    rows split over the ranks, against the one-process run (rank 0)."""
+    from diffnorm_tpu_torch.generate.s2st import s2st_generate
+    from diffnorm_tpu_torch.models.hifigan import CodeHiFiGANVocoder
+    from diffnorm_tpu_torch.ops import _build
+
+    nar = seeded_nar(torch, 0, dtype=torch.float32)
+    voc = CodeHiFiGANVocoder.from_config(VOCODER_CFG, device="cuda",
+                                         dtype=torch.float32).module
+    src, lengths = s2st_inputs(torch, LONG_B, LONG_FRAMES)
+
+    def run(m):
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        res = s2st_generate(nar, voc, src, lengths, mesh=m, **S2ST_KW)
+        torch.cuda.synchronize()
+        return res, time.perf_counter() - t1
+
+    run(mesh)  # warm-up
+    mesh.barrier()
+    _build.launch_counts.clear()
+    (wav, _, units, counts, steps), wall = run(mesh)
+    # float32: the launches of the kernel's float32 row
+    counted = {("flash_attention_f32" if k == "flash_attention" else k): v
+               for k, v in _build.launch_counts.items()}
+    for k, v in counted.items():
+        launches[k] = launches.get(k, 0) + v
+    out = {"wall": wall, "launches": counted, "steps": steps.tolist(), "counts": counts.tolist()}
+    if mesh.index == 0:
+        (wav_ref, _, units_ref, counts_ref, _), out["wall_one"] = run(None)
+        out["units_equal"] = bool(torch.equal(units, units_ref)
+                                  and torch.equal(counts, counts_ref))
+        out["wav_row_cos"] = torch.nn.functional.cosine_similarity(
+            wav.float(), wav_ref.float(), dim=-1).min().item()
+        out["finite"] = bool(torch.isfinite(wav.float()).all())
+    mesh.barrier()
+    return out
+
+
+def dp_cli(torch, mesh, root: Path):
+    """(d) cli.train of the normalizer at CLI_NORMALIZER's depth at two ranks
+    with --fsdp --zero-sharding os; (e) cli.diff_norm_synthesis
+    --data-parallel 2 on its checkpoint."""
+    from diffnorm_tpu_torch.cli import diff_norm_synthesis
+    from diffnorm_tpu_torch.cli import train as train_cli
+
+    t1 = time.perf_counter()
+    rc = train_cli.main(json.loads((root / "train_argv.json").read_text()))
+    train_s = time.perf_counter() - t1
+    t1 = time.perf_counter()
+    rc_synth = diff_norm_synthesis.main(json.loads((root / "synth_argv.json").read_text())
+                                        + ["--output-dir", str(root / "synth_dp"),
+                                           "--data-parallel", str(DP_WORLD)])
+    return {"train_rc": rc, "train_s": train_s, "synth_rc": rc_synth,
+            "synth_s": time.perf_counter() - t1}
+
+
+def dp_worker() -> int:
+    """One rank of phase 30 (run_data_parallel starts them): joins the gloo
+    group of the environment on cuda:0, runs (a)-(e)'s data-parallel halves
+    (rank 0 also the one-process runs of (a)-(c)) and writes its results to
+    DP_ROOT/rank{R}.json."""
+    import datetime
+    import os
+
+    import torch
+    import torch.distributed as dist
+
+    rank, world = int(os.environ["RANK"]), int(os.environ["WORLD_SIZE"])
+    root = Path(os.environ["DP_ROOT"])
+    torch.cuda.set_device(0)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dist.init_process_group("gloo", init_method=f"tcp://127.0.0.1:{os.environ['MASTER_PORT']}",
+                            world_size=world, rank=rank,
+                            timeout=datetime.timedelta(seconds=DP_RANK_TIMEOUT_S))
+    from diffnorm_tpu_torch.ops import _build
+    from diffnorm_tpu_torch.parallel.mesh import make_mesh
+
+    _build.build(["rms_norm_film", "wavenet_chain", "flash_attention"])  # built: loads
+    mesh = make_mesh()
+    launches, out, t0 = {}, {}, time.perf_counter()
+    for what, fn in (("ddim", lambda: dp_ddim(torch, mesh, launches)),
+                     ("updates", lambda: dp_updates(torch, mesh, launches)),
+                     ("s2st", lambda: dp_s2st(torch, mesh, launches)),
+                     ("cli", lambda: dp_cli(torch, mesh, root))):
+        t1 = time.perf_counter()
+        out[what] = fn()
+        out[what]["phase_s"] = time.perf_counter() - t1
+    out["launches"], out["wall_s"] = launches, time.perf_counter() - t0
+    (root / f"rank{rank}.json").write_text(json.dumps(out))
+    dist.destroy_process_group()
+    return 0
+
+
+def dp_one_rank_nccl(torch, smi):
+    """A process group of one rank over NCCL in this process: the same
+    data-parallel code with NCCL's collectives (a DDIM and a normalizer
+    update at CLI_NORMALIZER's depth, B8 x T128, against the run without a
+    group; the collectives' shapes on their own). Returns its launches."""
+    import socket
+
+    import torch.distributed as dist
+
+    from diffnorm_tpu_torch.criterions.ddpm_loss import DDPMDiscreteLoss
+    from diffnorm_tpu_torch.models.diffusion import LatentDiffusionModule, ddim_sample
+    from diffnorm_tpu_torch.ops import _build
+    from diffnorm_tpu_torch.parallel.mesh import make_mesh
+    from diffnorm_tpu_torch.train.trainer import Trainer, TrainerConfig
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    t0 = time.perf_counter()
+    dist.init_process_group("nccl", init_method=f"tcp://127.0.0.1:{port}", world_size=1,
+                            rank=0, device_id=torch.device("cuda", 0))
+    try:
+        mesh = make_mesh()
+        if mesh.backend != "nccl":
+            fail(f"one-rank group: backend {mesh.backend}")
+        x = torch.arange(24.0, device="cuda").reshape(2, 3, 4)
+        for got, what in ((mesh.all_reduce(x.clone()), "all_reduce"),
+                          (mesh.all_gather(x, dim=1), "all_gather"),
+                          (mesh.reduce_scatter(x, dim=2), "reduce_scatter"),
+                          (mesh.broadcast(x.clone()), "broadcast"),
+                          (mesh.all_gather_rows(x, 2), "all_gather_rows")):
+            if not torch.equal(got, x):
+                fail(f"one-rank NCCL {what} changed its tensor")
+        torch.manual_seed(0)
+        with torch.device("cuda"):
+            model = LatentDiffusionModule(**CLI_NORMALIZER)
+        model = model.to(torch.bfloat16).eval()
+        g = torch.Generator(device="cuda").manual_seed(1)
+        b = DP_ONE_RANK_B
+        feature = torch.randn(b, T, 768, generator=g, device="cuda")
+        mask = torch.ones(b, T, dtype=torch.bool, device="cuda")
+        launches = {}
+        runs = []
+        for m in (mesh, None):
+            _build.launch_counts.clear()
+            runs.append(ddim_sample(model, feature, mask, start_step=START_STEP, device="cuda",
+                                    generator=torch.Generator(device="cuda").manual_seed(5),
+                                    mesh=m))
+            if m is not None:
+                launches = dict(_build.launch_counts)
+        if not torch.equal(runs[0][0], runs[1][0]):
+            fail("one-rank NCCL ddim_sample: units differ from the run without a group")
+        del model
+        losses = []
+        for m in (mesh, None):
+            torch.manual_seed(11)
+            with torch.device("cuda"):
+                model = LatentDiffusionModule(dropout=0.0, **CLI_NORMALIZER)
+            trainer = Trainer(TrainerConfig(**DP_TRAIN, dtype="bfloat16", zero_sharding="os"),
+                              model, DDPMDiscreteLoss(), ("vae",), mesh=m)
+            batch = {k: v for k, v in train_batches(torch, 1, 81, "ddpm", b=b)[0].items()
+                     if not k.startswith("inject_")}
+            _build.launch_counts.clear()
+            losses.append(trainer.train_step([batch])["loss"])
+            if m is not None:
+                for k, v in _build.launch_counts.items():
+                    launches[k] = launches.get(k, 0) + v
+            del trainer, model
+        if abs(losses[0] - losses[1]) > DP_NCCL_LOSS_REL * abs(losses[1]):
+            fail(f"one-rank NCCL update: loss {losses[0]} against {losses[1]} without a group")
+    finally:
+        dist.destroy_process_group()
+    print(f"data parallel, one rank over NCCL (collectives on CUDA tensors; DDIM B{b}xT{T} and "
+          f"a normalizer update at depth {CLI_NORMALIZER}): units equal to the run without a "
+          f"group, update loss {losses[0]:.6f} against {losses[1]:.6f}, launches {launches}, "
+          f"{time.perf_counter() - t0:.1f} s; {smi}")
+    return launches
+
+
+def dp_write_inputs(root: Path):
+    """cli.train's corpus and argv for (d), a synthesis corpus and argv for (e)."""
+    import numpy as np
+
+    from diffnorm_tpu_torch.data.manifest import write_translation_manifest
+
+    feat_dir = write_train_corpus(root)
+    train_argv = [str(root), "--tgt-feat-dir", str(feat_dir), "--task",
+                  "speech_diffusion_discrete", "--target-code-size", "1000", "--latent-dim",
+                  "128", "--lr", "1e-4", "--warmup-updates", "10000", "--warmup-init-lr",
+                  "1e-7", "--clip-norm", "2.0", "--max-tokens", "1200", "--seed", "42",
+                  "--log-interval", "1", "--dtype", "bfloat16", "--max-update", "2",
+                  "--save-dir", str(root / "ckpt"), "--data-parallel", str(DP_WORLD), "--fsdp",
+                  "--zero-sharding", "os", *normalizer_flags(CLI_NORMALIZER)]
+    (root / "train_argv.json").write_text(json.dumps(train_argv))
+    rng = np.random.default_rng(30)
+    synth = root / "synth"
+    (synth / "feat").mkdir(parents=True)
+    rows, lines = [], [str(synth / "feat")]
+    for i in range(DP_SYNTH_UTTS):
+        units = rng.integers(0, 1000, size=int(rng.integers(40, 129)))
+        units[1::4] = units[::4][:len(units[1::4])]  # runs to reduce
+        np.save(synth / "feat" / f"s{i}.npy",
+                rng.normal(size=(len(units), 768)).astype(np.float32))
+        lines.append(f"s{i}.npy\t{len(units)}")
+        rows.append({"id": f"s{i}", "src_audio": f"s{i}.wav", "src_n_frames": len(units),
+                     "tgt_audio": " ".join(map(str, units)), "tgt_n_frames": len(units)})
+    (synth / "feat" / "test.manifest.tsv").write_text("\n".join(lines) + "\n")
+    write_translation_manifest(str(synth / "test.tsv"), rows)
+    synth_argv = [str(synth), "--params-npz", str(root / "ckpt" / "step_000000002"),
+                  "--tgt-feat-dir", str(synth / "feat"), "--splits", "test", "--batch-size",
+                  str(DP_SYNTH_BATCH), *normalizer_flags(CLI_NORMALIZER)]
+    (root / "synth_argv.json").write_text(json.dumps(synth_argv))
+    return train_argv, synth_argv
+
+
+def dp_spawn(root: Path):
+    """DP_WORLD ranks of dp_worker on the card; each rank's results. Every
+    rank is killed when one fails or the ranks outlive DP_RANK_TIMEOUT_S."""
+    import os
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    repo = Path(__file__).resolve().parent
+    code = (f"import sys; sys.path.insert(0, {str(repo)!r}); import chip_smoke; "
+            f"sys.exit(chip_smoke.dp_worker())")
+    procs = []
+    for rank in range(DP_WORLD):
+        env = dict(os.environ, RANK=str(rank), LOCAL_RANK="0", WORLD_SIZE=str(DP_WORLD),
+                   MASTER_ADDR="127.0.0.1", MASTER_PORT=str(port), DP_ROOT=str(root))
+        log = open(root / f"rank{rank}.log", "w")
+        procs.append((subprocess.Popen([sys.executable, "-c", code], env=env, cwd=repo,
+                                       stdout=log, stderr=subprocess.STDOUT), log))
+    t0, bad = time.perf_counter(), None
+    try:
+        while any(p.poll() is None for p, _ in procs):
+            bad = next((r for r, (p, _) in enumerate(procs) if p.poll() not in (None, 0)), None)
+            if bad is not None or time.perf_counter() - t0 > DP_RANK_TIMEOUT_S:
+                break
+            time.sleep(0.2)
+        bad = next((r for r, (p, _) in enumerate(procs) if p.poll() not in (None, 0)), bad)
+    finally:
+        for p, log in procs:
+            if p.poll() is None:
+                p.kill()
+            p.wait()
+            log.close()
+    if bad is not None or any(not (root / f"rank{r}.json").exists() for r in range(DP_WORLD)):
+        r = bad or 0
+        tail = (root / f"rank{r}.log").read_text()[-3000:]
+        fail(f"data parallel: rank {r} failed or timed out after "
+             f"{time.perf_counter() - t0:.0f} s:\n{tail}")
+    return [json.loads((root / f"rank{r}.json").read_text()) for r in range(DP_WORLD)], \
+        time.perf_counter() - t0
+
+
+def run_data_parallel(torch, mods, smi):
+    """Phase 30 (module docstring). Returns its launches by JSON row: the
+    ranks' data-parallel runs and the one-rank NCCL group's."""
+    from diffnorm_tpu_torch.cli import diff_norm_synthesis, validate
+
+    t0 = time.perf_counter()
+    launches = dp_one_rank_nccl(torch, smi)
+    torch.cuda.empty_cache()  # the card's memory to the ranks' processes
+    with tempfile.TemporaryDirectory() as tmp:
+        root = Path(tmp)
+        train_argv, synth_argv = dp_write_inputs(root)
+        ranks, spawn_s = dp_spawn(root)
+        r0 = ranks[0]
+        for res in ranks:
+            for k, v in res["launches"].items():
+                launches[k] = launches.get(k, 0) + v
+        # (a)
+        a = r0["ddim"]
+        if a["units_differ"] or a["shape"] != [B, T]:
+            fail(f"data-parallel DDIM: {a['units_differ']} of {B * T} units differ from the "
+                 f"one-process run")
+        print(f"data parallel (a) DDIM B{B}xT{T}, {START_STEP - 1} steps, bf16, rows split "
+              f"over {DP_WORLD} ranks on one card (gloo): units equal to the one-process run, "
+              f"recon max-abs {a['recon_max_abs']:.3e}; wall {a['wall']:.4f} s (rank 1 "
+              f"{ranks[1]['ddim']['wall']:.4f} s) against {a['wall_one']:.4f} s in one process; "
+              f"launches rank 0 {a['launches']}, rank 1 {ranks[1]['ddim']['launches']}; {smi}")
+        # (b)
+        u = r0["updates"]
+        one = u["one process"]
+        ref = one["rows"]
+        for mode in DP_MODES:
+            rows = u[mode]["rows"]
+            loss_rel = abs(rows[0][0] - ref[0][0]) / abs(ref[0][0])
+            if loss_rel > DP_LOSS_REL or u[mode]["update_rel"] > DP_UPDATE_REL:
+                fail(f"data-parallel update {mode}: first loss rel {loss_rel:.3e} (bound "
+                     f"{DP_LOSS_REL}), masters' update rel {u[mode]['update_rel']:.3e} "
+                     f"(bound {DP_UPDATE_REL})")
+            print(f"data parallel (b) normalizer updates {mode}, float32, B{DP_TRAIN_B}xT{T} "
+                  f"over {DP_WORLD} ranks (17 + 16 rows), sgd momentum 0.9: losses "
+                  f"{[round(r[0], 6) for r in rows]} against {[round(r[0], 6) for r in ref]} "
+                  f"(first rel {loss_rel:.2e}), gnorms {[round(r[1], 5) for r in rows]} against "
+                  f"{[round(r[1], 5) for r in ref]}, masters' update rel "
+                  f"{u[mode]['update_rel']:.2e}; ms per update {[round(r[2], 1) for r in rows]} "
+                  f"(rank 1 {[round(r[2], 1) for r in ranks[1]['updates'][mode]['rows']]}; one "
+                  f"process {[round(r[2], 1) for r in ref]}); peak per rank "
+                  f"{u[mode]['peak_gb']:.2f} / {ranks[1]['updates'][mode]['peak_gb']:.2f} GB "
+                  f"(one process {one['peak_gb']:.2f} GB); {smi}")
+        # (c)
+        c = r0["s2st"]
+        if not (c["units_equal"] and c["finite"]) or c["wav_row_cos"] < LONG_WAV_ROW_COS:
+            fail(f"data-parallel long-form S2ST: units equal {c['units_equal']}, waveform "
+                 f"row-cos {c['wav_row_cos']:.6f} (bound {LONG_WAV_ROW_COS})")
+        n_flash = [res["s2st"]["launches"].get("flash_attention_f32", 0) for res in ranks]
+        if not all(n_flash):
+            fail(f"data-parallel long-form S2ST launched flash_attention_f32 {n_flash} times")
+        print(f"data parallel (c) long-form S2ST B{LONG_B}x{LONG_FRAMES} frames, float32, one "
+              f"row a rank: units equal to the one-process run, waveform row-cos min "
+              f"{c['wav_row_cos']:.6f}; iterations {c['steps']}; wall {c['wall']:.4f} s "
+              f"against {c['wall_one']:.4f} s in one process; flash_attention_f32 launches "
+              f"{n_flash} by rank; {smi}")
+        # (d)
+        d = r0["cli"]
+        if d["train_rc"] or d["synth_rc"] or ranks[1]["cli"]["train_rc"]:
+            fail(f"data-parallel CLIs: rc {d}, rank 1 {ranks[1]['cli']}")
+        manifest = json.loads((root / "ckpt" / "manifest.json").read_text())
+        loss2 = next(e["metric"] for e in manifest["checkpoints"] if e["step"] == 2)
+        t1 = time.perf_counter()
+        keep = [a for a in train_argv if a not in ("--fsdp",)]
+        for flag in ("--data-parallel", "--zero-sharding", "--lr", "--warmup-updates",
+                     "--warmup-init-lr", "--clip-norm", "--log-interval", "--max-update",
+                     "--save-dir"):
+            i = keep.index(flag)
+            del keep[i:i + 2]
+        vals = validate.validate(validate.parse_args(
+            keep + ["--path", str(root / "ckpt" / "step_000000002")]))
+        valid_s = time.perf_counter() - t1
+        rel = abs(vals["loss"] - loss2) / abs(loss2)
+        if rel > DP_VALID_REL:
+            fail(f"cli.validate at one rank: loss {vals['loss']} against the 2-rank run's "
+                 f"{loss2} (rel {rel:.3e}, bound {DP_VALID_REL})")
+        print(f"data parallel (d) cli.train normalizer at {DP_WORLD} ranks --fsdp "
+              f"--zero-sharding os (depth {CLI_NORMALIZER}, bf16, 2 updates, 24 utterances): "
+              f"{d['train_s']:.2f} s; its validation loss {loss2:.6f}, cli.validate at one rank "
+              f"on its checkpoint {vals['loss']:.6f} (rel {rel:.2e}, {valid_s:.2f} s); {smi}")
+        # (e)
+        t1 = time.perf_counter()
+        rc = diff_norm_synthesis.main(synth_argv + ["--output-dir", str(root / "synth_one")])
+        one = (root / "synth_one" / "test.tsv").read_bytes() if rc == 0 else b""
+        dp = (root / "synth_dp" / "test.tsv").read_bytes()
+        if len(one.splitlines()) != DP_SYNTH_UTTS + 1 or dp != one:
+            fail(f"cli.diff_norm_synthesis --data-parallel {DP_WORLD}: its test.tsv differs "
+                 f"from the one-process run's ({len(dp.splitlines())} and "
+                 f"{len(one.splitlines())} lines)")
+        print(f"data parallel (e) cli.diff_norm_synthesis --data-parallel {DP_WORLD} "
+              f"({DP_SYNTH_UTTS} utterances, batches of {DP_SYNTH_BATCH}, padded rows): "
+              f"test.tsv byte for byte the one-process run's; {d['synth_s']:.2f} s at "
+              f"{DP_WORLD} ranks, {time.perf_counter() - t1:.2f} s in one process; {smi}")
+        print(f"phase data parallel: {time.perf_counter() - t0:.1f} s (the ranks "
+              f"{spawn_s:.1f} s, rank 0's parts "
+              f"{ {k: round(r0[k]['phase_s'], 1) for k in ('ddim', 'updates', 's2st', 'cli')} }), "
+              f"launches {launches}; {smi}")
+    return launches
+
+
 def main() -> int:
     try:
         import torch
@@ -9164,6 +9671,13 @@ def main() -> int:
     # dynamicconv, the MMA alignment, and the dummy tasks, hydra_train,
     # --user-dir and --config through cli.train
     for name, n in run_speech_norm_runtime(torch, mods, smi).items():
+        launches[name] += n
+
+    # 30. data parallelism: two ranks on the card over gloo (DDIM, the
+    # normalizer's updates replicated / ZeRO / FSDP, the long-form S2ST
+    # decode, cli.train -> cli.validate, cli.diff_norm_synthesis
+    # --data-parallel 2), and one rank over NCCL
+    for name, n in run_data_parallel(torch, mods, smi).items():
         launches[name] += n
 
     sources = {

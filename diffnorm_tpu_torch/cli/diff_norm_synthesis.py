@@ -22,6 +22,15 @@ is launched; the rows and their order do not change.
       --params-npz diffusion.npz --tgt-feat-dir feat/ \\
       --output-dir diff_unit_vae_50 --start-step 50 --batch-size 100
 
+`--data-parallel N` splits each batch's rows over N ranks (torchrun
+--nproc-per-node N; NCCL on the card, gloo with --cpu), as JAX's
+(cli/diff_norm_synthesis.py:99-114, :156-164): a batch's rows are padded to
+a multiple of N (a pad row holds one valid frame), its VAE posterior eps and
+start noise are drawn for its real rows as the one-process run draws them,
+each rank loads the feature files of its rows alone and samples them, and
+rank 0 gathers the units in order and writes: the output files are the
+one-process run's. (`--quant-int8-static` calibrates on one process only.)
+
 `--params-npz` (or `--ckpt`, the name scripts/unit_gen.sh passes) is a JAX
 params tree, or a variables tree such as a `cli.train` checkpoint's
 `params.npz`, in the flat format of `diffnorm_tpu_torch.weights.save_npz`,
@@ -64,6 +73,7 @@ from diffnorm_tpu_torch.ops.quant import (
     set_static_scales,
 )
 from diffnorm_tpu_torch.ops.unit_reduce import reduce_units
+from diffnorm_tpu_torch.parallel.mesh import Mesh, init_distributed, make_mesh
 from diffnorm_tpu_torch.train.checkpoint import load_variables
 from diffnorm_tpu_torch.weights import from_jax_variables
 
@@ -94,6 +104,9 @@ def parse_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
     p.add_argument("--splits", default="test,dev,train")
     p.add_argument("--seed", type=int, default=1)
     p.add_argument("--cpu", action="store_true", help="run on the CPU in float32")
+    p.add_argument("--data-parallel", type=int, default=0,
+                   help="split each batch's rows over this many ranks (torchrun; 0 or 1: "
+                        "one process)")
     p.add_argument("--quant-int8", action="store_true",
                    help="int8 W8A8 transformer (JAX's quant_int8)")
     p.add_argument("--int8-route", choices=INT8_ROUTES, default="fused_layer",
@@ -160,7 +173,8 @@ def build_model(args: argparse.Namespace, device: torch.device) -> LatentDiffusi
     return model.to(dtype).eval()
 
 
-def normalize_split(model, args, device, generator, split: str) -> None:
+def normalize_split(model, args, device, generator, split: str,
+                    mesh: Mesh = Mesh()) -> None:
     manifest_path = os.path.join(args.data, f"{split}.tsv")
     if not os.path.exists(manifest_path):
         logger.warning("skipping %s (no %s)", split, manifest_path)
@@ -182,12 +196,18 @@ def normalize_split(model, args, device, generator, split: str) -> None:
     t0 = time.time()
 
     def load(chunk) -> Tuple[np.ndarray, np.ndarray]:
-        """A chunk's bucketed features and mask (host work: the .npy reads)."""
+        """A chunk's bucketed features and mask (host work: the .npy reads),
+        its rows padded to a multiple of the data-parallel degree (a pad
+        row holds one valid frame); a rank reads its own rows' files."""
         max_len = bucket_length(max(len(c[2]) for c in chunk))
-        feat = np.zeros((len(chunk), max_len, args.feature_dim), np.float32)
-        mask = np.zeros((len(chunk), max_len), bool)
+        rows = len(chunk) + (-len(chunk)) % mesh.data
+        feat = np.zeros((rows, max_len, args.feature_dim), np.float32)
+        mask = np.zeros((rows, max_len), bool)
+        mask[len(chunk):, 0] = True
+        lo, hi = mesh.rows(rows)
         for j, (_, fpath, dedup, keep) in enumerate(chunk):
-            feat[j, :len(dedup)] = np.load(fpath)[keep]
+            if lo <= j < hi:
+                feat[j, :len(dedup)] = np.load(fpath)[keep]
             mask[j, :len(dedup)] = True
         return feat, mask
 
@@ -224,9 +244,13 @@ def normalize_split(model, args, device, generator, split: str) -> None:
                             "(%d sites)", n_sites)
             enc_noise, init_noise = draw_noise(
                 generator, (len(chunk), feat.shape[1], args.latent_dim), device)
+            pad = feat.shape[0] - len(chunk)
+            if pad:  # the pad rows' noises are zeros
+                enc_noise, init_noise = (torch.cat([x, x.new_zeros((pad,) + x.shape[1:])])
+                                         for x in (enc_noise, init_noise))
             units, _ = ddim_sample(
                 model, feat_d, mask_d, start_step=args.start_step, stride=args.ddim_stride,
-                enc_noise=enc_noise, init_noise=init_noise, device=device)
+                enc_noise=enc_noise, init_noise=init_noise, device=device, mesh=mesh)
             if behind is not None:
                 emit(*behind)
             behind = (chunk, units)
@@ -234,7 +258,8 @@ def normalize_split(model, args, device, generator, split: str) -> None:
         emit(*behind)
     logger.info("%s: normalized %d utts in %.1fs (unit acc vs orig %.3f)",
                 split, len(out_rows), time.time() - t0, n_match / max(n_total, 1))
-    write_translation_manifest(os.path.join(args.output_dir, f"{split}.tsv"), out_rows)
+    if mesh.index == 0:  # rank 0 writes
+        write_translation_manifest(os.path.join(args.output_dir, f"{split}.tsv"), out_rows)
 
 
 def main(argv: Optional[Sequence[str]] = None) -> int:
@@ -242,13 +267,23 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
                         format="%(asctime)s | %(levelname)s | %(message)s")
     args = parse_args(argv)
     registry.import_user_module(args.user_dir)
-    device = resolve_device("cpu" if args.cpu else "cuda")
+    if args.data_parallel > 1:
+        if args.quant_int8_static:
+            raise NotImplementedError("--quant-int8-static with --data-parallel: the static "
+                                      "scales are calibrated by one process")
+        device = init_distributed(cpu=args.cpu)
+        mesh = make_mesh(args.data_parallel)
+        if mesh.index:  # rank 0 alone logs
+            logging.getLogger().setLevel(logging.WARNING)
+        logger.info("data-parallel normalization over %d ranks (%s)", mesh.data, mesh.backend)
+    else:
+        device, mesh = resolve_device("cpu" if args.cpu else "cuda"), Mesh()
     os.makedirs(args.output_dir, exist_ok=True)
     model = build_model(args, device)
     logger.info("loaded diffusion weights from %s (%s)", args.params_npz, device)
     generator = torch.Generator(device=device).manual_seed(args.seed)
     for split in args.splits.split(","):
-        normalize_split(model, args, device, generator, split)
+        normalize_split(model, args, device, generator, split, mesh)
     return 0
 
 

@@ -153,7 +153,13 @@ import torch
 
 from diffnorm_tpu_torch.cli import train as train_cli
 from diffnorm_tpu_torch.cli.generate_waveform import write_wav
-from diffnorm_tpu_torch.cli.s2st import add_model_args, build_model, resolve_device_dtype
+from diffnorm_tpu_torch.cli.s2st import (
+    add_data_parallel_arg,
+    add_model_args,
+    build_model,
+    data_parallel_mesh,
+    resolve_device_dtype,
+)
 from diffnorm_tpu_torch.data.dictionary import Dictionary
 from diffnorm_tpu_torch.data.encoders import post_process
 from diffnorm_tpu_torch.data.iterators import EpochBatchIterator, read_ahead
@@ -303,6 +309,7 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--vocoder-cfg", help="its config JSON")
     p.add_argument("--sample-rate", type=int, default=16000)
     p.add_argument("--multitask-config-yaml", help="the aux tasks' YAML, relative to DATA")
+    add_data_parallel_arg(p)
     add_model_args(p)
     train_cli.add_two_pass_args(p)
     return p
@@ -610,6 +617,12 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
                         format="%(asctime)s | %(levelname)s | %(message)s")
     args = parse_args(argv)
     device, dtype = resolve_device_dtype(args)
+    mesh = data_parallel_mesh(args)
+    if mesh.data > 1 and (args.task in (SPECT_TASK, TTS_TASK, LEV_TASK, CTC_TASK)
+                          or args.task in AR_DECODED or args.arch in UNITY_ARCHS
+                          or args.quant_int8_static):
+        raise NotImplementedError("--data-parallel splits the NAR mask-predict decode alone "
+                                  "(without --quant-int8-static)")
     if args.task in (SPECT_TASK, TTS_TASK):
         return spectrogram_generate(args, device, dtype)
     split = args.gen_subset
@@ -661,7 +674,9 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
             logger.info("reranking beam=%d with AR model from %s", beam, args.rerank_path)
 
     out_f = sys.stdout
-    if args.results_path:
+    if mesh.index:  # rank 0 writes
+        out_f = open(os.devnull, "w")
+    elif args.results_path:
         os.makedirs(args.results_path, exist_ok=True)
         out_f = open(os.path.join(args.results_path, f"generate-{split}.txt"), "w")
     try:
@@ -705,7 +720,7 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
                     adaptive=not args.iter_decode_force_max_iter,
                     tgt_speaker=(None if tgt_speaker is None
                                  else torch.from_numpy(tgt_speaker).to(device)),
-                    retain_history=args.retain_iter_history, reranker=reranker)
+                    retain_history=args.retain_iter_history, reranker=reranker, mesh=mesh)
                 tokens, scores, steps = (t.cpu().numpy() for t in out[:3])
                 history = out[3].cpu().numpy() if args.retain_iter_history else None
             total_steps += int(steps.sum())

@@ -21,6 +21,9 @@ conditions each utterance on its speaker embedding). As in JAX, the CLI
 passes no vocoder speaker, so a multi-speaker vocoder (`multispkr`) raises.
 `--int8-vocoder dynamic|static` runs the vocoder's narrow-stage ResBlock
 convs W8A8, as JAX's DIFFNORM_INT8_VOCODER (`models/hifigan.py`).
+`--data-parallel N` (under torchrun --nproc-per-node N; gloo with --cpu)
+splits each batch's rows over N ranks; rank 0 gathers them in order and
+writes the files the one-process run writes.
 """
 
 from __future__ import annotations
@@ -42,6 +45,7 @@ from diffnorm_tpu_torch.data.s2s_dataset import SpeechToUnitDataset
 from diffnorm_tpu_torch.device import resolve_device
 from diffnorm_tpu_torch.generate.s2st import s2st_generate
 from diffnorm_tpu_torch.models.nar_transformer import NARS2UTModule
+from diffnorm_tpu_torch.parallel.mesh import Mesh, init_distributed, make_mesh
 from diffnorm_tpu_torch.train.checkpoint import load_variables
 from diffnorm_tpu_torch.weights import from_jax_variables
 
@@ -64,6 +68,7 @@ def parse_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
     p.add_argument("--results-path", required=True)
     p.add_argument("--gen-subset", default="test")
     p.add_argument("--batch-size", type=int, default=8)
+    add_data_parallel_arg(p)
     p.add_argument("--iter-decode-max-iter", type=int, default=15)
     p.add_argument("--max-target-positions", type=int, default=256)
     p.add_argument("--iter-decode-with-beam", type=int, default=1)
@@ -105,10 +110,32 @@ def add_model_args(p: argparse.ArgumentParser) -> None:
     p.add_argument("--speaker-embed-dim", type=int, default=256)
 
 
+def add_data_parallel_arg(p: argparse.ArgumentParser) -> None:
+    p.add_argument("--data-parallel", type=int, default=0,
+                   help="split each batch's rows over this many ranks (torchrun; 0 or 1: one "
+                        "process)")
+
+
+def data_parallel_mesh(args: argparse.Namespace) -> Mesh:
+    """The mesh of --data-parallel (one process without it); rank 0 alone
+    logs."""
+    if getattr(args, "data_parallel", 0) <= 1:
+        return Mesh()
+    mesh = make_mesh(args.data_parallel)
+    if mesh.index:
+        logging.getLogger().setLevel(logging.WARNING)
+    logger.info("data-parallel decode over %d ranks (%s)", mesh.data, mesh.backend)
+    return mesh
+
+
 def resolve_device_dtype(args: argparse.Namespace):
     """(device, dtype) of the flags: the card in bf16 unless --cpu (float32)
-    or --dtype says otherwise; raises without CUDA unless --cpu."""
-    device = resolve_device("cpu" if args.cpu else "cuda")
+    or --dtype says otherwise; raises without CUDA unless --cpu. Under
+    --data-parallel the rank's device of the process group it joins."""
+    if getattr(args, "data_parallel", 0) > 1:
+        device = init_distributed(cpu=args.cpu)
+    else:
+        device = resolve_device("cpu" if args.cpu else "cuda")
     dtype = DTYPES[args.dtype] if args.dtype else (
         torch.float32 if device.type == "cpu" else torch.bfloat16)
     return device, dtype
@@ -149,6 +176,7 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
     args = parse_args(argv)
     registry.import_user_module(args.user_dir)
     device, dtype = resolve_device_dtype(args)
+    mesh = data_parallel_mesh(args)
     model = build_model(args, args.params_npz, device, dtype)
     vocoder = load_vocoder(args.vocoder_npz, args.vocoder_cfg, device=device, dtype=dtype,
                            int8_vocoder=args.int8_vocoder).module
@@ -172,7 +200,10 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
             cond_scale=args.cond_scale, length_beam=args.iter_decode_with_beam,
             dur_prediction=args.dur_prediction, max_duration=args.max_duration,
             vocoder_chunk=args.vocoder_chunk,
-            tgt_speaker=None if tgt_speaker is None else torch.from_numpy(tgt_speaker).to(device))
+            tgt_speaker=None if tgt_speaker is None else torch.from_numpy(tgt_speaker).to(device),
+            mesh=mesh)
+        if mesh.index:  # rank 0 writes
+            continue
         wav = wav.float().cpu().numpy()
         wav_lengths, units, counts = (t.cpu().numpy() for t in (wav_lengths, units, counts))
         for row, index in enumerate(batch["id"]):
@@ -183,8 +214,9 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
             unit_lines.append(f"{uid}|" + " ".join(str(int(u)) for u in units[row, :counts[row]]))
             audio_s += n / args.sample_rate
             n_wav += 1
-    with open(os.path.join(args.results_path, f"s2st-{args.gen_subset}.unit"), "w") as f:
-        f.write("\n".join(unit_lines) + "\n")
+    if mesh.index == 0:
+        with open(os.path.join(args.results_path, f"s2st-{args.gen_subset}.unit"), "w") as f:
+            f.write("\n".join(unit_lines) + "\n")
     wall = time.time() - t0
     logger.info("synthesized %d waveforms (%.1f audio-s) in %.1f s (RTF %.1f) on %s -> %s",
                 n_wav, audio_s, wall, audio_s / max(wall, 1e-9), device, args.results_path)

@@ -177,6 +177,22 @@ ddpm_loss, speech_decoder_loss). `--user-dir PATH` imports a plugin whose
 the flags are read; `--config FILE` reads a YAML of flag defaults under the
 explicit flags (hydra's groups flattened); `cli.hydra_train` takes hydra's
 dotted overrides.
+
+Data parallelism: one process a rank, launched by torchrun (or JAX's
+DIFFNORM_MULTIHOST environment), NCCL on cuda:LOCAL_RANK, gloo with --cpu.
+`--data-parallel N` (default -1: every rank) splits each global batch's rows
+over the ranks, and the update equals the one-process update on the same
+batch (`train.trainer`): every rank builds the same batches from the same
+iterator and `--seed`, and its resume position is global. `--zero-sharding
+os` splits the optimizer state over the ranks, `--fsdp` (or `--ddp-backend
+fully_sharded`) the masters too; `--use-bmuf` (or `--ddp-backend slowmo`)
+wraps the optimizer in BMUF (`--global-sync-iter`, `--block-momentum`,
+`--block-lr`, `--use-nbm`). Rank 0 alone logs and writes; its checkpoints
+hold the whole state, which any world size restores. `--model-parallel`
+above 1 is refused (ROADMAP Queue 1 item 8b).
+
+  torchrun --nproc-per-node 2 -m diffnorm_tpu_torch.cli.train $DATA ... \\
+      --data-parallel 2 --fsdp --zero-sharding os
 """
 
 from __future__ import annotations
@@ -199,9 +215,13 @@ from diffnorm_tpu_torch.data.iterators import (
     SyntheticEpochIterator,
     grouped,
     iterate_valid,
-    read_ahead,
 )
-from diffnorm_tpu_torch.device import resolve_device
+from diffnorm_tpu_torch.parallel.mesh import (
+    init_distributed,
+    make_mesh,
+    prefetch_to_device,
+    replicate,
+)
 from diffnorm_tpu_torch.models.ar_transformer import ARCHS as AR_ARCHS
 from diffnorm_tpu_torch.models.cmlm_text import ARCHS as CMLM_ARCHS
 from diffnorm_tpu_torch.models.diffusion import ARCHS as DIFFUSION_ARCHS
@@ -293,7 +313,9 @@ OPTIONS = ("min_lr", "end_learning_rate", "power", "lr_decay_period", "lr_deacy_
            "adadelta_eps", "lamb_betas", "lamb_eps", "momentum", "nesterov", "decay_rate",
            "clip_threshold", "initial_accumulator_value", "composite_groups",
            "composite_default", "freeze_finetune_updates", "freeze_finetune_subtrees",
-           "loss_scale")
+           "loss_scale", "use_bmuf", "ddp_backend", "global_sync_iter", "block_momentum",
+           "block_lr", "use_nbm")
+DDP_BACKENDS = ("c10d", "pytorch_ddp", "legacy_ddp", "no_c10d", "fully_sharded", "slowmo")
 
 
 def _bool(value: str) -> bool:
@@ -529,6 +551,11 @@ def build_parser(description: str, train: bool = True,
     p.add_argument("--sample-break-mode", choices=("none", "complete", "complete_doc", "eos"),
                    help="how the blocks break (default none where --tokens-per-sample is given)")
     add_audio_args(p)
+    # parallelism (JAX config.py:133-134)
+    p.add_argument("--data-parallel", type=int, default=-1,
+                   help="data-parallel ranks (-1: every process of the group)")
+    p.add_argument("--model-parallel", type=int, default=1,
+                   help="tensor-parallel degree: 1 (above 1 is ROADMAP item 8b)")
     if not train:
         return p
     # optimization (flags left unset take each optimizer's and schedule's
@@ -567,6 +594,20 @@ def build_parser(description: str, train: bool = True,
     p.add_argument("--ema-decay", type=float, default=0.0,
                    help="keep an EMA of the trainable weights at this decay")
     p.add_argument("--update-freq", type=int, default=1)
+    _flag(p, "--fsdp", help="split the float32 masters and their optimizer state over the "
+                            "data-parallel ranks")
+    p.add_argument("--ddp-backend", choices=DDP_BACKENDS,
+                   help="fully_sharded: --fsdp; slowmo: --use-bmuf; the others: the "
+                        "data-parallel update")
+    p.add_argument("--zero-sharding", choices=("none", "os"), default="none",
+                   help="os: split the optimizer state over the data-parallel ranks")
+    _flag(p, "--use-bmuf", help="block-momentum model update filtering around the optimizer")
+    p.add_argument("--global-sync-iter", type=int, help="BMUF: updates between syncs "
+                                                        "(default 50)")
+    p.add_argument("--block-momentum", type=float, help="BMUF's momentum (default 0.875)")
+    p.add_argument("--block-lr", type=float, help="BMUF's block lr (default 1)")
+    p.add_argument("--use-nbm", type=_bool, nargs="?", const=True,
+                   help="BMUF's Nesterov block momentum (default true)")
     p.add_argument("--max-update", type=int, required=True)
     # checkpoints and logging
     p.add_argument("--save-dir", default="checkpoints")
@@ -775,6 +816,8 @@ def trainer_config(args: argparse.Namespace) -> TrainerConfig:
         adam_betas=args.adam_betas, adam_eps=args.adam_eps, weight_decay=args.weight_decay,
         clip_norm=args.clip_norm, dtype=args.dtype, seed=args.seed, optimizer=args.optimizer,
         lr_scheduler=args.lr_scheduler, ema_decay=args.ema_decay,
+        zero_sharding=args.zero_sharding,
+        fsdp=bool(args.fsdp) or args.ddp_backend == "fully_sharded",
         options={"max_updates": args.max_update,
                  **{key: getattr(args, key) for key in OPTIONS}})
 
@@ -879,7 +922,13 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
     logging.basicConfig(level=logging.INFO, force=True,
                         format="%(asctime)s | %(levelname)s | %(name)s | %(message)s")
     args = parse_args(argv)
-    device = resolve_device("cpu" if args.cpu else "cuda")
+    device = init_distributed(cpu=args.cpu)
+    mesh = make_mesh(args.data_parallel, args.model_parallel)
+    main_rank = mesh.index == 0
+    if not main_rank:  # rank 0 alone logs
+        logging.getLogger().setLevel(logging.WARNING)
+    if mesh.data > 1:
+        logger.info("data-parallel training over %d ranks (%s)", mesh.data, mesh.backend)
     ckpt = CheckpointManager(args.save_dir, keep_last=args.keep_last_epochs,
                              keep_best=args.keep_best_checkpoints,
                              maximize=args.maximize_best_checkpoint_metric)
@@ -913,8 +962,9 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
         dataset[0]
     # the master weights are restored before the trainer casts its working copy
     state, extra, lr_state = restore(args, ckpt, model, device, task.frozen_param_keys)
+    replicate(model, mesh)  # rank 0's weights on every rank, as JAX's replicate
     trainer = Trainer(trainer_config(args), model, build_criterion(task, args),
-                      frozen_keys=task.frozen_param_keys)
+                      frozen_keys=task.frozen_param_keys, mesh=mesh)
     n_params = sum(p.numel() for p in trainer.params)
     logger.info("model params (trainable): %.2fM on %s, forward in %s", n_params / 1e6,
                 device, args.dtype)
@@ -933,7 +983,8 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
     np_rng = np.random.default_rng(args.seed)  # the batches' draws (the CMLM canvases)
     if hasattr(task, "set_num_updates"):
         task.set_num_updates(trainer.num_updates)
-    progress = ProgressWriter(args.log_format, args.tensorboard_logdir, args.wandb_project)
+    progress = (ProgressWriter(args.log_format, args.tensorboard_logdir, args.wandb_project)
+                if main_rank else None)
 
     def run_validation() -> Optional[float]:
         if hasattr(task, "set_num_updates"):
@@ -950,10 +1001,16 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
         return [trainer.upload(task.prepare_batch(dict(b), np_rng)) for b in micro]
 
     def save(epoch: int, metric: Optional[float]) -> None:
+        """Every rank takes part (the sharded state is gathered whole);
+        rank 0 writes."""
         sidecar = {"epoch": epoch, "iterator": epoch_itr.state_dict()}
         if trainer.lr_state_dict() is not None:  # a host-driven schedule's
             sidecar["lr_scheduler"] = trainer.lr_state_dict()
-        ckpt.save(trainer.num_updates, model, trainer.state_dict(), metric, sidecar)
+        with trainer.gathered_master() as master:
+            state = trainer.state_dict()
+            if main_rank:
+                ckpt.save(trainer.num_updates, master, state, metric, sidecar)
+        mesh.barrier()
         logger.info("saved checkpoint at step %d (metric=%s)", trainer.num_updates, metric)
 
     step, done = trainer.num_updates, False
@@ -978,7 +1035,7 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
             # trains, as JAX's device prefetch: the multitask loss weights a
             # group takes follow the update count two updates before its own
             groups = grouped(epoch_itr.next_epoch_itr(), args.update_freq)
-            for micro in read_ahead(groups, prepare, depth=2):
+            for micro in prefetch_to_device(groups, prepare, depth=2, device=device):
                 mets = trainer.train_step(micro)
                 step = trainer.num_updates
                 if hasattr(task, "set_num_updates"):
@@ -987,7 +1044,8 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
                 if args.save_interval_updates and step % args.save_interval_updates == 0:
                     save(epoch, None)
                 if step % args.log_interval == 0:
-                    progress.log(mets, step)
+                    if progress is not None:
+                        progress.log(mets, step)
                     ups = args.log_interval / max(time.time() - t0, 1e-6)
                     logger.info("epoch %d | step %d | %s | ups %.2f", epoch, step,
                                 fmt_metrics(interval.get_smoothed_values()), ups)
@@ -1005,7 +1063,8 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
         if epoch % args.save_interval == 0 or done:
             save(epoch + 1, metric)
         epoch += 1
-    progress.close()
+    if progress is not None:
+        progress.close()
     logger.info("training done at step %d", step)
     return 0
 

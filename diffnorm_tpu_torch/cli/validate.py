@@ -24,7 +24,9 @@ times and masks) from a
 generator seeded 0 (wav2vec2's and HuBERT's span masks and negatives from
 the former, at the Gumbel temperature of update 0). Runs on the GPU (in
 --dtype) unless --cpu is given.
-Logs `{split} | loss ... nll_loss ...`.
+Logs `{split} | loss ... nll_loss ...`. Under torchrun (`--data-parallel`,
+default every rank) each batch's rows split over the ranks, and the
+metrics are the global batch's.
 """
 
 from __future__ import annotations
@@ -37,7 +39,7 @@ import numpy as np
 import torch
 
 from diffnorm_tpu_torch.cli import train as train_cli
-from diffnorm_tpu_torch.device import resolve_device
+from diffnorm_tpu_torch.parallel.mesh import init_distributed, make_mesh
 from diffnorm_tpu_torch.tasks import TASKS
 from diffnorm_tpu_torch.train.checkpoint import load_variables
 from diffnorm_tpu_torch.train.trainer import Trainer, TrainerConfig
@@ -56,8 +58,12 @@ def parse_args(argv: Optional[Sequence[str]] = None):
 
 
 def validate(args) -> Dict[str, float]:
-    """The aggregated metrics of --path's weights over --valid-subset."""
-    device = resolve_device("cpu" if args.cpu else "cuda")
+    """The aggregated metrics of --path's weights over --valid-subset (each
+    batch's rows split over the data-parallel ranks, as cli.train's)."""
+    device = init_distributed(cpu=args.cpu)
+    mesh = make_mesh(args.data_parallel, args.model_parallel)
+    if mesh.index:  # rank 0 alone logs
+        logging.getLogger().setLevel(logging.WARNING)
     torch.manual_seed(args.seed)
     task = TASKS[args.task](args)
     with torch.device(device):
@@ -65,7 +71,8 @@ def validate(args) -> Dict[str, float]:
     from_jax_variables(model, load_variables(args.path))
     logger.info("restored %s", args.path)
     trainer = Trainer(TrainerConfig(dtype=args.dtype, seed=args.seed), model,
-                      train_cli.build_criterion(task, args), frozen_keys=task.frozen_param_keys)
+                      train_cli.build_criterion(task, args), frozen_keys=task.frozen_param_keys,
+                      mesh=mesh)
     dataset = task.dataset(args.valid_subset)
     if hasattr(dataset, "collater"):  # not a dummy task's synthetic batches
         # JAX draws its example item before the state's init (validate.py:49-53)

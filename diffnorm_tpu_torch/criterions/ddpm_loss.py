@@ -32,6 +32,7 @@ from diffnorm_tpu_torch.criterions.label_smoothing import (
     unit_accuracy,
 )
 from diffnorm_tpu_torch.criterions.vae_loss import masked_mse
+from diffnorm_tpu_torch.parallel.mesh import global_mean, global_sum
 from diffnorm_tpu_torch.utils.masking import lengths_to_mask
 
 INJECTED = ("times", "enc_noise", "x1_noise", "q_noise")
@@ -53,11 +54,12 @@ def noise_mse(out: Dict[str, torch.Tensor], mask: torch.Tensor) -> torch.Tensor:
     over (T, C) per sequence (zeros included), the batch mean."""
     sq = (out["pred_noise"].float() - out["true_noise"].float()).square()
     per_seq = torch.where(mask[..., None], sq, 0.0).mean(dim=(1, 2))
-    return (per_seq * out["loss_weight"]).mean()
+    return global_mean(per_seq * out["loss_weight"])
 
 
 class DDPMDiscreteLoss:
     grad_accum = "mean_loss"  # see SpeechVAELoss
+    data_parallel = True  # global counts under a split, as SpeechVAELoss
     eps, recon_mse_weight = 0.1, 50.0
 
     def assemble(self, out: Dict[str, torch.Tensor], feature: torch.Tensor,
@@ -72,12 +74,12 @@ class DDPMDiscreteLoss:
         ce_sum, _ = label_smoothed_nll_loss(lprobs, flat_units, self.eps, ignore_index=0)
         n_correct, total = unit_accuracy(lprobs, flat_units, ignore_index=0)
         ntokens = torch.clamp((flat_units != 0).sum(), min=1)
-        smooth_loss = ce_sum / ntokens
+        smooth_loss = ce_sum / global_sum(ntokens)
         recon_loss = self.recon_mse_weight * recon_mse + smooth_loss
         loss = noise + recon_loss / timesteps if multitask else noise
         metrics = {
             "loss": loss, "noise_loss": noise, "recon_mse_loss": recon_mse,
-            "nll_loss": smooth_loss, "acc": n_correct / torch.clamp(total, min=1),
+            "nll_loss": smooth_loss, "acc": n_correct / torch.clamp(global_sum(total), min=1),
             "ntokens": ntokens, "nsentences": feature.shape[0],
             "sample_size": feature.shape[0],
         }
@@ -97,6 +99,7 @@ class DDPMDiscreteLoss:
 
 class DDPMLatentLoss:
     grad_accum = "mean_loss"  # ddpm_latent_loss.py:69, sample_size = nsentences
+    data_parallel = True
 
     def __call__(self, model, batch: Dict[str, torch.Tensor],
                  generator: Optional[torch.Generator] = None

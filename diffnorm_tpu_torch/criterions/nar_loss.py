@@ -33,6 +33,7 @@ import torch
 import torch.nn.functional as F
 
 from diffnorm_tpu_torch.criterions.label_smoothing import label_smoothed_nll_loss
+from diffnorm_tpu_torch.parallel.mesh import active_split
 
 PAD = 1
 
@@ -182,6 +183,10 @@ class NARSpeechToUnitLoss:
             "nsentences": tgt.shape[0], "sample_size": ntokens,
         }
         if "ctc_logits" in out and batch.get("ctc_target") is not None:
+            if active_split() is not None:
+                raise NotImplementedError(
+                    "--multitask-ctc-vocab under data parallelism: the CTC term is a mean over "
+                    "a rank's rows, not the global batch's (ROADMAP Queue 1 item 8b)")
             ctc_target = batch["ctc_target"].long()
             metrics["ctc_loss"] = ctc_loss(out["ctc_logits"].float(), (~out["ctc_mask"]).float(),
                                            ctc_target, (ctc_target == PAD).float()).mean()

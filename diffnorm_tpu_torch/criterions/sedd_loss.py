@@ -16,11 +16,13 @@ from typing import Dict, Optional, Tuple
 
 import torch
 
+from diffnorm_tpu_torch.parallel.mesh import global_mean
 from diffnorm_tpu_torch.utils.masking import lengths_to_mask
 
 
 class SEDDLoss:
     grad_accum = "mean_loss"
+    data_parallel = True  # its means over the global batch under a split (parallel.mesh)
 
     def __call__(self, model, batch: Dict[str, torch.Tensor],
                  generator: Optional[torch.Generator] = None
@@ -31,8 +33,8 @@ class SEDDLoss:
         valid = lengths_to_mask(batch["target_lengths"], tokens.shape[1])
         out = model(tokens, valid, generator=generator, t=batch.get("inject_times"),
                     u=batch.get("inject_mask_u"))
-        loss = (out["weight"] * out["loss_per_pos"].sum(1)).mean()
-        metrics = {"loss": loss, "n_masked": out["n_masked"].float().mean(),
+        loss = global_mean(out["weight"] * out["loss_per_pos"].sum(1))
+        metrics = {"loss": loss, "n_masked": global_mean(out["n_masked"].float()),
                    "ntokens": valid.sum().clamp(min=1), "nsentences": tokens.shape[0],
                    "sample_size": tokens.shape[0]}
         return loss, metrics

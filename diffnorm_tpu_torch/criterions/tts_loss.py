@@ -32,12 +32,14 @@ import torch
 
 from diffnorm_tpu_torch.criterions.nar_loss import _multitask_prev, apply_multitask_losses
 from diffnorm_tpu_torch.models.tts_transformer import tts_loss
+from diffnorm_tpu_torch.parallel.mesh import global_sum
 
 PAD = 1
 
 
 class Tacotron2Loss:
     grad_accum = "mean_loss"
+    data_parallel = True  # tts_loss divides by the global frames under a split
 
     def __init__(self, bce_pos_weight: float = 5.0):
         self.bce_pos_weight = bce_pos_weight
@@ -69,6 +71,7 @@ class Tacotron2Loss:
 
 
 class SpeechToSpectrogram2PassLoss(Tacotron2Loss):
+    data_parallel = False  # the first pass's multitask terms keep local means
     def __init__(self, bce_pos_weight: float = 5.0, multitask: Optional[Dict] = None,
                  mt_task_name: Optional[str] = None):
         """multitask: {task: SingleTaskConfig}, the first pass's among them
@@ -90,6 +93,7 @@ class SpeechToSpectrogram2PassLoss(Tacotron2Loss):
 
 class FastSpeech2Loss:
     grad_accum = "mean_loss"
+    data_parallel = True  # its means divide by the global counts under a split
 
     def __call__(self, model, batch: Dict[str, torch.Tensor],
                  generator: Optional[torch.Generator] = None
@@ -106,7 +110,7 @@ class FastSpeech2Loss:
         b, t, d = feat_tgt.shape
         tgt_mask = (torch.arange(t, device=feat_tgt.device)[None, :]
                     < batch["tgt_lengths"][:, None])
-        denom = torch.clamp(tgt_mask.sum(), min=1) * d
+        denom = torch.clamp(global_sum(tgt_mask.sum()), min=1) * d
 
         def masked_l1(pred):
             diff = (pred[:, :t].float() - feat_tgt).abs()
@@ -114,7 +118,7 @@ class FastSpeech2Loss:
 
         l1 = masked_l1(out["mel"]) + masked_l1(out["mel_post"])
         src_valid = batch["src_tokens"] != PAD
-        n_src = torch.clamp(src_valid.sum(), min=1)
+        n_src = torch.clamp(global_sum(src_valid.sum()), min=1)
 
         def masked_mse(pred, tgt):
             return torch.where(src_valid, (pred.float() - tgt).square(), 0.0).sum() / n_src

@@ -18,13 +18,14 @@ from diffnorm_tpu_torch.criterions.label_smoothing import (
     label_smoothed_nll_loss,
     unit_accuracy,
 )
+from diffnorm_tpu_torch.parallel.mesh import global_mean, global_sum
 from diffnorm_tpu_torch.utils.masking import lengths_to_mask
 
 
 def masked_mse(pred: torch.Tensor, target: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
     """Mean squared error in float32 over the valid ([B, T] mask) elements."""
     sq = (pred.float() - target.float()).square()
-    n_valid = torch.clamp(mask.sum() * target.shape[-1], min=1)
+    n_valid = torch.clamp(global_sum(mask.sum() * target.shape[-1]), min=1)
     return torch.where(mask[..., None], sq, 0.0).sum() / n_valid
 
 
@@ -32,6 +33,9 @@ class SpeechVAELoss:
     # the reference backwards this already-normalized loss as it is, and the
     # trainer divides the summed gradients by the total sample_size
     grad_accum = "mean_loss"
+    # its means divide by the global batch's counts under a data-parallel
+    # split (parallel.mesh.global_sum), so the ranks' losses add up to it
+    data_parallel = True
     ce_weight, mse_weight, kl_weight, eps = 0.1, 10.0, 1e-4, 0.1
 
     def __call__(self, model, batch: Dict[str, torch.Tensor],
@@ -52,12 +56,13 @@ class SpeechVAELoss:
                                                   ignore_index=0)
         n_correct, total = unit_accuracy(lprobs, units.reshape(-1), ignore_index=0)
         ntokens = torch.clamp(lengths.sum(), min=1)
-        kl_loss = kl.float().mean()
-        loss = (self.ce_weight * (ce_sum / ntokens) + self.mse_weight * mse
+        norm = global_sum(ntokens)
+        kl_loss = global_mean(kl.float())
+        loss = (self.ce_weight * (ce_sum / norm) + self.mse_weight * mse
                 + self.kl_weight * kl_loss)
         metrics = {
-            "loss": loss, "nll_loss": nll_sum / ntokens, "mse_loss": mse,
-            "kl_loss": kl_loss, "acc": n_correct / torch.clamp(total, min=1),
+            "loss": loss, "nll_loss": nll_sum / norm, "mse_loss": mse,
+            "kl_loss": kl_loss, "acc": n_correct / torch.clamp(global_sum(total), min=1),
             "ntokens": ntokens, "nsentences": feature.shape[0],
             "sample_size": feature.shape[0],
         }

@@ -32,6 +32,9 @@ Counterpart of diffnorm_tpu/generate/mask_predict.py:
   it runs every step, as JAX turns its early exit off for it
 * `mask_predict_decode_chunked` decodes sub-batches of `chunk` rows
   (--decode-chunk), the last padded with copies of the last row
+* `mesh` (a `parallel.mesh.Mesh` of N ranks, each passing the same
+  batch) splits the rows over the ranks and gathers the outputs in order
+  (`parallel.mesh.split_rows`): each row decodes as it does alone
 * `reranker` (--rerank-path, an AR S2UT model): a length beam's candidates
   are picked by their mean teacher-forced log-prob under it
   (`ar_rerank_scores`, fairseq's iterative_refinement_generator.py:294-361)
@@ -46,6 +49,7 @@ from typing import Optional
 import torch
 
 from diffnorm_tpu_torch.models.stacked import OFFSET, pack_units, unpack_units
+from diffnorm_tpu_torch.parallel.mesh import split_rows
 
 PAD, BOS, EOS, UNK = 1, 0, 2, 3
 
@@ -119,7 +123,7 @@ def mask_predict_decode(model, src: torch.Tensor, src_lengths: torch.Tensor, *,
                         length_beam: int = 1, true_length: Optional[torch.Tensor] = None,
                         adaptive: bool = True, early_exit: bool = True,
                         tgt_speaker: Optional[torch.Tensor] = None,
-                        retain_history: bool = False, reranker=None):
+                        retain_history: bool = False, reranker=None, mesh=None):
     """model: a `models.nar_transformer.NARS2UTModule`, or a list of them of
     one architecture (an ensemble). `reranker`: an AR S2UT model (eval mode)
     that picks the length beam's candidate (`ar_rerank_scores`; unit
@@ -130,6 +134,14 @@ def mask_predict_decode(model, src: torch.Tensor, src_lengths: torch.Tensor, *,
     froze; with `retain_history` also the history [max_iter + 1, B,
     max_len * k]. k is the model's n_frames_per_step, which JAX's takes as
     an argument."""
+    if mesh is not None and mesh.active:
+        opts = dict(max_iter=max_iter, max_len=max_len, cond_scale=cond_scale,
+                    length_beam=length_beam, adaptive=adaptive, early_exit=early_exit,
+                    retain_history=retain_history, reranker=reranker)
+        return split_rows(
+            mesh, lambda **rows: mask_predict_decode(model, **rows, **opts),
+            {"src": src, "src_lengths": src_lengths, "true_length": true_length,
+             "tgt_speaker": tgt_speaker}, axes=(0, 0, 0, 1) if retain_history else None)
     models = list(model) if isinstance(model, (list, tuple)) else [model]
     kf = models[0].n_frames_per_step
     sub_vocab = models[0].vocab_size - OFFSET
@@ -238,7 +250,15 @@ def mask_predict_decode_chunked(model, src: torch.Tensor, src_lengths: torch.Ten
     copies of the last row, the per-row inputs (`true_length`,
     `tgt_speaker`) ride along, and the outputs are cut back to B (the
     history reassembled to [S, B, T]). `chunk <= 0` or B <= chunk is the
-    plain call."""
+    plain call. A `mesh` splits the rows over its ranks first, each
+    chunking its own."""
+    mesh = kw.pop("mesh", None)
+    if mesh is not None and mesh.active:
+        rows = {"src": src, "src_lengths": src_lengths,
+                **{k: kw.pop(k, None) for k in ROW_INPUTS}}
+        return split_rows(
+            mesh, lambda **r: mask_predict_decode_chunked(model, chunk=chunk, **r, **kw), rows,
+            axes=(0, 0, 0, 1) if kw.get("retain_history") else None)
     b = src.shape[0]
     if chunk <= 0 or b <= chunk:
         return mask_predict_decode(model, src, src_lengths, **kw)

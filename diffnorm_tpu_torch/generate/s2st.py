@@ -9,6 +9,8 @@ it eagerly; nothing leaves the device between the stages. `tgt_speaker`
 conditions the NAR encoder (--target-speaker-embed), `spkr` selects the
 multi-speaker vocoder's speaker per row; a stacked-unit model decodes its
 packed canvas to the full-rate units (JAX's chain takes k = 1 alone).
+`mesh` splits the rows over its data ranks and gathers the outputs in
+order (`parallel.mesh.split_rows`), as JAX's chain under a "data" mesh.
 """
 
 from __future__ import annotations
@@ -19,6 +21,7 @@ import torch
 
 from diffnorm_tpu_torch.generate.mask_predict import mask_predict_decode
 from diffnorm_tpu_torch.ops.unit_reduce import reduce_units_padded
+from diffnorm_tpu_torch.parallel.mesh import split_rows
 
 UNIT_OFFSET = 4  # dictionary specials bos/pad/eos/unk = 0..3
 
@@ -61,7 +64,7 @@ def s2st_generate(nar_model, vocoder, src: torch.Tensor, src_lengths: torch.Tens
                   length_beam: int = 1, dur_prediction: bool = True, max_duration: int = 8,
                   max_wav_units: Optional[int] = None, vocoder_chunk: int = 4,
                   return_steps: bool = False, spkr: Optional[torch.Tensor] = None,
-                  tgt_speaker: Optional[torch.Tensor] = None):
+                  tgt_speaker: Optional[torch.Tensor] = None, mesh=None):
     """nar_model: `models.nar_transformer.NARS2UTModule`, or a list of them
     (an ensemble, `mask_predict_decode`'s); vocoder:
     `models.hifigan.CodeGenerator`. Returns (wav [B, max_wav_units *
@@ -70,6 +73,14 @@ def s2st_generate(nar_model, vocoder, src: torch.Tensor, src_lengths: torch.Tens
     mask-predict iteration counts [B]. With dur_prediction=False the decoded
     unit stream drives the vocoder unreduced and unexpanded. tgt_speaker
     [B, D] conditions the decode, spkr [B] the vocoder."""
+    if mesh is not None and mesh.active:
+        opts = dict(max_iter=max_iter, max_len=max_len, cond_scale=cond_scale,
+                    length_beam=length_beam, dur_prediction=dur_prediction,
+                    max_duration=max_duration, max_wav_units=max_wav_units,
+                    vocoder_chunk=vocoder_chunk, return_steps=return_steps)
+        return split_rows(
+            mesh, lambda **rows: s2st_generate(nar_model, vocoder, **rows, **opts),
+            {"src": src, "src_lengths": src_lengths, "spkr": spkr, "tgt_speaker": tgt_speaker})
     tokens, _scores, n_steps = mask_predict_decode(
         nar_model, src, src_lengths, max_iter=max_iter, max_len=max_len,
         cond_scale=cond_scale, length_beam=length_beam, tgt_speaker=tgt_speaker)

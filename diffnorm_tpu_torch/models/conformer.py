@@ -51,6 +51,7 @@ from torch.utils.checkpoint import checkpoint
 
 from diffnorm_tpu_torch.models.layers import Dense, Dropout, DropoutSite
 from diffnorm_tpu_torch.ops.attention import apply_dropout
+from diffnorm_tpu_torch.parallel.mesh import active_split, all_reduce_grad, global_sum
 
 LN_EPS = 1e-6  # flax nn.LayerNorm
 
@@ -204,15 +205,27 @@ class BatchNorm(nn.Module):
                 self._buffers[k] = before.to(self._buffers[k].device)
         return out
 
+    @torch.no_grad()
+    def _update_stats(self, mean: torch.Tensor, var: torch.Tensor) -> None:
+        for name, batch in zip(self.STATS if self.update_stats else (), (mean, var)):
+            running = getattr(self, name)
+            running.copy_(self.momentum * running + (1.0 - self.momentum) * batch)
+
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        if self.training:
+        if self.training and active_split() is not None:
+            # data parallel: the statistics of the global batch, every rank's
+            # frames summed (and their gradients, in the backward)
+            xf = x.float()
+            sums = all_reduce_grad(torch.cat([xf.sum(dim=(0, 1)), xf.square().sum(dim=(0, 1))]))
+            n = global_sum(x.shape[0] * x.shape[1])
+            mean, sq = (sums / n).chunk(2)
+            var = torch.clamp(sq - mean.square(), min=0.0)
+            self._update_stats(mean, var)
+        elif self.training:
             xf = x.float()
             mean = xf.mean(dim=(0, 1))
             var = torch.clamp(xf.square().mean(dim=(0, 1)) - mean.square(), min=0.0)
-            with torch.no_grad():
-                for name, batch in zip(self.STATS if self.update_stats else (), (mean, var)):
-                    running = getattr(self, name)
-                    running.copy_(self.momentum * running + (1.0 - self.momentum) * batch)
+            self._update_stats(mean, var)
         else:
             mean, var = self.running_mean.float(), self.running_var.float()
         mul = torch.rsqrt(var + self.eps) * self.weight.float()

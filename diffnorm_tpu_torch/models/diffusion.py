@@ -49,6 +49,7 @@ from diffnorm_tpu_torch.models.layers import (
 from diffnorm_tpu_torch.models.vae import SpeechVAEModule
 from diffnorm_tpu_torch.models.wavenet import Wavenet
 from diffnorm_tpu_torch.ops.quant import Int8Knobs, calibrating, quant_sites
+from diffnorm_tpu_torch.parallel.mesh import draw_rows, row_split
 
 
 def cosine_betas(num_steps: int, max_beta: float = 0.999) -> np.ndarray:
@@ -365,16 +366,18 @@ class LatentDiffusionModule(nn.Module):
         {pred_noise, true_noise, loss_weight, times[, recon_feature,
         lm_logits]}."""
         b, device = feature.shape[0], feature.device
-        if times is None:
-            times = torch.randint(1, self.timesteps, (b,), generator=generator,
-                                  device=device)
+        if times is None:  # each per-row draw over the global batch under a split
+            times = draw_rows(lambda n: torch.randint(1, self.timesteps, (n,),
+                                                      generator=generator, device=device), b)
         times = torch.as_tensor(times, device=device).long()
         with torch.no_grad():
             z = self.encode(feature, noise=enc_noise, generator=generator)
 
         def draw(injected):  # an injected draw keeps its type, as in JAX
             if injected is None:
-                return torch.randn(z.shape, generator=generator, device=device, dtype=z.dtype)
+                return draw_rows(lambda n: torch.randn((n,) + tuple(z.shape[1:]),
+                                                       generator=generator, device=device,
+                                                       dtype=z.dtype), b)
             return torch.as_tensor(injected, device=device)
 
         x1 = z + draw(x1_noise) * float(self.schedule.betas[0])
@@ -471,7 +474,7 @@ def calibrate_act_scales(model: LatentDiffusionModule, feature, mask, *,
 def ddim_sample(model: LatentDiffusionModule, feature, mask, *,
                 start_step: int = 50, stride: int = 1, enc_noise=None,
                 init_noise=None, generator: Optional[torch.Generator] = None,
-                device: Union[str, torch.device] = "cuda"):
+                device: Union[str, torch.device] = "cuda", mesh=None):
     """Partial-noise DDIM normalization (eta = 0).
 
     feature [B, T, feature_dim]; mask [B, T] bool, True = valid. Encodes,
@@ -485,7 +488,22 @@ def ddim_sample(model: LatentDiffusionModule, feature, mask, *,
     Runs on `device` (CUDA by default; raises when CUDA is absent), where
     the model must already be. Returns (pred_units [B, T] int32 with the -4
     dictionary offset applied, recon_feature [B, T, feature_dim]).
+
+    `mesh` (a `parallel.mesh.Mesh` of N ranks, each passing the same global
+    batch) splits the rows: each rank samples its contiguous block, the
+    noises not given drawn for the global batch, and every rank gets the
+    whole batch's outputs back in order (JAX's sharded ddim_sample).
     """
+    if mesh is not None and mesh.active:
+        n = feature.shape[0]
+        lo, hi = mesh.rows(n)
+        cut = (lambda x: None if x is None else x[lo:hi])  # noqa: E731
+        with row_split(mesh, n, lo, hi):
+            units, recon = ddim_sample(model, cut(feature), cut(mask), start_step=start_step,
+                                       stride=stride, enc_noise=cut(enc_noise),
+                                       init_noise=cut(init_noise), generator=generator,
+                                       device=device)
+        return mesh.all_gather_rows(units, n), mesh.all_gather_rows(recon, n)
     if model.use_cond:
         raise ValueError("ddim_sample: a prompt-conditioned model (use_cond) has no sampler; "
                          "JAX's ddim_sample passes it no prompt and its Denoiser asserts "
@@ -510,8 +528,8 @@ def ddim_sample(model: LatentDiffusionModule, feature, mask, *,
     z = model.encode(feature, noise=enc_noise, generator=generator)
     b = z.shape[0]
     if init_noise is None:
-        noise0 = torch.randn(z.shape, generator=generator, device=device,
-                             dtype=z.dtype)
+        noise0 = draw_rows(lambda n: torch.randn((n,) + tuple(z.shape[1:]), generator=generator,
+                                                 device=device, dtype=z.dtype), b)
     else:
         noise0 = torch.as_tensor(init_noise, device=device).to(z.dtype)
     x = at(sac_tab, start_step) * z + at(s1mac_tab, start_step) * noise0

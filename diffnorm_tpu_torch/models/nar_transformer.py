@@ -66,6 +66,7 @@ from diffnorm_tpu_torch.models.layers import (
 from diffnorm_tpu_torch.models.stacked import OFFSET, StackedEmbedding, pack_units
 from diffnorm_tpu_torch.ops import attention as attention_ops
 from diffnorm_tpu_torch.ops.quant import calibrating, quant_sites
+from diffnorm_tpu_torch.parallel.mesh import draw_rows
 
 PAD, BOS, EOS, UNK = 1, 0, 2, 3
 
@@ -433,8 +434,9 @@ class NARS2UTModule(nn.Module):
         length_tgt = torch.clamp((tgt_steps != PAD).sum(dim=1), 0, self.decoder.max_lengths - 1)
         if self.training and self.cg_prob > 0.0:
             if cg_drop is None:
-                cg_drop = torch.rand(enc.shape[0], generator=self.cg_generator,
-                                     device=enc.device) < self.cg_prob
+                cg_drop = draw_rows(lambda n: torch.rand(n, generator=self.cg_generator,
+                                                         device=enc.device),
+                                    enc.shape[0]) < self.cg_prob
             enc, enc_mask = self.apply_cg_drop(enc, enc_mask, cg_drop)
         if self.training and self.use_sp:
             if use_prompt is None:

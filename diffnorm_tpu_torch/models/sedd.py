@@ -44,6 +44,7 @@ from diffnorm_tpu_torch.models.layers import (
     arch_default,
     sinusoidal_positions,
 )
+from diffnorm_tpu_torch.parallel.mesh import draw_rows
 
 PAD, EOS, UNK = 1, 2, 3
 NOISE_EPS = 1e-3  # the schedule's and the training times' eps
@@ -162,12 +163,13 @@ class SEDDModule(nn.Module):
         perturbation's uniforms u [B, T] (drawn from `generator` in that
         order where not given), the perturbed x_t, the scores and the loss
         parts: loss_per_pos [B, T], weight (dsigma) [B], x_t, n_masked [B]."""
-        b = tokens.shape[0]
-        if t is None:
-            t = ((1.0 - NOISE_EPS) * torch.rand(b, generator=generator, device=tokens.device)
-                 + NOISE_EPS)
+        b, device = tokens.shape[0], tokens.device
+        if t is None:  # each draw over the global batch under a data-parallel split
+            t = ((1.0 - NOISE_EPS) * draw_rows(
+                lambda n: torch.rand(n, generator=generator, device=device), b) + NOISE_EPS)
         if u is None:
-            u = torch.rand(tokens.shape, generator=generator, device=tokens.device)
+            u = draw_rows(lambda n: torch.rand((n,) + tuple(tokens.shape[1:]),
+                                               generator=generator, device=device), b)
         t = t.float()
         sigma, dsigma = loglinear_sigma(t)
         able = valid_mask & (tokens != EOS)

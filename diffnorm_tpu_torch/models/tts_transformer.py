@@ -61,6 +61,7 @@ from diffnorm_tpu_torch.models.layers import (
 )
 from diffnorm_tpu_torch.models.nar_transformer import DecoderLayer
 from diffnorm_tpu_torch.ops import attention as attention_ops
+from diffnorm_tpu_torch.parallel.mesh import global_sum
 
 PAD = 1
 
@@ -273,7 +274,7 @@ def tts_loss(out: Dict, feat_tgt: torch.Tensor, tgt_lengths: torch.Tensor,
     steps = torch.arange(t, device=feat_tgt.device)[None, :]
     mask = steps < tgt_lengths[:, None]
     eos_tgt = (steps == (tgt_lengths - 1)[:, None]).float()
-    denom = torch.clamp(mask.sum(), min=1)
+    denom = torch.clamp(global_sum(mask.sum()), min=1)  # the global frames under a split
     tgt = feat_tgt.float()
 
     def masked_mean(x):

@@ -15,6 +15,7 @@ from torch import nn
 
 from diffnorm_tpu_torch.models.layers import ConditionableTransformer, Dense
 from diffnorm_tpu_torch.models.wavenet import Wavenet
+from diffnorm_tpu_torch.parallel.mesh import draw_rows
 
 CHAN_MULTS = {16: [4, 3, 2], 32: [4, 3], 128: [3]}
 
@@ -27,9 +28,10 @@ def gaussian_sample(params2c: torch.Tensor, noise: Optional[torch.Tensor] = None
     mean, logvar = params2c.chunk(2, dim=-1)
     logvar = torch.clamp(logvar, -30.0, 20.0)
     std = torch.exp(0.5 * logvar)
-    if noise is None:
-        eps = torch.randn(mean.shape, generator=generator, device=mean.device,
-                          dtype=mean.dtype)
+    if noise is None:  # drawn over the global batch under a data-parallel split
+        eps = draw_rows(lambda n: torch.randn((n,) + tuple(mean.shape[1:]), generator=generator,
+                                              device=mean.device, dtype=mean.dtype),
+                        mean.shape[0])
     else:
         eps = torch.as_tensor(noise, device=mean.device).to(mean.dtype)
     return mean + std * eps, mean, logvar

@@ -25,6 +25,12 @@ array leaf named by its key, each empty state null (`load_optax_state`).
 
 A step directory is written under a temporary name and renamed, so a
 crash never leaves the manifest naming a partial checkpoint.
+
+The format does not depend on the world size. Under data parallelism
+(`parallel/`) rank 0 alone writes, the whole state: `Trainer.gathered_master`
+gathers the float32 masters a --fsdp run splits, `Trainer.state_dict` the
+optimizer state and EMA that --zero-sharding os and --fsdp split; every rank
+reads the whole checkpoint and `Trainer.load_state_dict` keeps its slice.
 """
 
 from __future__ import annotations

@@ -59,13 +59,36 @@ def _betas(value, default: Tuple[float, float]) -> Tuple[float, float]:
 class Transform:
     """One optax GradientTransformation: `update(updates, params)` maps
     per-parameter tensors to new ones and advances the state. Its state is
-    its tensor lists (`_lists`) and scalars (`_scalars`)."""
+    its tensor lists (`_lists`, one tensor a parameter, of its shape) and
+    scalars (`_scalars`). `elementwise` transforms act on each element
+    alone, so they run on slices of the parameters (--zero-sharding os,
+    --fsdp) as on the whole."""
 
     _lists: Tuple[str, ...] = ()
     _scalars: Tuple[str, ...] = ()
+    elementwise = True
 
     def update(self, updates: Tensors, params: Tensors) -> Tensors:
         raise NotImplementedError
+
+    def children(self) -> List[Tuple["Transform", Optional[List[int]]]]:
+        """The inner transforms and the positions of their parameters among
+        this one's (None: all of them, in order)."""
+        return []
+
+    def param_lists(self, index: Sequence[int]):
+        """(owner, attribute, parameter indices): every per-parameter state
+        list of this transform and those inside it, each entry's index among
+        the optimizer's parameters (`index` maps this transform's
+        positions)."""
+        for name in self._lists:
+            yield self, name, list(index)
+        for child, positions in self.children():
+            sub = list(index) if positions is None else [index[i] for i in positions]
+            yield from child.param_lists(sub)
+
+    def is_elementwise(self) -> bool:
+        return self.elementwise and all(c.is_elementwise() for c, _ in self.children())
 
     def state_dict(self) -> Dict:
         return {name: getattr(self, name) for name in self._lists + self._scalars}
@@ -80,6 +103,9 @@ class Transform:
 class Chain(Transform):
     def __init__(self, *transforms: Transform):
         self.transforms = list(transforms)
+
+    def children(self):
+        return [(t, None) for t in self.transforms]
 
     def update(self, updates, params):
         for t in self.transforms:
@@ -137,16 +163,22 @@ class AddDecayedWeights(Transform):
         return torch._foreach_add(updates, params, alpha=self.weight_decay)
 
 
+def global_norm(tensors: Sequence[torch.Tensor]) -> torch.Tensor:
+    return torch.linalg.vector_norm(torch.stack(torch._foreach_norm(list(tensors))))
+
+
 class ClipByGlobalNorm(Transform):
     """optax.clip_by_global_norm: u * (max_norm / ||u||) where the global
     norm is at least max_norm (one factor, computed on the device: no host
-    sync)."""
+    sync). `norm_fn` is the norm of the whole from the updates given (the
+    sharded trainer's sums over the ranks' slices)."""
 
     def __init__(self, max_norm: float):
         self.max_norm = max_norm
+        self.norm_fn: Callable[[Sequence[torch.Tensor]], torch.Tensor] = global_norm
 
     def update(self, updates, params):
-        norm = torch.linalg.vector_norm(torch.stack(torch._foreach_norm(updates)))
+        norm = self.norm_fn(updates)
         factor = torch.where(norm < self.max_norm, torch.ones_like(norm),
                              self.max_norm / norm)
         return torch._foreach_mul(updates, factor)
@@ -221,6 +253,7 @@ class ScaleByAdam(Transform):
 class ScaleByTrustRatio(Transform):
     """optax.scale_by_trust_ratio: u * ||p|| / ||u|| per parameter (1 where
     either norm is 0)."""
+    elementwise = False  # per-parameter norms
 
     def update(self, updates, params):
         p_norm = torch._foreach_norm(params)
@@ -298,6 +331,7 @@ class ScaleByFactoredRms(Transform):
     at decay 1 - (t + 1)^-decay_rate, and u = g * (v_row / mean(v_row))^-1/2
     * v_col^-1/2; otherwise a full EMA v and u = g * v^-1/2."""
     _lists, _scalars = ("v_row", "v_col", "v"), ("count",)
+    elementwise = False  # factored moments: row and column means
 
     def __init__(self, params, decay_rate: float = 0.8, min_dim_size_to_factor: int = 128,
                  eps: float = 1e-30):
@@ -350,6 +384,7 @@ def _rms(x: torch.Tensor, floor: float) -> torch.Tensor:
 
 class ClipByBlockRms(Transform):
     """optax.clip_by_block_rms: u / max(1, rms(u) / threshold) per parameter."""
+    elementwise = False  # per-parameter norms
 
     def __init__(self, threshold: float):
         self.threshold = threshold
@@ -361,6 +396,7 @@ class ClipByBlockRms(Transform):
 
 class ScaleByParamBlockRms(Transform):
     """optax.scale_by_param_block_rms: u * max(rms(p), min_scale)."""
+    elementwise = False  # per-parameter norms
 
     def __init__(self, min_scale: float = 1e-3):
         self.min_scale = min_scale
@@ -402,6 +438,9 @@ class Composite(Transform):
         self.transforms = {name: make([params[i] for i in self.index[name]])
                            for name, make in factories.items()}
 
+    def children(self):
+        return [(t, self.index[name]) for name, t in self.transforms.items()]
+
     def update(self, updates, params):
         out = list(updates)
         for name, t in self.transforms.items():
@@ -431,6 +470,9 @@ class FreezeFinetune(Transform):
     def __init__(self, inner: Transform, n_updates: int, frozen: Sequence[bool]):
         self.inner, self.n_updates, self.frozen, self.count = inner, n_updates, list(frozen), 0
 
+    def children(self):
+        return [(self.inner, None)]
+
     def _gate(self, tensors: Tensors, live: bool) -> Tensors:
         if live:
             return tensors
@@ -448,6 +490,93 @@ class FreezeFinetune(Transform):
     def load_state_dict(self, state):
         self.count = state["count"]
         self.inner.load_state_dict(state["inner"])
+
+
+class Bmuf(Transform):
+    """Block-momentum model update filtering (JAX optimizers.py:380-445,
+    reference fairseq/optim/bmuf.py; --use-bmuf, --ddp-backend slowmo)
+    around `base`: the base chain's update gives the block's parameters
+    p' = p + u; every `sync_freq`-th update the block's move from the last
+    global model g, p' - g, passes through a momentum filter, m <- bm * m +
+    block_lr * (1 - bm) * (p' - g), the global model moves g <- g + m, and
+    the parameters snap to g + bm * m (Nesterov, `use_nesterov`) or to g.
+    The update returned is the new parameters less the old, as JAX's. Under
+    data parallelism the ranks' parameters are equal after the gradient
+    all-reduce, so the filter needs no collective of its own, as in JAX."""
+    _lists, _scalars = ("global_params", "smoothed"), ("step",)
+
+    def __init__(self, base: Transform, params, sync_freq: int = 50,
+                 block_momentum: float = 0.875, block_lr: float = 1.0,
+                 use_nesterov: bool = True):
+        self.base, self.sync_freq = base, int(sync_freq)
+        self.block_momentum, self.block_lr = float(block_momentum), float(block_lr)
+        self.use_nesterov, self.step = bool(use_nesterov), 0
+        self.global_params = [p.detach().clone() for p in params]
+        self.smoothed = _zeros(params)
+
+    def children(self):
+        return [(self.base, None)]
+
+    def update(self, updates, params):
+        prelim = torch._foreach_add(params, self.base.update(updates, params))
+        self.step += 1
+        if self.step % self.sync_freq == 0:
+            bm = self.block_momentum
+            blk = torch._foreach_sub(self.global_params, prelim)  # global - params
+            torch._foreach_mul_(self.smoothed, bm)
+            torch._foreach_add_(self.smoothed, blk, alpha=-self.block_lr * (1.0 - bm))
+            torch._foreach_add_(self.global_params, self.smoothed)
+            prelim = (torch._foreach_add(self.global_params, self.smoothed, alpha=bm)
+                      if self.use_nesterov else [g.clone() for g in self.global_params])
+        return torch._foreach_sub(prelim, params)
+
+    def state_dict(self):
+        return {**super().state_dict(), "base": self.base.state_dict()}
+
+    def load_state_dict(self, state):
+        super().load_state_dict(state)
+        self.base.load_state_dict(state["base"])
+
+
+def uses_bmuf(cfg: Mapping) -> bool:
+    return bool(cfg.get("use_bmuf")) or cfg.get("ddp_backend") == "slowmo"
+
+
+def zero_axis(shape: Sequence[int], data: int) -> Optional[int]:
+    """--zero-sharding os's axis of one optimizer-state tensor (JAX
+    shard_optimizer_state, optimizers.py:354-377): the first the data
+    degree divides (and that holds at least `data` entries); None keeps it
+    whole, as a 0-d state does."""
+    if data <= 1:
+        return None
+    for axis, size in enumerate(shape):
+        if size % data == 0 and size >= data:
+            return axis
+    return None
+
+
+def shard_optimizer_state(state, mesh):
+    """The spec of every tensor of an optimizer's state (a nested dict or
+    list of tensors and numbers, `Optimizer.state_dict()`'s or optax's):
+    ("data" on the `zero_axis`, None on the others) or () where it stays
+    whole (JAX's shard_optimizer_state without the placement). The
+    trainer splits each parameter's state on its parameter's axis by this
+    rule (Trainer, --zero-sharding os)."""
+    data = mesh.shape.get("data", 1)
+
+    def walk(node):
+        if isinstance(node, dict):
+            return {k: walk(v) for k, v in node.items()}
+        if isinstance(node, (list, tuple)):
+            specs = [walk(v) for v in node]
+            return type(node)(*specs) if hasattr(node, "_fields") else type(node)(specs)
+        shape = tuple(getattr(node, "shape", ()))
+        axis = zero_axis(shape, data) if shape else None
+        if axis is None:
+            return ()
+        return tuple("data" if a == axis else None for a in range(len(shape)))
+
+    return walk(state)
 
 
 # ---------------------------------------------------------------- registry
@@ -594,19 +723,23 @@ def build_optimizer(cfg: Mapping, schedule, params: Sequence[torch.Tensor],
     `freeze_finetune_subtrees` (default ("w2v_model",)). A host-driven
     schedule builds it at unit lr (the trainer scales the updates), which
     nag cannot take; pass_through leaves adafactor its relative steps and
-    composite groups their own schedules, and refuses other optimizers."""
+    composite groups their own schedules, and refuses other optimizers.
+    `use_bmuf` (or `ddp_backend` "slowmo") wraps the chain in `Bmuf`
+    (`global_sync_iter`, `block_momentum`, `block_lr`, `use_nbm`), which a
+    host-driven schedule cannot take."""
     name = cfg.get("optimizer") or "adam"
     if name not in OPTIMIZER_NAMES:
         raise ValueError(f"unknown optimizer {name!r}; one of {OPTIMIZER_NAMES}"
-                         + (" (bmuf is not ported)" if name == "bmuf" else ""))
-    if cfg.get("use_bmuf") or cfg.get("ddp_backend") == "slowmo":
-        raise NotImplementedError("BMUF (--use-bmuf, --ddp-backend slowmo) is not ported "
-                                  "(ROADMAP Queue 1 item 8, parallelism)")
+                         + (" (BMUF wraps one: --use-bmuf)" if name == "bmuf" else ""))
     if getattr(schedule, "host_driven", False):
         if name == "nag":
             raise ValueError("nag's lr-corrected momentum needs the schedule inside the "
                              "optimizer; host-driven lr schedulers (manual, "
                              "reduce_lr_on_plateau) are not supported with --optimizer nag")
+        if uses_bmuf(cfg):
+            raise ValueError("BMUF's sync-step snap-to-global delta is not lr-linear; "
+                             "host-driven lr schedulers (manual, reduce_lr_on_plateau) "
+                             "are not supported with --use-bmuf/slowmo")
         schedule = lambda step: 1.0  # noqa: E731
     elif getattr(schedule, "pass_through", False):
         if name == "adafactor":
@@ -623,6 +756,10 @@ def build_optimizer(cfg: Mapping, schedule, params: Sequence[torch.Tensor],
     if clip_norm and clip_norm > 0:
         chain.append(ClipByGlobalNorm(clip_norm))
     tx = Chain(*chain, tx)
+    if uses_bmuf(cfg):
+        tx = Bmuf(tx, params, sync_freq=_opt(cfg, "global_sync_iter", 50),
+                  block_momentum=_opt(cfg, "block_momentum", 0.875),
+                  block_lr=_opt(cfg, "block_lr", 1.0), use_nesterov=_opt(cfg, "use_nbm", True))
     n_freeze = int(cfg.get("freeze_finetune_updates") or 0)
     if n_freeze > 0:
         subtrees = cfg.get("freeze_finetune_subtrees") or ("w2v_model",)

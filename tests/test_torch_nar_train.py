@@ -39,6 +39,7 @@ from diffnorm_tpu_torch.ops.quant import quant_sites
 from diffnorm_tpu_torch.tasks import TASKS
 from diffnorm_tpu_torch.tasks.nar_s2ut_task import random_mask
 from diffnorm_tpu_torch.train.checkpoint import CheckpointManager, load_variables
+from diffnorm_tpu_torch.train.optimizers import Bmuf
 from diffnorm_tpu_torch.train.trainer import Trainer, TrainerConfig
 from diffnorm_tpu_torch.weights import from_jax_variables, save_npz, to_jax_variables
 from tests.torch_threads import torch_threads_per_worker  # noqa: F401 (autouse)
@@ -513,15 +514,17 @@ PORTED_HEADS = {"--multitask-config-yaml": "mt_letters_ctc",
     (["--target-speaker-embed"], None),
     (["--multitask-ctc-vocab", "100"], None),
     (["--attn-type", "abs"], ValueError), (["--arch", "nar_transformer"], SystemExit),
-    (["--ema-decay", "0.999"], None), (["--use-bmuf"], SystemExit)])
+    (["--ema-decay", "0.999"], None), (["--heartbeat-timeout", "60"], SystemExit),
+    (["--use-bmuf"], None)])
 def test_cli_flags_not_ported_raise(tmp_path, extra, error):
     """The NAR features the port leaves out raise by name, an arch or attention
     other than the recipes' is refused, and an unknown flag is an error;
     `--encoder-remat false` and the arch defaults parse. The multitask, CTC,
     target-speaker and encoder-remat flags (error None) parse and reach the
     model: the task builds it with their head, or a rematerializing
-    encoder; --ema-decay (ported since) reaches the trainer's EMA, and
-    --quant-int8 (ported since) gives the model its int8 sites."""
+    encoder; --ema-decay (ported since) reaches the trainer's EMA,
+    --quant-int8 (ported since) gives the model its int8 sites, and
+    --use-bmuf (ported since) wraps the trainer's optimizer in BMUF."""
     base = [str(tmp_path), "--task", "speech_to_speech_fasttranslate", "--max-update", "1"]
     if error is None:
         (tmp_path / "dict.txt").write_text("a 1\nb 1\n")
@@ -533,10 +536,13 @@ def test_cli_flags_not_ported_raise(tmp_path, extra, error):
             "--encoder-attention-heads", "2", "--decoder-layers", "1",
             "--decoder-attention-heads", "2", "--conv-channels", "32"])
         model = TASKS[args.task](args).build_model()
-        if extra[0] == "--ema-decay":
+        if extra[0] in ("--ema-decay", "--use-bmuf"):
             trainer = Trainer(train_cli.trainer_config(args), model,
                               TASKS[args.task](args).build_criterion())
-            assert trainer.ema is not None and trainer.ema.decay == 0.999
+            if extra[0] == "--ema-decay":
+                assert trainer.ema is not None and trainer.ema.decay == 0.999
+            else:
+                assert isinstance(trainer.optimizer.transform, Bmuf)
         elif extra[0] == "--quant-int8":
             assert len(quant_sites(model)) > 0
         else:

@@ -59,7 +59,8 @@ NEW_MODULES = ("models/stacked.py", "models/ar_transformer.py", "data/encoders.p
                "criterions/wav2vec_loss.py", "criterions/ctc_loss.py", "generate/ctc.py",
                "ops/speech_norm.py", "ops/lightconv.py", "ops/alignment.py", "tasks/dummy.py",
                "criterions/aliases.py", "registry.py", "cli/speech_norm.py",
-               "cli/hydra_train.py")
+               "cli/hydra_train.py", "parallel/__init__.py", "parallel/mesh.py",
+               "parallel/sharding_rules.py")
 
 
 def test_no_jax_imports_in_the_port():
@@ -211,7 +212,13 @@ def test_entry_points_refuse_the_cpu_unless_asked(tmp_path):
                    "--vocoder-cfg", "absent.json", "--results-path", str(tmp_path / "wav")])
 
     from diffnorm_tpu_torch.cli import generate, generate_waveform
+    from diffnorm_tpu_torch.cli import train as train_cli
     from diffnorm_tpu_torch.eval import asr_bleu
+
+    # data parallelism without --cpu joins NCCL on the card: no quiet gloo on the CPU
+    with pytest.raises(RuntimeError, match="CUDA"):
+        train_cli.main(["--task", "dummy_vae", "--max-update", "1", "--data-parallel", "2",
+                        "--save-dir", str(tmp_path / "dp")])
 
     with pytest.raises(RuntimeError, match="CUDA"):
         generate.main([str(tmp_path), "--path", "absent.npz", "--results-path", str(tmp_path)])

@@ -429,7 +429,7 @@ def test_config_yaml_under_explicit_flags(tmp_path):
     args = train_cli.parse_args(["--task", "dummy_mt", "--max-update", "1", "--config-yaml",
                                  "data.yaml"])
     assert args.config_yaml == "data.yaml" and args.config is None
-    path.write_text(yaml.safe_dump({"use_bmuf": True}))
+    path.write_text(yaml.safe_dump({"heartbeat_timeout": 60}))
     with pytest.raises(SystemExit):  # a flag the port lacks
         train_cli.parse_args(["--config", str(path), "--task", "dummy_mt", "--max-update", "1"])
 

@@ -475,4 +475,4 @@ def test_cli_chain_vae_normalizer_resume_synthesis(tmp_path, capsys):
     assert train_cli.trainer_config(args).ema_decay == 0.999
     with pytest.raises(SystemExit):
         train_cli.parse_args([str(tmp_path), "--tgt-feat-dir", "x", "--task", "speech_decoder",
-                              "--use-bmuf", "--max-update", "1"])  # a flag the port lacks
+                              "--heartbeat-timeout", "60", "--max-update", "1"])  # not ported
