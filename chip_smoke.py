@@ -441,6 +441,28 @@ encoder's [2,12,2249,64], keys 2249 and 1599, in both types.
    process group of one rank over NCCL in this process runs the same code
    (a DDIM and an update at CLI_NORMALIZER's depth against the run without
    a group). Only world sizes 1 (NCCL) and 2 (gloo, one device) run here.
+31. The model axis (parallel/sharding_rules.shard_model, parallel/
+   sequence.py, parallel/pipeline.py, cli.train's --model-parallel,
+   --profile and --heartbeat-timeout). Two gloo ranks share cuda:0 again
+   (mp_worker), a model group of 2 (or a seq / stage axis of 2); rank 0
+   also makes the one-process runs. (a) two float32 updates of the
+   released normalizer (sgd with momentum) on B16 x T128 at tensor
+   parallel 2 against one process: the first loss within MP_LOSS_REL, the
+   masters' update within MP_UPDATE_REL; (b) the long-form mask-predict
+   decode (B2 x 8448 fbank frames) in float32 with the NAR model split over
+   the 2 ranks (4 of its 8 heads a rank): tokens equal to one process,
+   scores within MP_SCORE_ATOL, flash_attention_f32 launched on each rank;
+   (c) conformer_encode_sp of the NAR's encoder over 2 ranks on the same
+   batch against the unsharded encoder (valid frames, row-cos
+   MP_ROW_COS); (d) pipeline_apply of the normalizer transformer's 12
+   layers as 2 stages of 6 on 4 microbatches of B16 x T128 against the 12
+   layers in one process (row-cos MP_ROW_COS); (e) cli.train of the
+   normalizer at CLI_NORMALIZER's depth with --model-parallel 2 --profile
+   --heartbeat-timeout 600, its trace file, then cli.validate at one rank
+   on its checkpoint against the run's own validation loss. Each prints its
+   wall and each rank's peak memory against the one-process run; then
+   rms_norm_film, wavenet_chain and flash_attention_f32 are held to their
+   plain versions at the shapes a rank ran.
 Then one JSON line of per-kernel numbers and, last, {"ok": true, "device": ...}.
 Exits non-zero without CUDA, and in a directory without the port.
 """
@@ -9303,8 +9325,8 @@ def dp_write_inputs(root: Path):
     return train_argv, synth_argv
 
 
-def dp_spawn(root: Path):
-    """DP_WORLD ranks of dp_worker on the card; each rank's results. Every
+def dp_spawn(root: Path, worker: str = "dp_worker", what: str = "data parallel"):
+    """DP_WORLD ranks of `worker` on the card; each rank's results. Every
     rank is killed when one fails or the ranks outlive DP_RANK_TIMEOUT_S."""
     import os
     import socket
@@ -9314,7 +9336,7 @@ def dp_spawn(root: Path):
         port = s.getsockname()[1]
     repo = Path(__file__).resolve().parent
     code = (f"import sys; sys.path.insert(0, {str(repo)!r}); import chip_smoke; "
-            f"sys.exit(chip_smoke.dp_worker())")
+            f"sys.exit(chip_smoke.{worker}())")
     procs = []
     for rank in range(DP_WORLD):
         env = dict(os.environ, RANK=str(rank), LOCAL_RANK="0", WORLD_SIZE=str(DP_WORLD),
@@ -9339,7 +9361,7 @@ def dp_spawn(root: Path):
     if bad is not None or any(not (root / f"rank{r}.json").exists() for r in range(DP_WORLD)):
         r = bad or 0
         tail = (root / f"rank{r}.log").read_text()[-3000:]
-        fail(f"data parallel: rank {r} failed or timed out after "
+        fail(f"{what}: rank {r} failed or timed out after "
              f"{time.perf_counter() - t0:.0f} s:\n{tail}")
     return [json.loads((root / f"rank{r}.json").read_text()) for r in range(DP_WORLD)], \
         time.perf_counter() - t0
@@ -9446,6 +9468,398 @@ def run_data_parallel(torch, mods, smi):
               f"{spawn_s:.1f} s, rank 0's parts "
               f"{ {k: round(r0[k]['phase_s'], 1) for k in ('ddim', 'updates', 's2st', 'cli')} }), "
               f"launches {launches}; {smi}")
+    return launches
+
+
+MP_B = 16  # (a) and (d)'s rows
+MP_LOSS_REL, MP_UPDATE_REL = DP_LOSS_REL, DP_UPDATE_REL  # (a): phase 30's bounds
+MP_SCORE_ATOL = 1e-4  # (b): tests/test_multichip_inference.py:119-121
+MP_ROW_COS = 0.99999  # (c), (d)
+MP_STAGE_LAYERS, MP_MICRO = 6, 4  # (d): 6 layers a stage, 4 microbatches
+MP_VALID_REL = DP_VALID_REL  # (e): bf16 forwards
+
+
+def mp_peak(torch, fn):
+    """fn()'s result, wall seconds and this process's peak memory (GB)."""
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t1 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t1, torch.cuda.max_memory_allocated() / 1e9
+
+
+def mp_counted(torch, fn, launches, f32=False):
+    """fn() with the kernels' launches counted and added to `launches` (a
+    float32 flash_attention's under flash_attention_f32)."""
+    from diffnorm_tpu_torch.ops import _build
+
+    _build.launch_counts.clear()
+    out = fn()
+    counted = {("flash_attention_f32" if f32 and k == "flash_attention" else k): v
+               for k, v in _build.launch_counts.items()}
+    for k, v in counted.items():
+        launches[k] = launches.get(k, 0) + v
+    return out, counted
+
+
+def mp_updates(torch, mesh, launches):
+    """(a): two float32 normalizer updates at tensor parallel 2 on B16 x
+    T128, and in one process (rank 0)."""
+    from diffnorm_tpu_torch.criterions.ddpm_loss import DDPMDiscreteLoss
+    from diffnorm_tpu_torch.models.diffusion import LatentDiffusionModule
+    from diffnorm_tpu_torch.train.trainer import Trainer, TrainerConfig
+
+    micros = [{k: v for k, v in batch.items() if not k.startswith("inject_")}
+              for batch in train_batches(torch, 2, 80, "ddpm", b=MP_B)]
+
+    def run(m, launches):
+        torch.manual_seed(11)
+        with torch.device("cuda"):
+            model = LatentDiffusionModule(dropout=0.0)
+        names = [n for n, _ in model.named_parameters() if not n.startswith("vae.")]
+        start = dp_flat(torch, model, names).cpu()
+        trainer = Trainer(TrainerConfig(**DP_TRAIN), model, DDPMDiscreteLoss(), ("vae",),
+                          mesh=m)
+        rows, counted = [], {}
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        for batch in micros:
+            t1 = time.perf_counter()
+            mets, c = mp_counted(torch, lambda: trainer.train_step([batch]), launches)
+            torch.cuda.synchronize()
+            rows.append((mets["loss"], mets["gnorm"], 1e3 * (time.perf_counter() - t1)))
+            for k, v in c.items():
+                counted[k] = counted.get(k, 0) + v
+        peak = torch.cuda.max_memory_allocated() / 1e9
+        with trainer.gathered_master() as master:
+            delta = dp_flat(torch, master, names).cpu() - start
+        del trainer, model
+        torch.cuda.empty_cache()
+        return rows, peak, delta, counted
+
+    rows, peak, delta, counted = run(mesh, launches)
+    out = {"rows": rows, "peak_gb": peak, "launches": counted}
+    mesh.barrier()
+    if mesh.rank == 0:  # the reference's launches are not the parallel run's
+        one = {}
+        one["rows"], one["peak_gb"], ref, _ = run(None, {})
+        out["one"] = one
+        out["update_rel"] = ((delta - ref).norm() / ref.norm()).item()
+    mesh.barrier()
+    return out
+
+
+def mp_decode_and_sp(torch, mesh, launches):
+    """(b) the long-form float32 decode with the NAR model split over the
+    model group, and in one process (rank 0); (c) its encoder run
+    sequence-parallel over the 2 ranks, and unsharded (rank 0)."""
+    from diffnorm_tpu_torch.generate.mask_predict import mask_predict_decode
+    from diffnorm_tpu_torch.parallel.mesh import make_seq_mesh
+    from diffnorm_tpu_torch.parallel.sequence import conformer_encode_sp
+    from diffnorm_tpu_torch.parallel.sharding_rules import shard_model
+
+    one = seeded_nar(torch, 0, dtype=torch.float32)
+    split = seeded_nar(torch, 0, dtype=torch.float32)
+    shard_model(split, mesh.model_axis)
+    src, lengths = s2st_inputs(torch, LONG_B, LONG_FRAMES)
+    kw = dict(max_iter=S2ST_KW["max_iter"], max_len=S2ST_KW["max_len"])
+    out = {}
+    with torch.no_grad():
+        mask_predict_decode(split, src, lengths, mesh=mesh, **kw)  # warm-up
+        ((tokens, scores, steps), counted), wall, peak = mp_peak(torch, lambda: mp_counted(
+            torch, lambda: mask_predict_decode(split, src, lengths, mesh=mesh, **kw), launches,
+            f32=True))
+        out["decode"] = {"wall": wall, "peak_gb": peak, "launches": counted,
+                         "steps": steps.tolist()}
+        seq = make_seq_mesh(2)
+        conformer_encode_sp(one.encoder, src, lengths, seq)  # warm-up
+        (sp_out, sp_mask), wall, peak = mp_peak(
+            torch, lambda: conformer_encode_sp(one.encoder, src, lengths, seq))
+        out["sp"] = {"wall": wall, "peak_gb": peak, "frames": int(sp_mask.shape[1])}
+        mesh.barrier()
+        if mesh.rank == 0:
+            (ref_tokens, ref_scores, _), out["decode"]["wall_one"], out["decode"]["peak_one"] = \
+                mp_peak(torch, lambda: mask_predict_decode(one, src, lengths, **kw))
+            out["decode"]["tokens_equal"] = bool(torch.equal(tokens, ref_tokens))
+            out["decode"]["score_max_abs"] = (scores - ref_scores).abs().max().item()
+            out["decode"]["varied"] = int((tokens >= 4).sum().item())
+            (ref, ref_mask), out["sp"]["wall_one"], out["sp"]["peak_one"] = mp_peak(
+                torch, lambda: one.encoder(src, lengths))
+            valid = ref_mask.reshape(-1)
+            cos = torch.nn.functional.cosine_similarity(
+                sp_out.reshape(-1, sp_out.shape[-1])[valid], ref.reshape(-1, ref.shape[-1])[valid],
+                dim=-1)
+            out["sp"]["row_cos"] = cos.min().item()
+            out["sp"]["max_abs"] = ((sp_out - ref) * ref_mask[..., None]).abs().max().item()
+            out["sp"]["mask_equal"] = bool(torch.equal(sp_mask, ref_mask))
+        mesh.barrier()
+    del one, split
+    torch.cuda.empty_cache()
+    return out
+
+
+def mp_stage_layers(tr, h, idx, cond, mask):
+    """Layers `idx` of a ConditionableTransformer on h (the body of its
+    forward, a FiLM norm per sublayer)."""
+    for i in idx:
+        h = h + tr.layer("attn", i)(tr.layer("attn_norm", i)(h, cond=cond), mask=mask)
+        h = h + tr.layer("ff", i)(tr.layer("ff_norm", i)(h, cond=cond))
+    return h
+
+
+def mp_pipeline(torch, mesh, launches):
+    """(d): the normalizer transformer's 12 layers as 2 pipeline stages of 6,
+    4 microbatches of B16 x T128, float32, and in one process (rank 0)."""
+    from diffnorm_tpu_torch.models.layers import ConditionableTransformer
+    from diffnorm_tpu_torch.parallel.mesh import make_stage_mesh
+    from diffnorm_tpu_torch.parallel.pipeline import pipeline_apply
+
+    torch.manual_seed(12)
+    with torch.device("cuda"):
+        tr = ConditionableTransformer(512, 12, dim_head=64, heads=8, ff_mult=4,
+                                      ff_causal_conv=True, cond_dim=2048).eval()
+    g = torch.Generator(device="cuda").manual_seed(13)
+    micro = torch.randn(MP_MICRO, MP_B, T, 512, generator=g, device="cuda")
+    cond = torch.randn(MP_B, 2048, generator=g, device="cuda")
+    mask = torch.ones(MP_B, T, dtype=torch.bool, device="cuda")
+    stages = make_stage_mesh(2)
+    mine = range(stages.index * MP_STAGE_LAYERS, (stages.index + 1) * MP_STAGE_LAYERS)
+    out = {}
+    with torch.no_grad():
+        (got, counted), wall, peak = mp_peak(torch, lambda: mp_counted(torch, lambda: (
+            pipeline_apply(lambda idx, h: mp_stage_layers(tr, h, idx, cond, mask), mine, micro,
+                           stages)), launches))
+        out.update(wall=wall, peak_gb=peak, launches=counted)
+        mesh.barrier()
+        if mesh.rank == 0:
+            ref, out["wall_one"], out["peak_one"] = mp_peak(torch, lambda: torch.stack([
+                mp_stage_layers(tr, x, range(12), cond, mask) for x in micro]))
+            out["row_cos"] = torch.nn.functional.cosine_similarity(
+                got.reshape(-1, 512), ref.reshape(-1, 512), dim=-1).min().item()
+            out["max_abs"] = (got - ref).abs().max().item()
+        mesh.barrier()
+    del tr
+    torch.cuda.empty_cache()
+    return out
+
+
+def mp_worker() -> int:
+    """One rank of phase 31 (run_model_parallel starts them): joins the gloo
+    group of the environment on cuda:0, runs (a)-(e)'s parallel halves
+    (rank 0 also the one-process runs) and writes its results to
+    DP_ROOT/rank{R}.json."""
+    import datetime
+    import os
+
+    import torch
+    import torch.distributed as dist
+
+    rank, world = int(os.environ["RANK"]), int(os.environ["WORLD_SIZE"])
+    root = Path(os.environ["DP_ROOT"])
+    torch.cuda.set_device(0)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dist.init_process_group("gloo", init_method=f"tcp://127.0.0.1:{os.environ['MASTER_PORT']}",
+                            world_size=world, rank=rank,
+                            timeout=datetime.timedelta(seconds=DP_RANK_TIMEOUT_S))
+    from diffnorm_tpu_torch.cli import train as train_cli
+    from diffnorm_tpu_torch.ops import _build
+    from diffnorm_tpu_torch.parallel.mesh import make_mesh
+
+    _build.build(["rms_norm_film", "wavenet_chain", "flash_attention"])  # built: loads
+    mesh = make_mesh(1, world)
+    launches, out, t0 = {}, {}, time.perf_counter()
+    for what, fn in (("updates", lambda: mp_updates(torch, mesh, launches)),
+                     ("decode_sp", lambda: mp_decode_and_sp(torch, mesh, launches)),
+                     ("pipeline", lambda: mp_pipeline(torch, mesh, launches))):
+        t1 = time.perf_counter()
+        out[what] = fn()
+        out[what]["phase_s"] = time.perf_counter() - t1
+    t1 = time.perf_counter()
+    rc, counted = mp_counted(
+        torch, lambda: train_cli.main(json.loads((root / "train_argv.json").read_text())),
+        launches)
+    out["cli"] = {"train_rc": rc, "train_s": time.perf_counter() - t1, "launches": counted,
+                  "phase_s": time.perf_counter() - t1}
+    out["launches"], out["wall_s"] = launches, time.perf_counter() - t0
+    (root / f"rank{rank}.json").write_text(json.dumps(out))
+    dist.destroy_process_group()
+    return 0
+
+
+def mp_hold_kernels(torch, mods):
+    """rms_norm_film, wavenet_chain and flash_attention_f32 against their
+    plain versions at the shapes a rank ran: the normalizer's norms and
+    WaveNets at B16 x T128 (float32; the WaveNets whole on each rank), and
+    the decoder's encoder attention with 4 of the 8 heads (float32, q
+    [2,4,256,64], k/v [2,4,2112,64], keys 2112 and 1056)."""
+    norm, chain, _, _, flash = mods
+    check_rms_norm_film(torch, norm, b=MP_B, t=T)
+    cases = [("denoiser", 512, 4, d) for d in (1, 2, 4, 8, 16, 32, 64, 128)] + [
+        ("vae encoder", 256, 2, 4), ("vae decoder", 768, 2, 1)]
+    worst, timed = 0.0, None
+    for n, (what, c, s, d) in enumerate(cases):
+        inp = chain_inputs(torch, c, s, 3, seed=90 + n, b=MP_B, t=T, dtype=torch.float32)
+        got = chain.wavenet_chain(**inp, dilation=d)
+        ref = chain.wavenet_chain_plain(**inp, dilation=d)
+        rel = ((got - ref).abs().max() / ref.abs().max()).item()
+        if not torch.isfinite(got).all() or rel > CHAIN_F32_REL_ERR:
+            fail(f"wavenet_chain {what} [{MP_B},{T},{c}] S={s} d={d} float32: max-abs/scale "
+                 f"{rel:.3e}")
+        worst = max(worst, rel)
+        if timed is None:  # the denoiser's first chain, timed
+            ms = cuda_time_ms(lambda: chain.wavenet_chain(**inp, dilation=d))
+            plain_ms = cuda_time_ms(lambda: chain.wavenet_chain_plain(**inp, dilation=d),
+                                    iters=3, reps=3)
+            bound_ms, by = bound(*chain_work(c, s, 3, d, inp), F32_FLOP_PER_S)
+            timed = f"{ms:.4f} ms, plain {plain_ms:.4f} ms, bound {bound_ms:.4f} ms ({by})"
+    print(f"kernel wavenet_chain at a rank's shapes [{MP_B},{T},C] float32 (the denoiser's 8 "
+          f"dilations at C 512, the VAE's encoder and decoder chains): every case within "
+          f"max-abs/scale {worst:.2e} (bound {CHAIN_F32_REL_ERR}); the denoiser's d=1 chain "
+          f"{timed}")
+    g = torch.Generator(device="cuda").manual_seed(91)
+    q, k, v = (torch.randn(LONG_B, 4, t, 64, generator=g, device="cuda")
+               for t in (256, 2112, 2112))
+    mask = (torch.arange(2112, device="cuda")[None, :]
+            < torch.tensor([2112, 1056], device="cuda")[:, None])
+    got = flash.flash_attention(q, k, v, mask)
+    ref = flash.flash_attention_plain(q, k, v, mask)
+    err = (got - ref).abs()
+    if not torch.isfinite(got).all() or (err > FLASH_ATOL + FLASH_RTOL * ref.abs()).any():
+        fail(f"flash_attention float32 at [2,4,256,64] k/v [2,4,2112,64]: max err "
+             f"{err.max().item():.3e}")
+    ms = cuda_time_ms(lambda: flash.flash_attention(q, k, v, mask))
+    plain_ms = cuda_time_ms(lambda: flash.flash_attention_plain(q, k, v, mask), iters=3, reps=3)
+    library_ms = cuda_time_eager_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
+        q, k, v, attn_mask=mask[:, None, None, :]))
+    keys = 2112 + 1056  # the valid keys' work, as check_flash_attention bounds it
+    nbytes = (2 * q.numel() + 2 * 4 * keys * 64) * 4 + mask.numel()
+    flops = 4.0 * 4 * 256 * keys * 64
+    bound_ms, by = min(bound(nbytes, flops, F32_FLOP_PER_S),
+                       bound(nbytes, 3 * flops, TF32_FLOP_PER_S))
+    print(f"kernel flash_attention float32 at a model rank's decoder attention (q [2,4,256,64], "
+          f"k/v [2,4,2112,64], keys [2112, 1056]): {ms:.4f} ms, plain {plain_ms:.4f} ms, bound "
+          f"{bound_ms:.4f} ms ({by}), F.scaled_dot_product_attention with the mask "
+          f"{library_ms:.4f} ms, max err {err.max().item():.3e}, within rtol {FLASH_RTOL} "
+          f"atol {FLASH_ATOL}")
+
+
+def run_model_parallel(torch, mods, smi):
+    """Phase 31 (module docstring). Returns the ranks' launches."""
+    from diffnorm_tpu_torch.cli import validate
+
+    t0 = time.perf_counter()
+    torch.cuda.empty_cache()  # the card's memory to the ranks' processes
+    launches = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        root = Path(tmp)
+        train_argv, _ = dp_write_inputs(root)
+        for flag in ("--data-parallel", "--fsdp", "--zero-sharding"):
+            i = train_argv.index(flag)
+            del train_argv[i:i + (1 if flag == "--fsdp" else 2)]
+        train_argv += ["--model-parallel", "2", "--data-parallel", "1", "--profile",
+                       "--heartbeat-timeout", "600"]
+        (root / "train_argv.json").write_text(json.dumps(train_argv))
+        ranks, spawn_s = dp_spawn(root, "mp_worker", "model parallel")
+        r0, r1 = ranks
+        for res in ranks:
+            for k, v in res["launches"].items():
+                launches[k] = launches.get(k, 0) + v
+        # (a)
+        u, u1 = r0["updates"], r1["updates"]
+        rows, ref = u["rows"], u["one"]["rows"]
+        loss_rel = abs(rows[0][0] - ref[0][0]) / abs(ref[0][0])
+        if loss_rel > MP_LOSS_REL or u["update_rel"] > MP_UPDATE_REL:
+            fail(f"tensor-parallel update: first loss rel {loss_rel:.3e} (bound {MP_LOSS_REL}), "
+                 f"masters' update rel {u['update_rel']:.3e} (bound {MP_UPDATE_REL})")
+        for name in ("rms_norm_film", "wavenet_chain"):
+            if not (u["launches"].get(name) and u1["launches"].get(name)):
+                fail(f"tensor-parallel update launched {name} {u['launches'].get(name)} / "
+                     f"{u1['launches'].get(name)} times")
+        print(f"model parallel (a) normalizer updates at tensor parallel 2 (released widths, "
+              f"float32, B{MP_B}xT{T}, sgd momentum 0.9, two gloo ranks on one card): losses "
+              f"{[round(r[0], 6) for r in rows]} against {[round(r[0], 6) for r in ref]} (first "
+              f"rel {loss_rel:.2e}), gnorms {[round(r[1], 5) for r in rows]} against "
+              f"{[round(r[1], 5) for r in ref]}, masters' update rel {u['update_rel']:.2e}; ms "
+              f"per update {[round(r[2], 1) for r in rows]} (rank 1 "
+              f"{[round(r[2], 1) for r in u1['rows']]}; one process "
+              f"{[round(r[2], 1) for r in ref]}); peak per rank {u['peak_gb']:.2f} / "
+              f"{u1['peak_gb']:.2f} GB (one process {u['one']['peak_gb']:.2f} GB); launches a "
+              f"rank {u['launches']} / {u1['launches']}; {smi}")
+        # (b)
+        dec, dec1 = r0["decode_sp"]["decode"], r1["decode_sp"]["decode"]
+        n_flash = [d["launches"].get("flash_attention_f32", 0) for d in (dec, dec1)]
+        if (not dec["tokens_equal"] or dec["score_max_abs"] > MP_SCORE_ATOL
+                or not all(n_flash) or dec["varied"] < 8):
+            fail(f"tensor-parallel long-form decode: tokens equal {dec['tokens_equal']}, score "
+                 f"max-abs {dec['score_max_abs']:.3e} (bound {MP_SCORE_ATOL}), "
+                 f"flash_attention_f32 launches {n_flash}, {dec['varied']} units")
+        print(f"model parallel (b) mask-predict decode B{LONG_B}x{LONG_FRAMES} frames, float32, "
+              f"the NAR model at tensor parallel 2 (4 of 8 heads a rank): tokens equal to one "
+              f"process ({dec['varied']} units), score max-abs {dec['score_max_abs']:.2e}, "
+              f"iterations {dec['steps']}; wall {dec['wall']:.4f} s (rank 1 {dec1['wall']:.4f} s) "
+              f"against {dec['wall_one']:.4f} s in one process; peak per rank "
+              f"{dec['peak_gb']:.2f} / {dec1['peak_gb']:.2f} GB (one process "
+              f"{dec['peak_one']:.2f} GB); flash_attention_f32 launches {n_flash} by rank; {smi}")
+        # (c)
+        sp, sp1 = r0["decode_sp"]["sp"], r1["decode_sp"]["sp"]
+        if not sp["mask_equal"] or sp["row_cos"] < MP_ROW_COS:
+            fail(f"sequence-parallel conformer: mask equal {sp['mask_equal']}, row-cos "
+                 f"{sp['row_cos']:.7f} (bound {MP_ROW_COS})")
+        print(f"model parallel (c) conformer_encode_sp over 2 ranks (the NAR's 12-layer "
+              f"512-d encoder, B{LONG_B}x{LONG_FRAMES} frames -> {sp['frames']}, float32): "
+              f"valid frames' row-cos min {sp['row_cos']:.7f}, max-abs {sp['max_abs']:.3e} "
+              f"against the unsharded encoder; wall {sp['wall']:.4f} s (rank 1 "
+              f"{sp1['wall']:.4f} s) against {sp['wall_one']:.4f} s; peak per rank "
+              f"{sp['peak_gb']:.2f} / {sp1['peak_gb']:.2f} GB (one process "
+              f"{sp['peak_one']:.2f} GB); {smi}")
+        # (d)
+        pp, pp1 = r0["pipeline"], r1["pipeline"]
+        if pp["row_cos"] < MP_ROW_COS:
+            fail(f"pipeline: row-cos {pp['row_cos']:.7f} (bound {MP_ROW_COS})")
+        print(f"model parallel (d) pipeline_apply, 2 stages of {MP_STAGE_LAYERS} of the "
+              f"normalizer transformer's 12 layers, {MP_MICRO} microbatches of B{MP_B}xT{T}, "
+              f"float32: row-cos min {pp['row_cos']:.7f}, max-abs {pp['max_abs']:.3e} against "
+              f"the 12 layers in one process; wall {pp['wall']:.4f} s (rank 1 {pp1['wall']:.4f} "
+              f"s) against {pp['wall_one']:.4f} s; peak per rank {pp['peak_gb']:.2f} / "
+              f"{pp1['peak_gb']:.2f} GB (one process {pp['peak_one']:.2f} GB); rms_norm_film "
+              f"launches {pp['launches'].get('rms_norm_film')} / "
+              f"{pp1['launches'].get('rms_norm_film')}; {smi}")
+        # (e)
+        cli, cli1 = r0["cli"], r1["cli"]
+        trace = root / "ckpt" / "profile" / "trace_rank0.json"
+        if cli["train_rc"] or cli1["train_rc"] or not trace.exists() or not trace.stat().st_size:
+            fail(f"cli.train --model-parallel 2: rc {cli['train_rc']} / {cli1['train_rc']}, "
+                 f"trace {trace.exists() and trace.stat().st_size}")
+        manifest = json.loads((root / "ckpt" / "manifest.json").read_text())
+        loss2 = next(e["metric"] for e in manifest["checkpoints"] if e["step"] == 2)
+        keep = list(train_argv)
+        for flag in ("--model-parallel", "--data-parallel", "--lr", "--warmup-updates",
+                     "--warmup-init-lr", "--clip-norm", "--log-interval", "--max-update",
+                     "--save-dir", "--heartbeat-timeout"):
+            i = keep.index(flag)
+            del keep[i:i + 2]
+        keep.remove("--profile")
+        t1 = time.perf_counter()
+        vals = validate.validate(validate.parse_args(
+            keep + ["--path", str(root / "ckpt" / "step_000000002")]))
+        valid_s = time.perf_counter() - t1
+        rel = abs(vals["loss"] - loss2) / abs(loss2)
+        if rel > MP_VALID_REL:
+            fail(f"cli.validate at one rank: loss {vals['loss']} against the TP-2 run's {loss2} "
+                 f"(rel {rel:.3e}, bound {MP_VALID_REL})")
+        print(f"model parallel (e) cli.train normalizer --model-parallel 2 --profile "
+              f"--heartbeat-timeout 600 (depth {CLI_NORMALIZER}, bf16, 2 updates): "
+              f"{cli['train_s']:.2f} s, trace {trace.stat().st_size} bytes; its validation loss "
+              f"{loss2:.6f}, cli.validate at one rank on its checkpoint {vals['loss']:.6f} (rel "
+              f"{rel:.2e}, {valid_s:.2f} s); {smi}")
+    t1 = time.perf_counter()
+    mp_hold_kernels(torch, mods)
+    print(f"phase model parallel: {time.perf_counter() - t0:.1f} s (the ranks {spawn_s:.1f} s, "
+          f"rank 0's parts "
+          f"{ {k: round(r0[k]['phase_s'], 1) for k in ('updates', 'decode_sp', 'pipeline', 'cli')} }"
+          f", the kernel holds {time.perf_counter() - t1:.1f} s), launches {launches}; {smi}")
     return launches
 
 
@@ -9678,6 +10092,13 @@ def main() -> int:
     # decode, cli.train -> cli.validate, cli.diff_norm_synthesis
     # --data-parallel 2), and one rank over NCCL
     for name, n in run_data_parallel(torch, mods, smi).items():
+        launches[name] += n
+
+    # 31. the model axis: two ranks on the card over gloo (the normalizer's
+    # tensor-parallel update, the long-form decode at tensor parallel 2,
+    # the sequence-parallel conformer, the GPipe pipeline, cli.train
+    # --model-parallel 2 --profile --heartbeat-timeout -> cli.validate)
+    for name, n in run_model_parallel(torch, mods, smi).items():
         launches[name] += n
 
     sources = {

@@ -187,12 +187,21 @@ iterator and `--seed`, and its resume position is global. `--zero-sharding
 os` splits the optimizer state over the ranks, `--fsdp` (or `--ddp-backend
 fully_sharded`) the masters too; `--use-bmuf` (or `--ddp-backend slowmo`)
 wraps the optimizer in BMUF (`--global-sync-iter`, `--block-momentum`,
-`--block-lr`, `--use-nbm`). Rank 0 alone logs and writes; its checkpoints
-hold the whole state, which any world size restores. `--model-parallel`
-above 1 is refused (ROADMAP Queue 1 item 8b).
+`--block-lr`, `--use-nbm`). `--model-parallel M` runs Megatron's tensor
+parallelism over model groups of M ranks (`parallel.sharding_rules.
+shard_model`; the ranks of one model group hold the same rows), so a run
+takes data x M processes. Rank 0 alone logs and writes; its checkpoints
+hold the whole state, which any data x model layout restores.
 
-  torchrun --nproc-per-node 2 -m diffnorm_tpu_torch.cli.train $DATA ... \\
-      --data-parallel 2 --fsdp --zero-sharding os
+`--heartbeat-timeout S` starts a watchdog (`utils/watchdog.py`) that every
+update pets; after S seconds without one it dumps every thread's stack and
+interrupts the process (JAX cli/train.py:237-244). `--profile` records the
+run with torch.profiler and writes each rank's Chrome trace under
+`--profile-dir` (default SAVE_DIR/profile; JAX cli/train.py:245-247,
+380-381).
+
+  torchrun --nproc-per-node 4 -m diffnorm_tpu_torch.cli.train $DATA ... \\
+      --data-parallel 2 --model-parallel 2 --fsdp --zero-sharding os
 """
 
 from __future__ import annotations
@@ -235,6 +244,7 @@ from diffnorm_tpu_torch.models.unit_lm import ARCHS as LM_ARCHS
 from diffnorm_tpu_torch.models.unity import ARCHS as UNITY_ARCHS
 from diffnorm_tpu_torch.models.wav2vec2 import ARCHS as W2V_ARCHS
 from diffnorm_tpu_torch.tasks import TASKS
+from diffnorm_tpu_torch.utils.watchdog import Watchdog
 from diffnorm_tpu_torch.tasks.s2spect_task import ARCHS as SPECT_ARCHS
 from diffnorm_tpu_torch.tasks.s2spect_task import S2SPECT2_ARCHS
 from diffnorm_tpu_torch.tasks.sedd_task import ARCH_CRITERIONS as LM_CRITERIONS
@@ -555,9 +565,14 @@ def build_parser(description: str, train: bool = True,
     p.add_argument("--data-parallel", type=int, default=-1,
                    help="data-parallel ranks (-1: every process of the group)")
     p.add_argument("--model-parallel", type=int, default=1,
-                   help="tensor-parallel degree: 1 (above 1 is ROADMAP item 8b)")
+                   help="tensor-parallel degree: the ranks of one model group")
     if not train:
         return p
+    p.add_argument("--heartbeat-timeout", type=float, default=0.0,
+                   help="seconds without an update before the watchdog dumps the stacks "
+                        "and interrupts the run (0: no watchdog)")
+    _flag(p, "--profile", help="record the run with torch.profiler (a Chrome trace a rank)")
+    p.add_argument("--profile-dir", help="where --profile writes (default SAVE_DIR/profile)")
     # optimization (flags left unset take each optimizer's and schedule's
     # own default, as in JAX)
     p.add_argument("--optimizer", choices=OPTIMIZER_NAMES, default="adam")
@@ -831,6 +846,27 @@ def max_positions(args: argparse.Namespace):
     return args.max_source_positions, args.max_target_positions
 
 
+def start_profiler(device: torch.device):
+    """torch.profiler over the host and, on the card, CUDA (JAX's
+    jax.profiler.start_trace)."""
+    activities = [torch.profiler.ProfilerActivity.CPU]
+    if device.type == "cuda":
+        activities.append(torch.profiler.ProfilerActivity.CUDA)
+    profiler = torch.profiler.profile(activities=activities)
+    profiler.start()
+    return profiler
+
+
+def stop_profiler(profiler, out_dir: str, rank: int) -> str:
+    """Stop and write the rank's Chrome trace under `out_dir`; its path."""
+    profiler.stop()
+    os.makedirs(out_dir, exist_ok=True)
+    path = os.path.join(out_dir, f"trace_rank{rank}.json")
+    profiler.export_chrome_trace(path)
+    logger.info("profile trace written to %s", path)
+    return path
+
+
 def fmt_metrics(vals: Dict[str, float]) -> str:
     return " ".join(f"{k} {vals[k]:.4g}" for k in sorted(vals)
                     if k not in ("ntokens", "nsentences"))
@@ -924,11 +960,12 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
     args = parse_args(argv)
     device = init_distributed(cpu=args.cpu)
     mesh = make_mesh(args.data_parallel, args.model_parallel)
-    main_rank = mesh.index == 0
+    main_rank = mesh.rank == 0
     if not main_rank:  # rank 0 alone logs
         logging.getLogger().setLevel(logging.WARNING)
-    if mesh.data > 1:
-        logger.info("data-parallel training over %d ranks (%s)", mesh.data, mesh.backend)
+    if mesh.data > 1 or mesh.model > 1:
+        logger.info("training over %d data x %d model ranks (%s)", mesh.data, mesh.model,
+                    mesh.backend)
     ckpt = CheckpointManager(args.save_dir, keep_last=args.keep_last_epochs,
                              keep_best=args.keep_best_checkpoints,
                              maximize=args.maximize_best_checkpoint_metric)
@@ -1015,6 +1052,8 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
 
     step, done = trainer.num_updates, False
     epoch = start_epoch
+    watchdog = Watchdog(args.heartbeat_timeout).start()
+    profiler = start_profiler(device) if args.profile else None
     while not done:
         trainer.lr_step_begin_epoch(epoch)  # manual's epoch2lr
         if task.has_sharded_data():
@@ -1037,6 +1076,7 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
             groups = grouped(epoch_itr.next_epoch_itr(), args.update_freq)
             for micro in prefetch_to_device(groups, prepare, depth=2, device=device):
                 mets = trainer.train_step(micro)
+                watchdog.pet()
                 step = trainer.num_updates
                 if hasattr(task, "set_num_updates"):
                     task.set_num_updates(step)
@@ -1063,6 +1103,10 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
         if epoch % args.save_interval == 0 or done:
             save(epoch + 1, metric)
         epoch += 1
+    watchdog.stop()
+    if profiler is not None:
+        stop_profiler(profiler, args.profile_dir or os.path.join(args.save_dir, "profile"),
+                      mesh.rank)
     if progress is not None:
         progress.close()
     logger.info("training done at step %d", step)

@@ -59,10 +59,11 @@ def parse_args(argv: Optional[Sequence[str]] = None):
 
 def validate(args) -> Dict[str, float]:
     """The aggregated metrics of --path's weights over --valid-subset (each
-    batch's rows split over the data-parallel ranks, as cli.train's)."""
+    batch's rows split over the data-parallel ranks and the model over the
+    model-parallel ranks, as cli.train's)."""
     device = init_distributed(cpu=args.cpu)
     mesh = make_mesh(args.data_parallel, args.model_parallel)
-    if mesh.index:  # rank 0 alone logs
+    if mesh.rank:  # rank 0 alone logs
         logging.getLogger().setLevel(logging.WARNING)
     torch.manual_seed(args.seed)
     task = TASKS[args.task](args)

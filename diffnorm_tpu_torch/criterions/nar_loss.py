@@ -186,7 +186,7 @@ class NARSpeechToUnitLoss:
             if active_split() is not None:
                 raise NotImplementedError(
                     "--multitask-ctc-vocab under data parallelism: the CTC term is a mean over "
-                    "a rank's rows, not the global batch's (ROADMAP Queue 1 item 8b)")
+                    "a rank's rows, not the global batch's (ROADMAP Queue 1 item 8e)")
             ctc_target = batch["ctc_target"].long()
             metrics["ctc_loss"] = ctc_loss(out["ctc_logits"].float(), (~out["ctc_mask"]).float(),
                                            ctc_target, (ctc_target == PAD).float()).mean()

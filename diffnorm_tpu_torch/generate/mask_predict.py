@@ -33,8 +33,11 @@ Counterpart of diffnorm_tpu/generate/mask_predict.py:
 * `mask_predict_decode_chunked` decodes sub-batches of `chunk` rows
   (--decode-chunk), the last padded with copies of the last row
 * `mesh` (a `parallel.mesh.Mesh` of N ranks, each passing the same
-  batch) splits the rows over the ranks and gathers the outputs in order
-  (`parallel.mesh.split_rows`): each row decodes as it does alone
+  batch) splits the rows over the data ranks and gathers the outputs in
+  order (`parallel.mesh.split_rows`): each row decodes as it does alone. On
+  a data x model mesh the model is split over the model group first
+  (`parallel.sharding_rules.shard_model`; JAX's shard_params), and the
+  ranks of one model group decode the same rows with their shards
 * `reranker` (--rerank-path, an AR S2UT model): a length beam's candidates
   are picked by their mean teacher-forced log-prob under it
   (`ar_rerank_scores`, fairseq's iterative_refinement_generator.py:294-361)
@@ -135,6 +138,11 @@ def mask_predict_decode(model, src: torch.Tensor, src_lengths: torch.Tensor, *,
     max_len * k]. k is the model's n_frames_per_step, which JAX's takes as
     an argument."""
     if mesh is not None and mesh.active:
+        if mesh.model > 1 and not any(getattr(m, "tp_axis", None) is not None
+                                      for m in (model if isinstance(model, (list, tuple))
+                                                else [model])[0].modules()):
+            raise ValueError(f"a mesh of --model-parallel {mesh.model} decodes a model split "
+                             f"over its model group: parallel.sharding_rules.shard_model first")
         opts = dict(max_iter=max_iter, max_len=max_len, cond_scale=cond_scale,
                     length_beam=length_beam, adaptive=adaptive, early_exit=early_exit,
                     retain_history=retain_history, reranker=reranker)

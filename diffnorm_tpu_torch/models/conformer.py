@@ -30,6 +30,25 @@ generators). BatchNorm keeps the forward's update of its running
 statistics: the recompute normalizes with the same batch statistics and
 leaves the running ones alone, as flax keeps the forward's `batch_stats`.
 
+Tensor parallelism (`parallel.sharding_rules.shard_model`): linear_q/k/v
+and w_1 are column-, linear_out and w_2 row-parallel, each rank running
+heads / model of the heads; pointwise_conv1 splits the GLU's a and b each by
+itself and pointwise_conv2 is row-parallel, so the depthwise conv and
+BatchNorm between them see this rank's channel slice. The replicated
+parameters a rank uses a slice of (the depthwise kernel, BatchNorm's scale
+and bias, pos_bias_u / pos_bias_v, linear_pos's heads) enter through
+`split_in`, whose backward gathers the slices' gradients, so every
+replicated parameter's gradient is whole and equal on every model rank;
+BatchNorm's running statistics are updated whole from the gathered slices.
+
+Sequence parallelism (`sp`, a seq `Axis`; `parallel.sequence.
+conformer_encode_sp` drives it): each rank holds a time shard of the
+layers' activations; attention is the ring rel-pos attention, the
+depthwise conv reads its neighbours' edge frames (`halo_pad`), the frames
+the split pads are zeroed before it (`conv_keep`), and in training
+BatchNorm's statistics are summed over the seq group (JAX
+conformer.py:130-145,217-245).
+
 `quant` (JAX's `quant` through the encoder, inference only) makes the
 attention's q, k, v and out projections and both FFNs' w_1 and w_2 int8
 W8A8 `Dense` sites with JAX's default knobs; q, k and v each quantize their
@@ -49,9 +68,17 @@ import torch.nn.functional as F
 from torch import nn
 from torch.utils.checkpoint import checkpoint
 
-from diffnorm_tpu_torch.models.layers import Dense, Dropout, DropoutSite
-from diffnorm_tpu_torch.ops.attention import apply_dropout
-from diffnorm_tpu_torch.parallel.mesh import active_split, all_reduce_grad, global_sum
+from diffnorm_tpu_torch.models.layers import Dense, Dropout, DropoutSite, local_heads
+from diffnorm_tpu_torch.ops.attention import apply_dropout, tp_shard
+from diffnorm_tpu_torch.parallel.mesh import (
+    active_split,
+    all_reduce_grad,
+    axis_sum,
+    copy_in,
+    global_sum,
+    reduce_out,
+    split_in,
+)
 
 LN_EPS = 1e-6  # flax nn.LayerNorm
 
@@ -70,11 +97,23 @@ def subsampled_lengths(lengths: torch.Tensor, n_layers: int = 2) -> torch.Tensor
 
 class Conv1d(nn.Conv1d):
     """A conv over [B, T, C] (flax nn.Conv's layout), input cast to the
-    weight's dtype; `weight` is torch's [out, in / groups, k]."""
+    weight's dtype; `weight` is torch's [out, in / groups, k]. Under tensor
+    parallelism (`tp_kind` "column" or "row", as `layers.tp_linear`) its
+    output or input channels are this rank's slice."""
+
+    tp_axis = None
+    tp_kind = None
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        x = x.to(self.weight.dtype).transpose(1, 2)
-        return super().forward(x).transpose(1, 2)
+        x = x.to(self.weight.dtype)
+        if self.tp_kind == "row":
+            y = F.conv1d(x.transpose(1, 2), self.weight, None, self.stride, self.padding,
+                         self.dilation, self.groups).transpose(1, 2)
+            y = reduce_out(y, self.tp_axis)
+            return y if self.bias is None else y + self.bias
+        if self.tp_kind == "column":
+            x = copy_in(x, self.tp_axis)
+        return super().forward(x.transpose(1, 2)).transpose(1, 2)
 
 
 class Conv1dSubsampler(nn.Module):
@@ -121,9 +160,12 @@ class RelPosSelfAttention(DropoutSite, nn.Module):
     """Transformer-XL style self-attention with pos_bias_u / pos_bias_v;
     `dropout` drops attention probabilities in training mode."""
 
+    tp_ready = True
+    tp_axis = None
+
     def __init__(self, dim: int, heads: int, dropout: float = 0.0, quant: bool = False):
         super().__init__()
-        self.dim, self.heads = dim, heads
+        self.dim, self.heads, self.dim_head = dim, heads, dim // heads
         self.dropout = dropout
         d = dim // heads
         for name in ("linear_q", "linear_k", "linear_v", "linear_out"):
@@ -133,18 +175,34 @@ class RelPosSelfAttention(DropoutSite, nn.Module):
         self.pos_bias_u = nn.Parameter(torch.empty(heads, d).uniform_(-bound, bound))
         self.pos_bias_v = nn.Parameter(torch.empty(heads, d).uniform_(-bound, bound))
 
+    def shard_heads(self, n: int) -> None:
+        self.heads = local_heads(self.heads, n)
+
     def forward(self, x: torch.Tensor, pos_emb: torch.Tensor,
-                mask: torch.Tensor) -> torch.Tensor:
+                mask: torch.Tensor, sp=None) -> torch.Tensor:
         b, t, _ = x.shape
-        h, d = self.heads, self.dim // self.heads
+        h, d = self.heads, self.dim_head
 
         def heads_of(z):
             return z.reshape(b, -1, h, d).transpose(1, 2)
 
         q, k, v = heads_of(self.linear_q(x)), heads_of(self.linear_k(x)), heads_of(self.linear_v(x))
-        p = self.linear_pos(pos_emb).reshape(-1, h, d).transpose(0, 1)  # [H, 2T-1, d]
-        bias_u = self.pos_bias_u.to(q.dtype)[None, :, None, :]
-        bias_v = self.pos_bias_v.to(q.dtype)[None, :, None, :]
+        p = self.linear_pos(pos_emb).reshape(pos_emb.shape[0], -1, d)
+        bias_u, bias_v = self.pos_bias_u, self.pos_bias_v
+        if self.tp_axis is not None:  # this rank's heads of the replicated tables
+            p = split_in(p, self.tp_axis, 1)
+            bias_u, bias_v = (split_in(b_, self.tp_axis, 0) for b_ in (bias_u, bias_v))
+        p = p.transpose(0, 1)  # [H, 2T-1, d]
+        bias_u = bias_u.to(q.dtype)[None, :, None, :]
+        bias_v = bias_v.to(q.dtype)[None, :, None, :]
+        if sp is not None:
+            from diffnorm_tpu_torch.parallel.sequence import ring_rel_pos_attention
+
+            if self.training and self.dropout > 0.0:
+                raise NotImplementedError("attention dropout under sequence parallelism "
+                                          "(JAX asserts the same)")
+            out = ring_rel_pos_attention(q + bias_u, q + bias_v, k, v, p, mask, sp)
+            return self.linear_out(out.transpose(1, 2).reshape(b, t, -1))
         # bf16 products are exact in f32: the f32 matmuls give JAX's
         # bf16 x bf16 -> f32 einsums
         ac = torch.matmul((q + bias_u).float(), k.float().transpose(-1, -2))
@@ -153,12 +211,17 @@ class RelPosSelfAttention(DropoutSite, nn.Module):
         scores = scores.masked_fill(~mask[:, None, None, :], torch.finfo(torch.float32).min)
         attn = scores.softmax(dim=-1)
         if self.training and self.dropout > 0.0:
-            attn = apply_dropout(attn, self.dropout, self.generator)
+            whole = h * self.tp_axis.size if self.tp_axis is not None else h
+            attn = apply_dropout(attn, self.dropout, self.generator,
+                                 tp_shard(self.tp_axis, 1, whole))
         out = torch.matmul(attn, v.float()).to(x.dtype)
-        return self.linear_out(out.transpose(1, 2).reshape(b, t, self.dim))
+        return self.linear_out(out.transpose(1, 2).reshape(b, t, -1))
 
 
 class ConformerFFN(nn.Module):
+    tp_ready = True  # w_1 column-, w_2 row-parallel
+    tp_axis = None
+
     def __init__(self, dim: int, ffn_dim: int, dropout: float = 0.0,
                  activation_dropout: float = 0.0, quant: bool = False):
         super().__init__()
@@ -169,7 +232,8 @@ class ConformerFFN(nn.Module):
         self.dropout = Dropout(dropout)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        h = self.activation_dropout(F.silu(self.w_1(self.layer_norm(x))))
+        h = self.activation_dropout(F.silu(self.w_1(self.layer_norm(x))),
+                                    tp_shard(self.tp_axis, -1, self.w_1.out_features))
         return self.dropout(self.w_2(h))
 
 
@@ -206,34 +270,52 @@ class BatchNorm(nn.Module):
         return out
 
     @torch.no_grad()
-    def _update_stats(self, mean: torch.Tensor, var: torch.Tensor) -> None:
+    def _update_stats(self, mean: torch.Tensor, var: torch.Tensor, tp=None) -> None:
         for name, batch in zip(self.STATS if self.update_stats else (), (mean, var)):
+            if tp is not None:  # the channel slices of every model rank
+                batch = tp.all_gather_blocks(batch.detach(), self.weight.shape[0])
             running = getattr(self, name)
             running.copy_(self.momentum * running + (1.0 - self.momentum) * batch)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        if self.training and active_split() is not None:
-            # data parallel: the statistics of the global batch, every rank's
-            # frames summed (and their gradients, in the backward)
+    def forward(self, x: torch.Tensor, tp=None, sp=None) -> torch.Tensor:
+        """`tp`: x holds this rank's channel slice over that model axis;
+        `sp`: x holds a time shard, and training statistics are summed over
+        that seq axis."""
+        weight, bias = self.weight, self.bias
+        if tp is not None:
+            weight, bias = split_in(weight, tp, 0), split_in(bias, tp, 0)
+        if self.training and (active_split() is not None or sp is not None):
+            # data or sequence parallel: the statistics of the global batch,
+            # every rank's frames summed (and their gradients, in the backward)
             xf = x.float()
-            sums = all_reduce_grad(torch.cat([xf.sum(dim=(0, 1)), xf.square().sum(dim=(0, 1))]))
-            n = global_sum(x.shape[0] * x.shape[1])
+            sums = torch.cat([xf.sum(dim=(0, 1)), xf.square().sum(dim=(0, 1))])
+            n = x.shape[0] * x.shape[1]
+            if active_split() is not None:
+                sums, n = all_reduce_grad(sums), global_sum(n)
+            if sp is not None:  # the shards are of one length
+                sums, n = axis_sum(sums, sp), n * sp.size
             mean, sq = (sums / n).chunk(2)
             var = torch.clamp(sq - mean.square(), min=0.0)
-            self._update_stats(mean, var)
+            self._update_stats(mean, var, tp)
         elif self.training:
             xf = x.float()
             mean = xf.mean(dim=(0, 1))
             var = torch.clamp(xf.square().mean(dim=(0, 1)) - mean.square(), min=0.0)
-            self._update_stats(mean, var)
+            self._update_stats(mean, var, tp)
         else:
             mean, var = self.running_mean.float(), self.running_var.float()
-        mul = torch.rsqrt(var + self.eps) * self.weight.float()
-        y = (x.float() - mean) * mul + self.bias.float()
+            if tp is not None:
+                lo, hi = tp.block(mean.shape[0])
+                mean, var = mean[lo:hi], var[lo:hi]
+        mul = torch.rsqrt(var + self.eps) * weight.float()
+        y = (x.float() - mean) * mul + bias.float()
         return y.to(x.dtype)
 
 
 class ConvModule(nn.Module):
+    tp_ready = True
+    tp_axis = None
+
     def __init__(self, dim: int, kernel_size: int = 31, dropout: float = 0.0):
         super().__init__()
         self.layer_norm = layer_norm(dim)
@@ -244,9 +326,25 @@ class ConvModule(nn.Module):
         self.pointwise_conv2 = Conv1d(dim, dim, 1, bias=False)
         self.dropout = Dropout(dropout)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, sp=None, conv_keep=None) -> torch.Tensor:
+        """`sp` (a seq axis): x is a time shard; `conv_keep` [B, T] zeroes
+        the frames sequence parallelism pads before the depthwise conv."""
         x = F.glu(self.pointwise_conv1(self.layer_norm(x)), dim=-1)
-        x = F.silu(self.batch_norm(self.depthwise_conv(x)))
+        if conv_keep is not None:
+            x = x * conv_keep[:, :, None].to(x.dtype)
+        conv, tp = self.depthwise_conv, self.tp_axis
+        if tp is None and sp is None:
+            x = conv(x)
+        else:
+            weight = conv.weight if tp is None else split_in(conv.weight, tp, 0)
+            pad = (conv.kernel_size[0] - 1) // 2
+            if sp is not None:
+                from diffnorm_tpu_torch.parallel.sequence import halo_pad
+
+                x, pad = halo_pad(x, pad, pad, sp), 0
+            x = F.conv1d(x.to(weight.dtype).transpose(1, 2), weight, None, 1, pad, 1,
+                         weight.shape[0]).transpose(1, 2)
+        x = F.silu(self.batch_norm(x, tp=tp, sp=sp))
         return self.dropout(self.pointwise_conv2(x))
 
 
@@ -263,10 +361,11 @@ class ConformerLayer(nn.Module):
         self.ffn2 = ConformerFFN(dim, ffn_dim, dropout, activation_dropout, quant)
         self.final_layer_norm = layer_norm(dim)
 
-    def forward(self, x, pos_emb, mask):
+    def forward(self, x, pos_emb, mask, sp=None, conv_keep=None):
         x = x + 0.5 * self.ffn1(x)
-        x = x + self.attn_dropout(self.self_attn(self.self_attn_layer_norm(x), pos_emb, mask))
-        x = x + self.conv_module(x)
+        x = x + self.attn_dropout(self.self_attn(self.self_attn_layer_norm(x), pos_emb, mask,
+                                                 sp=sp))
+        x = x + self.conv_module(x, sp=sp, conv_keep=conv_keep)
         x = x + 0.5 * self.ffn2(x)
         return self.final_layer_norm(x)
 
@@ -336,21 +435,34 @@ class ConformerEncoder(nn.Module):
                 dim, ffn_dim, heads, depthwise_kernel_size, dropout, attention_dropout,
                 activation_dropout, quant))
 
-    def forward(self, src: torch.Tensor, src_lengths: torch.Tensor,
-                return_all_layers: bool = False):
-        """With `return_all_layers` also the output of every layer, in
-        order (fairseq's return_all_hiddens encoder_states, which the
-        multitask aux heads tap): (features, mask, states)."""
+    def embed(self, src: torch.Tensor, src_lengths: torch.Tensor):
+        """Subsample, scale, project: (x [B, T', C], mask [B, T'], the
+        rel-pos table [2T' - 1, C])."""
         x, lengths = self.subsample(src, src_lengths)
         mask = torch.arange(x.shape[1], device=x.device)[None, :] < lengths[:, None]
         x = x * math.sqrt(self.dim)
         pos = torch.from_numpy(rel_positional_encoding(x.shape[1], self.dim)).to(
             device=x.device, dtype=x.dtype)
-        x = self.input_dropout(self.linear(x))
+        return self.input_dropout(self.linear(x)), mask, pos
+
+    def run_layers(self, x, pos, mask, sp=None, conv_keep=None):
+        """The layer stack: (the output, every layer's output). Under
+        sequence parallelism (`sp`) x and mask are this rank's time shard
+        and `pos` the whole table."""
         states = []
         remat = self.remat and self.training and torch.is_grad_enabled()
         for i in range(self.n_layers):
             layer = getattr(self, f"layer_{i}")
-            x = rematerialized(layer, x, pos, mask) if remat else layer(x, pos, mask)
+            args = (x, pos, mask, sp, conv_keep)
+            x = rematerialized(layer, *args) if remat else layer(*args)
             states.append(x)
+        return x, states
+
+    def forward(self, src: torch.Tensor, src_lengths: torch.Tensor,
+                return_all_layers: bool = False):
+        """With `return_all_layers` also the output of every layer, in
+        order (fairseq's return_all_hiddens encoder_states, which the
+        multitask aux heads tap): (features, mask, states)."""
+        x, mask, pos = self.embed(src, src_lengths)
+        x, states = self.run_layers(x, pos, mask)
         return (x, mask, states) if return_all_layers else (x, mask)

@@ -169,7 +169,14 @@ class Denoiser(nn.Module):
     drops the prompt takes `null_prompt_cond` and `null_prompt_tokens`
     instead: all rows at cond_drop_prob 1, none at 0, else each with
     probability cond_drop_prob from `generator` (JAX's "cg" stream), or as
-    the injected bool [B] `cond_drop` says."""
+    the injected bool [B] `cond_drop` says.
+
+    Under tensor parallelism `time_proj` is column-parallel (JAX
+    diffusion.py:189,234) and its output is gathered whole for the FiLM
+    projections that read it; the WaveNet's names match no rule, so its
+    chain runs replicated with whole weights."""
+
+    tp_ready = True
 
     def __init__(self, dim: int = 512, latent_dim: int = 128, depth: int = 12,
                  wavenet_layers: int = 8, wavenet_stacks: int = 4,

@@ -62,9 +62,10 @@ from diffnorm_tpu_torch.models.layers import (
     Dropout,
     DropoutSite,
     _lecun_normal_,
+    local_heads,
     arch_default,
 )
-from diffnorm_tpu_torch.ops.attention import masked_attention
+from diffnorm_tpu_torch.ops.attention import masked_attention, tp_shard
 
 CONV_LAYERS = ((512, 10, 5),) + ((512, 3, 2),) * 4 + ((512, 2, 2),) * 2
 LN_EPS = 1e-6  # flax nn.LayerNorm
@@ -147,7 +148,12 @@ class ConvPositionalEmbedding(nn.Module):
 
 class TransformerSentenceEncoderLayer(DropoutSite, nn.Module):
     """Post-norm layer, or pre-norm with `layer_norm_first` (JAX
-    hubert.py:95-156), with its dropouts in training mode."""
+    hubert.py:95-156), with its dropouts in training mode. Under tensor
+    parallelism each rank runs heads / model of the heads and its slice of
+    the FF width."""
+
+    tp_ready = True
+    tp_axis = None
 
     def __init__(self, dim: int = 768, heads: int = 12, ffn_dim: int = 3072,
                  layer_norm_first: bool = False, layer_norm_eps: float = LN_EPS,
@@ -163,20 +169,24 @@ class TransformerSentenceEncoderLayer(DropoutSite, nn.Module):
         self.final_layer_norm = nn.LayerNorm(dim, eps=layer_norm_eps)
         self.dropout, self.activation_dropout = Dropout(dropout), Dropout(activation_dropout)
 
+    def shard_heads(self, n: int) -> None:
+        self.heads = local_heads(self.heads, n)
+
     def attention(self, z: torch.Tensor, mask: Optional[torch.Tensor]) -> torch.Tensor:
         b, t, dim = z.shape
 
         def heads_of(y):
-            return y.reshape(b, t, self.heads, dim // self.heads).transpose(1, 2)
+            return y.reshape(b, t, self.heads, -1).transpose(1, 2)
 
         a = masked_attention(heads_of(self.q_proj(z)), heads_of(self.k_proj(z)),
                              heads_of(self.v_proj(z)), mask,
                              dropout=self.attention_dropout if self.training else 0.0,
-                             generator=self.generator)
-        return self.dropout(self.out_proj(a.transpose(1, 2).reshape(b, t, dim)))
+                             generator=self.generator, heads_axis=self.tp_axis)
+        return self.dropout(self.out_proj(a.transpose(1, 2).reshape(b, t, -1)))
 
     def ffn(self, z: torch.Tensor) -> torch.Tensor:
-        return self.dropout(self.fc2(self.activation_dropout(F.gelu(self.fc1(z)))))
+        shard = tp_shard(self.tp_axis, -1, self.fc1.out_features)
+        return self.dropout(self.fc2(self.activation_dropout(F.gelu(self.fc1(z)), shard)))
 
     def forward(self, x: torch.Tensor, mask: Optional[torch.Tensor] = None) -> torch.Tensor:
         if self.layer_norm_first:

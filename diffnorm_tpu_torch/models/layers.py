@@ -46,6 +46,7 @@ from diffnorm_tpu_torch.ops import fused_layer as fused_ops
 from diffnorm_tpu_torch.ops import norm as norm_ops
 from diffnorm_tpu_torch.ops import quant as quant_ops
 from diffnorm_tpu_torch.ops.quant import Int8Knobs, QuantSite
+from diffnorm_tpu_torch.parallel.mesh import copy_in, gather_out, reduce_out, split_in
 
 # ConditionableTransformer's int8 routes: JAX's DIFFNORM_FUSED_BLOCK=1,
 # DIFFNORM_FFPIPE=1, DIFFNORM_FFPIPE=1 with DIFFNORM_FFPIPE_ROWS=2, and
@@ -136,6 +137,11 @@ class Dense(QuantSite, nn.Linear):
     # (the float32 master,) of a bf16 working copy's weight, as JAX
     # quantizes its float32 masters
     int8_master: Tuple[torch.Tensor, ...] = ()
+    # tensor parallelism (parallel.sharding_rules.shard_model): the model
+    # axis, and "column" (the output split), "gather" (a column product
+    # whose output replicated code reads) or "row" (the input split)
+    tp_axis = None
+    tp_kind: Optional[str] = None
 
     def __init__(self, in_features: int, out_features: int, bias: bool = True,
                  quant: bool = False, knobs: Int8Knobs = Int8Knobs()):
@@ -157,6 +163,9 @@ class Dense(QuantSite, nn.Linear):
 
     def forward(self, x: torch.Tensor, pre_quant=None) -> torch.Tensor:
         x = x.to(self.weight.dtype)
+        if self.tp_axis is not None:
+            return tp_linear(x, self.weight, self.bias, self.tp_axis, self.tp_kind,
+                             self.out_features)
         if not self.quant:
             return F.linear(x, self.weight, self.bias)
         if pre_quant is None:
@@ -172,6 +181,20 @@ class Dense(QuantSite, nn.Linear):
         y = quant_ops.int8_matmul(x, wq, ws, pre_quant=pre_quant,
                                   bf16_epilogue=self.knobs.deq_bf16)
         return y if self.bias is None else y + self.bias.to(y.dtype)
+
+
+def tp_linear(x: torch.Tensor, weight: torch.Tensor, bias: Optional[torch.Tensor], axis,
+              kind: str, out_features: int) -> torch.Tensor:
+    """A Megatron product over the model axis: a column product takes the
+    replicated input (its gradient summed over the ranks) to this rank's
+    output slice, gathered whole (`out_features`) for "gather"; a row
+    product sums the ranks' partial products of their input slices, then
+    adds the bias once."""
+    if kind == "row":
+        y = reduce_out(F.linear(x, weight), axis)
+        return y if bias is None else y + bias
+    y = F.linear(copy_in(x, axis), weight, bias)
+    return gather_out(y, axis, n=out_features) if kind == "gather" else y
 
 
 def causal_taps(x: torch.Tensor, taps: torch.Tensor, dilation: int) -> torch.Tensor:
@@ -319,7 +342,16 @@ class FeedForward(nn.Module):
     int8 conv, QDense proj_out, unpadded, under `knobs`), and `pack_weights`
     also packs the int8 weights of the fused kernels
     (`ops.ffpipe.pack_ff_weights`, inner width padded to a multiple of 128)
-    into `self.int8`."""
+    into `self.int8`.
+
+    Under tensor parallelism (`tp_axis`) proj_in holds this rank's slice of
+    the GEGLU's x and of its gate, proj_out the matching input rows: the
+    inner width is split, unpadded. The causal conv is replicated and reads
+    the whole inner width, so its input is gathered and its output cut to
+    this rank's slice again."""
+
+    tp_ready = True
+    tp_axis = None
 
     def __init__(self, dim: int, mult: int = 4, causal_conv: bool = False,
                  quant: bool = False, knobs: Int8Knobs = Int8Knobs()):
@@ -377,7 +409,19 @@ class FeedForward(nn.Module):
         names = ("w_in", "b_in", "w_out") + (("w_conv", "b_conv") if self.conv is not None else ())
         return {name: getattr(self, name) for name in names}
 
+    def _tp_forward(self, x: torch.Tensor) -> torch.Tensor:
+        axis = self.tp_axis
+        x = copy_in(x.to(self.proj_in.weight.dtype), axis)
+        h = geglu(F.linear(x, self.proj_in.weight, self.proj_in.bias))
+        if self.conv is not None:
+            h = gather_out(h, axis, n=self.inner)
+            h = causal_taps(h, self.conv.weight.permute(2, 0, 1), 1) + self.conv.bias
+            h = split_in(h, axis)
+        return reduce_out(F.linear(h, self.proj_out.weight), axis) + self.proj_out.bias
+
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if self.tp_axis is not None:
+            return self._tp_forward(x)
         if self.quant:
             h = geglu(self.proj_in(x))
             if self.conv is not None:
@@ -401,6 +445,13 @@ def set_live_int8(model: nn.Module, masters: Optional[nn.Module] = None) -> None
                 m.int8_master = (masters.get_submodule(name).weight,)
 
 
+def local_heads(heads: int, n: int) -> int:
+    """A rank's heads of `heads` over a model axis of n ranks."""
+    if heads % n:
+        raise ValueError(f"{heads} heads do not split over --model-parallel {n}")
+    return heads // n
+
+
 class DropoutSite:
     """A module whose training forward drops from `self.generator`, which
     `set_dropout_generator` sets (the trainer's dropout stream)."""
@@ -422,7 +473,14 @@ class Attention(QuantSite, DropoutSite, nn.Module):
 
     `dropout` drops attention probabilities in training mode (JAX's
     `deterministic=False`), drawn from `self.generator`, which the trainer
-    sets (`set_dropout_generator`)."""
+    sets (`set_dropout_generator`).
+
+    Under tensor parallelism each rank runs heads / model of the heads
+    (`shard_heads`): its slices of to_q and of to_kv's k and v, and of
+    to_out's input rows."""
+
+    tp_ready = True
+    tp_axis = None
 
     def __init__(self, dim: int, dim_head: int = 64, heads: int = 8,
                  quant: bool = False, knobs: Int8Knobs = Int8Knobs(),
@@ -436,6 +494,9 @@ class Attention(QuantSite, DropoutSite, nn.Module):
         self.to_out = Dense(inner, dim, bias=False, quant=quant, knobs=knobs)
         self._init_site()
         self.pack_weights()
+
+    def shard_heads(self, n: int) -> None:
+        self.heads = local_heads(self.heads, n)
 
     @torch.no_grad()
     def pack_weights(self) -> None:
@@ -455,7 +516,7 @@ class Attention(QuantSite, DropoutSite, nn.Module):
                    for t in (q, k, v))
         drop = self.dropout if self.training else 0.0
         out = attention_ops.masked_attention(q, k, v, mask=mask, dropout=drop,
-                                             generator=self.generator)
+                                             generator=self.generator, heads_axis=self.tp_axis)
         return self.to_out(out.transpose(1, 2).reshape(b, n, -1))
 
 
@@ -609,16 +670,18 @@ class ConditionableTransformer(nn.Module):
 class Dropout(DropoutSite, nn.Module):
     """flax nn.Dropout: in training mode (JAX's `deterministic=False`) each
     element is kept with 1 - p and the kept ones scaled by 1 / (1 - p),
-    drawn from `self.generator`; the identity in eval mode or at p = 0."""
+    drawn from `self.generator`; the identity in eval mode or at p = 0.
+    `shard` (`ops.attention.tp_shard`): x is a tensor-parallel rank's block,
+    whose mask is cut from one drawn over the whole tensor."""
 
     def __init__(self, p: float):
         super().__init__()
         self.p = p
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, shard=None) -> torch.Tensor:
         if not self.training or self.p == 0.0:
             return x
-        return attention_ops.apply_dropout(x, self.p, self.generator)
+        return attention_ops.apply_dropout(x, self.p, self.generator, shard)
 
     def extra_repr(self) -> str:
         return f"p={self.p}"

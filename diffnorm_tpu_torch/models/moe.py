@@ -14,7 +14,11 @@ and every expert takes the same number of tokens.
 * `BaseLayer`: route, a stable sort of the tokens by expert, each expert's
   ReLU FFN as one batched product over [E, n / E, dim], the results put
   back, gated by the sigmoid of the chosen expert's raw score. The
-  parameters are float32; the products run in `dtype`.
+  parameters are float32; the products run in `dtype`. Under tensor
+  parallelism the experts split over the model axis (JAX
+  sharding_rules.py:41-44): the routing is computed alike on every rank,
+  each rank runs its experts on the tokens routed to them, and the outputs
+  are summed over the model group.
 
 The expert weights `experts_w1` [E, dim, ffn], `experts_w2` [E, ffn, dim]
 and `expert_centroids` [E, dim] are plain parameters under JAX's names and
@@ -27,6 +31,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 from torch import nn
+
+from diffnorm_tpu_torch.parallel.mesh import copy_in, reduce_out
 
 
 def balanced_assignment_host(scores: np.ndarray) -> np.ndarray:
@@ -90,6 +96,9 @@ def sinkhorn_routing(scores: torch.Tensor, iters: int = 8) -> torch.Tensor:
 
 
 class BaseLayer(nn.Module):
+    tp_ready = True
+    tp_axis = None
+
     def __init__(self, dim: int, ffn_dim: int, num_experts: int,
                  dtype: torch.dtype = torch.float32):
         super().__init__()
@@ -107,9 +116,17 @@ class BaseLayer(nn.Module):
         scores = x.float() @ self.expert_centroids.float().T
         expert_id = sinkhorn_routing(scores)
         order = torch.argsort(expert_id, stable=True)
-        routed = x[order].reshape(e, n // e, self.dim).to(self.dtype)
+        mine, x_in, axis = order.reshape(e, n // e), x, self.tp_axis
+        if axis is not None:  # this rank's experts and the tokens routed to them
+            lo, hi = axis.block(e)
+            mine = mine[lo:hi]
+            x_in = copy_in(x, axis)
+        mine = mine.reshape(-1)
+        routed = x_in[mine].reshape(-1, n // e, self.dim).to(self.dtype)
         h = torch.relu(torch.bmm(routed, self.experts_w1.to(self.dtype)))
-        h = torch.bmm(h, self.experts_w2.to(self.dtype)).reshape(n, self.dim)
-        unrouted = torch.zeros_like(h).index_copy(0, order, h)
+        h = torch.bmm(h, self.experts_w2.to(self.dtype)).reshape(-1, self.dim)
+        unrouted = torch.zeros(n, self.dim, dtype=h.dtype, device=h.device).index_copy(0, mine, h)
+        if axis is not None:
+            unrouted = reduce_out(unrouted, axis)
         gate = torch.sigmoid(scores.gather(1, expert_id[:, None])).to(x.dtype)
         return x + gate * unrouted.to(x.dtype)

@@ -61,6 +61,7 @@ from diffnorm_tpu_torch.models.layers import (
     Dropout,
     DropoutSite,
     arch_default,
+    local_heads,
     sinusoidal_positions,
 )
 from diffnorm_tpu_torch.models.stacked import OFFSET, StackedEmbedding, pack_units
@@ -147,6 +148,9 @@ class MultiheadAttention(DropoutSite, nn.Module):
     mask (JAX's decode mode); without it the encoder keys and values, as
     `project_kv` gives them once per decode."""
 
+    tp_ready = True  # heads split over the model axis (shard_heads)
+    tp_axis = None
+
     def __init__(self, dim: int, heads: int, dropout: float = 0.0, quant: bool = False,
                  causal: bool = False, context_dim: Optional[int] = None):
         super().__init__()
@@ -157,6 +161,9 @@ class MultiheadAttention(DropoutSite, nn.Module):
         self.k_proj = Dense(kv_dim, dim, quant=quant)
         self.v_proj = Dense(kv_dim, dim, quant=quant)
         self.out_proj = Dense(dim, dim, quant=quant)
+
+    def shard_heads(self, n: int) -> None:
+        self.heads = local_heads(self.heads, n)
 
     def _heads(self, z: torch.Tensor) -> torch.Tensor:
         """[B, T, H * d] -> [B, H, T, d]."""
@@ -185,8 +192,8 @@ class MultiheadAttention(DropoutSite, nn.Module):
                 k, v, causal = k[:, :, :end], v[:, :, :end], False
         out = attention_ops.masked_attention(
             q, k, v, mask=mask, dropout=self.dropout if self.training else 0.0,
-            generator=self.generator, causal=causal)
-        return self.out_proj(out.transpose(1, 2).reshape(b, tq, self.dim))
+            generator=self.generator, causal=causal, heads_axis=self.tp_axis)
+        return self.out_proj(out.transpose(1, 2).reshape(b, tq, -1))
 
 
 class DecoderLayer(nn.Module):
@@ -194,6 +201,9 @@ class DecoderLayer(nn.Module):
     decoder's), encoder attention over `context_dim` features, ReLU FF, each
     sublayer's output dropped by `dropout`, the FF activation by
     `activation_dropout`, attention probabilities by `attention_dropout`."""
+
+    tp_ready = True  # fc1 column-, fc2 row-parallel
+    tp_axis = None
 
     def __init__(self, dim: int, ffn_dim: int, heads: int, dropout: float = 0.0,
                  attention_dropout: float = 0.0, activation_dropout: float = 0.0,
@@ -221,7 +231,8 @@ class DecoderLayer(nn.Module):
             self.self_attn_layer_norm(x), mask=self_mask, kv=self_kv, write_at=write_at))
         x = x + self.encoder_attn_dropout(self.encoder_attn(
             self.encoder_attn_layer_norm(x), context=enc, mask=enc_mask, kv=enc_kv))
-        h = self.activation_dropout(F.relu(self.fc1(self.final_layer_norm(x))))
+        h = self.activation_dropout(F.relu(self.fc1(self.final_layer_norm(x))),
+                                    attention_ops.tp_shard(self.tp_axis, -1, self.fc1.out_features))
         return x + self.ff_dropout(self.fc2(h))
 
 

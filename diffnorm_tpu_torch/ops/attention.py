@@ -45,23 +45,46 @@ from diffnorm_tpu_torch.ops import flash_attention as flash_ops
 FLASH_MIN_LEN = 2048  # attention.py:_PALLAS_MIN_LEN
 
 
-def apply_dropout(x: torch.Tensor, p: float, generator: Optional[torch.Generator]) -> torch.Tensor:
+def apply_dropout(x: torch.Tensor, p: float, generator: Optional[torch.Generator],
+                  shard=None) -> torch.Tensor:
     """flax nn.Dropout's draw: keep each element with probability 1 - p and
-    scale the kept ones by 1 / (1 - p), from `generator`."""
+    scale the kept ones by 1 / (1 - p), from `generator`.
+
+    `shard` (`tp_shard`) marks x as a tensor-parallel rank's block of a
+    tensor whose axis `dim` is `whole` long (its heads, an FF's inner
+    width): the mask is drawn over the whole tensor, as JAX and one process
+    draw it, and the rank keeps its block. So the model ranks' blocks take
+    different masks, every rank's generator moves alike, and the update is
+    one process's; the price is each rank drawing the whole tensor's
+    uniforms."""
     if generator is None:
         raise ValueError("dropout needs a generator (set_dropout_generator)")
-    keep = torch.rand(x.shape, generator=generator, device=x.device) < 1.0 - p
+    shape = list(x.shape)
+    if shard is not None:
+        dim, axis, whole = shard
+        shape[dim] = whole
+    keep = torch.rand(shape, generator=generator, device=x.device) < 1.0 - p
+    if shard is not None:
+        lo, hi = axis.block(whole)
+        keep = keep.narrow(dim, lo, hi - lo)
     return torch.where(keep, x / (1.0 - p), 0.0)
+
+
+def tp_shard(axis, dim: int, whole: int):
+    """`apply_dropout`'s `shard` for a block of an axis `dim` of `whole`
+    split over the model axis `axis`; None without one."""
+    return None if axis is None else (dim, axis, whole)
 
 
 def masked_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                      mask: Optional[torch.Tensor] = None, dropout: float = 0.0,
                      generator: Optional[torch.Generator] = None,
-                     causal: bool = False) -> torch.Tensor:
+                     causal: bool = False, heads_axis=None) -> torch.Tensor:
     """q [B, H, Tq, D], k/v [B, H, Tk, D], mask [B, Tk] bool (True = valid).
     Returns [B, H, Tq, D] in q.dtype. `dropout` > 0 drops probabilities as
     JAX does (keep with 1 - dropout, kept ones scaled by 1 / (1 - dropout)),
-    drawn from `generator`; `causal` lets query i see keys j <= i + Tk - Tq
+    drawn from `generator` (over every head where `heads_axis`, the model
+    axis, splits them: `apply_dropout`); `causal` lets query i see keys j <= i + Tk - Tq
     (JAX's tril(k=tk-tq) mask). Neither call takes the kernel."""
     if (q.is_cuda and dropout == 0.0 and not causal and k.shape[-2] >= FLASH_MIN_LEN
             and flash_ops.supports(q, k, v, mask)):
@@ -76,7 +99,8 @@ def masked_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         sim = sim.masked_fill(~allowed, torch.finfo(torch.float32).min)
     attn = sim.softmax(dim=-1)
     if dropout > 0.0:
-        attn = apply_dropout(attn, dropout, generator)
+        whole = q.shape[1] * heads_axis.size if heads_axis is not None else 0
+        attn = apply_dropout(attn, dropout, generator, tp_shard(heads_axis, 1, whole))
     if v.dtype == torch.bfloat16:
         out = torch.matmul(attn.to(torch.bfloat16), v)
     else:

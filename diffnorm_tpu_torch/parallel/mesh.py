@@ -18,8 +18,16 @@ a rank on a `torch.distributed` process group (NCCL on the card, gloo under
 * BatchNorm's training statistics are sums over every rank
   (`all_reduce_grad`, differentiable).
 
-The model axis (tensor parallelism) is not executed: `make_mesh` refuses a
-model degree above 1.
+The model axis runs Megatron's tensor parallelism over a model subgroup
+(ranks of one data index): `make_mesh(data, model)` builds the data and
+model subgroups, `parallel.sharding_rules.shard_model` slices each rank's
+weights, and the layers call the autograd collectives here: `copy_in`
+(identity, all-reduce backward), `reduce_out` (all-reduce, identity
+backward), `gather_out` (all-gather, slice backward) and `split_in`
+(slice, all-gather backward). Sequence and pipeline parallelism run over
+an `Axis` of their own (`make_seq_mesh`, `make_stage_mesh`), whose
+`ring_shift` sends a block to the next rank and receives the previous
+rank's.
 
 Collectives are `Mesh` methods; on a mesh without a process group (one
 process, no torchrun) each is the identity, and the port's one-process path
@@ -47,7 +55,6 @@ from diffnorm_tpu_torch.device import resolve_device
 # a rank that dies fails its peers' next collective after this long, rather
 # than hanging them
 DEFAULT_TIMEOUT_S = 600.0
-MODEL_PARALLEL_ITEM = "ROADMAP Queue 1 item 8b (tensor, pipeline and sequence parallelism)"
 
 
 def _env_int(name: str) -> Optional[int]:
@@ -125,32 +132,28 @@ def row_block(n: int, data: int, index: int) -> Tuple[int, int]:
 
 
 @dataclasses.dataclass(frozen=True)
-class Mesh:
-    """The data axis over the process group: `data` ranks, this one
-    `index`. `shape` reads as JAX's mesh.shape ({"data": .., "model": 1})."""
+class Axis:
+    """One axis of the process group: `size` ranks (the global `ranks`, in
+    index order), this one `index`, over the subgroup `group` (None: the
+    default group of every process). Without a backend (one process, or an
+    axis of degree 1 beside a real one) every collective is the identity."""
 
-    data: int = 1
+    size: int = 1
     index: int = 0
-    backend: Optional[str] = None  # None: one process, no group, no collectives
+    backend: Optional[str] = None
+    group: Any = None
+    ranks: Tuple[int, ...] = ()
 
-    @property
-    def shape(self) -> Dict[str, int]:
-        return {"data": self.data, "model": 1}
+    def __deepcopy__(self, memo):  # process groups are not copied
+        return self
 
     @property
     def active(self) -> bool:
-        """A process group under it (its collectives run, at one rank too)."""
         return self.backend is not None
 
     @property
     def staged(self) -> bool:
-        """gloo: collectives on CUDA tensors go through host memory."""
         return self.backend == "gloo"
-
-    def rows(self, n: int) -> Tuple[int, int]:
-        return row_block(n, self.data, self.index)
-
-    # -- collectives (each the identity without a process group)
 
     def _placed(self, tensor: torch.Tensor) -> torch.Tensor:
         """`tensor` where the backend takes it: a host copy of a CUDA tensor
@@ -175,7 +178,8 @@ class Mesh:
         """In place over the ranks (op "sum" or "max"); returns `tensor`."""
         if self.active:
             with self._host(tensor) as t:
-                dist.all_reduce(t, op=dist.ReduceOp.SUM if op == "sum" else dist.ReduceOp.MAX)
+                dist.all_reduce(t, op=dist.ReduceOp.SUM if op == "sum" else dist.ReduceOp.MAX,
+                                group=self.group)
         return tensor
 
     def all_reduce_many(self, tensors, op: str = "sum") -> None:
@@ -197,67 +201,237 @@ class Mesh:
         if not self.active:
             return tensor
         src = self._placed(tensor.detach().contiguous())
-        parts = [torch.empty_like(src) for _ in range(self.data)]
-        dist.all_gather(parts, src)
+        parts = [torch.empty_like(src) for _ in range(self.size)]
+        dist.all_gather(parts, src, group=self.group)
         return torch.cat(parts, dim=dim).to(tensor.device)
-
-    def all_gather_rows(self, tensor: torch.Tensor, n: int) -> torch.Tensor:
-        """The n rows of a row-split tensor (this rank's `rows(n)`) back in
-        order on every rank: the blocks are padded to the largest, gathered
-        and cut."""
-        if not self.active:
-            return tensor
-        most = row_block(n, self.data, 0)[1]
-        pad = most - tensor.shape[0]
-        if pad:
-            tensor = torch.cat([tensor, tensor.new_zeros((pad,) + tuple(tensor.shape[1:]))])
-        full = self.all_gather(tensor)
-        return torch.cat([full[i * most:i * most + (hi - lo)] for i in range(self.data)
-                          for lo, hi in [row_block(n, self.data, i)]])
 
     def reduce_scatter(self, tensor: torch.Tensor, dim: int = 0) -> torch.Tensor:
         """The sum over the ranks of `tensor`, this rank's block of `dim`
-        (divisible by `data`). NCCL reduce-scatters; gloo all-reduces a host
+        (divisible by `size`). NCCL reduce-scatters; gloo all-reduces a host
         copy and keeps the block."""
         if not self.active:
             return tensor
-        size = tensor.shape[dim] // self.data
+        size = tensor.shape[dim] // self.size
         if self.staged:
             total = self.all_reduce(tensor.detach().clone())
             return total.narrow(dim, self.index * size, size).contiguous()
         parts = [self._placed(p.contiguous()) for p in tensor.detach().split(size, dim=dim)]
         out = torch.empty_like(parts[0])
-        dist.reduce_scatter(out, parts)
+        dist.reduce_scatter(out, parts, group=self.group)
         return out.to(tensor.device)
 
     def broadcast(self, tensor: torch.Tensor, src: int = 0) -> torch.Tensor:
-        """In place from rank `src`; returns `tensor`."""
+        """In place from the rank of index `src`; returns `tensor`."""
         if self.active:
             with self._host(tensor) as t:
-                dist.broadcast(t, src)
+                dist.broadcast(t, self.ranks[src] if self.ranks else src, group=self.group)
         return tensor
+
+    def block(self, n: int) -> Tuple[int, int]:
+        """[lo, hi) of this rank's contiguous block of n split over the
+        axis (the first n % size ranks one more, as GSPMD splits an axis it
+        does not divide)."""
+        return row_block(n, self.size, self.index)
+
+    def all_gather_blocks(self, tensor: torch.Tensor, n: int, dim: int = 0) -> torch.Tensor:
+        """The whole of an axis of n split into `block`s (`tensor` holds this
+        rank's): the blocks padded to the largest, gathered and cut."""
+        if not self.active:
+            return tensor
+        most = row_block(n, self.size, 0)[1]
+        pad = most - tensor.shape[dim]
+        if pad:
+            shape = list(tensor.shape)
+            shape[dim] = pad
+            tensor = torch.cat([tensor, tensor.new_zeros(shape)], dim=dim)
+        full = self.all_gather(tensor, dim=dim)
+        return torch.cat([full.narrow(dim, i * most, hi - lo) for i in range(self.size)
+                          for lo, hi in [row_block(n, self.size, i)]], dim=dim)
+
+    def shift(self, tensor: torch.Tensor, offset: int = 1) -> torch.Tensor:
+        """The ring step: this rank's `tensor` goes to the rank `offset`
+        indices on, and the tensor of the rank `offset` indices back comes
+        here (send and receive posted together, so no rank waits on a
+        peer's order)."""
+        if not self.active or self.size == 1:
+            return tensor
+        src = self._placed(tensor.detach().contiguous())
+        out = torch.empty_like(src)
+        to = self.ranks[(self.index + offset) % self.size]
+        frm = self.ranks[(self.index - offset) % self.size]
+        ops = [dist.P2POp(dist.isend, src, to, self.group),
+               dist.P2POp(dist.irecv, out, frm, self.group)]
+        for req in dist.batch_isend_irecv(ops):
+            req.wait()
+        return out.to(tensor.device)
+
+    def barrier(self) -> None:
+        if self.active:
+            dist.barrier(group=self.group)
+
+
+@dataclasses.dataclass(frozen=True)
+class Mesh:
+    """The ("data", "model") layout of the process group (JAX's 2-D mesh,
+    mesh.py:45-54): global rank d * model + m holds data index `index` = d
+    and model index `model_index` = m, so the model index is the fast axis.
+    The ranks of one model group (equal d) hold the same rows; the ranks of
+    one data group (equal m) hold the same parameter shards. The collectives
+    that are `Mesh` methods run over the data group (`data_axis`);
+    `model_axis` is the model group."""
+
+    data: int = 1
+    index: int = 0
+    backend: Optional[str] = None  # None: one process, no group, no collectives
+    model: int = 1
+    model_index: int = 0
+    data_group: Any = None  # None: the default group (a model degree of 1)
+    model_group: Any = None
+
+    def __deepcopy__(self, memo):  # process groups are not copied
+        return self
+
+    @property
+    def shape(self) -> Dict[str, int]:
+        return {"data": self.data, "model": self.model}
+
+    @property
+    def rank(self) -> int:
+        """The global rank (0 logs and writes)."""
+        return self.index * self.model + self.model_index
+
+    @property
+    def data_axis(self) -> Axis:
+        return Axis(self.data, self.index, self.backend, self.data_group,
+                    tuple(d * self.model + self.model_index for d in range(self.data)))
+
+    @property
+    def model_axis(self) -> Axis:
+        """The model group; inactive at a model degree of 1."""
+        return Axis(self.model, self.model_index, self.backend if self.model > 1 else None,
+                    self.model_group,
+                    tuple(self.index * self.model + m for m in range(self.model)))
+
+    @property
+    def world(self) -> Axis:
+        n = self.data * self.model
+        return Axis(n, self.rank, self.backend, None, tuple(range(n)))
+
+    @property
+    def active(self) -> bool:
+        """A process group under it (its collectives run, at one rank too)."""
+        return self.backend is not None
+
+    @property
+    def staged(self) -> bool:
+        """gloo: collectives on CUDA tensors go through host memory."""
+        return self.backend == "gloo"
+
+    def rows(self, n: int) -> Tuple[int, int]:
+        return row_block(n, self.data, self.index)
+
+    # -- the data group's collectives (each the identity without a process group)
+
+    def all_reduce(self, tensor: torch.Tensor, op: str = "sum") -> torch.Tensor:
+        return self.data_axis.all_reduce(tensor, op)
+
+    def all_reduce_many(self, tensors, op: str = "sum") -> None:
+        self.data_axis.all_reduce_many(tensors, op)
+
+    def all_gather(self, tensor: torch.Tensor, dim: int = 0) -> torch.Tensor:
+        return self.data_axis.all_gather(tensor, dim)
+
+    def all_gather_rows(self, tensor: torch.Tensor, n: int) -> torch.Tensor:
+        """The n rows of a row-split tensor (this rank's `rows(n)`) back in
+        order on every rank (`Axis.all_gather_blocks`)."""
+        return self.data_axis.all_gather_blocks(tensor, n, 0)
+
+    def reduce_scatter(self, tensor: torch.Tensor, dim: int = 0) -> torch.Tensor:
+        return self.data_axis.reduce_scatter(tensor, dim)
+
+    def broadcast(self, tensor: torch.Tensor, src: int = 0) -> torch.Tensor:
+        """In place from data index `src`; returns `tensor`."""
+        return self.data_axis.broadcast(tensor, src)
 
     def barrier(self) -> None:
         if self.active:
             dist.barrier()
 
 
+_GROUPS: Dict[Tuple, Tuple] = {}
+
+
+def _subgroups(data: int, model: int) -> Tuple[Any, Any]:
+    """This rank's (data group, model group) of a data x model layout. Every
+    rank creates every subgroup, in one order (torch.distributed's rule);
+    made once a layout and process group."""
+    key = (id(dist.group.WORLD), data, model)
+    if key not in _GROUPS:
+        me = rank()
+        mine = [None, None]
+        for m in range(model):
+            g = dist.new_group([d * model + m for d in range(data)])
+            if me % model == m:
+                mine[0] = g
+        for d in range(data):
+            g = dist.new_group([d * model + m for m in range(model)])
+            if me // model == d:
+                mine[1] = g
+        _GROUPS[key] = tuple(mine)
+    return _GROUPS[key]
+
+
 def make_mesh(data: int = -1, model: int = 1) -> Mesh:
-    """The data axis over the process group (JAX's make_mesh): `data` -1 is
-    every rank. The model axis is not executed here: `model` above 1
-    raises."""
-    if model != 1:
-        raise NotImplementedError(f"--model-parallel {model}: tensor parallelism is not "
-                                  f"ported ({MODEL_PARALLEL_ITEM})")
+    """The ("data", "model") layout over the process group (JAX's
+    make_mesh): `data` -1 is every rank left after the model degree. A model
+    degree above 1 needs that many processes a data index (`--cpu` runs
+    them as gloo ranks)."""
     world = world_size()
+    if model < 1 or world % model:
+        raise ValueError(f"--model-parallel {model} needs a multiple of {model} processes, "
+                         f"this group has {world}: launch with torchrun --nproc-per-node "
+                         f"{model * max(data, 1)} (and --cpu for gloo on the CPU)")
     if data == -1:
-        data = world
-    if data != world:
-        raise ValueError(f"--data-parallel {data} needs {data} processes, this group has "
-                         f"{world}: launch with torchrun --nproc-per-node {data} (and --cpu "
-                         f"for gloo on the CPU)")
+        data = world // model
+    if data * model != world:
+        raise ValueError(f"--data-parallel {data} x --model-parallel {model} needs "
+                         f"{data * model} processes, this group has {world}: launch with "
+                         f"torchrun --nproc-per-node {data * model} (and --cpu for gloo on "
+                         f"the CPU)")
     backend = dist.get_backend() if dist.is_available() and dist.is_initialized() else None
-    return Mesh(data=data, index=rank(), backend=backend)
+    me = rank()
+    groups = (None, None) if model == 1 or backend is None else _subgroups(data, model)
+    return Mesh(data=data, index=me // model, backend=backend, model=model,
+                model_index=me % model, data_group=groups[0], model_group=groups[1])
+
+
+def _axis_of(n: int) -> Axis:
+    """The first n ranks of the process group as one axis (n ranks of the
+    group: the default group where n is all of it)."""
+    world = world_size()
+    if n > world:
+        raise ValueError(f"an axis of {n} ranks needs {n} processes, this group has {world}")
+    backend = dist.get_backend() if dist.is_available() and dist.is_initialized() else None
+    if backend is None or n == world:
+        return Axis(n, rank() if n == world else 0, backend, None, tuple(range(n)))
+    key = (id(dist.group.WORLD), "first", n)
+    if key not in _GROUPS:
+        _GROUPS[key] = (dist.new_group(list(range(n))),)
+    if rank() >= n:
+        return Axis(1, 0, None)
+    return Axis(n, rank(), backend, _GROUPS[key][0], tuple(range(n)))
+
+
+def make_seq_mesh(n: int) -> Axis:
+    """The "seq" axis of sequence parallelism over the first n ranks (JAX's
+    sequence.make_seq_mesh); a rank beyond them gets an inactive axis."""
+    return _axis_of(n)
+
+
+def make_stage_mesh(num_stages: int) -> Axis:
+    """The "stage" axis of pipeline parallelism over the first num_stages
+    ranks (JAX's pipeline.make_stage_mesh)."""
+    return _axis_of(num_stages)
 
 
 def shard_batch(batch: Dict[str, Any], mesh: Mesh,
@@ -373,15 +547,15 @@ def split_rows(mesh: Mesh, fn: Callable, rows: Dict[str, Any],
 
 
 def replicate(module_or_tensors, mesh: Mesh, src: int = 0):
-    """Rank `src`'s parameters and buffers (a module's, or a list of
-    tensors) on every rank, in place (JAX's replicate)."""
+    """Global rank `src`'s parameters and buffers (a module's, or a list of
+    tensors) on every rank of both axes, in place (JAX's replicate)."""
     if not mesh.active:
         return module_or_tensors
     tensors = (list(module_or_tensors.parameters()) + list(module_or_tensors.buffers())
                if isinstance(module_or_tensors, torch.nn.Module) else list(module_or_tensors))
     with torch.no_grad():
         for t in tensors:
-            mesh.broadcast(t.data, src)
+            mesh.world.broadcast(t.data, src)
     return module_or_tensors
 
 
@@ -463,6 +637,12 @@ class _AllReduceSum(torch.autograd.Function):
         return ctx.mesh.all_reduce(grad.contiguous().clone()), None
 
 
+def axis_sum(x: torch.Tensor, axis) -> torch.Tensor:
+    """The sum of `x` over an axis's ranks, differentiable (the backward
+    sums the ranks' gradients)."""
+    return _AllReduceSum.apply(x, axis) if axis.active else x
+
+
 def all_reduce_grad(x: torch.Tensor) -> torch.Tensor:
     """The sum of `x` over the ranks of the active split, differentiable
     (the backward sums the ranks' gradients); `x` outside one."""
@@ -470,3 +650,109 @@ def all_reduce_grad(x: torch.Tensor) -> torch.Tensor:
     if split is None:
         return x
     return _AllReduceSum.apply(x, split.mesh)
+
+
+# -- Megatron's collectives over a model (or seq / stage) axis, each with
+# its backward; the identity on an inactive axis
+
+
+class _CopyIn(torch.autograd.Function):
+    """Identity forward, all-reduce backward (Megatron's f): the input of a
+    column-parallel product, whose gradient each rank holds a part of."""
+
+    @staticmethod
+    def forward(ctx, x, axis):
+        ctx.axis = axis
+        return x
+
+    @staticmethod
+    def backward(ctx, grad):
+        return ctx.axis.all_reduce(grad.contiguous().clone()), None
+
+
+class _ReduceOut(torch.autograd.Function):
+    """All-reduce forward, identity backward (Megatron's g): the partial
+    sums of a row-parallel product."""
+
+    @staticmethod
+    def forward(ctx, x, axis):
+        return axis.all_reduce(x.contiguous().clone())
+
+    @staticmethod
+    def backward(ctx, grad):
+        return grad, None
+
+
+class _GatherOut(torch.autograd.Function):
+    """All-gather forward along `dim` of an axis of n split into blocks,
+    this rank's block of the gradient backward: a sharded activation that
+    replicated code consumes."""
+
+    @staticmethod
+    def forward(ctx, x, axis, dim, n):
+        ctx.axis, ctx.dim, ctx.n = axis, dim, n
+        return axis.all_gather_blocks(x.contiguous(), n, dim)
+
+    @staticmethod
+    def backward(ctx, grad):
+        lo, hi = ctx.axis.block(ctx.n)
+        return grad.narrow(ctx.dim, lo, hi - lo), None, None, None
+
+
+class _SplitIn(torch.autograd.Function):
+    """This rank's block along `dim` forward, all-gather backward: a
+    replicated tensor (an activation, or a parameter a rank uses a slice
+    of) entering sharded code, so its gradient is whole and equal on every
+    rank."""
+
+    @staticmethod
+    def forward(ctx, x, axis, dim):
+        ctx.axis, ctx.dim, ctx.n = axis, dim, x.shape[dim]
+        lo, hi = axis.block(x.shape[dim])
+        return x.narrow(dim, lo, hi - lo)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return ctx.axis.all_gather_blocks(grad.contiguous(), ctx.n, ctx.dim), None, None
+
+
+class _Shift(torch.autograd.Function):
+    """`Axis.shift` forward, the reverse shift of the gradient backward."""
+
+    @staticmethod
+    def forward(ctx, x, axis, offset):
+        ctx.axis, ctx.offset = axis, offset
+        return axis.shift(x, offset)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return ctx.axis.shift(grad.contiguous(), -ctx.offset), None, None
+
+
+def copy_in(x: torch.Tensor, axis: Axis) -> torch.Tensor:
+    return _CopyIn.apply(x, axis) if axis.active and axis.size > 1 else x
+
+
+def reduce_out(x: torch.Tensor, axis: Axis) -> torch.Tensor:
+    return _ReduceOut.apply(x, axis) if axis.active and axis.size > 1 else x
+
+
+def gather_out(x: torch.Tensor, axis: Axis, dim: int = -1,
+               n: Optional[int] = None) -> torch.Tensor:
+    """The whole of `dim` (n long; size x its length by default) from every
+    rank's block."""
+    if not (axis.active and axis.size > 1):
+        return x
+    return _GatherOut.apply(x, axis, dim % x.dim(), n or axis.size * x.shape[dim])
+
+
+def split_in(x: torch.Tensor, axis: Axis, dim: int = -1) -> torch.Tensor:
+    """This rank's block of `dim` (`Axis.block`)."""
+    if not (axis.active and axis.size > 1):
+        return x
+    return _SplitIn.apply(x, axis, dim % x.dim())
+
+
+def ring_shift(x: torch.Tensor, axis: Axis, offset: int = 1) -> torch.Tensor:
+    """x of the rank `offset` indices back along the ring, differentiable."""
+    return _Shift.apply(x, axis, offset) if axis.active and axis.size > 1 else x

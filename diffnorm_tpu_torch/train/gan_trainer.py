@@ -18,11 +18,19 @@ the decay schedule on its own count. The generator is float32; with
 A `FeatureGenerator` (repr_to_speech) takes the batch's `features` where a
 `CodeGenerator` takes its `code`, as JAX's trainer reads
 `example.get("features", example.get("code"))`, with no duration term.
+
+Data parallel over a `parallel.mesh.Mesh` (`mesh`): each rank takes its
+contiguous rows of the batch (`shard_batch`; the blocks may be uneven) and
+its loss is its part of the global batch's: each mean over rows (LSGAN,
+feature matching, the mel L1) weighted by the rank's share of the rows,
+the duration MSE's masked sum over the global count of kept durations.
+The ranks' gradients and metrics are summed, so the update and the logged
+losses are those of one process on the whole batch, as JAX's GSPMD step.
 """
 
 from __future__ import annotations
 
-from typing import Dict, Mapping, Union
+from typing import Dict, Mapping, Optional, Union
 
 import numpy as np
 import torch
@@ -36,6 +44,7 @@ from diffnorm_tpu_torch.models.hifigan_disc import (
     generator_adv_loss,
 )
 from diffnorm_tpu_torch.ops.mel import mel_spectrogram
+from diffnorm_tpu_torch.parallel.mesh import Mesh, shard_batch
 from diffnorm_tpu_torch.train.optimizers import OptaxAdamW
 from diffnorm_tpu_torch.weights import from_jax_params, to_jax_params
 
@@ -52,9 +61,9 @@ class GanTrainer:
     a collated batch (numpy) and returns JAX's metrics."""
 
     def __init__(self, generator: Union[CodeGenerator, FeatureGenerator], cfg: Mapping,
-                 device: torch.device):
+                 device: torch.device, mesh: Optional[Mesh] = None):
         cfg = {**DEFAULTS, **{k: v for k, v in cfg.items() if v is not None}}
-        self.gen, self.device = generator, device
+        self.gen, self.device, self.mesh = generator, device, mesh or Mesh()
         dtype = torch.bfloat16 if cfg["bf16_disc"] else torch.float32
         with torch.device(device):
             self.mpd = MultiPeriodDiscriminator(cfg["mpd_periods"], cfg["disc_width"], dtype)
@@ -75,7 +84,18 @@ class GanTrainer:
         value = batch.get(key)
         return None if value is None else torch.as_tensor(np.asarray(value), device=self.device)
 
+    def _grads(self, loss: torch.Tensor, params) -> list:
+        """d loss / d params, summed over the data ranks."""
+        grads = list(torch.autograd.grad(loss, params))
+        if self.mesh.active:
+            self.mesh.all_reduce_many(grads)
+        return grads
+
     def train_step(self, batch: Mapping) -> Dict[str, float]:
+        share = 1.0  # this rank's share of the batch's rows
+        if self.mesh.active:
+            batch, (n, lo, hi) = shard_batch(dict(batch), self.mesh)
+            share = (hi - lo) / n
         if isinstance(self.gen, FeatureGenerator):
             inputs = self._tensor(batch, "features").float()
         else:
@@ -87,9 +107,9 @@ class GanTrainer:
         with torch.no_grad():
             fake = self.gen(inputs)
         real = wav[:, :fake.shape[1]]
-        loss_d = (discriminator_loss(self.mpd(real, fake))
-                  + discriminator_loss(self.msd(real, fake)))
-        self.d_opt.step(list(torch.autograd.grad(loss_d, self.d_params)))
+        loss_d = share * (discriminator_loss(self.mpd(real, fake))
+                          + discriminator_loss(self.msd(real, fake)))
+        self.d_opt.step(self._grads(loss_d, self.d_params))
 
         fake = self.gen(inputs)
         mpd_outs, msd_outs = self.mpd(real, fake), self.msd(real, fake)
@@ -97,23 +117,28 @@ class GanTrainer:
         fm = feature_matching_loss(mpd_outs) + feature_matching_loss(msd_outs)
         mel = torch.mean(torch.abs(mel_spectrogram(real, **self.mel_kw)
                                    - mel_spectrogram(fake, **self.mel_kw)))
-        loss_g = adv + self.fm_weight * fm + self.mel_weight * mel
-        aux = {"adv": adv, "fm": fm, "mel": mel}
+        aux = {"adv": share * adv, "fm": share * fm, "mel": share * mel}
+        loss_g = aux["adv"] + self.fm_weight * aux["fm"] + self.mel_weight * aux["mel"]
         if durations is not None and self.gen.dur_predictor is not None:
             log_dur = self.gen.log_durations((dur_code if dur_code is not None else inputs).long())
             keep = durations != -100
             target = torch.log(torch.clamp(durations, min=0).float() + 1.0)
             sq = torch.square(log_dur - target)
-            dur_mse = torch.where(keep, sq, 0.0).sum() / torch.clamp(keep.sum(), min=1)
+            kept = keep.sum().float()
+            if self.mesh.active:
+                kept = self.mesh.all_reduce(kept.reshape(1)).reshape(())
+            dur_mse = torch.where(keep, sq, 0.0).sum() / torch.clamp(kept, min=1.0)
             loss_g = loss_g + self.dur_weight * dur_mse
             aux["dur_mse"] = dur_mse
-        self.g_opt.step(list(torch.autograd.grad(loss_g, self.g_params)))
+        self.g_opt.step(self._grads(loss_g, self.g_params))
         self.num_updates += 1
 
         names = ["loss_d", "loss_g", *aux]
         values = torch.stack([loss_d.detach(), loss_g.detach(),
-                              *(v.detach() for v in aux.values())]).tolist()
-        return dict(zip(names, values))
+                              *(v.detach() for v in aux.values())])
+        if self.mesh.active:
+            values = self.mesh.all_reduce(values)
+        return dict(zip(names, values.tolist()))
 
     def state_dict(self) -> Dict:
         return {"num_updates": self.num_updates, "g_opt": self.g_opt.state_dict(),

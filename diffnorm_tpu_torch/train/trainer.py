@@ -66,6 +66,25 @@ far as the VAE, normalizer and NAR S2UT stages use it).
   take the elementwise optimizers alone (not lamb or adafactor);
   `state_dict` gathers the state in full and `load_state_dict` keeps the
   rank's slice, so a checkpoint does not depend on the world size.
+* Tensor parallelism over the mesh's model axis (`Mesh.model` > 1, JAX's
+  ("data", "model") mesh, trainer.py:60-63): the master's parameters are
+  split by Megatron's rules before the working copy is made
+  (`sharding_rules.shard_model`), and the ranks of one model group take
+  the same rows. Gradients are summed over the data group only; the clip
+  norm counts a parameter split over "model" once over the model group and
+  a replicated one once. --zero-sharding os and --fsdp split over the data
+  group on top of the model shards (JAX's `fsdp_spec` after `param_spec`),
+  elementwise optimizers alone; `state_dict` and `gathered_master` gather
+  both axes, so a checkpoint restores at any data x model. Every replicated
+  parameter ends each update equal on the model ranks: the layers' inputs
+  to the sharded regions enter through `copy_in`, a replicated parameter a
+  rank uses a slice of through `split_in`. The generators are seeded alike
+  on every rank, so a dropout on a replicated activation draws one mask on
+  every rank of a model group; inside a sharded region (the attention
+  probabilities, an FF's inner width) each rank draws the mask over the
+  whole tensor and keeps its block (`ops.attention.apply_dropout`), so the
+  ranks' blocks differ as in JAX's one mask and the update is one
+  process's.
 """
 
 from __future__ import annotations
@@ -74,6 +93,7 @@ import contextlib
 import copy
 import dataclasses
 import logging
+from types import SimpleNamespace
 from typing import Any, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
@@ -83,7 +103,15 @@ from torch import nn
 from diffnorm_tpu_torch.models.conformer import BatchNorm
 from diffnorm_tpu_torch.models.layers import set_dropout_generator, set_live_int8
 from diffnorm_tpu_torch.parallel.mesh import Mesh, row_split, shard_batch
-from diffnorm_tpu_torch.parallel.sharding_rules import data_axis, fsdp_spec
+from diffnorm_tpu_torch.parallel.sharding_rules import (
+    TPSpec,
+    data_axis,
+    fsdp_spec,
+    shard_model,
+    tp_gather,
+    tp_slice,
+    whole_params,
+)
 from diffnorm_tpu_torch.train import metrics as metrics_mod
 from diffnorm_tpu_torch.train import optax_bridge
 from diffnorm_tpu_torch.train.lr_schedules import build_lr_schedule
@@ -147,11 +175,14 @@ class TrainerConfig:
 
 class Shards:
     """The axis of each trainable parameter that splits over the data
-    ranks (None: whole on every rank), and the slicing, gathering and
-    reduce-scattering along it."""
+    ranks (None: whole on every rank) and its split over the model ranks
+    (a `TPSpec`, or None), and the slicing, gathering and reduce-scattering
+    along them. A tensor here is a parameter's model-rank slice, cut over
+    the data ranks on its data axis."""
 
-    def __init__(self, mesh: Mesh, axes: Sequence[Optional[int]]):
-        self.mesh, self.axes = mesh, list(axes)
+    def __init__(self, mesh: Mesh, axes: Sequence[Optional[int]],
+                 tp: Sequence[Optional[TPSpec]]):
+        self.mesh, self.axes, self.tp = mesh, list(axes), list(tp)
 
     def slice(self, t: torch.Tensor, i: int) -> torch.Tensor:
         axis = self.axes[i]
@@ -164,13 +195,33 @@ class Shards:
         axis = self.axes[i]
         return t if axis is None else self.mesh.all_gather(t, dim=axis)
 
+    def whole(self, t: torch.Tensor, i: int) -> torch.Tensor:
+        """The whole tensor from this rank's slice: gathered over the data
+        ranks, then over the model ranks."""
+        t = self.gather(t, i)
+        spec = self.tp[i]
+        return t if spec is None else tp_gather(t, spec, self.mesh.model_axis, spec.whole)
+
+    def unwhole(self, t: torch.Tensor, i: int) -> torch.Tensor:
+        """This rank's slice of the whole `t` (`whole`'s inverse)."""
+        if self.tp[i] is not None:
+            t = tp_slice(t, self.tp[i], self.mesh.model_index, self.mesh.model)
+        return self.slice(t, i)
+
     def norm(self, tensors: Sequence[torch.Tensor]) -> torch.Tensor:
-        """The global norm of the whole from each rank's slices: the split
-        parameters' squares summed over the ranks, the whole ones once."""
+        """The global norm of the whole from each rank's slices: the
+        squares of a parameter split over the data (model) ranks summed over
+        the data (model) group, a replicated one's counted once."""
         sq = torch.stack(torch._foreach_norm(list(tensors))).square()
-        split = torch.tensor([a is not None for a in self.axes], device=sq.device)
-        total = self.mesh.all_reduce(torch.where(split, sq, 0.0).sum().reshape(1))
-        return (total[0] + torch.where(split, 0.0, sq).sum()).sqrt()
+        dev = sq.device
+        on_data = torch.tensor([a is not None for a in self.axes], device=dev)
+        on_model = torch.tensor([s is not None for s in self.tp], device=dev)
+        parts = torch.stack([torch.where(on_data & ~on_model, sq, 0.0).sum(),
+                             torch.where(on_data & on_model, sq, 0.0).sum(),
+                             torch.where(~on_data & on_model, sq, 0.0).sum()])
+        parts[:2] = self.mesh.all_reduce(parts[:2].clone())
+        parts[1:] = self.mesh.model_axis.all_reduce(parts[1:].clone())
+        return (parts.sum() + torch.where(on_data | on_model, 0.0, sq).sum()).sqrt()
 
 
 class Trainer:
@@ -188,6 +239,9 @@ class Trainer:
                 f"(parallel.mesh.global_sum)")
         self.cfg, self.master, self.criterion = cfg, model, criterion
         self.device = next(model.parameters()).device
+        # tensor parallelism: the master's parameters become this rank's
+        # slices (every parameter, the frozen ones too)
+        self.tp_specs = shard_model(model, self.mesh.model_axis)
         for name, p in model.named_parameters():
             if p.dtype != torch.float32:
                 raise TypeError(f"{name}: the master parameters must be float32, got {p.dtype}")
@@ -240,20 +294,32 @@ class Trainer:
         self.skipped_steps = 0
 
     def _plan_shards(self, cfg: TrainerConfig, full: List[torch.Tensor]) -> Optional[Shards]:
-        """The split of --zero-sharding os or --fsdp, None without one (or
-        without a process group)."""
+        """The split of --zero-sharding os or --fsdp and of the model axis,
+        None without either (or without a process group)."""
         if cfg.zero_sharding not in ("none", "os"):
             raise ValueError(f"--zero-sharding {cfg.zero_sharding}: none or os")
-        if not (cfg.fsdp or cfg.zero_sharding == "os") or not self.mesh.active:
+        tp = [self.tp_specs.get(n) for n in self.names]
+        data_split = (cfg.fsdp or cfg.zero_sharding == "os") and self.mesh.active
+        if not data_split and not self.tp_specs:
             return None
-        if cfg.fsdp and getattr(self.master, "quant_int8", False):
+        if cfg.fsdp and data_split and getattr(self.master, "quant_int8", False):
             raise NotImplementedError("--fsdp with --quant-int8: the int8 sites read the full "
                                       "float32 masters at every call")
-        if cfg.fsdp:
-            axes = [data_axis(fsdp_spec((), p, self.mesh)) for p in full]
+        if not data_split:
+            axes = [None] * len(full)
+        elif cfg.fsdp:  # JAX's fsdp_spec after param_spec, on the whole shape
+            axes = []
+            for p, spec in zip(full, tp):
+                shape = list(p.shape)
+                entries = [None] * len(shape)
+                if spec is not None:
+                    shape[spec.axis] = spec.whole
+                    entries[spec.axis] = "model"
+                axes.append(data_axis(fsdp_spec(tuple(entries), SimpleNamespace(shape=shape),
+                                                self.mesh)))
         else:
             axes = [zero_axis(tuple(p.shape), self.mesh.data) for p in full]
-        return Shards(self.mesh, axes)
+        return Shards(self.mesh, axes, tp)
 
     def _set_clip_norm(self, transform) -> None:
         if isinstance(transform, ClipByGlobalNorm):
@@ -429,17 +495,19 @@ class Trainer:
     def gathered_master(self):
         """The master module with its full float32 weights, for a
         checkpoint: under --fsdp with a bf16 working copy they are gathered
-        from the ranks' slices for the duration (every rank takes part)."""
-        if self.shards is None or not self.cfg.fsdp or self.model is self.master:
-            yield self.master
-            return
-        for i, (m, p) in enumerate(zip(self._full_masters, self.params)):
-            m.data = self.shards.gather(p.detach(), i).clone()
+        from the ranks' slices, and under tensor parallelism from the model
+        ranks', for the duration (every rank takes part)."""
+        freed = self.shards is not None and self.cfg.fsdp and self.model is not self.master
+        if freed:
+            for i, (m, p) in enumerate(zip(self._full_masters, self.params)):
+                m.data = self.shards.gather(p.detach(), i).clone()
         try:
-            yield self.master
+            with whole_params(self.master, self.tp_specs, self.mesh.model_axis) as master:
+                yield master
         finally:
-            for m in self._full_masters:
-                m.data = m.data.new_empty(0)
+            if freed:
+                for m in self._full_masters:
+                    m.data = m.data.new_empty(0)
 
     @contextlib.contextmanager
     def _whole_state(self):
@@ -453,13 +521,13 @@ class Trainer:
         if self.ema is not None:
             lists.append((self.ema, "params", list(range(len(self.params)))))
         for owner, attr, index in lists:
-            setattr(owner, attr, [self.shards.gather(t, i)
+            setattr(owner, attr, [self.shards.whole(t, i)
                                   for t, i in zip(getattr(owner, attr), index)])
         try:
             yield
         finally:
             for owner, attr, index in lists:
-                setattr(owner, attr, [self.shards.slice(t, i).clone()
+                setattr(owner, attr, [self.shards.unwhole(t, i).clone()
                                       for t, i in zip(getattr(owner, attr), index)])
 
     def state_dict(self) -> Dict:

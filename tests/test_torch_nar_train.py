@@ -514,7 +514,7 @@ PORTED_HEADS = {"--multitask-config-yaml": "mt_letters_ctc",
     (["--target-speaker-embed"], None),
     (["--multitask-ctc-vocab", "100"], None),
     (["--attn-type", "abs"], ValueError), (["--arch", "nar_transformer"], SystemExit),
-    (["--ema-decay", "0.999"], None), (["--heartbeat-timeout", "60"], SystemExit),
+    (["--ema-decay", "0.999"], None), (["--find-unused-parameters"], SystemExit),
     (["--use-bmuf"], None)])
 def test_cli_flags_not_ported_raise(tmp_path, extra, error):
     """The NAR features the port leaves out raise by name, an arch or attention

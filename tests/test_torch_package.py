@@ -60,7 +60,8 @@ NEW_MODULES = ("models/stacked.py", "models/ar_transformer.py", "data/encoders.p
                "ops/speech_norm.py", "ops/lightconv.py", "ops/alignment.py", "tasks/dummy.py",
                "criterions/aliases.py", "registry.py", "cli/speech_norm.py",
                "cli/hydra_train.py", "parallel/__init__.py", "parallel/mesh.py",
-               "parallel/sharding_rules.py")
+               "parallel/sharding_rules.py", "parallel/sequence.py", "parallel/pipeline.py",
+               "utils/watchdog.py", "cli/dryrun_multichip.py")
 
 
 def test_no_jax_imports_in_the_port():
@@ -171,6 +172,10 @@ def test_port_imports_with_jax_blocked():
             "import diffnorm_tpu_torch.registry\n"
             "import diffnorm_tpu_torch.cli.speech_norm\n"
             "import diffnorm_tpu_torch.cli.hydra_train\n"
+            "import diffnorm_tpu_torch.parallel.sequence\n"
+            "import diffnorm_tpu_torch.parallel.pipeline\n"
+            "import diffnorm_tpu_torch.utils.watchdog\n"
+            "import diffnorm_tpu_torch.cli.dryrun_multichip\n"
             "from diffnorm_tpu_torch.eval.bleu import corpus_bleu, scorer_name\n"
             "assert scorer_name() == 'counters', scorer_name()\n"
             "assert corpus_bleu(['1 2 3 4 5'], ['1 2 3 4 5']) == 100.0\n"
@@ -215,10 +220,18 @@ def test_entry_points_refuse_the_cpu_unless_asked(tmp_path):
     from diffnorm_tpu_torch.cli import train as train_cli
     from diffnorm_tpu_torch.eval import asr_bleu
 
-    # data parallelism without --cpu joins NCCL on the card: no quiet gloo on the CPU
+    # data and model parallelism without --cpu join NCCL on the card: no quiet
+    # gloo on the CPU
     with pytest.raises(RuntimeError, match="CUDA"):
         train_cli.main(["--task", "dummy_vae", "--max-update", "1", "--data-parallel", "2",
                         "--save-dir", str(tmp_path / "dp")])
+    with pytest.raises(RuntimeError, match="CUDA"):
+        train_cli.main(["--task", "dummy_vae", "--max-update", "1", "--model-parallel", "2",
+                        "--save-dir", str(tmp_path / "tp")])
+    from diffnorm_tpu_torch.cli import dryrun_multichip
+
+    with pytest.raises(RuntimeError, match="CUDA"):
+        dryrun_multichip.main(["--ranks", "2"])
 
     with pytest.raises(RuntimeError, match="CUDA"):
         generate.main([str(tmp_path), "--path", "absent.npz", "--results-path", str(tmp_path)])

@@ -429,8 +429,8 @@ def test_config_yaml_under_explicit_flags(tmp_path):
     args = train_cli.parse_args(["--task", "dummy_mt", "--max-update", "1", "--config-yaml",
                                  "data.yaml"])
     assert args.config_yaml == "data.yaml" and args.config is None
-    path.write_text(yaml.safe_dump({"heartbeat_timeout": 60}))
-    with pytest.raises(SystemExit):  # a flag the port lacks
+    path.write_text(yaml.safe_dump({"find_unused_parameters": True}))
+    with pytest.raises(SystemExit):  # a flag the port lacks (JAX's train reads none)
         train_cli.parse_args(["--config", str(path), "--task", "dummy_mt", "--max-update", "1"])
 
 
