@@ -463,6 +463,19 @@ encoder's [2,12,2249,64], keys 2249 and 1599, in both types.
    wall and each rank's peak memory against the one-process run; then
    rms_norm_film, wavenet_chain and flash_attention_f32 are held to their
    plain versions at the shapes a rank ran.
+32. Serialized export, the compile cache and HuBERT-CTC: the DDIM denoiser
+   call (LatentDiffusionModule.denoise at B64 x T128, the released widths,
+   bf16 and int8 route fused_layer) exported by utils.export with its
+   parameters baked and a symbolic batch, and the long-form NAR forward
+   (B2 x 8448) with its parameters as input; a fresh process that imports
+   utils.export and no model code finds every kernel library built, loads
+   each artifact and runs it at B64 and B16 (the NAR with the state dict)
+   against the eager outputs, counting each kernel's launches; a seeded
+   HuBERT-CTC checkpoint at hubert-large-ls960-ft's widths through
+   load_ctc_checkpoint on 45 s of audio (flash_attention in float32),
+   against the plain versions; and, beside them, a process under
+   DIFFNORM_COMPILE_CACHE that builds rms_norm_film there and loads it
+   from there.
 Then one JSON line of per-kernel numbers and, last, {"ok": true, "device": ...}.
 Exits non-zero without CUDA, and in a directory without the port.
 """
@@ -2971,24 +2984,27 @@ def write_eval_corpus(root: Path, seed: int = 15):
                                       "transforms:\n  '*': [utterance_cmvn]\n")
 
 
-def write_asr_checkpoint(torch, root: Path, seed: int = 16):
-    """A seeded wav2vec2-CTC checkpoint directory in Hugging Face's layout:
-    config.json, vocab.json, tokenizer_config.json, preprocessor_config.json
-    and pytorch_model.bin (torch.save), the positional conv's weight norm as
-    weight_g / weight_v, as the released checkpoints store it."""
+def write_asr_checkpoint(torch, root: Path, seed: int = 16, config=None):
+    """A seeded wav2vec2-CTC (or, by `config`'s model_type, HuBERT-CTC)
+    checkpoint directory in Hugging Face's layout: config.json, vocab.json,
+    tokenizer_config.json, preprocessor_config.json and pytorch_model.bin
+    (torch.save), the positional conv's weight norm as weight_g / weight_v,
+    as the released checkpoints store it. `config` defaults to ASR_CONFIG."""
     from diffnorm_tpu_torch.models.wav2vec2_ctc import POS_CONV, Wav2Vec2CTC, hf_key
 
+    config = config or ASR_CONFIG
     root.mkdir()
     torch.manual_seed(seed)
     with torch.device("cuda"):
-        model = Wav2Vec2CTC(ASR_CONFIG)
-    sd = {hf_key(k): v.detach().cpu() for k, v in model.state_dict().items()}
-    v = sd.pop(POS_CONV + ".weight")
-    sd[POS_CONV + ".weight_g"] = v.norm(dim=(0, 1), keepdim=True)
-    sd[POS_CONV + ".weight_v"] = v
+        model = Wav2Vec2CTC(config)
+    sd = {hf_key(k, model.prefix): v.detach().cpu() for k, v in model.state_dict().items()}
+    pos_conv = f"{model.prefix}.{POS_CONV}"
+    v = sd.pop(pos_conv + ".weight")
+    sd[pos_conv + ".weight_g"] = v.norm(dim=(0, 1), keepdim=True)
+    sd[pos_conv + ".weight_v"] = v
     torch.save(sd, root / "pytorch_model.bin")
     del model, sd
-    (root / "config.json").write_text(json.dumps(ASR_CONFIG))
+    (root / "config.json").write_text(json.dumps(config))
     (root / "vocab.json").write_text(json.dumps({c: i for i, c in enumerate(ASR_VOCAB)}))
     (root / "tokenizer_config.json").write_text(json.dumps(dict(
         unk_token="<unk>", bos_token="<s>", eos_token="</s>", pad_token="<pad>",
@@ -9863,6 +9879,367 @@ def run_model_parallel(torch, mods, smi):
     return launches
 
 
+# serialized export, the compile cache and HuBERT-CTC for ASR-BLEU (phase
+# 32): the DDIM denoiser call at the reference shape (B x T, the released
+# widths) exported batch-polymorphic with its parameters baked, on the bf16
+# module route and on int8 route fused_layer, and run again at B and
+# EXPORT_SMALL_B; the NAR forward at long form exported with its parameters
+# as input; a HuBERT-CTC recognizer at facebook/hubert-large-ls960-ft's
+# widths (ASR_CONFIG's: 24 x 1024, 16 heads, FFN 4096, the layer-norm
+# extractor, stable layer norm, 32 letters) on 45 s of audio, whose 2249
+# frames send every self-attention to flash_attention in float32
+EXPORT_SMALL_B = 16
+EXPORT_NAR_REL = 1e-4  # the program's logits against eager, max-abs / scale
+EXPORT_DENOISER = {"bf16": dict(), "fused_layer": dict(quant_int8=True, int8_route="fused_layer")}
+# a denoiser call's launches on each route: every FiLM norm of the 12 layers
+# (attention and FF), or one fused_layer a layer, and the WaveNet's 8 chains
+EXPORT_LAUNCHES = {"bf16": {"rms_norm_film": 24, "wavenet_chain": 8},
+                   "fused_layer": {"fused_layer": 12, "wavenet_chain": 8}}
+# the route's existing bound against the plain versions, max-abs / scale
+EXPORT_REL = {"bf16": CHAIN_REL_ERR, "fused_layer": LAYER_REL_ERR}
+HUBERT_CTC_CONFIG = dict(ASR_CONFIG, model_type="hubert", architectures=["HubertForCTC"],
+                         feat_proj_layer_norm=True, conv_pos_batch_norm=False)
+HUBERT_CTC_SAMPLES = AUDIO_LONG_SAMPLES[0]  # 45 s at 16 kHz: 2249 frames
+HUBERT_CTC_LAYERS = 24  # one flash_attention launch a layer
+# phase 32's fresh process: imports the export module and the build module
+# alone (no model code, no JAX), finds every kernel library already built,
+# loads each artifact of plan.json and runs it on the inputs the parent saved
+# against the parent's eager outputs; writes worker.json
+EXPORT_WORKER = r"""
+import json, sys, time
+from pathlib import Path
+
+import torch
+from diffnorm_tpu_torch.ops import _build
+from diffnorm_tpu_torch.utils.export import load_exported
+
+root = Path(sys.argv[1])
+plan = json.loads((root / "plan.json").read_text())
+torch.backends.cuda.matmul.allow_tf32 = False
+torch.backends.cudnn.allow_tf32 = False
+t0 = time.perf_counter()
+out = {"compiled": sorted(_build.build(_build.KERNELS)), "cases": {}}
+out["build_s"] = time.perf_counter() - t0
+for name, case in plan.items():
+    t0 = time.perf_counter()
+    call = load_exported(root / case["artifact"])
+    load_s = time.perf_counter() - t0
+    params = (torch.load(root / case["params"], map_location="cuda")
+              if case.get("params") else None)
+    for what in case["runs"]:
+        args = torch.load(root / f"{name}_{what}_inputs.pt", map_location="cuda")
+        want = torch.load(root / f"{name}_{what}_eager.pt", map_location="cuda")
+        torch.cuda.synchronize()
+        _build.launch_counts.clear()
+        t1 = time.perf_counter()
+        got = call(params, *args) if params is not None else call(*args)
+        torch.cuda.synchronize()
+        run_s = time.perf_counter() - t1
+        diff = (got.float() - want.float()).abs()
+        out["cases"][f"{name} {what}"] = dict(
+            load_s=load_s, run_s=run_s, launches=dict(_build.launch_counts),
+            max_abs=diff.max().item(), scale=want.float().abs().max().item(),
+            shape=list(got.shape), finite=bool(torch.isfinite(got).all()))
+out["forbidden"] = sorted(m for m in sys.modules if m.startswith("diffnorm_tpu_torch.models")
+                          or m.split(".")[0] in ("jax", "flax", "diffnorm_tpu"))
+(root / "worker.json").write_text(json.dumps(out))
+"""
+# (e) under DIFFNORM_COMPILE_CACHE: builds rms_norm_film into that directory,
+# launches it and reads which library file the process mapped
+CACHE_WORKER = r"""
+import json, sys, time
+
+import torch
+from diffnorm_tpu_torch.ops import _build
+from diffnorm_tpu_torch.ops.norm import rms_norm_film
+from diffnorm_tpu_torch.utils.compile_cache import enable_compile_cache
+
+enable_compile_cache()
+t0 = time.perf_counter()
+compiled = sorted(_build.build(["rms_norm_film"]))
+build_s = time.perf_counter() - t0
+x = torch.randn(4, 8, 512, device="cuda")
+y = rms_norm_film(x, torch.randn(4, 1024, device="cuda"))
+torch.cuda.synchronize()
+with open("/proc/self/maps") as f:
+    mapped = sorted({line.split()[-1] for line in f if "librms_norm_film" in line})
+json.dump(dict(compiled=compiled, build_s=build_s, path=str(_build.library_path("rms_norm_film")),
+               mapped=mapped, again=sorted(_build.build(["rms_norm_film"])),
+               launches=dict(_build.launch_counts), finite=bool(torch.isfinite(y).all())),
+          open(sys.argv[1], "w"))
+"""
+
+
+def export_denoiser_inputs(torch, model, b, seed=32):
+    """One DDIM step's denoiser call as ddim_sample makes it: x_t [B, T, 128]
+    float32, the time, the mask (the last row half masked), that step's
+    precomputed FiLM projections and the positions."""
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    x = torch.randn(b, T, 128, generator=g, device="cuda")
+    times = torch.full((b,), START_STEP - 1, dtype=torch.int32, device="cuda")
+    mask = torch.ones(b, T, dtype=torch.bool, device="cuda")
+    mask[-1, T // 2:] = False
+    with torch.no_grad():
+        conds = model.precompute_step_conds(times.float()[None])
+    step_cond = torch.utils._pytree.tree_map(lambda v: v[0].contiguous(), conds)
+    return x, times, mask, step_cond, model.precompute_pos(mask)
+
+
+def counted(torch, fn):
+    """fn()'s result and the kernel launches it made."""
+    from diffnorm_tpu_torch.ops import _build
+
+    torch.cuda.synchronize()
+    _build.launch_counts.clear()
+    with torch.no_grad():
+        out = fn()
+    torch.cuda.synchronize()
+    return out, dict(_build.launch_counts)
+
+
+def export_denoisers(torch, root: Path, plan: dict, smi):
+    """(a): each route's denoiser call exported and saved; its inputs and
+    eager outputs at B and EXPORT_SMALL_B saved for the worker. Returns the
+    eager launches."""
+    from diffnorm_tpu_torch.models.diffusion import LatentDiffusionModule
+    from diffnorm_tpu_torch.utils.export import save_exported
+    from diffnorm_tpu_torch.weights import pack_all
+
+    torch.manual_seed(0)  # phase 3's weights
+    with torch.device("cuda"):
+        models = {name: LatentDiffusionModule(**kw) for name, kw in EXPORT_DENOISER.items()}
+    models["fused_layer"].load_state_dict(models["bf16"].state_dict())
+    pack_all(models["fused_layer"])  # int8 packs from the float32 masters
+    launches = {}
+    for name, model in models.items():
+        model = model.to(torch.bfloat16).eval()
+        inputs = export_denoiser_inputs(torch, model, B)
+        small = torch.utils._pytree.tree_map(
+            lambda v: v[:EXPORT_SMALL_B].contiguous(), inputs)
+
+        def call(x, times, mask, step_cond, pos, model=model):
+            return model.denoise(x, times, mask, step_cond=step_cond, pos=pos)
+
+        for what, args in ((f"B{B}", inputs), (f"B{EXPORT_SMALL_B}", small)):
+            eager, counts = counted(torch, lambda: call(*args))
+            if counts != EXPORT_LAUNCHES[name]:
+                fail(f"export {name}: the eager call launched {counts}, expected "
+                     f"{EXPORT_LAUNCHES[name]}")
+            for k, n in counts.items():
+                launches[k] = launches.get(k, 0) + n
+            torch.save(args, root / f"{name}_{what}_inputs.pt")
+            torch.save(eager, root / f"{name}_{what}_eager.pt")
+        t1 = time.perf_counter()
+        nbytes = save_exported(root / f"{name}.dnx", call, inputs, batch_poly=True)
+        export_s = time.perf_counter() - t1
+        plan[name] = dict(artifact=f"{name}.dnx", runs=[f"B{B}", f"B{EXPORT_SMALL_B}"],
+                          export_s=export_s, bytes=nbytes)
+        print(f"export (a) denoiser {name} route: B{B} x T{T}, bf16, bake_params=True, "
+              f"batch_poly=True: export + save {export_s:.2f} s, program {nbytes} bytes; {smi}")
+        models[name] = None
+        del model
+    return launches
+
+
+def export_nar(torch, root: Path, plan: dict, smi):
+    """(c): the released NAR's forward at long form (LONG_B x LONG_FRAMES, so
+    the decoder's encoder attention takes flash_attention) exported with its
+    parameters as input; the state dict, inputs and eager logits saved for
+    the worker. Returns the eager launches."""
+    from diffnorm_tpu_torch.utils.export import module_fn, save_exported
+
+    class Logits(torch.nn.Module):
+        def __init__(self, model):
+            super().__init__()
+            self.model = model
+
+        def forward(self, src, src_lengths, tokens):
+            return self.model(src, src_lengths, tokens, tokens)["logits"]
+
+    wrapper = Logits(seeded_nar(torch, 0))
+    src, lengths = s2st_inputs(torch, LONG_B, LONG_FRAMES)
+    g = torch.Generator(device="cuda").manual_seed(60)
+    tokens = torch.randint(4, wrapper.model.vocab_size, (LONG_B, S2ST_KW["max_len"]),
+                           generator=g, device="cuda")
+    args = (src, lengths, tokens)
+    eager, counts = counted(torch, lambda: wrapper(*args))
+    if counts.get("flash_attention", 0) == 0:
+        fail(f"export (c): the eager long-form forward launched {counts}")
+    params = wrapper.state_dict()
+    torch.save(params, root / "nar_params.pt")
+    torch.save(args, root / "nar_long_inputs.pt")
+    torch.save(eager, root / "nar_long_eager.pt")
+    t1 = time.perf_counter()
+    nbytes = save_exported(root / "nar.dnx", module_fn(wrapper), args, params=params,
+                           bake_params=False)
+    export_s = time.perf_counter() - t1
+    plan["nar"] = dict(artifact="nar.dnx", params="nar_params.pt", runs=["long"],
+                       export_s=export_s, bytes=nbytes)
+    print(f"export (c) NAR forward: B{LONG_B} x {LONG_FRAMES} frames, canvas "
+          f"{S2ST_KW['max_len']}, bf16, bake_params=False: export + save {export_s:.2f} s, "
+          f"program {nbytes} bytes (the state dict apart); eager launches {counts}; {smi}")
+    return counts
+
+
+def run_export_worker(root: Path, plan: dict, smi):
+    """(b) and (c)'s runs, and (e)'s fresh process: EXPORT_WORKER on plan."""
+    import os
+
+    repo = Path(__file__).resolve().parent
+    (root / "plan.json").write_text(json.dumps(plan))
+    env = dict(os.environ, PYTHONPATH=str(repo))
+    t1 = time.perf_counter()
+    done = subprocess.run([sys.executable, "-c", EXPORT_WORKER, str(root)], cwd=str(root),
+                          env=env, capture_output=True, text=True, timeout=600)
+    wall = time.perf_counter() - t1
+    if done.returncode != 0 or not (root / "worker.json").exists():
+        fail(f"export worker: exit {done.returncode}:\n{done.stderr[-3000:]}")
+    out = json.loads((root / "worker.json").read_text())
+    print(f"export (e) a fresh process found every kernel library: compiled "
+          f"{out['compiled']} in {out['build_s']:.2f} s (nvcc --version only); the process "
+          f"imported no model module nor JAX: {out['forbidden']}; its wall {wall:.1f} s")
+    if out["compiled"] or out["forbidden"]:
+        fail(f"export worker: compiled {out['compiled']}, imported {out['forbidden']}")
+    launches = {}
+    for key, case in out["cases"].items():
+        name = key.split()[0]
+        rel = case["max_abs"] / max(case["scale"], 1e-30)
+        bound_ = EXPORT_NAR_REL if name == "nar" else EXPORT_REL[name]
+        want = ({"flash_attention": 1} if name == "nar" else EXPORT_LAUNCHES[name])
+        print(f"export (b) {key}: load {case['load_s']:.2f} s, first call {case['run_s']:.3f} "
+              f"s, launches {case['launches']}, max-abs against eager {case['max_abs']:.3e} "
+              f"(predicted 0.0; max-abs/scale {rel:.3e}, bound {bound_}), output "
+              f"{case['shape']}; {smi}")
+        short = ({k: v for k, v in case["launches"].items() if k in want} != want
+                 if name != "nar" else case["launches"].get("flash_attention", 0) == 0)
+        if short or rel > bound_ or not case["finite"]:
+            fail(f"export {key}: launches {case['launches']}, max-abs/scale {rel:.3e}")
+        for k, n in case["launches"].items():
+            launches[k] = launches.get(k, 0) + n
+    return launches
+
+
+def run_hubert_ctc(torch, root: Path, mods, smi):
+    """(d): a seeded HuBERT-CTC checkpoint at hubert-large-ls960-ft's widths,
+    through load_ctc_checkpoint, on HUBERT_CTC_SAMPLES of audio, kernels
+    against plain versions. Returns the launches."""
+    import numpy as np
+
+    from diffnorm_tpu_torch.eval.asr_bleu import resolve_asr_model
+    from diffnorm_tpu_torch.models.wav2vec2_ctc import (
+        ctc_decode,
+        load_ctc_checkpoint,
+        normalize_waveform,
+    )
+
+    asr_dir = root / "hubert_ctc"
+    t1 = time.perf_counter()
+    write_asr_checkpoint(torch, asr_dir, seed=32, config=HUBERT_CTC_CONFIG)
+    write_s = time.perf_counter() - t1
+    t1 = time.perf_counter()
+    ckpt = load_ctc_checkpoint(resolve_asr_model("en", str(asr_dir)), device="cuda")
+    load_s = time.perf_counter() - t1
+    if ckpt.model.prefix != "hubert" or not ckpt.model.encoder.layer_norm_first:
+        fail("HuBERT-CTC: the checkpoint did not load as a stable-layer-norm HuBERT")
+    rng = np.random.default_rng(32)
+    wav = normalize_waveform(rng.normal(size=HUBERT_CTC_SAMPLES) * 0.1)
+    x = torch.from_numpy(wav)[None].cuda()
+    logits, counts = counted(torch, lambda: ckpt.model(x))
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    with torch.no_grad():
+        ckpt.model(x)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t1
+    with torch.no_grad(), plain_versions(*mods):
+        ref = ckpt.model(x)
+    logits, ref = logits[0].float(), ref[0].float()
+    cos = torch.nn.functional.cosine_similarity(logits, ref, dim=-1).min().item()
+    rel = ((logits - ref).abs().max() / ref.abs().max()).item()
+    agree = (logits.argmax(-1) == ref.argmax(-1)).float().mean().item()
+    texts = [ctc_decode(v.argmax(-1).tolist(), ckpt.vocab, ckpt.tokenizer) for v in (logits, ref)]
+    print(f"HuBERT-CTC (d): hubert-large-ls960-ft widths, {HUBERT_CTC_SAMPLES / SAMPLE_RATE:.0f} "
+          f"s of audio ({logits.shape[0]} frames), float32: checkpoint written in {write_s:.1f} "
+          f"s, load_ctc_checkpoint {load_s:.1f} s, forward {1e3 * wall:.1f} ms, launches "
+          f"{counts} (expected flash_attention {HUBERT_CTC_LAYERS}, the JSON row "
+          f"flash_attention_f32); against the plain versions: logits row-cos min {cos:.7f} "
+          f"(bound {PREP_ROW_COS}), max-abs/scale {rel:.3e} (bound {PREP_REL}), argmax "
+          f"agreement {agree:.5f}, transcripts equal {texts[0] == texts[1]} "
+          f"({len(texts[0])} characters); {smi}")
+    if (counts != {"flash_attention": HUBERT_CTC_LAYERS} or cos < PREP_ROW_COS
+            or rel > PREP_REL or texts[0] != texts[1]):
+        fail(f"HuBERT-CTC: launches {counts}, row-cos {cos}, rel {rel}, transcripts "
+             f"{texts[0][:80]!r} vs {texts[1][:80]!r}")
+    return {"flash_attention_f32": counts.get("flash_attention", 0)}
+
+
+def check_cache_override(root: Path, proc, smi):
+    """(e): CACHE_WORKER's result: rms_norm_film compiled into the override's
+    host directory, and the library the process mapped is that one."""
+    from diffnorm_tpu_torch.utils.compile_cache import host_fingerprint
+
+    try:
+        proc.wait(timeout=600)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+    result = root / "cache.json"
+    if proc.returncode != 0 or not result.exists():
+        fail(f"compile cache override: exit {proc.returncode}:\n"
+             f"{(root / 'cache.log').read_text()[-3000:]}")
+    out = json.loads(result.read_text())
+    where = (root / "cache" / f"host-{host_fingerprint()}").resolve()
+    path = Path(out["path"]).resolve()
+    ok = (out["compiled"] == ["rms_norm_film"] and path.parent == where
+          and [Path(m).resolve() for m in out["mapped"]] == [path] and out["again"] == []
+          and out["launches"] == {"rms_norm_film": 1} and out["finite"])
+    print(f"export (e) DIFFNORM_COMPILE_CACHE={root / 'cache'}: compiled {out['compiled']} in "
+          f"{out['build_s']:.1f} s into {Path(out['path']).parent.name}/, the process mapped "
+          f"{[Path(m).name for m in out['mapped']]} from there, a second build compiled "
+          f"{out['again']}, launches {out['launches']}; {smi}")
+    if not ok:
+        fail(f"compile cache override: {out}")
+
+
+def run_export_cache_hubert(torch, mods, smi):
+    """Phase 32: (a)-(c) the serialized export, (d) HuBERT-CTC, (e) the
+    compile cache (the override's process runs beside (a)-(d)). Returns the
+    launches of the phase's processes."""
+    import os
+    import tempfile
+
+    t0 = time.perf_counter()
+    launches = {}
+
+    def add(counts):
+        for k, n in counts.items():
+            launches[k] = launches.get(k, 0) + n
+
+    with tempfile.TemporaryDirectory() as tmp:
+        root = Path(tmp)
+        repo = Path(__file__).resolve().parent
+        env = dict(os.environ, PYTHONPATH=str(repo), DIFFNORM_COMPILE_CACHE=str(root / "cache"))
+        with open(root / "cache.log", "w") as log:
+            cache_proc = subprocess.Popen(
+                [sys.executable, "-c", CACHE_WORKER, str(root / "cache.json")], cwd=str(root),
+                env=env, stdout=log, stderr=subprocess.STDOUT)
+        try:
+            plan = {}
+            add(export_denoisers(torch, root, plan, smi))
+            add(export_nar(torch, root, plan, smi))
+            add(run_export_worker(root, plan, smi))
+            add(run_hubert_ctc(torch, root, mods, smi))
+        except BaseException:
+            cache_proc.kill()
+            cache_proc.wait()
+            raise
+        check_cache_override(root, cache_proc, smi)
+    print(f"phase export, compile cache, HuBERT-CTC: {time.perf_counter() - t0:.1f} s, "
+          f"launches {launches}; {smi}")
+    return launches
+
+
 def main() -> int:
     try:
         import torch
@@ -10099,6 +10476,14 @@ def main() -> int:
     # the sequence-parallel conformer, the GPipe pipeline, cli.train
     # --model-parallel 2 --profile --heartbeat-timeout -> cli.validate)
     for name, n in run_model_parallel(torch, mods, smi).items():
+        launches[name] += n
+
+    # 32. the serialized export (the DDIM denoiser call on the bf16 and
+    # fused_layer routes, batch-polymorphic and baked; the long-form NAR
+    # forward with its parameters as input) run in a process without model
+    # code, HuBERT-CTC at hubert-large's widths through flash_attention, and
+    # the compile cache (found again; rebuilt under DIFFNORM_COMPILE_CACHE)
+    for name, n in run_export_cache_hubert(torch, mods, smi).items():
         launches[name] += n
 
     sources = {

@@ -75,6 +75,7 @@ from diffnorm_tpu_torch.ops.quant import (
 from diffnorm_tpu_torch.ops.unit_reduce import reduce_units
 from diffnorm_tpu_torch.parallel.mesh import Mesh, init_distributed, make_mesh
 from diffnorm_tpu_torch.train.checkpoint import load_variables
+from diffnorm_tpu_torch.utils.compile_cache import enable_compile_cache
 from diffnorm_tpu_torch.weights import from_jax_variables
 
 logger = logging.getLogger("diffnorm_tpu_torch.diff_norm")
@@ -263,6 +264,7 @@ def normalize_split(model, args, device, generator, split: str,
 
 
 def main(argv: Optional[Sequence[str]] = None) -> int:
+    enable_compile_cache()
     logging.basicConfig(level=logging.INFO, force=True,
                         format="%(asctime)s | %(levelname)s | %(message)s")
     args = parse_args(argv)

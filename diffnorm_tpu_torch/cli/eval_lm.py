@@ -30,6 +30,7 @@ from diffnorm_tpu_torch.data.iterators import EpochBatchIterator
 from diffnorm_tpu_torch.device import resolve_device
 from diffnorm_tpu_torch.tasks import TASKS
 from diffnorm_tpu_torch.train.checkpoint import load_variables
+from diffnorm_tpu_torch.utils.compile_cache import enable_compile_cache
 from diffnorm_tpu_torch.weights import from_jax_variables
 
 logger = logging.getLogger("diffnorm_tpu_torch.eval_lm")
@@ -82,6 +83,7 @@ def evaluate(args) -> Tuple[float, int]:
 
 
 def main(argv: Optional[Sequence[str]] = None) -> int:
+    enable_compile_cache()
     logging.basicConfig(level=logging.INFO, force=True,
                         format="%(asctime)s | %(levelname)s | %(message)s")
     avg, _ = evaluate(parse_args(argv))

@@ -190,6 +190,7 @@ from diffnorm_tpu_torch.tasks.s2spect_task import ARCHS as SPECT_ARCHS
 from diffnorm_tpu_torch.tasks.s2spect_task import S2SPECT2_ARCHS
 from diffnorm_tpu_torch.tasks.tts_task import ARCHS as TTS_ARCHS
 from diffnorm_tpu_torch.train.checkpoint import load_tree, load_variables
+from diffnorm_tpu_torch.utils.compile_cache import enable_compile_cache
 from diffnorm_tpu_torch.weights import as_variables, from_jax_variables
 
 logger = logging.getLogger("diffnorm_tpu_torch.generate")
@@ -613,6 +614,7 @@ def levenshtein_decoder(args: argparse.Namespace, models):
 
 
 def main(argv: Optional[Sequence[str]] = None) -> int:
+    enable_compile_cache()
     logging.basicConfig(level=logging.INFO, force=True,
                         format="%(asctime)s | %(levelname)s | %(message)s")
     args = parse_args(argv)

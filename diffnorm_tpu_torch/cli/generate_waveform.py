@@ -35,6 +35,7 @@ import torch
 from diffnorm_tpu_torch.device import resolve_device
 from diffnorm_tpu_torch.models.hifigan import INT8_MODES, CodeHiFiGANVocoder
 from diffnorm_tpu_torch.train.checkpoint import load_tree
+from diffnorm_tpu_torch.utils.compile_cache import enable_compile_cache
 from diffnorm_tpu_torch.weights import as_variables
 
 logger = logging.getLogger("diffnorm_tpu_torch.generate_waveform")
@@ -109,6 +110,7 @@ def parse_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
 
 
 def main(argv: Optional[Sequence[str]] = None) -> int:
+    enable_compile_cache()
     logging.basicConfig(level=logging.INFO, force=True,
                         format="%(asctime)s | %(levelname)s | %(message)s")
     args = parse_args(argv)

@@ -53,6 +53,7 @@ from diffnorm_tpu_torch.generate.mask_predict import mask_predict_decode
 from diffnorm_tpu_torch.models.levenshtein import levenshtein_decode
 from diffnorm_tpu_torch.models.unity import ARCHS as UNITY_ARCHS
 from diffnorm_tpu_torch.tasks import TASKS
+from diffnorm_tpu_torch.utils.compile_cache import enable_compile_cache
 
 logger = logging.getLogger("diffnorm_tpu_torch.interactive")
 
@@ -112,6 +113,7 @@ def decoder(args, models):
 
 
 def main(argv: Optional[Sequence[str]] = None) -> int:
+    enable_compile_cache()
     logging.basicConfig(level=logging.INFO, force=True)
     args, enc_cfg = parse_args(argv)
     device, dtype = resolve_device_dtype(args)

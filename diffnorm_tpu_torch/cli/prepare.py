@@ -60,6 +60,7 @@ from diffnorm_tpu_torch.models.kmeans import (
     save_centroids,
 )
 from diffnorm_tpu_torch.train.checkpoint import load_variables
+from diffnorm_tpu_torch.utils.compile_cache import enable_compile_cache
 from diffnorm_tpu_torch.utils.convert_weights import convert_hubert_state, load_torch_state
 from diffnorm_tpu_torch.weights import from_jax_params
 
@@ -214,6 +215,7 @@ def parse_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
 
 
 def main(argv: Optional[Sequence[str]] = None) -> int:
+    enable_compile_cache()
     logging.basicConfig(level=logging.INFO, force=True,
                         format="%(asctime)s | %(levelname)s | %(message)s")
     args = parse_args(argv)

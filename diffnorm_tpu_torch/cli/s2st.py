@@ -47,6 +47,7 @@ from diffnorm_tpu_torch.generate.s2st import s2st_generate
 from diffnorm_tpu_torch.models.nar_transformer import NARS2UTModule
 from diffnorm_tpu_torch.parallel.mesh import Mesh, init_distributed, make_mesh
 from diffnorm_tpu_torch.train.checkpoint import load_variables
+from diffnorm_tpu_torch.utils.compile_cache import enable_compile_cache
 from diffnorm_tpu_torch.weights import from_jax_variables
 
 logger = logging.getLogger("diffnorm_tpu_torch.s2st")
@@ -171,6 +172,7 @@ def build_model(args: argparse.Namespace, path: str, device: torch.device,
 
 
 def main(argv: Optional[Sequence[str]] = None) -> int:
+    enable_compile_cache()
     logging.basicConfig(level=logging.INFO, force=True,
                         format="%(asctime)s | %(levelname)s | %(message)s")
     args = parse_args(argv)

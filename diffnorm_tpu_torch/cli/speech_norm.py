@@ -39,6 +39,7 @@ from diffnorm_tpu_torch.ops.speech_norm import (
     pitch_median,
     shift_to_median,
 )
+from diffnorm_tpu_torch.utils.compile_cache import enable_compile_cache
 
 
 def parse_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
@@ -99,6 +100,7 @@ def normalize_split(wav_root: str, out_root: str, split: str, default_sr: int,
 
 
 def main(argv: Optional[Sequence[str]] = None) -> int:
+    enable_compile_cache()
     args = parse_args(argv)
     device = resolve_device("cpu" if args.cpu else "cuda")
     for split in args.splits.split(","):

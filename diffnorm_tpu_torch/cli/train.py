@@ -244,6 +244,7 @@ from diffnorm_tpu_torch.models.unit_lm import ARCHS as LM_ARCHS
 from diffnorm_tpu_torch.models.unity import ARCHS as UNITY_ARCHS
 from diffnorm_tpu_torch.models.wav2vec2 import ARCHS as W2V_ARCHS
 from diffnorm_tpu_torch.tasks import TASKS
+from diffnorm_tpu_torch.utils.compile_cache import enable_compile_cache
 from diffnorm_tpu_torch.utils.watchdog import Watchdog
 from diffnorm_tpu_torch.tasks.s2spect_task import ARCHS as SPECT_ARCHS
 from diffnorm_tpu_torch.tasks.s2spect_task import S2SPECT2_ARCHS
@@ -943,6 +944,7 @@ def validate_split(task, trainer: Trainer, args: argparse.Namespace,
 
 
 def main(argv: Optional[Sequence[str]] = None) -> int:
+    enable_compile_cache()
     argv = sys.argv[1:] if argv is None else list(argv)
     # the vocoder fine-tunes train a GAN, which the Trainer does not model:
     # JAX's cli/train.py:101-106 hands them to cli.train_vocoder

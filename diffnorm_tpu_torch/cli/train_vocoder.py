@@ -51,6 +51,7 @@ from diffnorm_tpu_torch.device import resolve_device
 from diffnorm_tpu_torch.models.hifigan import CodeGenerator, FeatureGenerator
 from diffnorm_tpu_torch.train.checkpoint import CheckpointManager
 from diffnorm_tpu_torch.train.gan_trainer import DEFAULTS, GanTrainer
+from diffnorm_tpu_torch.utils.compile_cache import enable_compile_cache
 
 logger = logging.getLogger("diffnorm_tpu_torch.train_vocoder")
 
@@ -142,6 +143,7 @@ def build_dataset(args: argparse.Namespace, vcfg: dict):
 
 
 def main(argv: Optional[Sequence[str]] = None) -> int:
+    enable_compile_cache()
     logging.basicConfig(level=logging.INFO, force=True,
                         format="%(asctime)s | %(levelname)s | %(message)s")
     args = parse_args(argv)

@@ -43,6 +43,7 @@ from diffnorm_tpu_torch.parallel.mesh import init_distributed, make_mesh
 from diffnorm_tpu_torch.tasks import TASKS
 from diffnorm_tpu_torch.train.checkpoint import load_variables
 from diffnorm_tpu_torch.train.trainer import Trainer, TrainerConfig
+from diffnorm_tpu_torch.utils.compile_cache import enable_compile_cache
 from diffnorm_tpu_torch.weights import from_jax_variables
 
 logger = logging.getLogger("diffnorm_tpu_torch.validate")
@@ -84,6 +85,7 @@ def validate(args) -> Dict[str, float]:
 
 
 def main(argv: Optional[Sequence[str]] = None) -> int:
+    enable_compile_cache()
     logging.basicConfig(level=logging.INFO, force=True,
                         format="%(asctime)s | %(levelname)s | %(message)s")
     args = parse_args(argv)

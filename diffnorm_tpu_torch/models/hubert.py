@@ -199,9 +199,11 @@ class TransformerSentenceEncoderLayer(DropoutSite, nn.Module):
 class HubertEncoder(DropoutSite, nn.Module):
     """JAX hubert.py:159-266. `layer_norm_eps` (the feature, encoder and
     layer LayerNorms) and the positional conv's kernel and groups default to
-    HuBERT's; wav2vec2-CTC (`models/wav2vec2_ctc.py`) sets them from its
-    config. The training knobs act in training mode only (module
-    docstring)."""
+    HuBERT's; wav2vec2-CTC and HuBERT-CTC (`models/wav2vec2_ctc.py`) set
+    them from their config, and `feature_layer_norm=False` drops the
+    LayerNorm of the extractor's output before the projection (transformers'
+    HubertConfig.feat_proj_layer_norm). The training knobs act in training
+    mode only (module docstring)."""
 
     def __init__(self, dim: int = 768, layers: int = 12, heads: int = 12,
                  ffn_dim: int = 3072,
@@ -211,7 +213,8 @@ class HubertEncoder(DropoutSite, nn.Module):
                  attention_dropout: float = 0.0, activation_dropout: float = 0.0,
                  dropout_input: float = 0.0, layerdrop: float = 0.0,
                  feature_grad_mult: float = 1.0, layer_norm_eps: float = LN_EPS,
-                 pos_conv_kernel: int = 128, pos_conv_groups: int = 16):
+                 pos_conv_kernel: int = 128, pos_conv_groups: int = 16,
+                 feature_layer_norm: bool = True):
         super().__init__()
         self.dim, self.layers, self.layer_norm_first = dim, layers, layer_norm_first
         self.layerdrop, self.feature_grad_mult = layerdrop, feature_grad_mult
@@ -219,7 +222,8 @@ class HubertEncoder(DropoutSite, nn.Module):
         self.feature_extractor = ConvFeatureExtractor(self.conv_feature_layers,
                                                       extractor_mode, conv_bias)
         conv_dim = self.conv_feature_layers[-1][0]
-        self.layer_norm = nn.LayerNorm(conv_dim, eps=layer_norm_eps)
+        self.layer_norm = (nn.LayerNorm(conv_dim, eps=layer_norm_eps) if feature_layer_norm
+                           else nn.Identity())
         self.post_extract_proj = Dense(conv_dim, dim)
         self.dropout_input, self.dropout = Dropout(dropout_input), Dropout(dropout)
         self.pos_conv = ConvPositionalEmbedding(dim, pos_conv_kernel, pos_conv_groups)

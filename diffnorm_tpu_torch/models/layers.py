@@ -47,6 +47,7 @@ from diffnorm_tpu_torch.ops import norm as norm_ops
 from diffnorm_tpu_torch.ops import quant as quant_ops
 from diffnorm_tpu_torch.ops.quant import Int8Knobs, QuantSite
 from diffnorm_tpu_torch.parallel.mesh import copy_in, gather_out, reduce_out, split_in
+from diffnorm_tpu_torch.utils.export import params_as_input
 
 # ConditionableTransformer's int8 routes: JAX's DIFFNORM_FUSED_BLOCK=1,
 # DIFFNORM_FFPIPE=1, DIFFNORM_FFPIPE=1 with DIFFNORM_FFPIPE_ROWS=2, and
@@ -62,9 +63,12 @@ def _lecun_normal_(weight: torch.Tensor, fan_in: int) -> torch.Tensor:
 
 def packs_from_params(params: Sequence[torch.Tensor]) -> bool:
     """Whether a forward builds its packed weights from `params` as it runs
-    (differentiably): grad mode is on and one of them requires grad.
-    Otherwise it reads its cached packs."""
-    return torch.is_grad_enabled() and any(p.requires_grad for p in params)
+    (differentiably): grad mode is on and one of them requires grad, or an
+    export that takes the parameters as input is tracing it (the program
+    must read the parameters it is given). Otherwise it reads its cached
+    packs."""
+    return params_as_input() or (torch.is_grad_enabled()
+                                 and any(p.requires_grad for p in params))
 
 
 def param_versions(params: Sequence[torch.Tensor]) -> Tuple[int, ...]:
@@ -117,8 +121,22 @@ class Int8Pack(nn.Module):
                 self._buffers[name] = moved if moved.dtype == buf.dtype else buf.to(moved.device)
         return self
 
+    def __getattr__(self, name: str):
+        if params_as_input() and name in self.__dict__.get("_buffers", {}):
+            _refuse_int8_export()
+        return super().__getattr__(name)
+
     def tensors(self) -> Dict[str, torch.Tensor]:
+        if params_as_input():
+            _refuse_int8_export()
         return dict(self._buffers)
+
+
+def _refuse_int8_export() -> None:
+    raise RuntimeError(
+        "export with bake_params=False: an int8 pack is built from float32 masters, "
+        "which the state dict of a bf16 model does not hold, so the program would serve "
+        "the example's int8 weights; export an int8 model with bake_params=True")
 
 
 class Dense(QuantSite, nn.Linear):

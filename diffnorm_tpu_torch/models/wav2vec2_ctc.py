@@ -1,17 +1,21 @@
-"""wav2vec2-CTC speech recognizer for ASR-BLEU, inference only.
+"""wav2vec2-CTC and HuBERT-CTC speech recognizers for ASR-BLEU, inference only.
 
 The port's counterpart of the model JAX's `eval/asr_bleu.py:ASRGenerator`
-runs through `transformers.AutoModelForCTC` (Wav2Vec2ForCTC), built on the
-port's `HubertEncoder`: wav2vec2 and HuBERT share the encoder. From a
-Hugging Face `config.json`:
+runs through `transformers.AutoModelForCTC` (Wav2Vec2ForCTC or HubertForCTC,
+by the config's `model_type`), built on the port's `HubertEncoder`: wav2vec2
+and HuBERT share the encoder. From a Hugging Face `config.json`:
   feat_extract_norm "group" -> extractor_mode "default" (GroupNorm on the
     first conv), "layer" -> "layer_norm" (a LayerNorm after every conv)
   do_stable_layer_norm -> layer_norm_first (pre-norm layers, the encoder
     LayerNorm at the end)
   conv_dim / conv_kernel / conv_stride, conv_bias, num_conv_pos_embeddings /
     num_conv_pos_embedding_groups and layer_norm_eps as they are
+  feat_proj_layer_norm (HuBERT only; wav2vec2 always has it) -> whether the
+    extractor's output passes a LayerNorm before the projection
 then `lm_head`, a Dense onto the CTC vocabulary. Logits are float32 when the
-weights are.
+weights are. A HuBERT checkpoint's names carry the prefix `hubert.` where
+wav2vec2's carry `wav2vec2.`. HuBERT's `conv_pos_batch_norm` (a BatchNorm
+in place of the positional conv's weight norm) is not ported and raises.
 
 `load_ctc_checkpoint(dir)` reads a checkpoint directory as
 `save_pretrained` writes it: config.json, preprocessor_config.json,
@@ -52,29 +56,31 @@ HF_DEFAULTS = dict(
     conv_dim=(512,) * 7, conv_kernel=(10, 3, 3, 3, 3, 2, 2), conv_stride=(5, 2, 2, 2, 2, 2, 2),
     conv_bias=False, feat_extract_norm="group", do_stable_layer_norm=False,
     num_conv_pos_embeddings=128, num_conv_pos_embedding_groups=16, layer_norm_eps=1e-5,
-    vocab_size=32, hidden_act="gelu", feat_extract_activation="gelu")
+    vocab_size=32, hidden_act="gelu", feat_extract_activation="gelu",
+    feat_proj_layer_norm=True, conv_pos_batch_norm=False)
 EXTRACTOR_MODES = {"group": "default", "layer": "layer_norm"}
-UNUSED = ("wav2vec2.masked_spec_embed",)
-POS_CONV = "wav2vec2.encoder.pos_conv_embed.conv"
+# model_type -> the prefix of the encoder's names in the checkpoint
+PREFIXES = {"wav2vec2": "wav2vec2", "hubert": "hubert"}
+UNUSED = ("masked_spec_embed",)  # under the prefix
+POS_CONV = "encoder.pos_conv_embed.conv"  # under the prefix
 
-# port module path -> HF name, in order; the first that matches is taken
+# port module path -> HF name under the prefix ("{p}."), in order; the
+# first that matches is taken
 _NAME_RULES = (
-    (r"^encoder\.feature_extractor\.conv_(\d+)\.", r"wav2vec2.feature_extractor.conv_layers.\1.conv."),
+    (r"^encoder\.feature_extractor\.conv_(\d+)\.", r"{p}.feature_extractor.conv_layers.\1.conv."),
     (r"^encoder\.feature_extractor\.ln_(\d+)\.",
-     r"wav2vec2.feature_extractor.conv_layers.\1.layer_norm."),
+     r"{p}.feature_extractor.conv_layers.\1.layer_norm."),
     (r"^encoder\.feature_extractor\.group_norm\.",
-     "wav2vec2.feature_extractor.conv_layers.0.layer_norm."),
-    (r"^encoder\.layer_norm\.", "wav2vec2.feature_projection.layer_norm."),
-    (r"^encoder\.post_extract_proj\.", "wav2vec2.feature_projection.projection."),
-    (r"^encoder\.pos_conv\.conv\.", POS_CONV + "."),
-    (r"^encoder\.encoder_layer_norm\.", "wav2vec2.encoder.layer_norm."),
-    (r"^encoder\.layer_(\d+)\.(q|k|v|out)_proj\.",
-     r"wav2vec2.encoder.layers.\1.attention.\2_proj."),
-    (r"^encoder\.layer_(\d+)\.self_attn_layer_norm\.", r"wav2vec2.encoder.layers.\1.layer_norm."),
-    (r"^encoder\.layer_(\d+)\.fc1\.",
-     r"wav2vec2.encoder.layers.\1.feed_forward.intermediate_dense."),
-    (r"^encoder\.layer_(\d+)\.fc2\.", r"wav2vec2.encoder.layers.\1.feed_forward.output_dense."),
-    (r"^encoder\.layer_(\d+)\.final_layer_norm\.", r"wav2vec2.encoder.layers.\1.final_layer_norm."),
+     "{p}.feature_extractor.conv_layers.0.layer_norm."),
+    (r"^encoder\.layer_norm\.", "{p}.feature_projection.layer_norm."),
+    (r"^encoder\.post_extract_proj\.", "{p}.feature_projection.projection."),
+    (r"^encoder\.pos_conv\.conv\.", "{p}." + POS_CONV + "."),
+    (r"^encoder\.encoder_layer_norm\.", "{p}.encoder.layer_norm."),
+    (r"^encoder\.layer_(\d+)\.(q|k|v|out)_proj\.", r"{p}.encoder.layers.\1.attention.\2_proj."),
+    (r"^encoder\.layer_(\d+)\.self_attn_layer_norm\.", r"{p}.encoder.layers.\1.layer_norm."),
+    (r"^encoder\.layer_(\d+)\.fc1\.", r"{p}.encoder.layers.\1.feed_forward.intermediate_dense."),
+    (r"^encoder\.layer_(\d+)\.fc2\.", r"{p}.encoder.layers.\1.feed_forward.output_dense."),
+    (r"^encoder\.layer_(\d+)\.final_layer_norm\.", r"{p}.encoder.layers.\1.final_layer_norm."),
     (r"^lm_head\.", "lm_head."),
 )
 # the weight-norm forms of the positional conv: (g, v)
@@ -86,29 +92,34 @@ _SAFETENSORS_DTYPES = {
     "U8": torch.uint8, "BOOL": torch.bool}
 
 
-def hf_key(name: str) -> str:
-    """The HF Wav2Vec2ForCTC name of a `Wav2Vec2CTC` state-dict entry."""
+def hf_key(name: str, prefix: str = "wav2vec2") -> str:
+    """The HF Wav2Vec2ForCTC (HubertForCTC with prefix "hubert") name of a
+    `Wav2Vec2CTC` state-dict entry."""
     for pattern, repl in _NAME_RULES:
         if re.match(pattern, name):
-            return re.sub(pattern, repl, name)
+            return re.sub(pattern, repl.replace("{p}", prefix), name)
     raise KeyError(f"no HF name for {name}")
 
 
 class Wav2Vec2CTC(nn.Module):
-    """wav2vec2 encoder + CTC head: input_values [B, T] -> logits
+    """wav2vec2 or HuBERT encoder + CTC head: input_values [B, T] -> logits
     [B, frames, vocab]."""
 
     def __init__(self, config: Dict):
         super().__init__()
         cfg = {**HF_DEFAULTS, **config}
-        if cfg.get("model_type", "wav2vec2") != "wav2vec2":
-            raise NotImplementedError(f"model_type {cfg['model_type']!r}: only wav2vec2-CTC")
-        for key in ("add_adapter", "adapter_attn_dim", "use_weighted_layer_sum"):
+        model_type = cfg.get("model_type", "wav2vec2")
+        if model_type not in PREFIXES:
+            raise NotImplementedError(f"model_type {model_type!r}: only wav2vec2-CTC and "
+                                      f"HuBERT-CTC")
+        self.prefix = PREFIXES[model_type]
+        for key in ("add_adapter", "adapter_attn_dim", "use_weighted_layer_sum",
+                    "conv_pos_batch_norm"):
             if cfg.get(key):
-                raise NotImplementedError(f"wav2vec2 config {key}={cfg[key]!r} is not ported")
+                raise NotImplementedError(f"{model_type} config {key}={cfg[key]!r} is not ported")
         for key in ("hidden_act", "feat_extract_activation"):
             if cfg[key] != "gelu":
-                raise NotImplementedError(f"wav2vec2 config {key}={cfg[key]!r}: only gelu")
+                raise NotImplementedError(f"{model_type} config {key}={cfg[key]!r}: only gelu")
         if cfg["feat_extract_norm"] not in EXTRACTOR_MODES:
             raise ValueError(f"feat_extract_norm {cfg['feat_extract_norm']!r}: 'group' or 'layer'")
         self.encoder = HubertEncoder(
@@ -119,7 +130,8 @@ class Wav2Vec2CTC(nn.Module):
             conv_bias=bool(cfg["conv_bias"]), layer_norm_first=bool(cfg["do_stable_layer_norm"]),
             layer_norm_eps=float(cfg["layer_norm_eps"]),
             pos_conv_kernel=cfg["num_conv_pos_embeddings"],
-            pos_conv_groups=cfg["num_conv_pos_embedding_groups"])
+            pos_conv_groups=cfg["num_conv_pos_embedding_groups"],
+            feature_layer_norm=model_type == "wav2vec2" or bool(cfg["feat_proj_layer_norm"]))
         self.lm_head = Dense(cfg["hidden_size"], cfg["vocab_size"])
 
     def forward(self, input_values: torch.Tensor) -> torch.Tensor:
@@ -148,25 +160,26 @@ def read_safetensors(path: str) -> Dict[str, torch.Tensor]:
 
 
 def hf_to_port_state(sd: Dict[str, torch.Tensor], model: Wav2Vec2CTC) -> Dict[str, torch.Tensor]:
-    """An HF Wav2Vec2ForCTC state dict -> `model`'s state dict (float32).
-    Raises on an HF name left over or a port name missing."""
+    """An HF Wav2Vec2ForCTC or HubertForCTC state dict -> `model`'s state
+    dict (float32). Raises on an HF name left over or a port name missing."""
     sd = dict(sd)
-    pos_w = POS_CONV + ".weight"
+    p = model.prefix
+    pos_conv = f"{p}.{POS_CONV}"
     for g, v in _WEIGHT_NORM:
-        if f"{POS_CONV}.{g}" in sd:
-            sd[pos_w] = torch.from_numpy(fold_weight_norm(
-                sd.pop(f"{POS_CONV}.{g}"), sd.pop(f"{POS_CONV}.{v}"), dim=2))
+        if f"{pos_conv}.{g}" in sd:
+            sd[pos_conv + ".weight"] = torch.from_numpy(fold_weight_norm(
+                sd.pop(f"{pos_conv}.{g}"), sd.pop(f"{pos_conv}.{v}"), dim=2))
     state, missing = {}, []
     for name in model.state_dict():
-        key = hf_key(name)
+        key = hf_key(name, p)
         if key in sd:
             state[name] = sd.pop(key).float()
         else:
             missing.append(key)
     for key in UNUSED:
-        sd.pop(key, None)
+        sd.pop(f"{p}.{key}", None)
     if missing or sd:
-        raise KeyError(f"wav2vec2-CTC checkpoint: missing {missing}, not used {sorted(sd)}")
+        raise KeyError(f"{p}-CTC checkpoint: missing {missing}, not used {sorted(sd)}")
     return state
 
 
@@ -187,8 +200,8 @@ def _read_json(path: str, default=None):
 
 
 def load_ctc_checkpoint(path: str, device="cpu") -> CTCCheckpoint:
-    """A `save_pretrained` wav2vec2-CTC directory, the model float32 on
-    `device` in eval mode."""
+    """A `save_pretrained` wav2vec2-CTC or HuBERT-CTC directory, the model
+    float32 on `device` in eval mode."""
     config = _read_json(os.path.join(path, "config.json"))
     weights = os.path.join(path, "model.safetensors")
     if os.path.exists(weights):

@@ -17,13 +17,16 @@ with per-token activation scales and the weights packed by
 `pack_ff_weights`. The TPU kernel's row pipeline (rows 1 or 2 batch rows per
 grid step) is a scheduling device of that machine; here `rows` sets how many
 128-token row groups one block's M tile spans, and both give the same bits.
+
+The kernel is the custom op `diffnorm::ffpipe_layer` (`ffpipe_layer_op`), so
+`torch.export` keeps it as one node of the program it writes.
 """
 
 from __future__ import annotations
 
 import ctypes
 import math
-from typing import Dict
+from typing import Dict, List
 
 import numpy as np
 import torch
@@ -164,23 +167,30 @@ def check_ff_pack(w: Pack, c: int, device: torch.device, what: str) -> int:
     return p
 
 
-@torch.no_grad()
-def ffpipe_layer(x: torch.Tensor, film_ff: torch.Tensor, w: Pack,
-                 rows: int = 1) -> torch.Tensor:
-    """x [B, T, C] bf16 (the post-attention residual stream); film_ff
-    [B, 2C]; w from `pack_ff_weights`. Returns x + FF(normFiLM(x)) in bf16.
+@torch.library.custom_op("diffnorm::ffpipe_layer", mutates_args=())
+def ffpipe_layer_op(x: torch.Tensor, film_ff: torch.Tensor, w: List[torch.Tensor],
+                    rows: int) -> torch.Tensor:
+    """The kernel as a custom op, the pack `w` in FF_KEYS order: its plain
+    version on the CPU, the kernel on the card, shape and type alone under a
+    fake tensor (torch.export). The kernel takes rows 2 only where the batch
+    it is given is even and >= 4, so an exported program with a symbolic
+    batch decides it at each call."""
+    raise ValueError(f"ffpipe_layer: unsupported device {x.device}")
 
-    rows=2 is JAX's DIFFNORM_FFPIPE_ROWS=2; as there, it applies when B is
-    even and >= 4, and rows 1 runs otherwise. A CPU tensor takes the plain
-    version; a CUDA tensor launches the kernel (bf16, C and P multiples of
-    64) or raises. Inference only: no gradient, as JAX serves its int8
-    routes."""
-    if rows not in (1, 2):
-        raise ValueError(f"ffpipe_layer: rows must be 1 or 2, got {rows}")
-    if x.device.type == "cpu":
-        return ffpipe_layer_plain(x, film_ff, w)
-    if x.device.type != "cuda":
-        raise ValueError(f"ffpipe_layer: unsupported device {x.device}")
+
+@ffpipe_layer_op.register_kernel("cpu")
+def _plain(x, film_ff, w, rows):
+    return ffpipe_layer_plain(x, film_ff, dict(zip(FF_KEYS, w)))
+
+
+@ffpipe_layer_op.register_fake
+def _fake(x, film_ff, w, rows):
+    return x.new_empty(x.shape, dtype=torch.bfloat16)
+
+
+@ffpipe_layer_op.register_kernel("cuda")
+def _kernel(x, film_ff, w, rows):
+    w = dict(zip(FF_KEYS, w))
     if x.dim() != 3 or x.dtype != torch.bfloat16:
         raise TypeError(f"ffpipe_layer: x must be [B, T, C] bf16, got {x.dtype} "
                         f"{tuple(x.shape)}")
@@ -207,3 +217,21 @@ def ffpipe_layer(x: torch.Tensor, film_ff: torch.Tensor, w: Pack,
                     b, t, c, p, rows, int(film_bf16), stream), "ffpipe_layer")
     _build.launch_counts["ffpipe_layer2" if rows == 2 else "ffpipe_layer"] += 1
     return out
+
+
+@torch.no_grad()
+def ffpipe_layer(x: torch.Tensor, film_ff: torch.Tensor, w: Pack,
+                 rows: int = 1) -> torch.Tensor:
+    """x [B, T, C] bf16 (the post-attention residual stream); film_ff
+    [B, 2C]; w from `pack_ff_weights`. Returns x + FF(normFiLM(x)) in bf16.
+
+    rows=2 is JAX's DIFFNORM_FFPIPE_ROWS=2; as there, it applies when B is
+    even and >= 4, and rows 1 runs otherwise. A CPU tensor takes the plain
+    version; a CUDA tensor launches the kernel (bf16, C and P multiples of
+    64) or raises. Inference only: no gradient, as JAX serves its int8
+    routes."""
+    if rows not in (1, 2):
+        raise ValueError(f"ffpipe_layer: rows must be 1 or 2, got {rows}")
+    if x.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"ffpipe_layer: unsupported device {x.device}")
+    return ffpipe_layer_op(x, film_ff, [w[k] for k in FF_KEYS], rows)

@@ -24,6 +24,10 @@ Keys past Tk take no part, so a fully masked row is the mean of v over the
 Tk keys, as `masked_attention` gives. The TPU kernel pads Tk to its block
 and masks the padding like real keys, which gives sum(v) / Tk_pad on such a
 row (ROADMAP Queue 3).
+
+The kernel is the custom op `diffnorm::flash_attention`
+(`flash_attention_op`), so `torch.export` keeps it as one node of the
+program it writes.
 """
 
 from __future__ import annotations
@@ -141,12 +145,27 @@ def supports(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return _refusal(q, k, v, mask) is None
 
 
-def _launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-            mask: Optional[torch.Tensor]) -> torch.Tensor:
-    if q.device.type == "cpu":
-        return flash_attention_plain(q, k, v, mask)
-    if q.device.type != "cuda":
-        raise ValueError(f"flash_attention: unsupported device {q.device}")
+@torch.library.custom_op("diffnorm::flash_attention", mutates_args=())
+def flash_attention_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                       mask: Optional[torch.Tensor]) -> torch.Tensor:
+    """The kernel as a custom op (bf16 or float32 by q's dtype): its plain
+    version on the CPU, the kernel on the card, shape and type alone under a
+    fake tensor (torch.export)."""
+    raise ValueError(f"flash_attention: unsupported device {q.device}")
+
+
+@flash_attention_op.register_kernel("cpu")
+def _plain(q, k, v, mask):
+    return flash_attention_plain(q, k, v, mask)
+
+
+@flash_attention_op.register_fake
+def _fake(q, k, v, mask):
+    return q.new_empty(q.shape)
+
+
+@flash_attention_op.register_kernel("cuda")
+def _kernel(q, k, v, mask):
     refusal = _refusal(q, k, v, mask)
     if refusal is not None:
         raise refusal
@@ -189,6 +208,13 @@ def _launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     _build.check(err, "flash_attention")
     _build.launch_counts["flash_attention"] += 1
     return out
+
+
+def _launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+            mask: Optional[torch.Tensor]) -> torch.Tensor:
+    if q.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"flash_attention: unsupported device {q.device}")
+    return flash_attention_op(q, k, v, mask)
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,

@@ -16,11 +16,15 @@ The function, per batch row (pallas_block.py:69-165):
     x1 = x + bf16(acc)
     out = x1 + FF(normFiLM(x1, film_ff))  with the conv output rounded to
           bf16 before its requantization (ffpipe_layer keeps it f32)
+
+The kernel is the custom op `diffnorm::fused_layer` (`fused_layer_op`), so
+`torch.export` keeps it as one node of the program it writes.
 """
 
 from __future__ import annotations
 
 import ctypes
+from typing import List
 
 import torch
 
@@ -84,19 +88,33 @@ def fused_layer_plain(x: torch.Tensor, mask: torch.Tensor, film_attn: torch.Tens
     return ff_sublayer_plain(x1, film_ff, w, round_y=True)
 
 
-@torch.no_grad()
-def fused_layer(x: torch.Tensor, mask: torch.Tensor, film_attn: torch.Tensor,
-                film_ff: torch.Tensor, w: Pack, heads: int, dim_head: int) -> torch.Tensor:
-    """One layer: x [B, T, C] bf16; mask [B, T] bool (True = valid key);
-    film_attn / film_ff [B, 2C]; w from `pack_layer_weights`. Returns bf16.
+LAYER_KEYS = ("wqkv", "wo") + FF_KEYS  # the op's pack order
 
-    A CPU tensor takes the plain version; a CUDA tensor launches the kernel
-    (bf16, dim_head 64, heads * 64 == C, P a multiple of 64) or raises.
-    Inference only: no gradient, as JAX serves its int8 routes."""
-    if x.device.type == "cpu":
-        return fused_layer_plain(x, mask, film_attn, film_ff, w, heads, dim_head)
-    if x.device.type != "cuda":
-        raise ValueError(f"fused_layer: unsupported device {x.device}")
+
+@torch.library.custom_op("diffnorm::fused_layer", mutates_args=())
+def fused_layer_op(x: torch.Tensor, mask: torch.Tensor, film_attn: torch.Tensor,
+                   film_ff: torch.Tensor, w: List[torch.Tensor], heads: int,
+                   dim_head: int) -> torch.Tensor:
+    """The kernel as a custom op, the pack `w` in LAYER_KEYS order: its plain
+    version on the CPU, the kernel on the card, shape and type alone under a
+    fake tensor (torch.export)."""
+    raise ValueError(f"fused_layer: unsupported device {x.device}")
+
+
+@fused_layer_op.register_kernel("cpu")
+def _plain(x, mask, film_attn, film_ff, w, heads, dim_head):
+    return fused_layer_plain(x, mask, film_attn, film_ff, dict(zip(LAYER_KEYS, w)), heads,
+                             dim_head)
+
+
+@fused_layer_op.register_fake
+def _fake(x, mask, film_attn, film_ff, w, heads, dim_head):
+    return x.new_empty(x.shape, dtype=torch.bfloat16)
+
+
+@fused_layer_op.register_kernel("cuda")
+def _kernel(x, mask, film_attn, film_ff, w, heads, dim_head):
+    w = dict(zip(LAYER_KEYS, w))
     if x.dim() != 3 or x.dtype != torch.bfloat16:
         raise TypeError(f"fused_layer: x must be [B, T, C] bf16, got {x.dtype} "
                         f"{tuple(x.shape)}")
@@ -141,3 +159,17 @@ def fused_layer(x: torch.Tensor, mask: torch.Tensor, film_attn: torch.Tensor,
     _build.launch_counts["fused_layer"] += 1
     return out
 
+
+@torch.no_grad()
+def fused_layer(x: torch.Tensor, mask: torch.Tensor, film_attn: torch.Tensor,
+                film_ff: torch.Tensor, w: Pack, heads: int, dim_head: int) -> torch.Tensor:
+    """One layer: x [B, T, C] bf16; mask [B, T] bool (True = valid key);
+    film_attn / film_ff [B, 2C]; w from `pack_layer_weights`. Returns bf16.
+
+    A CPU tensor takes the plain version; a CUDA tensor launches the kernel
+    (bf16, dim_head 64, heads * 64 == C, P a multiple of 64) or raises.
+    Inference only: no gradient, as JAX serves its int8 routes."""
+    if x.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"fused_layer: unsupported device {x.device}")
+    return fused_layer_op(x, mask, film_attn, film_ff, [w[k] for k in LAYER_KEYS], heads,
+                          dim_head)

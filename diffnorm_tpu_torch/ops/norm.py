@@ -6,6 +6,9 @@ write of x, in bf16 or float32. It is bound by bytes on an H100: 16.9 MB at
 the DDIM shape [64, 128, 512] bf16, 5.0 us at 3.35 TB/s.
 `models.layers.RMSNorm` routes here for every FiLM-conditioned norm on a
 CUDA tensor (24 per DDIM step).
+
+The kernel is the custom op `diffnorm::rms_norm_film` (`rms_norm_film_op`),
+so `torch.export` keeps it as one node of the program it writes.
 """
 
 from __future__ import annotations
@@ -33,11 +36,20 @@ def rms_norm_film_plain(x: torch.Tensor, film: torch.Tensor,
     return ((xf * inv) * gamma + beta).to(x.dtype)
 
 
-def _launch(x: torch.Tensor, film: torch.Tensor, eps: float) -> torch.Tensor:
-    if x.device.type == "cpu":
-        return rms_norm_film_plain(x, film, eps)
-    if x.device.type != "cuda":
-        raise ValueError(f"rms_norm_film: unsupported device {x.device}")
+@torch.library.custom_op("diffnorm::rms_norm_film", mutates_args=())
+def rms_norm_film_op(x: torch.Tensor, film: torch.Tensor, eps: float) -> torch.Tensor:
+    """The kernel as a custom op: its plain version on the CPU, the kernel on
+    the card, shape and type alone under a fake tensor (torch.export)."""
+    raise ValueError(f"rms_norm_film: unsupported device {x.device}")
+
+
+@rms_norm_film_op.register_kernel("cpu")
+def _plain(x, film, eps):
+    return rms_norm_film_plain(x, film, eps)
+
+
+@rms_norm_film_op.register_kernel("cuda")
+def _kernel(x, film, eps):
     if x.dim() != 3:
         raise ValueError(f"rms_norm_film: x must be [B, T, C], got {tuple(x.shape)}")
     b, t, c = x.shape
@@ -62,6 +74,17 @@ def _launch(x: torch.Tensor, film: torch.Tensor, eps: float) -> torch.Tensor:
                     eps, stream), "rms_norm_film")
     _build.launch_counts["rms_norm_film"] += 1
     return out
+
+
+@rms_norm_film_op.register_fake
+def _fake(x, film, eps):
+    return x.new_empty(x.shape)
+
+
+def _launch(x: torch.Tensor, film: torch.Tensor, eps: float) -> torch.Tensor:
+    if x.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"rms_norm_film: unsupported device {x.device}")
+    return rms_norm_film_op(x, film, eps)
 
 
 def rms_norm_film(x: torch.Tensor, film: torch.Tensor,

@@ -19,6 +19,9 @@ then skip = x W_skip^T + b_skip. Weights are [out, in], torch's Linear
 layout (the kernel's K-major operands). Folding the conv bias as
 beta + gamma * b_conv keeps (conv(x) + b_conv) * gamma + beta exact; the
 callers fold it.
+
+The kernel is the custom op `diffnorm::wavenet_chain` (`wavenet_chain_op`),
+so `torch.export` keeps it as one node of the program it writes.
 """
 
 from __future__ import annotations
@@ -64,13 +67,28 @@ def wavenet_chain_plain(x, w_conv, w_res, w_skip, b_res, b_skip, gamma, beta,
     return F.linear(h_in.float(), w_skip.float(), b_skip.float()).to(x.dtype)
 
 
-def _launch(x, w_conv, w_res, w_skip, b_res, b_skip, gamma, beta,
-            dilation: int) -> torch.Tensor:
-    if x.device.type == "cpu":
-        return wavenet_chain_plain(x, w_conv, w_res, w_skip, b_res, b_skip,
-                                   gamma, beta, dilation)
-    if x.device.type != "cuda":
-        raise ValueError(f"wavenet_chain: unsupported device {x.device}")
+@torch.library.custom_op("diffnorm::wavenet_chain", mutates_args=())
+def wavenet_chain_op(x: torch.Tensor, w_conv: torch.Tensor, w_res: torch.Tensor,
+                     w_skip: torch.Tensor, b_res: torch.Tensor, b_skip: torch.Tensor,
+                     gamma: torch.Tensor, beta: torch.Tensor, dilation: int) -> torch.Tensor:
+    """The kernel as a custom op: its plain version on the CPU, the kernel on
+    the card, shape and type alone under a fake tensor (torch.export)."""
+    raise ValueError(f"wavenet_chain: unsupported device {x.device}")
+
+
+@wavenet_chain_op.register_kernel("cpu")
+def _plain(x, w_conv, w_res, w_skip, b_res, b_skip, gamma, beta, dilation):
+    return wavenet_chain_plain(x, w_conv, w_res, w_skip, b_res, b_skip, gamma, beta,
+                               dilation)
+
+
+@wavenet_chain_op.register_fake
+def _fake(x, w_conv, w_res, w_skip, b_res, b_skip, gamma, beta, dilation):
+    return x.new_empty(x.shape)
+
+
+@wavenet_chain_op.register_kernel("cuda")
+def _kernel(x, w_conv, w_res, w_skip, b_res, b_skip, gamma, beta, dilation):
     if x.dim() != 3 or w_conv.dim() != 4:
         raise ValueError("wavenet_chain: x must be [B, T, C], w_conv [S, k, C, C]")
     if x.dtype not in SYMBOLS:
@@ -114,6 +132,13 @@ def _launch(x, w_conv, w_res, w_skip, b_res, b_skip, gamma, beta,
         dilation, stream), "wavenet_chain")
     _build.launch_counts["wavenet_chain"] += 1
     return out
+
+
+def _launch(x, w_conv, w_res, w_skip, b_res, b_skip, gamma, beta,
+            dilation: int) -> torch.Tensor:
+    if x.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"wavenet_chain: unsupported device {x.device}")
+    return wavenet_chain_op(x, w_conv, w_res, w_skip, b_res, b_skip, gamma, beta, dilation)
 
 
 def wavenet_chain(x, w_conv, w_res, w_skip, b_res, b_skip, gamma, beta,

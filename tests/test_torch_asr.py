@@ -191,3 +191,99 @@ def test_asr_bleu_refuses_guesses_and_downloads(tmp_path, monkeypatch):
     (snap / "config.json").write_text("{}")
     assert asr_bleu.resolve_asr_model("en", "org/name") == str(snap)
     assert asr_bleu.resolve_asr_model("en", str(tmp_path)) == str(tmp_path)
+
+
+def _hubert_ctc(d, processor_dir, extractor, stable, feat_proj_layer_norm, weight_g=False,
+                **extra):
+    """A tiny seeded `HubertForCTC` directory as `save_pretrained` writes it
+    (model.safetensors, or pytorch_model.bin with the positional conv's
+    weight norm as weight_g / weight_v), with tiny_ctc's processor files."""
+    config = transformers.HubertConfig(
+        vocab_size=len(CTC_VOCAB), hidden_size=32, num_hidden_layers=2, num_attention_heads=4,
+        intermediate_size=48, conv_dim=(16, 24, 24), conv_kernel=(10, 3, 2),
+        conv_stride=(5, 2, 2), num_feat_extract_layers=3, num_conv_pos_embeddings=8,
+        num_conv_pos_embedding_groups=2, feat_extract_norm=extractor,
+        conv_bias=extractor == "layer", do_stable_layer_norm=stable,
+        feat_proj_layer_norm=feat_proj_layer_norm, layer_norm_eps=1e-5, **extra)
+    torch.manual_seed(2)
+    model = _perturb(transformers.HubertForCTC(config).eval(), 2)
+    os.makedirs(d, exist_ok=True)
+    if weight_g:
+        config.save_pretrained(d)
+        sd = model.state_dict()
+        prefix = "hubert.encoder.pos_conv_embed.conv."
+        sd[prefix + "weight_g"] = sd.pop(prefix + "parametrizations.weight.original0")
+        sd[prefix + "weight_v"] = sd.pop(prefix + "parametrizations.weight.original1")
+        torch.save(sd, os.path.join(d, "pytorch_model.bin"))
+    else:
+        model.save_pretrained(d)
+    for name in os.listdir(processor_dir):
+        if not name.startswith(("model.", "config")):
+            shutil.copy(os.path.join(processor_dir, name), d)
+    return model
+
+
+HUBERT_CASES = {  # (extractor norm, stable layer norm, feat_proj_layer_norm, weight_g)
+    "group_postnorm_featln": ("group", False, True, False),
+    "group_postnorm_no_featln": ("group", False, False, True),
+    "layer_stable_featln_weight_g": ("layer", True, True, True),
+    "layer_stable_no_featln": ("layer", True, False, False),
+}
+
+
+@pytest.mark.parametrize("case", sorted(HUBERT_CASES))
+def test_hubert_ctc_logits_match_transformers(tiny_ctc, tmp_path, case):
+    extractor, stable, featln, weight_g = HUBERT_CASES[case]
+    d = str(tmp_path / case)
+    hf = _hubert_ctc(d, tiny_ctc[0], extractor, stable, featln, weight_g)
+    ckpt = load_ctc_checkpoint(asr_bleu.resolve_asr_model("en", d))
+    assert ckpt.model.prefix == "hubert"
+    assert isinstance(ckpt.model.encoder.layer_norm, torch.nn.LayerNorm) == featln
+    assert ckpt.model.encoder.layer_norm_first == stable
+    rng = np.random.default_rng(7)
+    for n in (8000, 12345):
+        wav = (rng.normal(size=n) * 0.1).astype(np.float32)
+        x = torch.from_numpy(normalize_waveform(wav))[None]
+        with torch.no_grad():
+            want = hf(x).logits
+            got = ckpt.model(x)
+        assert got.shape == want.shape and got.dtype == torch.float32
+        assert _relative_err(got, want) <= 1e-5, case
+
+
+def test_hubert_ctc_refuses_what_is_not_ported(tiny_ctc, tmp_path):
+    from diffnorm_tpu_torch.models.wav2vec2_ctc import Wav2Vec2CTC
+
+    d = str(tmp_path / "bn")
+    _hubert_ctc(d, tiny_ctc[0], "group", False, True, conv_pos_batch_norm=True)
+    with pytest.raises(NotImplementedError, match="conv_pos_batch_norm"):
+        load_ctc_checkpoint(d)
+    with pytest.raises(NotImplementedError, match="only wav2vec2-CTC and HuBERT-CTC"):
+        Wav2Vec2CTC({"model_type": "data2vec-audio"})
+    config = json.load(open(os.path.join(d, "config.json")))
+    with pytest.raises(NotImplementedError, match="use_weighted_layer_sum"):
+        Wav2Vec2CTC({**config, "conv_pos_batch_norm": False, "use_weighted_layer_sum": True})
+
+
+def test_run_asr_bleu_on_a_hubert_ctc_checkpoint_matches_jax(tiny_ctc, tmp_path):
+    """JAX's run_asr_bleu loads the directory through AutoModelForCTC
+    (HubertForCTC); the port's transcripts and BLEU equal its."""
+    from diffnorm_tpu.eval.asr_bleu import ASRGenerator as JASRGenerator
+    from diffnorm_tpu.eval.asr_bleu import run_asr_bleu as jax_run_asr_bleu
+
+    d = str(tmp_path / "hubert")
+    _hubert_ctc(d, tiny_ctc[0], "layer", True, False)
+    rng = np.random.default_rng(8)
+    audio = tmp_path / "wav"
+    audio.mkdir()
+    for i, n in enumerate((9000, 16000, 12000)):
+        write_wav16(audio / f"{i}_pred.wav", rng.normal(size=n) * 0.2)
+    jax_asr = JASRGenerator(model_name=d)
+    assert type(jax_asr.model).__name__ == "HubertForCTC"
+    refs = [jax_asr.transcribe_file(str(audio / f"{i}_pred.wav")) for i in (0, 1)]
+    (tmp_path / "refs.txt").write_text(f"{refs[0]}\n{refs[1]}\nthe cat\n")
+    want = jax_run_asr_bleu(str(audio), str(tmp_path / "refs.txt"), model_name=d)
+    got = asr_bleu.run_asr_bleu(str(audio), str(tmp_path / "refs.txt"), model_name=d,
+                                device="cpu")
+    assert got[1] == want[1] and got[2] == want[2]
+    assert got[0] == want[0]

@@ -61,7 +61,8 @@ NEW_MODULES = ("models/stacked.py", "models/ar_transformer.py", "data/encoders.p
                "criterions/aliases.py", "registry.py", "cli/speech_norm.py",
                "cli/hydra_train.py", "parallel/__init__.py", "parallel/mesh.py",
                "parallel/sharding_rules.py", "parallel/sequence.py", "parallel/pipeline.py",
-               "utils/watchdog.py", "cli/dryrun_multichip.py")
+               "utils/watchdog.py", "cli/dryrun_multichip.py", "utils/export.py",
+               "utils/compile_cache.py")
 
 
 def test_no_jax_imports_in_the_port():
@@ -173,6 +174,8 @@ def test_port_imports_with_jax_blocked():
             "import diffnorm_tpu_torch.cli.speech_norm\n"
             "import diffnorm_tpu_torch.cli.hydra_train\n"
             "import diffnorm_tpu_torch.parallel.sequence\n"
+            "import diffnorm_tpu_torch.utils.export\n"
+            "import diffnorm_tpu_torch.utils.compile_cache\n"
             "import diffnorm_tpu_torch.parallel.pipeline\n"
             "import diffnorm_tpu_torch.utils.watchdog\n"
             "import diffnorm_tpu_torch.cli.dryrun_multichip\n"
